@@ -1,4 +1,5 @@
-"""Chip smoke test of the PyTorch/CUDA port: the generation path on one GPU.
+"""Chip smoke test of the PyTorch/CUDA port on one GPU: the generation path
+and the training step.
 
     python3 chip_smoke.py
 
@@ -8,12 +9,12 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each:
   1. device   name and power limit (nvidia-smi), torch and CUDA versions
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
-  3. kernel   for K1/K2/K3: the inputs the main path hands the kernel (8
-              pockets, default Config), the kernel against its plain PyTorch
-              version on the card (max error vs the stated tolerance),
-              kernel_ms / plain_ms (CUDA events, median of 20 after warm-up)
-              and bound_ms (the larger of bytes over 3.35 TB/s and float32
-              operations over 67 TFLOP/s)
+  3. kernel   for K1/K2/K3: the inputs the generation path hands the kernel
+              (8 pockets, default Config), the kernel against its plain
+              PyTorch version on the card (max error vs the stated
+              tolerance), kernel_ms / plain_ms (CUDA events, median of 20
+              after warm-up) and bound_ms (the larger of bytes over 3.35 TB/s
+              and float32 operations over 67 TFLOP/s)
   4. main     default Config(), seeded weights on cuda, the first 8 sorted
               val pockets through generate_for_pocket (20 beams, max length
               200, grammar mask, length penalty 0.7): launch counts per
@@ -21,12 +22,44 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each:
               molecules/s, finite scores, a few SMILES
      profile  torch.profiler over one encode_pocket and the first 40 decode
               steps: device busy time, idle share, the costliest kernels
-  5. vs_cpu  encode_pocket on the card (kernels) vs on the CPU (plain
+  5. vs_cpu   encode_pocket on the card (kernels) vs on the CPU (plain
               versions) with the same weights, 2 pockets
   6. cli      generate.main(... --device cuda) on one pocket writes its CSV
+  7. kernel_train / kernel_bwd  for all six kernels: every distinct call
+              (by shapes) that one training microbatch (32 complexes of
+              data/corpus/train, default Config in float32) makes of each
+              forward kernel (kernel_train: K3 at stage 1 and stage 2) and
+              each backward kernel (kernel_bwd), its inputs and cotangents
+              against the plain version on the card, with kernel_ms /
+              plain_ms / bound_ms as for the serving path's forwards
+  8. train    the port's Trainer (default Config, float32) on
+              data/corpus/train through the Prefetcher, batch 64 in 2
+              microbatches of 32: warm-up steps, then timed steps (step_ms,
+              graphs/s, loss and gradient norm per step, peak memory), the
+              launches of all six kernels (exactly 12 each per optimizer
+              step), a finite gradient that is non-zero somewhere for every
+              parameter, and on one fixed batch a loss after 5 steps below
+              the first step's
+     train_profile  torch.profiler over one optimizer step: device busy time,
+              idle share, the costliest kernels
+  9. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
+              (plain versions), the same seeded weights, 2 complexes; a second
+              card run at the same inputs as a witness of the card's own
+              spread; for each comparison the L2 and max-abs errors, where
+              the elements over the max-abs bound sit, and the ReLU inputs
+              whose sign differs between the two runs
+ 10. train_cli  python -m singa_tpu_torch.train.loop --data data/corpus
+              --max-iters 2 --device cuda into a temporary logdir writes its
+              checkpoint; the generation CLI reads that checkpoint for one
+              pocket
 then the card's name and power limit as nvidia-smi prints them, the kernels
-line, and ``{"ok": true, "device": {...}}`` last. Any failed check raises.
-TF32 is off for matmuls and cuDNN, so every product runs in full float32.
+line and ``{"ok": true, "device": {...}}`` last. The kernels line lists all
+six kernels from the training path: ``launches`` counted over the train
+phase's run; ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over
+one microbatch's calls (kernel_train / kernel_bwd, each distinct call
+weighted by how often the microbatch makes it), ``max_abs_err`` the largest
+over those calls. Any failed check raises. TF32 is off
+for matmuls and cuDNN, so every product runs in full float32.
 """
 from __future__ import annotations
 
@@ -40,6 +73,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -48,6 +82,19 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = {"atol": 1e-4, "rtol": 1e-4}  # kernel vs plain: reordered float32 sums
 CPU_TOL = {"atol": 2e-3, "rtol": 2e-3}  # whole encoder, card vs CPU
 PROFILE_STEPS = 40  # decode steps traced by the profile phase
+# backward kernel vs plain backward: each output within BWD_TOL of its own
+# largest magnitude (weight gradients are sums over ~1e6 slot terms taken
+# in another order)
+BWD_TOL = 1e-4
+# the training step on the card vs the CPU, and on the card vs a second card
+# run: every gradient's L2 error within this share of its L2 norm (floored
+# at 1e-3 of the largest gradient norm of the model). float32 sums in other
+# orders through ~40 layers, and a ReLU input that round-off puts on the
+# other side of zero moves one token's share of one row of a weight
+# gradient, so the max-abs error is reported beside it with the elements
+# over it and the ReLU inputs whose sign differs between the runs
+TRAIN_CPU_TOL = 2e-3
+TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 2, 5, 5
 
 
 def emit(obj) -> None:
@@ -144,6 +191,361 @@ def k1_cost(args, out):
     return b, pairs * per_pair
 
 
+def k3b_cost(args, outs):
+    x, s, tg, fg, g = args
+    E, I, C = x.shape
+    G = tg.shape[0]
+    # per (edge, channel, grid point): the grid value (recomputed), the lifted
+    # cotangent and the to-grid transpose, I multiply-adds each
+    return nbytes(x, s, tg, fg, g, *outs), 2.0 * E * C * G * 3 * I
+
+
+def k2b_cost(args, outs):
+    x, w1, b1, wg, bg, w2, lmax, dy = args
+    N, I, C = x.shape
+    H, Co = w1.shape[2], w2.shape[2]
+    # h (recomputed), dmid, dx, dw1, dw2 per degree; gates (recomputed), dwg
+    # and the gate path's dx on row 0
+    flops = 2.0 * N * (I * C * H * 3 + I * Co * H * 2 + C * lmax * H * 3)
+    return nbytes(x, w1, b1, wg, bg, w2, dy, *outs), flops
+
+
+def k1b_cost(args, outs):
+    (qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
+     wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g) = args
+    H = ds.shape[2]
+    kd, vd, De = qt.shape[2] // H, v.shape[2] // H, centers.shape[0]
+    pairs = float(nbr_mask.sum().item())  # the work this data needs: live pairs
+    forward = 2 * (De * kd + kd * kd + De * vd + vd * vd) + 3 * H * (kd + vd) + 4 * De
+    # EdgeMLP backward (dW2, dh, dW1) and the score/aggregate products
+    backward = 4 * (kd * kd + vd * vd) + 2 * De * (kd + vd) + 9 * H * (kd + vd)
+    b = nbytes(qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
+               wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, g, *outs)
+    return b, pairs * (forward + backward)
+
+
+def capture_calls(fns: dict, run) -> dict:
+    """Run ``run()`` with each function ``{name: module}`` of ``fns`` wrapped
+    to record its calls. Returns {name: {shapes: [args, kwargs, calls]}}: the
+    first call's arguments (cloned) for each distinct set of tensor shapes,
+    and how many calls had those shapes."""
+    captured = {name: {} for name in fns}
+    originals = []
+    clone = lambda a: a.detach().clone() if torch.is_tensor(a) else a
+    for name, mod in fns.items():
+        orig = getattr(mod, name)
+        originals.append((mod, name, orig))
+
+        def rec(*args, _name=name, _orig=orig, **kw):
+            key = tuple(tuple(a.shape) for a in (*args, *kw.values()) if torch.is_tensor(a))
+            seen = captured[_name].get(key)
+            if seen is None:
+                captured[_name][key] = [tuple(map(clone, args)),
+                                        {k: clone(v) for k, v in kw.items()}, 1]
+            else:
+                seen[2] += 1
+            return _orig(*args, **kw)
+
+        setattr(mod, name, rec)
+    try:
+        run()
+    finally:
+        for mod, name, orig in originals:
+            setattr(mod, name, orig)
+    torch.cuda.synchronize()
+    return captured
+
+
+KERNELS = [
+    # name, module, function (``<fn>_cuda`` is the kernel, ``<fn>_plain`` its
+    # plain version), source, replaces, cost, output names (None: forward)
+    ("neighbor_attn_fused", "neighbor_attn", "neighbor_attn",
+     "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:306",
+     k1_cost, None),
+    ("so3_gate_ffn_fused", "so3_ffn", "so3_gate_ffn",
+     "singa_tpu_torch/csrc/so3_gate_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:497", k2_cost, None),
+    ("s2_silu_sep", "s2_act", "s2_silu_sep",
+     "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None),
+    ("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd",
+     "singa_tpu_torch/csrc/neighbor_attn_bwd.cu", "singa_tpu/ops/pallas/neighbor_attn.py:362",
+     k1b_cost, ("dqt", "dk", "dv", "d_diag_scores", "d_diag_value", "dwk1", "dbk1", "dwk2",
+                "dbk2", "dwv1", "dbv1", "dwv2", "dbv2")),
+    ("so3_gate_ffn_bwd", "so3_ffn", "so3_gate_ffn_bwd",
+     "singa_tpu_torch/csrc/so3_gate_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:529",
+     k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")),
+    ("s2_silu_sep_bwd", "s2_act", "s2_silu_sep_bwd",
+     "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:209",
+     k3b_cost, ("dx", "d_scalars")),
+]
+FORWARD = [k for k in KERNELS if k[6] is None]
+
+
+def kernel_modules() -> dict:
+    import importlib
+
+    return {m: importlib.import_module(f"singa_tpu_torch.ops.cuda.{m}") for _, m, *_ in KERNELS}
+
+
+def hold(spec, mod, args, kw) -> dict:
+    """One kernel against its plain version on the same inputs on the card:
+    the errors against the tolerance, kernel_ms / plain_ms and the bound. A
+    forward is held to TOL; each output of a backward to BWD_TOL of its own
+    largest magnitude."""
+    _, _, fn, _, _, cost, outs = spec
+    launch, plain = getattr(mod, f"{fn}_cuda"), getattr(mod, f"{fn}_plain")
+    with torch.no_grad():
+        got, want = launch(*args, **kw), plain(*args)
+        torch.cuda.synchronize()
+        if outs is None:
+            err = (got - want).abs()
+            errs = {"max_abs_err": err.max().item(),
+                    "max_rel_err": (err / (want.abs() + TOL["atol"] / TOL["rtol"])).max().item()}
+            ok, max_abs, tol = bool(torch.allclose(got, want, **TOL)), errs["max_abs_err"], TOL
+        else:
+            errs = {o: [(a - b).abs().max().item(), b.abs().max().item()]
+                    for o, a, b in zip(outs, got, want)}
+            ok = all(e <= BWD_TOL * scale for e, scale in errs.values())
+            max_abs, tol = max(e for e, _ in errs.values()), f"{BWD_TOL} x each output's max"
+        k_ms = time_ms(lambda: launch(*args, **kw))
+        p_ms = time_ms(lambda: plain(*args))
+    b, f = cost(args, got)
+    b += nbytes(*kw.values())
+    bms, by = bound_ms(b, f)
+    return {"shapes": [list(a.shape) for a in (*args, *kw.values()) if torch.is_tensor(a)],
+            "max_abs_err": max_abs, "errors": errs, "tolerance": tol, "ok": ok,
+            "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "bytes": b,
+            "flops": f, "fraction_of_bound": bms / k_ms}
+
+
+def hold_all(specs, mods, captured, phase, per) -> dict:
+    """``hold`` every captured call of every kernel in ``specs``, one line
+    each; raises on the first disagreement. Returns each kernel's line of
+    the kernels table: times per launch averaged over the calls, weighted by
+    how often each was made."""
+    results = {}
+    for spec in specs:
+        name, m, fn, source, replaces, *_ = spec
+        recs = []
+        for args, kw, calls in captured[f"{fn}_cuda"].values():
+            rec = hold(spec, mods[m], args, kw)
+            emit({"phase": phase, "name": name, per: calls, **rec})
+            if not rec["ok"]:
+                raise AssertionError(f"{name}: kernel disagrees with its plain version {rec}")
+            recs.append((calls, rec))
+        if not recs:
+            raise AssertionError(f"{name}: no call captured")
+        n = sum(c for c, _ in recs)
+        mean = lambda key: sum(c * r[key] for c, r in recs) / n
+        results[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": max(r["max_abs_err"] for _, r in recs),
+            "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": max(recs, key=lambda cr: cr[0] * cr[1]["bound_ms"])[1]["bound_by"],
+            "library_ms": None,
+        }
+    return results
+
+
+def grad_report(got: dict, want: dict, tol: float) -> dict:
+    """Every gradient of ``got`` against ``want`` by two measures, each
+    floored at 1e-3 of the set's largest (leaves whose true gradient is zero,
+    like a bias that softmax cancels, are round-off on both sides): the L2
+    error over ``tol`` x the leaf's L2 norm (``l2``, the gate), and the
+    max-abs error over ``tol`` x the leaf's largest magnitude (``max_abs``),
+    with the elements over that bound: for each leaf that has any, how many
+    of its elements and of its rows (a Linear weight's output channels), and
+    the largest few of the worst leaf."""
+    norms = {n: w.norm().item() for n, w in want.items()}
+    maxes = {n: w.abs().max().item() for n, w in want.items()}
+    top, top_max = max(norms.values()), max(maxes.values())
+    out = {"l2": 0.0, "l2_leaf": "", "max_abs": 0.0, "max_abs_leaf": "", "over": {}}
+    worst_diff = None
+    for name, w in want.items():
+        diff = got[name] - w
+        l2 = diff.norm().item() / (tol * max(norms[name], 1e-3 * top))
+        if l2 > out["l2"]:
+            out["l2"], out["l2_leaf"] = l2, name
+        bound = tol * max(maxes[name], 1e-3 * top_max)
+        ratio = diff.abs().max().item() / bound
+        if ratio > out["max_abs"]:
+            out["max_abs"], out["max_abs_leaf"], worst_diff = ratio, name, diff
+        over = diff.abs() > bound
+        if bool(over.any()):
+            rows = over.reshape(over.shape[0], -1).any(dim=1) if over.dim() > 1 else over
+            out["over"][name] = {"elements": int(over.sum()), "of": over.numel(),
+                                 "rows": int(rows.sum()), "of_rows": rows.numel()}
+    if worst_diff is not None:
+        name = out["max_abs_leaf"]
+        idx = worst_diff.abs().flatten().topk(min(5, worst_diff.numel())).indices
+        out["largest"] = [[[int(j) for j in np.unravel_index(int(i), worst_diff.shape)],
+                           got[name].flatten()[i].item(), want[name].flatten()[i].item()]
+                          for i in idx]
+    return out
+
+
+def relu_inputs(model) -> tuple[list, list]:
+    """Forward hooks that keep the input of every ReLU of the model (the
+    output of each PositionwiseFFN's conv1) as (module name, tensor), in call
+    order. Returns (kept, hooks)."""
+    from singa_tpu_torch.models.cpromg import PositionwiseFFN
+
+    kept = []
+    hooks = [m.conv1.register_forward_hook(
+                 lambda _m, _i, out, _n=n: kept.append((_n, out.detach().cpu())))
+             for n, m in model.named_modules() if isinstance(m, PositionwiseFFN)]
+    return kept, hooks
+
+
+def relu_flips(got: list, want: list) -> dict:
+    """ReLU inputs of two runs: how many changed sign, by module, and the
+    largest magnitude (in ``want``) among those that did."""
+    flips, near = {}, 0.0
+    for (name, a), (_, b) in zip(got, want):
+        flip = (a > 0) != (b > 0)
+        if bool(flip.any()):
+            flips[name] = flips.get(name, 0) + int(flip.sum())
+            near = max(near, b[flip].abs().max().item())
+    return {"relu_inputs": sum(b.numel() for _, b in want), "sign_flips": sum(flips.values()),
+            "by_module": flips, "largest_flipped_magnitude": near}
+
+
+def train_phases(dev, results: dict, val_files) -> None:
+    """kernel_train, kernel_bwd, train, train_profile, train_vs_cpu and
+    train_cli; fills ``results`` with the six kernels' lines."""
+    from singa_tpu_torch.config import Config
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.data.dataset import BucketedNpzDataset
+    from singa_tpu_torch.data.pipeline import Prefetcher
+    from singa_tpu_torch.generate.generate import main as gen_main
+    from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
+    from singa_tpu_torch.train.loop import Trainer, float32_config
+    from singa_tpu_torch.train.loop import main as train_main
+
+    mods = kernel_modules()
+    cfg = float32_config(Config())
+    train_dir = os.path.join(ROOT, "data", "corpus", "train")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, logdir=os.path.join(tmp, "run"), device=dev)
+        data = Prefetcher(BucketedNpzDataset(train_dir, cfg.train.batch_size, seed=0),
+                          depth=2, device=dev)
+        it = iter(data)
+
+        # kernel_train / kernel_bwd: every call one training microbatch
+        # makes of the six kernels, each distinct one held to its plain version
+        first = next(it)
+        micro = first.rows(0, cfg.train.microbatch)
+
+        def one_microbatch():
+            trainer.model.zero_grad(set_to_none=True)
+            trainer.loss(micro).backward()
+
+        captured = capture_calls({f"{fn}_cuda": mods[m] for _, m, fn, *_ in KERNELS},
+                                 one_microbatch)
+        results.update(hold_all(FORWARD, mods, captured, "kernel_train", "calls_per_microbatch"))
+        results.update(hold_all([k for k in KERNELS if k[6]], mods, captured, "kernel_bwd",
+                                "calls_per_microbatch"))
+        del captured, micro
+
+        # train: warm-up and timed optimizer steps, counts zeroed just before
+        counters = {name: (mods[m], "launches" if outs is None else "launches_bwd")
+                    for name, m, *_, outs in KERNELS}
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        batch = first
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, gnorm = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            steps.append({"step_ms": ms, "loss": loss.item(), "grad_norm": gnorm.item()})
+            batch = next(it)
+        n_steps = len(steps)
+        counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+        for n, c in counts.items():
+            results[n]["launches"] = c
+        timed = [s["step_ms"] for s in steps[TRAIN_WARMUP:]]
+        step_ms = statistics.median(timed)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        grads_ok = [n for n, p in trainer.model.named_parameters()
+                    if p.grad is None or not bool(torch.isfinite(p.grad).all())
+                    or not bool((p.grad != 0).any())]
+        # a fixed batch: the loss after FIXED_STEPS updates is below the first
+        fixed = [trainer.train_step(batch)[0].item() for _ in range(FIXED_STEPS + 1)]
+        emit({"phase": "train", "batch": cfg.train.batch_size, "microbatch": cfg.train.microbatch,
+              "steps": steps, "warmup_steps": TRAIN_WARMUP, "step_ms": step_ms,
+              "graphs_per_s": cfg.train.batch_size / (step_ms / 1e3),
+              "peak_mem_gb": peak_gb, "launches": counts,
+              "launches_per_step": {n: c / n_steps for n, c in counts.items()},
+              "params": trainer.num_params(), "params_without_good_grad": grads_ok,
+              "fixed_batch_losses": fixed})
+        if any(c != 12 * n_steps for c in counts.values()):
+            raise AssertionError(f"launches over {n_steps} steps {counts}, expected 12 each per step")
+        if grads_ok:
+            raise AssertionError(f"parameters without a finite non-zero gradient: {grads_ok[:10]}")
+        if not fixed[-1] < fixed[0]:
+            raise AssertionError(f"loss on a fixed batch did not fall: {fixed}")
+        if not all(np.isfinite([s["loss"] for s in steps])):
+            raise AssertionError(f"non-finite training loss: {steps}")
+
+        # train_profile: one optimizer step
+        emit({"phase": "train_profile", "step": device_profile(lambda: trainer.train_step(batch))})
+        data.close()
+
+        del trainer
+        torch.cuda.empty_cache()
+
+        # train_vs_cpu: loss and every gradient, the card vs the CPU and the
+        # card vs a second card run, with the same seeded weights (trained
+        # ones differ from run to run: the backward of PyTorch's index_select
+        # adds with atomics)
+        small = load_npz(val_files[:2])
+        runs = {}
+        for run, b in (("cuda", small.to(dev)), ("cuda_again", small.to(dev)), ("cpu", small)):
+            model = SINGA(cfg, device=b.protein.x.device, seed=cfg.train.seed)
+            kept, hooks = relu_inputs(model)
+            loss = cross_entropy_loss(model(b), b.tokens.target)
+            loss.backward()
+            for h in hooks:
+                h.remove()
+            runs[run] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}, kept)
+            del model, loss
+        torch.cuda.empty_cache()
+        (l_gpu, g_gpu, r_gpu), (l_again, g_again, r_again), (l_cpu, g_cpu, r_cpu) = runs.values()
+        vs_cpu = grad_report(g_gpu, g_cpu, TRAIN_CPU_TOL)
+        vs_card = grad_report(g_again, g_gpu, TRAIN_CPU_TOL)
+        ok = (vs_cpu["l2"] <= 1.0 and vs_card["l2"] <= 1.0
+              and abs(l_gpu - l_cpu) <= TRAIN_CPU_TOL * abs(l_cpu)
+              and abs(l_again - l_gpu) <= TRAIN_CPU_TOL * abs(l_gpu))
+        emit({"phase": "train_vs_cpu", "complexes": 2, "loss_cuda": l_gpu,
+              "loss_cuda_again": l_again, "loss_cpu": l_cpu, "tolerance": TRAIN_CPU_TOL,
+              "card_vs_cpu": {**vs_cpu, "relu": relu_flips(r_gpu, r_cpu)},
+              "card_vs_card": {**vs_card, "relu": relu_flips(r_again, r_gpu)}, "ok": ok})
+        if not ok:
+            raise AssertionError("the card's training step disagrees with the CPU's or its own")
+        del runs, g_gpu, g_again, g_cpu, r_gpu, r_again, r_cpu
+
+        # train_cli: 2 steps through the CLI, then generation from its checkpoint
+        logdir = os.path.join(tmp, "cli")
+        t1 = time.perf_counter()
+        train_main(["--data", os.path.join(ROOT, "data", "corpus"), "--max-iters", "2",
+                    "--device", "cuda", "--logdir", logdir])
+        train_s = time.perf_counter() - t1
+        ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+        out = os.path.join(tmp, "gen.csv")
+        gen_main(["--checkpoint", os.path.join(logdir, "checkpoints"), "--input", val_files[0],
+                  "--output", out, "--device", "cuda"])
+        with open(out) as f:
+            rows = list(csv.reader(f))
+        emit({"phase": "train_cli", "seconds": train_s, "checkpoints": ckpts,
+              "generated": [[r[0][:80], r[1]] for r in rows[1:]]})
+        if ckpts != ["2"] or rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk:
+            raise AssertionError(f"train CLI wrote {ckpts}; generation wrote {rows}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
@@ -156,9 +558,6 @@ def main() -> int:
     from singa_tpu_torch.generate.generate import main as cli_main
     from singa_tpu_torch.models.singa import SINGA
     from singa_tpu_torch.ops.cuda import build
-    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
-    from singa_tpu_torch.ops.cuda import s2_act as k3
-    from singa_tpu_torch.ops.cuda import so3_ffn as k2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -183,76 +582,31 @@ def main() -> int:
     batch = load_npz(files).to(dev)
     model = SINGA(cfg, device=dev, seed=0).eval()
 
-    # capture each kernel's first inputs on the main path (also a warm-up)
-    kernels = [
-        ("neighbor_attn_fused", k1, "neighbor_attn", "singa_tpu_torch/csrc/neighbor_attn.cu",
-         "singa_tpu/ops/pallas/neighbor_attn.py:306", k1_cost),
-        ("so3_gate_ffn_fused", k2, "so3_gate_ffn", "singa_tpu_torch/csrc/so3_gate_ffn.cu",
-         "singa_tpu/ops/pallas/so3_ffn.py:497", k2_cost),
-        ("s2_silu_sep", k3, "s2_silu_sep", "singa_tpu_torch/csrc/s2_act.cu",
-         "singa_tpu/ops/pallas/s2_act.py:230", k3_cost),
-    ]
-    captured, originals = {}, {}
-    for name, mod, fn, *_ in kernels:
-        orig = getattr(mod, f"{fn}_cuda")
-        originals[name] = (mod, fn, orig)
+    # kernel: each forward kernel's calls in one encode_pocket (also a
+    # warm-up), held to its plain version. The kernels line takes its numbers
+    # from the training path (train_phases)
+    mods = kernel_modules()
 
-        def rec(*args, _name=name, _orig=orig):
-            if _name not in captured:
-                captured[_name] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-            return _orig(*args)
-
-        setattr(mod, f"{fn}_cuda", rec)
-    with torch.inference_mode():
-        model.encode_pocket(batch)
-    for mod, fn, orig in originals.values():
-        setattr(mod, f"{fn}_cuda", orig)
-    torch.cuda.synchronize()
-
-    results = {}
-    for name, mod, fn, source, replaces, cost in kernels:
-        args = captured[name]
-        launch = getattr(mod, f"{fn}_cuda")
-        plain = getattr(mod, f"{fn}_plain")
+    def encode():
         with torch.inference_mode():
-            got = launch(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            max_abs = err.max().item()
-            max_rel = (err / (want.abs() + TOL["atol"] / TOL["rtol"])).max().item()
-            ok = bool(torch.allclose(got, want, **TOL))
-            k_ms = time_ms(lambda: launch(*args))
-            p_ms = time_ms(lambda: plain(*args))
-        b, f = cost(args, got)
-        bms, by = bound_ms(b, f)
-        results[name] = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": None, "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-        }
-        emit({"phase": "kernel", "name": name,
-              "shapes": [list(a.shape) for a in args if torch.is_tensor(a)],
-              "max_abs_err": max_abs, "max_rel_err": max_rel, "tolerance": TOL, "ok": ok,
-              "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
-              "bytes": b, "flops": f, "fraction_of_bound": bms / k_ms})
-        if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version ({max_abs})")
+            model.encode_pocket(batch)
+
+    captured = capture_calls({f"{fn}_cuda": mods[m] for _, m, fn, *_ in FORWARD}, encode)
+    hold_all(FORWARD, mods, captured, "kernel", "calls_per_encode")
+    del captured
 
     # main path: counts set to 0 just before, read just after
-    for _, mod, *_ in kernels:
-        mod.launches = 0
+    for _, m, *_ in FORWARD:
+        mods[m].launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     smiles, scores = generate_for_pocket(model, batch, cfg)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    counts = {name: mod.launches for name, mod, *_ in kernels}
+    counts = {name: mods[m].launches for name, m, *_ in FORWARD}
     expected = {"neighbor_attn_fused": cfg.model.encoder.num_interactions,
                 "so3_gate_ffn_fused": cfg.embedding.num_layers,
                 "s2_silu_sep": cfg.embedding.num_layers}
-    for name in counts:
-        results[name]["launches"] = counts[name]
     if counts != expected:
         raise AssertionError(f"launches per encode_pocket {counts}, expected {expected}")
     if len(smiles) != 8 * cfg.generate.topk:
@@ -327,8 +681,11 @@ def main() -> int:
         raise AssertionError(f"unexpected CLI csv: {rows}")
     emit({"phase": "cli", "seconds": cli_s, "rows": [[r[0][:80], r[1]] for r in rows[1:]]})
 
+    results = {}
+    train_phases(dev, results, files)
+
     print(smi, flush=True)
-    emit({"kernels": [results[name] for name, *_ in kernels]})
+    emit({"kernels": [results[name] for name, *_ in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -30,70 +30,14 @@
 // thread per (slot, head) with all of a row's 16-byte key loads in flight
 // at once, and the aggregate splits the slots over two thread halves whose
 // partial sums meet in shared memory.
-#include "common.cuh"
+#include "block_gemm.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kRows = 4;  // rows of a shared-memory GEMM per thread
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// out[m, f] = act(bias[f] + sum_d A[m, d] * W[d, f]); A [M, Din], W [Din, Fo],
-// out [M, Fo], all in shared memory. Threads run over f fastest, so a warp
-// reads one group of A rows (broadcast) and consecutive W columns; each
-// thread keeps kRows accumulators and, when the rows allow it, reads A four
-// columns at a time (one 16-byte load feeds four multiply-adds). The sum
-// over d runs in order either way.
-__device__ void block_gemm(const float* A, int M, int Din, const float* W,
-                           const float* bias, int Fo, float* out, bool ssp) {
-  const int groups = (M + kRows - 1) / kRows;
-  const bool vec = (Din % 4 == 0) && ((reinterpret_cast<size_t>(A) & 15) == 0);
-  for (int job = threadIdx.x; job < groups * Fo; job += blockDim.x) {
-    const int f = job % Fo;
-    const int m0 = (job / Fo) * kRows;
-    const float* ar[kRows];
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      ar[r] = A + min(m0 + r, M - 1) * Din;
-      acc[r] = bias[f];
-    }
-    if (vec) {
-      for (int d = 0; d < Din; d += 4) {
-        const float w0 = W[d * Fo + f], w1 = W[(d + 1) * Fo + f];
-        const float w2 = W[(d + 2) * Fo + f], w3 = W[(d + 3) * Fo + f];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 a = *reinterpret_cast<const float4*>(ar[r] + d);
-          acc[r] = fmaf(a.x, w0, acc[r]);
-          acc[r] = fmaf(a.y, w1, acc[r]);
-          acc[r] = fmaf(a.z, w2, acc[r]);
-          acc[r] = fmaf(a.w, w3, acc[r]);
-        }
-      }
-    } else {
-      for (int d = 0; d < Din; ++d) {
-        const float w = W[d * Fo + f];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(ar[r][d], w, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (m0 + r < M) out[(m0 + r) * Fo + f] = ssp ? singa::sspf_(acc[r]) : acc[r];
-  }
-}
+using singa::warp_max;
+using singa::warp_sum;
 
 __global__ void __launch_bounds__(kThreads)
 neighbor_attn_kernel(const float* __restrict__ qt, const float* __restrict__ kk,
@@ -159,11 +103,11 @@ neighbor_attn_kernel(const float* __restrict__ qt, const float* __restrict__ kk,
       sA[t] = -expf(coeff * diff * diff);
     }
     __syncthreads();
-    block_gemm(sA, K, De, swk1, sbk1, kd, sHk, true);
-    block_gemm(sA, K, De, swv1, sbv1, vd, sHv, true);
+    singa::block_gemm(sA, K, De, swk1, sbk1, kd, sHk, singa::kEpiSsp);
+    singa::block_gemm(sA, K, De, swv1, sbv1, vd, sHv, singa::kEpiSsp);
     __syncthreads();
-    block_gemm(sHk, K, kd, swk2, sbk2, kd, sWk, false);
-    block_gemm(sHv, K, vd, swv2, sbv2, vd, sA, false);  // the smear is dead now
+    singa::block_gemm(sHk, K, kd, swk2, sbk2, kd, sWk, singa::kEpiNone);
+    singa::block_gemm(sHv, K, vd, swv2, sbv2, vd, sA, singa::kEpiNone);  // the smear is dead now
     __syncthreads();
 
     // scores: one thread per (slot, head), reading its kd key channels of

@@ -39,19 +39,8 @@ constexpr int kHC = 16;         // hidden channels per chunk
 constexpr int kPad = 8;         // floats added to each row block of sx and smid
 constexpr int kMaxJobs = 2;     // output micro-tiles per thread
 
-__device__ __forceinline__ int degree_of(int i) {
-  int l = (int)sqrtf((float)i + 0.5f);
-  while (l * l > i) --l;
-  while ((l + 1) * (l + 1) <= i) ++l;
-  return l;
-}
-
-__device__ __forceinline__ void fma4(float4& a, float s, const float4& w) {
-  a.x = fmaf(s, w.x, a.x);
-  a.y = fmaf(s, w.y, a.y);
-  a.z = fmaf(s, w.z, a.z);
-  a.w = fmaf(s, w.w, a.w);
-}
+using singa::degree_of;
+using singa::fma4;
 
 __global__ void __launch_bounds__(kThreads)
 gate_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,

@@ -13,7 +13,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from singa_tpu_torch.config import ShapeConfig
+from singa_tpu_torch.config import EOS_TOKEN, PAD_TOKEN, SOS_TOKEN, ShapeConfig
 from singa_tpu_torch.ops.neighbors import build_dst_table
 
 
@@ -69,9 +69,17 @@ class ComplexBatch(NamedTuple):
     def batch_size(self) -> int:
         return self.protein.x.shape[0]
 
-    def to(self, device) -> "ComplexBatch":
+    def to(self, device, non_blocking: bool = False) -> "ComplexBatch":
         """The same batch with every tensor on ``device``."""
-        return _map(lambda t: t.to(device), self)
+        return _map(lambda t: t.to(device, non_blocking=non_blocking), self)
+
+    def rows(self, start: int, stop: int) -> "ComplexBatch":
+        """Graphs ``start .. stop-1`` (every field has the batch axis first)."""
+        return _map(lambda t: t[start:stop], self)
+
+    def pin_memory(self) -> "ComplexBatch":
+        """The same CPU batch in page-locked memory (for async copies)."""
+        return _map(lambda t: t.pin_memory(), self)
 
 
 def _map(fn, tree):
@@ -173,3 +181,90 @@ def load_npz(paths: Sequence[str]) -> ComplexBatch:
         with np.load(p) as z:
             files.append({k: z[k] for k in z.files})
     return stack(files)
+
+
+def synthetic_batch(
+    seed: int,
+    batch_size: int,
+    shapes: ShapeConfig | None = None,
+    tgt_len: int = 200,
+    vocab_size: int = 116,
+) -> ComplexBatch:
+    """A geometrically plausible random CPU batch (tests and smoke training),
+    drawn exactly as ``singa_tpu.data.batch.synthetic_batch`` draws it, so the
+    same seed gives the same batch in both packages.
+
+    Node counts vary per graph; positions are packed points; edges have
+    bounded in-degree, so degree statistics resemble the featurizer's."""
+    rng = np.random.default_rng(seed)
+    s = shapes or ShapeConfig()
+
+    def nodes(nmax, lo, hi):
+        counts = rng.integers(lo, hi + 1, size=batch_size)
+        mask = np.arange(nmax)[None, :] < counts[:, None]
+        pos = rng.normal(size=(batch_size, nmax, 3)).astype(np.float32) * 4.0
+        x = np.zeros((batch_size, nmax, s.node_feat_dim), dtype=np.float32)
+        elem = rng.choice([1, 6, 7, 8, 16], size=(batch_size, nmax))
+        onehot_idx = rng.integers(0, 44, size=(batch_size, nmax))
+        for b in range(batch_size):
+            x[b, np.arange(nmax), onehot_idx[b]] = 1.0
+        x[:, :, 44:] = rng.integers(0, 2, size=(batch_size, nmax, s.node_feat_dim - 44))
+        x *= mask[..., None]
+        lap = (rng.normal(size=(batch_size, nmax, s.lap_dim)) * mask[..., None]).astype(np.float32)
+        return x, pos.astype(np.float32), (elem * mask).astype(np.int32), mask, lap, counts
+
+    def edges(emax, counts, attr_dim, counts_dst=None, max_in_degree=6):
+        idx = np.zeros((batch_size, emax, 2), dtype=np.int32)
+        attr = rng.normal(size=(batch_size, emax, attr_dim)).astype(np.float32)
+        mask = np.zeros((batch_size, emax), dtype=bool)
+        for b in range(batch_size):
+            n_src = counts[b]
+            n_dst = counts_dst[b] if counts_dst is not None else n_src
+            ne = min(emax, int(1.8 * min(n_src, n_dst)))
+            pool = np.tile(np.arange(n_dst), max_in_degree)
+            rng.shuffle(pool)
+            dst = pool[:ne]
+            src = rng.integers(0, n_src, size=ne)
+            if counts_dst is None:  # no zero-length self-loop vectors
+                src = np.where(src == dst, (src + 1) % n_src, src)
+            idx[b, :ne, 0] = src
+            idx[b, :ne, 1] = dst
+            mask[b, :ne] = True
+        attr *= mask[..., None]
+        return idx, attr, mask
+
+    P, L = s.num_protein_nodes, s.num_ligand_nodes
+    px, ppos, pel, pmask, plap, pcnt = nodes(P, P // 2, P)
+    lx, lpos, lel, lmask, llap, lcnt = nodes(L, max(6, L // 3), L)
+    ppi, ppa, ppm = edges(s.num_pp_edges, pcnt, 6)
+    lli, lla, llm = edges(s.num_ll_edges, lcnt, 6)
+    lpi, lpa, lpm = edges(s.num_lp_edges, lcnt, 11, pcnt)
+    pli, pla, plm = edges(s.num_pl_edges, pcnt, 11, lcnt)
+
+    # tokens: '&' + body + '$' (in the target) + '^' padding
+    tok_in = np.full((batch_size, tgt_len), PAD_TOKEN, dtype=np.int32)
+    tok_tgt = np.full((batch_size, tgt_len), PAD_TOKEN, dtype=np.int32)
+    for b in range(batch_size):
+        n = int(rng.integers(10, min(60, tgt_len - 2)))
+        body = rng.integers(3, vocab_size, size=n)
+        tok_in[b, 0] = SOS_TOKEN
+        tok_in[b, 1 : n + 1] = body
+        tok_tgt[b, :n] = body
+        tok_tgt[b, n] = EOS_TOKEN
+
+    t = torch.as_tensor
+    u = lambda lo, hi: t(rng.uniform(lo, hi, batch_size).astype(np.float32))
+    batch = ComplexBatch(
+        protein=NodeSet(t(px), t(ppos), t(pel), t(pmask), t(plap)),
+        ligand=NodeSet(t(lx), t(lpos), t(lel), t(lmask), t(llap)),
+        pp=EdgeSet(t(ppi), t(ppa), t(ppm)),
+        ll=EdgeSet(t(lli), t(lla), t(llm)),
+        lp=EdgeSet(t(lpi), t(lpa), t(lpm)),
+        pl=EdgeSet(t(pli), t(pla), t(plm)),
+        props=PropertySet(
+            sas=u(1, 8), logp=u(-2, 6), qed=u(0, 1), weight=u(150, 600), tpsa=u(10, 150),
+            vina=u(-12, -3),
+        ),
+        tokens=TokenSet(t(tok_in), t(tok_tgt)),
+    )
+    return attach_tables(batch, shapes=shapes)

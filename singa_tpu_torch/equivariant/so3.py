@@ -27,11 +27,14 @@ def as_const(arr: np.ndarray, device, dtype=torch.float32) -> torch.Tensor:
     """A numpy constant as a tensor on ``device``, copied there once.
 
     Keyed on the array's identity: callers pass arrays owned by the cached
-    layout objects below, which live as long as the process."""
+    layout objects below, which live as long as the process. The tensor is
+    made outside inference mode even when the first caller runs in it
+    (generation), so that a later training step may save it for backward."""
     key = (id(arr), str(torch.device(device)), dtype)
     hit = _CONSTS.get(key)
     if hit is None or hit[0] is not arr:
-        hit = (arr, torch.as_tensor(np.asarray(arr), dtype=dtype, device=device))
+        with torch.inference_mode(False):
+            hit = (arr, torch.as_tensor(np.asarray(arr), dtype=dtype, device=device))
         _CONSTS[key] = hit
     return hit[1]
 

@@ -4,9 +4,12 @@
 CLI: python -m singa_tpu_torch.generate.generate --checkpoint weights.pt \
        --input pocket.npz --output out.csv
 
-``--checkpoint`` is a ``.pt`` file holding the port's state dict. The input
-is an ETL ``.npz`` complex; PDB input and the ``--props`` columns of the JAX
-CLI are not ported yet.
+``--checkpoint`` is either a ``.pt`` file holding the port's state dict or
+the checkpoint directory of the port's trainer (``<logdir>/checkpoints``;
+its latest step is read). Without ``--config``, the ``config.yml`` beside it
+is used when there is one (the trainer writes it into ``<logdir>``). The
+input is an ETL ``.npz`` complex; PDB input and the ``--props`` columns of
+the JAX CLI are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from singa_tpu_torch.config import Config, load_config
 from singa_tpu_torch.data.batch import ComplexBatch, load_npz
 from singa_tpu_torch.generate.beam import beam_generate
 from singa_tpu_torch.models.singa import SINGA, binarize_props
+from singa_tpu_torch.train.checkpointing import CheckpointManager
 
 
 @torch.inference_mode()
@@ -58,7 +62,8 @@ def generate_for_pocket(model: SINGA, batch: ComplexBatch, cfg: Config, prop_tar
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", type=str, required=True,
-                    help=".pt file holding the port's SINGA state dict")
+                    help=".pt file holding the port's SINGA state dict, or the "
+                    "trainer's checkpoint directory (<logdir>/checkpoints)")
     ap.add_argument("--config", type=str, default=None)
     ap.add_argument("--input", type=str, required=True, help=".npz complex from the ETL")
     ap.add_argument("--output", type=str, default="generated.csv")
@@ -82,7 +87,10 @@ def main(argv=None):
         raise ValueError("only .npz complexes are supported as --input so far")
 
     cfg = load_config(args.config) if args.config else Config()
-    ckpt_cfg_path = os.path.join(os.path.dirname(os.path.abspath(args.checkpoint)), "config.yml")
+    ckpt_dir = os.path.isdir(args.checkpoint)
+    ckpt_cfg_path = os.path.join(
+        os.path.dirname(os.path.abspath(args.checkpoint.rstrip("/"))), "config.yml"
+    )
     if args.config is None and os.path.exists(ckpt_cfg_path):
         cfg = load_config(ckpt_cfg_path)
     if args.no_mask or args.allow_dot:
@@ -97,8 +105,11 @@ def main(argv=None):
 
     batch = load_npz([args.input])
     model = SINGA(cfg, device=device)
-    state = torch.load(args.checkpoint, map_location=device, weights_only=True)
-    model.load_state_dict(state)
+    if ckpt_dir:
+        if CheckpointManager(args.checkpoint).restore(model) is None:
+            raise FileNotFoundError(f"no checkpoint under {args.checkpoint}")
+    else:
+        model.load_state_dict(torch.load(args.checkpoint, map_location=device, weights_only=True))
     model.eval()
 
     prop_target = None

@@ -1,14 +1,11 @@
-"""CProMG-style conditional transformer: the kNN pocket encoder and the
-property-prefixed, KV-cached SMILES decoder (counterpart of
+"""CProMG-style conditional transformer: the kNN pocket encoder, Encoder2 over
+the ligand, and the property-prefixed SMILES decoder, teacher-forced for
+training and KV-cached for generation (counterpart of
 ``singa_tpu/models/cpromg.py``; reference CProMG.py).
-
-The generation path only: ``Encoder`` (neighbour-list form), ``Decoder.prime``
-/ ``decode_token`` and ``CProMGTransformer.encode`` / ``prime_cache`` /
-``decode_token``. ``Encoder2`` and the teacher-forced decoder belong to the
-training path and are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -19,6 +16,7 @@ from torch import nn
 
 from singa_tpu_torch.config import DecoderConfig, EncoderConfig, ModelConfig
 from singa_tpu_torch.equivariant.layers import Embed, Linear, layer_norm
+from singa_tpu_torch.equivariant.so3 import as_const
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +58,12 @@ class DenseMHA(nn.Module):
             self.W_V(kv).reshape(B, -1, self.H, self.vd),
         )
 
+    def forward(self, q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor | None):
+        """q [B, Tq, C] attends to kv [B, Tk, C]; ``mask`` [B, Tq, Tk] is True
+        where a key is blocked."""
+        ks, vs = self.keys_values(kv)
+        return self.attend(q, ks, vs, mask)
+
     def attend(self, q: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
                blocked: torch.Tensor | None) -> torch.Tensor:
         """q [B, Tq, C] against keys/values; ``blocked`` [B, Tq, Tk] is True
@@ -97,6 +101,13 @@ def sinusoidal_pe(length: int, d_model: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _pe_table(length: int, d_model: int) -> np.ndarray:
+    """``sinusoidal_pe`` kept for the life of the process (``as_const`` keys
+    on the array's identity)."""
+    return sinusoidal_pe(length, d_model)
+
+
 class Encoder(nn.Module):
     """Pocket-atom encoder (CProMG.py:276-309), neighbour-list form. The
     layers are a Python loop over ``layers`` (the JAX package's ``nn.scan``
@@ -129,6 +140,51 @@ class Encoder(nn.Module):
             msa, x = layer(x, g)
             msas.append(msa)
         return x * mask[..., None].to(x.dtype), ~mask[:, None, :], msas
+
+
+class Encoder2(nn.Module):
+    """Second encoder, over the ligand's equivariant features, with
+    cross-attention into encoder 1's layer outputs at layers 2 and 5
+    (CProMG.py:313-343; GAN.py:74-77). Dense-attention form."""
+
+    CROSS_LAYERS = (2, 5)
+
+    def __init__(self, cfg: EncoderConfig, feature_dim: int, device=None):
+        super().__init__()
+        from singa_tpu_torch.models.dense_graph import DenseGraphMHA
+
+        C = cfg.hidden_channels
+        self.cfg = cfg
+        self.aa_emb = Linear(feature_dim, C, device=device)
+        self.laplacian_emb = Linear(cfg.lap_dim, C, device=device)
+        for i in range(cfg.num_interactions):
+            setattr(self, f"layer_{i}_attn", DenseGraphMHA(
+                C, cfg.key_channels, cfg.num_heads, cfg.edge_channels, device))
+            if i in self.CROSS_LAYERS:
+                setattr(self, f"layer_{i}_proj", Linear(C, C, device=device))
+                setattr(self, f"layer_{i}_cross", DenseMHA(
+                    C, C, cfg.key_channels, cfg.num_heads, device))
+                setattr(self, f"layer_{i}_norm", layer_norm(C, device))
+            setattr(self, f"layer_{i}_ffn", PositionwiseFFN(C, cfg.ffn_hidden, device))
+
+    def forward(self, feat, pos, mask, lap_pe, atom_pad_mask, atom_msa_outputs):
+        """Returns (encoding [B, N, C], pad mask [B, 1, N] True = blocked)."""
+        from singa_tpu_torch.models.dense_graph import build_dense_graph
+
+        cfg = self.cfg
+        B, N, _ = feat.shape
+        x = self.aa_emb(feat) + self.laplacian_emb(lap_pe)
+        g = build_dense_graph(pos, mask, cfg.knn_aa, cfg.smear_stop_aa, cfg.edge_channels)
+        fmask = mask[..., None].to(x.dtype)
+        for i in range(cfg.num_interactions):
+            msa = getattr(self, f"layer_{i}_attn")(x, g)
+            if i in self.CROSS_LAYERS:
+                proj = getattr(self, f"layer_{i}_proj")(atom_msa_outputs[i])
+                cross_mask = atom_pad_mask.expand(B, N, atom_pad_mask.shape[-1])
+                cross = getattr(self, f"layer_{i}_cross")(msa, proj, cross_mask) * fmask
+                msa = getattr(self, f"layer_{i}_norm")(msa + cross)
+            x = getattr(self, f"layer_{i}_ffn")(msa)
+        return x * fmask, ~mask[:, None, :]
 
 
 class DecoderLayer(nn.Module):
@@ -187,6 +243,31 @@ class Decoder(nn.Module):
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_interactions)]
 
+    def forward(self, tokens: torch.Tensor, enc: torch.Tensor, enc_pad_mask: torch.Tensor,
+                prop: torch.Tensor | None) -> torch.Tensor:
+        """Teacher-forced decode of tokens [B, T] over enc [B, S, C]: causal
+        self-attention that also blocks pad keys (the property slot is never
+        a pad key). Returns [B, T (+1 with props), C]."""
+        B, T = tokens.shape
+        C = self.cfg.hidden_channels
+        x = self.mol_emb(tokens) + as_const(_pe_table(T, C), tokens.device)[None]
+        key_is_pad = tokens == self.pad_token
+        if self.num_props:
+            x = x + self.type_emb(torch.ones((B, T), dtype=torch.long, device=x.device))
+            p = self.prop_nn(prop.to(x.dtype))[:, None, :]
+            p = p + self.type_emb(torch.zeros((B, 1), dtype=torch.long, device=x.device))
+            x = torch.cat([p, x], dim=1)
+            key_is_pad = torch.cat([key_is_pad.new_zeros((B, 1)), key_is_pad], dim=1)
+        Tp = x.shape[1]
+        causal = torch.triu(torch.ones((Tp, Tp), dtype=torch.bool, device=x.device), diagonal=1)
+        self_mask = causal[None] | key_is_pad[:, None, :]
+        cross_mask = enc_pad_mask.expand(B, Tp, enc_pad_mask.shape[-1])
+        for layer in self.layers():
+            x = layer.dec_self_attn(x, x, self_mask)
+            x = layer.dec_enc_attn(x, enc, cross_mask)
+            x = layer.pos_ffn(x)
+        return x
+
     def _step(self, x: torch.Tensor, cache: DecodeCache) -> torch.Tensor:
         """Run one new position x [R, 1, C] through every layer, writing its
         keys and values at slot ``cache.length``."""
@@ -239,8 +320,9 @@ class Decoder(nn.Module):
 
 
 class CProMGTransformer(nn.Module):
-    """Encoder -> Decoder -> vocab projection (CProMG.py:426-464), the
-    generation path (no Encoder2)."""
+    """Encoder || Encoder2 -> Decoder -> vocab projection (CProMG.py:426-464).
+    Encoder2 is registered last, so the seeded initialisation gives every
+    module of the generation path the weights it had without it."""
 
     def __init__(self, cfg: ModelConfig, pad_token: int, device=None):
         super().__init__()
@@ -250,9 +332,24 @@ class CProMGTransformer(nn.Module):
         self.projection = Linear(
             cfg.decoder.hidden_channels, cfg.decoder.vocab_size, bias=False, device=device
         )
+        self.encoder2 = Encoder2(cfg.encoder, cfg.featurizer_feat_dim, device)
 
     def encode(self, protein_feat, protein_pos, protein_mask, protein_lap):
         return self.encoder(protein_feat, protein_pos, protein_mask, protein_lap)
+
+    def decode(self, tokens, enc, enc_pad_mask, prop) -> torch.Tensor:
+        """Teacher-forced decoder + projection, the property position
+        stripped: logits [B, T, V]."""
+        logits = self.projection(self.decoder(tokens, enc, enc_pad_mask, prop))
+        return logits[:, 1:] if self.cfg.num_props else logits
+
+    def forward(self, protein_feat, protein_pos, protein_mask, protein_lap, tokens,
+                ligand_feat, ligand_pos, ligand_mask, ligand_lap, prop) -> torch.Tensor:
+        enc1, pad1, msa = self.encoder(protein_feat, protein_pos, protein_mask, protein_lap)
+        enc2, pad2 = self.encoder2(ligand_feat, ligand_pos, ligand_mask, ligand_lap, pad1, msa)
+        enc = torch.cat([enc1, enc2], dim=1)
+        pad = torch.cat([pad1, pad2], dim=2)
+        return self.decode(tokens, enc, pad, prop)
 
     def prime_cache(self, enc, enc_pad_mask, prop) -> DecodeCache:
         return self.decoder.prime(enc, enc_pad_mask, prop)[1]

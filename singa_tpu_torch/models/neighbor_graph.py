@@ -21,7 +21,7 @@ from singa_tpu_torch.config import EncoderConfig
 from singa_tpu_torch.equivariant.layers import Linear, layer_norm, uniform_
 from singa_tpu_torch.equivariant.so3 import as_const
 from singa_tpu_torch.models.cpromg import EdgeMLP, PositionwiseFFN, shifted_softplus
-from singa_tpu_torch.ops.cuda.neighbor_attn import neighbor_attn
+from singa_tpu_torch.ops.cuda.neighbor_attn import neighbor_attn, transpose_slots
 from singa_tpu_torch.ops.smearing import gaussian_smearing
 
 
@@ -31,6 +31,8 @@ class NeighborGraph(NamedTuple):
     dist: torch.Tensor  # [B, N, K] f32 distances to those neighbours
     deg_attr: torch.Tensor  # [B, N, De] Laplacian diagonal (degree) attr
     node_mask: torch.Tensor  # [B, N] bool
+    rev_offsets: torch.Tensor  # [B*N + 1] int32 CSR transpose of nbr (transpose_slots)
+    rev_slots: torch.Tensor  # [B*N*K] int32: the slots naming each row, ascending
 
 
 def build_neighbor_graph(
@@ -67,7 +69,9 @@ def build_neighbor_graph(
     dist = torch.gather(dist_full, 2, nbr.long())
     neg_smear = -gaussian_smearing(dist, 0.0, smear_stop, edge_channels)
     deg = -(neg_smear * nbr_mask[..., None].to(neg_smear.dtype)).sum(dim=2)
-    return NeighborGraph(nbr=nbr, nbr_mask=nbr_mask, dist=dist, deg_attr=deg, node_mask=mask)
+    rev_offsets, rev_slots = transpose_slots(nbr)
+    return NeighborGraph(nbr=nbr, nbr_mask=nbr_mask, dist=dist, deg_attr=deg, node_mask=mask,
+                         rev_offsets=rev_offsets, rev_slots=rev_slots)
 
 
 class NeighborGraphMHA(nn.Module):
@@ -142,6 +146,8 @@ class NeighborGraphMHA(nn.Module):
             ev.Linear_0.weight.t().contiguous(), ev.Linear_0.bias,
             ev.Linear_1.weight.t().contiguous(), ev.Linear_1.bias,
             -0.5 / (width * width),
+            g.rev_offsets,
+            g.rev_slots,
         ).reshape(B, N, H, vd)
         aggr = self.weight_v_lin(agg).reshape(B, N, H * vd)
         out = self.centroid_lin(x) + aggr

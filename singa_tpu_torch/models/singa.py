@@ -1,9 +1,11 @@
 """SINGA: the property-conditioned pocket-to-SMILES generator (counterpart
-of ``singa_tpu/models/singa.py``; reference model/GAN.py), generation path.
+of ``singa_tpu/models/singa.py``; reference model/GAN.py): the training
+forward, the token cross-entropy and the generation path.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from singa_tpu_torch.config import PAD_TOKEN, Config
@@ -43,6 +45,22 @@ class SINGA(nn.Module):
         self.model = CProMGTransformer(config.model, PAD_TOKEN, device)
         seeded_init(self, seed)
 
+    def forward(self, batch: ComplexBatch) -> torch.Tensor:
+        """Teacher-forced next-token logits [B, tgt_len, vocab]: both
+        embedding stages, encoder 1 on the pocket, Encoder2 on the ligand,
+        the property-prefixed decoder."""
+        cfg = self.config
+        B = batch.batch_size
+        fd = cfg.model.featurizer_feat_dim
+        prop = binarize_props(batch, cfg.model.props) if cfg.model.num_props else None
+        emb = self.embedding(batch)
+        return self.model(
+            emb.protein.reshape(B, -1, fd), batch.protein.pos, batch.protein.mask,
+            batch.protein.lap_pe, batch.tokens.input,
+            emb.ligand.reshape(B, -1, fd), batch.ligand.pos, batch.ligand.mask,
+            batch.ligand.lap_pe, prop,
+        )
+
     def encode_pocket(self, batch: ComplexBatch):
         """Protein-only path for generation (gen_mode; reference
         gen.py:157-160 + BeamSearch.py:64-76). Returns (encoding [B, Np, C],
@@ -62,3 +80,17 @@ class SINGA(nn.Module):
     def decode_token(self, token, pos: int, cache: DecodeCache) -> torch.Tensor:
         """KV-cached one-token decode -> next-token logits [R, V]."""
         return self.model.decode_token(token, pos, cache)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor, targets: torch.Tensor, mask_pad: bool = False, pad_token: int = PAD_TOKEN
+) -> torch.Tensor:
+    """Token cross-entropy. The reference averages over all positions,
+    padding targets included (train.py:106,123, no ignore_index);
+    ``mask_pad=False`` keeps that."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if mask_pad:
+        w = (targets != pad_token).to(torch.float32)
+        return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return nll.mean()

@@ -1,13 +1,19 @@
-"""K1: neighbour-list graph attention of every kNN encoder layer.
+"""K1/K1b: neighbour-list graph attention of every kNN encoder layer, and its
+backward.
 
-Replaces ``singa_tpu/ops/pallas/neighbor_attn.py::neighbor_attn_fused``
+K1 replaces ``singa_tpu/ops/pallas/neighbor_attn.py::neighbor_attn_fused``
 (forward, ``_attn_fwd_kernel``). Per node i and in-neighbour k: RBF smear of
 the distance, the k- and v-EdgeMLPs (shifted softplus) on ``-smear``, the
 per-head score ``sum_d qt * w_k * k_nb / sqrt(kd)``, a softmax over the K
 neighbours plus the self slot (``diag_scores``), and the aggregate
-``sum_k a * w_v * v_nb + a_self * diag_value``. The CUDA kernel
-(``csrc/neighbor_attn.cu``) gathers neighbour rows by index and keeps every
-pair tensor out of device memory.
+``sum_k a * w_v * v_nb + a_self * diag_value``. K1b replaces ``_bwd``
+(``_attn_bwd_kernel``): the gradients of qt, k and v (scattered to the
+neighbour rows over every slot), of the self terms and of the eight EdgeMLP
+weights and biases; nbr, nbr_mask, dist and centers get none. The CUDA
+kernels (``csrc/neighbor_attn.cu``, ``csrc/neighbor_attn_bwd.cu``) gather
+neighbour rows by index and keep every per-node pair tensor out of device
+memory. ``neighbor_attn`` goes through one ``torch.autograd.Function``:
+plain versions for CPU tensors, the kernels for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import torch.nn.functional as F
 
 from singa_tpu_torch.ops.cuda import build
 
-launches = 0  # kernel launches through ``neighbor_attn``
+launches = 0  # forward kernel launches through ``neighbor_attn``
+launches_bwd = 0  # backward kernel launches through ``neighbor_attn``
 SMEM_LIMIT = 227 * 1024
 
 
@@ -55,6 +62,21 @@ def neighbor_attn_plain(
     return agg.reshape(B, N, H * vd)
 
 
+def neighbor_attn_bwd_plain(*args):
+    """``(dqt, dk, dv, d diag_scores, d diag_value, dwk1, dbk1, dwk2, dbk2,
+    dwv1, dbv1, dwv2, dbv2)`` of ``neighbor_attn_plain``: ``args`` are its
+    arguments followed by the cotangent ``g``."""
+    *inputs, coeff, g = args
+    # qt, k, v, diag_scores, diag_value and the eight EdgeMLP weights/biases
+    diff_at = (0, 1, 2, 6, 7) + tuple(range(9, 17))
+    with torch.enable_grad():
+        inputs = [
+            t.detach().requires_grad_() if i in diff_at else t for i, t in enumerate(inputs)
+        ]
+        out = neighbor_attn_plain(*inputs, coeff)
+        return torch.autograd.grad(out, [inputs[i] for i in diff_at], g)
+
+
 def _fn():
     fn = build.load("neighbor_attn").neighbor_attn_f32
     fn.argtypes = (
@@ -65,6 +87,20 @@ def _fn():
     return fn
 
 
+def _bwd_fns():
+    lib = build.load("neighbor_attn_bwd")
+    blocks = lib.neighbor_attn_bwd_blocks
+    blocks.argtypes = [ctypes.c_int] * 7
+    blocks.restype = ctypes.c_int
+    fn = lib.neighbor_attn_bwd_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 17 + [ctypes.c_float] + [ctypes.c_void_p] * 14
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return blocks, fn
+
+
 def smem_bytes(K: int, H: int, kd: int, vd: int, De: int) -> int:
     """Dynamic shared memory of one block (mirrors csrc/neighbor_attn.cu)."""
     floats = De * kd + kd + kd * kd + kd + De * vd + vd + vd * vd + vd + De  # weights
@@ -73,11 +109,10 @@ def smem_bytes(K: int, H: int, kd: int, vd: int, De: int) -> int:
     return 4 * floats
 
 
-def neighbor_attn_cuda(
-    qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
-    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
-) -> torch.Tensor:
-    global launches
+def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+                centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2):
+    """Device, dtype, shape and contiguity of every kernel argument; returns
+    (B, N, K, H, kd, vd, De)."""
     B, N, HK = qt.shape
     K = nbr.shape[2]
     H = diag_scores.shape[2]
@@ -101,32 +136,118 @@ def neighbor_attn_cuda(
         ("wv2", wv2, (vd, vd)), ("bv2", bv2, (vd,)),
     ):
         build.require(t, name, shape, f32, dev)
+    return B, N, K, H, kd, vd, De
+
+
+def neighbor_attn_cuda(
+    qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+) -> torch.Tensor:
+    global launches
+    args = (qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+            centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    B, N, K, H, kd, vd, De = _check_args(*args)
     if smem_bytes(K, H, kd, vd, De) > SMEM_LIMIT:
         raise ValueError("neighbor_attn kernel: one node's pair tensors do not fit in shared memory")
-    out = torch.empty((B, N, H * vd), dtype=f32, device=dev)
+    out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
     if B * N == 0:
         return out
-    status = _fn()(
-        qt.data_ptr(), k.data_ptr(), v.data_ptr(), nbr.data_ptr(), nbr_mask.data_ptr(),
-        dist.data_ptr(), diag_scores.data_ptr(), diag_value.data_ptr(), centers.data_ptr(),
-        wk1.data_ptr(), bk1.data_ptr(), wk2.data_ptr(), bk2.data_ptr(),
-        wv1.data_ptr(), bv1.data_ptr(), wv2.data_ptr(), bv2.data_ptr(),
-        float(coeff), out.data_ptr(), B, N, K, H, kd, vd, De, build.stream_ptr(qt),
-    )
+    status = _fn()(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
+                   B, N, K, H, kd, vd, De, build.stream_ptr(qt))
     build.check(status, "neighbor_attn")
     launches += 1
     return out
 
 
+def transpose_slots(nbr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CSR transpose of ``nbr`` [B, N, K]: ``offsets`` [B*N + 1] and
+    ``slots`` [B*N*K] int32, the flat ``(row, slot)`` ids whose neighbour is
+    row j at ``slots[offsets[j]:offsets[j+1]]``, ascending (a stable sort).
+    K1b's dk/dv gather reads it; ``build_neighbor_graph`` builds it once per
+    graph, beside ``nbr``."""
+    B, N, K = nbr.shape
+    rows = torch.arange(B, device=nbr.device, dtype=torch.long)[:, None, None] * N
+    keys = (nbr.long() + rows).reshape(-1)
+    slots = torch.sort(keys, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros(B * N + 1, dtype=torch.int32, device=nbr.device)
+    offsets[1:] = torch.cumsum(torch.bincount(keys, minlength=B * N), 0)
+    return offsets, slots
+
+
+def neighbor_attn_bwd_cuda(*args, offsets, slots):
+    """The K1b kernels; arguments and result as ``neighbor_attn_bwd_plain``,
+    plus ``transpose_slots(nbr)`` as ``offsets`` and ``slots``."""
+    global launches_bwd
+    *inputs, coeff, g = args
+    B, N, K, H, kd, vd, De = _check_args(*inputs)
+    qt = inputs[0]
+    dev = qt.device
+    f32 = torch.float32
+    build.require(g, "g", (B, N, H * vd), f32, dev)
+    build.require(offsets, "offsets", (B * N + 1,), torch.int32, dev)
+    build.require(slots, "slots", (B * N * K,), torch.int32, dev)
+    empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
+    dqt, dk = empty(B, N, H * kd), empty(B, N, H * kd)
+    dv, dds, ddv = empty(B, N, H * vd), empty(B, N, H), empty(B, N, H * vd)
+    sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
+    grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
+    if B * N:
+        blocks_fn, fn = _bwd_fns()
+        blocks = blocks_fn(B, N, K, H, kd, vd, De)
+        if blocks < 1:
+            raise ValueError(f"neighbor_attn backward kernel: shapes {(K, H, kd, vd, De)} not "
+                             "supported or one node's pair tensors exceed shared memory")
+        slots_n = B * N * K
+        scratch = (empty(slots_n, kd), empty(slots_n, vd), empty(slots_n, H), empty(slots_n, H),
+                   empty(blocks, sum(sizes)))
+        status = fn(
+            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(), offsets.data_ptr(),
+            slots.data_ptr(), dqt.data_ptr(), dk.data_ptr(), dv.data_ptr(), dds.data_ptr(),
+            ddv.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
+            B, N, K, H, kd, vd, De, blocks, build.stream_ptr(qt),
+        )
+        build.check(status, "neighbor_attn_bwd")
+        launches_bwd += 1
+    weights = inputs[9:]
+    wgrads = [p.view(w.shape) for p, w in zip(torch.split(grads, sizes), weights)]
+    return (dqt, dk, dv, dds, ddv, *wgrads)
+
+
+class NeighborAttn(torch.autograd.Function):
+    """K1 forward and K1b backward. ``ctx`` keeps the inputs only, as ``_fwd``
+    does; the backward recomputes every pair tensor."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        *inputs, coeff, offsets, slots = args
+        ctx.coeff = coeff
+        ctx.save_for_backward(*inputs, offsets, slots)
+        if inputs[0].device.type == "cpu":
+            return neighbor_attn_plain(*inputs, coeff)
+        return neighbor_attn_cuda(*inputs, coeff)
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, offsets, slots = ctx.saved_tensors
+        args = (*inputs, ctx.coeff, g.contiguous())
+        if inputs[0].device.type == "cpu":
+            grads = neighbor_attn_bwd_plain(*args)
+        else:
+            grads = neighbor_attn_bwd_cuda(*args, offsets=offsets, slots=slots)
+        dqt, dk, dv, dds, ddv, *wgrads = grads
+        # nbr, nbr_mask, dist, centers, coeff and the transpose get none, as in
+        # the JAX _bwd
+        return (dqt, dk, dv, None, None, None, dds, ddv, None, *wgrads, None, None, None)
+
+
 def neighbor_attn(
     qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
-    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float, offsets, slots,
 ) -> torch.Tensor:
-    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    args = (qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
-            centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
-    if qt.device.type == "cpu":
-        return neighbor_attn_plain(*args)
-    if qt.device.type == "cuda":
-        return neighbor_attn_cuda(*args)
-    raise ValueError(f"neighbor_attn runs on cpu or cuda, not {qt.device}")
+    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors.
+    ``offsets``/``slots`` are ``transpose_slots(nbr)``, for K1b."""
+    if qt.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"neighbor_attn runs on cpu or cuda, not {qt.device}")
+    return NeighborAttn.apply(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+                              centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff,
+                              offsets, slots)

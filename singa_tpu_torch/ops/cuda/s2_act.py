@@ -1,10 +1,15 @@
-"""K3: the separable S2 SiLU activation of every SO(2) graph attention.
+"""K3/K3b: the separable S2 SiLU activation of every SO(2) graph attention,
+and its backward.
 
-Replaces ``singa_tpu/ops/pallas/s2_act.py::s2_silu_sep`` (forward,
+K3 replaces ``singa_tpu/ops/pallas/s2_act.py::s2_silu_sep`` (forward,
 ``_sep_fwd_kernel``). Rows ``i >= 1`` of the output are
 ``sum_g fg[g, i] * silu(sum_j tg[g, j] * x[j, c])``; row 0 is
-``silu(scalars[c])``. The CUDA kernel (``csrc/s2_act.cu``) keeps the
-``[E, G, C]`` grid tensor out of device memory.
+``silu(scalars[c])``. K3b replaces ``_sep_bwd`` (``_sep_bwd_kernel``): the
+gradients of ``x`` and ``scalars``; row 0 of the cotangent reaches only
+``scalars``. Both CUDA kernels (``csrc/s2_act.cu``) keep the ``[E, G, C]``
+grid tensor out of device memory. ``s2_silu_sep`` goes through one
+``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
+CUDA tensors.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ import torch.nn.functional as F
 
 from singa_tpu_torch.ops.cuda import build
 
-launches = 0  # kernel launches through ``s2_silu_sep``
+launches = 0  # forward kernel launches through ``s2_silu_sep``
+launches_bwd = 0  # backward kernel launches through ``s2_silu_sep``
 MAX_I = 32  # coefficient rows a thread keeps in registers (csrc/s2_act.cu)
 
 
@@ -28,15 +34,23 @@ def s2_silu_sep_plain(
     return torch.cat([F.silu(scalars)[:, None, :], out[:, 1:]], dim=1)
 
 
-def _fn():
-    fn = build.load("s2_act").s2_silu_sep_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def s2_silu_sep_bwd_plain(x, scalars, to_grid, from_grid, g):
+    """(dx, dscalars) of ``s2_silu_sep_plain`` at cotangent ``g``."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        scalars = scalars.detach().requires_grad_()
+        out = s2_silu_sep_plain(x, scalars, to_grid, from_grid)
+        return torch.autograd.grad(out, (x, scalars), g)
+
+
+def _fn(name: str, n_ptr: int):
+    fn = getattr(build.load("s2_act"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def s2_silu_sep_cuda(x, scalars, to_grid, from_grid) -> torch.Tensor:
-    global launches
+def _check_args(x, scalars, to_grid, from_grid):
     E, I, C = x.shape
     G = to_grid.shape[0]
     dev = x.device
@@ -46,10 +60,16 @@ def s2_silu_sep_cuda(x, scalars, to_grid, from_grid) -> torch.Tensor:
     build.require(from_grid, "from_grid", (G, I), torch.float32, dev)
     if I > MAX_I:
         raise ValueError(f"s2_silu_sep kernel takes at most {MAX_I} coefficient rows, got {I}")
+    return E, I, C, G
+
+
+def s2_silu_sep_cuda(x, scalars, to_grid, from_grid) -> torch.Tensor:
+    global launches
+    E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
     out = torch.empty_like(x)
     if E == 0:
         return out
-    status = _fn()(
+    status = _fn("s2_silu_sep_f32", 5)(
         x.data_ptr(), scalars.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
         out.data_ptr(), E, I, C, G, build.stream_ptr(x),
     )
@@ -58,10 +78,49 @@ def s2_silu_sep_cuda(x, scalars, to_grid, from_grid) -> torch.Tensor:
     return out
 
 
-def s2_silu_sep(x, scalars, to_grid, from_grid) -> torch.Tensor:
-    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if x.device.type == "cpu":
-        return s2_silu_sep_plain(x, scalars, to_grid, from_grid)
-    if x.device.type == "cuda":
+def s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g):
+    """(dx, dscalars) from the K3b kernel."""
+    global launches_bwd
+    E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
+    build.require(g, "g", (E, I, C), torch.float32, x.device)
+    dx = torch.empty_like(x)
+    ds = torch.empty_like(scalars)
+    if E == 0:
+        return dx, ds
+    status = _fn("s2_silu_sep_bwd_f32", 7)(
+        x.data_ptr(), scalars.data_ptr(), g.data_ptr(), to_grid.data_ptr(),
+        from_grid.data_ptr(), dx.data_ptr(), ds.data_ptr(), E, I, C, G, build.stream_ptr(x),
+    )
+    build.check(status, "s2_silu_sep_bwd")
+    launches_bwd += 1
+    return dx, ds
+
+
+class S2SiluSep(torch.autograd.Function):
+    """K3 forward and K3b backward. ``ctx`` keeps the inputs only; the
+    backward recomputes the grid. ``to_grid``/``from_grid`` are constants
+    and get no gradient, as in the JAX ``_sep_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, scalars, to_grid, from_grid):
+        ctx.save_for_backward(x, scalars, to_grid, from_grid)
+        if x.device.type == "cpu":
+            return s2_silu_sep_plain(x, scalars, to_grid, from_grid)
         return s2_silu_sep_cuda(x, scalars, to_grid, from_grid)
-    raise ValueError(f"s2_silu_sep runs on cpu or cuda, not {x.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scalars, to_grid, from_grid = ctx.saved_tensors
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            dx, ds = s2_silu_sep_bwd_plain(x, scalars, to_grid, from_grid, g)
+        else:
+            dx, ds = s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g)
+        return dx, ds, None, None
+
+
+def s2_silu_sep(x, scalars, to_grid, from_grid) -> torch.Tensor:
+    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"s2_silu_sep runs on cpu or cuda, not {x.device}")
+    return S2SiluSep.apply(x, scalars, to_grid, from_grid)

@@ -1,11 +1,16 @@
-"""K2: the gate-activation feed-forward network of every TransBlock.
+"""K2/K2b: the gate-activation feed-forward network of every TransBlock, and
+its backward.
 
-Replaces ``singa_tpu/ops/pallas/so3_ffn.py::so3_gate_ffn_fused`` (forward,
+K2 replaces ``singa_tpu/ops/pallas/so3_ffn.py::so3_gate_ffn_fused`` (forward,
 ``_gate_ffn_fwd_kernel``): per-degree linear C -> H; row l=0 becomes
 ``silu(h + b1)``, rows of degree l >= 1 become ``h * sigmoid(x0 @ wg + bg)``
 over column block ``(l-1)H : lH``; per-degree linear H -> Co, ``b2`` on row 0
-only. The CUDA kernel (``csrc/so3_gate_ffn.cu``) keeps the ``[N, I, H]``
-hidden out of device memory.
+only. K2b replaces ``_gate_bwd`` (``_gate_ffn_bwd_kernel``): dx and the six
+weight and bias gradients. The CUDA kernels (``csrc/so3_gate_ffn.cu``,
+``csrc/so3_gate_ffn_bwd.cu``) keep the ``[N, I, H]`` hidden and its cotangent
+out of device memory. ``so3_gate_ffn`` goes through one
+``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
+CUDA tensors.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ import torch.nn.functional as F
 
 from singa_tpu_torch.ops.cuda import build
 
-launches = 0  # kernel launches through ``so3_gate_ffn``
+launches = 0  # forward kernel launches through ``so3_gate_ffn``
+launches_bwd = 0  # backward kernel launches through ``so3_gate_ffn``
 # mirrors of csrc/so3_gate_ffn.cu's constants
 NODE_GROUPS = 2  # groups of four nodes per block
 HIDDEN_CHUNK = 16  # hidden channels per shared-memory chunk
@@ -47,11 +53,32 @@ def so3_gate_ffn_plain(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     return torch.cat([y[:, :1] + b2, y[:, 1:]], dim=1)
 
 
+def so3_gate_ffn_bwd_plain(x, w1, b1, wg, bg, w2, lmax: int, dy):
+    """(dx, dw1, db1, dwg, dbg, dw2, db2) of ``so3_gate_ffn_plain`` at
+    cotangent ``dy``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, w1, b1, wg, bg, w2)]
+        b2 = x.new_zeros((w2.shape[2],), requires_grad=True)
+        y = so3_gate_ffn_plain(*leaves, b2, lmax)
+        return torch.autograd.grad(y, (*leaves, b2), dy)
+
+
 def _fn():
     fn = build.load("so3_gate_ffn").so3_gate_ffn_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_fns():
+    lib = build.load("so3_gate_ffn_bwd")
+    slices = lib.so3_gate_ffn_bwd_slices
+    slices.argtypes = [ctypes.c_int] * 5
+    slices.restype = ctypes.c_int
+    fn = lib.so3_gate_ffn_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return slices, fn
 
 
 def smem_bytes(lmax: int, C: int, Co: int) -> int:
@@ -95,10 +122,70 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     return out
 
 
-def so3_gate_ffn(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
-    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if x.device.type == "cpu":
-        return so3_gate_ffn_plain(x, w1, b1, wg, bg, w2, b2, lmax)
-    if x.device.type == "cuda":
+def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
+    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K2b kernels."""
+    global launches_bwd
+    N, _, C = x.shape
+    L = lmax + 1
+    H = w1.shape[2]
+    Co = w2.shape[2]
+    dev = x.device
+    f32 = torch.float32
+    build.require(x, "x", (N, L * L, C), f32, dev)
+    build.require(dy, "dy", (N, L * L, Co), f32, dev)
+    build.require(w1, "w1", (L, C, H), f32, dev)
+    build.require(b1, "b1", (H,), f32, dev)
+    build.require(wg, "wg", (C, lmax * H), f32, dev)
+    build.require(bg, "bg", (lmax * H,), f32, dev)
+    build.require(w2, "w2", (L, H, Co), f32, dev)
+    dx = torch.empty_like(x)
+    sizes = (L * C * H, H, C * lmax * H, lmax * H, L * H * Co, Co)
+    grads = torch.empty(sum(sizes), dtype=f32, device=dev)
+    if N == 0:
+        grads.zero_()
+    else:
+        slices_fn, fn = _bwd_fns()
+        slices = slices_fn(N, lmax, C, H, Co)
+        if slices < 1:
+            raise ValueError(f"so3_gate_ffn backward kernel: {C} input channels at lmax {lmax} "
+                             "not supported or its tiles exceed shared memory")
+        partial = torch.empty((slices, sum(sizes)), dtype=f32, device=dev)
+        status = fn(
+            x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(),
+            bg.data_ptr(), w2.data_ptr(), dx.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+            N, lmax, C, H, Co, slices, build.stream_ptr(x),
+        )
+        build.check(status, "so3_gate_ffn_bwd")
+        launches_bwd += 1
+    dw1, db1, dwg, dbg, dw2, db2 = torch.split(grads, sizes)
+    return (dx, dw1.view(L, C, H), db1, dwg.view(C, lmax * H), dbg, dw2.view(L, H, Co), db2)
+
+
+class SO3GateFFN(torch.autograd.Function):
+    """K2 forward and K2b backward. ``ctx`` keeps the inputs only, as
+    ``_gate_fwd`` does; the backward recomputes the hidden."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, wg, bg, w2, b2, lmax):
+        ctx.lmax = lmax
+        ctx.save_for_backward(x, w1, b1, wg, bg, w2)
+        if x.device.type == "cpu":
+            return so3_gate_ffn_plain(x, w1, b1, wg, bg, w2, b2, lmax)
         return so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax)
-    raise ValueError(f"so3_gate_ffn runs on cpu or cuda, not {x.device}")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, wg, bg, w2 = ctx.saved_tensors
+        dy = dy.contiguous()
+        if x.device.type == "cpu":
+            grads = so3_gate_ffn_bwd_plain(x, w1, b1, wg, bg, w2, ctx.lmax, dy)
+        else:
+            grads = so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, ctx.lmax, dy)
+        return (*grads, None)
+
+
+def so3_gate_ffn(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
+    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"so3_gate_ffn runs on cpu or cuda, not {x.device}")
+    return SO3GateFFN.apply(x, w1, b1, wg, bg, w2, b2, lmax)

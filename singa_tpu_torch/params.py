@@ -12,7 +12,9 @@ maps to a state-dict key mechanically:
     unstack into ``layers.0``, ``layers.1``, ...;
   * every other leaf (``w1``, ``gate_kernel``, ``q_lin``, ``w_m0``, ...) keeps
     its name and its flax layout.
-``model/encoder2/**`` belongs to the training path and is left unmapped.
+Every leaf maps, ``model/encoder2/**`` included. A flax gradient tree has the
+parameter tree's structure, so the same map carries ``jax.grad``'s output into
+the port's names (``from_flax_grads``).
 """
 from __future__ import annotations
 
@@ -22,13 +24,12 @@ import numpy as np
 import torch
 from torch import nn
 
-UNMAPPED_PREFIXES = (("model", "encoder2"),)
-
 
 @torch.no_grad()
 def seeded_init(model: nn.Module, seed: int) -> None:
     """Initialise every parameter from ``seed`` with the JAX package's
-    distributions, drawn on the CPU so every device gets the same weights."""
+    distributions, drawn on the CPU so every device gets the same weights.
+    Draws follow module registration order (``model.modules()``)."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.LayerNorm):
@@ -55,17 +56,13 @@ def _torch_entry(path: tuple, leaf: np.ndarray) -> tuple[str, np.ndarray]:
     return ".".join(mods + [name]), leaf
 
 
-def from_flax(tree: Any) -> tuple[dict[str, np.ndarray], list[str]]:
+def from_flax(tree: Any) -> dict[str, np.ndarray]:
     """Flax parameter tree (nested dict of arrays, as ``init`` returns it)
-    -> (port state dict of numpy arrays, flax paths left unmapped)."""
+    -> port state dict of numpy arrays."""
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
     out: dict[str, np.ndarray] = {}
-    unmapped: list[str] = []
     for path, leaf in _leaves(tree):
-        if any(path[: len(p)] == p for p in UNMAPPED_PREFIXES):
-            unmapped.append("/".join(path))
-            continue
         if "layers" in path and path[path.index("layers") + 1 : path.index("layers") + 2] == ("layer",):
             j = path.index("layers")
             for i in range(leaf.shape[0]):
@@ -74,16 +71,22 @@ def from_flax(tree: Any) -> tuple[dict[str, np.ndarray], list[str]]:
             continue
         key, val = _torch_entry(path, leaf)
         out[key] = val
-    return out, unmapped
+    return out
+
+
+def from_flax_grads(grads: Any) -> dict[str, np.ndarray]:
+    """A flax gradient tree (``jax.grad`` of a loss in the parameters) ->
+    gradients by port parameter name, in the port's layouts, to compare with
+    ``{name: p.grad for name, p in model.named_parameters()}`` leaf by leaf."""
+    return from_flax(grads)
 
 
 @torch.no_grad()
-def load_flax_params(module: nn.Module, tree: Any) -> list[str]:
+def load_flax_params(module: nn.Module, tree: Any) -> None:
     """Load a flax (sub)tree into ``module``, which must be the port's
     counterpart of that tree. Raises on a leaf with no port parameter, on a
-    shape mismatch and on any port parameter left unset. Returns the flax
-    paths deliberately left unmapped (``model/encoder2/**``)."""
-    sd, unmapped = from_flax(tree)
+    shape mismatch and on any port parameter left unset."""
+    sd = from_flax(tree)
     params = dict(module.named_parameters())
     extra = sorted(set(sd) - set(params))
     if extra:
@@ -96,4 +99,3 @@ def load_flax_params(module: nn.Module, tree: Any) -> list[str]:
         if tuple(p.shape) != val.shape:
             raise ValueError(f"{key}: port shape {tuple(p.shape)} vs flax {val.shape}")
         p.copy_(torch.tensor(val, dtype=p.dtype))
-    return unmapped

@@ -22,6 +22,10 @@ import torch
 
 from singa_tpu.dtypes import compute_dtype_scope
 
+# the tier-1 run has several workers per machine: one intra-op thread pool
+# each, as wide as the machine, oversubscribes the cores and spins
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VAL_FILES = sorted(glob.glob(os.path.join(REPO, "data", "corpus", "val", "*.npz")))
 
@@ -92,6 +96,25 @@ def t(a, dtype=None) -> torch.Tensor:
 def close(got, want, atol, rtol, msg=""):
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol, err_msg=msg)
+
+
+def close_grads(got: dict, want: dict, rtol: float = 1e-4, floor: float = 1e-3):
+    """Gradients by name, leaf by leaf. Each leaf gets atol = rtol times its
+    own largest magnitude, but never less than ``floor`` of the largest
+    gradient of the whole set: leaves whose true gradient is zero (a bias
+    that softmax cancels) are float32 noise on both sides."""
+    assert set(got) == set(want), sorted(set(got) ^ set(want))[:10]
+    top = max(float(np.abs(np.asarray(w)).max()) for w in want.values())
+    for name in sorted(want):
+        w = np.asarray(want[name])
+        g = got[name]
+        g = g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        atol = rtol * max(float(np.abs(w).max()), floor * top)
+        np.testing.assert_allclose(g, w, atol=atol, rtol=rtol, err_msg=name)
+
+
+def port_grads(module) -> dict:
+    return {n: p.grad for n, p in module.named_parameters()}
 
 
 # ---------------------------------------------------------------------------

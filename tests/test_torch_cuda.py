@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (forward and backward) against their plain PyTorch
+versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs on a machine without JAX;
@@ -10,7 +11,9 @@ Inputs are made with numpy from fixed seeds, at the main path's widths and
 at ragged sizes that exercise each kernel's edge handling. Everything runs
 in float32 with TF32 off; the kernel and the plain version add the same
 products in a different order, so they agree to atol/rtol 1e-4 on outputs
-of order 1-100.
+of order 1-100. Backward outputs that are sums over many nodes (weight
+gradients, the dk/dv scatter) are held to 1e-4 of their largest magnitude:
+float32 sums of thousands of terms taken in another order.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ def test_neighbor_attn_kernel_matches_plain(dev, B, N, K):
     ]
     args = [_t(a, dev) for a in args] + [-0.5 / (15.0 / (De - 1)) ** 2]
     n = k1.launches
-    got = k1.neighbor_attn(*args)
+    got = k1.neighbor_attn(*args, *k1.transpose_slots(args[3]))
     assert k1.launches == n + 1
     _check(got, k1.neighbor_attn_plain(*args))
 
@@ -105,3 +108,128 @@ def test_s2_silu_sep_kernel_matches_plain(dev, E, C):
     got = k3.s2_silu_sep(x, s, tg, fg)
     assert k3.launches == n + 1
     _check(got, k3.s2_silu_sep_plain(x, s, tg, fg))
+
+
+def _check_grads(got, want, names):
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, got, want):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,K", [(2, 64, 24), (3, 50, 96)])
+def test_neighbor_attn_bwd_kernel_matches_plain(dev, B, N, K):
+    """K1b against the plain backward at a random cotangent, with random
+    masks, a node with no live slot, a padded node (self score -1e9: its
+    softmax is uniform over masked slots, which send dv to the rows they
+    name) and a repeated neighbour index; every output, the scatter included."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    H, kd, vd, De = 4, 32, 64, 64
+    rng = np.random.default_rng(53 + K)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    nbr = rng.integers(0, N, size=(B, N, K)).astype(np.int32)
+    nbr[1, 7, :3] = 5  # a repeated neighbour
+    mask = rng.random((B, N, K)) > 0.6
+    mask[0, 3] = False
+    ds = f(B, N, H)
+    ds[0, 5] = -1e9
+    mask[0, 5] = False
+    args = [
+        f(B, N, H * kd), f(B, N, H * kd), f(B, N, H * vd), nbr, mask,
+        rng.uniform(0.5, 14.0, size=(B, N, K)).astype(np.float32), ds, f(B, N, H * vd),
+        np.linspace(0.0, 15.0, De, dtype=np.float32),
+        0.3 * f(De, kd), 0.1 * f(kd), 0.3 * f(kd, kd), 0.1 * f(kd),
+        0.3 * f(De, vd), 0.1 * f(vd), 0.3 * f(vd, vd), 0.1 * f(vd),
+    ]
+    args = [_t(a, dev) for a in args] + [-0.5 / (15.0 / (De - 1)) ** 2, _t(f(B, N, H * vd), dev)]
+    n = k1.launches_bwd
+    offsets, slots = k1.transpose_slots(args[3])
+    got = k1.neighbor_attn_bwd_cuda(*args, offsets=offsets, slots=slots)
+    assert k1.launches_bwd == n + 1
+    names = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
+             "dwv1", "dbv1", "dwv2", "dbv2"]
+    _check_grads(got, k1.neighbor_attn_bwd_plain(*args), names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H", [(37, 512), (8, 40)])
+def test_so3_gate_ffn_bwd_kernel_matches_plain(dev, N, H):
+    """K2b at lmax 6 with 16 channels; N not a multiple of the node tile and
+    H not a multiple of the hidden chunk."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    lmax, C, Co = 6, 16, 16
+    L = lmax + 1
+    rng = np.random.default_rng(59 + N)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    args = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
+            0.1 * f(lmax * H), 0.1 * f(L, H, Co)]
+    args = [_t(a, dev) for a in args] + [lmax, _t(f(N, L * L, Co), dev)]
+    n = k2.launches_bwd
+    got = k2.so3_gate_ffn_bwd_cuda(*args)
+    assert k2.launches_bwd == n + 1
+    _check_grads(got, k2.so3_gate_ffn_bwd_plain(*args),
+                 ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C", [(50, 128), (9, 100)])
+def test_s2_silu_sep_bwd_kernel_matches_plain(dev, E, C):
+    """K3b with the lmax 6 / mmax 2 grid; C not a multiple of the channel
+    block; row 0 of the cotangent reaches only the scalars."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    rng = np.random.default_rng(61 + E)
+    tg, fg = (_t(m, dev) for m in _grid_mats_for(6, 2, True))
+    x = _t(rng.normal(size=(E, tg.shape[1], C)).astype(np.float32), dev)
+    s = _t(rng.normal(size=(E, C)).astype(np.float32), dev)
+    g = _t(rng.normal(size=(E, tg.shape[1], C)).astype(np.float32), dev)
+    n = k3.launches_bwd
+    got = k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g)
+    assert k3.launches_bwd == n + 1
+    _check_grads(got, k3.s2_silu_sep_bwd_plain(x, s, tg, fg, g), ["dx", "ds"])
+
+
+@pytest.mark.cuda
+def test_autograd_reaches_inputs_through_every_kernel(dev):
+    """loss.backward() on CUDA tensors gives every input of K1, K2 and K3 the
+    gradient the CPU (plain versions) gives it: the kernels sit inside
+    autograd, with nothing cut off upstream."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    rng = np.random.default_rng(67)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    tg, fg = _grid_mats_for(6, 2, True)
+    B, N, K, H, kd, vd, De = 2, 30, 12, 4, 32, 64, 64
+    nbr = rng.integers(0, N, size=(B, N, K)).astype(np.int32)
+    cases = [
+        (k3.s2_silu_sep, [f(20, 29, 128), f(20, 128), tg, fg], [0, 1], lambda ts: ()),
+        (k2.so3_gate_ffn, [f(9, 49, 16), 0.3 * f(7, 16, 40), f(40), 0.3 * f(16, 240), f(240),
+                           0.1 * f(7, 40, 16), f(16)], range(7), lambda ts: (6,)),
+        (k1.neighbor_attn, [f(B, N, H * kd), f(B, N, H * kd), f(B, N, H * vd), nbr,
+                            rng.random((B, N, K)) > 0.4, rng.uniform(0.5, 14.0, (B, N, K)).astype(np.float32),
+                            f(B, N, H), f(B, N, H * vd), np.linspace(0.0, 15.0, De, dtype=np.float32),
+                            0.3 * f(De, kd), f(kd), 0.3 * f(kd, kd), f(kd), 0.3 * f(De, vd), f(vd),
+                            0.3 * f(vd, vd), f(vd)], [0, 1, 2, 6, 7, *range(9, 17)],
+         lambda ts: (-0.2, *k1.transpose_slots(ts[3]))),
+    ]
+    for fn, arrays, diff, extra in cases:
+        grads = {}
+        for d in ("cpu", dev):
+            ts = [torch.as_tensor(np.ascontiguousarray(a)).to(d) for a in arrays]
+            for i in diff:
+                ts[i].requires_grad_()
+            out = fn(*ts, *extra(ts))
+            w = torch.as_tensor(np.random.default_rng(3).normal(size=out.shape).astype(np.float32)).to(d)
+            (out * w).sum().backward()
+            grads[str(d)] = [ts[i].grad for i in diff]
+        for a, b in zip(grads["cuda"], grads["cpu"]):
+            assert a is not None
+            scale = max(1.0, b.abs().max().item())
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=1e-4)

@@ -219,7 +219,8 @@ def test_wrappers_dispatch_plain_on_cpu_and_refuse_other_devices():
     rng = np.random.default_rng(3)
     before = (k1.launches, k2.launches, k3.launches)
     inp = [t(v) for v in _attn_inputs(rng).values()]
-    close(k1.neighbor_attn(*inp, -0.1), k1.neighbor_attn_plain(*inp, -0.1), 0, 0)
+    close(k1.neighbor_attn(*inp, -0.1, *k1.transpose_slots(inp[3])),
+          k1.neighbor_attn_plain(*inp, -0.1), 0, 0)
     p = _gate_ffn_params(rng, 2, 4, 8, 4)
     args = [t(rng.normal(size=(5, 9, 4)).astype(np.float32)),
             t(np.swapaxes(p["w1"], 1, 2).copy()), t(p["b1"]), t(p["gate_kernel"]),

@@ -36,29 +36,28 @@ def setup():
 
 
 def test_bridge_maps_every_leaf_but_encoder2(setup):
-    """Every flax leaf except model/encoder2/** lands on exactly one port
-    parameter (scan stacks unstacked, kernels transposed) and back; the port
-    model has no parameter the tree leaves unset."""
+    """Every flax leaf, ``model/encoder2/**`` included (the name dates from
+    the serving slice, which left Encoder2 unmapped), lands on exactly one
+    port parameter (scan stacks unstacked, kernels transposed) and back; the
+    port model has no parameter the tree leaves unset."""
     from singa_tpu_torch.models.singa import SINGA
     from singa_tpu_torch.params import _leaves, from_flax, load_flax_params
 
     jcfg, cfg, params, _, _ = setup
-    sd, unmapped = from_flax(params)
+    sd = from_flax(params)
     leaves = dict(_leaves(params["params"]))
-    enc2 = sorted("/".join(p) for p in leaves if p[:2] == ("model", "encoder2"))
-    assert enc2 and sorted(unmapped) == enc2
+    assert any(p[:2] == ("model", "encoder2") for p in leaves)
 
     model = SINGA(cfg, device="cpu", seed=1)
-    assert sorted(load_flax_params(model, params)) == enc2
+    load_flax_params(model, params)
     state = model.state_dict()
     assert set(state) == set(sd)
+    assert any(k.startswith("model.encoder2.") for k in sd)
     for k, v in sd.items():
         np.testing.assert_array_equal(state[k].numpy(), v, err_msg=k)
     # and back: each flax leaf is recovered bit-exactly from the port state
     n_layers = jcfg.model.encoder.num_interactions
     for path, leaf in leaves.items():
-        if path[:2] == ("model", "encoder2"):
-            continue
         if "layers" in path:
             j = path.index("layers")
             rows = [
