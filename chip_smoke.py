@@ -1,10 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU: the generation path
-and the training step.
+and the training step, under the default Config() (gate FFN) and under
+configs/train_corpus.yml (s2 FFN).
 
     python3 chip_smoke.py
 
 Needs one CUDA card; exits non-zero without one (there is no CPU fallback).
-Imports nothing of JAX or of the JAX package. Phases, one JSON line each:
+Imports nothing of JAX or of the JAX package. Phases, one JSON line each
+(``elapsed_s``: seconds since the start of the script):
 
   1. device   name and power limit (nvidia-smi), torch and CUDA versions
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
@@ -18,48 +20,65 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each:
   4. main     default Config(), seeded weights on cuda, the first 8 sorted
               val pockets through generate_for_pocket (20 beams, max length
               200, grammar mask, length penalty 0.7): launch counts per
-              encode_pocket (K3 = 3, K2 = 3, K1 = 6), encode_ms / decode_ms,
-              molecules/s, finite scores, a few SMILES
+              encode_pocket (K1 = 6, K2 = 3, K3 = 3, K4 = 0), encode_ms /
+              decode_ms, molecules/s, finite scores, a few SMILES
      profile  torch.profiler over one encode_pocket and the first 40 decode
               steps: device busy time, idle share, the costliest kernels
   5. vs_cpu   encode_pocket on the card (kernels) vs on the CPU (plain
               versions) with the same weights, 2 pockets
   6. cli      generate.main(... --device cuda) on one pocket writes its CSV
-  7. kernel_train / kernel_bwd  for all six kernels: every distinct call
+  7. the same serving path under configs/train_corpus.yml (ffn_activation
+     s2): kernel_s2 (K4 at every distinct call of one encode_pocket),
+     main_s2 (generate_for_pocket on the 8 pockets; per encode K4 = 3,
+     K2 = 0, K1 = 6, K3 = 3; encode_ms, molecules/s, the encode's profile),
+     vs_cpu_s2 (2 pockets), and kernel_s2act: K5 and K5b, on no path of
+     the port or of the JAX package, held to their plain versions on the
+     two inputs the JAX package's XLA path sends through s2_activation: the
+     s2 FFN's hidden [N, 49, 512] at the serving encode (lin1 of K4's
+     captured input, as the plain K4 forms it) and the attention's message
+     [E, 29, 128] (K3's captured input, m-primary, mmax 2), with a seeded
+     cotangent
+  8. kernel_train / kernel_bwd  for K1-K3 and K1b-K3b: every distinct call
               (by shapes) that one training microbatch (32 complexes of
               data/corpus/train, default Config in float32) makes of each
-              forward kernel (kernel_train: K3 at stage 1 and stage 2) and
-              each backward kernel (kernel_bwd), its inputs and cotangents
-              against the plain version on the card, with kernel_ms /
-              plain_ms / bound_ms as for the serving path's forwards
-  8. train    the port's Trainer (default Config, float32) on
+              kernel, its inputs and cotangents against the plain version on
+              the card, with kernel_ms / plain_ms / bound_ms
+  9. train    the port's Trainer (default Config, float32) on
               data/corpus/train through the Prefetcher, batch 64 in 2
               microbatches of 32: warm-up steps, then timed steps (step_ms,
               graphs/s, loss and gradient norm per step, peak memory), the
-              launches of all six kernels (exactly 12 each per optimizer
-              step), a finite gradient that is non-zero somewhere for every
-              parameter, and on one fixed batch a loss after 5 steps below
-              the first step's
+              launches of every kernel (12 per optimizer step of each of
+              K1-K3 and K1b-K3b, none of K4/K4b/K5/K5b), a finite gradient
+              that is non-zero somewhere for every parameter, and on one
+              fixed batch a loss after 5 steps below the first step's
      train_profile  torch.profiler over one optimizer step: device busy time,
               idle share, the costliest kernels
-  9. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
+ 10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
               card run at the same inputs as a witness of the card's own
               spread; for each comparison the L2 and max-abs errors, where
               the elements over the max-abs bound sit, and the ReLU inputs
               whose sign differs between the two runs
- 10. train_cli  python -m singa_tpu_torch.train.loop --data data/corpus
+ 11. train_cli  python -m singa_tpu_torch.train.loop --data data/corpus
               --max-iters 2 --device cuda into a temporary logdir writes its
               checkpoint; the generation CLI reads that checkpoint for one
               pocket
+ 12. the training phases again under configs/train_corpus.yml in float32
+     (batch 32 as one microbatch): kernel_train_s2 / kernel_bwd_s2 (K4 and
+     K4b at every distinct call of one step, 6 each), train_s2 (per step
+     K4 = K4b = K1 = K1b = K3 = K3b = 6, K2 = K2b = 0), train_profile_s2,
+     train_vs_cpu_s2 and train_cli_s2 (``--config configs/train_corpus.yml``;
+     the generation CLI serves from the checkpoint's s2 config, through K4)
 then the card's name and power limit as nvidia-smi prints them, the kernels
 line and ``{"ok": true, "device": {...}}`` last. The kernels line lists all
-six kernels from the training path: ``launches`` counted over the train
-phase's run; ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over
-one microbatch's calls (kernel_train / kernel_bwd, each distinct call
-weighted by how often the microbatch makes it), ``max_abs_err`` the largest
-over those calls. Any failed check raises. TF32 is off
-for matmuls and cuDNN, so every product runs in full float32.
+ten kernels: ``launches`` counted over the training run of the kernel's
+path (K1-K3, K1b-K3b: train; K4, K4b: train_s2; K5, K5b: none, 0, with
+``"path": null``); ``ms``, ``plain_ms`` and ``bound_ms`` the means per
+launch over one microbatch's calls (kernel_train / kernel_bwd and their s2
+twins, each distinct call weighted by how often the microbatch makes it;
+K5/K5b: kernel_s2act's two calls), ``max_abs_err`` the largest over those
+calls. Any failed check raises. TF32 is off for matmuls and cuDNN, so every
+product runs in full float32.
 """
 from __future__ import annotations
 
@@ -72,11 +91,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+S2_CONFIG = os.path.join("configs", "train_corpus.yml")  # ffn_activation: s2
+T_START = time.perf_counter()
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = {"atol": 1e-4, "rtol": 1e-4}  # kernel vs plain: reordered float32 sums
@@ -95,9 +117,12 @@ BWD_TOL = 1e-4
 # over it and the ReLU inputs whose sign differs between the runs
 TRAIN_CPU_TOL = 2e-3
 TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 2, 5, 5
+S2_WARMUP, S2_STEPS = 2, 4  # the s2 training path (batch 32, one microbatch)
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -224,6 +249,39 @@ def k1b_cost(args, outs):
     return b, pairs * (forward + backward)
 
 
+def k4_cost(args, out):
+    x, w1, b1, wg, bg, w2, b2, tg, fg, lmax = args
+    N, I, C = x.shape
+    H, Co, G = w1.shape[2], w2.shape[2], tg.shape[0]
+    # the gate product, two per-degree products and the two grid transforms
+    flops = 2.0 * N * (C * H + I * C * H + I * H * Co + 2 * G * I * H)
+    return nbytes(x, w1, b1, wg, bg, w2, b2, tg, fg, out), flops
+
+
+def k4b_cost(args, outs):
+    x, w1, b1, wg, bg, w2, tg, fg, lmax, dy = args
+    N, I, C = x.shape
+    H, Co, G = w1.shape[2], w2.shape[2], tg.shape[0]
+    # four grid transforms (v and the lifted cotangent, mid and dh), five
+    # per-degree products (h, dmid, dx, dw1, dw2) and three gate products
+    # (g0, dwg, the gate path's dx)
+    flops = 2.0 * N * (4 * G * I * H + 3 * I * C * H + 2 * I * H * Co + 3 * C * H)
+    return nbytes(x, w1, b1, wg, bg, w2, tg, fg, dy, *outs), flops
+
+
+def k5_cost(args, out):
+    x, tg, fg = args
+    N, I, C = x.shape
+    return nbytes(x, tg, fg, out), 2.0 * N * C * tg.shape[0] * I * 2
+
+
+def k5b_cost(args, outs):
+    x, tg, fg, g = args
+    N, I, C = x.shape
+    # the grid value (recomputed), the lifted cotangent and the to-grid transpose
+    return nbytes(x, tg, fg, g, *outs), 2.0 * N * C * tg.shape[0] * I * 3
+
+
 def capture_calls(fns: dict, run) -> dict:
     """Run ``run()`` with each function ``{name: module}`` of ``fns`` wrapped
     to record its calls. Returns {name: {shapes: [args, kwargs, calls]}}: the
@@ -256,59 +314,97 @@ def capture_calls(fns: dict, run) -> dict:
     return captured
 
 
-KERNELS = [
-    # name, module, function (``<fn>_cuda`` is the kernel, ``<fn>_plain`` its
-    # plain version), source, replaces, cost, output names (None: forward)
-    ("neighbor_attn_fused", "neighbor_attn", "neighbor_attn",
-     "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:306",
-     k1_cost, None),
-    ("so3_gate_ffn_fused", "so3_ffn", "so3_gate_ffn",
-     "singa_tpu_torch/csrc/so3_gate_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:497", k2_cost, None),
-    ("s2_silu_sep", "s2_act", "s2_silu_sep",
-     "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None),
-    ("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd",
-     "singa_tpu_torch/csrc/neighbor_attn_bwd.cu", "singa_tpu/ops/pallas/neighbor_attn.py:362",
-     k1b_cost, ("dqt", "dk", "dv", "d_diag_scores", "d_diag_value", "dwk1", "dbk1", "dwk2",
-                "dbk2", "dwv1", "dbv1", "dwv2", "dbv2")),
-    ("so3_gate_ffn_bwd", "so3_ffn", "so3_gate_ffn_bwd",
-     "singa_tpu_torch/csrc/so3_gate_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:529",
-     k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")),
-    ("s2_silu_sep_bwd", "s2_act", "s2_silu_sep_bwd",
-     "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:209",
-     k3b_cost, ("dx", "d_scalars")),
+class Kernel(NamedTuple):
+    name: str
+    module: str  # singa_tpu_torch.ops.cuda.<module>
+    fn: str  # ``<fn>_cuda`` is the kernel, ``<fn>_plain`` its plain version
+    counter: str  # the module's launch counter
+    source: str
+    replaces: str
+    cost: object
+    outs: tuple | None  # the backward's output names; None: a forward
+
+
+K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B = KERNELS = [
+    Kernel("neighbor_attn_fused", "neighbor_attn", "neighbor_attn", "launches",
+           "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:306",
+           k1_cost, None),
+    Kernel("so3_gate_ffn_fused", "so3_ffn", "so3_gate_ffn", "launches",
+           "singa_tpu_torch/csrc/so3_gate_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:497",
+           k2_cost, None),
+    Kernel("s2_silu_sep", "s2_act", "s2_silu_sep", "launches",
+           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None),
+    Kernel("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd", "launches_bwd",
+           "singa_tpu_torch/csrc/neighbor_attn_bwd.cu", "singa_tpu/ops/pallas/neighbor_attn.py:362",
+           k1b_cost, ("dqt", "dk", "dv", "d_diag_scores", "d_diag_value", "dwk1", "dbk1",
+                      "dwk2", "dbk2", "dwv1", "dbv1", "dwv2", "dbv2")),
+    Kernel("so3_gate_ffn_bwd", "so3_ffn", "so3_gate_ffn_bwd", "launches_bwd",
+           "singa_tpu_torch/csrc/so3_gate_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:529",
+           k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")),
+    Kernel("s2_silu_sep_bwd", "s2_act", "s2_silu_sep_bwd", "launches_bwd",
+           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:209",
+           k3b_cost, ("dx", "d_scalars")),
+    Kernel("so3_ffn_fused", "so3_ffn", "so3_ffn", "launches_s2",
+           "singa_tpu_torch/csrc/so3_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:321", k4_cost, None),
+    Kernel("so3_ffn_bwd", "so3_ffn", "so3_ffn_bwd", "launches_s2_bwd",
+           "singa_tpu_torch/csrc/so3_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:351",
+           k4b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")),
+    Kernel("s2_silu", "s2_act", "s2_silu", "launches_silu",
+           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:248", k5_cost, None),
+    Kernel("s2_silu_bwd", "s2_act", "s2_silu_bwd", "launches_silu_bwd",
+           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:123",
+           k5b_cost, ("dx",)),
 ]
-FORWARD = [k for k in KERNELS if k[6] is None]
+GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
+S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
 
 
 def kernel_modules() -> dict:
     import importlib
 
-    return {m: importlib.import_module(f"singa_tpu_torch.ops.cuda.{m}") for _, m, *_ in KERNELS}
+    return {k.module: importlib.import_module(f"singa_tpu_torch.ops.cuda.{k.module}")
+            for k in KERNELS}
 
 
-def hold(spec, mod, args, kw) -> dict:
+def zero_counts(mods) -> None:
+    for k in KERNELS:
+        setattr(mods[k.module], k.counter, 0)
+
+
+def read_counts(mods) -> dict:
+    return {k.name: getattr(mods[k.module], k.counter) for k in KERNELS}
+
+
+def capture(specs, mods, run) -> dict:
+    """``capture_calls`` of the kernels ``specs`` over ``run()``."""
+    return capture_calls({f"{k.fn}_cuda": mods[k.module] for k in specs}, run)
+
+
+def hold(spec: Kernel, mod, args, kw) -> dict:
     """One kernel against its plain version on the same inputs on the card:
     the errors against the tolerance, kernel_ms / plain_ms and the bound. A
     forward is held to TOL; each output of a backward to BWD_TOL of its own
     largest magnitude."""
-    _, _, fn, _, _, cost, outs = spec
-    launch, plain = getattr(mod, f"{fn}_cuda"), getattr(mod, f"{fn}_plain")
+    launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
+    as_tuple = lambda r: (r,) if torch.is_tensor(r) else tuple(r)
     with torch.no_grad():
         got, want = launch(*args, **kw), plain(*args)
         torch.cuda.synchronize()
-        if outs is None:
+        if spec.outs is None:
             err = (got - want).abs()
             errs = {"max_abs_err": err.max().item(),
                     "max_rel_err": (err / (want.abs() + TOL["atol"] / TOL["rtol"])).max().item()}
             ok, max_abs, tol = bool(torch.allclose(got, want, **TOL)), errs["max_abs_err"], TOL
         else:
+            got, want = as_tuple(got), as_tuple(want)
             errs = {o: [(a - b).abs().max().item(), b.abs().max().item()]
-                    for o, a, b in zip(outs, got, want)}
+                    for o, a, b in zip(spec.outs, got, want)}
             ok = all(e <= BWD_TOL * scale for e, scale in errs.values())
             max_abs, tol = max(e for e, _ in errs.values()), f"{BWD_TOL} x each output's max"
+        del want
         k_ms = time_ms(lambda: launch(*args, **kw))
         p_ms = time_ms(lambda: plain(*args))
-    b, f = cost(args, got)
+    b, f = spec.cost(args, got)
     b += nbytes(*kw.values())
     bms, by = bound_ms(b, f)
     return {"shapes": [list(a.shape) for a in (*args, *kw.values()) if torch.is_tensor(a)],
@@ -317,28 +413,28 @@ def hold(spec, mod, args, kw) -> dict:
             "flops": f, "fraction_of_bound": bms / k_ms}
 
 
-def hold_all(specs, mods, captured, phase, per) -> dict:
+def hold_all(specs, mods, captured, phase, per, path) -> dict:
     """``hold`` every captured call of every kernel in ``specs``, one line
     each; raises on the first disagreement. Returns each kernel's line of
     the kernels table: times per launch averaged over the calls, weighted by
-    how often each was made."""
+    how often each was made; ``path`` names the run whose launches it will
+    report."""
     results = {}
     for spec in specs:
-        name, m, fn, source, replaces, *_ = spec
         recs = []
-        for args, kw, calls in captured[f"{fn}_cuda"].values():
-            rec = hold(spec, mods[m], args, kw)
-            emit({"phase": phase, "name": name, per: calls, **rec})
+        for args, kw, calls in captured[f"{spec.fn}_cuda"].values():
+            rec = hold(spec, mods[spec.module], args, kw)
+            emit({"phase": phase, "name": spec.name, per: calls, **rec})
             if not rec["ok"]:
-                raise AssertionError(f"{name}: kernel disagrees with its plain version {rec}")
+                raise AssertionError(f"{spec.name}: kernel disagrees with its plain version {rec}")
             recs.append((calls, rec))
         if not recs:
-            raise AssertionError(f"{name}: no call captured")
+            raise AssertionError(f"{spec.name}: no call captured")
         n = sum(c for c, _ in recs)
         mean = lambda key: sum(c * r[key] for c, r in recs) / n
-        results[name] = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": None, "max_abs_err": max(r["max_abs_err"] for _, r in recs),
+        results[spec.name] = {
+            "name": spec.name, "route": "cuda", "source": spec.source, "replaces": spec.replaces,
+            "launches": None, "path": path, "max_abs_err": max(r["max_abs_err"] for _, r in recs),
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": max(recs, key=lambda cr: cr[0] * cr[1]["bound_ms"])[1]["bound_by"],
             "library_ms": None,
@@ -409,21 +505,25 @@ def relu_flips(got: list, want: list) -> dict:
             "by_module": flips, "largest_flipped_magnitude": near}
 
 
-def train_phases(dev, results: dict, val_files) -> None:
+def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_step: dict,
+                 cli_args: list, warmup: int, steps: int) -> None:
     """kernel_train, kernel_bwd, train, train_profile, train_vs_cpu and
-    train_cli; fills ``results`` with the six kernels' lines."""
-    from singa_tpu_torch.config import Config
+    train_cli (each phase name + ``suffix``) under ``cfg`` (float32); fills
+    ``results`` with the lines of the kernels ``specs``, whose launches come
+    from this path's train phase. ``per_step``: the launches of every kernel
+    that one optimizer step must make (the rest must make none)."""
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.data.dataset import BucketedNpzDataset
     from singa_tpu_torch.data.pipeline import Prefetcher
     from singa_tpu_torch.generate.generate import main as gen_main
     from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
-    from singa_tpu_torch.train.loop import Trainer, float32_config
+    from singa_tpu_torch.train.loop import Trainer
     from singa_tpu_torch.train.loop import main as train_main
 
     mods = kernel_modules()
-    cfg = float32_config(Config())
     train_dir = os.path.join(ROOT, "data", "corpus", "train")
+    path = f"train{suffix}"
+    micro_size = cfg.train.microbatch or cfg.train.batch_size
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(cfg, logdir=os.path.join(tmp, "run"), device=dev)
@@ -431,43 +531,40 @@ def train_phases(dev, results: dict, val_files) -> None:
                           depth=2, device=dev)
         it = iter(data)
 
-        # kernel_train / kernel_bwd: every call one training microbatch
-        # makes of the six kernels, each distinct one held to its plain version
+        # kernel_train / kernel_bwd: every call one training microbatch makes
+        # of the path's kernels, each distinct one held to its plain version
         first = next(it)
-        micro = first.rows(0, cfg.train.microbatch)
+        micro = first.rows(0, micro_size)
 
         def one_microbatch():
             trainer.model.zero_grad(set_to_none=True)
             trainer.loss(micro).backward()
 
-        captured = capture_calls({f"{fn}_cuda": mods[m] for _, m, fn, *_ in KERNELS},
-                                 one_microbatch)
-        results.update(hold_all(FORWARD, mods, captured, "kernel_train", "calls_per_microbatch"))
-        results.update(hold_all([k for k in KERNELS if k[6]], mods, captured, "kernel_bwd",
-                                "calls_per_microbatch"))
+        captured = capture(specs, mods, one_microbatch)
+        results.update(hold_all([k for k in specs if k.outs is None], mods, captured,
+                                f"kernel_train{suffix}", "calls_per_microbatch", path))
+        results.update(hold_all([k for k in specs if k.outs], mods, captured,
+                                f"kernel_bwd{suffix}", "calls_per_microbatch", path))
         del captured, micro
 
         # train: warm-up and timed optimizer steps, counts zeroed just before
-        counters = {name: (mods[m], "launches" if outs is None else "launches_bwd")
-                    for name, m, *_, outs in KERNELS}
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        zero_counts(mods)
         torch.cuda.reset_peak_memory_stats()
-        steps = []
+        log = []
         batch = first
-        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        for i in range(warmup + steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss, gnorm = trainer.train_step(batch)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            steps.append({"step_ms": ms, "loss": loss.item(), "grad_norm": gnorm.item()})
+            log.append({"step_ms": ms, "loss": loss.item(), "grad_norm": gnorm.item()})
             batch = next(it)
-        n_steps = len(steps)
-        counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
-        for n, c in counts.items():
-            results[n]["launches"] = c
-        timed = [s["step_ms"] for s in steps[TRAIN_WARMUP:]]
+        n_steps = len(log)
+        counts = read_counts(mods)
+        for k in specs:
+            results[k.name]["launches"] = counts[k.name]
+        timed = [s["step_ms"] for s in log[warmup:]]
         step_ms = statistics.median(timed)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         grads_ok = [n for n, p in trainer.model.named_parameters()
@@ -475,24 +572,27 @@ def train_phases(dev, results: dict, val_files) -> None:
                     or not bool((p.grad != 0).any())]
         # a fixed batch: the loss after FIXED_STEPS updates is below the first
         fixed = [trainer.train_step(batch)[0].item() for _ in range(FIXED_STEPS + 1)]
-        emit({"phase": "train", "batch": cfg.train.batch_size, "microbatch": cfg.train.microbatch,
-              "steps": steps, "warmup_steps": TRAIN_WARMUP, "step_ms": step_ms,
+        expected = {n: per_step.get(n, 0) * n_steps for n in counts}
+        emit({"phase": path, "ffn_activation": cfg.embedding.ffn_activation,
+              "batch": cfg.train.batch_size, "microbatch": cfg.train.microbatch,
+              "steps": log, "warmup_steps": warmup, "step_ms": step_ms,
               "graphs_per_s": cfg.train.batch_size / (step_ms / 1e3),
               "peak_mem_gb": peak_gb, "launches": counts,
               "launches_per_step": {n: c / n_steps for n, c in counts.items()},
               "params": trainer.num_params(), "params_without_good_grad": grads_ok,
               "fixed_batch_losses": fixed})
-        if any(c != 12 * n_steps for c in counts.values()):
-            raise AssertionError(f"launches over {n_steps} steps {counts}, expected 12 each per step")
+        if counts != expected:
+            raise AssertionError(f"launches over {n_steps} steps {counts}, expected {expected}")
         if grads_ok:
             raise AssertionError(f"parameters without a finite non-zero gradient: {grads_ok[:10]}")
         if not fixed[-1] < fixed[0]:
             raise AssertionError(f"loss on a fixed batch did not fall: {fixed}")
-        if not all(np.isfinite([s["loss"] for s in steps])):
-            raise AssertionError(f"non-finite training loss: {steps}")
+        if not all(np.isfinite([s["loss"] for s in log])):
+            raise AssertionError(f"non-finite training loss: {log}")
 
         # train_profile: one optimizer step
-        emit({"phase": "train_profile", "step": device_profile(lambda: trainer.train_step(batch))})
+        emit({"phase": f"train_profile{suffix}",
+              "step": device_profile(lambda: trainer.train_step(batch))})
         data.close()
 
         del trainer
@@ -520,7 +620,7 @@ def train_phases(dev, results: dict, val_files) -> None:
         ok = (vs_cpu["l2"] <= 1.0 and vs_card["l2"] <= 1.0
               and abs(l_gpu - l_cpu) <= TRAIN_CPU_TOL * abs(l_cpu)
               and abs(l_again - l_gpu) <= TRAIN_CPU_TOL * abs(l_gpu))
-        emit({"phase": "train_vs_cpu", "complexes": 2, "loss_cuda": l_gpu,
+        emit({"phase": f"train_vs_cpu{suffix}", "complexes": 2, "loss_cuda": l_gpu,
               "loss_cuda_again": l_again, "loss_cpu": l_cpu, "tolerance": TRAIN_CPU_TOL,
               "card_vs_cpu": {**vs_cpu, "relu": relu_flips(r_gpu, r_cpu)},
               "card_vs_card": {**vs_card, "relu": relu_flips(r_again, r_gpu)}, "ok": ok})
@@ -528,22 +628,141 @@ def train_phases(dev, results: dict, val_files) -> None:
             raise AssertionError("the card's training step disagrees with the CPU's or its own")
         del runs, g_gpu, g_again, g_cpu, r_gpu, r_again, r_cpu
 
-        # train_cli: 2 steps through the CLI, then generation from its checkpoint
+        # train_cli: 2 steps through the CLI, then generation from its
+        # checkpoint (and the config.yml the trainer wrote beside it)
         logdir = os.path.join(tmp, "cli")
         t1 = time.perf_counter()
-        train_main(["--data", os.path.join(ROOT, "data", "corpus"), "--max-iters", "2",
+        train_main([*cli_args, "--data", os.path.join(ROOT, "data", "corpus"), "--max-iters", "2",
                     "--device", "cuda", "--logdir", logdir])
         train_s = time.perf_counter() - t1
         ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
         out = os.path.join(tmp, "gen.csv")
+        zero_counts(mods)
         gen_main(["--checkpoint", os.path.join(logdir, "checkpoints"), "--input", val_files[0],
                   "--output", out, "--device", "cuda"])
+        gen_counts = read_counts(mods)
         with open(out) as f:
             rows = list(csv.reader(f))
-        emit({"phase": "train_cli", "seconds": train_s, "checkpoints": ckpts,
+        emit({"phase": f"train_cli{suffix}", "args": cli_args, "seconds": train_s,
+              "checkpoints": ckpts, "generation_launches": gen_counts,
               "generated": [[r[0][:80], r[1]] for r in rows[1:]]})
         if ckpts != ["2"] or rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk:
             raise AssertionError(f"train CLI wrote {ckpts}; generation wrote {rows}")
+        ffn = K4 if cfg.embedding.ffn_activation == "s2" else K2
+        if gen_counts[ffn.name] != cfg.embedding.num_layers:
+            raise AssertionError(f"generation from the checkpoint launched {gen_counts}")
+
+
+def serve_counts(cfg) -> dict:
+    """The launches of every kernel in one generate_for_pocket: one
+    encode_pocket's (embedding stage 1 in gen_mode, then the kNN encoder)."""
+    ffn = K4 if cfg.embedding.ffn_activation == "s2" else K2
+    want = {K1.name: cfg.model.encoder.num_interactions, K3.name: cfg.embedding.num_layers,
+            ffn.name: cfg.embedding.num_layers}
+    return {k.name: want.get(k.name, 0) for k in KERNELS}
+
+
+def timed_encode(model, batch, n: int = 3):
+    """The median wall time of ``n`` warm encode_pocket calls, and the last
+    call's output."""
+    with torch.inference_mode():
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = model.encode_pocket(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(times), out
+
+
+def vs_cpu(model, cfg, files, dev, phase: str) -> None:
+    """encode_pocket on the card (kernels) vs on the CPU (plain versions),
+    the same seeded weights, 2 pockets, within CPU_TOL."""
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.models.singa import SINGA
+
+    cpu_model = SINGA(cfg, device="cpu", seed=0).eval()
+    small = load_npz(files[:2])
+    with torch.inference_mode():
+        enc_gpu, _ = model.encode_pocket(small.to(dev))
+        enc_cpu, _ = cpu_model.encode_pocket(small)
+    diff = (enc_gpu.cpu() - enc_cpu).abs()
+    ok = bool(torch.allclose(enc_gpu.cpu(), enc_cpu, **CPU_TOL))
+    emit({"phase": phase, "ffn_activation": cfg.embedding.ffn_activation, "pockets": 2,
+          "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+          "max_abs_value": enc_cpu.abs().max().item(), "tolerance": CPU_TOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase}: card encode_pocket disagrees with the CPU")
+
+
+def serve_s2_phases(dev, files, batch, mods, results: dict) -> None:
+    """kernel_s2, main_s2, vs_cpu_s2 and kernel_s2act under
+    configs/train_corpus.yml (serving ignores train.compute_dtype and runs
+    in float32); fills ``results`` with K5's and K5b's lines."""
+    from singa_tpu_torch.config import load_config
+    from singa_tpu_torch.generate.generate import generate_for_pocket
+    from singa_tpu_torch.models.singa import SINGA
+
+    cfg = load_config(os.path.join(ROOT, S2_CONFIG))
+    model = SINGA(cfg, device=dev, seed=0).eval()
+
+    def encode():
+        with torch.inference_mode():
+            model.encode_pocket(batch)
+
+    # kernel_s2: K4 at every distinct call of one encode_pocket (K3's
+    # inputs are kept for kernel_s2act)
+    captured = capture([K3, K4], mods, encode)
+    hold_all([K4], mods, captured, "kernel_s2", "calls_per_encode", None)
+
+    # main_s2: counts set to 0 just before, read just after
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smiles, scores = generate_for_pocket(model, batch, cfg)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts(mods)
+    expected = serve_counts(cfg)
+    if counts != expected:
+        raise AssertionError(f"s2: launches per encode_pocket {counts}, expected {expected}")
+    finite = bool(torch.isfinite(torch.as_tensor(scores)).all())
+    if len(smiles) != 8 * cfg.generate.topk or not finite:
+        raise AssertionError(f"s2: {len(smiles)} molecules, scores {scores}")
+    enc_ms, _ = timed_encode(model, batch)
+    with torch.inference_mode():
+        enc_prof = device_profile(lambda: model.encode_pocket(batch))
+    emit({"phase": "main_s2", "config": S2_CONFIG, "pockets": 8,
+          "launches_per_encode_pocket": counts, "generate_for_pocket_s": total_s,
+          "molecules_per_s": len(smiles) / total_s, "encode_ms": enc_ms,
+          "encode_profile": enc_prof, "scores_finite": finite,
+          "smiles": [s[:80] for s in smiles[:4]]})
+
+    vs_cpu(model, cfg, files, dev, "vs_cpu_s2")
+    del model
+
+    # kernel_s2act: K5 and K5b on the s2 FFN's hidden and on the attention's
+    # message, each with a seeded cotangent
+    (x, w1, b1, _, _, _, _, tg, fg, lmax), _, _ = next(iter(captured["so3_ffn_cuda"].values()))
+    (msg, _, tg_m, fg_m), _, _ = next(iter(captured["s2_silu_sep_cuda"].values()))
+    del captured
+    with torch.no_grad():
+        l_of = mods["so3_ffn"]._l_of(lmax, dev)
+        hidden = torch.einsum("nic,ich->nih", x, w1.index_select(0, l_of)).contiguous()
+        hidden[:, 0] += b1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cot = lambda t: torch.randn(t.shape, generator=gen, device=dev)
+    # clones made outside inference mode, so the plain backward may save them
+    inputs = {"ffn_hidden": (hidden, tg.clone(), fg.clone()),
+              "attention_message": (msg.clone(), tg_m.clone(), fg_m.clone())}
+    act = {"s2_silu_cuda": {}, "s2_silu_bwd_cuda": {}}
+    for name, args in inputs.items():
+        act["s2_silu_cuda"][name] = [args, {}, 1]
+        act["s2_silu_bwd_cuda"][name] = [(*args, cot(args[0])), {}, 1]
+    for k, line in hold_all([K5, K5B], mods, act, "kernel_s2act", "calls", None).items():
+        results[k] = {**line, "launches": 0}  # on no path: the runs above assert none
+    del act, inputs, hidden
 
 
 def main() -> int:
@@ -551,13 +770,14 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from singa_tpu_torch.config import Config
+    from singa_tpu_torch.config import Config, load_config
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.generate.beam import beam_generate
     from singa_tpu_torch.generate.generate import generate_for_pocket
     from singa_tpu_torch.generate.generate import main as cli_main
     from singa_tpu_torch.models.singa import SINGA
     from singa_tpu_torch.ops.cuda import build
+    from singa_tpu_torch.train.loop import float32_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -591,22 +811,18 @@ def main() -> int:
         with torch.inference_mode():
             model.encode_pocket(batch)
 
-    captured = capture_calls({f"{fn}_cuda": mods[m] for _, m, fn, *_ in FORWARD}, encode)
-    hold_all(FORWARD, mods, captured, "kernel", "calls_per_encode")
-    del captured
+    hold_all([K1, K2, K3], mods, capture([K1, K2, K3], mods, encode), "kernel",
+             "calls_per_encode", None)
 
     # main path: counts set to 0 just before, read just after
-    for _, m, *_ in FORWARD:
-        mods[m].launches = 0
+    zero_counts(mods)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     smiles, scores = generate_for_pocket(model, batch, cfg)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    counts = {name: mods[m].launches for name, m, *_ in FORWARD}
-    expected = {"neighbor_attn_fused": cfg.model.encoder.num_interactions,
-                "so3_gate_ffn_fused": cfg.embedding.num_layers,
-                "s2_silu_sep": cfg.embedding.num_layers}
+    counts = read_counts(mods)
+    expected = serve_counts(cfg)
     if counts != expected:
         raise AssertionError(f"launches per encode_pocket {counts}, expected {expected}")
     if len(smiles) != 8 * cfg.generate.topk:
@@ -616,14 +832,8 @@ def main() -> int:
         raise AssertionError(f"non-finite beam scores: {scores}")
 
     # the two halves timed on their own (warm)
+    enc_ms, (enc, pad) = timed_encode(model, batch)
     with torch.inference_mode():
-        enc_times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            enc, pad = model.encode_pocket(batch)
-            torch.cuda.synchronize()
-            enc_times.append((time.perf_counter() - t1) * 1e3)
         prop = torch.tensor([cfg.generate.prop] * 8, dtype=torch.float32, device=dev)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -636,7 +846,7 @@ def main() -> int:
         decode_ms = (time.perf_counter() - t1) * 1e3
     emit({"phase": "main", "pockets": 8, "launches_per_encode_pocket": counts,
           "generate_for_pocket_s": total_s, "molecules_per_s": len(smiles) / total_s,
-          "encode_ms": statistics.median(enc_times), "decode_ms": decode_ms,
+          "encode_ms": enc_ms, "decode_ms": decode_ms,
           "decode_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "scores_finite": finite, "scores": [float(s) for s in scores],
           "smiles": [s[:80] for s in smiles[:4]]})
@@ -651,20 +861,10 @@ def main() -> int:
             allow_dot=g.allow_dot))
     emit({"phase": "profile", "encode_pocket": enc_prof,
           f"decode_{PROFILE_STEPS}_steps": dec_prof})
+    del enc, pad
 
     # the card (kernels) vs the CPU (plain versions), same weights, 2 pockets
-    cpu_model = SINGA(cfg, device="cpu", seed=0).eval()
-    small = load_npz(files[:2])
-    with torch.inference_mode():
-        enc_gpu, _ = model.encode_pocket(small.to(dev))
-        enc_cpu, _ = cpu_model.encode_pocket(small)
-    diff = (enc_gpu.cpu() - enc_cpu).abs()
-    ok = bool(torch.allclose(enc_gpu.cpu(), enc_cpu, **CPU_TOL))
-    emit({"phase": "vs_cpu", "pockets": 2, "max_abs_err": diff.max().item(),
-          "mean_abs_err": diff.mean().item(), "max_abs_value": enc_cpu.abs().max().item(),
-          "tolerance": CPU_TOL, "ok": ok})
-    if not ok:
-        raise AssertionError("card encode_pocket disagrees with the CPU")
+    vs_cpu(model, cfg, files, dev, "vs_cpu")
 
     # the CLI on one pocket with the seeded weights
     with tempfile.TemporaryDirectory() as tmp:
@@ -680,12 +880,24 @@ def main() -> int:
     if rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk:
         raise AssertionError(f"unexpected CLI csv: {rows}")
     emit({"phase": "cli", "seconds": cli_s, "rows": [[r[0][:80], r[1]] for r in rows[1:]]})
+    del model
+    torch.cuda.empty_cache()
 
     results = {}
-    train_phases(dev, results, files)
+    serve_s2_phases(dev, files, batch, mods, results)
+    del batch
+    torch.cuda.empty_cache()
+
+    train_phases(dev, results, files, float32_config(cfg), "", GATE_PATH,
+                 {k.name: 12 for k in GATE_PATH}, [], TRAIN_WARMUP, TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
+    train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,
+                 {k.name: 6 for k in (K1, K3, K1B, K3B, K4, K4B)}, ["--config", S2_CONFIG],
+                 S2_WARMUP, S2_STEPS)
 
     print(smi, flush=True)
-    emit({"kernels": [results[name] for name, *_ in KERNELS]})
+    emit({"kernels": [results[k.name] for k in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})
     return 0

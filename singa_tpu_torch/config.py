@@ -56,10 +56,11 @@ class EmbeddingConfig:
     num_layers: int = 3
     norm_type: str = "rms_norm_sh"
     # FFN nonlinearity (reference EF_layers.py:152-270 config axes):
-    # 'gate' = GateActivation, no grid transforms (the default; the only
-    # activation the port runs so far);
-    # 's2' = separable S2 grid activation (the reference's shipped default);
-    # 'grid' = grid-space 3-layer MLP (use_grid_mlp, parity coverage).
+    # 'gate' = GateActivation, no grid transforms (the default; kernel K2);
+    # 's2' = separable S2 grid activation (the reference's shipped default,
+    # configs/train_corpus.yml; kernel K4);
+    # 'grid' = grid-space 3-layer MLP (use_grid_mlp, parity coverage; not
+    # ported yet, the port raises).
     ffn_activation: str = "gate"
     basis_width_scalar: float = 20.0
     # training-time rematerialisation knobs of the JAX package, kept so one

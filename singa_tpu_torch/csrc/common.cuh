@@ -79,10 +79,16 @@ inline int persistent_grid(Kernel kernel, int threads, size_t smem, long long jo
 }
 
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
+// A size above the card's limit is refused (cudaErrorInvalidValue); the
+// refusal is cleared from the runtime's last error, so the next launch's
+// cudaGetLastError() does not report it.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 }  // namespace singa

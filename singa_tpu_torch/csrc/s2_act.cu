@@ -1,4 +1,5 @@
-// K3: separable S2 SiLU, forward; K3b: its backward.
+// K3: separable S2 SiLU, forward; K3b: its backward. K5 / K5b: the S2 SiLU
+// on all rows and its backward (at the end of the file).
 //
 // K3 replaces: singa_tpu/ops/pallas/s2_act.py::s2_silu_sep (_sep_fwd_kernel).
 //   out[e, i, c] = sum_g fg[g, i] * silu(sum_j tg[g, j] * x[e, j, c])  (i >= 1)
@@ -22,7 +23,7 @@
 // broadcast of 16 bytes that feeds four multiply-adds. A grid-stride loop
 // over (edge, 128-channel block) with one resident wave of blocks loads the
 // matrices once per block.
-#include "common.cuh"
+#include "s2_grid.cuh"
 
 namespace {
 
@@ -173,6 +174,96 @@ s2_silu_sep_bwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
   }
 }
 
+
+// K5: S2 SiLU on all rows; K5b: its backward.
+//
+// K5 replaces: singa_tpu/ops/pallas/s2_act.py::s2_silu (s2_silu_pallas,
+// _fwd_kernel); K5b: _bwd (_bwd_kernel).
+//   out[n, :, c] = fg^T silu(tg x[n, :, c])
+//   dx[n, :, c]  = tg^T (silu'(tg x[n, :, c]) * fg g[n, :, c])
+// x, g [N, I <= 64, C]; tg/fg [G, I]. Unlike K3/K3b no row is special.
+//
+// What bounds it on the H100: per (node, channel) column two (K5) or three
+// (K5b) contractions of 2*G*I operations against 8 (12) bytes of x (and g)
+// in and out per coefficient: at the s2 FFN's hidden (I = 49, G = 210)
+// ~20 operations per byte, float32 arithmetic bounds it; at the attention's
+// message (I = 29, G = 70) too.
+//
+// Design: K3's register columns do not stretch to 49 coefficients (x, the
+// accumulators and, in K5b, g would exceed the register file), so K5 runs
+// K4's grid chain (csrc/s2_grid.cuh) on tiles of 128 columns of the flat
+// (node, channel) column space: the tile's [I, 128] slice of x (and g) in
+// shared memory, the grid formed 32 points at a time, the result in
+// registers. tg and fg are staged once per block; the grid is persistent.
+constexpr int kSiluCols = 128;  // columns per tile
+constexpr int kSiluPad = 4;     // floats added to each row of the tile
+
+template <bool BWD>
+__global__ void __launch_bounds__(singa::kChainThreads, 1)
+s2_silu_kernel(const float* __restrict__ x, const float* __restrict__ gin,
+               const float* __restrict__ tg, const float* __restrict__ fg,
+               float* __restrict__ out, int N, int I, int C, int G) {
+  const int Ip = singa::pad_rows(I);
+  const int xs = kSiluCols + kSiluPad;
+  extern __shared__ __align__(16) float smem[];
+  const size_t gm = singa::grid_mats_floats(G, I) / 2;
+  float* stg = smem;                    // [Gp][Ip]
+  float* sfg = stg + gm;                // [Gp][Ip]
+  float* sx = sfg + gm;                 // [Ip][kSiluCols] (+pad): x, then the result
+  float* sg = sx + Ip * xs;             // [Ip][kSiluCols] (+pad): g (K5b)
+  float* sact = sg + (BWD ? Ip * xs : 0);  // [kGC][kSiluCols]
+  singa::stage_grid_mats(tg, fg, G, I, stg, sfg);
+  for (int t = threadIdx.x; t < (Ip - I) * xs; t += blockDim.x) {  // padded rows
+    sx[I * xs + t] = 0.f;
+    if (BWD) sg[I * xs + t] = 0.f;
+  }
+
+  const long long Q = (long long)N * C;  // columns (node, channel)
+  const long long tiles = (Q + kSiluCols - 1) / kSiluCols;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long q0 = tile * kSiluCols;
+    __syncthreads();  // the previous tile's result is stored
+    for (int t = threadIdx.x; t < I * kSiluCols; t += blockDim.x) {
+      const int j = t / kSiluCols, col = t % kSiluCols;
+      const long long q = q0 + col;
+      const long long at = (q / C) * I * C + (long long)j * C + q % C;
+      sx[j * xs + col] = q < Q ? x[at] : 0.f;
+      if (BWD) sg[j * xs + col] = q < Q ? gin[at] : 0.f;
+    }
+    __syncthreads();
+    if (BWD)
+      singa::grid_chain<kSiluCols, true, false, true>(stg, sfg, G, I, sx, sg, xs, nullptr, sact,
+                                                      nullptr, sx, xs, nullptr);
+    else
+      singa::grid_chain<kSiluCols, false, true, false>(stg, sfg, G, I, sx, nullptr, xs, sact,
+                                                       nullptr, sx, nullptr, xs, nullptr);
+    __syncthreads();
+    for (int t = threadIdx.x; t < I * kSiluCols; t += blockDim.x) {
+      const int j = t / kSiluCols, col = t % kSiluCols;
+      const long long q = q0 + col;
+      if (q < Q) out[(q / C) * I * C + (long long)j * C + q % C] = sx[j * xs + col];
+    }
+  }
+}
+
+template <bool BWD>
+int s2_silu_launch(const float* x, const float* g, const float* tg, const float* fg, float* out,
+                   int N, int I, int C, int G, void* stream) {
+  if (N < 1 || C < 1 || G < 1 || !singa::chain_fits(kSiluCols, 1, I))
+    return (int)cudaErrorInvalidValue;
+  const int Ip = singa::pad_rows(I);
+  const size_t floats = singa::grid_mats_floats(G, I) + (BWD ? 2 : 1) * (size_t)Ip *
+                        (kSiluCols + kSiluPad) + (size_t)singa::kGC * kSiluCols;
+  const size_t smem = floats * sizeof(float);
+  cudaError_t err = singa::allow_smem(s2_silu_kernel<BWD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = ((long long)N * C + kSiluCols - 1) / kSiluCols;
+  const int grid = singa::persistent_grid(s2_silu_kernel<BWD>, singa::kChainThreads, smem, tiles);
+  s2_silu_kernel<BWD><<<grid, singa::kChainThreads, smem, (cudaStream_t)stream>>>(
+      x, g, tg, fg, out, N, I, C, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int s2_silu_sep_f32(const float* x, const float* s, const float* tg,
@@ -201,4 +292,15 @@ extern "C" int s2_silu_sep_bwd_f32(const float* x, const float* s, const float* 
   s2_silu_sep_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(x, s, g, tg, fg, dx,
                                                                          ds, E, I, C, G);
   return (int)cudaGetLastError();
+}
+
+// K5 and K5b. Return cudaErrorInvalidValue for more than 64 coefficient rows.
+extern "C" int s2_silu_f32(const float* x, const float* tg, const float* fg, float* out, int N,
+                           int I, int C, int G, void* stream) {
+  return s2_silu_launch<false>(x, nullptr, tg, fg, out, N, I, C, G, stream);
+}
+
+extern "C" int s2_silu_bwd_f32(const float* x, const float* g, const float* tg, const float* fg,
+                               float* dx, int N, int I, int C, int G, void* stream) {
+  return s2_silu_launch<true>(x, g, tg, fg, dx, N, I, C, G, stream);
 }

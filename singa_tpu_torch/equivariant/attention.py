@@ -1,5 +1,5 @@
-"""SO(2) equivariant graph attention, the gate feed-forward network and the
-transformer block (counterpart of ``singa_tpu/equivariant/attention.py``;
+"""SO(2) equivariant graph attention, the gate and S2 feed-forward networks
+and the transformer block (counterpart of ``singa_tpu/equivariant/attention.py``;
 reference EF_layers.py:23-149, 152-270, 878-1204, 1207-1410).
 
 Heterogeneous (ligand <-> protein) edges use the same modules with distinct
@@ -17,6 +17,7 @@ from singa_tpu_torch.equivariant import so3
 from singa_tpu_torch.equivariant.layers import (
     RadialMLP,
     SO2Conv,
+    _grid_mats_for,
     add_l0,
     get_norm_layer,
     layer_norm,
@@ -24,7 +25,7 @@ from singa_tpu_torch.equivariant.layers import (
     smooth_leaky_relu,
     uniform_,
 )
-from singa_tpu_torch.ops.cuda.so3_ffn import so3_gate_ffn
+from singa_tpu_torch.ops.cuda.so3_ffn import so3_ffn, so3_gate_ffn
 from singa_tpu_torch.ops.neighbors import EdgeEngine
 
 
@@ -64,9 +65,14 @@ class EdgeDegreeEmbedding(nn.Module):
 
 
 class FeedForwardNetwork(nn.Module):
-    """SO3 linear -> gate activation -> SO3 linear (EF_layers.py:152-270,
-    use_gate_act). The whole block is kernel K2; parameters keep the flax
-    layouts (w1 [L, H, C], w2 [L, Co, H], gate_kernel [C, lmax*H])."""
+    """SO3 linear -> activation -> SO3 linear (EF_layers.py:152-270), the
+    whole block one kernel. ``activation`` 'gate' (use_gate_act): per-degree
+    sigmoid gates from the l=0 row, kernel K2; 's2' (use_sep_s2_act): SiLU
+    on the sphere grid with row 0 from ``silu(x0 @ gate_kernel +
+    gate_bias)``, kernel K4. Parameters keep the flax layouts (w1 [L, H, C],
+    w2 [L, Co, H], gate_kernel [C, lmax*H] for 'gate', [C, H] for 's2')."""
+
+    ACTIVATIONS = ("gate", "s2")
 
     def __init__(
         self,
@@ -78,21 +84,22 @@ class FeedForwardNetwork(nn.Module):
         device=None,
     ):
         super().__init__()
-        if activation != "gate":
+        if activation not in self.ACTIVATIONS:
             raise ValueError(
-                f"ffn activation {activation!r} is not ported yet (only 'gate', the default)"
+                f"ffn activation {activation!r} is not ported yet (ported: "
+                f"{', '.join(self.ACTIVATIONS)})"
             )
         L = lmax + 1
         self.lmax = lmax
+        self.activation = activation
         self.C, self.H = in_channels, hidden_channels
+        gate_width = lmax * hidden_channels if activation == "gate" else hidden_channels
         self.w1 = nn.Parameter(torch.empty(L, hidden_channels, in_channels, device=device))
         self.b1 = nn.Parameter(torch.empty(hidden_channels, device=device))
         self.w2 = nn.Parameter(torch.empty(L, output_channels, hidden_channels, device=device))
         self.b2 = nn.Parameter(torch.empty(output_channels, device=device))
-        self.gate_kernel = nn.Parameter(
-            torch.empty(in_channels, lmax * hidden_channels, device=device)
-        )
-        self.gate_bias = nn.Parameter(torch.empty(lmax * hidden_channels, device=device))
+        self.gate_kernel = nn.Parameter(torch.empty(in_channels, gate_width, device=device))
+        self.gate_bias = nn.Parameter(torch.empty(gate_width, device=device))
 
     def init_params(self, gen: torch.Generator) -> None:
         uniform_(self.w1, 1.0 / math.sqrt(self.C), gen)
@@ -104,7 +111,7 @@ class FeedForwardNetwork(nn.Module):
             self.b2.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return so3_gate_ffn(
+        args = (
             x.contiguous(),
             self.w1.transpose(1, 2).contiguous(),  # [L, C, H]
             self.b1,
@@ -112,8 +119,14 @@ class FeedForwardNetwork(nn.Module):
             self.gate_bias,
             self.w2.transpose(1, 2).contiguous(),  # [L, H, Co]
             self.b2,
-            self.lmax,
         )
+        if self.activation == "gate":
+            return so3_gate_ffn(*args, self.lmax)
+        # l-primary grid of the full lmax (mmax = lmax), flattened to [G, I]
+        tg, fg = _grid_mats_for(self.lmax, self.lmax, False)
+        dev = x.device
+        return so3_ffn(*args, so3.as_const(tg, dev, x.dtype), so3.as_const(fg, dev, x.dtype),
+                       self.lmax)
 
 
 class GraphAttention(nn.Module):
@@ -195,7 +208,9 @@ class GraphAttention(nn.Module):
 class TransBlock(nn.Module):
     """Pre-norm attention + FFN residual block (TransBlockV2,
     EF_layers.py:1207-1410). The norms keep their flax names
-    (``EquivariantRMSNorm_0`` before attention, ``_1`` before the FFN)."""
+    (``EquivariantRMSNorm_0`` before attention, ``_1`` before the FFN). The
+    attention runs K3; the FFN runs K2 under ``ffn_activation: gate`` and
+    K4 under ``s2``."""
 
     def __init__(
         self,

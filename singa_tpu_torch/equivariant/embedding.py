@@ -5,7 +5,8 @@ Embedding.py:52-480).
 Two merged stages over a combined [protein; ligand] node set: both intra
 edge sets (block-diagonal), then both interaction directions, sharing one
 stack of TransBlocks, one final norm and one embedding set. ``gen_mode``
-runs the intra stage only, as generation does.
+runs the intra stage only, as generation does. ``cfg.ffn_activation`` picks
+each TransBlock's FFN: 'gate' (kernel K2) or 's2' (kernel K4).
 """
 from __future__ import annotations
 

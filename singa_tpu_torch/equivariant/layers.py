@@ -1,5 +1,6 @@
 """Equivariant building blocks: linears, embeddings, radial MLPs, the
-equivariant RMS norm, gate and separable S2 activations, SO(2) convolutions.
+equivariant RMS norm, gate, S2 and separable S2 activations, SO(2)
+convolutions.
 
 Counterpart of ``singa_tpu/equivariant/layers.py``. Features are tensors
 ``[N, coeffs, C]``. Parameters keep the flax layouts where a module owns them
@@ -26,7 +27,7 @@ from torch import nn
 
 from singa_tpu_torch.equivariant.grid import _grid_mats
 from singa_tpu_torch.equivariant.so3 import CoefficientMapping, as_const
-from singa_tpu_torch.ops.cuda.s2_act import s2_silu_sep
+from singa_tpu_torch.ops.cuda.s2_act import s2_silu, s2_silu_sep
 
 
 @torch.no_grad()
@@ -186,6 +187,16 @@ def _grid_mats_for(lmax: int, mmax: int, m_primary: bool):
     tg = np.ascontiguousarray(tg.reshape(-1, tg.shape[-1]))
     fg = np.ascontiguousarray(fg.reshape(-1, fg.shape[-1]))
     return tg, fg
+
+
+def s2_activation(
+    x: torch.Tensor, lmax: int, mmax: int, m_primary: bool = False
+) -> torch.Tensor:
+    """Pointwise SiLU on the sphere grid, every row (EF_layers.py:1736-1754).
+    Runs kernel K5."""
+    tg, fg = _grid_mats_for(lmax, mmax, m_primary)
+    dev = x.device
+    return s2_silu(x, as_const(tg, dev, x.dtype), as_const(fg, dev, x.dtype))
 
 
 def separable_s2_activation(

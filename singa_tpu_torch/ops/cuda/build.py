@@ -90,8 +90,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+INVALID_VALUE = 1  # cudaErrorInvalidValue: the entry points' answer to a shape they do not take
+
+
 def check(status: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    """Raise if a C entry point returned a non-zero ``cudaError_t``: a
+    ValueError for a shape the kernel does not take (each entry point checks
+    its own limits: channel multiples, rows, shared memory), else a
+    RuntimeError."""
+    if status == INVALID_VALUE:
+        raise ValueError(f"{what}: the kernel does not take these shapes (cudaErrorInvalidValue)")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
 

@@ -27,7 +27,6 @@ from singa_tpu_torch.ops.cuda import build
 
 launches = 0  # forward kernel launches through ``neighbor_attn``
 launches_bwd = 0  # backward kernel launches through ``neighbor_attn``
-SMEM_LIMIT = 227 * 1024
 
 
 def _ssp(x: torch.Tensor) -> torch.Tensor:
@@ -101,14 +100,6 @@ def _bwd_fns():
     return blocks, fn
 
 
-def smem_bytes(K: int, H: int, kd: int, vd: int, De: int) -> int:
-    """Dynamic shared memory of one block (mirrors csrc/neighbor_attn.cu)."""
-    floats = De * kd + kd + kd * kd + kd + De * vd + vd + vd * vd + vd + De  # weights
-    floats += K * max(De, vd) + 2 * K * kd + K * vd  # pair buffers
-    floats += K * H + H + H * kd + 3 * K  # scores, self weight, q row, nbr/mask/dist
-    return 4 * floats
-
-
 def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
                 centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2):
     """Device, dtype, shape and contiguity of every kernel argument; returns
@@ -147,8 +138,6 @@ def neighbor_attn_cuda(
     args = (qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
             centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
     B, N, K, H, kd, vd, De = _check_args(*args)
-    if smem_bytes(K, H, kd, vd, De) > SMEM_LIMIT:
-        raise ValueError("neighbor_attn kernel: one node's pair tensors do not fit in shared memory")
     out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
     if B * N == 0:
         return out

@@ -1,5 +1,5 @@
 """K3/K3b: the separable S2 SiLU activation of every SO(2) graph attention,
-and its backward.
+and its backward; K5/K5b: the S2 SiLU on all rows, and its backward.
 
 K3 replaces ``singa_tpu/ops/pallas/s2_act.py::s2_silu_sep`` (forward,
 ``_sep_fwd_kernel``). Rows ``i >= 1`` of the output are
@@ -10,6 +10,14 @@ gradients of ``x`` and ``scalars``; row 0 of the cotangent reaches only
 grid tensor out of device memory. ``s2_silu_sep`` goes through one
 ``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
 CUDA tensors.
+
+K5 replaces ``s2_act.py::s2_silu`` (``s2_silu_pallas``, ``_fwd_kernel``):
+``from_grid . silu(to_grid . x)`` on every row, for any ``I`` up to 64. K5b
+replaces ``_bwd`` (``_bwd_kernel``): ``dx = to_grid^T (silu'(to_grid . x) *
+from_grid . g)``, with no row-0 case. Both run K4's grid chain
+(``csrc/s2_grid.cuh``, kernels in ``csrc/s2_act.cu``); ``s2_silu`` goes
+through ``S2Silu``. The TPU wrapper's 128-channel padding and tile sizing
+are Mosaic's and are not carried over.
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ from singa_tpu_torch.ops.cuda import build
 
 launches = 0  # forward kernel launches through ``s2_silu_sep``
 launches_bwd = 0  # backward kernel launches through ``s2_silu_sep``
-MAX_I = 32  # coefficient rows a thread keeps in registers (csrc/s2_act.cu)
+launches_silu = 0  # forward kernel launches through ``s2_silu``
+launches_silu_bwd = 0  # backward kernel launches through ``s2_silu``
 
 
 def s2_silu_sep_plain(
@@ -58,8 +67,6 @@ def _check_args(x, scalars, to_grid, from_grid):
     build.require(scalars, "scalars", (E, C), torch.float32, dev)
     build.require(to_grid, "to_grid", (G, I), torch.float32, dev)
     build.require(from_grid, "from_grid", (G, I), torch.float32, dev)
-    if I > MAX_I:
-        raise ValueError(f"s2_silu_sep kernel takes at most {MAX_I} coefficient rows, got {I}")
     return E, I, C, G
 
 
@@ -124,3 +131,86 @@ def s2_silu_sep(x, scalars, to_grid, from_grid) -> torch.Tensor:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"s2_silu_sep runs on cpu or cuda, not {x.device}")
     return S2SiluSep.apply(x, scalars, to_grid, from_grid)
+
+
+def s2_silu_plain(x: torch.Tensor, to_grid: torch.Tensor, from_grid: torch.Tensor) -> torch.Tensor:
+    """x [N, I, C], to_grid/from_grid [G, I] -> [N, I, C]."""
+    return torch.einsum("gi,ngc->nic", from_grid, F.silu(torch.einsum("gi,nic->ngc", to_grid, x)))
+
+
+def s2_silu_bwd_plain(x, to_grid, from_grid, g):
+    """dx of ``s2_silu_plain`` at cotangent ``g``."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        (dx,) = torch.autograd.grad(s2_silu_plain(x, to_grid, from_grid), (x,), g)
+        return dx
+
+
+def _check_silu_args(x, to_grid, from_grid):
+    N, I, C = x.shape
+    G = to_grid.shape[0]
+    dev = x.device
+    build.require(x, "x", (N, I, C), torch.float32, dev)
+    build.require(to_grid, "to_grid", (G, I), torch.float32, dev)
+    build.require(from_grid, "from_grid", (G, I), torch.float32, dev)
+    return N, I, C, G
+
+
+def s2_silu_cuda(x, to_grid, from_grid) -> torch.Tensor:
+    global launches_silu
+    N, I, C, G = _check_silu_args(x, to_grid, from_grid)
+    out = torch.empty_like(x)
+    if N * C == 0:
+        return out
+    status = _fn("s2_silu_f32", 4)(
+        x.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(), out.data_ptr(), N, I, C, G,
+        build.stream_ptr(x),
+    )
+    build.check(status, "s2_silu")
+    launches_silu += 1
+    return out
+
+
+def s2_silu_bwd_cuda(x, to_grid, from_grid, g) -> torch.Tensor:
+    """dx from the K5b kernel."""
+    global launches_silu_bwd
+    N, I, C, G = _check_silu_args(x, to_grid, from_grid)
+    build.require(g, "g", (N, I, C), torch.float32, x.device)
+    dx = torch.empty_like(x)
+    if N * C == 0:
+        return dx
+    status = _fn("s2_silu_bwd_f32", 5)(
+        x.data_ptr(), g.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(), dx.data_ptr(),
+        N, I, C, G, build.stream_ptr(x),
+    )
+    build.check(status, "s2_silu_bwd")
+    launches_silu_bwd += 1
+    return dx
+
+
+class S2Silu(torch.autograd.Function):
+    """K5 forward and K5b backward. ``ctx`` keeps the inputs only; the
+    backward recomputes the grid. The grid matrices get no gradient, as in
+    the JAX ``_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, to_grid, from_grid):
+        ctx.save_for_backward(x, to_grid, from_grid)
+        if x.device.type == "cpu":
+            return s2_silu_plain(x, to_grid, from_grid)
+        return s2_silu_cuda(x, to_grid, from_grid)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, to_grid, from_grid = ctx.saved_tensors
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            return s2_silu_bwd_plain(x, to_grid, from_grid, g), None, None
+        return s2_silu_bwd_cuda(x, to_grid, from_grid, g), None, None
+
+
+def s2_silu(x, to_grid, from_grid) -> torch.Tensor:
+    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"s2_silu runs on cpu or cuda, not {x.device}")
+    return S2Silu.apply(x, to_grid, from_grid)

@@ -1,5 +1,5 @@
-"""K2/K2b: the gate-activation feed-forward network of every TransBlock, and
-its backward.
+"""K2/K2b and K4/K4b: the feed-forward network of every TransBlock, under the
+gate activation and under the S2 activation, and their backwards.
 
 K2 replaces ``singa_tpu/ops/pallas/so3_ffn.py::so3_gate_ffn_fused`` (forward,
 ``_gate_ffn_fwd_kernel``): per-degree linear C -> H; row l=0 becomes
@@ -8,9 +8,23 @@ over column block ``(l-1)H : lH``; per-degree linear H -> Co, ``b2`` on row 0
 only. K2b replaces ``_gate_bwd`` (``_gate_ffn_bwd_kernel``): dx and the six
 weight and bias gradients. The CUDA kernels (``csrc/so3_gate_ffn.cu``,
 ``csrc/so3_gate_ffn_bwd.cu``) keep the ``[N, I, H]`` hidden and its cotangent
-out of device memory. ``so3_gate_ffn`` goes through one
+out of device memory.
+
+K4 replaces ``so3_ffn.py::so3_ffn_fused`` (``_ffn_fwd_kernel``), the FFN of
+``ffn_activation: s2``: ``gate = silu(x0 @ wg + bg)``; per-degree linear
+C -> H with ``b1`` on row 0; ``mid = from_grid . silu(to_grid . h)`` per
+hidden channel, row 0 replaced by ``gate``; per-degree linear H -> Co, ``b2``
+on row 0. K4b replaces ``_bwd`` (``_ffn_bwd_kernel``): dx and the six weight
+and bias gradients; ``b1`` reaches every output row through the grid. The
+CUDA kernels (``csrc/so3_ffn.cu``, ``csrc/so3_ffn_bwd.cu``) keep the hidden
+and the ``[N, G, H]`` grid out of device memory. The TPU kernel's L-padded
+coefficient layout, 128-wide hidden chunks, node padding, transposed weight
+copies and tanh-form sigmoid exist for Mosaic and are not carried over.
+
+``so3_gate_ffn`` and ``so3_ffn`` each go through one
 ``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
-CUDA tensors.
+CUDA tensors. Each kernel's C entry point refuses a shape it does not take
+(``build.check`` raises).
 """
 from __future__ import annotations
 
@@ -24,13 +38,8 @@ from singa_tpu_torch.ops.cuda import build
 
 launches = 0  # forward kernel launches through ``so3_gate_ffn``
 launches_bwd = 0  # backward kernel launches through ``so3_gate_ffn``
-# mirrors of csrc/so3_gate_ffn.cu's constants
-NODE_GROUPS = 2  # groups of four nodes per block
-HIDDEN_CHUNK = 16  # hidden channels per shared-memory chunk
-ROW_PAD = 8  # floats added to each row block of the x tile and the hidden slice
-THREADS = 256  # threads per block
-MAX_OUT_TILES = 2  # output micro-tiles (4 nodes x 4 channels) per thread
-SMEM_LIMIT = 227 * 1024
+launches_s2 = 0  # forward kernel launches through ``so3_ffn``
+launches_s2_bwd = 0  # backward kernel launches through ``so3_ffn``
 
 
 def _l_of(lmax: int, device) -> torch.Tensor:
@@ -81,14 +90,6 @@ def _bwd_fns():
     return slices, fn
 
 
-def smem_bytes(lmax: int, C: int, Co: int) -> int:
-    """Dynamic shared memory of one block (mirrors csrc/so3_gate_ffn.cu)."""
-    L, I, TN, HC = lmax + 1, (lmax + 1) ** 2, 4 * NODE_GROUPS, HIDDEN_CHUNK
-    floats = I * (C * TN + ROW_PAD) + lmax * HC * TN + I * (HC * TN + ROW_PAD)  # x, gates, hidden
-    floats += L * C * HC + C * lmax * HC + L * HC * Co  # the chunk's weight slices
-    return 4 * floats
-
-
 def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     global launches
     N, I, C = x.shape
@@ -105,10 +106,6 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     build.require(bg, "bg", (lmax * H,), torch.float32, dev)
     build.require(w2, "w2", (L, H, Co), torch.float32, dev)
     build.require(b2, "b2", (Co,), torch.float32, dev)
-    if smem_bytes(lmax, C, Co) > SMEM_LIMIT:
-        raise ValueError("so3_gate_ffn kernel: tile does not fit in shared memory")
-    if Co % 4 or NODE_GROUPS * I * (Co // 4) > MAX_OUT_TILES * THREADS:
-        raise ValueError(f"so3_gate_ffn kernel: {Co} output channels at lmax {lmax} not supported")
     out = torch.empty((N, I, Co), dtype=x.dtype, device=dev)
     if N == 0:
         return out
@@ -189,3 +186,147 @@ def so3_gate_ffn(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"so3_gate_ffn runs on cpu or cuda, not {x.device}")
     return SO3GateFFN.apply(x, w1, b1, wg, bg, w2, b2, lmax)
+
+
+def so3_ffn_plain(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> torch.Tensor:
+    """x [N, I, C]; w1 [L, C, H]; b1 [H]; wg [C, H]; bg [H]; w2 [L, H, Co];
+    b2 [Co]; to_grid/from_grid [G, I] (l-primary) -> [N, I, Co]."""
+    l_of = _l_of(lmax, x.device)
+    gate = F.silu(x[:, 0, :] @ wg + bg)
+    h = torch.einsum("nic,ich->nih", x, w1.index_select(0, l_of))
+    h = torch.cat([h[:, :1] + b1, h[:, 1:]], dim=1)
+    grid = F.silu(torch.einsum("gi,nih->ngh", to_grid, h))
+    mid = torch.einsum("gi,ngh->nih", from_grid, grid)
+    mid = torch.cat([gate[:, None, :], mid[:, 1:]], dim=1)
+    y = torch.einsum("nih,iho->nio", mid, w2.index_select(0, l_of))
+    return torch.cat([y[:, :1] + b2, y[:, 1:]], dim=1)
+
+
+def so3_ffn_bwd_plain(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
+    """(dx, dw1, db1, dwg, dbg, dw2, db2) of ``so3_ffn_plain`` at cotangent
+    ``dy``; the grid matrices are constants."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, w1, b1, wg, bg, w2)]
+        b2 = x.new_zeros((w2.shape[2],), requires_grad=True)
+        y = so3_ffn_plain(*leaves, b2, to_grid, from_grid, lmax)
+        return torch.autograd.grad(y, (*leaves, b2), dy)
+
+
+def _s2_fn():
+    fn = build.load("so3_ffn").so3_ffn_f32
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _s2_bwd_fns():
+    lib = build.load("so3_ffn_bwd")
+    blocks = lib.so3_ffn_bwd_blocks
+    blocks.argtypes = [ctypes.c_int] * 6
+    blocks.restype = ctypes.c_int
+    fn = lib.so3_ffn_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return blocks, fn
+
+
+def _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int):
+    """Device, dtype, shape and contiguity of K4's and K4b's common
+    arguments; returns (N, L, C, H, Co, G)."""
+    N, I, C = x.shape
+    L = lmax + 1
+    H = w1.shape[2]
+    Co = w2.shape[2]
+    G = to_grid.shape[0]
+    dev = x.device
+    f32 = torch.float32
+    if I != L * L:
+        raise ValueError(f"x has {I} coefficient rows, expected {L * L} at lmax {lmax}")
+    build.require(x, "x", (N, I, C), f32, dev)
+    build.require(w1, "w1", (L, C, H), f32, dev)
+    build.require(b1, "b1", (H,), f32, dev)
+    build.require(wg, "wg", (C, H), f32, dev)
+    build.require(bg, "bg", (H,), f32, dev)
+    build.require(w2, "w2", (L, H, Co), f32, dev)
+    build.require(to_grid, "to_grid", (G, I), f32, dev)
+    build.require(from_grid, "from_grid", (G, I), f32, dev)
+    return N, L, C, H, Co, G
+
+
+def so3_ffn_cuda(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> torch.Tensor:
+    global launches_s2
+    N, L, C, H, Co, G = _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax)
+    build.require(b2, "b2", (Co,), torch.float32, x.device)
+    out = torch.empty((N, L * L, Co), dtype=x.dtype, device=x.device)
+    if N == 0:
+        return out
+    status = _s2_fn()(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(), bg.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(), out.data_ptr(),
+        N, lmax, C, H, Co, G, build.stream_ptr(x),
+    )
+    build.check(status, "so3_ffn")
+    launches_s2 += 1
+    return out
+
+
+def so3_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
+    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K4b kernel."""
+    global launches_s2_bwd
+    N, L, C, H, Co, G = _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax)
+    dev = x.device
+    f32 = torch.float32
+    build.require(dy, "dy", (N, L * L, Co), f32, dev)
+    dx = torch.empty_like(x)
+    sizes = (L * C * H, H, C * H, H, L * H * Co, Co)
+    grads = torch.empty(sum(sizes), dtype=f32, device=dev)
+    if N == 0:
+        grads.zero_()
+    else:
+        blocks_fn, fn = _s2_bwd_fns()
+        blocks = blocks_fn(N, lmax, C, H, Co, G)
+        if blocks < 1:
+            raise ValueError(f"so3_ffn backward kernel: {C} input channels at lmax {lmax} not "
+                             "supported or its tiles exceed shared memory")
+        partial = torch.empty((blocks, sum(sizes)), dtype=f32, device=dev)
+        status = fn(
+            x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(),
+            bg.data_ptr(), w2.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
+            dx.data_ptr(), partial.data_ptr(), grads.data_ptr(), N, lmax, C, H, Co, G, blocks,
+            build.stream_ptr(x),
+        )
+        build.check(status, "so3_ffn_bwd")
+        launches_s2_bwd += 1
+    dw1, db1, dwg, dbg, dw2, db2 = torch.split(grads, sizes)
+    return (dx, dw1.view(L, C, H), db1, dwg.view(C, H), dbg, dw2.view(L, H, Co), db2)
+
+
+class SO3FFN(torch.autograd.Function):
+    """K4 forward and K4b backward. ``ctx`` keeps the inputs only, as
+    ``_fwd`` does; the backward recomputes the hidden and the grid. The grid
+    matrices are constants and get no gradient, as in the JAX ``_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax):
+        ctx.lmax = lmax
+        ctx.save_for_backward(x, w1, b1, wg, bg, w2, to_grid, from_grid)
+        if x.device.type == "cpu":
+            return so3_ffn_plain(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax)
+        return so3_ffn_cuda(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        dy = dy.contiguous()
+        if saved[0].device.type == "cpu":
+            grads = so3_ffn_bwd_plain(*saved, ctx.lmax, dy)
+        else:
+            grads = so3_ffn_bwd_cuda(*saved, ctx.lmax, dy)
+        return (*grads, None, None, None)
+
+
+def so3_ffn(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> torch.Tensor:
+    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"so3_ffn runs on cpu or cuda, not {x.device}")
+    return SO3FFN.apply(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax)

@@ -10,6 +10,9 @@ with TF32 off. The JAX package's data-parallel mesh is not ported; one
 process trains on one device.
 
 CLI: python -m singa_tpu_torch.train.loop --data data/corpus --max-iters 2
+[--config configs/train_corpus.yml]. A config file, like ``Config()``
+without one, runs with ``train.compute_dtype`` set to float32; ``Trainer``
+itself refuses any other precision.
 """
 from __future__ import annotations
 
@@ -234,11 +237,9 @@ def main(argv=None):
     if args.timestamped:
         args.logdir = f"{args.logdir}_{time.strftime('%Y_%m_%d__%H_%M_%S')}"
 
-    if args.config:
-        cfg = load_config(args.config)
-    else:
-        cfg = float32_config(Config())
-        print("config: Config() with train.compute_dtype=float32 (the port trains in float32)")
+    cfg = float32_config(load_config(args.config) if args.config else Config())
+    print(f"config: {args.config or 'Config()'} with train.compute_dtype=float32 "
+          "(the port trains in float32)")
     bs = args.batch_size or cfg.train.batch_size
 
     if args.synthetic or not args.data:

@@ -30,13 +30,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VAL_FILES = sorted(glob.glob(os.path.join(REPO, "data", "corpus", "val", "*.npz")))
 
 
-def tiny_jax_config(lmax=2, mmax=2, num_beams=4, max_length=24):
-    """tests/test_model.py::tiny_config with generation knobs for the slice."""
+def tiny_jax_config(lmax=2, mmax=2, num_beams=4, max_length=24, ffn_activation="gate"):
+    """tests/test_model.py::tiny_config with generation knobs for the slice
+    and the FFN activation of its TransBlocks."""
     from test_model import tiny_config
 
     cfg = tiny_config(lmax, mmax)
     return dataclasses.replace(
         cfg,
+        embedding=dataclasses.replace(cfg.embedding, ffn_activation=ffn_activation),
         generate=dataclasses.replace(cfg.generate, num_beams=num_beams, max_length=max_length),
     )
 
@@ -69,11 +71,12 @@ def torch_batch(files):
 
 
 @functools.lru_cache(maxsize=None)
-def singa_params(lmax: int = 2, mmax: int = 2, n_files: int = 2, seed: int = 0):
+def singa_params(lmax: int = 2, mmax: int = 2, n_files: int = 2, seed: int = 0,
+                 ffn_activation: str = "gate"):
     """(jax config, flax params of SINGA) at the tiny config on val pockets."""
     from singa_tpu.models.singa import SINGA as JSINGA
 
-    jcfg = tiny_jax_config(lmax, mmax)
+    jcfg = tiny_jax_config(lmax, mmax, ffn_activation=ffn_activation)
     with compute_dtype_scope("float32"):
         params = jax.jit(JSINGA(jcfg).init)(
             jax.random.PRNGKey(seed), jax_batch(load_val(n_files))

@@ -233,3 +233,132 @@ def test_autograd_reaches_inputs_through_every_kernel(dev):
             assert a is not None
             scale = max(1.0, b.abs().max().item())
             torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=1e-4)
+
+
+def _s2_ffn_case(dev, lmax, N, H, C, Co, seed):
+    """K4's inputs at lmax (non-zero biases) with the l-primary full grid,
+    and a cotangent."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+
+    L = lmax + 1
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    args = [f(N, L * L, C), 0.2 * f(L, C, H), 0.1 * f(H), 0.2 * f(C, H), 0.1 * f(H),
+            0.1 * f(L, H, Co), 0.1 * f(Co), *_grid_mats_for(lmax, lmax, False)]
+    return [_t(a, dev) for a in args], _t(f(N, L * L, Co), dev)
+
+
+S2_FFN_CASES = [(6, 37, 512, 16, 16), (3, 13, 40, 16, 16), (2, 5, 24, 8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", S2_FFN_CASES)
+def test_so3_ffn_kernel_matches_plain(dev, lmax, N, H, C, Co):
+    """K4 at lmax 6 (the main path's widths, G 210), 3 and 2; N not a
+    multiple of the node tile, H not always a multiple of the hidden chunk;
+    non-zero biases."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    args, _ = _s2_ffn_case(dev, lmax, N, H, C, Co, 71 + N)
+    n = k4.launches_s2
+    got = k4.so3_ffn(*args, lmax)
+    assert k4.launches_s2 == n + 1
+    _check(got, k4.so3_ffn_plain(*args, lmax))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", S2_FFN_CASES)
+def test_so3_ffn_bwd_kernel_matches_plain(dev, lmax, N, H, C, Co):
+    """K4b against the plain backward: dx and the six weight and bias
+    gradients (db1 from every row through the grid), at the same cases."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    args, dy = _s2_ffn_case(dev, lmax, N, H, C, Co, 73 + N)
+    bwd_args = [*args[:6], *args[7:], lmax, dy]  # b2 gets its gradient from dy alone
+    n = k4.launches_s2_bwd
+    got = k4.so3_ffn_bwd_cuda(*bwd_args)
+    assert k4.launches_s2_bwd == n + 1
+    _check_grads(got, k4.so3_ffn_bwd_plain(*bwd_args), ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,mmax,m_primary,N,C", [(6, 6, False, 37, 24), (6, 2, True, 50, 128),
+                                                     (2, 2, False, 9, 5)])
+def test_s2_silu_kernels_match_plain(dev, lmax, mmax, m_primary, N, C):
+    """K5 and K5b at I 49 (G 210, the s2 FFN's grid), at I 29 (the
+    attention message's m-primary grid) and at I 9; N * C not a multiple of
+    the column tile."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+    from singa_tpu_torch.ops.cuda import s2_act as k5
+
+    rng = np.random.default_rng(79 + N)
+    tg, fg = (_t(m, dev) for m in _grid_mats_for(lmax, mmax, m_primary))
+    x = _t(rng.normal(size=(N, tg.shape[1], C)).astype(np.float32), dev)
+    g = _t(rng.normal(size=(N, tg.shape[1], C)).astype(np.float32), dev)
+    n, nb = k5.launches_silu, k5.launches_silu_bwd
+    got = k5.s2_silu(x, tg, fg)
+    dx = k5.s2_silu_bwd_cuda(x, tg, fg, g)
+    assert (k5.launches_silu, k5.launches_silu_bwd) == (n + 1, nb + 1)
+    _check(got, k5.s2_silu_plain(x, tg, fg))
+    _check_grads([dx], [k5.s2_silu_bwd_plain(x, tg, fg, g)], ["dx"])
+
+
+@pytest.mark.cuda
+def test_autograd_reaches_inputs_through_k4_and_k5(dev):
+    """loss.backward() through SO3FFN and S2Silu on CUDA tensors gives every
+    input the gradient the CPU (plain versions) gives it."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+    from singa_tpu_torch.ops.cuda import s2_act as k5
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    rng = np.random.default_rng(83)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    tg, fg = _grid_mats_for(6, 6, False)
+    cases = [
+        (k4.so3_ffn, [f(11, 49, 16), 0.2 * f(7, 16, 48), 0.1 * f(48), 0.2 * f(16, 48), 0.1 * f(48),
+                      0.1 * f(7, 48, 16), 0.1 * f(16), tg, fg], range(7), (6,)),
+        (k5.s2_silu, [f(10, 49, 20), tg, fg], [0], ()),
+    ]
+    for fn, arrays, diff, extra in cases:
+        grads = {}
+        for d in ("cpu", dev):
+            ts = [torch.as_tensor(np.ascontiguousarray(a)).to(d) for a in arrays]
+            for i in diff:
+                ts[i].requires_grad_()
+            out = fn(*ts, *extra)
+            w = torch.as_tensor(np.random.default_rng(5).normal(size=out.shape).astype(np.float32)).to(d)
+            (out * w).sum().backward()
+            grads[str(d)] = [ts[i].grad for i in diff]
+        for a, b in zip(grads["cuda"], grads["cpu"]):
+            assert a is not None
+            scale = max(1.0, b.abs().max().item())
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_shapes_they_do_not_take(dev):
+    """A shape outside a kernel's limits reaches its C entry point, which
+    returns cudaErrorInvalidValue, and the wrapper raises ValueError: K1
+    with one node's pair tensors over shared memory, K2 with 6 output
+    channels, K3 with 36 coefficient rows, K4 and K5 with 81."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    rng = np.random.default_rng(89)
+    f = lambda *s: _t(rng.normal(size=s).astype(np.float32), dev)
+    H, kd, vd, De, K = 2, 32, 64, 64, 2000
+    attn = [f(1, 1, H * kd), f(1, 1, H * kd), f(1, 1, H * vd), _t(np.zeros((1, 1, K), np.int32), dev),
+            _t(np.ones((1, 1, K), bool), dev), f(1, 1, K), f(1, 1, H), f(1, 1, H * vd), f(De),
+            f(De, kd), f(kd), f(kd, kd), f(kd), f(De, vd), f(vd), f(vd, vd), f(vd)]
+    refused = [
+        lambda: k1.neighbor_attn_cuda(*attn, -0.2),
+        lambda: k2.so3_gate_ffn_cuda(f(3, 9, 4), f(3, 4, 8), f(8), f(4, 16), f(16), f(3, 8, 6), f(6), 2),
+        lambda: k3.s2_silu_sep_cuda(f(3, 36, 8), f(3, 8), f(20, 36), f(20, 36)),
+        lambda: k2.so3_ffn_cuda(f(3, 81, 4), f(9, 4, 8), f(8), f(4, 8), f(8), f(9, 8, 4), f(4),
+                                f(20, 81), f(20, 81), 8),
+        lambda: k3.s2_silu_cuda(f(3, 81, 8), f(20, 81), f(20, 81)),
+    ]
+    for call in refused:
+        with pytest.raises(ValueError, match="does not take these shapes"):
+            call()

@@ -3,7 +3,8 @@ weights, on 2 ``data/corpus/val`` complexes at the tiny config (lmax 2),
 float32, ``SINGA.forward``'s logits, ``cross_entropy_loss`` and every
 parameter's gradient equal ``jax.value_and_grad`` of the JAX loss, leaf by
 leaf through the gradient bridge; and the microbatched step equals the
-monolithic one.
+monolithic one. Each test runs under both FFN activations the port has
+('gate', kernel K2; 's2', kernel K4): the ``step`` fixture is parametrised.
 
 Tolerances: logits to 1e-4 (LayerNorm'd stacks of reordered float32 sums),
 the loss to 1e-5 relative, gradients leaf by leaf to 1e-4 of the leaf's
@@ -32,15 +33,16 @@ from test_torch_common import (
 )
 
 
-@pytest.fixture(scope="module")
-def step():
-    """JAX: loss, logits and gradients; port: the same, from one model."""
+@pytest.fixture(scope="module", params=["gate", "s2"])
+def step(request):
+    """JAX: loss, logits and gradients; port: the same, from one model, with
+    the TransBlocks' FFN activation ``request.param``."""
     from singa_tpu.models.singa import SINGA as JSINGA
     from singa_tpu.models.singa import cross_entropy_loss as jce
     from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
     from singa_tpu_torch.params import from_flax_grads, load_flax_params
 
-    jcfg, params = singa_params(2, 2)
+    jcfg, params = singa_params(2, 2, ffn_activation=request.param)
     files = load_val(2)
     jb, tb = jax_batch(files), torch_batch(files)
 
