@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU: the generation path
-and the training step, under the default Config() (gate FFN) and under
-configs/train_corpus.yml (s2 FFN).
+and the training step, under the default Config() (gate FFN), under
+configs/train_corpus.yml (s2 FFN) and under the default Config() with
+SINGA_TPU_FUSED_SO2 set (the fused SO(2) edge attention, K6).
 
     python3 chip_smoke.py
 
@@ -62,26 +63,36 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
  11. train_cli  python -m singa_tpu_torch.train.loop --data data/corpus
               --max-iters 2 --device cuda into a temporary logdir writes its
               checkpoint; the generation CLI reads that checkpoint for one
-              pocket
+              pocket and launches exactly one encode_pocket's kernels
  12. the training phases again under configs/train_corpus.yml in float32
      (batch 32 as one microbatch): kernel_train_s2 / kernel_bwd_s2 (K4 and
      K4b at every distinct call of one step, 6 each), train_s2 (per step
      K4 = K4b = K1 = K1b = K3 = K3b = 6, K2 = K2b = 0), train_profile_s2,
      train_vs_cpu_s2 and train_cli_s2 (``--config configs/train_corpus.yml``;
      the generation CLI serves from the checkpoint's s2 config, through K4)
+ 13. the default Config with SINGA_TPU_FUSED_SO2 set for these phases only
+     (every phase before runs with it unset and asserts K6 = K6b = 0):
+     kernel_so2 (K6 at every distinct call of one encode_pocket of the 8
+     pockets), main_so2 (generate_for_pocket; per encode K1 = 6, K2 = 3,
+     K6 = 3, K3 = 0; encode_ms, decode_ms, molecules/s, the encode's
+     profile, and the fused encode against the unfused one on the card
+     under CPU_TOL), vs_cpu_so2, then the training phases as in 8-11 with
+     suffix _so2 (batch 64 as 2 x 32; per step K1 = K1b = K2 = K2b = K6 =
+     K6b = 12, K3 = K3b = 0; train_cli_so2's generation launches K6 = 3)
 then the card's name and power limit as nvidia-smi prints them, the kernels
 line and ``{"ok": true, "device": {...}}`` last. The kernels line lists all
-ten kernels: ``launches`` counted over the training run of the kernel's
-path (K1-K3, K1b-K3b: train; K4, K4b: train_s2; K5, K5b: none, 0, with
-``"path": null``); ``ms``, ``plain_ms`` and ``bound_ms`` the means per
-launch over one microbatch's calls (kernel_train / kernel_bwd and their s2
-twins, each distinct call weighted by how often the microbatch makes it;
-K5/K5b: kernel_s2act's two calls), ``max_abs_err`` the largest over those
-calls. Any failed check raises. TF32 is off for matmuls and cuDNN, so every
-product runs in full float32.
+twelve kernels: ``launches`` counted over the training run of the kernel's
+path (K1-K3, K1b-K3b: train; K4, K4b: train_s2; K6, K6b: train_so2; K5,
+K5b: none, 0, with ``"path": null``); ``ms``, ``plain_ms`` and ``bound_ms``
+the means per launch over one microbatch's calls (kernel_train / kernel_bwd
+and their s2 and so2 twins, each distinct call weighted by how often the
+microbatch makes it; K5/K5b: kernel_s2act's two calls), ``max_abs_err`` the
+largest over those calls. Any failed check raises. TF32 is off for matmuls
+and cuDNN, so every product runs in full float32.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import glob
 import json
@@ -116,8 +127,12 @@ BWD_TOL = 1e-4
 # gradient, so the max-abs error is reported beside it with the elements
 # over it and the ReLU inputs whose sign differs between the runs
 TRAIN_CPU_TOL = 2e-3
-TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 2, 5, 5
-S2_WARMUP, S2_STEPS = 2, 4  # the s2 training path (batch 32, one microbatch)
+# one warm-up step suffices: kernel_train's microbatch has already run the
+# model forward and backward on the card; the first step creates Adam's state
+TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 1, 3, 5
+S2_WARMUP, S2_STEPS = 1, 3  # the s2 training path (batch 32, one microbatch)
+SO2_WARMUP, SO2_STEPS = 1, 3  # the fused SO(2) attention's training path (batch 64, 2 x 32)
+FUSED_SO2 = "SINGA_TPU_FUSED_SO2"  # GraphAttention's switch to kernel K6
 
 
 def emit(obj) -> None:
@@ -282,6 +297,41 @@ def k5b_cost(args, outs):
     return nbytes(x, tg, fg, g, *outs), 2.0 * N * C * tg.shape[0] * I * 3
 
 
+def so2_rotation_flops(lmax: int, mmax: int, C: int) -> float:
+    """Per edge: the block-diagonal rotation J_kept Z J^T Z of C channels
+    (per degree l a (2l+1)^2 product, then min(2l+1, 2mmax+1) kept rows),
+    its two z-rotations (3 operations per coefficient each) and the radial
+    modulation of the n_trunc kept rows."""
+    n = [2 * l + 1 for l in range(lmax + 1)]
+    kept = [min(k, 2 * mmax + 1) for k in n]
+    return C * (2.0 * sum(k * k + r * k for k, r in zip(n, kept)) + 6 * sum(n) + sum(kept))
+
+
+def k6_cost(args, outs):
+    x, rad, phi, beta, w1s, b1, w2s, b2, tg, fg, lmax, mmax, H, F2, alpha_ch = args
+    E, _, C = x.shape
+    G, I = tg.shape
+    # conv 1 and conv 2 (every section weight element is one multiply-add per
+    # edge), the grid both ways over the H hidden channels, the rotation
+    per_edge = (2.0 * sum(w.numel() for w in (*w1s, *w2s)) + 4.0 * G * I * H
+                + so2_rotation_flops(lmax, mmax, C))
+    return nbytes(x, rad, phi, beta, *w1s, b1, *w2s, b2, tg, fg, *outs), E * per_edge
+
+
+def k6b_cost(args, outs):
+    x, rad, phi, beta, w1s, b1, w2s, tg, fg, lmax, mmax, H, F2, alpha_ch, *cts = args
+    E, _, C = x.shape
+    G, I = tg.shape
+    # conv 1 recomputed, then its weight gradient and its input cotangent;
+    # conv 2's weight gradient and input cotangent (z is never recomputed);
+    # the grid to mid (recomputed) and back (the lifted cotangent, dh); the
+    # rotation and its transpose
+    per_edge = (2.0 * (3 * sum(w.numel() for w in w1s) + 2 * sum(w.numel() for w in w2s))
+                + 8.0 * G * I * H + 2 * so2_rotation_flops(lmax, mmax, C))
+    b = nbytes(x, rad, phi, beta, *w1s, b1, *w2s, tg, fg, *cts, *outs)
+    return b, E * per_edge
+
+
 def capture_calls(fns: dict, run) -> dict:
     """Run ``run()`` with each function ``{name: module}`` of ``fns`` wrapped
     to record its calls. Returns {name: {shapes: [args, kwargs, calls]}}: the
@@ -289,7 +339,11 @@ def capture_calls(fns: dict, run) -> dict:
     and how many calls had those shapes."""
     captured = {name: {} for name in fns}
     originals = []
-    clone = lambda a: a.detach().clone() if torch.is_tensor(a) else a
+
+    def clone(a):
+        if torch.is_tensor(a):
+            return a.detach().clone()
+        return [clone(v) for v in a] if isinstance(a, (list, tuple)) else a
     for name, mod in fns.items():
         orig = getattr(mod, name)
         originals.append((mod, name, orig))
@@ -325,7 +379,7 @@ class Kernel(NamedTuple):
     outs: tuple | None  # the backward's output names; None: a forward
 
 
-K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B = KERNELS = [
+K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B = KERNELS = [
     Kernel("neighbor_attn_fused", "neighbor_attn", "neighbor_attn", "launches",
            "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:306",
            k1_cost, None),
@@ -354,9 +408,27 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B = KERNELS = [
     Kernel("s2_silu_bwd", "s2_act", "s2_silu_bwd", "launches_silu_bwd",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:123",
            k5b_cost, ("dx",)),
+    Kernel("so2_attn_fused", "so2_attn", "so2_attn", "launches",
+           "singa_tpu_torch/csrc/so2_attn.cu", "singa_tpu/ops/pallas/so2_attn.py:387", k6_cost, None),
+    Kernel("so2_attn_bwd", "so2_attn", "so2_attn_bwd", "launches_bwd",
+           "singa_tpu_torch/csrc/so2_attn_bwd.cu", "singa_tpu/ops/pallas/so2_attn.py:452", k6b_cost,
+           ("dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2", "db2")),
 ]
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
+SO2_PATH = [K6, K6B]  # held at the default Config's, with SINGA_TPU_FUSED_SO2 set
+
+
+@contextlib.contextmanager
+def fused_so2():
+    """SINGA_TPU_FUSED_SO2 set for the duration: every GraphAttention runs
+    its edge chain as K6 (K6b backward) instead of rotate, SO2Conv, K3;
+    unset after (``main`` unsets it before the first phase)."""
+    os.environ[FUSED_SO2] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(FUSED_SO2)
 
 
 def kernel_modules() -> dict:
@@ -388,15 +460,16 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
     launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
     as_tuple = lambda r: (r,) if torch.is_tensor(r) else tuple(r)
     with torch.no_grad():
-        got, want = launch(*args, **kw), plain(*args)
+        got, want = as_tuple(launch(*args, **kw)), as_tuple(plain(*args))
         torch.cuda.synchronize()
-        if spec.outs is None:
-            err = (got - want).abs()
-            errs = {"max_abs_err": err.max().item(),
-                    "max_rel_err": (err / (want.abs() + TOL["atol"] / TOL["rtol"])).max().item()}
-            ok, max_abs, tol = bool(torch.allclose(got, want, **TOL)), errs["max_abs_err"], TOL
+        if spec.outs is None:  # every output within TOL
+            diffs = [(a - b).abs() for a, b in zip(got, want)]
+            errs = {"max_abs_err": max(d.max().item() for d in diffs),
+                    "max_rel_err": max((d / (b.abs() + TOL["atol"] / TOL["rtol"])).max().item()
+                                       for d, b in zip(diffs, want))}
+            ok = all(bool(torch.allclose(a, b, **TOL)) for a, b in zip(got, want))
+            max_abs, tol = errs["max_abs_err"], TOL
         else:
-            got, want = as_tuple(got), as_tuple(want)
             errs = {o: [(a - b).abs().max().item(), b.abs().max().item()]
                     for o, a, b in zip(spec.outs, got, want)}
             ok = all(e <= BWD_TOL * scale for e, scale in errs.values())
@@ -404,7 +477,7 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
         del want
         k_ms = time_ms(lambda: launch(*args, **kw))
         p_ms = time_ms(lambda: plain(*args))
-    b, f = spec.cost(args, got)
+    b, f = spec.cost(args, got[0] if spec.outs is None and len(got) == 1 else got)
     b += nbytes(*kw.values())
     bms, by = bound_ms(b, f)
     return {"shapes": [list(a.shape) for a in (*args, *kw.values()) if torch.is_tensor(a)],
@@ -648,18 +721,58 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
               "generated": [[r[0][:80], r[1]] for r in rows[1:]]})
         if ckpts != ["2"] or rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk:
             raise AssertionError(f"train CLI wrote {ckpts}; generation wrote {rows}")
-        ffn = K4 if cfg.embedding.ffn_activation == "s2" else K2
-        if gen_counts[ffn.name] != cfg.embedding.num_layers:
+        if gen_counts != serve_counts(cfg, fused=bool(os.environ.get(FUSED_SO2))):
             raise AssertionError(f"generation from the checkpoint launched {gen_counts}")
 
 
-def serve_counts(cfg) -> dict:
+def serve_counts(cfg, fused: bool = False) -> dict:
     """The launches of every kernel in one generate_for_pocket: one
-    encode_pocket's (embedding stage 1 in gen_mode, then the kNN encoder)."""
+    encode_pocket's (embedding stage 1 in gen_mode, then the kNN encoder).
+    ``fused``: with SINGA_TPU_FUSED_SO2 set, K6 in place of K3."""
     ffn = K4 if cfg.embedding.ffn_activation == "s2" else K2
-    want = {K1.name: cfg.model.encoder.num_interactions, K3.name: cfg.embedding.num_layers,
+    attn = K6 if fused else K3
+    want = {K1.name: cfg.model.encoder.num_interactions, attn.name: cfg.embedding.num_layers,
             ffn.name: cfg.embedding.num_layers}
     return {k.name: want.get(k.name, 0) for k in KERNELS}
+
+
+def checked_generate(model, batch, cfg, mods, fused: bool = False):
+    """generate_for_pocket on ``batch``, the counts set to 0 just before and
+    read just after: (seconds, smiles, scores, counts). Raises unless every
+    kernel launched as ``serve_counts`` says, every pocket got its molecules
+    and every score is finite."""
+    from singa_tpu_torch.generate.generate import generate_for_pocket
+
+    zero_counts(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smiles, scores = generate_for_pocket(model, batch, cfg)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts(mods)
+    expected = serve_counts(cfg, fused)
+    if counts != expected:
+        raise AssertionError(f"launches per encode_pocket {counts}, expected {expected}")
+    want = batch.batch_size * cfg.generate.topk
+    if len(smiles) != want or not bool(torch.isfinite(torch.as_tensor(scores)).all()):
+        raise AssertionError(f"{len(smiles)} molecules (expected {want}), scores {scores}")
+    return total_s, smiles, scores, counts
+
+
+def timed_decode(model, enc, pad, cfg) -> float:
+    """The wall time in ms of one beam_generate from an encoding."""
+    from singa_tpu_torch.generate.beam import beam_generate
+
+    g = cfg.generate
+    with torch.inference_mode():
+        prop = torch.tensor([g.prop] * enc.shape[0], dtype=torch.float32, device=enc.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        beam_generate(model, enc, pad, prop, num_beams=g.num_beams, max_length=g.max_length,
+                      length_penalty=g.length_penalty, topk=g.topk,
+                      grammar_mask=g.grammar_mask, allow_dot=g.allow_dot)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t1) * 1e3
 
 
 def timed_encode(model, batch, n: int = 3):
@@ -701,7 +814,6 @@ def serve_s2_phases(dev, files, batch, mods, results: dict) -> None:
     configs/train_corpus.yml (serving ignores train.compute_dtype and runs
     in float32); fills ``results`` with K5's and K5b's lines."""
     from singa_tpu_torch.config import load_config
-    from singa_tpu_torch.generate.generate import generate_for_pocket
     from singa_tpu_torch.models.singa import SINGA
 
     cfg = load_config(os.path.join(ROOT, S2_CONFIG))
@@ -716,28 +828,14 @@ def serve_s2_phases(dev, files, batch, mods, results: dict) -> None:
     captured = capture([K3, K4], mods, encode)
     hold_all([K4], mods, captured, "kernel_s2", "calls_per_encode", None)
 
-    # main_s2: counts set to 0 just before, read just after
-    zero_counts(mods)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    smiles, scores = generate_for_pocket(model, batch, cfg)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    counts = read_counts(mods)
-    expected = serve_counts(cfg)
-    if counts != expected:
-        raise AssertionError(f"s2: launches per encode_pocket {counts}, expected {expected}")
-    finite = bool(torch.isfinite(torch.as_tensor(scores)).all())
-    if len(smiles) != 8 * cfg.generate.topk or not finite:
-        raise AssertionError(f"s2: {len(smiles)} molecules, scores {scores}")
+    total_s, smiles, _, counts = checked_generate(model, batch, cfg, mods)
     enc_ms, _ = timed_encode(model, batch)
     with torch.inference_mode():
         enc_prof = device_profile(lambda: model.encode_pocket(batch))
     emit({"phase": "main_s2", "config": S2_CONFIG, "pockets": 8,
           "launches_per_encode_pocket": counts, "generate_for_pocket_s": total_s,
           "molecules_per_s": len(smiles) / total_s, "encode_ms": enc_ms,
-          "encode_profile": enc_prof, "scores_finite": finite,
-          "smiles": [s[:80] for s in smiles[:4]]})
+          "encode_profile": enc_prof, "smiles": [s[:80] for s in smiles[:4]]})
 
     vs_cpu(model, cfg, files, dev, "vs_cpu_s2")
     del model
@@ -765,15 +863,56 @@ def serve_s2_phases(dev, files, batch, mods, results: dict) -> None:
     del act, inputs, hidden
 
 
+def serve_so2_phases(dev, files, batch, mods, cfg) -> None:
+    """kernel_so2, main_so2 and vs_cpu_so2: the default Config's serving path
+    with SINGA_TPU_FUSED_SO2 set (the caller sets it), K6 in every
+    GraphAttention; main_so2 also holds the fused encode to the unfused one
+    on the card, at the same seeded weights."""
+    from singa_tpu_torch.models.singa import SINGA
+
+    model = SINGA(cfg, device=dev, seed=0).eval()
+
+    def encode():
+        with torch.inference_mode():
+            model.encode_pocket(batch)
+
+    # kernel_so2: K6 at every distinct call of one encode_pocket
+    hold_all([K6], mods, capture([K6], mods, encode), "kernel_so2", "calls_per_encode", None)
+
+    total_s, smiles, _, counts = checked_generate(model, batch, cfg, mods, fused=True)
+    enc_ms, (enc, pad) = timed_encode(model, batch)
+    decode_ms = timed_decode(model, enc, pad, cfg)
+    with torch.inference_mode():
+        enc_prof = device_profile(lambda: model.encode_pocket(batch))
+        os.environ.pop(FUSED_SO2)
+        try:
+            unfused, _ = model.encode_pocket(batch)
+        finally:
+            os.environ[FUSED_SO2] = "1"
+        diff = (enc - unfused).abs()
+        ok = bool(torch.allclose(enc, unfused, **CPU_TOL))
+    emit({"phase": "main_so2", FUSED_SO2: "1", "pockets": 8, "launches_per_encode_pocket": counts,
+          "generate_for_pocket_s": total_s, "molecules_per_s": len(smiles) / total_s,
+          "encode_ms": enc_ms, "decode_ms": decode_ms, "encode_profile": enc_prof,
+          "vs_unfused": {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+                         "tolerance": CPU_TOL, "ok": ok},
+          "smiles": [s[:80] for s in smiles[:4]]})
+    if not ok:
+        raise AssertionError("so2: the fused encode_pocket disagrees with the unfused one")
+    del enc, pad, unfused
+
+    vs_cpu(model, cfg, files, dev, "vs_cpu_so2")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    os.environ.pop(FUSED_SO2, None)  # the phases before the fused ones run K3
     from singa_tpu_torch.config import Config, load_config
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.generate.beam import beam_generate
-    from singa_tpu_torch.generate.generate import generate_for_pocket
     from singa_tpu_torch.generate.generate import main as cli_main
     from singa_tpu_torch.models.singa import SINGA
     from singa_tpu_torch.ops.cuda import build
@@ -815,45 +954,24 @@ def main() -> int:
              "calls_per_encode", None)
 
     # main path: counts set to 0 just before, read just after
-    zero_counts(mods)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    smiles, scores = generate_for_pocket(model, batch, cfg)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    counts = read_counts(mods)
-    expected = serve_counts(cfg)
-    if counts != expected:
-        raise AssertionError(f"launches per encode_pocket {counts}, expected {expected}")
-    if len(smiles) != 8 * cfg.generate.topk:
-        raise AssertionError(f"expected {8 * cfg.generate.topk} molecules, got {len(smiles)}")
-    finite = bool(torch.isfinite(torch.as_tensor(scores)).all())
-    if not finite:
-        raise AssertionError(f"non-finite beam scores: {scores}")
+    total_s, smiles, scores, counts = checked_generate(model, batch, cfg, mods)
 
     # the two halves timed on their own (warm)
     enc_ms, (enc, pad) = timed_encode(model, batch)
-    with torch.inference_mode():
-        prop = torch.tensor([cfg.generate.prop] * 8, dtype=torch.float32, device=dev)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        g = cfg.generate
-        beam_generate(model, enc, pad, prop, num_beams=g.num_beams, max_length=g.max_length,
-                      length_penalty=g.length_penalty, topk=g.topk,
-                      grammar_mask=g.grammar_mask, allow_dot=g.allow_dot)
-        torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    decode_ms = timed_decode(model, enc, pad, cfg)
     emit({"phase": "main", "pockets": 8, "launches_per_encode_pocket": counts,
           "generate_for_pocket_s": total_s, "molecules_per_s": len(smiles) / total_s,
           "encode_ms": enc_ms, "decode_ms": decode_ms,
           "decode_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "scores_finite": finite, "scores": [float(s) for s in scores],
+          "scores": [float(s) for s in scores],
           "smiles": [s[:80] for s in smiles[:4]]})
 
     # where the time goes: device busy and idle share of one encode_pocket and
     # of the first PROFILE_STEPS decode steps
+    g = cfg.generate
     with torch.inference_mode():
+        prop = torch.tensor([g.prop] * 8, dtype=torch.float32, device=dev)
         enc_prof = device_profile(lambda: model.encode_pocket(batch))
         dec_prof = device_profile(lambda: beam_generate(
             model, enc, pad, prop, num_beams=g.num_beams, max_length=PROFILE_STEPS + 1,
@@ -885,6 +1003,9 @@ def main() -> int:
 
     results = {}
     serve_s2_phases(dev, files, batch, mods, results)
+    torch.cuda.empty_cache()
+    with fused_so2():
+        serve_so2_phases(dev, files, batch, mods, cfg)
     del batch
     torch.cuda.empty_cache()
 
@@ -895,6 +1016,10 @@ def main() -> int:
     train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,
                  {k.name: 6 for k in (K1, K3, K1B, K3B, K4, K4B)}, ["--config", S2_CONFIG],
                  S2_WARMUP, S2_STEPS)
+    torch.cuda.empty_cache()
+    with fused_so2():
+        train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
+                     {k.name: 12 for k in (K1, K2, K1B, K2B, K6, K6B)}, [], SO2_WARMUP, SO2_STEPS)
 
     print(smi, flush=True)
     emit({"kernels": [results[k.name] for k in KERNELS]})

@@ -1,0 +1,85 @@
+// K6: the fused SO(2) edge-attention chain of GraphAttention, forward.
+//
+// Replaces: singa_tpu/ops/pallas/so2_attn.py::so2_attn_fused (_fwd_kernel).
+// Per edge e, with x [E, (lmax+1)^2, C] l-primary and rad [E, n_trunc, C]:
+//   mpr  = (J_kept Z(-beta) J^T Z(-phi) x) * rad         m-primary [n_trunc, C]
+//   y_s  = mpr[section s] @ w1s[s]  (+ b1, s = 0)          conv 1, per section
+//   h    = the hidden rows of y [n_trunc, H]; extra = y_0's last `extra` columns
+//   mid  = fg^T silu(tg h) per hidden channel, row 0 := silu(extra[alpha_ch:])
+//   z_s  = mid[section s] @ w2s[s]  (+ b2, s = 0)          conv 2, per section
+// Sections: the m=0 rows, then the cos and sin rows of m = 1, of m = 2.
+//
+// What bounds it on the H100: at the default Config (C = 32, H = 128,
+// F2 = 112, extra = 352, sections [7, 12, 10], G = 70) one edge costs 2.56
+// MFLOP in conv 1, 8.40 in conv 2, 1.04 in the grid and ~0.05 in the
+// block-diagonal rotation, ~12 MFLOP against ~24 KB of its inputs and
+// outputs: ~5.7 ms of float32 work at a training microbatch's 31,744
+// stage-1 edges (67 TFLOP/s) against ~0.2 ms of memory. Float32 arithmetic
+// bounds it.
+//
+// Design: 90 % of the work is the two convolutions, products of every edge
+// with weights that all edges share (conv 2's are 16.8 MB). So the chain
+// runs as stages (csrc/so2_chain.cuh), cut where the work turns from
+// per-edge to shared-weight products: the rotation (one thread per (edge,
+// channel) column, the J blocks in shared memory, cos/sin of m*phi and
+// m*beta formed in the kernel), the conv-1 products (a register-tiled
+// 128 x 128 GEMM on the CUDA cores, one per section), the separable S2
+// activation (K3's register columns, the [G, H] grid never stored), the
+// conv-2 products (the same GEMM). The rotated message, the conv-1 output
+// and mid pass through device memory: ~2 GB of traffic at the training
+// microbatch, ~0.6 ms against the ~5.7 ms operation bound, the price of
+// keeping each weight tile in shared memory across 128 edges. The TPU
+// kernel's 128-lane channel padding of conv 1 (4x its products at C = 32),
+// its edge padding and its transposed weight copies are not carried over.
+#include "so2_chain.cuh"
+
+namespace {
+
+using singa::so2::Dims;
+
+inline long long fwd_scratch(const Dims& d) {
+  return (long long)d.E * ((long long)d.n_trunc * d.C + d.y1_width + (long long)d.n_trunc * d.H);
+}
+
+}  // namespace
+
+// Floats of scratch the forward needs (the rotated message, the conv-1
+// output and mid); -1 for shapes the kernels do not take.
+extern "C" long long so2_attn_scratch_floats(int E, int lmax, int mmax, int C, int H, int F2,
+                                             int extra, int alpha_ch, int G) {
+  const Dims d = singa::so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  return singa::so2::dims_ok(d) ? fwd_scratch(d) : -1;
+}
+
+// Returns cudaErrorInvalidValue for shapes the kernels do not take: mmax
+// other than 2, more than 32 m-primary rows (lmax above 6), gate channels
+// (extra - alpha_ch) other than H.
+extern "C" int so2_attn_f32(const float* x, const float* rad, const float* phi, const float* beta,
+                            const float* w10, const float* w11, const float* w12, const float* b1,
+                            const float* w20, const float* w21, const float* w22, const float* b2,
+                            const float* J, const float* tg, const float* fg, float* z0, float* z1,
+                            float* z2, float* extra_out, float* scratch, int E, int lmax, int mmax,
+                            int C, int H, int F2, int extra, int alpha_ch, int G, void* stream) {
+  const Dims d = singa::so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  if (!singa::so2::dims_ok(d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float* mpr = scratch;
+  float* y1 = mpr + (long long)E * d.n_trunc * C;
+  float* mid = y1 + (long long)E * d.y1_width;
+  const float* w1s[singa::so2::kSecs] = {w10, w11, w12};
+  const float* w2s[singa::so2::kSecs] = {w20, w21, w22};
+  float* zs[singa::so2::kSecs] = {z0, z1, z2};
+
+  cudaError_t err = singa::so2::rotate_fwd(x, rad, phi, beta, J, nullptr, mpr, d, st);
+  if (err != cudaSuccess) return (int)err;
+  err = singa::so2::forward_to_mid(mpr, w1s, b1, tg, fg, y1, mid, extra_out, d, st);
+  if (err != cudaSuccess) return (int)err;
+  for (int s = 0; s < singa::so2::kSecs; ++s) {
+    const int n_out = d.rows[s] * F2;
+    err = singa::so2::gemm<false, false>(mid + d.row0[s] * H, (long long)d.n_trunc * H, w2s[s],
+                                         n_out, zs[s], n_out, E, n_out, d.rows[s] * H,
+                                         s == 0 ? b2 : nullptr, 1, 0, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}

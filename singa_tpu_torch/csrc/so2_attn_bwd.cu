@@ -1,0 +1,153 @@
+// K6b: the fused SO(2) edge-attention chain of GraphAttention, backward.
+//
+// Replaces: singa_tpu/ops/pallas/so2_attn.py::_bwd (_bwd_kernel). With the
+// forward of csrc/so2_attn.cu recomputed up to mid (never z), and the
+// cotangents dz_s of the conv-2 sections and dextra of the extra channels:
+//   dw2_s = mid_s^T dz_s;  db2 = sum_e dz_0;  dmid_s = dz_s w2_s^T
+//   dgate = silu'(gate) * dmid[0];  dmid[0] := 0
+//   dh    = tg^T (silu'(tg h) * fg dmid);  dy = [dh | dextra + dgate at alpha_ch:]
+//   dw1_s = mpr_s^T dy_s;  db1 = sum_e dy_0;  dmpr_s = dy_s w1_s^T
+//   drad  = dmpr * mp0;  dx = D^T (dmpr * rad)
+// (mp0 the rotated message before the modulation, mpr = mp0 * rad.) phi,
+// beta and the grid matrices get no gradient.
+//
+// What bounds it on the H100: per edge the recomputed conv 1 and grid
+// (2.56 + 1.04 MFLOP), the four weight-shaped products dw2, dmid (8.40
+// each), dw1, dmpr (2.56 each), the backward grid (1.04) and the two
+// rotations: ~26.7 MFLOP against ~24 KB, ~12.7 ms of float32 work at a
+// training microbatch's 31,744 stage-1 edges. Float32 arithmetic bounds it.
+//
+// Design: K2b's split. The stages of the forward (csrc/so2_chain.cuh)
+// write the rotated message, the conv-1 output and mid; the backward grid
+// kernel writes the conv-1 output cotangent; the cotangent products are the
+// forward's GEMM with the weight read transposed. The weight gradients
+// (5.5 M floats at the default Config, 22 MB) are sums over every edge of
+// a_e^T b_e: the same GEMM with the edge dimension as its depth, split
+// over edge slices so that the card fills (each slice's tile of the
+// gradient in registers, written once to its own partial buffer), the
+// partials then added in slice order by sum_rows_kernel; the bias gradients
+// are column sums in edge slices, added the same way. No atomics: the result
+// does not depend on the launch. ~2.3 GB of scratch at the training
+// microbatch (the per-edge operands of the weight products), on an 80 GB
+// card.
+#include <algorithm>
+
+#include "so2_chain.cuh"
+
+namespace {
+
+using singa::so2::Dims;
+using singa::so2::kSecs;
+
+struct Scratch {
+  long long mp0, mpr, y1, mid, dmid, dy1, dmpr, partial, total;
+};
+
+// The partial buffer serves each weight gradient and bias sum in turn.
+inline Scratch scratch_layout(const Dims& d) {
+  const long long E = d.E, msg = E * d.n_trunc * d.C, hid = E * d.n_trunc * d.H;
+  long long part = (long long)singa::so2::col_splits(d.E) * std::max(d.out1[0], d.rows[0] * d.F2);
+  for (int s = 0; s < kSecs; ++s) {
+    const long long m1 = (long long)d.rows[s] * d.C, n1 = d.out1[s];
+    const long long m2 = (long long)d.rows[s] * d.H, n2 = (long long)d.rows[s] * d.F2;
+    part = std::max(part, singa::so2::grad_splits((int)m1, (int)n1, d.E) * m1 * n1);
+    part = std::max(part, singa::so2::grad_splits((int)m2, (int)n2, d.E) * m2 * n2);
+  }
+  Scratch s;
+  s.mp0 = 0;
+  s.mpr = s.mp0 + msg;
+  s.y1 = s.mpr + msg;
+  s.mid = s.y1 + E * d.y1_width;
+  s.dmid = s.mid + hid;
+  s.dy1 = s.dmid + hid;
+  s.dmpr = s.dy1 + E * d.y1_width;
+  s.partial = s.dmpr + msg;
+  s.total = s.partial + part;
+  return s;
+}
+
+}  // namespace
+
+// Floats of scratch the backward needs; -1 for shapes it does not take.
+extern "C" long long so2_attn_bwd_scratch_floats(int E, int lmax, int mmax, int C, int H, int F2,
+                                                 int extra, int alpha_ch, int G) {
+  const Dims d = singa::so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  return singa::so2::dims_ok(d) ? scratch_layout(d).total : -1;
+}
+
+// grads: dw1_0, dw1_1, dw1_2, db1, dw2_0, dw2_1, dw2_2, db2, flat in that
+// order. Returns cudaErrorInvalidValue for the shapes K6 does not take.
+extern "C" int so2_attn_bwd_f32(const float* x, const float* rad, const float* phi,
+                                const float* beta, const float* w10, const float* w11,
+                                const float* w12, const float* b1, const float* w20,
+                                const float* w21, const float* w22, const float* J,
+                                const float* tg, const float* fg, const float* dz0,
+                                const float* dz1, const float* dz2, const float* dextra,
+                                float* dx, float* drad, float* grads, float* scratch, int E,
+                                int lmax, int mmax, int C, int H, int F2, int extra, int alpha_ch,
+                                int G, void* stream) {
+  namespace so2 = singa::so2;
+  const Dims d = so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  if (!so2::dims_ok(d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Scratch sl = scratch_layout(d);
+  float *mp0 = scratch + sl.mp0, *mpr = scratch + sl.mpr, *y1 = scratch + sl.y1;
+  float *mid = scratch + sl.mid, *dmid = scratch + sl.dmid, *dy1 = scratch + sl.dy1;
+  float *dmpr = scratch + sl.dmpr, *partial = scratch + sl.partial;
+  const float* w1s[kSecs] = {w10, w11, w12};
+  const float* w2s[kSecs] = {w20, w21, w22};
+  const float* dzs[kSecs] = {dz0, dz1, dz2};
+  // offsets of the gradients in `grads`
+  long long g_w1[kSecs], g_w2[kSecs], g_b1, g_b2, off = 0;
+  for (int s = 0; s < kSecs; ++s) {
+    g_w1[s] = off;
+    off += (long long)d.rows[s] * C * d.out1[s];
+  }
+  g_b1 = off;
+  off += d.out1[0];
+  for (int s = 0; s < kSecs; ++s) {
+    g_w2[s] = off;
+    off += (long long)d.rows[s] * H * d.rows[s] * F2;
+  }
+  g_b2 = off;
+  const long long ldm = (long long)d.n_trunc * C, ldh = (long long)d.n_trunc * H;
+
+  // the forward up to mid
+  cudaError_t err = so2::rotate_fwd(x, rad, phi, beta, J, mp0, mpr, d, st);
+  if (err != cudaSuccess) return (int)err;
+  err = so2::forward_to_mid(mpr, w1s, b1, tg, fg, y1, mid, nullptr, d, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // conv 2: its weight and bias gradients, and dmid
+  for (int s = 0; s < kSecs; ++s) {
+    const int m2 = d.rows[s] * H, n2 = d.rows[s] * F2;
+    err = so2::weight_grad(mid + d.row0[s] * H, ldh, dzs[s], n2, m2, n2, E, partial,
+                           grads + g_w2[s], st);
+    if (err != cudaSuccess) return (int)err;
+    err = so2::gemm<false, true>(dzs[s], n2, w2s[s], n2, dmid + d.row0[s] * H, ldh, E, m2, n2,
+                                 nullptr, 1, 0, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = so2::col_sum(dz0, d.rows[0] * F2, E, d.rows[0] * F2, partial, grads + g_b2, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // the S2 activation and the gate: the conv-1 output cotangent
+  err = so2::grid_bwd(y1, dmid, dextra, tg, fg, dy1, d, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // conv 1: its weight and bias gradients, and the message cotangent
+  for (int s = 0; s < kSecs; ++s) {
+    const int m1 = d.rows[s] * C, n1 = d.out1[s];
+    err = so2::weight_grad(mpr + d.row0[s] * C, ldm, dy1 + d.y1_col[s], d.y1_width, m1, n1, E,
+                           partial, grads + g_w1[s], st);
+    if (err != cudaSuccess) return (int)err;
+    err = so2::gemm<false, true>(dy1 + d.y1_col[s], d.y1_width, w1s[s], n1, dmpr + d.row0[s] * C,
+                                 ldm, E, m1, n1, nullptr, 1, 0, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = so2::col_sum(dy1, d.y1_width, E, d.out1[0], partial, grads + g_b1, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // the radial modulation and the rotation
+  return (int)so2::rotate_bwd(dmpr, rad, mp0, phi, beta, J, dx, drad, d, st);
+}

@@ -8,6 +8,7 @@ source and target feature tensors; data flow is purely functional.
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence
 
 import torch
@@ -25,8 +26,16 @@ from singa_tpu_torch.equivariant.layers import (
     smooth_leaky_relu,
     uniform_,
 )
+from singa_tpu_torch.ops.cuda.so2_attn import sections as so2_sections
+from singa_tpu_torch.ops.cuda.so2_attn import so2_attn
 from singa_tpu_torch.ops.cuda.so3_ffn import so3_ffn, so3_gate_ffn
 from singa_tpu_torch.ops.neighbors import EdgeEngine
+
+
+def _fused_so2_enabled() -> bool:
+    """``SINGA_TPU_FUSED_SO2`` set: GraphAttention runs its edge chain as
+    kernel K6 (the JAX package's opt-in of the same name)."""
+    return bool(os.environ.get("SINGA_TPU_FUSED_SO2"))
 
 
 class EdgeDegreeEmbedding(nn.Module):
@@ -133,7 +142,10 @@ class GraphAttention(nn.Module):
     """SO2EquivariantGraphAttention (EF_layers.py:878-1204), config path:
     use_s2_act_attn=False, use_attn_renorm=True, use_gate_act=False,
     use_sep_s2_act=True, use_m_share_rad=False. The edge-frame chain runs
-    m-primary; the separable S2 activation is kernel K3."""
+    m-primary; the separable S2 activation is kernel K3. With
+    ``SINGA_TPU_FUSED_SO2`` set (read at every call), mmax 2 and a hidden
+    width that is a multiple of 128, the whole chain from the rotation to
+    SO2 conv 2 is kernel K6 instead, from the same parameters."""
 
     def __init__(
         self,
@@ -149,6 +161,7 @@ class GraphAttention(nn.Module):
         device=None,
     ):
         super().__init__()
+        self.hidden_channels = hidden_channels
         self.num_heads = num_heads
         self.alpha_channels = attn_alpha_channels
         self.value_channels = attn_value_channels
@@ -175,17 +188,44 @@ class GraphAttention(nn.Module):
         with torch.no_grad():
             self.proj_b.zero_()
 
+    def _fused(self, wigner) -> bool:
+        """The JAX package's selection of its fused kernel, so that both
+        packages take the same path for the same configuration."""
+        return (
+            _fused_so2_enabled()
+            and isinstance(wigner, so3.EdgeFrame)
+            and self.mmax == 2
+            and self.hidden_channels % 128 == 0
+        )
+
     def forward(self, x_src, x_dst, x_edge, edges: EdgeEngine, wigner: so3.EdgeFrame):
         msg = torch.cat([edges.gather_src(x_src), edges.gather_dst(x_dst)], dim=-1)
-        msg = so3.rotate(wigner, msg, self.lmax, self.mmax, m_primary=True)
-        msg, x0_extra = self.so2_conv_1(msg, x_edge)
         alpha_ch = self.num_heads * self.alpha_channels
-        x_alpha = x0_extra[:, :alpha_ch]
-        gating = x0_extra[:, alpha_ch:]
-        msg = separable_s2_activation(
-            gating.contiguous(), msg.contiguous(), self.lmax, self.mmax, m_primary=True
-        )
-        msg = self.so2_conv_2(msg)
+        if self._fused(wigner):
+            # rotate -> SO2 conv 1 -> separable S2 -> SO2 conv 2 in kernel K6
+            w1s, b1 = self.so2_conv_1.section_weights()
+            w2s, b2 = self.so2_conv_2.section_weights()
+            tg, fg = _grid_mats_for(self.lmax, self.mmax, True)
+            dev, dt = msg.device, msg.dtype
+            F2 = self.num_heads * self.value_channels
+            *zs, x0_extra = so2_attn(
+                msg.contiguous(), self.so2_conv_1.radial(x_edge).contiguous(), wigner.phi,
+                wigner.beta, w1s, b1, w2s, b2, so3.as_const(tg, dev, dt),
+                so3.as_const(fg, dev, dt), self.lmax, self.mmax, self.hidden_channels, F2, alpha_ch,
+            )
+            E = msg.shape[0]
+            secs = so2_sections(self.lmax, self.mmax)
+            msg = torch.cat([z.reshape(E, rows, F2) for z, rows in zip(zs, secs)], dim=1)
+            x_alpha = x0_extra[:, :alpha_ch]
+        else:
+            msg = so3.rotate(wigner, msg, self.lmax, self.mmax, m_primary=True)
+            msg, x0_extra = self.so2_conv_1(msg, x_edge)
+            x_alpha = x0_extra[:, :alpha_ch]
+            gating = x0_extra[:, alpha_ch:]
+            msg = separable_s2_activation(
+                gating.contiguous(), msg.contiguous(), self.lmax, self.mmax, m_primary=True
+            )
+            msg = self.so2_conv_2(msg)
 
         # attention logits from the invariant m=0 channel
         x_alpha = x_alpha.reshape(-1, self.num_heads, self.alpha_channels)
@@ -209,8 +249,8 @@ class TransBlock(nn.Module):
     """Pre-norm attention + FFN residual block (TransBlockV2,
     EF_layers.py:1207-1410). The norms keep their flax names
     (``EquivariantRMSNorm_0`` before attention, ``_1`` before the FFN). The
-    attention runs K3; the FFN runs K2 under ``ffn_activation: gate`` and
-    K4 under ``s2``."""
+    attention runs K3 (K6 under ``SINGA_TPU_FUSED_SO2``); the FFN runs K2
+    under ``ffn_activation: gate`` and K4 under ``s2``."""
 
     def __init__(
         self,

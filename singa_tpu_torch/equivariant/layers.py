@@ -263,36 +263,50 @@ class SO2Conv(nn.Module):
             bound = 1.0 / math.sqrt(m_sizes[m] * self.c_in) / math.sqrt(2.0)
             uniform_(getattr(self, f"w_m{m}"), bound, gen)
 
+    def section_weights(self) -> tuple[list[torch.Tensor], torch.Tensor]:
+        """``([w_m0, W_1, .., W_mmax], b_m0)``: one weight per m-primary
+        section, ``W_m`` the complex-pair block ``[[K_r, K_i], [-K_i, K_r]]``
+        of ``w_m{m}`` (its cos rows, then its sin rows), assembled with
+        autograd so gradients reach the parameters."""
+        Fo = self.features
+        ws = [self.w_m0]
+        for m in range(1, self.mmax + 1):
+            sz = self.mapping.m_size[m]
+            K = getattr(self, f"w_m{m}")
+            K_r, K_i = K[:, : sz * Fo], K[:, sz * Fo :]
+            ws.append(torch.cat([torch.cat([K_r, K_i], dim=1), torch.cat([-K_i, K_r], dim=1)], dim=0))
+        return ws, self.b_m0
+
+    def radial(self, x_edge: torch.Tensor) -> torch.Tensor:
+        """The radial modulation ``[E, n_trunc, c_in]`` of the m-primary
+        input: each m>0 radial segment is shared by its cos and sin rows."""
+        c_in = self.c_in
+        m_sizes = self.mapping.m_size
+        rad = self.RadialMLP_0(x_edge)
+        parts = [rad[:, : m_sizes[0] * c_in]]
+        off = m_sizes[0] * c_in
+        for s in m_sizes[1:]:
+            seg = rad[:, off : off + s * c_in]
+            parts.extend((seg, seg))
+            off += s * c_in
+        return torch.cat(parts, dim=-1).reshape(x_edge.shape[0], self.mapping.n_trunc, c_in)
+
     def forward(self, x: torch.Tensor, x_edge: torch.Tensor | None = None):
         E = x.shape[0]
         c_in, Fo = self.c_in, self.features
-        m_sizes = self.mapping.m_size
-        n0 = m_sizes[0]
+        n0 = self.mapping.m_size[0]
         xm = x.reshape(E, -1)
         if self.RadialMLP_0 is not None:
-            rad = self.RadialMLP_0(x_edge)
-            # each m>0 radial segment is shared by its cos and sin rows
-            parts = [rad[:, : n0 * c_in]]
-            off = n0 * c_in
-            for s in m_sizes[1:]:
-                seg = rad[:, off : off + s * c_in]
-                parts.extend((seg, seg))
-                off += s * c_in
-            xm = xm * torch.cat(parts, dim=-1).to(xm.dtype)
+            xm = xm * self.radial(x_edge).reshape(E, -1).to(xm.dtype)
 
-        y0 = xm[:, : n0 * c_in] @ self.w_m0 + self.b_m0
+        ws, b = self.section_weights()
+        y0 = xm[:, : n0 * c_in] @ ws[0] + b
         outs = [y0[:, : n0 * Fo]]
         off = n0 * c_in
-        for m in range(1, self.mmax + 1):
-            sz = m_sizes[m]
-            K = getattr(self, f"w_m{m}")
-            K_r, K_i = K[:, : sz * Fo], K[:, sz * Fo :]
-            # complex pair convolution [cos; sin] @ [[K_r, K_i], [-K_i, K_r]]
-            W = torch.cat(
-                [torch.cat([K_r, K_i], dim=1), torch.cat([-K_i, K_r], dim=1)], dim=0
-            )
-            outs.append(xm[:, off : off + 2 * sz * c_in] @ W)
-            off += 2 * sz * c_in
+        for W in ws[1:]:
+            rows = W.shape[0] // c_in
+            outs.append(xm[:, off : off + rows * c_in] @ W)
+            off += rows * c_in
         out = torch.cat(outs, dim=-1).reshape(E, self.mapping.n_trunc, Fo)
         if self.extra:
             return out, y0[:, n0 * Fo :]

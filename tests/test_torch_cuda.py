@@ -113,7 +113,7 @@ def test_s2_silu_sep_kernel_matches_plain(dev, E, C):
 def _check_grads(got, want, names):
     torch.cuda.synchronize()
     for name, a, b in zip(names, got, want):
-        scale = max(1.0, b.abs().max().item())
+        scale = max(1.0, b.abs().max().item()) if b.numel() else 1.0
         torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=1e-4, msg=name)
 
 
@@ -340,11 +340,14 @@ def test_kernels_refuse_shapes_they_do_not_take(dev):
     """A shape outside a kernel's limits reaches its C entry point, which
     returns cudaErrorInvalidValue, and the wrapper raises ValueError: K1
     with one node's pair tensors over shared memory, K2 with 6 output
-    channels, K3 with 36 coefficient rows, K4 and K5 with 81."""
+    channels, K3 with 36 coefficient rows, K4 and K5 with 81, K6 and K6b at
+    lmax 7 (34 m-primary rows)."""
     from singa_tpu_torch.ops.cuda import neighbor_attn as k1
     from singa_tpu_torch.ops.cuda import s2_act as k3
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
     from singa_tpu_torch.ops.cuda import so3_ffn as k2
 
+    so2_args, so2_cts = _so2_case(dev, 3, 7, 4, 8, 4, 2, 97)
     rng = np.random.default_rng(89)
     f = lambda *s: _t(rng.normal(size=s).astype(np.float32), dev)
     H, kd, vd, De, K = 2, 32, 64, 64, 2000
@@ -358,7 +361,104 @@ def test_kernels_refuse_shapes_they_do_not_take(dev):
         lambda: k2.so3_ffn_cuda(f(3, 81, 4), f(9, 4, 8), f(8), f(4, 8), f(8), f(9, 8, 4), f(4),
                                 f(20, 81), f(20, 81), 8),
         lambda: k3.s2_silu_cuda(f(3, 81, 8), f(20, 81), f(20, 81)),
+        lambda: k6.so2_attn_cuda(*so2_args),
+        lambda: k6.so2_attn_bwd_cuda(*_so2_bwd_args(so2_args, so2_cts)),
     ]
     for call in refused:
         with pytest.raises(ValueError, match="does not take these shapes"):
             call()
+
+
+def _so2_case(dev, E, lmax, C, H, F2, alpha_ch, seed):
+    """K6's arguments (mmax 2, non-zero b1 and b2, the m-primary grid of
+    lmax) and the cotangents of its four outputs."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+    from singa_tpu_torch.ops.cuda.so2_attn import sections
+
+    secs = sections(lmax, 2)
+    n0, extra = secs[0], alpha_ch + H
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: _t((sc * rng.normal(size=s)).astype(np.float32), dev)
+    w1s = [f(r * C, r * H + (extra if i == 0 else 0), sc=0.1) for i, r in enumerate(secs)]
+    w2s = [f(r * H, r * F2, sc=0.05) for r in secs]
+    tg, fg = (_t(m, dev) for m in _grid_mats_for(lmax, 2, True))
+    args = [f(E, (lmax + 1) ** 2, C), 1.0 + f(E, sum(secs), C, sc=0.3),
+            _t(rng.uniform(-np.pi, np.pi, E).astype(np.float32), dev),
+            _t(rng.uniform(0, np.pi, E).astype(np.float32), dev),
+            w1s, f(n0 * H + extra, sc=0.3), w2s, f(n0 * F2, sc=0.3), tg, fg, lmax, 2, H, F2, alpha_ch]
+    cts = [f(E, r * F2) for r in secs] + [f(E, extra)]
+    return args, cts
+
+
+def _so2_bwd_args(args, cts):
+    """K6b's arguments from K6's: b2 gets its gradient from dz0 alone."""
+    return [*args[:7], *args[8:], *cts]
+
+
+SO2_CASES = [(300, 6, 32, 128, 112, 224), (0, 6, 32, 128, 112, 224), (37, 3, 8, 40, 12, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,lmax,C,H,F2,alpha_ch", SO2_CASES)
+def test_so2_attn_kernels_match_plain(dev, E, lmax, C, H, F2, alpha_ch):
+    """K6 and K6b at the default Config's widths (c_in 32, H 128, F2 112,
+    224 alpha channels, lmax 6) with an edge count no multiple of the GEMM
+    tile, at E = 0, and at lmax 3 with a hidden width no multiple of 128;
+    non-zero biases. K6b: dx, drad and every weight and bias gradient."""
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
+
+    args, cts = _so2_case(dev, E, lmax, C, H, F2, alpha_ch, 101 + E)
+    n, nb = k6.launches, k6.launches_bwd
+    got = k6.so2_attn_cuda(*args)
+    grads = k6.so2_attn_bwd_cuda(*_so2_bwd_args(args, cts))
+    launched = 0 if E == 0 else 1
+    assert (k6.launches, k6.launches_bwd) == (n + launched, nb + launched)
+    for g, w in zip(got, k6.so2_attn_plain(*args)):
+        _check(g, w)
+    _check_grads(grads, k6.so2_attn_bwd_plain(*_so2_bwd_args(args, cts)),
+                 ["dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2", "db2"])
+
+
+@pytest.mark.cuda
+def test_autograd_reaches_conv_parameters_through_k6(dev):
+    """SO2Conv.section_weights and radial feeding so2_attn, loss.backward()
+    on CUDA tensors: x, the edge features and every parameter of both
+    convolutions (radial MLP included) get the gradient the CPU (plain
+    versions) gives them."""
+    from singa_tpu_torch.equivariant.layers import SO2Conv, _grid_mats_for
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
+    from singa_tpu_torch.params import seeded_init
+
+    lmax, C, H, F2, alpha_ch, De, E = 6, 16, 128, 24, 12, 8, 70
+    rng = np.random.default_rng(103)
+    x = rng.normal(size=(E, (lmax + 1) ** 2, C)).astype(np.float32)
+    x_edge = rng.normal(size=(E, De)).astype(np.float32)
+    phi = rng.uniform(-np.pi, np.pi, E).astype(np.float32)
+    beta = rng.uniform(0, np.pi, E).astype(np.float32)
+    grads = {}
+    for d in ("cpu", dev):
+        conv1 = SO2Conv(C, H, lmax, 2, edge_channels=(De, 16), extra_m0_features=alpha_ch + H,
+                        device="cpu")
+        conv2 = SO2Conv(H, F2, lmax, 2, device="cpu")
+        mods = torch.nn.ModuleList([conv1, conv2])
+        seeded_init(mods, 5)
+        mods.to(d)
+        xt, et = _t(x, d).requires_grad_(), _t(x_edge, d).requires_grad_()
+        w1s, b1 = conv1.section_weights()
+        w2s, b2 = conv2.section_weights()
+        tg, fg = (_t(m, d) for m in _grid_mats_for(lmax, 2, True))
+        n = k6.launches_bwd
+        outs = k6.so2_attn(xt, conv1.radial(et).contiguous(), _t(phi, d), _t(beta, d), w1s, b1,
+                           w2s, b2, tg, fg, lmax, 2, H, F2, alpha_ch)
+        loss = sum((o * _t(np.random.default_rng(7 + i).normal(size=o.shape).astype(np.float32), d)).sum()
+                   for i, o in enumerate(outs))
+        loss.backward()
+        assert k6.launches_bwd == n + (1 if str(d) == "cuda" else 0)
+        grads[str(d)] = {"x": xt.grad, "x_edge": et.grad,
+                         **{name: p.grad for name, p in mods.named_parameters()}}
+    assert set(grads["cpu"]) == set(grads["cuda"])
+    for name, b in grads["cpu"].items():
+        a = grads["cuda"][name]
+        assert a is not None, name
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=1e-4, msg=name)
