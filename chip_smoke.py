@@ -1,7 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU: the generation path
 and the training step, under the default Config() (gate FFN), under
-configs/train_corpus.yml (s2 FFN) and under the default Config() with
-SINGA_TPU_FUSED_SO2 set (the fused SO(2) edge attention, K6).
+configs/train_corpus.yml (s2 FFN), and under the default Config() with
+SINGA_TPU_FUSED_SO2 set (the fused SO(2) edge attention, K6), with
+SINGA_TPU_HYBRID_ATTN set (the encoder's hybrid attention, K7) and with
+SINGA_TPU_DENSE_ATTN set (its dense attention, K8).
 
     python3 chip_smoke.py
 
@@ -79,16 +81,32 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      under CPU_TOL), vs_cpu_so2, then the training phases as in 8-11 with
      suffix _so2 (batch 64 as 2 x 32; per step K1 = K1b = K2 = K2b = K6 =
      K6b = 12, K3 = K3b = 0; train_cli_so2's generation launches K6 = 3)
-then the card's name and power limit as nvidia-smi prints them, the kernels
-line and ``{"ok": true, "device": {...}}`` last. The kernels line lists all
-twelve kernels: ``launches`` counted over the training run of the kernel's
-path (K1-K3, K1b-K3b: train; K4, K4b: train_s2; K6, K6b: train_so2; K5,
-K5b: none, 0, with ``"path": null``); ``ms``, ``plain_ms`` and ``bound_ms``
-the means per launch over one microbatch's calls (kernel_train / kernel_bwd
-and their s2 and so2 twins, each distinct call weighted by how often the
-microbatch makes it; K5/K5b: kernel_s2act's two calls), ``max_abs_err`` the
-largest over those calls. Any failed check raises. TF32 is off for matmuls
-and cuDNN, so every product runs in full float32.
+ 14. the default Config with SINGA_TPU_HYBRID_ATTN set for these phases
+     only, then with SINGA_TPU_DENSE_ATTN set (every phase before runs with
+     both unset and asserts K7 = K7b = K8 = K8b = 0): kernel_hybrid /
+     kernel_dense (K7 or K8 at every distinct call of one encode_pocket of
+     the 8 pockets), main_hybrid / main_dense (generate_for_pocket; per
+     encode K7 or K8 = 6, K1 = 0, K2 = 3, K3 = 3; encode_ms, decode_ms,
+     molecules/s, the encode's profile; the encode against the K1 encode on
+     the card: the hybrid one held to CPU_TOL, the dense one only reported,
+     beside the rows whose in-degree exceeds K, where the two differ by
+     design), vs_cpu_hybrid / vs_cpu_dense, then the training phases as in
+     8-11 with suffix _hybrid / _dense (batch 64 as 2 x 32, FORM_WARMUP +
+     FORM_STEPS steps; per step K7 = K7b (or K8 = K8b) = K2 = K2b = K3 = K3b
+     = 12, K1 = K1b = 0)
+then a ``total`` line (the script's seconds so far), the card's name and
+power limit as nvidia-smi prints them, the kernels line and
+``{"ok": true, "device": {...}}`` last. The kernels line lists all sixteen
+kernels: ``launches`` counted over the training run of the kernel's path
+(K1-K3, K1b-K3b: train; K4, K4b: train_s2; K6, K6b: train_so2; K7, K7b:
+train_hybrid; K8, K8b: train_dense; K5, K5b: none, 0, with ``"path":
+null``); ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over one
+microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
+call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
+two calls), ``max_abs_err`` the largest over those calls. K7's times are
+the kernel's alone: the torch.gather calls that feed it are path time, in
+the profiles (main_hybrid's encode_profile, train_profile_hybrid). Any failed check raises. TF32 is off for matmuls and cuDNN,
+so every product runs in full float32.
 """
 from __future__ import annotations
 
@@ -132,7 +150,10 @@ TRAIN_CPU_TOL = 2e-3
 TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 1, 3, 5
 S2_WARMUP, S2_STEPS = 1, 3  # the s2 training path (batch 32, one microbatch)
 SO2_WARMUP, SO2_STEPS = 1, 3  # the fused SO(2) attention's training path (batch 64, 2 x 32)
+FORM_WARMUP, FORM_STEPS = 1, 2  # the hybrid and dense attention's training paths (2 x 32)
 FUSED_SO2 = "SINGA_TPU_FUSED_SO2"  # GraphAttention's switch to kernel K6
+HYBRID_ATTN = "SINGA_TPU_HYBRID_ATTN"  # NeighborGraphMHA's switch to kernel K7
+DENSE_ATTN = "SINGA_TPU_DENSE_ATTN"  # the encoder's switch to kernel K8 (wins over K7's)
 
 
 def emit(obj) -> None:
@@ -182,7 +203,7 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
     ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
     return {
         "wall_ms": wall_ms,
         # None: the profiler saw no device work here, so busy time is not measured
@@ -219,16 +240,67 @@ def k2_cost(args, out):
     return nbytes(x, w1, b1, wg, bg, w2, b2, out), flops
 
 
+def pair_flops(H: int, kd: int, vd: int, De: int) -> tuple[float, float]:
+    """Operations per live (node, neighbour) pair of the encoder attention:
+    (forward, backward). Forward: the smear, both EdgeMLPs, the score and
+    the aggregate; backward: the EdgeMLPs' backward (dW2, dh, dW1) and the
+    score/aggregate products."""
+    forward = 2 * (De * kd + kd * kd + De * vd + vd * vd) + 3 * H * (kd + vd) + 4 * De
+    backward = 4 * (kd * kd + vd * vd) + 2 * De * (kd + vd) + 9 * H * (kd + vd)
+    return forward, backward
+
+
 def k1_cost(args, out):
     (qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
      wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff) = args
     H = ds.shape[2]
     kd, vd, De = qt.shape[2] // H, v.shape[2] // H, centers.shape[0]
     pairs = float(nbr_mask.sum().item())  # the work this data needs: live pairs
-    per_pair = 2 * (De * kd + kd * kd + De * vd + vd * vd) + 3 * H * (kd + vd) + 4 * De
     b = nbytes(qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
                wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, out)
-    return b, pairs * per_pair
+    return b, pairs * pair_flops(H, kd, vd, De)[0]
+
+
+def k7_cost(args, out):
+    # K1's work from the gathered rows, which it must read: ~1.8 GB at a
+    # training microbatch, so memory bounds it
+    (qt, k_nb, v_nb, nbr_mask, dist, ds, dv, centers,
+     wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff) = args
+    H = ds.shape[2]
+    kd, vd, De = qt.shape[2] // H, v_nb.shape[3] // H, centers.shape[0]
+    pairs = float(nbr_mask.sum().item())
+    b = nbytes(qt, k_nb, v_nb, nbr_mask, dist, ds, dv, centers,
+               wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, out)
+    return b, pairs * pair_flops(H, kd, vd, De)[0]
+
+
+def dense_work(adj, ds, HV: int) -> tuple[float, float, float]:
+    """What K8's data needs: (live pairs, the padded rows' forward
+    operations, their backward's). A live row's dead columns weigh
+    exp(-1e9 - m) = 0 exactly. A padded row (self score -1e9, no live
+    column) weighs its N columns and itself alike, and its EdgeMLPs all see
+    the smear of BIG, one w_v: its output is (w_v * sum_j v_j + dval) /
+    (N + 1), one column sum of v per graph (N x HV additions) and ~3 HV
+    operations per row. The backward adds per graph the padded rows' summed
+    cotangent spread over the N columns of dv (N x HV), and per row its
+    da, dot, share of that sum and dw_v (~6 HV)."""
+    from singa_tpu_torch.ops.cuda.dense_edge_attn import BIG
+
+    live = float((adj < 0.5 * BIG).sum().item())
+    padded = ds[..., 0] <= -0.5 * BIG  # [B, N]
+    rows = float(padded.sum().item())
+    graphs = float(padded.any(dim=1).sum().item())
+    N = adj.shape[2]
+    return live, graphs * N * HV + rows * 3 * HV, graphs * N * HV + rows * 6 * HV
+
+
+def k8_cost(args, out):
+    (qt, k, v, adj, ds, dv, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff) = args
+    H = ds.shape[2]
+    kd, vd, De = qt.shape[2] // H, v.shape[2] // H, centers.shape[0]
+    live, padded_fwd, _ = dense_work(adj, ds, H * vd)
+    b = nbytes(qt, k, v, adj, ds, dv, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, out)
+    return b, live * pair_flops(H, kd, vd, De)[0] + padded_fwd
 
 
 def k3b_cost(args, outs):
@@ -251,17 +323,25 @@ def k2b_cost(args, outs):
 
 
 def k1b_cost(args, outs):
+    """K1b's, and K7b's: the same arguments with k_nb/v_nb [B, N, K, *] in
+    place of k and v."""
     (qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
      wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g) = args
     H = ds.shape[2]
-    kd, vd, De = qt.shape[2] // H, v.shape[2] // H, centers.shape[0]
+    kd, vd, De = qt.shape[2] // H, v.shape[-1] // H, centers.shape[0]
     pairs = float(nbr_mask.sum().item())  # the work this data needs: live pairs
-    forward = 2 * (De * kd + kd * kd + De * vd + vd * vd) + 3 * H * (kd + vd) + 4 * De
-    # EdgeMLP backward (dW2, dh, dW1) and the score/aggregate products
-    backward = 4 * (kd * kd + vd * vd) + 2 * De * (kd + vd) + 9 * H * (kd + vd)
     b = nbytes(qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
                wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, g, *outs)
-    return b, pairs * (forward + backward)
+    return b, pairs * sum(pair_flops(H, kd, vd, De))
+
+
+def k8b_cost(args, outs):
+    (qt, k, v, adj, ds, dv, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g) = args
+    H = ds.shape[2]
+    kd, vd, De = qt.shape[2] // H, v.shape[2] // H, centers.shape[0]
+    live, padded_fwd, padded_bwd = dense_work(adj, ds, H * vd)
+    b = nbytes(qt, k, v, adj, ds, dv, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, g, *outs)
+    return b, live * sum(pair_flops(H, kd, vd, De)) + padded_fwd + padded_bwd
 
 
 def k4_cost(args, out):
@@ -368,6 +448,10 @@ def capture_calls(fns: dict, run) -> dict:
     return captured
 
 
+ATTN_BWD_OUTS = ("dqt", "dk", "dv", "d_diag_scores", "d_diag_value", "dwk1", "dbk1", "dwk2",
+                 "dbk2", "dwv1", "dbv1", "dwv2", "dbv2")  # K1b's, K7b's and K8b's outputs
+
+
 class Kernel(NamedTuple):
     name: str
     module: str  # singa_tpu_torch.ops.cuda.<module>
@@ -379,7 +463,7 @@ class Kernel(NamedTuple):
     outs: tuple | None  # the backward's output names; None: a forward
 
 
-K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B = KERNELS = [
+K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS = [
     Kernel("neighbor_attn_fused", "neighbor_attn", "neighbor_attn", "launches",
            "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:306",
            k1_cost, None),
@@ -390,8 +474,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B = KERNELS = [
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None),
     Kernel("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/neighbor_attn_bwd.cu", "singa_tpu/ops/pallas/neighbor_attn.py:362",
-           k1b_cost, ("dqt", "dk", "dv", "d_diag_scores", "d_diag_value", "dwk1", "dbk1",
-                      "dwk2", "dbk2", "dwv1", "dbv1", "dwv2", "dbv2")),
+           k1b_cost, ATTN_BWD_OUTS),
     Kernel("so3_gate_ffn_bwd", "so3_ffn", "so3_gate_ffn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/so3_gate_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:529",
            k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")),
@@ -413,22 +496,38 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B = KERNELS = [
     Kernel("so2_attn_bwd", "so2_attn", "so2_attn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/so2_attn_bwd.cu", "singa_tpu/ops/pallas/so2_attn.py:452", k6b_cost,
            ("dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2", "db2")),
+    Kernel("neighbor_attn_hybrid", "neighbor_attn", "neighbor_attn_hybrid", "launches_hybrid",
+           "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:492",
+           k7_cost, None),
+    Kernel("neighbor_attn_hybrid_bwd", "neighbor_attn", "neighbor_attn_hybrid_bwd",
+           "launches_hybrid_bwd", "singa_tpu_torch/csrc/neighbor_attn_bwd.cu",
+           "singa_tpu/ops/pallas/neighbor_attn.py:518", k1b_cost, ATTN_BWD_OUTS),
+    Kernel("dense_edge_attn", "dense_edge_attn", "dense_edge_attn", "launches",
+           "singa_tpu_torch/csrc/dense_edge_attn.cu", "singa_tpu/ops/pallas/dense_edge_attn.py:230",
+           k8_cost, None),
+    Kernel("dense_edge_attn_bwd", "dense_edge_attn", "dense_edge_attn_bwd", "launches_bwd",
+           "singa_tpu_torch/csrc/dense_edge_attn_bwd.cu",
+           "singa_tpu/ops/pallas/dense_edge_attn.py:277", k8b_cost, ATTN_BWD_OUTS),
 ]
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
 SO2_PATH = [K6, K6B]  # held at the default Config's, with SINGA_TPU_FUSED_SO2 set
+HYBRID_PATH = [K7, K7B]  # ... with SINGA_TPU_HYBRID_ATTN set
+DENSE_PATH = [K8, K8B]  # ... with SINGA_TPU_DENSE_ATTN set
 
 
 @contextlib.contextmanager
-def fused_so2():
-    """SINGA_TPU_FUSED_SO2 set for the duration: every GraphAttention runs
-    its edge chain as K6 (K6b backward) instead of rotate, SO2Conv, K3;
-    unset after (``main`` unsets it before the first phase)."""
-    os.environ[FUSED_SO2] = "1"
+def switched(var: str):
+    """The switch ``var`` set for the duration, unset after (``main`` unsets
+    every switch before the first phase). FUSED_SO2: every GraphAttention
+    runs its edge chain as K6 (K6b backward) instead of rotate, SO2Conv, K3.
+    HYBRID_ATTN: every encoder-1 layer runs K7/K7b in place of K1/K1b.
+    DENSE_ATTN: the encoder builds adj_dist and every layer runs K8/K8b."""
+    os.environ[var] = "1"
     try:
         yield
     finally:
-        os.environ.pop(FUSED_SO2)
+        os.environ.pop(var)
 
 
 def kernel_modules() -> dict:
@@ -721,22 +820,28 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
               "generated": [[r[0][:80], r[1]] for r in rows[1:]]})
         if ckpts != ["2"] or rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk:
             raise AssertionError(f"train CLI wrote {ckpts}; generation wrote {rows}")
-        if gen_counts != serve_counts(cfg, fused=bool(os.environ.get(FUSED_SO2))):
+        if gen_counts != serve_counts(cfg):
             raise AssertionError(f"generation from the checkpoint launched {gen_counts}")
 
 
-def serve_counts(cfg, fused: bool = False) -> dict:
+def serve_counts(cfg) -> dict:
     """The launches of every kernel in one generate_for_pocket: one
-    encode_pocket's (embedding stage 1 in gen_mode, then the kNN encoder).
-    ``fused``: with SINGA_TPU_FUSED_SO2 set, K6 in place of K3."""
+    encode_pocket's (embedding stage 1 in gen_mode, then the kNN encoder),
+    under the switches as they are set now: K6 in place of K3 with
+    SINGA_TPU_FUSED_SO2; K8 in place of K1 with SINGA_TPU_DENSE_ATTN, else
+    K7 with SINGA_TPU_HYBRID_ATTN."""
+    from singa_tpu_torch.equivariant.attention import _fused_so2_enabled
+    from singa_tpu_torch.models.neighbor_graph import _dense_attn, _hybrid_attn
+
     ffn = K4 if cfg.embedding.ffn_activation == "s2" else K2
-    attn = K6 if fused else K3
-    want = {K1.name: cfg.model.encoder.num_interactions, attn.name: cfg.embedding.num_layers,
+    attn = K6 if _fused_so2_enabled() else K3
+    encoder = K8 if _dense_attn() else K7 if _hybrid_attn() else K1
+    want = {encoder.name: cfg.model.encoder.num_interactions, attn.name: cfg.embedding.num_layers,
             ffn.name: cfg.embedding.num_layers}
     return {k.name: want.get(k.name, 0) for k in KERNELS}
 
 
-def checked_generate(model, batch, cfg, mods, fused: bool = False):
+def checked_generate(model, batch, cfg, mods):
     """generate_for_pocket on ``batch``, the counts set to 0 just before and
     read just after: (seconds, smiles, scores, counts). Raises unless every
     kernel launched as ``serve_counts`` says, every pocket got its molecules
@@ -750,7 +855,7 @@ def checked_generate(model, batch, cfg, mods, fused: bool = False):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = read_counts(mods)
-    expected = serve_counts(cfg, fused)
+    expected = serve_counts(cfg)
     if counts != expected:
         raise AssertionError(f"launches per encode_pocket {counts}, expected {expected}")
     want = batch.batch_size * cfg.generate.topk
@@ -879,7 +984,7 @@ def serve_so2_phases(dev, files, batch, mods, cfg) -> None:
     # kernel_so2: K6 at every distinct call of one encode_pocket
     hold_all([K6], mods, capture([K6], mods, encode), "kernel_so2", "calls_per_encode", None)
 
-    total_s, smiles, _, counts = checked_generate(model, batch, cfg, mods, fused=True)
+    total_s, smiles, _, counts = checked_generate(model, batch, cfg, mods)
     enc_ms, (enc, pad) = timed_encode(model, batch)
     decode_ms = timed_decode(model, enc, pad, cfg)
     with torch.inference_mode():
@@ -904,12 +1009,70 @@ def serve_so2_phases(dev, files, batch, mods, cfg) -> None:
     vs_cpu(model, cfg, files, dev, "vs_cpu_so2")
 
 
+def serve_form_phases(dev, files, batch, mods, cfg, form: str) -> None:
+    """kernel_<form>, main_<form> and vs_cpu_<form>: the default Config's
+    serving path with the form's switch set (the caller sets it), K7
+    (hybrid) or K8 (dense) in every encoder-1 layer. main_<form> also runs
+    the K1 encode on the card at the same weights: the hybrid encode is the
+    same function and is held to it within CPU_TOL; the dense one attends
+    over the untruncated adjacency, so its difference is reported beside
+    the rows whose in-degree exceeds K, and not gated."""
+    from singa_tpu_torch.models.neighbor_graph import build_neighbor_graph
+    from singa_tpu_torch.models.singa import SINGA
+    from singa_tpu_torch.ops.cuda.dense_edge_attn import BIG
+
+    spec, var = (K7, HYBRID_ATTN) if form == "hybrid" else (K8, DENSE_ATTN)
+    model = SINGA(cfg, device=dev, seed=0).eval()
+
+    def encode():
+        with torch.inference_mode():
+            model.encode_pocket(batch)
+
+    hold_all([spec], mods, capture([spec], mods, encode), f"kernel_{form}", "calls_per_encode",
+             None)
+
+    total_s, smiles, _, counts = checked_generate(model, batch, cfg, mods)
+    enc_ms, (enc, pad) = timed_encode(model, batch)
+    decode_ms = timed_decode(model, enc, pad, cfg)
+    with torch.inference_mode():
+        enc_prof = device_profile(lambda: model.encode_pocket(batch))
+        os.environ.pop(var)
+        try:
+            k1_enc, _ = model.encode_pocket(batch)
+        finally:
+            os.environ[var] = "1"
+        diff = (enc - k1_enc).abs()
+        same = bool(torch.allclose(enc, k1_enc, **CPU_TOL))
+        e = cfg.model.encoder
+        g = build_neighbor_graph(batch.protein.pos, batch.protein.mask, e.knn, e.smear_stop,
+                                 e.edge_channels, with_adj_dist=True)
+        live = g.adj_dist < 0.5 * BIG
+        graph = {"K": g.nbr.shape[2], "rows": live.shape[0] * live.shape[1],
+                 "padded_rows": int((~batch.protein.mask).sum()),
+                 "rows_in_degree_over_K": int((live.sum(-1) > g.nbr.shape[2]).sum()),
+                 "largest_in_degree": int(live.sum(-1).max()),
+                 "live_pair_share": float(live.float().mean())}
+        del g, live
+    vs_k1 = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+             "tolerance": CPU_TOL, "within_tolerance": same}
+    emit({"phase": f"main_{form}", var: "1", "pockets": 8, "launches_per_encode_pocket": counts,
+          "generate_for_pocket_s": total_s, "molecules_per_s": len(smiles) / total_s,
+          "encode_ms": enc_ms, "decode_ms": decode_ms, "encode_profile": enc_prof,
+          "vs_k1_encode": vs_k1, "graph": graph, "smiles": [s[:80] for s in smiles[:4]]})
+    if form == "hybrid" and not same:
+        raise AssertionError("hybrid: the K7 encode_pocket disagrees with the K1 one")
+    del enc, pad, k1_enc
+
+    vs_cpu(model, cfg, files, dev, f"vs_cpu_{form}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    os.environ.pop(FUSED_SO2, None)  # the phases before the fused ones run K3
+    for var in (FUSED_SO2, HYBRID_ATTN, DENSE_ATTN):  # each switch is set for its phases only
+        os.environ.pop(var, None)
     from singa_tpu_torch.config import Config, load_config
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.generate.beam import beam_generate
@@ -1004,8 +1167,13 @@ def main() -> int:
     results = {}
     serve_s2_phases(dev, files, batch, mods, results)
     torch.cuda.empty_cache()
-    with fused_so2():
+    with switched(FUSED_SO2):
         serve_so2_phases(dev, files, batch, mods, cfg)
+    torch.cuda.empty_cache()
+    for form, var in (("hybrid", HYBRID_ATTN), ("dense", DENSE_ATTN)):
+        with switched(var):
+            serve_form_phases(dev, files, batch, mods, cfg, form)
+        torch.cuda.empty_cache()
     del batch
     torch.cuda.empty_cache()
 
@@ -1017,10 +1185,18 @@ def main() -> int:
                  {k.name: 6 for k in (K1, K3, K1B, K3B, K4, K4B)}, ["--config", S2_CONFIG],
                  S2_WARMUP, S2_STEPS)
     torch.cuda.empty_cache()
-    with fused_so2():
+    with switched(FUSED_SO2):
         train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
                      {k.name: 12 for k in (K1, K2, K1B, K2B, K6, K6B)}, [], SO2_WARMUP, SO2_STEPS)
+    for suffix, var, path in (("_hybrid", HYBRID_ATTN, HYBRID_PATH),
+                              ("_dense", DENSE_ATTN, DENSE_PATH)):
+        torch.cuda.empty_cache()
+        with switched(var):
+            train_phases(dev, results, files, float32_config(cfg), suffix, path,
+                         {k.name: 12 for k in (K2, K3, K2B, K3B, *path)}, [], FORM_WARMUP,
+                         FORM_STEPS)
 
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(smi, flush=True)
     emit({"kernels": [results[k.name] for k in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,600 @@
+// The kNN encoder's graph attention in its three forms: one tiled forward
+// kernel and one backward pair kernel, each a template over the form.
+//
+// K1 (neighbour lists), K7 (the lists' rows gathered before the launch) and
+// K8 (every column of the untruncated adjacency) compute one function. Per
+// node i (row b*N + i) and each of its R slots p (its K list slots, or the N
+// columns of its graph):
+//   e[p, :]  = -exp(coeff * (dist[p] - centers)^2)              RBF smear
+//   w_k[p]   = ssp(e @ wk1 + bk1) @ wk2 + bk2                   k-EdgeMLP
+//   w_v[p]   = ssp(e @ wv1 + bv1) @ wv2 + bv2                   v-EdgeMLP
+//   s[p, h]  = live[p] ? sum_d qt[h, d] w_k[p, d] k[row(p), h, d] / sqrt(kd) : -1e9
+//   a        = softmax over {s[:, h], diag_scores[h]}            (R + 1 slots)
+//   out[h,d] = sum_p a[p, h] w_v[p, d] v[row(p), h, d] + a_self[h] diag_value[h, d]
+// The forms differ in row(p), dist and live only:
+//   kList      row = nbr[i, p] in i's graph; dist [B*N, K]; live = nbr_mask
+//   kGathered  row = slot p's own row of k_nb/v_nb [B*N*K, *]; as kList
+//   kDense     row = column p of i's graph; dist = adj_dist [B*N, N] (BIG = 1e9
+//              where j is not adjacent to i); live = dist < BIG / 2
+// EdgeMLP weights come in the flax [in, out] layout. The backward (with the
+// cotangent g [H, vd]) is, per node:
+//   ddv[h, d]  = a_self[h] g[h, d]
+//   da[p, h]   = sum_d g[h, d] w_v[p, d] v[row(p), h, d]
+//   dot[h]     = sum_p a[p, h] da[p, h] + a_self[h] da_self[h],
+//                da_self[h] = sum_d g[h, d] dval[h, d]
+//   dds[h]     = a_self[h] (da_self[h] - dot[h])
+//   dsc[p, h]  = live[p] a[p, h] (da[p, h] - dot[h]) / sqrt(kd)
+//   dqt[h, d]  = sum_p dsc[p, h] w_k[p, d] k[row(p), h, d]
+//   dk[row(p)] += dsc[p, h] w_k[p, d] qt[h, d]      (every slot)
+//   dv[row(p)] += a[p, h] w_v[p, d] g[h, d]         (every slot: a padded
+//                 row's softmax is uniform, so its dead slots send dv too)
+//   dw_k[p, d] = sum_h dsc[p, h] k[row(p), h, d] qt[h, d]
+//   dw_v[p, d] = sum_h a[p, h] g[h, d] v[row(p), h, d]
+//   EdgeMLPs: dW2 += h^T dw, db2 += sum dw, dh = (dw W2^T) sigmoid(pre),
+//             dW1 += e^T dh, db1 += sum dh, summed over every node and slot.
+// nbr, nbr_mask, dist, adj_dist and centers get no gradient.
+//
+// Design. A persistent grid of 512-thread blocks, one per SM; each keeps the
+// four EdgeMLP weight matrices in shared memory (~45 KB) for its life and
+// walks nodes in a grid-stride loop. The TPU kernels gathered neighbour rows
+// with one-hot matmuls; here each slot's k/v row is read by index. A node's
+// slots go in tiles: the whole list (K slots) as one tile, the dense form's N
+// columns in tiles of kTile (one row's pair tensors at N = 384, ~0.5 MB, do
+// not fit). Per tile, all in shared memory: the smear, the EdgeMLPs as
+// register-blocked GEMMs (block_gemm.cuh), the scores one thread per (slot,
+// head) with the row's 16-byte key loads all in flight, then an online
+// softmax: a running max m and sum l per head, which the self slot starts
+// (m = its score, l = 1, the aggregate = diag_value); a tile that moves the
+// max rescales the [H, vd] aggregate by exp(m_old - m_new), and the
+// aggregate is divided by l at the end. Nothing of shape [B, N, R, *] is
+// kept in device memory by the forward.
+//
+// The backward pair kernel sweeps a node's tiles twice: the first recomputes
+// each tile's forward and da and carries m, l and dot online; the second
+// recomputes the tile again (not when the row is one tile: its buffers still
+// hold it) and writes dsc, dqt, dds, ddv, and per slot the four numbers the
+// dk/dv stage needs (w_k, w_v, a, dsc) to scratch [B*N*R, kd + vd + 2H]. The
+// EdgeMLP weight gradients stay in registers, each sum owned by one thread,
+// across all the block's nodes, and go to the block's row of a [blocks, P]
+// buffer at the end, summed in block order by sum_rows_kernel. dk/dv are a
+// second kernel of each form's own: the gather over the CSR transpose of nbr
+// (csrc/neighbor_attn_bwd.cu) or the dense column sums
+// (csrc/dense_edge_attn_bwd.cu). Every sum runs in a fixed order: no atomics.
+#pragma once
+
+#include "block_gemm.cuh"
+
+namespace singa {
+namespace encoder_attn {
+
+constexpr int kThreads = 512;
+constexpr int kTile = 96;          // the dense form's columns per tile
+constexpr float kBig = 1e9f;       // adj_dist's value for a pair that is not adjacent
+constexpr int kAccPerThread = 24;  // weight-gradient sums a backward thread owns
+
+enum Form { kList = 0, kGathered = 1, kDense = 2 };
+
+// What a launch reads. k and v: node rows [B*N, H*kd] and [B*N, H*vd], or
+// (kGathered) the slots' rows [B*N*K, *].
+struct Args {
+  const float *qt, *k, *v;
+  const int* nbr;              // kList: [B*N, K]
+  const unsigned char* nmask;  // kList, kGathered: [B*N, K]
+  const float* dist;           // [B*N, R]
+  const float *ds, *dval;      // [B*N, H], [B*N, H*vd]
+  const float *centers, *wk1, *bk1, *wk2, *bk2, *wv1, *bv1, *wv2, *bv2;
+  float coeff;
+};
+
+// R: slots per node (K, or N for kDense).
+struct Dims {
+  int B, N, R, H, kd, vd, De;
+  __host__ __device__ int mlp_floats() const {  // EdgeMLP weights and biases, centers
+    return De * kd + kd + kd * kd + kd + De * vd + vd + vd * vd + vd + De;
+  }
+  __host__ __device__ int grad_floats() const { return mlp_floats() - De; }
+  __host__ bool ok() const {
+    return B >= 1 && N >= 1 && R >= 1 && H >= 1 && kd >= 1 && vd >= 1 && De >= 1;
+  }
+};
+
+// Slots per tile: the whole list, or kTile columns.
+template <int F>
+__host__ __device__ __forceinline__ int tile_of(const Dims& d) {
+  return F == kDense ? (d.R < kTile ? d.R : kTile) : d.R;
+}
+
+// The row of k (or v) that slot c0 + p of `node` reads.
+template <int F>
+__device__ __forceinline__ long long slot_row(const Dims& d, long long node, long long base,
+                                              const int* sidx, int c0, int p) {
+  if (F == kList) return base + sidx[p];
+  if (F == kGathered) return node * d.R + c0 + p;
+  return base + c0 + p;
+}
+
+// The EdgeMLP weights and the smear centers in shared memory.
+struct Mlp {
+  float *wk1, *bk1, *wk2, *bk2, *wv1, *bv1, *wv2, *bv2, *cent;
+};
+
+// Lays out and fills the Mlp at p; returns the first float after it.
+__device__ inline float* load_mlp(const Args& a, const Dims& d, float* p, Mlp& w) {
+  const int kd = d.kd, vd = d.vd, De = d.De, tid = threadIdx.x;
+  w.wk1 = p;
+  w.bk1 = w.wk1 + De * kd;
+  w.wk2 = w.bk1 + kd;
+  w.bk2 = w.wk2 + kd * kd;
+  w.wv1 = w.bk2 + kd;
+  w.bv1 = w.wv1 + De * vd;
+  w.wv2 = w.bv1 + vd;
+  w.bv2 = w.wv2 + vd * vd;
+  w.cent = w.bv2 + vd;
+  for (int t = tid; t < De * kd; t += blockDim.x) w.wk1[t] = a.wk1[t];
+  for (int t = tid; t < kd * kd; t += blockDim.x) w.wk2[t] = a.wk2[t];
+  for (int t = tid; t < De * vd; t += blockDim.x) w.wv1[t] = a.wv1[t];
+  for (int t = tid; t < vd * vd; t += blockDim.x) w.wv2[t] = a.wv2[t];
+  for (int t = tid; t < kd; t += blockDim.x) { w.bk1[t] = a.bk1[t]; w.bk2[t] = a.bk2[t]; }
+  for (int t = tid; t < vd; t += blockDim.x) { w.bv1[t] = a.bv1[t]; w.bv2[t] = a.bv2[t]; }
+  for (int t = tid; t < De; t += blockDim.x) w.cent[t] = a.centers[t];
+  return w.cent + De;
+}
+
+// One tile's slots c0 .. c0 + T - 1 of `node`: distances, live flags and
+// (kList) neighbour indices into shared memory, then the smear into sA
+// [T, De]. Starts with a barrier: the previous tile's readers are done.
+template <int F>
+__device__ void load_tile(const Args& a, const Dims& d, const Mlp& w, long long node, int c0,
+                          int T, float* sdist, float* smask, int* sidx, float* sA) {
+  const int tid = threadIdx.x, De = d.De;
+  __syncthreads();
+  for (int t = tid; t < T; t += blockDim.x) {
+    const long long s = node * d.R + c0 + t;
+    const float dd = a.dist[s];
+    sdist[t] = dd;
+    smask[t] = (F == kDense ? dd < 0.5f * kBig : a.nmask[s] != 0) ? 1.f : 0.f;
+    if (F == kList) sidx[t] = a.nbr[s];
+  }
+  __syncthreads();
+  for (int t = tid; t < T * De; t += blockDim.x) {
+    const float diff = sdist[t / De] - w.cent[t % De];
+    sA[t] = -expf(a.coeff * diff * diff);
+  }
+  __syncthreads();
+}
+
+// Masked scores sS [T, H] of the tile: one thread per (slot, head), reading
+// its kd key channels of the slot's row in 16-byte loads that are all in
+// flight at once (when the layout allows them).
+template <int F>
+__device__ void tile_scores(const Args& a, const Dims& d, long long node, long long base, int c0,
+                            int T, const int* sidx, const float* smask, const float* sq,
+                            const float* sWk, float* sS) {
+  const int H = d.H, kd = d.kd, HK = H * kd;
+  const float scale = 1.f / sqrtf((float)kd);
+  const bool vec4 = (kd % 4 == 0) &&
+                    ((reinterpret_cast<size_t>(sq) | reinterpret_cast<size_t>(sWk)) & 15) == 0;
+  for (int job = threadIdx.x; job < T * H; job += blockDim.x) {
+    const int p = job / H, h = job % H;
+    const float* krow = a.k + slot_row<F>(d, node, base, sidx, c0, p) * HK + h * kd;
+    const float* qr = sq + h * kd;
+    const float* wr = sWk + p * kd;
+    float part = 0.f;
+    if (vec4) {
+      for (int c = 0; c < kd; c += 4) {
+        const float4 kv = __ldg(reinterpret_cast<const float4*>(krow + c));
+        const float4 qv = *reinterpret_cast<const float4*>(qr + c);
+        const float4 wv = *reinterpret_cast<const float4*>(wr + c);
+        part = fmaf(qv.x * wv.x, kv.x, part);
+        part = fmaf(qv.y * wv.y, kv.y, part);
+        part = fmaf(qv.z * wv.z, kv.z, part);
+        part = fmaf(qv.w * wv.w, kv.w, part);
+      }
+    } else {
+      for (int c = 0; c < kd; ++c) part = fmaf(qr[c] * wr[c], krow[c], part);
+    }
+    sS[p * H + h] = smask[p] != 0.f ? part * scale : -1e9f;
+  }
+}
+
+// One tile's step of the online softmax, one warp per head: the run's max m
+// and sum l move over the tile's scores S [T, H]. With D (backward) dot, the
+// run's sum of exp(s - m) * D, moves too and S is left as it is; without it
+// (forward) S becomes exp(s - m_new) and al the run's rescale exp(m_old -
+// m_new). The caller's barrier publishes m, l, dot and al.
+__device__ inline void online_softmax(float* S, const float* D, int T, int H, float* m,
+                                      float* l, float* dot, float* al) {
+  const int lane = threadIdx.x & 31;
+  for (int h = threadIdx.x >> 5; h < H; h += blockDim.x >> 5) {
+    const float m_old = m[h];
+    float mx = m_old;
+    for (int p = lane; p < T; p += 32) mx = fmaxf(mx, S[p * H + h]);
+    mx = warp_max(mx);
+    float sum = 0.f, dsum = 0.f;
+    for (int p = lane; p < T; p += 32) {
+      const float e = expf(S[p * H + h] - mx);
+      if (D) {
+        dsum = fmaf(e, D[p * H + h], dsum);
+      } else {
+        S[p * H + h] = e;
+      }
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    if (D) dsum = warp_sum(dsum);
+    if (lane == 0) {
+      const float r = expf(m_old - mx);
+      l[h] = fmaf(l[h], r, sum);
+      if (D) dot[h] = fmaf(dot[h], r, dsum);
+      if (al) al[h] = r;
+      m[h] = mx;
+    }
+  }
+}
+
+template <int F>
+__host__ __device__ inline int fwd_smem_floats(const Dims& d) {
+  const int T = tile_of<F>(d), H = d.H;
+  return d.mlp_floats() + T * (d.De > d.vd ? d.De : d.vd) + 2 * T * d.kd +
+         (T > H ? T : H) * d.vd + T * H + H * d.kd + H * d.vd + 3 * H + 3 * T;
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
+  const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
+  const int TM = tile_of<F>(d);
+  extern __shared__ __align__(16) float smem[];
+  Mlp w;
+  float* sA = load_mlp(a, d, smem, w);       // [TM, De] smear, later [TM, vd] w_v
+  float* sHk = sA + TM * max(De, vd);        // [TM, kd]
+  float* sWk = sHk + TM * kd;                // [TM, kd]
+  float* sHv = sWk + TM * kd;                // [max(TM, H), vd]: [TM, vd], then partial sums
+  float* sS = sHv + max(TM, H) * vd;         // [TM, H] scores, then exp(s - m)
+  float* sq = sS + TM * H;                   // [HK] query row
+  float* sAcc = sq + HK;                     // [HV] running aggregate
+  float* sM = sAcc + HV;                     // [H] running max
+  float* sL = sM + H;                        // [H] running sum
+  float* sAl = sL + H;                       // [H] this tile's rescale
+  float* sdist = sAl + H;                    // [TM]
+  float* smask = sdist + TM;                 // [TM]
+  int* sidx = reinterpret_cast<int*>(smask + TM);  // [TM]
+
+  const int tid = threadIdx.x;
+  // slices of the slots in the aggregate; their partial sums (S * HV <=
+  // max(TM, H) * vd floats) meet in sHv
+  const int S = max(1, min((int)blockDim.x / HV, TM / H));
+  const long long total = (long long)d.B * d.N;
+  for (long long node = blockIdx.x; node < total; node += gridDim.x) {
+    const long long base = (node / d.N) * d.N;  // first row of this node's graph
+    __syncthreads();  // the previous node's readers are done
+    for (int t = tid; t < HK; t += blockDim.x) sq[t] = a.qt[node * HK + t];
+    for (int t = tid; t < HV; t += blockDim.x) sAcc[t] = a.dval[node * HV + t];
+    for (int t = tid; t < H; t += blockDim.x) {
+      sM[t] = a.ds[node * H + t];
+      sL[t] = 1.f;
+    }
+    for (int c0 = 0; c0 < d.R; c0 += TM) {
+      const int T = min(TM, d.R - c0);
+      load_tile<F>(a, d, w, node, c0, T, sdist, smask, sidx, sA);
+      block_gemm(sA, T, De, w.wk1, w.bk1, kd, sHk, kEpiSsp);
+      block_gemm(sA, T, De, w.wv1, w.bv1, vd, sHv, kEpiSsp);
+      __syncthreads();
+      block_gemm(sHk, T, kd, w.wk2, w.bk2, kd, sWk, kEpiNone);
+      block_gemm(sHv, T, vd, w.wv2, w.bv2, vd, sA, kEpiNone);  // the smear is dead now
+      __syncthreads();
+      tile_scores<F>(a, d, node, base, c0, T, sidx, smask, sq, sWk, sS);
+      __syncthreads();
+      online_softmax(sS, nullptr, T, H, sM, sL, nullptr, sAl);
+      __syncthreads();
+      // the tile's aggregate: threads over (value channel, slice of the
+      // slots), partial sums in sHv (dead by now), then added to the
+      // rescaled run in slice order
+      for (int t = tid; t < HV * S; t += blockDim.x) {
+        const int c = t % HV, sl = t / HV;
+        const int h = c / vd, dc = c % vd;
+        float acc = 0.f;
+#pragma unroll 4
+        for (int p = sl; p < T; p += S)
+          acc = fmaf(sS[p * H + h] * sA[p * vd + dc],
+                     __ldg(a.v + slot_row<F>(d, node, base, sidx, c0, p) * HV + c), acc);
+        sHv[sl * HV + c] = acc;
+      }
+      __syncthreads();
+      for (int c = tid; c < HV; c += blockDim.x) {
+        float acc = 0.f;
+        for (int sl = 0; sl < S; ++sl) acc += sHv[sl * HV + c];
+        sAcc[c] = fmaf(sAcc[c], sAl[c / vd], acc);
+      }
+    }
+    // each sAcc[c] was last written by this thread, each sL[h] before the
+    // last tile's barriers
+    for (int c = tid; c < HV; c += blockDim.x) out[node * HV + c] = sAcc[c] / sL[c / vd];
+  }
+}
+
+// The forward of every form: cudaErrorInvalidValue for a shape it does not
+// take (one tile's pair tensors over shared memory among them).
+template <int F>
+int launch_fwd(const Args& a, const Dims& d, float* out, void* stream) {
+  if (!d.ok()) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)fwd_smem_floats<F>(d) * sizeof(float);
+  cudaError_t err = allow_smem(attn_fwd_kernel<F>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = persistent_grid(attn_fwd_kernel<F>, kThreads, smem, (long long)d.B * d.N);
+  attn_fwd_kernel<F><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a, d, out);
+  return (int)cudaGetLastError();
+}
+
+// What the backward writes. Scratch per slot (node * R + p): s_wk [*, kd],
+// s_wv [*, vd], s_a and s_dsc [*, H]; partial [blocks, P].
+struct Grads {
+  const float* g;  // the cotangent [B*N, H*vd]
+  float *dqt, *dds, *ddv, *s_wk, *s_wv, *s_a, *s_dsc, *partial;
+};
+
+// Shared-memory buffers of the backward pair kernel.
+struct BwdSmem {
+  Mlp w;
+  float *wk2t, *wv2t, *one;
+  float *A, *Pk, *Hk, *Wk, *Pv, *Hv, *Wv, *S, *D;  // pair buffers [T, *]
+  float *q, *g, *dv, *dq;                           // node rows
+  float *sd, *dd, *m, *l, *dot, *ad;                // per head
+  float *dist, *mask;                               // [T]
+  int* idx;                                         // [T]
+};
+
+template <int F>
+__host__ __device__ inline int bwd_smem_floats(const Dims& d) {
+  const int T = tile_of<F>(d), H = d.H, kd = d.kd, vd = d.vd;
+  int n = d.mlp_floats() + kd * kd + vd * vd + 4;               // weights, wk2t wv2t, one
+  n += T * d.De + 3 * T * kd + 3 * T * vd + 2 * T * H;          // pair buffers
+  n += 2 * H * kd + 2 * H * vd + 6 * H;                         // node rows; per head
+  n += 3 * T;                                                   // dist, mask, idx
+  return n;
+}
+
+// The forward of one tile, keeping what the backward needs: pre-activations
+// Pk/Pv, hiddens Hk/Hv, modulations Wk/Wv, the masked scores S and da in D.
+template <int F>
+__device__ void tile_forward_bwd(const Args& a, const Dims& d, const BwdSmem& sm, long long node,
+                                 long long base, int c0, int T) {
+  const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HV = H * vd, tid = threadIdx.x;
+  load_tile<F>(a, d, sm.w, node, c0, T, sm.dist, sm.mask, sm.idx, sm.A);
+  block_gemm(sm.A, T, De, sm.w.wk1, sm.w.bk1, kd, sm.Pk, kEpiNone);
+  block_gemm(sm.A, T, De, sm.w.wv1, sm.w.bv1, vd, sm.Pv, kEpiNone);
+  __syncthreads();
+  for (int t = tid; t < T * kd; t += blockDim.x) sm.Hk[t] = sspf_(sm.Pk[t]);
+  for (int t = tid; t < T * vd; t += blockDim.x) sm.Hv[t] = sspf_(sm.Pv[t]);
+  __syncthreads();
+  block_gemm(sm.Hk, T, kd, sm.w.wk2, sm.w.bk2, kd, sm.Wk, kEpiNone);
+  block_gemm(sm.Hv, T, vd, sm.w.wv2, sm.w.bv2, vd, sm.Wv, kEpiNone);
+  __syncthreads();
+  tile_scores<F>(a, d, node, base, c0, T, sm.idx, sm.mask, sm.q, sm.Wk, sm.S);
+  // da, one thread per (slot, head)
+  for (int job = tid; job < T * H; job += blockDim.x) {
+    const int p = job / H, h = job % H;
+    const float* vrow = a.v + slot_row<F>(d, node, base, sm.idx, c0, p) * HV + h * vd;
+    float part = 0.f;
+    for (int c = 0; c < vd; ++c)
+      part = fmaf(sm.g[h * vd + c] * sm.Wv[p * vd + c], __ldg(vrow + c), part);
+    sm.D[p * H + h] = part;
+  }
+  __syncthreads();
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
+  const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
+  const int TM = tile_of<F>(d);
+  extern __shared__ __align__(16) float smem[];
+  BwdSmem sm;
+  sm.wk2t = load_mlp(a, d, smem, sm.w);  // [kd(b), kd(a)] = wk2[a, b]
+  sm.wv2t = sm.wk2t + kd * kd;           // [vd, vd]
+  sm.one = sm.wv2t + vd * vd;            // [4], one[0] = 1
+  sm.A = sm.one + 4;                     // [T, De] smear
+  sm.Pk = sm.A + TM * De;                // [T, kd] pre-activation, then dhk
+  sm.Hk = sm.Pk + TM * kd;               // [T, kd] hidden
+  sm.Wk = sm.Hk + TM * kd;               // [T, kd] w_k, then dw_k
+  sm.Pv = sm.Wk + TM * kd;               // [T, vd]
+  sm.Hv = sm.Pv + TM * vd;
+  sm.Wv = sm.Hv + TM * vd;
+  sm.S = sm.Wv + TM * vd;                // [T, H] scores, then softmax weights
+  sm.D = sm.S + TM * H;                  // [T, H] da, then dsc
+  sm.q = sm.D + TM * H;                  // [HK]
+  sm.g = sm.q + HK;                      // [HV]
+  sm.dv = sm.g + HV;                     // [HV] diag_value
+  sm.dq = sm.dv + HV;                    // [HK] dqt, summed over the tiles
+  sm.sd = sm.dq + HK;                    // [H] the self score
+  sm.dd = sm.sd + H;                     // [H] da_self
+  sm.m = sm.dd + H;                      // [H] running max
+  sm.l = sm.m + H;                       // [H] running sum
+  sm.dot = sm.l + H;                     // [H] running sum of e * da, then dot
+  sm.ad = sm.dot + H;                    // [H] a_self
+  sm.dist = sm.ad + H;
+  sm.mask = sm.dist + TM;
+  sm.idx = reinterpret_cast<int*>(sm.mask + TM);
+
+  const int tid = threadIdx.x;
+  for (int t = tid; t < kd * kd; t += blockDim.x) sm.wk2t[(t % kd) * kd + t / kd] = a.wk2[t];
+  for (int t = tid; t < vd * vd; t += blockDim.x) sm.wv2t[(t % vd) * vd + t / vd] = a.wv2[t];
+  if (tid == 0) sm.one[0] = 1.f;
+
+  const int P = d.grad_floats();
+  float acc[kAccPerThread];
+#pragma unroll
+  for (int r = 0; r < kAccPerThread; ++r) acc[r] = 0.f;
+
+  const float scale = 1.f / sqrtf((float)kd);
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const bool one_tile = d.R <= TM;
+  const long long total = (long long)d.B * d.N;
+  for (long long node = blockIdx.x; node < total; node += gridDim.x) {
+    const long long base = (node / d.N) * d.N;  // first row of this node's graph
+    __syncthreads();  // the previous node's readers are done
+    for (int t = tid; t < HK; t += blockDim.x) {
+      sm.q[t] = a.qt[node * HK + t];
+      sm.dq[t] = 0.f;
+    }
+    for (int t = tid; t < HV; t += blockDim.x) {
+      sm.g[t] = o.g[node * HV + t];
+      sm.dv[t] = a.dval[node * HV + t];
+    }
+    for (int t = tid; t < H; t += blockDim.x) sm.sd[t] = a.ds[node * H + t];
+    __syncthreads();
+    // da_self; the self slot starts the run: m = its score, l = 1, dot = da_self
+    for (int h = warp; h < H; h += nwarps) {
+      float part = 0.f;
+      for (int c = lane; c < vd; c += 32) part = fmaf(sm.g[h * vd + c], sm.dv[h * vd + c], part);
+      part = warp_sum(part);
+      if (lane == 0) {
+        sm.dd[h] = part;
+        sm.m[h] = sm.sd[h];
+        sm.l[h] = 1.f;
+        sm.dot[h] = part;
+      }
+    }
+
+    // sweep 1: the softmax's max, sum and sum of e * da, online
+    for (int c0 = 0; c0 < d.R; c0 += TM) {
+      const int T = min(TM, d.R - c0);
+      tile_forward_bwd<F>(a, d, sm, node, base, c0, T);
+      online_softmax(sm.S, sm.D, T, H, sm.m, sm.l, sm.dot, nullptr);
+    }
+    __syncthreads();
+    for (int h = tid; h < H; h += blockDim.x) {
+      const float ad = expf(sm.sd[h] - sm.m[h]) / sm.l[h];
+      const float dot = sm.dot[h] / sm.l[h];
+      sm.ad[h] = ad;
+      sm.dot[h] = dot;
+      o.dds[node * H + h] = ad * (sm.dd[h] - dot);
+    }
+    __syncthreads();
+    for (int c = tid; c < HV; c += blockDim.x) o.ddv[node * HV + c] = sm.ad[c / vd] * sm.g[c];
+
+    // sweep 2: every slot's gradient
+    for (int c0 = 0; c0 < d.R; c0 += TM) {
+      const int T = min(TM, d.R - c0);
+      if (!one_tile) tile_forward_bwd<F>(a, d, sm, node, base, c0, T);
+      // softmax weights and dsc, one thread per (slot, head)
+      for (int job = tid; job < T * H; job += blockDim.x) {
+        const int p = job / H, h = job % H;
+        const float aw = expf(sm.S[job] - sm.m[h]) / sm.l[h];
+        sm.S[job] = aw;
+        sm.D[job] = sm.mask[p] != 0.f ? aw * (sm.D[job] - sm.dot[h]) * scale : 0.f;
+      }
+      __syncthreads();
+      // what the dk/dv stage needs per slot, and this tile's share of dqt
+      const long long slot0 = node * d.R + c0;
+      for (int t = tid; t < T * kd; t += blockDim.x) o.s_wk[slot0 * kd + t] = sm.Wk[t];
+      for (int t = tid; t < T * vd; t += blockDim.x) o.s_wv[slot0 * vd + t] = sm.Wv[t];
+      for (int t = tid; t < T * H; t += blockDim.x) {
+        o.s_a[slot0 * H + t] = sm.S[t];
+        o.s_dsc[slot0 * H + t] = sm.D[t];
+      }
+      for (int c = tid; c < HK; c += blockDim.x) {
+        const int h = c / kd, dc = c % kd;
+        float part = 0.f;
+        for (int p = 0; p < T; ++p)
+          part = fmaf(sm.D[p * H + h] * sm.Wk[p * kd + dc],
+                      __ldg(a.k + slot_row<F>(d, node, base, sm.idx, c0, p) * HK + c), part);
+        sm.dq[c] += part;
+      }
+      __syncthreads();
+      // dw_k into Wk and dw_v into Wv, one thread per (slot, channel)
+      for (int t = tid; t < T * kd; t += blockDim.x) {
+        const int p = t / kd, dc = t % kd;
+        const float* krow = a.k + slot_row<F>(d, node, base, sm.idx, c0, p) * HK + dc;
+        float part = 0.f;
+        for (int h = 0; h < H; ++h)
+          part = fmaf(sm.D[p * H + h] * sm.q[h * kd + dc], __ldg(krow + h * kd), part);
+        sm.Wk[t] = part;
+      }
+      for (int t = tid; t < T * vd; t += blockDim.x) {
+        const int p = t / vd, dc = t % vd;
+        const float* vrow = a.v + slot_row<F>(d, node, base, sm.idx, c0, p) * HV + dc;
+        float part = 0.f;
+        for (int h = 0; h < H; ++h)
+          part = fmaf(sm.S[p * H + h] * sm.g[h * vd + dc], __ldg(vrow + h * vd), part);
+        sm.Wv[t] = part;
+      }
+      __syncthreads();
+      // dh = (dw W2^T) * sigmoid(pre), in place of the pre-activations
+      block_gemm(sm.Wk, T, kd, sm.wk2t, nullptr, kd, sm.Pk, kEpiTimesSigmoid);
+      block_gemm(sm.Wv, T, vd, sm.wv2t, nullptr, vd, sm.Pv, kEpiTimesSigmoid);
+      __syncthreads();
+
+      // weight-gradient sums over the tile's slots; sum t belongs to the
+      // thread tid = t % blockDim.x, slot r = t / blockDim.x
+#pragma unroll
+      for (int r = 0; r < kAccPerThread; ++r) {
+        int t = tid + r * blockDim.x;
+        if (t < P) {
+          const float* x;  // column of the left operand [T, sx] (sx = 0: ones)
+          const float* y;  // column of the right operand [T, sy]
+          int sx, sy;
+          if (t < De * kd) {                         // dwk1 = e^T dhk
+            x = sm.A + t / kd; sx = De; y = sm.Pk + t % kd; sy = kd;
+          } else if ((t -= De * kd) < kd) {          // dbk1
+            x = sm.one; sx = 0; y = sm.Pk + t; sy = kd;
+          } else if ((t -= kd) < kd * kd) {          // dwk2 = hk^T dw_k
+            x = sm.Hk + t / kd; sx = kd; y = sm.Wk + t % kd; sy = kd;
+          } else if ((t -= kd * kd) < kd) {          // dbk2
+            x = sm.one; sx = 0; y = sm.Wk + t; sy = kd;
+          } else if ((t -= kd) < De * vd) {          // dwv1 = e^T dhv
+            x = sm.A + t / vd; sx = De; y = sm.Pv + t % vd; sy = vd;
+          } else if ((t -= De * vd) < vd) {          // dbv1
+            x = sm.one; sx = 0; y = sm.Pv + t; sy = vd;
+          } else if ((t -= vd) < vd * vd) {          // dwv2 = hv^T dw_v
+            x = sm.Hv + t / vd; sx = vd; y = sm.Wv + t % vd; sy = vd;
+          } else {                                   // dbv2
+            t -= vd * vd;
+            x = sm.one; sx = 0; y = sm.Wv + t; sy = vd;
+          }
+          float v = acc[r];
+          for (int p = 0; p < T; ++p) v = fmaf(x[p * sx], y[p * sy], v);
+          acc[r] = v;
+        }
+      }
+    }
+    // each dq[c] was last written by this thread
+    for (int c = tid; c < HK; c += blockDim.x) o.dqt[node * HK + c] = sm.dq[c];
+  }
+
+  float* row = o.partial + (long long)blockIdx.x * P;
+#pragma unroll
+  for (int r = 0; r < kAccPerThread; ++r) {
+    const int t = tid + r * blockDim.x;
+    if (t < P) row[t] = acc[r];
+  }
+}
+
+// Blocks of the backward pair kernel (one resident wave), or -1 for a shape
+// it does not take (weight gradients over the sums its threads keep, one
+// tile's pair tensors over shared memory); the caller sizes the [blocks, P]
+// scratch buffer from it.
+template <int F>
+int bwd_blocks(const Dims& d) {
+  if (!d.ok() || d.grad_floats() > kAccPerThread * kThreads) return -1;
+  const size_t smem = (size_t)bwd_smem_floats<F>(d) * sizeof(float);
+  if (allow_smem(attn_bwd_pair_kernel<F>, smem) != cudaSuccess) return -1;
+  return persistent_grid(attn_bwd_pair_kernel<F>, kThreads, smem, (long long)d.B * d.N);
+}
+
+// Launches the pair kernel on `blocks` blocks; the caller then runs its
+// form's dk/dv stage and sum_rows_kernel over o.partial.
+template <int F>
+cudaError_t launch_bwd_pair(const Args& a, const Dims& d, const Grads& o, int blocks,
+                            cudaStream_t st) {
+  if (!d.ok() || blocks < 1 || d.grad_floats() > kAccPerThread * kThreads)
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)bwd_smem_floats<F>(d) * sizeof(float);
+  cudaError_t err = allow_smem(attn_bwd_pair_kernel<F>, smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_pair_kernel<F><<<blocks, kThreads, smem, st>>>(a, d, o);
+  return cudaGetLastError();
+}
+
+}  // namespace encoder_attn
+}  // namespace singa

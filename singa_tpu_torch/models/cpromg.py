@@ -130,11 +130,12 @@ class Encoder(nn.Module):
     def forward(self, feat, pos, mask, lap_pe):
         """Returns (encoding [B, N, C], pad mask [B, 1, N] True = blocked,
         per-layer attention outputs)."""
-        from singa_tpu_torch.models.neighbor_graph import build_neighbor_graph
+        from singa_tpu_torch.models.neighbor_graph import _dense_attn, build_neighbor_graph
 
         cfg = self.cfg
         x = self.protein_atom_emb(feat) + self.laplacian_emb(lap_pe)
-        g = build_neighbor_graph(pos, mask, cfg.knn, cfg.smear_stop, cfg.edge_channels)
+        g = build_neighbor_graph(pos, mask, cfg.knn, cfg.smear_stop, cfg.edge_channels,
+                                 with_adj_dist=_dense_attn())
         msas = []
         for layer in self.layers:
             msa, x = layer(x, g)

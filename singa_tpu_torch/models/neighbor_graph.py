@@ -7,10 +7,20 @@ defaults to 2k: a node's in-neighbourhood in the symmetrised kNN graph is its
 own k nearest plus everyone who chose it; overflow neighbours are dropped
 deterministically (lowest index kept), and the degree attribute is computed
 over the kept set.
+
+The pair core runs in one of three forms, chosen as the JAX package chooses
+them: ``dense_edge_attn`` (K8) over the [B, N, N] ``adj_dist`` whenever the
+graph carries one (``SINGA_TPU_DENSE_ATTN``: the untruncated adjacency, so a
+row whose in-degree exceeds K attends over all its neighbours, while the
+degree attribute still comes from the kept lists); else
+``neighbor_attn_hybrid`` (K7) under ``SINGA_TPU_HYBRID_ATTN``; else
+``neighbor_attn`` (K1). Both variables are read at every call, and either is
+off when unset, empty or "0".
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -21,7 +31,12 @@ from singa_tpu_torch.config import EncoderConfig
 from singa_tpu_torch.equivariant.layers import Linear, layer_norm, uniform_
 from singa_tpu_torch.equivariant.so3 import as_const
 from singa_tpu_torch.models.cpromg import EdgeMLP, PositionwiseFFN, shifted_softplus
-from singa_tpu_torch.ops.cuda.neighbor_attn import neighbor_attn, transpose_slots
+from singa_tpu_torch.ops.cuda.dense_edge_attn import BIG, dense_edge_attn
+from singa_tpu_torch.ops.cuda.neighbor_attn import (
+    neighbor_attn,
+    neighbor_attn_hybrid,
+    transpose_slots,
+)
 from singa_tpu_torch.ops.smearing import gaussian_smearing
 
 
@@ -33,6 +48,25 @@ class NeighborGraph(NamedTuple):
     node_mask: torch.Tensor  # [B, N] bool
     rev_offsets: torch.Tensor  # [B*N + 1] int32 CSR transpose of nbr (transpose_slots)
     rev_slots: torch.Tensor  # [B*N*K] int32: the slots naming each row, ascending
+    # the dense form's pair distances (dense_edge_attn): the distance where j
+    # is adjacent to i, BIG elsewhere (the diagonal and padded nodes included)
+    adj_dist: torch.Tensor | None = None  # [B, N, N] f32
+
+
+def _switch(name: str) -> bool:
+    return os.environ.get(name, "0") not in ("0", "")
+
+
+def _dense_attn() -> bool:
+    """``SINGA_TPU_DENSE_ATTN`` set (and not "0"): the encoder builds
+    ``adj_dist`` and every layer runs the dense form, K8."""
+    return _switch("SINGA_TPU_DENSE_ATTN")
+
+
+def _hybrid_attn() -> bool:
+    """``SINGA_TPU_HYBRID_ATTN`` set (and not "0"): layers without
+    ``adj_dist`` run the hybrid form, K7."""
+    return _switch("SINGA_TPU_HYBRID_ATTN")
 
 
 def build_neighbor_graph(
@@ -42,6 +76,7 @@ def build_neighbor_graph(
     smear_stop: float,
     edge_channels: int,
     k_in: int | None = None,
+    with_adj_dist: bool = False,
 ) -> NeighborGraph:
     """Symmetrised threshold-kNN as per-node neighbour lists.
 
@@ -49,7 +84,8 @@ def build_neighbor_graph(
     expansion ``|a|^2 - 2 a.b + |b|^2`` (clamped at 0), the k-th distance as
     an inclusive threshold, and the lowest indices first among the kept
     neighbours (a stable descending sort of the 0/1 adjacency, as
-    ``jax.lax.top_k`` orders ties)."""
+    ``jax.lax.top_k`` orders ties). ``with_adj_dist``: also the dense
+    form's ``adj_dist``, from the adjacency before the top-K cut."""
     B, N, _ = pos.shape
     K = min(k_in or 2 * k, N)
     n2 = (pos * pos).sum(dim=-1)
@@ -70,15 +106,16 @@ def build_neighbor_graph(
     neg_smear = -gaussian_smearing(dist, 0.0, smear_stop, edge_channels)
     deg = -(neg_smear * nbr_mask[..., None].to(neg_smear.dtype)).sum(dim=2)
     rev_offsets, rev_slots = transpose_slots(nbr)
+    adj_dist = torch.where(adj, dist_full, BIG) if with_adj_dist else None
     return NeighborGraph(nbr=nbr, nbr_mask=nbr_mask, dist=dist, deg_attr=deg, node_mask=mask,
-                         rev_offsets=rev_offsets, rev_slots=rev_slots)
+                         rev_offsets=rev_offsets, rev_slots=rev_slots, adj_dist=adj_dist)
 
 
 class NeighborGraphMHA(nn.Module):
     """Edge-conditioned multi-head graph attention over neighbour lists. The
     pair core (smear, both EdgeMLPs, scores, softmax with the self slot,
-    aggregate) is kernel K1; the grouped projections keep the flax layout
-    ``[H, C/H, F/H]``."""
+    aggregate) is kernel K1, K7 or K8 (see the module's docstring); the
+    grouped projections keep the flax layout ``[H, C/H, F/H]``."""
 
     def __init__(
         self,
@@ -131,24 +168,27 @@ class NeighborGraphMHA(nn.Module):
 
         width = self.smear_stop / (self.edge_channels - 1)
         ek, ev = self.weight_k_net, self.weight_v_net
-        agg = neighbor_attn(
+        nodes = (
             q_tilde.reshape(B, N, H * kd).contiguous(),
             k.reshape(B, N, H * kd).contiguous(),
             v.reshape(B, N, H * vd).contiguous(),
-            g.nbr,
-            g.nbr_mask,
-            g.dist,
-            s_diag.contiguous(),
-            (w_v_diag[:, :, None, :] * v).reshape(B, N, H * vd).contiguous(),
+        )
+        diag = (s_diag.contiguous(), (w_v_diag[:, :, None, :] * v).reshape(B, N, H * vd).contiguous())
+        weights = (
             as_const(self._centers, x.device),
             ek.Linear_0.weight.t().contiguous(), ek.Linear_0.bias,
             ek.Linear_1.weight.t().contiguous(), ek.Linear_1.bias,
             ev.Linear_0.weight.t().contiguous(), ev.Linear_0.bias,
             ev.Linear_1.weight.t().contiguous(), ev.Linear_1.bias,
             -0.5 / (width * width),
-            g.rev_offsets,
-            g.rev_slots,
-        ).reshape(B, N, H, vd)
+        )
+        if g.adj_dist is not None:
+            agg = dense_edge_attn(*nodes, g.adj_dist, *diag, *weights)
+        else:
+            attn = neighbor_attn_hybrid if _hybrid_attn() else neighbor_attn
+            agg = attn(*nodes, g.nbr, g.nbr_mask, g.dist, *diag, *weights,
+                       g.rev_offsets, g.rev_slots)
+        agg = agg.reshape(B, N, H, vd)
         aggr = self.weight_v_lin(agg).reshape(B, N, H * vd)
         out = self.centroid_lin(x) + aggr
         out = self.layer_norm(self.out_transform(shifted_softplus(out)))

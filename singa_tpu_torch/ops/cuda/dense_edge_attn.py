@@ -1,0 +1,223 @@
+"""K8/K8b: dense-row edge-conditioned graph attention of the kNN encoder
+(``SINGA_TPU_DENSE_ATTN``), and its backward.
+
+K8 replaces ``singa_tpu/ops/pallas/dense_edge_attn.py::dense_edge_attn``
+(``_dattn_fwd_kernel``) and K8b its ``_dbwd`` (``_dattn_bwd_kernel``): K1's
+function (``neighbor_attn``) over every column j of a node's graph instead
+of its K neighbour slots. The kNN adjacency and the pair distances travel
+as one [B, N, N] tensor, ``adj_dist``: the distance where j is adjacent to
+i in the symmetrised, untruncated kNN graph, ``BIG`` elsewhere (the diagonal
+and padded nodes included). Scores of pairs at ``BIG / 2`` or beyond are
+-1e9; the softmax runs over the N columns and the self slot. adj_dist and
+centers get no gradient. ``dense_edge_attn`` goes through one
+``torch.autograd.Function``: plain versions for CPU tensors, the kernels
+(``csrc/dense_edge_attn.cu``, ``csrc/dense_edge_attn_bwd.cu``: the form
+``kDense`` of ``csrc/encoder_attn.cuh``, K1's kernels walking the row in
+column tiles) for CUDA tensors. The plain versions are K7's
+(``neighbor_attn_hybrid_plain``) with every column a slot.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from singa_tpu_torch.ops.cuda import build
+from singa_tpu_torch.ops.cuda.neighbor_attn import check_node_args, neighbor_attn_hybrid_plain
+
+BIG = 1e9  # adj_dist's value for a pair that is not adjacent
+launches = 0  # forward kernel launches through ``dense_edge_attn``
+launches_bwd = 0  # backward kernel launches through ``dense_edge_attn``
+
+
+def _graph_rows(qt, k, v, adj, diag_scores, diag_value):
+    """One graph's arguments ([N, *]) as K7's plain version takes a batch of
+    one: every column j is a slot of every row, k_nb/v_nb
+    [1, N, N, *] are expanded views of k/v, a slot is live where adj is
+    below BIG / 2, and adj is its distance."""
+    N = qt.shape[0]
+    return (qt[None], k.expand(N, *k.shape)[None], v.expand(N, *v.shape)[None],
+            (adj < 0.5 * BIG)[None], adj[None], diag_scores[None], diag_value[None])
+
+
+def dense_edge_attn_plain(
+    qt, k, v, adj_dist, diag_scores, diag_value,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+) -> torch.Tensor:
+    """qt/k [B, N, H*kd]; v [B, N, H*vd]; adj_dist [B, N, N]; diag_scores
+    [B, N, H]; diag_value [B, N, H*vd]; centers [De]; EdgeMLP weights in the
+    flax ``[in, out]`` layout; coeff = -0.5/width^2. Returns agg
+    [B, N, H*vd]. One graph at a time, so that the [N, N, *] pair tensors
+    of one graph are alive at once."""
+    B, N, _ = qt.shape
+    weights = (centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    outs = [neighbor_attn_hybrid_plain(*_graph_rows(qt[b], k[b], v[b], adj_dist[b],
+                                                    diag_scores[b], diag_value[b]),
+                                       *weights, coeff)[0] for b in range(B)]
+    return torch.stack(outs) if outs else qt.new_zeros((0, N, v.shape[2]))
+
+
+def dense_edge_attn_bwd_plain(*args):
+    """``(dqt, dk, dv, d diag_scores, d diag_value, dwk1, dbk1, dwk2, dbk2,
+    dwv1, dbv1, dwv2, dbv2)`` of ``dense_edge_attn_plain``: ``args`` are its
+    arguments followed by the cotangent ``g``. One graph at a time; the
+    weight gradients are summed over the graphs in order."""
+    *inputs, coeff, g = args
+    B = inputs[0].shape[0]
+    weights = inputs[6:]
+    per_graph = []  # (dqt, dk, dv, dds, ddv) of each graph
+    wgrads = [torch.zeros_like(w) for w in weights[1:]]
+    with torch.enable_grad():
+        ws = [w.detach().requires_grad_() for w in weights[1:]]
+        for b in range(B):
+            rows = [t[b].detach().requires_grad_() for t in (inputs[0], inputs[1], inputs[2])]
+            diag = [inputs[4][b].detach().requires_grad_(), inputs[5][b].detach().requires_grad_()]
+            out = neighbor_attn_hybrid_plain(*_graph_rows(*rows, inputs[3][b], *diag),
+                                             weights[0], *ws, coeff)[0]
+            grads = torch.autograd.grad(out, [*rows, *diag, *ws], g[b])
+            per_graph.append(grads[:5])
+            for acc, gw in zip(wgrads, grads[5:]):
+                acc += gw
+    if B:
+        node_grads = [torch.stack(parts) for parts in zip(*per_graph)]
+    else:
+        node_grads = [torch.zeros_like(inputs[i]) for i in (0, 1, 2, 4, 5)]
+    return (*node_grads, *wgrads)
+
+
+def _fn():
+    fn = build.load("dense_edge_attn").dense_edge_attn_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fns():
+    lib = build.load("dense_edge_attn_bwd")
+    blocks = lib.dense_edge_attn_bwd_blocks
+    blocks.argtypes = [ctypes.c_int] * 6
+    blocks.restype = ctypes.c_int
+    fn = lib.dense_edge_attn_bwd_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p] * 12
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return blocks, fn
+
+
+def _check_args(qt, k, v, adj_dist, diag_scores, diag_value,
+                centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2):
+    """Device, dtype, shape and contiguity of every kernel argument; returns
+    (B, N, H, kd, vd, De)."""
+    B, N, HK = qt.shape
+    H = diag_scores.shape[2]
+    kd = HK // H
+    vd = v.shape[2] // H
+    De = centers.shape[0]
+    dev = qt.device
+    f32 = torch.float32
+    build.require(qt, "qt", (B, N, H * kd), f32, dev)
+    build.require(k, "k", (B, N, H * kd), f32, dev)
+    build.require(v, "v", (B, N, H * vd), f32, dev)
+    build.require(adj_dist, "adj_dist", (B, N, N), f32, dev)
+    check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                    vd)
+    return B, N, H, kd, vd, De
+
+
+def dense_edge_attn_cuda(
+    qt, k, v, adj_dist, diag_scores, diag_value,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+) -> torch.Tensor:
+    """The K8 kernel; arguments and result as ``dense_edge_attn_plain``."""
+    global launches
+    args = (qt, k, v, adj_dist, diag_scores, diag_value,
+            centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    B, N, H, kd, vd, De = _check_args(*args)
+    out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
+    if B * N == 0:
+        return out
+    status = _fn()(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
+                   B, N, H, kd, vd, De, build.stream_ptr(qt))
+    build.check(status, "dense_edge_attn")
+    launches += 1
+    return out
+
+
+def dense_edge_attn_bwd_cuda(*args):
+    """The K8b kernels; arguments and result as ``dense_edge_attn_bwd_plain``.
+    Scratch: the four numbers per (row, column) pair that the column sums
+    read, [B*N*N, kd + vd + 2H] floats."""
+    global launches_bwd
+    *inputs, coeff, g = args
+    B, N, H, kd, vd, De = _check_args(*inputs)
+    qt = inputs[0]
+    dev = qt.device
+    f32 = torch.float32
+    build.require(g, "g", (B, N, H * vd), f32, dev)
+    empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
+    dqt, dk = empty(B, N, H * kd), empty(B, N, H * kd)
+    dv, dds, ddv = empty(B, N, H * vd), empty(B, N, H), empty(B, N, H * vd)
+    sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
+    grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
+    if B * N:
+        blocks_fn, fn = _bwd_fns()
+        blocks = blocks_fn(B, N, H, kd, vd, De)
+        if blocks < 1:
+            raise ValueError(f"dense_edge_attn backward kernel: shapes {(H, kd, vd, De)} not "
+                             "supported or one tile's pair tensors exceed shared memory")
+        pairs = B * N * N
+        scratch = (empty(pairs, kd), empty(pairs, vd), empty(pairs, H), empty(pairs, H),
+                   empty(blocks, sum(sizes)))
+        status = fn(
+            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(), dqt.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dds.data_ptr(), ddv.data_ptr(),
+            *(t.data_ptr() for t in scratch), grads.data_ptr(),
+            B, N, H, kd, vd, De, blocks, build.stream_ptr(qt),
+        )
+        build.check(status, "dense_edge_attn_bwd")
+        launches_bwd += 1
+    weights = inputs[7:]
+    wgrads = [p.view(w.shape) for p, w in zip(torch.split(grads, sizes), weights)]
+    return (dqt, dk, dv, dds, ddv, *wgrads)
+
+
+class DenseEdgeAttn(torch.autograd.Function):
+    """K8 forward and K8b backward. ``ctx`` keeps the inputs only, as
+    ``_dfwd`` does; the backward recomputes every pair tensor."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        *inputs, coeff = args
+        ctx.coeff = coeff
+        ctx.save_for_backward(*inputs)
+        if inputs[0].device.type == "cpu":
+            return dense_edge_attn_plain(*inputs, coeff)
+        return dense_edge_attn_cuda(*inputs, coeff)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors
+        args = (*inputs, ctx.coeff, g.contiguous())
+        if inputs[0].device.type == "cpu":
+            grads = dense_edge_attn_bwd_plain(*args)
+        else:
+            grads = dense_edge_attn_bwd_cuda(*args)
+        dqt, dk, dv, dds, ddv, *wgrads = grads
+        # adj_dist, centers and coeff get none, as in the JAX _dbwd
+        return (dqt, dk, dv, None, dds, ddv, None, *wgrads, None)
+
+
+def dense_edge_attn(
+    qt, k, v, adj_dist, diag_scores, diag_value,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+) -> torch.Tensor:
+    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    if qt.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dense_edge_attn runs on cpu or cuda, not {qt.device}")
+    return DenseEdgeAttn.apply(qt, k, v, adj_dist, diag_scores, diag_value,
+                               centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)

@@ -1,8 +1,10 @@
 """K1/K1b: neighbour-list graph attention of every kNN encoder layer, and its
-backward.
+backward; K7/K7b: the same function from neighbour rows gathered outside the
+kernels (the hybrid form, ``SINGA_TPU_HYBRID_ATTN``).
 
 K1 replaces ``singa_tpu/ops/pallas/neighbor_attn.py::neighbor_attn_fused``
-(forward, ``_attn_fwd_kernel``). Per node i and in-neighbour k: RBF smear of
+(forward, ``_attn_fwd_kernel``); its kernels are ``csrc/encoder_attn.cuh``'s,
+which K8 (``dense_edge_attn``) shares. Per node i and in-neighbour k: RBF smear of
 the distance, the k- and v-EdgeMLPs (shifted softplus) on ``-smear``, the
 per-head score ``sum_d qt * w_k * k_nb / sqrt(kd)``, a softmax over the K
 neighbours plus the self slot (``diag_scores``), and the aggregate
@@ -14,6 +16,14 @@ kernels (``csrc/neighbor_attn.cu``, ``csrc/neighbor_attn_bwd.cu``) gather
 neighbour rows by index and keep every per-node pair tensor out of device
 memory. ``neighbor_attn`` goes through one ``torch.autograd.Function``:
 plain versions for CPU tensors, the kernels for CUDA tensors.
+
+K7 replaces ``neighbor_attn_hybrid`` (``_hybrid_pallas_fwd``) and K7b its
+``_bwd_h``: ``neighbor_attn_hybrid`` gathers ``k_nb``/``v_nb`` [B, N, K, *]
+with ``torch.gather`` (JAX's ``_gather_rows`` is ``take_along_axis`` outside
+the Pallas call), and the kernels, K1's and K1b's with their gathered-row
+mode, read each slot's own row. Its Function keeps the inputs only and
+gathers again in backward; K7b sends dk/dv to the node rows over the same
+CSR transpose as K1b, where the TPU kernel used a one-hot transpose.
 """
 from __future__ import annotations
 
@@ -27,10 +37,30 @@ from singa_tpu_torch.ops.cuda import build
 
 launches = 0  # forward kernel launches through ``neighbor_attn``
 launches_bwd = 0  # backward kernel launches through ``neighbor_attn``
+launches_hybrid = 0  # K7 launches through ``neighbor_attn_hybrid``
+launches_hybrid_bwd = 0  # K7b launches through ``neighbor_attn_hybrid``
 
 
 def _ssp(x: torch.Tensor) -> torch.Tensor:
     return F.softplus(x) - math.log(2.0)
+
+
+def gather_rows(t: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """[B, N, F] gathered by [B, N, K] graph-local indices -> [B, N, K, F]
+    (JAX's ``_gather_rows``)."""
+    B, N, F = t.shape
+    K = nbr.shape[2]
+    idx = nbr.long().reshape(B, N * K, 1).expand(-1, -1, F)
+    return torch.gather(t, 1, idx).reshape(B, N, K, F)
+
+
+def scatter_rows(t_nb: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``gather_rows``: [B, N, K, F] summed into the rows
+    ``nbr`` names -> [B, N, F]."""
+    B, N, K, F = t_nb.shape
+    idx = nbr.long().reshape(B, N * K, 1).expand(-1, -1, F)
+    out = torch.zeros((B, N, F), dtype=t_nb.dtype, device=t_nb.device)
+    return out.scatter_add_(1, idx, t_nb.reshape(B, N * K, F))
 
 
 def neighbor_attn_plain(
@@ -41,18 +71,31 @@ def neighbor_attn_plain(
     diag_scores [B, N, H]; diag_value [B, N, H*vd]; centers [De]; EdgeMLP
     weights in the flax ``[in, out]`` layout; coeff = -0.5/width^2.
     Returns agg [B, N, H*vd]."""
-    B, N, HK = qt.shape
-    K = nbr.shape[2]
+    return _from_rows(qt, gather_rows(k, nbr), gather_rows(v, nbr), nbr_mask, dist,
+                      diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                      coeff)
+
+
+def neighbor_attn_hybrid_plain(*args) -> torch.Tensor:
+    """``neighbor_attn_plain`` from the gathered rows k_nb [B, N, K, H*kd]
+    and v_nb [B, N, K, H*vd] in place of k, v and nbr (K7's inputs)."""
+    return _from_rows(*args)
+
+
+def _from_rows(qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
+               centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float) -> torch.Tensor:
+    """The attention from each slot's own k/v row: the plain function of
+    every form (K1, K7, and K8 with every column a slot)."""
+    B, N, K, HK = k_nb.shape
     H = diag_scores.shape[2]
     kd = HK // H
-    vd = v.shape[2] // H
+    vd = v_nb.shape[3] // H
     diff = dist[..., None] - centers
     e = -torch.exp(coeff * diff * diff)  # [B, N, K, De]
     w_k = _ssp(e @ wk1 + bk1) @ wk2 + bk2  # [B, N, K, kd]
     w_v = _ssp(e @ wv1 + bv1) @ wv2 + bv2  # [B, N, K, vd]
-    idx = nbr.long().reshape(B, N * K, 1)
-    k_nb = torch.gather(k, 1, idx.expand(-1, -1, HK)).reshape(B, N, K, H, kd)
-    v_nb = torch.gather(v, 1, idx.expand(-1, -1, H * vd)).reshape(B, N, K, H, vd)
+    k_nb = k_nb.reshape(B, N, K, H, kd)
+    v_nb = v_nb.reshape(B, N, K, H, vd)
     s_off = (qt.reshape(B, N, 1, H, kd) * w_k[:, :, :, None, :] * k_nb).sum(-1)
     s_off = torch.where(nbr_mask[..., None], s_off / math.sqrt(kd), -1e9)
     a = torch.softmax(torch.cat([s_off, diag_scores[:, :, None, :]], dim=2), dim=2)
@@ -76,6 +119,25 @@ def neighbor_attn_bwd_plain(*args):
         return torch.autograd.grad(out, [inputs[i] for i in diff_at], g)
 
 
+def neighbor_attn_hybrid_bwd_plain(*args):
+    """K7b's outputs, those of ``neighbor_attn_bwd_plain``, from its inputs:
+    ``neighbor_attn_hybrid_plain``'s arguments with ``nbr`` after ``v_nb``,
+    then the cotangent ``g``. dk/dv are the gradients of k_nb/v_nb summed
+    into the rows ``nbr`` names."""
+    *inputs, coeff, g = args
+    qt, k_nb, v_nb, nbr, *rest = inputs
+    inputs = [qt, k_nb, v_nb, *rest]
+    # qt, k_nb, v_nb, diag_scores, diag_value and the eight EdgeMLP weights/biases
+    diff_at = (0, 1, 2, 5, 6) + tuple(range(8, 16))
+    with torch.enable_grad():
+        inputs = [
+            t.detach().requires_grad_() if i in diff_at else t for i, t in enumerate(inputs)
+        ]
+        out = _from_rows(*inputs, coeff)
+        dqt, dk_nb, dv_nb, *rest = torch.autograd.grad(out, [inputs[i] for i in diff_at], g)
+    return (dqt, scatter_rows(dk_nb, nbr), scatter_rows(dv_nb, nbr), *rest)
+
+
 def _fn():
     fn = build.load("neighbor_attn").neighbor_attn_f32
     fn.argtypes = (
@@ -86,14 +148,26 @@ def _fn():
     return fn
 
 
-def _bwd_fns():
+def _hybrid_fn():
+    fn = build.load("neighbor_attn").neighbor_attn_hybrid_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 16 + [ctypes.c_float] + [ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fns(hybrid: bool = False):
+    """(blocks, launch) of K1b's C entry points, or K7b's (no nbr pointer)."""
     lib = build.load("neighbor_attn_bwd")
-    blocks = lib.neighbor_attn_bwd_blocks
+    name = "neighbor_attn_hybrid_bwd" if hybrid else "neighbor_attn_bwd"
+    blocks = getattr(lib, f"{name}_blocks")
     blocks.argtypes = [ctypes.c_int] * 7
     blocks.restype = ctypes.c_int
-    fn = lib.neighbor_attn_bwd_f32
+    fn = getattr(lib, f"{name}_f32")
     fn.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_float] + [ctypes.c_void_p] * 14
+        [ctypes.c_void_p] * (16 if hybrid else 17) + [ctypes.c_float] + [ctypes.c_void_p] * 14
         + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -101,23 +175,39 @@ def _bwd_fns():
 
 
 def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
-                centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2):
+                centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, gathered: bool = False):
     """Device, dtype, shape and contiguity of every kernel argument; returns
-    (B, N, K, H, kd, vd, De)."""
+    (B, N, K, H, kd, vd, De). ``gathered``: k and v are K7's k_nb/v_nb
+    [B, N, K, *]; nbr may then be None."""
     B, N, HK = qt.shape
-    K = nbr.shape[2]
+    K = nbr_mask.shape[2]
     H = diag_scores.shape[2]
     kd = HK // H
-    vd = v.shape[2] // H
+    vd = v.shape[-1] // H
     De = centers.shape[0]
     dev = qt.device
     f32 = torch.float32
+    rows = (B, N, K) if gathered else (B, N)
     build.require(qt, "qt", (B, N, H * kd), f32, dev)
-    build.require(k, "k", (B, N, H * kd), f32, dev)
-    build.require(v, "v", (B, N, H * vd), f32, dev)
-    build.require(nbr, "nbr", (B, N, K), torch.int32, dev)
+    build.require(k, "k_nb" if gathered else "k", (*rows, H * kd), f32, dev)
+    build.require(v, "v_nb" if gathered else "v", (*rows, H * vd), f32, dev)
+    if nbr is not None:
+        build.require(nbr, "nbr", (B, N, K), torch.int32, dev)
     build.require(nbr_mask, "nbr_mask", (B, N, K), torch.bool, dev)
     build.require(dist, "dist", (B, N, K), f32, dev)
+    check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                    vd)
+    return B, N, K, H, kd, vd, De
+
+
+def check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                    vd: int):
+    """The checks of the arguments every form of the encoder attention takes
+    (K1, K7, K8): the self terms, the centers and the EdgeMLP weights."""
+    B, N, HK = qt.shape
+    H = diag_scores.shape[2]
+    kd, De = HK // H, centers.shape[0]
+    dev, f32 = qt.device, torch.float32
     build.require(diag_scores, "diag_scores", (B, N, H), f32, dev)
     build.require(diag_value, "diag_value", (B, N, H * vd), f32, dev)
     build.require(centers, "centers", (De,), f32, dev)
@@ -127,7 +217,6 @@ def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
         ("wv2", wv2, (vd, vd)), ("bv2", bv2, (vd,)),
     ):
         build.require(t, name, shape, f32, dev)
-    return B, N, K, H, kd, vd, De
 
 
 def neighbor_attn_cuda(
@@ -145,6 +234,25 @@ def neighbor_attn_cuda(
                    B, N, K, H, kd, vd, De, build.stream_ptr(qt))
     build.check(status, "neighbor_attn")
     launches += 1
+    return out
+
+
+def neighbor_attn_hybrid_cuda(
+    qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+) -> torch.Tensor:
+    """The K7 kernel; arguments and result as ``neighbor_attn_hybrid_plain``."""
+    global launches_hybrid
+    args = (qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
+            centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    B, N, K, H, kd, vd, De = _check_args(qt, k_nb, v_nb, None, *args[3:], gathered=True)
+    out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
+    if B * N == 0:
+        return out
+    status = _hybrid_fn()(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
+                          B, N, K, H, kd, vd, De, build.stream_ptr(qt))
+    build.check(status, "neighbor_attn_hybrid")
+    launches_hybrid += 1
     return out
 
 
@@ -167,8 +275,26 @@ def neighbor_attn_bwd_cuda(*args, offsets, slots):
     """The K1b kernels; arguments and result as ``neighbor_attn_bwd_plain``,
     plus ``transpose_slots(nbr)`` as ``offsets`` and ``slots``."""
     global launches_bwd
+    grads = _bwd_cuda(args, offsets, slots, hybrid=False)
+    launches_bwd += 1
+    return grads
+
+
+def neighbor_attn_hybrid_bwd_cuda(*args, offsets, slots):
+    """The K7b kernels; arguments and result as
+    ``neighbor_attn_hybrid_bwd_plain``, plus ``transpose_slots(nbr)`` as
+    ``offsets`` and ``slots``."""
+    global launches_hybrid_bwd
+    grads = _bwd_cuda(args, offsets, slots, hybrid=True)
+    launches_hybrid_bwd += 1
+    return grads
+
+
+def _bwd_cuda(args, offsets, slots, hybrid: bool):
+    """K1b (k, v) or K7b (k_nb, v_nb): the checks, outputs, scratch and the
+    launch; the caller counts it."""
     *inputs, coeff, g = args
-    B, N, K, H, kd, vd, De = _check_args(*inputs)
+    B, N, K, H, kd, vd, De = _check_args(*inputs, gathered=hybrid)
     qt = inputs[0]
     dev = qt.device
     f32 = torch.float32
@@ -181,7 +307,7 @@ def neighbor_attn_bwd_cuda(*args, offsets, slots):
     sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
     grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
     if B * N:
-        blocks_fn, fn = _bwd_fns()
+        blocks_fn, fn = _bwd_fns(hybrid)
         blocks = blocks_fn(B, N, K, H, kd, vd, De)
         if blocks < 1:
             raise ValueError(f"neighbor_attn backward kernel: shapes {(K, H, kd, vd, De)} not "
@@ -189,14 +315,15 @@ def neighbor_attn_bwd_cuda(*args, offsets, slots):
         slots_n = B * N * K
         scratch = (empty(slots_n, kd), empty(slots_n, vd), empty(slots_n, H), empty(slots_n, H),
                    empty(blocks, sum(sizes)))
+        # K7b's entry point takes no nbr: its pair kernel reads the gathered rows
+        pointers = [t.data_ptr() for i, t in enumerate(inputs) if not (hybrid and i == 3)]
         status = fn(
-            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(), offsets.data_ptr(),
+            *pointers, float(coeff), g.data_ptr(), offsets.data_ptr(),
             slots.data_ptr(), dqt.data_ptr(), dk.data_ptr(), dv.data_ptr(), dds.data_ptr(),
             ddv.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
             B, N, K, H, kd, vd, De, blocks, build.stream_ptr(qt),
         )
-        build.check(status, "neighbor_attn_bwd")
-        launches_bwd += 1
+        build.check(status, "neighbor_attn_hybrid_bwd" if hybrid else "neighbor_attn_bwd")
     weights = inputs[9:]
     wgrads = [p.view(w.shape) for p, w in zip(torch.split(grads, sizes), weights)]
     return (dqt, dk, dv, dds, ddv, *wgrads)
@@ -240,3 +367,48 @@ def neighbor_attn(
     return NeighborAttn.apply(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
                               centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff,
                               offsets, slots)
+
+
+class NeighborAttnHybrid(torch.autograd.Function):
+    """K7 forward and K7b backward. The neighbour rows are gathered before
+    each kernel, again in backward (as ``_bwd_h``): ``ctx`` keeps the inputs
+    only, never the [B, N, K, *] rows (~1.8 GB per layer at a training
+    microbatch)."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        *inputs, coeff, offsets, slots = args
+        ctx.coeff = coeff
+        ctx.save_for_backward(*inputs, offsets, slots)
+        qt, k, v, nbr, *rest = inputs
+        gathered = (qt, gather_rows(k, nbr), gather_rows(v, nbr), *rest)
+        if qt.device.type == "cpu":
+            return neighbor_attn_hybrid_plain(*gathered, coeff)
+        return neighbor_attn_hybrid_cuda(*gathered, coeff)
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, offsets, slots = ctx.saved_tensors
+        qt, k, v, nbr, *rest = inputs
+        args = (qt, gather_rows(k, nbr), gather_rows(v, nbr), nbr, *rest, ctx.coeff,
+                g.contiguous())
+        if qt.device.type == "cpu":
+            grads = neighbor_attn_hybrid_bwd_plain(*args)
+        else:
+            grads = neighbor_attn_hybrid_bwd_cuda(*args, offsets=offsets, slots=slots)
+        dqt, dk, dv, dds, ddv, *wgrads = grads
+        return (dqt, dk, dv, None, None, None, dds, ddv, None, *wgrads, None, None, None)
+
+
+def neighbor_attn_hybrid(
+    qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float, offsets, slots,
+) -> torch.Tensor:
+    """``neighbor_attn``'s arguments and result, through K7/K7b on CUDA
+    tensors (the rows gathered by ``torch.gather`` outside the kernels) and
+    their plain versions on CPU tensors."""
+    if qt.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"neighbor_attn_hybrid runs on cpu or cuda, not {qt.device}")
+    return NeighborAttnHybrid.apply(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+                                    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff,
+                                    offsets, slots)

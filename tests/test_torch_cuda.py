@@ -462,3 +462,122 @@ def test_autograd_reaches_conv_parameters_through_k6(dev):
         assert a is not None, name
         scale = max(1.0, b.abs().max().item())
         torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=1e-4, msg=name)
+
+
+def _hub_graph(dev, B, N, knn, ring, seed):
+    """The encoder attention's inputs on the card (H 4, kd 32, vd 64, De 64)
+    from build_neighbor_graph(with_adj_dist=True) on points where node 0 of
+    graph 0 is a hub: ``ring`` points on a sphere around it each count it
+    among their ``knn`` nearest, so its in-degree exceeds K = 2 knn (an
+    overflow row, cut to K in the lists, whole in adj_dist). The last graph
+    has padded nodes (self score -1e9, as the model sets it). Returns (K7's
+    arguments, K8's arguments, the cotangent, nbr)."""
+    from singa_tpu_torch.models.neighbor_graph import build_neighbor_graph
+    from singa_tpu_torch.ops.cuda.neighbor_attn import gather_rows
+
+    H, kd, vd, De = 4, 32, 64, 64
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    pos = rng.uniform(-12, 12, size=(B, N, 3)) + 30.0
+    n = min(ring, N - 1)
+    if n > 0:
+        i = np.arange(n) + 0.5
+        polar, azim = np.arccos(1 - 2 * i / n), np.pi * (1 + 5 ** 0.5) * i
+        pos[0, 0] = 0.0
+        pos[0, 1:n + 1] = 2.0 * np.stack([np.sin(polar) * np.cos(azim), np.sin(polar) * np.sin(azim),
+                                          np.cos(polar)], -1)
+    mask = np.ones((B, N), bool)
+    if N > 8:
+        mask[-1, -5:] = False
+    g = build_neighbor_graph(_t(pos.astype(np.float32), dev), _t(mask, dev), knn, 15.0, De,
+                             with_adj_dist=True)
+    ds = np.where(mask[..., None], f(B, N, H), np.float32(-1e9)).astype(np.float32)
+    q, k, v, ds, dval = (_t(a, dev) for a in (f(B, N, H * kd), f(B, N, H * kd), f(B, N, H * vd),
+                                               ds, f(B, N, H * vd)))
+    w = [_t(np.linspace(0.0, 15.0, De, dtype=np.float32), dev)] + [
+        _t(a, dev) for a in (0.3 * f(De, kd), 0.1 * f(kd), 0.3 * f(kd, kd), 0.1 * f(kd),
+                             0.3 * f(De, vd), 0.1 * f(vd), 0.3 * f(vd, vd), 0.1 * f(vd))]
+    coeff = -0.5 / (15.0 / (De - 1)) ** 2
+    k7 = [q, gather_rows(k, g.nbr), gather_rows(v, g.nbr), g.nbr_mask, g.dist, ds, dval, *w, coeff]
+    k8 = [q, k, v, g.adj_dist, ds, dval, *w, coeff]
+    if n >= 2 * knn:
+        assert int(((g.adj_dist < 5e8).sum(-1) > g.nbr.shape[2]).sum()) > 0  # an overflow row
+    return k7, k8, _t(f(B, N, H * vd), dev), g.nbr
+
+
+BWD_NAMES = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
+             "dwv1", "dbv1", "dwv2", "dbv2"]
+# (B, N, knn, ring): overflow rows at K 12 and at the main path's K 96 (N
+# 384, a multiple of K8's 96-column tile); N 100 is not a multiple; N 1
+ENCODER_FORM_CASES = [(2, 100, 6, 20), (1, 384, 48, 110), (2, 1, 1, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,knn,ring", ENCODER_FORM_CASES)
+def test_neighbor_attn_hybrid_kernels_match_plain(dev, B, N, knn, ring):
+    """K7 and K7b against their plain versions: the lists of a graph with
+    an overflow row and padded nodes, a random cotangent; K7b's dk/dv over
+    the CSR transpose of nbr against the plain scatter."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k7
+
+    args, _, g, nbr = _hub_graph(dev, B, N, knn, ring, 107 + N)
+    n, nb = k7.launches_hybrid, k7.launches_hybrid_bwd
+    got = k7.neighbor_attn_hybrid_cuda(*args)
+    bwd_args = [*args[:3], nbr, *args[3:], g]
+    offsets, slots = k7.transpose_slots(nbr)
+    grads = k7.neighbor_attn_hybrid_bwd_cuda(*bwd_args, offsets=offsets, slots=slots)
+    assert (k7.launches_hybrid, k7.launches_hybrid_bwd) == (n + 1, nb + 1)
+    _check(got, k7.neighbor_attn_hybrid_plain(*args))
+    _check_grads(grads, k7.neighbor_attn_hybrid_bwd_plain(*bwd_args), BWD_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,knn,ring", ENCODER_FORM_CASES)
+def test_dense_edge_attn_kernels_match_plain(dev, B, N, knn, ring):
+    """K8 and K8b against their plain versions on adj_dist of a graph with
+    an overflow row (all its columns live, beyond K) and padded rows (a
+    uniform softmax over all N + 1 slots) under a random cotangent."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    _, args, g, _ = _hub_graph(dev, B, N, knn, ring, 109 + N)
+    n, nb = k8.launches, k8.launches_bwd
+    got = k8.dense_edge_attn_cuda(*args)
+    grads = k8.dense_edge_attn_bwd_cuda(*args, g)
+    assert (k8.launches, k8.launches_bwd) == (n + 1, nb + 1)
+    _check(got, k8.dense_edge_attn_plain(*args))
+    _check_grads(grads, k8.dense_edge_attn_bwd_plain(*args, g), BWD_NAMES)
+
+
+@pytest.mark.cuda
+def test_encoder_attn_forms_refuse_shapes_they_do_not_take(dev):
+    """K7 with one node's pair tensors over shared memory and K8 with
+    EdgeMLP weights over it: the C entry points return
+    cudaErrorInvalidValue and the wrappers raise ValueError; K7b and K8b at
+    widths whose weight gradients exceed the sums their blocks keep are
+    refused before launch."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k7
+
+    rng = np.random.default_rng(113)
+    f = lambda *s: _t(rng.normal(size=s).astype(np.float32), dev)
+
+    def attn(H, kd, vd, De, K):
+        return [f(1, 2, H * kd), f(1, 2, K, H * kd), f(1, 2, K, H * vd),
+                _t(np.zeros((1, 2, K), np.int32), dev), _t(np.ones((1, 2, K), bool), dev),
+                f(1, 2, K), f(1, 2, H), f(1, 2, H * vd), f(De), f(De, kd), f(kd), f(kd, kd), f(kd),
+                f(De, vd), f(vd), f(vd, vd), f(vd)]
+
+    big_k = attn(2, 32, 64, 64, 2000)
+    k7_args = [*big_k[:3], *big_k[4:], -0.2]
+    wide = attn(2, 128, 128, 128, 4)  # weight gradients 2 x 128 x 128 x 2 + ... > 12,288
+    wide_bwd = [*wide[:3], wide[3], *wide[4:], -0.2, f(1, 2, 2 * 128)]
+    dense = lambda a: [a[0], a[0].clone(), a[7].clone(), f(1, 2, 2), *a[6:], -0.2]
+    with pytest.raises(ValueError, match="does not take these shapes"):
+        k7.neighbor_attn_hybrid_cuda(*k7_args)
+    with pytest.raises(ValueError, match="does not take these shapes"):
+        k8.dense_edge_attn_cuda(*dense(attn(2, 32, 256, 256, 4)))
+    off, sl = k7.transpose_slots(wide[3])
+    with pytest.raises(ValueError, match="not supported"):
+        k7.neighbor_attn_hybrid_bwd_cuda(*wide_bwd, offsets=off, slots=sl)
+    with pytest.raises(ValueError, match="not supported"):
+        k8.dense_edge_attn_bwd_cuda(*dense(wide), f(1, 2, 2 * 128))
