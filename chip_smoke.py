@@ -14,6 +14,7 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
   1. device   name and power limit (nvidia-smi), torch and CUDA versions
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
+              and ptxas's report (registers, spills) of K8's and K8b's
   3. kernel   for K1/K2/K3: the inputs the generation path hands the kernel
               (8 pockets, default Config), the kernel against its plain
               PyTorch version on the card (max error vs the stated
@@ -55,7 +56,8 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               that is non-zero somewhere for every parameter, and on one
               fixed batch a loss after 5 steps below the first step's
      train_profile  torch.profiler over one optimizer step: device busy time,
-              idle share, the costliest kernels
+              idle share, the costliest kernels, and the SM clock, power
+              and temperature nvidia-smi sampled meanwhile
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
               card run at the same inputs as a witness of the card's own
@@ -93,7 +95,11 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      design), vs_cpu_hybrid / vs_cpu_dense, then the training phases as in
      8-11 with suffix _hybrid / _dense (batch 64 as 2 x 32, FORM_WARMUP +
      FORM_STEPS steps; per step K7 = K7b (or K8 = K8b) = K2 = K2b = K3 = K3b
-     = 12, K1 = K1b = 0)
+     = 12, K1 = K1b = 0); dense_lists / dense_lists_dense: at each distinct
+     call of K8 (serving) and of K8 and K8b (a training microbatch), the
+     live pairs, padded and closed-form rows, tiles per row, the per-pair
+     scratch against the all-columns one, the kernels' residency, and their
+     times with rows by descending live count (theirs) and in index order
 then a ``total`` line (the script's seconds so far), the card's name and
 power limit as nvidia-smi prints them, the kernels line and
 ``{"ok": true, "device": {...}}`` last. The kernels line lists all sixteen
@@ -115,6 +121,7 @@ import csv
 import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -212,6 +219,95 @@ def device_profile(fn) -> dict:
         "device_ops": sum(e.count for e in ops),
         "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
     }
+
+
+class ClockSampler:
+    """nvidia-smi reading the SM clock, power draw and temperature every
+    50 ms while the block runs; ``report`` gives each as [min, median,
+    max] over the samples (none when nvidia-smi gave none)."""
+
+    QUERY = "--query-gpu=clocks.sm,power.draw,temperature.gpu"
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(["nvidia-smi", self.QUERY, "--format=csv,noheader,nounits",
+                                      "-lms", "50"], stdout=subprocess.PIPE,
+                                     stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        rows = []
+        for ln in out.splitlines():
+            try:
+                rows.append([float(x) for x in ln.split(",")])
+            except ValueError:
+                continue
+        rows = [r for r in rows if len(r) == 3]
+        spread = lambda i: ([min(r[i] for r in rows), statistics.median(r[i] for r in rows),
+                             max(r[i] for r in rows)] if rows else None)
+        self.report = {"samples": len(rows), "sm_clock_mhz": spread(0), "power_w": spread(1),
+                       "temperature_c": spread(2)}
+        return False
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spills and stack per kernel from one source's nvcc
+    -Xptxas -v output, by mangled name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {}
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+        elif name and "spill stores" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                             spill_load_bytes=nums[2])
+    return out
+
+
+def dense_lists_report(args, kw) -> dict:
+    """What K8/K8b walk at one captured call: the live pairs and rows, the
+    closed-form rows, tiles per live row at each kernel's tile, the
+    backward's per-pair scratch (against the [B*N*N, kd + vd + 2H] of the
+    all-columns kernel), and each kernel's residency."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    qt, _, v, adj, ds = args[:5]
+    lists = k8.DenseLists(*kw["lists"])
+    B, N, _ = adj.shape
+    H = ds.shape[2]
+    kd, vd, De = qt.shape[2] // H, v.shape[2] // H, args[6].shape[0]
+    counts = (lists.row_offsets[1:] - lists.row_offsets[:-1]).long()
+    live = counts[counts > 0]
+    per_pair = (kd + vd + 2 * H) * 4
+    tiles = lambda T: float(((live + T - 1) // T).float().mean()) if live.numel() else 0.0
+    res = k8.residency(N, H, kd, vd, De)
+    return {"rows": B * N, "pairs": B * N * N, "live_pairs": int(lists.cols.numel()),
+            "padded_rows": int((ds[..., 0] <= -0.5 * k8.BIG).sum()),
+            "closed_form_rows": int((counts == 0).sum()),
+            "largest_live_count": int(counts.max()) if counts.numel() else 0,
+            "mean_live_count": float(live.float().mean()) if live.numel() else 0.0,
+            "tiles_per_live_row": {k: tiles(r["tile"]) for k, r in res.items()},
+            "rows_over_one_bwd_tile": int((counts > res["bwd"]["tile"]).sum()),
+            "scratch_bytes": int(lists.cols.numel()) * per_pair,
+            "all_columns_scratch_bytes": B * N * N * per_pair, "residency": res}
+
+
+def row_order_ms(fn, args, kw) -> dict:
+    """K8's or K8b's kernel (``fn``, a ``*_cuda`` wrapper) at one captured
+    call, timed with its rows taken by descending live count (the lists'
+    order) and in index order: what the order buys."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    lists = k8.DenseLists(*kw["lists"])
+    index = lists._replace(row_order=torch.arange(lists.row_order.numel(), dtype=torch.int32,
+                                                  device=lists.row_order.device))
+    with torch.no_grad():
+        return {"by_live_count_ms": time_ms(lambda: fn(*args, lists=lists)),
+                "index_order_ms": time_ms(lambda: fn(*args, lists=index))}
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -713,6 +809,13 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             trainer.loss(micro).backward()
 
         captured = capture(specs, mods, one_microbatch)
+        if K8 in specs:
+            for spec in (K8, K8B):
+                for args, kw, calls in captured[f"{spec.fn}_cuda"].values():
+                    fn = getattr(mods[spec.module], f"{spec.fn}_cuda")
+                    emit({"phase": f"dense_lists{suffix}", "name": spec.name,
+                          "calls_per_microbatch": calls, **dense_lists_report(args, kw),
+                          "row_order": row_order_ms(fn, args, kw)})
         results.update(hold_all([k for k in specs if k.outs is None], mods, captured,
                                 f"kernel_train{suffix}", "calls_per_microbatch", path))
         results.update(hold_all([k for k in specs if k.outs], mods, captured,
@@ -763,8 +866,9 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             raise AssertionError(f"non-finite training loss: {log}")
 
         # train_profile: one optimizer step
-        emit({"phase": f"train_profile{suffix}",
-              "step": device_profile(lambda: trainer.train_step(batch))})
+        with ClockSampler() as clocks:
+            prof = device_profile(lambda: trainer.train_step(batch))
+        emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report})
         data.close()
 
         del trainer
@@ -1028,8 +1132,14 @@ def serve_form_phases(dev, files, batch, mods, cfg, form: str) -> None:
         with torch.inference_mode():
             model.encode_pocket(batch)
 
-    hold_all([spec], mods, capture([spec], mods, encode), f"kernel_{form}", "calls_per_encode",
-             None)
+    captured = capture([spec], mods, encode)
+    hold_all([spec], mods, captured, f"kernel_{form}", "calls_per_encode", None)
+    if form == "dense":
+        for args, kw, calls in captured[f"{K8.fn}_cuda"].values():
+            emit({"phase": "dense_lists", "name": K8.name, "calls_per_encode": calls,
+                  **dense_lists_report(args, kw),
+                  "row_order": row_order_ms(mods[K8.module].dense_edge_attn_cuda, args, kw)})
+    del captured
 
     total_s, smiles, _, counts = checked_generate(model, batch, cfg, mods)
     enc_ms, (enc, pad) = timed_encode(model, batch)
@@ -1094,7 +1204,9 @@ def main() -> int:
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libraries": sorted(logs), "ptxas": ptxas})
+          "libraries": sorted(logs), "ptxas": ptxas,
+          "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
+                                                             "dense_edge_attn_bwd")}})
 
     # the main path's batch and model
     files = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "val", "*.npz")))[:8]

@@ -2,38 +2,59 @@
 //
 // Replaces: singa_tpu/ops/pallas/dense_edge_attn.py::dense_edge_attn
 // (_dattn_fwd_kernel), selected by SINGA_TPU_DENSE_ATTN. K1's function over
-// every column j of node i's graph instead of its K neighbour slots: the
-// kernel is csrc/encoder_attn.cuh's in its kDense form, walking the row in
-// column tiles of 96 with an online softmax. adj = adj_dist [B*N, N] carries
-// the distance where j is adjacent to i and BIG = 1e9 elsewhere (the diagonal
-// and padded nodes included); a column is live where adj < BIG / 2. The
-// adjacency is the untruncated one: a node whose in-degree exceeds K attends
-// over more columns here than K1 gives it. A padded node (no live column,
-// diag score -1e9) has a uniform softmax over all N + 1 slots, so every
-// column's w_v * v reaches its output; every column is evaluated, as the TPU
-// kernel evaluates it.
+// every column j of node i's graph instead of its K neighbour slots.
+// adj = adj_dist [B*N, N] carries the distance where j is adjacent to i and
+// BIG = 1e9 elsewhere (the diagonal and padded nodes included); a column is
+// live where adj < BIG / 2. The adjacency is the untruncated one: a node
+// whose in-degree exceeds K attends over more columns here than K1 gives it.
 //
-// What bounds it on the H100: each column costs K1's ~23 kFLOP per slot,
-// almost all in the two EdgeMLPs; at the training microbatch (32 graphs x
-// 384 nodes) ~108 GFLOP over all 4.7 M (row, column) pairs, 4x K1's slots.
-// What the data needs is far less: the live pairs (~8 % of the grid) and,
-// for the padded rows, one column sum of v per graph (their EdgeMLPs all see
-// the smear of BIG, one constant). Node rows and adj_dist are ~40 MB;
-// float32 arithmetic bounds it.
+// The TPU kernel evaluated every column, because dense [TI, N] tiles are
+// what feed its matrix unit. Here the kernel is csrc/encoder_attn.cuh's in
+// its kDense form: a row walks its live columns only (lists built once per
+// graph, ragged tiles, online softmax), since a dead column of a row with a
+// live one weighs exactly 0; a row with no live column (a padded node, whose
+// softmax is uniform over all N + 1 slots, or an isolated one) takes the
+// closed form from its graph's column sum of v, summed first by
+// graph_colsum_kernel.
+//
+// What bounds it on the H100: each live pair costs K1's ~23 kFLOP, almost
+// all in the two EdgeMLPs; a training microbatch (32 graphs x 384 nodes)
+// has ~381 k live pairs of 4.7 M, ~9.1 GFLOP (~0.14 ms at the 67 TFLOP/s
+// float32 CUDA-core rate), against ~40 MB of node rows and adj_dist (~12 us
+// at 3.35 TB/s): float32 arithmetic bounds it.
+//
+// On the H100 (nvcc -Xptxas -v, sm_90a; cudaOccupancy at tile 64,
+// kDenseFwdTile): 64 registers a thread (the __launch_bounds__ cap for two
+// blocks; 16 bytes of spill stores, 32 of loads), 98,864 bytes of shared
+// memory a block, 2 resident blocks of 512 threads per SM. Timed against
+// tiles 32, 48 and 96 (96: 124 KB, one block) and against staging each
+// tile's k and v rows in shared memory with cp.async while its EdgeMLPs
+// run (two blocks need tile 32 then), tile 64 with rows read by __ldg was
+// the fastest (PERF.md, section 6).
 #include "encoder_attn.cuh"
 
 namespace ea = singa::encoder_attn;
 
 // qt/k [B*N, H*kd], v [B*N, H*vd], adj [B*N, N], ds [B*N, H], dval and out
-// [B*N, H*vd]; EdgeMLP weights in the flax [in, out] layout.
+// [B*N, H*vd]; EdgeMLP weights in the flax [in, out] layout; lrow [B*N + 1],
+// lcol [E] and lorder [B*N] the live lists; vsum [B, H*vd] scratch.
 extern "C" int dense_edge_attn_f32(const float* qt, const float* k, const float* v,
                                    const float* adj, const float* ds, const float* dval,
                                    const float* centers, const float* wk1, const float* bk1,
                                    const float* wk2, const float* bk2, const float* wv1,
                                    const float* bv1, const float* wv2, const float* bv2,
-                                   float coeff, float* out, int B, int N, int H, int kd, int vd,
-                                   int De, void* stream) {
-  const ea::Args a{qt, k, v, nullptr, nullptr, adj, ds, dval, centers,
-                   wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
+                                   float coeff, const int* lrow, const int* lcol,
+                                   const int* lorder, float* vsum, float* out, int B, int N,
+                                   int H, int kd, int vd, int De, void* stream) {
+  const ea::Args a{qt, k, v, nullptr, nullptr, adj, ds, dval, centers, wk1, bk1, wk2,
+                   bk2, wv1, bv1, wv2, bv2, coeff, lrow, lcol, lorder, vsum};
   return ea::launch_fwd<ea::kDense>(a, ea::Dims{B, N, N, H, kd, vd, De}, out, stream);
+}
+
+// Resident blocks per SM of the kernel at these widths, its shared memory
+// per block in *smem_bytes and its columns per tile in *tile (-1: over the
+// card's limit).
+extern "C" int dense_edge_attn_residency(int N, int H, int kd, int vd, int De,
+                                         int* smem_bytes, int* tile) {
+  return ea::residency<ea::kDense, false>(ea::Dims{1, N, N, H, kd, vd, De}, smem_bytes, tile);
 }

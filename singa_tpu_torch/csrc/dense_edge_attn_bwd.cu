@@ -4,100 +4,146 @@
 // Replaces: singa_tpu/ops/pallas/dense_edge_attn.py::_dbwd
 // (_dattn_bwd_kernel). The gradients are those csrc/encoder_attn.cuh sets
 // out, with the N columns of a node's graph as its slots; dk[j] and dv[j]
-// sum over the rows i of j's graph, every column included (a padded row's
-// uniform softmax sends dv to all of them). adj_dist and centers get no
-// gradient, as in the TPU kernel.
+// sum over the rows i of j's graph (a padded row's uniform softmax sends dv
+// to every column). adj_dist and centers get no gradient, as in the TPU
+// kernel, which evaluated every column and summed dk/dv as dense column
+// sums. Here only the live pairs are evaluated; the rows with no live column
+// come in closed form, per graph.
 //
-// What bounds it on the H100: each (row, column) pair costs K1b's ~60 kFLOP
-// per slot plus a second forward (the softmax needs the row's max, sum and
-// dot before any pair's gradient), ~83 kFLOP; at the training microbatch
-// (32 graphs x 384 nodes, 4.7 M pairs) ~390 GFLOP over every pair, far less
-// over what the data needs (the live pairs, and per graph the padded rows'
-// column sums). The scratch below is ~2 GB written and read once (~1.2 ms
-// at 3.35 TB/s). Float32 arithmetic bounds it.
+// What bounds it on the H100: each live pair costs K1b's ~60 kFLOP (the
+// forward recomputed, the EdgeMLPs' backward, the weight-gradient
+// products); a training microbatch (32 graphs x 384 nodes) has ~381 k live
+// pairs, ~23 GFLOP (~0.34 ms at the 67 TFLOP/s float32 CUDA-core rate),
+// against ~100 MB of node rows in and out and ~160 MB of per-pair scratch
+// written and read once (~80 us at 3.35 TB/s). Float32 arithmetic bounds it.
 //
-// Design. Three kernels, every sum in a fixed order (deterministic, no
-// atomics):
-//   1. encoder_attn.cuh's pair kernel in its kDense form: two sweeps over a
-//      node's column tiles (max, sum and dot online; then the gradients),
-//      per-pair scratch, weight gradients as per-block rows.
-//   2. column-sum kernel: dk[j] and dv[j] are the dense transpose, a plain
-//      sum over the rows i of j's graph in order (no CSR: every row names
-//      every column).
-//   3. sum_rows_kernel: the blocks' weight-gradient rows, in block order.
+// On the H100 (nvcc -Xptxas -v, sm_90a; cudaOccupancy at tile 96,
+// kDenseBwdTile): the pair kernel takes 128 registers a thread, no spills,
+// 209,392 bytes of shared memory a block, 1 resident block of 512 threads
+// per SM; its 24 weight-gradient sums a thread need the registers. Two
+// blocks per SM were timed and lost (PERF.md, section 6): capped at 64
+// registers the sums spill, and with the sums in global memory instead the
+// 31-column tile that fits two blocks puts most rows over one tile (a
+// second forward per row). The other kernels take 32-40 registers and no
+// shared memory to speak of.
+//
+// Design. Six kernels on the caller's stream, every sum in a fixed order
+// (deterministic, no atomics):
+//   1. graph_colsum_kernel: vsum [B, H*vd], v summed over each graph's rows.
+//   2. encoder_attn.cuh's pair kernel in its kDense form over the live
+//      lists: two sweeps per node (max, sum and dot online; then the
+//      gradients), the tile's forward kept between them when the node is
+//      one tile and recomputed otherwise; the closed form
+//      for rows with no live column, whose a_dead goes to s_ad; per live
+//      pair (its CSR index) w_k, w_v, a, dsc to scratch [E, kd + vd + 2H];
+//      weight gradients as per-block rows of partial.
+//   3. graph_colsum_kernel: G [B, H*vd], the closed-form rows' a_dead * g
+//      summed per graph.
+//   4. padded_wgrad_kernel: G's share of the v-EdgeMLP's weight gradients,
+//      through the constant hidden of a dead column, as the last row of
+//      partial; G becomes gw = w_v0 * G in place.
+//   5. encoder_attn.cuh's csr_dkdv_kernel over the CSR transpose of the live
+//      lists (K1b's gather), adding gw to every row's dv.
+//   6. sum_rows_kernel: the rows of partial, in order.
 #include "encoder_attn.cuh"
 
 namespace ea = singa::encoder_attn;
 
 namespace {
 
-constexpr int kColThreads = 128;
+constexpr int kPadThreads = 256;
 
-// dk and dv of column row j: the pairs (i, j) of its graph, rows i in order.
-__global__ void __launch_bounds__(kColThreads)
-dense_edge_attn_bwd_colsum_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
-                                  const float* __restrict__ s_wk, const float* __restrict__ s_wv,
-                                  const float* __restrict__ s_a, const float* __restrict__ s_dsc,
-                                  float* __restrict__ dk, float* __restrict__ dv, long long rows,
-                                  ea::Dims dm) {
-  const int N = dm.N, H = dm.H, kd = dm.kd, vd = dm.vd;
-  const int HK = H * kd, HV = H * vd;
-  for (long long j = blockIdx.x; j < rows; j += gridDim.x) {
-    const long long base = (j / N) * N, col = j - base;
-    for (int c = threadIdx.x; c < HK + HV; c += blockDim.x) {
-      float acc = 0.f;
-      if (c < HK) {
-        const int h = c / kd, d = c % kd;
-        for (int i = 0; i < N; ++i) {
-          const long long s = (base + i) * N + col;  // the pair (row base + i, column j)
-          acc = fmaf(s_dsc[s * H + h] * s_wk[s * kd + d], __ldg(qt + (base + i) * HK + c), acc);
-        }
-        dk[j * HK + c] = acc;
-      } else {
-        const int cv = c - HK, h = cv / vd, d = cv % vd;
-        for (int i = 0; i < N; ++i) {
-          const long long s = (base + i) * N + col;
-          acc = fmaf(s_a[s * H + h] * s_wv[s * vd + d], __ldg(gin + (base + i) * HV + cv), acc);
-        }
-        dv[j * HV + cv] = acc;
+// dw_v summed over every (closed-form row, column) pair of the batch is
+// DWV[d] = sum_b sum_h G[b, h, d] vsum[b, h, d]; all those pairs share the
+// hidden ssp(bv1) (pre-activation bv1), so dwv2 = ssp(bv1)^T DWV,
+// dbv2 = DWV, dbv1 = (DWV wv2^T) * sigmoid(bv1), and nothing else. Writes
+// them into row [P] (zero elsewhere), then G *= w_v0 in place. One block.
+__global__ void __launch_bounds__(kPadThreads)
+padded_wgrad_kernel(const float* __restrict__ bv1, const float* __restrict__ wv2,
+                    const float* __restrict__ bv2, const float* __restrict__ vsum,
+                    float* __restrict__ G, float* __restrict__ row, ea::Dims dm) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = dm.H, vd = dm.vd, HV = H * vd, tid = threadIdx.x;
+  float* w0 = smem;        // [vd]
+  float* dwv = w0 + vd;    // [vd]
+  ea::dead_wv(bv1, wv2, bv2, vd, w0);
+  for (int c = tid; c < vd; c += blockDim.x) {
+    float acc = 0.f;
+    for (int b = 0; b < dm.B; ++b)
+      for (int h = 0; h < H; ++h) {
+        const long long i = (long long)b * HV + h * vd + c;
+        acc = fmaf(G[i], vsum[i], acc);
       }
-    }
+    dwv[c] = acc;
   }
+  const int P = dm.grad_floats();
+  for (int t = tid; t < P; t += blockDim.x) row[t] = 0.f;
+  __syncthreads();
+  const int kd = dm.kd, De = dm.De;
+  float* dbv1 = row + De * kd + kd + kd * kd + kd + De * vd;
+  float* dwv2 = dbv1 + vd;
+  float* dbv2 = dwv2 + vd * vd;
+  for (int t = tid; t < vd * vd; t += blockDim.x)
+    dwv2[t] = singa::sspf_(bv1[t / vd]) * dwv[t % vd];
+  for (int c = tid; c < vd; c += blockDim.x) {
+    dbv2[c] = dwv[c];
+    float acc = 0.f;
+    for (int j = 0; j < vd; ++j) acc = fmaf(dwv[j], wv2[c * vd + j], acc);
+    dbv1[c] = acc * singa::sigmoidf_(bv1[c]);
+  }
+  for (long long i = tid; i < (long long)dm.B * HV; i += blockDim.x) G[i] *= w0[i % vd];
 }
 
 }  // namespace
 
 // Blocks of the pair kernel (one resident wave); the caller sizes the
-// [blocks, P] scratch buffer from it. Returns -1 for unsupported shapes.
+// [blocks + 1, P] scratch buffer from it. Returns -1 for unsupported shapes.
 extern "C" int dense_edge_attn_bwd_blocks(int B, int N, int H, int kd, int vd, int De) {
   return ea::bwd_blocks<ea::kDense>(ea::Dims{B, N, N, H, kd, vd, De});
 }
 
 // qt/k [B*N, H*kd], v [B*N, H*vd], adj [B*N, N], ds [B*N, H], dval and g
-// [B*N, H*vd]. Scratch: s_wk [B*N*N, kd], s_wv [B*N*N, vd], s_a and s_dsc
-// [B*N*N, H], partial [blocks, P]. grads [P]: dwk1 dbk1 dwk2 dbk2 dwv1 dbv1
-// dwv2 dbv2, flat.
+// [B*N, H*vd]. The live lists: lrow [B*N + 1], lcol and pair_rows [E] (each
+// live pair's column and source row), their CSR transpose col_off
+// [B*N + 1] and col_pairs [E], the row order lorder [B*N]. Scratch: s_wk
+// [E, kd], s_wv [E, vd], s_a and s_dsc [E, H], s_ad [B*N, H], vsum and gsum
+// [B, H*vd], partial [blocks + 1, P]. grads [P]: dwk1 dbk1 dwk2 dbk2 dwv1 dbv1 dwv2 dbv2, flat.
 extern "C" int dense_edge_attn_bwd_f32(
     const float* qt, const float* k, const float* v, const float* adj, const float* ds,
     const float* dval, const float* centers, const float* wk1, const float* bk1,
     const float* wk2, const float* bk2, const float* wv1, const float* bv1, const float* wv2,
-    const float* bv2, float coeff, const float* g, float* dqt, float* dk, float* dv, float* dds,
-    float* ddv, float* s_wk, float* s_wv, float* s_a, float* s_dsc, float* partial,
+    const float* bv2, float coeff, const float* g, const int* lrow, const int* lcol,
+    const int* pair_rows, const int* col_off, const int* col_pairs, const int* lorder,
+    float* dqt, float* dk, float* dv, float* dds, float* ddv, float* s_wk, float* s_wv,
+    float* s_a, float* s_dsc, float* s_ad, float* vsum, float* gsum, float* partial,
     float* grads, int B, int N, int H, int kd, int vd, int De, int blocks, void* stream) {
-  const ea::Args a{qt, k, v, nullptr, nullptr, adj, ds, dval, centers,
-                   wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
+  const ea::Args a{qt, k, v, nullptr, nullptr, adj, ds, dval, centers, wk1, bk1, wk2,
+                   bk2, wv1, bv1, wv2, bv2, coeff, lrow, lcol, lorder, vsum};
   const ea::Dims dm{B, N, N, H, kd, vd, De};
-  const ea::Grads o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial};
+  const ea::Grads o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, s_ad};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = ea::launch_bwd_pair<ea::kDense>(a, dm, o, blocks, st);
+  const int HV = H * vd, P = dm.grad_floats();
+  if (!dm.ok() || blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ea::launch_colsum(v, nullptr, vsum, B, N, HV, vd, st);
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * N;
-  const int cgrid = singa::persistent_grid(dense_edge_attn_bwd_colsum_kernel, kColThreads, 0, rows);
-  dense_edge_attn_bwd_colsum_kernel<<<cgrid, kColThreads, 0, st>>>(
-      qt, g, s_wk, s_wv, s_a, s_dsc, dk, dv, rows, dm);
+  err = ea::launch_bwd_pair<ea::kDense>(a, dm, o, blocks, st);
+  if (err != cudaSuccess) return (int)err;
+  err = ea::launch_colsum(g, s_ad, gsum, B, N, HV, vd, st);
+  if (err != cudaSuccess) return (int)err;
+  padded_wgrad_kernel<<<1, kPadThreads, 2 * vd * sizeof(float), st>>>(
+      bv1, wv2, bv2, vsum, gsum, partial + (long long)blocks * P, dm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int P = dm.grad_floats();
-  singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks);
+  err = ea::launch_dkdv<ea::kDense>(a, dm, g, o, col_off, col_pairs, pair_rows, gsum, dk, dv, st);
+  if (err != cudaSuccess) return (int)err;
+  singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks + 1);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the kernel at these widths, its shared memory
+// per block in *smem_bytes and its columns per tile in *tile (-1: over the
+// card's limit).
+extern "C" int dense_edge_attn_bwd_residency(int N, int H, int kd, int vd, int De,
+                                             int* smem_bytes, int* tile) {
+  return ea::residency<ea::kDense, true>(ea::Dims{1, N, N, H, kd, vd, De}, smem_bytes, tile);
 }

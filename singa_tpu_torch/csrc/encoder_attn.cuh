@@ -34,32 +34,57 @@
 //             dW1 += e^T dh, db1 += sum dh, summed over every node and slot.
 // nbr, nbr_mask, dist, adj_dist and centers get no gradient.
 //
-// Design. A persistent grid of 512-thread blocks, one per SM; each keeps the
-// four EdgeMLP weight matrices in shared memory (~45 KB) for its life and
-// walks nodes in a grid-stride loop. The TPU kernels gathered neighbour rows
-// with one-hot matmuls; here each slot's k/v row is read by index. A node's
-// slots go in tiles: the whole list (K slots) as one tile, the dense form's N
-// columns in tiles of kTile (one row's pair tensors at N = 384, ~0.5 MB, do
-// not fit). Per tile, all in shared memory: the smear, the EdgeMLPs as
+// The dense form walks live columns only. A dead column of a row that has a
+// live one weighs exp(-1e9 - m) = 0 in float32 (m is at least that live
+// column's score), so every term it adds above is an exact zero. A row with
+// no live column (a padded node: self score -1e9; or an isolated real node)
+// has m = max(s_self, -1e9) and weighs each of its N dead columns alike,
+// a_dead = e^(-1e9-m) / (N e^(-1e9-m) + e^(s_self-m)): every dead column sees
+// the smear of BIG, -0, so one w_v0 = ssp(bv1) @ wv2 + bv2, and its output is
+// a_dead w_v0 * vsum + a_self dval with vsum the graph's column sum of v
+// (graph_colsum_kernel). Its backward: dot = a_dead sum_d g w_v0 vsum +
+// a_self da_self, no dsc (its columns are dead), and per graph G = sum over
+// such rows of a_dead g, which sends w_v0 * G to every column's dv and
+// dw_v = sum_h G vsum through the constant hidden ssp(bv1) to dwv2, dbv2 and
+// dbv1 (dwv1 gets e^T dh = 0: the smear is -0) (padded_wgrad_kernel).
+// A row's live columns come as lists built once per graph from adj_dist
+// (ops/cuda/dense_edge_attn.py::live_columns): CSR row offsets lrow
+// [B*N + 1], each live pair's graph-local column lcol [E], ascending; and
+// lorder [B*N], the rows by descending live count, the order in which the
+// blocks' grid-stride loops take them: a row's work grows with its live
+// count (0 for a padded row, up to two tiles for a hub), and in this order
+// each block gets a like share of every cost.
+//
+// Design. A persistent grid of 512-thread blocks; each keeps the four
+// EdgeMLP weight matrices in shared memory (~45 KB) for its life and walks
+// nodes in a grid-stride loop. The TPU kernels gathered neighbour rows with
+// one-hot matmuls; here each slot's k/v row is read by index. A node's slots
+// go in tiles: the whole list (K slots) as one tile, the dense form's live
+// columns in ragged tiles of at most kDenseFwdTile / kDenseBwdTile.
+// Per tile, all in shared memory: the smear, the EdgeMLPs as
 // register-blocked GEMMs (block_gemm.cuh), the scores one thread per (slot,
 // head) with the row's 16-byte key loads all in flight, then an online
 // softmax: a running max m and sum l per head, which the self slot starts
 // (m = its score, l = 1, the aggregate = diag_value); a tile that moves the
 // max rescales the [H, vd] aggregate by exp(m_old - m_new), and the
 // aggregate is divided by l at the end. Nothing of shape [B, N, R, *] is
-// kept in device memory by the forward.
+// kept in device memory by the forward. The dense form's forward is built
+// for two resident blocks per SM (__launch_bounds__ min blocks 2: at most 64
+// registers a thread), which its 64-column tile fits in shared memory.
 //
 // The backward pair kernel sweeps a node's tiles twice: the first recomputes
 // each tile's forward and da and carries m, l and dot online; the second
-// recomputes the tile again (not when the row is one tile: its buffers still
-// hold it) and writes dsc, dqt, dds, ddv, and per slot the four numbers the
-// dk/dv stage needs (w_k, w_v, a, dsc) to scratch [B*N*R, kd + vd + 2H]. The
-// EdgeMLP weight gradients stay in registers, each sum owned by one thread,
-// across all the block's nodes, and go to the block's row of a [blocks, P]
-// buffer at the end, summed in block order by sum_rows_kernel. dk/dv are a
-// second kernel of each form's own: the gather over the CSR transpose of nbr
-// (csrc/neighbor_attn_bwd.cu) or the dense column sums
-// (csrc/dense_edge_attn_bwd.cu). Every sum runs in a fixed order: no atomics.
+// recomputes the tile again (not when the node is one tile: its buffers
+// still hold it) and writes dsc, dqt, dds, ddv, and per slot the four
+// numbers the dk/dv stage needs (w_k, w_v, a, dsc) to scratch [slots,
+// kd + vd + 2H], at the slot's flat index: node * K + p for the lists, the
+// live pair's CSR index for the dense form. The EdgeMLP weight gradients
+// stay in registers, each sum owned by one thread, across all the block's
+// nodes, and go to the block's row of a [blocks, P] buffer at the end,
+// summed in block order by sum_rows_kernel. dk/dv are csr_dkdv_kernel: one
+// block per destination row gathers its incoming slots over the CSR
+// transpose of the slots (of nbr, or of the live lists). Every sum runs in a
+// fixed order: no atomics.
 #pragma once
 
 #include "block_gemm.cuh"
@@ -68,9 +93,13 @@ namespace singa {
 namespace encoder_attn {
 
 constexpr int kThreads = 512;
-constexpr int kTile = 96;          // the dense form's columns per tile
+// the dense form's live columns per tile: the forward's fits two resident
+// blocks per SM, the backward's (one block) holds almost every row whole
+constexpr int kDenseFwdTile = 64;
+constexpr int kDenseBwdTile = 96;
 constexpr float kBig = 1e9f;       // adj_dist's value for a pair that is not adjacent
 constexpr int kAccPerThread = 24;  // weight-gradient sums a backward thread owns
+constexpr int kDkdvThreads = 128;
 
 enum Form { kList = 0, kGathered = 1, kDense = 2 };
 
@@ -84,6 +113,9 @@ struct Args {
   const float *ds, *dval;      // [B*N, H], [B*N, H*vd]
   const float *centers, *wk1, *bk1, *wk2, *bk2, *wv1, *bv1, *wv2, *bv2;
   float coeff;
+  const int *lrow, *lcol;      // kDense: live lists, [B*N + 1] and [E]
+  const int* lorder;           // kDense: [B*N] the rows by descending live count
+  float* vsum;                 // kDense: [B, H*vd] v summed per graph (launch_fwd sums it)
 };
 
 // R: slots per node (K, or N for kDense).
@@ -98,19 +130,33 @@ struct Dims {
   }
 };
 
-// Slots per tile: the whole list, or kTile columns.
-template <int F>
+// Slots per tile of the forward (kBwd false) or the backward pair kernel:
+// the whole list, or the dense form's live columns, at most its tile.
+template <int F, bool kBwd>
 __host__ __device__ __forceinline__ int tile_of(const Dims& d) {
-  return F == kDense ? (d.R < kTile ? d.R : kTile) : d.R;
+  if (F != kDense) return d.R;
+  const int t = kBwd ? kDenseBwdTile : kDenseFwdTile;
+  return d.R < t ? d.R : t;
 }
 
-// The row of k (or v) that slot c0 + p of `node` reads.
+// A node's slot count, and in `first` the flat index of its first slot.
 template <int F>
-__device__ __forceinline__ long long slot_row(const Dims& d, long long node, long long base,
-                                              const int* sidx, int c0, int p) {
-  if (F == kList) return base + sidx[p];
-  if (F == kGathered) return node * d.R + c0 + p;
-  return base + c0 + p;
+__device__ __forceinline__ int node_slots(const Args& a, const Dims& d, long long node,
+                                          long long& first) {
+  if (F == kDense) {
+    first = a.lrow[node];
+    return a.lrow[node + 1] - (int)first;
+  }
+  first = node * d.R;
+  return d.R;
+}
+
+// The row of k (or v) that slot c0 + p of the node reads.
+template <int F>
+__device__ __forceinline__ long long slot_row(long long base, long long first, const int* sidx,
+                                              int c0, int p) {
+  if (F == kGathered) return first + c0 + p;
+  return base + sidx[p];
 }
 
 // The EdgeMLP weights and the smear centers in shared memory.
@@ -140,20 +186,49 @@ __device__ inline float* load_mlp(const Args& a, const Dims& d, float* p, Mlp& w
   return w.cent + De;
 }
 
+// w_v0 [vd] = ssp(bv1) @ wv2 + bv2, the v-EdgeMLP of a dead column (smear
+// -0), from global memory, the sum over the hidden in order.
+__device__ inline void dead_wv(const float* bv1, const float* wv2, const float* bv2, int vd,
+                               float* out) {
+  for (int c = threadIdx.x; c < vd; c += blockDim.x) {
+    float acc = bv2[c];
+    for (int j = 0; j < vd; ++j) acc = fmaf(sspf_(bv1[j]), wv2[j * vd + c], acc);
+    out[c] = acc;
+  }
+}
+
+// The closed form's softmax of a row with no live column, head h: (a_dead,
+// a_self) over its N dead columns and the self slot.
+__device__ __forceinline__ float2 dead_row_weights(float s_self, int N) {
+  const float m = fmaxf(s_self, -kBig);
+  const float ed = expf(-kBig - m), es = expf(s_self - m);
+  const float l = fmaf((float)N, ed, es);
+  return make_float2(ed / l, es / l);
+}
+
 // One tile's slots c0 .. c0 + T - 1 of `node`: distances, live flags and
-// (kList) neighbour indices into shared memory, then the smear into sA
+// (kList, kDense) row indices into shared memory, then the smear into sA
 // [T, De]. Starts with a barrier: the previous tile's readers are done.
 template <int F>
-__device__ void load_tile(const Args& a, const Dims& d, const Mlp& w, long long node, int c0,
-                          int T, float* sdist, float* smask, int* sidx, float* sA) {
+__device__ void load_tile(const Args& a, const Dims& d, const Mlp& w, long long node,
+                          long long first, int c0, int T, float* sdist, float* smask, int* sidx,
+                          float* sA) {
   const int tid = threadIdx.x, De = d.De;
   __syncthreads();
   for (int t = tid; t < T; t += blockDim.x) {
-    const long long s = node * d.R + c0 + t;
-    const float dd = a.dist[s];
+    const long long s = first + c0 + t;
+    float dd;
+    if (F == kDense) {
+      const int col = a.lcol[s];
+      sidx[t] = col;
+      dd = a.dist[node * d.R + col];
+      smask[t] = dd < 0.5f * kBig ? 1.f : 0.f;
+    } else {
+      dd = a.dist[s];
+      smask[t] = a.nmask[s] != 0 ? 1.f : 0.f;
+      if (F == kList) sidx[t] = a.nbr[s];
+    }
     sdist[t] = dd;
-    smask[t] = (F == kDense ? dd < 0.5f * kBig : a.nmask[s] != 0) ? 1.f : 0.f;
-    if (F == kList) sidx[t] = a.nbr[s];
   }
   __syncthreads();
   for (int t = tid; t < T * De; t += blockDim.x) {
@@ -167,7 +242,7 @@ __device__ void load_tile(const Args& a, const Dims& d, const Mlp& w, long long 
 // its kd key channels of the slot's row in 16-byte loads that are all in
 // flight at once (when the layout allows them).
 template <int F>
-__device__ void tile_scores(const Args& a, const Dims& d, long long node, long long base, int c0,
+__device__ void tile_scores(const Args& a, const Dims& d, long long base, long long first, int c0,
                             int T, const int* sidx, const float* smask, const float* sq,
                             const float* sWk, float* sS) {
   const int H = d.H, kd = d.kd, HK = H * kd;
@@ -176,7 +251,7 @@ __device__ void tile_scores(const Args& a, const Dims& d, long long node, long l
                     ((reinterpret_cast<size_t>(sq) | reinterpret_cast<size_t>(sWk)) & 15) == 0;
   for (int job = threadIdx.x; job < T * H; job += blockDim.x) {
     const int p = job / H, h = job % H;
-    const float* krow = a.k + slot_row<F>(d, node, base, sidx, c0, p) * HK + h * kd;
+    const float* krow = a.k + slot_row<F>(base, first, sidx, c0, p) * HK + h * kd;
     const float* qr = sq + h * kd;
     const float* wr = sWk + p * kd;
     float part = 0.f;
@@ -234,16 +309,17 @@ __device__ inline void online_softmax(float* S, const float* D, int T, int H, fl
 
 template <int F>
 __host__ __device__ inline int fwd_smem_floats(const Dims& d) {
-  const int T = tile_of<F>(d), H = d.H;
+  const int T = tile_of<F, false>(d), H = d.H;
   return d.mlp_floats() + T * (d.De > d.vd ? d.De : d.vd) + 2 * T * d.kd +
-         (T > H ? T : H) * d.vd + T * H + H * d.kd + H * d.vd + 3 * H + 3 * T;
+         (T > H ? T : H) * d.vd + T * H + H * d.kd + H * d.vd + 3 * H +
+         (F == kDense ? d.vd : 0) + 3 * T;
 }
 
 template <int F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, F == kDense ? 2 : 1)
 attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
-  const int TM = tile_of<F>(d);
+  const int TM = tile_of<F, false>(d);
   extern __shared__ __align__(16) float smem[];
   Mlp w;
   float* sA = load_mlp(a, d, smem, w);       // [TM, De] smear, later [TM, vd] w_v
@@ -256,34 +332,47 @@ attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
   float* sM = sAcc + HV;                     // [H] running max
   float* sL = sM + H;                        // [H] running sum
   float* sAl = sL + H;                       // [H] this tile's rescale
-  float* sdist = sAl + H;                    // [TM]
+  float* sW0 = sAl + H;                      // kDense: [vd] a dead column's w_v
+  float* sdist = sW0 + (F == kDense ? vd : 0);  // [TM]
   float* smask = sdist + TM;                 // [TM]
   int* sidx = reinterpret_cast<int*>(smask + TM);  // [TM]
 
   const int tid = threadIdx.x;
+  if (F == kDense) dead_wv(a.bv1, a.wv2, a.bv2, vd, sW0);
   // slices of the slots in the aggregate; their partial sums (S * HV <=
   // max(TM, H) * vd floats) meet in sHv
   const int S = max(1, min((int)blockDim.x / HV, TM / H));
   const long long total = (long long)d.B * d.N;
-  for (long long node = blockIdx.x; node < total; node += gridDim.x) {
-    const long long base = (node / d.N) * d.N;  // first row of this node's graph
-    __syncthreads();  // the previous node's readers are done
+  for (long long i = blockIdx.x; i < total; i += gridDim.x) {
+    const long long node = F == kDense ? (long long)a.lorder[i] : i;
+    const long long gb = node / d.N, base = gb * d.N;  // the node's graph and its first row
+    long long first;
+    const int R = node_slots<F>(a, d, node, first);
+    __syncthreads();  // the previous node's readers are done (and sW0 is written)
+    if (F == kDense && R == 0) {  // no live column: the closed form
+      for (int c = tid; c < HV; c += blockDim.x) {
+        const float2 aw = dead_row_weights(a.ds[node * H + c / vd], d.N);
+        out[node * HV + c] =
+            aw.x * sW0[c % vd] * a.vsum[gb * HV + c] + aw.y * a.dval[node * HV + c];
+      }
+      continue;
+    }
     for (int t = tid; t < HK; t += blockDim.x) sq[t] = a.qt[node * HK + t];
     for (int t = tid; t < HV; t += blockDim.x) sAcc[t] = a.dval[node * HV + t];
     for (int t = tid; t < H; t += blockDim.x) {
       sM[t] = a.ds[node * H + t];
       sL[t] = 1.f;
     }
-    for (int c0 = 0; c0 < d.R; c0 += TM) {
-      const int T = min(TM, d.R - c0);
-      load_tile<F>(a, d, w, node, c0, T, sdist, smask, sidx, sA);
+    for (int c0 = 0; c0 < R; c0 += TM) {
+      const int T = min(TM, R - c0);
+      load_tile<F>(a, d, w, node, first, c0, T, sdist, smask, sidx, sA);
       block_gemm(sA, T, De, w.wk1, w.bk1, kd, sHk, kEpiSsp);
       block_gemm(sA, T, De, w.wv1, w.bv1, vd, sHv, kEpiSsp);
       __syncthreads();
       block_gemm(sHk, T, kd, w.wk2, w.bk2, kd, sWk, kEpiNone);
       block_gemm(sHv, T, vd, w.wv2, w.bv2, vd, sA, kEpiNone);  // the smear is dead now
       __syncthreads();
-      tile_scores<F>(a, d, node, base, c0, T, sidx, smask, sq, sWk, sS);
+      tile_scores<F>(a, d, base, first, c0, T, sidx, smask, sq, sWk, sS);
       __syncthreads();
       online_softmax(sS, nullptr, T, H, sM, sL, nullptr, sAl);
       __syncthreads();
@@ -297,7 +386,7 @@ attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
 #pragma unroll 4
         for (int p = sl; p < T; p += S)
           acc = fmaf(sS[p * H + h] * sA[p * vd + dc],
-                     __ldg(a.v + slot_row<F>(d, node, base, sidx, c0, p) * HV + c), acc);
+                     __ldg(a.v + slot_row<F>(base, first, sidx, c0, p) * HV + c), acc);
         sHv[sl * HV + c] = acc;
       }
       __syncthreads();
@@ -313,24 +402,57 @@ attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
   }
 }
 
+// out[b, c] = sum over the N rows i of graph b, in order, of x[b*N + i, c],
+// each term times wt[b*N + i, c / cw] when wt is given ([B*N, C / cw]).
+// kDense: v's column sums (wt none), and G, the padded rows' a_dead-weighted
+// cotangent (wt = a_dead [B*N, H], cw = vd). One block per graph.
+__global__ void graph_colsum_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+                                    float* __restrict__ out, int B, int N, int C, int cw) {
+  const int nw = C / cw;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      float acc = 0.f;
+      for (int i = 0; i < N; ++i) {
+        const long long r = (long long)b * N + i;
+        const float xv = x[r * C + c];
+        acc = wt ? fmaf(wt[r * nw + c / cw], xv, acc) : acc + xv;
+      }
+      out[(long long)b * C + c] = acc;
+    }
+  }
+}
+
+inline cudaError_t launch_colsum(const float* x, const float* wt, float* out, int B, int N, int C,
+                                 int cw, cudaStream_t st) {
+  graph_colsum_kernel<<<B, 256, 0, st>>>(x, wt, out, B, N, C, cw);
+  return cudaGetLastError();
+}
+
 // The forward of every form: cudaErrorInvalidValue for a shape it does not
-// take (one tile's pair tensors over shared memory among them).
+// take (one tile's pair tensors over shared memory among them). kDense first
+// sums v per graph into vsum [B, H*vd] (a.vsum).
 template <int F>
 int launch_fwd(const Args& a, const Dims& d, float* out, void* stream) {
   if (!d.ok()) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)fwd_smem_floats<F>(d) * sizeof(float);
   cudaError_t err = allow_smem(attn_fwd_kernel<F>, smem);
   if (err != cudaSuccess) return (int)err;
+  if (F == kDense) {
+    err = launch_colsum(a.v, nullptr, a.vsum, d.B, d.N, d.H * d.vd, d.vd, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int grid = persistent_grid(attn_fwd_kernel<F>, kThreads, smem, (long long)d.B * d.N);
-  attn_fwd_kernel<F><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a, d, out);
+  attn_fwd_kernel<F><<<grid, kThreads, smem, st>>>(a, d, out);
   return (int)cudaGetLastError();
 }
 
-// What the backward writes. Scratch per slot (node * R + p): s_wk [*, kd],
-// s_wv [*, vd], s_a and s_dsc [*, H]; partial [blocks, P].
+// What the backward writes. Scratch per slot (its flat index): s_wk [*, kd],
+// s_wv [*, vd], s_a and s_dsc [*, H]; partial [blocks, P]. kDense also:
+// s_ad [B*N, H], the closed-form rows' a_dead (0 on the others).
 struct Grads {
   const float* g;  // the cotangent [B*N, H*vd]
-  float *dqt, *dds, *ddv, *s_wk, *s_wv, *s_a, *s_dsc, *partial;
+  float *dqt, *dds, *ddv, *s_wk, *s_wv, *s_a, *s_dsc, *partial, *s_ad;
 };
 
 // Shared-memory buffers of the backward pair kernel.
@@ -338,7 +460,7 @@ struct BwdSmem {
   Mlp w;
   float *wk2t, *wv2t, *one;
   float *A, *Pk, *Hk, *Wk, *Pv, *Hv, *Wv, *S, *D;  // pair buffers [T, *]
-  float *q, *g, *dv, *dq;                           // node rows
+  float *q, *g, *dv, *dq, *w0;                      // node rows; kDense: w_v0
   float *sd, *dd, *m, *l, *dot, *ad;                // per head
   float *dist, *mask;                               // [T]
   int* idx;                                         // [T]
@@ -346,11 +468,11 @@ struct BwdSmem {
 
 template <int F>
 __host__ __device__ inline int bwd_smem_floats(const Dims& d) {
-  const int T = tile_of<F>(d), H = d.H, kd = d.kd, vd = d.vd;
+  const int T = tile_of<F, true>(d), H = d.H, kd = d.kd, vd = d.vd;
   int n = d.mlp_floats() + kd * kd + vd * vd + 4;               // weights, wk2t wv2t, one
   n += T * d.De + 3 * T * kd + 3 * T * vd + 2 * T * H;          // pair buffers
   n += 2 * H * kd + 2 * H * vd + 6 * H;                         // node rows; per head
-  n += 3 * T;                                                   // dist, mask, idx
+  n += (F == kDense ? vd : 0) + 3 * T;                          // w_v0; dist, mask, idx
   return n;
 }
 
@@ -358,9 +480,9 @@ __host__ __device__ inline int bwd_smem_floats(const Dims& d) {
 // Pk/Pv, hiddens Hk/Hv, modulations Wk/Wv, the masked scores S and da in D.
 template <int F>
 __device__ void tile_forward_bwd(const Args& a, const Dims& d, const BwdSmem& sm, long long node,
-                                 long long base, int c0, int T) {
+                                 long long base, long long first, int c0, int T) {
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HV = H * vd, tid = threadIdx.x;
-  load_tile<F>(a, d, sm.w, node, c0, T, sm.dist, sm.mask, sm.idx, sm.A);
+  load_tile<F>(a, d, sm.w, node, first, c0, T, sm.dist, sm.mask, sm.idx, sm.A);
   block_gemm(sm.A, T, De, sm.w.wk1, sm.w.bk1, kd, sm.Pk, kEpiNone);
   block_gemm(sm.A, T, De, sm.w.wv1, sm.w.bv1, vd, sm.Pv, kEpiNone);
   __syncthreads();
@@ -370,11 +492,11 @@ __device__ void tile_forward_bwd(const Args& a, const Dims& d, const BwdSmem& sm
   block_gemm(sm.Hk, T, kd, sm.w.wk2, sm.w.bk2, kd, sm.Wk, kEpiNone);
   block_gemm(sm.Hv, T, vd, sm.w.wv2, sm.w.bv2, vd, sm.Wv, kEpiNone);
   __syncthreads();
-  tile_scores<F>(a, d, node, base, c0, T, sm.idx, sm.mask, sm.q, sm.Wk, sm.S);
+  tile_scores<F>(a, d, base, first, c0, T, sm.idx, sm.mask, sm.q, sm.Wk, sm.S);
   // da, one thread per (slot, head)
   for (int job = tid; job < T * H; job += blockDim.x) {
     const int p = job / H, h = job % H;
-    const float* vrow = a.v + slot_row<F>(d, node, base, sm.idx, c0, p) * HV + h * vd;
+    const float* vrow = a.v + slot_row<F>(base, first, sm.idx, c0, p) * HV + h * vd;
     float part = 0.f;
     for (int c = 0; c < vd; ++c)
       part = fmaf(sm.g[h * vd + c] * sm.Wv[p * vd + c], __ldg(vrow + c), part);
@@ -387,7 +509,7 @@ template <int F>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
-  const int TM = tile_of<F>(d);
+  const int TM = tile_of<F, true>(d);
   extern __shared__ __align__(16) float smem[];
   BwdSmem sm;
   sm.wk2t = load_mlp(a, d, smem, sm.w);  // [kd(b), kd(a)] = wk2[a, b]
@@ -412,7 +534,8 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   sm.l = sm.m + H;                       // [H] running sum
   sm.dot = sm.l + H;                     // [H] running sum of e * da, then dot
   sm.ad = sm.dot + H;                    // [H] a_self
-  sm.dist = sm.ad + H;
+  sm.w0 = sm.ad + H;                     // kDense: [vd] a dead column's w_v
+  sm.dist = sm.w0 + (F == kDense ? vd : 0);
   sm.mask = sm.dist + TM;
   sm.idx = reinterpret_cast<int*>(sm.mask + TM);
 
@@ -420,6 +543,7 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   for (int t = tid; t < kd * kd; t += blockDim.x) sm.wk2t[(t % kd) * kd + t / kd] = a.wk2[t];
   for (int t = tid; t < vd * vd; t += blockDim.x) sm.wv2t[(t % vd) * vd + t / vd] = a.wv2[t];
   if (tid == 0) sm.one[0] = 1.f;
+  if (F == kDense) dead_wv(a.bv1, a.wv2, a.bv2, vd, sm.w0);
 
   const int P = d.grad_floats();
   float acc[kAccPerThread];
@@ -428,10 +552,13 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
 
   const float scale = 1.f / sqrtf((float)kd);
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const bool one_tile = d.R <= TM;
   const long long total = (long long)d.B * d.N;
-  for (long long node = blockIdx.x; node < total; node += gridDim.x) {
-    const long long base = (node / d.N) * d.N;  // first row of this node's graph
+  for (long long i = blockIdx.x; i < total; i += gridDim.x) {
+    const long long node = F == kDense ? (long long)a.lorder[i] : i;
+    const long long gb = node / d.N, base = gb * d.N;  // the node's graph and its first row
+    long long first;
+    const int R = node_slots<F>(a, d, node, first);
+    const bool closed = F == kDense && R == 0;  // no live column: the closed form
     __syncthreads();  // the previous node's readers are done
     for (int t = tid; t < HK; t += blockDim.x) {
       sm.q[t] = a.qt[node * HK + t];
@@ -443,23 +570,46 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
     }
     for (int t = tid; t < H; t += blockDim.x) sm.sd[t] = a.ds[node * H + t];
     __syncthreads();
-    // da_self; the self slot starts the run: m = its score, l = 1, dot = da_self
+    // da_self; the self slot starts the run: m = its score, l = 1, dot =
+    // da_self. A closed-form row's dot and a_self come whole: its columns
+    // add a_dead sum_d g w_v0 vsum
     for (int h = warp; h < H; h += nwarps) {
-      float part = 0.f;
-      for (int c = lane; c < vd; c += 32) part = fmaf(sm.g[h * vd + c], sm.dv[h * vd + c], part);
+      float part = 0.f, dead = 0.f;
+      for (int c = lane; c < vd; c += 32) {
+        part = fmaf(sm.g[h * vd + c], sm.dv[h * vd + c], part);
+        if (closed)
+          dead = fmaf(sm.g[h * vd + c] * sm.w0[c], a.vsum[gb * HV + h * vd + c], dead);
+      }
       part = warp_sum(part);
+      if (closed) dead = warp_sum(dead);
       if (lane == 0) {
         sm.dd[h] = part;
-        sm.m[h] = sm.sd[h];
-        sm.l[h] = 1.f;
-        sm.dot[h] = part;
+        if (closed) {
+          const float2 aw = dead_row_weights(sm.sd[h], d.N);
+          const float dot = fmaf(aw.x, dead, aw.y * part);
+          sm.ad[h] = aw.y;
+          o.dds[node * H + h] = aw.y * (part - dot);
+          o.s_ad[node * H + h] = aw.x;
+        } else {
+          sm.m[h] = sm.sd[h];
+          sm.l[h] = 1.f;
+          sm.dot[h] = part;
+          if (F == kDense) o.s_ad[node * H + h] = 0.f;
+        }
       }
+    }
+    if (closed) {
+      __syncthreads();
+      for (int c = tid; c < HV; c += blockDim.x) o.ddv[node * HV + c] = sm.ad[c / vd] * sm.g[c];
+      for (int c = tid; c < HK; c += blockDim.x) o.dqt[node * HK + c] = 0.f;
+      continue;
     }
 
     // sweep 1: the softmax's max, sum and sum of e * da, online
-    for (int c0 = 0; c0 < d.R; c0 += TM) {
-      const int T = min(TM, d.R - c0);
-      tile_forward_bwd<F>(a, d, sm, node, base, c0, T);
+    const bool one_tile = R <= TM;
+    for (int c0 = 0; c0 < R; c0 += TM) {
+      const int T = min(TM, R - c0);
+      tile_forward_bwd<F>(a, d, sm, node, base, first, c0, T);
       online_softmax(sm.S, sm.D, T, H, sm.m, sm.l, sm.dot, nullptr);
     }
     __syncthreads();
@@ -474,9 +624,9 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
     for (int c = tid; c < HV; c += blockDim.x) o.ddv[node * HV + c] = sm.ad[c / vd] * sm.g[c];
 
     // sweep 2: every slot's gradient
-    for (int c0 = 0; c0 < d.R; c0 += TM) {
-      const int T = min(TM, d.R - c0);
-      if (!one_tile) tile_forward_bwd<F>(a, d, sm, node, base, c0, T);
+    for (int c0 = 0; c0 < R; c0 += TM) {
+      const int T = min(TM, R - c0);
+      if (!one_tile) tile_forward_bwd<F>(a, d, sm, node, base, first, c0, T);
       // softmax weights and dsc, one thread per (slot, head)
       for (int job = tid; job < T * H; job += blockDim.x) {
         const int p = job / H, h = job % H;
@@ -486,7 +636,7 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
       }
       __syncthreads();
       // what the dk/dv stage needs per slot, and this tile's share of dqt
-      const long long slot0 = node * d.R + c0;
+      const long long slot0 = first + c0;
       for (int t = tid; t < T * kd; t += blockDim.x) o.s_wk[slot0 * kd + t] = sm.Wk[t];
       for (int t = tid; t < T * vd; t += blockDim.x) o.s_wv[slot0 * vd + t] = sm.Wv[t];
       for (int t = tid; t < T * H; t += blockDim.x) {
@@ -498,14 +648,14 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
         float part = 0.f;
         for (int p = 0; p < T; ++p)
           part = fmaf(sm.D[p * H + h] * sm.Wk[p * kd + dc],
-                      __ldg(a.k + slot_row<F>(d, node, base, sm.idx, c0, p) * HK + c), part);
+                      __ldg(a.k + slot_row<F>(base, first, sm.idx, c0, p) * HK + c), part);
         sm.dq[c] += part;
       }
       __syncthreads();
       // dw_k into Wk and dw_v into Wv, one thread per (slot, channel)
       for (int t = tid; t < T * kd; t += blockDim.x) {
         const int p = t / kd, dc = t % kd;
-        const float* krow = a.k + slot_row<F>(d, node, base, sm.idx, c0, p) * HK + dc;
+        const float* krow = a.k + slot_row<F>(base, first, sm.idx, c0, p) * HK + dc;
         float part = 0.f;
         for (int h = 0; h < H; ++h)
           part = fmaf(sm.D[p * H + h] * sm.q[h * kd + dc], __ldg(krow + h * kd), part);
@@ -513,7 +663,7 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
       }
       for (int t = tid; t < T * vd; t += blockDim.x) {
         const int p = t / vd, dc = t % vd;
-        const float* vrow = a.v + slot_row<F>(d, node, base, sm.idx, c0, p) * HV + dc;
+        const float* vrow = a.v + slot_row<F>(base, first, sm.idx, c0, p) * HV + dc;
         float part = 0.f;
         for (int h = 0; h < H; ++h)
           part = fmaf(sm.S[p * H + h] * sm.g[h * vd + dc], __ldg(vrow + h * vd), part);
@@ -570,6 +720,58 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   }
 }
 
+// dk and dv of destination row j: the slots that read row j, in the CSR
+// order of the transpose (offsets [B*N + 1], slots: flat slot indices). A
+// slot's source node is slot / R for the lists, pair_rows[slot] for the
+// dense form, which also adds gw[b] (w_v0 * G of j's graph b: the
+// closed-form rows' share) to dv.
+template <int F>
+__global__ void __launch_bounds__(kDkdvThreads)
+csr_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
+                const float* __restrict__ s_wk, const float* __restrict__ s_wv,
+                const float* __restrict__ s_a, const float* __restrict__ s_dsc,
+                const int* __restrict__ offsets, const int* __restrict__ slots,
+                const int* __restrict__ pair_rows, const float* __restrict__ gw,
+                float* __restrict__ dk, float* __restrict__ dv, Dims dm) {
+  const int H = dm.H, kd = dm.kd, vd = dm.vd;
+  const int HK = H * kd, HV = H * vd;
+  const long long rows = (long long)dm.B * dm.N;
+  for (long long j = blockIdx.x; j < rows; j += gridDim.x) {
+    const int e0 = offsets[j], e1 = offsets[j + 1];
+    for (int c = threadIdx.x; c < HK + HV; c += blockDim.x) {
+      float acc = 0.f;
+      if (c < HK) {
+        const int h = c / kd, d = c % kd;
+        for (int e = e0; e < e1; ++e) {
+          const long long s = slots[e];
+          const long long src = F == kDense ? (long long)pair_rows[s] : s / dm.R;
+          acc = fmaf(s_dsc[s * H + h] * s_wk[s * kd + d], __ldg(qt + src * HK + c), acc);
+        }
+        dk[j * HK + c] = acc;
+      } else {
+        const int cv = c - HK, h = cv / vd, d = cv % vd;
+        for (int e = e0; e < e1; ++e) {
+          const long long s = slots[e];
+          const long long src = F == kDense ? (long long)pair_rows[s] : s / dm.R;
+          acc = fmaf(s_a[s * H + h] * s_wv[s * vd + d], __ldg(gin + src * HV + cv), acc);
+        }
+        if (F == kDense) acc += gw[(j / dm.N) * HV + cv];
+        dv[j * HV + cv] = acc;
+      }
+    }
+  }
+}
+
+template <int F>
+cudaError_t launch_dkdv(const Args& a, const Dims& dm, const float* g, const Grads& o,
+                        const int* offsets, const int* slots, const int* pair_rows,
+                        const float* gw, float* dk, float* dv, cudaStream_t st) {
+  const int grid = persistent_grid(csr_dkdv_kernel<F>, kDkdvThreads, 0, (long long)dm.B * dm.N);
+  csr_dkdv_kernel<F><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, o.s_wk, o.s_wv, o.s_a, o.s_dsc,
+                                                    offsets, slots, pair_rows, gw, dk, dv, dm);
+  return cudaGetLastError();
+}
+
 // Blocks of the backward pair kernel (one resident wave), or -1 for a shape
 // it does not take (weight gradients over the sums its threads keep, one
 // tile's pair tensors over shared memory); the caller sizes the [blocks, P]
@@ -580,6 +782,26 @@ int bwd_blocks(const Dims& d) {
   const size_t smem = (size_t)bwd_smem_floats<F>(d) * sizeof(float);
   if (allow_smem(attn_bwd_pair_kernel<F>, smem) != cudaSuccess) return -1;
   return persistent_grid(attn_bwd_pair_kernel<F>, kThreads, smem, (long long)d.B * d.N);
+}
+
+// Resident blocks per SM of the form's forward (kBwd false) or backward pair
+// kernel at these shapes, and its dynamic shared memory in *smem_bytes; -1
+// when the shared memory is over the card's limit.
+template <int F, bool kBwd>
+int residency(const Dims& d, int* smem_bytes, int* tile) {
+  *tile = tile_of<F, kBwd>(d);
+  const size_t smem =
+      (size_t)(kBwd ? bwd_smem_floats<F>(d) : fwd_smem_floats<F>(d)) * sizeof(float);
+  *smem_bytes = (int)smem;
+  int per_sm = 0;
+  if constexpr (kBwd) {
+    if (allow_smem(attn_bwd_pair_kernel<F>, smem) != cudaSuccess) return -1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_bwd_pair_kernel<F>, kThreads, smem);
+  } else {
+    if (allow_smem(attn_fwd_kernel<F>, smem) != cudaSuccess) return -1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_fwd_kernel<F>, kThreads, smem);
+  }
+  return per_sm;
 }
 
 // Launches the pair kernel on `blocks` blocks; the caller then runs its

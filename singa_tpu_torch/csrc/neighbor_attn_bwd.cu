@@ -21,56 +21,22 @@
 //   1. encoder_attn.cuh's pair kernel in its kList / kGathered form: a
 //      node's K slots are one tile, so its second sweep reuses the first's
 //      buffers.
-//   2. scatter kernel, the same for K1b and K7b (the TPU's hybrid backward
-//      kept its one-hot transpose matmul): dk and dv are the one-hot
-//      transpose of the slots, over every slot, masked ones included (a
-//      padded node's softmax is uniform and sends dv to the nodes its masked
-//      slots name). The adjacency is not symmetric after the top-K cut, so
-//      the transpose is built from nbr itself: the flat slot keys sorted
-//      stably into CSR order once per graph (build_neighbor_graph, beside
-//      nbr), and one block per destination row sums its incoming slots in
-//      that order, reading the source node's qt and g rows by index.
+//   2. encoder_attn.cuh's csr_dkdv_kernel, the same for K1b, K7b and K8b
+//      (the TPU's hybrid backward kept its one-hot transpose matmul): dk and
+//      dv are the one-hot transpose of the slots, over every slot, masked
+//      ones included (a padded node's softmax is uniform and sends dv to the
+//      nodes its masked slots name). The adjacency is not symmetric after
+//      the top-K cut, so the transpose is built from nbr itself: the flat
+//      slot keys sorted stably into CSR order once per graph
+//      (build_neighbor_graph, beside nbr), and one block per destination
+//      row sums its incoming slots in that order, reading the source node's
+//      qt and g rows by index.
 //   3. sum_rows_kernel: the blocks' weight-gradient rows, in block order.
 #include "encoder_attn.cuh"
 
 namespace ea = singa::encoder_attn;
 
 namespace {
-
-constexpr int kScatterThreads = 128;
-
-// dk and dv of destination row j: the slots whose nbr names j, in CSR order.
-__global__ void __launch_bounds__(kScatterThreads)
-neighbor_attn_bwd_scatter_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
-                                 const float* __restrict__ s_wk, const float* __restrict__ s_wv,
-                                 const float* __restrict__ s_a, const float* __restrict__ s_dsc,
-                                 const int* __restrict__ offsets, const int* __restrict__ slots,
-                                 float* __restrict__ dk, float* __restrict__ dv, long long rows,
-                                 ea::Dims dm) {
-  const int K = dm.R, H = dm.H, kd = dm.kd, vd = dm.vd;
-  const int HK = H * kd, HV = H * vd;
-  for (long long j = blockIdx.x; j < rows; j += gridDim.x) {
-    const int e0 = offsets[j], e1 = offsets[j + 1];
-    for (int c = threadIdx.x; c < HK + HV; c += blockDim.x) {
-      float acc = 0.f;
-      if (c < HK) {
-        const int h = c / kd, d = c % kd;
-        for (int e = e0; e < e1; ++e) {
-          const long long s = slots[e];  // flat (row, slot) of the source
-          acc = fmaf(s_dsc[s * H + h] * s_wk[s * kd + d], __ldg(qt + (s / K) * HK + c), acc);
-        }
-        dk[j * HK + c] = acc;
-      } else {
-        const int cv = c - HK, h = cv / vd, d = cv % vd;
-        for (int e = e0; e < e1; ++e) {
-          const long long s = slots[e];
-          acc = fmaf(s_a[s * H + h] * s_wv[s * vd + d], __ldg(gin + (s / K) * HV + cv), acc);
-        }
-        dv[j * HV + cv] = acc;
-      }
-    }
-  }
-}
 
 template <int F>
 int launch(const ea::Args& a, const ea::Dims& dm, const float* g, const int* offsets,
@@ -81,12 +47,7 @@ int launch(const ea::Args& a, const ea::Dims& dm, const float* g, const int* off
   const ea::Grads o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial};
   cudaError_t err = ea::launch_bwd_pair<F>(a, dm, o, blocks, st);
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)dm.B * dm.N;
-  const int sgrid =
-      singa::persistent_grid(neighbor_attn_bwd_scatter_kernel, kScatterThreads, 0, rows);
-  neighbor_attn_bwd_scatter_kernel<<<sgrid, kScatterThreads, 0, st>>>(
-      a.qt, g, s_wk, s_wv, s_a, s_dsc, offsets, slots, dk, dv, rows, dm);
-  err = cudaGetLastError();
+  err = ea::launch_dkdv<F>(a, dm, g, o, offsets, slots, nullptr, nullptr, dk, dv, st);
   if (err != cudaSuccess) return (int)err;
   const int P = dm.grad_floats();
   singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks);

@@ -31,7 +31,12 @@ from singa_tpu_torch.config import EncoderConfig
 from singa_tpu_torch.equivariant.layers import Linear, layer_norm, uniform_
 from singa_tpu_torch.equivariant.so3 import as_const
 from singa_tpu_torch.models.cpromg import EdgeMLP, PositionwiseFFN, shifted_softplus
-from singa_tpu_torch.ops.cuda.dense_edge_attn import BIG, dense_edge_attn
+from singa_tpu_torch.ops.cuda.dense_edge_attn import (
+    BIG,
+    DenseLists,
+    dense_edge_attn,
+    live_columns,
+)
 from singa_tpu_torch.ops.cuda.neighbor_attn import (
     neighbor_attn,
     neighbor_attn_hybrid,
@@ -51,6 +56,9 @@ class NeighborGraph(NamedTuple):
     # the dense form's pair distances (dense_edge_attn): the distance where j
     # is adjacent to i, BIG elsewhere (the diagonal and padded nodes included)
     adj_dist: torch.Tensor | None = None  # [B, N, N] f32
+    # its live columns per row and their transpose (live_columns), which K8
+    # and K8b walk in every layer
+    dense_lists: DenseLists | None = None
 
 
 def _switch(name: str) -> bool:
@@ -85,7 +93,8 @@ def build_neighbor_graph(
     an inclusive threshold, and the lowest indices first among the kept
     neighbours (a stable descending sort of the 0/1 adjacency, as
     ``jax.lax.top_k`` orders ties). ``with_adj_dist``: also the dense
-    form's ``adj_dist``, from the adjacency before the top-K cut."""
+    form's ``adj_dist``, from the adjacency before the top-K cut, and its
+    live columns (``live_columns``)."""
     B, N, _ = pos.shape
     K = min(k_in or 2 * k, N)
     n2 = (pos * pos).sum(dim=-1)
@@ -107,8 +116,10 @@ def build_neighbor_graph(
     deg = -(neg_smear * nbr_mask[..., None].to(neg_smear.dtype)).sum(dim=2)
     rev_offsets, rev_slots = transpose_slots(nbr)
     adj_dist = torch.where(adj, dist_full, BIG) if with_adj_dist else None
+    lists = live_columns(adj_dist) if with_adj_dist else None
     return NeighborGraph(nbr=nbr, nbr_mask=nbr_mask, dist=dist, deg_attr=deg, node_mask=mask,
-                         rev_offsets=rev_offsets, rev_slots=rev_slots, adj_dist=adj_dist)
+                         rev_offsets=rev_offsets, rev_slots=rev_slots, adj_dist=adj_dist,
+                         dense_lists=lists)
 
 
 class NeighborGraphMHA(nn.Module):
@@ -183,7 +194,7 @@ class NeighborGraphMHA(nn.Module):
             -0.5 / (width * width),
         )
         if g.adj_dist is not None:
-            agg = dense_edge_attn(*nodes, g.adj_dist, *diag, *weights)
+            agg = dense_edge_attn(*nodes, g.adj_dist, *diag, *weights, g.dense_lists)
         else:
             attn = neighbor_attn_hybrid if _hybrid_attn() else neighbor_attn
             agg = attn(*nodes, g.nbr, g.nbr_mask, g.dist, *diag, *weights,

@@ -12,13 +12,17 @@ and padded nodes included). Scores of pairs at ``BIG / 2`` or beyond are
 centers get no gradient. ``dense_edge_attn`` goes through one
 ``torch.autograd.Function``: plain versions for CPU tensors, the kernels
 (``csrc/dense_edge_attn.cu``, ``csrc/dense_edge_attn_bwd.cu``: the form
-``kDense`` of ``csrc/encoder_attn.cuh``, K1's kernels walking the row in
-column tiles) for CUDA tensors. The plain versions are K7's
-(``neighbor_attn_hybrid_plain``) with every column a slot.
+``kDense`` of ``csrc/encoder_attn.cuh``) for CUDA tensors. The plain
+versions are the definition, K7's (``neighbor_attn_hybrid_plain``) with
+every column a slot. The kernels walk each row's live columns only
+(``live_columns``, built once per graph by ``build_neighbor_graph``) and
+take rows with no live column in closed form; dk/dv gather over the CSR
+transpose of the live pairs.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +32,40 @@ from singa_tpu_torch.ops.cuda.neighbor_attn import check_node_args, neighbor_att
 BIG = 1e9  # adj_dist's value for a pair that is not adjacent
 launches = 0  # forward kernel launches through ``dense_edge_attn``
 launches_bwd = 0  # backward kernel launches through ``dense_edge_attn``
+
+
+class DenseLists(NamedTuple):
+    """Each row's live columns of ``adj_dist`` [B, N, N] (E live pairs in
+    all), as CSR lists and their transpose, int32."""
+
+    row_offsets: torch.Tensor  # [B*N + 1]: row r's pairs are row_offsets[r]:row_offsets[r+1]
+    cols: torch.Tensor  # [E] graph-local column of each pair, ascending within a row
+    pair_rows: torch.Tensor  # [E] flat row b*N + i of each pair
+    col_offsets: torch.Tensor  # [B*N + 1]: the pairs whose column is row j, ...
+    col_pairs: torch.Tensor  # [E] ... at col_pairs[col_offsets[j]:col_offsets[j+1]], ascending
+    row_order: torch.Tensor  # [B*N] rows by descending live count (stable), as the kernels go
+
+
+def live_columns(adj_dist: torch.Tensor) -> DenseLists:
+    """The live pairs (adj_dist < BIG / 2) of every row, in row-major order,
+    their CSR transpose (a stable sort of each pair's column as a flat row,
+    as ``transpose_slots`` sorts nbr), and the order in which the kernels'
+    blocks take the rows (a row's work grows with its live count)."""
+    B, N, _ = adj_dist.shape
+    live = (adj_dist < 0.5 * BIG).reshape(B * N, N)
+    rows, cols = live.nonzero(as_tuple=True)
+    keys = rows.div(N, rounding_mode="floor") * N + cols  # the column's flat row
+    offsets = lambda counts: torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(
+        torch.int32)
+    counts = live.sum(1)
+    return DenseLists(
+        row_offsets=offsets(counts),
+        cols=cols.to(torch.int32),
+        pair_rows=rows.to(torch.int32),
+        col_offsets=offsets(torch.bincount(keys, minlength=B * N)),
+        col_pairs=torch.sort(keys, stable=True).indices.to(torch.int32),
+        row_order=torch.sort(counts, descending=True, stable=True).indices.to(torch.int32),
+    )
 
 
 def _graph_rows(qt, k, v, adj, diag_scores, diag_value):
@@ -88,7 +126,7 @@ def dense_edge_attn_bwd_plain(*args):
 def _fn():
     fn = build.load("dense_edge_attn").dense_edge_attn_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -102,7 +140,7 @@ def _bwd_fns():
     blocks.restype = ctypes.c_int
     fn = lib.dense_edge_attn_bwd_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p] * 12
+        [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p] * 21
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -110,9 +148,9 @@ def _bwd_fns():
 
 
 def _check_args(qt, k, v, adj_dist, diag_scores, diag_value,
-                centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2):
+                centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, lists):
     """Device, dtype, shape and contiguity of every kernel argument; returns
-    (B, N, H, kd, vd, De)."""
+    (B, N, H, kd, vd, De, lists as ``DenseLists``)."""
     B, N, HK = qt.shape
     H = diag_scores.shape[2]
     kd = HK // H
@@ -126,35 +164,44 @@ def _check_args(qt, k, v, adj_dist, diag_scores, diag_value,
     build.require(adj_dist, "adj_dist", (B, N, N), f32, dev)
     check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
                     vd)
-    return B, N, H, kd, vd, De
+    lists = DenseLists(*lists)
+    E = lists.cols.shape[0]
+    for name, shape in (("row_offsets", B * N + 1), ("cols", E), ("pair_rows", E),
+                        ("col_offsets", B * N + 1), ("col_pairs", E), ("row_order", B * N)):
+        build.require(getattr(lists, name), name, (shape,), torch.int32, dev)
+    return B, N, H, kd, vd, De, lists
 
 
 def dense_edge_attn_cuda(
     qt, k, v, adj_dist, diag_scores, diag_value,
-    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float, *, lists,
 ) -> torch.Tensor:
-    """The K8 kernel; arguments and result as ``dense_edge_attn_plain``."""
+    """The K8 kernel; arguments and result as ``dense_edge_attn_plain``,
+    plus ``lists = live_columns(adj_dist)``."""
     global launches
     args = (qt, k, v, adj_dist, diag_scores, diag_value,
             centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
-    B, N, H, kd, vd, De = _check_args(*args)
+    B, N, H, kd, vd, De, lists = _check_args(*args, lists)
     out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
     if B * N == 0:
         return out
-    status = _fn()(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
-                   B, N, H, kd, vd, De, build.stream_ptr(qt))
+    vsum = torch.empty((B, H * vd), dtype=torch.float32, device=qt.device)
+    status = _fn()(*(t.data_ptr() for t in args), float(coeff), lists.row_offsets.data_ptr(),
+                   lists.cols.data_ptr(), lists.row_order.data_ptr(), vsum.data_ptr(),
+                   out.data_ptr(), B, N, H, kd, vd, De, build.stream_ptr(qt))
     build.check(status, "dense_edge_attn")
     launches += 1
     return out
 
 
-def dense_edge_attn_bwd_cuda(*args):
-    """The K8b kernels; arguments and result as ``dense_edge_attn_bwd_plain``.
-    Scratch: the four numbers per (row, column) pair that the column sums
-    read, [B*N*N, kd + vd + 2H] floats."""
+def dense_edge_attn_bwd_cuda(*args, lists):
+    """The K8b kernels; arguments and result as ``dense_edge_attn_bwd_plain``,
+    plus ``lists = live_columns(adj_dist)``. Scratch: the four numbers per
+    live pair that the dk/dv gather reads, [E, kd + vd + 2H] floats, and
+    per graph v's column sums and the closed-form rows' cotangent sum."""
     global launches_bwd
     *inputs, coeff, g = args
-    B, N, H, kd, vd, De = _check_args(*inputs)
+    B, N, H, kd, vd, De, lists = _check_args(*inputs, lists)
     qt = inputs[0]
     dev = qt.device
     f32 = torch.float32
@@ -170,12 +217,14 @@ def dense_edge_attn_bwd_cuda(*args):
         if blocks < 1:
             raise ValueError(f"dense_edge_attn backward kernel: shapes {(H, kd, vd, De)} not "
                              "supported or one tile's pair tensors exceed shared memory")
-        pairs = B * N * N
-        scratch = (empty(pairs, kd), empty(pairs, vd), empty(pairs, H), empty(pairs, H),
-                   empty(blocks, sum(sizes)))
+        E = lists.cols.shape[0]
+        scratch = (empty(E, kd), empty(E, vd), empty(E, H), empty(E, H), empty(B * N, H),
+                   empty(B, H * vd), empty(B, H * vd), empty(blocks + 1, sum(sizes)))
         status = fn(
-            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(), dqt.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), dds.data_ptr(), ddv.data_ptr(),
+            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(),
+            lists.row_offsets.data_ptr(), lists.cols.data_ptr(), lists.pair_rows.data_ptr(),
+            lists.col_offsets.data_ptr(), lists.col_pairs.data_ptr(), lists.row_order.data_ptr(),
+            dqt.data_ptr(), dk.data_ptr(), dv.data_ptr(), dds.data_ptr(), ddv.data_ptr(),
             *(t.data_ptr() for t in scratch), grads.data_ptr(),
             B, N, H, kd, vd, De, blocks, build.stream_ptr(qt),
         )
@@ -186,38 +235,64 @@ def dense_edge_attn_bwd_cuda(*args):
     return (dqt, dk, dv, dds, ddv, *wgrads)
 
 
+def residency(N: int, H: int, kd: int, vd: int, De: int) -> dict:
+    """K8's kernel and K8b's pair kernel at these widths: live columns per
+    tile, resident blocks per SM and dynamic shared memory per block (-1
+    blocks: over the card's limit). For reports; launches nothing."""
+    out = {}
+    for key, lib in (("fwd", "dense_edge_attn"), ("bwd", "dense_edge_attn_bwd")):
+        fn = getattr(build.load(lib), f"{lib}_residency")
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        smem, tile = ctypes.c_int(0), ctypes.c_int(0)
+        per_sm = fn(N, H, kd, vd, De, ctypes.byref(smem), ctypes.byref(tile))
+        out[key] = {"tile": tile.value, "blocks_per_sm": per_sm, "smem_bytes": smem.value}
+    return out
+
+
 class DenseEdgeAttn(torch.autograd.Function):
     """K8 forward and K8b backward. ``ctx`` keeps the inputs only, as
-    ``_dfwd`` does; the backward recomputes every pair tensor."""
+    ``_dfwd`` does; the backward recomputes every pair tensor. The last six
+    arguments are the live lists (None on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, *args):
-        *inputs, coeff = args
+        *inputs, coeff = args[:-6]
+        lists = args[-6:]
         ctx.coeff = coeff
-        ctx.save_for_backward(*inputs)
-        if inputs[0].device.type == "cpu":
+        ctx.on_cpu = inputs[0].device.type == "cpu"
+        ctx.save_for_backward(*inputs, *(() if ctx.on_cpu else lists))
+        if ctx.on_cpu:
             return dense_edge_attn_plain(*inputs, coeff)
-        return dense_edge_attn_cuda(*inputs, coeff)
+        return dense_edge_attn_cuda(*inputs, coeff, lists=lists)
 
     @staticmethod
     def backward(ctx, g):
-        inputs = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        inputs, lists = saved[:15], saved[15:]
         args = (*inputs, ctx.coeff, g.contiguous())
-        if inputs[0].device.type == "cpu":
+        if ctx.on_cpu:
             grads = dense_edge_attn_bwd_plain(*args)
         else:
-            grads = dense_edge_attn_bwd_cuda(*args)
+            grads = dense_edge_attn_bwd_cuda(*args, lists=lists)
         dqt, dk, dv, dds, ddv, *wgrads = grads
-        # adj_dist, centers and coeff get none, as in the JAX _dbwd
-        return (dqt, dk, dv, None, dds, ddv, None, *wgrads, None)
+        # adj_dist, centers, coeff and the lists get none, as in the JAX _dbwd
+        return (dqt, dk, dv, None, dds, ddv, None, *wgrads, None, *(None,) * 6)
 
 
 def dense_edge_attn(
     qt, k, v, adj_dist, diag_scores, diag_value,
     centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+    lists: DenseLists | None = None,
 ) -> torch.Tensor:
-    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    """Plain versions for CPU tensors, the CUDA kernels for CUDA tensors.
+    ``lists``: ``live_columns(adj_dist)``, built here when not given (the
+    encoder builds them once per graph, beside adj_dist)."""
     if qt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dense_edge_attn runs on cpu or cuda, not {qt.device}")
+    if qt.device.type == "cpu":
+        lists = (None,) * 6
+    elif lists is None:
+        lists = live_columns(adj_dist)
     return DenseEdgeAttn.apply(qt, k, v, adj_dist, diag_scores, diag_value,
-                               centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
+                               centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, *lists)

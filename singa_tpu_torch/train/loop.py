@@ -73,7 +73,8 @@ class Trainer:
             raise ValueError(
                 f"compute_dtype {tc.compute_dtype!r} / param_dtype {tc.param_dtype!r}: the "
                 "port trains in float32 only; bfloat16 training needs bf16 versions of the "
-                "six kernels (ROADMAP, Queue 1: bf16 training)"
+                "fourteen kernels the training paths run, K1-K4 and K6-K8 and their "
+                "backwards (ROADMAP, Queue 1: bf16 training)"
             )
         self.device = torch.device(device)
         if self.device.type == "cuda":

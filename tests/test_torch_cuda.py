@@ -464,14 +464,15 @@ def test_autograd_reaches_conv_parameters_through_k6(dev):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=1e-4, msg=name)
 
 
-def _hub_graph(dev, B, N, knn, ring, seed):
+def _hub_graph(dev, B, N, knn, ring, seed, pad=None):
     """The encoder attention's inputs on the card (H 4, kd 32, vd 64, De 64)
     from build_neighbor_graph(with_adj_dist=True) on points where node 0 of
     graph 0 is a hub: ``ring`` points on a sphere around it each count it
     among their ``knn`` nearest, so its in-degree exceeds K = 2 knn (an
     overflow row, cut to K in the lists, whole in adj_dist). The last graph
-    has padded nodes (self score -1e9, as the model sets it). Returns (K7's
-    arguments, K8's arguments, the cotangent, nbr)."""
+    has ``pad`` padded nodes (self score -1e9, as the model sets it; by
+    default 5 where N > 8). Returns (K7's arguments, K8's arguments, the
+    cotangent, nbr)."""
     from singa_tpu_torch.models.neighbor_graph import build_neighbor_graph
     from singa_tpu_torch.ops.cuda.neighbor_attn import gather_rows
 
@@ -487,8 +488,9 @@ def _hub_graph(dev, B, N, knn, ring, seed):
         pos[0, 1:n + 1] = 2.0 * np.stack([np.sin(polar) * np.cos(azim), np.sin(polar) * np.sin(azim),
                                           np.cos(polar)], -1)
     mask = np.ones((B, N), bool)
-    if N > 8:
-        mask[-1, -5:] = False
+    pad = (5 if N > 8 else 0) if pad is None else pad
+    if pad:
+        mask[-1, -pad:] = False
     g = build_neighbor_graph(_t(pos.astype(np.float32), dev), _t(mask, dev), knn, 15.0, De,
                              with_adj_dist=True)
     ds = np.where(mask[..., None], f(B, N, H), np.float32(-1e9)).astype(np.float32)
@@ -531,18 +533,32 @@ def test_neighbor_attn_hybrid_kernels_match_plain(dev, B, N, knn, ring):
     _check_grads(grads, k7.neighbor_attn_hybrid_bwd_plain(*bwd_args), BWD_NAMES)
 
 
+# K8's further cases (B, N, knn, ring, padded nodes of the last graph): one
+# real node left (an isolated real row: live self, no live column); a graph
+# whose rows are all padded
+DENSE_CASES = [(*c, None) for c in ENCODER_FORM_CASES] + [(2, 12, 3, 0, 11), (3, 12, 3, 0, 12)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,knn,ring", ENCODER_FORM_CASES)
-def test_dense_edge_attn_kernels_match_plain(dev, B, N, knn, ring):
-    """K8 and K8b against their plain versions on adj_dist of a graph with
-    an overflow row (all its columns live, beyond K) and padded rows (a
-    uniform softmax over all N + 1 slots) under a random cotangent."""
+@pytest.mark.parametrize("B,N,knn,ring,pad", DENSE_CASES)
+def test_dense_edge_attn_kernels_match_plain(dev, B, N, knn, ring, pad):
+    """K8 and K8b, over the live lists, against their plain versions (every
+    column evaluated) on adj_dist of a graph with an overflow row (all its
+    columns live, beyond K; at N 384 its live count exceeds a tile of K8 and
+    of K8b), padded rows (a uniform softmax over all N + 1 slots, in closed
+    form) and isolated or all-padded graphs, under a random cotangent. The
+    public entry builds the lists itself; exactly one launch each."""
     from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
 
-    _, args, g, _ = _hub_graph(dev, B, N, knn, ring, 109 + N)
+    _, args, g, _ = _hub_graph(dev, B, N, knn, ring, 109 + N, pad)
+    lists = k8.live_columns(args[3])
+    if N == 384:
+        counts = lists.row_offsets[1:] - lists.row_offsets[:-1]
+        tiles = [r["tile"] for r in k8.residency(N, 4, 32, 64, 64).values()]
+        assert int(counts.max()) > max(tiles)
     n, nb = k8.launches, k8.launches_bwd
-    got = k8.dense_edge_attn_cuda(*args)
-    grads = k8.dense_edge_attn_bwd_cuda(*args, g)
+    got = k8.dense_edge_attn(*args)
+    grads = k8.dense_edge_attn_bwd_cuda(*args, g, lists=lists)
     assert (k8.launches, k8.launches_bwd) == (n + 1, nb + 1)
     _check(got, k8.dense_edge_attn_plain(*args))
     _check_grads(grads, k8.dense_edge_attn_bwd_plain(*args, g), BWD_NAMES)
@@ -574,10 +590,12 @@ def test_encoder_attn_forms_refuse_shapes_they_do_not_take(dev):
     dense = lambda a: [a[0], a[0].clone(), a[7].clone(), f(1, 2, 2), *a[6:], -0.2]
     with pytest.raises(ValueError, match="does not take these shapes"):
         k7.neighbor_attn_hybrid_cuda(*k7_args)
+    wide_v = dense(attn(2, 32, 256, 256, 4))
     with pytest.raises(ValueError, match="does not take these shapes"):
-        k8.dense_edge_attn_cuda(*dense(attn(2, 32, 256, 256, 4)))
+        k8.dense_edge_attn_cuda(*wide_v, lists=k8.live_columns(wide_v[3]))
     off, sl = k7.transpose_slots(wide[3])
     with pytest.raises(ValueError, match="not supported"):
         k7.neighbor_attn_hybrid_bwd_cuda(*wide_bwd, offsets=off, slots=sl)
     with pytest.raises(ValueError, match="not supported"):
-        k8.dense_edge_attn_bwd_cuda(*dense(wide), f(1, 2, 2 * 128))
+        k8.dense_edge_attn_bwd_cuda(*dense(wide), f(1, 2, 2 * 128),
+                                    lists=k8.live_columns(dense(wide)[3]))

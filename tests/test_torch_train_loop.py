@@ -176,8 +176,10 @@ def test_trainer_refuses_other_precisions():
 
     _, cfg = _tiny()
     bf16 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
-    with pytest.raises(ValueError, match="float32 only"):
+    with pytest.raises(ValueError, match="float32 only") as refused:
         Trainer(bf16, logdir="unused", device="cpu")
+    # the kernels bf16 training would need: every kernel the training paths run
+    assert "fourteen kernels" in str(refused.value) and "K1-K4 and K6-K8" in str(refused.value)
 
 
 def test_trainer_fit_writes_metrics_and_a_checkpoint_that_restores(tmp_path):
