@@ -14,7 +14,8 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
   1. device   name and power limit (nvidia-smi), torch and CUDA versions
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
-              and ptxas's report (registers, spills) of K8's and K8b's
+              and ptxas's report (registers, spills) of K8's, K8b's and
+              K4b's
   3. kernel   for K1/K2/K3: the inputs the generation path hands the kernel
               (8 pockets, default Config), the kernel against its plain
               PyTorch version on the card (max error vs the stated
@@ -111,8 +112,15 @@ microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
 call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
 the kernel's alone: the torch.gather calls that feed it are path time, in
-the profiles (main_hybrid's encode_profile, train_profile_hybrid). Any failed check raises. TF32 is off for matmuls and cuDNN,
-so every product runs in full float32.
+the profiles (main_hybrid's encode_profile, train_profile_hybrid). K4b's
+entry also has ``bound_tc_ms`` (the larger of its four grid transforms,
+which run as split TF32, at three TF32 products each over 495 TFLOP/s and
+the rest over 67 TFLOP/s, since the two units issue together; or its
+bytes over 3.35 TB/s if that is larger), its ptxas
+report and its residency (blocks per SM, threads, dynamic shared memory
+per block). Any failed check raises. TF32 is off for matmuls and cuDNN,
+so every PyTorch product runs in full float32 (K4b alone forms its grid
+transforms as split TF32, csrc/mma_tf32.cuh, to float32 round-off).
 """
 from __future__ import annotations
 
@@ -137,6 +145,7 @@ S2_CONFIG = os.path.join("configs", "train_corpus.yml")  # ffn_activation: s2
 T_START = time.perf_counter()
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 TOL = {"atol": 1e-4, "rtol": 1e-4}  # kernel vs plain: reordered float32 sums
 CPU_TOL = {"atol": 2e-3, "rtol": 2e-3}  # whole encoder, card vs CPU
 PROFILE_STEPS = 40  # decode steps traced by the profile phase
@@ -460,6 +469,24 @@ def k4b_cost(args, outs):
     return nbytes(x, w1, b1, wg, bg, w2, tg, fg, dy, *outs), flops
 
 
+def k4b_split_flops(args) -> float:
+    """The operations of K4b that run as split TF32 on the tensor cores:
+    its four grid transforms (the rest stays float32)."""
+    x, w1, _, _, _, _, tg, _, _, _ = args
+    N, I, _ = x.shape
+    return 2.0 * N * 4 * tg.shape[0] * I * w1.shape[2]
+
+
+def bound_tc_ms(nbytes: float, flops: float, split_flops: float) -> float:
+    """The least time of a kernel whose ``split_flops`` run as three TF32
+    products each at the tensor cores' rate and the rest of ``flops`` at
+    the float32 rate: the tensor cores and the float32 units issue
+    together, so the larger of the two, or its bytes at the memory rate if
+    larger still."""
+    t_ops = max(3 * split_flops / TF32_FLOP_PER_S, (flops - split_flops) / F32_FLOP_PER_S)
+    return max(t_ops, nbytes / MEM_BYTES_PER_S) * 1e3
+
+
 def k5_cost(args, out):
     x, tg, fg = args
     N, I, C = x.shape
@@ -557,6 +584,7 @@ class Kernel(NamedTuple):
     replaces: str
     cost: object
     outs: tuple | None  # the backward's output names; None: a forward
+    split_flops: object = None  # (args) -> its operations that run as split TF32
 
 
 K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS = [
@@ -581,7 +609,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/so3_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:321", k4_cost, None),
     Kernel("so3_ffn_bwd", "so3_ffn", "so3_ffn_bwd", "launches_s2_bwd",
            "singa_tpu_torch/csrc/so3_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:351",
-           k4b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")),
+           k4b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"), k4b_split_flops),
     Kernel("s2_silu", "s2_act", "s2_silu", "launches_silu",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:248", k5_cost, None),
     Kernel("s2_silu_bwd", "s2_act", "s2_silu_bwd", "launches_silu_bwd",
@@ -675,10 +703,14 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
     b, f = spec.cost(args, got[0] if spec.outs is None and len(got) == 1 else got)
     b += nbytes(*kw.values())
     bms, by = bound_ms(b, f)
+    tc = {}
+    if spec.split_flops is not None:
+        split = spec.split_flops(args)
+        tc = {"bound_tc_ms": bound_tc_ms(b, f, split), "split_tf32_flops": split}
     return {"shapes": [list(a.shape) for a in (*args, *kw.values()) if torch.is_tensor(a)],
             "max_abs_err": max_abs, "errors": errs, "tolerance": tol, "ok": ok,
             "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "bytes": b,
-            "flops": f, "fraction_of_bound": bms / k_ms}
+            "flops": f, "fraction_of_bound": bms / k_ms, **tc}
 
 
 def hold_all(specs, mods, captured, phase, per, path) -> dict:
@@ -707,6 +739,8 @@ def hold_all(specs, mods, captured, phase, per, path) -> dict:
             "bound_by": max(recs, key=lambda cr: cr[0] * cr[1]["bound_ms"])[1]["bound_by"],
             "library_ms": None,
         }
+        if spec.split_flops is not None:
+            results[spec.name]["bound_tc_ms"] = mean("bound_tc_ms")
     return results
 
 
@@ -820,6 +854,11 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                 f"kernel_train{suffix}", "calls_per_microbatch", path))
         results.update(hold_all([k for k in specs if k.outs], mods, captured,
                                 f"kernel_bwd{suffix}", "calls_per_microbatch", path))
+        if K4B in specs:  # K4b's residency at the microbatch's widths
+            args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
+            x, w1, _, _, _, w2, tg, _, lmax, _ = args
+            results[K4B.name]["residency"] = mods["so3_ffn"].s2_bwd_residency(
+                lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
         del captured, micro
 
         # train: warm-up and timed optimizer steps, counts zeroed just before
@@ -1203,10 +1242,12 @@ def main() -> int:
     logs = build.build_all()
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
+    k4b_ptxas = ptxas_report(logs["so3_ffn_bwd"])
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
-                                                             "dense_edge_attn_bwd")}})
+                                                             "dense_edge_attn_bwd")},
+          "k4b_ptxas": k4b_ptxas})
 
     # the main path's batch and model
     files = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "val", "*.npz")))[:8]
@@ -1308,6 +1349,7 @@ def main() -> int:
                          {k.name: 12 for k in (K2, K3, K2B, K3B, *path)}, [], FORM_WARMUP,
                          FORM_STEPS)
 
+    results[K4B.name]["ptxas"] = k4b_ptxas
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(smi, flush=True)
     emit({"kernels": [results[k.name] for k in KERNELS]})

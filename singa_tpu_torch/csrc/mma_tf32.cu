@@ -1,0 +1,85 @@
+// One block's product C = A B through csrc/mma_tf32.cuh, and its TF32
+// rounding beside cvt.rna.tf32.f32, for the tests of the helper on the card
+// (tests/test_torch_cuda.py); on no path of the model.
+//
+// trans = 0: a holds A as [M][K], read with frag_a_paired and B with
+// frag_b_paired (the to-grid orientation of csrc/s2_grid_tc.cuh).
+// trans = 1: a holds A^T as [K][M], read with frag_a_trans and B with
+// frag_b (the from-grid orientation). b is [K][N], c is [M][N], all
+// float32 in device memory. The operands are staged in shared memory at
+// the strides the bank rules of mma_tf32.cuh ask for.
+#include "common.cuh"
+#include "mma_tf32.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// the smallest stride >= n with stride % 16 == 8 (stride % 32 is 8 or 24)
+inline int stride8(int n) {
+  const int s = (n + 7) / 8 * 8;
+  return s % 16 == 8 ? s : s + 8;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c, int M,
+            int K, int N, int trans, int lda, int ldb) {
+  extern __shared__ __align__(16) float smem[];
+  const int arows = trans ? K : M, acols = trans ? M : K;
+  float* sa = smem;
+  float* sb = sa + arows * lda;
+  for (int t = threadIdx.x; t < arows * acols; t += blockDim.x)
+    sa[(t / acols) * lda + t % acols] = a[t];
+  for (int t = threadIdx.x; t < K * N; t += blockDim.x) sb[(t / N) * ldb + t % N] = b[t];
+  __syncthreads();
+  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int ntiles = N / 8;
+  for (int tile = warp; tile < (M / 16) * ntiles; tile += warps) {
+    const int m0 = 16 * (tile / ntiles), n0 = 8 * (tile % ntiles);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      if (trans) {
+        const singa::tc::FragA fa = singa::tc::frag_a_trans(sa + k0 * lda + m0, lda);
+        singa::tc::mma3(acc, fa, singa::tc::frag_b(sb + k0 * ldb + n0, ldb));
+      } else {
+        const singa::tc::FragA fa = singa::tc::frag_a_paired(sa + m0 * lda + k0, lda);
+        singa::tc::mma3(acc, fa, singa::tc::frag_b_paired(sb + k0 * ldb + n0, ldb));
+      }
+    }
+    singa::tc::store_c(c + m0 * N + n0, N, acc);
+  }
+}
+
+__global__ void rna_kernel(const float* __restrict__ x, unsigned* __restrict__ bits,
+                           unsigned* __restrict__ ptx, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    bits[i] = singa::tc::tf32_rna(x[i]);
+    ptx[i] = singa::tc::tf32_rna_ptx(x[i]);
+  }
+}
+
+}  // namespace
+
+// Returns cudaErrorInvalidValue unless M % 16 == 0, K % 8 == 0, N % 8 == 0
+// and the staged operands fit in 48 KB.
+extern "C" int mma_tf32_tile_f32(const float* a, const float* b, float* c, int M, int K, int N,
+                                 int trans, void* stream) {
+  if (M < 16 || M % 16 || K < 8 || K % 8 || N < 8 || N % 8) return (int)cudaErrorInvalidValue;
+  const int lda = stride8(trans ? M : K);
+  int ldb = stride8(N);                                 // frag_b: ldb % 32 of 8 or 24
+  if (!trans) ldb = ldb - 4 >= N ? ldb - 4 : ldb + 4;  // frag_b_paired: ldb % 16 of 4 or 12
+  const size_t smem = ((size_t)(trans ? K : M) * lda + (size_t)K * ldb) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  tile_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(a, b, c, M, K, N, trans, lda, ldb);
+  return (int)cudaGetLastError();
+}
+
+// tf32_rna (integer operations) and tf32_rna_ptx (cvt.rna.tf32.f32) of each
+// of x[0..n), into bits and ptx.
+extern "C" int mma_tf32_rna_f32(const float* x, unsigned* bits, unsigned* ptx, int n,
+                                void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  rna_kernel<<<(n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024, 256, 0, (cudaStream_t)stream>>>(
+      x, bits, ptx, n);
+  return (int)cudaGetLastError();
+}

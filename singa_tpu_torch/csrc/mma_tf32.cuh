@@ -1,0 +1,157 @@
+// Float32 products on the tensor cores as three-product split TF32: the
+// warp-level mma.sync.aligned.m16n8k8 (TF32 inputs, float32 accumulation),
+// written by hand in inline PTX, and the fragment loaders from shared memory.
+//
+// Split TF32. TF32 keeps 10 explicit mantissa bits, so one TF32 product of
+// float32 data is off by ~1e-3 relative to its terms. Each float32 operand
+// x becomes hi = tf32(x), rounded to nearest with ties away from zero
+// (cvt.rna.tf32.f32), and lo = x - hi cut to TF32 toward zero (its 13 low
+// bits cleared: lo is at most 2^-11 of x, so the cut costs 2^-21 of x, and
+// one instruction less than rounding it; CUTLASS's 3xTF32 does the same),
+// and
+//   a * b ~ hi_a * hi_b + hi_a * lo_b + lo_a * hi_b
+// (lo_a * lo_b, ~2^-22 of the product, is dropped). The tensor cores form
+// each product of two TF32 values exactly and accumulate in float32, so the
+// sum agrees with a float32 product to float32 round-off. mma3() issues the
+// three products into one accumulator, the small terms first. hi is
+// rounded with integer operations (tf32_rna), equal to cvt.rna.tf32.f32.
+//
+// Fragments of mma.m16n8k8 .row.col (PTX ISA, "Matrix fragments for
+// mma.m16n8k8" with .tf32). In a warp, lane = 4 * grp + tig (grp 0..7,
+// tig 0..3):
+//   A, 16 x 8 (m x k), four registers:
+//     a0 (m = grp,     k = tig)      a1 (m = grp + 8, k = tig)
+//     a2 (m = grp,     k = tig + 4)  a3 (m = grp + 8, k = tig + 4)
+//   B, 8 x 8 (k x n), two registers:
+//     b0 (k = tig, n = grp)          b1 (k = tig + 4, n = grp)
+//   C/D, 16 x 8 (m x n), four float32 registers:
+//     c0 (m = grp, n = 2 tig)        c1 (m = grp, n = 2 tig + 1)
+//     c2 (m = grp + 8, n = 2 tig)    c3 (m = grp + 8, n = 2 tig + 1)
+//
+// The order of the k terms within one mma is free as long as A and B agree.
+// The "paired" loaders use it: the k slots tig and tig + 4 take the
+// physical columns 2 tig and 2 tig + 1, so a lane reads its two A values of
+// a row with one 8-byte load.
+//
+// Loaders, each for one tile whose origin the pointer names:
+//   frag_a_paired(A, lda)   A stored [m][k] (row-major), k paired
+//   frag_b_paired(B, ldb)   B stored [k][n], k paired (pairs with the above)
+//   frag_a_trans(At, lda)   A stored transposed, At[k][m], k in order
+//   frag_b(B, ldb)          B stored [k][n], k in order (pairs with the above)
+//   frag_b_split(Bhi, Blo, ldb)  the same, from planes split beforehand
+//   store_c(C, ldc, c)      C stored [m][n], two 8-byte stores
+// Shared-memory banks (32 of 4 bytes): frag_a_paired is conflict-free when
+// lda % 32 is 8 or 24 (per half-warp, grp * lda + 2 tig covers 32 banks);
+// frag_a_trans when lda % 32 is 8 or 24 (tig * lda + grp); frag_b_paired
+// when 2 * ldb % 32 is 8 or 24 (ldb % 16 is 4 or 12); frag_b when ldb % 32
+// is 8 or 24 (frag_b_split the same). One stride with lda % 32 = 24 (or 8) thus serves a constant
+// matrix read both ways: as A = M (paired) and as A = M^T (transposed).
+#pragma once
+
+#include <stdint.h>
+
+namespace singa {
+namespace tc {
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// cvt.rna.tf32.f32 of a finite x, by integer operations: half a TF32 ulp
+// added to the bits of the magnitude (the sign bit is untouched), then the
+// 13 low mantissa bits cleared. In K4b's chain on the H100 this ran faster
+// than the cvt instruction itself; tf32_rna_ptx is the
+// instruction, which the tests hold it to bit for bit.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna_ptx(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x -> (hi, lo): hi = tf32(x) to nearest, lo = x - hi cut to TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ int lane_grp() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_tig() { return threadIdx.x & 3; }
+
+__device__ __forceinline__ FragA frag_a_paired(const float* A, int lda) {
+  const int g = lane_grp(), t = lane_tig();
+  const float2 r0 = *reinterpret_cast<const float2*>(A + g * lda + 2 * t);
+  const float2 r1 = *reinterpret_cast<const float2*>(A + (g + 8) * lda + 2 * t);
+  FragA f;
+  split(r0.x, f.hi[0], f.lo[0]);
+  split(r1.x, f.hi[1], f.lo[1]);
+  split(r0.y, f.hi[2], f.lo[2]);
+  split(r1.y, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b_paired(const float* B, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  FragB f;
+  split(B[(2 * t) * ldb + g], f.hi[0], f.lo[0]);
+  split(B[(2 * t + 1) * ldb + g], f.hi[1], f.lo[1]);
+  return f;
+}
+
+__device__ __forceinline__ FragA frag_a_trans(const float* At, int lda) {
+  const int g = lane_grp(), t = lane_tig();
+  FragA f;
+  split(At[t * lda + g], f.hi[0], f.lo[0]);
+  split(At[t * lda + g + 8], f.hi[1], f.lo[1]);
+  split(At[(t + 4) * lda + g], f.hi[2], f.lo[2]);
+  split(At[(t + 4) * lda + g + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b(const float* B, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  FragB f;
+  split(B[t * ldb + g], f.hi[0], f.lo[0]);
+  split(B[(t + 4) * ldb + g], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B stored [k][n] as TF32 hi and lo planes, already split; k in order
+__device__ __forceinline__ FragB frag_b_split(const uint32_t* hi, const uint32_t* lo, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  FragB f;
+  f.hi[0] = hi[t * ldb + g];
+  f.hi[1] = hi[(t + 4) * ldb + g];
+  f.lo[0] = lo[t * ldb + g];
+  f.lo[1] = lo[(t + 4) * ldb + g];
+  return f;
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in split TF32: lo_a hi_b, hi_a lo_b, then hi_a hi_b
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  mma(c, a.lo, b.hi);
+  mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+}
+
+__device__ __forceinline__ void store_c(float* C, int ldc, const float (&c)[4]) {
+  const int g = lane_grp(), t = lane_tig();
+  *reinterpret_cast<float2*>(C + g * ldc + 2 * t) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(C + (g + 8) * ldc + 2 * t) = make_float2(c[2], c[3]);
+}
+
+}  // namespace tc
+}  // namespace singa

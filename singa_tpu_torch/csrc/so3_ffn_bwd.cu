@@ -16,35 +16,54 @@
 // operations each: 42 MFLOP at I = 49, G = 210, H = 512) and five per-degree
 // products (h, dmid, dx, dw1, dw2: 4 MFLOP): ~46 MFLOP per node, ~660 GFLOP
 // at a training microbatch (N = 14,336), ~9.9 ms at the 67 TFLOP/s float32
-// rate, against ~0.14 GB of x, dy in and dx out (~0.04 ms): float32
-// arithmetic bounds it.
+// rate, against ~0.14 GB of x, dy in and dx out (~0.04 ms): arithmetic
+// bounds it. The grid transforms are 91 % of it and run on the tensor
+// cores as three TF32 products each (604 GFLOP x 3 at 495 TFLOP/s,
+// ~3.7 ms); the rest stays float32 on the CUDA cores (~0.9 ms).
 //
 // Design: the hidden, its cotangent and both grids stay out of device
 // memory, recomputed per node tile and hidden chunk as the TPU kernel
-// recomputes them in VMEM. A block owns a slice of node tiles of kTN = 4
-// nodes and, per tile, walks the hidden dimension in chunks of kHC = 16
-// channels with dx in registers across the chunks (no sum crosses a block).
-// Per chunk: h and dmid as register micro-tiles (K2b's), the gates and dg0,
-// then one pass of the grid chain (csrc/s2_grid.cuh) over the chunk's 64
-// columns that forms v and the lifted cotangent 32 grid points at a time and
-// accumulates both mid and dh in registers. The weight gradients are summed
-// over the block's nodes in its own row of a [blocks, P] scratch buffer
-// (zeroed first), each entry added by one fixed thread in tile order, and a
-// last kernel adds the rows in block order (sum_rows_kernel): deterministic,
-// no atomics. The TPU kernel accumulated them along its sequential grid;
-// Hopper's blocks run in no order. tg and fg are staged once per block; the
-// grid is persistent, one block per SM (~197 KB of shared memory). Nodes
-// past N are zero rows of x and dy, which make every term they add to a
-// gradient exactly zero.
-#include "s2_grid.cuh"
+// recomputes them in VMEM. A block (16 warps) owns a slice of node tiles of
+// kTN = 4 nodes and walks the hidden dimension in chunks of kHC = 16
+// channels, the chunks outside and its tiles inside: a chunk's weights are
+// staged once per block, and its weight-gradient sums stay in shared memory
+// over the block's tiles (each sum kept by one fixed thread, added in tile
+// order) and go to the block's row of a [blocks, P] scratch buffer once;
+// a last kernel adds the rows in block order (sum_rows_kernel):
+// deterministic, no atomics. dx is added to in device memory, chunk by
+// chunk, in chunk order, by the thread that owns the entry. Per (chunk,
+// tile): x and dy staged (float4 loads issued together, while the previous
+// tile's sums run), h and dmid as register micro-tiles, the gates and dg0
+// (on threads the hidden jobs leave idle), then one pass of the
+// tensor-core grid chain (csrc/s2_grid_tc.cuh) over the 64 columns, which
+// forms v and the lifted cotangent 32 grid points at a time with split-TF32
+// mma.sync (csrc/mma_tf32.cuh) and accumulates mid and dh in registers (at
+// lmax 6 the last coefficient row in float32 on the CUDA cores, see
+// grid_chain_tc); then the weight-gradient sums and dx. The TPU kernel accumulated the
+// weight gradients along its sequential grid; Hopper's blocks run in no
+// order. tg and fg are staged once per block, as float32 ([Gp][S], S = 56
+// at I = 49, which both fragment orientations read without bank conflicts)
+// and split into TF32 halves as each fragment is loaded: their halves
+// would take ~200 KB. The grid is persistent, one block per SM. Nodes past
+// N are zero rows of x and dy, which make every term they add to a
+// gradient exactly zero. The price of the chunks outside the tiles: x and
+// dy are read and dx read and written once per chunk, H / kHC = 32 times,
+// ~5.7 GB a call at the training microbatch (~1.7 ms at 3.35 TB/s, which
+// the next tile's loads during the sums partly hide).
+//
+// At lmax 6, C = Co = 16 (the model's): 225,792 B of dynamic shared memory,
+// 512 threads, 128 registers, no spills (ptxas -v on sm_90a), one block
+// per SM.
+#include "s2_grid_tc.cuh"
 
 namespace {
 
-constexpr int kThreads = singa::kChainThreads;
+constexpr int kThreads = singa::kTcThreads;
 constexpr int kTN = 4;            // nodes per tile
 constexpr int kHC = 16;           // hidden channels per chunk
 constexpr int kNCOL = kHC * kTN;  // grid-chain columns per chunk
 constexpr int kPad = 4;           // floats added to each row block
+constexpr int kStageLoads = 4;    // float4 loads a thread issues together when staging a tile
 
 using singa::degree_of;
 using singa::fma4;
@@ -58,11 +77,18 @@ __host__ __device__ inline Dims make_dims(int N, int lmax, int C, int H, int Co,
   return Dims{N, lmax, lmax + 1, I, singa::pad_rows(I), C, H, Co, G};
 }
 
+// A block's weight-gradient sums for one hidden chunk, in shared memory:
+// dw1 [L][C][kHC], dw2 [L][kHC][Co], dwg [C][kHC], db1 [kHC], dbg [kHC],
+// db2 [Co] (db2 in the first chunk only).
+__host__ __device__ inline int wsum_floats(const Dims& d) {
+  return d.L * d.C * kHC + d.L * kHC * d.Co + d.C * kHC + 2 * kHC + d.Co;
+}
+
 __host__ __device__ inline size_t smem_floats(const Dims& d) {
-  return singa::grid_mats_floats(d.G, d.I) + (size_t)d.I * (d.C * kTN + kPad) +
+  return singa::tc_mats_floats(d.G, d.I) + (size_t)d.I * (d.C * kTN + kPad) +
          (size_t)d.I * (d.Co * kTN + kPad) + 2 * (size_t)d.Ip * (kNCOL + kPad) +
-         2 * (size_t)singa::kGC * kNCOL + 2 * (size_t)d.L * d.C * kHC + (size_t)d.C * kHC +
-         (size_t)d.L * d.Co * kHC + 2 * kNCOL;
+         singa::tc_act_floats(kNCOL) + (size_t)d.L * d.C * kHC + (size_t)d.C * kHC +
+         (size_t)d.L * d.Co * kHC + 2 * kNCOL + wsum_floats(d);
 }
 
 // Offsets of the weight gradients in one flat row of P floats, in the order
@@ -83,6 +109,32 @@ __host__ __device__ inline GradLayout grad_layout(const Dims& d) {
   return g;
 }
 
+// x / d and x % d for 0 <= x < 2^32 / d by one multiply-high with
+// ceil(2^32 / d), in place of the division by a value known only at run
+// time (d = 1 is taken as it is)
+struct FastDiv {
+  unsigned d, m;
+  __device__ explicit FastDiv(int d_) : d(d_), m(d_ > 1 ? 0xffffffffu / d_ + 1 : 0) {}
+  __device__ int div(int x) const { return d > 1 ? __umulhi((unsigned)x, m) : x; }
+  __device__ int mod(int x) const { return x - div(x) * d; }
+};
+
+// sum over the rows i of degree l and the kTN nodes of a[i][n] b[i][n]
+// (a and b: float4 columns at row strides as and bs), four partial sums
+__device__ inline float dot_rows(const float* a, int as, const float* b, int bs, int l) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int i = l * l; i < (l + 1) * (l + 1); ++i) {
+    const float4 x = *reinterpret_cast<const float4*>(a + i * as);
+    const float4 y = *reinterpret_cast<const float4*>(b + i * bs);
+    s.x = fmaf(x.x, y.x, s.x);
+    s.y = fmaf(x.y, y.y, s.y);
+    s.z = fmaf(x.z, y.z, s.z);
+    s.w = fmaf(x.w, y.w, s.w);
+  }
+  return (s.x + s.y) + (s.z + s.w);
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                const float* __restrict__ w1, const float* __restrict__ b1,
@@ -95,29 +147,30 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const int ys = Co * kTN + kPad;  // row stride of sdy
   const int hs = kNCOL + kPad;     // row stride of sh and sdm
   extern __shared__ __align__(16) float smem[];
-  const size_t gm = singa::grid_mats_floats(d.G, I) / 2;
-  float* stg = smem;                         // [Gp][Ip]
-  float* sfg = stg + gm;                     // [Gp][Ip]
-  float* sx = sfg + gm;                      // [I][C][kTN] (+pad per row)
+  float* stg = smem;                         // tg, fg [Gp][S], guard
+  float* sx = stg + singa::tc_mats_floats(d.G, I);  // [I][C][kTN] (+pad per row)
   float* sdy = sx + I * xs;                  // [I][Co][kTN] (+pad per row)
   float* sh = sdy + I * ys;                  // [Ip][kHC][kTN] (+pad): h, then mid
   float* sdm = sh + d.Ip * hs;               // [Ip][kHC][kTN] (+pad): dmid, then dh
-  float* saf = sdm + d.Ip * hs;              // [kGC][kNCOL] silu(v)
-  float* sab = saf + singa::kGC * kNCOL;     // [kGC][kNCOL] silu'(v) * fg dmid
-  float* sw1 = sab + singa::kGC * kNCOL;     // [L][C][kHC]
-  float* sw1t = sw1 + L * C * kHC;           // [L][kHC][C]
-  float* swg = sw1t + L * C * kHC;           // [C][kHC]
+  float* sact = sdm + d.Ip * hs;             // the chain's activated grid
+  float* sw1 = sact + singa::tc_act_floats(kNCOL);  // [L][C][kHC]
+  float* swg = sw1 + L * C * kHC;            // [C][kHC]
   float* sw2t = swg + C * kHC;               // [L][Co][kHC]
   float* sgate = sw2t + L * Co * kHC;        // [kHC][kTN] g0, then silu(g0)
   float* sdg = sgate + kNCOL;                // [kHC][kTN] dg0
+  float* swsum = sdg + kNCOL;                // the chunk's weight-gradient sums
 
   const int tid = threadIdx.x;
-  const int C4 = C / 4;
+  const int C4 = C / 4, Co4 = Co / 4;
+  const int nx4 = kTN * I * C4, ny4 = kTN * I * Co4;  // float4s of a tile's x and dy
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* dy4 = reinterpret_cast<const float4*>(dy);
+  const FastDiv divC(C), divCo(Co), divC4(C4), divCo4(Co4), divI(I);
   const bool dx_job = tid < I * C4;  // one dx micro-tile (4 nodes x 4 channels of a row)
   const int dx_c4 = tid % C4, dx_i = tid / C4;
   const GradLayout gl = grad_layout(d);
   float* row = partial + (long long)blockIdx.x * gl.total;
-  singa::stage_grid_mats(tg, fg, d.G, I, stg, sfg);
+  singa::stage_grid_mats_tc(tg, fg, d.G, I, stg);
   for (int t = tid; t < (d.Ip - I) * hs; t += kThreads) {  // padded rows
     sh[I * hs + t] = 0.f;
     sdm[I * hs + t] = 0.f;
@@ -126,61 +179,107 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const int tiles = (d.N + kTN - 1) / kTN;
   const int t_begin = (int)((long long)tiles * blockIdx.x / gridDim.x);
   const int t_end = (int)((long long)tiles * (blockIdx.x + 1) / gridDim.x);
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int n0 = tile * kTN;
-    __syncthreads();  // the previous tile's readers of sx and sdy are done
-    for (int t = tid; t < kTN * I * C; t += kThreads) {
-      const int n = t / (I * C), i = (t / C) % I, c = t % C;
-      sx[i * xs + c * kTN + n] = (n0 + n < d.N) ? x[(long long)n0 * I * C + t] : 0.f;
-    }
-    for (int t = tid; t < kTN * I * Co; t += kThreads) {
-      const int n = t / (I * Co), i = (t / Co) % I, o = t % Co;
-      sdy[i * ys + o * kTN + n] = (n0 + n < d.N) ? dy[(long long)n0 * I * Co + t] : 0.f;
-    }
-    float4 acc[4];  // dx: node q of the micro-tile, four channels
+  // x and dy of a tile as float4s t = base + k * kThreads (k < kStageLoads),
+  // loaded together into v, then stored transposed into sx and sdy
+  auto load_tile = [&](int n0, int base, float4 (&v)[kStageLoads]) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < kStageLoads; ++k) {
+      const int t = base + k * kThreads;
+      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < nx4) {
+        if (t < (d.N - n0) * I * C4) v[k] = x4[(long long)n0 * I * C4 + t];
+      } else if (t < nx4 + ny4) {
+        if (t - nx4 < (d.N - n0) * I * Co4) v[k] = dy4[(long long)n0 * I * Co4 + t - nx4];
+      }
+    }
+  };
+  auto store_tile = [&](int base, const float4 (&v)[kStageLoads]) {
+#pragma unroll
+    for (int k = 0; k < kStageLoads; ++k) {
+      const int t = base + k * kThreads;
+      float* p;
+      if (t < nx4) {
+        const int q = divC4.div(t), n = divI.div(q), i = q - n * I, c = 4 * (t - q * C4);
+        p = sx + i * xs + c * kTN + n;
+      } else if (t < nx4 + ny4) {
+        const int u = t - nx4, q = divCo4.div(u), n = divI.div(q), i = q - n * I;
+        p = sdy + i * ys + 4 * (u - q * Co4) * kTN + n;
+      } else {
+        continue;
+      }
+      p[0] = v[k].x;
+      p[kTN] = v[k].y;
+      p[2 * kTN] = v[k].z;
+      p[3 * kTN] = v[k].w;
+    }
+  };
 
-    for (int h0 = 0; h0 < H; h0 += kHC) {
-      __syncthreads();  // the previous chunk's readers of the weights, mid and dh are done
-      for (int t = tid; t < L * C * kHC; t += kThreads) {
-        const int h = t % kHC, lc = t / kHC;
-        sw1[t] = (h0 + h < H) ? w1[(long long)lc * H + h0 + h] : 0.f;
-      }
-      for (int t = tid; t < L * kHC * C; t += kThreads) {
-        const int c = t % C, h = (t / C) % kHC, l = t / (C * kHC);
-        sw1t[t] = (h0 + h < H) ? w1[((long long)l * C + c) * H + h0 + h] : 0.f;
-      }
-      for (int t = tid; t < C * kHC; t += kThreads) {
-        const int h = t % kHC, c = t / kHC;
-        swg[t] = (h0 + h < H) ? wg[(long long)c * H + h0 + h] : 0.f;
-      }
-      for (int t = tid; t < L * Co * kHC; t += kThreads) {
-        const int h = t % kHC, o = (t / kHC) % Co, l = t / (kHC * Co);
-        sw2t[t] = (h0 + h < H) ? w2[((long long)l * H + h0 + h) * Co + o] : 0.f;
+  const bool one_batch = nx4 + ny4 <= kStageLoads * kThreads;
+  float4 pre[kStageLoads];  // the next tile's x and dy
+  const int gate_first = 2 * I * (kHC / 4) + kNCOL <= kThreads ? 2 * I * (kHC / 4) : 0;
+  const int E = wsum_floats(d);
+  const int e2 = L * C * kHC, e3 = e2 + L * kHC * Co, e4 = e3 + C * kHC, e5 = e4 + 2 * kHC;
+  for (int h0 = 0; h0 < H; h0 += kHC) {
+    __syncthreads();  // the previous chunk's readers of the weights and the sums are done
+    for (int t = tid; t < L * C * kHC; t += kThreads) {
+      const int h = t % kHC, lc = t / kHC;
+      sw1[t] = (h0 + h < H) ? w1[(long long)lc * H + h0 + h] : 0.f;
+    }
+    for (int t = tid; t < C * kHC; t += kThreads) {
+      const int h = t % kHC, c = t / kHC;
+      swg[t] = (h0 + h < H) ? wg[(long long)c * H + h0 + h] : 0.f;
+    }
+    for (int t = tid; t < L * Co * kHC; t += kThreads) {
+      const int h = t % kHC, o = (t / kHC) % Co, l = t / (kHC * Co);
+      sw2t[t] = (h0 + h < H) ? w2[((long long)l * H + h0 + h) * Co + o] : 0.f;
+    }
+    for (int e = tid; e < E; e += kThreads) swsum[e] = 0.f;
+    if (one_batch && t_begin < t_end) load_tile(t_begin * kTN, tid, pre);
+
+    for (int tile = t_begin; tile < t_end; ++tile) {
+      const int n0 = tile * kTN;
+      __syncthreads();  // the previous tile's readers of sx, sdy, sh and sdm are done
+      // x and dy of the tile: loaded while the previous tile's sums ran where
+      // they fit one batch of loads (lmax <= 7 at C = Co = 16), else here
+      if (one_batch) {
+        store_tile(tid, pre);
+      } else {
+        for (int base = tid; base < nx4 + ny4; base += kStageLoads * kThreads) {
+          float4 v[kStageLoads];
+          load_tile(n0, base, v);
+          store_tile(base, v);
+        }
       }
       __syncthreads();
-
-      // gate pre-activations g0, [kHC][kTN]
-      for (int t = tid; t < kNCOL; t += kThreads) {
+      // gate pre-activations g0, [kHC][kTN], on threads the hidden jobs
+      // below leave idle where there are enough of them
+      for (int t = tid - gate_first; t < kNCOL; t += kThreads) {
+        if (t < 0) continue;
         const int n = t % kTN, h = t / kTN;
-        float v = (h0 + h < H) ? bg[h0 + h] : 0.f;
-        for (int c = 0; c < C; ++c) v = fmaf(sx[c * kTN + n], swg[c * kHC + h], v);
-        sgate[t] = v;
-      }
-      // h and dmid: micro-tiles of four nodes x four hidden channels of one row
-      for (int t = tid; t < I * (kHC / 4); t += kThreads) {
-        const int h4 = t % (kHC / 4), i = t / (kHC / 4);
-        const int l = degree_of(i);
-        float4 a[4], b[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          a[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-          b[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 v = make_float4((h0 + h < H) ? bg[h0 + h] : 0.f, 0.f, 0.f, 0.f);
+        for (int c = 0; c < C; c += 4) {  // C % 4 == 0; four partial sums
+          v.x = fmaf(sx[c * kTN + n], swg[c * kHC + h], v.x);
+          v.y = fmaf(sx[(c + 1) * kTN + n], swg[(c + 1) * kHC + h], v.y);
+          v.z = fmaf(sx[(c + 2) * kTN + n], swg[(c + 2) * kHC + h], v.z);
+          v.w = fmaf(sx[(c + 3) * kTN + n], swg[(c + 3) * kHC + h], v.w);
         }
-        const float* xr = sx + i * xs;
-        const float* wr = sw1 + l * C * kHC + 4 * h4;
-        for (int c = 0; c < C; ++c) {
+        sgate[t] = (v.x + v.y) + (v.z + v.w);
+      }
+      // h (the first I * kHC / 4 jobs) and dmid (the rest): micro-tiles of
+      // four nodes x four hidden channels of one row
+      for (int t = tid; t < 2 * I * (kHC / 4); t += kThreads) {
+        const bool is_h = t < I * (kHC / 4);
+        const int j = is_h ? t : t - I * (kHC / 4);
+        const int h4 = j % (kHC / 4), i = j / (kHC / 4);
+        const int l = degree_of(i);
+        const int K = is_h ? C : Co;
+        const float* xr = is_h ? sx + i * xs : sdy + i * ys;
+        const float* wr = (is_h ? sw1 + l * C * kHC : sw2t + l * Co * kHC) + 4 * h4;
+        float4 a[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int c = 0; c < K; ++c) {
           const float4 xv = *reinterpret_cast<const float4*>(xr + c * kTN);
           const float4 wv = *reinterpret_cast<const float4*>(wr + c * kHC);
           fma4(a[0], wv.x, xv);
@@ -188,29 +287,17 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
           fma4(a[2], wv.z, xv);
           fma4(a[3], wv.w, xv);
         }
-        const float* yr = sdy + i * ys;
-        const float* vr = sw2t + l * Co * kHC + 4 * h4;
-        for (int o = 0; o < Co; ++o) {
-          const float4 yv = *reinterpret_cast<const float4*>(yr + o * kTN);
-          const float4 wv = *reinterpret_cast<const float4*>(vr + o * kHC);
-          fma4(b[0], wv.x, yv);
-          fma4(b[1], wv.y, yv);
-          fma4(b[2], wv.z, yv);
-          fma4(b[3], wv.w, yv);
-        }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int h = 4 * h4 + r;
-          if (i == 0 && h0 + h < H) {
+          if (is_h && i == 0 && h0 + h < H) {
             const float bb = b1[h0 + h];
             a[r].x += bb;
             a[r].y += bb;
             a[r].z += bb;
             a[r].w += bb;
           }
-          const int off = i * hs + h * kTN;
-          *reinterpret_cast<float4*>(sh + off) = a[r];
-          *reinterpret_cast<float4*>(sdm + off) = b[r];
+          *reinterpret_cast<float4*>((is_h ? sh : sdm) + i * hs + h * kTN) = a[r];
         }
       }
       __syncthreads();
@@ -225,61 +312,59 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 
       // mid = fg^T silu(tg h) (row 0 := gates) over h; dh = tg^T (silu'(tg h)
       // * fg dmid) over dmid
-      singa::grid_chain<kNCOL, true, true, true>(stg, sfg, d.G, I, sh, sdm, hs, saf, sab, sh,
-                                                 sdm, hs, sgate);
+      if (I == 49)  // lmax 6, the model's: I known when compiling (see grid_chain_tc)
+        singa::grid_chain_tc<kNCOL, 49>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate);
+      else
+        singa::grid_chain_tc<kNCOL, 0>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate);
       __syncthreads();
+      if (one_batch && tile + 1 < t_end) load_tile(n0 + kTN, tid, pre);
 
-      // the chunk's weight gradients, each entry added by one thread
-      for (int t = tid; t < L * C * kHC; t += kThreads) {  // dw1[l][c][h] += x[i][c] dh[i][h]
-        const int h = t % kHC, c = (t / kHC) % C, l = t / (kHC * C);
-        if (h0 + h >= H) continue;
+      // dx of the tile so far (device memory, added to in chunk order)
+      float4 acc[4];
+      float4* dx4 = reinterpret_cast<float4*>(dx) + (long long)n0 * I * C4 + tid;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)  // node n0 + q, row dx_i, channels 4 dx_c4 ..
+        acc[q] = (dx_job && h0 > 0 && n0 + q < d.N) ? dx4[q * I * C4]
+                                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+
+      // the tile's share of the chunk's weight gradients, each sum kept by one thread
+      for (int e = tid; e < E; e += kThreads) {
         float v = 0.f;
-        for (int i = l * l; i < (l + 1) * (l + 1); ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(sx + i * xs + c * kTN);
-          const float4 b = *reinterpret_cast<const float4*>(sdm + i * hs + h * kTN);
-          v = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, v))));
+        if (e < e2) {  // dw1[l][c][h] += x[i][c] dh[i][h]
+          const int h = e % kHC, l = divC.div(e / kHC), c = e / kHC - l * C;
+          v = dot_rows(sx + c * kTN, xs, sdm + h * kTN, hs, l);
+        } else if (e < e3) {  // dw2[l][h][o] += mid[i][h] dy[i][o]
+          const int t = e - e2, q = divCo.div(t), o = t - q * Co, h = q % kHC, l = q / kHC;
+          v = dot_rows(sh + h * kTN, hs, sdy + o * kTN, ys, l);
+        } else if (e < e4) {  // dwg[c][h] += x[0][c] dg0[h]
+          const int t = e - e3, h = t % kHC, c = t / kHC;
+          const float4 a = *reinterpret_cast<const float4*>(sx + c * kTN);
+          const float4 b = *reinterpret_cast<const float4*>(sdg + h * kTN);
+          v = a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+        } else if (e < e5) {  // db1 (row 0 of dh), dbg
+          const int t = e - e4, h = t % kHC;
+          const float4 b = *reinterpret_cast<const float4*>((t < kHC ? sdm : sdg) + h * kTN);
+          v = b.x + b.y + b.z + b.w;
+        } else if (h0 == 0) {  // db2 (row 0 of dy)
+          const float4 b = *reinterpret_cast<const float4*>(sdy + (e - e5) * kTN);
+          v = b.x + b.y + b.z + b.w;
         }
-        row[gl.w1 + ((long long)l * C + c) * H + h0 + h] += v;
-      }
-      for (int t = tid; t < L * kHC * Co; t += kThreads) {  // dw2[l][h][o] += mid[i][h] dy[i][o]
-        const int o = t % Co, h = (t / Co) % kHC, l = t / (Co * kHC);
-        if (h0 + h >= H) continue;
-        float v = 0.f;
-        for (int i = l * l; i < (l + 1) * (l + 1); ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(sh + i * hs + h * kTN);
-          const float4 b = *reinterpret_cast<const float4*>(sdy + i * ys + o * kTN);
-          v = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, v))));
-        }
-        row[gl.w2 + ((long long)l * H + h0 + h) * Co + o] += v;
-      }
-      for (int t = tid; t < C * kHC; t += kThreads) {  // dwg[c][h] += x[0][c] dg0[h]
-        const int h = t % kHC, c = t / kHC;
-        if (h0 + h >= H) continue;
-        const float4 a = *reinterpret_cast<const float4*>(sx + c * kTN);
-        const float4 b = *reinterpret_cast<const float4*>(sdg + h * kTN);
-        row[gl.wg + (long long)c * H + h0 + h] += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-      }
-      for (int t = tid; t < 2 * kHC; t += kThreads) {  // db1 (row 0 of dh), dbg
-        const int h = t % kHC;
-        if (h0 + h >= H) continue;
-        const float4 b = *reinterpret_cast<const float4*>((t < kHC ? sdm : sdg) + h * kTN);
-        row[(t < kHC ? gl.b1 : gl.bg) + h0 + h] += b.x + b.y + b.z + b.w;
-      }
-      if (h0 == 0) {
-        for (int t = tid; t < Co; t += kThreads) {  // db2 (row 0 of dy)
-          const float4 b = *reinterpret_cast<const float4*>(sdy + t * kTN);
-          row[gl.b2 + t] += b.x + b.y + b.z + b.w;
-        }
+        swsum[e] += v;
       }
 
       // dx += dh @ w1^T, and on row 0 dg0 @ wg^T
       if (dx_job) {
         const int l = degree_of(dx_i);
         const float* dr = sdm + dx_i * hs;
-        const float* wr = sw1t + l * kHC * C + 4 * dx_c4;
-        for (int h = 0; h < kHC; ++h) {
+        const float* wr = sw1 + (l * C + 4 * dx_c4) * kHC;
+        // the hidden channels in an order rotated by channel group and degree,
+        // so that a warp's reads of sw1 (four channel groups, at most four
+        // degrees) fall in distinct banks
+        const int rot = 4 * dx_c4 + l;
+        for (int k = 0; k < kHC; ++k) {
+          const int h = (k + rot) % kHC;
           const float4 dv = *reinterpret_cast<const float4*>(dr + h * kTN);
-          const float4 wv = *reinterpret_cast<const float4*>(wr + h * C);
+          const float4 wv = make_float4(wr[h], wr[kHC + h], wr[2 * kHC + h], wr[3 * kHC + h]);
           fma4(acc[0], dv.x, wv);
           fma4(acc[1], dv.y, wv);
           fma4(acc[2], dv.z, wv);
@@ -288,47 +373,80 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         if (dx_i == 0) {
           for (int h = 0; h < kHC; ++h) {
             const float4 gv = *reinterpret_cast<const float4*>(sdg + h * kTN);
-            const float4 wv = make_float4(swg[(4 * dx_c4) * kHC + h], swg[(4 * dx_c4 + 1) * kHC + h],
-                                          swg[(4 * dx_c4 + 2) * kHC + h],
-                                          swg[(4 * dx_c4 + 3) * kHC + h]);
+            const float* wc = swg + 4 * dx_c4 * kHC + h;
+            const float4 wv = make_float4(wc[0], wc[kHC], wc[2 * kHC], wc[3 * kHC]);
             fma4(acc[0], gv.x, wv);
             fma4(acc[1], gv.y, wv);
             fma4(acc[2], gv.z, wv);
             fma4(acc[3], gv.w, wv);
           }
         }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (n0 + q < d.N) dx4[q * I * C4] = acc[q];
       }
     }
+    __syncthreads();  // the chunk's sums are complete
 
-    if (dx_job) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = n0 + q;
-        if (n < d.N)
-          *reinterpret_cast<float4*>(dx + ((long long)n * I + dx_i) * C + 4 * dx_c4) = acc[q];
+    // the chunk's sums into the block's row
+    for (int e = tid; e < E; e += kThreads) {
+      long long at = -1;
+      if (e < e2) {
+        const int h = e % kHC, c = (e / kHC) % C, l = e / (kHC * C);
+        if (h0 + h < H) at = gl.w1 + ((long long)l * C + c) * H + h0 + h;
+      } else if (e < e3) {
+        const int t = e - e2, o = t % Co, h = (t / Co) % kHC, l = t / (Co * kHC);
+        if (h0 + h < H) at = gl.w2 + ((long long)l * H + h0 + h) * Co + o;
+      } else if (e < e4) {
+        const int t = e - e3, h = t % kHC, c = t / kHC;
+        if (h0 + h < H) at = gl.wg + (long long)c * H + h0 + h;
+      } else if (e < e5) {
+        const int t = e - e4, h = t % kHC;
+        if (h0 + h < H) at = (t < kHC ? gl.b1 : gl.bg) + h0 + h;
+      } else if (h0 == 0) {
+        at = gl.b2 + (e - e5);
       }
+      if (at >= 0) row[at] = swsum[e];
     }
   }
 }
 
 bool dims_ok(int N, int lmax, int C, int H, int Co, int G) {
-  if (N < 1 || lmax < 1 || C < 4 || C % 4 != 0 || H < 1 || Co < 1 || G < 1) return false;
+  if (N < 1 || lmax < 1 || C < 4 || C % 4 != 0 || H < 1 || Co < 4 || Co % 4 != 0 || G < 1)
+    return false;
   const int I = (lmax + 1) * (lmax + 1);
-  return singa::chain_fits(kNCOL, 2, I) && I * (C / 4) <= kThreads;
+  return I <= singa::kMaxIp && I * (C / 4) <= kThreads;
 }
 
 }  // namespace
 
 // Blocks the kernel runs (one per SM at its shared memory, never more than
 // the node tiles); the caller allocates the [blocks, P] scratch buffer from
-// this. Returns -1 for shapes the kernel does not take: C not a multiple of
-// 4, lmax above 7, or tiles that exceed shared memory.
+// this. Returns -1 for shapes the kernel does not take: C or Co not a
+// multiple of 4, lmax above 7, or tiles that exceed shared memory.
 extern "C" int so3_ffn_bwd_blocks(int N, int lmax, int C, int H, int Co, int G) {
   if (!dims_ok(N, lmax, C, H, Co, G)) return -1;
   const Dims d = make_dims(N, lmax, C, H, Co, G);
   const size_t smem = smem_floats(d) * sizeof(float);
   if (singa::allow_smem(ffn_bwd_kernel, smem) != cudaSuccess) return -1;
   return singa::persistent_grid(ffn_bwd_kernel, kThreads, smem, (N + kTN - 1) / kTN);
+}
+
+// Resident blocks per SM of the kernel at these widths (-1: a shape it
+// does not take), its shared memory per block in *smem_bytes and its
+// threads per block in *threads. For reports; launches nothing.
+extern "C" int so3_ffn_bwd_residency(int lmax, int C, int H, int Co, int G, int* smem_bytes,
+                                     int* threads) {
+  if (!dims_ok(1, lmax, C, H, Co, G)) return -1;
+  const size_t smem = smem_floats(make_dims(1, lmax, C, H, Co, G)) * sizeof(float);
+  *smem_bytes = (int)smem;
+  *threads = kThreads;
+  if (singa::allow_smem(ffn_bwd_kernel, smem) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ffn_bwd_kernel, kThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  return per_sm;
 }
 
 extern "C" int so3_ffn_bwd_f32(const float* x, const float* dy, const float* w1, const float* b1,

@@ -17,9 +17,12 @@ hidden channel, row 0 replaced by ``gate``; per-degree linear H -> Co, ``b2``
 on row 0. K4b replaces ``_bwd`` (``_ffn_bwd_kernel``): dx and the six weight
 and bias gradients; ``b1`` reaches every output row through the grid. The
 CUDA kernels (``csrc/so3_ffn.cu``, ``csrc/so3_ffn_bwd.cu``) keep the hidden
-and the ``[N, G, H]`` grid out of device memory. The TPU kernel's L-padded
-coefficient layout, 128-wide hidden chunks, node padding, transposed weight
-copies and tanh-form sigmoid exist for Mosaic and are not carried over.
+and the ``[N, G, H]`` grid out of device memory; K4b forms its four grid
+transforms on the tensor cores as split-TF32 products
+(``csrc/mma_tf32.cuh``), which agree with float32 products to float32
+round-off. The TPU kernel's L-padded coefficient layout, 128-wide hidden
+chunks, node padding, transposed weight copies and tanh-form sigmoid exist
+for Mosaic and are not carried over.
 
 ``so3_gate_ffn`` and ``so3_ffn`` each go through one
 ``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
@@ -228,6 +231,18 @@ def _s2_bwd_fns():
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return blocks, fn
+
+
+def s2_bwd_residency(lmax: int, C: int, H: int, Co: int, G: int) -> dict:
+    """K4b's kernel at these widths: resident blocks per SM (-1: a shape it
+    does not take), threads and dynamic shared memory per block. For
+    reports; launches nothing."""
+    fn = build.load("so3_ffn_bwd").so3_ffn_bwd_residency
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(lmax, C, H, Co, G, ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
 def _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int):

@@ -9,13 +9,16 @@ there ``tests/conftest.py`` (which imports JAX) is left out:
 
 Inputs are made with numpy from fixed seeds, at the main path's widths and
 at ragged sizes that exercise each kernel's edge handling. Everything runs
-in float32 with TF32 off; the kernel and the plain version add the same
+in float32 with TF32 off (K4b forms its grid transforms as split TF32, to
+float32 round-off); the kernel and the plain version add the same
 products in a different order, so they agree to atol/rtol 1e-4 on outputs
 of order 1-100. Backward outputs that are sums over many nodes (weight
 gradients, the dk/dv scatter) are held to 1e-4 of their largest magnitude:
 float32 sums of thousands of terms taken in another order.
 """
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import pytest
@@ -248,7 +251,8 @@ def _s2_ffn_case(dev, lmax, N, H, C, Co, seed):
     return [_t(a, dev) for a in args], _t(f(N, L * L, Co), dev)
 
 
-S2_FFN_CASES = [(6, 37, 512, 16, 16), (3, 13, 40, 16, 16), (2, 5, 24, 8, 4)]
+S2_FFN_CASES = [(6, 37, 512, 16, 16), (6, 1000, 512, 16, 16), (3, 13, 40, 16, 16),
+                (2, 5, 24, 8, 4)]
 
 
 @pytest.mark.cuda
@@ -279,6 +283,124 @@ def test_so3_ffn_bwd_kernel_matches_plain(dev, lmax, N, H, C, Co):
     got = k4.so3_ffn_bwd_cuda(*bwd_args)
     assert k4.launches_s2_bwd == n + 1
     _check_grads(got, k4.so3_ffn_bwd_plain(*bwd_args), ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+
+
+def _hold_ratios(got, want, names):
+    """Each output's largest |got - want| over _check_grads's allowance
+    (1e-4 of the output's largest magnitude, floored at 1, plus 1e-4 of
+    |want|): the hold passes where every ratio is at most 1."""
+    out = {}
+    for name, a, b in zip(names, got, want):
+        scale = max(1.0, b.abs().max().item())
+        out[name] = ((a - b).abs() / (1e-4 * scale + 1e-4 * b.abs())).max().item()
+    return out
+
+
+@pytest.mark.cuda
+def test_so3_ffn_bwd_kernel_keeps_relative_precision(dev):
+    """K4b with node n's x and dy scaled by 10^(-3 .. 3) across 256 nodes:
+    dx of every node within 1e-4 of that node's own largest magnitude
+    (rtol 1e-4), so a node 1e6 times smaller than the largest keeps
+    float32's relative precision (the split is relative to each value; a
+    bound on the largest output alone would not see the small nodes); the
+    weight gradients as _check_grads holds them."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    N = 256
+    args, dy = _s2_ffn_case(dev, 6, N, 512, 16, 16, 75)
+    s = torch.logspace(-3, 3, N, device=dev)[:, None, None]
+    args[0] = args[0] * s
+    bwd_args = [*args[:6], *args[7:], 6, dy * s]
+    n = k4.launches_s2_bwd
+    got = k4.so3_ffn_bwd_cuda(*bwd_args)
+    assert k4.launches_s2_bwd == n + 1
+    want = k4.so3_ffn_bwd_plain(*bwd_args)
+    node_scale = want[0].abs().amax(dim=(1, 2), keepdim=True)
+    err = (got[0] - want[0]).abs() / (1e-4 * node_scale + 1e-4 * want[0].abs())
+    assert err.max().item() <= 1.0, err.amax(dim=(1, 2))
+    _check_grads(got[1:], want[1:], ["dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+
+
+@pytest.mark.cuda
+def test_so3_ffn_bwd_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K4b meets tells split TF32 from one TF32 product
+    at the s2 training microbatch's widths (N 14,336, lmax 6, H 512): the
+    kernel and the split rendering of its arithmetic
+    (test_torch_tf32_split.k4b_split) pass it against so3_ffn_bwd_plain;
+    the same rendering with one TF32 product per transform fails it."""
+    from test_torch_tf32_split import k4b_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    names = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
+    args, dy = _s2_ffn_case(dev, 6, 14336, 512, 16, 16, 79)
+    bwd_args = [*args[:6], *args[7:], 6, dy]
+    n = k4.launches_s2_bwd
+    got = k4.so3_ffn_bwd_cuda(*bwd_args)
+    assert k4.launches_s2_bwd == n + 1
+    want = k4.so3_ffn_bwd_plain(*bwd_args)
+    ratios = {"kernel": _hold_ratios(got, want, names)}
+    del got
+    ratios["split"] = _hold_ratios(k4b_split(*bwd_args), want, names)
+    ratios["one_tf32"] = _hold_ratios(k4b_split(*bwd_args, mm=mm_tf32), want, names)
+    print(json.dumps({"hold_ratios": ratios}))
+    assert max(ratios["kernel"].values()) <= 1.0, ratios
+    assert max(ratios["split"].values()) <= 1.0, ratios
+    assert max(ratios["one_tf32"].values()) > 1.0, ratios
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [0, 1])
+def test_mma_tf32_tile_matches_float64(dev, trans):
+    """One [64 x 56] . [56 x 64] product through csrc/mma_tf32.cuh's split
+    TF32 mma.sync, A read row-major with paired k (trans 0, K4b's to-grid
+    orientation) or transposed (trans 1, its from-grid one), against the
+    float64 product: within 2e-6 of the largest output (one TF32 product:
+    ~3e-4)."""
+    import ctypes
+
+    from singa_tpu_torch.ops.cuda import build
+
+    M, K, N = 64, 56, 64
+    rng = np.random.default_rng(61 + trans)
+    a = rng.normal(size=(M, K)).astype(np.float32)
+    b = rng.normal(size=(K, N)).astype(np.float32)
+    fn = build.load("mma_tf32").mma_tf32_tile_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ta, tb = _t(a.T if trans else a, dev), _t(b, dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    build.check(fn(ta.data_ptr(), tb.data_ptr(), out.data_ptr(), M, K, N, trans,
+                   build.stream_ptr(out)), "mma_tf32_tile")
+    torch.cuda.synchronize()
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    err = np.abs(out.cpu().numpy().astype(np.float64) - want).max() / np.abs(want).max()
+    assert err <= 2e-6, err
+
+
+@pytest.mark.cuda
+def test_mma_tf32_rounding_is_cvt_rna(dev):
+    """csrc/mma_tf32.cuh's tf32_rna (integer operations) equals the
+    cvt.rna.tf32.f32 instruction bit for bit, on 2^20 normal values of
+    magnitudes 1e-30 to 1e30, signed zeros and values exactly half a TF32
+    ulp above a TF32 value (the ties, which round away from zero)."""
+    import ctypes
+
+    from singa_tpu_torch.ops.cuda import build
+
+    rng = np.random.default_rng(67)
+    x = (rng.normal(size=1 << 20) * 10.0 ** rng.uniform(-30, 30, size=1 << 20)).astype(np.float32)
+    ties = (x[:4096].view(np.uint32) & np.uint32(0xFFFFE000) | np.uint32(0x1000)).view(np.float32)
+    x = np.concatenate([x, np.float32([0.0, -0.0]), ties, -ties])
+    fn = build.load("mma_tf32").mma_tf32_rna_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tx = _t(x, dev)
+    bits, ptx = (torch.empty(x.shape, dtype=torch.int32, device=dev) for _ in range(2))
+    build.check(fn(tx.data_ptr(), bits.data_ptr(), ptx.data_ptr(), x.size, build.stream_ptr(tx)),
+                "mma_tf32_rna")
+    torch.cuda.synchronize()
+    assert torch.equal(bits, ptx)
 
 
 @pytest.mark.cuda

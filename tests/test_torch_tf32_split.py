@@ -1,0 +1,187 @@
+"""Split TF32, the arithmetic of K4b's grid transforms on the tensor cores
+(``singa_tpu_torch/csrc/mma_tf32.cuh``, ``csrc/s2_grid_tc.cuh``), rendered
+in plain PyTorch on the CPU.
+
+``tf32_rna`` is ``cvt.rna.tf32.f32`` by integer bit operations: round to
+nearest with ties away from zero, to 10 explicit mantissa bits. The split
+product is the kernel's three TF32 products, ``lo_a hi_b + hi_a lo_b +
+hi_a hi_b`` with ``hi = tf32_rna(x)`` and ``lo = x - hi`` cut to TF32
+toward zero; each product of two TF32 values is exact in float32, so
+float32 matrix products of the halves give what the tensor cores form, up
+to the order of the sums.
+
+At the main path's grid (lmax 6, ``_grid_mats_for(6, 6, False)``: G 210,
+I 49) and hidden width 512: each of the four transforms is within 1e-6 of
+its largest output of a float64 product (float32 round-off), and one TF32
+product is at least 30x further off (which is why the kernel splits); the
+whole K4b backward rendered on split transforms, in the kernel's column
+tiles and grid chunks (and, at lmax 6, its last coefficient row in float32
+as the kernel takes it), is within 1e-5 (of each output's largest
+magnitude, floored at 1) / 1e-5 of ``so3_ffn_bwd_plain``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+NAMES = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
+KGC = 32  # grid points per chunk of the kernel's chain
+NCOL = 64  # columns per tile: 4 nodes x 16 hidden channels
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 of float32 ``x``: add half a TF32 ulp to the bits
+    of the magnitude (the sign bit is untouched), then clear the 13 low
+    mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """x cut to TF32 toward zero: its 13 low mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's split: hi = tf32(x) to nearest, lo = x - hi cut."""
+    hi = tf32_rna(x)
+    return hi, tf32_cut(x - hi)
+
+
+def mm_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's three TF32 products, float32 sums."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as one TF32 product."""
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def silu_grad(v: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(v)
+    return s * (1 + v * (1 - s))
+
+
+def grid_chain_split(tg, fg, X, Y, mm=mm_split):
+    """mid = fg^T silu(tg X), dh = tg^T (silu'(tg X) * fg Y) for X, Y
+    [tiles, I, NCOL] as the kernel forms them: tg, fg zero-padded to
+    [Gp, Ip] (Gp a multiple of KGC, Ip of 16), every product through ``mm``
+    (the kernel's split; ``mm_tf32`` for one TF32 product), the
+    from-grid sums carried over the grid chunks in float32. Where I - 1 is a
+    multiple of 16 (I = 49), the kernel takes row I - 1 in float32 on the
+    CUDA cores in both transforms, from the split activations (hi + lo)."""
+    G, I = tg.shape
+    Gp, Ip = -(-G // KGC) * KGC, -(-I // 16) * 16
+    r = I - 1 if (I - 1) % 16 == 0 else I  # rows through the split products
+    tgp, fgp = (F.pad(m, (0, Ip - I, 0, Gp - G)) for m in (tg, fg))
+    X, Y = (F.pad(m, (0, 0, 0, Ip - I)) for m in (X, Y))
+    mid = torch.zeros_like(X)
+    dh = torch.zeros_like(Y)
+    for g0 in range(0, Gp, KGC):
+        t, f = tgp[g0:g0 + KGC], fgp[g0:g0 + KGC]
+        v = mm(t[:, :r], X[:, :r]) + t[:, r:I] @ X[:, r:I]
+        u = mm(f[:, :r], Y[:, :r]) + f[:, r:I] @ Y[:, r:I]
+        saf, sab = (sum(split(a)) for a in (F.silu(v), silu_grad(v) * u))
+        mid[:, :r] += mm(f[:, :r].T, saf)
+        dh[:, :r] += mm(t[:, :r].T, sab)
+        mid[:, r:I] += f[:, r:I].T @ saf
+        dh[:, r:I] += t[:, r:I].T @ sab
+    return mid[:, :I], dh[:, :I]
+
+
+def to_tiles(a: torch.Tensor) -> torch.Tensor:
+    """[N, I, H] -> [N/4 * H/16, I, NCOL]: column h * 4 + n of a tile is
+    hidden channel h of node n, as in the kernel's shared memory."""
+    N, I, H = a.shape
+    return a.reshape(N // 4, 4, I, H // 16, 16).permute(0, 3, 2, 4, 1).reshape(-1, I, NCOL)
+
+
+def from_tiles(a: torch.Tensor, N: int, H: int) -> torch.Tensor:
+    I = a.shape[1]
+    return a.reshape(N // 4, H // 16, I, 16, 4).permute(0, 4, 2, 1, 3).reshape(N, I, H)
+
+
+def k4b_split(x, w1, b1, wg, bg, w2, tg, fg, lmax, dy, mm=mm_split):
+    """K4b's backward with the grid transforms in split TF32 (or through
+    another product ``mm``) and everything else in plain float32: the
+    kernel's arithmetic, in other orders. Runs on the tensors' device."""
+    from singa_tpu_torch.ops.cuda.so3_ffn import _l_of
+
+    N, I, C = x.shape
+    H = w1.shape[2]
+    l_of = _l_of(lmax, x.device)
+    g0 = x[:, 0] @ wg + bg
+    h = torch.einsum("nic,ich->nih", x, w1.index_select(0, l_of))
+    h[:, 0] += b1
+    dmid = torch.einsum("nio,iho->nih", dy, w2.index_select(0, l_of))
+    dg0 = silu_grad(g0) * dmid[:, 0]
+    dmid[:, 0] = 0
+    mid, dh = grid_chain_split(tg, fg, to_tiles(h), to_tiles(dmid), mm)
+    mid, dh = from_tiles(mid, N, H), from_tiles(dh, N, H)
+    mid[:, 0] = F.silu(g0)
+    dx = torch.einsum("nih,ich->nic", dh, w1.index_select(0, l_of))
+    dx[:, 0] += dg0 @ wg.T
+    rows = [slice(l * l, (l + 1) ** 2) for l in range(lmax + 1)]  # the rows of each degree
+    dw1 = torch.stack([torch.einsum("nic,nih->ch", x[:, r], dh[:, r]) for r in rows])
+    dw2 = torch.stack([torch.einsum("nih,nio->ho", mid[:, r], dy[:, r]) for r in rows])
+    return dx, dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2, dy[:, 0].sum(0)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    """Ten explicit mantissa bits kept; half a TF32 ulp rounds away from
+    zero for either sign; just under half rounds down; 13 low bits clear."""
+    e = 2.0 ** -10  # the TF32 ulp at 1
+    x = torch.tensor([1 + e / 2, -(1 + e / 2), 1 + e / 2 - 2.0 ** -23, 1 + 1.5 * e, 3.0, -0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + e, -(1 + e), 1.0, 1 + 2 * e, 3.0, -0.0], dtype=torch.float32)
+    got = tf32_rna(x)
+    assert torch.equal(got, want)
+    r = torch.as_tensor(np.random.default_rng(0).normal(size=4096).astype(np.float32)) * 1e3
+    assert bool(((tf32_rna(r).view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((tf32_rna(r) - r).abs() <= r.abs() * 2.0 ** -11).all())
+
+
+@pytest.mark.parametrize("transform", ["v = tg h", "u = fg dmid", "mid = fg^T s", "dh = tg^T s"])
+def test_split_transforms_match_float64(transform):
+    """Each of K4b's four grid transforms at the main path's grid, on
+    [49, 512] (to-grid) or [210, 512] (from-grid) normal columns: the split
+    within 1e-6 of the float64 product's largest output, one TF32 product
+    at least 30x further off."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+
+    tg, fg = (torch.as_tensor(m) for m in _grid_mats_for(6, 6, False))
+    mat = {"v": tg, "u": fg, "mid": fg.T, "dh": tg.T}[transform.split()[0]].contiguous()
+    rng = np.random.default_rng(7 + len(transform))
+    cols = torch.as_tensor(rng.normal(size=(mat.shape[1], 512)).astype(np.float32))
+    want = mat.double() @ cols.double()
+    scale = want.abs().max().item()
+    err_split = (mm_split(mat, cols).double() - want).abs().max().item() / scale
+    err_tf32 = (mm_tf32(mat, cols).double() - want).abs().max().item() / scale
+    assert err_split <= 1e-6, err_split
+    assert err_tf32 >= 30 * err_split, (err_tf32, err_split)
+
+
+@pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 8, 512, 16, 16), (2, 12, 48, 8, 4)])
+def test_k4b_split_matches_plain_backward(lmax, N, H, C, Co):
+    """dx and the six weight and bias gradients of the s2 FFN, with K4b's
+    grid transforms in split TF32 (Ip padded to 16s, Gp to 32s, 64-column
+    tiles), against ``so3_ffn_bwd_plain`` (float32 throughout): within 1e-5
+    of each output's largest magnitude, rtol 1e-5; non-zero biases."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+    from singa_tpu_torch.ops.cuda.so3_ffn import so3_ffn_bwd_plain
+
+    L = lmax + 1
+    rng = np.random.default_rng(11 + N)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32))
+    tg, fg = (torch.as_tensor(m) for m in _grid_mats_for(lmax, lmax, False))
+    args = [f(N, L * L, C), 0.2 * f(L, C, H), 0.1 * f(H), 0.2 * f(C, H), 0.1 * f(H),
+            0.1 * f(L, H, Co), tg, fg, lmax, f(N, L * L, Co)]
+    got = k4b_split(*args)
+    want = so3_ffn_bwd_plain(*args)
+    for name, a, b in zip(NAMES, got, want):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=1e-5, msg=name)
