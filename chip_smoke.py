@@ -15,7 +15,11 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
               and ptxas's report (registers, spills) of K8's, K8b's and
-              K4b's
+              K4b's kernels and of the GEMM kernels of K6 and K6b (of the
+              sources this run compiled)
+     mma_rate the card's mma.sync TF32 rate (csrc/mma_tf32.cu), the
+              ceiling of the tensor-core kernels, a third of it for split
+              TF32
   3. kernel   for K1/K2/K3: the inputs the generation path hands the kernel
               (8 pockets, default Config), the kernel against its plain
               PyTorch version on the card (max error vs the stated
@@ -112,15 +116,22 @@ microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
 call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
 the kernel's alone: the torch.gather calls that feed it are path time, in
-the profiles (main_hybrid's encode_profile, train_profile_hybrid). K4b's
-entry also has ``bound_tc_ms`` (the larger of its four grid transforms,
-which run as split TF32, at three TF32 products each over 495 TFLOP/s and
-the rest over 67 TFLOP/s, since the two units issue together; or its
-bytes over 3.35 TB/s if that is larger), its ptxas
-report and its residency (blocks per SM, threads, dynamic shared memory
-per block). Any failed check raises. TF32 is off for matmuls and cuDNN,
-so every PyTorch product runs in full float32 (K4b alone forms its grid
-transforms as split TF32, csrc/mma_tf32.cuh, to float32 round-off).
+the profiles (main_hybrid's encode_profile, train_profile_hybrid). The
+entries of K4b, K6 and K6b also have ``bound_tc_ms``: the larger of the
+operations that run as split TF32 (K4b's four grid transforms; K6's and
+K6b's conv and weight-gradient products, the GEMM of csrc/so2_chain.cuh)
+at three TF32 products each over 495 TFLOP/s and the rest over 67
+TFLOP/s, since the two units issue together, or the bytes over 3.35 TB/s
+if that is larger. K4b's also has its ptxas report and its residency
+(blocks per SM, threads, dynamic shared memory per block); K6's and
+K6b's the same of the GEMM's kernels (``gemm_ptxas``,
+``gemm_residency``), and train_profile_so2 reports those kernels' device
+time in the profiled step and their rate (``so2_gemm``: the split-TF32
+operations of one step's K6 and K6b calls over that time). Any failed
+check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
+runs in full float32 (K4b's grid transforms and K6's and K6b's products
+run as split TF32 inside the kernels, csrc/mma_tf32.cuh, to float32
+round-off).
 """
 from __future__ import annotations
 
@@ -170,6 +181,7 @@ FORM_WARMUP, FORM_STEPS = 1, 2  # the hybrid and dense attention's training path
 FUSED_SO2 = "SINGA_TPU_FUSED_SO2"  # GraphAttention's switch to kernel K6
 HYBRID_ATTN = "SINGA_TPU_HYBRID_ATTN"  # NeighborGraphMHA's switch to kernel K7
 DENSE_ATTN = "SINGA_TPU_DENSE_ATTN"  # the encoder's switch to kernel K8 (wins over K7's)
+SO2_GEMM = "so2::gemm_kernel"  # K6's and K6b's GEMM kernels in a profile (csrc/so2_chain.cuh)
 
 
 def emit(obj) -> None:
@@ -202,11 +214,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, match: str | None = None) -> dict:
     """Device time of fn() by kernel under torch.profiler, beside the wall
     time of the same call unprofiled. The device's busy time is the sum of
     its kernels' times (one stream, so they do not overlap); the idle share
-    is the rest of the unprofiled wall time."""
+    is the rest of the unprofiled wall time. ``match``: also the device time
+    and launches of the kernels whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -220,6 +233,11 @@ def device_profile(fn) -> dict:
     ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
+    matched = {}
+    if match is not None:
+        hits = [e for e in ops if match in e.key]
+        matched = {"matched": {"name": match, "launches": sum(e.count for e in hits),
+                               "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}}
     return {
         "wall_ms": wall_ms,
         # None: the profiler saw no device work here, so busy time is not measured
@@ -227,6 +245,7 @@ def device_profile(fn) -> dict:
         "idle_share": 1.0 - busy_ms / wall_ms if ops else None,
         "device_ops": sum(e.count for e in ops),
         "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+        **matched,
     }
 
 
@@ -274,6 +293,32 @@ def ptxas_report(log: str) -> dict:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
             out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
                              spill_load_bytes=nums[2])
+    return out
+
+
+def mma_rate(sms: int) -> dict:
+    """The card's rate of mma.sync.m16n8k8 TF32 (csrc/mma_tf32.cu, chains
+    of independent products in registers, no memory traffic), with one and
+    four blocks of 8 warps per SM: the ceiling of K4b's, K6's and K6b's
+    tensor-core work, and a third of it for their split-TF32 products."""
+    import ctypes
+
+    from singa_tpu_torch.ops.cuda import build
+
+    lib = build.load("mma_tf32")
+    fn = lib.mma_tf32_rate_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    chains = lib.mma_tf32_rate_chains()
+    out, iters = {}, 4096
+    for per_sm in (1, 4):
+        blocks = sms * per_sm
+        buf = torch.empty(blocks * 256, device="cuda")
+        ms = time_ms(lambda: build.check(fn(buf.data_ptr(), blocks, iters, build.stream_ptr(buf)),
+                                         "mma_tf32_rate"), iters=10)
+        tflops = blocks * 8 * iters * chains * 2048 / ms / 1e9
+        out[f"blocks_per_sm_{per_sm}"] = {"ms": ms, "tf32_tflop_per_s": tflops,
+                                          "split_tflop_per_s": tflops / 3}
     return out
 
 
@@ -487,6 +532,21 @@ def bound_tc_ms(nbytes: float, flops: float, split_flops: float) -> float:
     return max(t_ops, nbytes / MEM_BYTES_PER_S) * 1e3
 
 
+def k6_split_flops(args) -> float:
+    """The operations of K6 that run as split TF32 on the tensor cores: its
+    conv-1 and conv-2 products (one multiply-add per weight element and
+    edge), so2_chain.cuh's GEMM; the rotation and the grid stay float32."""
+    x, w1s, w2s = args[0], args[4], args[6]
+    return 2.0 * x.shape[0] * sum(w.numel() for w in (*w1s, *w2s))
+
+
+def k6b_split_flops(args) -> float:
+    """K6b's GEMM operations: conv 1 recomputed, dw1 and dmpr (three
+    conv-1-sized products), dw2 and dmid (two conv-2-sized ones)."""
+    x, w1s, w2s = args[0], args[4], args[6]
+    return 2.0 * x.shape[0] * (3 * sum(w.numel() for w in w1s) + 2 * sum(w.numel() for w in w2s))
+
+
 def k5_cost(args, out):
     x, tg, fg = args
     N, I, C = x.shape
@@ -616,10 +676,12 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:123",
            k5b_cost, ("dx",)),
     Kernel("so2_attn_fused", "so2_attn", "so2_attn", "launches",
-           "singa_tpu_torch/csrc/so2_attn.cu", "singa_tpu/ops/pallas/so2_attn.py:387", k6_cost, None),
+           "singa_tpu_torch/csrc/so2_attn.cu", "singa_tpu/ops/pallas/so2_attn.py:387", k6_cost, None,
+           k6_split_flops),
     Kernel("so2_attn_bwd", "so2_attn", "so2_attn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/so2_attn_bwd.cu", "singa_tpu/ops/pallas/so2_attn.py:452", k6b_cost,
-           ("dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2", "db2")),
+           ("dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2", "db2"),
+           k6b_split_flops),
     Kernel("neighbor_attn_hybrid", "neighbor_attn", "neighbor_attn_hybrid", "launches_hybrid",
            "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:492",
            k7_cost, None),
@@ -854,6 +916,12 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                 f"kernel_train{suffix}", "calls_per_microbatch", path))
         results.update(hold_all([k for k in specs if k.outs], mods, captured,
                                 f"kernel_bwd{suffix}", "calls_per_microbatch", path))
+        gemm_flops = None  # so2_chain.cuh's GEMM operations per optimizer step
+        if K6 in specs:
+            micro_per_step = cfg.train.batch_size // micro_size
+            gemm_flops = micro_per_step * sum(
+                calls * spec.split_flops(args) for spec in (K6, K6B)
+                for args, _, calls in captured[f"{spec.fn}_cuda"].values())
         if K4B in specs:  # K4b's residency at the microbatch's widths
             args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
             x, w1, _, _, _, w2, tg, _, lmax, _ = args
@@ -906,8 +974,15 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
 
         # train_profile: one optimizer step
         with ClockSampler() as clocks:
-            prof = device_profile(lambda: trainer.train_step(batch))
-        emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report})
+            prof = device_profile(lambda: trainer.train_step(batch),
+                                  SO2_GEMM if gemm_flops is not None else None)
+        gemm = {}
+        if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
+            ms = prof["matched"]["device_ms"]
+            gemm = {"so2_gemm": {"launches": prof["matched"]["launches"], "device_ms": ms,
+                                 "split_tf32_flops": gemm_flops,
+                                 "tflop_per_s": gemm_flops / ms / 1e9 if ms else None}}
+        emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **gemm})
         data.close()
 
         del trainer
@@ -1243,11 +1318,16 @@ def main() -> int:
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     k4b_ptxas = ptxas_report(logs["so3_ffn_bwd"])
+    gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
+                  for n in ("so2_attn", "so2_attn_bwd")}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
-          "k4b_ptxas": k4b_ptxas})
+          "k4b_ptxas": k4b_ptxas, "so2_gemm_ptxas": gemm_ptxas})
+
+    emit({"phase": "mma_rate",
+          **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
 
     # the main path's batch and model
     files = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "val", "*.npz")))[:8]
@@ -1350,6 +1430,10 @@ def main() -> int:
                          FORM_STEPS)
 
     results[K4B.name]["ptxas"] = k4b_ptxas
+    gemm_residency = mods["so2_attn"].gemm_residency()
+    for spec, lib in ((K6, "so2_attn"), (K6B, "so2_attn_bwd")):
+        results[spec.name]["gemm_ptxas"] = gemm_ptxas[lib]
+        results[spec.name]["gemm_residency"] = gemm_residency
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(smi, flush=True)
     emit({"kernels": [results[k.name] for k in KERNELS]})

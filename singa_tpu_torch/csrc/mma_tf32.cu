@@ -1,6 +1,8 @@
 // One block's product C = A B through csrc/mma_tf32.cuh, and its TF32
 // rounding beside cvt.rna.tf32.f32, for the tests of the helper on the card
-// (tests/test_torch_cuda.py); on no path of the model.
+// (tests/test_torch_cuda.py); and the card's mma.sync TF32 rate, which
+// chip_smoke.py reports beside the kernels built on the helper. On no path
+// of the model.
 //
 // trans = 0: a holds A as [M][K], read with frag_a_paired and B with
 // frag_b_paired (the to-grid orientation of csrc/s2_grid_tc.cuh).
@@ -58,6 +60,23 @@ __global__ void rna_kernel(const float* __restrict__ x, unsigned* __restrict__ b
   }
 }
 
+// kChains independent mma.sync chains a warp, operands in registers: the
+// card's issue rate of mma.m16n8k8 TF32, the ceiling of any kernel built
+// on this helper (three of them per split product)
+constexpr int kChains = 8;
+
+__global__ void __launch_bounds__(kThreads) rate_kernel(float* __restrict__ out, int iters) {
+  const uint32_t a[4] = {threadIdx.x, 1u, 2u, 3u}, b[2] = {5u, threadIdx.x};
+  float c[kChains][4] = {};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) singa::tc::mma(c[j], a, b);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChains; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 }  // namespace
 
 // Returns cudaErrorInvalidValue unless M % 16 == 0, K % 8 == 0, N % 8 == 0
@@ -83,3 +102,13 @@ extern "C" int mma_tf32_rna_f32(const float* x, unsigned* bits, unsigned* ptx, i
       x, bits, ptx, n);
   return (int)cudaGetLastError();
 }
+
+// blocks of 256 threads, each warp issuing iters * mma_tf32_rate_chains()
+// mma.m16n8k8 (2,048 operations each); out holds blocks * 256 floats.
+extern "C" int mma_tf32_rate_f32(float* out, int blocks, int iters, void* stream) {
+  if (blocks < 1 || iters < 1) return (int)cudaErrorInvalidValue;
+  rate_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mma_tf32_rate_chains() { return kChains; }

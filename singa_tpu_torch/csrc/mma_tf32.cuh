@@ -38,7 +38,9 @@
 //   frag_b_paired(B, ldb)   B stored [k][n], k paired (pairs with the above)
 //   frag_a_trans(At, lda)   A stored transposed, At[k][m], k in order
 //   frag_b(B, ldb)          B stored [k][n], k in order (pairs with the above)
-//   frag_b_split(Bhi, Blo, ldb)  the same, from planes split beforehand
+//   frag_b_nk(B, ldb)       B stored [n][k], k paired (pairs with frag_a_paired)
+//   frag_b_split(Bhi, Blo, ldb)  B stored [k][n], k in order, from planes
+//                           split beforehand
 //   store_c(C, ldc, c)      C stored [m][n], two 8-byte stores
 // Shared-memory banks (32 of 4 bytes): frag_a_paired is conflict-free when
 // lda % 32 is 8 or 24 (per half-warp, grp * lda + 2 tig covers 32 banks);
@@ -46,6 +48,8 @@
 // when 2 * ldb % 32 is 8 or 24 (ldb % 16 is 4 or 12); frag_b when ldb % 32
 // is 8 or 24 (frag_b_split the same). One stride with lda % 32 = 24 (or 8) thus serves a constant
 // matrix read both ways: as A = M (paired) and as A = M^T (transposed).
+// frag_b_nk's 8-byte loads (grp * ldb + 2 tig) are conflict-free when
+// ldb % 32 is 8 or 24, as frag_a_paired's.
 #pragma once
 
 #include <stdint.h>
@@ -101,6 +105,16 @@ __device__ __forceinline__ FragB frag_b_paired(const float* B, int ldb) {
   FragB f;
   split(B[(2 * t) * ldb + g], f.hi[0], f.lo[0]);
   split(B[(2 * t + 1) * ldb + g], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B stored [n][k], k paired (pairs with frag_a_paired): one 8-byte load
+__device__ __forceinline__ FragB frag_b_nk(const float* B, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  const float2 v = *reinterpret_cast<const float2*>(B + g * ldb + 2 * t);
+  FragB f;
+  split(v.x, f.hi[0], f.lo[0]);
+  split(v.y, f.hi[1], f.lo[1]);
   return f;
 }
 

@@ -14,17 +14,19 @@
 // MFLOP in conv 1, 8.40 in conv 2, 1.04 in the grid and ~0.05 in the
 // block-diagonal rotation, ~12 MFLOP against ~24 KB of its inputs and
 // outputs: ~5.7 ms of float32 work at a training microbatch's 31,744
-// stage-1 edges (67 TFLOP/s) against ~0.2 ms of memory. Float32 arithmetic
-// bounds it.
+// stage-1 edges (67 TFLOP/s) against ~0.2 ms of memory. The convolutions
+// run on the tensor cores as three-product split TF32: 3 x 348 GFLOP, 2.1
+// ms at the dense TF32 rate (495 TFLOP/s); mma.sync reaches ~0.3 PFLOP/s
+// of it on the H100. Arithmetic bounds it.
 //
 // Design: 90 % of the work is the two convolutions, products of every edge
 // with weights that all edges share (conv 2's are 16.8 MB). So the chain
 // runs as stages (csrc/so2_chain.cuh), cut where the work turns from
 // per-edge to shared-weight products: the rotation (one thread per (edge,
 // channel) column, the J blocks in shared memory, cos/sin of m*phi and
-// m*beta formed in the kernel), the conv-1 products (a register-tiled
-// 128 x 128 GEMM on the CUDA cores, one per section), the separable S2
-// activation (K3's register columns, the [G, H] grid never stored), the
+// m*beta formed in the kernel), the conv-1 products (a 128 x 128-tiled
+// GEMM on the tensor cores in split TF32, one per section), the separable
+// S2 activation (K3's register columns, the [G, H] grid never stored), the
 // conv-2 products (the same GEMM). The rotated message, the conv-1 output
 // and mid pass through device memory: ~2 GB of traffic at the training
 // microbatch, ~0.6 ms against the ~5.7 ms operation bound, the price of
@@ -82,4 +84,43 @@ extern "C" int so2_attn_f32(const float* x, const float* rad, const float* phi, 
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// The chain's GEMM alone, for the tests on the card (tests/test_torch_cuda.py);
+// on no path of the model. orient 0: C = A B (+ bias), 1: C = A B^T with B
+// [N][K], 2: C = A^T B with A [K][M], its depth split into `splits` slices
+// whose partial sums (in `partial`, splits * M * N floats) are added in
+// slice order into C [M][N] (ldc == N). Strides in floats.
+extern "C" int so2_gemm_f32(const float* A, long long lda, const float* B, long long ldb,
+                            float* C, long long ldc, int M, int N, int K, const float* bias,
+                            int orient, int splits, float* partial, void* stream) {
+  namespace so2 = singa::so2;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || orient < 0 || orient > 2)
+    return (int)cudaErrorInvalidValue;
+  if (orient == 0)
+    return (int)so2::gemm<false, false>(A, lda, B, ldb, C, ldc, M, N, K, bias, 1, 0, st);
+  if (orient == 1)
+    return (int)so2::gemm<false, true>(A, lda, B, ldb, C, ldc, M, N, K, bias, 1, 0, st);
+  if (ldc != N || bias != nullptr || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (splits == 1) return (int)so2::gemm<true, false>(A, lda, B, ldb, C, N, M, N, K, nullptr, 1, 0, st);
+  const long long P = (long long)M * N;
+  cudaError_t err = so2::gemm<true, false>(A, lda, B, ldb, partial, N, M, N, K, nullptr, splits, P, st);
+  if (err != cudaSuccess) return (int)err;
+  singa::sum_rows_kernel<<<(int)((P + 255) / 256), 256, 0, st>>>(partial, C, P, splits);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the GEMM kernel of each orientation (0 NN, 1 NT,
+// 2 TN) as the chain launches it, its dynamic shared memory per block in
+// *smem_bytes and its threads per block in *threads; -1 on failure. For
+// reports; launches nothing.
+extern "C" int so2_gemm_residency(int orient, int* smem_bytes, int* threads) {
+  namespace so2 = singa::so2;
+  *threads = so2::kGemmThreads;
+  if (orient == 0) return so2::gemm_residency<false, false>(smem_bytes);
+  if (orient == 1) return so2::gemm_residency<false, true>(smem_bytes);
+  if (orient == 2) return so2::gemm_residency<true, false>(smem_bytes);
+  return -1;
 }

@@ -1,8 +1,9 @@
 // The stages of the SO(2) edge-attention chain shared by K6 (csrc/so2_attn.cu)
 // and K6b (csrc/so2_attn_bwd.cu): the edge-frame rotation and its transpose,
-// a register-tiled float32 GEMM for the products with the shared convolution
-// weights (and for the weight gradients, split over edge slices), and the
-// separable S2 activation over the hidden channels and its backward.
+// a GEMM on the tensor cores (three-product split TF32 through
+// csrc/mma_tf32.cuh) for the products with the shared convolution weights
+// and for the weight gradients (split over edge slices), and the separable
+// S2 activation over the hidden channels and its backward.
 //
 // Per-edge layouts in device memory (one row of floats per edge):
 //   rotated message [n_trunc, C]   m-primary rows, so each conv-1 section is
@@ -15,7 +16,10 @@
 //                                  a contiguous column range
 #pragma once
 
+#include <stdint.h>
+
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace singa {
 namespace so2 {
@@ -282,82 +286,227 @@ inline cudaError_t rotate_bwd(const float* dmpr, const float* rad, const float* 
 
 // ---------------------------------------------------------------- GEMM
 //
-// C[m, n] = sum_k A[m, k] B[k, n] (+ bias[n]), float32 on the CUDA cores.
-// A[m, k] is A[m*lda + k], or A[k*lda + m] when TA; B[k, n] is B[k*ldb + n],
-// or B[n*ldb + k] when TB. gridDim.z splits k into equal slices of whole
-// kBK steps: slice z writes its own sum to C + z * split_stride (the
-// weight gradients' partial sums, added in slice order by sum_rows_kernel).
-// A block computes a kBM x kBN tile from kBK-deep slabs of A and B staged in
-// shared memory (A k-major); each thread keeps an 8 x 8 register tile (rows
-// 4ty..4ty+3 and 64+4ty.., columns 4tx.. and 64+4tx..), so every k step
-// reads four 16-byte vectors of shared memory for 64 multiply-adds. The sum
-// over k runs in order, so the result does not depend on the launch.
-constexpr int kBM = 128, kBN = 128, kBK = 8, kGemmThreads = 256, kSmemPad = 4;
+// C[m, n] = sum_k A[m, k] B[k, n] (+ bias[n]) on the tensor cores, as
+// three-product split TF32 (csrc/mma_tf32.cuh: mma.sync.m16n8k8, float32
+// accumulation, equal to a float32 product to round-off). A[m, k] is
+// A[m*lda + k], or A[k*lda + m] when TA; B[k, n] is B[k*ldb + n], or
+// B[n*ldb + k] when TB. gridDim.z splits k into equal slices of whole BK
+// steps: slice z writes its own sum to C + z * split_stride (the weight
+// gradients' partial sums, added in slice order by sum_rows_kernel).
+//
+// A block computes a kBM x kBN tile from BK-deep slabs. cp.async copies
+// each slab of A and B from device memory into shared memory as it lies,
+// A [m][k] or [k][m], B [k][n] or [n][k], with rows padded to the strides
+// of mma_tf32.cuh's bank rules: the orientation is settled in the copy,
+// the inner loop is one. 16-byte copies in the kernel for operands whose
+// address and row stride allow them, 4-byte ones in the other; zeros past
+// M, N and the slice. A ring of kStages slabs keeps kStages - 1 slabs of
+// copies in flight, in no registers, one barrier a slab. 8 warps, each a
+// 64 x 32 tile of m16n8 accumulators. The fragments are split into TF32
+// hi and lo as they load (the frag_* loaders): planes split beforehand
+// would double the bytes the warps read from shared memory, and the
+// shared-memory traffic, not the splits, held that version back on the
+// H100. The three products of one accumulator are issued lo_a hi_b,
+// hi_a lo_b, hi_a hi_b, each round over the warp's n8 tiles, so no two
+// neighbouring mma share an accumulator.
+//
+// The tensor cores add into their float32 accumulator without rounding to
+// nearest (the low bits are cut), an error that grows with the number of
+// mma chained into one accumulator: ~1e-5 of the largest output at a
+// depth of 1,536 on the H100 when the whole depth is chained. So each
+// slab's products go into fresh accumulators, added to the block's float32
+// sums by ordinary (rounded) adds after the slab: chains of 3 * BK / 8
+// mma. The sum over k runs in order, so the result does not depend on the
+// launch.
+//
+// On the H100 (nvcc -Xptxas -v, sm_90a): 255 registers NN, 237 NT, 228 TN,
+// no spills; 207 / 216 / 102 KB of shared memory; one block of 8 warps an
+// SM. Two blocks an SM (128 registers: spills) and a split pass from raw
+// slabs into hi/lo planes ran slower; 64-deep slabs ran faster for NN and
+// NT, slower for TN.
+constexpr int kBM = 128, kBN = 128, kGemmThreads = 256, kStages = 3;
 
 template <bool TA, bool TB>
+struct GemmTile {
+  static_assert(!(TA && TB), "no product reads both operands transposed");
+  static constexpr int WN = 4, WM = kGemmThreads / 32 / WN;  // warps
+  static constexpr int WTM = kBM / WM, WTN = kBN / WN;        // warp tile
+  static constexpr int MT = WTM / 16, NT = WTN / 8;           // mma tiles
+  static constexpr int BK = TA ? 32 : 64;  // slab depth
+  // slabs as they lie in device memory: rows of contiguous floats
+  static constexpr int A_ROWS = TA ? BK : kBM, A_COLS = TA ? kBM : BK;
+  static constexpr int B_ROWS = TB ? kBN : BK, B_COLS = TB ? BK : kBN;
+  // strides (floats, multiples of 4): [m][k], [n][k] paired, 8-byte loads:
+  // ld % 32 of 8 or 24; [k][m] and, beside it, [k][n] in order: the same;
+  // [k][n] paired: ld % 16 of 4 or 12
+  static constexpr int LA = A_COLS + 8;
+  static constexpr int LB = TB ? BK + 8 : (TA ? kBN + 8 : kBN + 4);
+  static constexpr int A_FLOATS = A_ROWS * LA, B_FLOATS = B_ROWS * LB;
+  static constexpr int STAGE = A_FLOATS + B_FLOATS;
+  static constexpr size_t SMEM = (size_t)kStages * STAGE * sizeof(float);
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// every group of this thread's copies but the newest kStages - 2 complete
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+}
+
+// every group complete (the empty groups past the last slab: nothing is
+// left in flight when the block ends)
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// One operand's slab into shared memory [ROWS][ld]: row r from
+// p + (r0 + r) * ld_p + c0, rows valid below rlim, columns below clim,
+// zeros past them. VEC: p and ld_p 16-byte aligned, 16-byte copies (the
+// limits cut a copy only at a slice's or M's or N's end); else 4-byte ones.
+// A copy that reads nothing gets a valid address all the same.
+template <int ROWS, int COLS, bool VEC>
+__device__ __forceinline__ void copy_slab(const float* __restrict__ p, long long ld_p, int r0,
+                                          int rlim, int c0, int clim, float* dst, int ld) {
+  constexpr int C4 = COLS / 4, V = ROWS * C4 / kGemmThreads;
+  static_assert(V * kGemmThreads == ROWS * C4, "slab");
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int idx = threadIdx.x + v * kGemmThreads;
+    const int r = idx / C4, c = 4 * (idx % C4);
+    const int gr = r0 + r, gc = c0 + c;
+    const int n = gr < rlim ? max(0, min(4, clim - gc)) : 0;  // floats in range
+    const float* src = n > 0 ? p + (long long)gr * ld_p + gc : p;
+    float* d = dst + r * ld + c;
+    if (VEC) {
+      cp_async16(d, src, 4 * n);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cp_async4(d + q, q < n ? src + q : p, q < n ? 4 : 0);
+    }
+  }
+}
+
+template <bool TA, bool TB, bool VEC>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict__ B,
             long long ldb, float* __restrict__ C, long long ldc, int M, int N, int K,
-            const float* __restrict__ bias, int kslice, long long split_stride) {
-  __shared__ __align__(16) float As[kBK][kBM + kSmemPad];
-  __shared__ __align__(16) float Bs[kBK][kBN + kSmemPad];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+            const float* __restrict__ bias, int kslice, long long split_stride, bool vec_c) {
+  using T = GemmTile<TA, TB>;
+  extern __shared__ __align__(16) float gsm[];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int kb = blockIdx.z * kslice;
   const int ke = min(K, kb + kslice);
-  float acc[8][8];
+  const int steps = ke > kb ? (ke - kb + T::BK - 1) / T::BK : 0;
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp / T::WN) * T::WTM, wn = (warp % T::WN) * T::WTN;
+  float acc[T::MT][T::NT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
+  // slab s of the slice into stage s % kStages (a group, empty past the end)
+  auto copy = [&](int s) {
+    if (s < steps) {
+      float* sa = gsm + (s % kStages) * T::STAGE;
+      float* sb = sa + T::A_FLOATS;
+      const int k0 = kb + s * T::BK;
+      copy_slab<T::A_ROWS, T::A_COLS, VEC>(A, lda, TA ? k0 : m0, TA ? ke : M, TA ? m0 : k0,
+                                           TA ? M : ke, sa, T::LA);
+      copy_slab<T::B_ROWS, T::B_COLS, VEC>(B, ldb, TB ? n0 : k0, TB ? N : ke, TB ? k0 : n0,
+                                           TB ? ke : N, sb, T::LB);
+    }
+    cp_async_commit();
+  };
+
 #pragma unroll
-    for (int r = 0; r < kBM * kBK / kGemmThreads; ++r) {
-      const int idx = tid + r * kGemmThreads;
-      const int m = TA ? idx % kBM : idx / kBK, k = TA ? idx / kBM : idx % kBK;
-      const int gm = m0 + m, gk = k0 + k;
-      float v = 0.f;
-      if (gm < M && gk < ke) v = TA ? A[(long long)gk * lda + gm] : A[(long long)gm * lda + gk];
-      As[k][m] = v;
+  for (int s = 0; s < kStages - 1; ++s) copy(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait();  // slab s is in its stage (this thread's copies)
+    __syncthreads();  // everyone's copies; slab s - 1's readers done
+    copy(s + kStages - 1);  // into the stage slab s - 1 left
+    const float* sa = gsm + (s % kStages) * T::STAGE;
+    const float* sb = sa + T::A_FLOATS;
+    float part[T::MT][T::NT][4];  // this slab's sums
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < T::BK; kk += 8) {
+      tc::FragB fb[T::NT];
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int n = wn + 8 * j;
+        if (TB)
+          fb[j] = tc::frag_b_nk(sb + n * T::LB + kk, T::LB);
+        else if (TA)
+          fb[j] = tc::frag_b(sb + kk * T::LB + n, T::LB);
+        else
+          fb[j] = tc::frag_b_paired(sb + kk * T::LB + n, T::LB);
+      }
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) {
+        const int m = wm + 16 * i;
+        const tc::FragA fa = TA ? tc::frag_a_trans(sa + kk * T::LA + m, T::LA)
+                                : tc::frag_a_paired(sa + m * T::LA + kk, T::LA);
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.lo, fb[j].hi);
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].lo);
+#pragma unroll
+        for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].hi);
+      }
     }
 #pragma unroll
-    for (int r = 0; r < kBN * kBK / kGemmThreads; ++r) {
-      const int idx = tid + r * kGemmThreads;
-      const int n = TB ? idx / kBK : idx % kBN, k = TB ? idx % kBK : idx / kBN;
-      const int gn = n0 + n, gk = k0 + k;
-      float v = 0.f;
-      if (gn < N && gk < ke) v = TB ? B[(long long)gn * ldb + gk] : B[(long long)gk * ldb + gn];
-      Bs[k][n] = v;
-    }
-    __syncthreads();
+    for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + 4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int j = 0; j < T::NT; ++j)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
   }
+  cp_async_wait_all();
 
+  // c0, c1 at (grp, 2 tig, 2 tig + 1) of each m16n8 tile, c2, c3 eight rows below
   float* Cz = C + blockIdx.z * split_stride;
+  const int g = tc::lane_grp(), t = tc::lane_tig();
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (gm >= M) continue;
+  for (int i = 0; i < T::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (gn < N) Cz[(long long)gm * ldc + gn] = acc[i][j] + (bias != nullptr ? bias[gn] : 0.f);
+    for (int j = 0; j < T::NT; ++j) {
+      const int n = n0 + wn + 8 * j + 2 * t;
+      const float b0 = bias != nullptr && n < N ? bias[n] : 0.f;
+      const float b1 = bias != nullptr && n + 1 < N ? bias[n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * i + g + 8 * h;
+        if (m >= M) continue;
+        float* row = Cz + (long long)m * ldc;
+        const float v0 = acc[i][j][2 * h] + b0, v1 = acc[i][j][2 * h + 1] + b1;
+        if (vec_c && n + 1 < N) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) row[n] = v0;
+          if (n + 1 < N) row[n + 1] = v1;
+        }
+      }
     }
-  }
+}
+
+inline bool aligned16(const void* p, long long ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 4 == 0;
 }
 
 // One product, k split into `splits` slices (1: C is the product itself).
@@ -365,12 +514,37 @@ template <bool TA, bool TB>
 cudaError_t gemm(const float* A, long long lda, const float* B, long long ldb, float* C,
                  long long ldc, int M, int N, int K, const float* bias, int splits,
                  long long split_stride, cudaStream_t st) {
-  const int steps = (K + kBK - 1) / kBK;
-  const int kslice = (steps + splits - 1) / splits * kBK;
+  using T = GemmTile<TA, TB>;
+  const int steps = (K + T::BK - 1) / T::BK;
+  const int kslice = (steps + splits - 1) / splits * T::BK;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  gemm_kernel<TA, TB><<<grid, kGemmThreads, 0, st>>>(A, lda, B, ldb, C, ldc, M, N, K, bias,
-                                                     kslice, split_stride);
+  const bool vec_c = reinterpret_cast<uintptr_t>(C) % 8 == 0 && ldc % 2 == 0 &&
+                     split_stride % 2 == 0;
+  // the kernel of 16-byte copies when both operands allow them. Opted in at
+  // every launch: a function-local static here would be one object for
+  // every library that instantiates this template (a GNU unique symbol), so
+  // a second library's kernel would never be.
+  auto kernel = aligned16(A, lda) && aligned16(B, ldb) ? gemm_kernel<TA, TB, true>
+                                                       : gemm_kernel<TA, TB, false>;
+  const cudaError_t opted = allow_smem(kernel, T::SMEM);
+  if (opted != cudaSuccess) return opted;
+  kernel<<<grid, kGemmThreads, T::SMEM, st>>>(A, lda, B, ldb, C, ldc, M, N, K, bias, kslice,
+                                              split_stride, vec_c);
   return cudaGetLastError();
+}
+
+// Resident blocks per SM of gemm<TA, TB>'s kernel of 16-byte copies; its
+// dynamic shared memory in *smem_bytes. -1 on failure.
+template <bool TA, bool TB>
+int gemm_residency(int* smem_bytes) {
+  using T = GemmTile<TA, TB>;
+  *smem_bytes = (int)T::SMEM;
+  if (allow_smem(gemm_kernel<TA, TB, true>, T::SMEM) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<TA, TB, true>,
+                                                    kGemmThreads, T::SMEM) != cudaSuccess)
+    return -1;
+  return per_sm;
 }
 
 inline int sm_count() {

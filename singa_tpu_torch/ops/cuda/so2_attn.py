@@ -131,6 +131,22 @@ def _lib(name: str, n_ptr: int):
     return scratch, fn
 
 
+def gemm_residency() -> dict:
+    """The chain's GEMM kernel (``csrc/so2_chain.cuh``) in each orientation
+    it runs (NN: conv 1 and 2; NT: dmid, dmpr; TN: dw1, dw2): resident
+    blocks per SM (-1: the card refused it), threads and dynamic shared
+    memory per block. For reports; launches nothing."""
+    fn = build.load("so2_attn").so2_gemm_residency
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    out = {}
+    for orient, name in enumerate(("nn", "nt", "tn")):
+        smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+        per_sm = fn(orient, ctypes.byref(smem), ctypes.byref(threads))
+        out[name] = {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
+    return out
+
+
 def _rotation_blocks(lmax: int, mmax: int, device) -> torch.Tensor:
     """The block-diagonal J ``[(lmax+1)^2, (lmax+1)^2]``; the kernels read
     its diagonal blocks."""

@@ -9,8 +9,9 @@ there ``tests/conftest.py`` (which imports JAX) is left out:
 
 Inputs are made with numpy from fixed seeds, at the main path's widths and
 at ragged sizes that exercise each kernel's edge handling. Everything runs
-in float32 with TF32 off (K4b forms its grid transforms as split TF32, to
-float32 round-off); the kernel and the plain version add the same
+in float32 with TF32 off (K4b forms its grid transforms, and K6 and K6b
+their conv and weight-gradient products, as split TF32, to float32
+round-off); the kernel and the plain version add the same
 products in a different order, so they agree to atol/rtol 1e-4 on outputs
 of order 1-100. Backward outputs that are sums over many nodes (weight
 gradients, the dk/dv scatter) are held to 1e-4 of their largest magnitude:
@@ -517,7 +518,8 @@ def _so2_bwd_args(args, cts):
     return [*args[:7], *args[8:], *cts]
 
 
-SO2_CASES = [(300, 6, 32, 128, 112, 224), (0, 6, 32, 128, 112, 224), (37, 3, 8, 40, 12, 6)]
+SO2_CASES = [(300, 6, 32, 128, 112, 224), (0, 6, 32, 128, 112, 224), (37, 3, 8, 40, 12, 6),
+             (4000, 6, 32, 128, 112, 224)]
 
 
 @pytest.mark.cuda
@@ -525,8 +527,10 @@ SO2_CASES = [(300, 6, 32, 128, 112, 224), (0, 6, 32, 128, 112, 224), (37, 3, 8, 
 def test_so2_attn_kernels_match_plain(dev, E, lmax, C, H, F2, alpha_ch):
     """K6 and K6b at the default Config's widths (c_in 32, H 128, F2 112,
     224 alpha channels, lmax 6) with an edge count no multiple of the GEMM
-    tile, at E = 0, and at lmax 3 with a hidden width no multiple of 128;
-    non-zero biases. K6b: dx, drad and every weight and bias gradient."""
+    tile, at E = 0, at lmax 3 with a hidden width no multiple of 128 (rows
+    of F2 and section offsets no multiple of 4 floats), and at 4,000 edges
+    (weight gradients over several edge slices); non-zero biases. K6b: dx,
+    drad and every weight and bias gradient."""
     from singa_tpu_torch.ops.cuda import so2_attn as k6
 
     args, cts = _so2_case(dev, E, lmax, C, H, F2, alpha_ch, 101 + E)
@@ -539,6 +543,95 @@ def test_so2_attn_kernels_match_plain(dev, E, lmax, C, H, F2, alpha_ch):
         _check(g, w)
     _check_grads(grads, k6.so2_attn_bwd_plain(*_so2_bwd_args(args, cts)),
                  ["dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2", "db2"])
+
+
+@pytest.mark.cuda
+def test_so2_attn_bwd_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K6b meets tells split TF32 from one TF32 product
+    at the training microbatch's 31,744 stage-1 edges and the default
+    widths: the kernel and the split rendering of its arithmetic
+    (test_torch_tf32_split.so2_bwd_split) pass it against
+    so2_attn_bwd_plain; the same rendering with one TF32 product per conv
+    product fails it on at least one output."""
+    from test_torch_tf32_split import SO2_GRADS, mm_tf32, so2_bwd_split
+
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
+
+    args, cts = _so2_case(dev, 31744, 6, 32, 128, 112, 224, 107)
+    bwd_args = _so2_bwd_args(args, cts)
+    nb = k6.launches_bwd
+    got = k6.so2_attn_bwd_cuda(*bwd_args)
+    assert k6.launches_bwd == nb + 1
+    want = k6.so2_attn_bwd_plain(*bwd_args)
+    ratios = {"kernel": _hold_ratios(got, want, SO2_GRADS)}
+    del got
+    ratios["split"] = _hold_ratios(so2_bwd_split(*bwd_args), want, SO2_GRADS)
+    ratios["one_tf32"] = _hold_ratios(so2_bwd_split(*bwd_args, mm=mm_tf32), want, SO2_GRADS)
+    print(json.dumps({"hold_ratios": ratios}))
+    assert max(ratios["kernel"].values()) <= 1.0, ratios
+    assert max(ratios["split"].values()) <= 1.0, ratios
+    assert max(ratios["one_tf32"].values()) > 1.0, ratios
+
+
+# (orientation, M, K, N, edge slices, ragged): C [M, N] = A B, A^T B or A B^T
+SO2_GEMM_CASES = [("nn", 301, 37, 83, 1, True), ("nt", 301, 37, 83, 1, True),
+                  ("tn", 301, 37, 83, 3, True), ("tn", 83, 1001, 37, 3, True),
+                  ("nn", 4096, 1536, 1344, 1, False), ("nt", 4096, 1536, 1344, 1, False),
+                  ("tn", 1536, 4096, 1344, 3, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient,M,K,N,splits,ragged", SO2_GEMM_CASES)
+def test_so2_gemm_matches_float64(dev, orient, M, K, N, splits, ragged):
+    """The SO(2) chain's GEMM alone (csrc/so2_chain.cuh, split TF32
+    mma.sync), in the three orientations the chain uses: NN with a bias
+    (conv 1 and 2), NT (dmid, dmpr: B stored [N][K]) and TN with the edges
+    as depth, split into 3 slices added in order (dw1, dw2). Ragged cases:
+    sizes no multiple of the tile, operands 4 bytes past a 16-byte boundary
+    with row strides 3 floats wider than the rows (4-byte copies), an odd
+    ldc (scalar stores), and a slice left empty (K 37); the others at conv 2's
+    section-1 widths. Within 2e-6 of the largest output of the float64
+    product (one TF32 product: ~3e-4)."""
+    import ctypes
+
+    from singa_tpu_torch.ops.cuda import build
+
+    rng = np.random.default_rng(109 + M + K + N)
+    pad, off = (3, 1) if ragged else (0, 0)
+    a_shape = (K, M) if orient == "tn" else (M, K)
+    b_shape = (N, K) if orient == "nt" else (K, N)
+    a, b = (rng.normal(size=s).astype(np.float32) for s in (a_shape, b_shape))
+    bias = rng.normal(size=N).astype(np.float32) if orient == "nn" else None
+
+    def stored(x):  # x at row stride width + pad, `off` floats into its buffer
+        buf = np.zeros(off + x.shape[0] * (x.shape[1] + pad), np.float32)
+        buf[off:].reshape(x.shape[0], -1)[:, : x.shape[1]] = x
+        return _t(buf, dev)
+
+    ta, tb = stored(a), stored(b)
+    ldc = N + 1 if ragged and orient != "tn" else N
+    out = torch.full((M * ldc,), float("nan"), dtype=torch.float32, device=dev)
+    partial = torch.empty(splits * M * N if splits > 1 else 1, dtype=torch.float32, device=dev)
+    tbias = _t(bias, dev) if bias is not None else None
+    fn = build.load("so2_attn").so2_gemm_f32
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    f32 = 4
+    build.check(fn(ta.data_ptr() + off * f32, a_shape[1] + pad, tb.data_ptr() + off * f32,
+                   b_shape[1] + pad, out.data_ptr(), ldc, M, N, K,
+                   tbias.data_ptr() if tbias is not None else None,
+                   {"nn": 0, "nt": 1, "tn": 2}[orient], splits, partial.data_ptr(),
+                   build.stream_ptr(out)), "so2_gemm")
+    torch.cuda.synchronize()
+    a64, b64 = (torch.as_tensor(x).to(dev, torch.float64) for x in (a, b))
+    want = (a64.T if orient == "tn" else a64) @ (b64.T if orient == "nt" else b64)
+    if bias is not None:
+        want += torch.as_tensor(bias).to(dev, torch.float64)
+    got = out.view(M, ldc)[:, :N].double()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= 2e-6, err
 
 
 @pytest.mark.cuda

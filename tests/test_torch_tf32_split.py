@@ -1,6 +1,7 @@
-"""Split TF32, the arithmetic of K4b's grid transforms on the tensor cores
-(``singa_tpu_torch/csrc/mma_tf32.cuh``, ``csrc/s2_grid_tc.cuh``), rendered
-in plain PyTorch on the CPU.
+"""Split TF32, the arithmetic of K4b's grid transforms and of K6's and
+K6b's conv and weight-gradient products on the tensor cores
+(``singa_tpu_torch/csrc/mma_tf32.cuh``, ``csrc/s2_grid_tc.cuh``,
+``csrc/so2_chain.cuh``), rendered in plain PyTorch on the CPU.
 
 ``tf32_rna`` is ``cvt.rna.tf32.f32`` by integer bit operations: round to
 nearest with ties away from zero, to 10 explicit mantissa bits. The split
@@ -17,7 +18,10 @@ product is at least 30x further off (which is why the kernel splits); the
 whole K4b backward rendered on split transforms, in the kernel's column
 tiles and grid chunks (and, at lmax 6, its last coefficient row in float32
 as the kernel takes it), is within 1e-5 (of each output's largest
-magnitude, floored at 1) / 1e-5 of ``so3_ffn_bwd_plain``.
+magnitude, floored at 1) / 1e-5 of ``so3_ffn_bwd_plain``. K6's outputs
+and K6b's gradients with every conv product split (``so2_split``,
+``so2_bwd_split``) are within 1e-5 of each output's largest magnitude of
+``so2_attn_plain`` / ``so2_attn_bwd_plain`` at the default widths.
 """
 from __future__ import annotations
 
@@ -131,6 +135,80 @@ def k4b_split(x, w1, b1, wg, bg, w2, tg, fg, lmax, dy, mm=mm_split):
     return dx, dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2, dy[:, 0].sum(0)
 
 
+class MM(torch.autograd.Function):
+    """a @ b through ``mm`` both ways: the forward ``mm(a, b)``, the
+    backward ``mm(g, b^T)`` and ``mm(a^T, g)``, the orientations of the
+    SO(2) chain's GEMM (NN, NT, TN)."""
+
+    @staticmethod
+    def forward(ctx, a, b, mm):
+        ctx.save_for_backward(a, b)
+        ctx.mm = mm
+        return mm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return ctx.mm(g, b.T.contiguous()), ctx.mm(a.T.contiguous(), g), None
+
+
+def so2_split(x, rad, phi, beta, w1s, b1, w2s, b2, to_grid, from_grid,
+              lmax: int, mmax: int, H: int, F2: int, alpha_ch: int, mm=mm_split):
+    """``so2_attn_plain`` with every conv product through ``MM`` (split TF32
+    by default, as K6 and K6b form them; ``mm_tf32`` for one TF32 product),
+    the rotation and the S2 activation in plain float32."""
+    from singa_tpu_torch.equivariant import so3
+    from singa_tpu_torch.ops.cuda.s2_act import s2_silu_sep_plain
+    from singa_tpu_torch.ops.cuda.so2_attn import sections
+
+    secs = sections(lmax, mmax)
+    n0 = secs[0]
+    E, _, c_in = x.shape
+    mp = so3.rotate(so3.EdgeFrame(phi=phi, beta=beta), x, lmax, mmax, m_primary=True)
+    flat = (mp * rad).reshape(E, sum(secs) * c_in)
+    ys, off = [], 0
+    for w, rows in zip(w1s, secs):
+        ys.append(MM.apply(flat[:, off : off + rows * c_in].contiguous(), w, mm))
+        off += rows * c_in
+    ys[0] = ys[0] + b1
+    extra = ys[0][:, n0 * H :]
+    h = torch.cat(
+        [ys[0][:, : n0 * H].reshape(E, n0, H)]
+        + [y.reshape(E, rows, H) for y, rows in zip(ys[1:], secs[1:])],
+        dim=1,
+    )
+    mid = s2_silu_sep_plain(h, extra[:, alpha_ch:], to_grid, from_grid).reshape(E, sum(secs) * H)
+    zs, off = [], 0
+    for w, rows in zip(w2s, secs):
+        zs.append(MM.apply(mid[:, off : off + rows * H].contiguous(), w, mm))
+        off += rows * H
+    zs[0] = zs[0] + b2
+    return (*zs, extra)
+
+
+def so2_bwd_split(x, rad, phi, beta, w1s, b1, w2s, to_grid, from_grid,
+                  lmax: int, mmax: int, H: int, F2: int, alpha_ch: int, *cts, mm=mm_split):
+    """``so2_attn_bwd_plain`` over ``so2_split``: K6b's ten gradients with
+    conv 1 recomputed, dw2, dmid, dw1 and dmpr through ``mm``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, rad, *w1s, b1, *w2s)]
+        n1 = len(w1s)
+        b2 = x.new_zeros((w2s[0].shape[1],), requires_grad=True)
+        out = so2_split(leaves[0], leaves[1], phi, beta, leaves[2 : 2 + n1], leaves[2 + n1],
+                        leaves[3 + n1 :], b2, to_grid, from_grid, lmax, mmax, H, F2, alpha_ch,
+                        mm=mm)
+        return torch.autograd.grad(out, (*leaves, b2), cts)
+
+
+SO2_OUTS = ["z0", "z1", "z2", "extra"]
+SO2_GRADS = ["dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2", "db2"]
+
+
+def rel_errs(got, want, names):
+    """Each output's largest |got - want| over its largest magnitude."""
+    return {n: ((a - b).abs().max() / b.abs().max()).item() for n, a, b in zip(names, got, want)}
+
+
 def test_tf32_rna_rounds_to_nearest_ties_away():
     """Ten explicit mantissa bits kept; half a TF32 ulp rounds away from
     zero for either sign; just under half rounds down; 13 low bits clear."""
@@ -185,3 +263,30 @@ def test_k4b_split_matches_plain_backward(lmax, N, H, C, Co):
     for name, a, b in zip(NAMES, got, want):
         scale = max(1.0, b.abs().max().item())
         torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=1e-5, msg=name)
+
+
+def test_so2_split_matches_plain_at_default_widths():
+    """K6's outputs and K6b's ten gradients with every conv product (conv 1,
+    conv 2, and backward dmid, dmpr, dw1, dw2) in split TF32, at the default
+    Config's widths (lmax 6, c_in 32, H 128, F2 112, 224 alpha channels)
+    and 300 edges, against ``so2_attn_plain`` / ``so2_attn_bwd_plain``
+    (float32): within 1e-5 of each output's largest magnitude. The same
+    rendering with one TF32 product is at least 30x further off on every
+    output that a product reaches (db2 is the column sum of dz0, with no
+    product on its path, and is exact in both)."""
+    from test_torch_cuda import _so2_bwd_args, _so2_case
+
+    from singa_tpu_torch.ops.cuda.so2_attn import so2_attn_bwd_plain, so2_attn_plain
+
+    args, cts = _so2_case("cpu", 300, 6, 32, 128, 112, 224, 17)
+    bwd = _so2_bwd_args(args, cts)
+    want = so2_attn_plain(*args)
+    want_g = so2_attn_bwd_plain(*bwd)
+    split = {**rel_errs(so2_split(*args), want, SO2_OUTS),
+             **rel_errs(so2_bwd_split(*bwd), want_g, SO2_GRADS)}
+    one = {**rel_errs(so2_split(*args, mm=mm_tf32), want, SO2_OUTS),
+           **rel_errs(so2_bwd_split(*bwd, mm=mm_tf32), want_g, SO2_GRADS)}
+    assert max(split.values()) <= 1e-5, split
+    assert one["db2"] == split["db2"] == 0.0, (one["db2"], split["db2"])
+    for name in SO2_OUTS + SO2_GRADS[:-1]:
+        assert one[name] >= 30 * split[name], (name, one[name], split[name])
