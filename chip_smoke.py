@@ -15,11 +15,16 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
               and ptxas's report (registers, spills) of K8's, K8b's and
-              K4b's kernels and of the GEMM kernels of K6 and K6b (of the
-              sources this run compiled)
+              K4b's kernels, of K2b's weight kernel and of the GEMM kernels
+              of K6 and K6b (of the sources this run compiled)
      mma_rate the card's mma.sync TF32 rate (csrc/mma_tf32.cu), the
               ceiling of the tensor-core kernels, a third of it for split
               TF32
+     kernel_bwd_lmax4  K2 and K2b at lmax 4 (the lmax of
+              configs/train_lmax4.yml and configs/gan_recipe.yml, on no
+              path below), C = Co = 16, H 512, 14,336 nodes, seeded inputs:
+              each against its plain version (K2 to TOL, each output of K2b
+              to BWD_TOL of its largest magnitude), with the times
   3. kernel   for K1/K2/K3: the inputs the generation path hands the kernel
               (8 pockets, default Config), the kernel against its plain
               PyTorch version on the card (max error vs the stated
@@ -61,8 +66,11 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               that is non-zero somewhere for every parameter, and on one
               fixed batch a loss after 5 steps below the first step's
      train_profile  torch.profiler over one optimizer step: device busy time,
-              idle share, the costliest kernels, and the SM clock, power
-              and temperature nvidia-smi sampled meanwhile
+              idle share, the costliest kernels, K2b's kernels by name
+              (``k2b_kernels``: the dx kernel, the weight kernel, and
+              sum_rows_kernel, which the other backwards' sums also run;
+              in every train_profile* phase whose path runs K2b), and the
+              SM clock, power and temperature nvidia-smi sampled meanwhile
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
               card run at the same inputs as a witness of the card's own
@@ -117,21 +125,23 @@ call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
 the kernel's alone: the torch.gather calls that feed it are path time, in
 the profiles (main_hybrid's encode_profile, train_profile_hybrid). The
-entries of K4b, K6 and K6b also have ``bound_tc_ms``: the larger of the
-operations that run as split TF32 (K4b's four grid transforms; K6's and
-K6b's conv and weight-gradient products, the GEMM of csrc/so2_chain.cuh)
-at three TF32 products each over 495 TFLOP/s and the rest over 67
-TFLOP/s, since the two units issue together, or the bytes over 3.35 TB/s
-if that is larger. K4b's also has its ptxas report and its residency
-(blocks per SM, threads, dynamic shared memory per block); K6's and
+entries of K2b, K4b, K6 and K6b also have ``bound_tc_ms``: the larger of
+the operations that run as split TF32 (K2b's weight kernel's four
+per-degree products h, dmid, dw1, dw2; K4b's four grid transforms; K6's
+and K6b's conv and weight-gradient products, the GEMM of
+csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
+rest over 67 TFLOP/s, since the two units issue together, or the bytes
+over 3.35 TB/s if that is larger. K2b's and K4b's also have the ptxas
+report and the residency (blocks per SM, threads, dynamic shared memory
+per block) of their tensor-core kernel; K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
 ``gemm_residency``), and train_profile_so2 reports those kernels' device
 time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
-runs in full float32 (K4b's grid transforms and K6's and K6b's products
-run as split TF32 inside the kernels, csrc/mma_tf32.cuh, to float32
-round-off).
+runs in full float32 (K2b's weight products, K4b's grid transforms and
+K6's and K6b's products run as split TF32 inside the kernels,
+csrc/mma_tf32.cuh, to float32 round-off).
 """
 from __future__ import annotations
 
@@ -182,6 +192,10 @@ FUSED_SO2 = "SINGA_TPU_FUSED_SO2"  # GraphAttention's switch to kernel K6
 HYBRID_ATTN = "SINGA_TPU_HYBRID_ATTN"  # NeighborGraphMHA's switch to kernel K7
 DENSE_ATTN = "SINGA_TPU_DENSE_ATTN"  # the encoder's switch to kernel K8 (wins over K7's)
 SO2_GEMM = "so2::gemm_kernel"  # K6's and K6b's GEMM kernels in a profile (csrc/so2_chain.cuh)
+# K2b's kernels in a profile (csrc/so3_gate_ffn_bwd.cu); sum_rows_kernel is
+# also the second pass of K1b's, K4b's, K6b's and K8b's sums
+K2B_KERNELS = ("gate_ffn_bwd_dx_kernel", "gate_ffn_bwd_w_kernel", "sum_rows_kernel")
+LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 
 
 def emit(obj) -> None:
@@ -214,12 +228,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, match: str | None = None) -> dict:
+def device_profile(fn, match=()) -> dict:
     """Device time of fn() by kernel under torch.profiler, beside the wall
     time of the same call unprofiled. The device's busy time is the sum of
     its kernels' times (one stream, so they do not overlap); the idle share
-    is the rest of the unprofiled wall time. ``match``: also the device time
-    and launches of the kernels whose name contains it."""
+    is the rest of the unprofiled wall time. ``match``: names; for each, the
+    device time and launches of the kernels whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -234,10 +248,10 @@ def device_profile(fn, match: str | None = None) -> dict:
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
     matched = {}
-    if match is not None:
-        hits = [e for e in ops if match in e.key]
-        matched = {"matched": {"name": match, "launches": sum(e.count for e in hits),
-                               "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}}
+    for name in match:
+        hits = [e for e in ops if name in e.key]
+        matched[name] = {"launches": sum(e.count for e in hits),
+                         "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
     return {
         "wall_ms": wall_ms,
         # None: the profiler saw no device work here, so busy time is not measured
@@ -245,7 +259,7 @@ def device_profile(fn, match: str | None = None) -> dict:
         "idle_share": 1.0 - busy_ms / wall_ms if ops else None,
         "device_ops": sum(e.count for e in ops),
         "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
-        **matched,
+        "matched": matched,
     }
 
 
@@ -522,6 +536,16 @@ def k4b_split_flops(args) -> float:
     return 2.0 * N * 4 * tg.shape[0] * I * w1.shape[2]
 
 
+def k2b_split_flops(args) -> float:
+    """The operations of K2b that run as split TF32 on the tensor cores: its
+    weight kernel's four per-degree products h, dmid, dw1 and dw2, each
+    counted once (the dx kernel's products and the gate path stay
+    float32)."""
+    x, w1, _, _, _, w2, _, _ = args
+    N, I, C = x.shape
+    return 2.0 * N * I * w1.shape[2] * 2 * (C + w2.shape[2])
+
+
 def bound_tc_ms(nbytes: float, flops: float, split_flops: float) -> float:
     """The least time of a kernel whose ``split_flops`` run as three TF32
     products each at the tensor cores' rate and the rest of ``flops`` at
@@ -661,7 +685,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            k1b_cost, ATTN_BWD_OUTS),
     Kernel("so3_gate_ffn_bwd", "so3_ffn", "so3_gate_ffn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/so3_gate_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:529",
-           k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")),
+           k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"), k2b_split_flops),
     Kernel("s2_silu_sep_bwd", "s2_act", "s2_silu_sep_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:209",
            k3b_cost, ("dx", "d_scalars")),
@@ -922,6 +946,11 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             gemm_flops = micro_per_step * sum(
                 calls * spec.split_flops(args) for spec in (K6, K6B)
                 for args, _, calls in captured[f"{spec.fn}_cuda"].values())
+        if K2B in specs:  # K2b's weight kernel's residency at the microbatch's widths
+            args = next(iter(captured["so3_gate_ffn_bwd_cuda"].values()))[0]
+            x, w1, _, _, _, w2, lmax, _ = args
+            results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(
+                lmax, x.shape[2], w1.shape[2], w2.shape[2])
         if K4B in specs:  # K4b's residency at the microbatch's widths
             args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
             x, w1, _, _, _, w2, tg, _, lmax, _ = args
@@ -973,16 +1002,19 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             raise AssertionError(f"non-finite training loss: {log}")
 
         # train_profile: one optimizer step
+        runs_k2b = per_step.get(K2B.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
-                                  SO2_GEMM if gemm_flops is not None else None)
-        gemm = {}
+                                  (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b)
+        extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
-            ms = prof["matched"]["device_ms"]
-            gemm = {"so2_gemm": {"launches": prof["matched"]["launches"], "device_ms": ms,
+            ms = prof["matched"][SO2_GEMM]["device_ms"]
+            extra["so2_gemm"] = {"launches": prof["matched"][SO2_GEMM]["launches"], "device_ms": ms,
                                  "split_tf32_flops": gemm_flops,
-                                 "tflop_per_s": gemm_flops / ms / 1e9 if ms else None}}
-        emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **gemm})
+                                 "tflop_per_s": gemm_flops / ms / 1e9 if ms else None}
+        if runs_k2b:  # K2b's kernels by name, in the profiled step
+            extra["k2b_kernels"] = {n: prof["matched"][n] for n in K2B_KERNELS}
+        emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
         data.close()
 
         del trainer
@@ -1040,6 +1072,25 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             raise AssertionError(f"train CLI wrote {ckpts}; generation wrote {rows}")
         if gen_counts != serve_counts(cfg):
             raise AssertionError(f"generation from the checkpoint launched {gen_counts}")
+
+
+def kernel_bwd_lmax4(mods) -> None:
+    """K2 and K2b at lmax 4 (configs/train_lmax4.yml, configs/gan_recipe.yml),
+    C = Co = 16, H 512, a training microbatch's LMAX4_NODES nodes, on seeded
+    inputs: each held to its plain version as ``hold`` holds them, timed.
+    No path of this script runs lmax 4."""
+    lmax, N, H, C = 4, LMAX4_NODES, 512, 16
+    L = lmax + 1
+    rng = np.random.default_rng(41)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32)).cuda()
+    x, w1, b1, wg, bg, w2 = (f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
+                             0.1 * f(lmax * H), 0.1 * f(L, H, C))
+    recs = {K2.name: hold(K2, mods[K2.module], (x, w1, b1, wg, bg, w2, 0.1 * f(C), lmax), {}),
+            K2B.name: hold(K2B, mods[K2B.module], (x, w1, b1, wg, bg, w2, lmax, f(N, L * L, C)), {})}
+    emit({"phase": "kernel_bwd_lmax4", "lmax": lmax, "nodes": N, "kernels": recs})
+    bad = [n for n, r in recs.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{bad}: kernel disagrees with its plain version at lmax 4")
 
 
 def serve_counts(cfg) -> dict:
@@ -1318,16 +1369,20 @@ def main() -> int:
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     k4b_ptxas = ptxas_report(logs["so3_ffn_bwd"])
+    k2b_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn_bwd"]).items()
+                 if "gate_ffn_bwd_w_kernel" in k}
     gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
                   for n in ("so2_attn", "so2_attn_bwd")}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
-          "k4b_ptxas": k4b_ptxas, "so2_gemm_ptxas": gemm_ptxas})
+          "k4b_ptxas": k4b_ptxas, "k2b_ptxas": k2b_ptxas, "so2_gemm_ptxas": gemm_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
+    kernel_bwd_lmax4(kernel_modules())
+    torch.cuda.empty_cache()
 
     # the main path's batch and model
     files = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "val", "*.npz")))[:8]
@@ -1430,6 +1485,7 @@ def main() -> int:
                          FORM_STEPS)
 
     results[K4B.name]["ptxas"] = k4b_ptxas
+    results[K2B.name]["ptxas"] = k2b_ptxas
     gemm_residency = mods["so2_attn"].gemm_residency()
     for spec, lib in ((K6, "so2_attn"), (K6B, "so2_attn_bwd")):
         results[spec.name]["gemm_ptxas"] = gemm_ptxas[lib]

@@ -39,9 +39,14 @@
 //   frag_a_trans(At, lda)   A stored transposed, At[k][m], k in order
 //   frag_b(B, ldb)          B stored [k][n], k in order (pairs with the above)
 //   frag_b_nk(B, ldb)       B stored [n][k], k paired (pairs with frag_a_paired)
+//   frag_b_nk_seq(B, ldb)   B stored [n][k], k in order
 //   frag_b_split(Bhi, Blo, ldb)  B stored [k][n], k in order, from planes
 //                           split beforehand
 //   store_c(C, ldc, c)      C stored [m][n], two 8-byte stores
+//   frag_a_from_c(c)        the C of one m16n8 product as the A of the next,
+//                           whose k is that product's n, k paired (pairs
+//                           with frag_b_paired and frag_b_nk): a chain of
+//                           products that never leaves the registers
 // Shared-memory banks (32 of 4 bytes): frag_a_paired is conflict-free when
 // lda % 32 is 8 or 24 (per half-warp, grp * lda + 2 tig covers 32 banks);
 // frag_a_trans when lda % 32 is 8 or 24 (tig * lda + grp); frag_b_paired
@@ -49,7 +54,9 @@
 // is 8 or 24 (frag_b_split the same). One stride with lda % 32 = 24 (or 8) thus serves a constant
 // matrix read both ways: as A = M (paired) and as A = M^T (transposed).
 // frag_b_nk's 8-byte loads (grp * ldb + 2 tig) are conflict-free when
-// ldb % 32 is 8 or 24, as frag_a_paired's.
+// ldb % 32 is 8 or 24, as frag_a_paired's. frag_b_nk_seq (g * ldb + t) is
+// conflict-free when ldb % 32 is 4, 12, 20 or 28; with ldb % 16 of 4 or 12
+// the same [n][k] rows also serve frag_b_paired, read as [k][n].
 #pragma once
 
 #include <stdint.h>
@@ -118,6 +125,15 @@ __device__ __forceinline__ FragB frag_b_nk(const float* B, int ldb) {
   return f;
 }
 
+// B stored [n][k], k in order
+__device__ __forceinline__ FragB frag_b_nk_seq(const float* B, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  FragB f;
+  split(B[g * ldb + t], f.hi[0], f.lo[0]);
+  split(B[g * ldb + t + 4], f.hi[1], f.lo[1]);
+  return f;
+}
+
 __device__ __forceinline__ FragA frag_a_trans(const float* At, int lda) {
   const int g = lane_grp(), t = lane_tig();
   FragA f;
@@ -165,6 +181,17 @@ __device__ __forceinline__ void store_c(float* C, int ldc, const float (&c)[4]) 
   const int g = lane_grp(), t = lane_tig();
   *reinterpret_cast<float2*>(C + g * ldc + 2 * t) = make_float2(c[0], c[1]);
   *reinterpret_cast<float2*>(C + (g + 8) * ldc + 2 * t) = make_float2(c[2], c[3]);
+}
+
+// c (m = grp / grp + 8, n = 2 tig / 2 tig + 1) as A (m, k paired): the k
+// slot tig is column 2 tig of c, the slot tig + 4 column 2 tig + 1
+__device__ __forceinline__ FragA frag_a_from_c(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
 }
 
 }  // namespace tc

@@ -18,11 +18,13 @@
 // per-degree products of 2*N*I*C*H operations (h and dmid recomputed, dx, dw1,
 // dw2: ~57 GFLOP) and the gate products (~4 GFLOP) against ~140 MB of x, dy
 // in and dx out, so float32 arithmetic bounds it (~0.92 ms at 67 TFLOP/s;
-// memory ~41 us).
+// memory ~41 us; ~0.28 ms with the weight kernel's four products as split
+// TF32 on the tensor cores).
 //
 // Design: the [N, I, H] hidden and its cotangent (1.44 GB each here) never
-// reach device memory; they are recomputed tile by tile in shared memory, as
-// the TPU kernel recomputes them in VMEM. The TPU kernel added the weight
+// reach device memory; they are recomputed tile by tile on chip (the dx
+// kernel in shared memory, the weight kernel in registers), as the TPU
+// kernel recomputes them in VMEM. The TPU kernel added the weight
 // gradients of every node tile into one resident output along its sequential
 // grid; Hopper's blocks run in no order, so the work is split in two:
 //   * the dx kernel: one block per tile of kTN nodes walks the hidden
@@ -31,16 +33,20 @@
 //     (the gate columns of a chunk see only that chunk's hidden channels), so
 //     the gate path's row-0 term is added chunk by chunk. No sum crosses a
 //     block.
-//   * the weight kernel: one block per (hidden chunk, slice of the node tiles)
-//     stages its chunk's weights once, walks its slice's tiles recomputing the
-//     chunk's hidden, and keeps the chunk's weight-gradient sums in shared
-//     memory, each sum owned by one thread. It writes them to its slice's row
-//     of a [slices, P] scratch buffer; a last kernel adds the rows in slice
-//     order. Every sum runs in a fixed order: the result is deterministic,
-//     with no atomics.
+//   * the weight kernel: one block per (hidden chunk of kWHC, slice of the
+//     node tiles) walks its slice's tiles recomputing the chunk's hidden,
+//     with the four per-degree products (h, dmid, dw1, dw2) on the tensor
+//     cores as split TF32 (csrc/mma_tf32.cuh: float32 to round-off) and
+//     the gate path in float32 on the CUDA cores, and keeps the weight
+//     gradients' float32 sums in registers, each owned by one lane. It
+//     writes them to its slice's row of a [slices, P] scratch buffer; a
+//     last kernel adds the rows in slice order. Every sum runs in a fixed
+//     order: the result is deterministic, with no atomics (design: above
+//     the kernel).
 // Nodes past N in the last tile are staged as zero rows of x and dy, which
 // makes every term they add to a gradient exactly zero.
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -62,11 +68,11 @@ __host__ __device__ inline Dims make_dims(int N, int lmax, int C, int H, int Co)
   return Dims{N, lmax, lmax + 1, (lmax + 1) * (lmax + 1), C, H, Co};
 }
 
-// Shared-memory layout common to both kernels (offsets in floats).
+// The dx kernel's shared-memory layout (offsets in floats).
 struct Smem {
   float* sx;     // [I][C][kTN]   row stride xs
   float* sdy;    // [I][Co][kTN]  row stride ys
-  float* sh;     // [I][kHC][kTN] row stride ms: h, then mid
+  float* sh;     // [I][kHC][kTN] row stride ms: h
   float* sdm;    // [I][kHC][kTN] row stride ms: dmid, then dh
   float* sgate;  // [lmax][kHC][kTN]
   float* sdg;    // [lmax][kHC][kTN] dg0
@@ -133,9 +139,9 @@ __device__ void stage_weights(const float* __restrict__ w1, const float* __restr
 }
 
 // With the tile and the chunk's weights staged: the gates, h and dmid, then
-// dg0, then dh (in sdm) and, if want_mid, mid (in sh). Ends synchronised.
+// dg0, then dh (in sdm). Ends synchronised.
 __device__ void chunk_backward(const float* __restrict__ b1, const float* __restrict__ bg,
-                               int h0, const Dims& d, const Smem& s, bool want_mid) {
+                               int h0, const Dims& d, const Smem& s) {
   const int tid = threadIdx.x;
   // gates of degrees 1..lmax from the l=0 row
   for (int t = tid; t < d.lmax * kHC * kTN; t += kThreads) {
@@ -194,23 +200,17 @@ __device__ void chunk_backward(const float* __restrict__ b1, const float* __rest
     s.sdg[t] = g * (1.f - g) * dg;
   }
   __syncthreads();
-  // dh (and mid) in place
+  // dh in place
   for (int t = tid; t < d.I * kHC * kTN; t += kThreads) {
     const int n = t % kTN, h = (t / kTN) % kHC, i = t / (kTN * kHC);
     const int off = i * s.ms + h * kTN + n;
-    const float hv = s.sh[off], dm = s.sdm[off];
-    float dh, mid;
+    const float dm = s.sdm[off];
     if (i == 0) {
-      const float hb = hv + ((h0 + h < d.H) ? b1[h0 + h] : 0.f);
-      dh = singa::silu_gradf_(hb) * dm;
-      mid = singa::siluf_(hb);
+      const float hb = s.sh[off] + ((h0 + h < d.H) ? b1[h0 + h] : 0.f);
+      s.sdm[off] = singa::silu_gradf_(hb) * dm;
     } else {
-      const float g = s.sgate[((degree_of(i) - 1) * kHC + h) * kTN + n];
-      dh = dm * g;
-      mid = hv * g;
+      s.sdm[off] = dm * s.sgate[((degree_of(i) - 1) * kHC + h) * kTN + n];
     }
-    s.sdm[off] = dh;
-    if (want_mid) s.sh[off] = mid;
   }
   __syncthreads();
 }
@@ -245,7 +245,7 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
       sw1t[t] = (h0 + h < H) ? w1[((long long)l * C + c) * H + h0 + h] : 0.f;
     }
     __syncthreads();
-    chunk_backward(b1, bg, h0, d, s, false);
+    chunk_backward(b1, bg, h0, d, s);
 
 #pragma unroll
     for (int k = 0; k < kMaxJobs; ++k) {
@@ -314,139 +314,420 @@ __host__ __device__ inline GradLayout grad_layout(const Dims& d) {
   return g;
 }
 
-__host__ __device__ inline int acc_floats(const Dims& d) {
-  return d.L * d.C * kHC + d.L * kHC * d.Co + d.C * d.lmax * kHC + kHC + d.lmax * kHC + d.Co;
+// The weight kernel: the four per-degree products on the tensor cores as
+// split TF32 (csrc/mma_tf32.cuh), the gate path in float32 on the CUDA
+// cores; one instance for each C and Co of 8 or 16 (the products' k and n
+// steps are 8 wide; the sums live in registers). A block owns kWHC hidden
+// channels and a slice of the node tiles;
+// its warp (group, hb) owns the 16-channel block hb and the degrees of
+// its group (a greedy split of the rows into kGroups near-equal parts,
+// at most kSlots degrees each for lmax <= 7). For each tile of kWTN nodes
+// and each of its degrees l, the warp walks the rows i of degree l, two at
+// a time into two sets of partial sums (independent chains, which the
+// tensor cores' latency needs with 8 warps an SM), each row an m16n8
+// product over (16 hidden channels) x (the tile's 8 nodes):
+//   h^T    = w1[l]^T x_i^T   A: w1's fragments, split once per block;
+//   dmid^T = w2[l]   dy_i^T  B: the tile's rows in shared memory, k = C, Co
+// and, from their C fragments in registers (frag_a_from_c, k = the node):
+//   dh = silu'(h + b1) dmid, mid = silu(h + b1) (row 0), or dmid g_l, h g_l;
+//   dw1[l]^T += dh^T x_i,  dw2[l] += mid^T dy_i (B: the same rows, k = node)
+// and sum_{i of l} dmid h for dg0 in the lane's own registers: the C
+// fragment holds the same (channel, node) pairs in every row. The partial
+// sums of one degree in one tile start from zero on the tensor cores
+// (chains of at most 3 (l + 1) C / 8 mma) and are added to float32 sums in
+// registers, which the slice carries over all its tiles (see so2_chain.cuh
+// on the tensor cores' accumulation). The gates (x0 wg + bg), dwg (x0^T dg0),
+// dbg, db1 and db2 run in float32 on the CUDA cores, per warp and degree:
+// dwg's sums over the tile's nodes are reduced across the four lanes that
+// hold them by shuffles. x and dy tiles come by cp.async into a ring of
+// kWStages, the next tile's copies in flight during this one's products;
+// rows past N are zero-filled. No sum crosses a warp: each writes its own
+// entries of the slice's row of partial. On the H100 (nvcc -Xptxas -v,
+// sm_90a) at C = Co = 16: 203 registers, no spills; 195,840 B of shared
+// memory at lmax 6, so one block of 8 warps an SM. Why 32 channels a
+// block and not 64: the split fragments of w1 and w2 take 4 KB per degree
+// and 16 channels (57 KB at lmax 6 for 32 channels), the two-stage ring
+// 125 KB; at 64 channels the fragments take 115 KB and the ring no longer
+// fits in the 227 KB a block can have.
+constexpr int kWThreads = 256;  // 8 warps
+constexpr int kHB = 2;          // 16-channel hidden blocks of a block
+constexpr int kGroups = kWThreads / 32 / kHB;
+constexpr int kWHC = 16 * kHB;  // hidden channels of a block
+constexpr int kWTN = 8;         // nodes of a tile: the n8 of the products
+constexpr int kSlots = 2;       // degrees of a group
+constexpr int kWStages = 2;
+
+// floats of a node's row of x (C wide) or dy (Co wide) in the ring: for
+// frag_b_nk_seq and frag_b_paired, conflict-free at widths 8 and 16
+__host__ __device__ constexpr int w_ld(int width) { return width + 4; }
+// words of one (degree, hidden block)'s fragments of w1 and w2, one plane
+__host__ __device__ constexpr int w_frag(int C, int Co) { return (C / 8 + Co / 8) * 32 * 4; }
+
+__host__ __device__ inline size_t w_smem_floats(const Dims& d) {
+  return (size_t)kWStages * d.I * kWTN * (w_ld(d.C) + w_ld(d.Co)) +
+         2 * (size_t)d.L * kHB * w_frag(d.C, d.Co) + (size_t)d.lmax * d.C * kWHC +
+         (size_t)d.lmax * kWHC;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The degrees of group `group`, largest first (-1: none): degrees from
+// lmax down, each to the group with the fewest rows so far.
+// (Every index is a constant after unrolling, so nothing goes to local memory.)
+__device__ void degree_group(int lmax, int group, int (&deg)[kSlots]) {
+  int rows[kGroups] = {};
+  int n = 0;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) deg[s] = -1;
+  for (int l = lmax; l >= 0; --l) {
+    int best = 0, least = rows[0];
+#pragma unroll
+    for (int q = 1; q < kGroups; ++q)
+      if (rows[q] < least) least = rows[q], best = q;
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q)
+      if (q == best) rows[q] += 2 * l + 1;
+    if (best == group) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        if (s == n) deg[s] = l;
+      ++n;
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src), "r"(bytes));
+}
+
+// x and dy of the tile at node n0 into one stage: x [i][node][w_ld(C)], then
+// dy [i][node][w_ld(Co)], zeros past N
+template <int C, int Co>
+__device__ void copy_tile(const float* __restrict__ x, const float* __restrict__ dy, int n0,
+                          const Dims& d, float* stage) {
+  constexpr int QX = C / 4, QY = Co / 4;  // 16-byte pieces of a row
+  for (int q = threadIdx.x; q < (QX + QY) * d.I; q += kWThreads) {
+    const bool isy = q >= QX * d.I;
+    const int r = isy ? q - QX * d.I : q, pieces = isy ? QY : QX;
+    const int w = isy ? Co : C, ld = w_ld(w);
+    const int i = r / pieces, c = 4 * (r % pieces);
+    const float* src = isy ? dy : x;
+    float* dst = stage + (isy ? d.I * kWTN * w_ld(C) : 0) + i * kWTN * ld + c;
+#pragma unroll
+    for (int node = 0; node < kWTN; ++node) {
+      const bool ok = n0 + node < d.N;
+      cp_async16(dst + node * ld, ok ? src + ((long long)(n0 + node) * d.I + i) * w + c : src,
+                 ok ? 16 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One row i of degree l for the warp's 16 channels and the tile's 8 nodes:
+// h and dmid on the tensor cores, the elementwise step, dg += dmid h (l >= 1)
+// or db1 += dh (row 0), and dw1^T, dw2 += this row's products into pw1, pw2.
+template <int C, int Co>
+__device__ __forceinline__ void row_products(const float* xi, const float* yi,
+                                             const singa::tc::FragA (&wa1)[C / 8],
+                                             const singa::tc::FragA (&wa2)[Co / 8], bool row0,
+                                             const float (&gate)[4], const float (&b1r)[2],
+                                             float (&dg)[4], float (&ab1)[2],
+                                             float (&pw1)[C / 8][4], float (&pw2)[Co / 8][4]) {
+  using namespace singa::tc;
+  constexpr int KC = C / 8, KO = Co / 8, K = KC > KO ? KC : KO;
+  constexpr int LX = w_ld(C), LY = w_ld(Co);
+  float hc[4] = {}, dc[4] = {};
+#pragma unroll
+  for (int ks = 0; ks < K; ++ks) {  // each accumulator: lo hi, hi lo, hi hi
+    const int kx = ks < KC ? ks : 0, ky = ks < KO ? ks : 0;
+    const FragB xb = frag_b_nk_seq(xi + 8 * kx, LX), yb = frag_b_nk_seq(yi + 8 * ky, LY);
+    if (ks < KC) mma(hc, wa1[kx].lo, xb.hi);
+    if (ks < KO) mma(dc, wa2[ky].lo, yb.hi);
+    if (ks < KC) mma(hc, wa1[kx].hi, xb.lo);
+    if (ks < KO) mma(dc, wa2[ky].hi, yb.lo);
+    if (ks < KC) mma(hc, wa1[kx].hi, xb.hi);
+    if (ks < KO) mma(dc, wa2[ky].hi, yb.hi);
+  }
+  float dh[4], mid[4];  // c fragments: (channel g + 8 (q >> 1), node 2t + (q & 1))
+  if (row0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float v = hc[q] + b1r[q >> 1];
+      dh[q] = singa::silu_gradf_(v) * dc[q];
+      mid[q] = singa::siluf_(v);
+    }
+    ab1[0] += dh[0] + dh[1];
+    ab1[1] += dh[2] + dh[3];
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dh[q] = dc[q] * gate[q];
+      mid[q] = hc[q] * gate[q];
+      dg[q] = fmaf(dc[q], hc[q], dg[q]);
+    }
+  }
+  const FragA da = frag_a_from_c(dh), ma = frag_a_from_c(mid);
+  FragB xp[KC], yp[KO];
+#pragma unroll
+  for (int j = 0; j < KC; ++j) xp[j] = frag_b_paired(xi + 8 * j, LX);
+#pragma unroll
+  for (int j = 0; j < KO; ++j) yp[j] = frag_b_paired(yi + 8 * j, LY);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < KC) mma(pw1[j < KC ? j : 0], da.lo, xp[j < KC ? j : 0].hi);
+    if (j < KO) mma(pw2[j < KO ? j : 0], ma.lo, yp[j < KO ? j : 0].hi);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < KC) mma(pw1[j < KC ? j : 0], da.hi, xp[j < KC ? j : 0].lo);
+    if (j < KO) mma(pw2[j < KO ? j : 0], ma.hi, yp[j < KO ? j : 0].lo);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < KC) mma(pw1[j < KC ? j : 0], da.hi, xp[j < KC ? j : 0].hi);
+    if (j < KO) mma(pw2[j < KO ? j : 0], ma.hi, yp[j < KO ? j : 0].hi);
+  }
+}
+
+template <int C, int Co>
+__global__ void __launch_bounds__(kWThreads, 1)
 gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                       const float* __restrict__ w1, const float* __restrict__ b1,
                       const float* __restrict__ wg, const float* __restrict__ bg,
                       const float* __restrict__ w2, float* __restrict__ partial, int N,
-                      int lmax, int C, int H, int Co, int slices) {
+                      int lmax, int H, int slices) {
+  using namespace singa::tc;
+  constexpr int KC = C / 8, KO = Co / 8, KS = KC + KO, WF = w_frag(C, Co);
+  constexpr int LX = w_ld(C), LY = w_ld(Co);
+  constexpr int IX = kWTN * LX, IY = kWTN * LY;  // floats of a coefficient row's block
   const Dims d = make_dims(N, lmax, C, H, Co);
+  const int L = d.L, I = d.I;
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, d);
-  const int chunks = (H + kHC - 1) / kHC;
+  const int ss = I * (IX + IY);  // floats of a stage
+  float* ring = smem;            // [stage][x [I][kWTN][LX], dy [I][kWTN][LY]]
+  uint32_t* wf = reinterpret_cast<uint32_t*>(ring + kWStages * ss);  // [hi, lo][l][hb][...]
+  float* swg = reinterpret_cast<float*>(wf + 2 * L * kHB * WF);      // [lmax][C][kWHC]
+  float* sbg = swg + lmax * C * kWHC;                                // [lmax][kWHC]
+  const int chunks = (H + kWHC - 1) / kWHC;
   const int chunk = blockIdx.x % chunks, slice = blockIdx.x / chunks;
-  const int h0 = chunk * kHC;
-  const int tiles = (N + kTN - 1) / kTN;
+  const int hc0 = chunk * kWHC;
+  const int tiles = (N + kWTN - 1) / kWTN;
   const int t_begin = (int)((long long)tiles * slice / slices);
   const int t_end = (int)((long long)tiles * (slice + 1) / slices);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane_grp(), t = lane_tig();
+  const int hb = warp % kHB;
+  const int h0 = hc0 + 16 * hb;  // the warp's first hidden channel
 
-  const int nw1 = d.L * C * kHC, nw2 = d.L * kHC * Co, nwg = C * lmax * kHC;
-  float* aw1 = s.end;      // [L][C][kHC]
-  float* aw2 = aw1 + nw1;  // [L][kHC][Co]
-  float* awg = aw2 + nw2;  // [C][lmax][kHC]
-  float* ab1 = awg + nwg;  // [kHC]
-  float* abg = ab1 + kHC;  // [lmax][kHC]
-  float* ab2 = abg + lmax * kHC;  // [Co]
-  // every sum below is owned by the thread tid == index % kThreads
-  for (int t = tid; t < acc_floats(d); t += kThreads) aw1[t] = 0.f;
-  stage_weights(w1, wg, w2, h0, d, s);
+  if (t_begin < t_end) copy_tile<C, Co>(x, dy, t_begin * kWTN, d, ring);
+  // w1 and w2 as A fragments, split: [l][hb][k step: w1's KC, then w2's KO][lane][reg];
+  // reg r holds m = g + 8 (r & 1), k = 8 ks + t + 4 (r >> 1)
+  for (int e = tid; e < L * kHB * WF; e += kWThreads) {
+    const int r = e & 3, ln = (e >> 2) & 31, step = (e >> 7) % KS, lb = (e >> 7) / KS;
+    const int b = lb % kHB, l = lb / kHB;
+    const bool of_w2 = step >= KC;
+    const int ks = of_w2 ? step - KC : step;
+    const int h = hc0 + 16 * b + (ln >> 2) + 8 * (r & 1), k = 8 * ks + (ln & 3) + 4 * (r >> 1);
+    float v = 0.f;
+    if (h < H) v = of_w2 ? w2[((long long)l * H + h) * Co + k] : w1[((long long)l * C + k) * H + h];
+    split(v, wf[e], wf[L * kHB * WF + e]);
+  }
+  for (int e = tid; e < lmax * C * kWHC; e += kWThreads) {
+    const int h = e % kWHC, c = (e / kWHC) % C, l = e / (kWHC * C);
+    swg[e] = hc0 + h < H ? wg[(long long)c * lmax * H + (long long)l * H + hc0 + h] : 0.f;
+  }
+  for (int e = tid; e < lmax * kWHC; e += kWThreads) {
+    const int h = e % kWHC, l = e / kWHC;
+    sbg[e] = hc0 + h < H ? bg[(long long)l * H + hc0 + h] : 0.f;
+  }
+  int deg[kSlots];
+  degree_group(lmax, warp / kHB, deg);
+  float b1r[2];  // b1 of the lane's channels g, g + 8
+#pragma unroll
+  for (int a = 0; a < 2; ++a) b1r[a] = h0 + g + 8 * a < H ? b1[h0 + g + 8 * a] : 0.f;
+
+  // the slice's float32 sums, per degree slot. C fragments: dw1^T (m = h,
+  // n = c) and dw2 (m = h, n = o), C / 8 and Co / 8 n8 tiles; dwg: after
+  // the shuffles, channel g + 8 (t >> 1), inputs C / 2 (t & 1) + k
+  float aw1[kSlots][KC][4] = {}, aw2[kSlots][KO][4] = {}, awg[kSlots][C / 2] = {};
+  float abg[kSlots][2] = {}, ab1[2] = {}, ab2 = 0.f;
 
   for (int tile = t_begin; tile < t_end; ++tile) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile(x, dy, tile * kTN, d, s);
-    __syncthreads();
-    chunk_backward(b1, bg, h0, d, s, true);
+    const int k = tile - t_begin;
+    __syncthreads();  // every warp is done with the stage the next copy fills
+    if (tile + 1 < t_end)
+      copy_tile<C, Co>(x, dy, (tile + 1) * kWTN, d, ring + ((k + 1) % kWStages) * ss);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);  // this tile's copies, this thread's
+    __syncthreads();                                 // and everyone's
+    const float* sx = ring + (k % kWStages) * ss;
+    const float* sy = sx + I * IX;
 
-    for (int t = tid; t < nw1; t += kThreads) {  // dw1[l][c][h] += x[i][c] dh[i][h]
-      const int h = t % kHC, c = (t / kHC) % C, l = t / (kHC * C);
-      float v = aw1[t];
-      for (int i = l * l; i < (l + 1) * (l + 1); ++i) {
-        const float* xr = s.sx + i * s.xs + c * kTN;
-        const float* dr = s.sdm + i * s.ms + h * kTN;
+    float x0[2][C];  // row 0 of x at the lane's nodes 2t, 2t + 1, read where needed
+    auto load_x0 = [&]() {
 #pragma unroll
-        for (int n = 0; n < kTN; n += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(xr + n);
-          const float4 b = *reinterpret_cast<const float4*>(dr + n);
-          v = fmaf(a.x, b.x, v);
-          v = fmaf(a.y, b.y, v);
-          v = fmaf(a.z, b.z, v);
-          v = fmaf(a.w, b.w, v);
+      for (int nd = 0; nd < 2; ++nd)
+#pragma unroll
+        for (int c = 0; c < C; c += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(sx + (2 * t + nd) * LX + c);
+          x0[nd][c] = v.x, x0[nd][c + 1] = v.y, x0[nd][c + 2] = v.z, x0[nd][c + 3] = v.w;
+        }
+    };
+    if (chunk == 0 && warp == 0 && lane < Co)  // db2: row 0 of dy
+      for (int nd = 0; nd < kWTN; ++nd) ab2 += sy[nd * LY + lane];
+
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int l = deg[s];
+      if (l < 0) continue;
+      FragA wa1[KC], wa2[KO];
+      const uint32_t* wl = wf + (l * kHB + hb) * WF + lane * 4;
+#pragma unroll
+      for (int step = 0; step < KS; ++step) {
+        const uint4 hi = *reinterpret_cast<const uint4*>(wl + step * 128);
+        const uint4 lo = *reinterpret_cast<const uint4*>(wl + L * kHB * WF + step * 128);
+        const FragA f{{hi.x, hi.y, hi.z, hi.w}, {lo.x, lo.y, lo.z, lo.w}};
+        if (step < KC)
+          wa1[step < KC ? step : 0] = f;
+        else
+          wa2[step < KC ? 0 : step - KC] = f;
+      }
+      // gates of the lane's (channel, node) pairs: q = 2 a + nd
+      float gate[4] = {}, dg[4] = {};
+      if (l > 0) {
+        load_x0();
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int hh = 16 * hb + g + 8 * a;
+          float p0 = sbg[(l - 1) * kWHC + hh], p1 = p0;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float w = swg[((l - 1) * C + c) * kWHC + hh];
+            p0 = fmaf(x0[0][c], w, p0);
+            p1 = fmaf(x0[1][c], w, p1);
+          }
+          gate[2 * a] = singa::sigmoidf_(p0);
+          gate[2 * a + 1] = singa::sigmoidf_(p1);
         }
       }
-      aw1[t] = v;
-    }
-    for (int t = tid; t < nw2; t += kThreads) {  // dw2[l][h][o] += mid[i][h] dy[i][o]
-      const int o = t % Co, h = (t / Co) % kHC, l = t / (Co * kHC);
-      float v = aw2[t];
-      for (int i = l * l; i < (l + 1) * (l + 1); ++i) {
-        const float* mr = s.sh + i * s.ms + h * kTN;
-        const float* yr = s.sdy + i * s.ys + o * kTN;
+      float pw1[KC][4] = {}, pw2[KO][4] = {};  // this tile's products, from zero
+      float qw1[KC][4] = {}, qw2[KO][4] = {};  // the odd rows' (a second chain)
+      int i = l * l;
+      for (; i + 1 < (l + 1) * (l + 1); i += 2) {
+        row_products<C, Co>(sx + i * IX, sy + i * IY, wa1, wa2, l == 0, gate, b1r, dg, ab1, pw1,
+                            pw2);
+        row_products<C, Co>(sx + (i + 1) * IX, sy + (i + 1) * IY, wa1, wa2, l == 0, gate, b1r,
+                            dg, ab1, qw1, qw2);
+      }
+      if (i < (l + 1) * (l + 1))
+        row_products<C, Co>(sx + i * IX, sy + i * IY, wa1, wa2, l == 0, gate, b1r, dg, ab1, pw1,
+                            pw2);
 #pragma unroll
-        for (int n = 0; n < kTN; n += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(mr + n);
-          const float4 b = *reinterpret_cast<const float4*>(yr + n);
-          v = fmaf(a.x, b.x, v);
-          v = fmaf(a.y, b.y, v);
-          v = fmaf(a.z, b.z, v);
-          v = fmaf(a.w, b.w, v);
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int j = 0; j < KC; ++j) aw1[s][j][q] += pw1[j][q] + qw1[j][q];
+#pragma unroll
+        for (int j = 0; j < KO; ++j) aw2[s][j][q] += pw2[j][q] + qw2[j][q];
+      }
+      if (l > 0) {  // the gate path: dg0, dbg, dwg
+        float g0[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) g0[q] = gate[q] * (1.f - gate[q]) * dg[q];
+        abg[s][0] += g0[0] + g0[1];
+        abg[s][1] += g0[2] + g0[3];
+        load_x0();
+        float v[2 * C];  // [channel a][input c], over the lane's two nodes
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            v[a * C + c] = fmaf(x0[1][c], g0[2 * a + 1], x0[0][c] * g0[2 * a]);
+        // over the four lanes of a group: lane t keeps channel t >> 1, then inputs C / 2 (t & 1) ..
+        float w[C];
+        const bool up = t & 2, right = t & 1;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float send = up ? v[c] : v[C + c], keep = up ? v[C + c] : v[c];
+          w[c] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+        }
+#pragma unroll
+        for (int c = 0; c < C / 2; ++c) {
+          const float send = right ? w[c] : w[C / 2 + c], keep = right ? w[C / 2 + c] : w[c];
+          awg[s][c] += keep + __shfl_xor_sync(0xffffffffu, send, 1);
         }
       }
-      aw2[t] = v;
     }
-    for (int t = tid; t < nwg; t += kThreads) {  // dwg[c][l][h] += x[0][c] dg0[l][h]
-      const int h = t % kHC, l = (t / kHC) % lmax, c = t / (kHC * lmax);
-      float v = awg[t];
-      const float* xr = s.sx + c * kTN;
-      const float* gr = s.sdg + (l * kHC + h) * kTN;
-      for (int n = 0; n < kTN; ++n) v = fmaf(xr[n], gr[n], v);
-      awg[t] = v;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  // this slice's row of partial: each entry from the one warp that owns it
+  const GradLayout gl = grad_layout(d);
+  float* row = partial + (long long)slice * gl.total;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int l = deg[s];
+    if (l < 0) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = h0 + g + 8 * (q >> 1);
+      if (h >= H) continue;
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        row[gl.w1 + ((long long)l * C + 8 * j + 2 * t + (q & 1)) * H + h] = aw1[s][j][q];
+#pragma unroll
+      for (int j = 0; j < KO; ++j)
+        row[gl.w2 + ((long long)l * H + h) * Co + 8 * j + 2 * t + (q & 1)] = aw2[s][j][q];
     }
-    for (int t = tid; t < kHC; t += kThreads) {
-      float v = ab1[t];
-      for (int n = 0; n < kTN; ++n) v += s.sdm[t * kTN + n];  // row 0 of dh
-      ab1[t] = v;
-    }
-    for (int t = tid; t < lmax * kHC; t += kThreads) {
-      float v = abg[t];
-      for (int n = 0; n < kTN; ++n) v += s.sdg[t * kTN + n];
-      abg[t] = v;
-    }
-    if (chunk == 0) {
-      for (int t = tid; t < Co; t += kThreads) {
-        float v = ab2[t];
-        for (int n = 0; n < kTN; ++n) v += s.sdy[t * kTN + n];  // row 0 of dy
-        ab2[t] = v;
+    if (l > 0) {
+      const int h = h0 + g + 8 * (t >> 1);
+#pragma unroll
+      for (int c = 0; c < C / 2; ++c)
+        if (h < H)
+          row[gl.wg + (long long)(C / 2 * (t & 1) + c) * lmax * H + (long long)(l - 1) * H + h] =
+              awg[s][c];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        float v = abg[s][a];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0 && h0 + g + 8 * a < H) row[gl.bg + (long long)(l - 1) * H + h0 + g + 8 * a] = v;
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        float v = ab1[a];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0 && h0 + g + 8 * a < H) row[gl.b1 + h0 + g + 8 * a] = v;
       }
     }
   }
+  if (chunk == 0 && warp == 0 && lane < Co) row[gl.b2 + lane] = ab2;
+}
 
-  __syncthreads();  // a slice with no tiles still sees its zeroed sums
-  const GradLayout g = grad_layout(d);
-  float* row = partial + (long long)slice * g.total;
-  for (int t = tid; t < nw1; t += kThreads) {
-    const int h = t % kHC, lc = t / kHC;
-    if (h0 + h < H) row[g.w1 + (long long)lc * H + h0 + h] = aw1[t];
-  }
-  for (int t = tid; t < nw2; t += kThreads) {
-    const int o = t % Co, h = (t / Co) % kHC, l = t / (Co * kHC);
-    if (h0 + h < H) row[g.w2 + ((long long)l * H + h0 + h) * Co + o] = aw2[t];
-  }
-  for (int t = tid; t < nwg; t += kThreads) {
-    const int h = t % kHC, l = (t / kHC) % lmax, c = t / (kHC * lmax);
-    if (h0 + h < H) row[g.wg + (long long)c * lmax * H + l * H + h0 + h] = awg[t];
-  }
-  for (int t = tid; t < kHC; t += kThreads)
-    if (h0 + t < H) row[g.b1 + h0 + t] = ab1[t];
-  for (int t = tid; t < lmax * kHC; t += kThreads) {
-    const int h = t % kHC, l = t / kHC;
-    if (h0 + h < H) row[g.bg + l * H + h0 + h] = abg[t];
-  }
-  if (chunk == 0)
-    for (int t = tid; t < Co; t += kThreads) row[g.b2 + t] = ab2[t];
+using WKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                         const float*, const float*, float*, int, int, int, int);
+
+// The weight kernel's instance for C input and Co output channels (null: none)
+WKernel w_kernel(int C, int Co) {
+  if (C == 8 && Co == 8) return gate_ffn_bwd_w_kernel<8, 8>;
+  if (C == 8 && Co == 16) return gate_ffn_bwd_w_kernel<8, 16>;
+  if (C == 16 && Co == 8) return gate_ffn_bwd_w_kernel<16, 8>;
+  if (C == 16 && Co == 16) return gate_ffn_bwd_w_kernel<16, 16>;
+  return nullptr;
 }
 
 size_t dx_smem(const Dims& d) { return (common_floats(d) + (size_t)d.L * kHC * d.C) * sizeof(float); }
-size_t w_smem(const Dims& d) { return (common_floats(d) + acc_floats(d)) * sizeof(float); }
+size_t w_smem(const Dims& d) { return w_smem_floats(d) * sizeof(float); }
 
+// The dx kernel: C a multiple of 4, its jobs (two four-node groups x the
+// rows x C / 4) one per thread. The weight kernel: C and Co of 8 or 16, at
+// most 64 coefficient rows (lmax <= 7: its degree groups).
 bool dims_ok(int N, int lmax, int C, int H, int Co) {
   if (N < 1 || lmax < 1 || C < 4 || C % 4 != 0 || H < 1 || Co < 1) return false;
   const int I = (lmax + 1) * (lmax + 1);
-  return kNG * I * (C / 4) <= kMaxJobs * kThreads;
+  if (kNG * I * (C / 4) > kMaxJobs * kThreads) return false;
+  return lmax <= 7 && w_kernel(C, Co) != nullptr;
 }
 
 }  // namespace
@@ -458,16 +739,33 @@ bool dims_ok(int N, int lmax, int C, int H, int Co) {
 extern "C" int so3_gate_ffn_bwd_slices(int N, int lmax, int C, int H, int Co) {
   if (!dims_ok(N, lmax, C, H, Co)) return -1;
   const Dims d = make_dims(N, lmax, C, H, Co);
+  const WKernel wk = w_kernel(C, Co);
   const size_t smem = w_smem(d);
   if (singa::allow_smem(gate_ffn_bwd_dx_kernel, dx_smem(d)) != cudaSuccess) return -1;
-  if (singa::allow_smem(gate_ffn_bwd_w_kernel, smem) != cudaSuccess) return -1;
-  const int chunks = (H + kHC - 1) / kHC;
-  const int tiles = (N + kTN - 1) / kTN;
-  const int resident = singa::persistent_grid(gate_ffn_bwd_w_kernel, kThreads, smem, 1LL << 30);
+  if (singa::allow_smem(wk, smem) != cudaSuccess) return -1;
+  const int chunks = (H + kWHC - 1) / kWHC;
+  const int tiles = (N + kWTN - 1) / kWTN;
+  const int resident = singa::persistent_grid(wk, kWThreads, smem, 1LL << 30);
   int slices = resident / chunks;
   if (slices < 1) slices = 1;
   if (slices > tiles) slices = tiles;
   return slices;
+}
+
+// The weight kernel at these widths: resident blocks per SM (-1: a shape it
+// does not take), and its threads and dynamic shared memory per block.
+extern "C" int so3_gate_ffn_bwd_residency(int lmax, int C, int H, int Co, int* smem_bytes,
+                                          int* threads) {
+  if (!dims_ok(1, lmax, C, H, Co)) return -1;
+  const WKernel wk = w_kernel(C, Co);
+  const size_t smem = w_smem(make_dims(1, lmax, C, H, Co));
+  *smem_bytes = (int)smem;
+  *threads = kWThreads;
+  if (singa::allow_smem(wk, smem) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wk, kWThreads, smem) != cudaSuccess)
+    return -1;
+  return per_sm;
 }
 
 extern "C" int so3_gate_ffn_bwd_f32(const float* x, const float* dy, const float* w1,
@@ -477,20 +775,21 @@ extern "C" int so3_gate_ffn_bwd_f32(const float* x, const float* dy, const float
                                     void* stream) {
   if (!dims_ok(N, lmax, C, H, Co) || slices < 1) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(N, lmax, C, H, Co);
+  const WKernel wk = w_kernel(C, Co);
   cudaStream_t st = (cudaStream_t)stream;
   const size_t sa = dx_smem(d), sb = w_smem(d);
   cudaError_t err = singa::allow_smem(gate_ffn_bwd_dx_kernel, sa);
   if (err != cudaSuccess) return (int)err;
-  err = singa::allow_smem(gate_ffn_bwd_w_kernel, sb);
+  err = singa::allow_smem(wk, sb);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (N + kTN - 1) / kTN;
-  const int chunks = (H + kHC - 1) / kHC;
+  const int chunks = (H + kWHC - 1) / kWHC;
   gate_ffn_bwd_dx_kernel<<<tiles, kThreads, sa, st>>>(x, dy, w1, b1, wg, bg, w2, dx, N, lmax, C,
                                                       H, Co);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gate_ffn_bwd_w_kernel<<<chunks * slices, kThreads, sb, st>>>(x, dy, w1, b1, wg, bg, w2, partial,
-                                                               N, lmax, C, H, Co, slices);
+  wk<<<chunks * slices, kWThreads, sb, st>>>(x, dy, w1, b1, wg, bg, w2, partial, N, lmax, H,
+                                             slices);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long P = grad_layout(d).total;

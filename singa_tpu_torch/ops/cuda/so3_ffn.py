@@ -8,7 +8,10 @@ over column block ``(l-1)H : lH``; per-degree linear H -> Co, ``b2`` on row 0
 only. K2b replaces ``_gate_bwd`` (``_gate_ffn_bwd_kernel``): dx and the six
 weight and bias gradients. The CUDA kernels (``csrc/so3_gate_ffn.cu``,
 ``csrc/so3_gate_ffn_bwd.cu``) keep the ``[N, I, H]`` hidden and its cotangent
-out of device memory.
+out of device memory; K2b's weight-gradient kernel forms its four
+per-degree products (h, dmid, dw1, dw2) on the tensor cores as split-TF32
+products (``csrc/mma_tf32.cuh``), which agree with float32 products to
+float32 round-off, and takes C and Co of 8 or 16.
 
 K4 replaces ``so3_ffn.py::so3_ffn_fused`` (``_ffn_fwd_kernel``), the FFN of
 ``ffn_activation: s2``: ``gate = silu(x0 @ wg + bg)``; per-degree linear
@@ -93,6 +96,18 @@ def _bwd_fns():
     return slices, fn
 
 
+def gate_bwd_residency(lmax: int, C: int, H: int, Co: int) -> dict:
+    """K2b's weight-gradient kernel at these widths: resident blocks per SM
+    (-1: a shape it does not take), threads and dynamic shared memory per
+    block. For reports; launches nothing."""
+    fn = build.load("so3_gate_ffn_bwd").so3_gate_ffn_bwd_residency
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(lmax, C, H, Co, ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
+
+
 def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     global launches
     N, I, C = x.shape
@@ -147,8 +162,8 @@ def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
         slices_fn, fn = _bwd_fns()
         slices = slices_fn(N, lmax, C, H, Co)
         if slices < 1:
-            raise ValueError(f"so3_gate_ffn backward kernel: {C} input channels at lmax {lmax} "
-                             "not supported or its tiles exceed shared memory")
+            raise ValueError(f"so3_gate_ffn backward kernel: {C} input / {Co} output channels at "
+                             f"lmax {lmax} not supported or its tiles exceed shared memory")
         partial = torch.empty((slices, sum(sizes)), dtype=f32, device=dev)
         status = fn(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(),

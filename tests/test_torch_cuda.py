@@ -77,13 +77,14 @@ def test_neighbor_attn_kernel_matches_plain(dev, B, N, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,H", [(37, 512), (8, 40)])
-def test_so3_gate_ffn_kernel_matches_plain(dev, N, H):
-    """K2 at lmax 6 with 16 channels; N not a multiple of the node tile and
-    H not a multiple of the hidden chunk."""
+@pytest.mark.parametrize("lmax,N,H", [(6, 37, 512), (6, 8, 40), (4, 37, 512), (4, 8, 40)])
+def test_so3_gate_ffn_kernel_matches_plain(dev, lmax, N, H):
+    """K2 at lmax 6 (the default Config) and 4 (configs/train_lmax4.yml,
+    configs/gan_recipe.yml) with 16 channels; N not a multiple of the node
+    tile and H not a multiple of the hidden chunk."""
     from singa_tpu_torch.ops.cuda import so3_ffn as k2
 
-    lmax, C, Co = 6, 16, 16
+    C, Co = 16, 16
     L = lmax + 1
     rng = np.random.default_rng(43 + N)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
@@ -158,15 +159,30 @@ def test_neighbor_attn_bwd_kernel_matches_plain(dev, B, N, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,H", [(37, 512), (8, 40)])
-def test_so3_gate_ffn_bwd_kernel_matches_plain(dev, N, H):
-    """K2b at lmax 6 with 16 channels; N not a multiple of the node tile and
-    H not a multiple of the hidden chunk."""
+@pytest.mark.parametrize("lmax,N,H", [(6, 37, 512), (6, 8, 40), (4, 37, 512), (4, 8, 40),
+                                      (6, 2003, 512), (4, 2003, 512)])
+def test_so3_gate_ffn_bwd_kernel_matches_plain(dev, lmax, N, H):
+    """K2b at lmax 6 and 4 with 16 channels; N not a multiple of the node
+    tile and H not a multiple of the hidden chunk; N 2,003: several slices
+    of the weight kernel, each ~30 tiles deep, added by sum_rows_kernel."""
+    _check_gate_bwd(dev, lmax, N, H, 16, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 37, 512, 8, 8), (4, 2003, 512, 8, 8),
+                                           (6, 37, 40, 8, 16), (6, 37, 40, 16, 8)])
+def test_so3_gate_ffn_bwd_kernel_takes_8_channels(dev, lmax, N, H, C, Co):
+    """K2b with 8 input or output channels, the weight kernel's other
+    instances (its products' k and n steps are 8 wide)."""
+    _check_gate_bwd(dev, lmax, N, H, C, Co)
+
+
+def _check_gate_bwd(dev, lmax, N, H, C, Co):
+    """K2b against so3_gate_ffn_bwd_plain on seeded inputs, one launch."""
     from singa_tpu_torch.ops.cuda import so3_ffn as k2
 
-    lmax, C, Co = 6, 16, 16
     L = lmax + 1
-    rng = np.random.default_rng(59 + N)
+    rng = np.random.default_rng(59 + N + (C != 16) + 2 * (Co != 16))
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     args = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
             0.1 * f(lmax * H), 0.1 * f(L, H, Co)]
@@ -351,6 +367,37 @@ def test_so3_ffn_bwd_hold_rejects_one_tf32_product(dev):
 
 
 @pytest.mark.cuda
+def test_so3_gate_ffn_bwd_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K2b meets tells split TF32 from one TF32 product
+    at the training microbatch's widths (N 14,336, lmax 6, C = Co = 16,
+    H 512): the kernel is within a tenth of the hold against
+    so3_gate_ffn_bwd_plain; the rendering of its weight kernel's products
+    with one TF32 product each (test_torch_tf32_split.k2b_split) fails it
+    on at least one output."""
+    from test_torch_tf32_split import k2b_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    names = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
+    lmax, N, H, C = 6, 14336, 512, 16
+    L = lmax + 1
+    rng = np.random.default_rng(83)
+    f = lambda *s: _t(rng.normal(size=s).astype(np.float32), dev)
+    args = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
+            0.1 * f(lmax * H), 0.1 * f(L, H, C), lmax, f(N, L * L, C)]
+    n = k2.launches_bwd
+    got = k2.so3_gate_ffn_bwd_cuda(*args)
+    assert k2.launches_bwd == n + 1
+    want = k2.so3_gate_ffn_bwd_plain(*args)
+    ratios = {"kernel": _hold_ratios(got, want, names)}
+    del got
+    ratios["one_tf32"] = _hold_ratios(k2b_split(*args, mm=mm_tf32), want, names)
+    print(json.dumps({"hold_ratios": ratios}))
+    assert max(ratios["kernel"].values()) <= 0.1, ratios
+    assert max(ratios["one_tf32"].values()) > 1.0, ratios
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("trans", [0, 1])
 def test_mma_tf32_tile_matches_float64(dev, trans):
     """One [64 x 56] . [56 x 64] product through csrc/mma_tf32.cuh's split
@@ -464,7 +511,8 @@ def test_kernels_refuse_shapes_they_do_not_take(dev):
     returns cudaErrorInvalidValue, and the wrapper raises ValueError: K1
     with one node's pair tensors over shared memory, K2 with 6 output
     channels, K3 with 36 coefficient rows, K4 and K5 with 81, K6 and K6b at
-    lmax 7 (34 m-primary rows)."""
+    lmax 7 (34 m-primary rows); K2b with 32 channels (its weight kernel
+    takes 8 or 16) is refused before the launch."""
     from singa_tpu_torch.ops.cuda import neighbor_attn as k1
     from singa_tpu_torch.ops.cuda import s2_act as k3
     from singa_tpu_torch.ops.cuda import so2_attn as k6
@@ -490,6 +538,26 @@ def test_kernels_refuse_shapes_they_do_not_take(dev):
     for call in refused:
         with pytest.raises(ValueError, match="does not take these shapes"):
             call()
+    with pytest.raises(ValueError, match="32 input / 32 output channels at lmax 2 not supported"):
+        k2.so3_gate_ffn_bwd_cuda(f(3, 9, 32), f(3, 32, 32), f(32), f(32, 64), f(64), f(3, 32, 32),
+                                 2, f(3, 9, 32))
+
+
+@pytest.mark.cuda
+def test_so3_gate_ffn_at_32_channels_trains_no_step(dev):
+    """A deliberate difference from the JAX package: the gate FFN block at
+    sphere_channels 32 runs its forward (K2) on the card, and its backward
+    (K2b, whose weight kernel takes 8 or 16 channels) raises ValueError, so
+    a training step at that width stops at its first backward."""
+    from singa_tpu_torch.equivariant.attention import FeedForwardNetwork
+
+    ffn = FeedForwardNetwork(32, 64, 32, 2, "gate", device=dev)
+    ffn.init_params(torch.Generator().manual_seed(5))
+    x = torch.randn(3, 9, 32, generator=torch.Generator().manual_seed(6)).to(dev).requires_grad_()
+    y = ffn(x)
+    assert torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="32 input / 32 output channels at lmax 2 not supported"):
+        y.square().sum().backward()
 
 
 def _so2_case(dev, E, lmax, C, H, F2, alpha_ch, seed):

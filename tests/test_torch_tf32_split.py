@@ -21,7 +21,12 @@ as the kernel takes it), is within 1e-5 (of each output's largest
 magnitude, floored at 1) / 1e-5 of ``so3_ffn_bwd_plain``. K6's outputs
 and K6b's gradients with every conv product split (``so2_split``,
 ``so2_bwd_split``) are within 1e-5 of each output's largest magnitude of
-``so2_attn_plain`` / ``so2_attn_bwd_plain`` at the default widths.
+``so2_attn_plain`` / ``so2_attn_bwd_plain`` at the default widths. K2b's
+backward with its weight kernel's four per-degree products split as the
+kernel takes them (``k2b_split``: rows at depth 16 for h and dmid, 8-node
+tiles summed from zero over a degree's rows for dw1 and dw2) is within
+1e-5 of each output's largest magnitude of ``so3_gate_ffn_bwd_plain`` at
+lmax 6 and 4, H 512, C and Co of 16 or 8.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 NAMES = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
 KGC = 32  # grid points per chunk of the kernel's chain
 NCOL = 64  # columns per tile: 4 nodes x 16 hidden channels
+K2B_TN = 8  # nodes per tile of K2b's weight kernel
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -132,6 +138,42 @@ def k4b_split(x, w1, b1, wg, bg, w2, tg, fg, lmax, dy, mm=mm_split):
     rows = [slice(l * l, (l + 1) ** 2) for l in range(lmax + 1)]  # the rows of each degree
     dw1 = torch.stack([torch.einsum("nic,nih->ch", x[:, r], dh[:, r]) for r in rows])
     dw2 = torch.stack([torch.einsum("nih,nio->ho", mid[:, r], dy[:, r]) for r in rows])
+    return dx, dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2, dy[:, 0].sum(0)
+
+
+def k2b_split(x, w1, b1, wg, bg, w2, lmax, dy, mm=mm_split):
+    """K2b's backward with its weight kernel's four per-degree products
+    through ``mm`` (split TF32 by default; ``mm_tf32`` for one TF32
+    product), as the kernel takes them: h = x_i w1[l] and dmid = dy_i
+    w2[l]^T row by row at depth 16; dw1[l] = x^T dh and dw2[l] = mid^T dy
+    per 8-node tile (rows past N zero), each tile's product over the
+    degree's rows summed from zero and the tiles added in float32. The
+    gates, the elementwise steps, dwg, the biases and dx (the other
+    kernel's) in plain float32. Same arguments and outputs as
+    ``so3_gate_ffn_bwd_plain``."""
+    from singa_tpu_torch.ops.cuda.so3_ffn import _l_of
+
+    N, I, C = x.shape
+    H = w1.shape[2]
+    l_of = _l_of(lmax, x.device)
+    W1, W2 = w1.index_select(0, l_of), w2.index_select(0, l_of)
+    h = torch.stack([mm(x[:, i], W1[i]) for i in range(I)], dim=1)
+    dmid = torch.stack([mm(dy[:, i], W2[i].T) for i in range(I)], dim=1)
+    gates = torch.sigmoid(x[:, 0] @ wg + bg).reshape(N, lmax, H)
+    g = gates.index_select(1, l_of[1:] - 1)
+    v0 = h[:, 0] + b1
+    dh = torch.cat([(silu_grad(v0) * dmid[:, 0])[:, None], dmid[:, 1:] * g], dim=1)
+    mid = torch.cat([F.silu(v0)[:, None], h[:, 1:] * g], dim=1)
+    rows = [slice(l * l, (l + 1) ** 2) for l in range(lmax + 1)]
+    dgate = torch.stack([(dmid[:, r] * h[:, r]).sum(1) for r in rows[1:]], dim=1)
+    dg0 = (gates * (1 - gates) * dgate).reshape(N, lmax * H)
+    dx = torch.einsum("nih,ich->nic", dh, W1)
+    dx[:, 0] += dg0 @ wg.T
+    pad = -N % K2B_TN
+    tiles = lambda a, r: F.pad(a[:, r], (0, 0, 0, 0, 0, pad)).reshape(
+        -1, K2B_TN * (r.stop - r.start), a.shape[2])
+    dw1 = torch.stack([mm(tiles(x, r).transpose(1, 2), tiles(dh, r)).sum(0) for r in rows])
+    dw2 = torch.stack([mm(tiles(mid, r).transpose(1, 2), tiles(dy, r)).sum(0) for r in rows])
     return dx, dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2, dy[:, 0].sum(0)
 
 
@@ -289,4 +331,31 @@ def test_so2_split_matches_plain_at_default_widths():
     assert max(split.values()) <= 1e-5, split
     assert one["db2"] == split["db2"] == 0.0, (one["db2"], split["db2"])
     for name in SO2_OUTS + SO2_GRADS[:-1]:
+        assert one[name] >= 30 * split[name], (name, one[name], split[name])
+
+
+@pytest.mark.parametrize("lmax,N,C,Co", [(6, 37, 16, 16), (4, 29, 16, 16), (6, 37, 8, 8),
+                                         (4, 29, 16, 8)])
+def test_k2b_split_matches_plain_backward(lmax, N, C, Co):
+    """dx and the six weight and bias gradients of the gate FFN, with K2b's
+    weight-kernel products (h, dmid, dw1, dw2) in split TF32 over 8-node
+    tiles (N not a multiple of 8), at the widths the kernel takes (C, Co of
+    16 or 8), H 512, against
+    ``so3_gate_ffn_bwd_plain`` (float32): within 1e-5 of each output's
+    largest magnitude. With one TF32 product in their place, every output
+    the products reach is at least 30x further off (db2, the column sum of
+    dy's row 0, has no product on its path and agrees in both)."""
+    from singa_tpu_torch.ops.cuda.so3_ffn import so3_gate_ffn_bwd_plain
+
+    L, H = lmax + 1, 512
+    rng = np.random.default_rng(13 + lmax)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32))
+    args = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
+            0.1 * f(lmax * H), 0.1 * f(L, H, Co), lmax, f(N, L * L, Co)]
+    want = so3_gate_ffn_bwd_plain(*args)
+    split = rel_errs(k2b_split(*args), want, NAMES)
+    one = rel_errs(k2b_split(*args, mm=mm_tf32), want, NAMES)
+    assert max(split.values()) <= 1e-5, split
+    assert one["db2"] == split["db2"] <= 1e-6, (one["db2"], split["db2"])
+    for name in NAMES[:-1]:
         assert one[name] >= 30 * split[name], (name, one[name], split[name])

@@ -221,6 +221,28 @@ def test_trainer_fit_writes_metrics_and_a_checkpoint_that_restores(tmp_path):
     assert tr2.ckpt.latest_step() == 4
 
 
+def test_fit_first_step_trains_on_the_first_batch(tmp_path):
+    """A deliberate difference from the JAX training CLI, which spends the
+    dataset's first batch on ``init_state`` (singa_tpu/train/loop.py:346):
+    the port's Trainer needs no example batch, so ``fit``'s step k trains
+    on the dataset's k-th batch, from the first on."""
+    from singa_tpu_torch.data.batch import synthetic_batch
+    from singa_tpu_torch.train.loop import Trainer
+
+    _, cfg = _tiny()
+    batches = [synthetic_batch(i, 4, cfg.shapes, TGT_LEN) for i in range(3)]
+    tr = Trainer(cfg, logdir=str(tmp_path / "run"), device="cpu")
+    seen = []
+    step = tr.train_step
+    tr.train_step = lambda b: (seen.append(b), step(b))[1]
+    tr.fit(iter(batches), max_iters=2)
+    assert len(seen) == 2
+    for got, want in zip(seen, batches):
+        assert torch.equal(got.protein.pos, want.protein.pos)
+        assert torch.equal(got.tokens.target, want.tokens.target)
+    assert not torch.equal(batches[0].protein.pos, batches[1].protein.pos)
+
+
 def test_two_training_steps_follow_jax(tmp_path):
     """JAX's Trainer and the port's, from the same weights, on the same two
     synthetic batches (2 microbatches each): the losses of both steps agree,
