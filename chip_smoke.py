@@ -56,7 +56,14 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               (by shapes) that one training microbatch (32 complexes of
               data/corpus/train, default Config in float32) makes of each
               kernel, its inputs and cotangents against the plain version on
-              the card, with kernel_ms / plain_ms / bound_ms
+              the card, with kernel_ms / plain_ms / bound_ms; K1b's (and, in
+              the hybrid phases, K7b's) lines also say what the pair kernel
+              walked, as it counts it (``walks``: rows skipped for a zero
+              cotangent, rows taken with their live slots, rows taken
+              whole, slots evaluated, beside the inputs' live slots and
+              B*N*K), and hold the CUDA-core instance of the same
+              algorithm (the one other widths run) at the same call
+              (``cuda_cores``: its time and errors)
   9. train    the port's Trainer (default Config, float32) on
               data/corpus/train through the Prefetcher, batch 64 in 2
               microbatches of 32: warm-up steps, then timed steps (step_ms,
@@ -69,7 +76,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               idle share, the costliest kernels, K2b's kernels by name
               (``k2b_kernels``: the dx kernel, the weight kernel, and
               sum_rows_kernel, which the other backwards' sums also run;
-              in every train_profile* phase whose path runs K2b), and the
+              in every train_profile* phase whose path runs K2b), K1b's or
+              K7b's (``k1b_kernels``: the pair kernel, the plan, the dk/dv
+              stage, sum_rows_kernel; where the path runs either), and the
               SM clock, power and temperature nvidia-smi sampled meanwhile
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
@@ -124,24 +133,26 @@ microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
 call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
 the kernel's alone: the torch.gather calls that feed it are path time, in
-the profiles (main_hybrid's encode_profile, train_profile_hybrid). The
-entries of K2b, K4b, K6 and K6b also have ``bound_tc_ms``: the larger of
-the operations that run as split TF32 (K2b's weight kernel's four
+the profiles (main_hybrid's encode_profile, train_profile_hybrid); K7's and
+K7b's bytes count the gathered rows of live slots only. The entries of
+K1b, K7b, K2b, K4b, K6 and K6b also have ``bound_tc_ms``: the larger of
+the operations that run as split TF32 (K1b's and K7b's EdgeMLPs, dh and
+four weight gradients, once per live pair; K2b's weight kernel's four
 per-degree products h, dmid, dw1, dw2; K4b's four grid transforms; K6's
 and K6b's conv and weight-gradient products, the GEMM of
 csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
 rest over 67 TFLOP/s, since the two units issue together, or the bytes
-over 3.35 TB/s if that is larger. K2b's and K4b's also have the ptxas
-report and the residency (blocks per SM, threads, dynamic shared memory
-per block) of their tensor-core kernel; K6's and
+over 3.35 TB/s if that is larger. K1b's, K7b's, K2b's and K4b's also have
+the ptxas report and the residency (blocks per SM, threads, dynamic shared
+memory per block) of their tensor-core kernel; K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
 ``gemm_residency``), and train_profile_so2 reports those kernels' device
 time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
-runs in full float32 (K2b's weight products, K4b's grid transforms and
-K6's and K6b's products run as split TF32 inside the kernels,
-csrc/mma_tf32.cuh, to float32 round-off).
+runs in full float32 (K1b's and K7b's EdgeMLP products, K2b's weight
+products, K4b's grid transforms and K6's and K6b's products run as split
+TF32 inside the kernels, csrc/mma_tf32.cuh, to float32 round-off).
 """
 from __future__ import annotations
 
@@ -195,6 +206,9 @@ SO2_GEMM = "so2::gemm_kernel"  # K6's and K6b's GEMM kernels in a profile (csrc/
 # K2b's kernels in a profile (csrc/so3_gate_ffn_bwd.cu); sum_rows_kernel is
 # also the second pass of K1b's, K4b's, K6b's and K8b's sums
 K2B_KERNELS = ("gate_ffn_bwd_dx_kernel", "gate_ffn_bwd_w_kernel", "sum_rows_kernel")
+# K1b's and K7b's kernels in a profile (csrc/neighbor_attn_bwd.cu): the
+# tensor-core pair kernel, the plan, the dk/dv stage, the sums' second pass
+K1B_KERNELS = ("list_bwd_pair_kernel", "list_plan_kernel", "list_dkdv_kernel", "sum_rows_kernel")
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 
 
@@ -425,16 +439,21 @@ def k1_cost(args, out):
     return b, pairs * pair_flops(H, kd, vd, De)[0]
 
 
+def gathered_bytes(nbr_mask, k_nb, v_nb) -> float:
+    """The bytes of K7's and K7b's gathered rows that the data needs: the
+    rows of live slots (a dead slot's row is never read)."""
+    return float(nbr_mask.sum().item()) * (k_nb.shape[-1] + v_nb.shape[-1]) * k_nb.element_size()
+
+
 def k7_cost(args, out):
-    # K1's work from the gathered rows, which it must read: ~1.8 GB at a
-    # training microbatch, so memory bounds it
+    # K1's work from the gathered rows of live slots
     (qt, k_nb, v_nb, nbr_mask, dist, ds, dv, centers,
      wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff) = args
     H = ds.shape[2]
     kd, vd, De = qt.shape[2] // H, v_nb.shape[3] // H, centers.shape[0]
     pairs = float(nbr_mask.sum().item())
-    b = nbytes(qt, k_nb, v_nb, nbr_mask, dist, ds, dv, centers,
-               wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, out)
+    b = gathered_bytes(nbr_mask, k_nb, v_nb) + nbytes(
+        qt, nbr_mask, dist, ds, dv, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, out)
     return b, pairs * pair_flops(H, kd, vd, De)[0]
 
 
@@ -488,15 +507,54 @@ def k2b_cost(args, outs):
 
 def k1b_cost(args, outs):
     """K1b's, and K7b's: the same arguments with k_nb/v_nb [B, N, K, *] in
-    place of k and v."""
+    place of k and v (their rows of live slots counted)."""
     (qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
      wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g) = args
     H = ds.shape[2]
     kd, vd, De = qt.shape[2] // H, v.shape[-1] // H, centers.shape[0]
     pairs = float(nbr_mask.sum().item())  # the work this data needs: live pairs
-    b = nbytes(qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
-               wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, g, *outs)
+    rows = gathered_bytes(nbr_mask, k, v) if k.dim() == 4 else nbytes(k, v)
+    b = rows + nbytes(qt, nbr, nbr_mask, dist, ds, dv, centers,
+                      wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, g, *outs)
     return b, pairs * sum(pair_flops(H, kd, vd, De))
+
+
+def k1b_split_flops(args) -> float:
+    """The operations of K1b (and K7b) that run as split TF32 on the tensor
+    cores, once per live pair: the two EdgeMLPs (smear -> hidden -> w),
+    dh = (dw W2^T) * sigmoid(pre) and the four weight gradients (the scores,
+    the softmax, dqt, dw, dk/dv and the biases stay float32)."""
+    nbr_mask, centers, wk1, wv1 = args[4], args[8], args[9], args[13]
+    De, kd, vd = centers.shape[0], wk1.shape[1], wv1.shape[1]
+    per_pair = 2.0 * (2 * De * (kd + vd) + 3 * (kd * kd + vd * vd))
+    return float(nbr_mask.sum().item()) * per_pair
+
+
+def list_bwd_report(spec, mod, args, kw) -> dict:
+    """K1b's or K7b's kernels at one call: what the pair kernel walked, as it
+    counts it (``walks``: rows skipped for a zero cotangent, rows taken with
+    their live slots, rows taken again whole, slots evaluated, beside the
+    inputs' rows, live slots and B*N*K), and the CUDA-core instance of the
+    same algorithm, which every shape the tensor-core kernel does not take
+    runs, at the same call (``cuda_cores``: its time, and each output
+    against the plain version as ``hold`` holds the kernel): the work cut
+    without the tensor cores."""
+    launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
+    nbr_mask = args[4]
+    B, N, K = nbr_mask.shape
+    stats = torch.zeros(4, dtype=torch.int32, device=nbr_mask.device)
+    cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
+    with torch.no_grad():
+        launch(*args, **kw, stats=stats)
+        errs = {o: [(a - b).abs().max().item(), b.abs().max().item()]
+                for o, a, b in zip(spec.outs, cuda_cores(), plain(*args))}
+        ms = time_ms(cuda_cores)
+    zero, live, whole, slots = stats.tolist()
+    return {"walks": {"rows": B * N, "rows_zero_cotangent": zero, "rows_live": live,
+                      "rows_whole": whole, "slots_evaluated": slots, "slots": B * N * K,
+                      "live_slots": int(nbr_mask.sum())},
+            "cuda_cores": {"ms": ms, "errors": errs,
+                           "ok": all(e <= BWD_TOL * m for e, m in errs.values())}}
 
 
 def k8b_cost(args, outs):
@@ -669,6 +727,7 @@ class Kernel(NamedTuple):
     cost: object
     outs: tuple | None  # the backward's output names; None: a forward
     split_flops: object = None  # (args) -> its operations that run as split TF32
+    report: object = None  # (spec, mod, args, kw) -> more of this call, for kernel_bwd*
 
 
 K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS = [
@@ -682,7 +741,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None),
     Kernel("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/neighbor_attn_bwd.cu", "singa_tpu/ops/pallas/neighbor_attn.py:362",
-           k1b_cost, ATTN_BWD_OUTS),
+           k1b_cost, ATTN_BWD_OUTS, k1b_split_flops, list_bwd_report),
     Kernel("so3_gate_ffn_bwd", "so3_ffn", "so3_gate_ffn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/so3_gate_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:529",
            k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"), k2b_split_flops),
@@ -711,7 +770,8 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            k7_cost, None),
     Kernel("neighbor_attn_hybrid_bwd", "neighbor_attn", "neighbor_attn_hybrid_bwd",
            "launches_hybrid_bwd", "singa_tpu_torch/csrc/neighbor_attn_bwd.cu",
-           "singa_tpu/ops/pallas/neighbor_attn.py:518", k1b_cost, ATTN_BWD_OUTS),
+           "singa_tpu/ops/pallas/neighbor_attn.py:518", k1b_cost, ATTN_BWD_OUTS, k1b_split_flops,
+           list_bwd_report),
     Kernel("dense_edge_attn", "dense_edge_attn", "dense_edge_attn", "launches",
            "singa_tpu_torch/csrc/dense_edge_attn.cu", "singa_tpu/ops/pallas/dense_edge_attn.py:230",
            k8_cost, None),
@@ -810,8 +870,10 @@ def hold_all(specs, mods, captured, phase, per, path) -> dict:
         recs = []
         for args, kw, calls in captured[f"{spec.fn}_cuda"].values():
             rec = hold(spec, mods[spec.module], args, kw)
+            if spec.report is not None:
+                rec.update(spec.report(spec, mods[spec.module], args, kw))
             emit({"phase": phase, "name": spec.name, per: calls, **rec})
-            if not rec["ok"]:
+            if not rec["ok"] or not rec.get("cuda_cores", {"ok": True})["ok"]:
                 raise AssertionError(f"{spec.name}: kernel disagrees with its plain version {rec}")
             recs.append((calls, rec))
         if not recs:
@@ -827,6 +889,9 @@ def hold_all(specs, mods, captured, phase, per, path) -> dict:
         }
         if spec.split_flops is not None:
             results[spec.name]["bound_tc_ms"] = mean("bound_tc_ms")
+        if spec.report is not None:  # the CUDA-core instance, timed at the same calls
+            results[spec.name]["cuda_cores_ms"] = sum(c * r["cuda_cores"]["ms"]
+                                                      for c, r in recs) / n
     return results
 
 
@@ -1003,9 +1068,11 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
 
         # train_profile: one optimizer step
         runs_k2b = per_step.get(K2B.name, 0) > 0
+        runs_k1b = per_step.get(K1B.name, 0) + per_step.get(K7B.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
-                                  (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b)
+                                  (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b
+                                  + K1B_KERNELS * runs_k1b)
         extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
             ms = prof["matched"][SO2_GEMM]["device_ms"]
@@ -1014,6 +1081,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                  "tflop_per_s": gemm_flops / ms / 1e9 if ms else None}
         if runs_k2b:  # K2b's kernels by name, in the profiled step
             extra["k2b_kernels"] = {n: prof["matched"][n] for n in K2B_KERNELS}
+        if runs_k1b:  # K1b's (or K7b's) kernels by name
+            extra["k1b_kernels"] = {n: prof["matched"][n] for n in K1B_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
         data.close()
 
@@ -1373,11 +1442,17 @@ def main() -> int:
                  if "gate_ffn_bwd_w_kernel" in k}
     gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
                   for n in ("so2_attn", "so2_attn_bwd")}
+    # the pair kernels of K1b (form 0: ILi0E) and of K7b (form 1: ILi1E):
+    # tensor cores (list_bwd_pair_kernel) and CUDA cores (list_bwd_cc_kernel)
+    k1b_ptxas = [{k: v for k, v in ptxas_report(logs["neighbor_attn_bwd"]).items()
+                  if ("list_bwd_pair_kernel" in k or "list_bwd_cc_kernel" in k)
+                  and f"ILi{form}E" in k} for form in (0, 1)]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
-          "k4b_ptxas": k4b_ptxas, "k2b_ptxas": k2b_ptxas, "so2_gemm_ptxas": gemm_ptxas})
+          "k4b_ptxas": k4b_ptxas, "k2b_ptxas": k2b_ptxas, "so2_gemm_ptxas": gemm_ptxas,
+          "k1b_ptxas": k1b_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -1486,6 +1561,9 @@ def main() -> int:
 
     results[K4B.name]["ptxas"] = k4b_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
+    for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form
+        results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid)
+        results[spec.name]["ptxas"] = k1b_ptxas[int(hybrid)]
     gemm_residency = mods["so2_attn"].gemm_residency()
     for spec, lib in ((K6, "so2_attn"), (K6B, "so2_attn_bwd")):
         results[spec.name]["gemm_ptxas"] = gemm_ptxas[lib]

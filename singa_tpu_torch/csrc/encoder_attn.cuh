@@ -1,5 +1,7 @@
 // The kNN encoder's graph attention in its three forms: one tiled forward
-// kernel and one backward pair kernel, each a template over the form.
+// kernel, a template over the form, and the dense form's backward (its pair
+// kernel and its dk/dv stage); the list forms' backward is
+// csrc/neighbor_attn_bwd.cu.
 //
 // K1 (neighbour lists), K7 (the lists' rows gathered before the launch) and
 // K8 (every column of the untruncated adjacency) compute one function. Per
@@ -72,19 +74,18 @@
 // for two resident blocks per SM (__launch_bounds__ min blocks 2: at most 64
 // registers a thread), which its 64-column tile fits in shared memory.
 //
-// The backward pair kernel sweeps a node's tiles twice: the first recomputes
-// each tile's forward and da and carries m, l and dot online; the second
-// recomputes the tile again (not when the node is one tile: its buffers
-// still hold it) and writes dsc, dqt, dds, ddv, and per slot the four
-// numbers the dk/dv stage needs (w_k, w_v, a, dsc) to scratch [slots,
-// kd + vd + 2H], at the slot's flat index: node * K + p for the lists, the
-// live pair's CSR index for the dense form. The EdgeMLP weight gradients
-// stay in registers, each sum owned by one thread, across all the block's
-// nodes, and go to the block's row of a [blocks, P] buffer at the end,
-// summed in block order by sum_rows_kernel. dk/dv are csr_dkdv_kernel: one
-// block per destination row gathers its incoming slots over the CSR
-// transpose of the slots (of nbr, or of the live lists). Every sum runs in a
-// fixed order: no atomics.
+// The dense form's backward pair kernel (K8b) sweeps a node's tiles twice:
+// the first recomputes each tile's forward and da and carries m, l and dot
+// online; the second recomputes the tile again (not when the node is one
+// tile: its buffers still hold it) and writes dsc, dqt, dds, ddv, and per
+// slot the four numbers the dk/dv stage needs (w_k, w_v, a, dsc) to scratch
+// [slots, kd + vd + 2H], at the live pair's CSR index. The EdgeMLP weight
+// gradients stay in registers, each sum owned by one thread, across all the
+// block's nodes, and go to the block's row of a [blocks, P] buffer at the
+// end, summed in block order by sum_rows_kernel. dk/dv are csr_dkdv_kernel:
+// one block per destination row gathers its incoming live pairs over the
+// CSR transpose of the live lists. Every sum runs in a fixed order: no
+// atomics. The backward templates take the dense form alone (static_assert).
 #pragma once
 
 #include "block_gemm.cuh"
@@ -472,7 +473,7 @@ __host__ __device__ inline int bwd_smem_floats(const Dims& d) {
   int n = d.mlp_floats() + kd * kd + vd * vd + 4;               // weights, wk2t wv2t, one
   n += T * d.De + 3 * T * kd + 3 * T * vd + 2 * T * H;          // pair buffers
   n += 2 * H * kd + 2 * H * vd + 6 * H;                         // node rows; per head
-  n += (F == kDense ? vd : 0) + 3 * T;                          // w_v0; dist, mask, idx
+  n += vd + 3 * T;                                              // w_v0; dist, mask, idx
   return n;
 }
 
@@ -508,6 +509,7 @@ __device__ void tile_forward_bwd(const Args& a, const Dims& d, const BwdSmem& sm
 template <int F>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
+  static_assert(F == kDense, "the list forms' backward is csrc/neighbor_attn_bwd.cu");
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
   const int TM = tile_of<F, true>(d);
   extern __shared__ __align__(16) float smem[];
@@ -534,8 +536,8 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   sm.l = sm.m + H;                       // [H] running sum
   sm.dot = sm.l + H;                     // [H] running sum of e * da, then dot
   sm.ad = sm.dot + H;                    // [H] a_self
-  sm.w0 = sm.ad + H;                     // kDense: [vd] a dead column's w_v
-  sm.dist = sm.w0 + (F == kDense ? vd : 0);
+  sm.w0 = sm.ad + H;                     // [vd] a dead column's w_v
+  sm.dist = sm.w0 + vd;
   sm.mask = sm.dist + TM;
   sm.idx = reinterpret_cast<int*>(sm.mask + TM);
 
@@ -543,7 +545,7 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   for (int t = tid; t < kd * kd; t += blockDim.x) sm.wk2t[(t % kd) * kd + t / kd] = a.wk2[t];
   for (int t = tid; t < vd * vd; t += blockDim.x) sm.wv2t[(t % vd) * vd + t / vd] = a.wv2[t];
   if (tid == 0) sm.one[0] = 1.f;
-  if (F == kDense) dead_wv(a.bv1, a.wv2, a.bv2, vd, sm.w0);
+  dead_wv(a.bv1, a.wv2, a.bv2, vd, sm.w0);
 
   const int P = d.grad_floats();
   float acc[kAccPerThread];
@@ -554,11 +556,11 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const long long total = (long long)d.B * d.N;
   for (long long i = blockIdx.x; i < total; i += gridDim.x) {
-    const long long node = F == kDense ? (long long)a.lorder[i] : i;
+    const long long node = a.lorder[i];
     const long long gb = node / d.N, base = gb * d.N;  // the node's graph and its first row
     long long first;
     const int R = node_slots<F>(a, d, node, first);
-    const bool closed = F == kDense && R == 0;  // no live column: the closed form
+    const bool closed = R == 0;  // no live column: the closed form
     __syncthreads();  // the previous node's readers are done
     for (int t = tid; t < HK; t += blockDim.x) {
       sm.q[t] = a.qt[node * HK + t];
@@ -594,7 +596,7 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
           sm.m[h] = sm.sd[h];
           sm.l[h] = 1.f;
           sm.dot[h] = part;
-          if (F == kDense) o.s_ad[node * H + h] = 0.f;
+          o.s_ad[node * H + h] = 0.f;
         }
       }
     }
@@ -720,11 +722,10 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   }
 }
 
-// dk and dv of destination row j: the slots that read row j, in the CSR
-// order of the transpose (offsets [B*N + 1], slots: flat slot indices). A
-// slot's source node is slot / R for the lists, pair_rows[slot] for the
-// dense form, which also adds gw[b] (w_v0 * G of j's graph b: the
-// closed-form rows' share) to dv.
+// dk and dv of destination row j: the live pairs that read row j, in the
+// CSR order of the transpose (offsets [B*N + 1], slots: live pair indices).
+// A pair's source node is pair_rows[pair]; dv also gets gw[b] (w_v0 * G of
+// j's graph b: the closed-form rows' share).
 template <int F>
 __global__ void __launch_bounds__(kDkdvThreads)
 csr_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
@@ -733,6 +734,7 @@ csr_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
                 const int* __restrict__ offsets, const int* __restrict__ slots,
                 const int* __restrict__ pair_rows, const float* __restrict__ gw,
                 float* __restrict__ dk, float* __restrict__ dv, Dims dm) {
+  static_assert(F == kDense, "the list forms' dk/dv stage is csrc/neighbor_attn_bwd.cu");
   const int H = dm.H, kd = dm.kd, vd = dm.vd;
   const int HK = H * kd, HV = H * vd;
   const long long rows = (long long)dm.B * dm.N;
@@ -744,7 +746,7 @@ csr_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
         const int h = c / kd, d = c % kd;
         for (int e = e0; e < e1; ++e) {
           const long long s = slots[e];
-          const long long src = F == kDense ? (long long)pair_rows[s] : s / dm.R;
+          const long long src = pair_rows[s];
           acc = fmaf(s_dsc[s * H + h] * s_wk[s * kd + d], __ldg(qt + src * HK + c), acc);
         }
         dk[j * HK + c] = acc;
@@ -752,10 +754,10 @@ csr_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
         const int cv = c - HK, h = cv / vd, d = cv % vd;
         for (int e = e0; e < e1; ++e) {
           const long long s = slots[e];
-          const long long src = F == kDense ? (long long)pair_rows[s] : s / dm.R;
+          const long long src = pair_rows[s];
           acc = fmaf(s_a[s * H + h] * s_wv[s * vd + d], __ldg(gin + src * HV + cv), acc);
         }
-        if (F == kDense) acc += gw[(j / dm.N) * HV + cv];
+        acc += gw[(j / dm.N) * HV + cv];
         dv[j * HV + cv] = acc;
       }
     }

@@ -14,7 +14,9 @@ neighbour rows over every slot), of the self terms and of the eight EdgeMLP
 weights and biases; nbr, nbr_mask, dist and centers get none. The CUDA
 kernels (``csrc/neighbor_attn.cu``, ``csrc/neighbor_attn_bwd.cu``) gather
 neighbour rows by index and keep every per-node pair tensor out of device
-memory. ``neighbor_attn`` goes through one ``torch.autograd.Function``:
+memory; the backward evaluates only the slots whose terms are not exact
+zeros (a row's live slots; nothing for a row whose cotangent is zero) and
+runs its EdgeMLP products on the tensor cores as split TF32. ``neighbor_attn`` goes through one ``torch.autograd.Function``:
 plain versions for CPU tensors, the kernels for CUDA tensors.
 
 K7 replaces ``neighbor_attn_hybrid`` (``_hybrid_pallas_fwd``) and K7b its
@@ -163,15 +165,27 @@ def _bwd_fns(hybrid: bool = False):
     lib = build.load("neighbor_attn_bwd")
     name = "neighbor_attn_hybrid_bwd" if hybrid else "neighbor_attn_bwd"
     blocks = getattr(lib, f"{name}_blocks")
-    blocks.argtypes = [ctypes.c_int] * 7
+    blocks.argtypes = [ctypes.c_int] * 8
     blocks.restype = ctypes.c_int
     fn = getattr(lib, f"{name}_f32")
     fn.argtypes = (
-        [ctypes.c_void_p] * (16 if hybrid else 17) + [ctypes.c_float] + [ctypes.c_void_p] * 14
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * (16 if hybrid else 17) + [ctypes.c_float] + [ctypes.c_void_p] * 15
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     )
     fn.restype = ctypes.c_int
     return blocks, fn
+
+
+def bwd_residency(hybrid: bool = False) -> dict:
+    """K1b's tensor-core pair kernel (K7b's with ``hybrid``): resident blocks per SM
+    (-1: refused), threads and dynamic shared memory per block. For
+    reports; launches nothing."""
+    fn = build.load("neighbor_attn_bwd").neighbor_attn_bwd_residency
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(int(hybrid), ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
 def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
@@ -271,26 +285,33 @@ def transpose_slots(nbr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return offsets, slots
 
 
-def neighbor_attn_bwd_cuda(*args, offsets, slots):
+def neighbor_attn_bwd_cuda(*args, offsets, slots, cuda_cores=False, stats=None):
     """The K1b kernels; arguments and result as ``neighbor_attn_bwd_plain``,
-    plus ``transpose_slots(nbr)`` as ``offsets`` and ``slots``."""
+    plus ``transpose_slots(nbr)`` as ``offsets`` and ``slots``. The
+    tensor-core pair kernel runs where it takes the shapes, else the
+    CUDA-core one; ``cuda_cores``: the CUDA-core one at any shape (to time
+    the two). ``stats``: None, or an int32 tensor [4] of zeros on the card,
+    to which the launch adds what it walked (rows skipped for a zero
+    cotangent, rows taken with their live slots, rows taken whole, slots
+    evaluated)."""
     global launches_bwd
-    grads = _bwd_cuda(args, offsets, slots, hybrid=False)
+    grads = _bwd_cuda(args, offsets, slots, False, cuda_cores, stats)
     launches_bwd += 1
     return grads
 
 
-def neighbor_attn_hybrid_bwd_cuda(*args, offsets, slots):
+def neighbor_attn_hybrid_bwd_cuda(*args, offsets, slots, cuda_cores=False, stats=None):
     """The K7b kernels; arguments and result as
     ``neighbor_attn_hybrid_bwd_plain``, plus ``transpose_slots(nbr)`` as
-    ``offsets`` and ``slots``."""
+    ``offsets`` and ``slots``; ``cuda_cores`` and ``stats`` as
+    ``neighbor_attn_bwd_cuda``'s."""
     global launches_hybrid_bwd
-    grads = _bwd_cuda(args, offsets, slots, hybrid=True)
+    grads = _bwd_cuda(args, offsets, slots, True, cuda_cores, stats)
     launches_hybrid_bwd += 1
     return grads
 
 
-def _bwd_cuda(args, offsets, slots, hybrid: bool):
+def _bwd_cuda(args, offsets, slots, hybrid: bool, cuda_cores: bool, stats):
     """K1b (k, v) or K7b (k_nb, v_nb): the checks, outputs, scratch and the
     launch; the caller counts it."""
     *inputs, coeff, g = args
@@ -301,6 +322,8 @@ def _bwd_cuda(args, offsets, slots, hybrid: bool):
     build.require(g, "g", (B, N, H * vd), f32, dev)
     build.require(offsets, "offsets", (B * N + 1,), torch.int32, dev)
     build.require(slots, "slots", (B * N * K,), torch.int32, dev)
+    if stats is not None:
+        build.require(stats, "stats", (4,), torch.int32, dev)
     empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     dqt, dk = empty(B, N, H * kd), empty(B, N, H * kd)
     dv, dds, ddv = empty(B, N, H * vd), empty(B, N, H), empty(B, N, H * vd)
@@ -308,20 +331,22 @@ def _bwd_cuda(args, offsets, slots, hybrid: bool):
     grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
     if B * N:
         blocks_fn, fn = _bwd_fns(hybrid)
-        blocks = blocks_fn(B, N, K, H, kd, vd, De)
+        blocks = blocks_fn(B, N, K, H, kd, vd, De, int(cuda_cores))
         if blocks < 1:
             raise ValueError(f"neighbor_attn backward kernel: shapes {(K, H, kd, vd, De)} not "
                              "supported or one node's pair tensors exceed shared memory")
         slots_n = B * N * K
+        # per slot: w_k, w_v, a, dsc; per row: its plan; per block: its weight-gradient row
         scratch = (empty(slots_n, kd), empty(slots_n, vd), empty(slots_n, H), empty(slots_n, H),
-                   empty(blocks, sum(sizes)))
+                   torch.empty(B * N, dtype=torch.int32, device=dev), empty(blocks, sum(sizes)))
         # K7b's entry point takes no nbr: its pair kernel reads the gathered rows
         pointers = [t.data_ptr() for i, t in enumerate(inputs) if not (hybrid and i == 3)]
         status = fn(
             *pointers, float(coeff), g.data_ptr(), offsets.data_ptr(),
             slots.data_ptr(), dqt.data_ptr(), dk.data_ptr(), dv.data_ptr(), dds.data_ptr(),
             ddv.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
-            B, N, K, H, kd, vd, De, blocks, build.stream_ptr(qt),
+            B, N, K, H, kd, vd, De, blocks, int(cuda_cores),
+            None if stats is None else stats.data_ptr(), build.stream_ptr(qt),
         )
         build.check(status, "neighbor_attn_hybrid_bwd" if hybrid else "neighbor_attn_bwd")
     weights = inputs[9:]

@@ -115,6 +115,10 @@ def test_s2_silu_sep_kernel_matches_plain(dev, E, C):
     _check(got, k3.s2_silu_sep_plain(x, s, tg, fg))
 
 
+BWD_NAMES = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
+             "dwv1", "dbv1", "dwv2", "dbv2"]
+
+
 def _check_grads(got, want, names):
     torch.cuda.synchronize()
     for name, a, b in zip(names, got, want):
@@ -122,17 +126,17 @@ def _check_grads(got, want, names):
         torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=1e-4, msg=name)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,N,K", [(2, 64, 24), (3, 50, 96)])
-def test_neighbor_attn_bwd_kernel_matches_plain(dev, B, N, K):
-    """K1b against the plain backward at a random cotangent, with random
-    masks, a node with no live slot, a padded node (self score -1e9: its
+def _random_list_case(dev, B, N, K, seed, redo=False, widths=(4, 32, 64, 64)):
+    """K1b's arguments on random lists: random (not prefix) masks, a node
+    with no live slot, a padded node (self score -1e9, no live slot: its
     softmax is uniform over masked slots, which send dv to the rows they
-    name) and a repeated neighbour index; every output, the scatter included."""
-    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
-
-    H, kd, vd, De = 4, 32, 64, 64
-    rng = np.random.default_rng(53 + K)
+    name), a repeated neighbour index, a random cotangent on every row.
+    ``redo``: also a padded node (row 9 of graph 0) with one live slot whose
+    score is far below -1e9, so its max is the self score and its dead
+    slots keep their weight (the kernel takes such a row again whole).
+    ``widths``: (H, kd, vd, De)."""
+    H, kd, vd, De = widths
+    rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     nbr = rng.integers(0, N, size=(B, N, K)).astype(np.int32)
     nbr[1, 7, :3] = 5  # a repeated neighbour
@@ -148,14 +152,162 @@ def test_neighbor_attn_bwd_kernel_matches_plain(dev, B, N, K):
         0.3 * f(De, kd), 0.1 * f(kd), 0.3 * f(kd, kd), 0.1 * f(kd),
         0.3 * f(De, vd), 0.1 * f(vd), 0.3 * f(vd, vd), 0.1 * f(vd),
     ]
-    args = [_t(a, dev) for a in args] + [-0.5 / (15.0 / (De - 1)) ** 2, _t(f(B, N, H * vd), dev)]
+    coeff = -0.5 / (15.0 / (De - 1)) ** 2
+    if redo:
+        from singa_tpu_torch.ops.cuda.neighbor_attn import _ssp
+
+        ds[0, 9] = -1e9
+        mask[0, 9] = False
+        mask[0, 9, 2] = True
+        t = lambda a: torch.as_tensor(a)
+        diff = t(args[5][0, 9, 2]) - t(args[8])
+        e = -torch.exp(coeff * diff * diff)
+        w_k = (_ssp(e @ t(args[9]) + t(args[10])) @ t(args[11]) + t(args[12])).numpy()
+        krow = args[1][0, nbr[0, 9, 2]].reshape(H, kd)
+        args[0][0, 9] = (-1e11 * np.sign(w_k * krow)).reshape(-1)
+    return [_t(a, dev) for a in args] + [coeff, _t(f(B, N, H * vd), dev)]
+
+
+def _path_cotangent(g, ds, keep):
+    """The cotangent the model path hands the kernel: zero on every padded
+    row (self score -1e9; NeighborGraphMHA ends with out * node_mask), but on
+    the padded rows ``keep`` [(graph, row)], whose cotangent stays."""
+    padded = ds[..., 0] <= -5e8
+    for b, i in keep:
+        padded[b, i] = False
+    return torch.where(padded[..., None], torch.zeros_like(g), g)
+
+
+def _graph_list_case(dev, B, N, knn, ring, seed, pad):
+    """K1b's arguments, and K7b's, on build_neighbor_graph's lists (prefix
+    masks, an overflow row cut to K) with ``pad`` padded nodes in every
+    graph and the path's cotangent, but on one padded row (graph 0's last):
+    returns (K1b's arguments, K7b's, nbr)."""
+    from singa_tpu_torch.ops.cuda.neighbor_attn import gather_rows
+
+    k7, k8, g, nbr = _hub_graph(dev, B, N, knn, ring, seed, 0)
+    q, k, v, adj, ds, dval, *w, coeff = k8
+    ds = ds.clone()
+    ds[:, N - pad:] = -1e9
+    live = (torch.arange(N, device=dev) < N - pad)
+    nbr_mask = k7[3] & live[None, :, None] & live[None, None, :].expand(B, N, N).gather(
+        2, nbr.long())
+    g = _path_cotangent(g, ds, [(0, N - 1)])
+    k1b = [q, k, v, nbr, nbr_mask, k7[4], ds, dval, *w, coeff, g]
+    k7b = [q, gather_rows(k, nbr), gather_rows(v, nbr), nbr, nbr_mask, k7[4], ds, dval, *w,
+           coeff, g]
+    return k1b, k7b, nbr
+
+
+# K1b's cases: random lists at K 24 and 96; a row taken again whole; the
+# main path's shapes (N 384, K 96, several graphs, a padded tail whose
+# cotangent is zero, one padded row whose cotangent is not); deep enough
+# for many rows per block (16 graphs: ~46 rows a block on 132 SMs). Then
+# shapes the tensor-core kernel does not take, which the CUDA-core one
+# runs: the encoder at num_heads 8 (kd 16, vd 32) and at key_channels 64
+# (kd 16); ragged widths, with a row taken again whole; K 160
+LIST_BWD_CASES = ["random_k24", "random_k96", "redo", "path", "deep",
+                  "heads8", "key64", "ragged_redo", "k160"]
+
+
+def _list_bwd_case(dev, case):
+    if case == "random_k24":
+        return _random_list_case(dev, 2, 64, 24, 77)
+    if case == "random_k96":
+        return _random_list_case(dev, 3, 50, 96, 149)
+    if case == "redo":
+        return _random_list_case(dev, 2, 64, 24, 151, redo=True)
+    if case == "heads8":
+        return _random_list_case(dev, 2, 64, 48, 167, widths=(8, 16, 32, 64))
+    if case == "key64":
+        return _random_list_case(dev, 2, 64, 48, 169, widths=(4, 16, 64, 64))
+    if case == "ragged_redo":
+        return _random_list_case(dev, 2, 40, 30, 173, redo=True, widths=(3, 12, 20, 16))
+    if case == "k160":
+        return _random_list_case(dev, 2, 200, 160, 179, widths=(2, 16, 16, 16))
+    B = 4 if case == "path" else 16
+    return _graph_list_case(dev, B, 384, 48, 110, 157 + B, 150)[0]
+
+
+def _as_hybrid(args):
+    """K7b's arguments from K1b's: the neighbour rows gathered."""
+    from singa_tpu_torch.ops.cuda.neighbor_attn import gather_rows
+
+    return [args[0], gather_rows(args[1], args[3]), gather_rows(args[2], args[3]), *args[3:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LIST_BWD_CASES)
+def test_neighbor_attn_bwd_kernel_matches_plain(dev, case):
+    """K1b against the plain backward, every output, the scatter included:
+    random masks, a node with no live slot, a padded node (its softmax is
+    uniform over masked slots, which send dv to the rows they name), a
+    repeated neighbour index; a live row whose scores leave its dead slots a
+    weight; the main path's shapes with a zero cotangent on the padded
+    rows; many rows per block."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    args = _list_bwd_case(dev, case)
     n = k1.launches_bwd
     offsets, slots = k1.transpose_slots(args[3])
     got = k1.neighbor_attn_bwd_cuda(*args, offsets=offsets, slots=slots)
     assert k1.launches_bwd == n + 1
-    names = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
-             "dwv1", "dbv1", "dwv2", "dbv2"]
-    _check_grads(got, k1.neighbor_attn_bwd_plain(*args), names)
+    _check_grads(got, k1.neighbor_attn_bwd_plain(*args), BWD_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["list", "hybrid"])
+@pytest.mark.parametrize("case", ["random_k96", "redo", "path", "heads8"])
+def test_neighbor_attn_bwd_cuda_core_instance_matches_plain(dev, case, form):
+    """The CUDA-core instance of K1b's and K7b's backward (what every shape
+    the tensor-core kernel does not take runs), asked for at any shape,
+    against the plain backward; and it walks what the instance picked for
+    these shapes walks: the same rows skipped, taken live and taken whole,
+    and the same slots."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    args = _list_bwd_case(dev, case)
+    launch, plain = k1.neighbor_attn_bwd_cuda, k1.neighbor_attn_bwd_plain
+    if form == "hybrid":
+        args = _as_hybrid(args)
+        launch, plain = k1.neighbor_attn_hybrid_bwd_cuda, k1.neighbor_attn_hybrid_bwd_plain
+    offsets, slots = k1.transpose_slots(args[3])
+    walked = [torch.zeros(4, dtype=torch.int32, device=dev) for _ in range(2)]
+    got = launch(*args, offsets=offsets, slots=slots, cuda_cores=True, stats=walked[0])
+    _check_grads(got, plain(*args), BWD_NAMES)
+    launch(*args, offsets=offsets, slots=slots, stats=walked[1])
+    zero, live, whole, evaluated = walked[0].tolist()
+    assert walked[0].tolist() == walked[1].tolist()
+    B, N, K = args[4].shape
+    assert zero + live + whole == B * N
+    assert whole >= (2 if case == "redo" else 1)  # the padded rows whose cotangent is not zero
+
+
+@pytest.mark.cuda
+def test_neighbor_attn_bwd_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K1b meets tells split TF32 from one TF32 product
+    at the main path's shapes (4 graphs of 384 nodes, K 96): the kernel and
+    the split rendering of its arithmetic (test_torch_tf32_split.k1b_split)
+    pass it against neighbor_attn_bwd_plain; the same rendering with one
+    TF32 product per EdgeMLP product fails it on at least one output."""
+    from test_torch_tf32_split import k1b_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    args = _list_bwd_case(dev, "path")
+    offsets, slots = k1.transpose_slots(args[3])
+    n = k1.launches_bwd
+    got = k1.neighbor_attn_bwd_cuda(*args, offsets=offsets, slots=slots)
+    assert k1.launches_bwd == n + 1
+    want = k1.neighbor_attn_bwd_plain(*args)
+    ratios = {"kernel": _hold_ratios(got, want, BWD_NAMES)}
+    del got
+    ratios["split"] = _hold_ratios(k1b_split(*args), want, BWD_NAMES)
+    ratios["one_tf32"] = _hold_ratios(k1b_split(*args, mm=mm_tf32), want, BWD_NAMES)
+    print(json.dumps({"hold_ratios": ratios}))
+    assert max(ratios["kernel"].values()) <= 1.0, ratios
+    assert max(ratios["split"].values()) <= 1.0, ratios
+    assert max(ratios["one_tf32"].values()) > 1.0, ratios
 
 
 @pytest.mark.cuda
@@ -790,25 +942,30 @@ def _hub_graph(dev, B, N, knn, ring, seed, pad=None):
     return k7, k8, _t(f(B, N, H * vd), dev), g.nbr
 
 
-BWD_NAMES = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
-             "dwv1", "dbv1", "dwv2", "dbv2"]
 # (B, N, knn, ring): overflow rows at K 12 and at the main path's K 96 (N
 # 384, a multiple of K8's 96-column tile); N 100 is not a multiple; N 1
 ENCODER_FORM_CASES = [(2, 100, 6, 20), (1, 384, 48, 110), (2, 1, 1, 0)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,knn,ring", ENCODER_FORM_CASES)
-def test_neighbor_attn_hybrid_kernels_match_plain(dev, B, N, knn, ring):
+@pytest.mark.parametrize("B,N,knn,ring,pad", [(*c, None) for c in ENCODER_FORM_CASES]
+                         + [(4, 384, 48, 110, 150), (16, 384, 48, 110, 150)])
+def test_neighbor_attn_hybrid_kernels_match_plain(dev, B, N, knn, ring, pad):
     """K7 and K7b against their plain versions: the lists of a graph with
     an overflow row and padded nodes, a random cotangent; K7b's dk/dv over
-    the CSR transpose of nbr against the plain scatter."""
+    the CSR transpose of nbr against the plain scatter. With ``pad``: the
+    main path's shapes, ``pad`` padded nodes in every graph and a zero
+    cotangent on them but on one (16 graphs: many rows per block)."""
     from singa_tpu_torch.ops.cuda import neighbor_attn as k7
 
-    args, _, g, nbr = _hub_graph(dev, B, N, knn, ring, 107 + N)
+    if pad is None:
+        args, _, g, nbr = _hub_graph(dev, B, N, knn, ring, 107 + N)
+        bwd_args = [*args[:3], nbr, *args[3:], g]
+    else:
+        _, bwd_args, nbr = _graph_list_case(dev, B, N, knn, ring, 163 + B, pad)
+        args = [*bwd_args[:3], *bwd_args[4:-1]]
     n, nb = k7.launches_hybrid, k7.launches_hybrid_bwd
     got = k7.neighbor_attn_hybrid_cuda(*args)
-    bwd_args = [*args[:3], nbr, *args[3:], g]
     offsets, slots = k7.transpose_slots(nbr)
     grads = k7.neighbor_attn_hybrid_bwd_cuda(*bwd_args, offsets=offsets, slots=slots)
     assert (k7.launches_hybrid, k7.launches_hybrid_bwd) == (n + 1, nb + 1)
@@ -845,6 +1002,41 @@ def test_dense_edge_attn_kernels_match_plain(dev, B, N, knn, ring, pad):
     assert (k8.launches, k8.launches_bwd) == (n + 1, nb + 1)
     _check(got, k8.dense_edge_attn_plain(*args))
     _check_grads(grads, k8.dense_edge_attn_bwd_plain(*args, g), BWD_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,key_channels", [(8, 128), (4, 64)])
+def test_neighbor_graph_mha_trains_at_other_widths(dev, heads, key_channels):
+    """NeighborGraphMHA at hidden 256 and edge 64 with num_heads 8 (kd 16,
+    vd 32) or key_channels 64 (kd 16), widths the tensor-core pair kernel
+    does not take: K1 and K1b (its CUDA-core instance) on the card give the
+    CPU's output, input gradient and every parameter gradient (plain
+    versions), each within 1e-4 of its largest magnitude."""
+    from singa_tpu_torch.models.neighbor_graph import NeighborGraphMHA, build_neighbor_graph
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+    from singa_tpu_torch.params import seeded_init
+
+    rng = np.random.default_rng(181)
+    B, N, C = 2, 60, 256
+    pos = (4.0 * rng.normal(size=(B, N, 3))).astype(np.float32)
+    mask = np.ones((B, N), bool)
+    mask[1, 45:] = False
+    x, w = (rng.normal(size=(B, N, C)).astype(np.float32) for _ in range(2))
+    runs = {}
+    for d in ("cpu", "cuda"):
+        m = NeighborGraphMHA(C, key_channels, heads, 64, 15.0, device=d)
+        seeded_init(m, 3)
+        g = build_neighbor_graph(_t(pos, d), _t(mask, d), 16, 15.0, 64)
+        xi = _t(x, d).requires_grad_()
+        n = k1.launches_bwd
+        out = m(xi, g)
+        (out * _t(w, d)).sum().backward()
+        runs[d] = [out.detach(), xi.grad, *(p.grad for p in m.parameters())]
+        names = ["out", "x", *(name for name, _ in m.named_parameters())]
+    assert k1.launches_bwd == n + 1
+    for name, a, b in zip(names, runs["cuda"], runs["cpu"]):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=1e-4, msg=name)
 
 
 @pytest.mark.cuda

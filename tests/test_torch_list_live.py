@@ -1,0 +1,389 @@
+"""The list forms' backward algorithm (K1b's and K7b's kernels,
+``csrc/neighbor_attn_bwd.cu``) against its definition: a plain PyTorch
+rendering of what the kernels do, written here for the tests only, held to
+``neighbor_attn_bwd_plain`` / ``neighbor_attn_hybrid_bwd_plain`` (every slot
+evaluated) and to JAX's ``neighbor_attn_fused`` / ``neighbor_attn_hybrid``
+custom VJPs (Pallas, interpret mode), every gradient.
+
+The rendering plans each row as the kernel does: a row whose cotangent is
+zero is skipped (its outputs zero, its slots send nothing); any other row
+takes its live slots, compacted from the mask in slot order (masks need not
+be a prefix). Rows go to blocks by their work, and each block packs whole
+rows into tiles of at most ``tile`` slots and ``tile_rows`` rows, with the
+softmax per row in one pass. A row whose max (over its self score and live
+scores) leaves its dead slots a weight, exp(-1e9 - m) != 0 in float32 in
+some head (a padded row with a cotangent, or scores near -1e9), sends
+nothing and is taken again, whole, in the block's next tile. Each tile's
+weight-gradient products are summed from zero and added to the block's
+sums, the blocks' sums in order. Per taken slot it keeps w_k, w_v, a and
+dsc in scratch that starts as NaN (as torch.empty may), a skipped slot gets
+a = dsc = 0, and dk/dv gather over the CSR transpose of nbr the slots whose
+a or dsc is non-zero in some head (a skipped slot's w_k and w_v are never
+read).
+
+``list_backward(..., mm=...)`` takes the products the kernel runs on the
+tensor cores through ``mm``: ``tests/test_torch_tf32_split.py::k1b_split``
+renders them in split TF32. This file imports neither JAX nor the JAX
+package at module level (``tests/test_torch_cuda.py`` reaches it through
+``k1b_split`` on a machine without JAX).
+
+Inputs are numpy-seeded and float32. Tolerance: each gradient within 2e-5
+of its own largest magnitude (floored at 1e-6, so small gradients are held
+to their own scale), rtol 1e-5 (sums over every taken slot in another
+order). On the CPU every gradient reads more than ten times inside it,
+against the plain twins and against JAX.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+BIG = 1e9
+ROW_WORK = 8  # a row's fixed cost in slots, in the blocks' shares (the kernel's kRowWork)
+ZERO, LIVE, WHOLE = 0, 1, 2
+H, KD, VD, DE = 2, 8, 8, 8
+GRAD_NAMES = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
+              "dwv1", "dbv1", "dwv2", "dbv2"]
+DIFF_AT = [0, 1, 2, 6, 7, *range(9, 17)]  # the differentiable arguments
+
+
+def _ssp(x):
+    return F.softplus(x) - math.log(2.0)
+
+
+def plan_rows(mask, g):
+    """Each row's mode and the slots it takes: skipped, or its live slots.
+    mask [R, K], g [R, H, vd]."""
+    zero = ~(g != 0).flatten(1).any(1)
+    cnt = torch.where(zero, 0, mask.sum(1))
+    return torch.where(zero, ZERO, LIVE).tolist(), cnt.tolist()
+
+
+def block_ranges(cnt, blocks):
+    """Rows [lo, hi) of each block: row r goes to block floor(p_r G / W), p_r
+    the work of the rows before it (taken slots + ROW_WORK each)."""
+    work = [c + ROW_WORK for c in cnt]
+    total, p, before = sum(work), 0, []
+    for w in work:
+        before.append(p)
+        p += w
+    lo = [sum(1 for x in before if x < -(-b * total // blocks)) for b in range(blocks)]
+    return list(zip(lo, lo[1:] + [len(cnt)]))
+
+
+def list_backward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
+                  wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g, *, gathered=False,
+                  mm=torch.matmul, blocks=1, tile=128, tile_rows=64, stats=None):
+    """K1b's algorithm on ``neighbor_attn_bwd_plain``'s arguments (K7b's,
+    those of ``neighbor_attn_hybrid_bwd_plain``, with ``gathered``): the 13
+    gradients. ``stats``, a dict, gets the rows skipped and the rows taken
+    again."""
+    from singa_tpu_torch.ops.cuda.neighbor_attn import transpose_slots
+
+    B, N, K = nbr_mask.shape
+    nh = ds.shape[2]
+    kd, vd = qt.shape[2] // nh, dval.shape[2] // nh
+    R, dev = B * N, qt.device
+    qt3, g3 = qt.reshape(R, nh, kd), g.reshape(R, nh, vd)
+    ds2, dval3 = ds.reshape(R, nh), dval.reshape(R, nh, vd)
+    mask, dist2 = nbr_mask.reshape(R, K), dist.reshape(R, K)
+    if gathered:  # each slot's own row
+        kslot, vslot = k.reshape(R * K, nh, kd), v.reshape(R * K, nh, vd)
+    else:
+        rows = (torch.arange(R, device=dev)[:, None] // N * N + nbr.reshape(R, K).long()).reshape(-1)
+        kslot, vslot = k.reshape(R, nh, kd)[rows], v.reshape(R, nh, vd)[rows]
+    scale = 1.0 / math.sqrt(kd)
+    mode, cnt = plan_rows(mask, g3)
+    nan = lambda *s: torch.full(s, float("nan"), device=dev)
+    s_wk, s_wv, s_a, s_dsc = nan(R * K, kd), nan(R * K, vd), nan(R * K, nh), nan(R * K, nh)
+    dqt, dds, ddv = nan(R, nh, kd), nan(R, nh), nan(R, nh, vd)
+    weights = (wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    grads = [torch.zeros_like(w) for w in weights]
+    redone = 0
+    for lo, hi in block_ranges(cnt, blocks):
+        bsum = [torch.zeros_like(w) for w in weights]
+        cur, redo = lo, []
+        while True:
+            rows_t = []  # the tile's rows: (node, mode)
+            if redo:
+                take = min(len(redo), tile // K, 32)
+                rows_t, redo = [(n, WHOLE) for n in redo[:take]], redo[take:]
+            else:
+                used = 0
+                while cur < hi and len(rows_t) < tile_rows and used + cnt[cur] <= tile:
+                    rows_t.append((cur, mode[cur]))
+                    used += cnt[cur]
+                    cur += 1
+            if not rows_t:
+                break
+            sl_node, sl_p, spans = [], [], []
+            for n, md in rows_t:
+                ps = (mask[n].nonzero()[:, 0].tolist() if md == LIVE
+                      else list(range(K)) if md == WHOLE else [])
+                spans.append((len(sl_node), len(sl_node) + len(ps)))
+                sl_node += [n] * len(ps)
+                sl_p += ps
+            node_t = torch.tensor(sl_node, dtype=torch.long, device=dev)
+            flat = node_t * K + torch.tensor(sl_p, dtype=torch.long, device=dev)
+            T = len(sl_node)
+            live_t = mask.reshape(-1)[flat]
+            diff = dist2.reshape(-1)[flat][:, None] - centers
+            E = -torch.exp(coeff * diff * diff)
+            Pk, Pv = mm(E, wk1) + bk1, mm(E, wv1) + bv1
+            Hk, Hv = _ssp(Pk), _ssp(Pv)
+            Wk, Wv = mm(Hk, wk2) + bk2, mm(Hv, wv2) + bv2
+            kr, vr = kslot[flat], vslot[flat]
+            S = (qt3[node_t] * Wk[:, None, :] * kr).sum(-1) * scale
+            S = torch.where(live_t[:, None], S, torch.full_like(S, -BIG))
+            D = (g3[node_t] * Wv[:, None, :] * vr).sum(-1)
+            A, DSC = torch.zeros(T, nh, device=dev), torch.zeros(T, nh, device=dev)
+            for (n, md), (m0, m1) in zip(rows_t, spans):
+                if md == ZERO:
+                    dqt[n], dds[n], ddv[n] = 0.0, 0.0, 0.0
+                    s_a[n * K:(n + 1) * K], s_dsc[n * K:(n + 1) * K] = 0.0, 0.0
+                    continue
+                mx = ds2[n].clone()
+                if m1 > m0:
+                    mx = torch.maximum(mx, S[m0:m1].max(0).values)
+                if md == LIVE and bool((torch.exp(-BIG - mx) != 0).any()):
+                    redo.append(n)  # its slots send nothing now
+                    redone += 1
+                    continue
+                das = (g3[n] * dval3[n]).sum(-1)
+                es = torch.exp(ds2[n] - mx)
+                e = torch.exp(S[m0:m1] - mx)
+                l = es + e.sum(0)
+                dotn = (es * das + (e * D[m0:m1]).sum(0)) / l
+                a_self = es / l
+                dds[n], ddv[n] = a_self * (das - dotn), a_self[:, None] * g3[n]
+                a = e / l
+                dsc = torch.where(live_t[m0:m1, None], a * (D[m0:m1] - dotn) * scale,
+                                  torch.zeros_like(a))
+                A[m0:m1], DSC[m0:m1] = a, dsc
+                dqt[n] = (dsc[:, :, None] * Wk[m0:m1, None, :] * kr[m0:m1]).sum(0)
+                s_a[n * K:(n + 1) * K], s_dsc[n * K:(n + 1) * K] = 0.0, 0.0
+                f = flat[m0:m1]
+                s_wk[f], s_wv[f], s_a[f], s_dsc[f] = Wk[m0:m1], Wv[m0:m1], a, dsc
+            if T == 0:
+                continue
+            # the tile's weight gradients, summed from zero
+            dwk = (DSC[:, :, None] * qt3[node_t] * kr).sum(1)
+            dwv = (A[:, :, None] * g3[node_t] * vr).sum(1)
+            dhk = mm(dwk, wk2.T) * torch.sigmoid(Pk)
+            dhv = mm(dwv, wv2.T) * torch.sigmoid(Pv)
+            tile_sums = [mm(E.T, dhk), dhk.sum(0), mm(Hk.T, dwk), dwk.sum(0),
+                         mm(E.T, dhv), dhv.sum(0), mm(Hv.T, dwv), dwv.sum(0)]
+            bsum = [x + y for x, y in zip(bsum, tile_sums)]
+        grads = [x + y for x, y in zip(grads, bsum)]
+    # dk/dv: each row gathers the slots that name it, in CSR order, but those
+    # whose a and dsc are zero in every head (their w_k and w_v unwritten)
+    offsets, slots = (x.long() for x in transpose_slots(nbr.reshape(B, N, K).int()))
+    dk, dv = torch.zeros(R, nh, kd, device=dev), torch.zeros(R, nh, vd, device=dev)
+    for j in range(R):
+        ss = slots[offsets[j]:offsets[j + 1]]
+        ss = ss[((s_dsc[ss] != 0) | (s_a[ss] != 0)).any(1)]
+        src = ss // K
+        dk[j] = (s_dsc[ss, :, None] * s_wk[ss, None, :] * qt3[src]).sum(0)
+        dv[j] = (s_a[ss, :, None] * s_wv[ss, None, :] * g3[src]).sum(0)
+    if stats is not None:
+        stats.update(zero=sum(1 for x in mode if x == ZERO), redone=redone)
+    shape = lambda x, c: x.reshape(B, N, c)
+    return [shape(dqt, nh * kd), shape(dk, nh * kd), shape(dv, nh * vd), shape(dds, nh),
+            shape(ddv, nh * vd), *grads]
+
+
+def _weights(rng, De, kd, vd):
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    return [np.linspace(0.0, 15.0, De, dtype=np.float32),
+            0.3 * f(De, kd), 0.1 * f(kd), 0.3 * f(kd, kd), 0.1 * f(kd),
+            0.3 * f(De, vd), 0.1 * f(vd), 0.3 * f(vd, vd), 0.1 * f(vd)]
+
+
+def _coeff(De=DE):
+    width = 15.0 / (De - 1)
+    return -0.5 / (width * width)
+
+
+def _random_case(seed, redo=False):
+    """K1b's arguments (numpy): random masks (not prefixes), a repeated
+    neighbour, a real row with no live slot, padded rows (self score -1e9,
+    no live slot) of which two have a zero cotangent and one does not; and
+    with ``redo`` a padded row with one live slot whose score is far below
+    -1e9 (its max is the self score: its dead slots keep their weight)."""
+    B, N, K = 2, 16, 7
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    nbr = rng.integers(0, N, size=(B, N, K)).astype(np.int32)
+    nbr[0, 2, :4] = 9
+    mask = rng.random((B, N, K)) > 0.3
+    mask[0, 3] = False
+    ds = f(B, N, H)
+    ds[1, N - 3:], mask[1, N - 3:] = -1e9, False
+    arrays = [f(B, N, H * KD), f(B, N, H * KD), f(B, N, H * VD), nbr, mask,
+              rng.uniform(0.5, 14.0, size=(B, N, K)).astype(np.float32), ds, f(B, N, H * VD),
+              *_weights(rng, DE, KD, VD)]
+    g = f(B, N, H * VD)
+    g[1, N - 2:] = 0.0
+    if redo:
+        ds[0, 9], mask[0, 9] = -1e9, False
+        mask[0, 9, 4] = True
+        t = torch.as_tensor
+        diff = t(arrays[5][0, 9, 4]) - t(arrays[8])
+        e = -torch.exp(_coeff() * diff * diff)
+        w_k = (_ssp(e @ t(arrays[9]) + t(arrays[10])) @ t(arrays[11]) + t(arrays[12])).numpy()
+        krow = arrays[1][0, nbr[0, 9, 4]].reshape(H, KD)
+        arrays[0][0, 9] = (-1e11 * np.sign(w_k * krow)).reshape(-1)
+    return arrays, g
+
+
+def _mha_case():
+    """The inputs and cotangent NeighborGraphMHA hands neighbor_attn on the
+    CPU: a small graph with padded nodes, random parameters, the loss
+    sum(out * w); the cotangent is zero on every padded row."""
+    from singa_tpu_torch.models import neighbor_graph as ng
+
+    rng = np.random.default_rng(23)
+    B, N, C = 2, 14, 16
+    pos = rng.uniform(-5, 5, size=(B, N, 3)).astype(np.float32)
+    node_mask = np.ones((B, N), bool)
+    node_mask[1, -4:] = False
+    x = rng.normal(size=(B, N, C)).astype(np.float32)
+    mha = ng.NeighborGraphMHA(C, H * KD, H, DE, 15.0, device="cpu")
+    with torch.no_grad():
+        for p in mha.parameters():
+            p.copy_(torch.as_tensor(0.3 * rng.normal(size=p.shape).astype(np.float32)))
+    graph = ng.build_neighbor_graph(torch.as_tensor(pos), torch.as_tensor(node_mask), 3, 15.0, DE)
+    seen = {}
+    orig = ng.neighbor_attn
+
+    def record(*args):
+        out = orig(*args)
+        seen["args"] = [a.detach().clone() if torch.is_tensor(a) else a for a in args[:18]]
+        out.register_hook(lambda grad: seen.__setitem__("g", grad.detach().clone()))
+        return out
+
+    ng.neighbor_attn = record
+    try:
+        out = mha(torch.as_tensor(x), graph)
+        (out * torch.as_tensor(rng.normal(size=out.shape).astype(np.float32))).sum().backward()
+    finally:
+        ng.neighbor_attn = orig
+    arrays = [a.numpy() if torch.is_tensor(a) else a for a in seen["args"][:17]]
+    return arrays, seen["g"].numpy(), seen["args"][17]
+
+
+CASES = {"random": lambda: (*_random_case(41), _coeff()),
+         "redo": lambda: (*_random_case(43, redo=True), _coeff()),
+         "mha": lambda: (lambda a, g, c: (a, g, c))(*_mha_case())}
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name):
+    return CASES[name]()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(name, form):
+    """JAX's neighbor_attn_fused or neighbor_attn_hybrid (Pallas, interpret
+    mode): the VJP at the case's cotangent."""
+    import jax
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.neighbor_attn import neighbor_attn_fused, neighbor_attn_hybrid
+
+    arrays, g, coeff = _case(name)
+    fn = neighbor_attn_hybrid if form == "gathered" else neighbor_attn_fused
+
+    def f(*diff):
+        a = list(map(jnp.asarray, arrays))
+        for i, d in zip(DIFF_AT, diff):
+            a[i] = d
+        return fn(*a, coeff, True)
+
+    with compute_dtype_scope("float32"):
+        _, vjp = jax.vjp(f, *(jnp.asarray(arrays[i]) for i in DIFF_AT))
+        return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+def _form_args(arrays, g, coeff, form):
+    """The rendering's and the plain twin's arguments: K1b's, or K7b's with
+    the rows gathered."""
+    from singa_tpu_torch.ops.cuda.neighbor_attn import gather_rows
+
+    ts = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+    if form == "gathered":
+        ts[1], ts[2] = gather_rows(ts[1], ts[3]), gather_rows(ts[2], ts[3])
+    return [*ts, coeff, torch.as_tensor(g)]
+
+
+def _close_all(got, want, what):
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        b = np.asarray(b)
+        scale = max(1e-6, float(np.abs(b).max())) if b.size else 1e-6
+        np.testing.assert_allclose(a.detach().numpy(), b, atol=2e-5 * scale, rtol=1e-5,
+                                   err_msg=f"{what}: {name}")
+
+
+# (blocks, tile, tile_rows): one block and the kernel's tiles; three blocks
+# and tiles small enough that rows split across many (K 7 <= 8 slots); one
+# row a tile, as the CUDA-core instance takes them (a node at a time, a row
+# taken again whole right after)
+TILINGS = [(1, 128, 64), (3, 8, 3), (2, 128, 1)]
+
+
+@pytest.mark.parametrize("blocks,tile,tile_rows", TILINGS)
+@pytest.mark.parametrize("form", ["list", "gathered"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_list_algorithm_matches_plain_and_jax(name, form, blocks, tile, tile_rows):
+    """The list forms' algorithm == the all-slots plain twin and JAX's
+    Pallas kernel's VJP, every gradient: random masks with a padded row
+    whose cotangent is not zero (taken whole) and two whose cotangent is,
+    a real row with no live slot; a live row taken again whole; the path's
+    own cotangent from a small NeighborGraphMHA (zero on padded rows, none
+    taken whole). No output is left unwritten (the scratch and outputs
+    start as NaN)."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    arrays, g, coeff = _case(name)
+    args = _form_args(arrays, g, coeff, form)
+    stats = {}
+    got = list_backward(*args, gathered=form == "gathered", blocks=blocks, tile=tile,
+                        tile_rows=tile_rows, stats=stats)
+    assert not any(bool(torch.isnan(x).any()) for x in got)
+    plain = k1.neighbor_attn_hybrid_bwd_plain if form == "gathered" else k1.neighbor_attn_bwd_plain
+    _close_all(got, plain(*args), "vs plain")
+    _close_all(got, _jax_reference(name, form), "vs JAX")
+    if name == "random":  # the padded row with a cotangent is taken again, whole
+        assert stats["zero"] == 2 and stats["redone"] == 1
+    elif name == "redo":  # and the live row whose score is far below -1e9
+        assert stats["zero"] == 2 and stats["redone"] == 2
+    else:  # the model path: the padded rows' cotangent is zero, no row is taken again
+        assert stats["zero"] == 4 and stats["redone"] == 0
+
+
+def test_rows_without_a_live_slot_follow_the_float32_underflow():
+    """A row with no live slot is taken again, whole, exactly when
+    exp(-1e9 - m) is not 0 in float32 in some head: a self score of -1e9 (a
+    padded row) or below, not one 200 above; either way every gradient is
+    the plain twin's."""
+    from singa_tpu_torch.ops.cuda.neighbor_attn import neighbor_attn_bwd_plain
+
+    rng = np.random.default_rng(47)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    B, N, K = 1, 4, 3
+    ds = np.array([[[-1e9, 0.3], [-2e9, -1e9], [-1e9 + 200, 1.0], [0.5, -0.5]]], np.float32)
+    arrays = [f(B, N, H * KD), f(B, N, H * KD), f(B, N, H * VD),
+              rng.integers(0, N, size=(B, N, K)).astype(np.int32), np.zeros((B, N, K), bool),
+              rng.uniform(0.5, 14.0, size=(B, N, K)).astype(np.float32), ds, f(B, N, H * VD),
+              *_weights(rng, DE, KD, VD)]
+    args = _form_args(arrays, f(B, N, H * VD), _coeff(), "list")
+    stats = {}
+    got = list_backward(*args, stats=stats)
+    assert stats == {"zero": 0, "redone": 2}
+    _close_all(got, neighbor_attn_bwd_plain(*args), "vs plain")

@@ -177,6 +177,21 @@ def k2b_split(x, w1, b1, wg, bg, w2, lmax, dy, mm=mm_split):
     return dx, dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2, dy[:, 0].sum(0)
 
 
+def k1b_split(*args, mm=mm_split):
+    """K1b's backward (``neighbor_attn_bwd_plain``'s arguments and outputs)
+    as its kernel takes it (``tests/test_torch_list_live.py``'s rendering:
+    the live slots of consecutive rows packed into tiles of at most 128 slot
+    rows), with the products the kernel runs on the tensor cores through
+    ``mm`` (split TF32 by default; ``mm_tf32`` for one TF32 product): both
+    EdgeMLPs (depth De, then kd or vd), dh = dw W2^T (depth kd or vd), and
+    the four weight gradients over each tile's slots, each tile's products
+    summed from zero and added in float32. The scores, the softmax, dqt, dw,
+    dk/dv and the biases in plain float32."""
+    from test_torch_list_live import list_backward
+
+    return list_backward(*args, mm=mm)
+
+
 class MM(torch.autograd.Function):
     """a @ b through ``mm`` both ways: the forward ``mm(a, b)``, the
     backward ``mm(g, b^T)`` and ``mm(a^T, g)``, the orientations of the
@@ -358,4 +373,26 @@ def test_k2b_split_matches_plain_backward(lmax, N, C, Co):
     assert max(split.values()) <= 1e-5, split
     assert one["db2"] == split["db2"] <= 1e-6, (one["db2"], split["db2"])
     for name in NAMES[:-1]:
+        assert one[name] >= 30 * split[name], (name, one[name], split[name])
+
+
+def test_k1b_split_matches_plain_backward():
+    """K1b's 13 gradients with the kernel's EdgeMLP and weight-gradient
+    products in split TF32 (``k1b_split``), at the encoder's widths (H 4,
+    kd 32, vd 64, De 64), K 24, random masks, a padded row with a
+    cotangent: within 1e-5 of each output's largest magnitude of
+    ``neighbor_attn_bwd_plain`` (float32). With one TF32 product in their
+    place, every output is at least 30x further off."""
+    from test_torch_cuda import _random_list_case
+
+    from singa_tpu_torch.ops.cuda.neighbor_attn import neighbor_attn_bwd_plain
+
+    args = _random_list_case("cpu", 2, 40, 24, 167)
+    want = neighbor_attn_bwd_plain(*args)
+    names = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
+             "dwv1", "dbv1", "dwv2", "dbv2"]
+    split = rel_errs(k1b_split(*args), want, names)
+    one = rel_errs(k1b_split(*args, mm=mm_tf32), want, names)
+    assert max(split.values()) <= 1e-5, split
+    for name in names:
         assert one[name] >= 30 * split[name], (name, one[name], split[name])
