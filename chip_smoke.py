@@ -15,8 +15,8 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
               and ptxas's report (registers, spills) of K8's, K8b's and
-              K4b's kernels, of K2b's weight kernel and of the GEMM kernels
-              of K6 and K6b (of the sources this run compiled)
+              K4b's kernels, of K2b's kernels (dx, weight, split) and of the
+              GEMM kernels of K6 and K6b (of the sources this run compiled)
      mma_rate the card's mma.sync TF32 rate (csrc/mma_tf32.cu), the
               ceiling of the tensor-core kernels, a third of it for split
               TF32
@@ -74,8 +74,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               fixed batch a loss after 5 steps below the first step's
      train_profile  torch.profiler over one optimizer step: device busy time,
               idle share, the costliest kernels, K2b's kernels by name
-              (``k2b_kernels``: the dx kernel, the weight kernel, and
-              sum_rows_kernel, which the other backwards' sums also run;
+              (``k2b_kernels``: the dx kernel, the weight kernel, the split
+              of the dx kernel's weights, and sum_rows_kernel, which the
+              other backwards' sums also run;
               in every train_profile* phase whose path runs K2b), K1b's or
               K7b's (``k1b_kernels``: the pair kernel, the plan, the dk/dv
               stage, sum_rows_kernel; where the path runs either), and the
@@ -137,21 +138,23 @@ the profiles (main_hybrid's encode_profile, train_profile_hybrid); K7's and
 K7b's bytes count the gathered rows of live slots only. The entries of
 K1b, K7b, K2b, K4b, K6 and K6b also have ``bound_tc_ms``: the larger of
 the operations that run as split TF32 (K1b's and K7b's EdgeMLPs, dh and
-four weight gradients, once per live pair; K2b's weight kernel's four
-per-degree products h, dmid, dw1, dw2; K4b's four grid transforms; K6's
+four weight gradients, once per live pair; K2b's five per-degree products
+h, dmid, dx, dw1, dw2 and its gates and row-0 gate term; K4b's four grid
+transforms; K6's
 and K6b's conv and weight-gradient products, the GEMM of
 csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
 rest over 67 TFLOP/s, since the two units issue together, or the bytes
 over 3.35 TB/s if that is larger. K1b's, K7b's, K2b's and K4b's also have
 the ptxas report and the residency (blocks per SM, threads, dynamic shared
-memory per block) of their tensor-core kernel; K6's and
+memory per block) of their tensor-core kernel (K2b: of its weight kernel,
+and of its dx kernel as ``dx_residency``); K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
 ``gemm_residency``), and train_profile_so2 reports those kernels' device
 time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
-runs in full float32 (K1b's and K7b's EdgeMLP products, K2b's weight
-products, K4b's grid transforms and K6's and K6b's products run as split
+runs in full float32 (K1b's and K7b's EdgeMLP products, K2b's products,
+K4b's grid transforms and K6's and K6b's products run as split
 TF32 inside the kernels, csrc/mma_tf32.cuh, to float32 round-off).
 """
 from __future__ import annotations
@@ -205,7 +208,8 @@ DENSE_ATTN = "SINGA_TPU_DENSE_ATTN"  # the encoder's switch to kernel K8 (wins o
 SO2_GEMM = "so2::gemm_kernel"  # K6's and K6b's GEMM kernels in a profile (csrc/so2_chain.cuh)
 # K2b's kernels in a profile (csrc/so3_gate_ffn_bwd.cu); sum_rows_kernel is
 # also the second pass of K1b's, K4b's, K6b's and K8b's sums
-K2B_KERNELS = ("gate_ffn_bwd_dx_kernel", "gate_ffn_bwd_w_kernel", "sum_rows_kernel")
+K2B_KERNELS = ("gate_ffn_bwd_dx_kernel", "gate_ffn_bwd_w_kernel", "gate_ffn_bwd_wsplit_kernel",
+               "sum_rows_kernel")
 # K1b's and K7b's kernels in a profile (csrc/neighbor_attn_bwd.cu): the
 # tensor-core pair kernel, the plan, the dk/dv stage, the sums' second pass
 K1B_KERNELS = ("list_bwd_pair_kernel", "list_plan_kernel", "list_dkdv_kernel", "sum_rows_kernel")
@@ -595,13 +599,14 @@ def k4b_split_flops(args) -> float:
 
 
 def k2b_split_flops(args) -> float:
-    """The operations of K2b that run as split TF32 on the tensor cores: its
-    weight kernel's four per-degree products h, dmid, dw1 and dw2, each
-    counted once (the dx kernel's products and the gate path stay
-    float32)."""
-    x, w1, _, _, _, w2, _, _ = args
+    """The operations of K2b that run as split TF32 on the tensor cores: the
+    per-degree products h, dmid (both kernels recompute them; the function
+    needs them once), dx, dw1 and dw2, and the dx kernel's gates and row-0
+    gate term; dwg and the weight kernel's gates stay float32."""
+    x, w1, _, _, _, w2, lmax, _ = args
     N, I, C = x.shape
-    return 2.0 * N * I * w1.shape[2] * 2 * (C + w2.shape[2])
+    H = w1.shape[2]
+    return 2.0 * N * (I * H * (3 * C + 2 * w2.shape[2]) + 2 * C * lmax * H)
 
 
 def bound_tc_ms(nbytes: float, flops: float, split_flops: float) -> float:
@@ -1011,11 +1016,13 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             gemm_flops = micro_per_step * sum(
                 calls * spec.split_flops(args) for spec in (K6, K6B)
                 for args, _, calls in captured[f"{spec.fn}_cuda"].values())
-        if K2B in specs:  # K2b's weight kernel's residency at the microbatch's widths
+        if K2B in specs:  # K2b's weight and dx kernels' residency at the microbatch's widths
             args = next(iter(captured["so3_gate_ffn_bwd_cuda"].values()))[0]
             x, w1, _, _, _, w2, lmax, _ = args
-            results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(
-                lmax, x.shape[2], w1.shape[2], w2.shape[2])
+            widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
+            results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(*widths)
+            results[K2B.name]["dx_residency"] = mods["so3_ffn"].gate_bwd_residency(*widths,
+                                                                                  dx=True)
         if K4B in specs:  # K4b's residency at the microbatch's widths
             args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
             x, w1, _, _, _, w2, tg, _, lmax, _ = args
@@ -1439,7 +1446,7 @@ def main() -> int:
              if "registers" in ln or "Compiling entry" in ln]
     k4b_ptxas = ptxas_report(logs["so3_ffn_bwd"])
     k2b_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn_bwd"]).items()
-                 if "gate_ffn_bwd_w_kernel" in k}
+                 if "gate_ffn_bwd_" in k}  # the dx, weight and split kernels
     gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
                   for n in ("so2_attn", "so2_attn_bwd")}
     # the pair kernels of K1b (form 0: ILi0E) and of K7b (form 1: ILi1E):

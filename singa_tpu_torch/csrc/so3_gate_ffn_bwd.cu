@@ -15,50 +15,70 @@
 //
 // What bounds it on the H100: at the training path's shapes (N = 14,336
 // nodes per microbatch of 32, I = 49, C = Co = 16, H = 512) the work is five
-// per-degree products of 2*N*I*C*H operations (h and dmid recomputed, dx, dw1,
-// dw2: ~57 GFLOP) and the gate products (~4 GFLOP) against ~140 MB of x, dy
-// in and dx out, so float32 arithmetic bounds it (~0.92 ms at 67 TFLOP/s;
-// memory ~41 us; ~0.28 ms with the weight kernel's four products as split
-// TF32 on the tensor cores).
+// per-degree products of 2*N*I*C*H operations (h and dmid, which both
+// kernels recompute but the function needs once, dx, dw1, dw2: ~57 GFLOP)
+// and the gate path (~4 GFLOP) against ~140 MB of x, dy in and dx out, so
+// float32 arithmetic bounds it (~0.92 ms at 67 TFLOP/s; memory ~41 us). Both
+// kernels run their products on the tensor cores as three-product split
+// TF32 (csrc/mma_tf32.cuh: float32 to round-off), ~60 GFLOP of them: ~0.37
+// ms at 495 TFLOP/s, and mma.sync issues TF32 at ~300 TFLOP/s on this card,
+// so a third of that for split products. What is left is the latency of the
+// products' chains (h and dmid, then dh, then dx) at one block an SM, and the
+// barriers of the chunk walk.
 //
 // Design: the [N, I, H] hidden and its cotangent (1.44 GB each here) never
-// reach device memory; they are recomputed tile by tile on chip (the dx
-// kernel in shared memory, the weight kernel in registers), as the TPU
-// kernel recomputes them in VMEM. The TPU kernel added the weight
-// gradients of every node tile into one resident output along its sequential
-// grid; Hopper's blocks run in no order, so the work is split in two:
-//   * the dx kernel: one block per tile of kTN nodes walks the hidden
-//     dimension in chunks of kHC channels, as the forward does, and keeps dx
-//     in registers across the chunks. dgate of a chunk is complete within it
-//     (the gate columns of a chunk see only that chunk's hidden channels), so
-//     the gate path's row-0 term is added chunk by chunk. No sum crosses a
-//     block.
+// reach device memory; they are recomputed tile by tile in registers, as
+// the TPU kernel recomputes them in VMEM. The TPU kernel added the weight
+// gradients of every node tile into one resident output along its
+// sequential grid; Hopper's blocks run in no order, so the work is split:
+//   * the split kernel writes, once a call, each hidden chunk of kDHC
+//     channels of w1, w2 and wg as the dx kernel's B fragments, split into
+//     TF32 hi and lo, then the chunk's b1 and bg (dx_layout): one block of
+//     words a chunk, which the dx kernel copies as it is.
+//   * the dx kernel: one block of 12 warps per tile of kDTN = 16 nodes, the
+//     m16 of every product; warp w owns the coefficient rows
+//     [w I / 12, (w + 1) I / 12) and keeps their dx as float32 sums in
+//     registers over the whole hidden dimension. It walks the hidden chunks;
+//     each chunk's block of fragments comes by cp.async into a ring of two
+//     stages, the next chunk's copy in flight during this one's products, so
+//     each weight is read from global memory once a block and chunk,
+//     coalesced, split already; x and dy come once a tile. A chunk starts
+//     with its gates, gate_l = sigmoid(x_0 wg_l + bg_l), an m16n8 product of
+//     row 0 (k C) by one warp for each degree, into shared memory (two
+//     barriers a chunk). Then per row i of degree l and n8 block of hidden
+//     channels:
+//       h = x_i w1[l], dmid = dy_i w2[l]^T   m16 (node) x n8 x k C or Co;
+//                                            A: the tile's rows, split as
+//                                            they load (once a row and chunk)
+//       dh = silu'(h + b1) dmid (row 0) or dmid gate_l, and dgate += dmid h,
+//            on the C fragments
+//       dx_i += dh w1[l]^T                   A: frag_a_from_c(dh), k = hidden
+//     After the warp's rows of degree l, dg0 = gate (1 - gate) dgate, and
+//     row 0's term dx_0 += dg0 wg_l^T runs on the tensor cores too (A:
+//     frag_a_from_c(dg0); B: the gates' fragments read transposed). The term
+//     is linear in each row's share of dgate, so a degree that two warps
+//     share needs no sum across warps until the end, where row 0's terms
+//     from the warps are added in warp order through shared memory. The
+//     products of one row (or of row 0's term) in one chunk start from zero
+//     on the tensor cores (chains of at most 3 (C / 8) and 3 kDHC / 8 mma)
+//     and are added to the float32 sums (so2_chain.cuh: the tensor cores cut
+//     low bits as they accumulate).
 //   * the weight kernel: one block per (hidden chunk of kWHC, slice of the
 //     node tiles) walks its slice's tiles recomputing the chunk's hidden,
 //     with the four per-degree products (h, dmid, dw1, dw2) on the tensor
-//     cores as split TF32 (csrc/mma_tf32.cuh: float32 to round-off) and
-//     the gate path in float32 on the CUDA cores, and keeps the weight
-//     gradients' float32 sums in registers, each owned by one lane. It
-//     writes them to its slice's row of a [slices, P] scratch buffer; a
-//     last kernel adds the rows in slice order. Every sum runs in a fixed
-//     order: the result is deterministic, with no atomics (design: above
-//     the kernel).
-// Nodes past N in the last tile are staged as zero rows of x and dy, which
-// makes every term they add to a gradient exactly zero.
+//     cores as split TF32 and the gate path in float32 on the CUDA cores,
+//     and keeps the weight gradients' float32 sums in registers, each owned
+//     by one lane. It writes them to its slice's row of a [slices, P]
+//     scratch buffer; a last kernel adds the rows in slice order.
+// Every sum runs in a fixed order: the result is deterministic, with no
+// atomics. Nodes past N in the last tile are staged as zero rows of x and dy,
+// which makes every term they add to a gradient exactly zero, and the dx
+// kernel writes nothing for them; hidden channels past H get zero weights and
+// biases, which add nothing.
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
-
-constexpr int kThreads = 512;   // 16 warps: one block per SM (shared memory) hides latency
-constexpr int kNG = 2;          // groups of four nodes per tile
-constexpr int kTN = 4 * kNG;    // nodes per tile
-constexpr int kHC = 16;         // hidden channels per chunk
-constexpr int kPad = 8;         // floats added to each row block
-constexpr int kMaxJobs = 1;     // dx micro-tiles per thread
-
-using singa::degree_of;
-using singa::fma4;
 
 struct Dims {
   int N, lmax, L, I, C, H, Co;
@@ -66,234 +86,6 @@ struct Dims {
 
 __host__ __device__ inline Dims make_dims(int N, int lmax, int C, int H, int Co) {
   return Dims{N, lmax, lmax + 1, (lmax + 1) * (lmax + 1), C, H, Co};
-}
-
-// The dx kernel's shared-memory layout (offsets in floats).
-struct Smem {
-  float* sx;     // [I][C][kTN]   row stride xs
-  float* sdy;    // [I][Co][kTN]  row stride ys
-  float* sh;     // [I][kHC][kTN] row stride ms: h
-  float* sdm;    // [I][kHC][kTN] row stride ms: dmid, then dh
-  float* sgate;  // [lmax][kHC][kTN]
-  float* sdg;    // [lmax][kHC][kTN] dg0
-  float* sw1;    // [L][C][kHC]
-  float* swg;    // [C][lmax][kHC]
-  float* sw2t;   // [L][Co][kHC]
-  float* end;
-  int xs, ys, ms;
-};
-
-__host__ __device__ inline size_t common_floats(const Dims& d) {
-  const size_t xs = d.C * kTN + kPad, ys = d.Co * kTN + kPad, ms = kHC * kTN + kPad;
-  return d.I * (xs + ys + 2 * ms) + 2 * (size_t)d.lmax * kHC * kTN +
-         (size_t)d.L * d.C * kHC + (size_t)d.C * d.lmax * kHC + (size_t)d.L * d.Co * kHC;
-}
-
-__device__ Smem carve(float* base, const Dims& d) {
-  Smem s;
-  s.xs = d.C * kTN + kPad;
-  s.ys = d.Co * kTN + kPad;
-  s.ms = kHC * kTN + kPad;
-  s.sx = base;
-  s.sdy = s.sx + d.I * s.xs;
-  s.sh = s.sdy + d.I * s.ys;
-  s.sdm = s.sh + d.I * s.ms;
-  s.sgate = s.sdm + d.I * s.ms;
-  s.sdg = s.sgate + d.lmax * kHC * kTN;
-  s.sw1 = s.sdg + d.lmax * kHC * kTN;
-  s.swg = s.sw1 + d.L * d.C * kHC;
-  s.sw2t = s.swg + d.C * d.lmax * kHC;
-  s.end = s.sw2t + d.L * d.Co * kHC;
-  return s;
-}
-
-// x and dy of nodes n0 .. n0+kTN-1, node minor; rows past N are zero.
-__device__ void stage_tile(const float* __restrict__ x, const float* __restrict__ dy, int n0,
-                           const Dims& d, const Smem& s) {
-  for (int t = threadIdx.x; t < kTN * d.I * d.C; t += kThreads) {
-    const int n = t / (d.I * d.C), i = (t / d.C) % d.I, c = t % d.C;
-    s.sx[i * s.xs + c * kTN + n] = (n0 + n < d.N) ? x[(long long)n0 * d.I * d.C + t] : 0.f;
-  }
-  for (int t = threadIdx.x; t < kTN * d.I * d.Co; t += kThreads) {
-    const int n = t / (d.I * d.Co), i = (t / d.Co) % d.I, o = t % d.Co;
-    s.sdy[i * s.ys + o * kTN + n] = (n0 + n < d.N) ? dy[(long long)n0 * d.I * d.Co + t] : 0.f;
-  }
-}
-
-// The chunk's slices of w1, wg and w2 (zero past H).
-__device__ void stage_weights(const float* __restrict__ w1, const float* __restrict__ wg,
-                              const float* __restrict__ w2, int h0, const Dims& d,
-                              const Smem& s) {
-  for (int t = threadIdx.x; t < d.L * d.C * kHC; t += kThreads) {
-    const int h = t % kHC, lc = t / kHC;
-    s.sw1[t] = (h0 + h < d.H) ? w1[(long long)lc * d.H + h0 + h] : 0.f;
-  }
-  for (int t = threadIdx.x; t < d.C * d.lmax * kHC; t += kThreads) {
-    const int h = t % kHC, l = (t / kHC) % d.lmax, c = t / (kHC * d.lmax);
-    s.swg[t] = (h0 + h < d.H) ? wg[(long long)c * d.lmax * d.H + l * d.H + h0 + h] : 0.f;
-  }
-  for (int t = threadIdx.x; t < d.L * d.Co * kHC; t += kThreads) {
-    const int h = t % kHC, o = (t / kHC) % d.Co, l = t / (kHC * d.Co);
-    s.sw2t[t] = (h0 + h < d.H) ? w2[((long long)l * d.H + h0 + h) * d.Co + o] : 0.f;
-  }
-}
-
-// With the tile and the chunk's weights staged: the gates, h and dmid, then
-// dg0, then dh (in sdm). Ends synchronised.
-__device__ void chunk_backward(const float* __restrict__ b1, const float* __restrict__ bg,
-                               int h0, const Dims& d, const Smem& s) {
-  const int tid = threadIdx.x;
-  // gates of degrees 1..lmax from the l=0 row
-  for (int t = tid; t < d.lmax * kHC * kTN; t += kThreads) {
-    const int n = t % kTN, h = (t / kTN) % kHC, l = t / (kTN * kHC);
-    float v = (h0 + h < d.H) ? bg[l * d.H + h0 + h] : 0.f;
-    for (int c = 0; c < d.C; ++c) v = fmaf(s.sx[c * kTN + n], s.swg[(c * d.lmax + l) * kHC + h], v);
-    s.sgate[t] = singa::sigmoidf_(v);
-  }
-  // h and dmid: micro-tiles of four nodes x four hidden channels of one row
-  for (int t = tid; t < kNG * d.I * (kHC / 4); t += kThreads) {
-    const int h4 = t % (kHC / 4), ng = (t / (kHC / 4)) % kNG, i = t / (kHC / 4 * kNG);
-    const int l = degree_of(i);
-    float4 a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-      b[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    const float* xr = s.sx + i * s.xs + 4 * ng;
-    const float* wr = s.sw1 + l * d.C * kHC + 4 * h4;
-    for (int c = 0; c < d.C; ++c) {
-      const float4 xv = *reinterpret_cast<const float4*>(xr + c * kTN);
-      const float4 wv = *reinterpret_cast<const float4*>(wr + c * kHC);
-      fma4(a[0], wv.x, xv);
-      fma4(a[1], wv.y, xv);
-      fma4(a[2], wv.z, xv);
-      fma4(a[3], wv.w, xv);
-    }
-    const float* yr = s.sdy + i * s.ys + 4 * ng;
-    const float* vr = s.sw2t + l * d.Co * kHC + 4 * h4;
-    for (int o = 0; o < d.Co; ++o) {
-      const float4 yv = *reinterpret_cast<const float4*>(yr + o * kTN);
-      const float4 wv = *reinterpret_cast<const float4*>(vr + o * kHC);
-      fma4(b[0], wv.x, yv);
-      fma4(b[1], wv.y, yv);
-      fma4(b[2], wv.z, yv);
-      fma4(b[3], wv.w, yv);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int off = i * s.ms + (4 * h4 + r) * kTN + 4 * ng;
-      *reinterpret_cast<float4*>(s.sh + off) = a[r];
-      *reinterpret_cast<float4*>(s.sdm + off) = b[r];
-    }
-  }
-  __syncthreads();
-  // dg0 = sigmoid'(g0) * sum over the degree's rows of dmid * h
-  for (int t = tid; t < d.lmax * kHC * kTN; t += kThreads) {
-    const int n = t % kTN, h = (t / kTN) % kHC, l = t / (kTN * kHC) + 1;
-    float dg = 0.f;
-    for (int i = l * l; i < (l + 1) * (l + 1); ++i) {
-      const int off = i * s.ms + h * kTN + n;
-      dg = fmaf(s.sdm[off], s.sh[off], dg);
-    }
-    const float g = s.sgate[t];
-    s.sdg[t] = g * (1.f - g) * dg;
-  }
-  __syncthreads();
-  // dh in place
-  for (int t = tid; t < d.I * kHC * kTN; t += kThreads) {
-    const int n = t % kTN, h = (t / kTN) % kHC, i = t / (kTN * kHC);
-    const int off = i * s.ms + h * kTN + n;
-    const float dm = s.sdm[off];
-    if (i == 0) {
-      const float hb = s.sh[off] + ((h0 + h < d.H) ? b1[h0 + h] : 0.f);
-      s.sdm[off] = singa::silu_gradf_(hb) * dm;
-    } else {
-      s.sdm[off] = dm * s.sgate[((degree_of(i) - 1) * kHC + h) * kTN + n];
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                       const float* __restrict__ w1, const float* __restrict__ b1,
-                       const float* __restrict__ wg, const float* __restrict__ bg,
-                       const float* __restrict__ w2, float* __restrict__ dx, int N, int lmax,
-                       int C, int H, int Co) {
-  const Dims d = make_dims(N, lmax, C, H, Co);
-  extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, d);
-  float* sw1t = s.end;  // [L][kHC][C]
-  const int n0 = blockIdx.x * kTN;
-  const int tid = threadIdx.x;
-  const int C4 = C / 4;
-  const int njobs = kNG * d.I * C4;
-  stage_tile(x, dy, n0, d, s);
-
-  float4 acc[kMaxJobs][4];  // acc[k][q]: node q of the micro-tile, four channels
-#pragma unroll
-  for (int k = 0; k < kMaxJobs; ++k)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[k][q] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int h0 = 0; h0 < H; h0 += kHC) {
-    __syncthreads();  // the previous chunk's readers of the staged weights are done
-    stage_weights(w1, wg, w2, h0, d, s);
-    for (int t = tid; t < d.L * kHC * C; t += kThreads) {
-      const int c = t % C, h = (t / C) % kHC, l = t / (C * kHC);
-      sw1t[t] = (h0 + h < H) ? w1[((long long)l * C + c) * H + h0 + h] : 0.f;
-    }
-    __syncthreads();
-    chunk_backward(b1, bg, h0, d, s);
-
-#pragma unroll
-    for (int k = 0; k < kMaxJobs; ++k) {
-      const int j = tid + k * kThreads;
-      if (j < njobs) {
-        const int c4 = j % C4, ng = (j / C4) % kNG, i = j / (C4 * kNG);
-        const int l = degree_of(i);
-        const float* dr = s.sdm + i * s.ms + 4 * ng;
-        const float* wr = sw1t + l * kHC * C + 4 * c4;
-        for (int h = 0; h < kHC; ++h) {
-          const float4 dv = *reinterpret_cast<const float4*>(dr + h * kTN);
-          const float4 wv = *reinterpret_cast<const float4*>(wr + h * C);
-          fma4(acc[k][0], dv.x, wv);
-          fma4(acc[k][1], dv.y, wv);
-          fma4(acc[k][2], dv.z, wv);
-          fma4(acc[k][3], dv.w, wv);
-        }
-        if (i == 0) {  // the gate path: dg0 @ wg^T on row 0
-          for (int lh = 0; lh < d.lmax * kHC; ++lh) {
-            const int l2 = lh / kHC, h = lh % kHC;
-            const float4 gv = *reinterpret_cast<const float4*>(s.sdg + lh * kTN + 4 * ng);
-            const int wi = l2 * kHC + h;
-            const float4 wv = make_float4(s.swg[(4 * c4) * d.lmax * kHC + wi],
-                                          s.swg[(4 * c4 + 1) * d.lmax * kHC + wi],
-                                          s.swg[(4 * c4 + 2) * d.lmax * kHC + wi],
-                                          s.swg[(4 * c4 + 3) * d.lmax * kHC + wi]);
-            fma4(acc[k][0], gv.x, wv);
-            fma4(acc[k][1], gv.y, wv);
-            fma4(acc[k][2], gv.z, wv);
-            fma4(acc[k][3], gv.w, wv);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxJobs; ++k) {
-    const int j = tid + k * kThreads;
-    if (j < njobs) {
-      const int c4 = j % C4, ng = (j / C4) % kNG, i = j / (C4 * kNG);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int n = n0 + 4 * ng + q;
-        if (n < N) *reinterpret_cast<float4*>(dx + ((long long)n * d.I + i) * C + 4 * c4) = acc[k][q];
-      }
-    }
-  }
 }
 
 // Offsets of the weight gradients in one flat row of P floats, in the order
@@ -717,17 +509,412 @@ WKernel w_kernel(int C, int Co) {
   return nullptr;
 }
 
-size_t dx_smem(const Dims& d) { return (common_floats(d) + (size_t)d.L * kHC * d.C) * sizeof(float); }
+// The dx kernel (design: the top of the file); one instance for each C and
+// Co of 8 or 16. At lmax 6 and 16 channels: 217,984 B of shared memory (the
+// tile 100,352 B, two stages of 55,744 B, the gates 6,144 B), so one block
+// of 12 warps an SM, at most 168 registers a thread (chip_smoke.py's
+// k2b_ptxas and dx_residency). 12 warps, not 8 or 16: 8 hide too little of
+// the products' latency (two warps a scheduler), and at 16 the 128
+// registers a thread spill the dx sums.
+constexpr int kDThreads = 384;  // 12 warps
+constexpr int kDWarps = kDThreads / 32;
+constexpr int kDTN = 16;            // nodes of a tile: the m16 of every product
+constexpr int kDHC = 16;            // hidden channels of a chunk
+constexpr int kDNB = kDHC / 8;      // its n8 blocks
+constexpr int kDMaxRows = 6;        // rows of a warp: I <= 64 over 12 warps
+constexpr int kFragWords = 32 * 4;  // one B fragment, split: [lane][hi b0, hi b1, lo b0, lo b1]
+static_assert((64 + kDWarps - 1) / kDWarps <= kDMaxRows, "a warp's rows must fit kDMaxRows");
+static_assert(kDWarps >= 7, "one warp for each degree's gates");
+
+// One hidden chunk's words, fragments first, in this order:
+//   w1 as h's B      [l][k step][n8 block]   k = c (paired), n = hidden
+//   w2 as dmid's B   [l][k step][n8 block]   k = o (paired), n = hidden
+//   w1 as dx's B     [l][n8 block][n8 of c]  k = hidden (paired), n = c
+//   wg as the gates' B [l - 1][k step][n8 block]  k = c (paired), n = hidden
+// then the chunk's b1 [kDHC] and bg [lmax][kDHC] as floats. "Paired": k
+// slots t and t + 4 of a lane take the columns 2 t and 2 t + 1 of the k
+// step, as frag_a_paired and frag_a_from_c give them (mma_tf32.cuh).
+struct DxLayout {
+  int w2, w1t, wg, frags;  // fragment offsets
+  int b1, bg, words;       // word offsets, and the words of a chunk
+};
+
+__host__ __device__ inline DxLayout dx_layout(int lmax, int C, int Co) {
+  const int KC = C / 8, KO = Co / 8, L = lmax + 1;
+  DxLayout o;
+  o.w2 = L * KC * kDNB;
+  o.w1t = o.w2 + L * KO * kDNB;
+  o.wg = o.w1t + L * kDNB * KC;
+  o.frags = o.wg + lmax * KC * kDNB;
+  o.b1 = o.frags * kFragWords;
+  o.bg = o.b1 + kDHC;
+  o.words = o.bg + lmax * kDHC;  // a multiple of 4: each chunk is 16-byte aligned
+  return o;
+}
+
+// Every chunk's words (dx_layout), one lane of one fragment (or one bias)
+// per item: the weights split into TF32 hi and lo once a call.
+template <int C, int Co>
+__global__ void gate_ffn_bwd_wsplit_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
+                                           const float* __restrict__ wg, const float* __restrict__ bg,
+                                           const float* __restrict__ w2, uint32_t* __restrict__ out,
+                                           int lmax, int H) {
+  constexpr int KC = C / 8, KO = Co / 8, NB = kDNB;
+  const DxLayout o = dx_layout(lmax, C, Co);
+  const int items = o.frags * 32 + (o.words - o.b1);
+  const long long total = (long long)((H + kDHC - 1) / kDHC) * items;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int chunk = (int)(e / items), r = (int)(e % items), h0 = chunk * kDHC;
+    uint32_t* blk = out + (long long)chunk * o.words;
+    if (r >= o.frags * 32) {  // b1, then bg of degrees 1 .. lmax
+      const int b = r - o.frags * 32, h = h0 + b % kDHC, which = b / kDHC;
+      float v = 0.f;
+      if (h < H) v = which == 0 ? b1[h] : bg[(long long)(which - 1) * H + h];
+      blk[o.b1 + b] = __float_as_uint(v);
+      continue;
+    }
+    const int f = r / 32, lane = r % 32, g = lane >> 2, t = lane & 3;
+    float v[2] = {0.f, 0.f};  // the lane's b0 and b1: k = 2 t and 2 t + 1 of the step
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (f < o.w2) {
+        const int l = f / (KC * NB), ks = f / NB % KC, j = f % NB;
+        const int h = h0 + 8 * j + g, c = 8 * ks + 2 * t + p;
+        if (h < H) v[p] = w1[((long long)l * C + c) * H + h];
+      } else if (f < o.w1t) {
+        const int q = f - o.w2, l = q / (KO * NB), ks = q / NB % KO, j = q % NB;
+        const int h = h0 + 8 * j + g, c = 8 * ks + 2 * t + p;
+        if (h < H) v[p] = w2[((long long)l * H + h) * Co + c];
+      } else if (f < o.wg) {
+        const int q = f - o.w1t, l = q / (NB * KC), j = q / KC % NB, nt = q % KC;
+        const int h = h0 + 8 * j + 2 * t + p, c = 8 * nt + g;
+        if (h < H) v[p] = w1[((long long)l * C + c) * H + h];
+      } else {
+        const int q = f - o.wg, l1 = q / (KC * NB), ks = q / NB % KC, j = q % NB;
+        const int h = h0 + 8 * j + g, c = 8 * ks + 2 * t + p;
+        if (h < H) v[p] = wg[(long long)c * lmax * H + (long long)l1 * H + h];
+      }
+    }
+    uint32_t hi0, lo0, hi1, lo1;
+    singa::tc::split(v[0], hi0, lo0);
+    singa::tc::split(v[1], hi1, lo1);
+    *reinterpret_cast<uint4*>(blk + f * kFragWords + lane * 4) = make_uint4(hi0, hi1, lo0, lo1);
+  }
+}
+
+// The column swizzle of a node's row in the tile: at width 16, columns
+// 8..15 and 0..7 trade places on nodes 2, 3 (mod 4), so that frag_a_paired's
+// 8-byte loads (nodes g, columns 2 t) are conflict-free; width 8 needs none.
+template <int W>
+__device__ __forceinline__ int swz(int node) {
+  return W == 16 ? 8 * ((node >> 1) & 1) : 0;
+}
+
+// x and dy of the tile at node n0 by cp.async: sx [I][kDTN][C], sy
+// [I][kDTN][Co] (swizzled), zeros past N. One commit group with the caller's.
+template <int C, int Co>
+__device__ void copy_dx_tile(const float* __restrict__ x, const float* __restrict__ dy, int n0,
+                             const Dims& d, float* sx, float* sy) {
+  constexpr int QX = C / 4, QY = Co / 4;  // 16-byte pieces of a row
+  const int nx = kDTN * d.I * QX;
+  for (int q = threadIdx.x; q < nx + kDTN * d.I * QY; q += kDThreads) {
+    const bool isy = q >= nx;
+    const int r = isy ? q - nx : q, pieces = isy ? QY : QX, w = isy ? Co : C;
+    const int n = r / (d.I * pieces), i = r / pieces % d.I, c = 4 * (r % pieces);
+    const float* base = isy ? dy : x;
+    const bool ok = n0 + n < d.N;
+    float* dst = (isy ? sy : sx) + (i * kDTN + n) * w + (c ^ (isy ? swz<Co>(n) : swz<C>(n)));
+    cp_async16(dst, ok ? base + ((long long)(n0 + n) * d.I + i) * w + c : base, ok ? 16 : 0);
+  }
+}
+
+// The words of hidden chunk `chunk` into a stage of the ring; commits.
+__device__ void copy_chunk(const uint32_t* __restrict__ wfrag, int chunk, int words, uint32_t* stage) {
+  const float* src = reinterpret_cast<const float*>(wfrag) + (long long)chunk * words;
+  float* dst = reinterpret_cast<float*>(stage);
+  for (int q = threadIdx.x; q < words / 4; q += kDThreads) cp_async16(dst + 4 * q, src + 4 * q, 16);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The lane's share of one split B fragment
+__device__ __forceinline__ singa::tc::FragB frag_pre(const uint32_t* frag) {
+  const uint4 v = *reinterpret_cast<const uint4*>(frag + 4 * (threadIdx.x & 31));
+  return singa::tc::FragB{{v.x, v.y}, {v.z, v.w}};
+}
+
+// k step ks of the 16 nodes' rows (one coefficient row of the tile) as A
+// (m = node, k = channel, paired), split
+template <int W>
+__device__ __forceinline__ singa::tc::FragA frag_tile(const float* rows, int ks) {
+  return singa::tc::frag_a_paired(rows + ((8 * ks) ^ swz<W>(singa::tc::lane_grp())), W);
+}
+
+// The gates of degree l >= 1 at the tile's nodes and the chunk's channels,
+// sigmoid(x_0 wg_l + bg_l) with the product split, into sgate [lmax][n8
+// block][lane] as the lane's C fragment (node g + 8 (q >> 1), channel
+// 8 j + 2 t + (q & 1)).
+template <int C>
+__device__ __forceinline__ void gates(const float* sx, const uint32_t* wgf, const float* cbg, int l,
+                                      float* sgate) {
+  using namespace singa::tc;
+  constexpr int KC = C / 8, NB = kDNB;
+  const int t = lane_tig();
+  FragA xa[KC];
+#pragma unroll
+  for (int ks = 0; ks < KC; ++ks) xa[ks] = frag_tile<C>(sx, ks);  // row 0
+  const uint32_t* f = wgf + (l - 1) * KC * NB * kFragWords;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float z[4] = {};
+    FragB b[KC];
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks) b[ks] = frag_pre(f + (ks * NB + j) * kFragWords);
+#pragma unroll
+    for (int ks = 0; ks < KC; ++ks) mma3(z, xa[ks], b[ks]);
+    const float* bias = cbg + (l - 1) * kDHC + 8 * j + 2 * t;
+    *reinterpret_cast<float4*>(sgate + (((l - 1) * NB + j) * 32 + (threadIdx.x & 31)) * 4) =
+        make_float4(singa::sigmoidf_(z[0] + bias[0]), singa::sigmoidf_(z[1] + bias[1]),
+                    singa::sigmoidf_(z[2] + bias[0]), singa::sigmoidf_(z[3] + bias[1]));
+  }
+}
+
+// Row 0's term of degree l from the warp's rows of l: dg0 = gate (1 - gate)
+// dgate, part0 += dg0 wg_l^T on the tensor cores. B (k = hidden, paired;
+// n = c) is read from the gates' fragments (k = c, paired; n = hidden):
+// lane (g, t) takes k slot t from lane 8 t + (g >> 1) and slot t + 4 from
+// lane 8 t + 4 + (g >> 1), their register g & 1.
+template <int C>
+__device__ __forceinline__ void gate_term(const uint32_t* wgf, int l, const float (&gate)[kDNB][4],
+                                          const float (&dgate)[kDNB][4], float (&part0)[C / 8][4]) {
+  using namespace singa::tc;
+  constexpr int KC = C / 8, NB = kDNB;
+  const uint32_t* f = wgf + (l - 1) * KC * NB * kFragWords;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float dg[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dg[q] = gate[j][q] * (1.f - gate[j][q]) * dgate[j][q];
+    const FragA da = frag_a_from_c(dg);
+    FragB b[KC];
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) {
+      const uint32_t* w = f + (nt * NB + j) * kFragWords;
+      const int w0 = (8 * lane_tig() + (lane_grp() >> 1)) * 4 + (lane_grp() & 1);
+      b[nt].hi[0] = w[w0];
+      b[nt].lo[0] = w[w0 + 2];
+      b[nt].hi[1] = w[w0 + 16];
+      b[nt].lo[1] = w[w0 + 18];
+    }
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.lo, b[nt].hi);
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.hi, b[nt].lo);
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.hi, b[nt].hi);
+  }
+}
+
+// One row i of degree l over the chunk: h and dmid per n8 block, dh on their
+// C fragments (dgate += dmid h where l >= 1), and pdx += dh w1[l]^T.
+template <int C, int Co>
+__device__ __forceinline__ void row_dx(const float* xi, const float* yi, const uint32_t* st,
+                                       const DxLayout& o, const float* cb1, int l,
+                                       const float (&gate)[kDNB][4], float (&dgate)[kDNB][4],
+                                       float (&pdx)[C / 8][4]) {
+  using namespace singa::tc;
+  constexpr int KC = C / 8, KO = Co / 8, K = KC > KO ? KC : KO, NB = kDNB;
+  const int t = lane_tig();
+  FragA xa[KC], ya[KO];
+#pragma unroll
+  for (int ks = 0; ks < KC; ++ks) xa[ks] = frag_tile<C>(xi, ks);
+#pragma unroll
+  for (int ks = 0; ks < KO; ++ks) ya[ks] = frag_tile<Co>(yi, ks);
+  const uint32_t* w1f = st + l * KC * NB * kFragWords;
+  const uint32_t* w2f = st + (o.w2 + l * KO * NB) * kFragWords;
+  const uint32_t* w1t = st + (o.w1t + l * NB * KC) * kFragWords;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float hc[4] = {}, dc[4] = {};
+#pragma unroll
+    for (int ks = 0; ks < K; ++ks) {  // two chains, each: lo hi, hi lo, hi hi
+      const int kx = ks < KC ? ks : 0, ky = ks < KO ? ks : 0;
+      FragB bw{}, bv{};
+      if (ks < KC) bw = frag_pre(w1f + (kx * NB + j) * kFragWords);
+      if (ks < KO) bv = frag_pre(w2f + (ky * NB + j) * kFragWords);
+      if (ks < KC) mma(hc, xa[kx].lo, bw.hi);
+      if (ks < KO) mma(dc, ya[ky].lo, bv.hi);
+      if (ks < KC) mma(hc, xa[kx].hi, bw.lo);
+      if (ks < KO) mma(dc, ya[ky].hi, bv.lo);
+      if (ks < KC) mma(hc, xa[kx].hi, bw.hi);
+      if (ks < KO) mma(dc, ya[ky].hi, bv.hi);
+    }
+    float dh[4];  // c fragments: (node g + 8 (q >> 1), channel 8 j + 2 t + (q & 1))
+    if (l == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        dh[q] = singa::silu_gradf_(hc[q] + cb1[8 * j + 2 * t + (q & 1)]) * dc[q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dh[q] = dc[q] * gate[j][q];
+        dgate[j][q] = fmaf(dc[q], hc[q], dgate[j][q]);
+      }
+    }
+    const FragA da = frag_a_from_c(dh);
+    FragB b[KC];
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) b[nt] = frag_pre(w1t + (j * KC + nt) * kFragWords);
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.lo, b[nt].hi);
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.hi, b[nt].lo);
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.hi, b[nt].hi);
+  }
+}
+
+template <int C, int Co>
+__global__ void __launch_bounds__(kDThreads, 1)
+gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                       const uint32_t* __restrict__ wfrag, float* __restrict__ dx, int N, int lmax,
+                       int H) {
+  constexpr int KC = C / 8;
+  const Dims d = make_dims(N, lmax, C, H, Co);
+  const int I = d.I;
+  const DxLayout o = dx_layout(lmax, C, Co);
+  extern __shared__ __align__(16) float smem[];
+  float* sx = smem;                                                  // [I][kDTN][C]
+  float* sy = sx + I * kDTN * C;                                     // [I][kDTN][Co]
+  uint32_t* ring = reinterpret_cast<uint32_t*>(sy + I * kDTN * Co);  // [2][o.words]
+  float* sgate = reinterpret_cast<float*>(ring + 2 * o.words);       // [lmax][kDNB][32][4]
+  const int chunks = (H + kDHC - 1) / kDHC;
+  const int n0 = blockIdx.x * kDTN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = singa::tc::lane_grp(), t = singa::tc::lane_tig();
+  const int r0 = warp * I / kDWarps, r1 = (warp + 1) * I / kDWarps;  // the warp's rows
+
+  copy_dx_tile<C, Co>(x, dy, n0, d, sx, sy);
+  asm volatile("cp.async.commit_group;\n" ::);
+  copy_chunk(wfrag, 0, o.words, ring);
+
+  float acc[kDMaxRows][KC][4] = {};  // dx of the warp's rows, c fragments (node, c)
+  float acc0[KC][4] = {};            // row 0's gate terms from the warp's rows
+  for (int k = 0; k < chunks; ++k) {
+    const uint32_t* st = ring + (k & 1) * o.words;
+    asm volatile("cp.async.wait_group 0;\n" ::);  // this chunk (and the tile): this thread's copies
+    __syncthreads();  // everyone's; and every warp is done with the stage the next copy fills
+    if (k + 1 < chunks) copy_chunk(wfrag, k + 1, o.words, ring + ((k + 1) & 1) * o.words);
+    const float* cb1 = reinterpret_cast<const float*>(st + o.b1);
+    const float* cbg = reinterpret_cast<const float*>(st + o.bg);
+    const uint32_t* wgf = st + o.wg * kFragWords;
+    if (warp < lmax) gates<C>(sx, wgf, cbg, warp + 1, sgate);  // the chunk's gates, a degree a warp
+    __syncthreads();
+    float part0[KC][4] = {};  // this chunk's row-0 terms, from zero
+    float gate[kDNB][4] = {}, dgate[kDNB][4] = {};
+    int cur = -1;  // the degree whose gates are in `gate`
+#pragma unroll
+    for (int s = 0; s < kDMaxRows; ++s) {
+      const int i = r0 + s;
+      if (i < r1) {
+        const int l = singa::degree_of(i);
+        if (l != cur) {
+          if (cur > 0) gate_term<C>(wgf, cur, gate, dgate, part0);
+          cur = l;
+          if (l > 0)
+#pragma unroll
+            for (int j = 0; j < kDNB; ++j) {
+              const float4 v =
+                  *reinterpret_cast<const float4*>(sgate + (((l - 1) * kDNB + j) * 32 + lane) * 4);
+              gate[j][0] = v.x, gate[j][1] = v.y, gate[j][2] = v.z, gate[j][3] = v.w;
+              dgate[j][0] = dgate[j][1] = dgate[j][2] = dgate[j][3] = 0.f;
+            }
+        }
+        float pdx[KC][4] = {};  // this row's products in this chunk, from zero
+        row_dx<C, Co>(sx + i * kDTN * C, sy + i * kDTN * Co, st, o, cb1, l, gate, dgate, pdx);
+#pragma unroll
+        for (int nt = 0; nt < KC; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[s][nt][q] += pdx[nt][q];
+      }
+    }
+    if (cur > 0) gate_term<C>(wgf, cur, gate, dgate, part0);
+#pragma unroll
+    for (int nt = 0; nt < KC; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc0[nt][q] += part0[nt][q];
+  }
+
+  // row 0: its own products, then the warps' gate terms in warp order
+  __syncthreads();  // every warp is done with the tile and the ring
+  float* p0 = smem;  // [warp][lane][KC][4]
+#pragma unroll
+  for (int nt = 0; nt < KC; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p0[((warp * 32 + lane) * KC + nt) * 4 + q] = acc0[nt][q];
+  __syncthreads();
+  if (r0 == 0 && r1 > 0)  // the warp that owns row 0
+    for (int w = 0; w < kDWarps; ++w)
+#pragma unroll
+      for (int nt = 0; nt < KC; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[0][nt][q] += p0[((w * 32 + lane) * KC + nt) * 4 + q];
+
+#pragma unroll
+  for (int s = 0; s < kDMaxRows; ++s) {
+    const int i = r0 + s;
+    if (i >= r1) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + g + 8 * half;
+      if (n >= N) continue;
+#pragma unroll
+      for (int nt = 0; nt < KC; ++nt)
+        *reinterpret_cast<float2*>(dx + ((long long)n * I + i) * C + 8 * nt + 2 * t) =
+            make_float2(acc[s][nt][2 * half], acc[s][nt][2 * half + 1]);
+    }
+  }
+}
+
+using DxKernel = void (*)(const float*, const float*, const uint32_t*, float*, int, int, int);
+using SplitKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                             uint32_t*, int, int);
+
+// The dx kernel's and the split kernel's instances for C input and Co
+// output channels (null: none)
+DxKernel dx_kernel(int C, int Co) {
+  if (C == 8 && Co == 8) return gate_ffn_bwd_dx_kernel<8, 8>;
+  if (C == 8 && Co == 16) return gate_ffn_bwd_dx_kernel<8, 16>;
+  if (C == 16 && Co == 8) return gate_ffn_bwd_dx_kernel<16, 8>;
+  if (C == 16 && Co == 16) return gate_ffn_bwd_dx_kernel<16, 16>;
+  return nullptr;
+}
+
+SplitKernel split_kernel(int C, int Co) {
+  if (C == 8 && Co == 8) return gate_ffn_bwd_wsplit_kernel<8, 8>;
+  if (C == 8 && Co == 16) return gate_ffn_bwd_wsplit_kernel<8, 16>;
+  if (C == 16 && Co == 8) return gate_ffn_bwd_wsplit_kernel<16, 8>;
+  if (C == 16 && Co == 16) return gate_ffn_bwd_wsplit_kernel<16, 16>;
+  return nullptr;
+}
+
 size_t w_smem(const Dims& d) { return w_smem_floats(d) * sizeof(float); }
 
-// The dx kernel: C a multiple of 4, its jobs (two four-node groups x the
-// rows x C / 4) one per thread. The weight kernel: C and Co of 8 or 16, at
-// most 64 coefficient rows (lmax <= 7: its degree groups).
+// The dx kernel's shared memory: the tile, the ring's two stages and the
+// gates, and at least row 0's terms of the warps at the end
+size_t dx_smem(const Dims& d) {
+  const size_t tile = (size_t)d.I * kDTN * (d.C + d.Co);
+  const size_t ring = 2 * (size_t)dx_layout(d.lmax, d.C, d.Co).words + (size_t)d.lmax * kDNB * 128;
+  const size_t p0 = (size_t)kDThreads * (d.C / 8) * 4;
+  return (tile + ring > p0 ? tile + ring : p0) * sizeof(float);
+}
+
+// Both kernels: C and Co of 8 or 16 (their products' k and n steps are 8
+// wide), at most 64 coefficient rows (lmax <= 7: the dx kernel's warps own
+// at most kDMaxRows rows each; the weight kernel's degree groups).
 bool dims_ok(int N, int lmax, int C, int H, int Co) {
-  if (N < 1 || lmax < 1 || C < 4 || C % 4 != 0 || H < 1 || Co < 1) return false;
-  const int I = (lmax + 1) * (lmax + 1);
-  if (kNG * I * (C / 4) > kMaxJobs * kThreads) return false;
-  return lmax <= 7 && w_kernel(C, Co) != nullptr;
+  if (N < 1 || lmax < 1 || lmax > 7 || H < 1) return false;
+  return dx_kernel(C, Co) != nullptr && w_kernel(C, Co) != nullptr;
 }
 
 }  // namespace
@@ -741,7 +928,7 @@ extern "C" int so3_gate_ffn_bwd_slices(int N, int lmax, int C, int H, int Co) {
   const Dims d = make_dims(N, lmax, C, H, Co);
   const WKernel wk = w_kernel(C, Co);
   const size_t smem = w_smem(d);
-  if (singa::allow_smem(gate_ffn_bwd_dx_kernel, dx_smem(d)) != cudaSuccess) return -1;
+  if (singa::allow_smem(dx_kernel(C, Co), dx_smem(d)) != cudaSuccess) return -1;
   if (singa::allow_smem(wk, smem) != cudaSuccess) return -1;
   const int chunks = (H + kWHC - 1) / kWHC;
   const int tiles = (N + kWTN - 1) / kWTN;
@@ -750,6 +937,14 @@ extern "C" int so3_gate_ffn_bwd_slices(int N, int lmax, int C, int H, int Co) {
   if (slices < 1) slices = 1;
   if (slices > tiles) slices = tiles;
   return slices;
+}
+
+// 32-bit words of the dx kernel's split weights (the caller's wfrag
+// buffer): every hidden chunk's block of dx_layout; -1 for shapes the
+// kernels do not take.
+extern "C" long long so3_gate_ffn_bwd_dx_words(int lmax, int C, int H, int Co) {
+  if (!dims_ok(1, lmax, C, H, Co)) return -1;
+  return (long long)((H + kDHC - 1) / kDHC) * dx_layout(lmax, C, Co).words;
 }
 
 // The weight kernel at these widths: resident blocks per SM (-1: a shape it
@@ -768,26 +963,52 @@ extern "C" int so3_gate_ffn_bwd_residency(int lmax, int C, int H, int Co, int* s
   return per_sm;
 }
 
+// The dx kernel at these widths: resident blocks per SM (-1: a shape it
+// does not take), and its threads and dynamic shared memory per block.
+extern "C" int so3_gate_ffn_bwd_dx_residency(int lmax, int C, int H, int Co, int* smem_bytes,
+                                             int* threads) {
+  if (!dims_ok(1, lmax, C, H, Co)) return -1;
+  const DxKernel dk = dx_kernel(C, Co);
+  const size_t smem = dx_smem(make_dims(1, lmax, C, H, Co));
+  *smem_bytes = (int)smem;
+  *threads = kDThreads;
+  if (singa::allow_smem(dk, smem) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dk, kDThreads, smem) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+// wfrag: so3_gate_ffn_bwd_dx_words() words of scratch, 16-byte aligned.
 extern "C" int so3_gate_ffn_bwd_f32(const float* x, const float* dy, const float* w1,
                                     const float* b1, const float* wg, const float* bg,
                                     const float* w2, float* dx, float* partial, float* grads,
-                                    int N, int lmax, int C, int H, int Co, int slices,
+                                    void* wfrag, int N, int lmax, int C, int H, int Co, int slices,
                                     void* stream) {
   if (!dims_ok(N, lmax, C, H, Co) || slices < 1) return (int)cudaErrorInvalidValue;
   const Dims d = make_dims(N, lmax, C, H, Co);
   const WKernel wk = w_kernel(C, Co);
+  const DxKernel dk = dx_kernel(C, Co);
+  const SplitKernel sk = split_kernel(C, Co);
   cudaStream_t st = (cudaStream_t)stream;
   const size_t sa = dx_smem(d), sb = w_smem(d);
-  cudaError_t err = singa::allow_smem(gate_ffn_bwd_dx_kernel, sa);
+  cudaError_t err = singa::allow_smem(dk, sa);
   if (err != cudaSuccess) return (int)err;
   err = singa::allow_smem(wk, sb);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (N + kTN - 1) / kTN;
-  const int chunks = (H + kWHC - 1) / kWHC;
-  gate_ffn_bwd_dx_kernel<<<tiles, kThreads, sa, st>>>(x, dy, w1, b1, wg, bg, w2, dx, N, lmax, C,
-                                                      H, Co);
+  uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
+  const DxLayout o = dx_layout(lmax, C, Co);
+  const int dx_chunks = (H + kDHC - 1) / kDHC;
+  const long long items = (long long)dx_chunks * (o.frags * 32 + (o.words - o.b1));
+  const int sgrid = singa::persistent_grid(sk, 256, 0, (items + 255) / 256);
+  sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, lmax, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const int tiles = (N + kDTN - 1) / kDTN;
+  dk<<<tiles, kDThreads, sa, st>>>(x, dy, frags, dx, N, lmax, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = (H + kWHC - 1) / kWHC;
   wk<<<chunks * slices, kWThreads, sb, st>>>(x, dy, w1, b1, wg, bg, w2, partial, N, lmax, H,
                                              slices);
   err = cudaGetLastError();

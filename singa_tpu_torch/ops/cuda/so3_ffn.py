@@ -8,10 +8,10 @@ over column block ``(l-1)H : lH``; per-degree linear H -> Co, ``b2`` on row 0
 only. K2b replaces ``_gate_bwd`` (``_gate_ffn_bwd_kernel``): dx and the six
 weight and bias gradients. The CUDA kernels (``csrc/so3_gate_ffn.cu``,
 ``csrc/so3_gate_ffn_bwd.cu``) keep the ``[N, I, H]`` hidden and its cotangent
-out of device memory; K2b's weight-gradient kernel forms its four
-per-degree products (h, dmid, dw1, dw2) on the tensor cores as split-TF32
-products (``csrc/mma_tf32.cuh``), which agree with float32 products to
-float32 round-off, and takes C and Co of 8 or 16.
+out of device memory; K2b's dx kernel forms h, dmid, dx and the row-0 gate
+term, and its weight-gradient kernel h, dmid, dw1 and dw2, on the tensor
+cores as split-TF32 products (``csrc/mma_tf32.cuh``), which agree with
+float32 products to float32 round-off; both take C and Co of 8 or 16.
 
 K4 replaces ``so3_ffn.py::so3_ffn_fused`` (``_ffn_fwd_kernel``), the FFN of
 ``ffn_activation: s2``: ``gate = silu(x0 @ wg + bg)``; per-degree linear
@@ -90,17 +90,21 @@ def _bwd_fns():
     slices = lib.so3_gate_ffn_bwd_slices
     slices.argtypes = [ctypes.c_int] * 5
     slices.restype = ctypes.c_int
+    words = lib.so3_gate_ffn_bwd_dx_words
+    words.argtypes = [ctypes.c_int] * 4
+    words.restype = ctypes.c_longlong
     fn = lib.so3_gate_ffn_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return slices, fn
+    return slices, words, fn
 
 
-def gate_bwd_residency(lmax: int, C: int, H: int, Co: int) -> dict:
-    """K2b's weight-gradient kernel at these widths: resident blocks per SM
-    (-1: a shape it does not take), threads and dynamic shared memory per
-    block. For reports; launches nothing."""
-    fn = build.load("so3_gate_ffn_bwd").so3_gate_ffn_bwd_residency
+def gate_bwd_residency(lmax: int, C: int, H: int, Co: int, dx: bool = False) -> dict:
+    """K2b's weight-gradient kernel (``dx``: its dx kernel) at these widths:
+    resident blocks per SM (-1: a shape it does not take), threads and
+    dynamic shared memory per block. For reports; launches nothing."""
+    lib = build.load("so3_gate_ffn_bwd")
+    fn = lib.so3_gate_ffn_bwd_dx_residency if dx else lib.so3_gate_ffn_bwd_residency
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, threads = ctypes.c_int(0), ctypes.c_int(0)
@@ -159,16 +163,18 @@ def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
     if N == 0:
         grads.zero_()
     else:
-        slices_fn, fn = _bwd_fns()
+        slices_fn, words_fn, fn = _bwd_fns()
         slices = slices_fn(N, lmax, C, H, Co)
         if slices < 1:
             raise ValueError(f"so3_gate_ffn backward kernel: {C} input / {Co} output channels at "
                              f"lmax {lmax} not supported or its tiles exceed shared memory")
         partial = torch.empty((slices, sum(sizes)), dtype=f32, device=dev)
+        # the dx kernel's weights, split into TF32 fragments once a call
+        wfrag = torch.empty(words_fn(lmax, C, H, Co), dtype=torch.int32, device=dev)
         status = fn(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(),
             bg.data_ptr(), w2.data_ptr(), dx.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-            N, lmax, C, H, Co, slices, build.stream_ptr(x),
+            wfrag.data_ptr(), N, lmax, C, H, Co, slices, build.stream_ptr(x),
         )
         build.check(status, "so3_gate_ffn_bwd")
         launches_bwd += 1

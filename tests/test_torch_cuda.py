@@ -312,20 +312,28 @@ def test_neighbor_attn_bwd_hold_rejects_one_tf32_product(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lmax,N,H", [(6, 37, 512), (6, 8, 40), (4, 37, 512), (4, 8, 40),
-                                      (6, 2003, 512), (4, 2003, 512)])
+                                      (6, 2003, 512), (4, 2003, 512), (6, 1, 512), (6, 17, 40),
+                                      (6, 14336, 512)])
 def test_so3_gate_ffn_bwd_kernel_matches_plain(dev, lmax, N, H):
-    """K2b at lmax 6 and 4 with 16 channels; N not a multiple of the node
-    tile and H not a multiple of the hidden chunk; N 2,003: several slices
-    of the weight kernel, each ~30 tiles deep, added by sum_rows_kernel."""
+    """K2b at lmax 6 and 4 with 16 channels; N not a multiple of either
+    kernel's node tile (8, 16) and H not a multiple of either's hidden chunk
+    (32, 16); N 1: one node; N 2,003: several slices of the weight kernel,
+    each ~30 tiles deep, added by sum_rows_kernel; N 14,336: a training
+    microbatch's nodes. (At lmax 7 the card takes 8 channels in or out:
+    test_so3_gate_ffn_bwd_kernel_takes_8_channels.)"""
     _check_gate_bwd(dev, lmax, N, H, 16, 16)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 37, 512, 8, 8), (4, 2003, 512, 8, 8),
-                                           (6, 37, 40, 8, 16), (6, 37, 40, 16, 8)])
+                                           (6, 37, 40, 8, 16), (6, 37, 40, 16, 8),
+                                           (6, 1, 512, 8, 8), (6, 17, 40, 8, 16),
+                                           (6, 14336, 512, 16, 8), (7, 37, 512, 8, 16),
+                                           (7, 17, 40, 16, 8)])
 def test_so3_gate_ffn_bwd_kernel_takes_8_channels(dev, lmax, N, H, C, Co):
-    """K2b with 8 input or output channels, the weight kernel's other
-    instances (its products' k and n steps are 8 wide)."""
+    """K2b with 8 input or output channels, both kernels' other instances
+    (their products' k and n steps are 8 wide), at the same edges: N 1, 17
+    and 14,336, H 40, and lmax 7 (64 rows: up to 6 a warp in the dx kernel)."""
     _check_gate_bwd(dev, lmax, N, H, C, Co)
 
 
@@ -523,9 +531,10 @@ def test_so3_gate_ffn_bwd_hold_rejects_one_tf32_product(dev):
     """The 1e-4 hold that K2b meets tells split TF32 from one TF32 product
     at the training microbatch's widths (N 14,336, lmax 6, C = Co = 16,
     H 512): the kernel is within a tenth of the hold against
-    so3_gate_ffn_bwd_plain; the rendering of its weight kernel's products
-    with one TF32 product each (test_torch_tf32_split.k2b_split) fails it
-    on at least one output."""
+    so3_gate_ffn_bwd_plain on every output, dx included; the rendering of
+    both kernels' products with one TF32 product each
+    (test_torch_tf32_split.k2b_split) fails it on dx, the dx kernel's
+    output."""
     from test_torch_tf32_split import k2b_split, mm_tf32
 
     from singa_tpu_torch.ops.cuda import so3_ffn as k2
@@ -546,7 +555,7 @@ def test_so3_gate_ffn_bwd_hold_rejects_one_tf32_product(dev):
     ratios["one_tf32"] = _hold_ratios(k2b_split(*args, mm=mm_tf32), want, names)
     print(json.dumps({"hold_ratios": ratios}))
     assert max(ratios["kernel"].values()) <= 0.1, ratios
-    assert max(ratios["one_tf32"].values()) > 1.0, ratios
+    assert ratios["one_tf32"]["dx"] > 1.0, ratios
 
 
 @pytest.mark.cuda
@@ -663,8 +672,9 @@ def test_kernels_refuse_shapes_they_do_not_take(dev):
     returns cudaErrorInvalidValue, and the wrapper raises ValueError: K1
     with one node's pair tensors over shared memory, K2 with 6 output
     channels, K3 with 36 coefficient rows, K4 and K5 with 81, K6 and K6b at
-    lmax 7 (34 m-primary rows); K2b with 32 channels (its weight kernel
-    takes 8 or 16) is refused before the launch."""
+    lmax 7 (34 m-primary rows); K2b with 32 channels (its kernels take 8 or
+    16), or at lmax 7 with 16 in and out (its tiles exceed shared memory),
+    is refused before the launch."""
     from singa_tpu_torch.ops.cuda import neighbor_attn as k1
     from singa_tpu_torch.ops.cuda import s2_act as k3
     from singa_tpu_torch.ops.cuda import so2_attn as k6
@@ -693,6 +703,11 @@ def test_kernels_refuse_shapes_they_do_not_take(dev):
     with pytest.raises(ValueError, match="32 input / 32 output channels at lmax 2 not supported"):
         k2.so3_gate_ffn_bwd_cuda(f(3, 9, 32), f(3, 32, 32), f(32), f(32, 64), f(64), f(3, 32, 32),
                                  2, f(3, 9, 32))
+    # lmax 7 at 16 channels in and out: the weight kernel's tiles (244,608 B)
+    # and the dx kernel's (259,072 B) exceed shared memory
+    with pytest.raises(ValueError, match="16 input / 16 output channels at lmax 7 not supported"):
+        k2.so3_gate_ffn_bwd_cuda(f(3, 64, 16), f(8, 16, 8), f(8), f(16, 56), f(56), f(8, 8, 16),
+                                 7, f(3, 64, 16))
 
 
 @pytest.mark.cuda

@@ -39,6 +39,7 @@ NAMES = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
 KGC = 32  # grid points per chunk of the kernel's chain
 NCOL = 64  # columns per tile: 4 nodes x 16 hidden channels
 K2B_TN = 8  # nodes per tile of K2b's weight kernel
+K2B_DX_HC = 16  # hidden channels per chunk of K2b's dx kernel
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -142,15 +143,19 @@ def k4b_split(x, w1, b1, wg, bg, w2, tg, fg, lmax, dy, mm=mm_split):
 
 
 def k2b_split(x, w1, b1, wg, bg, w2, lmax, dy, mm=mm_split):
-    """K2b's backward with its weight kernel's four per-degree products
-    through ``mm`` (split TF32 by default; ``mm_tf32`` for one TF32
-    product), as the kernel takes them: h = x_i w1[l] and dmid = dy_i
-    w2[l]^T row by row at depth 16; dw1[l] = x^T dh and dw2[l] = mid^T dy
-    per 8-node tile (rows past N zero), each tile's product over the
-    degree's rows summed from zero and the tiles added in float32. The
-    gates, the elementwise steps, dwg, the biases and dx (the other
-    kernel's) in plain float32. Same arguments and outputs as
-    ``so3_gate_ffn_bwd_plain``."""
+    """K2b's backward with both kernels' products through ``mm`` (split TF32
+    by default; ``mm_tf32`` for one TF32 product), as the kernels take them:
+    h = x_i w1[l] and dmid = dy_i w2[l]^T row by row at depth C and Co (both
+    kernels form the same products). The weight kernel: its gates in float32,
+    dw1[l] = x^T dh and dw2[l] = mid^T dy per 8-node tile (rows past N zero),
+    each tile's product over the degree's rows summed from zero and the tiles
+    added in float32; dwg and the biases in plain float32. The dx kernel: its
+    gates sigmoid(x_0 wg + bg) at depth C, then per hidden chunk of
+    K2B_DX_HC channels dx_i += dh_i w1[l]^T and row 0's dg0 wg^T over every
+    degree, each chunk's products summed from zero and the chunks added in
+    float32 in order (the kernel's 16-node tiles change nothing in a product
+    over the hidden: each node's row is its own). Same arguments and outputs
+    as ``so3_gate_ffn_bwd_plain``."""
     from singa_tpu_torch.ops.cuda.so3_ffn import _l_of
 
     N, I, C = x.shape
@@ -159,22 +164,37 @@ def k2b_split(x, w1, b1, wg, bg, w2, lmax, dy, mm=mm_split):
     W1, W2 = w1.index_select(0, l_of), w2.index_select(0, l_of)
     h = torch.stack([mm(x[:, i], W1[i]) for i in range(I)], dim=1)
     dmid = torch.stack([mm(dy[:, i], W2[i].T) for i in range(I)], dim=1)
-    gates = torch.sigmoid(x[:, 0] @ wg + bg).reshape(N, lmax, H)
-    g = gates.index_select(1, l_of[1:] - 1)
-    v0 = h[:, 0] + b1
-    dh = torch.cat([(silu_grad(v0) * dmid[:, 0])[:, None], dmid[:, 1:] * g], dim=1)
-    mid = torch.cat([F.silu(v0)[:, None], h[:, 1:] * g], dim=1)
     rows = [slice(l * l, (l + 1) ** 2) for l in range(lmax + 1)]
     dgate = torch.stack([(dmid[:, r] * h[:, r]).sum(1) for r in rows[1:]], dim=1)
-    dg0 = (gates * (1 - gates) * dgate).reshape(N, lmax * H)
-    dx = torch.einsum("nih,ich->nic", dh, W1)
-    dx[:, 0] += dg0 @ wg.T
+    v0 = h[:, 0] + b1
+
+    def chain(gates):
+        """dh [N, I, H] and dg0 [N, lmax, H] from the gates [N, lmax, H]."""
+        g = gates.index_select(1, l_of[1:] - 1)
+        dh = torch.cat([(silu_grad(v0) * dmid[:, 0])[:, None], dmid[:, 1:] * g], dim=1)
+        return dh, gates * (1 - gates) * dgate
+
+    # the weight kernel
+    gates = torch.sigmoid(x[:, 0] @ wg + bg).reshape(N, lmax, H)
+    dh, dg0 = chain(gates)
+    dg0 = dg0.reshape(N, lmax * H)
+    mid = torch.cat([F.silu(v0)[:, None], h[:, 1:] * gates.index_select(1, l_of[1:] - 1)], dim=1)
     pad = -N % K2B_TN
     tiles = lambda a, r: F.pad(a[:, r], (0, 0, 0, 0, 0, pad)).reshape(
         -1, K2B_TN * (r.stop - r.start), a.shape[2])
     dw1 = torch.stack([mm(tiles(x, r).transpose(1, 2), tiles(dh, r)).sum(0) for r in rows])
     dw2 = torch.stack([mm(tiles(mid, r).transpose(1, 2), tiles(dy, r)).sum(0) for r in rows])
-    return dx, dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2, dy[:, 0].sum(0)
+    # the dx kernel
+    dh_x, dg0_x = chain(torch.sigmoid(mm(x[:, 0], wg) + bg).reshape(N, lmax, H))
+    dh_x, dg0_x = dh_x.transpose(0, 1), dg0_x.transpose(0, 1)  # [I, N, H], [lmax, N, H]
+    wgl = wg.reshape(C, lmax, H).transpose(0, 1)  # [lmax, C, H]
+    dx = torch.zeros(I, N, C, dtype=x.dtype, device=x.device)
+    for h0 in range(0, H, K2B_DX_HC):
+        c = slice(h0, h0 + K2B_DX_HC)
+        dx += mm(dh_x[:, :, c], W1[:, :, c].transpose(1, 2))
+        dx[0] += mm(dg0_x[:, :, c], wgl[:, :, c].transpose(1, 2)).sum(0)
+    return (dx.transpose(0, 1), dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2,
+            dy[:, 0].sum(0))
 
 
 def k1b_split(*args, mm=mm_split):
@@ -352,18 +372,31 @@ def test_so2_split_matches_plain_at_default_widths():
 @pytest.mark.parametrize("lmax,N,C,Co", [(6, 37, 16, 16), (4, 29, 16, 16), (6, 37, 8, 8),
                                          (4, 29, 16, 8)])
 def test_k2b_split_matches_plain_backward(lmax, N, C, Co):
-    """dx and the six weight and bias gradients of the gate FFN, with K2b's
-    weight-kernel products (h, dmid, dw1, dw2) in split TF32 over 8-node
-    tiles (N not a multiple of 8), at the widths the kernel takes (C, Co of
-    16 or 8), H 512, against
+    """dx and the six weight and bias gradients of the gate FFN, with both
+    K2b kernels' products in split TF32 (``k2b_split``: the weight kernel's
+    h, dmid, dw1, dw2 over 8-node tiles, N not a multiple of 8; the dx
+    kernel's gates, dx and row 0's gate term over 16-channel hidden chunks),
+    at the widths the kernels take (C, Co of 16 or 8), H 512, against
     ``so3_gate_ffn_bwd_plain`` (float32): within 1e-5 of each output's
     largest magnitude. With one TF32 product in their place, every output
     the products reach is at least 30x further off (db2, the column sum of
     dy's row 0, has no product on its path and agrees in both)."""
+    _check_k2b_split(lmax, N, 512, C, Co, 13 + lmax)
+
+
+@pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 17, 40, 16, 16), (6, 1, 512, 16, 16),
+                                           (4, 17, 40, 8, 16), (6, 1, 40, 16, 8)])
+def test_k2b_split_matches_plain_backward_at_ragged_edges(lmax, N, H, C, Co):
+    """The same holds with H not a multiple of the hidden chunk (40) and N
+    not a multiple of either kernel's node tile (1, 17)."""
+    _check_k2b_split(lmax, N, H, C, Co, 17 + lmax + N)
+
+
+def _check_k2b_split(lmax, N, H, C, Co, seed):
     from singa_tpu_torch.ops.cuda.so3_ffn import so3_gate_ffn_bwd_plain
 
-    L, H = lmax + 1, 512
-    rng = np.random.default_rng(13 + lmax)
+    L = lmax + 1
+    rng = np.random.default_rng(seed)
     f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32))
     args = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
             0.1 * f(lmax * H), 0.1 * f(L, H, Co), lmax, f(N, L * L, Co)]
