@@ -14,9 +14,10 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
   1. device   name and power limit (nvidia-smi), torch and CUDA versions
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
-              and ptxas's report (registers, spills) of K8's, K8b's and
-              K4b's kernels, of K2b's kernels (dx, weight, split) and of the
-              GEMM kernels of K6 and K6b (of the sources this run compiled)
+              and ptxas's report (registers, spills) of K8's, K8b's, K4's
+              (its tensor-core kernel's instances) and K4b's kernels, of
+              K2b's kernels (dx, weight, split) and of the GEMM kernels of
+              K6 and K6b (of the sources this run compiled)
      mma_rate the card's mma.sync TF32 rate (csrc/mma_tf32.cu), the
               ceiling of the tensor-core kernels, a third of it for split
               TF32
@@ -80,7 +81,10 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               in every train_profile* phase whose path runs K2b), K1b's or
               K7b's (``k1b_kernels``: the pair kernel, the plan, the dk/dv
               stage, sum_rows_kernel; where the path runs either), and the
-              SM clock, power and temperature nvidia-smi sampled meanwhile
+              SM clock, power and temperature nvidia-smi sampled meanwhile;
+              train_profile_s2 also K4's two kernels by name
+              (``k4_kernels``: the tensor-core kernel and the split of its
+              weights)
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
               card run at the same inputs as a witness of the card's own
@@ -136,26 +140,30 @@ two calls), ``max_abs_err`` the largest over those calls. K7's times are
 the kernel's alone: the torch.gather calls that feed it are path time, in
 the profiles (main_hybrid's encode_profile, train_profile_hybrid); K7's and
 K7b's bytes count the gathered rows of live slots only. The entries of
-K1b, K7b, K2b, K4b, K6 and K6b also have ``bound_tc_ms``: the larger of
+K1b, K7b, K2b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
+``split_tf32_flops`` (per launch): the larger of
 the operations that run as split TF32 (K1b's and K7b's EdgeMLPs, dh and
 four weight gradients, once per live pair; K2b's five per-degree products
-h, dmid, dx, dw1, dw2 and its gates and row-0 gate term; K4b's four grid
-transforms; K6's
+h, dmid, dx, dw1, dw2 and its gates and row-0 gate term; K4's h, y and
+two grid transforms, but at lmax 6 their last coefficient row; K4b's four
+grid transforms; K6's
 and K6b's conv and weight-gradient products, the GEMM of
 csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
 rest over 67 TFLOP/s, since the two units issue together, or the bytes
-over 3.35 TB/s if that is larger. K1b's, K7b's, K2b's and K4b's also have
-the ptxas report and the residency (blocks per SM, threads, dynamic shared
-memory per block) of their tensor-core kernel (K2b: of its weight kernel,
-and of its dx kernel as ``dx_residency``); K6's and
+over 3.35 TB/s if that is larger. K1b's, K7b's, K2b's, K4's and K4b's also
+have the ptxas report and the residency (blocks per SM, threads, dynamic
+shared memory per block) of their tensor-core kernel (K2b: of its weight
+kernel, and of its dx kernel as ``dx_residency``; K4: at the training
+microbatch's widths, which must take it); K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
 ``gemm_residency``), and train_profile_so2 reports those kernels' device
 time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
 runs in full float32 (K1b's and K7b's EdgeMLP products, K2b's products,
-K4b's grid transforms and K6's and K6b's products run as split
-TF32 inside the kernels, csrc/mma_tf32.cuh, to float32 round-off).
+K4's grid transforms and per-degree products, K4b's grid transforms and
+K6's and K6b's products run as split TF32 inside the kernels,
+csrc/mma_tf32.cuh, to float32 round-off).
 """
 from __future__ import annotations
 
@@ -213,6 +221,9 @@ K2B_KERNELS = ("gate_ffn_bwd_dx_kernel", "gate_ffn_bwd_w_kernel", "gate_ffn_bwd_
 # K1b's and K7b's kernels in a profile (csrc/neighbor_attn_bwd.cu): the
 # tensor-core pair kernel, the plan, the dk/dv stage, the sums' second pass
 K1B_KERNELS = ("list_bwd_pair_kernel", "list_plan_kernel", "list_dkdv_kernel", "sum_rows_kernel")
+# K4's kernels in a profile (csrc/so3_ffn.cu): the tensor-core kernel and the
+# split of its weights, two launches for each K4 call
+K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 
 
@@ -331,8 +342,9 @@ def ptxas_report(log: str) -> dict:
 def mma_rate(sms: int) -> dict:
     """The card's rate of mma.sync.m16n8k8 TF32 (csrc/mma_tf32.cu, chains
     of independent products in registers, no memory traffic), with one and
-    four blocks of 8 warps per SM: the ceiling of K4b's, K6's and K6b's
-    tensor-core work, and a third of it for their split-TF32 products."""
+    four blocks of 8 warps per SM: the ceiling of the tensor-core kernels'
+    work (K4's, K4b's, K6's and K6b's among them), and a third of it for
+    their split-TF32 products."""
     import ctypes
 
     from singa_tpu_torch.ops.cuda import build
@@ -579,6 +591,19 @@ def k4_cost(args, out):
     return nbytes(x, w1, b1, wg, bg, w2, b2, tg, fg, out), flops
 
 
+def k4_split_flops(args) -> float:
+    """The operations of K4 that its tensor-core kernel (the one every call
+    of the s2 path takes) runs as split TF32: h and y, 2·N·I·H·(C + Co), and
+    the two grid transforms, 2·N·2·G·r·H, but at lmax 6 their last row (r =
+    I - 1), which runs in float32 on the CUDA cores; the gates stay
+    float32."""
+    x, w1, _, _, _, w2, _, tg, _, _ = args
+    N, I, C = x.shape
+    H, Co, G = w1.shape[2], w2.shape[2], tg.shape[0]
+    r = I - 1 if I == 49 else I
+    return 2.0 * N * H * (I * (C + Co) + 2 * G * r)
+
+
 def k4b_cost(args, outs):
     x, w1, b1, wg, bg, w2, tg, fg, lmax, dy = args
     N, I, C = x.shape
@@ -754,7 +779,8 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:209",
            k3b_cost, ("dx", "d_scalars")),
     Kernel("so3_ffn_fused", "so3_ffn", "so3_ffn", "launches_s2",
-           "singa_tpu_torch/csrc/so3_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:321", k4_cost, None),
+           "singa_tpu_torch/csrc/so3_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:321", k4_cost, None,
+           k4_split_flops),
     Kernel("so3_ffn_bwd", "so3_ffn", "so3_ffn_bwd", "launches_s2_bwd",
            "singa_tpu_torch/csrc/so3_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:351",
            k4b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"), k4b_split_flops),
@@ -894,6 +920,7 @@ def hold_all(specs, mods, captured, phase, per, path) -> dict:
         }
         if spec.split_flops is not None:
             results[spec.name]["bound_tc_ms"] = mean("bound_tc_ms")
+            results[spec.name]["split_tf32_flops"] = mean("split_tf32_flops")
         if spec.report is not None:  # the CUDA-core instance, timed at the same calls
             results[spec.name]["cuda_cores_ms"] = sum(c * r["cuda_cores"]["ms"]
                                                       for c, r in recs) / n
@@ -1023,6 +1050,13 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(*widths)
             results[K2B.name]["dx_residency"] = mods["so3_ffn"].gate_bwd_residency(*widths,
                                                                                   dx=True)
+        if K4 in specs:  # K4's tensor-core kernel at the microbatch's widths: it takes the call
+            x, w1, _, _, _, w2, _, tg, _, lmax = next(iter(captured["so3_ffn_cuda"].values()))[0]
+            widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
+            instance = mods["so3_ffn"].s2_fwd_instance(*widths)
+            if instance != "tensor_cores":
+                raise AssertionError(f"K4 at {widths} runs {instance}, not the tensor-core kernel")
+            results[K4.name]["residency"] = mods["so3_ffn"].s2_fwd_residency(*widths)
         if K4B in specs:  # K4b's residency at the microbatch's widths
             args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
             x, w1, _, _, _, w2, tg, _, lmax, _ = args
@@ -1076,10 +1110,11 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         # train_profile: one optimizer step
         runs_k2b = per_step.get(K2B.name, 0) > 0
         runs_k1b = per_step.get(K1B.name, 0) + per_step.get(K7B.name, 0) > 0
+        runs_k4 = per_step.get(K4.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b
-                                  + K1B_KERNELS * runs_k1b)
+                                  + K1B_KERNELS * runs_k1b + K4_KERNELS * runs_k4)
         extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
             ms = prof["matched"][SO2_GEMM]["device_ms"]
@@ -1090,6 +1125,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k2b_kernels"] = {n: prof["matched"][n] for n in K2B_KERNELS}
         if runs_k1b:  # K1b's (or K7b's) kernels by name
             extra["k1b_kernels"] = {n: prof["matched"][n] for n in K1B_KERNELS}
+        if runs_k4:  # K4's kernels by name
+            extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
         data.close()
 
@@ -1445,6 +1482,8 @@ def main() -> int:
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     k4b_ptxas = ptxas_report(logs["so3_ffn_bwd"])
+    k4_ptxas = {k: v for k, v in ptxas_report(logs["so3_ffn"]).items()
+                if "ffn_tc_kernel" in k}  # the tensor-core kernel's instances
     k2b_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn_bwd"]).items()
                  if "gate_ffn_bwd_" in k}  # the dx, weight and split kernels
     gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
@@ -1458,7 +1497,8 @@ def main() -> int:
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
-          "k4b_ptxas": k4b_ptxas, "k2b_ptxas": k2b_ptxas, "so2_gemm_ptxas": gemm_ptxas,
+          "k4_ptxas": k4_ptxas, "k4b_ptxas": k4b_ptxas, "k2b_ptxas": k2b_ptxas,
+          "so2_gemm_ptxas": gemm_ptxas,
           "k1b_ptxas": k1b_ptxas})
 
     emit({"phase": "mma_rate",
@@ -1566,6 +1606,7 @@ def main() -> int:
                          {k.name: 12 for k in (K2, K3, K2B, K3B, *path)}, [], FORM_WARMUP,
                          FORM_STEPS)
 
+    results[K4.name]["ptxas"] = k4_ptxas
     results[K4B.name]["ptxas"] = k4b_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form

@@ -42,6 +42,8 @@
 //   frag_b_nk_seq(B, ldb)   B stored [n][k], k in order
 //   frag_b_split(Bhi, Blo, ldb)  B stored [k][n], k in order, from planes
 //                           split beforehand
+//   frag_a_split(f)         A kept split in lane order (store_a_split
+//                           writes it): no split at the load
 //   store_c(C, ldc, c)      C stored [m][n], two 8-byte stores
 //   frag_a_from_c(c)        the C of one m16n8 product as the A of the next,
 //                           whose k is that product's n, k paired (pairs
@@ -161,6 +163,29 @@ __device__ __forceinline__ FragB frag_b_split(const uint32_t* hi, const uint32_t
   f.lo[0] = lo[t * ldb + g];
   f.lo[1] = lo[(t + 4) * ldb + g];
   return f;
+}
+
+// An A fragment kept split in shared or device memory, in lane order: 32
+// lanes of uint4 hi (a0..a3), then 32 lanes of uint4 lo; kSplitFragWords
+// words, 16-byte aligned. Each load is two conflict-free 16-byte reads.
+constexpr int kSplitFragWords = 2 * 32 * 4;
+
+__device__ __forceinline__ FragA frag_a_split(const uint32_t* f) {
+  const uint4 hi = reinterpret_cast<const uint4*>(f)[threadIdx.x & 31];
+  const uint4 lo = reinterpret_cast<const uint4*>(f)[32 + (threadIdx.x & 31)];
+  return FragA{{hi.x, hi.y, hi.z, hi.w}, {lo.x, lo.y, lo.z, lo.w}};
+}
+
+// a0..a3 of lane `lane`, split, into a fragment of that layout
+__device__ __forceinline__ void store_a_split(uint32_t* f, int lane, float a0, float a1, float a2,
+                                              float a3) {
+  uint4 hi, lo;
+  split(a0, hi.x, lo.x);
+  split(a1, hi.y, lo.y);
+  split(a2, hi.z, lo.z);
+  split(a3, hi.w, lo.w);
+  reinterpret_cast<uint4*>(f)[lane] = hi;
+  reinterpret_cast<uint4*>(f)[32 + lane] = lo;
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {

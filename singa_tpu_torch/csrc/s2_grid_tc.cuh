@@ -1,7 +1,11 @@
-// The sphere-grid chain of K4b (csrc/so3_ffn_bwd.cu) on the tensor cores:
-// the function of s2_grid.cuh's grid_chain<NCOL, true, true, true> (which
-// K4, K5 and K5b keep), with its four products as split-TF32 mma.sync
-// (csrc/mma_tf32.cuh) accumulated in float32.
+// The sphere-grid chains on the tensor cores, both built on split-TF32
+// mma.sync (csrc/mma_tf32.cuh) accumulated in float32: grid_chain_tc, K4b's
+// (csrc/so3_ffn_bwd.cu), and grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu; at
+// the end of this file). s2_grid.cuh keeps the CUDA-core chain of K5, K5b
+// and K4's CUDA-core instance.
+//
+// grid_chain_tc: the function of s2_grid.cuh's grid_chain<NCOL, true,
+// true, true>, with its four products as split TF32.
 //
 // For a tile of NCOL = 64 columns of X (the hidden h) and Y (its cotangent
 // dmid), per chunk of kGC = 32 grid points, three steps between barriers:
@@ -243,6 +247,156 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
       float2 val = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
       if (fp == 0 && i == 0) val = make_float2(row0F[c], row0F[c + 1]);
       *reinterpret_cast<float2*>(out + i * xs + c) = val;
+    }
+  }
+}
+
+// grid_chain_tc_fwd: K4's chain, mid = fg^T silu(tg X), for one warp's
+// columns (kCT tiles of 16), with no barrier and no shared-memory round trip
+// of the activated grid.
+//
+// The to-grid product is formed transposed, v^T = X^T tg^T (M = 16 columns
+// a tile, N = 8 grid points, K = I in steps of 8, k paired). Its C
+// fragment holds, in each lane, v at columns grp and grp + 8 of the tile
+// and grid points 2 tig and 2 tig + 1 of the step: exactly the lane's B
+// fragments (k = grid point, paired; n = column) of the from-grid product
+// mid += fg^T silu(v) over the step's 8 grid points for the tile's two n8
+// column tiles. So silu and the split run on the accumulators in
+// registers and feed the from-grid mma at once. A warp walks its grid
+// steps s0 .. s1 - 1 (8 points each), kSteps at a time, with the
+// from-grid sums of its columns for every output row in registers (MT m16
+// tiles x 2 kCT n8 tiles); the caller adds the sums of warps that took
+// other steps of the same columns. Each split fragment feeds several mma:
+// X's (k step, tile) the to-grid products of kSteps steps, tg's (step, k
+// step) those of kCT tiles, fg's (step, m16 tile) the from-grid products
+// of 2 kCT n8 tiles.
+//
+// Operands: X^T comes already split, in fragment order (xfrag: for k step
+// ks and 16-column group cg, one fragment of frag_a_split's layout holding
+// the lane's a0..a3 of frag_a_paired's, the groups of k step ks after those
+// of ks - 1), written once per hidden chunk by the caller; tg [g][st] is
+// read as B (frag_b_nk's 8-byte load, split as it loads; st % 32 of 8 or
+// 24), fg [g][sf] as A transposed with k paired (four 4-byte loads a tile,
+// split as they load; sf % 16 of 4 or 12: both conflict-free). Grid points
+// past G are zero rows of tg and fg and add nothing.
+//
+// I0 = 49 (lmax 6): the last row r = 48 alone would fill a k step of the
+// to-grid product and an m16 tile of the from-grid one, so it runs in
+// float32 on the CUDA cores, as in grid_chain_tc: a rank-one update of v
+// from X's row r (xtail, float32, unsplit), and the lane's share of output
+// row r from the split activations (hi + lo) in tail[j] (column grp of n8
+// tile j), which the caller sums over the four lanes of a column. I0 = 0:
+// any I <= 48, every row through mma (rows I .. 8 KS - 1 of xfrag zero,
+// columns I .. 16 MT - 1 of fg zero).
+constexpr int kFwdMaxKS = 6;                // k steps of the to-grid product
+constexpr int kFwdMaxMT = 3;                // m16 tiles of the from-grid output
+
+// silu by the fast intrinsics, as silu_and_grad
+__device__ __forceinline__ float silu_fast(float v) {
+  return v * __fdividef(1.f, 1.f + __expf(-v));
+}
+
+template <int I0, int kSteps, int kCT>
+__device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, const float* sfg,
+                                                  int sf, const uint32_t* xfrag,
+                                                  const float* xtail, int I, int groups, int cg,
+                                                  int s0, int s1,
+                                                  float (&acc)[kFwdMaxMT][2 * kCT][4],
+                                                  float (&tail)[2 * kCT]) {
+  constexpr bool kTail = I0 == 49;
+  constexpr int kTailRow = I0 - 1;
+  static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0 (I <= 48)");
+  const int KS = kTail ? kTailRow / 8 : (I + 7) / 8;
+  const int MT = kTail ? kTailRow / 16 : (I + 15) / 16;
+  const int grp = tc::lane_grp(), tig = tc::lane_tig();
+  // the fragment of (k step ks, the warp's column group c) at + ks kstep + c
+  const uint32_t* xf = xfrag + kCT * cg * tc::kSplitFragWords;
+  const int kstep = groups * tc::kSplitFragWords;
+  const float* xt = xtail + 16 * kCT * cg + grp;  // X's tail row, column grp of n8 tile j: xt[8 j]
+#pragma unroll
+  for (int mt = 0; mt < kFwdMaxMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2 * kCT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * kCT; ++j) tail[j] = 0.f;
+
+  for (int s = s0; s < s1; s += kSteps) {
+    // steps s .. s + kSteps - 1: grid points g0 + 8 u .. + 7 of step u
+    const int g0 = 8 * s;
+    float v[kSteps][kCT][4];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u)
+#pragma unroll
+      for (int c = 0; c < kCT; ++c)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[u][c][q] = 0.f;
+    const float* tb = stg + (g0 + grp) * st + 2 * tig;
+#pragma unroll
+    for (int ks = 0; ks < kFwdMaxKS; ++ks) {
+      if (kTail || ks < KS) {
+        tc::FragA a[kCT];
+#pragma unroll
+        for (int c = 0; c < kCT; ++c)
+          a[c] = tc::frag_a_split(xf + ks * kstep + c * tc::kSplitFragWords);
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          const float2 t = *reinterpret_cast<const float2*>(tb + 8 * u * st + 8 * ks);
+          tc::FragB b;
+          tc::split(t.x, b.hi[0], b.lo[0]);
+          tc::split(t.y, b.hi[1], b.lo[1]);
+#pragma unroll
+          for (int c = 0; c < kCT; ++c) tc::mma3(v[u][c], a[c], b);
+        }
+      }
+    }
+    // step by step (so that one step's activations are live at a time):
+    // silu, split: the from-grid B of n8 tile 2 c (column grp of tile c)
+    // from v[u][c][0], v[u][c][1], of tile 2 c + 1 (column grp + 8) from
+    // v[u][c][2], v[u][c][3]; then the from-grid products, A = fg^T (m =
+    // row i, k = grid point, paired)
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int gu = g0 + 8 * u + 2 * tig;  // the lane's grid points gu, gu + 1
+      if (kTail) {  // + the tail row's rank-one term, float32
+        const float t0 = stg[gu * st + kTailRow], t1 = stg[(gu + 1) * st + kTailRow];
+#pragma unroll
+        for (int c = 0; c < kCT; ++c) {
+          const float x0 = xt[16 * c], x1 = xt[16 * c + 8];  // read here: no registers held
+          v[u][c][0] = fmaf(x0, t0, v[u][c][0]);
+          v[u][c][1] = fmaf(x0, t1, v[u][c][1]);
+          v[u][c][2] = fmaf(x1, t0, v[u][c][2]);
+          v[u][c][3] = fmaf(x1, t1, v[u][c][3]);
+        }
+      }
+      tc::FragB b[2 * kCT];
+#pragma unroll
+      for (int j = 0; j < 2 * kCT; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          tc::split(silu_fast(v[u][j >> 1][2 * (j & 1) + p]), b[j].hi[p], b[j].lo[p]);
+      if (kTail) {  // the tail row's share, float32, from the split activations
+        const float f0 = sfg[gu * sf + kTailRow], f1 = sfg[(gu + 1) * sf + kTailRow];
+#pragma unroll
+        for (int j = 0; j < 2 * kCT; ++j) {
+          tail[j] = fmaf(f0, __uint_as_float(b[j].hi[0]) + __uint_as_float(b[j].lo[0]), tail[j]);
+          tail[j] = fmaf(f1, __uint_as_float(b[j].hi[1]) + __uint_as_float(b[j].lo[1]), tail[j]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kFwdMaxMT; ++mt) {
+        if (kTail || mt < MT) {
+          const float* p = sfg + gu * sf + 16 * mt + grp;
+          tc::FragA a;
+          tc::split(p[0], a.hi[0], a.lo[0]);        // row grp,     point 2 tig
+          tc::split(p[8], a.hi[1], a.lo[1]);        // row grp + 8, point 2 tig
+          tc::split(p[sf], a.hi[2], a.lo[2]);       // row grp,     point 2 tig + 1
+          tc::split(p[sf + 8], a.hi[3], a.lo[3]);   // row grp + 8, point 2 tig + 1
+#pragma unroll
+          for (int j = 0; j < 2 * kCT; ++j) tc::mma3(acc[mt][j], a, b[j]);
+        }
+      }
     }
   }
 }

@@ -20,12 +20,15 @@ hidden channel, row 0 replaced by ``gate``; per-degree linear H -> Co, ``b2``
 on row 0. K4b replaces ``_bwd`` (``_ffn_bwd_kernel``): dx and the six weight
 and bias gradients; ``b1`` reaches every output row through the grid. The
 CUDA kernels (``csrc/so3_ffn.cu``, ``csrc/so3_ffn_bwd.cu``) keep the hidden
-and the ``[N, G, H]`` grid out of device memory; K4b forms its four grid
-transforms on the tensor cores as split-TF32 products
-(``csrc/mma_tf32.cuh``), which agree with float32 products to float32
-round-off. The TPU kernel's L-padded coefficient layout, 128-wide hidden
-chunks, node padding, transposed weight copies and tanh-form sigmoid exist
-for Mosaic and are not carried over.
+and the ``[N, G, H]`` grid out of device memory. K4 forms its two grid
+transforms and both per-degree products, and K4b its four grid transforms,
+on the tensor cores as split-TF32 products (``csrc/mma_tf32.cuh``), which
+agree with float32 products to float32 round-off; K4's tensor-core kernel
+takes lmax <= 6 and C, Co <= 16, and every other shape it took before runs
+its CUDA-core instance (``s2_fwd_instance`` says which). The TPU kernel's
+L-padded coefficient layout, 128-wide hidden chunks, node padding,
+transposed weight copies and tanh-form sigmoid exist for Mosaic and are not
+carried over.
 
 ``so3_gate_ffn`` and ``so3_ffn`` each go through one
 ``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
@@ -236,11 +239,15 @@ def so3_ffn_bwd_plain(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
         return torch.autograd.grad(y, (*leaves, b2), dy)
 
 
-def _s2_fn():
-    fn = build.load("so3_ffn").so3_ffn_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _s2_fns():
+    lib = build.load("so3_ffn")
+    words = lib.so3_ffn_words
+    words.argtypes = [ctypes.c_int] * 5
+    words.restype = ctypes.c_longlong
+    fn = lib.so3_ffn_f32
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return words, fn
 
 
 def _s2_bwd_fns():
@@ -252,6 +259,27 @@ def _s2_bwd_fns():
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return blocks, fn
+
+
+def s2_fwd_instance(lmax: int, C: int, H: int, Co: int, G: int) -> str | None:
+    """Which of K4's kernels runs these widths (any N): "tensor_cores",
+    "cuda_cores", or None for a shape neither takes. Launches nothing."""
+    fn = build.load("so3_ffn").so3_ffn_instance
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(lmax, C, H, Co, G))
+
+
+def s2_fwd_residency(lmax: int, C: int, H: int, Co: int, G: int) -> dict:
+    """K4's tensor-core kernel at these widths: resident blocks per SM (-1:
+    a shape it does not take), threads and dynamic shared memory per block.
+    For reports; launches nothing."""
+    fn = build.load("so3_ffn").so3_ffn_residency
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(lmax, C, H, Co, G, ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
 def s2_bwd_residency(lmax: int, C: int, H: int, Co: int, G: int) -> dict:
@@ -296,10 +324,15 @@ def so3_ffn_cuda(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> to
     out = torch.empty((N, L * L, Co), dtype=x.dtype, device=x.device)
     if N == 0:
         return out
-    status = _s2_fn()(
+    words_fn, fn = _s2_fns()
+    # the tensor-core kernel's weights, split into TF32 fragments once a call
+    # (none for the CUDA-core instance; -1: a shape no kernel takes, which
+    # the launch refuses)
+    wfrag = torch.empty(max(words_fn(lmax, C, H, Co, G), 4), dtype=torch.int32, device=x.device)
+    status = fn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(), out.data_ptr(),
-        N, lmax, C, H, Co, G, build.stream_ptr(x),
+        wfrag.data_ptr(), N, lmax, C, H, Co, G, build.stream_ptr(x),
     )
     build.check(status, "so3_ffn")
     launches_s2 += 1

@@ -9,10 +9,11 @@ there ``tests/conftest.py`` (which imports JAX) is left out:
 
 Inputs are made with numpy from fixed seeds, at the main path's widths and
 at ragged sizes that exercise each kernel's edge handling. Everything runs
-in float32 with TF32 off (K4b forms its grid transforms, and K6 and K6b
-their conv and weight-gradient products, as split TF32, to float32
-round-off); the kernel and the plain version add the same
-products in a different order, so they agree to atol/rtol 1e-4 on outputs
+in float32 with TF32 off (K4 forms its grid transforms and per-degree
+products, K4b its grid transforms, and K6 and K6b their conv and
+weight-gradient products, as split TF32, to float32 round-off); the kernel
+and the plain version add the same products in a different order, so they
+agree to atol/rtol 1e-4 on outputs
 of order 1-100. Backward outputs that are sums over many nodes (weight
 gradients, the dk/dv scatter) are held to 1e-4 of their largest magnitude:
 float32 sums of thousands of terms taken in another order.
@@ -429,15 +430,20 @@ def _s2_ffn_case(dev, lmax, N, H, C, Co, seed):
 
 
 S2_FFN_CASES = [(6, 37, 512, 16, 16), (6, 1000, 512, 16, 16), (3, 13, 40, 16, 16),
-                (2, 5, 24, 8, 4)]
+                (2, 5, 24, 8, 4), (6, 1, 512, 16, 16), (6, 14336, 512, 16, 16)]
+# K4's shapes that its CUDA-core instance runs (lmax 7, C or Co above 16);
+# K4b refuses lmax 7 (shared memory), so these are forward cases only
+S2_FFN_CC_CASES = [(7, 9, 40, 8, 8), (3, 13, 40, 24, 20)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lmax,N,H,C,Co", S2_FFN_CASES)
+@pytest.mark.parametrize("lmax,N,H,C,Co", S2_FFN_CASES + S2_FFN_CC_CASES)
 def test_so3_ffn_kernel_matches_plain(dev, lmax, N, H, C, Co):
-    """K4 at lmax 6 (the main path's widths, G 210), 3 and 2; N not a
-    multiple of the node tile, H not always a multiple of the hidden chunk;
-    non-zero biases."""
+    """K4 at lmax 6 (the main path's widths, G 210; N from 1 to a training
+    microbatch's 14,336), 3 and 2 on the tensor-core kernel, and at lmax 7
+    and 24 / 20 channels on the CUDA-core instance; N not a multiple of the
+    node tile, H not always a multiple of the hidden chunk; non-zero
+    biases."""
     from singa_tpu_torch.ops.cuda import so3_ffn as k4
 
     args, _ = _s2_ffn_case(dev, lmax, N, H, C, Co, 71 + N)
@@ -445,6 +451,75 @@ def test_so3_ffn_kernel_matches_plain(dev, lmax, N, H, C, Co):
     got = k4.so3_ffn(*args, lmax)
     assert k4.launches_s2 == n + 1
     _check(got, k4.so3_ffn_plain(*args, lmax))
+
+
+@pytest.mark.cuda
+def test_so3_ffn_instance_by_shape(dev):
+    """K4's tensor-core kernel takes lmax <= 6 with C and Co up to 16 (the
+    model's widths among them), one block of 8 warps an SM at lmax 6; the
+    CUDA-core instance takes the other shapes it took before (lmax 7, C or
+    Co above 16); lmax 8 neither."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    G = {2: 42, 3: 72, 6: 210, 7: 272, 8: 342}
+    takes = {(6, 16, 512, 16): "tensor_cores", (6, 8, 40, 4): "tensor_cores",
+             (2, 1, 24, 4): "tensor_cores", (3, 16, 40, 16): "tensor_cores",
+             (7, 8, 40, 8): "cuda_cores", (3, 24, 40, 20): "cuda_cores",
+             (6, 16, 512, 20): "cuda_cores", (8, 4, 8, 4): None}
+    got = {w: k4.s2_fwd_instance(w[0], w[1], w[2], w[3], G[w[0]]) for w in takes}
+    assert got == takes
+    res = k4.s2_fwd_residency(6, 16, 512, 16, 210)
+    assert res["blocks_per_sm"] == 1 and res["threads"] == 256, res
+    assert k4.s2_fwd_residency(7, 8, 40, 8, 272)["blocks_per_sm"] == -1
+
+
+@pytest.mark.cuda
+def test_so3_ffn_kernel_keeps_relative_precision(dev):
+    """K4 with node n's x scaled by 10^(-3 .. 3) across 256 nodes: y of
+    every node within 1e-4 of that node's own largest magnitude (rtol 1e-4):
+    the split keeps float32's relative precision at every scale, which a
+    bound on the largest output alone would not see."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    N = 256
+    args, _ = _s2_ffn_case(dev, 6, N, 512, 16, 16, 77)
+    args[0] = args[0] * torch.logspace(-3, 3, N, device=dev)[:, None, None]
+    n = k4.launches_s2
+    got = k4.so3_ffn_cuda(*args, 6)
+    assert k4.launches_s2 == n + 1
+    want = k4.so3_ffn_plain(*args, 6)
+    node_scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    err = (got - want).abs() / (1e-4 * node_scale + 1e-4 * want.abs())
+    assert err.max().item() <= 1.0, err.amax(dim=(1, 2))
+
+
+@pytest.mark.cuda
+def test_so3_ffn_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K4 meets (atol and rtol 1e-4, as chip_smoke.py
+    holds it) tells split TF32 from one TF32 product at the s2 training
+    microbatch's widths (N 14,336, lmax 6, H 512, C = Co = 16): the kernel
+    and the split rendering of its arithmetic
+    (test_torch_tf32_split.k4_split) pass it against so3_ffn_plain; the
+    same rendering with one TF32 product in place of each split one fails
+    it."""
+    from test_torch_tf32_split import k4_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    args, _ = _s2_ffn_case(dev, 6, 14336, 512, 16, 16, 81)
+    n = k4.launches_s2
+    got = k4.so3_ffn_cuda(*args, 6)
+    assert k4.launches_s2 == n + 1
+    want = k4.so3_ffn_plain(*args, 6)
+    ratio = lambda a: ((a - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    ratios = {"kernel": ratio(got)}
+    del got
+    ratios["split"] = ratio(k4_split(*args, 6))
+    ratios["one_tf32"] = ratio(k4_split(*args, 6, mm=mm_tf32))
+    print(json.dumps({"hold_ratios": ratios}))
+    assert ratios["kernel"] <= 1.0, ratios
+    assert ratios["split"] <= 1.0, ratios
+    assert ratios["one_tf32"] > 1.0, ratios
 
 
 @pytest.mark.cuda

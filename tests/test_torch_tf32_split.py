@@ -1,5 +1,5 @@
-"""Split TF32, the arithmetic of K4b's grid transforms and of K6's and
-K6b's conv and weight-gradient products on the tensor cores
+"""Split TF32, the arithmetic of K4's and K4b's grid transforms and of K6's
+and K6b's conv and weight-gradient products on the tensor cores
 (``singa_tpu_torch/csrc/mma_tf32.cuh``, ``csrc/s2_grid_tc.cuh``,
 ``csrc/so2_chain.cuh``), rendered in plain PyTorch on the CPU.
 
@@ -26,7 +26,11 @@ backward with its weight kernel's four per-degree products split as the
 kernel takes them (``k2b_split``: rows at depth 16 for h and dmid, 8-node
 tiles summed from zero over a degree's rows for dw1 and dw2) is within
 1e-5 of each output's largest magnitude of ``so3_gate_ffn_bwd_plain`` at
-lmax 6 and 4, H 512, C and Co of 16 or 8.
+lmax 6 and 4, H 512, C and Co of 16 or 8. K4's forward with every product
+its tensor-core kernel splits (``k4_split``: h, the two grid transforms in
+the grid's two halves, y per 16-channel chunk) is within 1e-5 of its
+largest output of ``so3_ffn_plain``; with one TF32 product each it fails
+the 1e-4 hold the kernel meets.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ KGC = 32  # grid points per chunk of the kernel's chain
 NCOL = 64  # columns per tile: 4 nodes x 16 hidden channels
 K2B_TN = 8  # nodes per tile of K2b's weight kernel
 K2B_DX_HC = 16  # hidden channels per chunk of K2b's dx kernel
+K4_HC = 16  # hidden channels per chunk of K4's tensor-core kernel
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -140,6 +145,51 @@ def k4b_split(x, w1, b1, wg, bg, w2, tg, fg, lmax, dy, mm=mm_split):
     dw1 = torch.stack([torch.einsum("nic,nih->ch", x[:, r], dh[:, r]) for r in rows])
     dw2 = torch.stack([torch.einsum("nih,nio->ho", mid[:, r], dy[:, r]) for r in rows])
     return dx, dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2, dy[:, 0].sum(0)
+
+
+def k4_split(x, w1, b1, wg, bg, w2, b2, tg, fg, lmax, mm=mm_split):
+    """K4's forward (``so3_ffn_plain``'s arguments and output) as its
+    tensor-core kernel takes it, with every product it splits through
+    ``mm`` (split TF32 by default; ``mm_tf32`` for one TF32 product): h =
+    x_i w1[l] row by row at depth C; the two grid transforms over the
+    columns (node, hidden channel), which the products keep apart, so the
+    kernel's 128-column tiles change nothing; the grid (zero-padded to a
+    multiple of 16 points) in the two halves that the two warps of a column
+    group take, each half's to-grid and from-grid product on its own and the
+    halves' sums added in float32; at lmax 6 (I = 49) row 48 in float32 in
+    both transforms, the to-grid one from h's row in float32 and the
+    from-grid one from the split activations (hi + lo); then y_i +=
+    mid_i w2[l] per chunk of K4_HC hidden channels, each chunk's product
+    from zero, added in float32. The gates (row 0 of mid, exactly) and the
+    biases in plain float32. Runs on the tensors' device."""
+    from singa_tpu_torch.ops.cuda.so3_ffn import _l_of
+
+    N, I, _ = x.shape
+    H = w1.shape[2]
+    l_of = _l_of(lmax, x.device)
+    W1, W2 = w1.index_select(0, l_of), w2.index_select(0, l_of)
+    gate = F.silu(x[:, 0] @ wg + bg)
+    h = torch.stack([mm(x[:, i], W1[i]) for i in range(I)])  # [I, N, H]
+    h[0] += b1
+    cols = h.reshape(I, N * H)
+    G = tg.shape[0]
+    Gp = -(-G // 16) * 16
+    r = I - 1 if I == 49 else I  # rows through the split products
+    tgp, fgp = (F.pad(m, (0, 0, 0, Gp - G)) for m in (tg, fg))
+    mid = torch.zeros_like(cols)
+    for g in (slice(0, Gp // 2), slice(Gp // 2, Gp)):
+        t, f = tgp[g], fgp[g]
+        v = mm(t[:, :r], cols[:r]) + t[:, r:] @ cols[r:]
+        act = sum(split(F.silu(v)))
+        mid += torch.cat([mm(f[:, :r].T, act), f[:, r:].T @ act])
+    mid = mid.reshape(I, N, H)
+    mid[0] = gate
+    y = torch.zeros(I, N, w2.shape[2], dtype=x.dtype, device=x.device)
+    for h0 in range(0, H, K4_HC):
+        c = slice(h0, h0 + K4_HC)
+        y += torch.stack([mm(mid[i][:, c], W2[i][c]) for i in range(I)])
+    y[0] += b2
+    return y.transpose(0, 1)
 
 
 def k2b_split(x, w1, b1, wg, bg, w2, lmax, dy, mm=mm_split):
@@ -367,6 +417,33 @@ def test_so2_split_matches_plain_at_default_widths():
     assert one["db2"] == split["db2"] == 0.0, (one["db2"], split["db2"])
     for name in SO2_OUTS + SO2_GRADS[:-1]:
         assert one[name] >= 30 * split[name], (name, one[name], split[name])
+
+
+@pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 13, 512, 16, 16), (2, 13, 48, 8, 4)])
+def test_k4_split_matches_plain_forward(lmax, N, H, C, Co):
+    """K4's output with every product its tensor-core kernel splits rendered
+    in split TF32 (``k4_split``: h and y at depth C and 16 hidden channels a
+    chunk, the grid transforms in the two halves of the grid, row 48 in
+    float32 at lmax 6), N not a multiple of the 8-node tile, non-zero
+    biases: within 1e-5 of the output's largest magnitude of
+    ``so3_ffn_plain`` (float32). The same rendering with one TF32 product in
+    place of each split one fails the 1e-4 hold (atol and rtol 1e-4) that
+    ``chip_smoke.py`` holds the kernel to."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+    from singa_tpu_torch.ops.cuda.so3_ffn import so3_ffn_plain
+
+    L = lmax + 1
+    rng = np.random.default_rng(19 + lmax)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32))
+    tg, fg = (torch.as_tensor(m) for m in _grid_mats_for(lmax, lmax, False))
+    args = [f(N, L * L, C), 0.2 * f(L, C, H), 0.1 * f(H), 0.2 * f(C, H), 0.1 * f(H),
+            0.1 * f(L, H, Co), 0.1 * f(Co), tg, fg, lmax]
+    want = so3_ffn_plain(*args)
+    split_err = rel_errs([k4_split(*args)], [want], ["y"])["y"]
+    one = k4_split(*args, mm=mm_tf32)
+    hold_ratio = ((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    assert split_err <= 1e-5, split_err
+    assert hold_ratio > 1.0, hold_ratio
 
 
 @pytest.mark.parametrize("lmax,N,C,Co", [(6, 37, 16, 16), (4, 29, 16, 16), (6, 37, 8, 8),
