@@ -14,7 +14,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
   1. device   name and power limit (nvidia-smi), torch and CUDA versions
   2. build    every kernel of ``singa_tpu_torch/csrc`` built from source
               (one nvcc per source, all started together), with the seconds
-              and ptxas's report (registers, spills) of K8's, K8b's, K4's
+              and ptxas's report (registers, spills) of K1's and K7's
+              (``k1_ptxas``: the tile kernel and the CUDA-core instance),
+              K1b's and K7b's, K8's, K8b's, K4's
               (its tensor-core kernel's instances) and K4b's kernels, of
               K2b's kernels (dx, weight, split) and of the GEMM kernels of
               K6 and K6b (of the sources this run compiled)
@@ -57,14 +59,18 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               (by shapes) that one training microbatch (32 complexes of
               data/corpus/train, default Config in float32) makes of each
               kernel, its inputs and cotangents against the plain version on
-              the card, with kernel_ms / plain_ms / bound_ms; K1b's (and, in
-              the hybrid phases, K7b's) lines also say what the pair kernel
+              the card, with kernel_ms / plain_ms / bound_ms; K1's and K1b's
+              (and, in the hybrid phases, K7's and K7b's) lines also say what
+              the tensor-core kernel walked (K1/K7: rows taken live,
+              dead-weighted rows, rows taken again whole, slots evaluated,
+              and the bound over the live pairs alone), and the pair kernel
               walked, as it counts it (``walks``: rows skipped for a zero
               cotangent, rows taken with their live slots, rows taken
               whole, slots evaluated, beside the inputs' live slots and
               B*N*K), and hold the CUDA-core instance of the same
               algorithm (the one other widths run) at the same call
-              (``cuda_cores``: its time and errors)
+              (``cuda_cores``: its time and errors; K1/K7's is
+              attn_fwd_kernel, every slot evaluated)
   9. train    the port's Trainer (default Config, float32) on
               data/corpus/train through the Prefetcher, batch 64 in 2
               microbatches of 32: warm-up steps, then timed steps (step_ms,
@@ -80,7 +86,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               other backwards' sums also run;
               in every train_profile* phase whose path runs K2b), K1b's or
               K7b's (``k1b_kernels``: the pair kernel, the plan, the dk/dv
-              stage, sum_rows_kernel; where the path runs either), and the
+              stage, sum_rows_kernel; where the path runs either), K1's or
+              K7's (``k1_kernels``: the tile kernel, the plan and the copy
+              kernel), and the
               SM clock, power and temperature nvidia-smi sampled meanwhile;
               train_profile_s2 also K4's two kernels by name
               (``k4_kernels``: the tensor-core kernel and the split of its
@@ -138,11 +146,17 @@ microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
 call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
 the kernel's alone: the torch.gather calls that feed it are path time, in
-the profiles (main_hybrid's encode_profile, train_profile_hybrid); K7's and
-K7b's bytes count the gathered rows of live slots only. The entries of
-K1b, K7b, K2b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
+the profiles (main_hybrid's encode_profile, train_profile_hybrid); K7b's
+bytes count the gathered rows of live slots only, K7's those and the v rows
+of its dead-weighted rows' slots. K1's and K7's operations are those of
+the live slots and of the dead-weighted rows' slots (the v-EdgeMLP, smear
+and aggregate; a row that copies the row before's inputs costs none);
+``bound_live_only_ms`` beside them counts the live pairs alone. The entries of
+K1, K7, K1b, K7b, K2b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
 ``split_tf32_flops`` (per launch): the larger of
-the operations that run as split TF32 (K1b's and K7b's EdgeMLPs, dh and
+the operations that run as split TF32 (K1's and K7's EdgeMLPs on live
+slots and their v-EdgeMLP on the dead-weighted rows' slots; K1b's and
+K7b's EdgeMLPs, dh and
 four weight gradients, once per live pair; K2b's five per-degree products
 h, dmid, dx, dw1, dw2 and its gates and row-0 gate term; K4's h, y and
 two grid transforms, but at lmax 6 their last coefficient row; K4b's four
@@ -150,9 +164,9 @@ grid transforms; K6's
 and K6b's conv and weight-gradient products, the GEMM of
 csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
 rest over 67 TFLOP/s, since the two units issue together, or the bytes
-over 3.35 TB/s if that is larger. K1b's, K7b's, K2b's, K4's and K4b's also
-have the ptxas report and the residency (blocks per SM, threads, dynamic
-shared memory per block) of their tensor-core kernel (K2b: of its weight
+over 3.35 TB/s if that is larger. K1's, K7's, K1b's, K7b's, K2b's, K4's
+and K4b's also have the ptxas report and the residency (blocks per SM,
+threads, dynamic shared memory per block) of their tensor-core kernel (K2b: of its weight
 kernel, and of its dx kernel as ``dx_residency``; K4: at the training
 microbatch's widths, which must take it); K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
@@ -161,8 +175,9 @@ time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
 runs in full float32 (K1b's and K7b's EdgeMLP products, K2b's products,
-K4's grid transforms and per-degree products, K4b's grid transforms and
-K6's and K6b's products run as split TF32 inside the kernels,
+K4's grid transforms and per-degree products, K4b's grid transforms,
+K1's and K7's EdgeMLPs and K6's and K6b's products run as split TF32
+inside the kernels,
 csrc/mma_tf32.cuh, to float32 round-off).
 """
 from __future__ import annotations
@@ -221,6 +236,9 @@ K2B_KERNELS = ("gate_ffn_bwd_dx_kernel", "gate_ffn_bwd_w_kernel", "gate_ffn_bwd_
 # K1b's and K7b's kernels in a profile (csrc/neighbor_attn_bwd.cu): the
 # tensor-core pair kernel, the plan, the dk/dv stage, the sums' second pass
 K1B_KERNELS = ("list_bwd_pair_kernel", "list_plan_kernel", "list_dkdv_kernel", "sum_rows_kernel")
+# K1's and K7's kernels in a profile (csrc/neighbor_attn.cu): the tensor-core
+# tile kernel, the plan and the copies of dead-weighted rows
+K1_KERNELS = ("list_fwd_tile_kernel", "list_fwd_plan_kernel", "list_fwd_copy_kernel")
 # K4's kernels in a profile (csrc/so3_ffn.cu): the tensor-core kernel and the
 # split of its weights, two launches for each K4 call
 K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
@@ -444,15 +462,63 @@ def pair_flops(H: int, kd: int, vd: int, De: int) -> tuple[float, float]:
     return forward, backward
 
 
-def k1_cost(args, out):
-    (qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
-     wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff) = args
+def dead_weighted_rows(nbr_mask, ds) -> torch.Tensor:
+    """[B, N] the rows K1 and K7 take dead-weighted: no live slot, and
+    exp(-1e9 - max(ds, -1e9)) != 0 in float32 in some head (the padded
+    rows). Each takes its K slots on the v-EdgeMLP alone."""
+    weighs = (torch.exp(-1e9 - torch.clamp(ds, min=-1e9)) != 0).any(-1)
+    return ~nbr_mask.any(-1) & weighs
+
+
+def copy_rows(args) -> torch.Tensor:
+    """[B, N] the dead-weighted rows that K1 and K7 take as copies of the
+    row before them: that row is dead-weighted too, in the same graph, and
+    reads the same distances and rows of v (the same nbr; K7: the same
+    gathered v rows), bit for bit. The corpus's padded nodes all sit at the
+    origin, so every padded row of a graph but the first is one."""
+    nbr_mask, dist, ds = args[-14], args[-13], args[-12]
+    dead = dead_weighted_rows(nbr_mask, ds)
+    rows = args[2] if args[1].dim() == 4 else args[3]  # K7's v_nb, or nbr
+    bits = lambda t: t.contiguous().view(torch.int32)
+    same = (bits(dist)[:, 1:] == bits(dist)[:, :-1]).all(-1)
+    same &= (bits(rows)[:, 1:] == bits(rows)[:, :-1]).flatten(2).all(-1)
+    out = torch.zeros_like(dead)
+    out[:, 1:] = dead[:, 1:] & dead[:, :-1] & same
+    return out
+
+
+def list_fwd_work(args) -> tuple[float, float, float]:
+    """What K1's (and K7's) data needs: (operations, those of them that run
+    as split TF32, the slots of the dead-weighted rows). A live slot costs
+    ``pair_flops``' forward, its two EdgeMLPs split; a dead-weighted row's
+    slot the v-EdgeMLP (split), the smear and the aggregate, 2 (De vd + vd
+    vd) + 2 H vd + 4 De, but a copy's (``copy_rows``) nothing: its sums are
+    the row before's. A live row's dead slots weigh exp(-1e9 - m) = 0
+    exactly and cost nothing (rows whose live scores sit near -1e9, taken
+    again whole, are not counted: the function does not need them)."""
+    qt, v, nbr_mask, ds, centers = args[0], args[2], args[-14], args[-12], args[-10]
+    K = nbr_mask.shape[2]
     H = ds.shape[2]
-    kd, vd, De = qt.shape[2] // H, v.shape[2] // H, centers.shape[0]
-    pairs = float(nbr_mask.sum().item())  # the work this data needs: live pairs
-    b = nbytes(qt, k, v, nbr, nbr_mask, dist, ds, dv, centers,
-               wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, out)
-    return b, pairs * pair_flops(H, kd, vd, De)[0]
+    kd, vd, De = qt.shape[2] // H, v.shape[-1] // H, centers.shape[0]
+    live = float(nbr_mask.sum().item())
+    dead = float(dead_weighted_rows(nbr_mask, ds).sum().item()) * K
+    taken = dead - float(copy_rows(args).sum().item()) * K
+    flops = live * pair_flops(H, kd, vd, De)[0] + taken * (2 * (De * vd + vd * vd) + 2 * H * vd
+                                                           + 4 * De)
+    split = 2.0 * (live * (De * (kd + vd) + kd * kd + vd * vd) + taken * (De * vd + vd * vd))
+    return flops, split, dead
+
+
+def k1_cost(args, out):
+    return nbytes(*args, out), list_fwd_work(args)[0]
+
+
+def k1_split_flops(args) -> float:
+    """The operations of K1 (and K7) that run as split TF32 on the tensor
+    cores: both EdgeMLPs once per live slot, the v-EdgeMLP once per slot of
+    a dead-weighted row that is not a copy (the scores, the softmax and the
+    aggregate stay float32)."""
+    return list_fwd_work(args)[1]
 
 
 def gathered_bytes(nbr_mask, k_nb, v_nb) -> float:
@@ -462,15 +528,28 @@ def gathered_bytes(nbr_mask, k_nb, v_nb) -> float:
 
 
 def k7_cost(args, out):
-    # K1's work from the gathered rows of live slots
-    (qt, k_nb, v_nb, nbr_mask, dist, ds, dv, centers,
-     wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff) = args
+    # K1's work from the gathered rows: the k and v rows of live slots, and
+    # the v rows of the dead-weighted rows' slots (a copy's too: telling it
+    # from its source reads them)
+    qt, k_nb, v_nb, *rest = args
+    flops, _, dead = list_fwd_work(args)
+    b = (gathered_bytes(rest[0], k_nb, v_nb) + dead * v_nb.shape[-1] * v_nb.element_size()
+         + nbytes(qt, *rest, out))
+    return b, flops
+
+
+def live_only_bound_ms(args, out) -> float:
+    """K1's or K7's bound over the live pairs alone: their operations and,
+    for K7, the gathered rows of live slots (the dead-weighted rows left
+    out), comparable with the bound of a kernel that evaluates every slot."""
+    qt, nbr_mask, ds, centers = args[0], args[-14], args[-12], args[-10]
     H = ds.shape[2]
-    kd, vd, De = qt.shape[2] // H, v_nb.shape[3] // H, centers.shape[0]
-    pairs = float(nbr_mask.sum().item())
-    b = gathered_bytes(nbr_mask, k_nb, v_nb) + nbytes(
-        qt, nbr_mask, dist, ds, dv, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, out)
-    return b, pairs * pair_flops(H, kd, vd, De)[0]
+    rows = args[1].dim() == 4  # K7's gathered rows
+    kd, vd = qt.shape[2] // H, args[2].shape[-1] // H
+    flops = float(nbr_mask.sum().item()) * pair_flops(H, kd, vd, centers.shape[0])[0]
+    b = (gathered_bytes(nbr_mask, args[1], args[2]) + nbytes(args[0], *args[3:], out) if rows
+         else nbytes(*args, out))
+    return bound_ms(b, flops)[0]
 
 
 def dense_work(adj, ds, HV: int) -> tuple[float, float, float]:
@@ -571,6 +650,38 @@ def list_bwd_report(spec, mod, args, kw) -> dict:
                       "live_slots": int(nbr_mask.sum())},
             "cuda_cores": {"ms": ms, "errors": errs,
                            "ok": all(e <= BWD_TOL * m for e, m in errs.values())}}
+
+
+def list_fwd_report(spec, mod, args, kw) -> dict:
+    """K1's or K7's kernels at one call: what the tensor-core kernel walked,
+    as it counts it (``walks``: rows taken with their live slots,
+    dead-weighted rows evaluated and copied, rows taken again whole, slots
+    evaluated, beside the inputs' rows, live slots, dead-weighted rows, copy
+    rows and B*N*K), the bound over the live pairs alone
+    (``bound_live_only_ms``), and the CUDA-core instance
+    (``attn_fwd_kernel``, every slot evaluated; what other widths run) at
+    the same call (``cuda_cores``: its time, and its output against the
+    plain version as ``hold`` holds the kernel)."""
+    launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
+    nbr_mask, ds = args[-14], args[-12]
+    B, N, K = nbr_mask.shape
+    stats = torch.zeros(4, dtype=torch.int32, device=nbr_mask.device)
+    cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
+    with torch.no_grad():
+        out = launch(*args, **kw, stats=stats)
+        got, want = cuda_cores(), plain(*args)
+        err = (got - want).abs().max().item()
+        ok = bool(torch.allclose(got, want, **TOL))
+        ms = time_ms(cuda_cores)
+    live, dead, whole, slots = stats.tolist()
+    return {"walks": {"rows": B * N, "rows_live": live, "rows_dead_weighted": dead,
+                      "rows_copied": B * N - live - dead - whole, "rows_whole": whole,
+                      "slots_evaluated": slots, "slots": B * N * K,
+                      "live_slots": int(nbr_mask.sum()),
+                      "dead_weighted_rows": int(dead_weighted_rows(nbr_mask, ds).sum()),
+                      "copy_rows": int(copy_rows(args).sum())},
+            "bound_live_only_ms": live_only_bound_ms(args, out),
+            "cuda_cores": {"ms": ms, "max_abs_err": err, "tolerance": TOL, "ok": ok}}
 
 
 def k8b_cost(args, outs):
@@ -763,7 +874,7 @@ class Kernel(NamedTuple):
 K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS = [
     Kernel("neighbor_attn_fused", "neighbor_attn", "neighbor_attn", "launches",
            "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:306",
-           k1_cost, None),
+           k1_cost, None, k1_split_flops, list_fwd_report),
     Kernel("so3_gate_ffn_fused", "so3_ffn", "so3_gate_ffn", "launches",
            "singa_tpu_torch/csrc/so3_gate_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:497",
            k2_cost, None),
@@ -798,7 +909,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            k6b_split_flops),
     Kernel("neighbor_attn_hybrid", "neighbor_attn", "neighbor_attn_hybrid", "launches_hybrid",
            "singa_tpu_torch/csrc/neighbor_attn.cu", "singa_tpu/ops/pallas/neighbor_attn.py:492",
-           k7_cost, None),
+           k7_cost, None, k1_split_flops, list_fwd_report),
     Kernel("neighbor_attn_hybrid_bwd", "neighbor_attn", "neighbor_attn_hybrid_bwd",
            "launches_hybrid_bwd", "singa_tpu_torch/csrc/neighbor_attn_bwd.cu",
            "singa_tpu/ops/pallas/neighbor_attn.py:518", k1b_cost, ATTN_BWD_OUTS, k1b_split_flops,
@@ -924,6 +1035,8 @@ def hold_all(specs, mods, captured, phase, per, path) -> dict:
         if spec.report is not None:  # the CUDA-core instance, timed at the same calls
             results[spec.name]["cuda_cores_ms"] = sum(c * r["cuda_cores"]["ms"]
                                                       for c, r in recs) / n
+        if "bound_live_only_ms" in recs[0][1]:
+            results[spec.name]["bound_live_only_ms"] = mean("bound_live_only_ms")
     return results
 
 
@@ -1110,11 +1223,13 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         # train_profile: one optimizer step
         runs_k2b = per_step.get(K2B.name, 0) > 0
         runs_k1b = per_step.get(K1B.name, 0) + per_step.get(K7B.name, 0) > 0
+        runs_k1 = per_step.get(K1.name, 0) + per_step.get(K7.name, 0) > 0
         runs_k4 = per_step.get(K4.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b
-                                  + K1B_KERNELS * runs_k1b + K4_KERNELS * runs_k4)
+                                  + K1B_KERNELS * runs_k1b + K1_KERNELS * runs_k1
+                                  + K4_KERNELS * runs_k4)
         extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
             ms = prof["matched"][SO2_GEMM]["device_ms"]
@@ -1125,6 +1240,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k2b_kernels"] = {n: prof["matched"][n] for n in K2B_KERNELS}
         if runs_k1b:  # K1b's (or K7b's) kernels by name
             extra["k1b_kernels"] = {n: prof["matched"][n] for n in K1B_KERNELS}
+        if runs_k1:  # K1's (or K7's) kernels by name
+            extra["k1_kernels"] = {n: prof["matched"][n] for n in K1_KERNELS}
         if runs_k4:  # K4's kernels by name
             extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
@@ -1493,13 +1610,18 @@ def main() -> int:
     k1b_ptxas = [{k: v for k, v in ptxas_report(logs["neighbor_attn_bwd"]).items()
                   if ("list_bwd_pair_kernel" in k or "list_bwd_cc_kernel" in k)
                   and f"ILi{form}E" in k} for form in (0, 1)]
+    # the forward kernels of K1 (form 0) and K7 (form 1): the tensor-core
+    # tile kernel and the CUDA-core instance (attn_fwd_kernel)
+    k1_ptxas = [{k: v for k, v in ptxas_report(logs["neighbor_attn"]).items()
+                 if ("list_fwd_tile_kernel" in k or "attn_fwd_kernel" in k)
+                 and f"ILi{form}E" in k} for form in (0, 1)]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
           "k4_ptxas": k4_ptxas, "k4b_ptxas": k4b_ptxas, "k2b_ptxas": k2b_ptxas,
           "so2_gemm_ptxas": gemm_ptxas,
-          "k1b_ptxas": k1b_ptxas})
+          "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -1612,6 +1734,9 @@ def main() -> int:
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form
         results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid)
         results[spec.name]["ptxas"] = k1b_ptxas[int(hybrid)]
+    for spec, hybrid in ((K1, False), (K7, True)):  # the forward's tile kernels
+        results[spec.name]["residency"] = mods["neighbor_attn"].fwd_residency(hybrid)
+        results[spec.name]["ptxas"] = k1_ptxas[int(hybrid)]
     gemm_residency = mods["so2_attn"].gemm_residency()
     for spec, lib in ((K6, "so2_attn"), (K6B, "so2_attn_bwd")):
         results[spec.name]["gemm_ptxas"] = gemm_ptxas[lib]

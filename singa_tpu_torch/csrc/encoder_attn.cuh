@@ -1,7 +1,9 @@
 // The kNN encoder's graph attention in its three forms: one tiled forward
 // kernel, a template over the form, and the dense form's backward (its pair
 // kernel and its dk/dv stage); the list forms' backward is
-// csrc/neighbor_attn_bwd.cu.
+// csrc/neighbor_attn_bwd.cu. The list forms run this forward only at widths
+// their tensor-core kernel (csrc/neighbor_attn.cu) does not take, as their
+// CUDA-core instance.
 //
 // K1 (neighbour lists), K7 (the lists' rows gathered before the launch) and
 // K8 (every column of the untruncated adjacency) compute one function. Per

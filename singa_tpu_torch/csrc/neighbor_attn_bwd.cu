@@ -69,28 +69,28 @@
 // pair buffers for K slots fit shared memory goes to list_bwd_cc_kernel
 // and list_dkdv_cc_kernel: the same plan and exact rules on the CUDA cores,
 // a node at a time (below). The blocks function refuses any other shape.
+// Shared with K1/K7's forward (neighbor_attn.cu), in csrc/list_attn.cuh:
+// the widths, tiles and pair-buffer strides, the smear and its A fragments,
+// the shifted softplus and block_range.
 #include <stdint.h>
 
-#include "encoder_attn.cuh"
-#include "mma_tf32.cuh"
+#include "list_attn.cuh"
 
 namespace ea = singa::encoder_attn;
 namespace tc = singa::tc;
 
 namespace {
 
-constexpr int KD = 32, VD = 64, DE = 64;  // the encoder's widths, the one instance
-constexpr int kThreads = 512;             // 16 warps, one block per SM (shared memory)
-constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 128;   // slot rows per tile: 8 m16 blocks, two warps each
-constexpr int kTR = 64;    // rows per tile at most
-constexpr int kMaxH = 4;
-constexpr int kChunk = 16;      // slots of a row one warp takes in the dqt and dw pass
-constexpr int kMaxChunks = 48;  // chunks per tile at most (their dqt partials)
-constexpr int kRowWork = 8;  // a row's fixed cost in slots, for the blocks' shares
-constexpr int kPlanThreads = 256;
+using namespace singa::list_attn;
+
 constexpr int kDkdvThreads = 128;
 constexpr int kDkdvChunk = kDkdvThreads;  // incoming slots the dk/dv stage stages at a time
+
+// Strides (floats). W1, W2 [in][out] read as B with k paired (frag_b_paired:
+// stride % 16 of 4; dh reads W2 as [n][k], frag_b_nk, with 2-way bank
+// conflicts at that stride).
+constexpr int LW1K = KD + 4, LW1V = VD + 4, LW2K = KD + 4, LW2V = VD + 4;
+constexpr int kWeightFloats = DE * LW1K + DE * LW1V + KD * LW2K + VD * LW2V + 2 * KD + 2 * VD + DE;
 
 // A row's mode (plan[row] = mode | slots taken << 2): skipped (g zero), its
 // live slots, or (a row taken again) all K.
@@ -101,20 +101,10 @@ enum Mode { kZero = 0, kLive = 1, kWhole = 2 };
 // slots evaluated (a row taken again whole counts its slots twice).
 enum Stat { kStatZero = 0, kStatLive, kStatWhole, kStatSlots, kStats };
 
-// Strides (floats). W1, W2 [in][out] read as B with k paired (frag_b_paired:
-// stride % 16 of 4; dh reads W2 as [n][k], frag_b_nk, with 2-way bank
-// conflicts at that stride); the pair buffers [slot][channel] are read as A
-// paired and transposed, as B in order and written as C (stride % 32 of 8).
-constexpr int LW1K = KD + 4, LW1V = VD + 4, LW2K = KD + 4, LW2V = VD + 4;
-constexpr int LPK = KD + 8, LPV = VD + 8;
-constexpr int NPK = KD / 8;  // n8 tiles of h_k (then h_v's VD / 8)
-
 // the weight-gradient row: dwk1 dbk1 dwk2 dbk2 dwv1 dbv1 dwv2 dbv2
 constexpr int OFF_WK1 = 0, OFF_BK1 = OFF_WK1 + DE * KD, OFF_WK2 = OFF_BK1 + KD;
 constexpr int OFF_BK2 = OFF_WK2 + KD * KD, OFF_WV1 = OFF_BK2 + KD, OFF_BV1 = OFF_WV1 + DE * VD;
 constexpr int OFF_WV2 = OFF_BV1 + VD, OFF_BV2 = OFF_WV2 + VD * VD, P_TOTAL = OFF_BV2 + VD;
-
-enum Ctl { kHi = 0, kCursor, kRows, kSlots, kRedo, kChunks, kCtl = 8 };
 
 // Shared memory.
 struct Sm {
@@ -133,7 +123,6 @@ struct Sm {
   int* ctl;                             // [kCtl]
 };
 
-constexpr int kWeightFloats = DE * LW1K + DE * LW1V + KD * LW2K + VD * LW2V + 2 * KD + 2 * VD + DE;
 constexpr int kSmemFloats = kWeightFloats + kTM * (3 * LPK + 2 * LPV) + 2 * kTM * kMaxH +
                             5 * kTM + 2 * kTR * kMaxH + kMaxChunks * (kMaxH * KD + 1) +
                             7 * kTR + kCtl;
@@ -175,34 +164,6 @@ __device__ void load_weights(const ea::Args& a, const Sm& s) {
   for (int t = threadIdx.x; t < DE; t += kThreads) s.cent[t] = a.centers[t];
 }
 
-// The smear, the hidden and sigmoid(pre) go to the tensor cores as split
-// TF32 (hi + lo: about 22 significant bits), so the hardware's exp2 and log2
-// (__expf, __logf: a few units in the last of float32's 24 bits) lose
-// nothing the products keep.
-__device__ __forceinline__ float smear(float coeff, float dist, float c) {
-  const float diff = dist - c;
-  return -__expf(coeff * diff * diff);
-}
-
-// ssp(v) = softplus(v) - log 2, overflow-free: max(v, 0) + log(1 + exp(-|v|)) - log 2
-__device__ __forceinline__ float ssp_tc(float v) {
-  return fmaxf(v, 0.f) + __logf(1.f + __expf(-fabsf(v))) - 0.69314718055994530942f;
-}
-
-// A = the smear E [slot][channel] of rows g, g + 8 (distances d0, d1), k
-// paired, over the channels at cent (the k-step's first)
-__device__ __forceinline__ tc::FragA frag_smear_paired(float coeff, float d0, float d1,
-                                                       const float* cent) {
-  const int t = tc::lane_tig();
-  const float c0 = cent[2 * t], c1 = cent[2 * t + 1];
-  tc::FragA f;
-  tc::split(smear(coeff, d0, c0), f.hi[0], f.lo[0]);
-  tc::split(smear(coeff, d1, c0), f.hi[1], f.lo[1]);
-  tc::split(smear(coeff, d0, c1), f.hi[2], f.lo[2]);
-  tc::split(smear(coeff, d1, c1), f.hi[3], f.lo[3]);
-  return f;
-}
-
 // A = E^T [channel][slot]: channels g, g + 8 from cent, slots t, t + 4 from
 // dist, k in order (pairs with frag_b)
 __device__ __forceinline__ tc::FragA frag_smear_trans(float coeff, const float* dist,
@@ -219,11 +180,6 @@ __device__ __forceinline__ tc::FragA frag_smear_trans(float coeff, const float* 
 
 // sigmoid(pre) from h = ssp(pre) = softplus(pre) - log 2
 __device__ __forceinline__ float sigmoid_of_hidden(float h) { return 1.f - 0.5f * __expf(-h); }
-
-// The n8 tile jj of [h_k | h_v] at row 0 of the buffer pair (hk, hv).
-__device__ __forceinline__ float* htile(float* hk, float* hv, int jj) {
-  return jj < NPK ? hk + 8 * jj : hv + 8 * (jj - NPK);
-}
 
 // h_k | h_v tiles J0 .. J1-1 of the m16 block at row m0: ssp(E [wk1 | wv1] + b1)
 template <int J0, int J1>
@@ -333,54 +289,6 @@ list_plan_kernel(const float* __restrict__ g, const unsigned char* __restrict__ 
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) live += __shfl_xor_sync(0xffffffffu, live, o);
     if (lane == 0) plan[r] = nz ? (kLive | live << 2) : kZero;
-  }
-}
-
-// The block's rows [lo, hi) into ctl: row r goes to block floor(p_r G / W),
-// p_r the rows' work before r (taken slots + kRowWork each), W the total.
-__device__ void block_range(const int* __restrict__ plan, int rows, int* ctl) {
-  __shared__ long long wsum[kWarps];
-  __shared__ int cnt[2][kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (rows + kThreads - 1) / kThreads;
-  const int r0 = min(rows, tid * per), r1 = min(rows, r0 + per);
-  long long w = 0;
-  for (int r = r0; r < r1; ++r) w += (plan[r] >> 2) + kRowWork;
-  long long incl = w;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  long long p = incl - w, total = 0;
-  for (int i = 0; i < kWarps; ++i) {
-    if (i < warp) p += wsum[i];
-    total += wsum[i];
-  }
-  // rows whose work starts before block b's and before block b + 1's share
-  const long long G = gridDim.x, b = blockIdx.x;
-  const long long t0 = (b * total + G - 1) / G, t1 = ((b + 1) * total + G - 1) / G;
-  int n0 = 0, n1 = 0;
-  for (int r = r0; r < r1; ++r) {
-    n0 += p < t0;
-    n1 += p < t1;
-    p += (plan[r] >> 2) + kRowWork;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    n0 += __shfl_xor_sync(0xffffffffu, n0, o);
-    n1 += __shfl_xor_sync(0xffffffffu, n1, o);
-  }
-  if (lane == 0) cnt[0][warp] = n0, cnt[1][warp] = n1;
-  __syncthreads();
-  if (tid == 0) {
-    int lo = 0, hi = 0;
-    for (int i = 0; i < kWarps; ++i) lo += cnt[0][i], hi += cnt[1][i];
-    ctl[kHi] = b + 1 == G ? rows : hi;
-    ctl[kCursor] = lo;
-    ctl[kRedo] = 0;
   }
 }
 
@@ -1236,11 +1144,6 @@ list_dkdv_cc_kernel(const float* __restrict__ qt, const float* __restrict__ g,
       else dv[j * HV + cc] = acc;
     }
   }
-}
-
-// The tensor-core kernel's shapes: the encoder's widths, H <= 4, K <= 128.
-bool tc_ok(const ea::Dims& d) {
-  return d.kd == KD && d.vd == VD && d.De == DE && d.H <= kMaxH && d.R <= kTM;
 }
 
 // The CUDA-core instance's: weight gradients within the sums its threads

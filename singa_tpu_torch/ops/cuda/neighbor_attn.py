@@ -14,10 +14,15 @@ neighbour rows over every slot), of the self terms and of the eight EdgeMLP
 weights and biases; nbr, nbr_mask, dist and centers get none. The CUDA
 kernels (``csrc/neighbor_attn.cu``, ``csrc/neighbor_attn_bwd.cu``) gather
 neighbour rows by index and keep every per-node pair tensor out of device
-memory; the backward evaluates only the slots whose terms are not exact
-zeros (a row's live slots; nothing for a row whose cotangent is zero) and
-runs its EdgeMLP products on the tensor cores as split TF32. ``neighbor_attn`` goes through one ``torch.autograd.Function``:
-plain versions for CPU tensors, the kernels for CUDA tensors.
+memory. Both directions evaluate only the slots whose terms are not exact
+zeros and run their EdgeMLP products on the tensor cores as split TF32: the
+forward takes a row's live slots, and a padded row's slots on the
+v-EdgeMLP alone (its softmax is closed-form); the backward takes a row's
+live slots, and nothing for a row whose cotangent is zero. At other widths
+than the encoder's (kd 32, vd 64, De 64, H <= 4, K <= 128) each runs a
+CUDA-core instance (``fwd_instance`` says which the forward takes).
+``neighbor_attn`` goes through one ``torch.autograd.Function``: plain
+versions for CPU tensors, the kernels for CUDA tensors.
 
 K7 replaces ``neighbor_attn_hybrid`` (``_hybrid_pallas_fwd``) and K7b its
 ``_bwd_h``: ``neighbor_attn_hybrid`` gathers ``k_nb``/``v_nb`` [B, N, K, *]
@@ -140,24 +145,39 @@ def neighbor_attn_hybrid_bwd_plain(*args):
     return (dqt, scatter_rows(dk_nb, nbr), scatter_rows(dv_nb, nbr), *rest)
 
 
-def _fn():
-    fn = build.load("neighbor_attn").neighbor_attn_f32
+def _fn(hybrid: bool = False):
+    """K1's C entry point, or K7's (no nbr pointer)."""
+    lib = build.load("neighbor_attn")
+    fn = lib.neighbor_attn_hybrid_f32 if hybrid else lib.neighbor_attn_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_float] + [ctypes.c_void_p]
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * (16 if hybrid else 17) + [ctypes.c_float] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def _hybrid_fn():
-    fn = build.load("neighbor_attn").neighbor_attn_hybrid_f32
-    fn.argtypes = (
-        [ctypes.c_void_p] * 16 + [ctypes.c_float] + [ctypes.c_void_p]
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    )
+def fwd_instance(K: int, H: int, kd: int, vd: int, De: int) -> str | None:
+    """Which of K1's (and K7's) kernels runs these widths (any B, N):
+    "tensor_cores", "cuda_cores", or None for a shape neither takes (the
+    CUDA-core instance may still refuse a K whose slots exceed its shared
+    memory, when it launches). Launches nothing."""
+    fn = build.load("neighbor_attn").neighbor_attn_instance
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
-    return fn
+    return {0: "tensor_cores", 1: "cuda_cores"}.get(fn(K, H, kd, vd, De))
+
+
+def fwd_residency(hybrid: bool = False) -> dict:
+    """K1's tensor-core tile kernel (K7's with ``hybrid``): resident blocks
+    per SM (-1: refused), threads and dynamic shared memory per block. For
+    reports; launches nothing."""
+    fn = build.load("neighbor_attn").neighbor_attn_residency
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(int(hybrid), ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
 def _bwd_fns(hybrid: bool = False):
@@ -236,37 +256,59 @@ def check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv
 def neighbor_attn_cuda(
     qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
     centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+    cuda_cores: bool = False, stats=None,
 ) -> torch.Tensor:
-    global launches
-    args = (qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
-            centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
-    B, N, K, H, kd, vd, De = _check_args(*args)
-    out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
-    if B * N == 0:
-        return out
-    status = _fn()(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
-                   B, N, K, H, kd, vd, De, build.stream_ptr(qt))
-    build.check(status, "neighbor_attn")
-    launches += 1
-    return out
+    """The K1 kernels; arguments and result as ``neighbor_attn_plain``. The
+    tensor-core tile kernel runs where it takes the shapes (``fwd_instance``),
+    else the CUDA-core one; ``cuda_cores``: the CUDA-core one at any shape (to
+    time the two). ``stats``: None, or an int32 tensor [4] of zeros on the
+    card, to which the tensor-core kernel adds what it walked (rows taken
+    with their live slots, dead-weighted rows evaluated, rows taken again
+    whole, slots evaluated; the rest of the rows are dead-weighted rows that
+    copy the sums of the row before them)."""
+    return _fwd_cuda((qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+                      centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2), coeff, False,
+                     cuda_cores, stats)
 
 
 def neighbor_attn_hybrid_cuda(
     qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
     centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
+    cuda_cores: bool = False, stats=None,
 ) -> torch.Tensor:
-    """The K7 kernel; arguments and result as ``neighbor_attn_hybrid_plain``."""
-    global launches_hybrid
-    args = (qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
-            centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
-    B, N, K, H, kd, vd, De = _check_args(qt, k_nb, v_nb, None, *args[3:], gathered=True)
+    """The K7 kernels; arguments and result as ``neighbor_attn_hybrid_plain``;
+    ``cuda_cores`` and ``stats`` as ``neighbor_attn_cuda``'s."""
+    return _fwd_cuda((qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
+                      centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2), coeff, True,
+                     cuda_cores, stats)
+
+
+def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
+    """K1 (k, v, nbr) or K7 (k_nb, v_nb, no nbr): the checks, the output, the
+    scratch, the launch and its count."""
+    global launches, launches_hybrid
+    if hybrid:
+        B, N, K, H, kd, vd, De = _check_args(*args[:3], None, *args[3:], gathered=True)
+    else:
+        B, N, K, H, kd, vd, De = _check_args(*args)
+    qt = args[0]
+    if stats is not None:
+        build.require(stats, "stats", (4,), torch.int32, qt.device)
     out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
     if B * N == 0:
         return out
-    status = _hybrid_fn()(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
-                          B, N, K, H, kd, vd, De, build.stream_ptr(qt))
-    build.check(status, "neighbor_attn_hybrid")
-    launches_hybrid += 1
+    # the dead-weighted rows' unweighted sums (for the rows that copy them), the plan
+    sums = torch.empty((B * N, H * vd), dtype=torch.float32, device=qt.device)
+    plan = torch.empty(B * N, dtype=torch.int32, device=qt.device)
+    status = _fn(hybrid)(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
+                         sums.data_ptr(), plan.data_ptr(), B, N, K, H, kd, vd, De,
+                         int(cuda_cores), None if stats is None else stats.data_ptr(),
+                         build.stream_ptr(qt))
+    build.check(status, "neighbor_attn_hybrid" if hybrid else "neighbor_attn")
+    if hybrid:
+        launches_hybrid += 1
+    else:
+        launches += 1
     return out
 
 

@@ -47,34 +47,151 @@ def _check(got, want):
     torch.testing.assert_close(got, want, **TOL)
 
 
+# K1's cases: random lists at K 24 and 96 (a node with no live slot, a
+# padded node, a repeated neighbour); N 1 (each row's one slot itself); a
+# live row whose score sits far below -1e9 (taken again whole); the main
+# path's shapes (N 384, K 96, 150 padded rows a graph: dead-weighted) and 16
+# graphs of them (many rows a block); the path's shapes with the padded rows
+# of each graph on one row's neighbours and distances, as the corpus's
+# padded nodes (all at the origin): the first evaluated, the rest copies;
+# 3 heads at the encoder's other widths (a row taken again whole); then
+# widths the tensor-core kernel does not take, which the CUDA-core
+# instance runs
+LIST_FWD_CASES = ["random_k24", "random_k96", "n1", "redo", "path", "deep", "copies", "h3",
+                  "heads8", "k160"]
+PATH_PAD = 150  # the padded rows of each graph in the "path" cases
+
+
+def _copies_case(dev):
+    """K1b's "path" arguments with each graph's padded rows reading the
+    first padded row's neighbours at its distances."""
+    args = _list_bwd_case(dev, "path")
+    N = args[4].shape[1]
+    for i in (3, 5):  # nbr, dist
+        args[i][:, N - PATH_PAD:] = args[i][:, N - PATH_PAD:N - PATH_PAD + 1].clone()
+    return args
+
+
+def _list_fwd_case(dev, case):
+    """K1's arguments (``neighbor_attn_plain``'s) for one of LIST_FWD_CASES."""
+    if case == "n1":
+        k7, k8, _, nbr = _hub_graph(dev, 2, 1, 1, 0, 191)
+        return [*k8[:3], nbr, *k7[3:]]
+    if case == "copies":
+        return _copies_case(dev)[:-1]
+    if case == "h3":
+        return _random_list_case(dev, 2, 40, 30, 193, redo=True, widths=(3, 32, 64, 64))[:-1]
+    return _list_bwd_case(dev, case)[:-1]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,K", [(2, 64, 24), (3, 50, 96)])
-def test_neighbor_attn_kernel_matches_plain(dev, B, N, K):
-    """K1, at the encoder's widths (H 4, kd 32, vd 64, De 64), with random
-    masks, a node with no live slot and a padded node (self score -1e9)."""
+@pytest.mark.parametrize("case", LIST_FWD_CASES)
+def test_neighbor_attn_kernel_matches_plain(dev, case):
+    """K1 at the encoder's widths (H 4, kd 32, vd 64, De 64; and H 3) and
+    others, every row held to the plain version: random masks, a node with
+    no live slot, padded nodes (self score -1e9: dead-weighted, their
+    softmax uniform), a repeated neighbour index, N 1, a row taken again
+    whole, the main path's shapes with their padded rows, copies of them."""
     from singa_tpu_torch.ops.cuda import neighbor_attn as k1
 
-    H, kd, vd, De = 4, 32, 64, 64
-    rng = np.random.default_rng(41 + K)
-    f = lambda *s: rng.normal(size=s).astype(np.float32)
-    mask = rng.random((B, N, K)) > 0.6
-    mask[0, 3] = False
-    ds = f(B, N, H)
-    ds[0, 5] = -1e9
-    mask[0, 5] = False
-    args = [
-        f(B, N, H * kd), f(B, N, H * kd), f(B, N, H * vd),
-        rng.integers(0, N, size=(B, N, K)).astype(np.int32), mask,
-        rng.uniform(0.5, 14.0, size=(B, N, K)).astype(np.float32), ds, f(B, N, H * vd),
-        np.linspace(0.0, 15.0, De, dtype=np.float32),
-        0.3 * f(De, kd), 0.1 * f(kd), 0.3 * f(kd, kd), 0.1 * f(kd),
-        0.3 * f(De, vd), 0.1 * f(vd), 0.3 * f(vd, vd), 0.1 * f(vd),
-    ]
-    args = [_t(a, dev) for a in args] + [-0.5 / (15.0 / (De - 1)) ** 2]
+    args = _list_fwd_case(dev, case)
     n = k1.launches
     got = k1.neighbor_attn(*args, *k1.transpose_slots(args[3]))
     assert k1.launches == n + 1
     _check(got, k1.neighbor_attn_plain(*args))
+
+
+@pytest.mark.cuda
+def test_neighbor_attn_instance_by_shape(dev):
+    """K1's and K7's tensor-core kernel takes the encoder's widths (kd 32,
+    vd 64, De 64), H <= 4, K <= 128, one block of 16 warps an SM; kd 16
+    (key_channels 64), H 8 (num_heads 8) and K 160 run the CUDA-core
+    instance, which ``cuda_cores`` also asks for at any shape. The
+    tensor-core kernel counts what it walks (at the path's shapes: every row
+    once, the live slots and the padded rows' slots, fewer than B*N*K; with
+    each graph's padded rows on one row's inputs, one of them a graph and
+    the rest copies); the CUDA-core instance evaluates every slot and counts
+    nothing."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    takes = {(96, 4, 32, 64, 64): "tensor_cores", (128, 1, 32, 64, 64): "tensor_cores",
+             (96, 4, 16, 64, 64): "cuda_cores", (96, 8, 32, 64, 64): "cuda_cores",
+             (48, 8, 16, 32, 64): "cuda_cores", (160, 2, 16, 16, 16): "cuda_cores",
+             (129, 4, 32, 64, 64): "cuda_cores"}
+    assert {w: k1.fwd_instance(*w) for w in takes} == takes
+    for hybrid in (False, True):
+        res = k1.fwd_residency(hybrid)
+        assert res["blocks_per_sm"] == 1 and res["threads"] == 512, res
+    args = _list_fwd_case(dev, "path")
+    B, N, K = args[4].shape
+    walked = [torch.zeros(4, dtype=torch.int32, device=dev) for _ in range(2)]
+    got = k1.neighbor_attn_cuda(*args, stats=walked[0])
+    cc = k1.neighbor_attn_cuda(*args, cuda_cores=True, stats=walked[1])
+    want = k1.neighbor_attn_plain(*args)
+    _check(got, want)
+    _check(cc, want)
+    live, dead, whole, slots = walked[0].tolist()
+    padded = int((args[6][..., 0] <= -5e8).sum())
+    assert (live, dead, whole) == (B * N - padded, padded, 0)
+    assert slots == int(args[4].sum()) + padded * K < B * N * K
+    assert walked[1].tolist() == [0, 0, 0, 0]
+    copies = _list_fwd_case(dev, "copies")
+    walked[0].zero_()
+    _check(k1.neighbor_attn_cuda(*copies, stats=walked[0]), k1.neighbor_attn_plain(*copies))
+    live, dead, whole, slots = walked[0].tolist()
+    assert (live, dead, whole) == (B * N - padded, B, 0)
+    assert slots == int(copies[4].sum()) + B * K
+    heads8 = _list_fwd_case(dev, "heads8")
+    walked[1].zero_()
+    _check(k1.neighbor_attn_cuda(*heads8, stats=walked[1]), k1.neighbor_attn_plain(*heads8))
+    assert walked[1].tolist() == [0, 0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_neighbor_attn_kernel_keeps_relative_precision(dev):
+    """K1 at the main path's shapes with graph b's v and diag_value scaled by
+    10^(-3 .. 3) across 16 graphs: every graph's output within 1e-4 of that
+    graph's own largest magnitude (rtol 1e-4): the split keeps float32's
+    relative precision at every scale, which a bound on the largest output
+    alone would not see."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    args = _list_fwd_case(dev, "deep")
+    B = args[0].shape[0]
+    scale = torch.logspace(-3, 3, B, device=dev)[:, None, None]
+    args[2], args[7] = args[2] * scale, args[7] * scale
+    got = k1.neighbor_attn_cuda(*args)
+    want = k1.neighbor_attn_plain(*args)
+    torch.cuda.synchronize()
+    graph_scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    err = (got - want).abs() / (1e-4 * graph_scale + 1e-4 * want.abs())
+    assert err.max().item() <= 1.0, err.amax(dim=(1, 2))
+
+
+@pytest.mark.cuda
+def test_neighbor_attn_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K1 meets (atol and rtol 1e-4, as chip_smoke.py
+    holds it) tells split TF32 from one TF32 product at the main path's
+    shapes (4 graphs of 384 nodes, K 96, padded rows): the kernel and the
+    split rendering of its arithmetic (test_torch_tf32_split.k1_split) pass
+    it against neighbor_attn_plain; the same rendering with one TF32
+    product in place of each split one fails it."""
+    from test_torch_tf32_split import k1_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    args = _list_fwd_case(dev, "path")
+    n = k1.launches
+    got = k1.neighbor_attn_cuda(*args)
+    assert k1.launches == n + 1
+    want = k1.neighbor_attn_plain(*args)
+    ratio = lambda a: ((a - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    ratios = {"kernel": ratio(got), "split": ratio(k1_split(*args)),
+              "one_tf32": ratio(k1_split(*args, mm=mm_tf32))}
+    print(json.dumps({"hold_ratios": ratios}))
+    assert ratios["kernel"] <= 1.0, ratios
+    assert ratios["split"] <= 1.0, ratios
+    assert ratios["one_tf32"] > 1.0, ratios
 
 
 @pytest.mark.cuda
@@ -227,7 +344,7 @@ def _list_bwd_case(dev, case):
     if case == "k160":
         return _random_list_case(dev, 2, 200, 160, 179, widths=(2, 16, 16, 16))
     B = 4 if case == "path" else 16
-    return _graph_list_case(dev, B, 384, 48, 110, 157 + B, 150)[0]
+    return _graph_list_case(dev, B, 384, 48, 110, 157 + B, PATH_PAD)[0]
 
 
 def _as_hybrid(args):
@@ -1039,16 +1156,26 @@ ENCODER_FORM_CASES = [(2, 100, 6, 20), (1, 384, 48, 110), (2, 1, 1, 0)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,knn,ring,pad", [(*c, None) for c in ENCODER_FORM_CASES]
-                         + [(4, 384, 48, 110, 150), (16, 384, 48, 110, 150)])
+                         + [(4, 384, 48, 110, 150), (16, 384, 48, 110, 150),
+                            (2, 64, 0, 0, "redo"), (4, 384, 0, 0, "copies")])
 def test_neighbor_attn_hybrid_kernels_match_plain(dev, B, N, knn, ring, pad):
     """K7 and K7b against their plain versions: the lists of a graph with
     an overflow row and padded nodes, a random cotangent; K7b's dk/dv over
     the CSR transpose of nbr against the plain scatter. With ``pad``: the
-    main path's shapes, ``pad`` padded nodes in every graph and a zero
-    cotangent on them but on one (16 graphs: many rows per block)."""
+    main path's shapes, ``pad`` padded nodes in every graph (dead-weighted
+    in K7) and a zero cotangent on them but on one (16 graphs: many rows
+    per block); "redo": random lists at K 24 with a live row whose score
+    sits far below -1e9 (both kernels take it again whole); "copies": the
+    main path's shapes with each graph's padded rows on one row's gathered
+    rows and distances (K7 takes all but the first as copies). N 1 is among
+    the graph cases."""
     from singa_tpu_torch.ops.cuda import neighbor_attn as k7
 
-    if pad is None:
+    if pad in ("redo", "copies"):
+        bwd_args = _as_hybrid(_list_bwd_case(dev, "redo") if pad == "redo" else _copies_case(dev))
+        nbr = bwd_args[3]
+        args = [*bwd_args[:3], *bwd_args[4:-1]]
+    elif pad is None:
         args, _, g, nbr = _hub_graph(dev, B, N, knn, ring, 107 + N)
         bwd_args = [*args[:3], nbr, *args[3:], g]
     else:

@@ -1,9 +1,29 @@
-"""The list forms' backward algorithm (K1b's and K7b's kernels,
-``csrc/neighbor_attn_bwd.cu``) against its definition: a plain PyTorch
-rendering of what the kernels do, written here for the tests only, held to
-``neighbor_attn_bwd_plain`` / ``neighbor_attn_hybrid_bwd_plain`` (every slot
-evaluated) and to JAX's ``neighbor_attn_fused`` / ``neighbor_attn_hybrid``
-custom VJPs (Pallas, interpret mode), every gradient.
+"""The list forms' algorithms, forward (K1's and K7's tensor-core kernels,
+``csrc/neighbor_attn.cu``) and backward (K1b's and K7b's,
+``csrc/neighbor_attn_bwd.cu``), against their definition: plain PyTorch
+renderings of what the kernels do, written here for the tests only. The
+forward's is held to ``neighbor_attn_plain`` / ``neighbor_attn_hybrid_plain``
+and to JAX's ``neighbor_attn_fused`` / ``neighbor_attn_hybrid`` (Pallas,
+interpret mode); the backward's to ``neighbor_attn_bwd_plain`` /
+``neighbor_attn_hybrid_bwd_plain`` (every slot evaluated) and to those JAX
+functions' custom VJPs, every gradient.
+
+The forward rendering (``list_forward``) plans each row as the kernel
+does: a row with live slots takes them, compacted from the mask in slot
+order (none for a real row with no live slot: a_self = 1); a row with no
+live slot whose dead slots weigh something, exp(-1e9 - max(ds, -1e9)) != 0
+in float32 in some head (a padded row), is dead-weighted: all K slots on
+the v-EdgeMLP alone, its softmax in closed form. Rows go to blocks by their
+work; each block packs whole rows into tiles, the live rows' slots first
+(the k-section, both EdgeMLPs and the scores), then the dead-weighted
+rows' (the v-net alone). A live row whose max leaves its dead slots a
+weight writes nothing and is taken again, whole, in the block's next tile.
+The aggregate sums 16-slot chunks of a row, the chunks in order. Inputs as
+below; tolerance: the output within 2e-5 of its largest magnitude, rtol
+1e-5 (sums over the taken slots in another order); on the CPU it reads
+more than ten times inside it.
+
+The backward rendering:
 
 The rendering plans each row as the kernel does: a row whose cotangent is
 zero is skipped (its outputs zero, its slots send nothing); any other row
@@ -21,9 +41,10 @@ a = dsc = 0, and dk/dv gather over the CSR transpose of nbr the slots whose
 a or dsc is non-zero in some head (a skipped slot's w_k and w_v are never
 read).
 
-``list_backward(..., mm=...)`` takes the products the kernel runs on the
-tensor cores through ``mm``: ``tests/test_torch_tf32_split.py::k1b_split``
-renders them in split TF32. This file imports neither JAX nor the JAX
+``list_forward(..., mm=...)`` and ``list_backward(..., mm=...)`` take the
+products the kernels run on the tensor cores through ``mm``:
+``tests/test_torch_tf32_split.py::k1_split`` and ``k1b_split`` render them
+in split TF32. This file imports neither JAX nor the JAX
 package at module level (``tests/test_torch_cuda.py`` reaches it through
 ``k1b_split`` on a machine without JAX).
 
@@ -46,6 +67,8 @@ import torch.nn.functional as F
 BIG = 1e9
 ROW_WORK = 8  # a row's fixed cost in slots, in the blocks' shares (the kernel's kRowWork)
 ZERO, LIVE, WHOLE = 0, 1, 2
+DEAD, COPY = 3, 4  # the forward's dead-weighted rows, and those that copy the row before's
+CHUNK, MAX_CHUNKS = 16, 48  # the forward aggregate's slots per chunk, chunks per tile
 H, KD, VD, DE = 2, 8, 8, 8
 GRAD_NAMES = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
               "dwv1", "dbv1", "dwv2", "dbv2"]
@@ -74,6 +97,138 @@ def block_ranges(cnt, blocks):
         p += w
     lo = [sum(1 for x in before if x < -(-b * total // blocks)) for b in range(blocks)]
     return list(zip(lo, lo[1:] + [len(cnt)]))
+
+
+def plan_fwd_rows(mask, ds):
+    """Each row's forward mode and the slots it takes: its live slots (none
+    for a real row with no live slot), or all K on the v-EdgeMLP when it has
+    no live slot and exp(-1e9 - max(ds, -1e9)) != 0 in some head. mask
+    [R, K], ds [R, H]."""
+    K = mask.shape[1]
+    live = mask.sum(1)
+    weighs = (torch.exp(-BIG - torch.clamp(ds, min=-BIG)) != 0).any(1)
+    dead = (live == 0) & weighs
+    return torch.where(dead, DEAD, LIVE).tolist(), torch.where(dead, K, live).tolist()
+
+
+def list_forward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
+                 wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, *, gathered=False,
+                 mm=torch.matmul, blocks=1, tile=128, tile_rows=64, stats=None):
+    """K1's tensor-core algorithm on ``neighbor_attn_plain``'s arguments
+    (K7's, those of ``neighbor_attn_hybrid_plain`` with k_nb and v_nb, with
+    ``gathered``; nbr is then unused): the output [B, N, H*vd]. ``stats``, a
+    dict, gets the rows taken live, dead-weighted (evaluated) and taken
+    again, the slots evaluated and the dead-weighted rows copied."""
+    B, N, K = nbr_mask.shape
+    nh = ds.shape[2]
+    kd, vd = qt.shape[2] // nh, dval.shape[2] // nh
+    R, dev = B * N, qt.device
+    qt3, ds2, dval3 = qt.reshape(R, nh, kd), ds.reshape(R, nh), dval.reshape(R, nh, vd)
+    mask, dist2 = nbr_mask.reshape(R, K), dist.reshape(R, K)
+    if gathered:  # each slot's own row
+        kslot, vslot = k.reshape(R * K, nh, kd), v.reshape(R * K, nh, vd)
+    else:
+        rows = (torch.arange(R, device=dev)[:, None] // N * N + nbr.reshape(R, K).long()).reshape(-1)
+        kslot, vslot = k.reshape(R, nh, kd)[rows], v.reshape(R, nh, vd)[rows]
+    scale = 1.0 / math.sqrt(kd)
+    mode, cnt = plan_fwd_rows(mask, ds2)
+    bits = lambda x: x.contiguous().view(torch.int32)
+    for r in range(1, R):  # a dead-weighted row with the slot inputs of the row before it
+        same = torch.equal(bits(dist2[r]), bits(dist2[r - 1])) and (
+            torch.equal(bits(vslot[r * K:(r + 1) * K]), bits(vslot[(r - 1) * K:r * K]))
+            if gathered else torch.equal(nbr.reshape(R, K)[r], nbr.reshape(R, K)[r - 1]))
+        if mode[r] == DEAD and r % N and mode[r - 1] in (DEAD, COPY) and same:
+            mode[r], cnt[r] = COPY, 0
+    out = torch.full((R, nh, vd), float("nan"), device=dev)
+    usum = {}  # the dead-weighted rows' unweighted sums, for their copies
+    walked = dict(live=0, dead=0, redone=0, slots=0)
+    chunks_of = lambda c: -(-c // CHUNK)
+    for lo, hi in block_ranges(cnt, blocks):
+        cur, redo = lo, []
+        while True:
+            rows_t = []  # the tile's rows: (node, mode)
+            if redo:
+                take = min(len(redo), tile // K, 32)
+                rows_t, redo = [(n, WHOLE) for n in redo[:take]], redo[take:]
+            else:
+                used = chunks = 0
+                while (cur < hi and len(rows_t) < tile_rows and used + cnt[cur] <= tile
+                       and chunks + chunks_of(cnt[cur]) <= MAX_CHUNKS):
+                    rows_t.append((cur, mode[cur]))
+                    used += cnt[cur]
+                    chunks += chunks_of(cnt[cur])
+                    cur += 1
+            if not rows_t:
+                break
+            # the k-section (live and whole rows) first, then the dead-weighted rows
+            order = [r for r in rows_t if r[1] != DEAD] + [r for r in rows_t if r[1] == DEAD]
+            sl_node, sl_p, spans = [], [], []
+            for n, md in order:
+                ps = (mask[n].nonzero()[:, 0].tolist() if md == LIVE else [] if md == COPY
+                      else list(range(K)))
+                spans.append((len(sl_node), len(sl_node) + len(ps)))
+                sl_node += [n] * len(ps)
+                sl_p += ps
+            nsk = sum(e - b for (_, md), (b, e) in zip(order, spans) if md != DEAD)
+            T = len(sl_node)
+            walked["slots"] += T
+            node_t = torch.tensor(sl_node, dtype=torch.long, device=dev)
+            flat = node_t * K + torch.tensor(sl_p, dtype=torch.long, device=dev)
+            live_t = mask.reshape(-1)[flat]
+            diff = dist2.reshape(-1)[flat][:, None] - centers
+            E = -torch.exp(coeff * diff * diff)
+            Wv = mm(_ssp(mm(E, wv1) + bv1), wv2) + bv2  # every slot
+            Wk = mm(_ssp(mm(E[:nsk], wk1) + bk1), wk2) + bk2  # the k-section
+            S = torch.full((T, nh), -BIG, device=dev)
+            S[:nsk] = torch.where(live_t[:nsk, None],
+                                  (qt3[node_t[:nsk]] * Wk[:, None, :] * kslot[flat[:nsk]]).sum(-1)
+                                  * scale, torch.full((nsk, nh), -BIG, device=dev))
+            for (n, md), (m0, m1) in zip(order, spans):
+                if md == COPY:  # written from its source's sums after the tiles
+                    continue
+                if md == DEAD:  # the softmax in closed form: K slots at -1e9 and the self slot
+                    a, a_self = torch.ones(m1 - m0, nh, device=dev), None  # unweighted sums
+                    walked["dead"] += 1
+                else:
+                    mx = ds2[n].clone()
+                    if m1 > m0:
+                        mx = torch.maximum(mx, S[m0:m1].max(0).values)
+                    if md == LIVE and bool((torch.exp(-BIG - mx) != 0).any()):
+                        redo.append(n)  # it writes nothing now
+                        walked["redone"] += 1
+                        continue
+                    e, es = torch.exp(S[m0:m1] - mx), torch.exp(ds2[n] - mx)
+                    l = es + e.sum(0)
+                    a, a_self = e / l, es / l
+                    walked["live"] += md == LIVE
+                terms = a[:, :, None] * Wv[m0:m1, None, :] * vslot[flat[m0:m1]]
+                agg = torch.zeros(nh, vd, device=dev)
+                for c0 in range(0, m1 - m0, CHUNK):  # the chunks' sums, in chunk order
+                    agg = agg + terms[c0:c0 + CHUNK].sum(0)
+                if md == DEAD:
+                    usum[n] = agg
+                    out[n] = _dead_row(ds2[n], K, agg, dval3[n])
+                else:
+                    out[n] = agg + a_self[:, None] * dval3[n]
+    for r in range(R):  # each copy from the nearest row before it that is not one
+        if mode[r] == COPY:
+            src = r - 1
+            while mode[src] == COPY:
+                src -= 1
+            out[r] = _dead_row(ds2[r], K, usum[src], dval3[r])
+    if stats is not None:
+        stats.update(walked, copied=sum(1 for x in mode if x == COPY))
+    return out.reshape(B, N, nh * vd)
+
+
+def _dead_row(ds, K, usum, dval):
+    """A dead-weighted row's output: its softmax in closed form (K slots at
+    -1e9 and the self slot), a_dead times the slots' unweighted sums, plus
+    a_self dval."""
+    mx = torch.clamp(ds, min=-BIG)
+    ed, es = torch.exp(-BIG - mx), torch.exp(ds - mx)
+    l = K * ed + es
+    return (ed / l)[:, None] * usum + (es / l)[:, None] * dval
 
 
 def list_backward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
@@ -209,12 +364,15 @@ def _coeff(De=DE):
     return -0.5 / (width * width)
 
 
-def _random_case(seed, redo=False):
+def _random_case(seed, redo=False, copies=False):
     """K1b's arguments (numpy): random masks (not prefixes), a repeated
     neighbour, a real row with no live slot, padded rows (self score -1e9,
     no live slot) of which two have a zero cotangent and one does not; and
     with ``redo`` a padded row with one live slot whose score is far below
-    -1e9 (its max is the self score: its dead slots keep their weight)."""
+    -1e9 (its max is the self score: its dead slots keep their weight); with
+    ``copies`` the three padded rows of graph 1 read the same neighbours at
+    the same distances, as the corpus's padded nodes do (all at the
+    origin): the forward takes the last two as copies of the first."""
     B, N, K = 2, 16, 7
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
@@ -229,6 +387,8 @@ def _random_case(seed, redo=False):
               *_weights(rng, DE, KD, VD)]
     g = f(B, N, H * VD)
     g[1, N - 2:] = 0.0
+    if copies:
+        nbr[1, N - 2:], arrays[5][1, N - 2:] = nbr[1, N - 3], arrays[5][1, N - 3]
     if redo:
         ds[0, 9], mask[0, 9] = -1e9, False
         mask[0, 9, 4] = True
@@ -279,6 +439,7 @@ def _mha_case():
 
 CASES = {"random": lambda: (*_random_case(41), _coeff()),
          "redo": lambda: (*_random_case(43, redo=True), _coeff()),
+         "copies": lambda: (*_random_case(59, copies=True), _coeff()),
          "mha": lambda: (lambda a, g, c: (a, g, c))(*_mha_case())}
 
 
@@ -330,6 +491,28 @@ def _close_all(got, want, what):
                                    err_msg=f"{what}: {name}")
 
 
+
+def _close_out(got, want, what):
+    want = np.asarray(want)
+    scale = max(1e-6, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=2e-5 * scale, rtol=1e-5,
+                               err_msg=what)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(name, form):
+    """JAX's neighbor_attn_fused or neighbor_attn_hybrid (Pallas, interpret
+    mode) on the case's inputs."""
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.neighbor_attn import neighbor_attn_fused, neighbor_attn_hybrid
+
+    arrays, _, coeff = _case(name)
+    fn = neighbor_attn_hybrid if form == "gathered" else neighbor_attn_fused
+    with compute_dtype_scope("float32"):
+        return np.asarray(fn(*map(jnp.asarray, arrays), coeff, True))
+
 # (blocks, tile, tile_rows): one block and the kernel's tiles; three blocks
 # and tiles small enough that rows split across many (K 7 <= 8 slots); one
 # row a tile, as the CUDA-core instance takes them (a node at a time, a row
@@ -359,7 +542,7 @@ def test_list_algorithm_matches_plain_and_jax(name, form, blocks, tile, tile_row
     plain = k1.neighbor_attn_hybrid_bwd_plain if form == "gathered" else k1.neighbor_attn_bwd_plain
     _close_all(got, plain(*args), "vs plain")
     _close_all(got, _jax_reference(name, form), "vs JAX")
-    if name == "random":  # the padded row with a cotangent is taken again, whole
+    if name in ("random", "copies"):  # the padded row with a cotangent is taken again, whole
         assert stats["zero"] == 2 and stats["redone"] == 1
     elif name == "redo":  # and the live row whose score is far below -1e9
         assert stats["zero"] == 2 and stats["redone"] == 2
@@ -387,3 +570,62 @@ def test_rows_without_a_live_slot_follow_the_float32_underflow():
     got = list_backward(*args, stats=stats)
     assert stats == {"zero": 0, "redone": 2}
     _close_all(got, neighbor_attn_bwd_plain(*args), "vs plain")
+
+
+@pytest.mark.parametrize("blocks,tile,tile_rows", TILINGS)
+@pytest.mark.parametrize("form", ["list", "gathered"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_list_forward_matches_plain_and_jax(name, form, blocks, tile, tile_rows):
+    """The list forms' forward algorithm == the all-slots plain twin and
+    JAX's Pallas kernel, every row: random masks (not prefixes) with a
+    repeated neighbour, padded rows (self score -1e9, no live slot:
+    dead-weighted, their softmax uniform) and a real row with no live slot
+    (out = dval); a live row whose score sits far below -1e9, taken again
+    whole; the inputs of a small NeighborGraphMHA. Tiles of 8 slots and 3
+    rows put the tile boundaries between many rows; one row a tile takes a
+    row taken again right after it. No row is left unwritten (the output
+    starts as NaN)."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    arrays, g, coeff = _case(name)
+    args = _form_args(arrays, g, coeff, form)[:-1]
+    stats = {}
+    got = list_forward(*args, gathered=form == "gathered", blocks=blocks, tile=tile,
+                       tile_rows=tile_rows, stats=stats)
+    assert not bool(torch.isnan(got).any())
+    plain = k1.neighbor_attn_hybrid_plain if form == "gathered" else k1.neighbor_attn_plain
+    want = plain(*(args[:3] + args[4:]) if form == "gathered" else args)
+    _close_out(got, want, "vs plain")
+    _close_out(got, _jax_forward(name, form), "vs JAX")
+    B, N, K = arrays[4].shape
+    padded = {"random": 3, "redo": 3, "mha": 4, "copies": 3}[name]
+    copied = 2 if name == "copies" else 0
+    redone = 1 if name == "redo" else 0
+    assert (stats["dead"], stats["copied"], stats["redone"]) == (padded - copied, copied, redone)
+    assert stats["live"] + stats["dead"] + stats["copied"] + stats["redone"] == B * N
+    live_slots = int(arrays[4].sum()) + redone * K
+    assert stats["slots"] == live_slots + (padded - copied) * K
+
+
+def test_forward_rows_without_a_live_slot_follow_the_float32_underflow():
+    """A row with no live slot is dead-weighted exactly when exp(-1e9 - m)
+    is not 0 in float32 in some head (m the larger of the self score and
+    -1e9): a self score of -1e9 (a padded row) or below, not one 200 above,
+    nor a finite one (there out = dval); either way the output is the plain
+    twin's."""
+    from singa_tpu_torch.ops.cuda.neighbor_attn import neighbor_attn_plain
+
+    rng = np.random.default_rng(53)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    B, N, K = 1, 4, 3
+    ds = np.array([[[-1e9, 0.3], [-2e9, -1e9], [-1e9 + 200, 1.0], [0.5, -0.5]]], np.float32)
+    arrays = [f(B, N, H * KD), f(B, N, H * KD), f(B, N, H * VD),
+              rng.integers(0, N, size=(B, N, K)).astype(np.int32), np.zeros((B, N, K), bool),
+              rng.uniform(0.5, 14.0, size=(B, N, K)).astype(np.float32), ds, f(B, N, H * VD),
+              *_weights(rng, DE, KD, VD)]
+    args = _form_args(arrays, f(B, N, H * VD), _coeff(), "list")[:-1]
+    stats = {}
+    got = list_forward(*args, stats=stats)
+    assert stats == {"live": 2, "dead": 2, "redone": 0, "slots": 2 * K, "copied": 0}
+    _close_out(got, neighbor_attn_plain(*args), "vs plain")
+    torch.testing.assert_close(got[0, 2:], args[7][0, 2:], atol=0, rtol=0)

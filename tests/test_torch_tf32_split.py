@@ -30,7 +30,9 @@ lmax 6 and 4, H 512, C and Co of 16 or 8. K4's forward with every product
 its tensor-core kernel splits (``k4_split``: h, the two grid transforms in
 the grid's two halves, y per 16-channel chunk) is within 1e-5 of its
 largest output of ``so3_ffn_plain``; with one TF32 product each it fails
-the 1e-4 hold the kernel meets.
+the 1e-4 hold the kernel meets. K1's forward with its EdgeMLP products split
+(``k1_split``) is within 1e-5 of its largest output of
+``neighbor_attn_plain``; with one TF32 product each it fails that hold too.
 """
 from __future__ import annotations
 
@@ -245,6 +247,20 @@ def k2b_split(x, w1, b1, wg, bg, w2, lmax, dy, mm=mm_split):
         dx[0] += mm(dg0_x[:, :, c], wgl[:, :, c].transpose(1, 2)).sum(0)
     return (dx.transpose(0, 1), dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2,
             dy[:, 0].sum(0))
+
+
+def k1_split(*args, mm=mm_split):
+    """K1's forward (``neighbor_attn_plain``'s arguments and output) as its
+    tensor-core kernel takes it (``tests/test_torch_list_live.py``'s
+    rendering: live slots and the dead-weighted rows' slots packed into
+    tiles of at most 128 slot rows), with the products the kernel runs on
+    the tensor cores through ``mm`` (split TF32 by default; ``mm_tf32`` for
+    one TF32 product): both EdgeMLPs on the live slots (depth De, then kd or
+    vd), the v-EdgeMLP alone on the dead-weighted rows' slots. The scores,
+    the softmax and the aggregate in plain float32."""
+    from test_torch_list_live import list_forward
+
+    return list_forward(*args, mm=mm)
 
 
 def k1b_split(*args, mm=mm_split):
@@ -506,3 +522,23 @@ def test_k1b_split_matches_plain_backward():
     assert max(split.values()) <= 1e-5, split
     for name in names:
         assert one[name] >= 30 * split[name], (name, one[name], split[name])
+
+
+def test_k1_split_matches_plain_forward():
+    """K1's output with the kernel's EdgeMLP products in split TF32
+    (``k1_split``), at the encoder's widths (H 4, kd 32, vd 64, De 64), K 24,
+    random masks, a padded row (dead-weighted) and a real row with no live
+    slot: within 1e-5 of its largest magnitude of ``neighbor_attn_plain``
+    (float32). With one TF32 product in their place it fails the 1e-4 hold
+    (atol and rtol 1e-4) that ``chip_smoke.py`` holds the kernel to."""
+    from test_torch_cuda import _random_list_case
+
+    from singa_tpu_torch.ops.cuda.neighbor_attn import neighbor_attn_plain
+
+    args = _random_list_case("cpu", 2, 40, 24, 167)[:-1]
+    want = neighbor_attn_plain(*args)
+    split_err = rel_errs([k1_split(*args)], [want], ["out"])["out"]
+    one = k1_split(*args, mm=mm_tf32)
+    hold_ratio = ((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    assert split_err <= 1e-5, split_err
+    assert hold_ratio > 1.0, hold_ratio
