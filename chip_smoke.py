@@ -18,8 +18,10 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               (``k1_ptxas``: the tile kernel and the CUDA-core instance),
               K1b's and K7b's, K8's, K8b's, K4's
               (its tensor-core kernel's instances) and K4b's kernels, of
-              K2b's kernels (dx, weight, split) and of the GEMM kernels of
-              K6 and K6b (of the sources this run compiled)
+              K2's (``k2_ptxas``: its tensor-core kernel's instances and
+              split at 16 channels, and its CUDA-core instance), of K2b's
+              kernels (dx, weight, split) and of the GEMM kernels of K6 and
+              K6b (of the sources this run compiled)
      mma_rate the card's mma.sync TF32 rate (csrc/mma_tf32.cu), the
               ceiling of the tensor-core kernels, a third of it for split
               TF32
@@ -33,7 +35,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               PyTorch version on the card (max error vs the stated
               tolerance), kernel_ms / plain_ms (CUDA events, median of 20
               after warm-up) and bound_ms (the larger of bytes over 3.35 TB/s
-              and float32 operations over 67 TFLOP/s)
+              and float32 operations over 67 TFLOP/s); K2's lines also hold
+              and time its CUDA-core instance at the same call
+              (``cuda_cores``)
   4. main     default Config(), seeded weights on cuda, the first 8 sorted
               val pockets through generate_for_pocket (20 beams, max length
               200, grammar mask, length penalty 0.7): launch counts per
@@ -92,7 +96,8 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               SM clock, power and temperature nvidia-smi sampled meanwhile;
               train_profile_s2 also K4's two kernels by name
               (``k4_kernels``: the tensor-core kernel and the split of its
-              weights)
+              weights), and every train_profile* phase whose path runs K2
+              K2's (``k2_kernels``: the same two)
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
               card run at the same inputs as a witness of the card's own
@@ -152,29 +157,31 @@ of its dead-weighted rows' slots. K1's and K7's operations are those of
 the live slots and of the dead-weighted rows' slots (the v-EdgeMLP, smear
 and aggregate; a row that copies the row before's inputs costs none);
 ``bound_live_only_ms`` beside them counts the live pairs alone. The entries of
-K1, K7, K1b, K7b, K2b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
+K1, K7, K1b, K7b, K2, K2b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
 ``split_tf32_flops`` (per launch): the larger of
 the operations that run as split TF32 (K1's and K7's EdgeMLPs on live
 slots and their v-EdgeMLP on the dead-weighted rows' slots; K1b's and
 K7b's EdgeMLPs, dh and
-four weight gradients, once per live pair; K2b's five per-degree products
+four weight gradients, once per live pair; K2's h, y and gates, all of
+its work; K2b's five per-degree products
 h, dmid, dx, dw1, dw2 and its gates and row-0 gate term; K4's h, y and
 two grid transforms, but at lmax 6 their last coefficient row; K4b's four
 grid transforms; K6's
 and K6b's conv and weight-gradient products, the GEMM of
 csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
 rest over 67 TFLOP/s, since the two units issue together, or the bytes
-over 3.35 TB/s if that is larger. K1's, K7's, K1b's, K7b's, K2b's, K4's
-and K4b's also have the ptxas report and the residency (blocks per SM,
+over 3.35 TB/s if that is larger. K1's, K7's, K1b's, K7b's, K2's, K2b's,
+K4's and K4b's also have the ptxas report and the residency (blocks per SM,
 threads, dynamic shared memory per block) of their tensor-core kernel (K2b: of its weight
-kernel, and of its dx kernel as ``dx_residency``; K4: at the training
-microbatch's widths, which must take it); K6's and
+kernel, and of its dx kernel as ``dx_residency``; K2 and K4: at the
+training microbatch's widths, which must take it; K2 also ``cuda_cores_ms``,
+its CUDA-core instance at the same calls); K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
 ``gemm_residency``), and train_profile_so2 reports those kernels' device
 time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
-runs in full float32 (K1b's and K7b's EdgeMLP products, K2b's products,
+runs in full float32 (K1b's and K7b's EdgeMLP products, K2's and K2b's products,
 K4's grid transforms and per-degree products, K4b's grid transforms,
 K1's and K7's EdgeMLPs and K6's and K6b's products run as split TF32
 inside the kernels,
@@ -242,6 +249,9 @@ K1_KERNELS = ("list_fwd_tile_kernel", "list_fwd_plan_kernel", "list_fwd_copy_ker
 # K4's kernels in a profile (csrc/so3_ffn.cu): the tensor-core kernel and the
 # split of its weights, two launches for each K4 call
 K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
+# K2's kernels in a profile (csrc/so3_gate_ffn.cu): the tensor-core kernel and
+# the split of its weights, two launches for each K2 call
+K2_KERNELS = ("gate_ffn_tc_kernel", "gate_ffn_wsplit_kernel")
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 
 
@@ -450,6 +460,29 @@ def k2_cost(args, out):
     H, Co = w1.shape[2], w2.shape[2]
     flops = 2.0 * N * (I * C * H + C * lmax * H + I * H * Co)
     return nbytes(x, w1, b1, wg, bg, w2, b2, out), flops
+
+
+def k2_split_flops(args) -> float:
+    """The operations of K2 that its tensor-core kernel (the one every call
+    of the gate paths takes) runs as split TF32: h and y, 2·N·I·H·(C + Co),
+    and the gates, 2·N·C·lmax·H: all of them."""
+    x, w1, _, _, _, w2, _, lmax = args
+    N, I, C = x.shape
+    H, Co = w1.shape[2], w2.shape[2]
+    return 2.0 * N * (I * H * (C + Co) + C * lmax * H)
+
+
+def k2_report(spec, mod, args, kw) -> dict:
+    """K2's CUDA-core instance, which the widths the tensor-core kernel
+    does not take run, at the same call (``cuda_cores``: its time, and its
+    output against the plain version as ``hold`` holds the kernel)."""
+    cuda_cores = lambda: mod.so3_gate_ffn_cuda(*args, **kw, cuda_cores=True)
+    with torch.no_grad():
+        got, want = cuda_cores(), mod.so3_gate_ffn_plain(*args)
+        err = (got - want).abs().max().item()
+        ok = bool(torch.allclose(got, want, **TOL))
+        ms = time_ms(cuda_cores)
+    return {"cuda_cores": {"ms": ms, "max_abs_err": err, "tolerance": TOL, "ok": ok}}
 
 
 def pair_flops(H: int, kd: int, vd: int, De: int) -> tuple[float, float]:
@@ -877,7 +910,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            k1_cost, None, k1_split_flops, list_fwd_report),
     Kernel("so3_gate_ffn_fused", "so3_ffn", "so3_gate_ffn", "launches",
            "singa_tpu_torch/csrc/so3_gate_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:497",
-           k2_cost, None),
+           k2_cost, None, k2_split_flops, k2_report),
     Kernel("s2_silu_sep", "s2_act", "s2_silu_sep", "launches",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None),
     Kernel("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd", "launches_bwd",
@@ -1163,6 +1196,13 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(*widths)
             results[K2B.name]["dx_residency"] = mods["so3_ffn"].gate_bwd_residency(*widths,
                                                                                   dx=True)
+        if K2 in specs:  # K2's tensor-core kernel at the microbatch's widths: it takes the call
+            x, w1, _, _, _, w2, _, lmax = next(iter(captured["so3_gate_ffn_cuda"].values()))[0]
+            widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
+            instance = mods["so3_ffn"].so3_gate_ffn_instance(*widths)
+            if instance != "tensor_cores":
+                raise AssertionError(f"K2 at {widths} runs {instance}, not the tensor-core kernel")
+            results[K2.name]["residency"] = mods["so3_ffn"].gate_fwd_residency(*widths)
         if K4 in specs:  # K4's tensor-core kernel at the microbatch's widths: it takes the call
             x, w1, _, _, _, w2, _, tg, _, lmax = next(iter(captured["so3_ffn_cuda"].values()))[0]
             widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
@@ -1225,11 +1265,12 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         runs_k1b = per_step.get(K1B.name, 0) + per_step.get(K7B.name, 0) > 0
         runs_k1 = per_step.get(K1.name, 0) + per_step.get(K7.name, 0) > 0
         runs_k4 = per_step.get(K4.name, 0) > 0
+        runs_k2 = per_step.get(K2.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b
                                   + K1B_KERNELS * runs_k1b + K1_KERNELS * runs_k1
-                                  + K4_KERNELS * runs_k4)
+                                  + K4_KERNELS * runs_k4 + K2_KERNELS * runs_k2)
         extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
             ms = prof["matched"][SO2_GEMM]["device_ms"]
@@ -1244,6 +1285,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k1_kernels"] = {n: prof["matched"][n] for n in K1_KERNELS}
         if runs_k4:  # K4's kernels by name
             extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
+        if runs_k2:  # K2's kernels by name
+            extra["k2_kernels"] = {n: prof["matched"][n] for n in K2_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
         data.close()
 
@@ -1603,6 +1646,10 @@ def main() -> int:
                 if "ffn_tc_kernel" in k}  # the tensor-core kernel's instances
     k2b_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn_bwd"]).items()
                  if "gate_ffn_bwd_" in k}  # the dx, weight and split kernels
+    # K2's tensor-core kernel (its instances for every row count) and split at
+    # 16 channels in and out, and its CUDA-core instance
+    k2_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn"]).items()
+                if "ILi16ELi16E" in k or "cc15gate_ffn_kernel" in k}
     gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
                   for n in ("so2_attn", "so2_attn_bwd")}
     # the pair kernels of K1b (form 0: ILi0E) and of K7b (form 1: ILi1E):
@@ -1619,7 +1666,8 @@ def main() -> int:
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
-          "k4_ptxas": k4_ptxas, "k4b_ptxas": k4b_ptxas, "k2b_ptxas": k2b_ptxas,
+          "k4_ptxas": k4_ptxas, "k4b_ptxas": k4b_ptxas, "k2_ptxas": k2_ptxas,
+          "k2b_ptxas": k2b_ptxas,
           "so2_gemm_ptxas": gemm_ptxas,
           "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas})
 
@@ -1730,6 +1778,7 @@ def main() -> int:
 
     results[K4.name]["ptxas"] = k4_ptxas
     results[K4B.name]["ptxas"] = k4b_ptxas
+    results[K2.name]["ptxas"] = k2_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form
         results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid)

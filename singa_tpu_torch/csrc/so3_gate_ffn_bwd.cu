@@ -31,11 +31,12 @@
 // the TPU kernel recomputes them in VMEM. The TPU kernel added the weight
 // gradients of every node tile into one resident output along its
 // sequential grid; Hopper's blocks run in no order, so the work is split:
-//   * the split kernel writes, once a call, each hidden chunk of kDHC
+//   * the split kernel writes, once a call, each hidden chunk of kHC
 //     channels of w1, w2 and wg as the dx kernel's B fragments, split into
-//     TF32 hi and lo, then the chunk's b1 and bg (dx_layout): one block of
-//     words a chunk, which the dx kernel copies as it is.
-//   * the dx kernel: one block of 12 warps per tile of kDTN = 16 nodes, the
+//     TF32 hi and lo, then the chunk's b1 and bg (chunk_layout<true> of
+//     csrc/gate_ffn_tc.cuh, which K2's forward shares): one block of words
+//     a chunk, which the dx kernel copies as it is.
+//   * the dx kernel: one block of 12 warps per tile of kTN = 16 nodes, the
 //     m16 of every product; warp w owns the coefficient rows
 //     [w I / 12, (w + 1) I / 12) and keeps their dx as float32 sums in
 //     registers over the whole hidden dimension. It walks the hidden chunks;
@@ -60,7 +61,7 @@
 //     share needs no sum across warps until the end, where row 0's terms
 //     from the warps are added in warp order through shared memory. The
 //     products of one row (or of row 0's term) in one chunk start from zero
-//     on the tensor cores (chains of at most 3 (C / 8) and 3 kDHC / 8 mma)
+//     on the tensor cores (chains of at most 3 (C / 8) and 3 kHC / 8 mma)
 //     and are added to the float32 sums (so2_chain.cuh: the tensor cores cut
 //     low bits as they accumulate).
 //   * the weight kernel: one block per (hidden chunk of kWHC, slice of the
@@ -75,10 +76,11 @@
 // which makes every term they add to a gradient exactly zero, and the dx
 // kernel writes nothing for them; hidden channels past H get zero weights and
 // biases, which add nothing.
-#include "common.cuh"
-#include "mma_tf32.cuh"
+#include "gate_ffn_tc.cuh"
 
 namespace {
+
+using singa::gate::cp_async16;
 
 struct Dims {
   int N, lmax, L, I, C, H, Co;
@@ -184,11 +186,6 @@ __device__ void degree_group(int lmax, int group, int (&deg)[kSlots]) {
       ++n;
     }
   }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src), "r"(bytes));
 }
 
 // x and dy of the tile at node n0 into one stage: x [i][node][w_ld(C)], then
@@ -518,165 +515,35 @@ WKernel w_kernel(int C, int Co) {
 // registers a thread spill the dx sums.
 constexpr int kDThreads = 384;  // 12 warps
 constexpr int kDWarps = kDThreads / 32;
-constexpr int kDTN = 16;            // nodes of a tile: the m16 of every product
-constexpr int kDHC = 16;            // hidden channels of a chunk
-constexpr int kDNB = kDHC / 8;      // its n8 blocks
-constexpr int kDMaxRows = 6;        // rows of a warp: I <= 64 over 12 warps
-constexpr int kFragWords = 32 * 4;  // one B fragment, split: [lane][hi b0, hi b1, lo b0, lo b1]
+constexpr int kDMaxRows = 6;    // rows of a warp: I <= 64 over 12 warps
+using singa::gate::ChunkLayout;
+using singa::gate::frag_pre;
+using singa::gate::frag_tile;
+using singa::gate::gates;
+using singa::gate::kFragWords;
+using singa::gate::kHC;
+using singa::gate::kNB;
+using singa::gate::kTN;
 static_assert((64 + kDWarps - 1) / kDWarps <= kDMaxRows, "a warp's rows must fit kDMaxRows");
 static_assert(kDWarps >= 7, "one warp for each degree's gates");
 
-// One hidden chunk's words, fragments first, in this order:
-//   w1 as h's B      [l][k step][n8 block]   k = c (paired), n = hidden
-//   w2 as dmid's B   [l][k step][n8 block]   k = o (paired), n = hidden
-//   w1 as dx's B     [l][n8 block][n8 of c]  k = hidden (paired), n = c
-//   wg as the gates' B [l - 1][k step][n8 block]  k = c (paired), n = hidden
-// then the chunk's b1 [kDHC] and bg [lmax][kDHC] as floats. "Paired": k
-// slots t and t + 4 of a lane take the columns 2 t and 2 t + 1 of the k
-// step, as frag_a_paired and frag_a_from_c give them (mma_tf32.cuh).
-struct DxLayout {
-  int w2, w1t, wg, frags;  // fragment offsets
-  int b1, bg, words;       // word offsets, and the words of a chunk
-};
-
-__host__ __device__ inline DxLayout dx_layout(int lmax, int C, int Co) {
-  const int KC = C / 8, KO = Co / 8, L = lmax + 1;
-  DxLayout o;
-  o.w2 = L * KC * kDNB;
-  o.w1t = o.w2 + L * KO * kDNB;
-  o.wg = o.w1t + L * kDNB * KC;
-  o.frags = o.wg + lmax * KC * kDNB;
-  o.b1 = o.frags * kFragWords;
-  o.bg = o.b1 + kDHC;
-  o.words = o.bg + lmax * kDHC;  // a multiple of 4: each chunk is 16-byte aligned
-  return o;
-}
-
-// Every chunk's words (dx_layout), one lane of one fragment (or one bias)
-// per item: the weights split into TF32 hi and lo once a call.
+// Every chunk's words (the layout chunk_layout<true>): the weights split
+// into TF32 hi and lo once a call (gate_ffn_tc.cuh).
 template <int C, int Co>
 __global__ void gate_ffn_bwd_wsplit_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                                            const float* __restrict__ wg, const float* __restrict__ bg,
                                            const float* __restrict__ w2, uint32_t* __restrict__ out,
                                            int lmax, int H) {
-  constexpr int KC = C / 8, KO = Co / 8, NB = kDNB;
-  const DxLayout o = dx_layout(lmax, C, Co);
-  const int items = o.frags * 32 + (o.words - o.b1);
-  const long long total = (long long)((H + kDHC - 1) / kDHC) * items;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int chunk = (int)(e / items), r = (int)(e % items), h0 = chunk * kDHC;
-    uint32_t* blk = out + (long long)chunk * o.words;
-    if (r >= o.frags * 32) {  // b1, then bg of degrees 1 .. lmax
-      const int b = r - o.frags * 32, h = h0 + b % kDHC, which = b / kDHC;
-      float v = 0.f;
-      if (h < H) v = which == 0 ? b1[h] : bg[(long long)(which - 1) * H + h];
-      blk[o.b1 + b] = __float_as_uint(v);
-      continue;
-    }
-    const int f = r / 32, lane = r % 32, g = lane >> 2, t = lane & 3;
-    float v[2] = {0.f, 0.f};  // the lane's b0 and b1: k = 2 t and 2 t + 1 of the step
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      if (f < o.w2) {
-        const int l = f / (KC * NB), ks = f / NB % KC, j = f % NB;
-        const int h = h0 + 8 * j + g, c = 8 * ks + 2 * t + p;
-        if (h < H) v[p] = w1[((long long)l * C + c) * H + h];
-      } else if (f < o.w1t) {
-        const int q = f - o.w2, l = q / (KO * NB), ks = q / NB % KO, j = q % NB;
-        const int h = h0 + 8 * j + g, c = 8 * ks + 2 * t + p;
-        if (h < H) v[p] = w2[((long long)l * H + h) * Co + c];
-      } else if (f < o.wg) {
-        const int q = f - o.w1t, l = q / (NB * KC), j = q / KC % NB, nt = q % KC;
-        const int h = h0 + 8 * j + 2 * t + p, c = 8 * nt + g;
-        if (h < H) v[p] = w1[((long long)l * C + c) * H + h];
-      } else {
-        const int q = f - o.wg, l1 = q / (KC * NB), ks = q / NB % KC, j = q % NB;
-        const int h = h0 + 8 * j + g, c = 8 * ks + 2 * t + p;
-        if (h < H) v[p] = wg[(long long)c * lmax * H + (long long)l1 * H + h];
-      }
-    }
-    uint32_t hi0, lo0, hi1, lo1;
-    singa::tc::split(v[0], hi0, lo0);
-    singa::tc::split(v[1], hi1, lo1);
-    *reinterpret_cast<uint4*>(blk + f * kFragWords + lane * 4) = make_uint4(hi0, hi1, lo0, lo1);
-  }
+  singa::gate::split_chunks<C, Co, true>(w1, b1, wg, bg, w2, out, lmax, H);
 }
 
-// The column swizzle of a node's row in the tile: at width 16, columns
-// 8..15 and 0..7 trade places on nodes 2, 3 (mod 4), so that frag_a_paired's
-// 8-byte loads (nodes g, columns 2 t) are conflict-free; width 8 needs none.
-template <int W>
-__device__ __forceinline__ int swz(int node) {
-  return W == 16 ? 8 * ((node >> 1) & 1) : 0;
-}
-
-// x and dy of the tile at node n0 by cp.async: sx [I][kDTN][C], sy
-// [I][kDTN][Co] (swizzled), zeros past N. One commit group with the caller's.
+// x and dy of the tile at node n0 by cp.async: sx [I][kTN][C], sy
+// [I][kTN][Co] (swizzled), zeros past N. One commit group with the caller's.
 template <int C, int Co>
 __device__ void copy_dx_tile(const float* __restrict__ x, const float* __restrict__ dy, int n0,
                              const Dims& d, float* sx, float* sy) {
-  constexpr int QX = C / 4, QY = Co / 4;  // 16-byte pieces of a row
-  const int nx = kDTN * d.I * QX;
-  for (int q = threadIdx.x; q < nx + kDTN * d.I * QY; q += kDThreads) {
-    const bool isy = q >= nx;
-    const int r = isy ? q - nx : q, pieces = isy ? QY : QX, w = isy ? Co : C;
-    const int n = r / (d.I * pieces), i = r / pieces % d.I, c = 4 * (r % pieces);
-    const float* base = isy ? dy : x;
-    const bool ok = n0 + n < d.N;
-    float* dst = (isy ? sy : sx) + (i * kDTN + n) * w + (c ^ (isy ? swz<Co>(n) : swz<C>(n)));
-    cp_async16(dst, ok ? base + ((long long)(n0 + n) * d.I + i) * w + c : base, ok ? 16 : 0);
-  }
-}
-
-// The words of hidden chunk `chunk` into a stage of the ring; commits.
-__device__ void copy_chunk(const uint32_t* __restrict__ wfrag, int chunk, int words, uint32_t* stage) {
-  const float* src = reinterpret_cast<const float*>(wfrag) + (long long)chunk * words;
-  float* dst = reinterpret_cast<float*>(stage);
-  for (int q = threadIdx.x; q < words / 4; q += kDThreads) cp_async16(dst + 4 * q, src + 4 * q, 16);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// The lane's share of one split B fragment
-__device__ __forceinline__ singa::tc::FragB frag_pre(const uint32_t* frag) {
-  const uint4 v = *reinterpret_cast<const uint4*>(frag + 4 * (threadIdx.x & 31));
-  return singa::tc::FragB{{v.x, v.y}, {v.z, v.w}};
-}
-
-// k step ks of the 16 nodes' rows (one coefficient row of the tile) as A
-// (m = node, k = channel, paired), split
-template <int W>
-__device__ __forceinline__ singa::tc::FragA frag_tile(const float* rows, int ks) {
-  return singa::tc::frag_a_paired(rows + ((8 * ks) ^ swz<W>(singa::tc::lane_grp())), W);
-}
-
-// The gates of degree l >= 1 at the tile's nodes and the chunk's channels,
-// sigmoid(x_0 wg_l + bg_l) with the product split, into sgate [lmax][n8
-// block][lane] as the lane's C fragment (node g + 8 (q >> 1), channel
-// 8 j + 2 t + (q & 1)).
-template <int C>
-__device__ __forceinline__ void gates(const float* sx, const uint32_t* wgf, const float* cbg, int l,
-                                      float* sgate) {
-  using namespace singa::tc;
-  constexpr int KC = C / 8, NB = kDNB;
-  const int t = lane_tig();
-  FragA xa[KC];
-#pragma unroll
-  for (int ks = 0; ks < KC; ++ks) xa[ks] = frag_tile<C>(sx, ks);  // row 0
-  const uint32_t* f = wgf + (l - 1) * KC * NB * kFragWords;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    float z[4] = {};
-    FragB b[KC];
-#pragma unroll
-    for (int ks = 0; ks < KC; ++ks) b[ks] = frag_pre(f + (ks * NB + j) * kFragWords);
-#pragma unroll
-    for (int ks = 0; ks < KC; ++ks) mma3(z, xa[ks], b[ks]);
-    const float* bias = cbg + (l - 1) * kDHC + 8 * j + 2 * t;
-    *reinterpret_cast<float4*>(sgate + (((l - 1) * NB + j) * 32 + (threadIdx.x & 31)) * 4) =
-        make_float4(singa::sigmoidf_(z[0] + bias[0]), singa::sigmoidf_(z[1] + bias[1]),
-                    singa::sigmoidf_(z[2] + bias[0]), singa::sigmoidf_(z[3] + bias[1]));
-  }
+  singa::gate::copy_tile_rows<C, kDThreads>(x, n0, d.I, d.N, sx);
+  singa::gate::copy_tile_rows<Co, kDThreads>(dy, n0, d.I, d.N, sy);
 }
 
 // Row 0's term of degree l from the warp's rows of l: dg0 = gate (1 - gate)
@@ -685,10 +552,10 @@ __device__ __forceinline__ void gates(const float* sx, const uint32_t* wgf, cons
 // lane (g, t) takes k slot t from lane 8 t + (g >> 1) and slot t + 4 from
 // lane 8 t + 4 + (g >> 1), their register g & 1.
 template <int C>
-__device__ __forceinline__ void gate_term(const uint32_t* wgf, int l, const float (&gate)[kDNB][4],
-                                          const float (&dgate)[kDNB][4], float (&part0)[C / 8][4]) {
+__device__ __forceinline__ void gate_term(const uint32_t* wgf, int l, const float (&gate)[kNB][4],
+                                          const float (&dgate)[kNB][4], float (&part0)[C / 8][4]) {
   using namespace singa::tc;
-  constexpr int KC = C / 8, NB = kDNB;
+  constexpr int KC = C / 8, NB = kNB;
   const uint32_t* f = wgf + (l - 1) * KC * NB * kFragWords;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
@@ -719,11 +586,11 @@ __device__ __forceinline__ void gate_term(const uint32_t* wgf, int l, const floa
 // C fragments (dgate += dmid h where l >= 1), and pdx += dh w1[l]^T.
 template <int C, int Co>
 __device__ __forceinline__ void row_dx(const float* xi, const float* yi, const uint32_t* st,
-                                       const DxLayout& o, const float* cb1, int l,
-                                       const float (&gate)[kDNB][4], float (&dgate)[kDNB][4],
+                                       const ChunkLayout& o, const float* cb1, int l,
+                                       const float (&gate)[kNB][4], float (&dgate)[kNB][4],
                                        float (&pdx)[C / 8][4]) {
   using namespace singa::tc;
-  constexpr int KC = C / 8, KO = Co / 8, K = KC > KO ? KC : KO, NB = kDNB;
+  constexpr int KC = C / 8, KO = Co / 8, K = KC > KO ? KC : KO, NB = kNB;
   const int t = lane_tig();
   FragA xa[KC], ya[KO];
 #pragma unroll
@@ -782,21 +649,21 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
   constexpr int KC = C / 8;
   const Dims d = make_dims(N, lmax, C, H, Co);
   const int I = d.I;
-  const DxLayout o = dx_layout(lmax, C, Co);
+  const ChunkLayout o = singa::gate::chunk_layout<true>(lmax, C, Co);
   extern __shared__ __align__(16) float smem[];
-  float* sx = smem;                                                  // [I][kDTN][C]
-  float* sy = sx + I * kDTN * C;                                     // [I][kDTN][Co]
-  uint32_t* ring = reinterpret_cast<uint32_t*>(sy + I * kDTN * Co);  // [2][o.words]
-  float* sgate = reinterpret_cast<float*>(ring + 2 * o.words);       // [lmax][kDNB][32][4]
-  const int chunks = (H + kDHC - 1) / kDHC;
-  const int n0 = blockIdx.x * kDTN;
+  float* sx = smem;                                                 // [I][kTN][C]
+  float* sy = sx + I * kTN * C;                                     // [I][kTN][Co]
+  uint32_t* ring = reinterpret_cast<uint32_t*>(sy + I * kTN * Co);  // [2][o.words]
+  float* sgate = reinterpret_cast<float*>(ring + 2 * o.words);      // [lmax][kNB][32][4]
+  const int chunks = (H + kHC - 1) / kHC;
+  const int n0 = blockIdx.x * kTN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = singa::tc::lane_grp(), t = singa::tc::lane_tig();
   const int r0 = warp * I / kDWarps, r1 = (warp + 1) * I / kDWarps;  // the warp's rows
 
   copy_dx_tile<C, Co>(x, dy, n0, d, sx, sy);
   asm volatile("cp.async.commit_group;\n" ::);
-  copy_chunk(wfrag, 0, o.words, ring);
+  singa::gate::copy_chunk<kDThreads>(wfrag, 0, o.words, ring);
 
   float acc[kDMaxRows][KC][4] = {};  // dx of the warp's rows, c fragments (node, c)
   float acc0[KC][4] = {};            // row 0's gate terms from the warp's rows
@@ -804,14 +671,15 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
     const uint32_t* st = ring + (k & 1) * o.words;
     asm volatile("cp.async.wait_group 0;\n" ::);  // this chunk (and the tile): this thread's copies
     __syncthreads();  // everyone's; and every warp is done with the stage the next copy fills
-    if (k + 1 < chunks) copy_chunk(wfrag, k + 1, o.words, ring + ((k + 1) & 1) * o.words);
+    if (k + 1 < chunks)
+      singa::gate::copy_chunk<kDThreads>(wfrag, k + 1, o.words, ring + ((k + 1) & 1) * o.words);
     const float* cb1 = reinterpret_cast<const float*>(st + o.b1);
     const float* cbg = reinterpret_cast<const float*>(st + o.bg);
     const uint32_t* wgf = st + o.wg * kFragWords;
     if (warp < lmax) gates<C>(sx, wgf, cbg, warp + 1, sgate);  // the chunk's gates, a degree a warp
     __syncthreads();
     float part0[KC][4] = {};  // this chunk's row-0 terms, from zero
-    float gate[kDNB][4] = {}, dgate[kDNB][4] = {};
+    float gate[kNB][4] = {}, dgate[kNB][4] = {};
     int cur = -1;  // the degree whose gates are in `gate`
 #pragma unroll
     for (int s = 0; s < kDMaxRows; ++s) {
@@ -823,15 +691,15 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
           cur = l;
           if (l > 0)
 #pragma unroll
-            for (int j = 0; j < kDNB; ++j) {
+            for (int j = 0; j < kNB; ++j) {
               const float4 v =
-                  *reinterpret_cast<const float4*>(sgate + (((l - 1) * kDNB + j) * 32 + lane) * 4);
+                  *reinterpret_cast<const float4*>(sgate + (((l - 1) * kNB + j) * 32 + lane) * 4);
               gate[j][0] = v.x, gate[j][1] = v.y, gate[j][2] = v.z, gate[j][3] = v.w;
               dgate[j][0] = dgate[j][1] = dgate[j][2] = dgate[j][3] = 0.f;
             }
         }
         float pdx[KC][4] = {};  // this row's products in this chunk, from zero
-        row_dx<C, Co>(sx + i * kDTN * C, sy + i * kDTN * Co, st, o, cb1, l, gate, dgate, pdx);
+        row_dx<C, Co>(sx + i * kTN * C, sy + i * kTN * Co, st, o, cb1, l, gate, dgate, pdx);
 #pragma unroll
         for (int nt = 0; nt < KC; ++nt)
 #pragma unroll
@@ -903,8 +771,8 @@ size_t w_smem(const Dims& d) { return w_smem_floats(d) * sizeof(float); }
 // The dx kernel's shared memory: the tile, the ring's two stages and the
 // gates, and at least row 0's terms of the warps at the end
 size_t dx_smem(const Dims& d) {
-  const size_t tile = (size_t)d.I * kDTN * (d.C + d.Co);
-  const size_t ring = 2 * (size_t)dx_layout(d.lmax, d.C, d.Co).words + (size_t)d.lmax * kDNB * 128;
+  const size_t tile = (size_t)d.I * kTN * (d.C + d.Co);
+  const size_t ring = 2 * (size_t)singa::gate::chunk_layout<true>(d.lmax, d.C, d.Co).words + (size_t)d.lmax * kNB * 128;
   const size_t p0 = (size_t)kDThreads * (d.C / 8) * 4;
   return (tile + ring > p0 ? tile + ring : p0) * sizeof(float);
 }
@@ -940,11 +808,11 @@ extern "C" int so3_gate_ffn_bwd_slices(int N, int lmax, int C, int H, int Co) {
 }
 
 // 32-bit words of the dx kernel's split weights (the caller's wfrag
-// buffer): every hidden chunk's block of dx_layout; -1 for shapes the
+// buffer): every hidden chunk's block of chunk_layout<true>; -1 for shapes the
 // kernels do not take.
 extern "C" long long so3_gate_ffn_bwd_dx_words(int lmax, int C, int H, int Co) {
   if (!dims_ok(1, lmax, C, H, Co)) return -1;
-  return (long long)((H + kDHC - 1) / kDHC) * dx_layout(lmax, C, Co).words;
+  return (long long)((H + kHC - 1) / kHC) * singa::gate::chunk_layout<true>(lmax, C, Co).words;
 }
 
 // The weight kernel at these widths: resident blocks per SM (-1: a shape it
@@ -997,14 +865,14 @@ extern "C" int so3_gate_ffn_bwd_f32(const float* x, const float* dy, const float
   err = singa::allow_smem(wk, sb);
   if (err != cudaSuccess) return (int)err;
   uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
-  const DxLayout o = dx_layout(lmax, C, Co);
-  const int dx_chunks = (H + kDHC - 1) / kDHC;
+  const ChunkLayout o = singa::gate::chunk_layout<true>(lmax, C, Co);
+  const int dx_chunks = (H + kHC - 1) / kHC;
   const long long items = (long long)dx_chunks * (o.frags * 32 + (o.words - o.b1));
   const int sgrid = singa::persistent_grid(sk, 256, 0, (items + 255) / 256);
   sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, lmax, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (N + kDTN - 1) / kDTN;
+  const int tiles = (N + kTN - 1) / kTN;
   dk<<<tiles, kDThreads, sa, st>>>(x, dy, frags, dx, N, lmax, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

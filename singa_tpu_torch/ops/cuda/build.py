@@ -110,6 +110,21 @@ def stream_ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def aligned(t):
+    """``t`` itself where its data starts on a 16-byte boundary (or it is
+    None), else a contiguous copy, whose fresh allocation does. The kernels
+    read their inputs with 16-byte loads (``cp.async``, ``float4``), which
+    fault on a contiguous view at a storage offset that is not a multiple of
+    4 floats; with the copy each kernel takes every input the JAX package
+    takes. Each wrapper passes its tensor inputs through it before the
+    launch and keeps the result alive until then."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    import torch
+
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def require(t, name: str, shape: tuple, dtype, device) -> None:
     """Check one kernel argument: device, dtype, shape and contiguity."""
     if t.device != device:

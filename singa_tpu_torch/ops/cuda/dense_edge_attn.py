@@ -172,6 +172,12 @@ def _check_args(qt, k, v, adj_dist, diag_scores, diag_value,
     return B, N, H, kd, vd, De, lists
 
 
+def _aligned(tensors, lists):
+    """``build.aligned`` of each tensor and of each of the lists."""
+    return ([build.aligned(t) for t in tensors],
+            DenseLists(*(build.aligned(t) for t in lists)))
+
+
 def dense_edge_attn_cuda(
     qt, k, v, adj_dist, diag_scores, diag_value,
     centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float, *, lists,
@@ -182,6 +188,7 @@ def dense_edge_attn_cuda(
     args = (qt, k, v, adj_dist, diag_scores, diag_value,
             centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
     B, N, H, kd, vd, De, lists = _check_args(*args, lists)
+    args, lists = _aligned(args, lists)
     out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
     if B * N == 0:
         return out
@@ -206,6 +213,7 @@ def dense_edge_attn_bwd_cuda(*args, lists):
     dev = qt.device
     f32 = torch.float32
     build.require(g, "g", (B, N, H * vd), f32, dev)
+    (*inputs, g), lists = _aligned((*inputs, g), lists)
     empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     dqt, dk = empty(B, N, H * kd), empty(B, N, H * kd)
     dv, dds, ddv = empty(B, N, H * vd), empty(B, N, H), empty(B, N, H * vd)

@@ -291,6 +291,7 @@ def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
         B, N, K, H, kd, vd, De = _check_args(*args[:3], None, *args[3:], gathered=True)
     else:
         B, N, K, H, kd, vd, De = _check_args(*args)
+    args = [build.aligned(t) for t in args]
     qt = args[0]
     if stats is not None:
         build.require(stats, "stats", (4,), torch.int32, qt.device)
@@ -366,6 +367,8 @@ def _bwd_cuda(args, offsets, slots, hybrid: bool, cuda_cores: bool, stats):
     build.require(slots, "slots", (B * N * K,), torch.int32, dev)
     if stats is not None:
         build.require(stats, "stats", (4,), torch.int32, dev)
+    inputs = [build.aligned(t) for t in inputs]
+    g, offsets, slots = (build.aligned(t) for t in (g, offsets, slots))
     empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     dqt, dk = empty(B, N, H * kd), empty(B, N, H * kd)
     dv, dds, ddv = empty(B, N, H * vd), empty(B, N, H), empty(B, N, H * vd)

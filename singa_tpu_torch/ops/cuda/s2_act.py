@@ -73,6 +73,7 @@ def _check_args(x, scalars, to_grid, from_grid):
 def s2_silu_sep_cuda(x, scalars, to_grid, from_grid) -> torch.Tensor:
     global launches
     E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
+    x, scalars, to_grid, from_grid = (build.aligned(t) for t in (x, scalars, to_grid, from_grid))
     out = torch.empty_like(x)
     if E == 0:
         return out
@@ -90,6 +91,8 @@ def s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g):
     global launches_bwd
     E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
     build.require(g, "g", (E, I, C), torch.float32, x.device)
+    x, scalars, to_grid, from_grid, g = (build.aligned(t)
+                                         for t in (x, scalars, to_grid, from_grid, g))
     dx = torch.empty_like(x)
     ds = torch.empty_like(scalars)
     if E == 0:
@@ -159,6 +162,7 @@ def _check_silu_args(x, to_grid, from_grid):
 def s2_silu_cuda(x, to_grid, from_grid) -> torch.Tensor:
     global launches_silu
     N, I, C, G = _check_silu_args(x, to_grid, from_grid)
+    x, to_grid, from_grid = (build.aligned(t) for t in (x, to_grid, from_grid))
     out = torch.empty_like(x)
     if N * C == 0:
         return out
@@ -176,6 +180,7 @@ def s2_silu_bwd_cuda(x, to_grid, from_grid, g) -> torch.Tensor:
     global launches_silu_bwd
     N, I, C, G = _check_silu_args(x, to_grid, from_grid)
     build.require(g, "g", (N, I, C), torch.float32, x.device)
+    x, to_grid, from_grid, g = (build.aligned(t) for t in (x, to_grid, from_grid, g))
     dx = torch.empty_like(x)
     if N * C == 0:
         return dx

@@ -161,6 +161,9 @@ def so2_attn_cuda(x, rad, phi, beta, w1s, b1, w2s, b2, to_grid, from_grid,
     dev = x.device
     secs = sections(lmax, mmax)
     build.require(b2, "b2", (secs[0] * F2,), torch.float32, dev)
+    x, rad, phi, beta, b1, b2, to_grid, from_grid = (
+        build.aligned(t) for t in (x, rad, phi, beta, b1, b2, to_grid, from_grid))
+    w1s, w2s = [build.aligned(w) for w in w1s], [build.aligned(w) for w in w2s]
     zs = [torch.empty((E, rows * F2), dtype=x.dtype, device=dev) for rows in secs]
     ext = torch.empty((E, extra), dtype=x.dtype, device=dev)
     if E == 0:
@@ -195,6 +198,9 @@ def so2_attn_bwd_cuda(x, rad, phi, beta, w1s, b1, w2s, to_grid, from_grid,
     for i, (dz, rows) in enumerate(zip(cts, secs)):
         build.require(dz, f"dz{i}", (E, rows * F2), torch.float32, dev)
     build.require(cts[-1], "dextra", (E, extra), torch.float32, dev)
+    x, rad, phi, beta, b1, to_grid, from_grid = (
+        build.aligned(t) for t in (x, rad, phi, beta, b1, to_grid, from_grid))
+    w1s, w2s, cts = ([build.aligned(t) for t in ts] for ts in (w1s, w2s, cts))
     dx, drad = torch.empty_like(x), torch.empty_like(rad)
     shapes = ([tuple(w.shape) for w in w1s] + [tuple(b1.shape)]
               + [tuple(w.shape) for w in w2s] + [(secs[0] * F2,)])

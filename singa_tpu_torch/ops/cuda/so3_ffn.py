@@ -8,10 +8,13 @@ over column block ``(l-1)H : lH``; per-degree linear H -> Co, ``b2`` on row 0
 only. K2b replaces ``_gate_bwd`` (``_gate_ffn_bwd_kernel``): dx and the six
 weight and bias gradients. The CUDA kernels (``csrc/so3_gate_ffn.cu``,
 ``csrc/so3_gate_ffn_bwd.cu``) keep the ``[N, I, H]`` hidden and its cotangent
-out of device memory; K2b's dx kernel forms h, dmid, dx and the row-0 gate
-term, and its weight-gradient kernel h, dmid, dw1 and dw2, on the tensor
-cores as split-TF32 products (``csrc/mma_tf32.cuh``), which agree with
-float32 products to float32 round-off; both take C and Co of 8 or 16.
+out of device memory. K2's tensor-core kernel forms h, the gates and y,
+K2b's dx kernel h, dmid, dx and the row-0 gate term, and its weight-gradient
+kernel h, dmid, dw1 and dw2, on the tensor cores as split-TF32 products
+(``csrc/mma_tf32.cuh``, ``csrc/gate_ffn_tc.cuh``), which agree with float32
+products to float32 round-off; all take C and Co of 8 or 16. Every other
+shape K2 took before runs its CUDA-core instance (``so3_gate_ffn_instance``
+says which).
 
 K4 replaces ``so3_ffn.py::so3_ffn_fused`` (``_ffn_fwd_kernel``), the FFN of
 ``ffn_activation: s2``: ``gate = silu(x0 @ wg + bg)``; per-degree linear
@@ -81,11 +84,36 @@ def so3_gate_ffn_bwd_plain(x, w1, b1, wg, bg, w2, lmax: int, dy):
         return torch.autograd.grad(y, (*leaves, b2), dy)
 
 
-def _fn():
-    fn = build.load("so3_gate_ffn").so3_gate_ffn_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _fns():
+    lib = build.load("so3_gate_ffn")
+    words = lib.so3_gate_ffn_words
+    words.argtypes = [ctypes.c_int] * 4
+    words.restype = ctypes.c_longlong
+    fn = lib.so3_gate_ffn_f32
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return words, fn
+
+
+def so3_gate_ffn_instance(lmax: int, C: int, H: int, Co: int) -> str | None:
+    """Which of K2's kernels runs these widths (any N): "tensor_cores",
+    "cuda_cores", or None for a shape neither takes. Launches nothing."""
+    fn = build.load("so3_gate_ffn").so3_gate_ffn_instance
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(lmax, C, H, Co))
+
+
+def gate_fwd_residency(lmax: int, C: int, H: int, Co: int) -> dict:
+    """K2's tensor-core kernel at these widths: resident blocks per SM (-1:
+    a shape it does not take), threads and dynamic shared memory per block.
+    For reports; launches nothing."""
+    fn = build.load("so3_gate_ffn").so3_gate_ffn_residency
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(lmax, C, H, Co, ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
 def _bwd_fns():
@@ -115,7 +143,12 @@ def gate_bwd_residency(lmax: int, C: int, H: int, Co: int, dx: bool = False) -> 
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
-def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
+def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
+                      cuda_cores: bool = False) -> torch.Tensor:
+    """The K2 kernels; arguments and result as ``so3_gate_ffn_plain``. The
+    tensor-core kernel runs where it takes the widths (``so3_gate_ffn_instance``),
+    else the CUDA-core one; ``cuda_cores``: the CUDA-core one wherever it
+    takes them (to time the two)."""
     global launches
     N, I, C = x.shape
     L = lmax + 1
@@ -131,13 +164,20 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     build.require(bg, "bg", (lmax * H,), torch.float32, dev)
     build.require(w2, "w2", (L, H, Co), torch.float32, dev)
     build.require(b2, "b2", (Co,), torch.float32, dev)
+    x, w1, b1, wg, bg, w2, b2 = (build.aligned(t) for t in (x, w1, b1, wg, bg, w2, b2))
     out = torch.empty((N, I, Co), dtype=x.dtype, device=dev)
     if N == 0:
         return out
-    status = _fn()(
+    words_fn, fn = _fns()
+    # the tensor-core kernel's weights, split into TF32 fragments once a call
+    # (none for the CUDA-core instance; -1: a shape no kernel takes, which
+    # the launch refuses)
+    words = 0 if cuda_cores else words_fn(lmax, C, H, Co)
+    wfrag = torch.empty(max(words, 4), dtype=torch.int32, device=dev)
+    status = fn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(), bg.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), N, lmax, C, H, Co,
-        build.stream_ptr(x),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), wfrag.data_ptr(), N, lmax, C, H, Co,
+        int(cuda_cores), build.stream_ptr(x),
     )
     build.check(status, "so3_gate_ffn")
     launches += 1
@@ -160,6 +200,7 @@ def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
     build.require(wg, "wg", (C, lmax * H), f32, dev)
     build.require(bg, "bg", (lmax * H,), f32, dev)
     build.require(w2, "w2", (L, H, Co), f32, dev)
+    x, w1, b1, wg, bg, w2, dy = (build.aligned(t) for t in (x, w1, b1, wg, bg, w2, dy))
     dx = torch.empty_like(x)
     sizes = (L * C * H, H, C * lmax * H, lmax * H, L * H * Co, Co)
     grads = torch.empty(sum(sizes), dtype=f32, device=dev)
@@ -321,6 +362,8 @@ def so3_ffn_cuda(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> to
     global launches_s2
     N, L, C, H, Co, G = _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax)
     build.require(b2, "b2", (Co,), torch.float32, x.device)
+    x, w1, b1, wg, bg, w2, b2, to_grid, from_grid = (
+        build.aligned(t) for t in (x, w1, b1, wg, bg, w2, b2, to_grid, from_grid))
     out = torch.empty((N, L * L, Co), dtype=x.dtype, device=x.device)
     if N == 0:
         return out
@@ -346,6 +389,8 @@ def so3_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
     dev = x.device
     f32 = torch.float32
     build.require(dy, "dy", (N, L * L, Co), f32, dev)
+    x, w1, b1, wg, bg, w2, to_grid, from_grid, dy = (
+        build.aligned(t) for t in (x, w1, b1, wg, bg, w2, to_grid, from_grid, dy))
     dx = torch.empty_like(x)
     sizes = (L * C * H, H, C * H, H, L * H * Co, Co)
     grads = torch.empty(sum(sizes), dtype=f32, device=dev)

@@ -194,25 +194,103 @@ def test_neighbor_attn_hold_rejects_one_tf32_product(dev):
     assert ratios["one_tf32"] > 1.0, ratios
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lmax,N,H", [(6, 37, 512), (6, 8, 40), (4, 37, 512), (4, 8, 40)])
-def test_so3_gate_ffn_kernel_matches_plain(dev, lmax, N, H):
-    """K2 at lmax 6 (the default Config) and 4 (configs/train_lmax4.yml,
-    configs/gan_recipe.yml) with 16 channels; N not a multiple of the node
-    tile and H not a multiple of the hidden chunk."""
-    from singa_tpu_torch.ops.cuda import so3_ffn as k2
-
-    C, Co = 16, 16
+def _gate_ffn_case(dev, lmax, N, H, C, Co, seed):
+    """K2's inputs (``so3_gate_ffn_plain``'s tensors, non-zero biases)."""
     L = lmax + 1
-    rng = np.random.default_rng(43 + N)
+    rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
     args = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
             0.1 * f(lmax * H), 0.1 * f(L, H, Co), 0.1 * f(Co)]
-    args = [_t(a, dev) for a in args]
+    return [_t(a, dev) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 37, 512, 16, 16), (6, 8, 40, 16, 16),
+                                           (4, 37, 512, 16, 16), (4, 8, 40, 16, 16),
+                                           (7, 37, 512, 16, 16), (7, 17, 40, 8, 8),
+                                           (6, 37, 512, 8, 8), (6, 21, 40, 8, 16),
+                                           (5, 21, 40, 16, 8), (2, 5, 24, 16, 16),
+                                           (6, 1, 512, 16, 16), (6, 14336, 512, 16, 16)])
+def test_so3_gate_ffn_kernel_matches_plain(dev, lmax, N, H, C, Co):
+    """K2's tensor-core kernel at lmax 6 (the default Config), 4
+    (configs/train_lmax4.yml, configs/gan_recipe.yml), 7 (64 rows: up to 6
+    a warp), 5 and 2 (every slot of a warp may be empty), with C and Co of
+    16 or 8; N not a multiple of the 16-node tile and H not a multiple of
+    the 16-channel hidden chunk; N 1; N 14,336: a training microbatch's
+    nodes."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    args = _gate_ffn_case(dev, lmax, N, H, C, Co, 43 + N + (C != 16) + 2 * (Co != 16))
+    assert k2.so3_gate_ffn_instance(lmax, C, H, Co) == "tensor_cores"
     n = k2.launches
     got = k2.so3_gate_ffn(*args, lmax)
     assert k2.launches == n + 1
     _check(got, k2.so3_gate_ffn_plain(*args, lmax))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 37, 512, 16, 16), (2, 9, 64, 32, 32),
+                                           (6, 17, 40, 16, 4), (4, 17, 40, 8, 12)])
+def test_so3_gate_ffn_cuda_core_instance_matches_plain(dev, lmax, N, H, C, Co):
+    """K2's CUDA-core instance, which ``cuda_cores`` asks for at the main
+    path's widths, and which the shapes the tensor-core kernel does not
+    take (32 channels, Co 4 or 12) run."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    args = _gate_ffn_case(dev, lmax, N, H, C, Co, 45 + N)
+    n = k2.launches
+    got = k2.so3_gate_ffn_cuda(*args, lmax, cuda_cores=True)
+    assert k2.launches == n + 1
+    _check(got, k2.so3_gate_ffn_plain(*args, lmax))
+
+
+@pytest.mark.cuda
+def test_so3_gate_ffn_instance_by_shape(dev):
+    """K2's tensor-core kernel takes C and Co of 8 or 16 at lmax 1..7, one
+    block of 12 warps an SM (139,136 B of shared memory at lmax 6 and 16
+    channels, 167,936 B at lmax 7); every other shape it took before (32
+    channels, Co 4, 12) runs the CUDA-core instance; Co 6 neither."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    takes = {(6, 16, 512, 16): "tensor_cores", (7, 16, 512, 16): "tensor_cores",
+             (7, 8, 40, 8): "tensor_cores", (4, 16, 512, 8): "tensor_cores",
+             (1, 8, 8, 16): "tensor_cores", (2, 32, 64, 32): "cuda_cores",
+             (6, 16, 512, 4): "cuda_cores", (4, 8, 40, 12): "cuda_cores",
+             (2, 4, 8, 6): None}
+    assert {w: k2.so3_gate_ffn_instance(*w) for w in takes} == takes
+    res = k2.gate_fwd_residency(6, 16, 512, 16)
+    assert res == {"blocks_per_sm": 1, "threads": 384, "smem_bytes": 139136}, res
+    assert k2.gate_fwd_residency(7, 16, 512, 16)["smem_bytes"] == 167936
+    assert k2.gate_fwd_residency(2, 32, 64, 32)["blocks_per_sm"] == -1
+
+
+@pytest.mark.cuda
+def test_so3_gate_ffn_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K2 meets (atol and rtol 1e-4, as chip_smoke.py
+    holds it) tells split TF32 from one TF32 product at the training
+    microbatch's widths (N 14,336, lmax 6, H 512, C = Co = 16): the kernel
+    and the split rendering of its arithmetic
+    (test_torch_tf32_split.k2_split) pass it against so3_gate_ffn_plain; the
+    same rendering with one TF32 product in place of each split one fails
+    it."""
+    from test_torch_tf32_split import k2_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    args = _gate_ffn_case(dev, 6, 14336, 512, 16, 16, 85)
+    n = k2.launches
+    got = k2.so3_gate_ffn_cuda(*args, 6)
+    assert k2.launches == n + 1
+    want = k2.so3_gate_ffn_plain(*args, 6)
+    ratio = lambda a: ((a - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    ratios = {"kernel": ratio(got)}
+    del got
+    ratios["split"] = ratio(k2_split(*args, 6))
+    ratios["one_tf32"] = ratio(k2_split(*args, 6, mm=mm_tf32))
+    print(json.dumps({"hold_ratios": ratios}))
+    assert ratios["kernel"] <= 1.0, ratios
+    assert ratios["split"] <= 1.0, ratios
+    assert ratios["one_tf32"] > 1.0, ratios
 
 
 @pytest.mark.cuda
@@ -1291,3 +1369,72 @@ def test_encoder_attn_forms_refuse_shapes_they_do_not_take(dev):
     with pytest.raises(ValueError, match="not supported"):
         k8.dense_edge_attn_bwd_cuda(*dense(wide), f(1, 2, 2 * 128),
                                     lists=k8.live_columns(dense(wide)[3]))
+
+
+def _misaligned(a):
+    """A copy of tensor ``a`` as a contiguous view at an offset of one
+    element (4 bytes for float32 and int32) into a larger buffer: not on a
+    16-byte boundary. Anything else as it is."""
+    if not torch.is_tensor(a):
+        return a
+    out = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:].view(a.shape).copy_(a)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["k1", "k7", "k8", "k2", "k4"])
+def test_kernels_take_misaligned_inputs(dev, form):
+    """Each forward kernel and its backward (K1/K1b, K7/K7b, K8/K8b, K2/K2b,
+    K4/K4b) given every tensor input as a contiguous view at a 4-byte offset
+    (which the kernels' 16-byte loads would fault on, and which the JAX
+    package takes) runs on the card, through the wrapper's aligned copy,
+    and matches its plain version on the aligned inputs."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    mis = lambda args: [_misaligned(a) for a in args]
+    if form in ("k1", "k7"):
+        bwd_args = _list_bwd_case(dev, "random_k24")
+        if form == "k7":
+            bwd_args = _as_hybrid(bwd_args)
+        nbr = bwd_args[3]
+        offsets, slots = k1.transpose_slots(nbr)
+        kw = {"offsets": _misaligned(offsets), "slots": _misaligned(slots)}
+        if form == "k1":
+            args = bwd_args[:-1]
+            got = k1.neighbor_attn_cuda(*mis(args))
+            grads = k1.neighbor_attn_bwd_cuda(*mis(bwd_args), **kw)
+            want, want_g = k1.neighbor_attn_plain(*args), k1.neighbor_attn_bwd_plain(*bwd_args)
+        else:
+            args = [*bwd_args[:3], *bwd_args[4:-1]]
+            got = k1.neighbor_attn_hybrid_cuda(*mis(args))
+            grads = k1.neighbor_attn_hybrid_bwd_cuda(*mis(bwd_args), **kw)
+            want = k1.neighbor_attn_hybrid_plain(*args)
+            want_g = k1.neighbor_attn_hybrid_bwd_plain(*bwd_args)
+        names = BWD_NAMES
+    elif form == "k8":
+        _, args, g, _ = _hub_graph(dev, 2, 100, 6, 20, 209)
+        lists = k8.DenseLists(*mis(k8.live_columns(args[3])))
+        got = k8.dense_edge_attn_cuda(*mis(args), lists=lists)
+        grads = k8.dense_edge_attn_bwd_cuda(*mis(args), _misaligned(g), lists=lists)
+        want, want_g = k8.dense_edge_attn_plain(*args), k8.dense_edge_attn_bwd_plain(*args, g)
+        names = BWD_NAMES
+    elif form == "k2":
+        args = _gate_ffn_case(dev, 6, 37, 512, 16, 16, 87)
+        dy = _t(np.random.default_rng(88).normal(size=(37, 49, 16)).astype(np.float32), dev)
+        bwd_args = [*args[:6], 6, dy]
+        got = k2.so3_gate_ffn_cuda(*mis(args), 6)
+        grads = k2.so3_gate_ffn_bwd_cuda(*mis(bwd_args))
+        want, want_g = k2.so3_gate_ffn_plain(*args, 6), k2.so3_gate_ffn_bwd_plain(*bwd_args)
+        names = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
+    else:
+        args, dy = _s2_ffn_case(dev, 6, 37, 512, 16, 16, 89)
+        bwd_args = [*args[:6], *args[7:], 6, dy]
+        got = k2.so3_ffn_cuda(*mis(args), 6)
+        grads = k2.so3_ffn_bwd_cuda(*mis(bwd_args))
+        want, want_g = k2.so3_ffn_plain(*args, 6), k2.so3_ffn_bwd_plain(*bwd_args)
+        names = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
+    _check(got, want)
+    _check_grads(grads, want_g, names)

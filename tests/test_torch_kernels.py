@@ -232,3 +232,23 @@ def test_wrappers_dispatch_plain_on_cpu_and_refuse_other_devices():
     assert (k1.launches, k2.launches, k3.launches) == before
     with pytest.raises(ValueError):
         k3.s2_silu_sep(x.to("meta"), s.to("meta"), tg.to("meta"), fg.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_aligned_copies_only_misaligned_inputs(dtype):
+    """``build.aligned``, which every kernel wrapper passes its inputs
+    through: a tensor whose data starts on a 16-byte boundary comes back as
+    the same object; a contiguous view at a 4-byte offset (which the
+    kernels' 16-byte loads would fault on) comes back as a copy whose data
+    does, with the same values; None passes through."""
+    from singa_tpu_torch.ops.cuda import build
+
+    base = torch.arange(41, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    assert build.aligned(base) is base
+    view = base[1:].view(5, 8)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = build.aligned(view)
+    assert got is not view and got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert got.shape == view.shape and torch.equal(got, view)
+    assert build.aligned(None) is None

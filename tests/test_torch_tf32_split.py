@@ -47,6 +47,7 @@ NCOL = 64  # columns per tile: 4 nodes x 16 hidden channels
 K2B_TN = 8  # nodes per tile of K2b's weight kernel
 K2B_DX_HC = 16  # hidden channels per chunk of K2b's dx kernel
 K4_HC = 16  # hidden channels per chunk of K4's tensor-core kernel
+K2_HC = 16  # hidden channels per chunk of K2's tensor-core kernel
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -247,6 +248,35 @@ def k2b_split(x, w1, b1, wg, bg, w2, lmax, dy, mm=mm_split):
         dx[0] += mm(dg0_x[:, :, c], wgl[:, :, c].transpose(1, 2)).sum(0)
     return (dx.transpose(0, 1), dw1, dh[:, 0].sum(0), x[:, 0].T @ dg0, dg0.sum(0), dw2,
             dy[:, 0].sum(0))
+
+
+def k2_split(x, w1, b1, wg, bg, w2, b2, lmax, mm=mm_split):
+    """K2's forward (``so3_gate_ffn_plain``'s arguments and output) as its
+    tensor-core kernel takes it, with every product through ``mm`` (split
+    TF32 by default; ``mm_tf32`` for one TF32 product): the gates
+    sigmoid(x_0 wg + bg) at depth C; then per chunk of K2_HC hidden channels
+    and per row i of degree l, h = x_i w1[l] at depth C, mid = silu(h + b1)
+    on row 0 and h gate_l elsewhere, and y_i's product mid w2[l] at depth
+    K2_HC from zero, the chunks' products added in float32 in order; b2 on
+    row 0 at the end. The kernel's 16-node tiles change nothing: each node's
+    row is its own. Runs on the tensors' device."""
+    from singa_tpu_torch.ops.cuda.so3_ffn import _l_of
+
+    N, I, _ = x.shape
+    H = w1.shape[2]
+    l_of = _l_of(lmax, x.device)
+    W1, W2 = w1.index_select(0, l_of), w2.index_select(0, l_of)  # [I, C, H], [I, H, Co]
+    gates = torch.sigmoid(mm(x[:, 0], wg) + bg).reshape(N, lmax, H)
+    gates = gates.index_select(1, l_of[1:] - 1).transpose(0, 1)  # [I - 1, N, H]
+    X = x.transpose(0, 1)  # [I, N, C]
+    y = torch.zeros(I, N, w2.shape[2], dtype=x.dtype, device=x.device)
+    for h0 in range(0, H, K2_HC):
+        c = slice(h0, h0 + K2_HC)
+        h = mm(X, W1[:, :, c])
+        mid = torch.cat([F.silu(h[:1] + b1[c]), h[1:] * gates[:, :, c]])
+        y += mm(mid, W2[:, c])
+    y[0] += b2
+    return y.transpose(0, 1)
 
 
 def k1_split(*args, mm=mm_split):
@@ -541,4 +571,42 @@ def test_k1_split_matches_plain_forward():
     one = k1_split(*args, mm=mm_tf32)
     hold_ratio = ((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
     assert split_err <= 1e-5, split_err
+    assert hold_ratio > 1.0, hold_ratio
+
+
+@pytest.mark.parametrize("lmax,N,H,C,Co", [(6, 37, 512, 16, 16), (4, 29, 512, 16, 16),
+                                           (6, 37, 48, 8, 8), (5, 21, 40, 16, 8)])
+def test_k2_split_matches_plain_and_pallas_forward(lmax, N, H, C, Co):
+    """K2's output with every product its tensor-core kernel splits rendered
+    in split TF32 (``k2_split``: the gates at depth C, h and y per row over
+    16-channel hidden chunks, each chunk's y from zero), at the widths the
+    kernel takes (C, Co of 16 or 8), lmax 6, 4 and 5, N not a multiple of
+    the 16-node tile and, in the last case, H not a multiple of the chunk;
+    non-zero biases: within 1e-5 of the output's largest magnitude of
+    ``so3_gate_ffn_plain`` (float32) and of the JAX package's Pallas kernel
+    ``so3_gate_ffn_fused`` in interpret mode (float32: the same function, its
+    sums in other orders). The same rendering with one TF32 product in place
+    of each split one fails the 1e-4 hold (atol and rtol 1e-4) that
+    ``chip_smoke.py`` holds the kernel to."""
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.so3_ffn import so3_gate_ffn_fused
+    from singa_tpu_torch.ops.cuda.so3_ffn import so3_gate_ffn_plain
+
+    L = lmax + 1
+    rng = np.random.default_rng(23 + lmax + N)
+    f = lambda *s: (rng.normal(size=s)).astype(np.float32)
+    arrays = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
+              0.1 * f(lmax * H), 0.1 * f(L, H, Co), 0.1 * f(Co)]
+    args = [torch.as_tensor(a) for a in arrays]
+    want = so3_gate_ffn_plain(*args, lmax)
+    with compute_dtype_scope("float32"):
+        pallas = torch.as_tensor(np.array(
+            so3_gate_ffn_fused(*(jnp.asarray(a) for a in arrays), lmax, True)))
+    got = k2_split(*args, lmax)
+    errs = rel_errs([got, got, pallas], [want, pallas, want], ["plain", "pallas", "pallas_plain"])
+    one = k2_split(*args, lmax, mm=mm_tf32)
+    hold_ratio = ((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    assert max(errs.values()) <= 1e-5, errs
     assert hold_ratio > 1.0, hold_ratio

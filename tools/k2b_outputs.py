@@ -1,0 +1,68 @@
+"""K2b's outputs on the card at seeded inputs, for holding two trees' K2b
+bit for bit (a change that only moves its code must not change a bit).
+
+    python3 tools/k2b_outputs.py --root <checkout> --out a.json [--compare b.json]
+
+Imports ``singa_tpu_torch`` from ``--root`` (so a checkout of another commit
+can be run by this script), runs ``so3_gate_ffn_bwd_cuda`` at lmax 6 and 4
+with 16 channels in and out (14,336 nodes: a training microbatch) and at
+lmax 6 with 8 or 16 (37 nodes; H 512 or 40), writes the SHA-256 of the bytes
+of each of the seven outputs of each case to ``--out``, and with
+``--compare`` prints, per case and output, whether the two files agree, and
+exits non-zero if any differs. Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+CASES = [(6, 14336, 512, 16, 16), (4, 14336, 512, 16, 16), (6, 37, 512, 8, 8), (6, 37, 40, 16, 8)]
+NAMES = ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2")
+
+
+def outputs(seed: int = 97) -> dict:
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    out = {}
+    for lmax, N, H, C, Co in CASES:
+        L = lmax + 1
+        rng = np.random.default_rng(seed + N + lmax)
+        f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32)).cuda()
+        args = [f(N, L * L, C), 0.3 * f(L, C, H), 0.1 * f(H), 0.3 * f(C, lmax * H),
+                0.1 * f(lmax * H), 0.1 * f(L, H, Co), lmax, f(N, L * L, Co)]
+        grads = k2.so3_gate_ffn_bwd_cuda(*args)
+        out[f"lmax{lmax}_N{N}_H{H}_C{C}_Co{Co}"] = {
+            n: hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest() for n, g in zip(NAMES, grads)}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--compare")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("k2b_outputs: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(a.root))
+    got = outputs()
+    with open(a.out, "w") as f:
+        json.dump(got, f)
+    if not a.compare:
+        return 0
+    with open(a.compare) as f:
+        ref = json.load(f)
+    same = {case: {n: got[case][n] == ref[case][n] for n in NAMES} for case in got}
+    print(json.dumps({"bit_for_bit": same}))
+    return 0 if all(all(v.values()) for v in same.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
