@@ -20,8 +20,11 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               (its tensor-core kernel's instances) and K4b's kernels, of
               K2's (``k2_ptxas``: its tensor-core kernel's instances and
               split at 16 channels, and its CUDA-core instance), of K2b's
-              kernels (dx, weight, split) and of the GEMM kernels of K6 and
-              K6b (of the sources this run compiled)
+              kernels (dx, weight, split), of K3's and K3b's (``k3_ptxas``:
+              their tensor-core kernels, with their shared memory and
+              threads at I 29, C 128, G 70, and the CUDA-core instance) and
+              of the GEMM kernels of K6 and K6b (of the sources this run
+              compiled)
      mma_rate the card's mma.sync TF32 rate (csrc/mma_tf32.cu), the
               ceiling of the tensor-core kernels, a third of it for split
               TF32
@@ -35,9 +38,11 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               PyTorch version on the card (max error vs the stated
               tolerance), kernel_ms / plain_ms (CUDA events, median of 20
               after warm-up) and bound_ms (the larger of bytes over 3.35 TB/s
-              and float32 operations over 67 TFLOP/s); K2's lines also hold
-              and time its CUDA-core instance at the same call
-              (``cuda_cores``)
+              and float32 operations over 67 TFLOP/s); K2's and K3's lines
+              also hold and time their CUDA-core instance at the same call
+              (``cuda_cores``), K3's the wrapper's host time a call
+              (``host_ms``); the serving calls of K3 must take its
+              tensor-core kernel
   4. main     default Config(), seeded weights on cuda, the first 8 sorted
               val pockets through generate_for_pocket (20 beams, max length
               200, grammar mask, length penalty 0.7): launch counts per
@@ -74,7 +79,10 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               B*N*K), and hold the CUDA-core instance of the same
               algorithm (the one other widths run) at the same call
               (``cuda_cores``: its time and errors; K1/K7's is
-              attn_fwd_kernel, every slot evaluated)
+              attn_fwd_kernel, every slot evaluated); K3's and K3b's lines
+              hold their CUDA-core instance and give the wrapper's host
+              time a call (``host_ms``), and their calls must take the
+              tensor-core kernels
   9. train    the port's Trainer (default Config, float32) on
               data/corpus/train through the Prefetcher, batch 64 in 2
               microbatches of 32: warm-up steps, then timed steps (step_ms,
@@ -96,8 +104,10 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               SM clock, power and temperature nvidia-smi sampled meanwhile;
               train_profile_s2 also K4's two kernels by name
               (``k4_kernels``: the tensor-core kernel and the split of its
-              weights), and every train_profile* phase whose path runs K2
-              K2's (``k2_kernels``: the same two)
+              weights), every train_profile* phase whose path runs K2
+              K2's (``k2_kernels``: the same two), and every one whose
+              path runs K3 K3's and K3b's tensor-core kernels
+              (``k3_kernels``)
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
               card run at the same inputs as a witness of the card's own
@@ -157,13 +167,14 @@ of its dead-weighted rows' slots. K1's and K7's operations are those of
 the live slots and of the dead-weighted rows' slots (the v-EdgeMLP, smear
 and aggregate; a row that copies the row before's inputs costs none);
 ``bound_live_only_ms`` beside them counts the live pairs alone. The entries of
-K1, K7, K1b, K7b, K2, K2b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
+K1, K7, K1b, K7b, K2, K2b, K3, K3b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
 ``split_tf32_flops`` (per launch): the larger of
 the operations that run as split TF32 (K1's and K7's EdgeMLPs on live
 slots and their v-EdgeMLP on the dead-weighted rows' slots; K1b's and
 K7b's EdgeMLPs, dh and
 four weight gradients, once per live pair; K2's h, y and gates, all of
-its work; K2b's five per-degree products
+its work; K3's two and K3b's three grid transforms, all of their work;
+K2b's five per-degree products
 h, dmid, dx, dw1, dw2 and its gates and row-0 gate term; K4's h, y and
 two grid transforms, but at lmax 6 their last coefficient row; K4b's four
 grid transforms; K6's
@@ -171,18 +182,19 @@ and K6b's conv and weight-gradient products, the GEMM of
 csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
 rest over 67 TFLOP/s, since the two units issue together, or the bytes
 over 3.35 TB/s if that is larger. K1's, K7's, K1b's, K7b's, K2's, K2b's,
-K4's and K4b's also have the ptxas report and the residency (blocks per SM,
+K3's, K3b's, K4's and K4b's also have the ptxas report and the residency (blocks per SM,
 threads, dynamic shared memory per block) of their tensor-core kernel (K2b: of its weight
 kernel, and of its dx kernel as ``dx_residency``; K2 and K4: at the
-training microbatch's widths, which must take it; K2 also ``cuda_cores_ms``,
-its CUDA-core instance at the same calls); K6's and
+training microbatch's widths, which must take it; K2, K3 and K3b also
+``cuda_cores_ms``, their CUDA-core instance at the same calls, and K3 and
+K3b ``host_ms``, their wrapper's host time a call); K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
 ``gemm_residency``), and train_profile_so2 reports those kernels' device
 time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
 runs in full float32 (K1b's and K7b's EdgeMLP products, K2's and K2b's products,
-K4's grid transforms and per-degree products, K4b's grid transforms,
+K4's grid transforms and per-degree products, K3's, K3b's and K4b's grid transforms,
 K1's and K7's EdgeMLPs and K6's and K6b's products run as split TF32
 inside the kernels,
 csrc/mma_tf32.cuh, to float32 round-off).
@@ -252,6 +264,8 @@ K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
 # K2's kernels in a profile (csrc/so3_gate_ffn.cu): the tensor-core kernel and
 # the split of its weights, two launches for each K2 call
 K2_KERNELS = ("gate_ffn_tc_kernel", "gate_ffn_wsplit_kernel")
+# K3's and K3b's tensor-core kernels in a profile (csrc/s2_act.cu)
+K3_KERNELS = ("s2_silu_sep_tc_kernel", "s2_silu_sep_bwd_tc_kernel")
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 
 
@@ -452,6 +466,56 @@ def k3_cost(args, out):
     G = tg.shape[0]
     # to-grid and from-grid contractions, 2 operations per multiply-add
     return nbytes(x, s, tg, fg, out), 2.0 * E * C * G * (2 * I - 1)
+
+
+def k3_split_flops(args) -> float:
+    """The operations of K3 that its tensor-core kernel (the one every call
+    of the paths takes) runs as split TF32: both grid transforms, all of
+    ``k3_cost``'s operations (silu and row 0's silu(s) are not counted)."""
+    return k3_cost(args, None)[1]
+
+
+def k3b_split_flops(args) -> float:
+    """K3b's: its three grid transforms, all of ``k3b_cost``'s operations."""
+    return k3b_cost(args, ())[1]
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """The host's time a call of ``fn`` (a kernel's wrapper: checks,
+    allocation, the C call and the launch), over ``iters`` calls queued on
+    an idle card without a synchronise between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
+def sep_report(spec, mod, args, kw) -> dict:
+    """K3's or K3b's wrapper's host time a call (``host_ms``; the kernels
+    line's ``ms``, by CUDA events around the wrapper, includes it where it
+    exceeds the device's), and the CUDA-core instance, which the shapes the
+    tensor-core kernels do not take run, at the same call (``cuda_cores``:
+    its time, and its outputs against the plain version as ``hold`` holds
+    the kernel)."""
+    launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
+    cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
+    as_tuple = lambda r: (r,) if torch.is_tensor(r) else tuple(r)
+    with torch.no_grad():
+        got, want = as_tuple(cuda_cores()), as_tuple(plain(*args))
+        if spec.outs is None:
+            errs = {"out": [(got[0] - want[0]).abs().max().item(), want[0].abs().max().item()]}
+            ok = bool(torch.allclose(got[0], want[0], **TOL))
+        else:
+            errs = {o: [(a - b).abs().max().item(), b.abs().max().item()]
+                    for o, a, b in zip(spec.outs, got, want)}
+            ok = all(e <= BWD_TOL * m for e, m in errs.values())
+        del got, want
+        ms = time_ms(cuda_cores)
+        host = host_ms(lambda: launch(*args, **kw))
+    return {"host_ms": host, "cuda_cores": {"ms": ms, "errors": errs, "ok": ok}}
 
 
 def k2_cost(args, out):
@@ -912,7 +976,8 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/so3_gate_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:497",
            k2_cost, None, k2_split_flops, k2_report),
     Kernel("s2_silu_sep", "s2_act", "s2_silu_sep", "launches",
-           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None),
+           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None,
+           k3_split_flops, sep_report),
     Kernel("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/neighbor_attn_bwd.cu", "singa_tpu/ops/pallas/neighbor_attn.py:362",
            k1b_cost, ATTN_BWD_OUTS, k1b_split_flops, list_bwd_report),
@@ -921,7 +986,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"), k2b_split_flops),
     Kernel("s2_silu_sep_bwd", "s2_act", "s2_silu_sep_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:209",
-           k3b_cost, ("dx", "d_scalars")),
+           k3b_cost, ("dx", "d_scalars"), k3b_split_flops, sep_report),
     Kernel("so3_ffn_fused", "so3_ffn", "so3_ffn", "launches_s2",
            "singa_tpu_torch/csrc/so3_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:321", k4_cost, None,
            k4_split_flops),
@@ -994,6 +1059,23 @@ def read_counts(mods) -> dict:
 def capture(specs, mods, run) -> dict:
     """``capture_calls`` of the kernels ``specs`` over ``run()``."""
     return capture_calls({f"{k.fn}_cuda": mods[k.module] for k in specs}, run)
+
+
+def sep_shapes(args) -> tuple:
+    """(I, C, G) of a K3 or K3b call's arguments (x, scalars, to_grid, ...)."""
+    return args[0].shape[1], args[0].shape[2], args[2].shape[0]
+
+
+def check_k3_instance(mods, captured) -> None:
+    """Raise unless every captured K3 (and K3b) call's shapes take the
+    tensor-core kernels."""
+    for name in ("s2_silu_sep_cuda", "s2_silu_sep_bwd_cuda"):
+        for args, _, _ in captured.get(name, {}).values():
+            shapes = sep_shapes(args)
+            instance = mods["s2_act"].s2_silu_sep_instance(*shapes)
+            if instance != "tensor_cores":
+                raise AssertionError(f"{name} at (I, C, G) = {shapes} runs {instance}, "
+                                     "not the tensor-core kernel")
 
 
 def hold(spec: Kernel, mod, args, kw) -> dict:
@@ -1070,6 +1152,8 @@ def hold_all(specs, mods, captured, phase, per, path) -> dict:
                                                       for c, r in recs) / n
         if "bound_live_only_ms" in recs[0][1]:
             results[spec.name]["bound_live_only_ms"] = mean("bound_live_only_ms")
+        if "host_ms" in recs[0][1]:
+            results[spec.name]["host_ms"] = mean("host_ms")
     return results
 
 
@@ -1210,6 +1294,11 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             if instance != "tensor_cores":
                 raise AssertionError(f"K4 at {widths} runs {instance}, not the tensor-core kernel")
             results[K4.name]["residency"] = mods["so3_ffn"].s2_fwd_residency(*widths)
+        if K3 in specs:  # K3's and K3b's tensor-core kernels take the microbatch's calls
+            check_k3_instance(mods, captured)
+            shapes = sep_shapes(next(iter(captured["s2_silu_sep_cuda"].values()))[0])
+            results[K3.name]["residency"] = mods["s2_act"].sep_residency(*shapes)
+            results[K3B.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bwd=True)
         if K4B in specs:  # K4b's residency at the microbatch's widths
             args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
             x, w1, _, _, _, w2, tg, _, lmax, _ = args
@@ -1266,11 +1355,13 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         runs_k1 = per_step.get(K1.name, 0) + per_step.get(K7.name, 0) > 0
         runs_k4 = per_step.get(K4.name, 0) > 0
         runs_k2 = per_step.get(K2.name, 0) > 0
+        runs_k3 = per_step.get(K3.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b
                                   + K1B_KERNELS * runs_k1b + K1_KERNELS * runs_k1
-                                  + K4_KERNELS * runs_k4 + K2_KERNELS * runs_k2)
+                                  + K4_KERNELS * runs_k4 + K2_KERNELS * runs_k2
+                                  + K3_KERNELS * runs_k3)
         extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
             ms = prof["matched"][SO2_GEMM]["device_ms"]
@@ -1287,6 +1378,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
         if runs_k2:  # K2's kernels by name
             extra["k2_kernels"] = {n: prof["matched"][n] for n in K2_KERNELS}
+        if runs_k3:  # K3's and K3b's tensor-core kernels by name
+            extra["k3_kernels"] = {n: prof["matched"][n] for n in K3_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
         data.close()
 
@@ -1650,6 +1743,15 @@ def main() -> int:
     # 16 channels in and out, and its CUDA-core instance
     k2_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn"]).items()
                 if "ILi16ELi16E" in k or "cc15gate_ffn_kernel" in k}
+    # K3's and K3b's kernels: the tensor-core ones (with their dynamic shared
+    # memory and threads at the main path's I 29, C 128, G 70) and the
+    # CUDA-core instance
+    from singa_tpu_torch.ops.cuda.s2_act import sep_residency
+
+    k3_ptxas = {k: v for k, v in ptxas_report(logs["s2_act"]).items() if "s2_silu_sep" in k}
+    for k, v in k3_ptxas.items():
+        if "tc_kernel" in k:
+            v["residency"] = sep_residency(29, 128, 70, bwd="bwd" in k)
     gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
                   for n in ("so2_attn", "so2_attn_bwd")}
     # the pair kernels of K1b (form 0: ILi0E) and of K7b (form 1: ILi1E):
@@ -1667,7 +1769,7 @@ def main() -> int:
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
           "k4_ptxas": k4_ptxas, "k4b_ptxas": k4b_ptxas, "k2_ptxas": k2_ptxas,
-          "k2b_ptxas": k2b_ptxas,
+          "k2b_ptxas": k2b_ptxas, "k3_ptxas": k3_ptxas,
           "so2_gemm_ptxas": gemm_ptxas,
           "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas})
 
@@ -1693,8 +1795,10 @@ def main() -> int:
         with torch.inference_mode():
             model.encode_pocket(batch)
 
-    hold_all([K1, K2, K3], mods, capture([K1, K2, K3], mods, encode), "kernel",
-             "calls_per_encode", None)
+    captured = capture([K1, K2, K3], mods, encode)
+    check_k3_instance(mods, captured)
+    hold_all([K1, K2, K3], mods, captured, "kernel", "calls_per_encode", None)
+    del captured
 
     # main path: counts set to 0 just before, read just after
     total_s, smiles, scores, counts = checked_generate(model, batch, cfg, mods)
@@ -1780,6 +1884,7 @@ def main() -> int:
     results[K4B.name]["ptxas"] = k4b_ptxas
     results[K2.name]["ptxas"] = k2_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
+    results[K3.name]["ptxas"] = results[K3B.name]["ptxas"] = k3_ptxas
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form
         results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid)
         results[spec.name]["ptxas"] = k1b_ptxas[int(hybrid)]

@@ -1,7 +1,8 @@
-// The sphere-grid chains on the tensor cores, both built on split-TF32
+// The sphere-grid chains on the tensor cores, all built on split-TF32
 // mma.sync (csrc/mma_tf32.cuh) accumulated in float32: grid_chain_tc, K4b's
-// (csrc/so3_ffn_bwd.cu), and grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu; at
-// the end of this file). s2_grid.cuh keeps the CUDA-core chain of K5, K5b
+// (csrc/so3_ffn_bwd.cu), grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu) and K3's
+// (csrc/s2_act.cu), and grid_chain_tc_sep_bwd, K3b's (at the end of this
+// file). s2_grid.cuh keeps the CUDA-core chain of K5, K5b
 // and K4's CUDA-core instance.
 //
 // grid_chain_tc: the function of s2_grid.cuh's grid_chain<NCOL, true,
@@ -286,26 +287,44 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 // from X's row r (xtail, float32, unsplit), and the lane's share of output
 // row r from the split activations (hi + lo) in tail[j] (column grp of n8
 // tile j), which the caller sums over the four lanes of a column. I0 = 0:
-// any I <= 48, every row through mma (rows I .. 8 KS - 1 of xfrag zero,
-// columns I .. 16 MT - 1 of fg zero).
+// any I <= 8 kMaxKS, every row through mma (rows I .. 8 KS - 1 of xfrag
+// zero, columns I .. 16 MT - 1 of fg zero). kMaxKS and kMaxMT bound the
+// k steps and m16 tiles the loops unroll over (K3: 4 and 2, I <= 32).
 constexpr int kFwdMaxKS = 6;                // k steps of the to-grid product
 constexpr int kFwdMaxMT = 3;                // m16 tiles of the from-grid output
+
+// fg's stride in grid_chain_tc_fwd (and tg's read as A in
+// grid_chain_tc_sep_bwd): >= rows, % 16 of 4 or 12, so the from-grid
+// product's A loads are conflict-free
+__host__ __device__ inline int tc_fg_stride(int rows) {
+  int s = (rows + 3) / 4 * 4;
+  while (s % 16 != 4 && s % 16 != 12) s += 4;
+  return s;
+}
 
 // silu by the fast intrinsics, as silu_and_grad
 __device__ __forceinline__ float silu_fast(float v) {
   return v * __fdividef(1.f, 1.f + __expf(-v));
 }
 
-template <int I0, int kSteps, int kCT>
+// silu'(v) by the fast intrinsics, as silu_and_grad
+__device__ __forceinline__ float silu_grad_fast(float v) {
+  const float sg = __fdividef(1.f, 1.f + __expf(-v));
+  return sg * (1.f + v * (1.f - sg));
+}
+
+template <int I0, int kSteps, int kCT, int kMaxKS = kFwdMaxKS, int kMaxMT = kFwdMaxMT>
 __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, const float* sfg,
                                                   int sf, const uint32_t* xfrag,
                                                   const float* xtail, int I, int groups, int cg,
                                                   int s0, int s1,
-                                                  float (&acc)[kFwdMaxMT][2 * kCT][4],
+                                                  float (&acc)[kMaxMT][2 * kCT][4],
                                                   float (&tail)[2 * kCT]) {
   constexpr bool kTail = I0 == 49;
   constexpr int kTailRow = I0 - 1;
   static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0 (I <= 48)");
+  static_assert(!kTail || (kMaxKS >= kTailRow / 8 && kMaxMT >= kTailRow / 16),
+                "the tail row's k steps and m16 tiles fit the loops");
   const int KS = kTail ? kTailRow / 8 : (I + 7) / 8;
   const int MT = kTail ? kTailRow / 16 : (I + 15) / 16;
   const int grp = tc::lane_grp(), tig = tc::lane_tig();
@@ -314,7 +333,7 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
   const int kstep = groups * tc::kSplitFragWords;
   const float* xt = xtail + 16 * kCT * cg + grp;  // X's tail row, column grp of n8 tile j: xt[8 j]
 #pragma unroll
-  for (int mt = 0; mt < kFwdMaxMT; ++mt)
+  for (int mt = 0; mt < kMaxMT; ++mt)
 #pragma unroll
     for (int j = 0; j < 2 * kCT; ++j)
 #pragma unroll
@@ -334,7 +353,7 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
         for (int q = 0; q < 4; ++q) v[u][c][q] = 0.f;
     const float* tb = stg + (g0 + grp) * st + 2 * tig;
 #pragma unroll
-    for (int ks = 0; ks < kFwdMaxKS; ++ks) {
+    for (int ks = 0; ks < kMaxKS; ++ks) {
       if (kTail || ks < KS) {
         tc::FragA a[kCT];
 #pragma unroll
@@ -385,7 +404,7 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
         }
       }
 #pragma unroll
-      for (int mt = 0; mt < kFwdMaxMT; ++mt) {
+      for (int mt = 0; mt < kMaxMT; ++mt) {
         if (kTail || mt < MT) {
           const float* p = sfg + gu * sf + 16 * mt + grp;
           tc::FragA a;
@@ -393,6 +412,111 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
           tc::split(p[8], a.hi[1], a.lo[1]);        // row grp + 8, point 2 tig
           tc::split(p[sf], a.hi[2], a.lo[2]);       // row grp,     point 2 tig + 1
           tc::split(p[sf + 8], a.hi[3], a.lo[3]);   // row grp + 8, point 2 tig + 1
+#pragma unroll
+          for (int j = 0; j < 2 * kCT; ++j) tc::mma3(acc[mt][j], a, b[j]);
+        }
+      }
+    }
+  }
+}
+
+// grid_chain_tc_sep_bwd: K3b's chain, dx = tg^T (silu'(tg X) * fg' Y) with
+// fg' = fg with column 0 zeroed (row 0 of the cotangent Y reaches only the
+// scalars), for one warp's columns (kCT tiles of 16), in
+// grid_chain_tc_fwd's transposed form: two to-grid products, v^T = X^T
+// tg^T and u^T = Y^T fg'^T, leave v and u at the same positions of every
+// lane (columns grp and grp + 8 of a tile, grid points 2 tig and 2 tig + 1
+// of a step), so h = silu'(v) u is formed and split in registers and feeds
+// the from-grid product dx += tg^T h at once as its B fragments: no
+// barrier, and the activated grid never reaches shared memory.
+//
+// Operands: X^T and Y^T split in fragment order (xfrag, yfrag: k step ks,
+// 16-column group c at (ks groups + c) kSplitFragWords), rows I .. 8 KS - 1
+// zero; tg [g][st] and fg' [g][st] read as B (8-byte loads, st % 32 of 8 or
+// 24), tg again as [g][sa] read as A transposed (sa % 16 of 4 or 12, zero
+// past I: the from-grid product's rows). Walks grid steps s0 .. s1 - 1, kSteps
+// at a time; acc[mt][j] holds dx rows 16 mt + grp (+ 8) of n8 column tile j.
+template <int kSteps, int kCT, int kMaxKS, int kMaxMT>
+__device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const float* sfg, int st,
+                                                      const float* sta, int sa,
+                                                      const uint32_t* xfrag,
+                                                      const uint32_t* yfrag, int I, int groups,
+                                                      int s0, int s1,
+                                                      float (&acc)[kMaxMT][2 * kCT][4]) {
+  const int KS = (I + 7) / 8, MT = (I + 15) / 16;
+  const int grp = tc::lane_grp(), tig = tc::lane_tig();
+  const int kstep = groups * tc::kSplitFragWords;
+#pragma unroll
+  for (int mt = 0; mt < kMaxMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2 * kCT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
+
+  for (int s = s0; s < s1; s += kSteps) {
+    const int g0 = 8 * s;
+    float v[kSteps][kCT][4], u[kSteps][kCT][4];
+#pragma unroll
+    for (int w = 0; w < kSteps; ++w)
+#pragma unroll
+      for (int c = 0; c < kCT; ++c)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[w][c][q] = u[w][c][q] = 0.f;
+    const int tb = (g0 + grp) * st + 2 * tig;
+#pragma unroll
+    for (int ks = 0; ks < kMaxKS; ++ks) {
+      if (ks < KS) {
+        tc::FragA a[kCT];
+#pragma unroll
+        for (int c = 0; c < kCT; ++c)
+          a[c] = tc::frag_a_split(xfrag + ks * kstep + c * tc::kSplitFragWords);
+#pragma unroll
+        for (int w = 0; w < kSteps; ++w) {
+          const float2 t = *reinterpret_cast<const float2*>(stg + tb + 8 * w * st + 8 * ks);
+          tc::FragB b;
+          tc::split(t.x, b.hi[0], b.lo[0]);
+          tc::split(t.y, b.hi[1], b.lo[1]);
+#pragma unroll
+          for (int c = 0; c < kCT; ++c) tc::mma3(v[w][c], a[c], b);
+        }
+#pragma unroll
+        for (int c = 0; c < kCT; ++c)
+          a[c] = tc::frag_a_split(yfrag + ks * kstep + c * tc::kSplitFragWords);
+#pragma unroll
+        for (int w = 0; w < kSteps; ++w) {
+          const float2 t = *reinterpret_cast<const float2*>(sfg + tb + 8 * w * st + 8 * ks);
+          tc::FragB b;
+          tc::split(t.x, b.hi[0], b.lo[0]);
+          tc::split(t.y, b.hi[1], b.lo[1]);
+#pragma unroll
+          for (int c = 0; c < kCT; ++c) tc::mma3(u[w][c], a[c], b);
+        }
+      }
+    }
+    // step by step: h = silu'(v) u, split: the from-grid B of n8 tile 2 c
+    // from [w][c][0..1], of tile 2 c + 1 from [w][c][2..3] (as in
+    // grid_chain_tc_fwd); then dx += tg^T h, A = tg^T (m = row j, k = grid
+    // point, paired)
+#pragma unroll
+    for (int w = 0; w < kSteps; ++w) {
+      const int gu = g0 + 8 * w + 2 * tig;  // the lane's grid points gu, gu + 1
+      tc::FragB b[2 * kCT];
+#pragma unroll
+      for (int j = 0; j < 2 * kCT; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int q = 2 * (j & 1) + p;
+          tc::split(silu_grad_fast(v[w][j >> 1][q]) * u[w][j >> 1][q], b[j].hi[p], b[j].lo[p]);
+        }
+#pragma unroll
+      for (int mt = 0; mt < kMaxMT; ++mt) {
+        if (mt < MT) {
+          const float* p = sta + gu * sa + 16 * mt + grp;
+          tc::FragA a;
+          tc::split(p[0], a.hi[0], a.lo[0]);        // row grp,     point 2 tig
+          tc::split(p[8], a.hi[1], a.lo[1]);        // row grp + 8, point 2 tig
+          tc::split(p[sa], a.hi[2], a.lo[2]);       // row grp,     point 2 tig + 1
+          tc::split(p[sa + 8], a.hi[3], a.lo[3]);   // row grp + 8, point 2 tig + 1
 #pragma unroll
           for (int j = 0; j < 2 * kCT; ++j) tc::mma3(acc[mt][j], a, b[j]);
         }

@@ -112,13 +112,6 @@ struct TcDims {
   int Gp, st, sf, KS, MT;  // grid rows, tg's and fg's strides, k steps, m16 tiles of the chain
 };
 
-// fg's stride: >= rows, % 16 of 4 or 12 (grid_chain_tc_fwd's A loads)
-__host__ __device__ inline int fg_stride(int rows) {
-  int s = (rows + 3) / 4 * 4;
-  while (s % 16 != 4 && s % 16 != 12) s += 4;
-  return s;
-}
-
 __host__ __device__ inline TcDims make_tc_dims(int N, int lmax, int C, int H, int Co, int G) {
   TcDims d;
   d.N = N, d.L = lmax + 1, d.I = (lmax + 1) * (lmax + 1), d.C = C, d.H = H, d.Co = Co, d.G = G;
@@ -129,7 +122,7 @@ __host__ __device__ inline TcDims make_tc_dims(int N, int lmax, int C, int H, in
   constexpr int q = 8 * kChainSteps * kParts;
   d.Gp = (G + q - 1) / q * q;
   d.st = singa::tc_stride(d.I);
-  d.sf = fg_stride(d.I > 16 * d.MT ? d.I : 16 * d.MT);
+  d.sf = singa::tc_fg_stride(d.I > 16 * d.MT ? d.I : 16 * d.MT);
   return d;
 }
 

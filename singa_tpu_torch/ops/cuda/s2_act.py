@@ -7,9 +7,11 @@ K3 replaces ``singa_tpu/ops/pallas/s2_act.py::s2_silu_sep`` (forward,
 ``silu(scalars[c])``. K3b replaces ``_sep_bwd`` (``_sep_bwd_kernel``): the
 gradients of ``x`` and ``scalars``; row 0 of the cotangent reaches only
 ``scalars``. Both CUDA kernels (``csrc/s2_act.cu``) keep the ``[E, G, C]``
-grid tensor out of device memory. ``s2_silu_sep`` goes through one
-``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
-CUDA tensors.
+grid tensor out of device memory: as split-TF32 ``mma.sync`` chains on the
+tensor cores where they take the shapes (``I <= 32``, ``C`` a multiple of
+16), else on the CUDA cores (``s2_silu_sep_instance`` says which).
+``s2_silu_sep`` goes through one ``torch.autograd.Function``: plain versions
+for CPU tensors, the kernels for CUDA tensors.
 
 K5 replaces ``s2_act.py::s2_silu`` (``s2_silu_pallas``, ``_fwd_kernel``):
 ``from_grid . silu(to_grid . x)`` on every row, for any ``I`` up to 64. K5b
@@ -22,6 +24,7 @@ are Mosaic's and are not carried over.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -52,11 +55,34 @@ def s2_silu_sep_bwd_plain(x, scalars, to_grid, from_grid, g):
         return torch.autograd.grad(out, (x, scalars), g)
 
 
-def _fn(name: str, n_ptr: int):
+@functools.cache
+def _fn(name: str, n_ptr: int, n_int: int = 4):
     fn = getattr(build.load("s2_act"), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def s2_silu_sep_instance(I: int, C: int, G: int) -> str | None:
+    """Which of K3's (and K3b's) kernels runs these shapes (any E):
+    "tensor_cores", "cuda_cores", or None for a shape neither takes.
+    Launches nothing."""
+    fn = build.load("s2_act").s2_silu_sep_instance
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(I, C, G))
+
+
+def sep_residency(I: int, C: int, G: int, bwd: bool = False) -> dict:
+    """K3's tensor-core kernel (``bwd``: K3b's) at these shapes: resident
+    blocks per SM (-1: shapes it does not take), threads and dynamic shared
+    memory per block. For reports; launches nothing."""
+    fn = build.load("s2_act").s2_silu_sep_residency
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(I, C, G, int(bwd), ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
 def _check_args(x, scalars, to_grid, from_grid):
@@ -70,24 +96,28 @@ def _check_args(x, scalars, to_grid, from_grid):
     return E, I, C, G
 
 
-def s2_silu_sep_cuda(x, scalars, to_grid, from_grid) -> torch.Tensor:
+def s2_silu_sep_cuda(x, scalars, to_grid, from_grid, cuda_cores: bool = False) -> torch.Tensor:
+    """The K3 kernel: the tensor-core one where it takes the shapes
+    (``s2_silu_sep_instance``), else the CUDA-core one; ``cuda_cores``: the
+    CUDA-core one wherever it takes them (to time the two)."""
     global launches
     E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
     x, scalars, to_grid, from_grid = (build.aligned(t) for t in (x, scalars, to_grid, from_grid))
     out = torch.empty_like(x)
     if E == 0:
         return out
-    status = _fn("s2_silu_sep_f32", 5)(
+    status = _fn("s2_silu_sep_f32", 5, 5)(
         x.data_ptr(), scalars.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
-        out.data_ptr(), E, I, C, G, build.stream_ptr(x),
+        out.data_ptr(), E, I, C, G, int(cuda_cores), build.stream_ptr(x),
     )
     build.check(status, "s2_silu_sep")
     launches += 1
     return out
 
 
-def s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g):
-    """(dx, dscalars) from the K3b kernel."""
+def s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g, cuda_cores: bool = False):
+    """(dx, dscalars) from the K3b kernel, chosen as ``s2_silu_sep_cuda``
+    chooses K3's."""
     global launches_bwd
     E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
     build.require(g, "g", (E, I, C), torch.float32, x.device)
@@ -97,9 +127,10 @@ def s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g):
     ds = torch.empty_like(scalars)
     if E == 0:
         return dx, ds
-    status = _fn("s2_silu_sep_bwd_f32", 7)(
+    status = _fn("s2_silu_sep_bwd_f32", 7, 5)(
         x.data_ptr(), scalars.data_ptr(), g.data_ptr(), to_grid.data_ptr(),
-        from_grid.data_ptr(), dx.data_ptr(), ds.data_ptr(), E, I, C, G, build.stream_ptr(x),
+        from_grid.data_ptr(), dx.data_ptr(), ds.data_ptr(), E, I, C, G, int(cuda_cores),
+        build.stream_ptr(x),
     )
     build.check(status, "s2_silu_sep_bwd")
     launches_bwd += 1

@@ -10,8 +10,8 @@ there ``tests/conftest.py`` (which imports JAX) is left out:
 Inputs are made with numpy from fixed seeds, at the main path's widths and
 at ragged sizes that exercise each kernel's edge handling. Everything runs
 in float32 with TF32 off (K4 forms its grid transforms and per-degree
-products, K4b its grid transforms, and K6 and K6b their conv and
-weight-gradient products, as split TF32, to float32 round-off); the kernel
+products, K3, K3b and K4b their grid transforms, and K6 and K6b their conv
+and weight-gradient products, as split TF32, to float32 round-off); the kernel
 and the plain version add the same products in a different order, so they
 agree to atol/rtol 1e-4 on outputs
 of order 1-100. Backward outputs that are sums over many nodes (weight
@@ -293,22 +293,133 @@ def test_so3_gate_ffn_hold_rejects_one_tf32_product(dev):
     assert ratios["one_tf32"] > 1.0, ratios
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("E,C", [(50, 128), (9, 100)])
-def test_s2_silu_sep_kernel_matches_plain(dev, E, C):
-    """K3 with the lmax 6 / mmax 2 grid (I 29, G 70); C not a multiple of the
-    channel block."""
+# K3's and K3b's cases: the lmax 6 / mmax 2 grid (I 29, G 70) at 50 edges
+# and at a training microbatch's 31,744 stage-1 edges; C 100 (not a
+# multiple of 16: the CUDA-core instance); lmax 4 and 2 (I 19 and 9; G 50
+# and 42) at C 64 and 16; one edge
+SEP_CASES = [(50, 128, 6), (9, 100, 6), (31744, 128, 6), (37, 64, 4), (9, 16, 2), (1, 64, 6)]
+
+
+def _sep_case(dev, E, C, lmax, seed, cotangent=False):
+    """x, s, tg, fg (and g) of K3 / K3b at mmax 2 (the m-primary grid)."""
     from singa_tpu_torch.equivariant.layers import _grid_mats_for
+
+    rng = np.random.default_rng(seed)
+    tg, fg = (_t(m, dev) for m in _grid_mats_for(lmax, 2, True))
+    f = lambda *sh: _t(rng.normal(size=sh).astype(np.float32), dev)
+    args = [f(E, tg.shape[1], C), f(E, C), tg, fg]
+    return args + [f(E, tg.shape[1], C)] if cotangent else args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,lmax", SEP_CASES)
+def test_s2_silu_sep_kernel_matches_plain(dev, E, C, lmax):
+    """K3 on its tensor-core kernel wherever C is a multiple of 16, else on
+    its CUDA-core instance (C 100), with every grid K3 runs at mmax 2."""
     from singa_tpu_torch.ops.cuda import s2_act as k3
 
-    rng = np.random.default_rng(47 + E)
-    tg, fg = (_t(m, dev) for m in _grid_mats_for(6, 2, True))
-    x = _t(rng.normal(size=(E, tg.shape[1], C)).astype(np.float32), dev)
-    s = _t(rng.normal(size=(E, C)).astype(np.float32), dev)
+    x, s, tg, fg = _sep_case(dev, E, C, lmax, 47 + E)
+    want = "tensor_cores" if C % 16 == 0 else "cuda_cores"
+    assert k3.s2_silu_sep_instance(tg.shape[1], C, tg.shape[0]) == want
     n = k3.launches
     got = k3.s2_silu_sep(x, s, tg, fg)
     assert k3.launches == n + 1
     _check(got, k3.s2_silu_sep_plain(x, s, tg, fg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,lmax", [(50, 128, 6), (37, 64, 4)])
+def test_s2_silu_sep_cuda_core_instance_matches_plain(dev, E, C, lmax):
+    """K3's and K3b's CUDA-core instance, which ``cuda_cores`` asks for at
+    shapes the tensor-core kernels take, against the plain versions."""
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    x, s, tg, fg, g = _sep_case(dev, E, C, lmax, 49 + E, cotangent=True)
+    n, nb = k3.launches, k3.launches_bwd
+    got = k3.s2_silu_sep_cuda(x, s, tg, fg, cuda_cores=True)
+    grads = k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g, cuda_cores=True)
+    assert (k3.launches, k3.launches_bwd) == (n + 1, nb + 1)
+    _check(got, k3.s2_silu_sep_plain(x, s, tg, fg))
+    _check_grads(grads, k3.s2_silu_sep_bwd_plain(x, s, tg, fg, g), ["dx", "ds"])
+
+
+@pytest.mark.cuda
+def test_s2_silu_sep_instance_by_shape(dev):
+    """K3's and K3b's tensor-core kernels take I <= 32 and C a multiple of
+    16 (lmax 6, 4, 2 at mmax 2: I 29, 19, 9), one block an SM (K3: 16
+    warps, 219,776 B of shared memory at I 29, G 70; K3b: 15 warps, 225,888
+    B; at I 32 K3b's block takes the 14 warps that fit); every other shape
+    the parent took (C 100 or 8) runs the CUDA-core instance; I above 32
+    neither."""
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    takes = {(29, 128, 70): "tensor_cores", (19, 64, 50): "tensor_cores",
+             (9, 16, 42): "tensor_cores", (32, 16, 70): "tensor_cores",
+             (29, 100, 70): "cuda_cores", (29, 8, 70): "cuda_cores", (9, 1, 42): "cuda_cores",
+             (36, 128, 20): None, (33, 16, 70): None}
+    assert {w: k3.s2_silu_sep_instance(*w) for w in takes} == takes
+    fwd, bwd = k3.sep_residency(29, 128, 70), k3.sep_residency(29, 128, 70, bwd=True)
+    assert fwd == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 219776}, fwd
+    assert bwd == {"blocks_per_sm": 1, "threads": 480, "smem_bytes": 225888}, bwd
+    assert k3.sep_residency(32, 16, 70, bwd=True) == {"blocks_per_sm": 1, "threads": 448,
+                                                      "smem_bytes": 219776}
+    assert k3.sep_residency(29, 100, 70)["blocks_per_sm"] == -1
+
+
+@pytest.mark.cuda
+def test_s2_silu_sep_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K3 meets (atol and rtol 1e-4, as chip_smoke.py
+    holds it) tells split TF32 from one TF32 product at a training
+    microbatch's stage-1 call (E 31,744, I 29, G 70, C 128): the kernel and
+    the split rendering of its arithmetic (test_torch_tf32_split.k3_split)
+    pass it against s2_silu_sep_plain; the same rendering with one TF32
+    product in place of each split one fails it."""
+    from test_torch_tf32_split import k3_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    args = _sep_case(dev, 31744, 128, 6, 91)
+    n = k3.launches
+    got = k3.s2_silu_sep_cuda(*args)
+    assert k3.launches == n + 1
+    want = k3.s2_silu_sep_plain(*args)
+    ratio = lambda a: ((a - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    ratios = {"kernel": ratio(got)}
+    del got
+    ratios["split"] = ratio(k3_split(*args))
+    ratios["one_tf32"] = ratio(k3_split(*args, mm=mm_tf32))
+    print(json.dumps({"hold_ratios": ratios}))
+    assert ratios["kernel"] <= 1.0, ratios
+    assert ratios["split"] <= 1.0, ratios
+    assert ratios["one_tf32"] > 1.0, ratios
+
+
+@pytest.mark.cuda
+def test_s2_silu_sep_bwd_hold_rejects_one_tf32_product(dev):
+    """K3b's hold (each output within 1e-4 of its largest magnitude, as
+    chip_smoke.py holds it) at the same call: the kernel's and k3b_split's
+    dx and ds pass it against s2_silu_sep_bwd_plain; with one TF32 product
+    in place of each split one, dx fails it (ds has no product on its
+    path)."""
+    from test_torch_tf32_split import k3b_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    args = _sep_case(dev, 31744, 128, 6, 93, cotangent=True)
+    n = k3.launches_bwd
+    got = k3.s2_silu_sep_bwd_cuda(*args)
+    assert k3.launches_bwd == n + 1
+    want = k3.s2_silu_sep_bwd_plain(*args)
+    ratio = lambda outs: {n: ((a - b).abs().max() / (1e-4 * b.abs().max())).item()
+                          for n, a, b in zip(("dx", "ds"), outs, want)}
+    ratios = {"kernel": ratio(got)}
+    del got
+    ratios["split"] = ratio(k3b_split(*args))
+    ratios["one_tf32"] = ratio(k3b_split(*args, mm=mm_tf32))
+    print(json.dumps({"hold_ratios": ratios}))
+    assert max(ratios["kernel"].values()) <= 1.0, ratios
+    assert max(ratios["split"].values()) <= 1.0, ratios
+    assert ratios["one_tf32"]["dx"] > 1.0, ratios
 
 
 BWD_NAMES = ["dqt", "dk", "dv", "dds", "ddv", "dwk1", "dbk1", "dwk2", "dbk2",
@@ -551,18 +662,16 @@ def _check_gate_bwd(dev, lmax, N, H, C, Co):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C", [(50, 128), (9, 100)])
-def test_s2_silu_sep_bwd_kernel_matches_plain(dev, E, C):
-    """K3b with the lmax 6 / mmax 2 grid; C not a multiple of the channel
-    block; row 0 of the cotangent reaches only the scalars."""
-    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+@pytest.mark.parametrize("E,C,lmax", SEP_CASES)
+def test_s2_silu_sep_bwd_kernel_matches_plain(dev, E, C, lmax):
+    """K3b on the instance K3 takes (the tensor-core kernel, or the
+    CUDA-core one at C 100); row 0 of the cotangent reaches only the
+    scalars."""
     from singa_tpu_torch.ops.cuda import s2_act as k3
 
-    rng = np.random.default_rng(61 + E)
-    tg, fg = (_t(m, dev) for m in _grid_mats_for(6, 2, True))
-    x = _t(rng.normal(size=(E, tg.shape[1], C)).astype(np.float32), dev)
-    s = _t(rng.normal(size=(E, C)).astype(np.float32), dev)
-    g = _t(rng.normal(size=(E, tg.shape[1], C)).astype(np.float32), dev)
+    x, s, tg, fg, g = _sep_case(dev, E, C, lmax, 61 + E, cotangent=True)
+    want = "tensor_cores" if C % 16 == 0 else "cuda_cores"
+    assert k3.s2_silu_sep_instance(tg.shape[1], C, tg.shape[0]) == want
     n = k3.launches_bwd
     got = k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g)
     assert k3.launches_bwd == n + 1
@@ -1383,15 +1492,16 @@ def _misaligned(a):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["k1", "k7", "k8", "k2", "k4"])
+@pytest.mark.parametrize("form", ["k1", "k7", "k8", "k2", "k4", "k3"])
 def test_kernels_take_misaligned_inputs(dev, form):
     """Each forward kernel and its backward (K1/K1b, K7/K7b, K8/K8b, K2/K2b,
-    K4/K4b) given every tensor input as a contiguous view at a 4-byte offset
+    K4/K4b, K3/K3b) given every tensor input as a contiguous view at a 4-byte offset
     (which the kernels' 16-byte loads would fault on, and which the JAX
     package takes) runs on the card, through the wrapper's aligned copy,
     and matches its plain version on the aligned inputs."""
     from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
     from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+    from singa_tpu_torch.ops.cuda import s2_act as k3
     from singa_tpu_torch.ops.cuda import so3_ffn as k2
 
     mis = lambda args: [_misaligned(a) for a in args]
@@ -1429,6 +1539,13 @@ def test_kernels_take_misaligned_inputs(dev, form):
         grads = k2.so3_gate_ffn_bwd_cuda(*mis(bwd_args))
         want, want_g = k2.so3_gate_ffn_plain(*args, 6), k2.so3_gate_ffn_bwd_plain(*bwd_args)
         names = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
+    elif form == "k3":
+        bwd_args = _sep_case(dev, 37, 128, 6, 95, cotangent=True)
+        args = bwd_args[:4]
+        got = k3.s2_silu_sep_cuda(*mis(args))
+        grads = k3.s2_silu_sep_bwd_cuda(*mis(bwd_args))
+        want, want_g = k3.s2_silu_sep_plain(*args), k3.s2_silu_sep_bwd_plain(*bwd_args)
+        names = ["dx", "ds"]
     else:
         args, dy = _s2_ffn_case(dev, 6, 37, 512, 16, 16, 89)
         bwd_args = [*args[:6], *args[7:], 6, dy]

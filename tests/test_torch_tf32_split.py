@@ -33,6 +33,11 @@ largest output of ``so3_ffn_plain``; with one TF32 product each it fails
 the 1e-4 hold the kernel meets. K1's forward with its EdgeMLP products split
 (``k1_split``) is within 1e-5 of its largest output of
 ``neighbor_attn_plain``; with one TF32 product each it fails that hold too.
+K3's forward and K3b's backward with their grid transforms split
+(``k3_split``, ``k3b_split``) are within 1e-5 of each output's largest
+magnitude of ``s2_silu_sep_plain`` / ``s2_silu_sep_bwd_plain`` and of the
+JAX package's ``s2_silu_sep`` and its VJP in interpret mode; with one TF32
+product each they fail the holds ``chip_smoke.py`` holds the kernels to.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ K2B_TN = 8  # nodes per tile of K2b's weight kernel
 K2B_DX_HC = 16  # hidden channels per chunk of K2b's dx kernel
 K4_HC = 16  # hidden channels per chunk of K4's tensor-core kernel
 K2_HC = 16  # hidden channels per chunk of K2's tensor-core kernel
+K3_STEP = 8  # grid points of a step of K3's and K3b's chains: the from-grid product's depth
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -277,6 +283,50 @@ def k2_split(x, w1, b1, wg, bg, w2, b2, lmax, mm=mm_split):
         y += mm(mid, W2[:, c])
     y[0] += b2
     return y.transpose(0, 1)
+
+
+def _columns(a: torch.Tensor) -> torch.Tensor:
+    """[E, I, C] -> [I, E * C]: the flat (edge, channel) columns of K3's and
+    K3b's tensor-core kernels."""
+    E, I, C = a.shape
+    return a.transpose(0, 1).reshape(I, E * C)
+
+
+def k3_split(x, s, tg, fg, mm=mm_split):
+    """K3's forward (``s2_silu_sep_plain``'s arguments and output) as its
+    tensor-core kernel takes it, with its two products through ``mm`` (split
+    TF32 by default; ``mm_tf32`` for one TF32 product): v = tg X over the
+    flat (edge, channel) columns at depth I; silu(v); the from-grid sums
+    fg^T silu(v) step by step over K3_STEP grid points, each step's product
+    added in float32 in order; row 0 replaced by silu(s). The kernel's
+    32-column warp tiles change nothing: each column is its own. Runs on the
+    tensors' device."""
+    E, I, C = x.shape
+    act = F.silu(mm(tg, _columns(x)))
+    out = torch.zeros(I, E * C, dtype=x.dtype, device=x.device)
+    for g0 in range(0, tg.shape[0], K3_STEP):
+        out += mm(fg[g0:g0 + K3_STEP].T, act[g0:g0 + K3_STEP])
+    out = out.reshape(I, E, C).transpose(0, 1).clone()
+    out[:, 0] = F.silu(s)
+    return out
+
+
+def k3b_split(x, s, tg, fg, g, mm=mm_split):
+    """K3b's (dx, ds) (``s2_silu_sep_bwd_plain``'s arguments and outputs) as
+    its tensor-core kernel takes them, with its three products through
+    ``mm``: v = tg X and u = fg' Y at depth I (fg' = fg with column 0
+    zeroed: row 0 of the cotangent reaches only ds); h = silu'(v) u; dx =
+    tg^T h step by step over K3_STEP grid points, each step's product added
+    in float32 in order; ds = silu'(s) g[:, 0] in float32. Runs on the
+    tensors' device."""
+    E, I, C = x.shape
+    fgz = fg.clone()
+    fgz[:, 0] = 0
+    h = silu_grad(mm(tg, _columns(x))) * mm(fgz, _columns(g))
+    dx = torch.zeros(I, E * C, dtype=x.dtype, device=x.device)
+    for g0 in range(0, tg.shape[0], K3_STEP):
+        dx += mm(tg[g0:g0 + K3_STEP].T, h[g0:g0 + K3_STEP])
+    return dx.reshape(I, E, C).transpose(0, 1).contiguous(), silu_grad(s) * g[:, 0]
 
 
 def k1_split(*args, mm=mm_split):
@@ -610,3 +660,76 @@ def test_k2_split_matches_plain_and_pallas_forward(lmax, N, H, C, Co):
     hold_ratio = ((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
     assert max(errs.values()) <= 1e-5, errs
     assert hold_ratio > 1.0, hold_ratio
+
+
+def _k3_case(lmax, E, C, seed):
+    """x, s, tg, fg, g of K3/K3b at mmax 2 (m-primary grid) as numpy arrays."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+
+    tg, fg = _grid_mats_for(lmax, 2, True)
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: rng.normal(size=sh).astype(np.float32)
+    I = tg.shape[1]
+    return f(E, I, C), f(E, C), tg, fg, f(E, I, C)
+
+
+@pytest.mark.parametrize("lmax,E", [(6, 1), (6, 37), (4, 37), (2, 1), (2, 37)])
+def test_k3_split_matches_plain_and_pallas_forward(lmax, E):
+    """K3's output with both products its tensor-core kernel splits rendered
+    in split TF32 (``k3_split``), at mmax 2 and lmax 6, 4 and 2 (I 29, 19,
+    9; G 70, 50, 42), E of 1 and a ragged 37, C 64: within 1e-5 of its
+    largest magnitude of ``s2_silu_sep_plain`` (float32) and of the JAX
+    package's Pallas kernel ``s2_silu_sep`` in interpret mode (the same
+    function, its sums in other orders). The same rendering with one TF32
+    product in place of each split one fails the 1e-4 hold (atol and rtol
+    1e-4) that ``chip_smoke.py`` holds the kernel to."""
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.s2_act import s2_silu_sep
+    from singa_tpu_torch.ops.cuda.s2_act import s2_silu_sep_plain
+
+    x, s, tg, fg, _ = _k3_case(lmax, E, 64, 29 + lmax + E)
+    args = [torch.as_tensor(a) for a in (x, s, tg, fg)]
+    want = s2_silu_sep_plain(*args)
+    with compute_dtype_scope("float32"):
+        pallas = torch.as_tensor(np.array(s2_silu_sep(jnp.asarray(x), jnp.asarray(s), tg, fg)))
+    got = k3_split(*args)
+    errs = rel_errs([got, got, pallas], [want, pallas, want], ["plain", "pallas", "pallas_plain"])
+    one = k3_split(*args, mm=mm_tf32)
+    hold_ratio = ((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    assert max(errs.values()) <= 1e-5, errs
+    assert hold_ratio > 1.0, hold_ratio
+
+
+@pytest.mark.parametrize("lmax,E", [(6, 1), (6, 37), (4, 37), (2, 1), (2, 37)])
+def test_k3b_split_matches_plain_and_pallas_backward(lmax, E):
+    """K3b's dx and ds with its three products in split TF32 (``k3b_split``),
+    at the same cases as the forward's: within 1e-5 of each output's largest
+    magnitude of ``s2_silu_sep_bwd_plain`` (float32) and of the VJP of the
+    JAX package's ``s2_silu_sep`` (its Pallas ``_sep_bwd`` in interpret
+    mode). With one TF32 product in their place, dx fails the hold
+    ``chip_smoke.py`` holds the kernel to (1e-4 of its largest magnitude);
+    ds has no product on its path and agrees in both."""
+    import jax
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.s2_act import s2_silu_sep
+    from singa_tpu_torch.ops.cuda.s2_act import s2_silu_sep_bwd_plain
+
+    x, s, tg, fg, g = _k3_case(lmax, E, 64, 31 + lmax + E)
+    args = [torch.as_tensor(a) for a in (x, s, tg, fg, g)]
+    want = s2_silu_sep_bwd_plain(*args)
+    with compute_dtype_scope("float32"):
+        _, vjp = jax.vjp(lambda a, b: s2_silu_sep(a, b, tg, fg), jnp.asarray(x), jnp.asarray(s))
+        pallas = [torch.as_tensor(np.array(t)) for t in vjp(jnp.asarray(g))]
+    got = k3b_split(*args)
+    names = ["dx", "ds"]
+    errs = {**rel_errs(got, want, names),
+            **{f"{n}_pallas": e for n, e in rel_errs(got, pallas, names).items()},
+            **{f"{n}_pallas_plain": e for n, e in rel_errs(pallas, want, names).items()}}
+    one = rel_errs(k3b_split(*args, mm=mm_tf32), want, names)
+    assert max(errs.values()) <= 1e-5, errs
+    assert one["dx"] > 1e-4, one
+    assert one["ds"] == errs["ds"], (one, errs)

@@ -1,0 +1,109 @@
+"""K3's and K3b's tensor-core kernels at variants of their compile-time
+constants, timed on the card at a training microbatch's stage-1 call
+(31,744 edges) and a serving call (7,936), I 29, C 128, G 70.
+
+    python3 tools/bench_k3_variants.py [--out build/k3_variants/results.json]
+
+Each variant is a copy of ``singa_tpu_torch`` under ``build/k3_variants/``
+with ``csrc/s2_act.cu``'s constants replaced as VARIANTS lists (``final``:
+the source as it is), built and run in a process of its own; each call is
+timed by CUDA events over 30 launches after 3 of warm-up (host time
+included, which the card's time hides at these sizes), and ``final`` also
+times the CUDA-core instance. Prints one JSON line a variant and the card's
+name and power limit. Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VARIANTS = {
+    "final": [],
+    "fwd_12_warps": [(r"kFwdWarps = 16;", "kFwdWarps = 12;")],
+    "fwd_14_warps": [(r"kFwdWarps = 16;", "kFwdWarps = 14;")],
+    "fwd_64_columns": [(r"kFwdCT = 2;", "kFwdCT = 4;"), (r"kFwdWarps = 16;", "kFwdWarps = 8;")],
+    "bwd_32_columns": [(r"kBwdCT = 1;", "kBwdCT = 2;"), (r"kBwdWarps = 15;", "kBwdWarps = 7;")],
+    "one_step_a_pass": [(r"kSteps = 3;", "kSteps = 1;")],
+}
+CHILD = r'''
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from singa_tpu_torch.equivariant.layers import _grid_mats_for
+from singa_tpu_torch.ops.cuda import s2_act as k3
+
+def ms(fn, iters=30):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+tg, fg = (torch.as_tensor(m).cuda() for m in _grid_mats_for(6, 2, True))
+out = {}
+for E in (31744, 7936):
+    rng = np.random.default_rng(E)
+    x, g = (torch.as_tensor(rng.normal(size=(E, 29, 128)).astype(np.float32)).cuda()
+            for _ in range(2))
+    s = torch.as_tensor(rng.normal(size=(E, 128)).astype(np.float32)).cuda()
+    r = {"k3_ms": ms(lambda: k3.s2_silu_sep_cuda(x, s, tg, fg)),
+         "k3b_ms": ms(lambda: k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g)),
+         "k3_max_abs_err": (k3.s2_silu_sep_cuda(x, s, tg, fg)
+                            - k3.s2_silu_sep_plain(x, s, tg, fg)).abs().max().item()}
+    if sys.argv[2] == "1":
+        r["k3_cuda_cores_ms"] = ms(lambda: k3.s2_silu_sep_cuda(x, s, tg, fg, cuda_cores=True))
+        r["k3b_cuda_cores_ms"] = ms(
+            lambda: k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g, cuda_cores=True))
+    out[E] = r
+print(json.dumps(out))
+'''
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "k3_variants", "results.json"))
+    a = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip(), flush=True)
+    results = {}
+    for name, subs in VARIANTS.items():
+        root = os.path.join(ROOT, "build", "k3_variants", name)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(os.path.join(ROOT, "singa_tpu_torch"),
+                        os.path.join(root, "singa_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        src = os.path.join(root, "singa_tpu_torch", "csrc", "s2_act.cu")
+        text = open(src).read()
+        for pattern, repl in subs:
+            if not re.search(pattern, text):
+                raise SystemExit(f"{name}: {pattern!r} is not in csrc/s2_act.cu")
+            text = re.sub(pattern, repl, text)
+        with open(src, "w") as f:
+            f.write(text)
+        r = subprocess.run([sys.executable, "-c", CHILD, root, "1" if name == "final" else "0"],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise SystemExit(f"{name} failed:\n{r.stderr[-3000:]}")
+        results[name] = json.loads(r.stdout.strip().splitlines()[-1])
+        print(json.dumps({"variant": name, **results[name]}), flush=True)
+    os.makedirs(os.path.dirname(a.out), exist_ok=True)
+    with open(a.out, "w") as f:
+        json.dump({"device": smi.stdout.strip(), "variants": results}, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
