@@ -22,9 +22,10 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               split at 16 channels, and its CUDA-core instance), of K2b's
               kernels (dx, weight, split), of K3's and K3b's (``k3_ptxas``:
               their tensor-core kernels, with their shared memory and
-              threads at I 29, C 128, G 70, and the CUDA-core instance) and
-              of the GEMM kernels of K6 and K6b (of the sources this run
-              compiled)
+              threads at I 29, C 128, G 70, and the CUDA-core instance), of
+              K5's and K5b's (``k5_ptxas``: their tensor-core kernels, one
+              instance a form, and their CUDA-core instance) and of the
+              GEMM kernels of K6 and K6b (of the sources this run compiled)
      mma_rate the card's mma.sync TF32 rate (csrc/mma_tf32.cu), the
               ceiling of the tensor-core kernels, a third of it for split
               TF32
@@ -49,7 +50,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               encode_pocket (K1 = 6, K2 = 3, K3 = 3, K4 = 0), encode_ms /
               decode_ms, molecules/s, finite scores, a few SMILES
      profile  torch.profiler over one encode_pocket and the first 40 decode
-              steps: device busy time, idle share, the costliest kernels
+              steps: device busy time (kernels, copies and sets; the spans
+              of user annotations apart, ``annotation_ms``), idle share,
+              the costliest kernels
   5. vs_cpu   encode_pocket on the card (kernels) vs on the CPU (plain
               versions) with the same weights, 2 pockets
   6. cli      generate.main(... --device cuda) on one pocket writes its CSV
@@ -63,7 +66,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      s2 FFN's hidden [N, 49, 512] at the serving encode (lin1 of K4's
      captured input, as the plain K4 forms it) and the attention's message
      [E, 29, 128] (K3's captured input, m-primary, mmax 2), with a seeded
-     cotangent
+     cotangent; both calls must take the tensor-core kernels, and each
+     line also holds and times the CUDA-core instance at the same call
+     (``cuda_cores``) and gives the wrapper's host time (``host_ms``)
   8. kernel_train / kernel_bwd  for K1-K3 and K1b-K3b: every distinct call
               (by shapes) that one training microbatch (32 complexes of
               data/corpus/train, default Config in float32) makes of each
@@ -167,13 +172,14 @@ of its dead-weighted rows' slots. K1's and K7's operations are those of
 the live slots and of the dead-weighted rows' slots (the v-EdgeMLP, smear
 and aggregate; a row that copies the row before's inputs costs none);
 ``bound_live_only_ms`` beside them counts the live pairs alone. The entries of
-K1, K7, K1b, K7b, K2, K2b, K3, K3b, K4, K4b, K6 and K6b also have ``bound_tc_ms`` and
+K1, K7, K1b, K7b, K2, K2b, K3, K3b, K4, K4b, K5, K5b, K6 and K6b also have ``bound_tc_ms`` and
 ``split_tf32_flops`` (per launch): the larger of
 the operations that run as split TF32 (K1's and K7's EdgeMLPs on live
 slots and their v-EdgeMLP on the dead-weighted rows' slots; K1b's and
 K7b's EdgeMLPs, dh and
 four weight gradients, once per live pair; K2's h, y and gates, all of
 its work; K3's two and K3b's three grid transforms, all of their work;
+K5's two and K5b's three, but at I 49 their last coefficient row;
 K2b's five per-degree products
 h, dmid, dx, dw1, dw2 and its gates and row-0 gate term; K4's h, y and
 two grid transforms, but at lmax 6 their last coefficient row; K4b's four
@@ -182,19 +188,21 @@ and K6b's conv and weight-gradient products, the GEMM of
 csrc/so2_chain.cuh) at three TF32 products each over 495 TFLOP/s and the
 rest over 67 TFLOP/s, since the two units issue together, or the bytes
 over 3.35 TB/s if that is larger. K1's, K7's, K1b's, K7b's, K2's, K2b's,
-K3's, K3b's, K4's and K4b's also have the ptxas report and the residency (blocks per SM,
+K3's, K3b's, K4's, K4b's, K5's and K5b's also have the ptxas report and the residency (blocks per SM,
 threads, dynamic shared memory per block) of their tensor-core kernel (K2b: of its weight
 kernel, and of its dx kernel as ``dx_residency``; K2 and K4: at the
-training microbatch's widths, which must take it; K2, K3 and K3b also
-``cuda_cores_ms``, their CUDA-core instance at the same calls, and K3 and
-K3b ``host_ms``, their wrapper's host time a call); K6's and
+training microbatch's widths, which must take it; K5 and K5b at each of
+kernel_s2act's two inputs; K2, K3, K3b, K5 and K5b also
+``cuda_cores_ms``, their CUDA-core instance at the same calls, and K3, K3b,
+K5 and K5b ``host_ms``, their wrapper's host time a call); K6's and
 K6b's the same of the GEMM's kernels (``gemm_ptxas``,
 ``gemm_residency``), and train_profile_so2 reports those kernels' device
 time in the profiled step and their rate (``so2_gemm``: the split-TF32
 operations of one step's K6 and K6b calls over that time). Any failed
 check raises. TF32 is off for matmuls and cuDNN, so every PyTorch product
 runs in full float32 (K1b's and K7b's EdgeMLP products, K2's and K2b's products,
-K4's grid transforms and per-degree products, K3's, K3b's and K4b's grid transforms,
+K4's grid transforms and per-degree products, K3's, K3b's, K4b's, K5's and K5b's grid
+transforms,
 K1's and K7's EdgeMLPs and K6's and K6b's products run as split TF32
 inside the kernels,
 csrc/mma_tf32.cuh, to float32 round-off).
@@ -302,9 +310,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def device_profile(fn, match=()) -> dict:
     """Device time of fn() by kernel under torch.profiler, beside the wall
     time of the same call unprofiled. The device's busy time is the sum of
-    its kernels' times (one stream, so they do not overlap); the idle share
-    is the rest of the unprofiled wall time. ``match``: names; for each, the
-    device time and launches of the kernels whose name contains it."""
+    its kernels' times, memory copies and sets among them (one stream, so
+    they do not overlap). The profiler also lists user annotations as device
+    events (a ``record_function`` range's span on the card, such as
+    ``Optimizer.step#Adam.step``, which covers kernels counted already and
+    the gaps between them): they are left out, told apart by
+    ``FunctionEventAvg.is_user_annotation`` (PyTorch 2.4 on; the card's
+    PyTorch is 2.11), and their spans' sum is reported apart
+    (``annotation_ms``). The idle share is the rest of the unprofiled wall
+    time. ``match``: names; for each, the device time and launches of the
+    kernels whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -315,7 +330,9 @@ def device_profile(fn, match=()) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in device if not e.is_user_annotation]
+    annotations = [e for e in device if e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
     matched = {}
@@ -329,6 +346,7 @@ def device_profile(fn, match=()) -> dict:
         "device_busy_ms": busy_ms if ops else None,
         "idle_share": 1.0 - busy_ms / wall_ms if ops else None,
         "device_ops": sum(e.count for e in ops),
+        "annotation_ms": {e.key[:80]: e.self_device_time_total / 1e3 for e in annotations},
         "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
         "matched": matched,
     }
@@ -493,13 +511,13 @@ def host_ms(fn, iters: int = 20) -> float:
     return (t1 - t0) / iters * 1e3
 
 
-def sep_report(spec, mod, args, kw) -> dict:
-    """K3's or K3b's wrapper's host time a call (``host_ms``; the kernels
-    line's ``ms``, by CUDA events around the wrapper, includes it where it
-    exceeds the device's), and the CUDA-core instance, which the shapes the
-    tensor-core kernels do not take run, at the same call (``cuda_cores``:
-    its time, and its outputs against the plain version as ``hold`` holds
-    the kernel)."""
+def instance_report(spec, mod, args, kw) -> dict:
+    """K3's, K3b's, K5's or K5b's wrapper's host time a call (``host_ms``;
+    the kernels line's ``ms``, by CUDA events around the wrapper, includes
+    it where it exceeds the device's), and the CUDA-core instance, which the
+    shapes the tensor-core kernels do not take run, at the same call
+    (``cuda_cores``: its time, and its outputs against the plain version as
+    ``hold`` holds the kernel)."""
     launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
     cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
     as_tuple = lambda r: (r,) if torch.is_tensor(r) else tuple(r)
@@ -880,6 +898,28 @@ def k5b_cost(args, outs):
     return nbytes(x, tg, fg, g, *outs), 2.0 * N * C * tg.shape[0] * I * 3
 
 
+def k5_split_rows(I: int) -> int:
+    """Coefficient rows that K5's and K5b's tensor-core kernels take through
+    split TF32: all but the last at I 49 (the full lmax-6 grid), whose row
+    48 stays float32."""
+    return I - 1 if I == 49 else I
+
+
+def k5_split_flops(args) -> float:
+    """The operations of K5 that its tensor-core kernel (the one both of
+    kernel_s2act's calls take) runs as split TF32: its two grid transforms
+    over ``k5_split_rows``."""
+    x, tg = args[0], args[1]
+    N, I, C = x.shape
+    return 2.0 * N * C * tg.shape[0] * k5_split_rows(I) * 2
+
+
+def k5b_split_flops(args) -> float:
+    """K5b's: its three grid transforms over ``k5_split_rows``."""
+    return k5_split_flops(args) * 3 / 2
+
+
+
 def so2_rotation_flops(lmax: int, mmax: int, C: int) -> float:
     """Per edge: the block-diagonal rotation J_kept Z J^T Z of C channels
     (per degree l a (2l+1)^2 product, then min(2l+1, 2mmax+1) kept rows),
@@ -977,7 +1017,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            k2_cost, None, k2_split_flops, k2_report),
     Kernel("s2_silu_sep", "s2_act", "s2_silu_sep", "launches",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:230", k3_cost, None,
-           k3_split_flops, sep_report),
+           k3_split_flops, instance_report),
     Kernel("neighbor_attn_bwd", "neighbor_attn", "neighbor_attn_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/neighbor_attn_bwd.cu", "singa_tpu/ops/pallas/neighbor_attn.py:362",
            k1b_cost, ATTN_BWD_OUTS, k1b_split_flops, list_bwd_report),
@@ -986,7 +1026,7 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            k2b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"), k2b_split_flops),
     Kernel("s2_silu_sep_bwd", "s2_act", "s2_silu_sep_bwd", "launches_bwd",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:209",
-           k3b_cost, ("dx", "d_scalars"), k3b_split_flops, sep_report),
+           k3b_cost, ("dx", "d_scalars"), k3b_split_flops, instance_report),
     Kernel("so3_ffn_fused", "so3_ffn", "so3_ffn", "launches_s2",
            "singa_tpu_torch/csrc/so3_ffn.cu", "singa_tpu/ops/pallas/so3_ffn.py:321", k4_cost, None,
            k4_split_flops),
@@ -994,10 +1034,11 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/so3_ffn_bwd.cu", "singa_tpu/ops/pallas/so3_ffn.py:351",
            k4b_cost, ("dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"), k4b_split_flops),
     Kernel("s2_silu", "s2_act", "s2_silu", "launches_silu",
-           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:248", k5_cost, None),
+           "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:248", k5_cost, None,
+           k5_split_flops, instance_report),
     Kernel("s2_silu_bwd", "s2_act", "s2_silu_bwd", "launches_silu_bwd",
            "singa_tpu_torch/csrc/s2_act.cu", "singa_tpu/ops/pallas/s2_act.py:123",
-           k5b_cost, ("dx",)),
+           k5b_cost, ("dx",), k5b_split_flops, instance_report),
     Kernel("so2_attn_fused", "so2_attn", "so2_attn", "launches",
            "singa_tpu_torch/csrc/so2_attn.cu", "singa_tpu/ops/pallas/so2_attn.py:387", k6_cost, None,
            k6_split_flops),
@@ -1220,6 +1261,56 @@ def relu_flips(got: list, want: list) -> dict:
             "by_module": flips, "largest_flipped_magnitude": near}
 
 
+def dense_lists_lines(mods, captured, suffix: str) -> None:
+    """dense_lists{suffix}: at each distinct K8 and K8b call of a training
+    microbatch, what the kernels walk and their times in both row orders."""
+    for spec in (K8, K8B):
+        for args, kw, calls in captured[f"{spec.fn}_cuda"].values():
+            fn = getattr(mods[spec.module], f"{spec.fn}_cuda")
+            emit({"phase": f"dense_lists{suffix}", "name": spec.name,
+                  "calls_per_microbatch": calls, **dense_lists_report(args, kw),
+                  "row_order": row_order_ms(fn, args, kw)})
+
+
+def path_instances(specs, mods, captured, results: dict) -> None:
+    """At a training microbatch's widths: the kernels each call of the path
+    must take (K2's, K4's, K3's and K3b's tensor-core ones; raises
+    otherwise) and the residency of the path's tensor-core kernels, into
+    ``results``. Holds no captured tensor past its return, so the train
+    phase's peak memory does not count them."""
+    if K2B in specs:  # K2b's weight and dx kernels' residency at the microbatch's widths
+        args = next(iter(captured["so3_gate_ffn_bwd_cuda"].values()))[0]
+        x, w1, _, _, _, w2, lmax, _ = args
+        widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
+        results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(*widths)
+        results[K2B.name]["dx_residency"] = mods["so3_ffn"].gate_bwd_residency(*widths,
+                                                                              dx=True)
+    if K2 in specs:  # K2's tensor-core kernel at the microbatch's widths: it takes the call
+        x, w1, _, _, _, w2, _, lmax = next(iter(captured["so3_gate_ffn_cuda"].values()))[0]
+        widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
+        instance = mods["so3_ffn"].so3_gate_ffn_instance(*widths)
+        if instance != "tensor_cores":
+            raise AssertionError(f"K2 at {widths} runs {instance}, not the tensor-core kernel")
+        results[K2.name]["residency"] = mods["so3_ffn"].gate_fwd_residency(*widths)
+    if K4 in specs:  # K4's tensor-core kernel at the microbatch's widths: it takes the call
+        x, w1, _, _, _, w2, _, tg, _, lmax = next(iter(captured["so3_ffn_cuda"].values()))[0]
+        widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
+        instance = mods["so3_ffn"].s2_fwd_instance(*widths)
+        if instance != "tensor_cores":
+            raise AssertionError(f"K4 at {widths} runs {instance}, not the tensor-core kernel")
+        results[K4.name]["residency"] = mods["so3_ffn"].s2_fwd_residency(*widths)
+    if K3 in specs:  # K3's and K3b's tensor-core kernels take the microbatch's calls
+        check_k3_instance(mods, captured)
+        shapes = sep_shapes(next(iter(captured["s2_silu_sep_cuda"].values()))[0])
+        results[K3.name]["residency"] = mods["s2_act"].sep_residency(*shapes)
+        results[K3B.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bwd=True)
+    if K4B in specs:  # K4b's residency at the microbatch's widths
+        args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
+        x, w1, _, _, _, w2, tg, _, lmax, _ = args
+        results[K4B.name]["residency"] = mods["so3_ffn"].s2_bwd_residency(
+            lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
+
+
 def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_step: dict,
                  cli_args: list, warmup: int, steps: int) -> None:
     """kernel_train, kernel_bwd, train, train_profile, train_vs_cpu and
@@ -1257,12 +1348,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
 
         captured = capture(specs, mods, one_microbatch)
         if K8 in specs:
-            for spec in (K8, K8B):
-                for args, kw, calls in captured[f"{spec.fn}_cuda"].values():
-                    fn = getattr(mods[spec.module], f"{spec.fn}_cuda")
-                    emit({"phase": f"dense_lists{suffix}", "name": spec.name,
-                          "calls_per_microbatch": calls, **dense_lists_report(args, kw),
-                          "row_order": row_order_ms(fn, args, kw)})
+            dense_lists_lines(mods, captured, suffix)
         results.update(hold_all([k for k in specs if k.outs is None], mods, captured,
                                 f"kernel_train{suffix}", "calls_per_microbatch", path))
         results.update(hold_all([k for k in specs if k.outs], mods, captured,
@@ -1273,37 +1359,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             gemm_flops = micro_per_step * sum(
                 calls * spec.split_flops(args) for spec in (K6, K6B)
                 for args, _, calls in captured[f"{spec.fn}_cuda"].values())
-        if K2B in specs:  # K2b's weight and dx kernels' residency at the microbatch's widths
-            args = next(iter(captured["so3_gate_ffn_bwd_cuda"].values()))[0]
-            x, w1, _, _, _, w2, lmax, _ = args
-            widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
-            results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(*widths)
-            results[K2B.name]["dx_residency"] = mods["so3_ffn"].gate_bwd_residency(*widths,
-                                                                                  dx=True)
-        if K2 in specs:  # K2's tensor-core kernel at the microbatch's widths: it takes the call
-            x, w1, _, _, _, w2, _, lmax = next(iter(captured["so3_gate_ffn_cuda"].values()))[0]
-            widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
-            instance = mods["so3_ffn"].so3_gate_ffn_instance(*widths)
-            if instance != "tensor_cores":
-                raise AssertionError(f"K2 at {widths} runs {instance}, not the tensor-core kernel")
-            results[K2.name]["residency"] = mods["so3_ffn"].gate_fwd_residency(*widths)
-        if K4 in specs:  # K4's tensor-core kernel at the microbatch's widths: it takes the call
-            x, w1, _, _, _, w2, _, tg, _, lmax = next(iter(captured["so3_ffn_cuda"].values()))[0]
-            widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
-            instance = mods["so3_ffn"].s2_fwd_instance(*widths)
-            if instance != "tensor_cores":
-                raise AssertionError(f"K4 at {widths} runs {instance}, not the tensor-core kernel")
-            results[K4.name]["residency"] = mods["so3_ffn"].s2_fwd_residency(*widths)
-        if K3 in specs:  # K3's and K3b's tensor-core kernels take the microbatch's calls
-            check_k3_instance(mods, captured)
-            shapes = sep_shapes(next(iter(captured["s2_silu_sep_cuda"].values()))[0])
-            results[K3.name]["residency"] = mods["s2_act"].sep_residency(*shapes)
-            results[K3B.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bwd=True)
-        if K4B in specs:  # K4b's residency at the microbatch's widths
-            args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
-            x, w1, _, _, _, w2, tg, _, lmax, _ = args
-            results[K4B.name]["residency"] = mods["so3_ffn"].s2_bwd_residency(
-                lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
+        path_instances(specs, mods, captured, results)
         del captured, micro
 
         # train: warm-up and timed optimizer steps, counts zeroed just before
@@ -1595,11 +1651,21 @@ def serve_s2_phases(dev, files, batch, mods, results: dict) -> None:
     inputs = {"ffn_hidden": (hidden, tg.clone(), fg.clone()),
               "attention_message": (msg.clone(), tg_m.clone(), fg_m.clone())}
     act = {"s2_silu_cuda": {}, "s2_silu_bwd_cuda": {}}
+    residency = {K5.name: {}, K5B.name: {}}
     for name, args in inputs.items():
         act["s2_silu_cuda"][name] = [args, {}, 1]
         act["s2_silu_bwd_cuda"][name] = [(*args, cot(args[0])), {}, 1]
+        # K5's and K5b's tensor-core kernels take both calls
+        shapes = (args[0].shape[1], args[0].shape[2], args[1].shape[0])
+        instance = mods["s2_act"].s2_silu_instance(*shapes)
+        if instance != "tensor_cores":
+            raise AssertionError(f"K5 and K5b at (I, C, G) = {shapes} run {instance}, "
+                                 "not the tensor-core kernels")
+        residency[K5.name][name] = mods["s2_act"].silu_residency(*shapes)
+        residency[K5B.name][name] = mods["s2_act"].silu_residency(*shapes, bwd=True)
     for k, line in hold_all([K5, K5B], mods, act, "kernel_s2act", "calls", None).items():
-        results[k] = {**line, "launches": 0}  # on no path: the runs above assert none
+        # on no path: the runs above assert no launch
+        results[k] = {**line, "launches": 0, "residency": residency[k]}
     del act, inputs, hidden
 
 
@@ -1752,6 +1818,11 @@ def main() -> int:
     for k, v in k3_ptxas.items():
         if "tc_kernel" in k:
             v["residency"] = sep_residency(29, 128, 70, bwd="bwd" in k)
+    # K5's and K5b's kernels: the tensor-core ones (an instance a form: I <=
+    # 32, 33 .. 48, 49 with the tail row) and the CUDA-core instance
+    k5_ptxas = {k: v for k, v in ptxas_report(logs["s2_act"]).items()
+                if "s2_silu_tc_kernel" in k or "s2_silu_bwd_tc_kernel" in k
+                or "s2_silu_kernel" in k}
     gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
                   for n in ("so2_attn", "so2_attn_bwd")}
     # the pair kernels of K1b (form 0: ILi0E) and of K7b (form 1: ILi1E):
@@ -1769,7 +1840,7 @@ def main() -> int:
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
                                                              "dense_edge_attn_bwd")},
           "k4_ptxas": k4_ptxas, "k4b_ptxas": k4b_ptxas, "k2_ptxas": k2_ptxas,
-          "k2b_ptxas": k2b_ptxas, "k3_ptxas": k3_ptxas,
+          "k2b_ptxas": k2b_ptxas, "k3_ptxas": k3_ptxas, "k5_ptxas": k5_ptxas,
           "so2_gemm_ptxas": gemm_ptxas,
           "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas})
 
@@ -1885,6 +1956,7 @@ def main() -> int:
     results[K2.name]["ptxas"] = k2_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
     results[K3.name]["ptxas"] = results[K3B.name]["ptxas"] = k3_ptxas
+    results[K5.name]["ptxas"] = results[K5B.name]["ptxas"] = k5_ptxas
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form
         results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid)
         results[spec.name]["ptxas"] = k1b_ptxas[int(hybrid)]

@@ -74,7 +74,8 @@
 
 namespace {
 
-constexpr int kMaxI = 32;  // coefficient rows K3 and K3b take
+constexpr int kMaxI = 32;      // coefficient rows K3 and K3b take
+constexpr int kSiluMaxI = 49;  // coefficient rows K5's and K5b's tensor-core kernels take
 
 // ------------------------------ tensor cores -------------------------------
 using singa::tc::kSplitFragWords;
@@ -84,8 +85,15 @@ constexpr int kSepKS = kMaxI / 8;  // k steps of the to-grid products
 constexpr int kSepMT = kMaxI / 16; // m16 tiles of the from-grid output
 constexpr int kFwdCT = 2;          // K3: 16-column groups of a warp tile
 constexpr int kBwdCT = 1;          // K3b: the same
-constexpr int kFwdWarps = 16;      // warps of a K3 block, at most
-constexpr int kBwdWarps = 15;      // warps of a K3b block, at most
+constexpr int kFwdWarps = 16;      // warps of a K3 (K5) block, at most
+constexpr int kBwdWarps = 15;      // warps of a K3b (K5b) block, at most
+// K5 and K5b above 32 rows: k steps and m16 tiles of 48 rows, and the
+// 16-column groups of a warp tile (the matrices of a G-210 grid leave room
+// for fewer warps than K3's)
+constexpr int kWideKS = 6;
+constexpr int kWideMT = 3;
+constexpr int kWideCT = 1;
+constexpr bool kTailRow = true;  // at I 49, row 48 in float32 (else a 7th k step, a 4th m16 tile)
 
 // a warp tile of kCT 16-column groups: its columns, and its raw stage's row
 // stride (% 16 of 4: the split's reads are conflict-free)
@@ -95,15 +103,21 @@ template <int kCT> constexpr int kRawStride = 16 * kCT + 4;
 struct SepDims {
   int I, C, G, Gp, st, sa, KS;  // Gp: G rounded up to a chain pass; KS: k steps
   long long Q;                  // columns: E * C
+  bool tail;                    // row I - 1 = 48 in float32, beside the mma rows
+  bool tg_once;                 // K5b: tg staged once, read both ways at stride st
 };
 
-SepDims make_sep_dims(long long E, int I, int C, int G) {
+// The kernels' dimensions. tail: rows 0 .. 47 through mma, row 48 apart (I
+// 49); tg_once: tg staged once for K5b's both reads (st then covers the
+// from-grid's rows too).
+SepDims make_sep_dims(long long E, int I, int C, int G, bool tail = false, bool tg_once = false) {
   SepDims d;
-  d.I = I, d.C = C, d.G = G;
+  d.I = I, d.C = C, d.G = G, d.tail = tail, d.tg_once = tg_once;
   d.Gp = (G + 8 * kSteps - 1) / (8 * kSteps) * (8 * kSteps);
-  d.st = singa::tc_stride(I);
-  d.sa = singa::tc_fg_stride(16 * ((I + 15) / 16));
-  d.KS = (I + 7) / 8;
+  d.KS = tail ? (I - 1) / 8 : (I + 7) / 8;
+  const int MT = tail ? (I - 1) / 16 : (I + 15) / 16;
+  d.st = singa::tc_stride(tg_once && 16 * MT > 8 * d.KS ? 16 * MT : 8 * d.KS);
+  d.sa = tg_once ? d.st : singa::tc_fg_stride(tail ? I : 16 * MT);
   d.Q = E * C;
   return d;
 }
@@ -114,16 +128,19 @@ __host__ __device__ inline long long tiles(const SepDims& d) {
   return (d.Q + kCols<kCT> - 1) / kCols<kCT>;
 }
 
-// floats of one warp's raw stage and words of its fragments, of one operand
+// floats of one warp's raw stage, words of its fragments and, with the tail
+// row, that row's columns, of one operand
 template <int kCT>
 __host__ __device__ inline int warp_floats(const SepDims& d) {
-  return d.I * kRawStride<kCT> + d.KS * kCT * kSplitFragWords;
+  return d.I * kRawStride<kCT> + d.KS * kCT * kSplitFragWords + (d.tail ? kCols<kCT> : 0);
 }
 
-// floats of the staged matrices: K3's tg [Gp][st] and fg [Gp][sa]; K3b's
-// tg [Gp][st], fg' [Gp][st] and tg [Gp][sa]
+// floats of the staged matrices: K3's (K5's) tg [Gp][st] and fg [Gp][sa];
+// K3b's (K5b's) tg [Gp][st], fg' [Gp][st] and, unless tg_once, tg [Gp][sa]
 __host__ __device__ inline int fwd_mats(const SepDims& d) { return d.Gp * (d.st + d.sa); }
-__host__ __device__ inline int bwd_mats(const SepDims& d) { return d.Gp * (2 * d.st + d.sa); }
+__host__ __device__ inline int bwd_mats(const SepDims& d) {
+  return d.Gp * (2 * d.st + (d.tg_once ? 0 : d.sa));
+}
 
 // A tensor-core kernel's block: its warps, the most (up to max_warps) whose
 // stages fit in a block's shared memory beside the matrices, and its
@@ -142,12 +159,14 @@ TcLaunch fit_warps(size_t mats, size_t per_warp, int max_warps) {
   return {w, (mats + w * per_warp) * sizeof(float)};
 }
 
+template <int kCT = kFwdCT>
 TcLaunch fwd_launch(const SepDims& d) {
-  return fit_warps(fwd_mats(d), warp_floats<kFwdCT>(d), kFwdWarps);
+  return fit_warps(fwd_mats(d), warp_floats<kCT>(d), kFwdWarps);
 }
 
+template <int kCT = kBwdCT>
 TcLaunch bwd_launch(const SepDims& d) {
-  return fit_warps(bwd_mats(d), 2 * warp_floats<kBwdCT>(d), kBwdWarps);
+  return fit_warps(bwd_mats(d), 2 * warp_floats<kCT>(d), kBwdWarps);
 }
 
 // m [G, I] -> dst [Gp][stride], zeros past G and I and in columns < col0
@@ -196,13 +215,14 @@ __device__ __forceinline__ void copy_tile(const float* __restrict__ x, long long
 }
 
 // raw [I][kRawStride] -> X^T split, in the chains' fragment order ((ks kCT +
-// c) kSplitFragWords for k step ks and 16-column group c), rows past I zero
-template <int kCT>
+// c) kSplitFragWords for k step ks and 16-column group c), rows past I zero;
+// KS <= kMaxKS k steps (with the tail row: rows 0 .. 47 only)
+template <int kCT, int kMaxKS = kSepKS>
 __device__ __forceinline__ void split_tile(const float* raw, int I, int KS, uint32_t* frag) {
   constexpr int S = kRawStride<kCT>;
   const int lane = threadIdx.x & 31, col = lane >> 2;
 #pragma unroll
-  for (int ks = 0; ks < kSepKS; ++ks) {
+  for (int ks = 0; ks < kMaxKS; ++ks) {
     if (ks < KS) {
       const int i0 = 8 * ks + 2 * (lane & 3);
       const bool r0 = i0 < I, r1 = i0 + 1 < I;
@@ -220,8 +240,8 @@ __device__ __forceinline__ void split_tile(const float* raw, int I, int KS, uint
 // The from-grid sums of a warp tile (acc[mt][j]: rows 16 mt + grp (+ 8) of
 // n8 column tile j) -> out [E, I, C], float2 pieces of whole rows; row 0
 // from row0 (K3: silu(s)) when it is not null
-template <int kCT>
-__device__ __forceinline__ void store_tile(const float (&acc)[kSepMT][2 * kCT][4], long long q0,
+template <int kCT, int kMT = kSepMT>
+__device__ __forceinline__ void store_tile(const float (&acc)[kMT][2 * kCT][4], long long q0,
                                            const SepDims& d, const float* __restrict__ row0,
                                            float* __restrict__ out) {
   const int grp = singa::tc::lane_grp(), tig = singa::tc::lane_tig();
@@ -234,7 +254,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[kSepMT][2 * kCT][4
     if (q >= d.Q) continue;
     float* o = out + col_offset(d, e0, c0, 8 * j + 2 * tig);
 #pragma unroll
-    for (int mt = 0; mt < kSepMT; ++mt)
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 16 * mt + grp + 8 * h;
@@ -249,22 +269,47 @@ __device__ __forceinline__ void store_tile(const float (&acc)[kSepMT][2 * kCT][4
   }
 }
 
-__global__ void __launch_bounds__(32 * kFwdWarps, 1)
-s2_silu_sep_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                      const float* __restrict__ tg, const float* __restrict__ fg,
-                      float* __restrict__ out, SepDims d) {
+// The tail row's sums (tl[j]: the lane's share of column grp of n8 tile j)
+// -> row I - 1 of out: summed over the four lanes of a column, stored by
+// the first
+template <int kCT>
+__device__ __forceinline__ void store_tail(float (&tl)[2 * kCT], long long q0, const SepDims& d,
+                                           float* __restrict__ out) {
+  const int grp = singa::tc::lane_grp(), tig = singa::tc::lane_tig();
+  const long long e0 = q0 / d.C;
+  const int c0 = (int)(q0 - e0 * d.C);
+#pragma unroll
+  for (int j = 0; j < 2 * kCT; ++j) {
+    tl[j] += __shfl_xor_sync(0xffffffffu, tl[j], 1);
+    tl[j] += __shfl_xor_sync(0xffffffffu, tl[j], 2);
+    if (tig == 0 && q0 + 8 * j + grp < d.Q)
+      out[col_offset(d, e0, c0, 8 * j + grp) + (long long)(d.I - 1) * d.C] = tl[j];
+  }
+}
+
+// A forward kernel's tiles, K3's (s: the scalars, whose silu is row 0) or
+// K5's (s null: every row from the chain); I0 = 49: row 48 in float32
+// (grid_chain_tc_fwd), the warp's columns of it kept apart (xt) before the
+// next tile's copy overwrites the raw stage
+template <int I0, int kCT, int kKS, int kMT>
+__device__ __forceinline__ void fwd_tiles(const float* __restrict__ x, const float* __restrict__ s,
+                                          const float* __restrict__ tg,
+                                          const float* __restrict__ fg, float* __restrict__ out,
+                                          const SepDims& d) {
+  constexpr bool kTail = I0 == 49;
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;                   // [Gp][st]: tg, read as B
   float* sfg = stg + d.Gp * d.st;      // [Gp][sa]: fg, read as A transposed
-  const int warp = threadIdx.x >> 5;
-  // the warp's raw stage and fragments
-  float* raw = smem + fwd_mats(d) + warp * (warp_floats<kFwdCT>(d));
-  uint32_t* frag = reinterpret_cast<uint32_t*>(raw + d.I * kRawStride<kFwdCT>);
-  constexpr int W = kCols<kFwdCT>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the warp's raw stage, fragments and tail row
+  float* raw = smem + fwd_mats(d) + warp * (warp_floats<kCT>(d));
+  uint32_t* frag = reinterpret_cast<uint32_t*>(raw + d.I * kRawStride<kCT>);
+  float* xt = reinterpret_cast<float*>(frag + d.KS * kCT * kSplitFragWords);
+  constexpr int W = kCols<kCT>;
   const int warps = blockDim.x >> 5;
-  const long long nw = (long long)gridDim.x * warps, nt = tiles<kFwdCT>(d);
+  const long long nw = (long long)gridDim.x * warps, nt = tiles<kCT>(d);
   long long wt = (long long)blockIdx.x * warps + warp;
-  if (wt < nt) copy_tile<kFwdCT>(x, wt * W, d, raw);
+  if (wt < nt) copy_tile<kCT>(x, wt * W, d, raw);
   cp_async_commit();
   stage_mat(tg, d, d.st, 0, stg);
   stage_mat(fg, d, d.sa, 0, sfg);
@@ -272,15 +317,86 @@ s2_silu_sep_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
   for (; wt < nt; wt += nw) {
     cp_async_wait_all();
     __syncwarp();  // the tile's raw stage; every lane is done with the last chain
-    split_tile<kFwdCT>(raw, d.I, d.KS, frag);
+    split_tile<kCT, kKS>(raw, d.I, d.KS, frag);
+    if (kTail && lane < W) xt[lane] = raw[(I0 - 1) * kRawStride<kCT> + lane];
     __syncwarp();  // the fragments; every lane is done with the raw stage
-    if (wt + nw < nt) copy_tile<kFwdCT>(x, (wt + nw) * W, d, raw);
+    if (wt + nw < nt) copy_tile<kCT>(x, (wt + nw) * W, d, raw);
     cp_async_commit();
-    float acc[kSepMT][2 * kFwdCT][4], tl[2 * kFwdCT];
-    singa::grid_chain_tc_fwd<0, kSteps, kFwdCT, kSepKS, kSepMT>(
-        stg, d.st, sfg, d.sa, frag, raw, d.I, kFwdCT, 0, 0, d.Gp / 8, acc, tl);
-    store_tile<kFwdCT>(acc, wt * W, d, s, out);
+    float acc[kMT][2 * kCT][4], tl[2 * kCT];
+    singa::grid_chain_tc_fwd<I0, kSteps, kCT, kKS, kMT>(stg, d.st, sfg, d.sa, frag, xt, d.I, kCT,
+                                                         0, 0, d.Gp / 8, acc, tl);
+    store_tile<kCT, kMT>(acc, wt * W, d, s, out);
+    if (kTail) store_tail<kCT>(tl, wt * W, d, out);
   }
+}
+
+// A backward kernel's tiles, K3b's (kSep: fg's column 0 zeroed, ds from g's
+// row 0) or K5b's (fg whole, no ds); I0 = 49: row 48 in float32
+// (grid_chain_tc_sep_bwd), x's and g's columns of it kept apart (xt, yt)
+template <int I0, int kCT, int kKS, int kMT, bool kSep>
+__device__ __forceinline__ void bwd_tiles(const float* __restrict__ x, const float* __restrict__ s,
+                                          const float* __restrict__ gin,
+                                          const float* __restrict__ tg,
+                                          const float* __restrict__ fg, float* __restrict__ dx,
+                                          float* __restrict__ ds, const SepDims& d) {
+  constexpr bool kTail = I0 == 49;
+  extern __shared__ __align__(16) float smem[];
+  float* stg = smem;                   // [Gp][st]: tg, read as B
+  float* sfg = stg + d.Gp * d.st;      // [Gp][st]: fg (K3b: column 0 zeroed), read as B
+  // [Gp][sa]: tg, read as A transposed (tg_once: stg itself, sa = st)
+  float* sta = d.tg_once ? stg : sfg + d.Gp * d.st;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int W = kCols<kCT>;
+  const int raw = d.I * kRawStride<kCT>, frag = d.KS * kCT * kSplitFragWords;
+  float* rx = smem + bwd_mats(d) + warp * 2 * warp_floats<kCT>(d);  // the warp's
+  float* rg = rx + raw;
+  uint32_t* fx = reinterpret_cast<uint32_t*>(rg + raw);
+  uint32_t* fy = fx + frag;
+  float* xt = reinterpret_cast<float*>(fy + frag);  // the tail rows
+  float* yt = xt + W;
+  const int warps = blockDim.x >> 5;
+  const long long nw = (long long)gridDim.x * warps, nt = tiles<kCT>(d);
+  long long wt = (long long)blockIdx.x * warps + warp;
+  if (wt < nt) {
+    copy_tile<kCT>(x, wt * W, d, rx);
+    copy_tile<kCT>(gin, wt * W, d, rg);
+  }
+  cp_async_commit();
+  stage_mat(tg, d, d.st, 0, stg);
+  stage_mat(fg, d, d.st, kSep ? 1 : 0, sfg);
+  if (!d.tg_once) stage_mat(tg, d, d.sa, 0, sta);
+  __syncthreads();
+  for (; wt < nt; wt += nw) {
+    const long long q0 = wt * W;
+    cp_async_wait_all();
+    __syncwarp();  // the tile's raw stages; every lane is done with the last chain
+    split_tile<kCT, kKS>(rx, d.I, d.KS, fx);
+    split_tile<kCT, kKS>(rg, d.I, d.KS, fy);
+    if (kSep && lane < W && q0 + lane < d.Q)  // ds of the lane's column, from g's row 0
+      ds[q0 + lane] = singa::silu_gradf_(s[q0 + lane]) * rg[lane];
+    if (kTail && lane < W) {
+      xt[lane] = rx[(I0 - 1) * kRawStride<kCT> + lane];
+      yt[lane] = rg[(I0 - 1) * kRawStride<kCT> + lane];
+    }
+    __syncwarp();  // the fragments; every lane is done with the raw stages
+    if (wt + nw < nt) {
+      copy_tile<kCT>(x, (wt + nw) * W, d, rx);
+      copy_tile<kCT>(gin, (wt + nw) * W, d, rg);
+    }
+    cp_async_commit();
+    float acc[kMT][2 * kCT][4], tl[2 * kCT];
+    singa::grid_chain_tc_sep_bwd<kSteps, kCT, kKS, kMT, I0>(
+        stg, sfg, d.st, sta, d.sa, fx, fy, d.I, kCT, 0, d.Gp / 8, acc, xt, yt, tl);
+    store_tile<kCT, kMT>(acc, q0, d, nullptr, dx);
+    if (kTail) store_tail<kCT>(tl, q0, d, dx);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+s2_silu_sep_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
+                      const float* __restrict__ tg, const float* __restrict__ fg,
+                      float* __restrict__ out, SepDims d) {
+  fwd_tiles<0, kFwdCT, kSepKS, kSepMT>(x, s, tg, fg, out, d);
 }
 
 __global__ void __launch_bounds__(32 * kBwdWarps, 1)
@@ -288,48 +404,23 @@ s2_silu_sep_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__
                           const float* __restrict__ gin, const float* __restrict__ tg,
                           const float* __restrict__ fg, float* __restrict__ dx,
                           float* __restrict__ ds, SepDims d) {
-  extern __shared__ __align__(16) float smem[];
-  float* stg = smem;                   // [Gp][st]: tg, read as B
-  float* sfg = stg + d.Gp * d.st;      // [Gp][st]: fg', column 0 zeroed, read as B
-  float* sta = sfg + d.Gp * d.st;      // [Gp][sa]: tg, read as A transposed
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int W = kCols<kBwdCT>;
-  const int raw = d.I * kRawStride<kBwdCT>, frag = d.KS * kBwdCT * kSplitFragWords;
-  float* rx = smem + bwd_mats(d) + warp * 2 * warp_floats<kBwdCT>(d);  // the warp's
-  float* rg = rx + raw;
-  uint32_t* fx = reinterpret_cast<uint32_t*>(rg + raw);
-  uint32_t* fy = fx + frag;
-  const int warps = blockDim.x >> 5;
-  const long long nw = (long long)gridDim.x * warps, nt = tiles<kBwdCT>(d);
-  long long wt = (long long)blockIdx.x * warps + warp;
-  if (wt < nt) {
-    copy_tile<kBwdCT>(x, wt * W, d, rx);
-    copy_tile<kBwdCT>(gin, wt * W, d, rg);
-  }
-  cp_async_commit();
-  stage_mat(tg, d, d.st, 0, stg);
-  stage_mat(fg, d, d.st, 1, sfg);
-  stage_mat(tg, d, d.sa, 0, sta);
-  __syncthreads();
-  for (; wt < nt; wt += nw) {
-    const long long q0 = wt * W;
-    cp_async_wait_all();
-    __syncwarp();  // the tile's raw stages; every lane is done with the last chain
-    split_tile<kBwdCT>(rx, d.I, d.KS, fx);
-    split_tile<kBwdCT>(rg, d.I, d.KS, fy);
-    if (lane < W && q0 + lane < d.Q)  // ds of the lane's column, from g's row 0
-      ds[q0 + lane] = singa::silu_gradf_(s[q0 + lane]) * rg[lane];
-    __syncwarp();  // the fragments; every lane is done with the raw stages
-    if (wt + nw < nt) {
-      copy_tile<kBwdCT>(x, (wt + nw) * W, d, rx);
-      copy_tile<kBwdCT>(gin, (wt + nw) * W, d, rg);
-    }
-    cp_async_commit();
-    float acc[kSepMT][2 * kBwdCT][4];
-    singa::grid_chain_tc_sep_bwd<kSteps, kBwdCT, kSepKS, kSepMT>(
-        stg, sfg, d.st, sta, d.sa, fx, fy, d.I, kBwdCT, 0, d.Gp / 8, acc);
-    store_tile<kBwdCT>(acc, q0, d, nullptr, dx);
-  }
+  bwd_tiles<0, kBwdCT, kSepKS, kSepMT, true>(x, s, gin, tg, fg, dx, ds, d);
+}
+
+// K5's and K5b's tensor-core kernels (see the end of the file)
+template <int I0, int kCT, int kKS, int kMT>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+s2_silu_tc_kernel(const float* __restrict__ x, const float* __restrict__ tg,
+                  const float* __restrict__ fg, float* __restrict__ out, SepDims d) {
+  fwd_tiles<I0, kCT, kKS, kMT>(x, nullptr, tg, fg, out, d);
+}
+
+template <int I0, int kCT, int kKS, int kMT>
+__global__ void __launch_bounds__(32 * kBwdWarps, 1)
+s2_silu_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gin,
+                      const float* __restrict__ tg, const float* __restrict__ fg,
+                      float* __restrict__ dx, SepDims d) {
+  bwd_tiles<I0, kCT, kKS, kMT, false>(x, nullptr, gin, tg, fg, dx, nullptr, d);
 }
 
 namespace cc {
@@ -479,17 +570,46 @@ s2_silu_sep_bwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
 // x, g [N, I <= 64, C]; tg/fg [G, I]. Unlike K3/K3b no row is special.
 //
 // What bounds it on the H100: per (node, channel) column two (K5) or three
-// (K5b) contractions of 2*G*I operations against 8 (12) bytes of x (and g)
-// in and out per coefficient: at the s2 FFN's hidden (I = 49, G = 210)
-// ~20 operations per byte, float32 arithmetic bounds it; at the attention's
-// message (I = 29, G = 70) too.
+// (K5b) grid transforms of 2 G I operations against 8 (12) bytes of x (and
+// g) in and out a coefficient. At the s2 FFN's hidden (N 3,584 x C 512, I
+// 49, G 210) K5 moves 0.72 GB (0.21 ms at 3.35 TB/s) and does 75.5 GFLOP,
+// 74.0 of them as split TF32 (three TF32 products a product: 0.45 ms at
+// 495 TFLOP/s); K5b 1.08 GB and 113 GFLOP (0.67 ms): the tensor cores
+// bound both. At the attention message (E 7,936 x C 128, I 29, G 70)
+// memory and the arithmetic come close (0.07 / 0.05 ms, K5).
 //
-// Design: K3's register columns do not stretch to 49 coefficients (x, the
-// accumulators and, in K5b, g would exceed the register file), so K5 runs
-// K4's grid chain (csrc/s2_grid.cuh) on tiles of 128 columns of the flat
-// (node, channel) column space: the tile's [I, 128] slice of x (and g) in
-// shared memory, the grid formed 32 points at a time, the result in
-// registers. tg and fg are staged once per block; the grid is persistent.
+// Design (s2_silu_tc_kernel, s2_silu_bwd_tc_kernel): K3's and K3b's
+// tensor-core kernels (above) without the row-0 case, on the same tile
+// bodies (fwd_tiles, bwd_tiles) and chains, widened to I <= 49 by form:
+//   I <= 32       K3's and K3b's loops (4 k steps, 2 m16 tiles) and warp
+//                 tiles (32 and 16 columns), 16 and 15 warps at G 70
+//   33 <= I <= 48 6 k steps and 3 m16 tiles
+//   I = 49        the same for rows 0 .. 47 (the full lmax-6 grid, G 210),
+//                 row 48 in float32 on the CUDA cores (kTailRow): a
+//                 rank-one update of v (K5b: and of u) and the lane's share
+//                 of output row 48, summed over the four lanes of a column
+//                 (grid_chain_tc_fwd, grid_chain_tc_sep_bwd); a 7th k step
+//                 and a 4th m16 tile would be 1/8 and 1/16 full
+// Above 32 rows a warp tile is kWideCT 16-column groups. tg and fg of a
+// G-210 grid take 93 KB (K5) and, staged as K3b stages them (tg twice),
+// 142 KB (K5b), which leaves room for 4 warps of K5b: so K5b stages tg
+// once where that keeps more warps (tg_once: 6 warps at I 49, its
+// from-grid loads then meet 2-way bank conflicts).
+//
+// Why (tools/bench_k3_variants.py on an H100 80GB HBM3 at 700 W, by CUDA
+// events at the s2 FFN's hidden): the tail row ran K5 in 1.70 ms and K5b
+// in 2.94, every row through mma 2.00 and 5.10 (11 and 4 warps); 32-column
+// warp tiles 2.03 and 6.30 (7 and 3 warps); K5b with tg staged twice 3.09
+// (4 warps). As for K3 and K3b, the chains are latency- and issue-bound,
+// and the warps a block keeps decide.
+//
+// Shapes: the tensor-core kernels take I <= 49 and C a multiple of 16,
+// where a warp of each fits in shared memory beside the matrices. Every
+// other shape the CUDA-core kernels took (I 50 .. 64, lmax 7; C 24 or 5)
+// runs them, chosen by shape before the launch (silu_instance): K4's
+// CUDA-core grid chain (csrc/s2_grid.cuh) on tiles of 128 columns of the
+// flat (node, channel) column space, the tile's [I, 128] slice of x (and
+// g) in shared memory, the grid formed 32 points at a time.
 constexpr int kSiluCols = 128;  // columns per tile
 constexpr int kSiluPad = 4;     // floats added to each row of the tile
 
@@ -541,24 +661,6 @@ s2_silu_kernel(const float* __restrict__ x, const float* __restrict__ gin,
   }
 }
 
-template <bool BWD>
-int s2_silu_launch(const float* x, const float* g, const float* tg, const float* fg, float* out,
-                   int N, int I, int C, int G, void* stream) {
-  if (N < 1 || C < 1 || G < 1 || !singa::chain_fits(kSiluCols, 1, I))
-    return (int)cudaErrorInvalidValue;
-  const int Ip = singa::pad_rows(I);
-  const size_t floats = singa::grid_mats_floats(G, I) + (BWD ? 2 : 1) * (size_t)Ip *
-                        (kSiluCols + kSiluPad) + (size_t)singa::kGC * kSiluCols;
-  const size_t smem = floats * sizeof(float);
-  cudaError_t err = singa::allow_smem(s2_silu_kernel<BWD>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = ((long long)N * C + kSiluCols - 1) / kSiluCols;
-  const int grid = singa::persistent_grid(s2_silu_kernel<BWD>, singa::kChainThreads, smem, tiles);
-  s2_silu_kernel<BWD><<<grid, singa::kChainThreads, smem, (cudaStream_t)stream>>>(
-      x, g, tg, fg, out, N, I, C, G);
-  return (int)cudaGetLastError();
-}
-
 // Whether the tensor-core kernels take these shapes: I <= 32, C a multiple
 // of 16, a warp of each kernel beside its matrices in shared memory
 bool tc_takes(int I, int C, int G) {
@@ -587,6 +689,89 @@ int sep_instance(int I, int C, int G) {
 int sep_which(int I, int C, int G, int cuda_cores) {
   const int which = sep_instance(I, C, G);
   return which == 1 && cuda_cores ? 0 : which;
+}
+
+
+size_t silu_cc_smem(bool bwd, int I, int G) {
+  return (singa::grid_mats_floats(G, I) + (bwd ? 2 : 1) * (size_t)singa::pad_rows(I) *
+          (kSiluCols + kSiluPad) + (size_t)singa::kGC * kSiluCols) * sizeof(float);
+}
+
+// K5's and K5b's tensor-core forms: rows below the tail through mma in
+// kKS k steps and kMT m16 tiles, warp tiles of kFCT (K5) and kBCT (K5b)
+// 16-column groups; I0 = 49: row 48 in float32
+template <int I0_, int kFCT_, int kBCT_, int kKS_, int kMT_>
+struct SiluForm {
+  static constexpr int I0 = I0_, kFCT = kFCT_, kBCT = kBCT_, kKS = kKS_, kMT = kMT_;
+};
+
+// the form that takes I rows (1 <= I <= kSiluMaxI), passed to f
+template <class F>
+auto with_form(int I, F&& f) {
+  if (I <= kMaxI) return f(SiluForm<0, kFwdCT, kBwdCT, kSepKS, kSepMT>{});
+  if (I < kSiluMaxI) return f(SiluForm<0, kWideCT, kWideCT, kWideKS, kWideMT>{});
+  if constexpr (kTailRow)
+    return f(SiluForm<kSiluMaxI, kWideCT, kWideCT, kWideKS, kWideMT>{});
+  else
+    return f(SiluForm<0, kWideCT, kWideCT, kWideKS + 1, kWideMT + 1>{});
+}
+
+template <class Form>
+SepDims silu_fwd_dims(long long N, int I, int C, int G) {
+  return make_sep_dims(N, I, C, G, Form::I0 == kSiluMaxI);
+}
+
+// K5b's: tg staged twice (conflict-free both ways) unless staging it once
+// keeps more warps a block
+template <class Form>
+SepDims silu_bwd_dims(long long N, int I, int C, int G) {
+  const SepDims two = make_sep_dims(N, I, C, G, Form::I0 == kSiluMaxI, false);
+  const SepDims one = make_sep_dims(N, I, C, G, Form::I0 == kSiluMaxI, true);
+  return bwd_launch<Form::kBCT>(one).warps > bwd_launch<Form::kBCT>(two).warps ? one : two;
+}
+
+// Whether K5's and K5b's tensor-core kernels take these shapes: I <= 49, C
+// a multiple of 16, a warp of each beside its matrices in shared memory
+bool silu_tc_takes(int I, int C, int G) {
+  if (I < 1 || I > kSiluMaxI || C < 16 || C % 16 != 0 || G < 1) return false;
+  return with_form(I, [&](auto form) {
+    using F = decltype(form);
+    const TcLaunch f = fwd_launch<F::kFCT>(silu_fwd_dims<F>(1, I, C, G));
+    const TcLaunch b = bwd_launch<F::kBCT>(silu_bwd_dims<F>(1, I, C, G));
+    return f.warps > 0 && b.warps > 0 &&
+           singa::allow_smem(s2_silu_tc_kernel<F::I0, F::kFCT, F::kKS, F::kMT>, f.smem) ==
+               cudaSuccess &&
+           singa::allow_smem(s2_silu_bwd_tc_kernel<F::I0, F::kBCT, F::kKS, F::kMT>, b.smem) ==
+               cudaSuccess;
+  });
+}
+
+// 1: K5's and K5b's tensor-core kernels take these shapes; 0: the
+// CUDA-core instance does; -1: neither (I above 64, or the matrices over
+// shared memory)
+int silu_instance(int I, int C, int G) {
+  if (I < 1 || C < 1 || G < 1) return -1;
+  if (silu_tc_takes(I, C, G)) return 1;
+  const bool cc = singa::chain_fits(kSiluCols, 1, I) &&
+                  singa::allow_smem(s2_silu_kernel<false>, silu_cc_smem(false, I, G)) ==
+                      cudaSuccess &&
+                  singa::allow_smem(s2_silu_kernel<true>, silu_cc_smem(true, I, G)) == cudaSuccess;
+  return cc ? 0 : -1;
+}
+
+template <bool BWD>
+int s2_silu_launch(const float* x, const float* g, const float* tg, const float* fg, float* out,
+                   int N, int I, int C, int G, void* stream) {
+  if (N < 1 || C < 1 || G < 1 || !singa::chain_fits(kSiluCols, 1, I))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = silu_cc_smem(BWD, I, G);
+  cudaError_t err = singa::allow_smem(s2_silu_kernel<BWD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = ((long long)N * C + kSiluCols - 1) / kSiluCols;
+  const int grid = singa::persistent_grid(s2_silu_kernel<BWD>, singa::kChainThreads, smem, tiles);
+  s2_silu_kernel<BWD><<<grid, singa::kChainThreads, smem, (cudaStream_t)stream>>>(
+      x, g, tg, fg, out, N, I, C, G);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -669,13 +854,69 @@ extern "C" int s2_silu_sep_bwd_f32(const float* x, const float* s, const float* 
   return (int)cudaErrorInvalidValue;
 }
 
-// K5 and K5b. Return cudaErrorInvalidValue for more than 64 coefficient rows.
-extern "C" int s2_silu_f32(const float* x, const float* tg, const float* fg, float* out, int N,
-                           int I, int C, int G, void* stream) {
-  return s2_silu_launch<false>(x, nullptr, tg, fg, out, N, I, C, G, stream);
+
+// Which of K5's (and K5b's) kernels runs these shapes, for any N: 1 the
+// tensor-core kernels, 0 the CUDA-core instance, -1 neither. Launches
+// nothing.
+extern "C" int s2_silu_instance(int I, int C, int G) { return silu_instance(I, C, G); }
+
+// Resident blocks per SM of K5's (bwd: K5b's) tensor-core kernel at these
+// shapes (-1: shapes it does not take), its shared memory per block in
+// *smem_bytes and its threads per block in *threads. Launches nothing.
+extern "C" int s2_silu_residency(int I, int C, int G, int bwd, int* smem_bytes, int* threads) {
+  if (!silu_tc_takes(I, C, G)) return -1;
+  return with_form(I, [&](auto form) {
+    using F = decltype(form);
+    const TcLaunch l = bwd ? bwd_launch<F::kBCT>(silu_bwd_dims<F>(1, I, C, G))
+                           : fwd_launch<F::kFCT>(silu_fwd_dims<F>(1, I, C, G));
+    *smem_bytes = (int)l.smem;
+    *threads = 32 * l.warps;
+    int per_sm = 0;
+    const cudaError_t err =
+        bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &per_sm, s2_silu_bwd_tc_kernel<F::I0, F::kBCT, F::kKS, F::kMT>, *threads, l.smem)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &per_sm, s2_silu_tc_kernel<F::I0, F::kFCT, F::kKS, F::kMT>, *threads, l.smem);
+    return err == cudaSuccess ? per_sm : -1;
+  });
 }
 
+// K5. Returns cudaErrorInvalidValue for shapes no kernel takes (I above
+// 64); cuda_cores: the CUDA-core instance wherever it takes the shapes.
+extern "C" int s2_silu_f32(const float* x, const float* tg, const float* fg, float* out, int N,
+                           int I, int C, int G, int cuda_cores, void* stream) {
+  const int which = N < 1 ? -1 : silu_instance(I, C, G);
+  if (which == 1 && !cuda_cores)
+    return with_form(I, [&](auto form) {
+      using F = decltype(form);
+      const SepDims d = silu_fwd_dims<F>(N, I, C, G);
+      const TcLaunch l = fwd_launch<F::kFCT>(d);
+      const auto kernel = s2_silu_tc_kernel<F::I0, F::kFCT, F::kKS, F::kMT>;
+      const int grid = singa::persistent_grid(kernel, 32 * l.warps, l.smem,
+                                              (tiles<F::kFCT>(d) + l.warps - 1) / l.warps);
+      kernel<<<grid, 32 * l.warps, l.smem, (cudaStream_t)stream>>>(x, tg, fg, out, d);
+      return (int)cudaGetLastError();
+    });
+  if (which >= 0) return s2_silu_launch<false>(x, nullptr, tg, fg, out, N, I, C, G, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5b, as K5.
 extern "C" int s2_silu_bwd_f32(const float* x, const float* g, const float* tg, const float* fg,
-                               float* dx, int N, int I, int C, int G, void* stream) {
-  return s2_silu_launch<true>(x, g, tg, fg, dx, N, I, C, G, stream);
+                               float* dx, int N, int I, int C, int G, int cuda_cores,
+                               void* stream) {
+  const int which = N < 1 ? -1 : silu_instance(I, C, G);
+  if (which == 1 && !cuda_cores)
+    return with_form(I, [&](auto form) {
+      using F = decltype(form);
+      const SepDims d = silu_bwd_dims<F>(N, I, C, G);
+      const TcLaunch l = bwd_launch<F::kBCT>(d);
+      const auto kernel = s2_silu_bwd_tc_kernel<F::I0, F::kBCT, F::kKS, F::kMT>;
+      const int grid = singa::persistent_grid(kernel, 32 * l.warps, l.smem,
+                                              (tiles<F::kBCT>(d) + l.warps - 1) / l.warps);
+      kernel<<<grid, 32 * l.warps, l.smem, (cudaStream_t)stream>>>(x, g, tg, fg, dx, d);
+      return (int)cudaGetLastError();
+    });
+  if (which >= 0) return s2_silu_launch<true>(x, g, tg, fg, dx, N, I, C, G, stream);
+  return (int)cudaErrorInvalidValue;
 }

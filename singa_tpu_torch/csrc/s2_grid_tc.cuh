@@ -1,9 +1,9 @@
 // The sphere-grid chains on the tensor cores, all built on split-TF32
 // mma.sync (csrc/mma_tf32.cuh) accumulated in float32: grid_chain_tc, K4b's
 // (csrc/so3_ffn_bwd.cu), grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu) and K3's
-// (csrc/s2_act.cu), and grid_chain_tc_sep_bwd, K3b's (at the end of this
-// file). s2_grid.cuh keeps the CUDA-core chain of K5, K5b
-// and K4's CUDA-core instance.
+// (csrc/s2_act.cu) and K5's, and grid_chain_tc_sep_bwd, K3b's and K5b's (at
+// the end of this file). s2_grid.cuh keeps the CUDA-core chain of K5's and
+// K5b's CUDA-core instance and of K4's.
 //
 // grid_chain_tc: the function of s2_grid.cuh's grid_chain<NCOL, true,
 // true, true>, with its four products as split TF32.
@@ -289,7 +289,8 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 // tile j), which the caller sums over the four lanes of a column. I0 = 0:
 // any I <= 8 kMaxKS, every row through mma (rows I .. 8 KS - 1 of xfrag
 // zero, columns I .. 16 MT - 1 of fg zero). kMaxKS and kMaxMT bound the
-// k steps and m16 tiles the loops unroll over (K3: 4 and 2, I <= 32).
+// k steps and m16 tiles the loops unroll over (K3, and K5 at I <= 32: 4
+// and 2; K5 at 33 <= I <= 48: 6 and 3).
 constexpr int kFwdMaxKS = 6;                // k steps of the to-grid product
 constexpr int kFwdMaxMT = 3;                // m16 tiles of the from-grid output
 
@@ -422,7 +423,8 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
 
 // grid_chain_tc_sep_bwd: K3b's chain, dx = tg^T (silu'(tg X) * fg' Y) with
 // fg' = fg with column 0 zeroed (row 0 of the cotangent Y reaches only the
-// scalars), for one warp's columns (kCT tiles of 16), in
+// scalars), and K5b's, the same with fg' = fg, for one warp's columns (kCT
+// tiles of 16), in
 // grid_chain_tc_fwd's transposed form: two to-grid products, v^T = X^T
 // tg^T and u^T = Y^T fg'^T, leave v and u at the same positions of every
 // lane (columns grp and grp + 8 of a tile, grid points 2 tig and 2 tig + 1
@@ -434,18 +436,41 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
 // 16-column group c at (ks groups + c) kSplitFragWords), rows I .. 8 KS - 1
 // zero; tg [g][st] and fg' [g][st] read as B (8-byte loads, st % 32 of 8 or
 // 24), tg again as [g][sa] read as A transposed (sa % 16 of 4 or 12, zero
-// past I: the from-grid product's rows). Walks grid steps s0 .. s1 - 1, kSteps
-// at a time; acc[mt][j] holds dx rows 16 mt + grp (+ 8) of n8 column tile j.
-template <int kSteps, int kCT, int kMaxKS, int kMaxMT>
+// past I: the from-grid product's rows; sta may be stg itself, with sa =
+// st, where staging tg once keeps more warps a block: its loads then meet
+// 2-way bank conflicts). Walks grid steps s0 .. s1 - 1, kSteps at a time;
+// acc[mt][j] holds dx rows 16 mt + grp (+ 8) of n8 column tile j.
+//
+// I0 = 49 (K5b at lmax 6), as in grid_chain_tc_fwd: row r = 48 runs in
+// float32 on the CUDA cores, a rank-one update of v from X's row r and of
+// u from Y's (xtail, ytail: the warp's columns of the two rows, float32,
+// unsplit) and the lane's share of dx row r, sum over its grid points of
+// tg[g, r] h (h in float32, unsplit), in tail[j] (column grp of n8 tile
+// j), which the caller sums over the four lanes of a column. I0 = 0: any
+// I <= 8 kMaxKS, every row through mma; the tail arguments go unread.
+template <int kSteps, int kCT, int kMaxKS, int kMaxMT, int I0 = 0>
 __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const float* sfg, int st,
                                                       const float* sta, int sa,
                                                       const uint32_t* xfrag,
                                                       const uint32_t* yfrag, int I, int groups,
                                                       int s0, int s1,
-                                                      float (&acc)[kMaxMT][2 * kCT][4]) {
-  const int KS = (I + 7) / 8, MT = (I + 15) / 16;
+                                                      float (&acc)[kMaxMT][2 * kCT][4],
+                                                      const float* xtail = nullptr,
+                                                      const float* ytail = nullptr,
+                                                      float* tail = nullptr) {
+  constexpr bool kTail = I0 == 49;
+  constexpr int kTailRow = I0 - 1;
+  static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0");
+  static_assert(!kTail || (kMaxKS == kTailRow / 8 && kMaxMT == kTailRow / 16),
+                "the loops are the rows before the tail row");
+  const int KS = kTail ? kTailRow / 8 : (I + 7) / 8;
+  const int MT = kTail ? kTailRow / 16 : (I + 15) / 16;
   const int grp = tc::lane_grp(), tig = tc::lane_tig();
   const int kstep = groups * tc::kSplitFragWords;
+  if (kTail) {
+#pragma unroll
+    for (int j = 0; j < 2 * kCT; ++j) tail[j] = 0.f;
+  }
 #pragma unroll
   for (int mt = 0; mt < kMaxMT; ++mt)
 #pragma unroll
@@ -465,7 +490,7 @@ __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const fl
     const int tb = (g0 + grp) * st + 2 * tig;
 #pragma unroll
     for (int ks = 0; ks < kMaxKS; ++ks) {
-      if (ks < KS) {
+      if (kTail || ks < KS) {
         tc::FragA a[kCT];
 #pragma unroll
         for (int c = 0; c < kCT; ++c)
@@ -500,17 +525,38 @@ __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const fl
 #pragma unroll
     for (int w = 0; w < kSteps; ++w) {
       const int gu = g0 + 8 * w + 2 * tig;  // the lane's grid points gu, gu + 1
+      float t0 = 0.f, t1 = 0.f;             // tg[gu, r], tg[gu + 1, r] (the tail row)
+      if (kTail) {  // + the tail row's rank-one terms, float32
+        t0 = stg[gu * st + kTailRow];
+        t1 = stg[(gu + 1) * st + kTailRow];
+        const float f0 = sfg[gu * st + kTailRow], f1 = sfg[(gu + 1) * st + kTailRow];
+#pragma unroll
+        for (int c = 0; c < kCT; ++c) {
+          const float x0 = xtail[16 * c + grp], x1 = xtail[16 * c + grp + 8];
+          const float y0 = ytail[16 * c + grp], y1 = ytail[16 * c + grp + 8];
+          v[w][c][0] = fmaf(x0, t0, v[w][c][0]);
+          v[w][c][1] = fmaf(x0, t1, v[w][c][1]);
+          v[w][c][2] = fmaf(x1, t0, v[w][c][2]);
+          v[w][c][3] = fmaf(x1, t1, v[w][c][3]);
+          u[w][c][0] = fmaf(y0, f0, u[w][c][0]);
+          u[w][c][1] = fmaf(y0, f1, u[w][c][1]);
+          u[w][c][2] = fmaf(y1, f0, u[w][c][2]);
+          u[w][c][3] = fmaf(y1, f1, u[w][c][3]);
+        }
+      }
       tc::FragB b[2 * kCT];
 #pragma unroll
       for (int j = 0; j < 2 * kCT; ++j)
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           const int q = 2 * (j & 1) + p;
-          tc::split(silu_grad_fast(v[w][j >> 1][q]) * u[w][j >> 1][q], b[j].hi[p], b[j].lo[p]);
+          const float h = silu_grad_fast(v[w][j >> 1][q]) * u[w][j >> 1][q];
+          if (kTail) tail[j] = fmaf(p == 0 ? t0 : t1, h, tail[j]);  // dx row r's share
+          tc::split(h, b[j].hi[p], b[j].lo[p]);
         }
 #pragma unroll
       for (int mt = 0; mt < kMaxMT; ++mt) {
-        if (mt < MT) {
+        if (kTail || mt < MT) {
           const float* p = sta + gu * sa + 16 * mt + grp;
           tc::FragA a;
           tc::split(p[0], a.hi[0], a.lo[0]);        // row grp,     point 2 tig

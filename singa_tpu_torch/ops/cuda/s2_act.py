@@ -16,10 +16,12 @@ for CPU tensors, the kernels for CUDA tensors.
 K5 replaces ``s2_act.py::s2_silu`` (``s2_silu_pallas``, ``_fwd_kernel``):
 ``from_grid . silu(to_grid . x)`` on every row, for any ``I`` up to 64. K5b
 replaces ``_bwd`` (``_bwd_kernel``): ``dx = to_grid^T (silu'(to_grid . x) *
-from_grid . g)``, with no row-0 case. Both run K4's grid chain
-(``csrc/s2_grid.cuh``, kernels in ``csrc/s2_act.cu``); ``s2_silu`` goes
-through ``S2Silu``. The TPU wrapper's 128-channel padding and tile sizing
-are Mosaic's and are not carried over.
+from_grid . g)``, with no row-0 case. Both run K3's and K3b's tensor-core
+chains without the row-0 case where they take the shapes (``I <= 49``, the
+full lmax-6 grid with its row 48 in float32; ``C`` a multiple of 16), else
+K4's CUDA-core grid chain (``csrc/s2_grid.cuh``); ``s2_silu_instance`` says
+which. ``s2_silu`` goes through ``S2Silu``. The TPU wrapper's 128-channel
+padding and tile sizing are Mosaic's and are not carried over.
 """
 from __future__ import annotations
 
@@ -180,6 +182,28 @@ def s2_silu_bwd_plain(x, to_grid, from_grid, g):
         return dx
 
 
+def s2_silu_instance(I: int, C: int, G: int) -> str | None:
+    """Which of K5's (and K5b's) kernels runs these shapes (any N):
+    "tensor_cores", "cuda_cores", or None for a shape neither takes.
+    Launches nothing."""
+    fn = build.load("s2_act").s2_silu_instance
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(I, C, G))
+
+
+def silu_residency(I: int, C: int, G: int, bwd: bool = False) -> dict:
+    """K5's tensor-core kernel (``bwd``: K5b's) at these shapes: resident
+    blocks per SM (-1: shapes it does not take), threads and dynamic shared
+    memory per block. For reports; launches nothing."""
+    fn = build.load("s2_act").s2_silu_residency
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(I, C, G, int(bwd), ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
+
+
 def _check_silu_args(x, to_grid, from_grid):
     N, I, C = x.shape
     G = to_grid.shape[0]
@@ -190,24 +214,27 @@ def _check_silu_args(x, to_grid, from_grid):
     return N, I, C, G
 
 
-def s2_silu_cuda(x, to_grid, from_grid) -> torch.Tensor:
+def s2_silu_cuda(x, to_grid, from_grid, cuda_cores: bool = False) -> torch.Tensor:
+    """The K5 kernel: the tensor-core one where it takes the shapes
+    (``s2_silu_instance``), else the CUDA-core one; ``cuda_cores``: the
+    CUDA-core one wherever it takes them (to time the two)."""
     global launches_silu
     N, I, C, G = _check_silu_args(x, to_grid, from_grid)
     x, to_grid, from_grid = (build.aligned(t) for t in (x, to_grid, from_grid))
     out = torch.empty_like(x)
     if N * C == 0:
         return out
-    status = _fn("s2_silu_f32", 4)(
+    status = _fn("s2_silu_f32", 4, 5)(
         x.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(), out.data_ptr(), N, I, C, G,
-        build.stream_ptr(x),
+        int(cuda_cores), build.stream_ptr(x),
     )
     build.check(status, "s2_silu")
     launches_silu += 1
     return out
 
 
-def s2_silu_bwd_cuda(x, to_grid, from_grid, g) -> torch.Tensor:
-    """dx from the K5b kernel."""
+def s2_silu_bwd_cuda(x, to_grid, from_grid, g, cuda_cores: bool = False) -> torch.Tensor:
+    """dx from the K5b kernel, chosen as ``s2_silu_cuda`` chooses K5's."""
     global launches_silu_bwd
     N, I, C, G = _check_silu_args(x, to_grid, from_grid)
     build.require(g, "g", (N, I, C), torch.float32, x.device)
@@ -215,9 +242,9 @@ def s2_silu_bwd_cuda(x, to_grid, from_grid, g) -> torch.Tensor:
     dx = torch.empty_like(x)
     if N * C == 0:
         return dx
-    status = _fn("s2_silu_bwd_f32", 5)(
+    status = _fn("s2_silu_bwd_f32", 5, 5)(
         x.data_ptr(), g.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(), dx.data_ptr(),
-        N, I, C, G, build.stream_ptr(x),
+        N, I, C, G, int(cuda_cores), build.stream_ptr(x),
     )
     build.check(status, "s2_silu_bwd")
     launches_silu_bwd += 1

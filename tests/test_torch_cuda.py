@@ -991,13 +991,24 @@ def test_mma_tf32_rounding_is_cvt_rna(dev):
     assert torch.equal(bits, ptx)
 
 
+# K5's and K5b's cases: C 24 and 5 on the CUDA-core instance; on the
+# tensor-core kernels the s2 FFN's full lmax-6 grid (I 49, G 210, row 48
+# in float32) at 16 and 512 channels, one node and a serving encode's
+# hidden (3,584 nodes); the attention message's m-primary grid (I 29, G
+# 70) at C 128, 50 edges and a stage-1 call's 7,936; the full lmax-5 grid
+# (I 36, G 156: 6 k steps, 3 m16 tiles, no tail) and lmax-2 grid (I 9, G
+# 42); N * C no multiple of the 32-column warp tile in several
+K5_CASES = [(6, 6, False, 37, 24), (2, 2, False, 9, 5), (6, 6, False, 37, 16),
+            (6, 6, False, 1, 16), (6, 6, False, 3584, 512), (6, 6, False, 7, 512),
+            (6, 2, True, 50, 128), (6, 2, True, 7936, 128), (5, 5, False, 11, 48),
+            (2, 2, False, 9, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lmax,mmax,m_primary,N,C", [(6, 6, False, 37, 24), (6, 2, True, 50, 128),
-                                                     (2, 2, False, 9, 5)])
+@pytest.mark.parametrize("lmax,mmax,m_primary,N,C", K5_CASES)
 def test_s2_silu_kernels_match_plain(dev, lmax, mmax, m_primary, N, C):
-    """K5 and K5b at I 49 (G 210, the s2 FFN's grid), at I 29 (the
-    attention message's m-primary grid) and at I 9; N * C not a multiple of
-    the column tile."""
+    """K5 and K5b on their tensor-core kernels wherever C is a multiple of
+    16 (I at most 49), else on their CUDA-core instance."""
     from singa_tpu_torch.equivariant.layers import _grid_mats_for
     from singa_tpu_torch.ops.cuda import s2_act as k5
 
@@ -1005,12 +1016,119 @@ def test_s2_silu_kernels_match_plain(dev, lmax, mmax, m_primary, N, C):
     tg, fg = (_t(m, dev) for m in _grid_mats_for(lmax, mmax, m_primary))
     x = _t(rng.normal(size=(N, tg.shape[1], C)).astype(np.float32), dev)
     g = _t(rng.normal(size=(N, tg.shape[1], C)).astype(np.float32), dev)
+    want = "tensor_cores" if C % 16 == 0 else "cuda_cores"
+    assert k5.s2_silu_instance(tg.shape[1], C, tg.shape[0]) == want
     n, nb = k5.launches_silu, k5.launches_silu_bwd
     got = k5.s2_silu(x, tg, fg)
     dx = k5.s2_silu_bwd_cuda(x, tg, fg, g)
     assert (k5.launches_silu, k5.launches_silu_bwd) == (n + 1, nb + 1)
     _check(got, k5.s2_silu_plain(x, tg, fg))
     _check_grads([dx], [k5.s2_silu_bwd_plain(x, tg, fg, g)], ["dx"])
+
+
+def _silu_case(dev, lmax, mmax, m_primary, N, C, seed):
+    """x, tg, fg, g of K5 / K5b."""
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+
+    rng = np.random.default_rng(seed)
+    tg, fg = (_t(m, dev) for m in _grid_mats_for(lmax, mmax, m_primary))
+    f = lambda: _t(rng.normal(size=(N, tg.shape[1], C)).astype(np.float32), dev)
+    return f(), tg, fg, f()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,mmax,m_primary,N,C", [(6, 6, False, 37, 16), (6, 2, True, 50, 128)])
+def test_s2_silu_cuda_core_instance_matches_plain(dev, lmax, mmax, m_primary, N, C):
+    """K5's and K5b's CUDA-core instance, which ``cuda_cores`` asks for at
+    shapes the tensor-core kernels take, against the plain versions."""
+    from singa_tpu_torch.ops.cuda import s2_act as k5
+
+    x, tg, fg, g = _silu_case(dev, lmax, mmax, m_primary, N, C, 157 + N)
+    n, nb = k5.launches_silu, k5.launches_silu_bwd
+    got = k5.s2_silu_cuda(x, tg, fg, cuda_cores=True)
+    dx = k5.s2_silu_bwd_cuda(x, tg, fg, g, cuda_cores=True)
+    assert (k5.launches_silu, k5.launches_silu_bwd) == (n + 1, nb + 1)
+    _check(got, k5.s2_silu_plain(x, tg, fg))
+    _check_grads([dx], [k5.s2_silu_bwd_plain(x, tg, fg, g)], ["dx"])
+
+
+@pytest.mark.cuda
+def test_s2_silu_instance_by_shape(dev):
+    """K5's and K5b's tensor-core kernels take I <= 49 and C a multiple of
+    16: at the full lmax-6 grid (I 49, G 210) K5 takes 13 warps of 16
+    columns (224,976 B of shared memory), K5b, tg staged once, 6 (218,304
+    B); at the attention message's grid (I 29, G 70) both are K3's and
+    K3b's blocks (16 warps, 219,776 B; 15 warps, 225,888 B). Every other
+    shape the parent took (C 24 or 5; I 64, the full lmax-7 grid) runs the
+    CUDA-core instance; I above 64 neither."""
+    from singa_tpu_torch.ops.cuda import s2_act as k5
+
+    takes = {(49, 512, 210): "tensor_cores", (49, 16, 210): "tensor_cores",
+             (29, 128, 70): "tensor_cores", (36, 48, 156): "tensor_cores",
+             (9, 16, 42): "tensor_cores", (49, 24, 210): "cuda_cores", (9, 5, 42): "cuda_cores",
+             (64, 16, 272): "cuda_cores", (81, 16, 20): None}
+    assert {w: k5.s2_silu_instance(*w) for w in takes} == takes
+    assert k5.silu_residency(49, 512, 210) == {"blocks_per_sm": 1, "threads": 416,
+                                               "smem_bytes": 224976}
+    assert k5.silu_residency(49, 512, 210, bwd=True) == {"blocks_per_sm": 1, "threads": 192,
+                                                         "smem_bytes": 218304}
+    assert k5.silu_residency(29, 128, 70) == k5.sep_residency(29, 128, 70)
+    assert k5.silu_residency(29, 128, 70, bwd=True) == k5.sep_residency(29, 128, 70, bwd=True)
+    assert k5.silu_residency(49, 24, 210)["blocks_per_sm"] == -1
+
+
+@pytest.mark.cuda
+def test_s2_silu_hold_rejects_one_tf32_product(dev):
+    """The 1e-4 hold that K5 meets (atol and rtol 1e-4, as chip_smoke.py
+    holds it) tells split TF32 from one TF32 product at a serving encode's
+    s2 FFN hidden (N 3,584, I 49, G 210, C 512): the kernel and the split
+    rendering of its arithmetic (test_torch_tf32_split.k5_split) pass it
+    against s2_silu_plain; the same rendering with one TF32 product in
+    place of each split one fails it."""
+    from test_torch_tf32_split import k5_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import s2_act as k5
+
+    x, tg, fg, _ = _silu_case(dev, 6, 6, False, 3584, 512, 163)
+    n = k5.launches_silu
+    got = k5.s2_silu_cuda(x, tg, fg)
+    assert k5.launches_silu == n + 1
+    want = k5.s2_silu_plain(x, tg, fg)
+    ratio = lambda a: ((a - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    ratios = {"kernel": ratio(got)}
+    del got
+    ratios["split"] = ratio(k5_split(x, tg, fg))
+    ratios["one_tf32"] = ratio(k5_split(x, tg, fg, mm=mm_tf32))
+    print(json.dumps({"hold_ratios": ratios}))
+    assert ratios["kernel"] <= 1.0, ratios
+    assert ratios["split"] <= 1.0, ratios
+    assert ratios["one_tf32"] > 1.0, ratios
+
+
+@pytest.mark.cuda
+def test_s2_silu_bwd_hold_rejects_one_tf32_product(dev):
+    """K5b's hold (dx within 1e-4 of its largest magnitude, as chip_smoke.py
+    holds it) at the same call: the kernel's and k5b_split's dx pass it
+    against s2_silu_bwd_plain; with one TF32 product in place of each split
+    one, dx fails it."""
+    from test_torch_tf32_split import k5b_split, mm_tf32
+
+    from singa_tpu_torch.ops.cuda import s2_act as k5
+
+    args = _silu_case(dev, 6, 6, False, 3584, 512, 167)
+    n = k5.launches_silu_bwd
+    got = k5.s2_silu_bwd_cuda(*args)
+    assert k5.launches_silu_bwd == n + 1
+    want = k5.s2_silu_bwd_plain(*args)
+    ratio = lambda a: ((a - want).abs().max() / (1e-4 * want.abs().max())).item()
+    ratios = {"kernel": ratio(got)}
+    del got
+    ratios["split"] = ratio(k5b_split(*args))
+    ratios["one_tf32"] = ratio(k5b_split(*args, mm=mm_tf32))
+    print(json.dumps({"hold_ratios": ratios}))
+    assert ratios["kernel"] <= 1.0, ratios
+    assert ratios["split"] <= 1.0, ratios
+    assert ratios["one_tf32"] > 1.0, ratios
 
 
 @pytest.mark.cuda
@@ -1492,10 +1610,10 @@ def _misaligned(a):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["k1", "k7", "k8", "k2", "k4", "k3"])
+@pytest.mark.parametrize("form", ["k1", "k7", "k8", "k2", "k4", "k3", "k5"])
 def test_kernels_take_misaligned_inputs(dev, form):
     """Each forward kernel and its backward (K1/K1b, K7/K7b, K8/K8b, K2/K2b,
-    K4/K4b, K3/K3b) given every tensor input as a contiguous view at a 4-byte offset
+    K4/K4b, K3/K3b, K5/K5b) given every tensor input as a contiguous view at a 4-byte offset
     (which the kernels' 16-byte loads would fault on, and which the JAX
     package takes) runs on the card, through the wrapper's aligned copy,
     and matches its plain version on the aligned inputs."""
@@ -1546,6 +1664,13 @@ def test_kernels_take_misaligned_inputs(dev, form):
         grads = k3.s2_silu_sep_bwd_cuda(*mis(bwd_args))
         want, want_g = k3.s2_silu_sep_plain(*args), k3.s2_silu_sep_bwd_plain(*bwd_args)
         names = ["dx", "ds"]
+    elif form == "k5":
+        bwd_args = _silu_case(dev, 6, 6, False, 37, 16, 96)
+        args = bwd_args[:3]
+        got = k3.s2_silu_cuda(*mis(args))
+        grads = [k3.s2_silu_bwd_cuda(*mis(bwd_args))]
+        want, want_g = k3.s2_silu_plain(*args), [k3.s2_silu_bwd_plain(*bwd_args)]
+        names = ["dx"]
     else:
         args, dy = _s2_ffn_case(dev, 6, 37, 512, 16, 16, 89)
         bwd_args = [*args[:6], *args[7:], 6, dy]

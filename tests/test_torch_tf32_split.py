@@ -38,6 +38,12 @@ K3's forward and K3b's backward with their grid transforms split
 magnitude of ``s2_silu_sep_plain`` / ``s2_silu_sep_bwd_plain`` and of the
 JAX package's ``s2_silu_sep`` and its VJP in interpret mode; with one TF32
 product each they fail the holds ``chip_smoke.py`` holds the kernels to.
+K5's forward and K5b's backward with their grid transforms split as their
+tensor-core kernels take them (``k5_split``, ``k5b_split``: at I 49 row 48
+in float32) are within 1e-5 of each output's largest magnitude of
+``s2_silu_plain`` / ``s2_silu_bwd_plain`` and within the tolerances of
+``tests/test_torch_s2_ffn.py`` of the JAX package's Pallas ``s2_silu`` and
+its ``_bwd`` in interpret mode.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ K2B_DX_HC = 16  # hidden channels per chunk of K2b's dx kernel
 K4_HC = 16  # hidden channels per chunk of K4's tensor-core kernel
 K2_HC = 16  # hidden channels per chunk of K2's tensor-core kernel
 K3_STEP = 8  # grid points of a step of K3's and K3b's chains: the from-grid product's depth
+K5_TAIL = 49  # rows at which K5's and K5b's kernels take the last row in float32
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -327,6 +334,50 @@ def k3b_split(x, s, tg, fg, g, mm=mm_split):
     for g0 in range(0, tg.shape[0], K3_STEP):
         dx += mm(tg[g0:g0 + K3_STEP].T, h[g0:g0 + K3_STEP])
     return dx.reshape(I, E, C).transpose(0, 1).contiguous(), silu_grad(s) * g[:, 0]
+
+
+def _tail_rows(I: int) -> int:
+    """Rows K5's and K5b's tensor-core kernels take through mma: all but
+    the last at I = K5_TAIL (the full lmax-6 grid), else all."""
+    return I - 1 if I == K5_TAIL else I
+
+
+def k5_split(x, tg, fg, mm=mm_split):
+    """K5's forward (``s2_silu_plain``'s arguments and output) as its
+    tensor-core kernel takes it, with its two products through ``mm``: v =
+    tg X over the flat (node, channel) columns; silu(v); the from-grid sums
+    fg^T silu(v) step by step over K3_STEP grid points, each step's product
+    added in float32 in order. At I 49 row 48 stays out of the products: in
+    float32, a rank-one term of v, and output row 48 from the split
+    activations (hi + lo). Runs on the tensors' device."""
+    N, I, C = x.shape
+    r = _tail_rows(I)
+    X = _columns(x)
+    act = F.silu(mm(tg[:, :r], X[:r]) + tg[:, r:] @ X[r:])
+    out = torch.zeros(I, N * C, dtype=x.dtype, device=x.device)
+    for g0 in range(0, tg.shape[0], K3_STEP):
+        out[:r] += mm(fg[g0:g0 + K3_STEP, :r].T, act[g0:g0 + K3_STEP])
+    out[r:] = fg[:, r:].T @ sum(split(act))
+    return out.reshape(I, N, C).transpose(0, 1).contiguous()
+
+
+def k5b_split(x, tg, fg, g, mm=mm_split):
+    """K5b's dx (``s2_silu_bwd_plain``'s arguments and output) as its
+    tensor-core kernel takes it, with its three products through ``mm``: v =
+    tg X and u = fg Y; h = silu'(v) u; dx = tg^T h step by step over K3_STEP
+    grid points, each step's product added in float32 in order. At I 49 row
+    48 stays out of the products: in float32, rank-one terms of v and u, and
+    dx row 48 from h unsplit. Runs on the tensors' device."""
+    N, I, C = x.shape
+    r = _tail_rows(I)
+    X, Y = _columns(x), _columns(g)
+    h = (silu_grad(mm(tg[:, :r], X[:r]) + tg[:, r:] @ X[r:])
+         * (mm(fg[:, :r], Y[:r]) + fg[:, r:] @ Y[r:]))
+    dx = torch.zeros(I, N * C, dtype=x.dtype, device=x.device)
+    for g0 in range(0, tg.shape[0], K3_STEP):
+        dx[:r] += mm(tg[g0:g0 + K3_STEP, :r].T, h[g0:g0 + K3_STEP])
+    dx[r:] = tg[:, r:].T @ h
+    return dx.reshape(I, N, C).transpose(0, 1).contiguous()
 
 
 def k1_split(*args, mm=mm_split):
@@ -733,3 +784,85 @@ def test_k3b_split_matches_plain_and_pallas_backward(lmax, E):
     assert max(errs.values()) <= 1e-5, errs
     assert one["dx"] > 1e-4, one
     assert one["ds"] == errs["ds"], (one, errs)
+
+
+# K5's and K5b's cases: the s2 FFN's full lmax-6 grid (I 49, G 210: row 48
+# in float32), the attention message's m-primary lmax-6 / mmax-2 grid (I
+# 29, G 70) and the full lmax-2 grid (I 9, G 42), with N * C no multiple
+# of the kernels' 32-column warp tiles
+K5_CASES = [(6, 6, False, 7, 16), (6, 2, True, 5, 48), (2, 2, False, 9, 16)]
+
+
+def _k5_case(lmax, mmax, m_primary, N, C, seed):
+    """x, tg, fg, g of K5/K5b as numpy arrays, and the JAX package's tg, fg."""
+    from singa_tpu.equivariant import layers as jl
+    from singa_tpu_torch.equivariant.layers import _grid_mats_for
+
+    tg, fg = _grid_mats_for(lmax, mmax, m_primary)
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: rng.normal(size=sh).astype(np.float32)
+    I = tg.shape[1]
+    return (f(N, I, C), tg, fg, f(N, I, C)), jl._grid_mats_for(lmax, mmax, m_primary)
+
+
+@pytest.mark.parametrize("lmax,mmax,m_primary,N,C", K5_CASES)
+def test_k5_split_matches_plain_and_pallas_forward(lmax, mmax, m_primary, N, C):
+    """K5's output with both products its tensor-core kernel splits rendered
+    in split TF32 (``k5_split``): within 1e-5 of its largest magnitude of
+    ``s2_silu_plain`` (float32), and within atol and rtol 1e-5 of the JAX
+    package's Pallas ``s2_silu`` in interpret mode (as
+    ``tests/test_torch_s2_ffn.py`` holds the plain version to it). The same
+    rendering with one TF32 product in place of each split one fails the
+    1e-4 hold (atol and rtol 1e-4) that ``chip_smoke.py`` holds the kernel
+    to."""
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.s2_act import s2_silu
+    from singa_tpu_torch.ops.cuda.s2_act import s2_silu_plain
+    from test_torch_common import close
+
+    (x, tg, fg, _), (jtg, jfg) = _k5_case(lmax, mmax, m_primary, N, C, 37 + lmax + N)
+    args = [torch.as_tensor(a) for a in (x, tg, fg)]
+    with compute_dtype_scope("float32"):
+        pallas = np.array(s2_silu(jnp.asarray(x), jtg, jfg))
+    want = s2_silu_plain(*args)
+    got = k5_split(*args)
+    errs = rel_errs([got], [want], ["plain"])
+    one = k5_split(*args, mm=mm_tf32)
+    hold_ratio = ((one - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
+    assert max(errs.values()) <= 1e-5, errs
+    close(got, pallas, 1e-5, 1e-5, "out vs pallas")
+    assert hold_ratio > 1.0, hold_ratio
+
+
+@pytest.mark.parametrize("lmax,mmax,m_primary,N,C", K5_CASES)
+def test_k5b_split_matches_plain_and_pallas_backward(lmax, mmax, m_primary, N, C):
+    """K5b's dx with its three products in split TF32 (``k5b_split``), at
+    the forward's cases: within 1e-5 of its largest magnitude of
+    ``s2_silu_bwd_plain`` (float32), and within atol 2e-4 and rtol 1e-4 of
+    the VJP of the JAX package's ``s2_silu`` (its Pallas ``_bwd`` in
+    interpret mode), as ``tests/test_torch_s2_ffn.py`` holds the plain
+    backward to it. With one TF32 product in their place, dx fails the hold
+    ``chip_smoke.py`` holds the kernel to (1e-4 of its largest
+    magnitude)."""
+    import jax
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.s2_act import s2_silu
+    from singa_tpu_torch.ops.cuda.s2_act import s2_silu_bwd_plain
+    from test_torch_common import close
+
+    (x, tg, fg, g), (jtg, jfg) = _k5_case(lmax, mmax, m_primary, N, C, 41 + lmax + N)
+    args = [torch.as_tensor(a) for a in (x, tg, fg, g)]
+    with compute_dtype_scope("float32"):
+        _, vjp = jax.vjp(lambda a: s2_silu(a, jtg, jfg), jnp.asarray(x))
+        (pallas,) = vjp(jnp.asarray(g))
+    want = s2_silu_bwd_plain(*args)
+    got = k5b_split(*args)
+    errs = rel_errs([got], [want], ["dx"])
+    one = rel_errs([k5b_split(*args, mm=mm_tf32)], [want], ["dx"])
+    assert max(errs.values()) <= 1e-5, errs
+    close(got, np.array(pallas), 2e-4, 1e-4, "dx vs pallas")
+    assert one["dx"] > 1e-4, one

@@ -1,16 +1,21 @@
-"""K3's and K3b's tensor-core kernels at variants of their compile-time
-constants, timed on the card at a training microbatch's stage-1 call
-(31,744 edges) and a serving call (7,936), I 29, C 128, G 70.
+"""K3's and K3b's, and K5's and K5b's, tensor-core kernels at variants of
+their compile-time constants, timed on the card: K3/K3b at a training
+microbatch's stage-1 call (31,744 edges) and a serving call (7,936), I 29,
+C 128, G 70; K5/K5b at the two inputs chip_smoke.py's kernel_s2act holds
+them on, the s2 FFN's hidden of a serving encode (3,584 nodes, I 49, C
+512, G 210) and a stage-1 attention message (7,936 edges, I 29, C 128, G
+70).
 
     python3 tools/bench_k3_variants.py [--out build/k3_variants/results.json]
+        [--variants final,k5_no_tail,...]
 
 Each variant is a copy of ``singa_tpu_torch`` under ``build/k3_variants/``
 with ``csrc/s2_act.cu``'s constants replaced as VARIANTS lists (``final``:
 the source as it is), built and run in a process of its own; each call is
 timed by CUDA events over 30 launches after 3 of warm-up (host time
 included, which the card's time hides at these sizes), and ``final`` also
-times the CUDA-core instance. Prints one JSON line a variant and the card's
-name and power limit. Needs one CUDA card.
+times the CUDA-core instances. Prints one JSON line a variant and the
+card's name and power limit. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -30,6 +35,12 @@ VARIANTS = {
     "fwd_64_columns": [(r"kFwdCT = 2;", "kFwdCT = 4;"), (r"kFwdWarps = 16;", "kFwdWarps = 8;")],
     "bwd_32_columns": [(r"kBwdCT = 1;", "kBwdCT = 2;"), (r"kBwdWarps = 15;", "kBwdWarps = 7;")],
     "one_step_a_pass": [(r"kSteps = 3;", "kSteps = 1;")],
+    # K5 and K5b above 32 rows: 32-column warp tiles; every row of I 49
+    # through mma (7 k steps, 4 m16 tiles); K5b's tg staged twice always
+    "k5_wide_ct2": [(r"kWideCT = 1;", "kWideCT = 2;")],
+    "k5_no_tail": [(r"kTailRow = true;", "kTailRow = false;")],
+    "k5b_tg_twice": [(r"return bwd_launch<Form::kBCT>\(one\)\.warps > "
+                      r"bwd_launch<Form::kBCT>\(two\)\.warps \? one : two;", "return two;")],
 }
 CHILD = r'''
 import json, sys
@@ -67,6 +78,24 @@ for E in (31744, 7936):
         r["k3b_cuda_cores_ms"] = ms(
             lambda: k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g, cuda_cores=True))
     out[E] = r
+for name, (lmax, mmax, m_primary, N, C) in {"k5_hidden": (6, 6, False, 3584, 512),
+                                            "k5_message": (6, 2, True, 7936, 128)}.items():
+    tg, fg = (torch.as_tensor(m).cuda() for m in _grid_mats_for(lmax, mmax, m_primary))
+    rng = np.random.default_rng(N)
+    x, g = (torch.as_tensor(rng.normal(size=(N, tg.shape[1], C)).astype(np.float32)).cuda()
+            for _ in range(2))
+    r = {"k5_ms": ms(lambda: k3.s2_silu_cuda(x, tg, fg)),
+         "k5b_ms": ms(lambda: k3.s2_silu_bwd_cuda(x, tg, fg, g)),
+         "k5_max_abs_err": (k3.s2_silu_cuda(x, tg, fg)
+                            - k3.s2_silu_plain(x, tg, fg)).abs().max().item(),
+         "k5b_max_abs_err": (k3.s2_silu_bwd_cuda(x, tg, fg, g)
+                             - k3.s2_silu_bwd_plain(x, tg, fg, g)).abs().max().item(),
+         "residency": [k3.silu_residency(tg.shape[1], C, tg.shape[0], bwd=b) for b in (0, 1)]}
+    if sys.argv[2] == "1":
+        r["k5_cuda_cores_ms"] = ms(lambda: k3.s2_silu_cuda(x, tg, fg, cuda_cores=True))
+        r["k5b_cuda_cores_ms"] = ms(lambda: k3.s2_silu_bwd_cuda(x, tg, fg, g, cuda_cores=True))
+    out[name] = r
+    del x, g
 print(json.dumps(out))
 '''
 
@@ -74,12 +103,15 @@ print(json.dumps(out))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "k3_variants", "results.json"))
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated names of VARIANTS to run")
     a = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     results = {}
-    for name, subs in VARIANTS.items():
+    for name in a.variants.split(","):
+        subs = VARIANTS[name]
         root = os.path.join(ROOT, "build", "k3_variants", name)
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "singa_tpu_torch"),
