@@ -123,6 +123,18 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               --max-iters 2 --device cuda into a temporary logdir writes its
               checkpoint; the generation CLI reads that checkpoint for one
               pocket and launches exactly one encode_pocket's kernels
+     pdb      from that checkpoint, one pocket served from a protein PDB and
+              a ligand SDF: the first sorted val complex's protein nodes
+              written as a PDB block (8 atoms a residue, UNK, the element in
+              columns 77-78) with its own ligand SDF, through
+              generate.main(--input --ligand --props --device cuda): one
+              encode's launches (K1 = 6, K2 = 3, K3 = 3, the rest 0), 1 +
+              topk rows of the seven columns (smiles, score, valid, qed, sa,
+              logp, tpsa) with finite scores, two builds of the batch equal
+              bit for bit, the card's encode_pocket of that batch within
+              CPU_TOL of the CPU's with the same weights; the
+              featurization's host seconds, encode_ms, decode_ms and the
+              valid share (``pdb valid: n/m`` on a line of its own)
  12. the training phases again under configs/train_corpus.yml in float32
      (batch 32 as one microbatch): kernel_train_s2 / kernel_bwd_s2 (K4 and
      K4b at every distinct call of one step, 6 each), train_s2 (per step
@@ -1312,12 +1324,14 @@ def path_instances(specs, mods, captured, results: dict) -> None:
 
 
 def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_step: dict,
-                 cli_args: list, warmup: int, steps: int) -> None:
+                 cli_args: list, warmup: int, steps: int, after_cli=None) -> None:
     """kernel_train, kernel_bwd, train, train_profile, train_vs_cpu and
     train_cli (each phase name + ``suffix``) under ``cfg`` (float32); fills
     ``results`` with the lines of the kernels ``specs``, whose launches come
     from this path's train phase. ``per_step``: the launches of every kernel
-    that one optimizer step must make (the rest must make none)."""
+    that one optimizer step must make (the rest must make none).
+    ``after_cli(checkpoints, tmp)``, if given, runs after train_cli with the
+    checkpoint directory it wrote and the phases' temporary directory."""
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.data.dataset import BucketedNpzDataset
     from singa_tpu_torch.data.pipeline import Prefetcher
@@ -1494,6 +1508,98 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             raise AssertionError(f"train CLI wrote {ckpts}; generation wrote {rows}")
         if gen_counts != serve_counts(cfg):
             raise AssertionError(f"generation from the checkpoint launched {gen_counts}")
+        if after_cli is not None:
+            after_cli(os.path.join(logdir, "checkpoints"), tmp)
+
+
+def pdb_phase(dev, ckpt_dir: str, tmp: str) -> None:
+    """pdb: one pocket served from a protein PDB and a ligand SDF. The first
+    sorted val complex's protein nodes are written as a PDB block (ATOM
+    records, 8 atoms a residue named UNK, the element in columns 77-78) and
+    paired with that complex's own ligand SDF; generate.main(--input pdb
+    --ligand sdf --props --device cuda) serves it from the checkpoint
+    train_cli wrote. Raises unless one encode's kernels launch as
+    serve_counts says (K1 = 6, K2 = 3, K3 = 3, the rest 0), the CSV has
+    1 + topk rows of the seven columns with finite scores, two builds of the
+    batch agree bit for bit, and the card's encode_pocket of the PDB-built
+    batch lies within CPU_TOL of the CPU's with the same weights. Reports the
+    featurization's host seconds (build_from_files, warm imports), encode_ms,
+    decode_ms and the valid share (the CLI prints ``valid: n/m``)."""
+    from singa_tpu_torch.chem.pdb import write_pdb
+    from singa_tpu_torch.config import load_config
+    from singa_tpu_torch.data.complex_builder import build_from_files
+    from singa_tpu_torch.generate.generate import main as gen_main
+    from singa_tpu_torch.models.singa import SINGA
+    from singa_tpu_torch.train.checkpointing import CheckpointManager
+
+    val = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "val", "*.npz")))[0]
+    sdf = os.path.join(ROOT, "data", "corpus_raw",
+                       os.path.basename(val)[: -len(".npz")] + "_ligand.sdf")
+    with np.load(val) as z:
+        m = z["protein.mask"]
+        block = write_pdb(z["protein.pos"][m], z["protein.atomic_num"][m])
+    pdb = os.path.join(tmp, "pocket.pdb")
+    with open(pdb, "w") as f:
+        f.write(block)
+    cfg = load_config(os.path.join(os.path.dirname(ckpt_dir), "config.yml"))
+    want = serve_counts(cfg)
+    if {k.name: want[k.name] for k in (K1, K2, K3)} != {K1.name: 6, K2.name: 3, K3.name: 3} or \
+            sum(want.values()) != 12:
+        raise AssertionError(f"the pdb phase serves the default Config only: {want}")
+
+    feat_s = []
+    built = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        built.append(build_from_files(pdb, sdf, cfg.shapes, cfg.model.decoder.tgt_len))
+        feat_s.append(time.perf_counter() - t1)
+    leaves = [torch.utils._pytree.tree_leaves(b) for b in built]
+    same = len(leaves[0]) == len(leaves[1]) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(*leaves))
+    batch = built[0]
+
+    mods = kernel_modules()
+    out = os.path.join(tmp, "pdb.csv")
+    zero_counts(mods)
+    t1 = time.perf_counter()
+    gen_main(["--checkpoint", ckpt_dir, "--input", pdb, "--ligand", sdf, "--output", out,
+              "--props", "--device", "cuda"])
+    cli_s = time.perf_counter() - t1
+    counts = read_counts(mods)
+    with open(out) as f:
+        rows = list(csv.reader(f))
+    header = ["smiles", "score", "valid", "qed", "sa", "logp", "tpsa"]
+    finite = all(np.isfinite(float(r[1])) for r in rows[1:])
+    n_valid = sum(r[2] == "1" for r in rows[1:])
+
+    model = SINGA(cfg, device=dev).eval()
+    cpu_model = SINGA(cfg, device="cpu").eval()
+    for mdl in (model, cpu_model):
+        if CheckpointManager(ckpt_dir).restore(mdl) is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    enc_ms, (enc, pad) = timed_encode(model, batch.to(dev))
+    decode_ms = timed_decode(model, enc, pad, cfg)
+    with torch.inference_mode():
+        enc_cpu, _ = cpu_model.encode_pocket(batch)
+    diff = (enc.cpu() - enc_cpu).abs()
+    close = bool(torch.allclose(enc.cpu(), enc_cpu, **CPU_TOL))
+    emit({"phase": "pdb", "complex": os.path.basename(val), "pdb_atoms": int(m.sum()),
+          "pocket_atoms": int(batch.protein.mask.sum()), "ligand_atoms": int(batch.ligand.mask.sum()),
+          "pl_edges": int(batch.pl.mask.sum()), "featurize_host_s": feat_s,
+          "builds_bit_equal": same, "cli_s": cli_s, "launches_per_encode_pocket": counts,
+          "encode_ms": enc_ms, "decode_ms": decode_ms, "valid": f"{n_valid}/{len(rows) - 1}",
+          "vs_cpu": {"max_abs_err": diff.max().item(), "max_abs_value": enc_cpu.abs().max().item(),
+                     "tolerance": CPU_TOL, "ok": close},
+          "rows": [r[:3] for r in rows[1:4]]})
+    print(f"pdb valid: {n_valid}/{len(rows) - 1}", flush=True)
+    if counts != want:
+        raise AssertionError(f"pdb: launches per encode_pocket {counts}, expected {want}")
+    if rows[0] != header or len(rows) != 1 + cfg.generate.topk or not finite:
+        raise AssertionError(f"pdb: unexpected CLI csv {rows[:3]}")
+    if not same:
+        raise AssertionError("pdb: two builds of the batch differ")
+    if not close:
+        raise AssertionError("pdb: card encode_pocket disagrees with the CPU")
 
 
 def kernel_bwd_lmax4(mods) -> None:
@@ -1933,7 +2039,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train_phases(dev, results, files, float32_config(cfg), "", GATE_PATH,
-                 {k.name: 12 for k in GATE_PATH}, [], TRAIN_WARMUP, TRAIN_STEPS)
+                 {k.name: 12 for k in GATE_PATH}, [], TRAIN_WARMUP, TRAIN_STEPS,
+                 after_cli=lambda ckpt, tmp: pdb_phase(dev, ckpt, tmp))
     torch.cuda.empty_cache()
     s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
     train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,

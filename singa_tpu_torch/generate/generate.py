@@ -2,14 +2,16 @@
 (counterpart of ``singa_tpu/generate/generate.py``; reference gen.py).
 
 CLI: python -m singa_tpu_torch.generate.generate --checkpoint weights.pt \
-       --input pocket.npz --output out.csv
+       --input pocket.pdb [--ligand ligand.sdf] [--props] --output out.csv
 
 ``--checkpoint`` is either a ``.pt`` file holding the port's state dict or
 the checkpoint directory of the port's trainer (``<logdir>/checkpoints``;
 its latest step is read). Without ``--config``, the ``config.yml`` beside it
 is used when there is one (the trainer writes it into ``<logdir>``). The
-input is an ETL ``.npz`` complex; PDB input and the ``--props`` columns of
-the JAX CLI are not ported yet.
+input is a protein PDB, featurized on the host by ``data/complex_builder``
+(with ``--ligand``, the residues within 10 A of the ligand's atoms are the
+pocket; without, the whole PDB is), or an ETL ``.npz`` complex. ``--props``
+adds the validity, QED, SA, logP and TPSA columns (``chem/properties``).
 """
 from __future__ import annotations
 
@@ -21,9 +23,12 @@ import os
 import numpy as np
 import torch
 
+from singa_tpu_torch.chem.properties import logp, qed, sa_score, tpsa
+from singa_tpu_torch.chem.smiles_parser import parse_smiles
 from singa_tpu_torch.chem.tokenizer import decode as detokenize
 from singa_tpu_torch.config import Config, load_config
 from singa_tpu_torch.data.batch import ComplexBatch, load_npz
+from singa_tpu_torch.data.complex_builder import build_from_files
 from singa_tpu_torch.generate.beam import beam_generate
 from singa_tpu_torch.models.singa import SINGA, binarize_props
 from singa_tpu_torch.train.checkpointing import CheckpointManager
@@ -65,8 +70,14 @@ def main(argv=None):
                     help=".pt file holding the port's SINGA state dict, or the "
                     "trainer's checkpoint directory (<logdir>/checkpoints)")
     ap.add_argument("--config", type=str, default=None)
-    ap.add_argument("--input", type=str, required=True, help=".npz complex from the ETL")
+    ap.add_argument("--input", type=str, required=True,
+                    help="pocket PDB, or a .npz complex from the ETL (exact same "
+                    "featurization the checkpoint was trained on)")
+    ap.add_argument("--ligand", type=str, default=None,
+                    help="ligand SDF locating the pocket (PDB input only)")
     ap.add_argument("--output", type=str, default="generated.csv")
+    ap.add_argument("--props", action="store_true",
+                    help="add validity/QED/SA/logP/TPSA columns (host chem stack)")
     ap.add_argument(
         "--prop", type=str, default=None,
         help="property prefix override: comma-separated floats (e.g. '0,0,1'), "
@@ -83,8 +94,6 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but CUDA is not available")
-    if not args.input.endswith(".npz"):
-        raise ValueError("only .npz complexes are supported as --input so far")
 
     cfg = load_config(args.config) if args.config else Config()
     ckpt_dir = os.path.isdir(args.checkpoint)
@@ -103,7 +112,10 @@ def main(argv=None):
             ),
         )
 
-    batch = load_npz([args.input])
+    if args.input.endswith(".npz"):
+        batch = load_npz([args.input])
+    else:
+        batch = build_from_files(args.input, args.ligand, cfg.shapes, cfg.model.decoder.tgt_len)
     model = SINGA(cfg, device=device)
     if ckpt_dir:
         if CheckpointManager(args.checkpoint).restore(model) is None:
@@ -121,9 +133,22 @@ def main(argv=None):
     smiles, scores = generate_for_pocket(model, batch.to(device), cfg, prop_target)
     with open(args.output, "w", newline="") as f:
         w = csv.writer(f)
-        w.writerow(["smiles", "score"])
-        for s, sc in zip(smiles, scores):
-            w.writerow([s, float(sc)])
+        if not args.props:
+            w.writerow(["smiles", "score"])
+            for s, sc in zip(smiles, scores):
+                w.writerow([s, float(sc)])
+        else:
+            w.writerow(["smiles", "score", "valid", "qed", "sa", "logp", "tpsa"])
+            n_valid = 0
+            for s, sc in zip(smiles, scores):
+                try:
+                    mol = parse_smiles(s)
+                    row = [s, float(sc), 1, qed(mol), sa_score(mol), logp(mol), tpsa(mol)]
+                    n_valid += 1
+                except Exception:
+                    row = [s, float(sc), 0, "", "", "", ""]
+                w.writerow(row)
+            print(f"valid: {n_valid}/{len(smiles)}")
     print(f"wrote {len(smiles)} molecules to {args.output}")
 
 

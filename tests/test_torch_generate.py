@@ -179,5 +179,119 @@ def test_cli_writes_csv(tmp_path):
     rows = list(csv.reader(open(out)))
     assert rows[0] == ["smiles", "score"] and len(rows) == 3
     assert all(np.isfinite(float(r[1])) for r in rows[1:])
-    with pytest.raises(ValueError):
-        main(["--checkpoint", str(tmp_path / "w.pt"), "--input", "pocket.pdb", "--device", "cpu"])
+    # a non-.npz input is a PDB now: a missing one is a missing file
+    with pytest.raises(FileNotFoundError):
+        main(["--checkpoint", str(tmp_path / "w.pt"), "--input", str(tmp_path / "pocket.pdb"),
+              "--device", "cpu"])
+
+
+def test_generate_for_pocket_from_pdb_matches_jax():
+    """PDB block (a) of tests/test_torch_complex_builder.py (the first val
+    complex's protein nodes with its ligand SDF) through both builders at
+    the serving buckets and both generate_for_pocket at the tiny config with
+    bridged weights: the same beam tokens, scores within rtol 1e-5."""
+    from singa_tpu.data.complex_builder import build_from_files as jbuild
+    from singa_tpu.generate.generate import generate_for_pocket as jgenerate
+    from singa_tpu.models.singa import SINGA as JSINGA
+    from singa_tpu_torch.data.complex_builder import build_from_files
+    from singa_tpu_torch.generate.generate import generate_for_pocket
+    from singa_tpu_torch.models.singa import SINGA
+    from singa_tpu_torch.params import load_flax_params
+    from test_torch_complex_builder import block_a
+
+    jcfg, cfg, params = _slice_setup()
+    pdb, sdf = block_a()
+    tgt = cfg.model.decoder.tgt_len
+    jb, tb = jbuild(pdb, sdf, tgt_len=tgt), build_from_files(pdb, sdf, tgt_len=tgt)
+    with compute_dtype_scope("float32"):
+        jsmiles, jscores = jgenerate(JSINGA(jcfg), params, jb, jcfg)
+    model = SINGA(cfg, device="cpu")
+    load_flax_params(model, params)
+    smiles, scores = generate_for_pocket(model, tb, cfg)
+    assert smiles == jsmiles
+    close(scores, jscores, 0, 1e-5, "scores")
+
+
+def test_cli_pdb_input_with_props(tmp_path, monkeypatch):
+    """main([... '--input', pdb, '--ligand', sdf, '--props', '--device',
+    'cpu']) writes the seven columns; its validity, QED, SA, logP and TPSA
+    are the JAX functions' values on the same SMILES. Random tiny weights
+    rarely write a valid molecule, so a second run swaps the generated
+    SMILES for known ones (corpus drugs and broken strings) on their way to
+    the CSV."""
+    import singa_tpu_torch.generate.generate as tgen
+    from singa_tpu.chem.drug_corpus import CORPUS
+    from singa_tpu.chem.properties import logp, qed, sa_score, tpsa
+    from singa_tpu.chem.smiles_parser import is_valid_smiles, parse_smiles
+    from singa_tpu_torch.config import ShapeConfig, save_config
+    from singa_tpu_torch.models.singa import SINGA
+    from test_torch_complex_builder import block_a
+
+    _, cfg, _ = _slice_setup()
+    # the tiny widths at the serving buckets (block (a) is a 160-atom pocket)
+    cfg = dataclasses.replace(cfg, shapes=ShapeConfig(),
+                              generate=dataclasses.replace(cfg.generate, topk=4))
+    save_config(cfg, str(tmp_path / "config.yml"))
+    torch.save(SINGA(cfg, device="cpu", seed=3).state_dict(), tmp_path / "w.pt")
+    pdb, sdf = block_a()
+    (tmp_path / "pocket.pdb").write_text(pdb)
+    out = tmp_path / "out.csv"
+    args = ["--checkpoint", str(tmp_path / "w.pt"), "--input", str(tmp_path / "pocket.pdb"),
+            "--ligand", sdf, "--output", str(out), "--props", "--device", "cpu"]
+
+    def check() -> int:
+        rows = list(csv.reader(open(out)))
+        assert rows[0] == ["smiles", "score", "valid", "qed", "sa", "logp", "tpsa"]
+        assert len(rows) == 1 + 4
+        n_valid = 0
+        for smi, score, valid, *props in rows[1:]:
+            assert np.isfinite(float(score))
+            assert valid == str(int(is_valid_smiles(smi))), smi
+            if valid == "1":
+                n_valid += 1
+                mol = parse_smiles(smi)
+                want = [qed(mol), sa_score(mol), logp(mol), tpsa(mol)]
+                np.testing.assert_allclose([float(x) for x in props], want, rtol=0, atol=1e-6)
+            else:
+                assert props == ["", "", "", ""]
+        return n_valid
+
+    tgen.main(args)
+    check()
+    known = [CORPUS[0][1], "c1cccc1", CORPUS[40][1], CORPUS[100][1]]
+    real = tgen.generate_for_pocket
+
+    def swapped(*a, **kw):
+        smiles, scores = real(*a, **kw)
+        return known[: len(smiles)], scores
+
+    monkeypatch.setattr(tgen, "generate_for_pocket", swapped)
+    tgen.main(args)
+    assert check() == 3
+
+
+def test_port_imports_no_networkx():
+    """Every module of the port, imported in a fresh interpreter, pulls in
+    no networkx (the card's machine has none)."""
+    import os
+    import subprocess
+    import sys
+
+    from test_torch_common import REPO
+
+    code = r"""
+import importlib, pkgutil, sys
+import singa_tpu_torch
+for m in pkgutil.walk_packages(singa_tpu_torch.__path__, "singa_tpu_torch."):
+    importlib.import_module(m.name)
+from singa_tpu_torch.chem.smiles_parser import parse_smiles
+from singa_tpu_torch.chem.properties import all_properties
+all_properties(parse_smiles("c1ccc2[nH]ccc2c1"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("networkx", "jax", "flax", "singa_tpu"))
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
