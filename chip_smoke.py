@@ -3,7 +3,8 @@ and the training step, under the default Config() (gate FFN), under
 configs/train_corpus.yml (s2 FFN), and under the default Config() with
 SINGA_TPU_FUSED_SO2 set (the fused SO(2) edge attention, K6), with
 SINGA_TPU_HYBRID_ATTN set (the encoder's hybrid attention, K7) and with
-SINGA_TPU_DENSE_ATTN set (its dense attention, K8).
+SINGA_TPU_DENSE_ATTN set (its dense attention, K8); then the adversarial
+fine-tuning under configs/gan_recipe.yml.
 
     python3 chip_smoke.py
 
@@ -30,8 +31,9 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               ceiling of the tensor-core kernels, a third of it for split
               TF32
      kernel_bwd_lmax4  K2 and K2b at lmax 4 (the lmax of
-              configs/train_lmax4.yml and configs/gan_recipe.yml, on no
-              path below), C = Co = 16, H 512, 14,336 nodes, seeded inputs:
+              configs/train_lmax4.yml and configs/gan_recipe.yml, whose
+              GAN phases, 15, run it), C = Co = 16, H 512, 14,336 nodes,
+              seeded inputs:
               each against its plain version (K2 to TOL, each output of K2b
               to BWD_TOL of its largest magnitude), with the times
   3. kernel   for K1/K2/K3: the inputs the generation path hands the kernel
@@ -167,6 +169,24 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      live pairs, padded and closed-form rows, tiles per row, the per-pair
      scratch against the all-columns one, the kernels' residency, and their
      times with rows by descending live count (theirs) and in index order
+ 15. the adversarial fine-tuning path under configs/gan_recipe.yml (lmax 4,
+     gate FFN, float32): gan (``singa_tpu_torch.train.gan.main`` at batch 64
+     on data/corpus with 2 CE warm-up steps, 3 rounds of WGAN-GP with the
+     grammar mask and a quality sample each round, the counts set to 0 just
+     before and read just after: each round's host ms split into sample,
+     host bridge, d, graph-D and g with torch.cuda.synchronize around each
+     part, its launches (K1 = 12, K2 = K3 = 6, K1b = 6, K2b = K3b = 3, the
+     rest 0: the sample's encode_pocket and the g step's, forward and
+     backward), the losses (all finite), pct_valid, the quality samples and
+     peak memory), gan_generate (the generation CLI serves one val pocket
+     from the final checkpoint: one encode's launches, one CSV row),
+     gan_kernel (every distinct call of K1-K3 and K1b-K3b in one g step at
+     batch 64, held to its plain version and timed as kernel_train holds
+     them; K2, K3 and K3b must take their tensor-core kernels at lmax 4),
+     gan_profile (one round at batch 64 under the profiler: device busy
+     time, idle share, the costliest device ops) and gan_vs_cpu (one g step's loss, mean reward and every generator
+     gradient on the card against the CPU, 2 complexes, the same seeded
+     weights and the tokens the card sampled, TRAIN_CPU_TOL)
 then a ``total`` line (the script's seconds so far), the card's name and
 power limit as nvidia-smi prints them, the kernels line and
 ``{"ok": true, "device": {...}}`` last. The kernels line lists all sixteen
@@ -287,6 +307,8 @@ K2_KERNELS = ("gate_ffn_tc_kernel", "gate_ffn_wsplit_kernel")
 # K3's and K3b's tensor-core kernels in a profile (csrc/s2_act.cu)
 K3_KERNELS = ("s2_silu_sep_tc_kernel", "s2_silu_sep_bwd_tc_kernel")
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
+GAN_CONFIG = os.path.join("configs", "gan_recipe.yml")  # lmax 4, gate FFN, batch 64
+GAN_PRETRAIN, GAN_ROUNDS = 2, 3  # the gan phase's CE warm-up steps and adversarial rounds
 
 
 def emit(obj) -> None:
@@ -1606,7 +1628,8 @@ def kernel_bwd_lmax4(mods) -> None:
     """K2 and K2b at lmax 4 (configs/train_lmax4.yml, configs/gan_recipe.yml),
     C = Co = 16, H 512, a training microbatch's LMAX4_NODES nodes, on seeded
     inputs: each held to its plain version as ``hold`` holds them, timed.
-    No path of this script runs lmax 4."""
+    The GAN phases (gan_kernel) hold the same kernels at the g step's own
+    calls."""
     lmax, N, H, C = 4, LMAX4_NODES, 512, 16
     L = lmax + 1
     rng = np.random.default_rng(41)
@@ -1879,6 +1902,209 @@ def serve_form_phases(dev, files, batch, mods, cfg, form: str) -> None:
     vs_cpu(model, cfg, files, dev, f"vs_cpu_{form}")
 
 
+@contextlib.contextmanager
+def gan_round_timer(mods, rounds: list):
+    """While the block runs, every ``GANTrainer.train_round`` appends to
+    ``rounds`` its host ms (with ``torch.cuda.synchronize`` before and after
+    each part) split into sample, host bridge, d, graph-D and g, and the
+    launches of every kernel in that round (the counters' difference)."""
+    from singa_tpu_torch.train.gan import GANTrainer
+
+    parts = {"sample": "sample", "_host_bridge": "host_bridge", "d_step": "d", "d_eval": "d",
+             "gd_step": "graph_d", "gd_eval": "graph_d", "g_step": "g"}
+    originals = {n: getattr(GANTrainer, n) for n in (*parts, "train_round")}
+    current: dict = {}
+
+    def timed(name):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](self, *args, **kw)
+            torch.cuda.synchronize()
+            if current:  # outside a round (the quality samples) nothing is split
+                current[parts[name]] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def train_round(self, *args, **kw):
+        before = read_counts(mods)
+        current.update(dict.fromkeys(parts.values(), 0.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals["train_round"](self, *args, **kw)
+        torch.cuda.synchronize()
+        after = read_counts(mods)
+        rounds.append({"round_ms": (time.perf_counter() - t0) * 1e3, "host_ms": dict(current),
+                       "launches": {n: after[n] - before[n] for n in after}})
+        current.clear()
+        return out
+
+    for name in parts:
+        setattr(GANTrainer, name, timed(name))
+    GANTrainer.train_round = train_round
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(GANTrainer, name, fn)
+
+
+def gan_round_counts(cfg) -> dict:
+    """The launches of every kernel in one adversarial round (d and g steps
+    1): two encode_pockets (the sample's and the g step's) and one backward
+    through the second."""
+    enc_layers, blocks = cfg.model.encoder.num_interactions, cfg.embedding.num_layers
+    want = {K1.name: 2 * enc_layers, K2.name: 2 * blocks, K3.name: 2 * blocks,
+            K1B.name: enc_layers, K2B.name: blocks, K3B.name: blocks}
+    return {k.name: want.get(k.name, 0) for k in KERNELS}
+
+
+def gan_phase(dev, files, mods, cfg) -> None:
+    """gan: ``python -m singa_tpu_torch.train.gan`` as a user runs it under
+    configs/gan_recipe.yml at batch 64 (2 CE warm-up steps, 3 rounds, WGAN-GP,
+    grammar mask, a quality sample each round), the counts set to 0 just
+    before and read just after; then gan_generate: the generation CLI serves
+    one val pocket from the final checkpoint."""
+    from singa_tpu_torch.generate.generate import main as gen_main
+    from singa_tpu_torch.train import gan
+
+    per_round = gan_round_counts(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir = os.path.join(tmp, "gan")
+        rounds: list = []
+        zero_counts(mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with gan_round_timer(mods, rounds):
+            gan.main(["--config", os.path.join(ROOT, GAN_CONFIG),
+                      "--data", os.path.join(ROOT, "data", "corpus"), "--batch-size", "64",
+                      "--graph-loss", "wgan-gp", "--grammar-mask", "--pretrain", str(GAN_PRETRAIN),
+                      "--rounds", str(GAN_ROUNDS), "--eval-every", "1", "--device", "cuda",
+                      "--logdir", logdir])
+        cli_s = time.perf_counter() - t0
+        counts = read_counts(mods)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            metrics = [json.loads(ln) for ln in f]
+        losses = [{k.split("/")[1]: m[k] for k in m if k.startswith("gan/")} for m in metrics[:-1]]
+        emit({"phase": "gan", "config": GAN_CONFIG, "batch": 64, "rounds": GAN_ROUNDS,
+              "pretrain_steps": GAN_PRETRAIN, "cli_s": cli_s, "per_round": rounds,
+              "launches_per_round_expected": per_round, "launches": counts, "losses": losses,
+              "pct_valid": [m.get("gan/pct_valid") for m in metrics[:-1]],
+              "quality": [{k.split("/")[1]: m[k] for k in m if k.startswith("quality/")}
+                          for m in metrics], "peak_mem_gb": peak_gb})
+        for r in rounds:
+            if r["launches"] != per_round:
+                raise AssertionError(f"gan: a round launched {r['launches']}, expected {per_round}")
+        if len(rounds) != GAN_ROUNDS or any(counts[k.name] == 0 for k in GATE_PATH):
+            raise AssertionError(f"gan: {len(rounds)} rounds, launches {counts}")
+        bad = [ln for ln in losses if not all(np.isfinite(list(ln.values())))]
+        if bad or len(losses) != GAN_ROUNDS:
+            raise AssertionError(f"gan: non-finite losses {losses}")
+
+        # the final checkpoint serves one val pocket through the generation CLI
+        out = os.path.join(tmp, "gan.csv")
+        zero_counts(mods)
+        gen_main(["--checkpoint", logdir, "--input", files[0], "--output", out, "--device", "cuda"])
+        gen_counts = read_counts(mods)
+        with open(out) as f:
+            rows = list(csv.reader(f))
+        emit({"phase": "gan_generate", "checkpoints": sorted(os.listdir(os.path.join(logdir,
+                                                                                    "checkpoints"))),
+              "launches": gen_counts, "rows": [[r[0][:80], r[1]] for r in rows[1:]]})
+        if rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk:
+            raise AssertionError(f"gan_generate wrote {rows}")
+        if gen_counts != serve_counts(cfg):
+            raise AssertionError(f"gan_generate launched {gen_counts}")
+
+
+def gan_kernel_phase(dev, mods, cfg) -> None:
+    """gan_kernel: every distinct kernel call of one g step at full width
+    (64 train complexes, tokens sampled by the port), each held to its plain
+    version and timed as kernel_train holds them; the calls must take the
+    tensor-core kernels (K2, K3, K3b at lmax 4). Then gan_profile: one
+    round (sample, host bridge, d, graph-D, g) under the profiler."""
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.models.singa import SINGA
+    from singa_tpu_torch.train import gan
+
+    train_files = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "train", "*.npz")))[:64]
+    batch = load_npz(train_files).to(dev)
+    tr = gan.GANTrainer(cfg, graph_loss="wgan-gp", grammar_mask=True)
+    tr.init(SINGA(cfg, device=dev, seed=0), 1)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    tokens = tr.sample(batch, rng)
+    chem_r, fake = tr._host_bridge(tokens)
+    captured = capture(GATE_PATH, mods, lambda: tr.g_step(batch, tokens, chem_r, fake))
+    lines = hold_all([k for k in GATE_PATH if k.outs is None], mods, captured, "gan_kernel",
+                     "calls_per_g_step", "gan")
+    lines.update(hold_all([k for k in GATE_PATH if k.outs], mods, captured, "gan_kernel",
+                          "calls_per_g_step", "gan"))
+    path_instances(GATE_PATH, mods, captured, lines)
+    emit({"phase": "gan_kernel", "lmax": cfg.embedding.lmax, "batch": 64,
+          "valid_fakes": float(fake[3].sum()),
+          "kernels": {n: {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "max_abs_err", "residency") if k in v}
+                      for n, v in lines.items()}})
+    del captured
+    # gan_profile: where one round's time goes (device busy, idle share,
+    # the costliest device ops)
+    emit({"phase": "gan_profile", "batch": 64, "round": device_profile(
+        lambda: tr.train_round(batch, rng))})
+
+
+def gan_vs_cpu_phase(dev, files, cfg) -> None:
+    """gan_vs_cpu: one g step's loss and generator gradients at full width,
+    2 complexes, on the card (kernels) and on the CPU (plain versions), with
+    the same seeded weights and the tokens the card sampled; every leaf by
+    ``grad_report`` under TRAIN_CPU_TOL."""
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.models.singa import SINGA
+    from singa_tpu_torch.train import gan
+
+    small = load_npz(files[:2])
+    runs = {}
+    tokens = None
+    for run, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        tr = gan.GANTrainer(cfg, graph_loss="wgan-gp", grammar_mask=True)
+        tr.init(SINGA(cfg, device=d, seed=0), 1)
+        b = small.to(d)
+        if tokens is None:
+            tokens = tr.sample(b, torch.Generator(device=d).manual_seed(0)).cpu()
+        chem_r, fake = tr._host_bridge(tokens.to(d))
+        loss, reward, _ = tr.g_loss(b, tokens.to(d), chem_r, fake)
+        loss.backward()
+        runs[run] = (loss.item(), reward.item(), float(fake[3].sum()),
+                     {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                      for n, p in tr.generator.named_parameters()})
+        del tr, b, loss
+    (l_gpu, r_gpu, v_gpu, g_gpu), (l_cpu, r_cpu, v_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    report = grad_report(g_gpu, g_cpu, TRAIN_CPU_TOL)
+    ok = (report["l2"] <= 1.0 and abs(l_gpu - l_cpu) <= TRAIN_CPU_TOL * abs(l_cpu)
+          and abs(r_gpu - r_cpu) <= TRAIN_CPU_TOL * abs(r_cpu) and v_gpu == v_cpu)
+    emit({"phase": "gan_vs_cpu", "complexes": 2, "valid_fakes": v_gpu, "g_loss_cuda": l_gpu,
+          "g_loss_cpu": l_cpu, "reward_cuda": r_gpu, "reward_cpu": r_cpu,
+          "leaves": len(g_cpu), "leaves_with_grad": sum(bool((g != 0).any()) for g in g_cpu.values()),
+          "tolerance": TRAIN_CPU_TOL, "grads": report, "ok": ok})
+    if not ok:
+        raise AssertionError("gan_vs_cpu: the card's g step disagrees with the CPU's")
+
+
+def gan_phases(dev, files, mods) -> None:
+    """gan, gan_kernel and gan_vs_cpu under configs/gan_recipe.yml (lmax 4,
+    gate FFN, batch 64) in float32."""
+    from singa_tpu_torch.config import load_config
+    from singa_tpu_torch.train.loop import float32_config
+
+    cfg = float32_config(load_config(os.path.join(ROOT, GAN_CONFIG)))
+    gan_phase(dev, files, mods, cfg)
+    torch.cuda.empty_cache()
+    gan_kernel_phase(dev, mods, cfg)
+    torch.cuda.empty_cache()
+    gan_vs_cpu_phase(dev, files, cfg)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
@@ -2057,6 +2283,8 @@ def main() -> int:
             train_phases(dev, results, files, float32_config(cfg), suffix, path,
                          {k.name: 12 for k in (K2, K3, K2B, K3B, *path)}, [], FORM_WARMUP,
                          FORM_STEPS)
+
+    gan_phases(dev, files, mods)
 
     results[K4.name]["ptxas"] = k4_ptxas
     results[K4B.name]["ptxas"] = k4b_ptxas

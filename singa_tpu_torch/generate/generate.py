@@ -5,9 +5,10 @@ CLI: python -m singa_tpu_torch.generate.generate --checkpoint weights.pt \
        --input pocket.pdb [--ligand ligand.sdf] [--props] --output out.csv
 
 ``--checkpoint`` is either a ``.pt`` file holding the port's state dict or
-the checkpoint directory of the port's trainer (``<logdir>/checkpoints``;
-its latest step is read). Without ``--config``, the ``config.yml`` beside it
-is used when there is one (the trainer writes it into ``<logdir>``). The
+the checkpoint directory of the port's trainer or GAN
+(``<logdir>/checkpoints`` or ``<logdir>``; its latest step is read).
+Without ``--config``, the ``config.yml`` in ``<logdir>`` is used when there
+is one (the trainer and the GAN write it). The
 input is a protein PDB, featurized on the host by ``data/complex_builder``
 (with ``--ligand``, the residues within 10 A of the ligand's atoms are the
 pocket; without, the whole PDB is), or an ETL ``.npz`` complex. ``--props``
@@ -68,7 +69,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", type=str, required=True,
                     help=".pt file holding the port's SINGA state dict, or the "
-                    "trainer's checkpoint directory (<logdir>/checkpoints)")
+                    "checkpoint directory of the trainer or the GAN (<logdir>/checkpoints, "
+                    "or <logdir>)")
     ap.add_argument("--config", type=str, default=None)
     ap.add_argument("--input", type=str, required=True,
                     help="pocket PDB, or a .npz complex from the ETL (exact same "
@@ -96,6 +98,8 @@ def main(argv=None):
         raise RuntimeError("--device cuda asked for, but CUDA is not available")
 
     cfg = load_config(args.config) if args.config else Config()
+    if os.path.isdir(os.path.join(args.checkpoint, "checkpoints")):  # a run's logdir
+        args.checkpoint = os.path.join(args.checkpoint, "checkpoints")
     ckpt_dir = os.path.isdir(args.checkpoint)
     ckpt_cfg_path = os.path.join(
         os.path.dirname(os.path.abspath(args.checkpoint.rstrip("/"))), "config.yml"

@@ -73,6 +73,12 @@ class SINGA(nn.Module):
         )
         return enc, pad
 
+    def decode_step(self, tokens, enc, enc_pad_mask, prop) -> torch.Tensor:
+        """Teacher-forced decode of tokens [B, T] from an encoding ->
+        next-token logits [B, T, V] (the GAN's log-probs of sampled
+        sequences)."""
+        return self.model.decode(tokens, enc, enc_pad_mask, prop)
+
     def prime_cache(self, enc, enc_pad_mask, prop) -> DecodeCache:
         """A decoder KV cache with the property prefix written."""
         return self.model.prime_cache(enc, enc_pad_mask, prop)

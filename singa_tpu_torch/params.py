@@ -10,8 +10,10 @@ maps to a state-dict key mechanically:
     ``weight``;
   * ``nn.scan`` stacks (``.../layers/layer/...`` with a leading layer axis)
     unstack into ``layers.0``, ``layers.1``, ...;
-  * every other leaf (``w1``, ``gate_kernel``, ``q_lin``, ``w_m0``, ...) keeps
-    its name and its flax layout.
+  * every other leaf (``w1``, ``gate_kernel``, ``q_lin``, ``w_m0``, a
+    ``DenseGeneral`` ``kernel`` of flax attention, a parameter of the root
+    module such as ``SeqDiscriminator``'s ``embedding``, ...) keeps its name
+    and its flax layout.
 Every leaf maps, ``model/encoder2/**`` included. A flax gradient tree has the
 parameter tree's structure, so the same map carries ``jax.grad``'s output into
 the port's names (``from_flax_grads``).
@@ -51,7 +53,7 @@ def _torch_entry(path: tuple, leaf: np.ndarray) -> tuple[str, np.ndarray]:
     mods = [p for p in path[:-1] if p not in ("Dense_0", "Embed_0")]
     if name == "kernel" and "Dense_0" in path:
         return ".".join(mods + ["weight"]), np.ascontiguousarray(leaf.T)
-    if name in ("scale", "embedding"):
+    if name in ("scale", "embedding") and mods:
         return ".".join(mods + ["weight"]), leaf
     return ".".join(mods + [name]), leaf
 

@@ -66,16 +66,22 @@ def float32_config(cfg: Config) -> Config:
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
 
 
+def check_float32(config: Config) -> None:
+    """Raise unless ``config`` trains in float32, the port's only precision."""
+    tc = config.train
+    if tc.compute_dtype != "float32" or tc.param_dtype != "float32":
+        raise ValueError(
+            f"compute_dtype {tc.compute_dtype!r} / param_dtype {tc.param_dtype!r}: the "
+            "port trains in float32 only; bfloat16 training needs bf16 versions of the "
+            "fourteen kernels the training paths run, K1-K4 and K6-K8 and their "
+            "backwards (ROADMAP, Queue 1: bf16 training)"
+        )
+
+
 class Trainer:
     def __init__(self, config: Config, logdir: str = "runs/default", device="cuda"):
+        check_float32(config)
         tc = config.train
-        if tc.compute_dtype != "float32" or tc.param_dtype != "float32":
-            raise ValueError(
-                f"compute_dtype {tc.compute_dtype!r} / param_dtype {tc.param_dtype!r}: the "
-                "port trains in float32 only; bfloat16 training needs bf16 versions of the "
-                "fourteen kernels the training paths run, K1-K4 and K6-K8 and their "
-                "backwards (ROADMAP, Queue 1: bf16 training)"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():

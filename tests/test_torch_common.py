@@ -84,6 +84,64 @@ def singa_params(lmax: int = 2, mmax: int = 2, n_files: int = 2, seed: int = 0,
     return jcfg, jax.tree_util.tree_map(np.asarray, params)
 
 
+def gan_jax_config(lmax: int = 2, mmax: int = 2):
+    """``singa_params``'s config with the corpus's padding shapes (64 ligand
+    nodes, as ``data/corpus`` holds), which the GAN's graph batches take."""
+    from singa_tpu.config import ShapeConfig
+
+    return dataclasses.replace(tiny_jax_config(lmax, mmax), shapes=ShapeConfig())
+
+
+def sos_tokens(files, length: int) -> np.ndarray:
+    """Sampler-shaped sequences of the complexes' own SMILES: SOS, then
+    ``tokens.target`` (tokens, EOS, PAD) cut to ``length`` [B, length]."""
+    from singa_tpu.config import SOS_TOKEN
+
+    tgt = np.stack([f["tokens.target"] for f in files]).astype(np.int32)
+    return np.concatenate([np.full((len(files), 1), SOS_TOKEN, np.int32), tgt[:, : length - 1]], 1)
+
+
+def logp_vs_jax(lmax: int, grammar_mask: bool):
+    """``sequence_logp`` of both packages at ``singa_params(lmax, 2)`` (gate
+    FFN) on the two val complexes' own SMILES, from the encoding, with the
+    gradient of sum(w * logp) in every generator parameter (encode_pocket's
+    included; Encoder2's is zero). Returns ((jax logp, jax grads), (port
+    logp, port grads)) by port parameter name."""
+    import jax.numpy as jnp
+    from singa_tpu.models.singa import SINGA as JSINGA
+    from singa_tpu.models.singa import binarize_props as jbinarize
+    from singa_tpu.train.gan import sequence_logp as jlogp
+    from singa_tpu_torch.models.singa import SINGA, binarize_props
+    from singa_tpu_torch.params import from_flax_grads, load_flax_params
+    from singa_tpu_torch.train.gan import sequence_logp
+
+    jcfg, params = singa_params(lmax, 2)
+    files = load_val(2)
+    jb, tb = jax_batch(files), torch_batch(files)
+    tokens = sos_tokens(files, jcfg.model.decoder.tgt_len)
+    w = np.array([0.7, -1.3], np.float32)
+    jmodel = JSINGA(jcfg)
+
+    def loss(p):
+        enc, pad = jmodel.apply(p, jb, method="encode_pocket")
+        lp = jlogp(jmodel, p, jnp.asarray(tokens), enc, pad, jbinarize(jb, jcfg.model.props),
+                   grammar_mask=grammar_mask)
+        return jnp.sum(lp * w), lp
+
+    with compute_dtype_scope("float32"):
+        (_, jlp), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    model = SINGA(port_config(jcfg), device="cpu")
+    load_flax_params(model, params)
+    enc, pad = model.encode_pocket(tb)
+    lp = sequence_logp(model, t(tokens).long(), enc, pad,
+                       binarize_props(tb, model.config.model.props), grammar_mask=grammar_mask)
+    (lp * t(w)).sum().backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters()}
+    jgrads = from_flax_grads(jax.tree_util.tree_map(np.asarray, jg))
+    return (np.asarray(jlp), jgrads), (lp.detach(), grads)
+
+
 def sub(tree, path: str):
     for k in path.split("/"):
         tree = tree[k]
