@@ -3,8 +3,9 @@ and the training step, under the default Config() (gate FFN), under
 configs/train_corpus.yml (s2 FFN), and under the default Config() with
 SINGA_TPU_FUSED_SO2 set (the fused SO(2) edge attention, K6), with
 SINGA_TPU_HYBRID_ATTN set (the encoder's hybrid attention, K7) and with
-SINGA_TPU_DENSE_ATTN set (its dense attention, K8); then the adversarial
-fine-tuning under configs/gan_recipe.yml.
+SINGA_TPU_DENSE_ATTN set (its dense attention, K8); the host data path
+(the ETL's shard served on the card, re-docking); then the adversarial
+fine-tuning under configs/gan_recipe.yml with its docking pass-rate.
 
     python3 chip_smoke.py
 
@@ -137,6 +138,25 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               CPU_TOL of the CPU's with the same weights; the
               featurization's host seconds, encode_ms, decode_ms and the
               valid share (``pdb valid: n/m`` on a line of its own)
+     etl      the port's ETL (``singa_tpu_torch.tools.make_dataset --index``)
+              on DOCK_COMPLEX (a drug-sized val complex: its PDB block and
+              SDF, written as for pdb) writes one shard, the Vina
+              library built first from singa_tpu_torch/cpp/src into
+              build/vina/ (g++); generate.main(--input <shard> --device
+              cuda) serves it from that checkpoint: one encode's launches
+              (K1 = 6, K2 = 3, K3 = 3, the rest 0), 1 + topk rows, the
+              card's encode_pocket of the shard within CPU_TOL of the CPU's,
+              the shard's vina label equal to score_complex of the pocket;
+              the library's build seconds, the ligand's atoms and torsions
+              and the ETL's host seconds
+     dock     ``python -m singa_tpu_torch.tools.dock_ligand`` on the same
+              complex at exhaustiveness 8 and each of REDOCK_SEEDS (a
+              process of its own): the CLI's and the search's host seconds,
+              the ligand's atoms and torsions, every pose written, the best
+              score finite and no worse than the input pose's, every pose's
+              bond lengths the input's, score_complex of every written pose
+              its table score; the best and the nearest pose's RMSD from the
+              input pose at each seed
  12. the training phases again under configs/train_corpus.yml in float32
      (batch 32 as one microbatch): kernel_train_s2 / kernel_bwd_s2 (K4 and
      K4b at every distinct call of one step, 6 each), train_s2 (per step
@@ -178,8 +198,16 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      part, its launches (K1 = 12, K2 = K3 = 6, K1b = 6, K2b = K3b = 3, the
      rest 0: the sample's encode_pocket and the g step's, forward and
      backward), the losses (all finite), pct_valid, the quality samples and
-     peak memory), gan_generate (the generation CLI serves one val pocket
+     peak memory; ``--vina-eval 8``: the final report docks 8 samples of
+     the encoded batch on the host and carries pct_vina_good, n_vina_scored
+     and vina_mean, its seconds ``vina_eval_s`` apart from ``cli_s``;
+     gan_vina_eval prints that report, which may dock none, as few of a
+     2-CE-step generator's samples parse),
+     gan_generate (the generation CLI serves one val pocket
      from the final checkpoint: one encode's launches, one CSV row),
+     gan_vina (``vina_conditioning_host`` on 8 train complexes on the card
+     with their ligands' own tokens equals the same call on the batch's CPU
+     copy, at least 4 docked; each call's host seconds),
      gan_kernel (every distinct call of K1-K3 and K1b-K3b in one g step at
      batch 64, held to its plain version and timed as kernel_train holds
      them; K2, K3 and K3b must take their tensor-core kernels at lmax 4),
@@ -245,6 +273,7 @@ import contextlib
 import csv
 import glob
 import json
+import math
 import os
 import re
 import statistics
@@ -309,6 +338,19 @@ K3_KERNELS = ("s2_silu_sep_tc_kernel", "s2_silu_sep_bwd_tc_kernel")
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 GAN_CONFIG = os.path.join("configs", "gan_recipe.yml")  # lmax 4, gate FFN, batch 64
 GAN_PRETRAIN, GAN_ROUNDS = 2, 3  # the gan phase's CE warm-up steps and adversarial rounds
+GAN_VINA_EVAL = 8  # the gan phase's --vina-eval: samples docked at the final report
+VINA_KEYS = ("pct_vina_good", "n_vina_scored", "vina_mean")  # what --vina-eval reports
+# the etl and dock phases' complex: a drug-sized val ligand (amlodipine, 28
+# heavy atoms, 10 torsions). Its input pose, like every corpus pose, is a
+# placement and not the score's minimum: the search finds better-scoring
+# poses elsewhere, and which one comes first turns on the last bits of the
+# host's arithmetic. So the dock phase reports the RMSD from the input pose
+# at each seed and gates on what every correct search must give: a best
+# score no worse than the input pose's, bonds kept, each pose's score its own
+DOCK_COMPLEX = "amlodipine_s0_54"
+REDOCK_SEEDS = (0, 1, 2)
+BOND_TOL = 1e-3  # A: a pose's bond lengths vs the input's (the SDF keeps 1e-4 A)
+RESCORE_TOL = 5e-3  # kcal/mol: score_complex of a written pose vs its table score
 
 
 def emit(obj) -> None:
@@ -1534,6 +1576,27 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             after_cli(os.path.join(logdir, "checkpoints"), tmp)
 
 
+def val_pdb(tmp: str, name: str | None = None) -> tuple[str, str, str, int]:
+    """(val npz, its ligand SDF, a PDB block of its protein nodes written
+    under ``tmp``, the block's atom count) of the val complex ``name``, the
+    first sorted one by default: ATOM records, 8 atoms a residue named UNK,
+    the element in columns 77-78 (the repository holds no PDB)."""
+    from singa_tpu_torch.chem.pdb import write_pdb
+
+    vals = os.path.join(ROOT, "data", "corpus", "val")
+    val = (os.path.join(vals, name + ".npz") if name
+           else sorted(glob.glob(os.path.join(vals, "*.npz")))[0])
+    stem = os.path.basename(val)[: -len(".npz")]
+    sdf = os.path.join(ROOT, "data", "corpus_raw", stem + "_ligand.sdf")
+    with np.load(val) as z:
+        m = z["protein.mask"]
+        block = write_pdb(z["protein.pos"][m], z["protein.atomic_num"][m])
+    pdb = os.path.join(tmp, stem + ".pdb")
+    with open(pdb, "w") as f:
+        f.write(block)
+    return val, sdf, pdb, int(m.sum())
+
+
 def pdb_phase(dev, ckpt_dir: str, tmp: str) -> None:
     """pdb: one pocket served from a protein PDB and a ligand SDF. The first
     sorted val complex's protein nodes are written as a PDB block (ATOM
@@ -1547,22 +1610,11 @@ def pdb_phase(dev, ckpt_dir: str, tmp: str) -> None:
     batch lies within CPU_TOL of the CPU's with the same weights. Reports the
     featurization's host seconds (build_from_files, warm imports), encode_ms,
     decode_ms and the valid share (the CLI prints ``valid: n/m``)."""
-    from singa_tpu_torch.chem.pdb import write_pdb
     from singa_tpu_torch.config import load_config
     from singa_tpu_torch.data.complex_builder import build_from_files
     from singa_tpu_torch.generate.generate import main as gen_main
-    from singa_tpu_torch.models.singa import SINGA
-    from singa_tpu_torch.train.checkpointing import CheckpointManager
 
-    val = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "val", "*.npz")))[0]
-    sdf = os.path.join(ROOT, "data", "corpus_raw",
-                       os.path.basename(val)[: -len(".npz")] + "_ligand.sdf")
-    with np.load(val) as z:
-        m = z["protein.mask"]
-        block = write_pdb(z["protein.pos"][m], z["protein.atomic_num"][m])
-    pdb = os.path.join(tmp, "pocket.pdb")
-    with open(pdb, "w") as f:
-        f.write(block)
+    val, sdf, pdb, pdb_atoms = val_pdb(tmp)
     cfg = load_config(os.path.join(os.path.dirname(ckpt_dir), "config.yml"))
     want = serve_counts(cfg)
     if {k.name: want[k.name] for k in (K1, K2, K3)} != {K1.name: 6, K2.name: 3, K3.name: 3} or \
@@ -1594,6 +1646,39 @@ def pdb_phase(dev, ckpt_dir: str, tmp: str) -> None:
     finite = all(np.isfinite(float(r[1])) for r in rows[1:])
     n_valid = sum(r[2] == "1" for r in rows[1:])
 
+    model, enc_ms, decode_ms, vs = card_vs_cpu_encode(ckpt_dir, cfg, batch, dev)
+    emit({"phase": "pdb", "complex": os.path.basename(val), "pdb_atoms": pdb_atoms,
+          "pocket_atoms": int(batch.protein.mask.sum()), "ligand_atoms": int(batch.ligand.mask.sum()),
+          "pl_edges": int(batch.pl.mask.sum()), "featurize_host_s": feat_s,
+          "builds_bit_equal": same, "cli_s": cli_s, "launches_per_encode_pocket": counts,
+          "encode_ms": enc_ms, "decode_ms": decode_ms, "valid": f"{n_valid}/{len(rows) - 1}",
+          "vs_cpu": vs, "rows": [r[:3] for r in rows[1:4]]})
+    print(f"pdb valid: {n_valid}/{len(rows) - 1}", flush=True)
+    if counts != want:
+        raise AssertionError(f"pdb: launches per encode_pocket {counts}, expected {want}")
+    if rows[0] != header or len(rows) != 1 + cfg.generate.topk or not finite:
+        raise AssertionError(f"pdb: unexpected CLI csv {rows[:3]}")
+    if not same:
+        raise AssertionError("pdb: two builds of the batch differ")
+    if not vs["ok"]:
+        raise AssertionError("pdb: card encode_pocket disagrees with the CPU")
+
+
+def after_train_cli(dev, ckpt_dir: str, tmp: str) -> None:
+    """The phases that serve or build data from train_cli's checkpoint: pdb,
+    etl, dock."""
+    pdb_phase(dev, ckpt_dir, tmp)
+    etl_phase(dev, ckpt_dir, tmp)
+    dock_phase(tmp)
+
+
+def card_vs_cpu_encode(ckpt_dir: str, cfg, batch, dev):
+    """The checkpoint's model on the card and on the CPU: (card model, its
+    warm encode_ms, one beam_generate's decode_ms, the card's encode_pocket
+    of the CPU ``batch`` against the CPU's under CPU_TOL)."""
+    from singa_tpu_torch.models.singa import SINGA
+    from singa_tpu_torch.train.checkpointing import CheckpointManager
+
     model = SINGA(cfg, device=dev).eval()
     cpu_model = SINGA(cfg, device="cpu").eval()
     for mdl in (model, cpu_model):
@@ -1604,24 +1689,162 @@ def pdb_phase(dev, ckpt_dir: str, tmp: str) -> None:
     with torch.inference_mode():
         enc_cpu, _ = cpu_model.encode_pocket(batch)
     diff = (enc.cpu() - enc_cpu).abs()
-    close = bool(torch.allclose(enc.cpu(), enc_cpu, **CPU_TOL))
-    emit({"phase": "pdb", "complex": os.path.basename(val), "pdb_atoms": int(m.sum()),
+    vs = {"max_abs_err": diff.max().item(), "max_abs_value": enc_cpu.abs().max().item(),
+          "tolerance": CPU_TOL, "ok": bool(torch.allclose(enc.cpu(), enc_cpu, **CPU_TOL))}
+    return model, enc_ms, decode_ms, vs
+
+
+def etl_phase(dev, ckpt_dir: str, tmp: str) -> None:
+    """etl: the port's ETL (``singa_tpu_torch.tools.make_dataset.main
+    --index``) on DOCK_COMPLEX's PDB block and its own SDF, then
+    ``generate.main(--input <shard> --device cuda)`` serves the shard from
+    the checkpoint train_cli wrote. Raises unless the shard was written, one
+    encode launches K1 6, K2 3 and K3 3 (the rest 0), the CSV has 1 + topk
+    rows with finite scores, the card's encode_pocket of the shard lies
+    within CPU_TOL of the CPU's, and the shard's vina label is the float32
+    of ``score_complex`` of the same pocket. Reports the Vina library's
+    build seconds, the ligand's atoms and torsions and the ETL's host
+    seconds for the one complex."""
+    from singa_tpu_torch.chem.pdb import PDBProtein
+    from singa_tpu_torch.chem.sdf import parse_sdf
+    from singa_tpu_torch.config import load_config
+    from singa_tpu_torch.cpp import vina
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.dock import torsion_tree
+    from singa_tpu_torch.generate.generate import main as gen_main
+    from singa_tpu_torch.tools import make_dataset
+
+    t1 = time.perf_counter()
+    lib = vina.build()
+    build_s = time.perf_counter() - t1
+    val, sdf, pdb, _ = val_pdb(tmp, DOCK_COMPLEX)
+    index = os.path.join(tmp, "etl_index.txt")
+    with open(index, "w") as f:
+        f.write(f"{pdb} {sdf} val\n")
+    t1 = time.perf_counter()
+    shards = make_dataset.main(["--index", index, "--outdir", os.path.join(tmp, "etl")])
+    etl_s = time.perf_counter() - t1
+    if len(shards) != 1:
+        raise AssertionError(f"etl: wrote {shards}")
+    shard = shards[0]
+    cfg = load_config(os.path.join(os.path.dirname(ckpt_dir), "config.yml"))
+    want = serve_counts(cfg)
+
+    mods = kernel_modules()
+    out = os.path.join(tmp, "etl.csv")
+    zero_counts(mods)
+    t1 = time.perf_counter()
+    gen_main(["--checkpoint", ckpt_dir, "--input", shard, "--output", out, "--device", "cuda"])
+    cli_s = time.perf_counter() - t1
+    counts = read_counts(mods)
+    with open(out) as f:
+        rows = list(csv.reader(f))
+    finite = all(np.isfinite(float(r[1])) for r in rows[1:])
+
+    batch = load_npz([shard])
+    _, enc_ms, _, vs = card_vs_cpu_encode(ckpt_dir, cfg, batch, dev)
+    lig = parse_sdf(sdf)
+    pocket, _ = PDBProtein(pdb).pocket(lig.pos, radius=10.0)
+    score = vina.score_complex(pocket, lig)
+    label = float(batch.props.vina[0])
+    with np.load(val) as z:
+        stored = float(z["props.vina"])
+    emit({"phase": "etl", "complex": os.path.basename(val), "vina_library": os.path.relpath(lib, ROOT),
+          "vina_build_s": build_s, "etl_host_s": etl_s, "complexes": 1,
           "pocket_atoms": int(batch.protein.mask.sum()), "ligand_atoms": int(batch.ligand.mask.sum()),
-          "pl_edges": int(batch.pl.mask.sum()), "featurize_host_s": feat_s,
-          "builds_bit_equal": same, "cli_s": cli_s, "launches_per_encode_pocket": counts,
-          "encode_ms": enc_ms, "decode_ms": decode_ms, "valid": f"{n_valid}/{len(rows) - 1}",
-          "vs_cpu": {"max_abs_err": diff.max().item(), "max_abs_value": enc_cpu.abs().max().item(),
-                     "tolerance": CPU_TOL, "ok": close},
-          "rows": [r[:3] for r in rows[1:4]]})
-    print(f"pdb valid: {n_valid}/{len(rows) - 1}", flush=True)
+          "torsions": len(torsion_tree(lig).axes), "vina_label": label, "score_complex": score, "corpus_vina_label": stored,
+          "cli_s": cli_s, "launches_per_encode_pocket": counts, "encode_ms": enc_ms,
+          "vs_cpu": vs, "rows": [[r[0][:80], r[1]] for r in rows[1:3]]})
     if counts != want:
-        raise AssertionError(f"pdb: launches per encode_pocket {counts}, expected {want}")
-    if rows[0] != header or len(rows) != 1 + cfg.generate.topk or not finite:
-        raise AssertionError(f"pdb: unexpected CLI csv {rows[:3]}")
-    if not same:
-        raise AssertionError("pdb: two builds of the batch differ")
-    if not close:
-        raise AssertionError("pdb: card encode_pocket disagrees with the CPU")
+        raise AssertionError(f"etl: launches per encode_pocket {counts}, expected {want}")
+    if rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk or not finite:
+        raise AssertionError(f"etl: unexpected CLI csv {rows[:3]}")
+    if not vs["ok"]:
+        raise AssertionError("etl: card encode_pocket of the shard disagrees with the CPU")
+    if label != np.float32(score) or label == 0.0:
+        raise AssertionError(f"etl: vina label {label}, score_complex {score}")
+
+
+def redock(pdb: str, sdf: str, poses_sdf: str, seed: int) -> dict:
+    """One ``python -m singa_tpu_torch.tools.dock_ligand`` run at
+    exhaustiveness 8 and ``seed``, in a process of its own as a user runs
+    it; its table, stderr readings and the poses it wrote."""
+    from singa_tpu_torch.chem.sdf import parse_sdf
+
+    t1 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "singa_tpu_torch.tools.dock_ligand", pdb, sdf,
+                          "--exhaustiveness", "8", "--seed", str(seed), "--out", poses_sdf],
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                         text=True, timeout=300)
+    cli_s = time.perf_counter() - t1
+    if res.returncode != 0:
+        raise AssertionError(f"dock: the CLI failed:\n{res.stdout}\n{res.stderr}")
+    table = [ln.split("|") for ln in res.stdout.splitlines() if ln.count("|") == 2][1:]
+    err = res.stderr
+    with open(poses_sdf) as f:
+        poses = [parse_sdf(b + "$$$$\n") for b in f.read().split("$$$$\n") if b.strip()]
+    return {"cli_s": cli_s, "scores": [float(r[1]) for r in table], "poses": poses,
+            "atoms_torsions": tuple(map(int, re.search(
+                r"ligand: (\d+) atoms, (\d+) torsions", err).groups())),
+            "input_score": float(re.search(r"input-pose affinity:\s*(\S+)", err).group(1)),
+            "search_s": float(re.search(r"search: (\S+)s", err).group(1))}
+
+
+def dock_phase(tmp: str) -> None:
+    """dock: the dock CLI (``redock``) re-docks DOCK_COMPLEX's ligand into
+    its PDB block at exhaustiveness 8, at each of REDOCK_SEEDS. Reports the
+    ligand's atoms and torsions, the CLI's and the search's host seconds
+    (seed 0's are ``dock_host_s``), the input pose's score, and at each seed
+    the best score and the best pose's and the nearest pose's RMSD from the
+    input pose. Raises unless, at every seed, the poses file holds every
+    pose of the table, the best score is finite and no worse than the input
+    pose's, every pose keeps the input's bond lengths within BOND_TOL (the
+    search moves torsions and the rigid body only), and ``score_complex``
+    of every written pose is its table score within RESCORE_TOL."""
+    from singa_tpu_torch.chem.pdb import PDBProtein
+    from singa_tpu_torch.chem.sdf import parse_sdf
+    from singa_tpu_torch.cpp import vina
+    from singa_tpu_torch.tools.dock_ligand import rmsd
+
+    _, sdf, pdb, _ = val_pdb(tmp, DOCK_COMPLEX)
+    lig = parse_sdf(sdf)
+    pocket, _ = PDBProtein(pdb).pocket(lig.pos, radius=10.0)
+    ref = np.asarray(lig.pos, np.float64)
+    i, j = np.asarray(lig.bonds).T
+
+    def bond_lengths(pos):
+        pos = np.asarray(pos, np.float64)
+        return np.linalg.norm(pos[i] - pos[j], axis=-1)
+
+    runs = {seed: redock(pdb, sdf, os.path.join(tmp, f"poses_{seed}.sdf"), seed)
+            for seed in REDOCK_SEEDS}
+    report = {}
+    for seed, r in runs.items():
+        rmsds = [rmsd(p.pos, ref) for p in r["poses"]]
+        bond_err = max(np.abs(bond_lengths(p.pos) - bond_lengths(ref)).max() for p in r["poses"])
+        rescore_err = max(abs(vina.score_complex(pocket, p) - sc)
+                          for p, sc in zip(r["poses"], r["scores"]))
+        report[seed] = {"cli_s": r["cli_s"], "search_s": r["search_s"],
+                        "best_score": r["scores"][0], "best_rmsd_from_input": rmsds[0],
+                        "nearest_rmsd_from_input": min(rmsds), "poses": len(r["scores"]),
+                        "written": len(r["poses"]), "max_bond_err": bond_err,
+                        "max_rescore_err": rescore_err, "scores": r["scores"]}
+    first = runs[REDOCK_SEEDS[0]]
+    atoms, torsions = first["atoms_torsions"]
+    emit({"phase": "dock", "complex": DOCK_COMPLEX, "exhaustiveness": 8, "ligand_atoms": atoms,
+          "torsions": torsions, "pocket_atoms": pocket.num_atoms,
+          "dock_host_s": first["search_s"], "cli_s": first["cli_s"],
+          "input_pose_score": first["input_score"], "bond_tol": BOND_TOL,
+          "rescore_tol": RESCORE_TOL, "by_seed": report})
+    for seed, r in report.items():
+        if not r["poses"] or r["written"] != r["poses"]:
+            raise AssertionError(f"dock: seed {seed}: {r['poses']} poses, {r['written']} written")
+        if not (np.isfinite(r["best_score"]) and r["best_score"] <= first["input_score"]):
+            raise AssertionError(f"dock: seed {seed}: best score {r['best_score']}, the input "
+                                 f"pose's {first['input_score']}")
+        if not (r["max_bond_err"] <= BOND_TOL and r["max_rescore_err"] <= RESCORE_TOL):
+            raise AssertionError(f"dock: seed {seed}: bond error {r['max_bond_err']} A, "
+                                 f"rescore error {r['max_rescore_err']}")
 
 
 def kernel_bwd_lmax4(mods) -> None:
@@ -1963,8 +2186,11 @@ def gan_phase(dev, files, mods, cfg) -> None:
     """gan: ``python -m singa_tpu_torch.train.gan`` as a user runs it under
     configs/gan_recipe.yml at batch 64 (2 CE warm-up steps, 3 rounds, WGAN-GP,
     grammar mask, a quality sample each round), the counts set to 0 just
-    before and read just after; then gan_generate: the generation CLI serves
-    one val pocket from the final checkpoint."""
+    before and read just after; gan_vina_eval: its --vina-eval report, whose
+    three keys must be there (after 2 CE steps few samples parse, so it may
+    dock none: gan_vina is the phase that holds docking to a count); then
+    gan_generate: the generation CLI serves one val pocket from the final
+    checkpoint."""
     from singa_tpu_torch.generate.generate import main as gen_main
     from singa_tpu_torch.train import gan
 
@@ -1972,15 +2198,29 @@ def gan_phase(dev, files, mods, cfg) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         logdir = os.path.join(tmp, "gan")
         rounds: list = []
+        vina_eval_s = []
+        docked = gan.vina_conditioning_host
+
+        def timed_vina(*args, **kw):
+            t1 = time.perf_counter()
+            out = docked(*args, **kw)
+            vina_eval_s.append(time.perf_counter() - t1)
+            return out
+
         zero_counts(mods)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with gan_round_timer(mods, rounds):
-            gan.main(["--config", os.path.join(ROOT, GAN_CONFIG),
-                      "--data", os.path.join(ROOT, "data", "corpus"), "--batch-size", "64",
-                      "--graph-loss", "wgan-gp", "--grammar-mask", "--pretrain", str(GAN_PRETRAIN),
-                      "--rounds", str(GAN_ROUNDS), "--eval-every", "1", "--device", "cuda",
-                      "--logdir", logdir])
+        gan.vina_conditioning_host = timed_vina
+        try:
+            with gan_round_timer(mods, rounds):
+                gan.main(["--config", os.path.join(ROOT, GAN_CONFIG),
+                          "--data", os.path.join(ROOT, "data", "corpus"), "--batch-size", "64",
+                          "--graph-loss", "wgan-gp", "--grammar-mask",
+                          "--pretrain", str(GAN_PRETRAIN), "--rounds", str(GAN_ROUNDS),
+                          "--eval-every", "1", "--vina-eval", str(GAN_VINA_EVAL),
+                          "--device", "cuda", "--logdir", logdir])
+        finally:
+            gan.vina_conditioning_host = docked
         cli_s = time.perf_counter() - t0
         counts = read_counts(mods)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1988,7 +2228,8 @@ def gan_phase(dev, files, mods, cfg) -> None:
             metrics = [json.loads(ln) for ln in f]
         losses = [{k.split("/")[1]: m[k] for k in m if k.startswith("gan/")} for m in metrics[:-1]]
         emit({"phase": "gan", "config": GAN_CONFIG, "batch": 64, "rounds": GAN_ROUNDS,
-              "pretrain_steps": GAN_PRETRAIN, "cli_s": cli_s, "per_round": rounds,
+              "pretrain_steps": GAN_PRETRAIN, "cli_s": cli_s, "vina_eval": GAN_VINA_EVAL,
+              "vina_eval_s": vina_eval_s, "per_round": rounds,
               "launches_per_round_expected": per_round, "launches": counts, "losses": losses,
               "pct_valid": [m.get("gan/pct_valid") for m in metrics[:-1]],
               "quality": [{k.split("/")[1]: m[k] for k in m if k.startswith("quality/")}
@@ -2001,6 +2242,13 @@ def gan_phase(dev, files, mods, cfg) -> None:
         bad = [ln for ln in losses if not all(np.isfinite(list(ln.values())))]
         if bad or len(losses) != GAN_ROUNDS:
             raise AssertionError(f"gan: non-finite losses {losses}")
+        final = metrics[-1]
+        vina_report = {k: final.get(f"quality/{k}") for k in VINA_KEYS}
+        emit({"phase": "gan_vina_eval", "vina_eval": GAN_VINA_EVAL, "vina_eval_s": vina_eval_s,
+              **vina_report})
+        if len(vina_eval_s) != 1 or any(v is None for v in vina_report.values()) \
+                or not 0 <= vina_report["n_vina_scored"] <= GAN_VINA_EVAL:
+            raise AssertionError(f"gan: --vina-eval ran {len(vina_eval_s)} times, report {final}")
 
         # the final checkpoint serves one val pocket through the generation CLI
         out = os.path.join(tmp, "gan.csv")
@@ -2090,14 +2338,45 @@ def gan_vs_cpu_phase(dev, files, cfg) -> None:
         raise AssertionError("gan_vs_cpu: the card's g step disagrees with the CPU's")
 
 
+def gan_vina_phase(dev) -> None:
+    """gan_vina: ``vina_conditioning_host`` on the first 8 sorted
+    data/corpus/train complexes as a batch on the card, with the ligands'
+    own SMILES as the sampled tokens (a CUDA tensor), against the same call
+    on the batch's CPU copy. Raises unless the two dicts are equal and at
+    least 4 molecules docked; reports each call's host seconds."""
+    from singa_tpu_torch.config import SOS_TOKEN
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.train.rewards import vina_conditioning_host
+
+    files = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "train", "*.npz")))[:8]
+    batch = load_npz(files)
+    tgt = batch.tokens.target.long()
+    tokens = torch.cat([torch.full_like(tgt[:, :1], SOS_TOKEN), tgt[:, :-1]], 1)
+    got = {}
+    for run, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        t1 = time.perf_counter()
+        out = vina_conditioning_host(batch.to(d), tokens.to(d), n_eval=8)
+        got[run] = (out, time.perf_counter() - t1)
+    (card, card_s), (cpu, cpu_s) = got["cuda"], got["cpu"]
+    same = card.keys() == cpu.keys() and all(
+        card[k] == cpu[k] or (math.isnan(card[k]) and math.isnan(cpu[k])) for k in card)
+    emit({"phase": "gan_vina", "rows": 8, "cuda": card, "cpu": cpu, "vina_eval_s": card_s,
+          "vina_eval_cpu_batch_s": cpu_s, "equal": same})
+    if not same:
+        raise AssertionError(f"gan_vina: the card batch gives {card}, its CPU copy {cpu}")
+    if card["n_vina_scored"] < 4:
+        raise AssertionError(f"gan_vina: only {card['n_vina_scored']} of 8 molecules docked")
+
+
 def gan_phases(dev, files, mods) -> None:
-    """gan, gan_kernel and gan_vs_cpu under configs/gan_recipe.yml (lmax 4,
-    gate FFN, batch 64) in float32."""
+    """gan, gan_vina, gan_kernel and gan_vs_cpu under configs/gan_recipe.yml
+    (lmax 4, gate FFN, batch 64) in float32."""
     from singa_tpu_torch.config import load_config
     from singa_tpu_torch.train.loop import float32_config
 
     cfg = float32_config(load_config(os.path.join(ROOT, GAN_CONFIG)))
     gan_phase(dev, files, mods, cfg)
+    gan_vina_phase(dev)
     torch.cuda.empty_cache()
     gan_kernel_phase(dev, mods, cfg)
     torch.cuda.empty_cache()
@@ -2266,7 +2545,7 @@ def main() -> int:
 
     train_phases(dev, results, files, float32_config(cfg), "", GATE_PATH,
                  {k.name: 12 for k in GATE_PATH}, [], TRAIN_WARMUP, TRAIN_STEPS,
-                 after_cli=lambda ckpt, tmp: pdb_phase(dev, ckpt, tmp))
+                 after_cli=lambda ckpt, tmp: after_train_cli(dev, ckpt, tmp))
     torch.cuda.empty_cache()
     s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
     train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,

@@ -502,3 +502,19 @@ def cycle_basis(adj: dict[int, dict]) -> list[list[int]]:
         for node in pred:
             gnodes.pop(node, None)
     return cycles
+
+
+def within_bonds(mol: Molecule, s: int, cutoff: int) -> set[int]:
+    """Atoms at most ``cutoff`` bonds from ``s``, ``s`` included (the keys of
+    networkx's ``single_source_shortest_path_length(g, s, cutoff)``)."""
+    seen = {s}
+    frontier = [s]
+    for _ in range(cutoff):
+        nxt = []
+        for u in frontier:
+            for v in mol.adjacency[u]:
+                if v not in seen:
+                    seen.add(v)
+                    nxt.append(v)
+        frontier = nxt
+    return seen

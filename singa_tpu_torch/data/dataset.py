@@ -1,5 +1,5 @@
-"""Datasets: the ``.npz`` shard readers (the ETL contract) and the synthetic
-generator (counterpart of ``singa_tpu/data/dataset.py``).
+"""Datasets: the ``.npz`` shard writer and readers (the ETL contract) and the
+synthetic generator (counterpart of ``singa_tpu/data/dataset.py``).
 
 Each complex is one ``.npz`` with the fixed-shape ``ComplexBatch`` fields
 (unbatched); batching is a stack, done on the host, tables included. The
@@ -15,7 +15,39 @@ from typing import Iterator
 import numpy as np
 
 from singa_tpu_torch.config import ShapeConfig
-from singa_tpu_torch.data.batch import ComplexBatch, load_npz, synthetic_batch
+from singa_tpu_torch.data.batch import (
+    _EDGE_FIELDS,
+    _NODE_FIELDS,
+    _PROP_FIELDS,
+    _TOKEN_FIELDS,
+    ComplexBatch,
+    load_npz,
+    synthetic_batch,
+)
+
+
+def save_complex(path: str, sample: ComplexBatch) -> None:
+    """Write the first complex of ``sample`` (a batch of one, as
+    ``build_complex`` returns) as one ``.npz`` of the fields that
+    ``load_npz`` reads; the destination tables are rebuilt on reading."""
+
+    def first(x) -> np.ndarray:
+        return x[0].cpu().numpy()
+
+    arrays = {}
+    for group in ("protein", "ligand"):
+        ns = getattr(sample, group)
+        for f in _NODE_FIELDS:
+            arrays[f"{group}.{f}"] = first(getattr(ns, f))
+    for group in ("pp", "ll", "lp", "pl"):
+        es = getattr(sample, group)
+        for f in _EDGE_FIELDS:
+            arrays[f"{group}.{f}"] = first(getattr(es, f))
+    for f in _PROP_FIELDS:
+        arrays[f"props.{f}"] = first(getattr(sample.props, f))
+    for f in _TOKEN_FIELDS:
+        arrays[f"tokens.{f}"] = first(getattr(sample.tokens, f))
+    np.savez_compressed(path, **arrays)
 
 
 def _npz_files(root: str) -> list[str]:

@@ -25,8 +25,12 @@ The port trains in float32 (``train.loop.float32_config``). Deliberate
 differences from the JAX package: the sampler draws from a
 ``torch.Generator`` the caller passes, so its samples are not JAX's; the
 WGAN-GP interpolation weights come from the same generator; ``--init-ckpt``
-reads the port's own checkpoints; ``--vina-eval`` needs the native Vina
-engine and is refused (ROADMAP, Queue 1 item 2a).
+reads the port's own checkpoints. ``--vina-eval N`` samples the encoded batch
+once more on the device after the final report and docks N of the samples
+on the host (``rewards.vina_conditioning_host``): ``pct_vina_good``,
+``n_vina_scored`` and ``vina_mean`` join the printed stats and
+``metrics.jsonl``; the docking library is built before the first step, and
+one that cannot be built raises there.
 
 CLI: python -m singa_tpu_torch.train.gan --config configs/gan_recipe.yml \
        --data data/corpus --graph-loss wgan-gp --grammar-mask --batch-size 64
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 
 from singa_tpu_torch.chem.featurize import NODE_FEAT_DIM
 from singa_tpu_torch.config import EOS_TOKEN, PAD_TOKEN, SOS_TOKEN, Config, load_config
+from singa_tpu_torch.cpp import vina
 from singa_tpu_torch.data.batch import ComplexBatch
 from singa_tpu_torch.data.dataset import NpzDataset, SyntheticDataset
 from singa_tpu_torch.generate import grammar
@@ -59,10 +64,8 @@ from singa_tpu_torch.train.rewards import (
     chem_reward_host_shaped,
     graph_batch_host,
     validity_stats,
+    vina_conditioning_host,
 )
-
-VINA_REFUSAL = ("docking the samples needs the native Vina engine, which the port does not "
-                "have yet (ROADMAP, Queue 1 item 2a); use --vina-eval 0")
 
 
 def adam(params, lr: float) -> torch.optim.Adam:
@@ -408,10 +411,10 @@ class GANTrainer:
         return metrics
 
 
-def _vina_eval(text: str) -> int:
+def _count(text: str) -> int:
     n = int(text)
-    if n > 0:
-        raise argparse.ArgumentTypeError(VINA_REFUSAL)
+    if n < 0:
+        raise argparse.ArgumentTypeError(f"a count >= 0, not {n}")
     return n
 
 
@@ -452,9 +455,10 @@ def main(argv=None):
         help="one-sided label smoothing target for D's real examples",
     )
     ap.add_argument(
-        "--vina-eval", type=_vina_eval, default=0,
-        help="docking pass-rate of N samples at the final report; not ported "
-        "(ROADMAP, Queue 1 item 2a): only 0 is taken",
+        "--vina-eval", type=_count, default=0,
+        help="at the final report, dock N sampled molecules into their "
+        "conditioning pockets (native engine, on the host) and log the "
+        "vina < -7.5 pass-rate",
     )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
@@ -472,6 +476,8 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but CUDA is not available")
+    if args.vina_eval:
+        vina.build()  # a library that cannot be built raises before any training
     cfg = float32_config(load_config(args.config) if args.config else Config())
     print(f"config: {args.config or 'Config()'} with train.compute_dtype=float32 "
           "(the port trains in float32)")
@@ -531,6 +537,9 @@ def main(argv=None):
                   + " ".join(f"{k.split('/')[1]}={v:.3f}" for k, v in metrics.items())
                   + f" ({(time.time() - t0) / r:.1f}s/round)")
     stats = sample_quality()
+    if args.vina_eval:
+        stats.update(vina_conditioning_host(batch, trainer.sample(batch, rng),
+                                            n_eval=args.vina_eval))
     print("sample stats:", stats)
     writer.write(args.rounds + 1, **{f"quality/{k}": v for k, v in stats.items()})
     writer.close()

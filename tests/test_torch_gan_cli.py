@@ -2,8 +2,9 @@
 recorded log-probs equal its teacher-forced ``sequence_logp`` (as
 tests/test_gan_loop.py holds JAX's), the d_acc_cap pauses, the CLI on
 synthetic batches (metrics, config and a checkpoint that the generation CLI
-and ``--init-ckpt`` read back), and the refusals: ``--vina-eval`` above 0,
-a card asked for where there is none, a bfloat16 config.
+and ``--init-ckpt`` read back), the docking pass-rate (``--vina-eval``, held
+to JAX's ``vina_conditioning_host``), and the refusals: a card asked for
+where there is none, a bfloat16 config.
 """
 from __future__ import annotations
 
@@ -154,14 +155,60 @@ def test_gan_cli_on_synthetic_batches_round_trips(tmp_path):
     assert first.keys() == second.keys() and all(torch.equal(first[k], second[k]) for k in first)
 
 
-def test_vina_eval_is_refused_before_training(tmp_path, capsys):
+def test_vina_conditioning_host_matches_jax():
+    """The docking pass-rate of both packages on the first 8 sorted
+    data/corpus/train complexes, given the batch's own ligand SMILES as
+    sampled tokens: the port's from its batch, JAX's from its own. Six of
+    them embed and dock (the two acyclovir rows fail to parse, a failure in
+    both); the returned dicts are equal, vina_mean to rtol 1e-9."""
+    import glob
+
+    from singa_tpu.train.rewards import vina_conditioning_host as jvina
+    from singa_tpu_torch.train.rewards import vina_conditioning_host
+    from test_torch_common import REPO, jax_batch, sos_tokens, torch_batch
+    from test_torch_vina import load_jax_vina
+
+    load_jax_vina()
+    files = []
+    for p in sorted(glob.glob(os.path.join(REPO, "data", "corpus", "train", "*.npz")))[:8]:
+        with np.load(p) as z:
+            files.append({k: z[k] for k in z.files})
+    tokens = sos_tokens(files, 200)
+    got = vina_conditioning_host(torch_batch(files), torch.as_tensor(tokens), n_eval=8)
+    want = jvina(jax_batch(files), tokens, n_eval=8)
+    assert got.keys() == want.keys() == {"pct_vina_good", "n_vina_scored", "vina_mean"}
+    assert got["n_vina_scored"] == want["n_vina_scored"] >= 4
+    assert got["pct_vina_good"] == want["pct_vina_good"]
+    assert math.isfinite(got["vina_mean"]) and got["vina_mean"] < 0
+    np.testing.assert_allclose(got["vina_mean"], want["vina_mean"], rtol=1e-9, atol=0)
+
+
+def test_gan_cli_vina_eval_writes_the_pass_rate(tmp_path, capsys):
+    """--vina-eval 2 on synthetic batches: the final report, printed and in
+    metrics.jsonl, carries pct_vina_good, n_vina_scored and vina_mean; a
+    negative count is refused at parsing."""
+    import yaml
+
     from singa_tpu_torch.train.gan import main
 
+    cfg = port_config(tiny_jax_config())
+    cfg_path = tmp_path / "tiny.yml"
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(dataclasses.asdict(cfg))), f)
+    logdir = tmp_path / "gan"
+    main(["--config", str(cfg_path), "--synthetic", "--device", "cpu", "--batch-size", "2",
+          "--rounds", "1", "--vina-eval", "2", "--logdir", str(logdir)])
+    assert "n_vina_scored" in capsys.readouterr().out
+    with open(logdir / "metrics.jsonl") as f:
+        last = [json.loads(ln) for ln in f][-1]
+    assert last["step"] == 2
+    assert 0.0 <= last["quality/pct_vina_good"] <= 100.0
+    n = last["quality/n_vina_scored"]
+    assert n in (0, 1, 2) and (math.isnan(last["quality/vina_mean"]) == (n == 0))
     with pytest.raises(SystemExit) as e:
-        main(["--synthetic", "--device", "cpu", "--vina-eval", "1", "--logdir", str(tmp_path / "x")])
-    assert e.value.code == 2
-    assert "ROADMAP, Queue 1 item 2a" in capsys.readouterr().err
-    assert not (tmp_path / "x").exists()
+        main(["--synthetic", "--device", "cpu", "--vina-eval", "-1",
+              "--logdir", str(tmp_path / "x")])
+    assert e.value.code == 2 and not (tmp_path / "x").exists()
 
 
 def test_refusals_of_a_missing_card_and_of_bfloat16(monkeypatch, tmp_path):
