@@ -292,6 +292,14 @@ T_START = time.perf_counter()
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bfloat16 on the tensor cores (the bf16 rows' bound)
+# a bfloat16 kernel vs its bfloat16 plain twin: each output's largest error
+# within 1e-2 of its largest magnitude. The two round the same values at the
+# same points, but sum in other orders, so a value near a rounding boundary
+# can land one bfloat16 step (2^-8 relative) apart and carry into what
+# follows; float32 outputs (weight gradients) sum such terms.
+BF16_TOL = 1e-2
+TRAIN_CONFIG = os.path.join("configs", "train.yml")  # Config()'s path at its own bfloat16
 TOL = {"atol": 1e-4, "rtol": 1e-4}  # kernel vs plain: reordered float32 sums
 CPU_TOL = {"atol": 2e-3, "rtol": 2e-3}  # whole encoder, card vs CPU
 PROFILE_STEPS = 40  # decode steps traced by the profile phase
@@ -310,6 +318,7 @@ TRAIN_CPU_TOL = 2e-3
 # one warm-up step suffices: kernel_train's microbatch has already run the
 # model forward and backward on the card; the first step creates Adam's state
 TRAIN_WARMUP, TRAIN_STEPS, FIXED_STEPS = 1, 3, 5
+BF16_WARMUP, BF16_STEPS = 1, 2  # train_bf16
 S2_WARMUP, S2_STEPS = 1, 3  # the s2 training path (batch 32, one microbatch)
 SO2_WARMUP, SO2_STEPS = 1, 3  # the fused SO(2) attention's training path (batch 64, 2 x 32)
 FORM_WARMUP, FORM_STEPS = 1, 2  # the hybrid and dense attention's training paths (2 x 32)
@@ -544,9 +553,9 @@ def row_order_ms(fn, args, kw) -> dict:
                 "index_order_ms": time_ms(lambda: fn(*args, lists=index))}
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_mem = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -1082,6 +1091,17 @@ class Kernel(NamedTuple):
     outs: tuple | None  # the backward's output names; None: a forward
     split_flops: object = None  # (args) -> its operations that run as split TF32
     report: object = None  # (spec, mod, args, kw) -> more of this call, for kernel_bwd*
+    rate: float = F32_FLOP_PER_S  # the peak its bound takes for the operations
+    tol: float | None = None  # bfloat16 instances: BF16_TOL of each output's largest
+
+
+def bf16_instance(spec: Kernel) -> Kernel:
+    """The bfloat16 instance of a kernel of Config()'s training path: the
+    same wrapper and plain function at bfloat16 activations, its own launch
+    counter, its bound at the bfloat16 tensor-core rate (the rate its work
+    would take there; the instance itself runs on the CUDA cores)."""
+    return spec._replace(name=f"{spec.name}_bf16", counter=f"{spec.counter}_bf16",
+                         split_flops=None, report=None, rate=BF16_FLOP_PER_S, tol=BF16_TOL)
 
 
 K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS = [
@@ -1136,6 +1156,8 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/dense_edge_attn_bwd.cu",
            "singa_tpu/ops/pallas/dense_edge_attn.py:277", k8b_cost, ATTN_BWD_OUTS),
 ]
+BF16_PATH = [bf16_instance(k) for k in (K1, K2, K3, K1B, K2B, K3B)]  # configs/train.yml's
+KERNELS += BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
 SO2_PATH = [K6, K6B]  # held at the default Config's, with SINGA_TPU_FUSED_SO2 set
@@ -1205,7 +1227,16 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
     with torch.no_grad():
         got, want = as_tuple(launch(*args, **kw)), as_tuple(plain(*args))
         torch.cuda.synchronize()
-        if spec.outs is None:  # every output within TOL
+        if spec.tol is not None:  # a bfloat16 instance: each output within its tolerance
+            names = spec.outs or ("out",) * len(got)
+            errs = {o: [(a.float() - b.float()).abs().max().item(), b.float().abs().max().item(),
+                        (a != b).float().mean().item(), str(a.dtype).replace("torch.", "")]
+                    for o, a, b in zip(names, got, want)}
+            ok = all(e <= spec.tol * scale for e, scale, _, _ in errs.values()) and all(
+                a.dtype == b.dtype for a, b in zip(got, want))
+            max_abs = max(e[0] for e in errs.values())
+            tol = f"{spec.tol} x each output's max ([err, max, share of elements unequal, dtype])"
+        elif spec.outs is None:  # every output within TOL
             diffs = [(a - b).abs() for a, b in zip(got, want)]
             errs = {"max_abs_err": max(d.max().item() for d in diffs),
                     "max_rel_err": max((d / (b.abs() + TOL["atol"] / TOL["rtol"])).max().item()
@@ -1222,7 +1253,7 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
         p_ms = time_ms(lambda: plain(*args))
     b, f = spec.cost(args, got[0] if spec.outs is None and len(got) == 1 else got)
     b += nbytes(*kw.values())
-    bms, by = bound_ms(b, f)
+    bms, by = bound_ms(b, f, spec.rate)
     tc = {}
     if spec.split_flops is not None:
         split = spec.split_flops(args)
@@ -1387,20 +1418,56 @@ def path_instances(specs, mods, captured, results: dict) -> None:
             lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
 
 
+def train_vs_cpu(dev, cfg, val_files, suffix: str) -> None:
+    """train_vs_cpu: loss and every gradient, the card vs the CPU and the
+    card vs a second card run, with the same seeded weights (trained ones
+    differ from run to run: the backward of PyTorch's index_select adds with
+    atomics); L2 gate and loss within TRAIN_CPU_TOL."""
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
+
+    small = load_npz(val_files[:2])
+    runs = {}
+    for run, b in (("cuda", small.to(dev)), ("cuda_again", small.to(dev)), ("cpu", small)):
+        model = SINGA(cfg, device=b.protein.x.device, seed=cfg.train.seed)
+        kept, hooks = relu_inputs(model)
+        loss = cross_entropy_loss(model(b), b.tokens.target)
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        runs[run] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}, kept)
+        del model, loss
+    torch.cuda.empty_cache()
+    (l_gpu, g_gpu, r_gpu), (l_again, g_again, r_again), (l_cpu, g_cpu, r_cpu) = runs.values()
+    vs_cpu = grad_report(g_gpu, g_cpu, TRAIN_CPU_TOL)
+    vs_card = grad_report(g_again, g_gpu, TRAIN_CPU_TOL)
+    ok = (vs_cpu["l2"] <= 1.0 and vs_card["l2"] <= 1.0
+          and abs(l_gpu - l_cpu) <= TRAIN_CPU_TOL * abs(l_cpu)
+          and abs(l_again - l_gpu) <= TRAIN_CPU_TOL * abs(l_gpu))
+    emit({"phase": f"train_vs_cpu{suffix}", "complexes": 2, "loss_cuda": l_gpu,
+          "loss_cuda_again": l_again, "loss_cpu": l_cpu, "tolerance": TRAIN_CPU_TOL,
+          "card_vs_cpu": {**vs_cpu, "relu": relu_flips(r_gpu, r_cpu)},
+          "card_vs_card": {**vs_card, "relu": relu_flips(r_again, r_gpu)}, "ok": ok})
+    if not ok:
+        raise AssertionError("the card's training step disagrees with the CPU's or its own")
+
+
 def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_step: dict,
-                 cli_args: list, warmup: int, steps: int, after_cli=None) -> None:
-    """kernel_train, kernel_bwd, train, train_profile, train_vs_cpu and
-    train_cli (each phase name + ``suffix``) under ``cfg`` (float32); fills
+                 cli_args: list, warmup: int, steps: int, after_cli=None,
+                 vs_cpu: bool = True) -> dict:
+    """kernel_train, kernel_bwd, train, train_profile, train_vs_cpu (unless
+    ``vs_cpu`` is False) and train_cli (each phase name + ``suffix``) under
+    ``cfg`` at its compute dtype; returns the train phase's step_ms,
+    peak_mem_gb and the profiled step's device busy time; fills
     ``results`` with the lines of the kernels ``specs``, whose launches come
     from this path's train phase. ``per_step``: the launches of every kernel
     that one optimizer step must make (the rest must make none).
     ``after_cli(checkpoints, tmp)``, if given, runs after train_cli with the
     checkpoint directory it wrote and the phases' temporary directory."""
-    from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.data.dataset import BucketedNpzDataset
     from singa_tpu_torch.data.pipeline import Prefetcher
+    from singa_tpu_torch.dtypes import compute_dtype_scope
     from singa_tpu_torch.generate.generate import main as gen_main
-    from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
     from singa_tpu_torch.train.loop import Trainer
     from singa_tpu_torch.train.loop import main as train_main
 
@@ -1422,7 +1489,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
 
         def one_microbatch():
             trainer.model.zero_grad(set_to_none=True)
-            trainer.loss(micro).backward()
+            with compute_dtype_scope(cfg.train.compute_dtype):
+                trainer.loss(micro).backward()
 
         captured = capture(specs, mods, one_microbatch)
         if K8 in specs:
@@ -1516,39 +1584,16 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k3_kernels"] = {n: prof["matched"][n] for n in K3_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
         data.close()
+        summary = {"compute_dtype": cfg.train.compute_dtype, "step_ms": step_ms,
+                   "peak_mem_gb": peak_gb, "device_busy_ms": prof["device_busy_ms"],
+                   "idle_share": prof["idle_share"]}
 
         del trainer
         torch.cuda.empty_cache()
 
-        # train_vs_cpu: loss and every gradient, the card vs the CPU and the
-        # card vs a second card run, with the same seeded weights (trained
-        # ones differ from run to run: the backward of PyTorch's index_select
-        # adds with atomics)
-        small = load_npz(val_files[:2])
-        runs = {}
-        for run, b in (("cuda", small.to(dev)), ("cuda_again", small.to(dev)), ("cpu", small)):
-            model = SINGA(cfg, device=b.protein.x.device, seed=cfg.train.seed)
-            kept, hooks = relu_inputs(model)
-            loss = cross_entropy_loss(model(b), b.tokens.target)
-            loss.backward()
-            for h in hooks:
-                h.remove()
-            runs[run] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}, kept)
-            del model, loss
-        torch.cuda.empty_cache()
-        (l_gpu, g_gpu, r_gpu), (l_again, g_again, r_again), (l_cpu, g_cpu, r_cpu) = runs.values()
-        vs_cpu = grad_report(g_gpu, g_cpu, TRAIN_CPU_TOL)
-        vs_card = grad_report(g_again, g_gpu, TRAIN_CPU_TOL)
-        ok = (vs_cpu["l2"] <= 1.0 and vs_card["l2"] <= 1.0
-              and abs(l_gpu - l_cpu) <= TRAIN_CPU_TOL * abs(l_cpu)
-              and abs(l_again - l_gpu) <= TRAIN_CPU_TOL * abs(l_gpu))
-        emit({"phase": f"train_vs_cpu{suffix}", "complexes": 2, "loss_cuda": l_gpu,
-              "loss_cuda_again": l_again, "loss_cpu": l_cpu, "tolerance": TRAIN_CPU_TOL,
-              "card_vs_cpu": {**vs_cpu, "relu": relu_flips(r_gpu, r_cpu)},
-              "card_vs_card": {**vs_card, "relu": relu_flips(r_again, r_gpu)}, "ok": ok})
-        if not ok:
-            raise AssertionError("the card's training step disagrees with the CPU's or its own")
-        del runs, g_gpu, g_again, g_cpu, r_gpu, r_again, r_cpu
+        if vs_cpu:
+            train_vs_cpu(dev, cfg, val_files, suffix)
+
 
         # train_cli: 2 steps through the CLI, then generation from its
         # checkpoint (and the config.yml the trainer wrote beside it)
@@ -1574,6 +1619,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             raise AssertionError(f"generation from the checkpoint launched {gen_counts}")
         if after_cli is not None:
             after_cli(os.path.join(logdir, "checkpoints"), tmp)
+    return summary
 
 
 def val_pdb(tmp: str, name: str | None = None) -> tuple[str, str, str, int]:
@@ -2543,9 +2589,21 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
 
-    train_phases(dev, results, files, float32_config(cfg), "", GATE_PATH,
-                 {k.name: 12 for k in GATE_PATH}, [], TRAIN_WARMUP, TRAIN_STEPS,
-                 after_cli=lambda ckpt, tmp: after_train_cli(dev, ckpt, tmp))
+    f32_step = train_phases(dev, results, files, float32_config(cfg), "", GATE_PATH,
+                            {k.name: 12 for k in GATE_PATH}, [], TRAIN_WARMUP, TRAIN_STEPS,
+                            after_cli=lambda ckpt, tmp: after_train_cli(dev, ckpt, tmp))
+    torch.cuda.empty_cache()
+    # train_bf16: configs/train.yml (Config()'s path) at its own bfloat16,
+    # through the six bfloat16 instances only (every float32 count 0)
+    bf16_cfg = load_config(os.path.join(ROOT, TRAIN_CONFIG))
+    if bf16_cfg.train.compute_dtype != "bfloat16":
+        raise AssertionError(f"{TRAIN_CONFIG} trains in {bf16_cfg.train.compute_dtype}")
+    bf16_step = train_phases(dev, results, files, bf16_cfg, "_bf16", BF16_PATH,
+                             {k.name: 12 for k in BF16_PATH}, ["--config", TRAIN_CONFIG],
+                             BF16_WARMUP, BF16_STEPS, vs_cpu=False)
+    emit({"phase": "train_bf16_vs_f32", "float32": f32_step, "bfloat16": bf16_step,
+          "note": "reported, not claimed: the float32 step runs the tensor-core kernels, the "
+                  "bfloat16 step their first CUDA-core bfloat16 instances"})
     torch.cuda.empty_cache()
     s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
     train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,

@@ -1,11 +1,38 @@
 // Shared helpers of the hand-written Hopper kernels (plain C interface,
-// float32, launched on the caller's stream).
+// float32, launched on the caller's stream; the bfloat16 instances of K1-K3
+// read and write bfloat16 activations and compute in float32).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace singa {
+
+using bf16 = __nv_bfloat16;
+
+// Storage types: a value as float, and a float stored as T (bfloat16 by
+// round-to-nearest-even, as torch's and JAX's casts round).
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <class T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// v rounded to T's precision and back to float: where the TPU kernel calls
+// .astype(dt) at a bfloat16 dt; the identity for T = float.
+template <class T>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<T>(v));
+}
+
+template <class T> constexpr bool kBf16 = std::is_same<T, bf16>::value;
+
+// A read-only load through the texture path, as float.
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const bf16* p) { return __bfloat162float(__ldg(p)); }
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 

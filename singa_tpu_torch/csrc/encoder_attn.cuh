@@ -107,19 +107,25 @@ constexpr int kDkdvThreads = 128;
 enum Form { kList = 0, kGathered = 1, kDense = 2 };
 
 // What a launch reads. k and v: node rows [B*N, H*kd] and [B*N, H*vd], or
-// (kGathered) the slots' rows [B*N*K, *].
-struct Args {
-  const float *qt, *k, *v;
+// (kGathered) the slots' rows [B*N*K, *]. T is the storage type of qt, k,
+// v and dval (bfloat16 in K1's bfloat16 instance); the distances, ds, the
+// centers and the EdgeMLP weights are float32 at either.
+template <class T = float>
+struct ArgsT {
+  using value_type = T;
+  const T *qt, *k, *v;
   const int* nbr;              // kList: [B*N, K]
   const unsigned char* nmask;  // kList, kGathered: [B*N, K]
   const float* dist;           // [B*N, R]
-  const float *ds, *dval;      // [B*N, H], [B*N, H*vd]
+  const float* ds;             // [B*N, H]
+  const T* dval;               // [B*N, H*vd]
   const float *centers, *wk1, *bk1, *wk2, *bk2, *wv1, *bv1, *wv2, *bv2;
   float coeff;
   const int *lrow, *lcol;      // kDense: live lists, [B*N + 1] and [E]
   const int* lorder;           // kDense: [B*N] the rows by descending live count
   float* vsum;                 // kDense: [B, H*vd] v summed per graph (launch_fwd sums it)
 };
+using Args = ArgsT<float>;
 
 // R: slots per node (K, or N for kDense).
 struct Dims {
@@ -143,8 +149,8 @@ __host__ __device__ __forceinline__ int tile_of(const Dims& d) {
 }
 
 // A node's slot count, and in `first` the flat index of its first slot.
-template <int F>
-__device__ __forceinline__ int node_slots(const Args& a, const Dims& d, long long node,
+template <int F, class A>
+__device__ __forceinline__ int node_slots(const A& a, const Dims& d, long long node,
                                           long long& first) {
   if (F == kDense) {
     first = a.lrow[node];
@@ -167,8 +173,12 @@ struct Mlp {
   float *wk1, *bk1, *wk2, *bk2, *wv1, *bv1, *wv2, *bv2, *cent;
 };
 
-// Lays out and fills the Mlp at p; returns the first float after it.
-__device__ inline float* load_mlp(const Args& a, const Dims& d, float* p, Mlp& w) {
+// Lays out and fills the Mlp at p; returns the first float after it. The
+// weights are rounded to the activations' type (the TPU kernel's
+// w.astype(dt)); the biases and centers stay float32.
+template <class A>
+__device__ inline float* load_mlp(const A& a, const Dims& d, float* p, Mlp& w) {
+  using T = typename A::value_type;
   const int kd = d.kd, vd = d.vd, De = d.De, tid = threadIdx.x;
   w.wk1 = p;
   w.bk1 = w.wk1 + De * kd;
@@ -179,10 +189,10 @@ __device__ inline float* load_mlp(const Args& a, const Dims& d, float* p, Mlp& w
   w.wv2 = w.bv1 + vd;
   w.bv2 = w.wv2 + vd * vd;
   w.cent = w.bv2 + vd;
-  for (int t = tid; t < De * kd; t += blockDim.x) w.wk1[t] = a.wk1[t];
-  for (int t = tid; t < kd * kd; t += blockDim.x) w.wk2[t] = a.wk2[t];
-  for (int t = tid; t < De * vd; t += blockDim.x) w.wv1[t] = a.wv1[t];
-  for (int t = tid; t < vd * vd; t += blockDim.x) w.wv2[t] = a.wv2[t];
+  for (int t = tid; t < De * kd; t += blockDim.x) w.wk1[t] = rnd<T>(a.wk1[t]);
+  for (int t = tid; t < kd * kd; t += blockDim.x) w.wk2[t] = rnd<T>(a.wk2[t]);
+  for (int t = tid; t < De * vd; t += blockDim.x) w.wv1[t] = rnd<T>(a.wv1[t]);
+  for (int t = tid; t < vd * vd; t += blockDim.x) w.wv2[t] = rnd<T>(a.wv2[t]);
   for (int t = tid; t < kd; t += blockDim.x) { w.bk1[t] = a.bk1[t]; w.bk2[t] = a.bk2[t]; }
   for (int t = tid; t < vd; t += blockDim.x) { w.bv1[t] = a.bv1[t]; w.bv2[t] = a.bv2[t]; }
   for (int t = tid; t < De; t += blockDim.x) w.cent[t] = a.centers[t];
@@ -211,9 +221,10 @@ __device__ __forceinline__ float2 dead_row_weights(float s_self, int N) {
 
 // One tile's slots c0 .. c0 + T - 1 of `node`: distances, live flags and
 // (kList, kDense) row indices into shared memory, then the smear into sA
-// [T, De]. Starts with a barrier: the previous tile's readers are done.
-template <int F>
-__device__ void load_tile(const Args& a, const Dims& d, const Mlp& w, long long node,
+// [T, De] (rounded to the activations' type). Starts with a barrier: the
+// previous tile's readers are done.
+template <int F, class A>
+__device__ void load_tile(const A& a, const Dims& d, const Mlp& w, long long node,
                           long long first, int c0, int T, float* sdist, float* smask, int* sidx,
                           float* sA) {
   const int tid = threadIdx.x, De = d.De;
@@ -236,29 +247,34 @@ __device__ void load_tile(const Args& a, const Dims& d, const Mlp& w, long long 
   __syncthreads();
   for (int t = tid; t < T * De; t += blockDim.x) {
     const float diff = sdist[t / De] - w.cent[t % De];
-    sA[t] = -expf(a.coeff * diff * diff);
+    sA[t] = rnd<typename A::value_type>(-expf(a.coeff * diff * diff));
   }
   __syncthreads();
 }
 
 // Masked scores sS [T, H] of the tile: one thread per (slot, head), reading
 // its kd key channels of the slot's row in 16-byte loads that are all in
-// flight at once (when the layout allows them).
-template <int F>
-__device__ void tile_scores(const Args& a, const Dims& d, long long base, long long first, int c0,
+// flight at once (when the layout allows them). At bfloat16 activations
+// each term q w k is rounded before the head sum, as the TPU kernel's
+// (kw * qt).astype(dt) ahead of its seg_k product.
+template <int F, class A>
+__device__ void tile_scores(const A& a, const Dims& d, long long base, long long first, int c0,
                             int T, const int* sidx, const float* smask, const float* sq,
                             const float* sWk, float* sS) {
+  using V = typename A::value_type;
   const int H = d.H, kd = d.kd, HK = H * kd;
   const float scale = 1.f / sqrtf((float)kd);
-  const bool vec4 = (kd % 4 == 0) &&
+  const bool vec4 = !kBf16<V> && (kd % 4 == 0) &&
                     ((reinterpret_cast<size_t>(sq) | reinterpret_cast<size_t>(sWk)) & 15) == 0;
   for (int job = threadIdx.x; job < T * H; job += blockDim.x) {
     const int p = job / H, h = job % H;
-    const float* krow = a.k + slot_row<F>(base, first, sidx, c0, p) * HK + h * kd;
+    const V* krow = a.k + slot_row<F>(base, first, sidx, c0, p) * HK + h * kd;
     const float* qr = sq + h * kd;
     const float* wr = sWk + p * kd;
     float part = 0.f;
-    if (vec4) {
+    if constexpr (kBf16<V>) {
+      for (int c = 0; c < kd; ++c) part += rnd<V>(qr[c] * wr[c] * to_f(krow[c]));
+    } else if (vec4) {
       for (int c = 0; c < kd; c += 4) {
         const float4 kv = __ldg(reinterpret_cast<const float4*>(krow + c));
         const float4 qv = *reinterpret_cast<const float4*>(qr + c);
@@ -318,9 +334,17 @@ __host__ __device__ inline int fwd_smem_floats(const Dims& d) {
          (F == kDense ? d.vd : 0) + 3 * T;
 }
 
-template <int F>
+// VT: the storage type of qt, k, v, dval and out. The bfloat16 instance (K1's,
+// kList only: its whole list is one tile, so the run's max and sum are final
+// after it) is the function _attn_fwd_kernel computes at bfloat16 inputs:
+// the smear, the EdgeMLP weights, their hiddens ssp(pre) and outputs w_k,
+// w_v rounded to bfloat16; each score term rounded before the head sum; the
+// softmax in float32, its weights a and a_self rounded before they weigh
+// the values; the aggregate summed in float32 and rounded once.
+template <int F, class VT = float>
 __global__ void __launch_bounds__(kThreads, F == kDense ? 2 : 1)
-attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
+attn_fwd_kernel(ArgsT<VT> a, Dims d, VT* __restrict__ out) {
+  static_assert(!kBf16<VT> || F == kList, "the bfloat16 instance is K1's");
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
   const int TM = tile_of<F, false>(d);
   extern __shared__ __align__(16) float smem[];
@@ -355,13 +379,13 @@ attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
     if (F == kDense && R == 0) {  // no live column: the closed form
       for (int c = tid; c < HV; c += blockDim.x) {
         const float2 aw = dead_row_weights(a.ds[node * H + c / vd], d.N);
-        out[node * HV + c] =
-            aw.x * sW0[c % vd] * a.vsum[gb * HV + c] + aw.y * a.dval[node * HV + c];
+        out[node * HV + c] = from_f<VT>(aw.x * sW0[c % vd] * a.vsum[gb * HV + c] +
+                                       aw.y * to_f(a.dval[node * HV + c]));
       }
       continue;
     }
-    for (int t = tid; t < HK; t += blockDim.x) sq[t] = a.qt[node * HK + t];
-    for (int t = tid; t < HV; t += blockDim.x) sAcc[t] = a.dval[node * HV + t];
+    for (int t = tid; t < HK; t += blockDim.x) sq[t] = to_f(a.qt[node * HK + t]);
+    for (int t = tid; t < HV; t += blockDim.x) sAcc[t] = to_f(a.dval[node * HV + t]);
     for (int t = tid; t < H; t += blockDim.x) {
       sM[t] = a.ds[node * H + t];
       sL[t] = 1.f;
@@ -372,9 +396,19 @@ attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
       block_gemm(sA, T, De, w.wk1, w.bk1, kd, sHk, kEpiSsp);
       block_gemm(sA, T, De, w.wv1, w.bv1, vd, sHv, kEpiSsp);
       __syncthreads();
+      if constexpr (kBf16<VT>) {  // the hiddens ssp(pre), rounded
+        for (int t = tid; t < T * kd; t += blockDim.x) sHk[t] = rnd<VT>(sHk[t]);
+        for (int t = tid; t < T * vd; t += blockDim.x) sHv[t] = rnd<VT>(sHv[t]);
+        __syncthreads();
+      }
       block_gemm(sHk, T, kd, w.wk2, w.bk2, kd, sWk, kEpiNone);
       block_gemm(sHv, T, vd, w.wv2, w.bv2, vd, sA, kEpiNone);  // the smear is dead now
       __syncthreads();
+      if constexpr (kBf16<VT>) {  // w_k and w_v, rounded
+        for (int t = tid; t < T * kd; t += blockDim.x) sWk[t] = rnd<VT>(sWk[t]);
+        for (int t = tid; t < T * vd; t += blockDim.x) sA[t] = rnd<VT>(sA[t]);
+        __syncthreads();
+      }
       tile_scores<F>(a, d, base, first, c0, T, sidx, smask, sq, sWk, sS);
       __syncthreads();
       online_softmax(sS, nullptr, T, H, sM, sL, nullptr, sAl);
@@ -387,21 +421,28 @@ attn_fwd_kernel(Args a, Dims d, float* __restrict__ out) {
         const int h = c / vd, dc = c % vd;
         float acc = 0.f;
 #pragma unroll 4
-        for (int p = sl; p < T; p += S)
-          acc = fmaf(sS[p * H + h] * sA[p * vd + dc],
-                     __ldg(a.v + slot_row<F>(base, first, sidx, c0, p) * HV + c), acc);
+        for (int p = sl; p < T; p += S) {
+          // bfloat16: the normalised weight, rounded (one tile: l is final)
+          const float aw = kBf16<VT> ? rnd<VT>(sS[p * H + h] / sL[h]) : sS[p * H + h];
+          acc = fmaf(aw * sA[p * vd + dc],
+                     ldg_f(a.v + slot_row<F>(base, first, sidx, c0, p) * HV + c), acc);
+        }
         sHv[sl * HV + c] = acc;
       }
       __syncthreads();
       for (int c = tid; c < HV; c += blockDim.x) {
         float acc = 0.f;
         for (int sl = 0; sl < S; ++sl) acc += sHv[sl * HV + c];
-        sAcc[c] = fmaf(sAcc[c], sAl[c / vd], acc);
+        // bfloat16: sAcc holds diag_value (one tile), weighed by a_self
+        // = exp(s_self - m) / l = al / l, rounded
+        sAcc[c] = kBf16<VT> ? fmaf(rnd<VT>(sAl[c / vd] / sL[c / vd]), sAcc[c], acc)
+                           : fmaf(sAcc[c], sAl[c / vd], acc);
       }
     }
     // each sAcc[c] was last written by this thread, each sL[h] before the
     // last tile's barriers
-    for (int c = tid; c < HV; c += blockDim.x) out[node * HV + c] = sAcc[c] / sL[c / vd];
+    for (int c = tid; c < HV; c += blockDim.x)
+      out[node * HV + c] = from_f<VT>(kBf16<VT> ? sAcc[c] : sAcc[c] / sL[c / vd]);
   }
 }
 
@@ -434,29 +475,36 @@ inline cudaError_t launch_colsum(const float* x, const float* wt, float* out, in
 // The forward of every form: cudaErrorInvalidValue for a shape it does not
 // take (one tile's pair tensors over shared memory among them). kDense first
 // sums v per graph into vsum [B, H*vd] (a.vsum).
-template <int F>
-int launch_fwd(const Args& a, const Dims& d, float* out, void* stream) {
+template <int F, class T = float>
+int launch_fwd(const ArgsT<T>& a, const Dims& d, T* out, void* stream) {
   if (!d.ok()) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)fwd_smem_floats<F>(d) * sizeof(float);
-  cudaError_t err = allow_smem(attn_fwd_kernel<F>, smem);
+  cudaError_t err = allow_smem(attn_fwd_kernel<F, T>, smem);
   if (err != cudaSuccess) return (int)err;
-  if (F == kDense) {
+  if constexpr (F == kDense) {
     err = launch_colsum(a.v, nullptr, a.vsum, d.B, d.N, d.H * d.vd, d.vd, st);
     if (err != cudaSuccess) return (int)err;
   }
-  const int grid = persistent_grid(attn_fwd_kernel<F>, kThreads, smem, (long long)d.B * d.N);
-  attn_fwd_kernel<F><<<grid, kThreads, smem, st>>>(a, d, out);
+  const int grid = persistent_grid(attn_fwd_kernel<F, T>, kThreads, smem, (long long)d.B * d.N);
+  attn_fwd_kernel<F, T><<<grid, kThreads, smem, st>>>(a, d, out);
   return (int)cudaGetLastError();
 }
 
 // What the backward writes. Scratch per slot (its flat index): s_wk [*, kd],
 // s_wv [*, vd], s_a and s_dsc [*, H]; partial [blocks, P]. kDense also:
 // s_ad [B*N, H], the closed-form rows' a_dead (0 on the others).
-struct Grads {
-  const float* g;  // the cotangent [B*N, H*vd]
-  float *dqt, *dds, *ddv, *s_wk, *s_wv, *s_a, *s_dsc, *partial, *s_ad;
+// T: the storage type of g, dqt and ddv (bfloat16 in K1b's bfloat16
+// instance); dds and the scratch are float32 at either.
+template <class T = float>
+struct GradsT {
+  const T* g;  // the cotangent [B*N, H*vd]
+  T* dqt;
+  float* dds;
+  T* ddv;
+  float *s_wk, *s_wv, *s_a, *s_dsc, *partial, *s_ad;
 };
+using Grads = GradsT<float>;
 
 // Shared-memory buffers of the backward pair kernel.
 struct BwdSmem {

@@ -98,6 +98,11 @@
 // one node's K slots a tile, the EdgeMLPs in float32 on the CUDA cores),
 // kept as K1/K7's CUDA-core instance; cuda_cores asks for it at any shape.
 // The instance is chosen by shape before the launch.
+// bfloat16 (neighbor_attn_bf16): K1's bfloat16 instance is the CUDA-core
+// kernel attn_fwd_kernel<kList, bf16> of csrc/encoder_attn.cuh, every slot of
+// a row in one tile, float32 arithmetic on bfloat16 rows (the roundings are
+// listed there). It evaluates all K slots of every row; their EdgeMLPs, on
+// the CUDA cores in float32, bound it.
 #include <stdint.h>
 
 #include "list_attn.cuh"
@@ -788,4 +793,22 @@ extern "C" int neighbor_attn_hybrid_f32(const float* qt, const float* k_nb, cons
                    wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
   return launch<ea::kGathered>(a, ea::Dims{B, N, K, H, kd, vd, De}, out, sums, plan,
                                cuda_cores, stats, stream);
+}
+
+// K1's bfloat16 instance: attn_fwd_kernel<kList, bf16> (csrc/encoder_attn.cuh)
+// with qt, k, v, diag_value and out bfloat16 and the rest as K1's float32
+// entry point takes them. cudaErrorInvalidValue for shapes it does not take
+// (a node's K slots over shared memory).
+extern "C" int neighbor_attn_bf16(const void* qt, const void* k, const void* v, const int* nbr,
+                                  const unsigned char* nmask, const float* dist, const float* ds,
+                                  const void* dval, const float* centers, const float* wk1,
+                                  const float* bk1, const float* wk2, const float* bk2,
+                                  const float* wv1, const float* bv1, const float* wv2,
+                                  const float* bv2, float coeff, void* out, int B, int N, int K,
+                                  int H, int kd, int vd, int De, void* stream) {
+  using singa::bf16;
+  const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k, (const bf16*)v, nbr, nmask, dist, ds,
+                          (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                          coeff};
+  return ea::launch_fwd<ea::kList, bf16>(a, ea::Dims{B, N, K, H, kd, vd, De}, (bf16*)out, stream);
 }

@@ -72,6 +72,10 @@
 // Shared with K1/K7's forward (neighbor_attn.cu), in csrc/list_attn.cuh:
 // the widths, tiles and pair-buffer strides, the smear and its A fragments,
 // the shifted softplus and block_range.
+// bfloat16 (neighbor_attn_bwd_bf16): K1b's bfloat16 instance is the CUDA-core
+// instance (list_plan_kernel, list_bwd_cc_kernel, list_dkdv_cc_kernel at T =
+// bf16; the roundings at list_bwd_cc_kernel), its ~23 GFLOP a microbatch on
+// the CUDA cores in float32 (~0.34 ms at 67 TFLOP/s).
 #include <stdint.h>
 
 #include "list_attn.cuh"
@@ -274,15 +278,16 @@ __device__ void bwd_dh(const Sm& s, int m0) {
 
 // One warp: the plan of each row in [0, rows), mode | taken << 2: zero (g
 // is zero everywhere), else live with its live slots.
+template <class T>
 __global__ void __launch_bounds__(kPlanThreads)
-list_plan_kernel(const float* __restrict__ g, const unsigned char* __restrict__ nmask,
+list_plan_kernel(const T* __restrict__ g, const unsigned char* __restrict__ nmask,
                  int* __restrict__ plan, long long rows, int K, int HV) {
   const int lane = threadIdx.x & 31;
   const long long warps = (long long)gridDim.x * (kPlanThreads / 32);
   for (long long r = blockIdx.x * (long long)(kPlanThreads / 32) + (threadIdx.x >> 5); r < rows;
        r += warps) {
     bool nz = false;
-    for (int c = lane; c < HV; c += 32) nz |= g[r * HV + c] != 0.f;
+    for (int c = lane; c < HV; c += 32) nz |= singa::to_f(g[r * HV + c]) != 0.f;
     int live = 0;
     for (int p = lane; p < K; p += 32) live += nmask[r * K + p] != 0;
     nz = __any_sync(0xffffffffu, nz);
@@ -869,6 +874,18 @@ list_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ g,
 // One node at a time per block, its taken slots one tile: the EdgeMLPs and dh
 // through block_gemm, the weight-gradient sums owned one per thread
 // (ea::kAccPerThread a thread) across the block's nodes, all float32.
+//
+// VT: the storage type of qt, k, v, diag_value, g, dqt, dk, dv and d
+// diag_value. The bfloat16 instance (K1b's, kList) is the function
+// _attn_bwd_kernel computes at bfloat16 inputs: the forward recomputed as
+// K1's bfloat16 instance rounds it; each g w_v v and g diag_value term
+// rounded before its head sum (da); the softmax and dot in float32; the
+// weights a rounded where they weigh (ddv, dw_v, dv), dsc rounded before it
+// spreads; each dsc q k and a g v term rounded before the head sum of dw_k
+// and dw_v, and those sums again; dh rounded; each slot's dk/dv term
+// rounded before the sum over the slots that name a row (the dk/dv stage);
+// every sum in float32, the outputs rounded once, d diag_scores and the
+// weight gradients float32.
 struct CcSmem {
   ea::Mlp w;
   float *wk2t, *wv2t, *one;
@@ -885,10 +902,12 @@ long long cc_smem_floats(const ea::Dims& d) {
          H * (kd + vd) + 6 * H + 4 * K + 2;
 }
 
-template <int F>
+template <int F, class VT = float>
 __global__ void __launch_bounds__(kThreads)
-list_bwd_cc_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ plan,
+list_bwd_cc_kernel(ea::ArgsT<VT> a, ea::Dims d, ea::GradsT<VT> o, const int* __restrict__ plan,
                    int* __restrict__ stats) {
+  using singa::rnd;
+  using singa::to_f;
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, K = d.R, HK = H * kd, HV = H * vd;
   extern __shared__ __align__(16) float smem[];
   CcSmem sm;
@@ -907,8 +926,8 @@ list_bwd_cc_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ 
   sm.pos = sm.idx + K;     sm.ctl = sm.pos + K;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int t = tid; t < kd * kd; t += kThreads) sm.wk2t[(t % kd) * kd + t / kd] = a.wk2[t];
-  for (int t = tid; t < vd * vd; t += kThreads) sm.wv2t[(t % vd) * vd + t / vd] = a.wv2[t];
+  for (int t = tid; t < kd * kd; t += kThreads) sm.wk2t[(t % kd) * kd + t / kd] = rnd<VT>(a.wk2[t]);
+  for (int t = tid; t < vd * vd; t += kThreads) sm.wv2t[(t % vd) * vd + t / vd] = rnd<VT>(a.wv2[t]);
   if (tid == 0) sm.one[0] = 1.f;
 
   const int P = d.grad_floats();
@@ -923,21 +942,21 @@ list_bwd_cc_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ 
     const long long first = node * K, base = node / d.N * d.N;
     __syncthreads();  // the previous node's readers are done
     if ((plan[node] & 3) == kZero) {  // a zero cotangent: zero outputs, its slots send nothing
-      for (int c = tid; c < HK; c += kThreads) o.dqt[node * HK + c] = 0.f;
-      for (int c = tid; c < HV; c += kThreads) o.ddv[node * HV + c] = 0.f;
+      for (int c = tid; c < HK; c += kThreads) o.dqt[node * HK + c] = singa::from_f<VT>(0.f);
+      for (int c = tid; c < HV; c += kThreads) o.ddv[node * HV + c] = singa::from_f<VT>(0.f);
       for (int h = tid; h < H; h += kThreads) o.dds[node * H + h] = 0.f;
       for (int t = tid; t < K * H; t += kThreads) o.s_a[first * H + t] = o.s_dsc[first * H + t] = 0.f;
       if (tid == 0) ++walked[kStatZero];
       continue;
     }
-    for (int t = tid; t < HK; t += kThreads) sm.q[t] = a.qt[node * HK + t];
-    for (int t = tid; t < HV; t += kThreads) sm.g[t] = o.g[node * HV + t];
+    for (int t = tid; t < HK; t += kThreads) sm.q[t] = to_f(a.qt[node * HK + t]);
+    for (int t = tid; t < HV; t += kThreads) sm.g[t] = to_f(o.g[node * HV + t]);
     for (int h = tid; h < H; h += kThreads) sm.sd[h] = a.ds[node * H + h];
     __syncthreads();
     for (int h = warp; h < H; h += kWarps) {  // da_self
       float part = 0.f;
       for (int c = lane; c < vd; c += 32)
-        part = fmaf(sm.g[h * vd + c], a.dval[node * HV + h * vd + c], part);
+        part += rnd<VT>(sm.g[h * vd + c] * to_f(a.dval[node * HV + h * vd + c]));
       part = singa::warp_sum(part);
       if (lane == 0) sm.dd[h] = part;
     }
@@ -968,25 +987,36 @@ list_bwd_cc_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ 
       __syncthreads();
       for (int t = tid; t < T * De; t += kThreads) {
         const float diff = sm.dist[t / De] - sm.w.cent[t % De];
-        sm.A[t] = -expf(a.coeff * diff * diff);
+        sm.A[t] = rnd<VT>(-expf(a.coeff * diff * diff));
       }
       __syncthreads();
       singa::block_gemm(sm.A, T, De, sm.w.wk1, sm.w.bk1, kd, sm.Pk, singa::kEpiNone);
       singa::block_gemm(sm.A, T, De, sm.w.wv1, sm.w.bv1, vd, sm.Pv, singa::kEpiNone);
       __syncthreads();
-      for (int t = tid; t < T * kd; t += kThreads) sm.Hk[t] = singa::sspf_(sm.Pk[t]);
-      for (int t = tid; t < T * vd; t += kThreads) sm.Hv[t] = singa::sspf_(sm.Pv[t]);
+      for (int t = tid; t < T * kd; t += kThreads) sm.Hk[t] = rnd<VT>(singa::sspf_(sm.Pk[t]));
+      for (int t = tid; t < T * vd; t += kThreads) sm.Hv[t] = rnd<VT>(singa::sspf_(sm.Pv[t]));
       __syncthreads();
       singa::block_gemm(sm.Hk, T, kd, sm.w.wk2, sm.w.bk2, kd, sm.Wk, singa::kEpiNone);
       singa::block_gemm(sm.Hv, T, vd, sm.w.wv2, sm.w.bv2, vd, sm.Wv, singa::kEpiNone);
       __syncthreads();
+      if constexpr (singa::kBf16<VT>) {  // w_k and w_v, rounded
+        for (int t = tid; t < T * kd; t += kThreads) sm.Wk[t] = rnd<VT>(sm.Wk[t]);
+        for (int t = tid; t < T * vd; t += kThreads) sm.Wv[t] = rnd<VT>(sm.Wv[t]);
+        __syncthreads();
+      }
       // the scores (idx holds each slot's row of k), and da per (slot, head)
       ea::tile_scores<ea::kList>(a, d, 0, 0, 0, T, sm.idx, sm.mask, sm.q, sm.Wk, sm.S);
       for (int job = tid; job < T * H; job += kThreads) {
         const int p = job / H, h = job % H;
-        const float* vrow = a.v + (long long)sm.idx[p] * HV + h * vd;
+        const VT* vrow = a.v + (long long)sm.idx[p] * HV + h * vd;
         float part = 0.f;
-        for (int c = 0; c < vd; ++c) part = fmaf(sm.g[h * vd + c] * sm.Wv[p * vd + c], __ldg(vrow + c), part);
+        if constexpr (singa::kBf16<VT>) {
+          for (int c = 0; c < vd; ++c)
+            part += rnd<VT>(sm.g[h * vd + c] * sm.Wv[p * vd + c] * singa::ldg_f(vrow + c));
+        } else {
+          for (int c = 0; c < vd; ++c)
+            part = fmaf(sm.g[h * vd + c] * sm.Wv[p * vd + c], singa::ldg_f(vrow + c), part);
+        }
         sm.D[job] = part;
       }
       for (int h = tid; h < H; h += kThreads) {  // the run starts at the self slot
@@ -1019,13 +1049,16 @@ list_bwd_cc_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ 
       o.dds[node * H + h] = ad * (sm.dd[h] - dot);
     }
     __syncthreads();
-    for (int c = tid; c < HV; c += kThreads) o.ddv[node * HV + c] = sm.ad[c / vd] * sm.g[c];
-    // softmax weights and dsc, one thread per (slot, head)
+    for (int c = tid; c < HV; c += kThreads)
+      o.ddv[node * HV + c] = singa::from_f<VT>(rnd<VT>(sm.ad[c / vd]) * sm.g[c]);
+    // softmax weights and dsc, one thread per (slot, head); at bfloat16 both
+    // rounded (dsc from the unrounded weight)
     for (int job = tid; job < T * H; job += kThreads) {
       const int p = job / H, h = job % H;
       const float aw = expf(sm.S[job] - sm.m[h]) / sm.l[h];
-      sm.S[job] = aw;
-      sm.D[job] = sm.mask[p] != 0.f ? aw * (sm.D[job] - sm.dot[h]) * scale : 0.f;
+      const float dsc = sm.mask[p] != 0.f ? aw * (sm.D[job] - sm.dot[h]) * scale : 0.f;
+      sm.S[job] = rnd<VT>(aw);
+      sm.D[job] = rnd<VT>(dsc);
     }
     __syncthreads();
     // what the dk/dv stage reads per taken slot (a dead slot not taken: a =
@@ -1046,30 +1079,45 @@ list_bwd_cc_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ 
       const int h = c / kd, dc = c % kd;
       float part = 0.f;
       for (int p = 0; p < T; ++p)
-        part = fmaf(sm.D[p * H + h] * sm.Wk[p * kd + dc], __ldg(a.k + (long long)sm.idx[p] * HK + c), part);
-      o.dqt[node * HK + c] = part;
+        part = fmaf(sm.D[p * H + h] * sm.Wk[p * kd + dc], singa::ldg_f(a.k + (long long)sm.idx[p] * HK + c), part);
+      o.dqt[node * HK + c] = singa::from_f<VT>(part);
     }
     __syncthreads();
     // dw_k into Wk and dw_v into Wv, one thread per (slot, channel)
     for (int t = tid; t < T * kd; t += kThreads) {
       const int p = t / kd, dc = t % kd;
-      const float* krow = a.k + (long long)sm.idx[p] * HK + dc;
+      const VT* krow = a.k + (long long)sm.idx[p] * HK + dc;
       float part = 0.f;
-      for (int h = 0; h < H; ++h) part = fmaf(sm.D[p * H + h] * sm.q[h * kd + dc], __ldg(krow + h * kd), part);
-      sm.Wk[t] = part;
+      if constexpr (singa::kBf16<VT>) {
+        for (int h = 0; h < H; ++h)
+          part += rnd<VT>(sm.D[p * H + h] * sm.q[h * kd + dc] * singa::ldg_f(krow + h * kd));
+      } else {
+        for (int h = 0; h < H; ++h) part = fmaf(sm.D[p * H + h] * sm.q[h * kd + dc], singa::ldg_f(krow + h * kd), part);
+      }
+      sm.Wk[t] = rnd<VT>(part);
     }
     for (int t = tid; t < T * vd; t += kThreads) {
       const int p = t / vd, dc = t % vd;
-      const float* vrow = a.v + (long long)sm.idx[p] * HV + dc;
+      const VT* vrow = a.v + (long long)sm.idx[p] * HV + dc;
       float part = 0.f;
-      for (int h = 0; h < H; ++h) part = fmaf(sm.S[p * H + h] * sm.g[h * vd + dc], __ldg(vrow + h * vd), part);
-      sm.Wv[t] = part;
+      if constexpr (singa::kBf16<VT>) {
+        for (int h = 0; h < H; ++h)
+          part += rnd<VT>(sm.S[p * H + h] * sm.g[h * vd + dc] * singa::ldg_f(vrow + h * vd));
+      } else {
+        for (int h = 0; h < H; ++h) part = fmaf(sm.S[p * H + h] * sm.g[h * vd + dc], singa::ldg_f(vrow + h * vd), part);
+      }
+      sm.Wv[t] = rnd<VT>(part);
     }
     __syncthreads();
     // dh = (dw W2^T) * sigmoid(pre), in place of the pre-activations
     singa::block_gemm(sm.Wk, T, kd, sm.wk2t, nullptr, kd, sm.Pk, singa::kEpiTimesSigmoid);
     singa::block_gemm(sm.Wv, T, vd, sm.wv2t, nullptr, vd, sm.Pv, singa::kEpiTimesSigmoid);
     __syncthreads();
+    if constexpr (singa::kBf16<VT>) {  // dh, rounded
+      for (int t = tid; t < T * kd; t += kThreads) sm.Pk[t] = rnd<VT>(sm.Pk[t]);
+      for (int t = tid; t < T * vd; t += kThreads) sm.Pv[t] = rnd<VT>(sm.Pv[t]);
+      __syncthreads();
+    }
     // weight-gradient sums over the node's taken slots; sum t belongs to
     // thread t % kThreads, register t / kThreads
 #pragma unroll
@@ -1117,12 +1165,15 @@ list_bwd_cc_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ 
 // The CUDA-core instance's dk/dv stage: as list_dkdv_kernel, at any widths,
 // one thread per channel; a (slot, head) whose weight is zero (every slot
 // not taken) is passed over before its w_k or w_v is read.
+// At bfloat16 (T) each slot's term is rounded before the sum, as the TPU
+// kernel rounds dk_nb and dv_nb before its one-hot transpose.
+template <class T = float>
 __global__ void __launch_bounds__(kDkdvThreads)
-list_dkdv_cc_kernel(const float* __restrict__ qt, const float* __restrict__ g,
+list_dkdv_cc_kernel(const T* __restrict__ qt, const T* __restrict__ g,
                     const float* __restrict__ s_wk, const float* __restrict__ s_wv,
                     const float* __restrict__ s_a, const float* __restrict__ s_dsc,
                     const int* __restrict__ offsets, const int* __restrict__ slots,
-                    float* __restrict__ dk, float* __restrict__ dv, ea::Dims dm) {
+                    T* __restrict__ dk, T* __restrict__ dv, ea::Dims dm) {
   const int H = dm.H, kd = dm.kd, vd = dm.vd, K = dm.R, HK = H * kd, HV = H * vd;
   const long long rows = (long long)dm.B * dm.N;
   for (long long j = blockIdx.x; j < rows; j += gridDim.x) {
@@ -1132,16 +1183,21 @@ list_dkdv_cc_kernel(const float* __restrict__ qt, const float* __restrict__ g,
       const int cc = onk ? c : c - HK, w = onk ? kd : vd, h = cc / w, dc = cc - h * w;
       const float* wt = onk ? s_dsc : s_a;
       const float* rows_w = onk ? s_wk : s_wv;
-      const float* src = onk ? qt : g;
+      const T* src = onk ? qt : g;
       const int width = onk ? HK : HV;
       float acc = 0.f;
       for (int e = e0; e < e1; ++e) {
         const long long sl = slots[e];
         const float x = wt[sl * H + h];
-        if (x != 0.f) acc = fmaf(x * rows_w[sl * w + dc], __ldg(src + (sl / K) * width + cc), acc);
+        if (x != 0.f) {
+          if constexpr (singa::kBf16<T>)
+            acc += singa::rnd<T>(x * rows_w[sl * w + dc] * singa::ldg_f(src + (sl / K) * width + cc));
+          else
+            acc = fmaf(x * rows_w[sl * w + dc], singa::ldg_f(src + (sl / K) * width + cc), acc);
+        }
       }
-      if (onk) dk[j * HK + cc] = acc;
-      else dv[j * HV + cc] = acc;
+      if (onk) dk[j * HK + cc] = singa::from_f<T>(acc);
+      else dv[j * HV + cc] = singa::from_f<T>(acc);
     }
   }
 }
@@ -1173,8 +1229,8 @@ int blocks_of(const ea::Dims& d, int cuda_cores) {
     return singa::persistent_grid(list_bwd_pair_kernel<F>, kThreads, smem, rows);
   }
   if (inst == 1) {
-    if (singa::allow_smem(list_bwd_cc_kernel<F>, smem) != cudaSuccess) return -1;
-    return singa::persistent_grid(list_bwd_cc_kernel<F>, kThreads, smem, rows);
+    if (singa::allow_smem(list_bwd_cc_kernel<F, float>, smem) != cudaSuccess) return -1;
+    return singa::persistent_grid(list_bwd_cc_kernel<F, float>, kThreads, smem, rows);
   }
   return -1;
 }
@@ -1191,19 +1247,19 @@ int launch(const ea::Args& a, const ea::Dims& dm, const float* g, const int* off
   if (inst < 0 || blocks < 1 || (inst == 0 && (rows16 & 15) != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = inst == 0 ? singa::allow_smem(list_bwd_pair_kernel<F>, smem)
-                              : singa::allow_smem(list_bwd_cc_kernel<F>, smem);
+                              : singa::allow_smem(list_bwd_cc_kernel<F, float>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)dm.B * dm.N;
-  const int plan_grid = singa::persistent_grid(list_plan_kernel, kPlanThreads, 0,
+  const int plan_grid = singa::persistent_grid(list_plan_kernel<float>, kPlanThreads, 0,
                                                (rows + kPlanThreads / 32 - 1) / (kPlanThreads / 32));
-  list_plan_kernel<<<plan_grid, kPlanThreads, 0, st>>>(g, a.nmask, plan, rows, dm.R, dm.H * dm.vd);
+  list_plan_kernel<float><<<plan_grid, kPlanThreads, 0, st>>>(g, a.nmask, plan, rows, dm.R, dm.H * dm.vd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const ea::Grads o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, nullptr};
   if (inst == 0) {
     list_bwd_pair_kernel<F><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, stats);
   } else {
-    list_bwd_cc_kernel<F><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, stats);
+    list_bwd_cc_kernel<F, float><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, stats);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1212,10 +1268,45 @@ int launch(const ea::Args& a, const ea::Dims& dm, const float* g, const int* off
     list_dkdv_kernel<F><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc, offsets,
                                                        slots, dk, dv, dm);
   } else {
-    const int grid = singa::persistent_grid(list_dkdv_cc_kernel, kDkdvThreads, 0, rows);
-    list_dkdv_cc_kernel<<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc, offsets,
-                                                       slots, dk, dv, dm);
+    const int grid = singa::persistent_grid(list_dkdv_cc_kernel<float>, kDkdvThreads, 0, rows);
+    list_dkdv_cc_kernel<float><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc,
+                                                              offsets, slots, dk, dv, dm);
   }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int P = dm.grad_floats();
+  singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks);
+  return (int)cudaGetLastError();
+}
+
+// K1b's bfloat16 instance: the plan, the CUDA-core pair kernel and dk/dv
+// stage at T = bf16, and the sum of the blocks' weight-gradient rows.
+int launch_bf16(const ea::ArgsT<singa::bf16>& a, const ea::Dims& dm, const singa::bf16* g,
+                const int* offsets, const int* slots, singa::bf16* dqt, singa::bf16* dk,
+                singa::bf16* dv, float* dds, singa::bf16* ddv, float* s_wk, float* s_wv,
+                float* s_a, float* s_dsc, int* plan, float* partial, float* grads, int blocks,
+                void* stream) {
+  using singa::bf16;
+  if (!dm.ok() || !cc_ok(dm) || blocks < 1 || (long long)dm.B * dm.N * dm.R >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)cc_smem_floats(dm) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = singa::allow_smem(list_bwd_cc_kernel<ea::kList, bf16>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)dm.B * dm.N;
+  const int plan_grid = singa::persistent_grid(list_plan_kernel<bf16>, kPlanThreads, 0,
+                                               (rows + kPlanThreads / 32 - 1) / (kPlanThreads / 32));
+  list_plan_kernel<bf16><<<plan_grid, kPlanThreads, 0, st>>>(g, a.nmask, plan, rows, dm.R,
+                                                             dm.H * dm.vd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const ea::GradsT<bf16> o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, nullptr};
+  list_bwd_cc_kernel<ea::kList, bf16><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int grid = singa::persistent_grid(list_dkdv_cc_kernel<bf16>, kDkdvThreads, 0, rows);
+  list_dkdv_cc_kernel<bf16><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc,
+                                                           offsets, slots, dk, dv, dm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int P = dm.grad_floats();
@@ -1297,4 +1388,34 @@ extern "C" int neighbor_attn_hybrid_bwd_f32(
   return launch<ea::kGathered>(a, ea::Dims{B, N, K, H, kd, vd, De}, g, offsets, slots, dqt, dk,
                                dv, dds, ddv, s_wk, s_wv, s_a, s_dsc, plan, partial, grads, blocks,
                                cuda_cores, stats, stream);
+}
+
+// Blocks of K1b's bfloat16 pair kernel at these shapes (the caller sizes the
+// [blocks, P] scratch from it); -1 for shapes it does not take.
+extern "C" int neighbor_attn_bwd_bf16_blocks(int B, int N, int K, int H, int kd, int vd, int De) {
+  const ea::Dims d{B, N, K, H, kd, vd, De};
+  if (!d.ok() || !cc_ok(d)) return -1;
+  const size_t smem = (size_t)cc_smem_floats(d) * sizeof(float);
+  const auto kernel = list_bwd_cc_kernel<ea::kList, singa::bf16>;
+  if (singa::allow_smem(kernel, smem) != cudaSuccess) return -1;
+  return singa::persistent_grid(kernel, kThreads, smem, (long long)B * N);
+}
+
+// K1b's bfloat16 instance: qt, k, v, diag_value, g, dqt, dk, dv and ddv
+// bfloat16; the rest, the scratch and grads as neighbor_attn_bwd_f32's.
+extern "C" int neighbor_attn_bwd_bf16(
+    const void* qt, const void* k, const void* v, const int* nbr, const unsigned char* nmask,
+    const float* dist, const float* ds, const void* dval, const float* centers,
+    const float* wk1, const float* bk1, const float* wk2, const float* bk2, const float* wv1,
+    const float* bv1, const float* wv2, const float* bv2, float coeff, const void* g,
+    const int* offsets, const int* slots, void* dqt, void* dk, void* dv, float* dds,
+    void* ddv, float* s_wk, float* s_wv, float* s_a, float* s_dsc, int* plan, float* partial,
+    float* grads, int B, int N, int K, int H, int kd, int vd, int De, int blocks, void* stream) {
+  using singa::bf16;
+  const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k, (const bf16*)v, nbr, nmask, dist, ds,
+                          (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                          coeff};
+  return launch_bf16(a, ea::Dims{B, N, K, H, kd, vd, De}, (const bf16*)g, offsets, slots,
+                     (bf16*)dqt, (bf16*)dk, (bf16*)dv, dds, (bf16*)ddv, s_wk, s_wv, s_a, s_dsc,
+                     plan, partial, grads, blocks, stream);
 }

@@ -69,6 +69,12 @@
 // one edge, and each 16-byte copy in one row): lmax 6, 4 and 2 at mmax 2
 // (I 29, 19, 9). Every other shape the CUDA-core kernels took (C = 100,
 // say) runs them, chosen by shape before the launch (sep_instance).
+// bfloat16 (s2_silu_sep_bf16, s2_silu_sep_bwd_bf16): K3's and K3b's
+// CUDA-core instances at bfloat16 storage (cc::s2_silu_sep_kernel<bf16>,
+// cc::s2_silu_sep_bwd_kernel<bf16>; the roundings at the kernels). At the
+// stage-1 call they move half the float32 bytes (0.48 and 0.73 GB) and do
+// the same 32.4 and 49.5 GFLOP on the CUDA cores in float32 (0.48 and 0.74
+// ms at 67 TFLOP/s): the arithmetic bounds them there.
 #include "s2_grid.cuh"
 #include "s2_grid_tc.cuh"
 
@@ -433,19 +439,27 @@ namespace cc {
 // time; tg and fg sit in shared memory with their rows zero-padded to kMaxI
 // floats (K3b: fg's column 0 zeroed too), so every read is a 16-byte
 // broadcast. A grid-stride loop over (edge, 128-channel block).
+//
+// T is the storage type of x, s, tg, fg and the outputs. The bfloat16
+// instance (T = bf16) is the function _sep_fwd_kernel / _sep_bwd_kernel
+// compute at a bfloat16 x: values read as bfloat16 and summed in float32,
+// rounded to bfloat16 where the TPU kernel calls .astype(dt): silu(grid)
+// before the from-grid product (K3), h = silu'(v) u before dx's (K3b), and
+// the outputs; the row-0 gate silu(s) and ds in float32 until stored.
 constexpr int kThreads = 128;
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-s2_silu_sep_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                   const float* __restrict__ tg, const float* __restrict__ fg,
-                   float* __restrict__ out, int E, int I, int C, int G) {
+s2_silu_sep_kernel(const T* __restrict__ x, const T* __restrict__ s,
+                   const T* __restrict__ tg, const T* __restrict__ fg,
+                   T* __restrict__ out, int E, int I, int C, int G) {
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;              // [G, kMaxI], rows zero-padded past I
   float* sfg = smem + G * kMaxI;  // [G, kMaxI]
   for (int t = threadIdx.x; t < G * kMaxI; t += blockDim.x) {
     const int g = t / kMaxI, j = t % kMaxI;
-    stg[t] = j < I ? tg[g * I + j] : 0.f;
-    sfg[t] = j < I ? fg[g * I + j] : 0.f;
+    stg[t] = j < I ? singa::to_f(tg[g * I + j]) : 0.f;
+    sfg[t] = j < I ? singa::to_f(fg[g * I + j]) : 0.f;
   }
   __syncthreads();
 
@@ -455,11 +469,11 @@ s2_silu_sep_kernel(const float* __restrict__ x, const float* __restrict__ s,
     const long long e = job / cblocks;
     const int c = (int)(job % cblocks) * kThreads + threadIdx.x;
     if (c >= C) continue;
-    const float* xe = x + e * I * C + c;
+    const T* xe = x + e * I * C + c;
     float xv[kMaxI], acc[kMaxI];
 #pragma unroll
     for (int j = 0; j < kMaxI; ++j) {
-      xv[j] = (j < I) ? xe[(long long)j * C] : 0.f;
+      xv[j] = (j < I) ? singa::to_f(xe[(long long)j * C]) : 0.f;
       acc[j] = 0.f;
     }
     for (int g = 0; g < G; ++g) {
@@ -474,7 +488,7 @@ s2_silu_sep_kernel(const float* __restrict__ x, const float* __restrict__ s,
         v = fmaf(w.z, xv[4 * j4 + 2], v);
         v = fmaf(w.w, xv[4 * j4 + 3], v);
       }
-      const float a = singa::siluf_(v);
+      const float a = singa::rnd<T>(singa::siluf_(v));
 #pragma unroll
       for (int j4 = 0; j4 < kMaxI / 4; ++j4) {
         const float4 w = fr[j4];
@@ -484,28 +498,29 @@ s2_silu_sep_kernel(const float* __restrict__ x, const float* __restrict__ s,
         acc[4 * j4 + 3] = fmaf(w.w, a, acc[4 * j4 + 3]);
       }
     }
-    float* oe = out + e * I * C + c;
-    oe[0] = singa::siluf_(s[e * C + c]);
+    T* oe = out + e * I * C + c;
+    oe[0] = singa::from_f<T>(singa::siluf_(singa::to_f(s[e * C + c])));
 #pragma unroll
     for (int j = 1; j < kMaxI; ++j)
-      if (j < I) oe[(long long)j * C] = acc[j];
+      if (j < I) oe[(long long)j * C] = singa::from_f<T>(acc[j]);
   }
 }
 
 
 // K3b's CUDA-core instance.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-s2_silu_sep_bwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                       const float* __restrict__ gin, const float* __restrict__ tg,
-                       const float* __restrict__ fg, float* __restrict__ dx,
-                       float* __restrict__ ds, int E, int I, int C, int G) {
+s2_silu_sep_bwd_kernel(const T* __restrict__ x, const T* __restrict__ s,
+                       const T* __restrict__ gin, const T* __restrict__ tg,
+                       const T* __restrict__ fg, T* __restrict__ dx,
+                       T* __restrict__ ds, int E, int I, int C, int G) {
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;              // [G, kMaxI], rows zero-padded past I
   float* sfg = smem + G * kMaxI;  // [G, kMaxI], column 0 zeroed too
   for (int t = threadIdx.x; t < G * kMaxI; t += blockDim.x) {
     const int g = t / kMaxI, j = t % kMaxI;
-    stg[t] = j < I ? tg[g * I + j] : 0.f;
-    sfg[t] = (j < I && j > 0) ? fg[g * I + j] : 0.f;
+    stg[t] = j < I ? singa::to_f(tg[g * I + j]) : 0.f;
+    sfg[t] = (j < I && j > 0) ? singa::to_f(fg[g * I + j]) : 0.f;
   }
   __syncthreads();
 
@@ -515,13 +530,13 @@ s2_silu_sep_bwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
     const long long e = job / cblocks;
     const int c = (int)(job % cblocks) * kThreads + threadIdx.x;
     if (c >= C) continue;
-    const float* xe = x + e * I * C + c;
-    const float* ge = gin + e * I * C + c;
+    const T* xe = x + e * I * C + c;
+    const T* ge = gin + e * I * C + c;
     float xv[kMaxI], gv[kMaxI], acc[kMaxI];
 #pragma unroll
     for (int j = 0; j < kMaxI; ++j) {
-      xv[j] = (j < I) ? xe[(long long)j * C] : 0.f;
-      gv[j] = (j < I) ? ge[(long long)j * C] : 0.f;
+      xv[j] = (j < I) ? singa::to_f(xe[(long long)j * C]) : 0.f;
+      gv[j] = (j < I) ? singa::to_f(ge[(long long)j * C]) : 0.f;
       acc[j] = 0.f;
     }
     for (int g = 0; g < G; ++g) {
@@ -541,7 +556,7 @@ s2_silu_sep_bwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
         u = fmaf(f.z, gv[4 * j4 + 2], u);
         u = fmaf(f.w, gv[4 * j4 + 3], u);
       }
-      const float h = singa::silu_gradf_(v) * u;
+      const float h = singa::rnd<T>(singa::silu_gradf_(v) * u);
 #pragma unroll
       for (int j4 = 0; j4 < kMaxI / 4; ++j4) {
         const float4 w = tr[j4];
@@ -551,11 +566,11 @@ s2_silu_sep_bwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
         acc[4 * j4 + 3] = fmaf(w.w, h, acc[4 * j4 + 3]);
       }
     }
-    ds[e * C + c] = singa::silu_gradf_(s[e * C + c]) * gv[0];
-    float* de = dx + e * I * C + c;
+    ds[e * C + c] = singa::from_f<T>(singa::silu_gradf_(singa::to_f(s[e * C + c])) * gv[0]);
+    T* de = dx + e * I * C + c;
 #pragma unroll
     for (int j = 0; j < kMaxI; ++j)
-      if (j < I) de[(long long)j * C] = acc[j];
+      if (j < I) de[(long long)j * C] = singa::from_f<T>(acc[j]);
   }
 }
 
@@ -674,13 +689,36 @@ bool tc_takes(int I, int C, int G) {
 
 size_t cc_smem(int G) { return 2 * (size_t)G * kMaxI * sizeof(float); }
 
+// K3's (BWD false) or K3b's CUDA-core instance at storage type T (g and ds
+// unused by K3)
+template <bool BWD, class T>
+int cc_sep_launch(const T* x, const T* s, const T* g, const T* tg, const T* fg, T* out, T* ds,
+                  int E, int I, int C, int G, cudaStream_t st) {
+  const size_t smem = cc_smem(G);
+  const long long jobs = (long long)E * ((C + cc::kThreads - 1) / cc::kThreads);
+  if constexpr (BWD) {
+    const auto kernel = cc::s2_silu_sep_bwd_kernel<T>;
+    const cudaError_t err = singa::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = singa::persistent_grid(kernel, cc::kThreads, smem, jobs);
+    kernel<<<grid, cc::kThreads, smem, st>>>(x, s, g, tg, fg, out, ds, E, I, C, G);
+  } else {
+    const auto kernel = cc::s2_silu_sep_kernel<T>;
+    const cudaError_t err = singa::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = singa::persistent_grid(kernel, cc::kThreads, smem, jobs);
+    kernel<<<grid, cc::kThreads, smem, st>>>(x, s, tg, fg, out, E, I, C, G);
+  }
+  return (int)cudaGetLastError();
+}
+
 // 1: the tensor-core kernels take these shapes; 0: the CUDA-core instance
 // does; -1: neither (I above 32, or tg and fg over shared memory)
 int sep_instance(int I, int C, int G) {
   if (I < 1 || I > kMaxI || C < 1 || G < 1) return -1;
   if (tc_takes(I, C, G)) return 1;
-  const bool cc = singa::allow_smem(cc::s2_silu_sep_kernel, cc_smem(G)) == cudaSuccess &&
-                  singa::allow_smem(cc::s2_silu_sep_bwd_kernel, cc_smem(G)) == cudaSuccess;
+  const bool cc = singa::allow_smem(cc::s2_silu_sep_kernel<float>, cc_smem(G)) == cudaSuccess &&
+                  singa::allow_smem(cc::s2_silu_sep_bwd_kernel<float>, cc_smem(G)) == cudaSuccess;
   return cc ? 0 : -1;
 }
 
@@ -815,13 +853,7 @@ extern "C" int s2_silu_sep_f32(const float* x, const float* s, const float* tg,
     return (int)cudaGetLastError();
   }
   if (which == 0) {
-    const size_t smem = cc_smem(G);
-    cudaError_t err = singa::allow_smem(cc::s2_silu_sep_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long jobs = (long long)E * ((C + cc::kThreads - 1) / cc::kThreads);
-    const int grid = singa::persistent_grid(cc::s2_silu_sep_kernel, cc::kThreads, smem, jobs);
-    cc::s2_silu_sep_kernel<<<grid, cc::kThreads, smem, st>>>(x, s, tg, fg, out, E, I, C, G);
-    return (int)cudaGetLastError();
+    return cc_sep_launch<false, float>(x, s, nullptr, tg, fg, out, nullptr, E, I, C, G, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -841,15 +873,7 @@ extern "C" int s2_silu_sep_bwd_f32(const float* x, const float* s, const float* 
     return (int)cudaGetLastError();
   }
   if (which == 0) {
-    const size_t smem = cc_smem(G);
-    cudaError_t err = singa::allow_smem(cc::s2_silu_sep_bwd_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long jobs = (long long)E * ((C + cc::kThreads - 1) / cc::kThreads);
-    const int grid =
-        singa::persistent_grid(cc::s2_silu_sep_bwd_kernel, cc::kThreads, smem, jobs);
-    cc::s2_silu_sep_bwd_kernel<<<grid, cc::kThreads, smem, st>>>(x, s, g, tg, fg, dx, ds, E, I,
-                                                                 C, G);
-    return (int)cudaGetLastError();
+    return cc_sep_launch<true, float>(x, s, g, tg, fg, dx, ds, E, I, C, G, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -919,4 +943,27 @@ extern "C" int s2_silu_bwd_f32(const float* x, const float* g, const float* tg, 
     });
   if (which >= 0) return s2_silu_launch<true>(x, g, tg, fg, dx, N, I, C, G, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K3's bfloat16 instance (the CUDA-core kernel at T = bf16): x, s, tg, fg
+// and out bfloat16. cudaErrorInvalidValue for shapes it does not take (I
+// above 32, or tg and fg over shared memory).
+extern "C" int s2_silu_sep_bf16(const void* x, const void* s, const void* tg, const void* fg,
+                                void* out, int E, int I, int C, int G, void* stream) {
+  using singa::bf16;
+  if (E < 1 || I < 1 || I > kMaxI || C < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  return cc_sep_launch<false, bf16>((const bf16*)x, (const bf16*)s, nullptr,
+                                    (const bf16*)tg, (const bf16*)fg, (bf16*)out, nullptr, E, I,
+                                    C, G, (cudaStream_t)stream);
+}
+
+// K3b's bfloat16 instance: x, s, g, tg, fg, dx and ds bfloat16.
+extern "C" int s2_silu_sep_bwd_bf16(const void* x, const void* s, const void* g, const void* tg,
+                                    const void* fg, void* dx, void* ds, int E, int I, int C, int G,
+                                    void* stream) {
+  using singa::bf16;
+  if (E < 1 || I < 1 || I > kMaxI || C < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  return cc_sep_launch<true, bf16>((const bf16*)x, (const bf16*)s, (const bf16*)g, (const bf16*)tg,
+                             (const bf16*)fg, (bf16*)dx, (bf16*)ds, E, I, C, G,
+                             (cudaStream_t)stream);
 }

@@ -60,6 +60,12 @@
 // launch: 8-node tiles, each 16-channel hidden chunk of w1, wg and w2 staged
 // in shared memory by every block, both products as float4 register
 // micro-tiles of four nodes by four channels on the CUDA cores in float32.
+// bfloat16 (so3_gate_ffn_bf16): the CUDA-core instance at a bfloat16 x and
+// y (gate_ffn_kernel<bf16>), the TPU kernel's function at a bfloat16 dtype
+// (the roundings are listed at the kernel). Its 24.4 GFLOP a microbatch run
+// on the CUDA cores in float32 (~0.36 ms at 67 TFLOP/s); bfloat16 products
+// on the tensor cores (989 TFLOP/s) would take ~25 us, and it does not use
+// them yet.
 #include "gate_ffn_tc.cuh"
 
 namespace {
@@ -291,11 +297,18 @@ using singa::fma4;
 // weights and does sixteen multiply-adds. x and the hidden slice are stored
 // node minor ([row][channel][node]), each row block padded by kPad floats so
 // that the rows a warp reads fall in different banks.
+//
+// T is the storage type of x and y. The bfloat16 instance (T = bf16) is
+// the function _gate_ffn_fwd_kernel computes at a bfloat16 x: w1, wg and w2
+// rounded to bfloat16 as they are staged (the biases stay float32), every
+// product summed in float32, the gates sigmoid(x0 wg + bg) and the hidden
+// after its activation rounded to bfloat16, y rounded as it is stored.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-gate_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+gate_ffn_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ b1, const float* __restrict__ wg,
                 const float* __restrict__ bg, const float* __restrict__ w2,
-                const float* __restrict__ b2, float* __restrict__ y, int N, int lmax,
+                const float* __restrict__ b2, T* __restrict__ y, int N, int lmax,
                 int C, int H, int Co) {
   const int L = lmax + 1;
   const int I = L * L;
@@ -315,7 +328,7 @@ gate_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int njobs = kNG * I * C4;
   for (int t = tid; t < kTN * I * C; t += kThreads) {
     const int n = t / (I * C), i = (t / C) % I, c = t % C;
-    sx[i * xs + c * kTN + n] = (n0 + n < N) ? x[(long long)n0 * I * C + t] : 0.f;
+    sx[i * xs + c * kTN + n] = (n0 + n < N) ? singa::to_f(x[(long long)n0 * I * C + t]) : 0.f;
   }
   float4 acc[kMaxJobs][4];
 #pragma unroll
@@ -327,15 +340,15 @@ gate_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     __syncthreads();  // previous chunk's readers of the staged weights are done
     for (int t = tid; t < L * C * kHC; t += kThreads) {
       const int h = t % kHC, lc = t / kHC;
-      sw1[t] = (h0 + h < H) ? w1[(long long)lc * H + h0 + h] : 0.f;
+      sw1[t] = (h0 + h < H) ? singa::rnd<T>(w1[(long long)lc * H + h0 + h]) : 0.f;
     }
     for (int t = tid; t < C * lmax * kHC; t += kThreads) {
       const int h = t % kHC, l = (t / kHC) % lmax, c = t / (kHC * lmax);
-      swg[t] = (h0 + h < H) ? wg[(long long)c * lmax * H + l * H + h0 + h] : 0.f;
+      swg[t] = (h0 + h < H) ? singa::rnd<T>(wg[(long long)c * lmax * H + l * H + h0 + h]) : 0.f;
     }
     for (int t = tid; t < L * kHC * Co; t += kThreads) {
       const int o = t % Co, h = (t / Co) % kHC, l = t / (Co * kHC);
-      sw2[t] = (h0 + h < H) ? w2[((long long)l * H + h0 + h) * Co + o] : 0.f;
+      sw2[t] = (h0 + h < H) ? singa::rnd<T>(w2[((long long)l * H + h0 + h) * Co + o]) : 0.f;
     }
     __syncthreads();
 
@@ -344,7 +357,7 @@ gate_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       const int n = t % kTN, h = (t / kTN) % kHC, l = t / (kTN * kHC);
       float v = (h0 + h < H) ? bg[l * H + h0 + h] : 0.f;
       for (int c = 0; c < C; ++c) v = fmaf(sx[c * kTN + n], swg[(c * lmax + l) * kHC + h], v);
-      sgate[t] = singa::sigmoidf_(v);
+      sgate[t] = singa::rnd<T>(singa::sigmoidf_(v));
     }
     __syncthreads();
 
@@ -382,6 +395,8 @@ gate_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
               *reinterpret_cast<const float4*>(sgate + ((l - 1) * kHC + h) * kTN + 4 * ng);
           m = make_float4(a[r].x * g.x, a[r].y * g.y, a[r].z * g.z, a[r].w * g.w);
         }
+        m = make_float4(singa::rnd<T>(m.x), singa::rnd<T>(m.y), singa::rnd<T>(m.z),
+                        singa::rnd<T>(m.w));
         *reinterpret_cast<float4*>(smid + i * ms + h * kTN + 4 * ng) = m;
       }
     }
@@ -424,7 +439,15 @@ gate_ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
             a.z += b2[4 * o4 + 2];
             a.w += b2[4 * o4 + 3];
           }
-          *reinterpret_cast<float4*>(y + ((long long)n * I + i) * Co + 4 * o4) = a;
+          T* yr = y + ((long long)n * I + i) * Co + 4 * o4;
+          if constexpr (singa::kBf16<T>) {
+            yr[0] = singa::from_f<T>(a.x);
+            yr[1] = singa::from_f<T>(a.y);
+            yr[2] = singa::from_f<T>(a.z);
+            yr[3] = singa::from_f<T>(a.w);
+          } else {
+            *reinterpret_cast<float4*>(yr) = a;
+          }
         }
       }
     }
@@ -439,13 +462,15 @@ size_t smem_bytes(int lmax, int C, int Co) {
   return floats * sizeof(float);
 }
 
-// Whether the CUDA-core kernel takes these widths: Co a multiple of 4, the
-// output micro-tiles within kMaxJobs a thread, and its shared memory
+// Whether the CUDA-core kernel at storage type T takes these widths: Co a
+// multiple of 4, the output micro-tiles within kMaxJobs a thread, and its
+// shared memory
+template <class T = float>
 bool cc_takes(int lmax, int C, int H, int Co) {
   if (lmax < 1 || C < 1 || H < 1 || Co < 4 || Co % 4 != 0) return false;
   const int I = (lmax + 1) * (lmax + 1);
   if (kNG * I * (Co / 4) > kMaxJobs * kThreads) return false;
-  return singa::allow_smem(gate_ffn_kernel, smem_bytes(lmax, C, Co)) == cudaSuccess;
+  return singa::allow_smem(gate_ffn_kernel<T>, smem_bytes(lmax, C, Co)) == cudaSuccess;
 }
 
 }  // namespace cc
@@ -518,9 +543,25 @@ extern "C" int so3_gate_ffn_f32(const float* x, const float* w1, const float* b1
   }
   if (which == 0) {
     const size_t smem = cc::smem_bytes(lmax, C, Co);
-    cc::gate_ffn_kernel<<<(N + cc::kTN - 1) / cc::kTN, cc::kThreads, smem, st>>>(
+    cc::gate_ffn_kernel<float><<<(N + cc::kTN - 1) / cc::kTN, cc::kThreads, smem, st>>>(
         x, w1, b1, wg, bg, w2, b2, y, N, lmax, C, H, Co);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K2's bfloat16 instance: the CUDA-core kernel at T = bf16, x and y
+// bfloat16, the weights and biases float32. cudaErrorInvalidValue for
+// shapes it does not take.
+extern "C" int so3_gate_ffn_bf16(const void* x, const float* w1, const float* b1,
+                                 const float* wg, const float* bg, const float* w2,
+                                 const float* b2, void* y, int N, int lmax, int C, int H, int Co,
+                                 void* stream) {
+  using singa::bf16;
+  if (N < 1 || !cc::cc_takes<bf16>(lmax, C, H, Co)) return (int)cudaErrorInvalidValue;
+  const size_t smem = cc::smem_bytes(lmax, C, Co);
+  cc::gate_ffn_kernel<bf16><<<(N + cc::kTN - 1) / cc::kTN, cc::kThreads, smem,
+                              (cudaStream_t)stream>>>((const bf16*)x, w1, b1, wg, bg, w2, b2,
+                                                      (bf16*)y, N, lmax, C, H, Co);
+  return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from singa_tpu_torch.dtypes import compute_dtype
 from singa_tpu_torch.equivariant import so3
 from singa_tpu_torch.equivariant.layers import (
     RadialMLP,
@@ -70,7 +71,8 @@ class EdgeDegreeEmbedding(nn.Module):
         pad = rad.new_zeros((x_edge.shape[0], self.mapping.n_trunc - n0, C))
         x = torch.cat([rad, pad], dim=1)
         x = so3.rotate_inv(wigner, x, self.lmax, self.mmax, m_primary=True)
-        return edges.scatter_dst(x) / self.rescale_factor
+        # the factor in the features' dtype, as JAX's weak-typed constant
+        return edges.scatter_dst(x) / torch.tensor(self.rescale_factor, dtype=x.dtype)
 
 
 class FeedForwardNetwork(nn.Module):
@@ -120,6 +122,9 @@ class FeedForwardNetwork(nn.Module):
             self.b2.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the kernels take the activations in the compute dtype and the
+        # weights in float32, as the JAX package's Pallas calls do
+        x = x.to(compute_dtype())
         args = (
             x.contiguous(),
             self.w1.transpose(1, 2).contiguous(),  # [L, C, H]
@@ -235,12 +240,14 @@ class GraphAttention(nn.Module):
 
         E, n_trunc, _ = msg.shape
         msg = msg.reshape(E, n_trunc, self.num_heads, self.value_channels)
-        msg = (msg * alpha[:, None, :, None]).reshape(E, n_trunc, -1)
+        # the float32 attention weights rounded to the messages' dtype, as in JAX
+        msg = (msg * alpha.to(msg.dtype)[:, None, :, None]).reshape(E, n_trunc, -1)
         # per-degree output projection before rotate-back + reduce (it
         # commutes with both; reference projects after, EF_layers.py:1196-1203)
+        dt = compute_dtype()
         l_of_m = so3.as_const(self._l_of_m, msg.device, torch.long)
-        wt = self.proj_w.index_select(0, l_of_m)  # [n_trunc, Co, Cin]
-        msg = torch.einsum("eic,ioc->eio", msg, wt)
+        wt = self.proj_w.to(dt).index_select(0, l_of_m)  # [n_trunc, Co, Cin]
+        msg = torch.einsum("eic,ioc->eio", msg.to(dt), wt)
         msg = so3.rotate_inv(wigner, msg, self.lmax, self.mmax, m_primary=True)
         return add_l0(edges.scatter_dst(msg), self.proj_b)
 

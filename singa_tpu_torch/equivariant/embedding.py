@@ -83,7 +83,9 @@ class EquivariantEmbedding(nn.Module):
         )
         src_emb = edges.gather_src(self.source_embedding(z_src))
         dst_emb = edges.gather_dst(self.target_embedding(z_dst))
-        return torch.cat([x_edge, src_emb, dst_emb], dim=-1), so3.edge_frame(vec)
+        # the smear joins the embeddings in their (compute) dtype, as in JAX
+        x_edge = torch.cat([x_edge.to(src_emb.dtype), src_emb, dst_emb], dim=-1)
+        return x_edge, so3.edge_frame(vec)
 
     def _base_features(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

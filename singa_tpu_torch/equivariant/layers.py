@@ -9,6 +9,13 @@ and ``Embed`` use PyTorch's ``[out, in]`` / ``[num, features]``. Submodule
 attribute names follow the flax module names (``RadialMLP_0``, ``Linear_1``)
 so that the weight bridge (``singa_tpu_torch/params.py``) is a path map.
 
+Mixed precision follows the JAX package's (``singa_tpu_torch/dtypes.py``):
+``Linear``, ``Embed``, ``SO2Conv``'s products and the kernels compute in
+``compute_dtype()``; parameters stay float32; ``LayerNorm`` promotes its
+input to its float32 parameters, as flax's does, so it returns float32 on a
+bfloat16 input; the norms of ``[N, coeffs, C]`` features run in float32 and
+return the input's dtype. Under float32 every cast is a no-op.
+
 Initialisation is explicit: every module with parameters of its own has
 ``init_params(gen)``, which draws from a ``torch.Generator`` on the CPU with
 the JAX package's distributions (torch-default uniform for linears, N(0, 1)
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from singa_tpu_torch.dtypes import compute_dtype
 from singa_tpu_torch.equivariant.grid import _grid_mats
 from singa_tpu_torch.equivariant.so3 import CoefficientMapping, as_const
 from singa_tpu_torch.ops.cuda.s2_act import s2_silu, s2_silu_sep
@@ -58,7 +66,13 @@ class Linear(nn.Module):
             uniform_(self.bias, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dt = compute_dtype()
+        if dt == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        # flax's Dense(dtype=dt): input and weights cast, the product and the
+        # bias add each rounded to dt
+        y = x.to(dt) @ self.weight.to(dt).t()
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Embed(nn.Module):
@@ -72,13 +86,23 @@ class Embed(nn.Module):
         normal_(self.weight, gen)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx.long(), self.weight)
+        # the table cast first, as flax's Embed(dtype=...): its gradient then
+        # sums the rows' cotangents in that dtype, as JAX's scatter does
+        return F.embedding(idx.long(), self.weight.to(compute_dtype()))
 
 
-def layer_norm(features: int, device=None) -> nn.LayerNorm:
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that promotes its input to its parameters' dtype
+    first, as flax's LayerNorm does: float32 out of a bfloat16 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+
+
+def layer_norm(features: int, device=None) -> LayerNorm:
     """LayerNorm with torch's default eps 1e-5, which the JAX package sets
     explicitly (flax defaults to 1e-6)."""
-    return nn.LayerNorm(features, eps=1e-5, device=device)
+    return LayerNorm(features, eps=1e-5, device=device)
 
 
 def smooth_leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -299,8 +323,11 @@ class SO2Conv(nn.Module):
         if self.RadialMLP_0 is not None:
             xm = xm * self.radial(x_edge).reshape(E, -1).to(xm.dtype)
 
+        dt = compute_dtype()
         ws, b = self.section_weights()
-        y0 = xm[:, : n0 * c_in] @ ws[0] + b
+        ws = [w.to(dt) for w in ws]
+        xm = xm.to(dt)
+        y0 = xm[:, : n0 * c_in] @ ws[0] + b.to(dt)
         outs = [y0[:, : n0 * Fo]]
         off = n0 * c_in
         for W in ws[1:]:

@@ -20,6 +20,12 @@ from singa_tpu_torch.equivariant.so3 import as_const
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        # JAX's bfloat16 lowering, op for op: softplus as logaddexp(x, 0),
+        # each operation rounded, and log 2 a weak-typed constant, rounded
+        # to bfloat16 before the subtraction
+        sp = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+        return sp - torch.tensor(math.log(2.0), dtype=x.dtype, device=x.device)
     return F.softplus(x) - math.log(2.0)
 
 
@@ -70,11 +76,13 @@ class DenseMHA(nn.Module):
         where a key is masked (score -1e9)."""
         B, Tq, _ = q.shape
         qs = self.W_Q(q).reshape(B, Tq, self.H, self.kd)
-        scores = torch.einsum("bqhd,bkhd->bhqk", qs, ks) / math.sqrt(self.kd)
+        # scores, softmax and context in float32 under bfloat16 too: the JAX
+        # package scales by a numpy float, which promotes
+        scores = torch.einsum("bqhd,bkhd->bhqk", qs, ks).float() / math.sqrt(self.kd)
         if blocked is not None:
             scores = torch.where(blocked[:, None], -1e9, scores)
         attn = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", attn, vs).reshape(B, Tq, -1)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", attn, vs.to(attn.dtype)).reshape(B, Tq, -1)
         return self.layer_norm(self.linear(ctx) + q)
 
 
@@ -138,8 +146,10 @@ class Encoder(nn.Module):
                                  with_adj_dist=_dense_attn())
         msas = []
         for layer in self.layers:
-            msa, x = layer(x, g)
-            msas.append(msa)
+            # each layer's outputs keep the embedding's dtype (JAX's scan carry)
+            msa, y = layer(x, g)
+            msas.append(msa.to(x.dtype))
+            x = y.to(x.dtype)
         return x * mask[..., None].to(x.dtype), ~mask[:, None, :], msas
 
 
@@ -251,7 +261,8 @@ class Decoder(nn.Module):
         a pad key). Returns [B, T (+1 with props), C]."""
         B, T = tokens.shape
         C = self.cfg.hidden_channels
-        x = self.mol_emb(tokens) + as_const(_pe_table(T, C), tokens.device)[None]
+        x = self.mol_emb(tokens)
+        x = x + as_const(_pe_table(T, C), tokens.device, x.dtype)[None]
         key_is_pad = tokens == self.pad_token
         if self.num_props:
             x = x + self.type_emb(torch.ones((B, T), dtype=torch.long, device=x.device))
@@ -313,7 +324,7 @@ class Decoder(nn.Module):
         """One decode step: ``token [R, 1]`` at sequence position ``pos``."""
         R = token.shape[0]
         x = self.mol_emb(token)
-        pe = torch.as_tensor(self._pe[pos], device=x.device)
+        pe = torch.as_tensor(self._pe[pos], device=x.device, dtype=x.dtype)
         x = x + pe[None, None, :]
         if self.num_props:
             x = x + self.type_emb(torch.ones((R, 1), dtype=torch.long, device=x.device))

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from singa_tpu_torch.dtypes import compute_dtype
 from singa_tpu_torch.equivariant.layers import Linear, layer_norm, uniform_
 from singa_tpu_torch.models.cpromg import EdgeMLP, shifted_softplus
 from singa_tpu_torch.ops.smearing import gaussian_smearing
@@ -54,7 +55,7 @@ def build_dense_graph(
     adj_dir = (d2m <= kth) & (d2m < big)
     adj = adj_dir | adj_dir.transpose(1, 2)
     dist = torch.sqrt(torch.clamp(d2, min=1e-12))
-    neg_smear = -gaussian_smearing(dist, 0.0, smear_stop, edge_channels)
+    neg_smear = -gaussian_smearing(dist, 0.0, smear_stop, edge_channels).to(compute_dtype())
     deg = -(neg_smear * adj[..., None].to(neg_smear.dtype)).sum(dim=2)
     return DenseGraph(adj=adj, deg_attr=deg, node_mask=mask, neg_smear=neg_smear)
 
@@ -97,21 +98,23 @@ class DenseGraphMHA(nn.Module):
     def forward(self, x: torch.Tensor, g: DenseGraph) -> torch.Tensor:
         B, N, C = x.shape
         H, vd = self.H, self.vd
-        xh = x.reshape(B, N, H, C // H)
-        q = torch.einsum("bnhc,hco->bnho", xh, self.q_lin)
-        k = torch.einsum("bnhc,hco->bnho", xh, self.k_lin)
-        v = torch.einsum("bnhc,hco->bnho", xh, self.v_lin)
+        dt = compute_dtype()
+        xh = x.to(dt).reshape(B, N, H, C // H)
+        q = torch.einsum("bnhc,hco->bnho", xh, self.q_lin.to(dt))
+        k = torch.einsum("bnhc,hco->bnho", xh, self.k_lin.to(dt))
+        v = torch.einsum("bnhc,hco->bnho", xh, self.v_lin.to(dt))
 
-        w_k_off = self.weight_k_net(g.neg_smear)  # [B, N, N, kd]
-        w_v_off = self.weight_v_net(g.neg_smear)  # [B, N, N, vd]
-        w_k_diag = self.weight_k_net(g.deg_attr)  # [B, N, kd]
-        w_v_diag = self.weight_v_net(g.deg_attr)
+        w_k_off = self.weight_k_net(g.neg_smear.to(dt))  # [B, N, N, kd]
+        w_v_off = self.weight_v_net(g.neg_smear.to(dt))  # [B, N, N, vd]
+        w_k_diag = self.weight_k_net(g.deg_attr.to(dt))  # [B, N, kd]
+        w_v_diag = self.weight_v_net(g.deg_attr.to(dt))
 
         # W_k folded into the query; its bias is softmax-invariant and dropped
-        q_tilde = torch.einsum("bnhe,de->bnhd", q, self.weight_k_lin_kernel)
+        q_tilde = torch.einsum("bnhe,de->bnhd", q, self.weight_k_lin_kernel.to(dt))
         scale = 1.0 / math.sqrt(self.kd)
-        scores_off = torch.einsum("bihd,bjhd,bijd->bhij", q_tilde, k, w_k_off)
-        scores_diag = torch.einsum("bihd,bihd,bid->bhi", q_tilde, k, w_k_diag)
+        # scores and softmax in float32 (JAX's numpy-float scale promotes)
+        scores_off = torch.einsum("bihd,bjhd,bijd->bhij", q_tilde, k, w_k_off).float()
+        scores_diag = torch.einsum("bihd,bihd,bid->bhi", q_tilde, k, w_k_diag).float()
         eye = torch.eye(N, dtype=torch.bool, device=x.device)
         m = g.node_mask
         domain = (g.adj | eye[None]) & m[:, None, :] & m[:, :, None]
@@ -123,8 +126,8 @@ class DenseGraphMHA(nn.Module):
 
         alpha_off = torch.where(eye[None, None], 0.0, alpha)
         alpha_diag = torch.diagonal(alpha, dim1=-2, dim2=-1)  # [B, H, N]
-        agg = torch.einsum("bhij,bijd,bjhd->bihd", alpha_off, w_v_off, v)
-        agg = agg + alpha_diag.transpose(1, 2)[..., None] * (w_v_diag[:, :, None, :] * v)
+        agg = torch.einsum("bhij,bijd,bjhd->bihd", alpha_off.to(dt), w_v_off, v)
+        agg = agg + alpha_diag.transpose(1, 2)[..., None].to(dt) * (w_v_diag[:, :, None, :] * v)
         aggr = self.weight_v_lin(agg).reshape(B, N, H * vd)  # bias commutes with the sum
         out = self.centroid_lin(x) + aggr
         out = self.layer_norm(self.out_transform(shifted_softplus(out)))

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from singa_tpu_torch.config import EncoderConfig
+from singa_tpu_torch.dtypes import compute_dtype
 from singa_tpu_torch.equivariant.layers import Linear, layer_norm, uniform_
 from singa_tpu_torch.equivariant.so3 import as_const
 from singa_tpu_torch.models.cpromg import EdgeMLP, PositionwiseFFN, shifted_softplus
@@ -112,7 +113,8 @@ def build_neighbor_graph(
     nbr = nbr[..., :K].to(torch.int32).contiguous()
     dist_full = torch.sqrt(torch.clamp(d2, min=1e-12))
     dist = torch.gather(dist_full, 2, nbr.long())
-    neg_smear = -gaussian_smearing(dist, 0.0, smear_stop, edge_channels)
+    # the degree attribute is summed from the smear in the compute dtype, as in JAX
+    neg_smear = -gaussian_smearing(dist, 0.0, smear_stop, edge_channels).to(compute_dtype())
     deg = -(neg_smear * nbr_mask[..., None].to(neg_smear.dtype)).sum(dim=2)
     rev_offsets, rev_slots = transpose_slots(nbr)
     adj_dist = torch.where(adj, dist_full, BIG) if with_adj_dist else None
@@ -166,15 +168,18 @@ class NeighborGraphMHA(nn.Module):
     def forward(self, x: torch.Tensor, g: NeighborGraph) -> torch.Tensor:
         B, N, C = x.shape
         H, kd, vd = self.H, self.kd, self.vd
-        xh = x.reshape(B, N, H, C // H)
-        q = torch.einsum("bnhc,hco->bnho", xh, self.q_lin)
-        k = torch.einsum("bnhc,hco->bnho", xh, self.k_lin)
-        v = torch.einsum("bnhc,hco->bnho", xh, self.v_lin)
+        dt = compute_dtype()
+        xh = x.to(dt).reshape(B, N, H, C // H)
+        q = torch.einsum("bnhc,hco->bnho", xh, self.q_lin.to(dt))
+        k = torch.einsum("bnhc,hco->bnho", xh, self.k_lin.to(dt))
+        v = torch.einsum("bnhc,hco->bnho", xh, self.v_lin.to(dt))
 
-        w_k_diag = self.weight_k_net(g.deg_attr)  # [B, N, kd]
-        w_v_diag = self.weight_v_net(g.deg_attr)  # [B, N, vd]
-        q_tilde = torch.einsum("bnhe,de->bnhd", q, self.weight_k_lin_kernel)
-        scores_diag = (q_tilde * w_k_diag[:, :, None, :] * k).sum(-1) / math.sqrt(kd)
+        w_k_diag = self.weight_k_net(g.deg_attr.to(dt))  # [B, N, kd]
+        w_v_diag = self.weight_v_net(g.deg_attr.to(dt))  # [B, N, vd]
+        q_tilde = torch.einsum("bnhe,de->bnhd", q, self.weight_k_lin_kernel.to(dt))
+        # the self scores are float32 (the JAX package scales by a numpy
+        # float, which promotes), from a sum in the compute dtype
+        scores_diag = (q_tilde * w_k_diag[:, :, None, :] * k).sum(-1).float() / math.sqrt(kd)
         s_diag = torch.where(g.node_mask[..., None], scores_diag, -1e9)
 
         width = self.smear_stop / (self.edge_channels - 1)

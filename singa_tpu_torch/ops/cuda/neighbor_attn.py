@@ -24,6 +24,28 @@ CUDA-core instance (``fwd_instance`` says which the forward takes).
 ``neighbor_attn`` goes through one ``torch.autograd.Function``: plain
 versions for CPU tensors, the kernels for CUDA tensors.
 
+K1 and K1b have bfloat16 instances (the bfloat16 training path's): the
+CUDA-core kernels at bfloat16 storage (``neighbor_attn_bf16`` and
+``neighbor_attn_bwd_bf16`` in the same sources), counted in
+``launches_bf16`` and ``launches_bwd_bf16``, taken for a bfloat16 qt, k, v
+and diag_value (dist, diag_scores, centers and the EdgeMLP weights stay
+float32). They are the function ``_attn_fwd_kernel`` and
+``_attn_bwd_kernel`` compute at a bfloat16 dtype and round where those
+round: the smear; the EdgeMLP weights, hiddens and outputs w_k, w_v; each
+score term qt w_k k before the head sum (the TPU kernel rounds
+``kw * qt`` ahead of its ``seg_k`` product, a place its matrix unit's layout
+chose; kept, since it costs nothing on the CUDA cores and makes the
+function the TPU kernel's); the softmax weights a_off and a_diag before
+they weigh the values. Backward: each ``g w_v v`` and ``g diag_value`` term
+before its head sum (da); a where it weighs (d diag_value, dw_v, dv) and
+dsc; each ``dsc q k`` and ``a g v`` term before the head sum of dw_k and
+dw_v, and those sums again; the EdgeMLPs' dh; each slot's dk/dv term
+before the sum over the slots naming a row. dqt, dk, dv and d diag_value
+come out bfloat16, d diag_scores and the weight gradients float32, as in
+JAX. ``neighbor_attn_bf16_plain`` and ``neighbor_attn_bf16_bwd_plain`` are
+their plain twins. K7 and K8 have no bfloat16 instance yet: their wrappers
+refuse bfloat16.
+
 K7 replaces ``neighbor_attn_hybrid`` (``_hybrid_pallas_fwd``) and K7b its
 ``_bwd_h``: ``neighbor_attn_hybrid`` gathers ``k_nb``/``v_nb`` [B, N, K, *]
 with ``torch.gather`` (JAX's ``_gather_rows`` is ``take_along_axis`` outside
@@ -40,12 +62,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from singa_tpu_torch.dtypes import rounded
 from singa_tpu_torch.ops.cuda import build
 
 launches = 0  # forward kernel launches through ``neighbor_attn``
 launches_bwd = 0  # backward kernel launches through ``neighbor_attn``
 launches_hybrid = 0  # K7 launches through ``neighbor_attn_hybrid``
 launches_hybrid_bwd = 0  # K7b launches through ``neighbor_attn_hybrid``
+launches_bf16 = 0  # K1's bfloat16 instance's launches (not in ``launches``)
+launches_bwd_bf16 = 0  # K1b's bfloat16 instance's launches
 
 
 def _ssp(x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +102,11 @@ def neighbor_attn_plain(
     """qt/k [B, N, H*kd]; v [B, N, H*vd]; nbr/nbr_mask/dist [B, N, K];
     diag_scores [B, N, H]; diag_value [B, N, H*vd]; centers [De]; EdgeMLP
     weights in the flax ``[in, out]`` layout; coeff = -0.5/width^2.
-    Returns agg [B, N, H*vd]."""
+    Returns agg [B, N, H*vd]. A bfloat16 ``k`` takes the kernel's bfloat16
+    function (``neighbor_attn_bf16_plain``)."""
+    if k.dtype == torch.bfloat16:
+        return neighbor_attn_bf16_plain(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+                                        centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
     return _from_rows(qt, gather_rows(k, nbr), gather_rows(v, nbr), nbr_mask, dist,
                       diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
                       coeff)
@@ -111,10 +140,116 @@ def _from_rows(qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
     return agg.reshape(B, N, H * vd)
 
 
+def _bf16_pairs(qt, k, v, nbr, nbr_mask, dist, diag_scores, centers,
+                wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff):
+    """What K1's bfloat16 instance computes per slot, as float32 tensors of
+    bfloat16 values where ``_attn_fwd_kernel`` rounds: the smear ``e``, the
+    EdgeMLPs' pre-activations and rounded hiddens, their outputs ``w_k``,
+    ``w_v`` (rounded), the gathered rows, the scores (each ``qt w_k k``
+    term rounded before the head sum) and the softmax weights over the K
+    slots and the self slot (float32)."""
+    dt = k.dtype
+    B, N, HK = qt.shape
+    K = nbr.shape[2]
+    H = diag_scores.shape[2]
+    kd = HK // H
+    vd = v.shape[2] // H
+    diff = dist[..., None] - centers
+    e = rounded(-torch.exp(coeff * diff * diff), dt)  # [B, N, K, De]
+    pre_k = e @ rounded(wk1, dt) + bk1
+    hid_k = rounded(_ssp(pre_k), dt)
+    w_k = rounded(hid_k @ rounded(wk2, dt) + bk2, dt)
+    pre_v = e @ rounded(wv1, dt) + bv1
+    hid_v = rounded(_ssp(pre_v), dt)
+    w_v = rounded(hid_v @ rounded(wv2, dt) + bv2, dt)
+    k_nb = gather_rows(k, nbr).float().reshape(B, N, K, H, kd)
+    v_nb = gather_rows(v, nbr).float().reshape(B, N, K, H, vd)
+    q = qt.float().reshape(B, N, 1, H, kd)
+    s_off = rounded(q * w_k[:, :, :, None, :] * k_nb, dt).sum(-1) * (1.0 / math.sqrt(kd))
+    s_off = torch.where(nbr_mask[..., None], s_off, -1e9)
+    s_diag = diag_scores.float()
+    m = torch.maximum(s_off.amax(dim=2), s_diag)
+    p_off = torch.exp(s_off - m[:, :, None])
+    p_diag = torch.exp(s_diag - m)
+    den = p_off.sum(dim=2) + p_diag
+    return dict(e=e, pre_k=pre_k, hid_k=hid_k, w_k=w_k, pre_v=pre_v, hid_v=hid_v, w_v=w_v,
+                k_nb=k_nb, v_nb=v_nb, q=q, a_off=p_off / den[:, :, None], a_diag=p_diag / den)
+
+
+def neighbor_attn_bf16_plain(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+                             centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff):
+    """K1's bfloat16 instance in plain PyTorch, rounding where
+    ``_attn_fwd_kernel`` rounds at bfloat16 qt, k, v and diag_value (the
+    distances, diag_scores, centers and EdgeMLP weights float32): the smear,
+    the EdgeMLP weights, hiddens and outputs, each score term before the
+    head sum, and the softmax weights ``a_off``/``a_diag`` before they
+    weigh the values; the aggregate in float32, rounded once."""
+    dt = k.dtype
+    B, N, _ = qt.shape
+    p = _bf16_pairs(qt, k, v, nbr, nbr_mask, dist, diag_scores, centers,
+                    wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
+    H = diag_scores.shape[2]
+    vd = v.shape[2] // H
+    a_off, a_diag = rounded(p["a_off"], dt), rounded(p["a_diag"], dt)
+    agg = (a_off[..., None] * p["w_v"][:, :, :, None, :] * p["v_nb"]).sum(dim=2)
+    agg = agg + a_diag[..., None] * diag_value.float().reshape(B, N, H, vd)
+    return agg.reshape(B, N, H * vd).to(dt)
+
+
+def neighbor_attn_bf16_bwd_plain(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
+                                 centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g):
+    """K1b's bfloat16 instance in plain PyTorch, rounding where
+    ``_attn_bwd_kernel`` rounds: each ``g w_v v`` and ``g diag_value`` term
+    before its head sum (da), the softmax weights where they weigh (a_t),
+    dsc before it spreads to the channels, each ``dsc w_k qt`` and
+    ``a g v`` term before the head sum of dw_k/dw_v, those sums again,
+    the EdgeMLPs' dh, and each slot's dk/dv term before the sum over the
+    slots that name a row. dqt, dk, dv and d diag_value come out bfloat16,
+    d diag_scores and the weight gradients float32."""
+    dt = k.dtype
+    B, N, HK = qt.shape
+    H = diag_scores.shape[2]
+    kd = HK // H
+    vd = v.shape[2] // H
+    p = _bf16_pairs(qt, k, v, nbr, nbr_mask, dist, diag_scores, centers,
+                    wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
+    w_k, w_v = p["w_k"][:, :, :, None, :], p["w_v"][:, :, :, None, :]  # [B, N, K, 1, d]
+    k_nb, v_nb, q = p["k_nb"], p["v_nb"], p["q"]
+    a_off, a_diag = p["a_off"], p["a_diag"]
+    gf = g.float().reshape(B, N, 1, H, vd)
+    da_off = rounded(gf * w_v * v_nb, dt).sum(-1)  # [B, N, K, H]
+    da_diag = rounded(gf[:, :, 0] * diag_value.float().reshape(B, N, H, vd), dt).sum(-1)
+    a_t = rounded(a_off, dt)[..., None]
+    dwv3 = rounded(a_t * gf * v_nb, dt).sum(3)  # [B, N, K, vd]
+    dv_nb = rounded(a_t * w_v * gf, dt)
+    ddv = (rounded(a_diag, dt)[..., None] * gf[:, :, 0]).reshape(B, N, H * vd).to(dt)
+    dot = (a_off * da_off).sum(dim=2) + a_diag * da_diag
+    dds = a_diag * (da_diag - dot)
+    ds_off = torch.where(nbr_mask[..., None], a_off * (da_off - dot[:, :, None]), 0.0)
+    ds_t = rounded(ds_off * (1.0 / math.sqrt(kd)), dt)[..., None]
+    dqt = (ds_t * k_nb * w_k).sum(dim=2).reshape(B, N, HK).to(dt)
+    dk_nb = rounded(ds_t * w_k * q, dt)
+    dwk3 = rounded(ds_t * k_nb * q, dt).sum(3)  # [B, N, K, kd]
+    wgrads = []
+    for dw3, pre, hid, w2 in ((dwk3, p["pre_k"], p["hid_k"], wk2),
+                              (dwv3, p["pre_v"], p["hid_v"], wv2)):
+        dw3 = rounded(dw3, dt)
+        dh = rounded((dw3 @ rounded(w2, dt).t()) * torch.sigmoid(pre), dt)
+        wgrads.append((torch.einsum("bnke,bnkh->eh", p["e"], dh), dh.sum((0, 1, 2)),
+                       torch.einsum("bnkh,bnko->ho", hid, dw3), dw3.sum((0, 1, 2))))
+    K = nbr.shape[2]
+    dk = scatter_rows(dk_nb.reshape(B, N, K, HK), nbr).to(dt)
+    dv = scatter_rows(dv_nb.reshape(B, N, K, H * vd), nbr).to(dt)
+    return (dqt, dk, dv, dds, ddv, *wgrads[0], *wgrads[1])
+
+
 def neighbor_attn_bwd_plain(*args):
     """``(dqt, dk, dv, d diag_scores, d diag_value, dwk1, dbk1, dwk2, dbk2,
     dwv1, dbv1, dwv2, dbv2)`` of ``neighbor_attn_plain``: ``args`` are its
-    arguments followed by the cotangent ``g``."""
+    arguments followed by the cotangent ``g``; at a bfloat16 ``k``,
+    ``neighbor_attn_bf16_bwd_plain``."""
+    if args[1].dtype == torch.bfloat16:
+        return neighbor_attn_bf16_bwd_plain(*args)
     *inputs, coeff, g = args
     # qt, k, v, diag_scores, diag_value and the eight EdgeMLP weights/biases
     diff_at = (0, 1, 2, 6, 7) + tuple(range(9, 17))
@@ -212,7 +347,8 @@ def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
                 centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, gathered: bool = False):
     """Device, dtype, shape and contiguity of every kernel argument; returns
     (B, N, K, H, kd, vd, De). ``gathered``: k and v are K7's k_nb/v_nb
-    [B, N, K, *]; nbr may then be None."""
+    [B, N, K, *]; nbr may then be None. qt, k, v and diag_value are float32,
+    or bfloat16 all four for K1's bfloat16 instance (K7 has none yet)."""
     B, N, HK = qt.shape
     K = nbr_mask.shape[2]
     H = diag_scores.shape[2]
@@ -222,28 +358,30 @@ def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
     dev = qt.device
     f32 = torch.float32
     rows = (B, N, K) if gathered else (B, N)
-    build.require(qt, "qt", (B, N, H * kd), f32, dev)
-    build.require(k, "k_nb" if gathered else "k", (*rows, H * kd), f32, dev)
-    build.require(v, "v_nb" if gathered else "v", (*rows, H * vd), f32, dev)
+    act = torch.bfloat16 if qt.dtype == torch.bfloat16 and not gathered else f32
+    build.require(qt, "qt", (B, N, H * kd), act, dev)
+    build.require(k, "k_nb" if gathered else "k", (*rows, H * kd), act, dev)
+    build.require(v, "v_nb" if gathered else "v", (*rows, H * vd), act, dev)
     if nbr is not None:
         build.require(nbr, "nbr", (B, N, K), torch.int32, dev)
     build.require(nbr_mask, "nbr_mask", (B, N, K), torch.bool, dev)
     build.require(dist, "dist", (B, N, K), f32, dev)
     check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
-                    vd)
+                    vd, act)
     return B, N, K, H, kd, vd, De
 
 
 def check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
-                    vd: int):
+                    vd: int, act=torch.float32):
     """The checks of the arguments every form of the encoder attention takes
-    (K1, K7, K8): the self terms, the centers and the EdgeMLP weights."""
+    (K1, K7, K8): the self terms, the centers and the EdgeMLP weights;
+    diag_value of dtype ``act``, the rest float32."""
     B, N, HK = qt.shape
     H = diag_scores.shape[2]
     kd, De = HK // H, centers.shape[0]
     dev, f32 = qt.device, torch.float32
     build.require(diag_scores, "diag_scores", (B, N, H), f32, dev)
-    build.require(diag_value, "diag_value", (B, N, H * vd), f32, dev)
+    build.require(diag_value, "diag_value", (B, N, H * vd), act, dev)
     build.require(centers, "centers", (De,), f32, dev)
     for name, t, shape in (
         ("wk1", wk1, (De, kd)), ("bk1", bk1, (kd,)), ("wk2", wk2, (kd, kd)),
@@ -286,7 +424,7 @@ def neighbor_attn_hybrid_cuda(
 def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
     """K1 (k, v, nbr) or K7 (k_nb, v_nb, no nbr): the checks, the output, the
     scratch, the launch and its count."""
-    global launches, launches_hybrid
+    global launches, launches_hybrid, launches_bf16
     if hybrid:
         B, N, K, H, kd, vd, De = _check_args(*args[:3], None, *args[3:], gathered=True)
     else:
@@ -295,8 +433,18 @@ def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
     qt = args[0]
     if stats is not None:
         build.require(stats, "stats", (4,), torch.int32, qt.device)
-    out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
+    out = torch.empty((B, N, H * vd), dtype=qt.dtype, device=qt.device)
     if B * N == 0:
+        return out
+    if qt.dtype == torch.bfloat16:  # K1's bfloat16 instance (the CUDA-core kernel)
+        fn = build.load("neighbor_attn").neighbor_attn_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_float, ctypes.c_void_p]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        status = fn(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
+                    B, N, K, H, kd, vd, De, build.stream_ptr(qt))
+        build.check(status, "neighbor_attn")
+        launches_bf16 += 1
         return out
     # the dead-weighted rows' unweighted sums (for the rows that copy them), the plan
     sums = torch.empty((B * N, H * vd), dtype=torch.float32, device=qt.device)
@@ -337,9 +485,12 @@ def neighbor_attn_bwd_cuda(*args, offsets, slots, cuda_cores=False, stats=None):
     to which the launch adds what it walked (rows skipped for a zero
     cotangent, rows taken with their live slots, rows taken whole, slots
     evaluated)."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_bf16
     grads = _bwd_cuda(args, offsets, slots, False, cuda_cores, stats)
-    launches_bwd += 1
+    if grads[0].dtype == torch.bfloat16:
+        launches_bwd_bf16 += 1
+    else:
+        launches_bwd += 1
     return grads
 
 
@@ -362,7 +513,7 @@ def _bwd_cuda(args, offsets, slots, hybrid: bool, cuda_cores: bool, stats):
     qt = inputs[0]
     dev = qt.device
     f32 = torch.float32
-    build.require(g, "g", (B, N, H * vd), f32, dev)
+    build.require(g, "g", (B, N, H * vd), qt.dtype, dev)
     build.require(offsets, "offsets", (B * N + 1,), torch.int32, dev)
     build.require(slots, "slots", (B * N * K,), torch.int32, dev)
     if stats is not None:
@@ -370,11 +521,35 @@ def _bwd_cuda(args, offsets, slots, hybrid: bool, cuda_cores: bool, stats):
     inputs = [build.aligned(t) for t in inputs]
     g, offsets, slots = (build.aligned(t) for t in (g, offsets, slots))
     empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
-    dqt, dk = empty(B, N, H * kd), empty(B, N, H * kd)
-    dv, dds, ddv = empty(B, N, H * vd), empty(B, N, H), empty(B, N, H * vd)
+    act = lambda *shape: torch.empty(shape, dtype=qt.dtype, device=dev)
+    dqt, dk = act(B, N, H * kd), act(B, N, H * kd)
+    dv, dds, ddv = act(B, N, H * vd), empty(B, N, H), act(B, N, H * vd)
     sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
     grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
-    if B * N:
+    if B * N and qt.dtype == torch.bfloat16:  # K1b's bfloat16 instance
+        lib = build.load("neighbor_attn_bwd")
+        blocks_fn = lib.neighbor_attn_bwd_bf16_blocks
+        blocks_fn.argtypes = [ctypes.c_int] * 7
+        blocks_fn.restype = ctypes.c_int
+        blocks = blocks_fn(B, N, K, H, kd, vd, De)
+        if blocks < 1:
+            raise ValueError(f"neighbor_attn backward kernel: shapes {(K, H, kd, vd, De)} not "
+                             "supported or one node's pair tensors exceed shared memory")
+        slots_n = B * N * K
+        scratch = (empty(slots_n, kd), empty(slots_n, vd), empty(slots_n, H), empty(slots_n, H),
+                   torch.empty(B * N, dtype=torch.int32, device=dev), empty(blocks, sum(sizes)))
+        fn = lib.neighbor_attn_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_float] + [ctypes.c_void_p] * 15
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        status = fn(
+            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(), offsets.data_ptr(),
+            slots.data_ptr(), dqt.data_ptr(), dk.data_ptr(), dv.data_ptr(), dds.data_ptr(),
+            ddv.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
+            B, N, K, H, kd, vd, De, blocks, build.stream_ptr(qt),
+        )
+        build.check(status, "neighbor_attn_bwd")
+    elif B * N:
         blocks_fn, fn = _bwd_fns(hybrid)
         blocks = blocks_fn(B, N, K, H, kd, vd, De, int(cuda_cores))
         if blocks < 1:

@@ -13,6 +13,18 @@ tensor cores where they take the shapes (``I <= 32``, ``C`` a multiple of
 ``s2_silu_sep`` goes through one ``torch.autograd.Function``: plain versions
 for CPU tensors, the kernels for CUDA tensors.
 
+K3 and K3b have bfloat16 instances (the bfloat16 training path's): their
+CUDA-core kernels at bfloat16 storage of x, scalars, the grid matrices
+(cast to bfloat16 by the caller, as the TPU kernel casts them to
+``x.dtype``) and the outputs, counted in ``launches_bf16`` and
+``launches_bwd_bf16``. They are the function ``_sep_fwd_kernel`` and
+``_sep_bwd_kernel`` compute at a bfloat16 x and round where those round:
+products summed in float32, ``silu(grid)`` rounded before the from-grid
+product, the row-0 gate ``silu(scalars)`` in float32; backward, ``h =
+silu'(v) u`` rounded before ``dx = tg^T h``; every output rounded once.
+``s2_silu_sep_bf16_plain`` and ``s2_silu_sep_bf16_bwd_plain`` are their
+plain twins. K5 has no bfloat16 instance (it is on no path).
+
 K5 replaces ``s2_act.py::s2_silu`` (``s2_silu_pallas``, ``_fwd_kernel``):
 ``from_grid . silu(to_grid . x)`` on every row, for any ``I`` up to 64. K5b
 replaces ``_bwd`` (``_bwd_kernel``): ``dx = to_grid^T (silu'(to_grid . x) *
@@ -31,25 +43,66 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from singa_tpu_torch.dtypes import rounded
 from singa_tpu_torch.ops.cuda import build
 
 launches = 0  # forward kernel launches through ``s2_silu_sep``
 launches_bwd = 0  # backward kernel launches through ``s2_silu_sep``
+launches_bf16 = 0  # its bfloat16 instance's forward launches (not in ``launches``)
+launches_bwd_bf16 = 0  # its bfloat16 instance's backward launches
 launches_silu = 0  # forward kernel launches through ``s2_silu``
 launches_silu_bwd = 0  # backward kernel launches through ``s2_silu``
+
+
+def _silu_grad(v: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(v)
+    return s * (1.0 + v * (1.0 - s))
 
 
 def s2_silu_sep_plain(
     x: torch.Tensor, scalars: torch.Tensor, to_grid: torch.Tensor, from_grid: torch.Tensor
 ) -> torch.Tensor:
-    """x [E, I, C], scalars [E, C], to_grid/from_grid [G, I] -> [E, I, C]."""
+    """x [E, I, C], scalars [E, C], to_grid/from_grid [G, I] -> [E, I, C].
+    A bfloat16 ``x`` takes the kernel's bfloat16 function
+    (``s2_silu_sep_bf16_plain``)."""
+    if x.dtype == torch.bfloat16:
+        return s2_silu_sep_bf16_plain(x, scalars, to_grid, from_grid)
     g = F.silu(torch.einsum("gi,eic->egc", to_grid, x))
     out = torch.einsum("gi,egc->eic", from_grid, g)
     return torch.cat([F.silu(scalars)[:, None, :], out[:, 1:]], dim=1)
 
 
+def s2_silu_sep_bf16_plain(x, scalars, to_grid, from_grid) -> torch.Tensor:
+    """K3's bfloat16 instance in plain PyTorch, rounding where
+    ``_sep_fwd_kernel`` rounds at a bfloat16 ``x``: the grid matrices in
+    bfloat16, both products summed in float32, ``silu(grid)`` rounded, the
+    row-0 gate ``silu(scalars)`` in float32, the output rounded."""
+    dt = x.dtype
+    grid = torch.einsum("gi,eic->egc", rounded(to_grid, dt), x.float())
+    out = torch.einsum("gi,egc->eic", rounded(from_grid, dt), rounded(F.silu(grid), dt))
+    return torch.cat([F.silu(scalars.float())[:, None, :], out[:, 1:]], dim=1).to(dt)
+
+
+def s2_silu_sep_bf16_bwd_plain(x, scalars, to_grid, from_grid, g):
+    """K3b's bfloat16 instance in plain PyTorch (``_sep_bwd_kernel``):
+    ``ds = silu'(s) g[:, 0]`` rounded to the scalars' dtype; the cotangent's
+    row 0 zeroed; ``h = silu'(tg x) (fg g)`` rounded before ``dx = tg^T h``,
+    which is rounded."""
+    dt = x.dtype
+    tg, fg = rounded(to_grid, dt), rounded(from_grid, dt)
+    gf = g.float()
+    ds = (_silu_grad(scalars.float()) * gf[:, 0]).to(scalars.dtype)
+    gf = torch.cat([torch.zeros_like(gf[:, :1]), gf[:, 1:]], dim=1)
+    grid = torch.einsum("gi,eic->egc", tg, x.float())
+    h = rounded(_silu_grad(grid) * torch.einsum("gi,eic->egc", fg, gf), dt)
+    return torch.einsum("gi,egc->eic", tg, h).to(dt), ds
+
+
 def s2_silu_sep_bwd_plain(x, scalars, to_grid, from_grid, g):
-    """(dx, dscalars) of ``s2_silu_sep_plain`` at cotangent ``g``."""
+    """(dx, dscalars) of ``s2_silu_sep_plain`` at cotangent ``g``; at a
+    bfloat16 ``x``, ``s2_silu_sep_bf16_bwd_plain``."""
+    if x.dtype == torch.bfloat16:
+        return s2_silu_sep_bf16_bwd_plain(x, scalars, to_grid, from_grid, g)
     with torch.enable_grad():
         x = x.detach().requires_grad_()
         scalars = scalars.detach().requires_grad_()
@@ -88,13 +141,16 @@ def sep_residency(I: int, C: int, G: int, bwd: bool = False) -> dict:
 
 
 def _check_args(x, scalars, to_grid, from_grid):
+    """Shapes, devices and dtypes: every tensor float32, or (the bfloat16
+    instance) every one bfloat16."""
     E, I, C = x.shape
     G = to_grid.shape[0]
     dev = x.device
-    build.require(x, "x", (E, I, C), torch.float32, dev)
-    build.require(scalars, "scalars", (E, C), torch.float32, dev)
-    build.require(to_grid, "to_grid", (G, I), torch.float32, dev)
-    build.require(from_grid, "from_grid", (G, I), torch.float32, dev)
+    dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    build.require(x, "x", (E, I, C), dt, dev)
+    build.require(scalars, "scalars", (E, C), dt, dev)
+    build.require(to_grid, "to_grid", (G, I), dt, dev)
+    build.require(from_grid, "from_grid", (G, I), dt, dev)
     return E, I, C, G
 
 
@@ -102,16 +158,21 @@ def s2_silu_sep_cuda(x, scalars, to_grid, from_grid, cuda_cores: bool = False) -
     """The K3 kernel: the tensor-core one where it takes the shapes
     (``s2_silu_sep_instance``), else the CUDA-core one; ``cuda_cores``: the
     CUDA-core one wherever it takes them (to time the two)."""
-    global launches
+    global launches, launches_bf16
     E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
     x, scalars, to_grid, from_grid = (build.aligned(t) for t in (x, scalars, to_grid, from_grid))
     out = torch.empty_like(x)
     if E == 0:
         return out
-    status = _fn("s2_silu_sep_f32", 5, 5)(
-        x.data_ptr(), scalars.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
-        out.data_ptr(), E, I, C, G, int(cuda_cores), build.stream_ptr(x),
-    )
+    ptrs = (x.data_ptr(), scalars.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
+            out.data_ptr())
+    if x.dtype == torch.bfloat16:  # the bfloat16 instance: the CUDA-core kernel
+        status = _fn("s2_silu_sep_bf16", 5)(*ptrs, E, I, C, G, build.stream_ptr(x))
+        build.check(status, "s2_silu_sep")
+        launches_bf16 += 1
+        return out
+    status = _fn("s2_silu_sep_f32", 5, 5)(*ptrs, E, I, C, G, int(cuda_cores),
+                                          build.stream_ptr(x))
     build.check(status, "s2_silu_sep")
     launches += 1
     return out
@@ -120,20 +181,24 @@ def s2_silu_sep_cuda(x, scalars, to_grid, from_grid, cuda_cores: bool = False) -
 def s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g, cuda_cores: bool = False):
     """(dx, dscalars) from the K3b kernel, chosen as ``s2_silu_sep_cuda``
     chooses K3's."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_bf16
     E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
-    build.require(g, "g", (E, I, C), torch.float32, x.device)
+    build.require(g, "g", (E, I, C), x.dtype, x.device)
     x, scalars, to_grid, from_grid, g = (build.aligned(t)
                                          for t in (x, scalars, to_grid, from_grid, g))
     dx = torch.empty_like(x)
     ds = torch.empty_like(scalars)
     if E == 0:
         return dx, ds
-    status = _fn("s2_silu_sep_bwd_f32", 7, 5)(
-        x.data_ptr(), scalars.data_ptr(), g.data_ptr(), to_grid.data_ptr(),
-        from_grid.data_ptr(), dx.data_ptr(), ds.data_ptr(), E, I, C, G, int(cuda_cores),
-        build.stream_ptr(x),
-    )
+    ptrs = (x.data_ptr(), scalars.data_ptr(), g.data_ptr(), to_grid.data_ptr(),
+            from_grid.data_ptr(), dx.data_ptr(), ds.data_ptr())
+    if x.dtype == torch.bfloat16:
+        status = _fn("s2_silu_sep_bwd_bf16", 7)(*ptrs, E, I, C, G, build.stream_ptr(x))
+        build.check(status, "s2_silu_sep_bwd")
+        launches_bwd_bf16 += 1
+        return dx, ds
+    status = _fn("s2_silu_sep_bwd_f32", 7, 5)(*ptrs, E, I, C, G, int(cuda_cores),
+                                              build.stream_ptr(x))
     build.check(status, "s2_silu_sep_bwd")
     launches_bwd += 1
     return dx, ds

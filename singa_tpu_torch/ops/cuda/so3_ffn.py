@@ -33,6 +33,26 @@ L-padded coefficient layout, 128-wide hidden chunks, node padding,
 transposed weight copies and tanh-form sigmoid exist for Mosaic and are not
 carried over.
 
+K2b also keeps the CUDA-core instance it had before its tensor-core
+kernels (``so3_gate_ffn_bwd_cc`` in ``csrc/so3_gate_ffn_bwd.cu``), chosen
+by shape before the launch (``so3_gate_ffn_bwd_instance``): it runs the
+float32 widths the tensor-core kernels refuse (32 sphere channels; lmax 7
+at 16 channels).
+
+K2 and K2b have bfloat16 instances (the bfloat16 training path's): the
+CUDA-core kernels at a bfloat16 x and y (dy and dx), the weights and biases
+float32, counted in ``launches_bf16`` and ``launches_bwd_bf16``. They are
+the function ``_gate_ffn_fwd_kernel`` and ``_gate_ffn_bwd_kernel`` compute
+at a bfloat16 x and round where those round: w1, wg and w2 cast to
+bfloat16 (the biases not); every product summed in float32; the gates
+``sigmoid(x0 wg + bg)`` rounded where they scale h and dmid (float32 in
+sigmoid'); the hidden after its activation rounded before the second
+product; dh rounded before dx and dw1 (db1 sums it unrounded); dg0
+rounded; y and dx rounded once. The six weight and bias gradients are
+float32, as in JAX. ``so3_gate_ffn_bf16_plain`` and
+``so3_gate_ffn_bf16_bwd_plain`` are their plain twins. K4 has no bfloat16
+instance yet: its wrapper refuses bfloat16.
+
 ``so3_gate_ffn`` and ``so3_ffn`` each go through one
 ``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
 CUDA tensors. Each kernel's C entry point refuses a shape it does not take
@@ -46,10 +66,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from singa_tpu_torch.dtypes import rounded
 from singa_tpu_torch.ops.cuda import build
 
 launches = 0  # forward kernel launches through ``so3_gate_ffn``
 launches_bwd = 0  # backward kernel launches through ``so3_gate_ffn``
+launches_bf16 = 0  # its bfloat16 instance's forward launches (not in ``launches``)
+launches_bwd_bf16 = 0  # its bfloat16 instance's backward launches
 launches_s2 = 0  # forward kernel launches through ``so3_ffn``
 launches_s2_bwd = 0  # backward kernel launches through ``so3_ffn``
 
@@ -61,7 +84,10 @@ def _l_of(lmax: int, device) -> torch.Tensor:
 
 def so3_gate_ffn_plain(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     """x [N, I, C]; w1 [L, C, H]; b1 [H]; wg [C, lmax*H]; bg [lmax*H];
-    w2 [L, H, Co]; b2 [Co] -> [N, I, Co]."""
+    w2 [L, H, Co]; b2 [Co] -> [N, I, Co]. A bfloat16 ``x`` takes the
+    kernel's bfloat16 function (``so3_gate_ffn_bf16_plain``)."""
+    if x.dtype == torch.bfloat16:
+        return so3_gate_ffn_bf16_plain(x, w1, b1, wg, bg, w2, b2, lmax)
     N = x.shape[0]
     H = w1.shape[2]
     l_of = _l_of(lmax, x.device)
@@ -74,14 +100,73 @@ def so3_gate_ffn_plain(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
     return torch.cat([y[:, :1] + b2, y[:, 1:]], dim=1)
 
 
+def so3_gate_ffn_bf16_plain(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
+    """K2's bfloat16 instance in plain PyTorch, rounding where
+    ``_gate_ffn_fwd_kernel`` rounds at a bfloat16 ``x``: w1, wg and w2 cast
+    to bfloat16 (the biases stay float32), products summed in float32, the
+    gates ``sigmoid(x0 wg + bg)`` rounded, the hidden after its activation
+    rounded before the second product, the output rounded."""
+    dt = x.dtype
+    N = x.shape[0]
+    H = w1.shape[2]
+    l_of = _l_of(lmax, x.device)
+    xf = x.float()
+    gates = rounded(torch.sigmoid(xf[:, 0, :] @ rounded(wg, dt) + bg), dt).reshape(N, lmax, H)
+    h = torch.einsum("nic,ich->nih", xf, rounded(w1, dt).index_select(0, l_of))
+    mid = torch.cat(
+        [F.silu(h[:, :1] + b1), h[:, 1:] * gates.index_select(1, l_of[1:] - 1)], dim=1
+    )
+    y = torch.einsum("nih,iho->nio", rounded(mid, dt), rounded(w2, dt).index_select(0, l_of))
+    return torch.cat([y[:, :1] + b2, y[:, 1:]], dim=1).to(dt)
+
+
 def so3_gate_ffn_bwd_plain(x, w1, b1, wg, bg, w2, lmax: int, dy):
     """(dx, dw1, db1, dwg, dbg, dw2, db2) of ``so3_gate_ffn_plain`` at
-    cotangent ``dy``."""
+    cotangent ``dy``; at a bfloat16 ``x``, ``so3_gate_ffn_bf16_bwd_plain``."""
+    if x.dtype == torch.bfloat16:
+        return so3_gate_ffn_bf16_bwd_plain(x, w1, b1, wg, bg, w2, lmax, dy)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (x, w1, b1, wg, bg, w2)]
         b2 = x.new_zeros((w2.shape[2],), requires_grad=True)
         y = so3_gate_ffn_plain(*leaves, b2, lmax)
         return torch.autograd.grad(y, (*leaves, b2), dy)
+
+
+def so3_gate_ffn_bf16_bwd_plain(x, w1, b1, wg, bg, w2, lmax: int, dy):
+    """K2b's bfloat16 instance in plain PyTorch, rounding where
+    ``_gate_ffn_bwd_kernel`` rounds: the weights cast to bfloat16; h and
+    dmid = dy w2^T in float32; the gates rounded where they scale h and
+    dmid, but float32 in sigmoid'; mid and dh rounded before their products
+    (db1 sums dh unrounded); dg0 rounded. dx is bfloat16, the six weight and
+    bias gradients float32."""
+    dt = x.dtype
+    N = x.shape[0]
+    L, _, H = w1.shape
+    l_of = _l_of(lmax, x.device)
+    xf, dyf = x.float(), dy.float()
+    w1e = rounded(w1, dt).index_select(0, l_of)  # [I, C, H]
+    w2e = rounded(w2, dt).index_select(0, l_of)  # [I, H, Co]
+    wgr = rounded(wg, dt)
+    x0 = xf[:, 0, :]
+    gf = torch.sigmoid(x0 @ wgr + bg)  # [N, lmax*H] float32
+    g_rows = rounded(gf, dt).reshape(N, lmax, H).index_select(1, l_of[1:] - 1)
+    h = torch.einsum("nic,ich->nih", xf, w1e)
+    dmid = torch.einsum("nio,iho->nih", dyf, w2e)
+    hb = h[:, 0] + b1
+    s = torch.sigmoid(hb)
+    mid = rounded(torch.cat([F.silu(hb)[:, None], h[:, 1:] * g_rows], dim=1), dt)
+    dh = torch.cat([(s * (1.0 + hb * (1.0 - s)) * dmid[:, 0])[:, None], dmid[:, 1:] * g_rows],
+                   dim=1)
+    dgates = torch.zeros((N, lmax, H), device=x.device).index_add_(
+        1, l_of[1:] - 1, dmid[:, 1:] * h[:, 1:])
+    dg0 = rounded(gf * (1.0 - gf) * dgates.reshape(N, lmax * H), dt)
+    dhc = rounded(dh, dt)
+    dw1 = torch.zeros_like(w1).index_add_(0, l_of, torch.einsum("nic,nih->ich", xf, dhc))
+    dw2 = torch.zeros_like(w2).index_add_(0, l_of, torch.einsum("nih,nio->iho", mid, dyf))
+    dx = torch.einsum("nih,ich->nic", dhc, w1e)
+    dx = torch.cat([dx[:, :1] + (dg0 @ wgr.t())[:, None], dx[:, 1:]], dim=1)
+    return (dx.to(dt), dw1, dh[:, 0].sum(0), x0.t() @ dg0, dg0.sum(0), dw2,
+            dyf[:, 0].sum(0))
 
 
 def _fns():
@@ -149,7 +234,7 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
     tensor-core kernel runs where it takes the widths (``so3_gate_ffn_instance``),
     else the CUDA-core one; ``cuda_cores``: the CUDA-core one wherever it
     takes them (to time the two)."""
-    global launches
+    global launches, launches_bf16
     N, I, C = x.shape
     L = lmax + 1
     H = w1.shape[2]
@@ -157,7 +242,8 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
     dev = x.device
     if I != L * L:
         raise ValueError(f"x has {I} coefficient rows, expected {(L * L)} at lmax {lmax}")
-    build.require(x, "x", (N, I, C), torch.float32, dev)
+    bf16 = x.dtype == torch.bfloat16
+    build.require(x, "x", (N, I, C), torch.bfloat16 if bf16 else torch.float32, dev)
     build.require(w1, "w1", (L, C, H), torch.float32, dev)
     build.require(b1, "b1", (H,), torch.float32, dev)
     build.require(wg, "wg", (C, lmax * H), torch.float32, dev)
@@ -167,6 +253,16 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
     x, w1, b1, wg, bg, w2, b2 = (build.aligned(t) for t in (x, w1, b1, wg, bg, w2, b2))
     out = torch.empty((N, I, Co), dtype=x.dtype, device=dev)
     if N == 0:
+        return out
+    if bf16:  # the bfloat16 instance: the CUDA-core kernel at bfloat16 x and y
+        fn = build.load("so3_gate_ffn").so3_gate_ffn_bf16
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        status = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(), bg.data_ptr(),
+                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), N, lmax, C, H, Co,
+                    build.stream_ptr(x))
+        build.check(status, "so3_gate_ffn")
+        launches_bf16 += 1
         return out
     words_fn, fn = _fns()
     # the tensor-core kernel's weights, split into TF32 fragments once a call
@@ -184,17 +280,55 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
     return out
 
 
+def so3_gate_ffn_bwd_instance(lmax: int, C: int, H: int, Co: int) -> str | None:
+    """Which of K2b's kernels runs these widths at float32 (any N):
+    "tensor_cores", "cuda_cores", or None for a shape neither takes. The
+    bfloat16 instance is the CUDA-core one. Launches nothing."""
+    fn = build.load("so3_gate_ffn_bwd").so3_gate_ffn_bwd_instance
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(lmax, C, H, Co))
+
+
+def _bwd_cc(x, w1, b1, wg, bg, w2, lmax, dy, dx, grads):
+    """K2b's CUDA-core instance (float32, or bfloat16 at a bfloat16 x) into
+    ``dx`` and the flat ``grads``."""
+    N, _, C = x.shape
+    H, Co = w1.shape[2], w2.shape[2]
+    bf16 = int(x.dtype == torch.bfloat16)
+    lib = build.load("so3_gate_ffn_bwd")
+    slices_fn = lib.so3_gate_ffn_bwd_cc_slices
+    slices_fn.argtypes = [ctypes.c_int] * 6
+    slices_fn.restype = ctypes.c_int
+    slices = slices_fn(N, lmax, C, H, Co, bf16)
+    if slices < 1:
+        raise ValueError(f"so3_gate_ffn backward kernel: {C} input / {Co} output channels at "
+                         f"lmax {lmax} not supported or its tiles exceed shared memory")
+    partial = torch.empty((slices, grads.numel()), dtype=torch.float32, device=x.device)
+    fn = lib.so3_gate_ffn_bwd_cc
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(),
+                bg.data_ptr(), w2.data_ptr(), dx.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+                N, lmax, C, H, Co, slices, bf16, build.stream_ptr(x))
+    build.check(status, "so3_gate_ffn_bwd")
+
+
 def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
-    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K2b kernels."""
-    global launches_bwd
+    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K2b kernels: the
+    tensor-core ones where they take the widths (``so3_gate_ffn_bwd_instance``),
+    else the CUDA-core instance, which is also the bfloat16 one (x, dy and
+    dx bfloat16)."""
+    global launches_bwd, launches_bwd_bf16
     N, _, C = x.shape
     L = lmax + 1
     H = w1.shape[2]
     Co = w2.shape[2]
     dev = x.device
     f32 = torch.float32
-    build.require(x, "x", (N, L * L, C), f32, dev)
-    build.require(dy, "dy", (N, L * L, Co), f32, dev)
+    act = torch.bfloat16 if x.dtype == torch.bfloat16 else f32
+    build.require(x, "x", (N, L * L, C), act, dev)
+    build.require(dy, "dy", (N, L * L, Co), act, dev)
     build.require(w1, "w1", (L, C, H), f32, dev)
     build.require(b1, "b1", (H,), f32, dev)
     build.require(wg, "wg", (C, lmax * H), f32, dev)
@@ -206,6 +340,12 @@ def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
     grads = torch.empty(sum(sizes), dtype=f32, device=dev)
     if N == 0:
         grads.zero_()
+    elif act != f32 or so3_gate_ffn_bwd_instance(lmax, C, H, Co) != "tensor_cores":
+        _bwd_cc(x, w1, b1, wg, bg, w2, lmax, dy, dx, grads)
+        if act == f32:
+            launches_bwd += 1
+        else:
+            launches_bwd_bf16 += 1
     else:
         slices_fn, words_fn, fn = _bwd_fns()
         slices = slices_fn(N, lmax, C, H, Co)

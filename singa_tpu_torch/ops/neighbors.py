@@ -66,6 +66,24 @@ def _table_sum(v: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x.index_select(0, idx)`` whose backward sums the cotangent rows in
+    float32 and rounds once, as the JAX engine's gathers do; autograd's own
+    backward of a bfloat16 gather would add them in bfloat16."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros((ctx.n, g.shape[1]), dtype=torch.float32, device=g.device)
+        return acc.index_add_(0, idx, g.float()).to(g.dtype), None
+
+
 class EdgeEngine(NamedTuple):
     """Flat-index edge operations over one merged (src-set, dst-set) pair.
     All ids are global (graph offset folded in); padded edges point at row 0
@@ -104,7 +122,11 @@ class EdgeEngine(NamedTuple):
 
     def _gather(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         orig = x.shape[1:]
-        out = x.reshape(x.shape[0], -1).index_select(0, idx)
+        x2 = x.reshape(x.shape[0], -1)
+        if x2.dtype == torch.float32:
+            out = x2.index_select(0, idx)
+        else:
+            out = _GatherRows.apply(x2, idx)
         out = out * self.mask[:, None].to(out.dtype)
         return out.reshape((-1,) + orig)
 

@@ -5,14 +5,20 @@ reference train.py).
 
 The step runs the full SINGA forward (both embedding stages, the kNN encoder,
 Encoder2 and the teacher-forced decoder), the token cross-entropy, the
-backward through the hand-written kernels and one Adam update, in float32
-with TF32 off. The JAX package's data-parallel mesh is not ported; one
-process trains on one device.
+backward through the hand-written kernels and one Adam update, with TF32
+off, at the config's ``train.compute_dtype``: float32, or bfloat16 as the
+JAX package's mixed precision (``singa_tpu_torch/dtypes.py``: parameters,
+geometry, Adam state and checkpoints float32, network compute bfloat16,
+weight gradients float32). bfloat16 runs where every kernel of the path has
+a bfloat16 instance: the gate FFN (K2/K2b), the separable S2 attention
+(K3/K3b) and neighbour-list encoder attention (K1/K1b), ``Config()``'s
+path. The JAX package's data-parallel mesh is not ported; one process
+trains on one device.
 
 CLI: python -m singa_tpu_torch.train.loop --data data/corpus --max-iters 2
-[--config configs/train_corpus.yml]. A config file, like ``Config()``
-without one, runs with ``train.compute_dtype`` set to float32; ``Trainer``
-itself refuses any other precision.
+[--config configs/train.yml]. The CLI keeps a config's bfloat16 on that
+path and runs any other path in float32 (``training_config``), printing
+which; ``Trainer`` itself refuses bfloat16 off that path, and float16.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from singa_tpu_torch.config import Config, load_config
 from singa_tpu_torch.data.batch import ComplexBatch
 from singa_tpu_torch.data.dataset import BucketedNpzDataset, SyntheticDataset
 from singa_tpu_torch.data.pipeline import Prefetcher
+from singa_tpu_torch.dtypes import compute_dtype_scope
 from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
 from singa_tpu_torch.train.checkpointing import CheckpointManager, save_config
 from singa_tpu_torch.train.optim import (
@@ -62,25 +69,77 @@ class MetricsWriter:
 
 
 def float32_config(cfg: Config) -> Config:
-    """``cfg`` with float32 compute, the only precision the port trains in."""
+    """``cfg`` with float32 compute."""
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
 
 
+def bf16_blockers(config: Config) -> list[str]:
+    """The kernels without a bfloat16 instance that training ``config`` runs,
+    with the option or switch that selects each (read now, as the modules
+    read them at every call); empty on the path that trains in bfloat16."""
+    from singa_tpu_torch.equivariant.attention import _fused_so2_enabled
+    from singa_tpu_torch.models.neighbor_graph import _dense_attn, _hybrid_attn
+
+    emb = config.embedding
+    out = []
+    if emb.ffn_activation != "gate":
+        out.append(f"K4/K4b (ffn_activation: {emb.ffn_activation})")
+    if _fused_so2_enabled() and emb.mmax == 2 and emb.attn_hidden_channels % 128 == 0:
+        out.append("K6/K6b (SINGA_TPU_FUSED_SO2)")
+    if _dense_attn():
+        out.append("K8/K8b (SINGA_TPU_DENSE_ATTN)")
+    elif _hybrid_attn():
+        out.append("K7/K7b (SINGA_TPU_HYBRID_ATTN)")
+    return out
+
+
+def check_precision(config: Config) -> None:
+    """Raise unless the port trains ``config`` at its precision: float32
+    parameters, and float32 compute, or bfloat16 where every kernel of the
+    path has a bfloat16 instance (``bf16_blockers``)."""
+    tc = config.train
+    if tc.param_dtype != "float32" or tc.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"compute_dtype {tc.compute_dtype!r} / param_dtype {tc.param_dtype!r}: the port "
+            "trains float32 parameters in float32 or bfloat16 compute only"
+        )
+    blockers = bf16_blockers(config) if tc.compute_dtype == "bfloat16" else []
+    if blockers:
+        raise ValueError(
+            f"compute_dtype 'bfloat16': this path trains in float32 only; "
+            f"{', '.join(blockers)} have no bfloat16 instance yet (ROADMAP, Queue 1 item 4: "
+            "bf16 training)"
+        )
+
+
+def training_config(cfg: Config) -> tuple[Config, str]:
+    """The CLI's precision: ``cfg`` as it is where ``check_precision`` takes
+    it, else with float32 compute; and the line that says which."""
+    tc = cfg.train
+    blockers = bf16_blockers(cfg) if tc.compute_dtype == "bfloat16" else []
+    if tc.compute_dtype == "float32" or (tc.compute_dtype == "bfloat16" and not blockers):
+        return cfg, f"train.compute_dtype={tc.compute_dtype}"
+    why = f": {', '.join(blockers)} have no bfloat16 instance yet" if blockers else ""
+    return float32_config(cfg), (
+        f"train.compute_dtype=float32 (the port trains this path in float32, not in the "
+        f"config's {tc.compute_dtype}{why}; ROADMAP, Queue 1 item 4)"
+    )
+
+
 def check_float32(config: Config) -> None:
-    """Raise unless ``config`` trains in float32, the port's only precision."""
+    """Raise unless ``config`` trains in float32 (the GAN's precision)."""
     tc = config.train
     if tc.compute_dtype != "float32" or tc.param_dtype != "float32":
         raise ValueError(
             f"compute_dtype {tc.compute_dtype!r} / param_dtype {tc.param_dtype!r}: the "
-            "port trains in float32 only; bfloat16 training needs bf16 versions of the "
-            "fourteen kernels the training paths run, K1-K4 and K6-K8 and their "
-            "backwards (ROADMAP, Queue 1: bf16 training)"
+            "GAN trains in float32 only; bfloat16 adversarial training is ROADMAP, "
+            "Queue 1 item 4 (bf16 training)"
         )
 
 
 class Trainer:
     def __init__(self, config: Config, logdir: str = "runs/default", device="cuda"):
-        check_float32(config)
+        check_precision(config)
         tc = config.train
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -125,8 +184,9 @@ class Trainer:
         total = torch.zeros((), device=self.device)
         for i in range(k):
             mb = batch if k == 1 else batch.rows(i * micro, (i + 1) * micro)
-            loss = self.loss(mb)
-            (loss / k).backward()
+            with compute_dtype_scope(self.config.train.compute_dtype):
+                loss = self.loss(mb)
+                (loss / k).backward()
             total = total + loss.detach()
         gnorm = global_norm(self.params)
         ocfg = self.config.train.optimizer
@@ -138,7 +198,8 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: ComplexBatch) -> torch.Tensor:
         self.model.eval()
-        return self.loss(batch)
+        with compute_dtype_scope(self.config.train.compute_dtype):
+            return self.loss(batch)
 
     def validate(self, dataset) -> float:
         losses = [float(self.eval_step(b.to(self.device))) for b in dataset.epoch()]
@@ -244,9 +305,8 @@ def main(argv=None):
     if args.timestamped:
         args.logdir = f"{args.logdir}_{time.strftime('%Y_%m_%d__%H_%M_%S')}"
 
-    cfg = float32_config(load_config(args.config) if args.config else Config())
-    print(f"config: {args.config or 'Config()'} with train.compute_dtype=float32 "
-          "(the port trains in float32)")
+    cfg, precision = training_config(load_config(args.config) if args.config else Config())
+    print(f"config: {args.config or 'Config()'} with {precision}")
     bs = args.batch_size or cfg.train.batch_size
 
     if args.synthetic or not args.data:

@@ -1197,31 +1197,132 @@ def test_kernels_refuse_shapes_they_do_not_take(dev):
     for call in refused:
         with pytest.raises(ValueError, match="does not take these shapes"):
             call()
-    with pytest.raises(ValueError, match="32 input / 32 output channels at lmax 2 not supported"):
-        k2.so3_gate_ffn_bwd_cuda(f(3, 9, 32), f(3, 32, 32), f(32), f(32, 64), f(64), f(3, 32, 32),
-                                 2, f(3, 9, 32))
-    # lmax 7 at 16 channels in and out: the weight kernel's tiles (244,608 B)
-    # and the dx kernel's (259,072 B) exceed shared memory
-    with pytest.raises(ValueError, match="16 input / 16 output channels at lmax 7 not supported"):
-        k2.so3_gate_ffn_bwd_cuda(f(3, 64, 16), f(8, 16, 8), f(8), f(16, 56), f(56), f(8, 8, 16),
-                                 7, f(3, 64, 16))
+    # 6 input channels: neither K2b's tensor-core kernels (8 or 16) nor its
+    # CUDA-core instance (a multiple of 4) takes them
+    with pytest.raises(ValueError, match="6 input / 8 output channels at lmax 2 not supported"):
+        k2.so3_gate_ffn_bwd_cuda(f(3, 9, 6), f(3, 6, 32), f(32), f(6, 64), f(64), f(3, 32, 8),
+                                 2, f(3, 9, 8))
 
 
 @pytest.mark.cuda
 def test_so3_gate_ffn_at_32_channels_trains_no_step(dev):
-    """A deliberate difference from the JAX package: the gate FFN block at
-    sphere_channels 32 runs its forward (K2) on the card, and its backward
-    (K2b, whose weight kernel takes 8 or 16 channels) raises ValueError, so
-    a training step at that width stops at its first backward."""
+    """The gate FFN block at sphere_channels 32 trains on the card: K2's
+    forward, and K2b's backward on its CUDA-core instance (its tensor-core
+    kernels take 8 or 16 channels), chosen by shape before the launch; the
+    gradients equal the plain backward's to BWD tolerance (1e-4 of each
+    output's largest). So do lmax 7 at 16 channels in and out, whose
+    tensor-core tiles exceed shared memory. (The name is kept from when
+    this width trained no step.)"""
     from singa_tpu_torch.equivariant.attention import FeedForwardNetwork
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
 
-    ffn = FeedForwardNetwork(32, 64, 32, 2, "gate", device=dev)
-    ffn.init_params(torch.Generator().manual_seed(5))
-    x = torch.randn(3, 9, 32, generator=torch.Generator().manual_seed(6)).to(dev).requires_grad_()
-    y = ffn(x)
-    assert torch.isfinite(y).all()
-    with pytest.raises(ValueError, match="32 input / 32 output channels at lmax 2 not supported"):
+    assert k2.so3_gate_ffn_bwd_instance(2, 32, 64, 32) == "cuda_cores"
+    assert k2.so3_gate_ffn_bwd_instance(7, 16, 8, 16) == "cuda_cores"
+    assert k2.so3_gate_ffn_bwd_instance(6, 16, 512, 16) == "tensor_cores"
+    for C, H, lmax in ((32, 64, 2), (16, 8, 7)):
+        ffn = FeedForwardNetwork(C, H, C, lmax, "gate", device=dev)
+        ffn.init_params(torch.Generator().manual_seed(5))
+        x = torch.randn(3, (lmax + 1) ** 2, C, generator=torch.Generator().manual_seed(6))
+        x = x.to(dev).requires_grad_()
+        before = k2.launches_bwd
+        y = ffn(x)
+        assert torch.isfinite(y).all()
         y.square().sum().backward()
+        assert k2.launches_bwd == before + 1
+        args = (x.detach(), ffn.w1.transpose(1, 2).contiguous(), ffn.b1, ffn.gate_kernel,
+                ffn.gate_bias, ffn.w2.transpose(1, 2).contiguous())
+        want = k2.so3_gate_ffn_bwd_plain(*args, lmax, 2 * y.detach())
+        got = (x.grad, ffn.w1.grad.transpose(1, 2), ffn.b1.grad, ffn.gate_kernel.grad,
+               ffn.gate_bias.grad, ffn.w2.grad.transpose(1, 2), ffn.b2.grad)
+        for a, b in zip(got, want):
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+BF16_TOL = 1e-2  # chip_smoke.py's hold of a bfloat16 instance
+
+
+def _check_bf16(got, want, names):
+    """A bfloat16 instance against its bfloat16 plain twin, as
+    ``chip_smoke.py`` holds it: the same dtype, each output within 1e-2 of
+    its largest magnitude. Both round the same values at the same points and
+    sum in another order, so a value on a rounding boundary lands a
+    bfloat16 step (2^-8 relative) away and carries into what follows."""
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BF16_TOL * b.float().abs().max().item(), (name, err)
+
+
+def _bf16(args, at):
+    return [a.to(torch.bfloat16) if i in at else a for i, a in enumerate(args)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random_k24", "random_k96", "path"])
+def test_neighbor_attn_bf16_instance_matches_its_twin(dev, case):
+    """K1's and K1b's bfloat16 instances (qt, k, v, diag_value and the
+    cotangent bfloat16) against ``neighbor_attn_bf16_plain`` and its
+    backward, counted in ``launches_bf16`` / ``launches_bwd_bf16`` and not in
+    the float32 counters; K7 refuses bfloat16."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    args = _bf16(_list_bwd_case(dev, case), (0, 1, 2, 7, 18))
+    *fwd, coeff, g = args
+    n = (k1.launches, k1.launches_bwd, k1.launches_bf16, k1.launches_bwd_bf16)
+    got = k1.neighbor_attn_cuda(*fwd, coeff)
+    _check_bf16([got], [k1.neighbor_attn_plain(*fwd, coeff)], ["out"])
+    offsets, slots = k1.transpose_slots(args[3])
+    grads = k1.neighbor_attn_bwd_cuda(*args, offsets=offsets, slots=slots)
+    _check_bf16(grads, k1.neighbor_attn_bwd_plain(*args), BWD_NAMES)
+    assert (k1.launches, k1.launches_bwd, k1.launches_bf16, k1.launches_bwd_bf16) == (
+        n[0], n[1], n[2] + 1, n[3] + 1)
+    with pytest.raises(ValueError, match="dtype"):
+        k1.neighbor_attn_hybrid_cuda(*_as_hybrid(fwd)[:3], *fwd[4:], coeff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C", [(6, 37, 512, 16), (6, 2003, 512, 16), (4, 8, 40, 32),
+                                        (2, 3, 64, 12)])
+def test_so3_gate_ffn_bf16_instance_matches_its_twin(dev, lmax, N, H, C):
+    """K2's and K2b's bfloat16 instances (x, y, dy and dx bfloat16, the
+    weights float32) against their bfloat16 twins: the main path's widths,
+    several weight-kernel slices, 32 and 12 channels; K4 refuses bfloat16."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    L = lmax + 1
+    rng = np.random.default_rng(83 + N)
+    f = lambda *s: _t(rng.normal(size=s).astype(np.float32), dev)
+    args = [f(N, L * L, C).to(torch.bfloat16), 0.3 * f(L, C, H), 0.1 * f(H),
+            0.3 * f(C, lmax * H), 0.1 * f(lmax * H), 0.1 * f(L, H, C), 0.1 * f(C)]
+    dy = f(N, L * L, C).to(torch.bfloat16)
+    n = (k2.launches, k2.launches_bwd, k2.launches_bf16, k2.launches_bwd_bf16)
+    _check_bf16([k2.so3_gate_ffn_cuda(*args, lmax)], [k2.so3_gate_ffn_plain(*args, lmax)], ["y"])
+    _check_bf16(k2.so3_gate_ffn_bwd_cuda(*args[:6], lmax, dy),
+                k2.so3_gate_ffn_bwd_plain(*args[:6], lmax, dy),
+                ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+    assert (k2.launches, k2.launches_bwd, k2.launches_bf16, k2.launches_bwd_bf16) == (
+        n[0], n[1], n[2] + 1, n[3] + 1)
+    with pytest.raises(ValueError, match="dtype"):
+        k2.so3_ffn_cuda(args[0], args[1], args[2], f(C, H), f(H), args[5], args[6],
+                        f(20, L * L), f(20, L * L), lmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,lmax", SEP_CASES)
+def test_s2_silu_sep_bf16_instance_matches_its_twin(dev, E, C, lmax):
+    """K3's and K3b's bfloat16 instances (x, scalars, the grid matrices, the
+    cotangent and every output bfloat16) against their bfloat16 twins."""
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    x, s, tg, fg, g = (a.to(torch.bfloat16) for a in _sep_case(dev, E, C, lmax, 67 + E, True))
+    n = (k3.launches, k3.launches_bwd, k3.launches_bf16, k3.launches_bwd_bf16)
+    _check_bf16([k3.s2_silu_sep_cuda(x, s, tg, fg)], [k3.s2_silu_sep_plain(x, s, tg, fg)],
+                ["out"])
+    _check_bf16(k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g), k3.s2_silu_sep_bwd_plain(x, s, tg, fg, g),
+                ["dx", "ds"])
+    assert (k3.launches, k3.launches_bwd, k3.launches_bf16, k3.launches_bwd_bf16) == (
+        n[0], n[1], n[2] + 1, n[3] + 1)
 
 
 def _so2_case(dev, E, lmax, C, H, F2, alpha_ch, seed):

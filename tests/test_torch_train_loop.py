@@ -171,15 +171,43 @@ def test_prefetcher_hands_over_every_batch_and_errors():
 # ---------------------------------------------------------------- trainer
 
 
-def test_trainer_refuses_other_precisions():
-    from singa_tpu_torch.train.loop import Trainer
+def test_trainer_refuses_other_precisions(tmp_path, monkeypatch):
+    """bfloat16 is the precision of Config()'s path (gate FFN, neighbour-list
+    attention, separable S2): Trainer takes it there. It refuses it, naming
+    ROADMAP, wherever a kernel without a bfloat16 instance would run: the s2
+    FFN (K4/K4b), SINGA_TPU_FUSED_SO2 (K6/K6b), SINGA_TPU_HYBRID_ATTN
+    (K7/K7b), SINGA_TPU_DENSE_ATTN (K8/K8b); float16 everywhere. The CLI's
+    training_config keeps bfloat16 on the gate path and coerces to float32,
+    saying why, only on the refused ones."""
+    from singa_tpu_torch.train.loop import Trainer, training_config
 
     _, cfg = _tiny()
     bf16 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
-    with pytest.raises(ValueError, match="float32 only") as refused:
-        Trainer(bf16, logdir="unused", device="cpu")
-    # the kernels bf16 training would need: every kernel the training paths run
-    assert "fourteen kernels" in str(refused.value) and "K1-K4 and K6-K8" in str(refused.value)
+    Trainer(bf16, logdir=str(tmp_path / "gate"), device="cpu")
+    assert training_config(bf16) == (bf16, "train.compute_dtype=bfloat16")
+    emb = lambda c, **kw: dataclasses.replace(c, embedding=dataclasses.replace(c.embedding, **kw))
+    cases = [
+        (emb(bf16, ffn_activation="s2"), None, "K4/K4b"),
+        (emb(bf16, attn_hidden_channels=128), "SINGA_TPU_FUSED_SO2", "K6/K6b"),
+        (bf16, "SINGA_TPU_HYBRID_ATTN", "K7/K7b"),
+        (bf16, "SINGA_TPU_DENSE_ATTN", "K8/K8b"),
+    ]
+    for i, (c, var, kernels) in enumerate(cases):
+        with monkeypatch.context() as m:
+            if var:
+                m.setenv(var, "1")
+            with pytest.raises(ValueError, match="float32 only") as refused:
+                Trainer(c, logdir=str(tmp_path / f"r{i}"), device="cpu")
+            assert kernels in str(refused.value) and "ROADMAP" in str(refused.value)
+            f32, line = training_config(c)
+            assert f32.train.compute_dtype == "float32" and f32.embedding == c.embedding
+            assert line.startswith("train.compute_dtype=float32") and kernels in line
+            assert "ROADMAP" in line
+            Trainer(f32, logdir=str(tmp_path / f"f{i}"), device="cpu")
+    for i, c in enumerate((bf16, emb(bf16, ffn_activation="s2"))):
+        f16 = dataclasses.replace(c, train=dataclasses.replace(c.train, compute_dtype="float16"))
+        with pytest.raises(ValueError, match="'float16'"):
+            Trainer(f16, logdir=str(tmp_path / f"h{i}"), device="cpu")
 
 
 def test_trainer_fit_writes_metrics_and_a_checkpoint_that_restores(tmp_path):
