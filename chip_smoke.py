@@ -266,6 +266,22 @@ transforms,
 K1's and K7's EdgeMLPs and K6's and K6b's products run as split TF32
 inside the kernels,
 csrc/mma_tf32.cuh, to float32 round-off).
+
+The bfloat16 phases (kernel_train_bf16, kernel_bwd_bf16, train_bf16,
+train_profile_bf16, train_cli_bf16; configs/train.yml at its own
+bfloat16, 12 launches a step of each bfloat16 instance, every float32
+count 0) hold each instance to its bfloat16 twin within ``BF16_TOL`` of
+each output's largest. K1b's and K2b's bfloat16 instances run their
+tensor-core kernels at bfloat16 storage, one TF32 product for each product
+of two bfloat16 values (exact in float32): their lines carry
+``bound_tc_ms`` at that one product (``tf32_products``) and
+``cuda_cores`` (their CUDA-core instances at the same call, held to the
+twin the same way; K1b's also ``walks``), the kernels line their
+``cuda_cores_ms``, ptxas and residency (K2b's dx kernel's as
+``dx_residency``); every train_profile* phase requires the tensor-core
+kernels of K1b/K7b and K2b to have run (their pair kernel and weight split
+once a call, no CUDA-core kernel of theirs). train_bf16_vs_f32 sets the
+bfloat16 step's time, device busy time and peak memory beside float32's.
 """
 from __future__ import annotations
 
@@ -328,11 +344,16 @@ DENSE_ATTN = "SINGA_TPU_DENSE_ATTN"  # the encoder's switch to kernel K8 (wins o
 SO2_GEMM = "so2::gemm_kernel"  # K6's and K6b's GEMM kernels in a profile (csrc/so2_chain.cuh)
 # K2b's kernels in a profile (csrc/so3_gate_ffn_bwd.cu); sum_rows_kernel is
 # also the second pass of K1b's, K4b's, K6b's and K8b's sums
+# (the dx and weight kernels' names match their CUDA-core instances' too,
+# which K2B_CC counts apart; the split runs once a tensor-core call)
 K2B_KERNELS = ("gate_ffn_bwd_dx_kernel", "gate_ffn_bwd_w_kernel", "gate_ffn_bwd_wsplit_kernel",
                "sum_rows_kernel")
+K2B_CC = "cc::gate_ffn_bwd"
 # K1b's and K7b's kernels in a profile (csrc/neighbor_attn_bwd.cu): the
-# tensor-core pair kernel, the plan, the dk/dv stage, the sums' second pass
+# tensor-core pair kernel, the plan, the dk/dv stage, the sums' second
+# pass; K1B_CC their CUDA-core pair kernel
 K1B_KERNELS = ("list_bwd_pair_kernel", "list_plan_kernel", "list_dkdv_kernel", "sum_rows_kernel")
+K1B_CC = "list_bwd_cc_kernel"
 # K1's and K7's kernels in a profile (csrc/neighbor_attn.cu): the tensor-core
 # tile kernel, the plan and the copies of dead-weighted rows
 K1_KERNELS = ("list_fwd_tile_kernel", "list_fwd_plan_kernel", "list_fwd_copy_kernel")
@@ -825,31 +846,39 @@ def k1b_split_flops(args) -> float:
     return float(nbr_mask.sum().item()) * per_pair
 
 
+def cuda_cores_report(spec, mod, args, kw) -> dict:
+    """A backward's CUDA-core instance, which every shape its tensor-core
+    kernels do not take runs, at the same call (``cuda_cores``: its time,
+    and each output against the plain version as ``hold`` holds the
+    kernel: within BWD_TOL, or a bfloat16 instance's ``tol``, of its
+    largest): the work cut without the tensor cores."""
+    launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
+    cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
+    with torch.no_grad():
+        errs = {o: [(a.float() - b.float()).abs().max().item(), b.float().abs().max().item()]
+                for o, a, b in zip(spec.outs, cuda_cores(), plain(*args))}
+        ms = time_ms(cuda_cores)
+    tol = spec.tol or BWD_TOL
+    return {"cuda_cores": {"ms": ms, "errors": errs,
+                           "ok": all(e <= tol * m for e, m in errs.values())}}
+
+
 def list_bwd_report(spec, mod, args, kw) -> dict:
     """K1b's or K7b's kernels at one call: what the pair kernel walked, as it
     counts it (``walks``: rows skipped for a zero cotangent, rows taken with
     their live slots, rows taken again whole, slots evaluated, beside the
-    inputs' rows, live slots and B*N*K), and the CUDA-core instance of the
-    same algorithm, which every shape the tensor-core kernel does not take
-    runs, at the same call (``cuda_cores``: its time, and each output
-    against the plain version as ``hold`` holds the kernel): the work cut
-    without the tensor cores."""
-    launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
+    inputs' rows, live slots and B*N*K), and ``cuda_cores_report``."""
+    launch = getattr(mod, f"{spec.fn}_cuda")
     nbr_mask = args[4]
     B, N, K = nbr_mask.shape
     stats = torch.zeros(4, dtype=torch.int32, device=nbr_mask.device)
-    cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
     with torch.no_grad():
         launch(*args, **kw, stats=stats)
-        errs = {o: [(a - b).abs().max().item(), b.abs().max().item()]
-                for o, a, b in zip(spec.outs, cuda_cores(), plain(*args))}
-        ms = time_ms(cuda_cores)
     zero, live, whole, slots = stats.tolist()
     return {"walks": {"rows": B * N, "rows_zero_cotangent": zero, "rows_live": live,
                       "rows_whole": whole, "slots_evaluated": slots, "slots": B * N * K,
                       "live_slots": int(nbr_mask.sum())},
-            "cuda_cores": {"ms": ms, "errors": errs,
-                           "ok": all(e <= BWD_TOL * m for e, m in errs.values())}}
+            **cuda_cores_report(spec, mod, args, kw)}
 
 
 def list_fwd_report(spec, mod, args, kw) -> dict:
@@ -945,13 +974,14 @@ def k2b_split_flops(args) -> float:
     return 2.0 * N * (I * H * (3 * C + 2 * w2.shape[2]) + 2 * C * lmax * H)
 
 
-def bound_tc_ms(nbytes: float, flops: float, split_flops: float) -> float:
-    """The least time of a kernel whose ``split_flops`` run as three TF32
-    products each at the tensor cores' rate and the rest of ``flops`` at
+def bound_tc_ms(nbytes: float, flops: float, split_flops: float, products: int = 3) -> float:
+    """The least time of a kernel whose ``split_flops`` run as ``products``
+    TF32 products each (three: split TF32 of float32 values; one: two
+    bfloat16 values) at the tensor cores' rate and the rest of ``flops`` at
     the float32 rate: the tensor cores and the float32 units issue
     together, so the larger of the two, or its bytes at the memory rate if
     larger still."""
-    t_ops = max(3 * split_flops / TF32_FLOP_PER_S, (flops - split_flops) / F32_FLOP_PER_S)
+    t_ops = max(products * split_flops / TF32_FLOP_PER_S, (flops - split_flops) / F32_FLOP_PER_S)
     return max(t_ops, nbytes / MEM_BYTES_PER_S) * 1e3
 
 
@@ -1093,15 +1123,20 @@ class Kernel(NamedTuple):
     report: object = None  # (spec, mod, args, kw) -> more of this call, for kernel_bwd*
     rate: float = F32_FLOP_PER_S  # the peak its bound takes for the operations
     tol: float | None = None  # bfloat16 instances: BF16_TOL of each output's largest
+    tf32_products: int = 3  # TF32 products a product of split_flops takes (bfloat16: 1)
 
 
-def bf16_instance(spec: Kernel) -> Kernel:
+def bf16_instance(spec: Kernel, tensor_cores: bool = False, report=None) -> Kernel:
     """The bfloat16 instance of a kernel of Config()'s training path: the
     same wrapper and plain function at bfloat16 activations, its own launch
-    counter, its bound at the bfloat16 tensor-core rate (the rate its work
-    would take there; the instance itself runs on the CUDA cores)."""
+    counter, its bound at the bfloat16 tensor-core rate. ``tensor_cores``
+    (K1b's and K2b's): its tensor-core kernels, one TF32 product for each
+    product of two bfloat16 values (``bound_tc_ms`` at one product), and
+    ``report`` at each call; else (K1's, K2's, K3's, K3b's) its CUDA-core
+    kernel."""
     return spec._replace(name=f"{spec.name}_bf16", counter=f"{spec.counter}_bf16",
-                         split_flops=None, report=None, rate=BF16_FLOP_PER_S, tol=BF16_TOL)
+                         split_flops=spec.split_flops if tensor_cores else None, report=report,
+                         rate=BF16_FLOP_PER_S, tol=BF16_TOL, tf32_products=1)
 
 
 K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS = [
@@ -1156,7 +1191,11 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/dense_edge_attn_bwd.cu",
            "singa_tpu/ops/pallas/dense_edge_attn.py:277", k8b_cost, ATTN_BWD_OUTS),
 ]
-BF16_PATH = [bf16_instance(k) for k in (K1, K2, K3, K1B, K2B, K3B)]  # configs/train.yml's
+# configs/train.yml's: K1b's and K2b's on the tensor cores
+BF16_PATH = [bf16_instance(K1), bf16_instance(K2), bf16_instance(K3),
+             bf16_instance(K1B, True, list_bwd_report), bf16_instance(K2B, True, cuda_cores_report),
+             bf16_instance(K3B)]
+K1B_BF16, K2B_BF16 = BF16_PATH[3], BF16_PATH[4]
 KERNELS += BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
@@ -1257,7 +1296,8 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
     tc = {}
     if spec.split_flops is not None:
         split = spec.split_flops(args)
-        tc = {"bound_tc_ms": bound_tc_ms(b, f, split), "split_tf32_flops": split}
+        tc = {"bound_tc_ms": bound_tc_ms(b, f, split, spec.tf32_products),
+              "split_tf32_flops": split, "tf32_products": spec.tf32_products}
     return {"shapes": [list(a.shape) for a in (*args, *kw.values()) if torch.is_tensor(a)],
             "max_abs_err": max_abs, "errors": errs, "tolerance": tol, "ok": ok,
             "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "bytes": b,
@@ -1385,13 +1425,19 @@ def path_instances(specs, mods, captured, results: dict) -> None:
     otherwise) and the residency of the path's tensor-core kernels, into
     ``results``. Holds no captured tensor past its return, so the train
     phase's peak memory does not count them."""
-    if K2B in specs:  # K2b's weight and dx kernels' residency at the microbatch's widths
+    for spec, bf16 in ((K2B, False), (K2B_BF16, True)):
+        if spec not in specs:
+            continue
+        # K2b's tensor-core kernels take the microbatch's widths; their residency
         args = next(iter(captured["so3_gate_ffn_bwd_cuda"].values()))[0]
         x, w1, _, _, _, w2, lmax, _ = args
         widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
-        results[K2B.name]["residency"] = mods["so3_ffn"].gate_bwd_residency(*widths)
-        results[K2B.name]["dx_residency"] = mods["so3_ffn"].gate_bwd_residency(*widths,
-                                                                              dx=True)
+        instance = mods["so3_ffn"].so3_gate_ffn_bwd_instance(*widths)
+        if instance != "tensor_cores":
+            raise AssertionError(f"K2b at {widths} runs {instance}, not the tensor-core kernels")
+        fn = mods["so3_ffn"].gate_bwd_residency
+        results[spec.name]["residency"] = fn(*widths, bf16=bf16)
+        results[spec.name]["dx_residency"] = fn(*widths, dx=True, bf16=bf16)
     if K2 in specs:  # K2's tensor-core kernel at the microbatch's widths: it takes the call
         x, w1, _, _, _, w2, _, lmax = next(iter(captured["so3_gate_ffn_cuda"].values()))[0]
         widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
@@ -1552,16 +1598,18 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             raise AssertionError(f"non-finite training loss: {log}")
 
         # train_profile: one optimizer step
-        runs_k2b = per_step.get(K2B.name, 0) > 0
-        runs_k1b = per_step.get(K1B.name, 0) + per_step.get(K7B.name, 0) > 0
+        k2b_calls = per_step.get(K2B.name, 0) + per_step.get(K2B_BF16.name, 0)
+        k1b_calls = sum(per_step.get(k.name, 0) for k in (K1B, K7B, K1B_BF16))
+        runs_k2b, runs_k1b = k2b_calls > 0, k1b_calls > 0
         runs_k1 = per_step.get(K1.name, 0) + per_step.get(K7.name, 0) > 0
         runs_k4 = per_step.get(K4.name, 0) > 0
         runs_k2 = per_step.get(K2.name, 0) > 0
         runs_k3 = per_step.get(K3.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
-                                  (SO2_GEMM,) * (gemm_flops is not None) + K2B_KERNELS * runs_k2b
-                                  + K1B_KERNELS * runs_k1b + K1_KERNELS * runs_k1
+                                  (SO2_GEMM,) * (gemm_flops is not None)
+                                  + (*K2B_KERNELS, K2B_CC) * runs_k2b
+                                  + (*K1B_KERNELS, K1B_CC) * runs_k1b + K1_KERNELS * runs_k1
                                   + K4_KERNELS * runs_k4 + K2_KERNELS * runs_k2
                                   + K3_KERNELS * runs_k3)
         extra = {}
@@ -1571,9 +1619,9 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                  "split_tf32_flops": gemm_flops,
                                  "tflop_per_s": gemm_flops / ms / 1e9 if ms else None}
         if runs_k2b:  # K2b's kernels by name, in the profiled step
-            extra["k2b_kernels"] = {n: prof["matched"][n] for n in K2B_KERNELS}
+            extra["k2b_kernels"] = {n: prof["matched"][n] for n in (*K2B_KERNELS, K2B_CC)}
         if runs_k1b:  # K1b's (or K7b's) kernels by name
-            extra["k1b_kernels"] = {n: prof["matched"][n] for n in K1B_KERNELS}
+            extra["k1b_kernels"] = {n: prof["matched"][n] for n in (*K1B_KERNELS, K1B_CC)}
         if runs_k1:  # K1's (or K7's) kernels by name
             extra["k1_kernels"] = {n: prof["matched"][n] for n in K1_KERNELS}
         if runs_k4:  # K4's kernels by name
@@ -1583,6 +1631,17 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         if runs_k3:  # K3's and K3b's tensor-core kernels by name
             extra["k3_kernels"] = {n: prof["matched"][n] for n in K3_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
+        # K1b/K7b and K2b ran their tensor-core kernels at every call of the
+        # step: the pair kernel and the weight split once a call, none of
+        # their CUDA-core kernels
+        for calls, tc, cc in ((k2b_calls, "gate_ffn_bwd_wsplit_kernel", K2B_CC),
+                              (k1b_calls, "list_bwd_pair_kernel", K1B_CC)):
+            if not calls:
+                continue
+            got = (prof["matched"][tc]["launches"], prof["matched"][cc]["launches"])
+            if got != (calls, 0):
+                raise AssertionError(f"{tc}, {cc} launched {got} times in a step, expected "
+                                     f"({calls}, 0)")
         data.close()
         summary = {"compute_dtype": cfg.train.compute_dtype, "step_ms": step_ms,
                    "peak_mem_gb": peak_gb, "device_busy_ms": prof["device_busy_ms"],
@@ -2460,8 +2519,12 @@ def main() -> int:
     k4b_ptxas = ptxas_report(logs["so3_ffn_bwd"])
     k4_ptxas = {k: v for k, v in ptxas_report(logs["so3_ffn"]).items()
                 if "ffn_tc_kernel" in k}  # the tensor-core kernel's instances
-    k2b_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn_bwd"]).items()
-                 if "gate_ffn_bwd_" in k}  # the dx, weight and split kernels
+    # the dx, weight and split kernels, their float32 instances and (bf16)
+    # their bfloat16 ones (the CUDA-core instance's among both)
+    k2b_all = {k: v for k, v in ptxas_report(logs["so3_gate_ffn_bwd"]).items()
+               if "gate_ffn_bwd_" in k}
+    k2b_ptxas = {k: v for k, v in k2b_all.items() if "bfloat16" not in k}
+    k2b_bf16_ptxas = {k: v for k, v in k2b_all.items() if "bfloat16" in k}
     # K2's tensor-core kernel (its instances for every row count) and split at
     # 16 channels in and out, and its CUDA-core instance
     k2_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn"]).items()
@@ -2484,9 +2547,11 @@ def main() -> int:
                   for n in ("so2_attn", "so2_attn_bwd")}
     # the pair kernels of K1b (form 0: ILi0E) and of K7b (form 1: ILi1E):
     # tensor cores (list_bwd_pair_kernel) and CUDA cores (list_bwd_cc_kernel)
-    k1b_ptxas = [{k: v for k, v in ptxas_report(logs["neighbor_attn_bwd"]).items()
-                  if ("list_bwd_pair_kernel" in k or "list_bwd_cc_kernel" in k)
-                  and f"ILi{form}E" in k} for form in (0, 1)]
+    k1b_all = {k: v for k, v in ptxas_report(logs["neighbor_attn_bwd"]).items()
+               if "list_bwd_pair_kernel" in k or "list_bwd_cc_kernel" in k}
+    k1b_ptxas = [{k: v for k, v in k1b_all.items() if f"ILi{form}E" in k and "bfloat16" not in k}
+                 for form in (0, 1)]
+    k1b_bf16_ptxas = {k: v for k, v in k1b_all.items() if "bfloat16" in k}  # K1b's (form 0)
     # the forward kernels of K1 (form 0) and K7 (form 1): the tensor-core
     # tile kernel and the CUDA-core instance (attn_fwd_kernel)
     k1_ptxas = [{k: v for k, v in ptxas_report(logs["neighbor_attn"]).items()
@@ -2499,7 +2564,8 @@ def main() -> int:
           "k4_ptxas": k4_ptxas, "k4b_ptxas": k4b_ptxas, "k2_ptxas": k2_ptxas,
           "k2b_ptxas": k2b_ptxas, "k3_ptxas": k3_ptxas, "k5_ptxas": k5_ptxas,
           "so2_gemm_ptxas": gemm_ptxas,
-          "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas})
+          "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas,
+          "k1b_bf16_ptxas": k1b_bf16_ptxas, "k2b_bf16_ptxas": k2b_bf16_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -2602,8 +2668,9 @@ def main() -> int:
                              {k.name: 12 for k in BF16_PATH}, ["--config", TRAIN_CONFIG],
                              BF16_WARMUP, BF16_STEPS, vs_cpu=False)
     emit({"phase": "train_bf16_vs_f32", "float32": f32_step, "bfloat16": bf16_step,
-          "note": "reported, not claimed: the float32 step runs the tensor-core kernels, the "
-                  "bfloat16 step their first CUDA-core bfloat16 instances"})
+          "note": "reported, not claimed: the float32 step runs the tensor-core kernels; the "
+                  "bfloat16 step K1b's and K2b's tensor-core kernels at bfloat16 and the "
+                  "CUDA-core bfloat16 instances of K1, K2, K3 and K3b"})
     torch.cuda.empty_cache()
     s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
     train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,
@@ -2627,6 +2694,9 @@ def main() -> int:
     results[K4B.name]["ptxas"] = k4b_ptxas
     results[K2.name]["ptxas"] = k2_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
+    results[K2B_BF16.name]["ptxas"] = k2b_bf16_ptxas
+    results[K1B_BF16.name]["ptxas"] = k1b_bf16_ptxas
+    results[K1B_BF16.name]["residency"] = mods["neighbor_attn"].bwd_residency(bf16=True)
     results[K3.name]["ptxas"] = results[K3B.name]["ptxas"] = k3_ptxas
     results[K5.name]["ptxas"] = results[K5B.name]["ptxas"] = k5_ptxas
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form

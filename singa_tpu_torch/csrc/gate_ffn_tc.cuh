@@ -13,6 +13,12 @@
 //                     as it loads
 //   gate_block, gates sigmoid(x_0 wg_l + bg_l) of the tile's nodes and the
 //                     chunk's channels as C fragments, into shared memory
+// Each takes the storage type T of the activations (float by default, K2's
+// and K2b's float32 kernels). At T = bf16 (K2b's bfloat16 instance) the
+// tile's rows are bfloat16 in shared memory, half the bytes, widened as
+// fragments load; the weights are rounded to bfloat16 once a call and kept
+// as TF32 hi only (their lo is zero), half the words of a fragment; each
+// product is one TF32 mma (mma_tf32.cuh, mma_t).
 #pragma once
 
 #include "common.cuh"
@@ -26,7 +32,14 @@ constexpr int kHC = 16;             // hidden channels of a chunk
 constexpr int kNB = kHC / 8;        // its n8 blocks
 constexpr int kFragWords = 32 * 4;  // one B fragment, split: [lane][hi b0, hi b1, lo b0, lo b1]
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+// Words of one B fragment at storage type T: split (kFragWords), or at
+// bfloat16 hi only, [lane][hi b0, hi b1]
+template <class T>
+__host__ __device__ constexpr int frag_words() {
+  return singa::kBf16<T> ? 32 * 2 : kFragWords;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src), "r"(bytes));
 }
@@ -42,13 +55,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, int byt
 //   wg as the gates' B    [l - 1][k step][n8 block]  k = c (paired), n = hidden
 // then the chunk's b1 [kHC] and bg [lmax][kHC] as floats. "Paired": k slots
 // t and t + 4 of a lane take the columns 2 t and 2 t + 1 of the k step, as
-// frag_a_paired and frag_a_from_c give them (mma_tf32.cuh). Zero past H.
+// frag_a_paired and frag_a_from_c give them (mma_tf32.cuh). Zero past H. A
+// fragment takes frag_words<T>() words.
 struct ChunkLayout {
   int w2, w1t, wg, frags;  // fragment offsets
   int b1, bg, words;       // word offsets, and the words of a chunk
 };
 
-template <bool kDx>
+template <bool kDx, class T = float>
 __host__ __device__ inline ChunkLayout chunk_layout(int lmax, int C, int Co) {
   const int KC = C / 8, KO = Co / 8, L = lmax + 1;
   ChunkLayout o;
@@ -56,7 +70,7 @@ __host__ __device__ inline ChunkLayout chunk_layout(int lmax, int C, int Co) {
   o.w1t = o.w2 + L * KO * kNB;  // w2 takes as many fragments either way
   o.wg = o.w1t + (kDx ? L * kNB * KC : 0);
   o.frags = o.wg + lmax * KC * kNB;
-  o.b1 = o.frags * kFragWords;
+  o.b1 = o.frags * frag_words<T>();
   o.bg = o.b1 + kHC;
   o.words = o.bg + lmax * kHC;  // a multiple of 4: each chunk is 16-byte aligned
   return o;
@@ -64,8 +78,8 @@ __host__ __device__ inline ChunkLayout chunk_layout(int lmax, int C, int Co) {
 
 // Every chunk's words (chunk_layout), one lane of one fragment (or one bias)
 // per item, in a grid-stride loop: the weights split into TF32 hi and lo once
-// a call.
-template <int C, int Co, bool kDx>
+// a call (at T = bf16 rounded to bfloat16, hi only).
+template <int C, int Co, bool kDx, class T = float>
 __device__ __forceinline__ void split_chunks(const float* __restrict__ w1,
                                              const float* __restrict__ b1,
                                              const float* __restrict__ wg,
@@ -73,7 +87,7 @@ __device__ __forceinline__ void split_chunks(const float* __restrict__ w1,
                                              const float* __restrict__ w2,
                                              uint32_t* __restrict__ out, int lmax, int H) {
   constexpr int KC = C / 8, KO = Co / 8, NB = kNB;
-  const ChunkLayout o = chunk_layout<kDx>(lmax, C, Co);
+  const ChunkLayout o = chunk_layout<kDx, T>(lmax, C, Co);
   const int items = o.frags * 32 + (o.words - o.b1);
   const long long total = (long long)((H + kHC - 1) / kHC) * items;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
@@ -117,31 +131,37 @@ __device__ __forceinline__ void split_chunks(const float* __restrict__ w1,
       }
     }
     uint32_t hi0, lo0, hi1, lo1;
-    singa::tc::split(v[0], hi0, lo0);
-    singa::tc::split(v[1], hi1, lo1);
-    *reinterpret_cast<uint4*>(blk + f * kFragWords + lane * 4) = make_uint4(hi0, hi1, lo0, lo1);
+    singa::tc::split_t<T>(v[0], hi0, lo0);
+    singa::tc::split_t<T>(v[1], hi1, lo1);
+    if constexpr (singa::kBf16<T>)
+      *reinterpret_cast<uint2*>(blk + f * frag_words<T>() + lane * 2) = make_uint2(hi0, hi1);
+    else
+      *reinterpret_cast<uint4*>(blk + f * kFragWords + lane * 4) = make_uint4(hi0, hi1, lo0, lo1);
   }
 }
 
 // The column swizzle of a node's row in the tile: at width 16, columns
 // 8..15 and 0..7 trade places on nodes 2, 3 (mod 4), so that frag_a_paired's
 // 8-byte loads (nodes g, columns 2 t) are conflict-free; width 8 needs none.
-template <int W>
+// At bfloat16 (4-byte loads, a row of 16 taking 8 banks) they trade places
+// on nodes 4..7 (mod 8).
+template <int W, class T = float>
 __device__ __forceinline__ int swz(int node) {
+  if constexpr (singa::kBf16<T>) return W == 16 ? 8 * ((node >> 2) & 1) : 0;
   return W == 16 ? 8 * ((node >> 1) & 1) : 0;
 }
 
-// The I coefficient rows (W floats each) of the tile at node n0 of src [N, I,
-// W] by cp.async into dst [I][kTN][W] (swizzled), zeros past N. Commits
-// nothing: the caller's next commit takes them.
-template <int W, int kThreads>
-__device__ __forceinline__ void copy_tile_rows(const float* __restrict__ src, int n0, int I, int N,
-                                               float* dst) {
-  constexpr int Q = W / 4;  // 16-byte pieces of a row
+// The I coefficient rows (W values of T each) of the tile at node n0 of src
+// [N, I, W] by cp.async into dst [I][kTN][W] (swizzled), zeros past N.
+// Commits nothing: the caller's next commit takes them.
+template <int W, int kThreads, class T = float>
+__device__ __forceinline__ void copy_tile_rows(const T* __restrict__ src, int n0, int I, int N,
+                                               T* dst) {
+  constexpr int E = 16 / sizeof(T), Q = W / E;  // values of a 16-byte piece; pieces of a row
   for (int q = threadIdx.x; q < kTN * I * Q; q += kThreads) {
-    const int n = q / (I * Q), i = q / Q % I, c = 4 * (q % Q);
+    const int n = q / (I * Q), i = q / Q % I, c = E * (q % Q);
     const bool ok = n0 + n < N;
-    cp_async16(dst + (i * kTN + n) * W + (c ^ swz<W>(n)),
+    cp_async16(dst + (i * kTN + n) * W + (c ^ swz<W, T>(n)),
                ok ? src + ((long long)(n0 + n) * I + i) * W + c : src, ok ? 16 : 0);
   }
 }
@@ -156,36 +176,41 @@ __device__ __forceinline__ void copy_chunk(const uint32_t* __restrict__ wfrag, i
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// The lane's share of one split B fragment
+// The lane's share of one split B fragment (at T = bf16: its hi, lo = 0)
+template <class T = float>
 __device__ __forceinline__ singa::tc::FragB frag_pre(const uint32_t* frag) {
+  if constexpr (singa::kBf16<T>) {
+    const uint2 v = *reinterpret_cast<const uint2*>(frag + 2 * (threadIdx.x & 31));
+    return singa::tc::FragB{{v.x, v.y}, {0u, 0u}};
+  }
   const uint4 v = *reinterpret_cast<const uint4*>(frag + 4 * (threadIdx.x & 31));
   return singa::tc::FragB{{v.x, v.y}, {v.z, v.w}};
 }
 
 // k step ks of the 16 nodes' rows (one coefficient row of the tile) as A
-// (m = node, k = channel, paired), split
-template <int W>
-__device__ __forceinline__ singa::tc::FragA frag_tile(const float* rows, int ks) {
-  return singa::tc::frag_a_paired(rows + ((8 * ks) ^ swz<W>(singa::tc::lane_grp())), W);
+// (m = node, k = channel, paired), split (at bfloat16: widened)
+template <int W, class T = float>
+__device__ __forceinline__ singa::tc::FragA frag_tile(const T* rows, int ks) {
+  return singa::tc::frag_a_paired(rows + ((8 * ks) ^ swz<W, T>(singa::tc::lane_grp())), W);
 }
 
 // The gates of degree l >= 1 at the tile's nodes and n8 block j of the
 // chunk's channels, sigmoid(x_0 wg_l + bg_l) with the product split (xa: row
 // 0 of the tile as A), into sgate [lmax][n8 block][lane] as the lane's C
 // fragment (node g + 8 (q >> 1), channel 8 j + 2 t + (q & 1)).
-template <int C>
+template <int C, class T = float>
 __device__ __forceinline__ void gate_block(const singa::tc::FragA (&xa)[C / 8], const uint32_t* wgf,
                                            const float* cbg, int l, int j, float* sgate) {
   using namespace singa::tc;
-  constexpr int KC = C / 8, NB = kNB;
+  constexpr int KC = C / 8, NB = kNB, FW = frag_words<T>();
   const int t = lane_tig();
-  const uint32_t* f = wgf + (l - 1) * KC * NB * kFragWords;
+  const uint32_t* f = wgf + (l - 1) * KC * NB * FW;
   float z[4] = {};
   FragB b[KC];
 #pragma unroll
-  for (int ks = 0; ks < KC; ++ks) b[ks] = frag_pre(f + (ks * NB + j) * kFragWords);
+  for (int ks = 0; ks < KC; ++ks) b[ks] = frag_pre<T>(f + (ks * NB + j) * FW);
 #pragma unroll
-  for (int ks = 0; ks < KC; ++ks) mma3(z, xa[ks], b[ks]);
+  for (int ks = 0; ks < KC; ++ks) mma_t<T>(z, xa[ks], b[ks]);
   const float* bias = cbg + (l - 1) * kHC + 8 * j + 2 * t;
   *reinterpret_cast<float4*>(sgate + (((l - 1) * NB + j) * 32 + (threadIdx.x & 31)) * 4) =
       make_float4(singa::sigmoidf_(z[0] + bias[0]), singa::sigmoidf_(z[1] + bias[1]),
@@ -193,20 +218,20 @@ __device__ __forceinline__ void gate_block(const singa::tc::FragA (&xa)[C / 8], 
 }
 
 // Row 0 of the tile (sx [I][kTN][C]) as A, split
-template <int C>
-__device__ __forceinline__ void row0_frags(const float* sx, singa::tc::FragA (&xa)[C / 8]) {
+template <int C, class T = float>
+__device__ __forceinline__ void row0_frags(const T* sx, singa::tc::FragA (&xa)[C / 8]) {
 #pragma unroll
-  for (int ks = 0; ks < C / 8; ++ks) xa[ks] = frag_tile<C>(sx, ks);
+  for (int ks = 0; ks < C / 8; ++ks) xa[ks] = frag_tile<C, T>(sx, ks);
 }
 
 // Every n8 block of degree l's gates (one warp)
-template <int C>
-__device__ __forceinline__ void gates(const float* sx, const uint32_t* wgf, const float* cbg, int l,
+template <int C, class T = float>
+__device__ __forceinline__ void gates(const T* sx, const uint32_t* wgf, const float* cbg, int l,
                                       float* sgate) {
   singa::tc::FragA xa[C / 8];
-  row0_frags<C>(sx, xa);
+  row0_frags<C, T>(sx, xa);
 #pragma unroll
-  for (int j = 0; j < kNB; ++j) gate_block<C>(xa, wgf, cbg, l, j, sgate);
+  for (int j = 0; j < kNB; ++j) gate_block<C, T>(xa, wgf, cbg, l, j, sgate);
 }
 
 }  // namespace gate

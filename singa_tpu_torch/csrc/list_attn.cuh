@@ -38,13 +38,14 @@ inline bool tc_ok(const encoder_attn::Dims& d) {
 }
 
 // The smear, the hidden and sigmoid(pre) go to the tensor cores as split
-// TF32 (hi + lo: about 22 significant bits), so the hardware's exp2 and log2
-// (__expf, __logf: a few units in the last of float32's 24 bits) lose
-// nothing the products keep.
+// TF32 (hi + lo: about 22 significant bits), or rounded to bfloat16 (8), so
+// the hardware's exp2 and log2 (__expf, __logf: a few units in the last of
+// float32's 24 bits) lose nothing the products keep.
 __device__ __forceinline__ float smear(float coeff, float dist, float c) {
   const float diff = dist - c;
   return -__expf(coeff * diff * diff);
 }
+
 
 // ssp(v) = softplus(v) - log 2, overflow-free: max(v, 0) + log(1 + exp(-|v|)) - log 2
 __device__ __forceinline__ float ssp_tc(float v) {
@@ -52,16 +53,18 @@ __device__ __forceinline__ float ssp_tc(float v) {
 }
 
 // A = the smear E [slot][channel] of rows g, g + 8 (distances d0, d1), k
-// paired, over the channels at cent (the k-step's first)
+// paired, over the channels at cent (the k-step's first); at T = bf16
+// rounded to bfloat16
+template <class T = float>
 __device__ __forceinline__ tc::FragA frag_smear_paired(float coeff, float d0, float d1,
                                                        const float* cent) {
   const int t = tc::lane_tig();
   const float c0 = cent[2 * t], c1 = cent[2 * t + 1];
   tc::FragA f;
-  tc::split(smear(coeff, d0, c0), f.hi[0], f.lo[0]);
-  tc::split(smear(coeff, d1, c0), f.hi[1], f.lo[1]);
-  tc::split(smear(coeff, d0, c1), f.hi[2], f.lo[2]);
-  tc::split(smear(coeff, d1, c1), f.hi[3], f.lo[3]);
+  tc::split_t<T>(smear(coeff, d0, c0), f.hi[0], f.lo[0]);
+  tc::split_t<T>(smear(coeff, d1, c0), f.hi[1], f.lo[1]);
+  tc::split_t<T>(smear(coeff, d0, c1), f.hi[2], f.lo[2]);
+  tc::split_t<T>(smear(coeff, d1, c1), f.hi[3], f.lo[3]);
   return f;
 }
 

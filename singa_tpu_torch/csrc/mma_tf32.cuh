@@ -59,9 +59,23 @@
 // ldb % 32 is 8 or 24, as frag_a_paired's. frag_b_nk_seq (g * ldb + t) is
 // conflict-free when ldb % 32 is 4, 12, 20 or 28; with ldb % 16 of 4 or 12
 // the same [n][k] rows also serve frag_b_paired, read as [k][n].
+//
+// bfloat16 (the T = bf16 instances of K1b's and K2b's tensor-core kernels).
+// A bfloat16 value is a TF32 value: its 7 explicit mantissa bits fit in
+// TF32's 10, so its TF32 "hi" is its own bits and "lo" is zero, and one
+// TF32 product of two bfloat16 values is exact in float32 (8 x 8
+// significant bits). The loaders and frag_a_from_c take the storage type T
+// (float by default): at T = bf16 each value is rounded to bfloat16 (round
+// to nearest even, as torch's casts round; the identity on a value that is
+// one already) and kept as hi with lo = 0, and mma_t issues one product
+// (hi hi) where mma3 issues three. The bf16 loaders read bfloat16 pairs
+// from shared memory as one 32-bit word, widened by a shift.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace singa {
 namespace tc {
@@ -94,37 +108,87 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
+template <class T> constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// The float bits of x rounded to bfloat16 (to nearest even): a TF32 value
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x)) << 16;
+}
+
+// The two bfloat16 values of a 32-bit word (element 0 in the low half) as
+// float bits
+__device__ __forceinline__ uint32_t bf16_lo(uint32_t w) { return w << 16; }
+__device__ __forceinline__ uint32_t bf16_hi(uint32_t w) { return w & 0xffff0000u; }
+
+// split at T = float; at T = bf16, hi = x rounded to bfloat16, lo = 0
+template <class T>
+__device__ __forceinline__ void split_t(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kIsBf16<T>) {
+    hi = bf16_bits(x);
+    lo = 0u;
+  } else {
+    split(x, hi, lo);
+  }
+}
+
 __device__ __forceinline__ int lane_grp() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_tig() { return threadIdx.x & 3; }
 
+template <class T = float>
 __device__ __forceinline__ FragA frag_a_paired(const float* A, int lda) {
   const int g = lane_grp(), t = lane_tig();
   const float2 r0 = *reinterpret_cast<const float2*>(A + g * lda + 2 * t);
   const float2 r1 = *reinterpret_cast<const float2*>(A + (g + 8) * lda + 2 * t);
   FragA f;
-  split(r0.x, f.hi[0], f.lo[0]);
-  split(r1.x, f.hi[1], f.lo[1]);
-  split(r0.y, f.hi[2], f.lo[2]);
-  split(r1.y, f.hi[3], f.lo[3]);
+  split_t<T>(r0.x, f.hi[0], f.lo[0]);
+  split_t<T>(r1.x, f.hi[1], f.lo[1]);
+  split_t<T>(r0.y, f.hi[2], f.lo[2]);
+  split_t<T>(r1.y, f.hi[3], f.lo[3]);
   return f;
 }
 
+// A stored [m][k] as bfloat16, k paired: one 4-byte load a row, no rounding
+// (lda in elements, even)
+__device__ __forceinline__ FragA frag_a_paired(const __nv_bfloat16* A, int lda) {
+  const int g = lane_grp(), t = lane_tig();
+  const uint32_t r0 = *reinterpret_cast<const uint32_t*>(A + g * lda + 2 * t);
+  const uint32_t r1 = *reinterpret_cast<const uint32_t*>(A + (g + 8) * lda + 2 * t);
+  return FragA{{bf16_lo(r0), bf16_lo(r1), bf16_hi(r0), bf16_hi(r1)}, {0u, 0u, 0u, 0u}};
+}
+
+template <class T = float>
 __device__ __forceinline__ FragB frag_b_paired(const float* B, int ldb) {
   const int g = lane_grp(), t = lane_tig();
   FragB f;
-  split(B[(2 * t) * ldb + g], f.hi[0], f.lo[0]);
-  split(B[(2 * t + 1) * ldb + g], f.hi[1], f.lo[1]);
+  split_t<T>(B[(2 * t) * ldb + g], f.hi[0], f.lo[0]);
+  split_t<T>(B[(2 * t + 1) * ldb + g], f.hi[1], f.lo[1]);
   return f;
 }
 
+// B stored [k][n] as bfloat16, k paired (ldb in elements): two 2-byte loads
+__device__ __forceinline__ FragB frag_b_paired(const __nv_bfloat16* B, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  const uint16_t* b = reinterpret_cast<const uint16_t*>(B);
+  return FragB{{(uint32_t)b[(2 * t) * ldb + g] << 16, (uint32_t)b[(2 * t + 1) * ldb + g] << 16},
+               {0u, 0u}};
+}
+
 // B stored [n][k], k paired (pairs with frag_a_paired): one 8-byte load
+template <class T = float>
 __device__ __forceinline__ FragB frag_b_nk(const float* B, int ldb) {
   const int g = lane_grp(), t = lane_tig();
   const float2 v = *reinterpret_cast<const float2*>(B + g * ldb + 2 * t);
   FragB f;
-  split(v.x, f.hi[0], f.lo[0]);
-  split(v.y, f.hi[1], f.lo[1]);
+  split_t<T>(v.x, f.hi[0], f.lo[0]);
+  split_t<T>(v.y, f.hi[1], f.lo[1]);
   return f;
+}
+
+// B stored [n][k] as bfloat16, k paired (ldb in elements, even): one 4-byte load
+__device__ __forceinline__ FragB frag_b_nk(const __nv_bfloat16* B, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(B + g * ldb + 2 * t);
+  return FragB{{bf16_lo(v), bf16_hi(v)}, {0u, 0u}};
 }
 
 // B stored [n][k], k in order
@@ -136,21 +200,23 @@ __device__ __forceinline__ FragB frag_b_nk_seq(const float* B, int ldb) {
   return f;
 }
 
+template <class T = float>
 __device__ __forceinline__ FragA frag_a_trans(const float* At, int lda) {
   const int g = lane_grp(), t = lane_tig();
   FragA f;
-  split(At[t * lda + g], f.hi[0], f.lo[0]);
-  split(At[t * lda + g + 8], f.hi[1], f.lo[1]);
-  split(At[(t + 4) * lda + g], f.hi[2], f.lo[2]);
-  split(At[(t + 4) * lda + g + 8], f.hi[3], f.lo[3]);
+  split_t<T>(At[t * lda + g], f.hi[0], f.lo[0]);
+  split_t<T>(At[t * lda + g + 8], f.hi[1], f.lo[1]);
+  split_t<T>(At[(t + 4) * lda + g], f.hi[2], f.lo[2]);
+  split_t<T>(At[(t + 4) * lda + g + 8], f.hi[3], f.lo[3]);
   return f;
 }
 
+template <class T = float>
 __device__ __forceinline__ FragB frag_b(const float* B, int ldb) {
   const int g = lane_grp(), t = lane_tig();
   FragB f;
-  split(B[t * ldb + g], f.hi[0], f.lo[0]);
-  split(B[(t + 4) * ldb + g], f.hi[1], f.lo[1]);
+  split_t<T>(B[t * ldb + g], f.hi[0], f.lo[0]);
+  split_t<T>(B[(t + 4) * ldb + g], f.hi[1], f.lo[1]);
   return f;
 }
 
@@ -202,6 +268,16 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB&
   mma(c, a.hi, b.hi);
 }
 
+// c += a * b: mma3 at T = float; one TF32 product (hi hi) at T = bf16,
+// whose fragments hold bfloat16 values (lo = 0)
+template <class T>
+__device__ __forceinline__ void mma_t(float (&c)[4], const FragA& a, const FragB& b) {
+  if constexpr (kIsBf16<T>)
+    mma(c, a.hi, b.hi);
+  else
+    mma3(c, a, b);
+}
+
 __device__ __forceinline__ void store_c(float* C, int ldc, const float (&c)[4]) {
   const int g = lane_grp(), t = lane_tig();
   *reinterpret_cast<float2*>(C + g * ldc + 2 * t) = make_float2(c[0], c[1]);
@@ -209,13 +285,16 @@ __device__ __forceinline__ void store_c(float* C, int ldc, const float (&c)[4]) 
 }
 
 // c (m = grp / grp + 8, n = 2 tig / 2 tig + 1) as A (m, k paired): the k
-// slot tig is column 2 tig of c, the slot tig + 4 column 2 tig + 1
+// slot tig is column 2 tig of c, the slot tig + 4 column 2 tig + 1 (at T =
+// bf16 rounded to bfloat16: the Pallas kernel's .astype(dt) before the
+// next product)
+template <class T = float>
 __device__ __forceinline__ FragA frag_a_from_c(const float (&c)[4]) {
   FragA f;
-  split(c[0], f.hi[0], f.lo[0]);
-  split(c[2], f.hi[1], f.lo[1]);
-  split(c[1], f.hi[2], f.lo[2]);
-  split(c[3], f.hi[3], f.lo[3]);
+  split_t<T>(c[0], f.hi[0], f.lo[0]);
+  split_t<T>(c[2], f.hi[1], f.lo[1]);
+  split_t<T>(c[1], f.hi[2], f.lo[2]);
+  split_t<T>(c[3], f.hi[3], f.lo[3]);
   return f;
 }
 

@@ -72,10 +72,20 @@
 // Shared with K1/K7's forward (neighbor_attn.cu), in csrc/list_attn.cuh:
 // the widths, tiles and pair-buffer strides, the smear and its A fragments,
 // the shifted softplus and block_range.
-// bfloat16 (neighbor_attn_bwd_bf16): K1b's bfloat16 instance is the CUDA-core
-// instance (list_plan_kernel, list_bwd_cc_kernel, list_dkdv_cc_kernel at T =
-// bf16; the roundings at list_bwd_cc_kernel), its ~23 GFLOP a microbatch on
-// the CUDA cores in float32 (~0.34 ms at 67 TFLOP/s).
+// bfloat16 (neighbor_attn_bwd_bf16): K1b's bfloat16 instance is the same
+// kernels at T = bf16, the storage type of qt, k, v, diag_value, g, dqt, dk,
+// dv and d diag_value: the tensor-core pair kernel and its dk/dv stage at
+// the widths they take, else the CUDA-core ones (list_bwd_cc_kernel, whose
+// note sets out the roundings, and list_dkdv_cc_kernel). In the pair kernel
+// every EdgeMLP product multiplies two bfloat16 values (the weights, the
+// smear, the hiddens, dw and dh, each rounded where the Pallas kernel calls
+// .astype(dt)) and is one TF32 mma.sync, exact to float32 accumulation,
+// where float32 takes three (mma_tf32.cuh, mma_t); the hiddens stay float32
+// in shared memory and round as their fragments load (sigmoid(pre) reads
+// them unrounded); the rows of k, v, qt and g come in 8-byte pieces of
+// bfloat16 and widen; the head sums on the CUDA cores round each term as
+// the CUDA-core instance does. Its ~23 GFLOP a microbatch as one TF32
+// product each: ~0.05 ms at 495 TFLOP/s.
 #include <stdint.h>
 
 #include "list_attn.cuh"
@@ -93,6 +103,9 @@ constexpr int kDkdvChunk = kDkdvThreads;  // incoming slots the dk/dv stage stag
 // Strides (floats). W1, W2 [in][out] read as B with k paired (frag_b_paired:
 // stride % 16 of 4; dh reads W2 as [n][k], frag_b_nk, with 2-way bank
 // conflicts at that stride).
+using singa::kBf16;
+using singa::rnd;
+
 constexpr int LW1K = KD + 4, LW1V = VD + 4, LW2K = KD + 4, LW2V = VD + 4;
 constexpr int kWeightFloats = DE * LW1K + DE * LW1V + KD * LW2K + VD * LW2V + 2 * KD + 2 * VD + DE;
 
@@ -158,35 +171,70 @@ __device__ Sm carve(float* p) {
   return s;
 }
 
-__device__ void load_weights(const ea::Args& a, const Sm& s) {
-  for (int t = threadIdx.x; t < DE * KD; t += kThreads) s.w1k[(t / KD) * LW1K + t % KD] = a.wk1[t];
-  for (int t = threadIdx.x; t < DE * VD; t += kThreads) s.w1v[(t / VD) * LW1V + t % VD] = a.wv1[t];
-  for (int t = threadIdx.x; t < KD * KD; t += kThreads) s.w2k[(t / KD) * LW2K + t % KD] = a.wk2[t];
-  for (int t = threadIdx.x; t < VD * VD; t += kThreads) s.w2v[(t / VD) * LW2V + t % VD] = a.wv2[t];
+// The EdgeMLP weights (rounded to T: the TPU kernel's w.astype(dt)), biases
+// and centers into shared memory
+template <class T>
+__device__ void load_weights(const ea::ArgsT<T>& a, const Sm& s) {
+  for (int t = threadIdx.x; t < DE * KD; t += kThreads) s.w1k[(t / KD) * LW1K + t % KD] = rnd<T>(a.wk1[t]);
+  for (int t = threadIdx.x; t < DE * VD; t += kThreads) s.w1v[(t / VD) * LW1V + t % VD] = rnd<T>(a.wv1[t]);
+  for (int t = threadIdx.x; t < KD * KD; t += kThreads) s.w2k[(t / KD) * LW2K + t % KD] = rnd<T>(a.wk2[t]);
+  for (int t = threadIdx.x; t < VD * VD; t += kThreads) s.w2v[(t / VD) * LW2V + t % VD] = rnd<T>(a.wv2[t]);
   for (int t = threadIdx.x; t < KD; t += kThreads) { s.b1k[t] = a.bk1[t]; s.b2k[t] = a.bk2[t]; }
   for (int t = threadIdx.x; t < VD; t += kThreads) { s.b1v[t] = a.bv1[t]; s.b2v[t] = a.bv2[t]; }
   for (int t = threadIdx.x; t < DE; t += kThreads) s.cent[t] = a.centers[t];
 }
 
 // A = E^T [channel][slot]: channels g, g + 8 from cent, slots t, t + 4 from
-// dist, k in order (pairs with frag_b)
+// dist, k in order (pairs with frag_b); at T = bf16 rounded
+template <class T>
 __device__ __forceinline__ tc::FragA frag_smear_trans(float coeff, const float* dist,
                                                       const float* cent) {
   const int g = tc::lane_grp(), t = tc::lane_tig();
   const float d0 = dist[t], d1 = dist[t + 4], c0 = cent[g], c1 = cent[g + 8];
   tc::FragA f;
-  tc::split(smear(coeff, d0, c0), f.hi[0], f.lo[0]);
-  tc::split(smear(coeff, d0, c1), f.hi[1], f.lo[1]);
-  tc::split(smear(coeff, d1, c0), f.hi[2], f.lo[2]);
-  tc::split(smear(coeff, d1, c1), f.hi[3], f.lo[3]);
+  tc::split_t<T>(smear(coeff, d0, c0), f.hi[0], f.lo[0]);
+  tc::split_t<T>(smear(coeff, d0, c1), f.hi[1], f.lo[1]);
+  tc::split_t<T>(smear(coeff, d1, c0), f.hi[2], f.lo[2]);
+  tc::split_t<T>(smear(coeff, d1, c1), f.hi[3], f.lo[3]);
   return f;
 }
 
 // sigmoid(pre) from h = ssp(pre) = softplus(pre) - log 2
 __device__ __forceinline__ float sigmoid_of_hidden(float h) { return 1.f - 0.5f * __expf(-h); }
 
+// Four values of T at p (16-byte aligned for float, 8-byte for bfloat16) as
+// float4, through the read-only path; and four floats stored as T
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const singa::bf16* p) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(tc::bf16_lo(w.x)), __uint_as_float(tc::bf16_hi(w.x)),
+                     __uint_as_float(tc::bf16_lo(w.y)), __uint_as_float(tc::bf16_hi(w.y)));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(singa::bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                            *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// The sum of four products a b c, each rounded to T first (at float: the
+// fused sum the float32 kernel takes, first term plain)
+template <class T>
+__device__ __forceinline__ float dot3(const float4& a, const float4& b, const float4& c) {
+  if constexpr (kBf16<T>)
+    return rnd<T>(a.x * b.x * c.x) + rnd<T>(a.y * b.y * c.y) + rnd<T>(a.z * b.z * c.z) +
+           rnd<T>(a.w * b.w * c.w);
+  float part = a.x * b.x * c.x;
+  part = fmaf(a.y * b.y, c.y, part);
+  part = fmaf(a.z * b.z, c.z, part);
+  return fmaf(a.w * b.w, c.w, part);
+}
+
 // h_k | h_v tiles J0 .. J1-1 of the m16 block at row m0: ssp(E [wk1 | wv1] + b1)
-template <int J0, int J1>
+// (float32 in shared memory: at T = bf16 its users round it as it loads)
+template <class T, int J0, int J1>
 __device__ void fwd_pre(const Sm& s, float coeff, int m0) {
   const int g = tc::lane_grp(), t = tc::lane_tig();
   const float d0 = s.dist[m0 + g], d1 = s.dist[m0 + g + 8];
@@ -200,14 +248,14 @@ __device__ void fwd_pre(const Sm& s, float coeff, int m0) {
   }
 #pragma unroll 2
   for (int ks = 0; ks < DE / 8; ++ks) {
-    const tc::FragA fa = frag_smear_paired(coeff, d0, d1, s.cent + 8 * ks);
+    const tc::FragA fa = frag_smear_paired<T>(coeff, d0, d1, s.cent + 8 * ks);
 #pragma unroll
     for (int j = 0; j < J1 - J0; ++j) {
       const int jj = J0 + j;
       const tc::FragB fb = jj < NPK
-                               ? tc::frag_b_paired(s.w1k + 8 * ks * LW1K + 8 * jj, LW1K)
-                               : tc::frag_b_paired(s.w1v + 8 * ks * LW1V + 8 * (jj - NPK), LW1V);
-      tc::mma3(c[j], fa, fb);
+                               ? tc::frag_b_paired<T>(s.w1k + 8 * ks * LW1K + 8 * jj, LW1K)
+                               : tc::frag_b_paired<T>(s.w1v + 8 * ks * LW1V + 8 * (jj - NPK), LW1V);
+      tc::mma_t<T>(c[j], fa, fb);
     }
   }
 #pragma unroll
@@ -220,7 +268,8 @@ __device__ void fwd_pre(const Sm& s, float coeff, int m0) {
 }
 
 // w_k (kK) or w_v tiles J0 .. J1-1 of the m16 block at row m0: h W2 + b2
-template <bool kK, int J0, int J1>
+// (at T = bf16 from the rounded hidden, and rounded)
+template <class T, bool kK, int J0, int J1>
 __device__ void fwd_w(const Sm& s, int m0) {
   constexpr int W = kK ? KD : VD, LP = kK ? LPK : LPV, LW = kK ? LW2K : LW2V;
   const int t = tc::lane_tig();
@@ -235,20 +284,24 @@ __device__ void fwd_w(const Sm& s, int m0) {
   }
 #pragma unroll 2
   for (int ks = 0; ks < W / 8; ++ks) {
-    const tc::FragA fa = tc::frag_a_paired(hid + 8 * ks, LP);
+    const tc::FragA fa = tc::frag_a_paired<T>(hid + 8 * ks, LP);
 #pragma unroll
     for (int j = 0; j < J1 - J0; ++j)
-      tc::mma3(c[j], fa, tc::frag_b_paired(W2 + 8 * ks * LW + 8 * (J0 + j), LW));
+      tc::mma_t<T>(c[j], fa, tc::frag_b_paired<T>(W2 + 8 * ks * LW + 8 * (J0 + j), LW));
   }
   float* out = (kK ? s.wk : s.wv) + m0 * LP;
 #pragma unroll
-  for (int j = 0; j < J1 - J0; ++j) tc::store_c(out + 8 * (J0 + j), LP, c[j]);
+  for (int j = 0; j < J1 - J0; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[j][q] = rnd<T>(c[j][q]);
+    tc::store_c(out + 8 * (J0 + j), LP, c[j]);
+  }
 }
 
 // dh tiles J0 .. J1-1 of the k (kK) or v net at row m0: (dw W2^T) *
 // sigmoid(pre), written in place of the hidden h = ssp(pre): sigmoid(pre) =
-// 1 - exp(-softplus(pre)) = 1 - exp(-h) / 2
-template <bool kK, int J0, int J1>
+// 1 - exp(-softplus(pre)) = 1 - exp(-h) / 2 (at T = bf16 rounded)
+template <class T, bool kK, int J0, int J1>
 __device__ void bwd_dh(const Sm& s, int m0) {
   constexpr int W = kK ? KD : VD, LP = kK ? LPK : LPV, LW = kK ? LW2K : LW2V;
   const int g = tc::lane_grp(), t = tc::lane_tig();
@@ -258,20 +311,20 @@ __device__ void bwd_dh(const Sm& s, int m0) {
   float c[J1 - J0][4] = {};
 #pragma unroll 2
   for (int ks = 0; ks < W / 8; ++ks) {
-    const tc::FragA fa = tc::frag_a_paired(dw + 8 * ks, LP);
+    const tc::FragA fa = tc::frag_a_paired<T>(dw + 8 * ks, LP);
 #pragma unroll
     for (int j = 0; j < J1 - J0; ++j)
-      tc::mma3(c[j], fa, tc::frag_b_nk(W2 + 8 * (J0 + j) * LW + 8 * ks, LW));
+      tc::mma_t<T>(c[j], fa, tc::frag_b_nk<T>(W2 + 8 * (J0 + j) * LW + 8 * ks, LW));
   }
 #pragma unroll
   for (int j = 0; j < J1 - J0; ++j) {
     float* o = hid + 8 * (J0 + j);
     const float2 h0 = *reinterpret_cast<const float2*>(o + g * LP + 2 * t);
     const float2 h1 = *reinterpret_cast<const float2*>(o + (g + 8) * LP + 2 * t);
-    c[j][0] *= sigmoid_of_hidden(h0.x);
-    c[j][1] *= sigmoid_of_hidden(h0.y);
-    c[j][2] *= sigmoid_of_hidden(h1.x);
-    c[j][3] *= sigmoid_of_hidden(h1.y);
+    c[j][0] = rnd<T>(c[j][0] * sigmoid_of_hidden(h0.x));
+    c[j][1] = rnd<T>(c[j][1] * sigmoid_of_hidden(h0.y));
+    c[j][2] = rnd<T>(c[j][2] * sigmoid_of_hidden(h1.x));
+    c[j][3] = rnd<T>(c[j][3] * sigmoid_of_hidden(h1.y));
     tc::store_c(o, LP, c[j]);
   }
 }
@@ -362,8 +415,8 @@ __device__ void plan_tile(const int* __restrict__ plan, int K, const Sm& s) {
 
 // The tile's slot rows: a live row's live slots in slot order, a whole row's
 // K slots; rows ns .. 16 nb - 1 are zero padding (distance 0, no row).
-template <int F>
-__device__ void fill_slots(const ea::Args& a, const ea::Dims& d, const Sm& s, int nrows, int ns,
+template <int F, class A>
+__device__ void fill_slots(const A& a, const ea::Dims& d, const Sm& s, int nrows, int ns,
                            int nb) {
   const int lane = threadIdx.x & 31, K = d.R;
   for (int i = threadIdx.x >> 5; i < nrows; i += kWarps) {
@@ -395,9 +448,9 @@ __device__ void fill_slots(const ea::Args& a, const ea::Dims& d, const Sm& s, in
   }
 }
 
-template <int F>
+template <int F, class T = float>
 __global__ void __launch_bounds__(kThreads, 1)
-list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict__ plan,
+list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __restrict__ plan,
                      int* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
   const Sm s = carve(smem);
@@ -432,23 +485,24 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
       // the EdgeMLPs: two warps per m16 block
       const int m0 = 16 * (warp >> 1);
       if (warp >> 1 < nb) {
-        if (warp & 1) fwd_pre<6, 12>(s, coeff, m0);
-        else fwd_pre<0, 6>(s, coeff, m0);
+        if (warp & 1) fwd_pre<T, 6, 12>(s, coeff, m0);
+        else fwd_pre<T, 0, 6>(s, coeff, m0);
       }
       __syncthreads();
       if (warp >> 1 < nb) {
         if (warp & 1) {
-          fwd_w<false, 3, 8>(s, m0);
+          fwd_w<T, false, 3, 8>(s, m0);
         } else {
-          fwd_w<true, 0, NPK>(s, m0);
-          fwd_w<false, 0, 3>(s, m0);
+          fwd_w<T, true, 0, NPK>(s, m0);
+          fwd_w<T, false, 0, 3>(s, m0);
         }
       }
       __syncthreads();
       // scores and da, one warp per slot, two slots at a time: the lanes read
       // each slot's k and v rows (and the row's q and g) in 16-byte pieces
-      // side by side; a head's pieces are 8 lanes of k (kd 32) and 16 of v
-      // (vd 64), summed across those lanes
+      // (bfloat16: 8-byte) side by side; a head's pieces are 8 lanes of k
+      // (kd 32) and 16 of v (vd 64), summed across those lanes (at bfloat16
+      // each term rounded first)
       for (int m0 = warp; m0 < ns; m0 += 2 * kWarps) {
         const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
         float4 kq[2], qq[2], vq[2][2], gq[2][2];
@@ -456,23 +510,20 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
           const int m = m0 + u * kWarps, c = 4 * lane;
           const bool on = m < ns;
           const long long node = on ? s.rnode[s.rowof[m]] : 0, kv = on ? s.kv[m] : 0;
-          kq[u] = on && c < HK ? __ldg(reinterpret_cast<const float4*>(a.k + kv * HK + c)) : zero;
-          qq[u] = on && c < HK ? __ldg(reinterpret_cast<const float4*>(a.qt + node * HK + c)) : zero;
+          kq[u] = on && c < HK ? ld4(a.k + kv * HK + c) : zero;
+          qq[u] = on && c < HK ? ld4(a.qt + node * HK + c) : zero;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const bool onv = on && c + 128 * r < HV;
-            vq[u][r] = onv ? __ldg(reinterpret_cast<const float4*>(a.v + kv * HV + c + 128 * r)) : zero;
-            gq[u][r] = onv ? __ldg(reinterpret_cast<const float4*>(o.g + node * HV + c + 128 * r)) : zero;
+            vq[u][r] = onv ? ld4(a.v + kv * HV + c + 128 * r) : zero;
+            gq[u][r] = onv ? ld4(o.g + node * HV + c + 128 * r) : zero;
           }
         }
         for (int u = 0; u < 2; ++u) {
           const int m = m0 + u * kWarps, c = 4 * lane;
           const int mm = min(m, ns - 1);  // (a slot past the tile computes, and writes nothing)
           const float4 ww = *reinterpret_cast<const float4*>(s.wk + mm * LPK + c % KD);
-          float part = qq[u].x * ww.x * kq[u].x;
-          part = fmaf(qq[u].y * ww.y, kq[u].y, part);
-          part = fmaf(qq[u].z * ww.z, kq[u].z, part);
-          part = fmaf(qq[u].w * ww.w, kq[u].w, part);
+          float part = dot3<T>(qq[u], ww, kq[u]);
 #pragma unroll
           for (int off = 1; off < KD / 4; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
           if (m < ns && c < HK && c % KD == 0)
@@ -481,10 +532,7 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
           for (int r = 0; r < 2; ++r) {
             const int cv = c + 128 * r;
             const float4 wv = *reinterpret_cast<const float4*>(s.wv + mm * LPV + cv % VD);
-            float pv = gq[u][r].x * wv.x * vq[u][r].x;
-            pv = fmaf(gq[u][r].y * wv.y, vq[u][r].y, pv);
-            pv = fmaf(gq[u][r].z * wv.z, vq[u][r].z, pv);
-            pv = fmaf(gq[u][r].w * wv.w, vq[u][r].w, pv);
+            float pv = dot3<T>(gq[u][r], wv, vq[u][r]);
 #pragma unroll
             for (int off = 1; off < VD / 4; off <<= 1) pv += __shfl_xor_sync(0xffffffffu, pv, off);
             if (m < ns && cv < HV && cv % VD == 0) s.D[m * kMaxH + cv / VD] = pv;
@@ -534,8 +582,11 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
       const long long node = s.rnode[i];
       const float mx = s.rm[i * kMaxH + h];
       float das = 0.f;  // da_self
-      for (int c = lane; c < VD; c += 32)
-        das = fmaf(o.g[node * HV + h * VD + c], a.dval[node * HV + h * VD + c], das);
+      for (int c = lane; c < VD; c += 32) {
+        const float gv = singa::to_f(o.g[node * HV + h * VD + c]);
+        const float dv = singa::to_f(a.dval[node * HV + h * VD + c]);
+        das = kBf16<T> ? das + rnd<T>(gv * dv) : fmaf(gv, dv, das);
+      }
       das = singa::warp_sum(das);
       float l = 0.f, dot = 0.f;
       for (int m = m0 + lane; m < m1; m += 32) {
@@ -550,11 +601,11 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
         s.ra[i * kMaxH + h] = as;
         o.dds[node * H + h] = as * (das - dotn);
       }
-      for (int m = m0 + lane; m < m1; m += 32) {
+      for (int m = m0 + lane; m < m1; m += 32) {  // at bfloat16 both rounded (dsc from aw)
         const float aw = expf(s.S[m * kMaxH + h] - mx) / l;
         const float dsc = s.mask[m] != 0.f ? aw * (s.D[m * kMaxH + h] - dotn) * scale : 0.f;
-        s.S[m * kMaxH + h] = aw;
-        s.D[m * kMaxH + h] = dsc;
+        s.S[m * kMaxH + h] = rnd<T>(aw);
+        s.D[m * kMaxH + h] = rnd<T>(dsc);
       }
     }
     __syncthreads();
@@ -587,11 +638,15 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
       const long long at = (long long)s.rnode[i] * HV + c;
       float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
       if (s.rmode[i] != kZero) {
-        const float as = s.ra[i * kMaxH + c / VD];
-        const float4 gq = *reinterpret_cast<const float4*>(o.g + at);
+        const float as = rnd<T>(s.ra[i * kMaxH + c / VD]);
+        float4 gq;
+        if constexpr (kBf16<T>)
+          gq = ld4(o.g + at);
+        else
+          gq = *reinterpret_cast<const float4*>(o.g + at);
         r = make_float4(as * gq.x, as * gq.y, as * gq.z, as * gq.w);
       }
-      *reinterpret_cast<float4*>(o.ddv + at) = r;
+      st4(o.ddv + at, r);
     }
     for (int job = tid; job < nrows * H; job += kThreads) {
       const int i = job / H;
@@ -624,18 +679,17 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
       const int mb = min(ma + kChunk, s.rfirst[i] + s.rcnt[i]);
       const bool onk = c < HK, onv0 = c < HV, onv1 = c + 128 < HV;
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 qq = onk ? __ldg(reinterpret_cast<const float4*>(a.qt + node * HK + c)) : zero;
-      const float4 g0 = onv0 ? __ldg(reinterpret_cast<const float4*>(o.g + node * HV + c)) : zero;
-      const float4 g1 = onv1 ? __ldg(reinterpret_cast<const float4*>(o.g + node * HV + c + 128)) : zero;
+      const float4 qq = onk ? ld4(a.qt + node * HK + c) : zero;
+      const float4 g0 = onv0 ? ld4(o.g + node * HV + c) : zero;
+      const float4 g1 = onv1 ? ld4(o.g + node * HV + c + 128) : zero;
       const int hk = c / KD, hv0 = c / VD, hv1 = (c + 128) / VD;
       float4 dq = zero;
 #pragma unroll 2
       for (int m = ma; m < mb; ++m) {
         const long long kv = s.kv[m];
-        const float4 kq = onk ? __ldg(reinterpret_cast<const float4*>(a.k + kv * HK + c)) : zero;
-        const float4 v0 = onv0 ? __ldg(reinterpret_cast<const float4*>(a.v + kv * HV + c)) : zero;
-        const float4 v1 =
-            onv1 ? __ldg(reinterpret_cast<const float4*>(a.v + kv * HV + c + 128)) : zero;
+        const float4 kq = onk ? ld4(a.k + kv * HK + c) : zero;
+        const float4 v0 = onv0 ? ld4(a.v + kv * HV + c) : zero;
+        const float4 v1 = onv1 ? ld4(a.v + kv * HV + c + 128) : zero;
         const float dsc = onk ? s.D[m * kMaxH + hk] : 0.f;  // (a lane past the heads adds 0)
         const float a0 = onv0 ? s.S[m * kMaxH + hv0] : 0.f, a1 = onv1 ? s.S[m * kMaxH + hv1] : 0.f;
         const float4 w = *reinterpret_cast<const float4*>(s.wk + m * LPK + c % KD);
@@ -643,12 +697,20 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
         dq.y = fmaf(dsc * w.y, kq.y, dq.y);
         dq.z = fmaf(dsc * w.z, kq.z, dq.z);
         dq.w = fmaf(dsc * w.w, kq.w, dq.w);
-        float4 x = make_float4(dsc * qq.x * kq.x, dsc * qq.y * kq.y, dsc * qq.z * kq.z,
-                               dsc * qq.w * kq.w);
-        float4 y = make_float4(fmaf(a1 * g1.x, v1.x, a0 * g0.x * v0.x),
-                               fmaf(a1 * g1.y, v1.y, a0 * g0.y * v0.y),
-                               fmaf(a1 * g1.z, v1.z, a0 * g0.z * v0.z),
-                               fmaf(a1 * g1.w, v1.w, a0 * g0.w * v0.w));
+        // (at bfloat16 each term rounded before the head sum, and the sum again)
+        float4 x = make_float4(rnd<T>(dsc * qq.x * kq.x), rnd<T>(dsc * qq.y * kq.y),
+                               rnd<T>(dsc * qq.z * kq.z), rnd<T>(dsc * qq.w * kq.w));
+        float4 y;
+        if constexpr (kBf16<T>)
+          y = make_float4(rnd<T>(a0 * g0.x * v0.x) + rnd<T>(a1 * g1.x * v1.x),
+                          rnd<T>(a0 * g0.y * v0.y) + rnd<T>(a1 * g1.y * v1.y),
+                          rnd<T>(a0 * g0.z * v0.z) + rnd<T>(a1 * g1.z * v1.z),
+                          rnd<T>(a0 * g0.w * v0.w) + rnd<T>(a1 * g1.w * v1.w));
+        else
+          y = make_float4(fmaf(a1 * g1.x, v1.x, a0 * g0.x * v0.x),
+                          fmaf(a1 * g1.y, v1.y, a0 * g0.y * v0.y),
+                          fmaf(a1 * g1.z, v1.z, a0 * g0.z * v0.z),
+                          fmaf(a1 * g1.w, v1.w, a0 * g0.w * v0.w));
 #pragma unroll
         for (int off = KD / 4; off < 32; off <<= 1) {  // the heads of k: lanes l, l ^ 8, ...
           x.x += __shfl_xor_sync(0xffffffffu, x.x, off);
@@ -660,8 +722,12 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
         y.y += __shfl_xor_sync(0xffffffffu, y.y, VD / 4);
         y.z += __shfl_xor_sync(0xffffffffu, y.z, VD / 4);
         y.w += __shfl_xor_sync(0xffffffffu, y.w, VD / 4);
-        if (lane < KD / 4) *reinterpret_cast<float4*>(s.dwk + m * LPK + c) = x;
-        if (lane < VD / 4) *reinterpret_cast<float4*>(s.wv + m * LPV + c) = y;
+        if (lane < KD / 4)
+          *reinterpret_cast<float4*>(s.dwk + m * LPK + c) =
+              make_float4(rnd<T>(x.x), rnd<T>(x.y), rnd<T>(x.z), rnd<T>(x.w));
+        if (lane < VD / 4)
+          *reinterpret_cast<float4*>(s.wv + m * LPV + c) =
+              make_float4(rnd<T>(y.x), rnd<T>(y.y), rnd<T>(y.z), rnd<T>(y.w));
       }
       if (onk) *reinterpret_cast<float4*>(s.qpart + k * kMaxH * KD + c) = dq;
     }
@@ -674,8 +740,7 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
     for (int job = tid; job < nrows * HK / 4; job += kThreads) {  // the rows with no slot
       const int i = job / (HK / 4);
       if (s.rcnt[i] == 0)
-        *reinterpret_cast<float4*>(o.dqt + (long long)s.rnode[i] * HK + 4 * (job % (HK / 4))) =
-            make_float4(0.f, 0.f, 0.f, 0.f);
+        st4(o.dqt + (long long)s.rnode[i] * HK + 4 * (job % (HK / 4)), make_float4(0.f, 0.f, 0.f, 0.f));
     }
     if (ns == 0) continue;
     __syncthreads();
@@ -688,17 +753,17 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
         const float4 p = *reinterpret_cast<const float4*>(s.qpart + k * kMaxH * KD + c);
         sum.x += p.x, sum.y += p.y, sum.z += p.z, sum.w += p.w;
       }
-      *reinterpret_cast<float4*>(o.dqt + (long long)s.rnode[i] * HK + c) = sum;
+      st4(o.dqt + (long long)s.rnode[i] * HK + c, sum);
     }
     // dwv2 += h_v^T dw_v, dwk2 += h_k^T dw_k; the tile's products from zero,
     // then into the sums; dbk2 | dbv2 column sums
     {
       float c[2][4] = {};
       for (int ks = 0; ks < kst; ++ks) {
-        const tc::FragA fa = tc::frag_a_trans(s.hv + 8 * ks * LPV + 16 * mbw, LPV);
+        const tc::FragA fa = tc::frag_a_trans<T>(s.hv + 8 * ks * LPV + 16 * mbw, LPV);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          tc::mma3(c[j], fa, tc::frag_b(s.wv + 8 * ks * LPV + 8 * (2 * q4 + j), LPV));
+          tc::mma_t<T>(c[j], fa, tc::frag_b<T>(s.wv + 8 * ks * LPV + 8 * (2 * q4 + j), LPV));
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -708,8 +773,8 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
     if (warp < 8) {
       float c[4] = {};
       for (int ks = 0; ks < kst; ++ks)
-        tc::mma3(c, tc::frag_a_trans(s.hk + 8 * ks * LPK + 16 * mbw, LPK),
-                 tc::frag_b(s.dwk + 8 * ks * LPK + 8 * q4, LPK));
+        tc::mma_t<T>(c, tc::frag_a_trans<T>(s.hk + 8 * ks * LPK + 16 * mbw, LPK),
+                     tc::frag_b<T>(s.dwk + 8 * ks * LPK + 8 * q4, LPK));
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc_k2[q] += c[q];
     }
@@ -724,10 +789,10 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
       const int m0 = 16 * (warp >> 1);
       if (warp >> 1 < nb) {
         if (warp & 1) {
-          bwd_dh<false, 3, 8>(s, m0);
+          bwd_dh<T, false, 3, 8>(s, m0);
         } else {
-          bwd_dh<true, 0, NPK>(s, m0);
-          bwd_dh<false, 0, 3>(s, m0);
+          bwd_dh<T, true, 0, NPK>(s, m0);
+          bwd_dh<T, false, 0, 3>(s, m0);
         }
       }
     }
@@ -736,13 +801,13 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
     {
       float c[3][4] = {};
       for (int ks = 0; ks < kst; ++ks) {
-        const tc::FragA fa = frag_smear_trans(coeff, s.dist + 8 * ks, s.cent + 16 * mbw);
+        const tc::FragA fa = frag_smear_trans<T>(coeff, s.dist + 8 * ks, s.cent + 16 * mbw);
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           const int jj = 3 * q4 + j;
-          const tc::FragB fb = jj < NPK ? tc::frag_b(s.hk + 8 * ks * LPK + 8 * jj, LPK)
-                                        : tc::frag_b(s.hv + 8 * ks * LPV + 8 * (jj - NPK), LPV);
-          tc::mma3(c[j], fa, fb);
+          const tc::FragB fb = jj < NPK ? tc::frag_b<T>(s.hk + 8 * ks * LPK + 8 * jj, LPK)
+                                        : tc::frag_b<T>(s.hv + 8 * ks * LPV + 8 * (jj - NPK), LPV);
+          tc::mma_t<T>(c[j], fa, fb);
         }
       }
 #pragma unroll
@@ -788,14 +853,16 @@ list_bwd_pair_kernel(ea::Args a, ea::Dims d, ea::Grads o, const int* __restrict_
 // nothing, and its w_k and w_v, which it never wrote, are not read
 // (torch.empty scratch may hold NaN, and 0 x NaN is NaN). A kept slot was
 // taken, so its w_k and w_v are written and a zero weight adds 0.
-// Each thread owns channels tid, tid + 128, ... of [dk | dv].
-template <int F>
+// Each thread owns channels tid, tid + 128, ... of [dk | dv]. At T = bf16
+// (qt, g, dk and dv bfloat16) each slot's term is rounded before the sum,
+// as the TPU kernel rounds dk_nb and dv_nb before its one-hot transpose.
+template <int F, class T = float>
 __global__ void __launch_bounds__(kDkdvThreads)
-list_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ g,
+list_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ g,
                  const float* __restrict__ s_wk, const float* __restrict__ s_wv,
                  const float* __restrict__ s_a, const float* __restrict__ s_dsc,
                  const int* __restrict__ offsets, const int* __restrict__ slots,
-                 float* __restrict__ dk, float* __restrict__ dv, ea::Dims dm) {
+                 T* __restrict__ dk, T* __restrict__ dv, ea::Dims dm) {
   __shared__ int sslot[kDkdvChunk], ssrc[kDkdvChunk], wcount[kDkdvThreads / 32];
   __shared__ float sdsc[kDkdvChunk][kMaxH], sa[kDkdvChunk][kMaxH];
   const int H = dm.H, K = dm.R, HK = H * KD, HV = H * VD;
@@ -845,17 +912,21 @@ list_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ g,
           const int h = c / KD, d = c - h * KD;
           float part = acc[i];
 #pragma unroll 4
-          for (int t = 0; t < n; ++t)
-            part = fmaf(sdsc[t][h] * __ldg(s_wk + (long long)sslot[t] * KD + d),
-                        __ldg(qt + (long long)ssrc[t] * HK + c), part);
+          for (int t = 0; t < n; ++t) {
+            const float w = sdsc[t][h] * __ldg(s_wk + (long long)sslot[t] * KD + d);
+            const float q = singa::ldg_f(qt + (long long)ssrc[t] * HK + c);
+            part = kBf16<T> ? part + rnd<T>(w * q) : fmaf(w, q, part);
+          }
           acc[i] = part;
         } else if (c < HK + HV) {
           const int cv = c - HK, h = cv / VD, d = cv - h * VD;
           float part = acc[i];
 #pragma unroll 4
-          for (int t = 0; t < n; ++t)
-            part = fmaf(sa[t][h] * __ldg(s_wv + (long long)sslot[t] * VD + d),
-                        __ldg(g + (long long)ssrc[t] * HV + cv), part);
+          for (int t = 0; t < n; ++t) {
+            const float w = sa[t][h] * __ldg(s_wv + (long long)sslot[t] * VD + d);
+            const float q = singa::ldg_f(g + (long long)ssrc[t] * HV + cv);
+            part = kBf16<T> ? part + rnd<T>(w * q) : fmaf(w, q, part);
+          }
           acc[i] = part;
         }
       }
@@ -863,8 +934,8 @@ list_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ g,
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int c = tid + i * kDkdvThreads;
-      if (c < HK) dk[j * HK + c] = acc[i];
-      else if (c < HK + HV) dv[j * HV + c - HK] = acc[i];
+      if (c < HK) dk[j * HK + c] = singa::from_f<T>(acc[i]);
+      else if (c < HK + HV) dv[j * HV + c - HK] = singa::from_f<T>(acc[i]);
     }
   }
 }
@@ -1219,58 +1290,62 @@ int instance(const ea::Dims& d, int cuda_cores, size_t* smem) {
   return cc_ok(d) ? 1 : -1;
 }
 
-template <int F>
+template <int F, class T>
 int blocks_of(const ea::Dims& d, int cuda_cores) {
   size_t smem = 0;
   const int inst = instance(d, cuda_cores, &smem);
   const long long rows = (long long)d.B * d.N;
   if (inst == 0) {
-    if (singa::allow_smem(list_bwd_pair_kernel<F>, smem) != cudaSuccess) return -1;
-    return singa::persistent_grid(list_bwd_pair_kernel<F>, kThreads, smem, rows);
+    if (singa::allow_smem(list_bwd_pair_kernel<F, T>, smem) != cudaSuccess) return -1;
+    return singa::persistent_grid(list_bwd_pair_kernel<F, T>, kThreads, smem, rows);
   }
   if (inst == 1) {
-    if (singa::allow_smem(list_bwd_cc_kernel<F, float>, smem) != cudaSuccess) return -1;
-    return singa::persistent_grid(list_bwd_cc_kernel<F, float>, kThreads, smem, rows);
+    if (singa::allow_smem(list_bwd_cc_kernel<F, T>, smem) != cudaSuccess) return -1;
+    return singa::persistent_grid(list_bwd_cc_kernel<F, T>, kThreads, smem, rows);
   }
   return -1;
 }
 
-template <int F>
-int launch(const ea::Args& a, const ea::Dims& dm, const float* g, const int* offsets,
-           const int* slots, float* dqt, float* dk, float* dv, float* dds, float* ddv,
-           float* s_wk, float* s_wv, float* s_a, float* s_dsc, int* plan, float* partial,
-           float* grads, int blocks, int cuda_cores, int* stats, void* stream) {
+// The plan, the pair kernel and its dk/dv stage (the tensor-core ones where
+// they take the shapes, else the CUDA-core ones), and the sum of the blocks'
+// weight-gradient rows; T the storage type of qt, k, v, diag_value, g and
+// the outputs but d diag_scores and the weight gradients
+template <int F, class T>
+int launch(const ea::ArgsT<T>& a, const ea::Dims& dm, const T* g, const int* offsets,
+           const int* slots, T* dqt, T* dk, T* dv, float* dds, T* ddv, float* s_wk, float* s_wv,
+           float* s_a, float* s_dsc, int* plan, float* partial, float* grads, int blocks,
+           int cuda_cores, int* stats, void* stream) {
   size_t smem = 0;
   const int inst = instance(dm, cuda_cores, &smem);
   const uintptr_t rows16 = reinterpret_cast<uintptr_t>(a.qt) | reinterpret_cast<uintptr_t>(a.k) |
                            reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(g);
   if (inst < 0 || blocks < 1 || (inst == 0 && (rows16 & 15) != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = inst == 0 ? singa::allow_smem(list_bwd_pair_kernel<F>, smem)
-                              : singa::allow_smem(list_bwd_cc_kernel<F, float>, smem);
+  cudaError_t err = inst == 0 ? singa::allow_smem(list_bwd_pair_kernel<F, T>, smem)
+                              : singa::allow_smem(list_bwd_cc_kernel<F, T>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)dm.B * dm.N;
-  const int plan_grid = singa::persistent_grid(list_plan_kernel<float>, kPlanThreads, 0,
+  const int plan_grid = singa::persistent_grid(list_plan_kernel<T>, kPlanThreads, 0,
                                                (rows + kPlanThreads / 32 - 1) / (kPlanThreads / 32));
-  list_plan_kernel<float><<<plan_grid, kPlanThreads, 0, st>>>(g, a.nmask, plan, rows, dm.R, dm.H * dm.vd);
+  list_plan_kernel<T><<<plan_grid, kPlanThreads, 0, st>>>(g, a.nmask, plan, rows, dm.R, dm.H * dm.vd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const ea::Grads o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, nullptr};
+  const ea::GradsT<T> o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, nullptr};
   if (inst == 0) {
-    list_bwd_pair_kernel<F><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, stats);
+    list_bwd_pair_kernel<F, T><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, stats);
   } else {
-    list_bwd_cc_kernel<F, float><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, stats);
+    list_bwd_cc_kernel<F, T><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, stats);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (inst == 0) {
-    const int grid = singa::persistent_grid(list_dkdv_kernel<F>, kDkdvThreads, 0, rows);
-    list_dkdv_kernel<F><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc, offsets,
-                                                       slots, dk, dv, dm);
+    const int grid = singa::persistent_grid(list_dkdv_kernel<F, T>, kDkdvThreads, 0, rows);
+    list_dkdv_kernel<F, T><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc,
+                                                          offsets, slots, dk, dv, dm);
   } else {
-    const int grid = singa::persistent_grid(list_dkdv_cc_kernel<float>, kDkdvThreads, 0, rows);
-    list_dkdv_cc_kernel<float><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc,
-                                                              offsets, slots, dk, dv, dm);
+    const int grid = singa::persistent_grid(list_dkdv_cc_kernel<T>, kDkdvThreads, 0, rows);
+    list_dkdv_cc_kernel<T><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc,
+                                                          offsets, slots, dk, dv, dm);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1279,48 +1354,13 @@ int launch(const ea::Args& a, const ea::Dims& dm, const float* g, const int* off
   return (int)cudaGetLastError();
 }
 
-// K1b's bfloat16 instance: the plan, the CUDA-core pair kernel and dk/dv
-// stage at T = bf16, and the sum of the blocks' weight-gradient rows.
-int launch_bf16(const ea::ArgsT<singa::bf16>& a, const ea::Dims& dm, const singa::bf16* g,
-                const int* offsets, const int* slots, singa::bf16* dqt, singa::bf16* dk,
-                singa::bf16* dv, float* dds, singa::bf16* ddv, float* s_wk, float* s_wv,
-                float* s_a, float* s_dsc, int* plan, float* partial, float* grads, int blocks,
-                void* stream) {
-  using singa::bf16;
-  if (!dm.ok() || !cc_ok(dm) || blocks < 1 || (long long)dm.B * dm.N * dm.R >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)cc_smem_floats(dm) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = singa::allow_smem(list_bwd_cc_kernel<ea::kList, bf16>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)dm.B * dm.N;
-  const int plan_grid = singa::persistent_grid(list_plan_kernel<bf16>, kPlanThreads, 0,
-                                               (rows + kPlanThreads / 32 - 1) / (kPlanThreads / 32));
-  list_plan_kernel<bf16><<<plan_grid, kPlanThreads, 0, st>>>(g, a.nmask, plan, rows, dm.R,
-                                                             dm.H * dm.vd);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const ea::GradsT<bf16> o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, nullptr};
-  list_bwd_cc_kernel<ea::kList, bf16><<<blocks, kThreads, smem, st>>>(a, dm, o, plan, nullptr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int grid = singa::persistent_grid(list_dkdv_cc_kernel<bf16>, kDkdvThreads, 0, rows);
-  list_dkdv_cc_kernel<bf16><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, s_wk, s_wv, s_a, s_dsc,
-                                                           offsets, slots, dk, dv, dm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int P = dm.grad_floats();
-  singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks);
-  return (int)cudaGetLastError();
-}
-
-template <int F>
+template <int F, class T>
 int residency(int* smem_bytes, int* threads) {
   *smem_bytes = (int)kSmemBytes;
   *threads = kThreads;
-  if (singa::allow_smem(list_bwd_pair_kernel<F>, kSmemBytes) != cudaSuccess) return -1;
+  if (singa::allow_smem(list_bwd_pair_kernel<F, T>, kSmemBytes) != cudaSuccess) return -1;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, list_bwd_pair_kernel<F>, kThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, list_bwd_pair_kernel<F, T>, kThreads,
                                                     kSmemBytes) != cudaSuccess)
     return -1;
   return per_sm;
@@ -1335,19 +1375,21 @@ int residency(int* smem_bytes, int* threads) {
 // neither takes.
 extern "C" int neighbor_attn_bwd_blocks(int B, int N, int K, int H, int kd, int vd, int De,
                                         int cuda_cores) {
-  return blocks_of<ea::kList>(ea::Dims{B, N, K, H, kd, vd, De}, cuda_cores);
+  return blocks_of<ea::kList, float>(ea::Dims{B, N, K, H, kd, vd, De}, cuda_cores);
 }
 
 extern "C" int neighbor_attn_hybrid_bwd_blocks(int B, int N, int K, int H, int kd, int vd, int De,
                                                int cuda_cores) {
-  return blocks_of<ea::kGathered>(ea::Dims{B, N, K, H, kd, vd, De}, cuda_cores);
+  return blocks_of<ea::kGathered, float>(ea::Dims{B, N, K, H, kd, vd, De}, cuda_cores);
 }
 
-// The tensor-core pair kernel of K1b (hybrid 0) or K7b (1): resident blocks
-// per SM (-1: refused), and its threads and dynamic shared memory per block.
-extern "C" int neighbor_attn_bwd_residency(int hybrid, int* smem_bytes, int* threads) {
-  return hybrid ? residency<ea::kGathered>(smem_bytes, threads)
-                : residency<ea::kList>(smem_bytes, threads);
+// The tensor-core pair kernel of K1b (hybrid 0) or K7b (1), at bfloat16
+// storage when bf16 != 0 (K1b's alone): resident blocks per SM (-1:
+// refused), and its threads and dynamic shared memory per block.
+extern "C" int neighbor_attn_bwd_residency(int hybrid, int bf16, int* smem_bytes, int* threads) {
+  if (bf16) return hybrid ? -1 : residency<ea::kList, singa::bf16>(smem_bytes, threads);
+  return hybrid ? residency<ea::kGathered, float>(smem_bytes, threads)
+                : residency<ea::kList, float>(smem_bytes, threads);
 }
 
 // offsets [B*N + 1] and slots [B*N*K]: the CSR transpose of nbr (flat slot
@@ -1367,7 +1409,7 @@ extern "C" int neighbor_attn_bwd_f32(
     int cuda_cores, int* stats, void* stream) {
   const ea::Args a{qt, k, v, nbr, nmask, dist, ds, dval, centers,
                    wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
-  return launch<ea::kList>(a, ea::Dims{B, N, K, H, kd, vd, De}, g, offsets, slots, dqt, dk, dv,
+  return launch<ea::kList, float>(a, ea::Dims{B, N, K, H, kd, vd, De}, g, offsets, slots, dqt, dk, dv,
                            dds, ddv, s_wk, s_wv, s_a, s_dsc, plan, partial, grads, blocks,
                            cuda_cores, stats, stream);
 }
@@ -1385,24 +1427,22 @@ extern "C" int neighbor_attn_hybrid_bwd_f32(
     int cuda_cores, int* stats, void* stream) {
   const ea::Args a{qt, k_nb, v_nb, nullptr, nmask, dist, ds, dval, centers,
                    wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
-  return launch<ea::kGathered>(a, ea::Dims{B, N, K, H, kd, vd, De}, g, offsets, slots, dqt, dk,
+  return launch<ea::kGathered, float>(a, ea::Dims{B, N, K, H, kd, vd, De}, g, offsets, slots, dqt, dk,
                                dv, dds, ddv, s_wk, s_wv, s_a, s_dsc, plan, partial, grads, blocks,
                                cuda_cores, stats, stream);
 }
 
-// Blocks of K1b's bfloat16 pair kernel at these shapes (the caller sizes the
-// [blocks, P] scratch from it); -1 for shapes it does not take.
-extern "C" int neighbor_attn_bwd_bf16_blocks(int B, int N, int K, int H, int kd, int vd, int De) {
-  const ea::Dims d{B, N, K, H, kd, vd, De};
-  if (!d.ok() || !cc_ok(d)) return -1;
-  const size_t smem = (size_t)cc_smem_floats(d) * sizeof(float);
-  const auto kernel = list_bwd_cc_kernel<ea::kList, singa::bf16>;
-  if (singa::allow_smem(kernel, smem) != cudaSuccess) return -1;
-  return singa::persistent_grid(kernel, kThreads, smem, (long long)B * N);
+// Blocks of K1b's bfloat16 pair kernel at these shapes (the tensor-core one
+// where it takes them, else the CUDA-core one; cuda_cores != 0: the
+// CUDA-core one), as neighbor_attn_bwd_blocks; -1 for shapes neither takes.
+extern "C" int neighbor_attn_bwd_bf16_blocks(int B, int N, int K, int H, int kd, int vd, int De,
+                                             int cuda_cores) {
+  return blocks_of<ea::kList, singa::bf16>(ea::Dims{B, N, K, H, kd, vd, De}, cuda_cores);
 }
 
 // K1b's bfloat16 instance: qt, k, v, diag_value, g, dqt, dk, dv and ddv
-// bfloat16; the rest, the scratch and grads as neighbor_attn_bwd_f32's.
+// bfloat16; the rest, the scratch, grads, cuda_cores and stats as
+// neighbor_attn_bwd_f32's.
 extern "C" int neighbor_attn_bwd_bf16(
     const void* qt, const void* k, const void* v, const int* nbr, const unsigned char* nmask,
     const float* dist, const float* ds, const void* dval, const float* centers,
@@ -1410,12 +1450,14 @@ extern "C" int neighbor_attn_bwd_bf16(
     const float* bv1, const float* wv2, const float* bv2, float coeff, const void* g,
     const int* offsets, const int* slots, void* dqt, void* dk, void* dv, float* dds,
     void* ddv, float* s_wk, float* s_wv, float* s_a, float* s_dsc, int* plan, float* partial,
-    float* grads, int B, int N, int K, int H, int kd, int vd, int De, int blocks, void* stream) {
+    float* grads, int B, int N, int K, int H, int kd, int vd, int De, int blocks, int cuda_cores,
+    int* stats, void* stream) {
   using singa::bf16;
   const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k, (const bf16*)v, nbr, nmask, dist, ds,
                           (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
                           coeff};
-  return launch_bf16(a, ea::Dims{B, N, K, H, kd, vd, De}, (const bf16*)g, offsets, slots,
-                     (bf16*)dqt, (bf16*)dk, (bf16*)dv, dds, (bf16*)ddv, s_wk, s_wv, s_a, s_dsc,
-                     plan, partial, grads, blocks, stream);
+  return launch<ea::kList, bf16>(a, ea::Dims{B, N, K, H, kd, vd, De}, (const bf16*)g, offsets,
+                                 slots, (bf16*)dqt, (bf16*)dk, (bf16*)dv, dds, (bf16*)ddv, s_wk,
+                                 s_wv, s_a, s_dsc, plan, partial, grads, blocks, cuda_cores, stats,
+                                 stream);
 }

@@ -76,17 +76,37 @@
 // which makes every term they add to a gradient exactly zero, and the dx
 // kernel writes nothing for them; hidden channels past H get zero weights and
 // biases, which add nothing.
+// bfloat16: all three kernels are templated on the storage type T of x, dy
+// and dx (so3_gate_ffn_bwd_tc). At T = bf16 they compute the function
+// _gate_ffn_bwd_kernel computes at a bfloat16 dtype, whose every product
+// multiplies two bfloat16 operands and sums in float32: the rows of x and
+// dy come by cp.async as bfloat16 (half the bytes) and widen as fragments
+// load; the weights are rounded to bfloat16 once (the split kernel, or the
+// weight kernel's staging) and kept as TF32 hi only, their lo being zero;
+// each product is one TF32 mma.sync, exact to float32 accumulation
+// (mma_tf32.cuh), where float32 takes three. The Pallas kernel's roundings
+// are taken in registers: the gates where they scale h and dmid (float32 in
+// sigmoid'), mid and dh as C fragments become A fragments (db1 sums dh
+// unrounded), dg0 before dwg, dbg and row 0's dx term; dx is stored
+// rounded, the weight gradients float32. Tiles, plans, degree groups, rings
+// and summation orders are the float32 kernels', so the results are
+// deterministic; ~61 GFLOP a microbatch in one TF32 product each (~0.12 ms
+// at 495 TFLOP/s).
 // Besides: K2b's CUDA-core instance (namespace cc, below), the kernel before
 // the tensor-core ones, templated on the storage type of x, dy and dx. It
-// runs the float32 widths the tensor-core kernels refuse (C or Co not 8 or
-// 16, lmax 7 at 16 channels) and K2b's bfloat16 instance at every width
-// (so3_gate_ffn_bwd_cc); ~61 GFLOP a microbatch on the CUDA cores in float32
-// (~0.92 ms at 67 TFLOP/s).
+// runs the widths the tensor-core kernels refuse (C or Co not 8 or 16, lmax
+// 7 at 16 channels), at float32 and at bfloat16 (so3_gate_ffn_bwd_cc);
+// ~61 GFLOP a microbatch on the CUDA cores in float32 (~0.92 ms at 67
+// TFLOP/s).
 #include "gate_ffn_tc.cuh"
 
 namespace {
 
+using singa::kBf16;
 using singa::gate::cp_async16;
+using singa::tc::bf16_bits;
+using singa::tc::bf16_hi;
+using singa::tc::bf16_lo;
 
 struct Dims {
   int N, lmax, L, I, C, H, Co;
@@ -148,7 +168,12 @@ __host__ __device__ inline GradLayout grad_layout(const Dims& d) {
 // block and not 64: the split fragments of w1 and w2 take 4 KB per degree
 // and 16 channels (57 KB at lmax 6 for 32 channels), the two-stage ring
 // 125 KB; at 64 channels the fragments take 115 KB and the ring no longer
-// fits in the 227 KB a block can have.
+// fits in the 227 KB a block can have. At T = bf16 the ring holds bfloat16
+// rows and the weights' one plane (hi): about half the shared memory. Its
+// fragments of w1 and w2 then take k paired (k = 8 ks + 2 t + (r >> 1)),
+// so that a lane reads its two values of a row of x or dy with one 4-byte
+// load (frag_b_nk); the row stride w_ld<bf16> keeps those loads and
+// frag_b_paired's conflict-free.
 constexpr int kWThreads = 256;  // 8 warps
 constexpr int kHB = 2;          // 16-channel hidden blocks of a block
 constexpr int kGroups = kWThreads / 32 / kHB;
@@ -157,16 +182,24 @@ constexpr int kWTN = 8;         // nodes of a tile: the n8 of the products
 constexpr int kSlots = 2;       // degrees of a group
 constexpr int kWStages = 2;
 
-// floats of a node's row of x (C wide) or dy (Co wide) in the ring: for
-// frag_b_nk_seq and frag_b_paired, conflict-free at widths 8 and 16
-__host__ __device__ constexpr int w_ld(int width) { return width + 4; }
+// values of T of a node's row of x (C wide) or dy (Co wide) in the ring:
+// for frag_b_nk_seq and frag_b_paired, conflict-free at widths 8 and 16
+// (bfloat16: frag_b_nk's words at g * ld / 2 + t, and frag_b_paired's)
+template <class T = float>
+__host__ __device__ constexpr int w_ld(int width) {
+  return kBf16<T> ? (width % 16 ? width : width + 8) : width + 4;
+}
 // words of one (degree, hidden block)'s fragments of w1 and w2, one plane
 __host__ __device__ constexpr int w_frag(int C, int Co) { return (C / 8 + Co / 8) * 32 * 4; }
+// planes of the weight kernel's fragments: hi and lo, or (bfloat16) hi
+template <class T>
+__host__ __device__ constexpr int w_planes() { return kBf16<T> ? 1 : 2; }
 
-__host__ __device__ inline size_t w_smem_floats(const Dims& d) {
-  return (size_t)kWStages * d.I * kWTN * (w_ld(d.C) + w_ld(d.Co)) +
-         2 * (size_t)d.L * kHB * w_frag(d.C, d.Co) + (size_t)d.lmax * d.C * kWHC +
-         (size_t)d.lmax * kWHC;
+template <class T>
+__host__ __device__ inline size_t w_smem_bytes(const Dims& d) {
+  return (size_t)kWStages * d.I * kWTN * (w_ld<T>(d.C) + w_ld<T>(d.Co)) * sizeof(T) +
+         ((size_t)w_planes<T>() * d.L * kHB * w_frag(d.C, d.Co) + (size_t)d.lmax * d.C * kWHC +
+          (size_t)d.lmax * kWHC) * sizeof(float);
 }
 
 // The degrees of group `group`, largest first (-1: none): degrees from
@@ -196,17 +229,17 @@ __device__ void degree_group(int lmax, int group, int (&deg)[kSlots]) {
 
 // x and dy of the tile at node n0 into one stage: x [i][node][w_ld(C)], then
 // dy [i][node][w_ld(Co)], zeros past N
-template <int C, int Co>
-__device__ void copy_tile(const float* __restrict__ x, const float* __restrict__ dy, int n0,
-                          const Dims& d, float* stage) {
-  constexpr int QX = C / 4, QY = Co / 4;  // 16-byte pieces of a row
+template <int C, int Co, class T>
+__device__ void copy_tile(const T* __restrict__ x, const T* __restrict__ dy, int n0,
+                          const Dims& d, T* stage) {
+  constexpr int E = 16 / sizeof(T), QX = C / E, QY = Co / E;  // 16-byte pieces of a row
   for (int q = threadIdx.x; q < (QX + QY) * d.I; q += kWThreads) {
     const bool isy = q >= QX * d.I;
     const int r = isy ? q - QX * d.I : q, pieces = isy ? QY : QX;
-    const int w = isy ? Co : C, ld = w_ld(w);
-    const int i = r / pieces, c = 4 * (r % pieces);
-    const float* src = isy ? dy : x;
-    float* dst = stage + (isy ? d.I * kWTN * w_ld(C) : 0) + i * kWTN * ld + c;
+    const int w = isy ? Co : C, ld = w_ld<T>(w);
+    const int i = r / pieces, c = E * (r % pieces);
+    const T* src = isy ? dy : x;
+    T* dst = stage + (isy ? d.I * kWTN * w_ld<T>(C) : 0) + i * kWTN * ld + c;
 #pragma unroll
     for (int node = 0; node < kWTN; ++node) {
       const bool ok = n0 + node < d.N;
@@ -220,8 +253,10 @@ __device__ void copy_tile(const float* __restrict__ x, const float* __restrict__
 // One row i of degree l for the warp's 16 channels and the tile's 8 nodes:
 // h and dmid on the tensor cores, the elementwise step, dg += dmid h (l >= 1)
 // or db1 += dh (row 0), and dw1^T, dw2 += this row's products into pw1, pw2.
-template <int C, int Co>
-__device__ __forceinline__ void row_products(const float* xi, const float* yi,
+// At T = bf16: one product each, the gates rounded where they scale, mid
+// and dh rounded as they become A fragments.
+template <int C, int Co, class T>
+__device__ __forceinline__ void row_products(const T* xi, const T* yi,
                                              const singa::tc::FragA (&wa1)[C / 8],
                                              const singa::tc::FragA (&wa2)[Co / 8], bool row0,
                                              const float (&gate)[4], const float (&b1r)[2],
@@ -229,18 +264,24 @@ __device__ __forceinline__ void row_products(const float* xi, const float* yi,
                                              float (&pw1)[C / 8][4], float (&pw2)[Co / 8][4]) {
   using namespace singa::tc;
   constexpr int KC = C / 8, KO = Co / 8, K = KC > KO ? KC : KO;
-  constexpr int LX = w_ld(C), LY = w_ld(Co);
+  constexpr int LX = w_ld<T>(C), LY = w_ld<T>(Co);
   float hc[4] = {}, dc[4] = {};
 #pragma unroll
   for (int ks = 0; ks < K; ++ks) {  // each accumulator: lo hi, hi lo, hi hi
     const int kx = ks < KC ? ks : 0, ky = ks < KO ? ks : 0;
-    const FragB xb = frag_b_nk_seq(xi + 8 * kx, LX), yb = frag_b_nk_seq(yi + 8 * ky, LY);
-    if (ks < KC) mma(hc, wa1[kx].lo, xb.hi);
-    if (ks < KO) mma(dc, wa2[ky].lo, yb.hi);
-    if (ks < KC) mma(hc, wa1[kx].hi, xb.lo);
-    if (ks < KO) mma(dc, wa2[ky].hi, yb.lo);
-    if (ks < KC) mma(hc, wa1[kx].hi, xb.hi);
-    if (ks < KO) mma(dc, wa2[ky].hi, yb.hi);
+    if constexpr (kBf16<T>) {  // k paired, as the weights' fragments
+      const FragB xb = frag_b_nk(xi + 8 * kx, LX), yb = frag_b_nk(yi + 8 * ky, LY);
+      if (ks < KC) mma(hc, wa1[kx].hi, xb.hi);
+      if (ks < KO) mma(dc, wa2[ky].hi, yb.hi);
+    } else {
+      const FragB xb = frag_b_nk_seq(xi + 8 * kx, LX), yb = frag_b_nk_seq(yi + 8 * ky, LY);
+      if (ks < KC) mma(hc, wa1[kx].lo, xb.hi);
+      if (ks < KO) mma(dc, wa2[ky].lo, yb.hi);
+      if (ks < KC) mma(hc, wa1[kx].hi, xb.lo);
+      if (ks < KO) mma(dc, wa2[ky].hi, yb.lo);
+      if (ks < KC) mma(hc, wa1[kx].hi, xb.hi);
+      if (ks < KO) mma(dc, wa2[ky].hi, yb.hi);
+    }
   }
   float dh[4], mid[4];  // c fragments: (channel g + 8 (q >> 1), node 2t + (q & 1))
   if (row0) {
@@ -255,26 +296,29 @@ __device__ __forceinline__ void row_products(const float* xi, const float* yi,
   } else {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      dh[q] = dc[q] * gate[q];
-      mid[q] = hc[q] * gate[q];
+      const float gr = singa::rnd<T>(gate[q]);
+      dh[q] = dc[q] * gr;
+      mid[q] = hc[q] * gr;
       dg[q] = fmaf(dc[q], hc[q], dg[q]);
     }
   }
-  const FragA da = frag_a_from_c(dh), ma = frag_a_from_c(mid);
+  const FragA da = frag_a_from_c<T>(dh), ma = frag_a_from_c<T>(mid);
   FragB xp[KC], yp[KO];
 #pragma unroll
   for (int j = 0; j < KC; ++j) xp[j] = frag_b_paired(xi + 8 * j, LX);
 #pragma unroll
   for (int j = 0; j < KO; ++j) yp[j] = frag_b_paired(yi + 8 * j, LY);
+  if constexpr (!kBf16<T>) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    if (j < KC) mma(pw1[j < KC ? j : 0], da.lo, xp[j < KC ? j : 0].hi);
-    if (j < KO) mma(pw2[j < KO ? j : 0], ma.lo, yp[j < KO ? j : 0].hi);
-  }
+    for (int j = 0; j < K; ++j) {
+      if (j < KC) mma(pw1[j < KC ? j : 0], da.lo, xp[j < KC ? j : 0].hi);
+      if (j < KO) mma(pw2[j < KO ? j : 0], ma.lo, yp[j < KO ? j : 0].hi);
+    }
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    if (j < KC) mma(pw1[j < KC ? j : 0], da.hi, xp[j < KC ? j : 0].lo);
-    if (j < KO) mma(pw2[j < KO ? j : 0], ma.hi, yp[j < KO ? j : 0].lo);
+    for (int j = 0; j < K; ++j) {
+      if (j < KC) mma(pw1[j < KC ? j : 0], da.hi, xp[j < KC ? j : 0].lo);
+      if (j < KO) mma(pw2[j < KO ? j : 0], ma.hi, yp[j < KO ? j : 0].lo);
+    }
   }
 #pragma unroll
   for (int j = 0; j < K; ++j) {
@@ -283,24 +327,24 @@ __device__ __forceinline__ void row_products(const float* xi, const float* yi,
   }
 }
 
-template <int C, int Co>
+template <int C, int Co, class T>
 __global__ void __launch_bounds__(kWThreads, 1)
-gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+gate_ffn_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ w1, const float* __restrict__ b1,
                       const float* __restrict__ wg, const float* __restrict__ bg,
                       const float* __restrict__ w2, float* __restrict__ partial, int N,
                       int lmax, int H, int slices) {
   using namespace singa::tc;
   constexpr int KC = C / 8, KO = Co / 8, KS = KC + KO, WF = w_frag(C, Co);
-  constexpr int LX = w_ld(C), LY = w_ld(Co);
-  constexpr int IX = kWTN * LX, IY = kWTN * LY;  // floats of a coefficient row's block
+  constexpr int LX = w_ld<T>(C), LY = w_ld<T>(Co);
+  constexpr int IX = kWTN * LX, IY = kWTN * LY;  // values of a coefficient row's block
   const Dims d = make_dims(N, lmax, C, H, Co);
   const int L = d.L, I = d.I;
   extern __shared__ __align__(16) float smem[];
-  const int ss = I * (IX + IY);  // floats of a stage
-  float* ring = smem;            // [stage][x [I][kWTN][LX], dy [I][kWTN][LY]]
+  const int ss = I * (IX + IY);  // values of a stage
+  T* ring = reinterpret_cast<T*>(smem);  // [stage][x [I][kWTN][LX], dy [I][kWTN][LY]]
   uint32_t* wf = reinterpret_cast<uint32_t*>(ring + kWStages * ss);  // [hi, lo][l][hb][...]
-  float* swg = reinterpret_cast<float*>(wf + 2 * L * kHB * WF);      // [lmax][C][kWHC]
+  float* swg = reinterpret_cast<float*>(wf + w_planes<T>() * L * kHB * WF);  // [lmax][C][kWHC]
   float* sbg = swg + lmax * C * kWHC;                                // [lmax][kWHC]
   const int chunks = (H + kWHC - 1) / kWHC;
   const int chunk = blockIdx.x % chunks, slice = blockIdx.x / chunks;
@@ -315,20 +359,26 @@ gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 
   if (t_begin < t_end) copy_tile<C, Co>(x, dy, t_begin * kWTN, d, ring);
   // w1 and w2 as A fragments, split: [l][hb][k step: w1's KC, then w2's KO][lane][reg];
-  // reg r holds m = g + 8 (r & 1), k = 8 ks + t + 4 (r >> 1)
+  // reg r holds m = g + 8 (r & 1), k = 8 ks + t + 4 (r >> 1) (bfloat16: rounded,
+  // the hi plane alone, k = 8 ks + 2 t + (r >> 1))
   for (int e = tid; e < L * kHB * WF; e += kWThreads) {
     const int r = e & 3, ln = (e >> 2) & 31, step = (e >> 7) % KS, lb = (e >> 7) / KS;
     const int b = lb % kHB, l = lb / kHB;
     const bool of_w2 = step >= KC;
     const int ks = of_w2 ? step - KC : step;
-    const int h = hc0 + 16 * b + (ln >> 2) + 8 * (r & 1), k = 8 * ks + (ln & 3) + 4 * (r >> 1);
+    const int h = hc0 + 16 * b + (ln >> 2) + 8 * (r & 1);
+    const int k = kBf16<T> ? 8 * ks + 2 * (ln & 3) + (r >> 1) : 8 * ks + (ln & 3) + 4 * (r >> 1);
     float v = 0.f;
     if (h < H) v = of_w2 ? w2[((long long)l * H + h) * Co + k] : w1[((long long)l * C + k) * H + h];
-    split(v, wf[e], wf[L * kHB * WF + e]);
+    if constexpr (kBf16<T>)
+      wf[e] = bf16_bits(v);
+    else
+      split(v, wf[e], wf[L * kHB * WF + e]);
   }
   for (int e = tid; e < lmax * C * kWHC; e += kWThreads) {
     const int h = e % kWHC, c = (e / kWHC) % C, l = e / (kWHC * C);
-    swg[e] = hc0 + h < H ? wg[(long long)c * lmax * H + (long long)l * H + hc0 + h] : 0.f;
+    swg[e] = hc0 + h < H ? singa::rnd<T>(wg[(long long)c * lmax * H + (long long)l * H + hc0 + h])
+                         : 0.f;
   }
   for (int e = tid; e < lmax * kWHC; e += kWThreads) {
     const int h = e % kWHC, l = e / kWHC;
@@ -355,21 +405,34 @@ gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 1;\n" ::);  // this tile's copies, this thread's
     __syncthreads();                                 // and everyone's
-    const float* sx = ring + (k % kWStages) * ss;
-    const float* sy = sx + I * IX;
+    const T* sx = ring + (k % kWStages) * ss;
+    const T* sy = sx + I * IX;
 
     float x0[2][C];  // row 0 of x at the lane's nodes 2t, 2t + 1, read where needed
     auto load_x0 = [&]() {
 #pragma unroll
       for (int nd = 0; nd < 2; ++nd)
+        if constexpr (kBf16<T>) {
 #pragma unroll
-        for (int c = 0; c < C; c += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(sx + (2 * t + nd) * LX + c);
-          x0[nd][c] = v.x, x0[nd][c + 1] = v.y, x0[nd][c + 2] = v.z, x0[nd][c + 3] = v.w;
+          for (int c = 0; c < C; c += 8) {
+            const uint4 v = *reinterpret_cast<const uint4*>(sx + (2 * t + nd) * LX + c);
+            const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              x0[nd][c + 2 * u] = __uint_as_float(bf16_lo(w[u]));
+              x0[nd][c + 2 * u + 1] = __uint_as_float(bf16_hi(w[u]));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < C; c += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(sx + (2 * t + nd) * LX + c);
+            x0[nd][c] = v.x, x0[nd][c + 1] = v.y, x0[nd][c + 2] = v.z, x0[nd][c + 3] = v.w;
+          }
         }
     };
     if (chunk == 0 && warp == 0 && lane < Co)  // db2: row 0 of dy
-      for (int nd = 0; nd < kWTN; ++nd) ab2 += sy[nd * LY + lane];
+      for (int nd = 0; nd < kWTN; ++nd) ab2 += singa::to_f(sy[nd * LY + lane]);
 
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
@@ -380,7 +443,8 @@ gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 #pragma unroll
       for (int step = 0; step < KS; ++step) {
         const uint4 hi = *reinterpret_cast<const uint4*>(wl + step * 128);
-        const uint4 lo = *reinterpret_cast<const uint4*>(wl + L * kHB * WF + step * 128);
+        const uint4 lo = kBf16<T> ? make_uint4(0u, 0u, 0u, 0u)
+                                  : *reinterpret_cast<const uint4*>(wl + L * kHB * WF + step * 128);
         const FragA f{{hi.x, hi.y, hi.z, hi.w}, {lo.x, lo.y, lo.z, lo.w}};
         if (step < KC)
           wa1[step < KC ? step : 0] = f;
@@ -409,14 +473,14 @@ gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       float qw1[KC][4] = {}, qw2[KO][4] = {};  // the odd rows' (a second chain)
       int i = l * l;
       for (; i + 1 < (l + 1) * (l + 1); i += 2) {
-        row_products<C, Co>(sx + i * IX, sy + i * IY, wa1, wa2, l == 0, gate, b1r, dg, ab1, pw1,
-                            pw2);
-        row_products<C, Co>(sx + (i + 1) * IX, sy + (i + 1) * IY, wa1, wa2, l == 0, gate, b1r,
-                            dg, ab1, qw1, qw2);
+        row_products<C, Co, T>(sx + i * IX, sy + i * IY, wa1, wa2, l == 0, gate, b1r, dg, ab1,
+                               pw1, pw2);
+        row_products<C, Co, T>(sx + (i + 1) * IX, sy + (i + 1) * IY, wa1, wa2, l == 0, gate, b1r,
+                               dg, ab1, qw1, qw2);
       }
       if (i < (l + 1) * (l + 1))
-        row_products<C, Co>(sx + i * IX, sy + i * IY, wa1, wa2, l == 0, gate, b1r, dg, ab1, pw1,
-                            pw2);
+        row_products<C, Co, T>(sx + i * IX, sy + i * IY, wa1, wa2, l == 0, gate, b1r, dg, ab1,
+                               pw1, pw2);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
 #pragma unroll
@@ -427,7 +491,7 @@ gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       if (l > 0) {  // the gate path: dg0, dbg, dwg
         float g0[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) g0[q] = gate[q] * (1.f - gate[q]) * dg[q];
+        for (int q = 0; q < 4; ++q) g0[q] = singa::rnd<T>(gate[q] * (1.f - gate[q]) * dg[q]);
         abg[s][0] += g0[0] + g0[1];
         abg[s][1] += g0[2] + g0[3];
         load_x0();
@@ -500,15 +564,17 @@ gate_ffn_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   if (chunk == 0 && warp == 0 && lane < Co) row[gl.b2 + lane] = ab2;
 }
 
-using WKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+template <class T>
+using WKernel = void (*)(const T*, const T*, const float*, const float*, const float*,
                          const float*, const float*, float*, int, int, int, int);
 
 // The weight kernel's instance for C input and Co output channels (null: none)
-WKernel w_kernel(int C, int Co) {
-  if (C == 8 && Co == 8) return gate_ffn_bwd_w_kernel<8, 8>;
-  if (C == 8 && Co == 16) return gate_ffn_bwd_w_kernel<8, 16>;
-  if (C == 16 && Co == 8) return gate_ffn_bwd_w_kernel<16, 8>;
-  if (C == 16 && Co == 16) return gate_ffn_bwd_w_kernel<16, 16>;
+template <class T>
+WKernel<T> w_kernel(int C, int Co) {
+  if (C == 8 && Co == 8) return gate_ffn_bwd_w_kernel<8, 8, T>;
+  if (C == 8 && Co == 16) return gate_ffn_bwd_w_kernel<8, 16, T>;
+  if (C == 16 && Co == 8) return gate_ffn_bwd_w_kernel<16, 8, T>;
+  if (C == 16 && Co == 16) return gate_ffn_bwd_w_kernel<16, 16, T>;
   return nullptr;
 }
 
@@ -518,94 +584,107 @@ WKernel w_kernel(int C, int Co) {
 // of 12 warps an SM, at most 168 registers a thread (chip_smoke.py's
 // k2b_ptxas and dx_residency). 12 warps, not 8 or 16: 8 hide too little of
 // the products' latency (two warps a scheduler), and at 16 the 128
-// registers a thread spill the dx sums.
+// registers a thread spill the dx sums. At T = bf16 the tile is bfloat16
+// and a chunk's fragments hi only: about half the shared memory.
 constexpr int kDThreads = 384;  // 12 warps
 constexpr int kDWarps = kDThreads / 32;
 constexpr int kDMaxRows = 6;    // rows of a warp: I <= 64 over 12 warps
 using singa::gate::ChunkLayout;
 using singa::gate::frag_pre;
 using singa::gate::frag_tile;
+using singa::gate::frag_words;
 using singa::gate::gates;
-using singa::gate::kFragWords;
 using singa::gate::kHC;
 using singa::gate::kNB;
 using singa::gate::kTN;
 static_assert((64 + kDWarps - 1) / kDWarps <= kDMaxRows, "a warp's rows must fit kDMaxRows");
 static_assert(kDWarps >= 7, "one warp for each degree's gates");
 
-// Every chunk's words (the layout chunk_layout<true>): the weights split
-// into TF32 hi and lo once a call (gate_ffn_tc.cuh).
-template <int C, int Co>
+// Every chunk's words (the layout chunk_layout<true, T>): the weights split
+// into TF32 hi and lo once a call (gate_ffn_tc.cuh; bfloat16: rounded, hi).
+template <int C, int Co, class T>
 __global__ void gate_ffn_bwd_wsplit_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                                            const float* __restrict__ wg, const float* __restrict__ bg,
                                            const float* __restrict__ w2, uint32_t* __restrict__ out,
                                            int lmax, int H) {
-  singa::gate::split_chunks<C, Co, true>(w1, b1, wg, bg, w2, out, lmax, H);
+  singa::gate::split_chunks<C, Co, true, T>(w1, b1, wg, bg, w2, out, lmax, H);
 }
 
 // x and dy of the tile at node n0 by cp.async: sx [I][kTN][C], sy
 // [I][kTN][Co] (swizzled), zeros past N. One commit group with the caller's.
-template <int C, int Co>
-__device__ void copy_dx_tile(const float* __restrict__ x, const float* __restrict__ dy, int n0,
-                             const Dims& d, float* sx, float* sy) {
-  singa::gate::copy_tile_rows<C, kDThreads>(x, n0, d.I, d.N, sx);
-  singa::gate::copy_tile_rows<Co, kDThreads>(dy, n0, d.I, d.N, sy);
+template <int C, int Co, class T>
+__device__ void copy_dx_tile(const T* __restrict__ x, const T* __restrict__ dy, int n0,
+                             const Dims& d, T* sx, T* sy) {
+  singa::gate::copy_tile_rows<C, kDThreads, T>(x, n0, d.I, d.N, sx);
+  singa::gate::copy_tile_rows<Co, kDThreads, T>(dy, n0, d.I, d.N, sy);
 }
 
 // Row 0's term of degree l from the warp's rows of l: dg0 = gate (1 - gate)
 // dgate, part0 += dg0 wg_l^T on the tensor cores. B (k = hidden, paired;
 // n = c) is read from the gates' fragments (k = c, paired; n = hidden):
 // lane (g, t) takes k slot t from lane 8 t + (g >> 1) and slot t + 4 from
-// lane 8 t + 4 + (g >> 1), their register g & 1.
-template <int C>
+// lane 8 t + 4 + (g >> 1), their register g & 1. At T = bf16 dg0 is
+// rounded as it becomes the A fragment, and the gates' fragments are hi only.
+template <int C, class T>
 __device__ __forceinline__ void gate_term(const uint32_t* wgf, int l, const float (&gate)[kNB][4],
                                           const float (&dgate)[kNB][4], float (&part0)[C / 8][4]) {
   using namespace singa::tc;
-  constexpr int KC = C / 8, NB = kNB;
-  const uint32_t* f = wgf + (l - 1) * KC * NB * kFragWords;
+  constexpr int KC = C / 8, NB = kNB, FW = frag_words<T>();
+  const uint32_t* f = wgf + (l - 1) * KC * NB * FW;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     float dg[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) dg[q] = gate[j][q] * (1.f - gate[j][q]) * dgate[j][q];
-    const FragA da = frag_a_from_c(dg);
+    const FragA da = frag_a_from_c<T>(dg);
     FragB b[KC];
 #pragma unroll
     for (int nt = 0; nt < KC; ++nt) {
-      const uint32_t* w = f + (nt * NB + j) * kFragWords;
-      const int w0 = (8 * lane_tig() + (lane_grp() >> 1)) * 4 + (lane_grp() & 1);
-      b[nt].hi[0] = w[w0];
-      b[nt].lo[0] = w[w0 + 2];
-      b[nt].hi[1] = w[w0 + 16];
-      b[nt].lo[1] = w[w0 + 18];
+      const uint32_t* w = f + (nt * NB + j) * FW;
+      if constexpr (kBf16<T>) {  // [lane][hi b0, hi b1]
+        const int w0 = (8 * lane_tig() + (lane_grp() >> 1)) * 2 + (lane_grp() & 1);
+        b[nt].hi[0] = w[w0];
+        b[nt].hi[1] = w[w0 + 8];
+        b[nt].lo[0] = b[nt].lo[1] = 0u;
+      } else {
+        const int w0 = (8 * lane_tig() + (lane_grp() >> 1)) * 4 + (lane_grp() & 1);
+        b[nt].hi[0] = w[w0];
+        b[nt].lo[0] = w[w0 + 2];
+        b[nt].hi[1] = w[w0 + 16];
+        b[nt].lo[1] = w[w0 + 18];
+      }
     }
+    if constexpr (!kBf16<T>) {
 #pragma unroll
-    for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.lo, b[nt].hi);
+      for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.lo, b[nt].hi);
 #pragma unroll
-    for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.hi, b[nt].lo);
+      for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.hi, b[nt].lo);
+    }
 #pragma unroll
     for (int nt = 0; nt < KC; ++nt) mma(part0[nt], da.hi, b[nt].hi);
   }
 }
 
 // One row i of degree l over the chunk: h and dmid per n8 block, dh on their
-// C fragments (dgate += dmid h where l >= 1), and pdx += dh w1[l]^T.
-template <int C, int Co>
-__device__ __forceinline__ void row_dx(const float* xi, const float* yi, const uint32_t* st,
+// C fragments (dgate += dmid h where l >= 1), and pdx += dh w1[l]^T. At T =
+// bf16 one product each, the gates rounded where they scale dmid, dh rounded
+// as it becomes the A fragment.
+template <int C, int Co, class T>
+__device__ __forceinline__ void row_dx(const T* xi, const T* yi, const uint32_t* st,
                                        const ChunkLayout& o, const float* cb1, int l,
                                        const float (&gate)[kNB][4], float (&dgate)[kNB][4],
                                        float (&pdx)[C / 8][4]) {
   using namespace singa::tc;
-  constexpr int KC = C / 8, KO = Co / 8, K = KC > KO ? KC : KO, NB = kNB;
+  constexpr int KC = C / 8, KO = Co / 8, K = KC > KO ? KC : KO, NB = kNB, FW = frag_words<T>();
   const int t = lane_tig();
   FragA xa[KC], ya[KO];
 #pragma unroll
-  for (int ks = 0; ks < KC; ++ks) xa[ks] = frag_tile<C>(xi, ks);
+  for (int ks = 0; ks < KC; ++ks) xa[ks] = frag_tile<C, T>(xi, ks);
 #pragma unroll
-  for (int ks = 0; ks < KO; ++ks) ya[ks] = frag_tile<Co>(yi, ks);
-  const uint32_t* w1f = st + l * KC * NB * kFragWords;
-  const uint32_t* w2f = st + (o.w2 + l * KO * NB) * kFragWords;
-  const uint32_t* w1t = st + (o.w1t + l * NB * KC) * kFragWords;
+  for (int ks = 0; ks < KO; ++ks) ya[ks] = frag_tile<Co, T>(yi, ks);
+  const uint32_t* w1f = st + l * KC * NB * FW;
+  const uint32_t* w2f = st + (o.w2 + l * KO * NB) * FW;
+  const uint32_t* w1t = st + (o.w1t + l * NB * KC) * FW;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     float hc[4] = {}, dc[4] = {};
@@ -613,12 +692,14 @@ __device__ __forceinline__ void row_dx(const float* xi, const float* yi, const u
     for (int ks = 0; ks < K; ++ks) {  // two chains, each: lo hi, hi lo, hi hi
       const int kx = ks < KC ? ks : 0, ky = ks < KO ? ks : 0;
       FragB bw{}, bv{};
-      if (ks < KC) bw = frag_pre(w1f + (kx * NB + j) * kFragWords);
-      if (ks < KO) bv = frag_pre(w2f + (ky * NB + j) * kFragWords);
-      if (ks < KC) mma(hc, xa[kx].lo, bw.hi);
-      if (ks < KO) mma(dc, ya[ky].lo, bv.hi);
-      if (ks < KC) mma(hc, xa[kx].hi, bw.lo);
-      if (ks < KO) mma(dc, ya[ky].hi, bv.lo);
+      if (ks < KC) bw = frag_pre<T>(w1f + (kx * NB + j) * FW);
+      if (ks < KO) bv = frag_pre<T>(w2f + (ky * NB + j) * FW);
+      if constexpr (!kBf16<T>) {
+        if (ks < KC) mma(hc, xa[kx].lo, bw.hi);
+        if (ks < KO) mma(dc, ya[ky].lo, bv.hi);
+        if (ks < KC) mma(hc, xa[kx].hi, bw.lo);
+        if (ks < KO) mma(dc, ya[ky].hi, bv.lo);
+      }
       if (ks < KC) mma(hc, xa[kx].hi, bw.hi);
       if (ks < KO) mma(dc, ya[ky].hi, bv.hi);
     }
@@ -630,35 +711,37 @@ __device__ __forceinline__ void row_dx(const float* xi, const float* yi, const u
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        dh[q] = dc[q] * gate[j][q];
+        dh[q] = dc[q] * singa::rnd<T>(gate[j][q]);
         dgate[j][q] = fmaf(dc[q], hc[q], dgate[j][q]);
       }
     }
-    const FragA da = frag_a_from_c(dh);
+    const FragA da = frag_a_from_c<T>(dh);
     FragB b[KC];
 #pragma unroll
-    for (int nt = 0; nt < KC; ++nt) b[nt] = frag_pre(w1t + (j * KC + nt) * kFragWords);
+    for (int nt = 0; nt < KC; ++nt) b[nt] = frag_pre<T>(w1t + (j * KC + nt) * FW);
+    if constexpr (!kBf16<T>) {
 #pragma unroll
-    for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.lo, b[nt].hi);
+      for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.lo, b[nt].hi);
 #pragma unroll
-    for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.hi, b[nt].lo);
+      for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.hi, b[nt].lo);
+    }
 #pragma unroll
     for (int nt = 0; nt < KC; ++nt) mma(pdx[nt], da.hi, b[nt].hi);
   }
 }
 
-template <int C, int Co>
+template <int C, int Co, class T>
 __global__ void __launch_bounds__(kDThreads, 1)
-gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                       const uint32_t* __restrict__ wfrag, float* __restrict__ dx, int N, int lmax,
+gate_ffn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                       const uint32_t* __restrict__ wfrag, T* __restrict__ dx, int N, int lmax,
                        int H) {
   constexpr int KC = C / 8;
   const Dims d = make_dims(N, lmax, C, H, Co);
   const int I = d.I;
-  const ChunkLayout o = singa::gate::chunk_layout<true>(lmax, C, Co);
+  const ChunkLayout o = singa::gate::chunk_layout<true, T>(lmax, C, Co);
   extern __shared__ __align__(16) float smem[];
-  float* sx = smem;                                                 // [I][kTN][C]
-  float* sy = sx + I * kTN * C;                                     // [I][kTN][Co]
+  T* sx = reinterpret_cast<T*>(smem);                               // [I][kTN][C]
+  T* sy = sx + I * kTN * C;                                         // [I][kTN][Co]
   uint32_t* ring = reinterpret_cast<uint32_t*>(sy + I * kTN * Co);  // [2][o.words]
   float* sgate = reinterpret_cast<float*>(ring + 2 * o.words);      // [lmax][kNB][32][4]
   const int chunks = (H + kHC - 1) / kHC;
@@ -681,8 +764,8 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
       singa::gate::copy_chunk<kDThreads>(wfrag, k + 1, o.words, ring + ((k + 1) & 1) * o.words);
     const float* cb1 = reinterpret_cast<const float*>(st + o.b1);
     const float* cbg = reinterpret_cast<const float*>(st + o.bg);
-    const uint32_t* wgf = st + o.wg * kFragWords;
-    if (warp < lmax) gates<C>(sx, wgf, cbg, warp + 1, sgate);  // the chunk's gates, a degree a warp
+    const uint32_t* wgf = st + o.wg * frag_words<T>();
+    if (warp < lmax) gates<C, T>(sx, wgf, cbg, warp + 1, sgate);  // the chunk's gates, a degree a warp
     __syncthreads();
     float part0[KC][4] = {};  // this chunk's row-0 terms, from zero
     float gate[kNB][4] = {}, dgate[kNB][4] = {};
@@ -693,7 +776,7 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
       if (i < r1) {
         const int l = singa::degree_of(i);
         if (l != cur) {
-          if (cur > 0) gate_term<C>(wgf, cur, gate, dgate, part0);
+          if (cur > 0) gate_term<C, T>(wgf, cur, gate, dgate, part0);
           cur = l;
           if (l > 0)
 #pragma unroll
@@ -705,14 +788,14 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
             }
         }
         float pdx[KC][4] = {};  // this row's products in this chunk, from zero
-        row_dx<C, Co>(sx + i * kTN * C, sy + i * kTN * Co, st, o, cb1, l, gate, dgate, pdx);
+        row_dx<C, Co, T>(sx + i * kTN * C, sy + i * kTN * Co, st, o, cb1, l, gate, dgate, pdx);
 #pragma unroll
         for (int nt = 0; nt < KC; ++nt)
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[s][nt][q] += pdx[nt][q];
       }
     }
-    if (cur > 0) gate_term<C>(wgf, cur, gate, dgate, part0);
+    if (cur > 0) gate_term<C, T>(wgf, cur, gate, dgate, part0);
 #pragma unroll
     for (int nt = 0; nt < KC; ++nt)
 #pragma unroll
@@ -743,44 +826,55 @@ gate_ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dy
       const int n = n0 + g + 8 * half;
       if (n >= N) continue;
 #pragma unroll
-      for (int nt = 0; nt < KC; ++nt)
-        *reinterpret_cast<float2*>(dx + ((long long)n * I + i) * C + 8 * nt + 2 * t) =
-            make_float2(acc[s][nt][2 * half], acc[s][nt][2 * half + 1]);
+      for (int nt = 0; nt < KC; ++nt) {
+        T* out = dx + ((long long)n * I + i) * C + 8 * nt + 2 * t;
+        if constexpr (kBf16<T>)
+          *reinterpret_cast<__nv_bfloat162*>(out) =
+              __floats2bfloat162_rn(acc[s][nt][2 * half], acc[s][nt][2 * half + 1]);
+        else
+          *reinterpret_cast<float2*>(out) = make_float2(acc[s][nt][2 * half], acc[s][nt][2 * half + 1]);
+      }
     }
   }
 }
 
-using DxKernel = void (*)(const float*, const float*, const uint32_t*, float*, int, int, int);
+template <class T>
+using DxKernel = void (*)(const T*, const T*, const uint32_t*, T*, int, int, int);
 using SplitKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                              uint32_t*, int, int);
 
 // The dx kernel's and the split kernel's instances for C input and Co
 // output channels (null: none)
-DxKernel dx_kernel(int C, int Co) {
-  if (C == 8 && Co == 8) return gate_ffn_bwd_dx_kernel<8, 8>;
-  if (C == 8 && Co == 16) return gate_ffn_bwd_dx_kernel<8, 16>;
-  if (C == 16 && Co == 8) return gate_ffn_bwd_dx_kernel<16, 8>;
-  if (C == 16 && Co == 16) return gate_ffn_bwd_dx_kernel<16, 16>;
+template <class T>
+DxKernel<T> dx_kernel(int C, int Co) {
+  if (C == 8 && Co == 8) return gate_ffn_bwd_dx_kernel<8, 8, T>;
+  if (C == 8 && Co == 16) return gate_ffn_bwd_dx_kernel<8, 16, T>;
+  if (C == 16 && Co == 8) return gate_ffn_bwd_dx_kernel<16, 8, T>;
+  if (C == 16 && Co == 16) return gate_ffn_bwd_dx_kernel<16, 16, T>;
   return nullptr;
 }
 
+template <class T>
 SplitKernel split_kernel(int C, int Co) {
-  if (C == 8 && Co == 8) return gate_ffn_bwd_wsplit_kernel<8, 8>;
-  if (C == 8 && Co == 16) return gate_ffn_bwd_wsplit_kernel<8, 16>;
-  if (C == 16 && Co == 8) return gate_ffn_bwd_wsplit_kernel<16, 8>;
-  if (C == 16 && Co == 16) return gate_ffn_bwd_wsplit_kernel<16, 16>;
+  if (C == 8 && Co == 8) return gate_ffn_bwd_wsplit_kernel<8, 8, T>;
+  if (C == 8 && Co == 16) return gate_ffn_bwd_wsplit_kernel<8, 16, T>;
+  if (C == 16 && Co == 8) return gate_ffn_bwd_wsplit_kernel<16, 8, T>;
+  if (C == 16 && Co == 16) return gate_ffn_bwd_wsplit_kernel<16, 16, T>;
   return nullptr;
 }
 
-size_t w_smem(const Dims& d) { return w_smem_floats(d) * sizeof(float); }
+template <class T>
+size_t w_smem(const Dims& d) { return w_smem_bytes<T>(d); }
 
 // The dx kernel's shared memory: the tile, the ring's two stages and the
 // gates, and at least row 0's terms of the warps at the end
+template <class T>
 size_t dx_smem(const Dims& d) {
-  const size_t tile = (size_t)d.I * kTN * (d.C + d.Co);
-  const size_t ring = 2 * (size_t)singa::gate::chunk_layout<true>(d.lmax, d.C, d.Co).words + (size_t)d.lmax * kNB * 128;
-  const size_t p0 = (size_t)kDThreads * (d.C / 8) * 4;
-  return (tile + ring > p0 ? tile + ring : p0) * sizeof(float);
+  const size_t tile = (size_t)d.I * kTN * (d.C + d.Co) * sizeof(T);
+  const size_t ring = (2 * (size_t)singa::gate::chunk_layout<true, T>(d.lmax, d.C, d.Co).words +
+                       (size_t)d.lmax * kNB * 128) * sizeof(float);
+  const size_t p0 = (size_t)kDThreads * (d.C / 8) * 4 * sizeof(float);
+  return tile + ring > p0 ? tile + ring : p0;
 }
 
 // Both kernels: C and Co of 8 or 16 (their products' k and n steps are 8
@@ -788,7 +882,91 @@ size_t dx_smem(const Dims& d) {
 // at most kDMaxRows rows each; the weight kernel's degree groups).
 bool dims_ok(int N, int lmax, int C, int H, int Co) {
   if (N < 1 || lmax < 1 || lmax > 7 || H < 1) return false;
-  return dx_kernel(C, Co) != nullptr && w_kernel(C, Co) != nullptr;
+  return dx_kernel<float>(C, Co) != nullptr && w_kernel<float>(C, Co) != nullptr;
+}
+
+// Slices of node tiles the weight kernel at T splits N into (-1: a shape it
+// does not take, or whose tiles exceed shared memory). Every width the
+// float32 kernels refuse is refused at bfloat16 too (lmax 7 at 16 channels
+// in and out, which would fit there, included): one rule for both.
+template <class T>
+int slices_of(int N, int lmax, int C, int H, int Co) {
+  if (!dims_ok(N, lmax, C, H, Co)) return -1;
+  const Dims d = make_dims(N, lmax, C, H, Co);
+  if (singa::allow_smem(dx_kernel<float>(C, Co), dx_smem<float>(d)) != cudaSuccess) return -1;
+  if (singa::allow_smem(w_kernel<float>(C, Co), w_smem<float>(d)) != cudaSuccess) return -1;
+  const WKernel<T> wk = w_kernel<T>(C, Co);
+  const size_t smem = w_smem<T>(d);
+  if (singa::allow_smem(dx_kernel<T>(C, Co), dx_smem<T>(d)) != cudaSuccess) return -1;
+  if (singa::allow_smem(wk, smem) != cudaSuccess) return -1;
+  const int chunks = (H + kWHC - 1) / kWHC;
+  const int tiles = (N + kWTN - 1) / kWTN;
+  const int resident = singa::persistent_grid(wk, kWThreads, smem, 1LL << 30);
+  int slices = resident / chunks;
+  if (slices < 1) slices = 1;
+  if (slices > tiles) slices = tiles;
+  return slices;
+}
+
+template <class T>
+int tc_launch(const T* x, const T* dy, const float* w1, const float* b1, const float* wg,
+              const float* bg, const float* w2, T* dx, float* partial, float* grads, void* wfrag,
+              int N, int lmax, int C, int H, int Co, int slices, cudaStream_t st) {
+  if (!dims_ok(N, lmax, C, H, Co) || slices < 1) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(N, lmax, C, H, Co);
+  const WKernel<T> wk = w_kernel<T>(C, Co);
+  const DxKernel<T> dk = dx_kernel<T>(C, Co);
+  const SplitKernel sk = split_kernel<T>(C, Co);
+  const size_t sa = dx_smem<T>(d), sb = w_smem<T>(d);
+  cudaError_t err = singa::allow_smem(dk, sa);
+  if (err != cudaSuccess) return (int)err;
+  err = singa::allow_smem(wk, sb);
+  if (err != cudaSuccess) return (int)err;
+  uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
+  const ChunkLayout o = singa::gate::chunk_layout<true, T>(lmax, C, Co);
+  const int dx_chunks = (H + kHC - 1) / kHC;
+  const long long items = (long long)dx_chunks * (o.frags * 32 + (o.words - o.b1));
+  const int sgrid = singa::persistent_grid(sk, 256, 0, (items + 255) / 256);
+  sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, lmax, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (N + kTN - 1) / kTN;
+  dk<<<tiles, kDThreads, sa, st>>>(x, dy, frags, dx, N, lmax, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = (H + kWHC - 1) / kWHC;
+  wk<<<chunks * slices, kWThreads, sb, st>>>(x, dy, w1, b1, wg, bg, w2, partial, N, lmax, H,
+                                             slices);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long P = grad_layout(d).total;
+  const int grid = singa::persistent_grid(singa::sum_rows_kernel, 256, 0, (P + 255) / 256);
+  singa::sum_rows_kernel<<<grid, 256, 0, st>>>(partial, grads, P, slices);
+  return (int)cudaGetLastError();
+}
+
+// The weight kernel (dx: the dx kernel) at T: resident blocks per SM (-1:
+// a shape it does not take), its threads and dynamic shared memory per block.
+template <class T>
+int residency_of(int lmax, int C, int H, int Co, bool dx, int* smem_bytes, int* threads) {
+  if (!dims_ok(1, lmax, C, H, Co)) return -1;
+  const Dims d = make_dims(1, lmax, C, H, Co);
+  const size_t smem = dx ? dx_smem<T>(d) : w_smem<T>(d);
+  *smem_bytes = (int)smem;
+  *threads = dx ? kDThreads : kWThreads;
+  int per_sm = 0;
+  if (dx) {
+    if (singa::allow_smem(dx_kernel<T>(C, Co), smem) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dx_kernel<T>(C, Co), kDThreads,
+                                                      smem) != cudaSuccess)
+      return -1;
+  } else {
+    if (singa::allow_smem(w_kernel<T>(C, Co), smem) != cudaSuccess) return -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, w_kernel<T>(C, Co), kWThreads,
+                                                      smem) != cudaSuccess)
+      return -1;
+  }
+  return per_sm;
 }
 
 
@@ -1225,110 +1403,56 @@ bool dims_ok(int N, int lmax, int C, int H, int Co) {
 }  // namespace cc
 }  // namespace
 
-// Slices of node tiles the weight kernel splits N into: as many blocks as
-// fit on the card at once, at least one per hidden chunk. The caller
-// allocates the [slices, P] scratch buffer from this. Returns -1 for shapes
-// the kernels do not take or whose tiles exceed shared memory.
-extern "C" int so3_gate_ffn_bwd_slices(int N, int lmax, int C, int H, int Co) {
-  if (!dims_ok(N, lmax, C, H, Co)) return -1;
-  const Dims d = make_dims(N, lmax, C, H, Co);
-  const WKernel wk = w_kernel(C, Co);
-  const size_t smem = w_smem(d);
-  if (singa::allow_smem(dx_kernel(C, Co), dx_smem(d)) != cudaSuccess) return -1;
-  if (singa::allow_smem(wk, smem) != cudaSuccess) return -1;
-  const int chunks = (H + kWHC - 1) / kWHC;
-  const int tiles = (N + kWTN - 1) / kWTN;
-  const int resident = singa::persistent_grid(wk, kWThreads, smem, 1LL << 30);
-  int slices = resident / chunks;
-  if (slices < 1) slices = 1;
-  if (slices > tiles) slices = tiles;
-  return slices;
+// Slices of node tiles the weight kernel (at bfloat16 x and dy when bf16 !=
+// 0) splits N into: as many blocks as fit on the card at once, at least one
+// per hidden chunk. The caller allocates the [slices, P] scratch buffer from
+// this. Returns -1 for shapes the kernels do not take or whose tiles exceed
+// shared memory (at float32: bfloat16 takes the same widths).
+extern "C" int so3_gate_ffn_bwd_slices(int N, int lmax, int C, int H, int Co, int bf16) {
+  return bf16 ? slices_of<singa::bf16>(N, lmax, C, H, Co) : slices_of<float>(N, lmax, C, H, Co);
 }
 
 // 32-bit words of the dx kernel's split weights (the caller's wfrag
-// buffer): every hidden chunk's block of chunk_layout<true>; -1 for shapes the
-// kernels do not take.
-extern "C" long long so3_gate_ffn_bwd_dx_words(int lmax, int C, int H, int Co) {
+// buffer): every hidden chunk's block of chunk_layout<true, T>; -1 for
+// shapes the kernels do not take.
+extern "C" long long so3_gate_ffn_bwd_dx_words(int lmax, int C, int H, int Co, int bf16) {
   if (!dims_ok(1, lmax, C, H, Co)) return -1;
-  return (long long)((H + kHC - 1) / kHC) * singa::gate::chunk_layout<true>(lmax, C, Co).words;
+  const int words = bf16 ? singa::gate::chunk_layout<true, singa::bf16>(lmax, C, Co).words
+                         : singa::gate::chunk_layout<true>(lmax, C, Co).words;
+  return (long long)((H + kHC - 1) / kHC) * words;
 }
 
-// The weight kernel at these widths: resident blocks per SM (-1: a shape it
-// does not take), and its threads and dynamic shared memory per block.
-extern "C" int so3_gate_ffn_bwd_residency(int lmax, int C, int H, int Co, int* smem_bytes,
-                                          int* threads) {
-  if (!dims_ok(1, lmax, C, H, Co)) return -1;
-  const WKernel wk = w_kernel(C, Co);
-  const size_t smem = w_smem(make_dims(1, lmax, C, H, Co));
-  *smem_bytes = (int)smem;
-  *threads = kWThreads;
-  if (singa::allow_smem(wk, smem) != cudaSuccess) return -1;
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wk, kWThreads, smem) != cudaSuccess)
-    return -1;
-  return per_sm;
+// The weight kernel (dx != 0: the dx kernel) at these widths and storage
+// type: resident blocks per SM (-1: a shape it does not take), and its
+// threads and dynamic shared memory per block.
+extern "C" int so3_gate_ffn_bwd_residency(int lmax, int C, int H, int Co, int dx, int bf16,
+                                          int* smem_bytes, int* threads) {
+  return bf16 ? residency_of<singa::bf16>(lmax, C, H, Co, dx, smem_bytes, threads)
+              : residency_of<float>(lmax, C, H, Co, dx, smem_bytes, threads);
 }
 
-// The dx kernel at these widths: resident blocks per SM (-1: a shape it
-// does not take), and its threads and dynamic shared memory per block.
-extern "C" int so3_gate_ffn_bwd_dx_residency(int lmax, int C, int H, int Co, int* smem_bytes,
-                                             int* threads) {
-  if (!dims_ok(1, lmax, C, H, Co)) return -1;
-  const DxKernel dk = dx_kernel(C, Co);
-  const size_t smem = dx_smem(make_dims(1, lmax, C, H, Co));
-  *smem_bytes = (int)smem;
-  *threads = kDThreads;
-  if (singa::allow_smem(dk, smem) != cudaSuccess) return -1;
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dk, kDThreads, smem) != cudaSuccess)
-    return -1;
-  return per_sm;
+// The tensor-core kernels: x, dy and dx bfloat16 when bf16 != 0, else
+// float32; partial [slices, P] from so3_gate_ffn_bwd_slices (same bf16);
+// wfrag: so3_gate_ffn_bwd_dx_words() words of scratch (same bf16), 16-byte
+// aligned; grads [P] float32, in grad_layout's order.
+extern "C" int so3_gate_ffn_bwd_tc(const void* x, const void* dy, const float* w1,
+                                   const float* b1, const float* wg, const float* bg,
+                                   const float* w2, void* dx, float* partial, float* grads,
+                                   void* wfrag, int N, int lmax, int C, int H, int Co, int slices,
+                                   int bf16, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return tc_launch((const singa::bf16*)x, (const singa::bf16*)dy, w1, b1, wg, bg, w2,
+                     (singa::bf16*)dx, partial, grads, wfrag, N, lmax, C, H, Co, slices, st);
+  return tc_launch((const float*)x, (const float*)dy, w1, b1, wg, bg, w2, (float*)dx, partial,
+                   grads, wfrag, N, lmax, C, H, Co, slices, st);
 }
 
-// wfrag: so3_gate_ffn_bwd_dx_words() words of scratch, 16-byte aligned.
-extern "C" int so3_gate_ffn_bwd_f32(const float* x, const float* dy, const float* w1,
-                                    const float* b1, const float* wg, const float* bg,
-                                    const float* w2, float* dx, float* partial, float* grads,
-                                    void* wfrag, int N, int lmax, int C, int H, int Co, int slices,
-                                    void* stream) {
-  if (!dims_ok(N, lmax, C, H, Co) || slices < 1) return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(N, lmax, C, H, Co);
-  const WKernel wk = w_kernel(C, Co);
-  const DxKernel dk = dx_kernel(C, Co);
-  const SplitKernel sk = split_kernel(C, Co);
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t sa = dx_smem(d), sb = w_smem(d);
-  cudaError_t err = singa::allow_smem(dk, sa);
-  if (err != cudaSuccess) return (int)err;
-  err = singa::allow_smem(wk, sb);
-  if (err != cudaSuccess) return (int)err;
-  uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
-  const ChunkLayout o = singa::gate::chunk_layout<true>(lmax, C, Co);
-  const int dx_chunks = (H + kHC - 1) / kHC;
-  const long long items = (long long)dx_chunks * (o.frags * 32 + (o.words - o.b1));
-  const int sgrid = singa::persistent_grid(sk, 256, 0, (items + 255) / 256);
-  sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, lmax, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (N + kTN - 1) / kTN;
-  dk<<<tiles, kDThreads, sa, st>>>(x, dy, frags, dx, N, lmax, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int chunks = (H + kWHC - 1) / kWHC;
-  wk<<<chunks * slices, kWThreads, sb, st>>>(x, dy, w1, b1, wg, bg, w2, partial, N, lmax, H,
-                                             slices);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long P = grad_layout(d).total;
-  const int grid = singa::persistent_grid(singa::sum_rows_kernel, 256, 0, (P + 255) / 256);
-  singa::sum_rows_kernel<<<grid, 256, 0, st>>>(partial, grads, P, slices);
-  return (int)cudaGetLastError();
-}
-
-// Which of K2b's kernels runs these widths at float32 (any N): 1 the
-// tensor-core kernels, 0 the CUDA-core instance, -1 none. Launches nothing.
+// Which of K2b's kernels runs these widths, at float32 and at bfloat16 alike
+// (slices_of's one rule; any N): 1 the tensor-core kernels, 0 the CUDA-core
+// instance, -1 none. Launches nothing.
 extern "C" int so3_gate_ffn_bwd_instance(int lmax, int C, int H, int Co) {
-  if (so3_gate_ffn_bwd_slices(1, lmax, C, H, Co) >= 1) return 1;
+  if (slices_of<float>(1, lmax, C, H, Co) >= 1) return 1;
   return cc::dims_ok(1, lmax, C, H, Co) ? 0 : -1;
 }
 
@@ -1391,7 +1515,7 @@ int cc_bwd_launch(const T* x, const T* dy, const float* w1, const float* b1, con
 
 // K2b's CUDA-core instance: x, dy and dx bfloat16 when bf16 != 0, else
 // float32; partial [slices, P] from so3_gate_ffn_bwd_cc_slices (same bf16);
-// grads [P] float32 as so3_gate_ffn_bwd_f32's.
+// grads [P] float32 as so3_gate_ffn_bwd_tc's.
 extern "C" int so3_gate_ffn_bwd_cc(const void* x, const void* dy, const float* w1,
                                    const float* b1, const float* wg, const float* bg,
                                    const float* w2, void* dx, float* partial, float* grads, int N,

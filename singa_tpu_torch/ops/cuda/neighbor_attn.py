@@ -24,12 +24,16 @@ CUDA-core instance (``fwd_instance`` says which the forward takes).
 ``neighbor_attn`` goes through one ``torch.autograd.Function``: plain
 versions for CPU tensors, the kernels for CUDA tensors.
 
-K1 and K1b have bfloat16 instances (the bfloat16 training path's): the
-CUDA-core kernels at bfloat16 storage (``neighbor_attn_bf16`` and
+K1 and K1b have bfloat16 instances (the bfloat16 training path's):
+kernels at bfloat16 storage (``neighbor_attn_bf16`` and
 ``neighbor_attn_bwd_bf16`` in the same sources), counted in
 ``launches_bf16`` and ``launches_bwd_bf16``, taken for a bfloat16 qt, k, v
 and diag_value (dist, diag_scores, centers and the EdgeMLP weights stay
-float32). They are the function ``_attn_fwd_kernel`` and
+float32). K1's is its CUDA-core kernel; K1b's are its tensor-core pair
+kernel and dk/dv stage at bfloat16 (each EdgeMLP product one TF32 product
+where float32 takes three: a bfloat16 value is a TF32 value) at the widths
+they take, else its CUDA-core ones (``cuda_cores`` as at float32). They
+are the function ``_attn_fwd_kernel`` and
 ``_attn_bwd_kernel`` compute at a bfloat16 dtype and round where those
 round: the smear; the EdgeMLP weights, hiddens and outputs w_k, w_v; each
 score term qt w_k k before the head sum (the TPU kernel rounds
@@ -315,14 +319,15 @@ def fwd_residency(hybrid: bool = False) -> dict:
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
-def _bwd_fns(hybrid: bool = False):
-    """(blocks, launch) of K1b's C entry points, or K7b's (no nbr pointer)."""
+def _bwd_fns(hybrid: bool = False, bf16: bool = False):
+    """(blocks, launch) of K1b's C entry points (``bf16``: its bfloat16
+    instance's), or K7b's (no nbr pointer)."""
     lib = build.load("neighbor_attn_bwd")
     name = "neighbor_attn_hybrid_bwd" if hybrid else "neighbor_attn_bwd"
-    blocks = getattr(lib, f"{name}_blocks")
+    blocks = getattr(lib, f"{name}_bf16_blocks" if bf16 else f"{name}_blocks")
     blocks.argtypes = [ctypes.c_int] * 8
     blocks.restype = ctypes.c_int
-    fn = getattr(lib, f"{name}_f32")
+    fn = getattr(lib, f"{name}_bf16" if bf16 else f"{name}_f32")
     fn.argtypes = (
         [ctypes.c_void_p] * (16 if hybrid else 17) + [ctypes.c_float] + [ctypes.c_void_p] * 15
         + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
@@ -331,15 +336,15 @@ def _bwd_fns(hybrid: bool = False):
     return blocks, fn
 
 
-def bwd_residency(hybrid: bool = False) -> dict:
-    """K1b's tensor-core pair kernel (K7b's with ``hybrid``): resident blocks per SM
-    (-1: refused), threads and dynamic shared memory per block. For
-    reports; launches nothing."""
+def bwd_residency(hybrid: bool = False, bf16: bool = False) -> dict:
+    """K1b's tensor-core pair kernel (K7b's with ``hybrid``; K1b's bfloat16
+    instance with ``bf16``): resident blocks per SM (-1: refused), threads
+    and dynamic shared memory per block. For reports; launches nothing."""
     fn = build.load("neighbor_attn_bwd").neighbor_attn_bwd_residency
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = fn(int(hybrid), ctypes.byref(smem), ctypes.byref(threads))
+    per_sm = fn(int(hybrid), int(bf16), ctypes.byref(smem), ctypes.byref(threads))
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
@@ -526,31 +531,9 @@ def _bwd_cuda(args, offsets, slots, hybrid: bool, cuda_cores: bool, stats):
     dv, dds, ddv = act(B, N, H * vd), empty(B, N, H), act(B, N, H * vd)
     sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
     grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
-    if B * N and qt.dtype == torch.bfloat16:  # K1b's bfloat16 instance
-        lib = build.load("neighbor_attn_bwd")
-        blocks_fn = lib.neighbor_attn_bwd_bf16_blocks
-        blocks_fn.argtypes = [ctypes.c_int] * 7
-        blocks_fn.restype = ctypes.c_int
-        blocks = blocks_fn(B, N, K, H, kd, vd, De)
-        if blocks < 1:
-            raise ValueError(f"neighbor_attn backward kernel: shapes {(K, H, kd, vd, De)} not "
-                             "supported or one node's pair tensors exceed shared memory")
-        slots_n = B * N * K
-        scratch = (empty(slots_n, kd), empty(slots_n, vd), empty(slots_n, H), empty(slots_n, H),
-                   torch.empty(B * N, dtype=torch.int32, device=dev), empty(blocks, sum(sizes)))
-        fn = lib.neighbor_attn_bwd_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_float] + [ctypes.c_void_p] * 15
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        status = fn(
-            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(), offsets.data_ptr(),
-            slots.data_ptr(), dqt.data_ptr(), dk.data_ptr(), dv.data_ptr(), dds.data_ptr(),
-            ddv.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
-            B, N, K, H, kd, vd, De, blocks, build.stream_ptr(qt),
-        )
-        build.check(status, "neighbor_attn_bwd")
-    elif B * N:
-        blocks_fn, fn = _bwd_fns(hybrid)
+    if B * N:
+        # K1b's bfloat16 instance at a bfloat16 qt (_check_args refuses it for K7b)
+        blocks_fn, fn = _bwd_fns(hybrid, qt.dtype == torch.bfloat16)
         blocks = blocks_fn(B, N, K, H, kd, vd, De, int(cuda_cores))
         if blocks < 1:
             raise ValueError(f"neighbor_attn backward kernel: shapes {(K, H, kd, vd, De)} not "

@@ -36,12 +36,15 @@ carried over.
 K2b also keeps the CUDA-core instance it had before its tensor-core
 kernels (``so3_gate_ffn_bwd_cc`` in ``csrc/so3_gate_ffn_bwd.cu``), chosen
 by shape before the launch (``so3_gate_ffn_bwd_instance``): it runs the
-float32 widths the tensor-core kernels refuse (32 sphere channels; lmax 7
-at 16 channels).
+widths the tensor-core kernels refuse (32 sphere channels; lmax 7 at 16
+channels), at either dtype.
 
-K2 and K2b have bfloat16 instances (the bfloat16 training path's): the
-CUDA-core kernels at a bfloat16 x and y (dy and dx), the weights and biases
-float32, counted in ``launches_bf16`` and ``launches_bwd_bf16``. They are
+K2 and K2b have bfloat16 instances (the bfloat16 training path's), at a
+bfloat16 x and y (dy and dx), the weights and biases float32, counted in
+``launches_bf16`` and ``launches_bwd_bf16``: K2's is its CUDA-core kernel;
+K2b's are its tensor-core kernels at bfloat16 storage (one TF32 product
+where float32 takes three: a bfloat16 value is a TF32 value) at the widths
+they take, else its CUDA-core instance. They are
 the function ``_gate_ffn_fwd_kernel`` and ``_gate_ffn_bwd_kernel`` compute
 at a bfloat16 x and round where those round: w1, wg and w2 cast to
 bfloat16 (the biases not); every product summed in float32; the gates
@@ -204,27 +207,28 @@ def gate_fwd_residency(lmax: int, C: int, H: int, Co: int) -> dict:
 def _bwd_fns():
     lib = build.load("so3_gate_ffn_bwd")
     slices = lib.so3_gate_ffn_bwd_slices
-    slices.argtypes = [ctypes.c_int] * 5
+    slices.argtypes = [ctypes.c_int] * 6
     slices.restype = ctypes.c_int
     words = lib.so3_gate_ffn_bwd_dx_words
-    words.argtypes = [ctypes.c_int] * 4
+    words.argtypes = [ctypes.c_int] * 5
     words.restype = ctypes.c_longlong
-    fn = lib.so3_gate_ffn_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = lib.so3_gate_ffn_bwd_tc
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return slices, words, fn
 
 
-def gate_bwd_residency(lmax: int, C: int, H: int, Co: int, dx: bool = False) -> dict:
-    """K2b's weight-gradient kernel (``dx``: its dx kernel) at these widths:
-    resident blocks per SM (-1: a shape it does not take), threads and
-    dynamic shared memory per block. For reports; launches nothing."""
-    lib = build.load("so3_gate_ffn_bwd")
-    fn = lib.so3_gate_ffn_bwd_dx_residency if dx else lib.so3_gate_ffn_bwd_residency
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+def gate_bwd_residency(lmax: int, C: int, H: int, Co: int, dx: bool = False,
+                       bf16: bool = False) -> dict:
+    """K2b's weight-gradient kernel (``dx``: its dx kernel; ``bf16``: its
+    bfloat16 instance) at these widths: resident blocks per SM (-1: a shape
+    it does not take), threads and dynamic shared memory per block. For
+    reports; launches nothing."""
+    fn = build.load("so3_gate_ffn_bwd").so3_gate_ffn_bwd_residency
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = fn(lmax, C, H, Co, ctypes.byref(smem), ctypes.byref(threads))
+    per_sm = fn(lmax, C, H, Co, int(dx), int(bf16), ctypes.byref(smem), ctypes.byref(threads))
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
@@ -281,9 +285,9 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
 
 
 def so3_gate_ffn_bwd_instance(lmax: int, C: int, H: int, Co: int) -> str | None:
-    """Which of K2b's kernels runs these widths at float32 (any N):
-    "tensor_cores", "cuda_cores", or None for a shape neither takes. The
-    bfloat16 instance is the CUDA-core one. Launches nothing."""
+    """Which of K2b's kernels runs these widths, at float32 and at bfloat16
+    alike (any N): "tensor_cores", "cuda_cores", or None for a shape
+    neither takes. Launches nothing."""
     fn = build.load("so3_gate_ffn_bwd").so3_gate_ffn_bwd_instance
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
@@ -314,11 +318,12 @@ def _bwd_cc(x, w1, b1, wg, bg, w2, lmax, dy, dx, grads):
     build.check(status, "so3_gate_ffn_bwd")
 
 
-def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
-    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K2b kernels: the
-    tensor-core ones where they take the widths (``so3_gate_ffn_bwd_instance``),
-    else the CUDA-core instance, which is also the bfloat16 one (x, dy and
-    dx bfloat16)."""
+def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy, cuda_cores: bool = False):
+    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K2b kernels, at float32
+    or (x, dy and dx bfloat16) at bfloat16: the tensor-core ones where they
+    take the widths (``so3_gate_ffn_bwd_instance``), else the CUDA-core
+    instance; ``cuda_cores``: the CUDA-core one at any width it takes (to
+    time the two)."""
     global launches_bwd, launches_bwd_bf16
     N, _, C = x.shape
     L = lmax + 1
@@ -340,28 +345,28 @@ def so3_gate_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, lmax: int, dy):
     grads = torch.empty(sum(sizes), dtype=f32, device=dev)
     if N == 0:
         grads.zero_()
-    elif act != f32 or so3_gate_ffn_bwd_instance(lmax, C, H, Co) != "tensor_cores":
+    elif cuda_cores or so3_gate_ffn_bwd_instance(lmax, C, H, Co) != "tensor_cores":
         _bwd_cc(x, w1, b1, wg, bg, w2, lmax, dy, dx, grads)
-        if act == f32:
-            launches_bwd += 1
-        else:
-            launches_bwd_bf16 += 1
     else:
+        bf16 = int(act != f32)
         slices_fn, words_fn, fn = _bwd_fns()
-        slices = slices_fn(N, lmax, C, H, Co)
+        slices = slices_fn(N, lmax, C, H, Co, bf16)
         if slices < 1:
             raise ValueError(f"so3_gate_ffn backward kernel: {C} input / {Co} output channels at "
                              f"lmax {lmax} not supported or its tiles exceed shared memory")
         partial = torch.empty((slices, sum(sizes)), dtype=f32, device=dev)
-        # the dx kernel's weights, split into TF32 fragments once a call
-        wfrag = torch.empty(words_fn(lmax, C, H, Co), dtype=torch.int32, device=dev)
+        # the dx kernel's weights, split into TF32 fragments (bfloat16: rounded) once a call
+        wfrag = torch.empty(words_fn(lmax, C, H, Co, bf16), dtype=torch.int32, device=dev)
         status = fn(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(),
             bg.data_ptr(), w2.data_ptr(), dx.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-            wfrag.data_ptr(), N, lmax, C, H, Co, slices, build.stream_ptr(x),
+            wfrag.data_ptr(), N, lmax, C, H, Co, slices, bf16, build.stream_ptr(x),
         )
         build.check(status, "so3_gate_ffn_bwd")
+    if N and act == f32:
         launches_bwd += 1
+    elif N:
+        launches_bwd_bf16 += 1
     dw1, db1, dwg, dbg, dw2, db2 = torch.split(grads, sizes)
     return (dx, dw1.view(L, C, H), db1, dwg.view(C, lmax * H), dbg, dw2.view(L, H, Co), db2)
 

@@ -1325,6 +1325,113 @@ def test_s2_silu_sep_bf16_instance_matches_its_twin(dev, E, C, lmax):
         n[0], n[1], n[2] + 1, n[3] + 1)
 
 
+def _kernels_run(fn):
+    """fn()'s result on the card and the names of the kernels it launched
+    there (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# K2b's bfloat16 cases (lmax, N, H, C, Co, tensor cores): Config()'s widths
+# at 37 nodes and at 2,003 (a ragged last 16-node tile; several slices of
+# the weight kernel's node tiles), lmax 2, 8 channels in; then widths only
+# the CUDA-core instance takes (32 and 12 channels)
+K2B_BF16_CASES = [(6, 37, 512, 16, 16, True), (6, 2003, 512, 16, 16, True),
+                  (2, 9, 64, 16, 16, True), (4, 29, 48, 8, 16, True),
+                  (4, 8, 40, 32, 32, False), (2, 3, 64, 12, 12, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co,tc", K2B_BF16_CASES)
+def test_so3_gate_ffn_bwd_bf16_instance_by_width(dev, lmax, N, H, C, Co, tc):
+    """K2b's bfloat16 instance against its bfloat16 twin, and which kernels
+    ran: its tensor-core kernels at bfloat16 (never the CUDA-core instance)
+    at the widths they take, the CUDA-core instance at the others and,
+    under ``cuda_cores=True``, at those too; one bfloat16 launch a call."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    L = lmax + 1
+    rng = np.random.default_rng(91 + N)
+    f = lambda *s: _t(rng.normal(size=s).astype(np.float32), dev)
+    args = [f(N, L * L, C).to(torch.bfloat16), 0.3 * f(L, C, H), 0.1 * f(H),
+            0.3 * f(C, lmax * H), 0.1 * f(lmax * H), 0.1 * f(L, H, Co)]
+    dy = f(N, L * L, Co).to(torch.bfloat16)
+    want = k2.so3_gate_ffn_bwd_plain(*args, lmax, dy)
+    assert k2.so3_gate_ffn_bwd_instance(lmax, C, H, Co) == ("tensor_cores" if tc else "cuda_cores")
+    for cuda_cores in (False, True):
+        n = (k2.launches_bwd, k2.launches_bwd_bf16)
+        got, names = _kernels_run(
+            lambda: k2.so3_gate_ffn_bwd_cuda(*args, lmax, dy, cuda_cores=cuda_cores))
+        _check_bf16(got, want, ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+        assert (k2.launches_bwd, k2.launches_bwd_bf16) == (n[0], n[1] + 1)
+        ran_cc = [m for m in names if "cc::gate_ffn_bwd" in m]
+        ran_tc = [m for m in names if "gate_ffn_bwd_dx_kernel<" in m and "cc::" not in m]
+        if tc and not cuda_cores:
+            assert ran_tc and not ran_cc, names
+            assert all("bfloat16" in m for m in ran_tc), ran_tc
+        else:
+            assert ran_cc and not ran_tc, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random_k24", "random_k96", "redo", "path", "heads8",
+                                  "ragged_redo"])
+def test_neighbor_attn_bwd_bf16_instance_by_width(dev, case):
+    """K1b's bfloat16 instance against its bfloat16 twin on the list
+    backward's cases (padded rows; a row with no live slot; a row scoring
+    -1e9 throughout; a repeated neighbour; a live row taken again whole;
+    the path's zero cotangents), and which pair kernel ran: the tensor-core
+    one at bfloat16 at the encoder's widths, the CUDA-core one at 8 heads
+    and at ragged widths and, under ``cuda_cores=True``, at every case."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    args = _bf16(_list_bwd_case(dev, case), (0, 1, 2, 7, 18))
+    tc = case not in ("heads8", "ragged_redo")
+    offsets, slots = k1.transpose_slots(args[3])
+    want = k1.neighbor_attn_bwd_plain(*args)
+    for cuda_cores in (False, True):
+        n = (k1.launches_bwd, k1.launches_bwd_bf16)
+        got, names = _kernels_run(lambda: k1.neighbor_attn_bwd_cuda(
+            *args, offsets=offsets, slots=slots, cuda_cores=cuda_cores))
+        _check_bf16(got, want, BWD_NAMES)
+        assert (k1.launches_bwd, k1.launches_bwd_bf16) == (n[0], n[1] + 1)
+        ran_tc = [m for m in names if "list_bwd_pair_kernel" in m or "list_dkdv_kernel" in m]
+        ran_cc = [m for m in names if "list_bwd_cc_kernel" in m or "list_dkdv_cc_kernel" in m]
+        if tc and not cuda_cores:
+            assert len(ran_tc) == 2 and not ran_cc, names
+            assert all("bfloat16" in m for m in ran_tc), ran_tc
+        else:
+            assert len(ran_cc) == 2 and not ran_tc, names
+
+
+@pytest.mark.cuda
+def test_bf16_backwards_take_misaligned_inputs(dev):
+    """K1b's and K2b's bfloat16 instances given every tensor input as a
+    contiguous view at a 2-byte offset (their 16- and 8-byte loads would
+    fault) run through the wrappers' aligned copies and match their twins."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+    from singa_tpu_torch.ops.cuda import so3_ffn as k2
+
+    args = _bf16(_list_bwd_case(dev, "random_k24"), (0, 1, 2, 7, 18))
+    offsets, slots = k1.transpose_slots(args[3])
+    got = k1.neighbor_attn_bwd_cuda(*[_misaligned(a) for a in args], offsets=offsets,
+                                    slots=slots)
+    _check_bf16(got, k1.neighbor_attn_bwd_plain(*args), BWD_NAMES)
+    x, *w = _gate_ffn_case(dev, 6, 37, 512, 16, 16, 97)[:6]
+    x = x.to(torch.bfloat16)
+    dy = _t(np.random.default_rng(98).normal(size=(37, 49, 16)).astype(np.float32),
+            dev).to(torch.bfloat16)
+    got = k2.so3_gate_ffn_bwd_cuda(*[_misaligned(a) for a in (x, *w)], 6, _misaligned(dy))
+    _check_bf16(got, k2.so3_gate_ffn_bwd_plain(x, *w, 6, dy),
+                ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+
+
 def _so2_case(dev, E, lmax, C, H, F2, alpha_ch, seed):
     """K6's arguments (mmax 2, non-zero b1 and b2, the m-primary grid of
     lmax) and the cotangents of its four outputs."""

@@ -497,6 +497,50 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
     assert bool(((tf32_rna(r) - r).abs() <= r.abs() * 2.0 ** -11).all())
 
 
+def _split_np(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """mma_tf32.cuh's split on float32 bit patterns (uint32), in numpy:
+    hi = the bits plus half a TF32 ulp, 13 low bits cleared; lo = x - hi in
+    float32, cut the same way. Returns (hi, lo) as bit patterns."""
+    hi = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    diff = bits.view(np.float32) - hi.view(np.float32)
+    return hi, diff.view(np.uint32) & np.uint32(0xFFFFE000)
+
+
+def test_bf16_values_are_tf32_values_and_multiply_exactly():
+    """The premise of K1b's and K2b's bfloat16 tensor-core instances (one
+    TF32 product where float32 takes three). Over every finite bfloat16 bit
+    pattern, the TF32 split of its float32 value has hi = the value and lo =
+    0 (7 mantissa bits fit in TF32's 10), so the two products with lo are
+    zero. The product of two bfloat16 values (8 x 8 significant bits) is
+    exact in float32 wherever it is a normal float32: every finite value
+    times each of the 256 values of [1, 2) of either sign (every pair of
+    significands, at every exponent of the first), and 2**20 random pairs
+    of finite patterns (every pair of exponents), against float64."""
+    pat = np.arange(1 << 16, dtype=np.uint32)
+    finite = ((pat >> 7) & 0xFF) != 0xFF
+    bits = pat[finite] << 16  # each bfloat16 value's float32 bits
+    hi, lo = _split_np(bits)
+    assert np.array_equal(hi, bits)
+    assert not lo.any()
+    vals = bits.view(np.float32)
+    tiny, big = np.finfo(np.float32).tiny, np.finfo(np.float32).max
+
+    def exact_where_normal(a, b, share):
+        want = a.astype(np.float64) * b.astype(np.float64)
+        normal = (np.abs(want) >= tiny) & (np.abs(want) <= big)
+        got = (a * b).astype(np.float64)  # float32 product, widened without loss
+        assert normal.mean() > share
+        assert np.array_equal(got[normal], want[normal])
+
+    sig = ((np.uint32(0x3F80) | np.arange(128, dtype=np.uint32)) << 16).view(np.float32)
+    rng = np.random.default_rng(24)
+    pick = lambda: vals[rng.integers(0, vals.size, size=1 << 20)]
+    with np.errstate(over="ignore", under="ignore"):
+        for b in np.concatenate([sig, -sig]):
+            exact_where_normal(vals, np.float32(b), 0.9)
+        exact_where_normal(pick(), pick(), 0.4)
+
+
 @pytest.mark.parametrize("transform", ["v = tg h", "u = fg dmid", "mid = fg^T s", "dh = tg^T s"])
 def test_split_transforms_match_float64(transform):
     """Each of K4b's four grid transforms at the main path's grid, on
