@@ -107,13 +107,14 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               in every train_profile* phase whose path runs K2b), K1b's or
               K7b's (``k1b_kernels``: the pair kernel, the plan, the dk/dv
               stage, sum_rows_kernel; where the path runs either), K1's or
-              K7's (``k1_kernels``: the tile kernel, the plan and the copy
-              kernel), and the
+              K7's (``k1_kernels``: the tile kernel, the plan, the copy
+              kernel and the CUDA-core instance), and the
               SM clock, power and temperature nvidia-smi sampled meanwhile;
               train_profile_s2 also K4's two kernels by name
               (``k4_kernels``: the tensor-core kernel and the split of its
               weights), every train_profile* phase whose path runs K2
-              K2's (``k2_kernels``: the same two), and every one whose
+              K2's (``k2_kernels``: the same two and the CUDA-core
+              instance), and every one whose
               path runs K3 K3's and K3b's tensor-core kernels
               (``k3_kernels``)
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
@@ -271,17 +272,22 @@ The bfloat16 phases (kernel_train_bf16, kernel_bwd_bf16, train_bf16,
 train_profile_bf16, train_cli_bf16; configs/train.yml at its own
 bfloat16, 12 launches a step of each bfloat16 instance, every float32
 count 0) hold each instance to its bfloat16 twin within ``BF16_TOL`` of
-each output's largest. K1b's and K2b's bfloat16 instances run their
-tensor-core kernels at bfloat16 storage, one TF32 product for each product
-of two bfloat16 values (exact in float32): their lines carry
+each output's largest. K1's, K2's, K1b's and K2b's bfloat16 instances run
+their tensor-core kernels at bfloat16 storage, one TF32 product for each
+product of two bfloat16 values (exact in float32): their lines carry
 ``bound_tc_ms`` at that one product (``tf32_products``) and
 ``cuda_cores`` (their CUDA-core instances at the same call, held to the
-twin the same way; K1b's also ``walks``), the kernels line their
-``cuda_cores_ms``, ptxas and residency (K2b's dx kernel's as
-``dx_residency``); every train_profile* phase requires the tensor-core
-kernels of K1b/K7b and K2b to have run (their pair kernel and weight split
-once a call, no CUDA-core kernel of theirs). train_bf16_vs_f32 sets the
-bfloat16 step's time, device busy time and peak memory beside float32's.
+twin the same way; K1's and K1b's also ``walks``, K1's
+``bound_live_only_ms``), the kernels line their ``cuda_cores_ms``, ptxas
+and residency (``k1_bf16_ptxas``, ``k2_bf16_ptxas``, ``k1b_bf16_ptxas``,
+``k2b_bf16_ptxas`` in the build line; K2b's dx kernel's residency as
+``dx_residency``); K3's and K3b's bfloat16 instances are their CUDA-core
+kernels. Every train_profile* phase requires the tensor-core kernels of
+K1/K7, K2, K1b/K7b and K2b to have run where its path runs them: K1's
+plan, tile and copy kernels, K2's weight split, K1b's pair kernel and
+K2b's weight split once a call, and none of their CUDA-core kernels.
+train_bf16_vs_f32 sets the bfloat16 step's time, device busy time and
+peak memory beside float32's.
 """
 from __future__ import annotations
 
@@ -355,14 +361,19 @@ K2B_CC = "cc::gate_ffn_bwd"
 K1B_KERNELS = ("list_bwd_pair_kernel", "list_plan_kernel", "list_dkdv_kernel", "sum_rows_kernel")
 K1B_CC = "list_bwd_cc_kernel"
 # K1's and K7's kernels in a profile (csrc/neighbor_attn.cu): the tensor-core
-# tile kernel, the plan and the copies of dead-weighted rows
+# tile kernel, the plan and the copies of dead-weighted rows; K1_CC their
+# CUDA-core instance (csrc/encoder_attn.cuh; K8's forward shares its name,
+# and runs on no path that runs K1 or K7)
 K1_KERNELS = ("list_fwd_tile_kernel", "list_fwd_plan_kernel", "list_fwd_copy_kernel")
+K1_CC = "attn_fwd_kernel"
 # K4's kernels in a profile (csrc/so3_ffn.cu): the tensor-core kernel and the
 # split of its weights, two launches for each K4 call
 K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
 # K2's kernels in a profile (csrc/so3_gate_ffn.cu): the tensor-core kernel and
-# the split of its weights, two launches for each K2 call
+# the split of its weights, two launches for each K2 call; K2_CC its
+# CUDA-core instance
 K2_KERNELS = ("gate_ffn_tc_kernel", "gate_ffn_wsplit_kernel")
+K2_CC = "cc::gate_ffn_kernel"
 # K3's and K3b's tensor-core kernels in a profile (csrc/s2_act.cu)
 K3_KERNELS = ("s2_silu_sep_tc_kernel", "s2_silu_sep_bwd_tc_kernel")
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
@@ -660,17 +671,26 @@ def k2_split_flops(args) -> float:
     return 2.0 * N * (I * H * (C + Co) + C * lmax * H)
 
 
+def held_as_forward(spec, got, want) -> tuple[float, object, bool]:
+    """A forward's output against its plain version as ``hold`` holds the
+    kernel: (max abs error, tolerance, within it); a bfloat16 instance's
+    within ``spec.tol`` of the output's largest magnitude, in its dtype."""
+    err = (got.float() - want.float()).abs().max().item()
+    if spec.tol is not None:
+        return (err, f"{spec.tol} x the output's max",
+                got.dtype == want.dtype and err <= spec.tol * want.float().abs().max().item())
+    return err, TOL, bool(torch.allclose(got, want, **TOL))
+
+
 def k2_report(spec, mod, args, kw) -> dict:
     """K2's CUDA-core instance, which the widths the tensor-core kernel
     does not take run, at the same call (``cuda_cores``: its time, and its
     output against the plain version as ``hold`` holds the kernel)."""
     cuda_cores = lambda: mod.so3_gate_ffn_cuda(*args, **kw, cuda_cores=True)
     with torch.no_grad():
-        got, want = cuda_cores(), mod.so3_gate_ffn_plain(*args)
-        err = (got - want).abs().max().item()
-        ok = bool(torch.allclose(got, want, **TOL))
+        err, tol, ok = held_as_forward(spec, cuda_cores(), mod.so3_gate_ffn_plain(*args))
         ms = time_ms(cuda_cores)
-    return {"cuda_cores": {"ms": ms, "max_abs_err": err, "tolerance": TOL, "ok": ok}}
+    return {"cuda_cores": {"ms": ms, "max_abs_err": err, "tolerance": tol, "ok": ok}}
 
 
 def pair_flops(H: int, kd: int, vd: int, De: int) -> tuple[float, float]:
@@ -759,10 +779,12 @@ def k7_cost(args, out):
     return b, flops
 
 
-def live_only_bound_ms(args, out) -> float:
+def live_only_bound_ms(args, out, rate: float = F32_FLOP_PER_S) -> float:
     """K1's or K7's bound over the live pairs alone: their operations and,
     for K7, the gathered rows of live slots (the dead-weighted rows left
-    out), comparable with the bound of a kernel that evaluates every slot."""
+    out), comparable with the bound of a kernel that evaluates every slot.
+    ``rate``: the peak the row's own ``bound_ms`` takes (989 TFLOP/s for a
+    bfloat16 instance), so that it never exceeds the bound over every slot."""
     qt, nbr_mask, ds, centers = args[0], args[-14], args[-12], args[-10]
     H = ds.shape[2]
     rows = args[1].dim() == 4  # K7's gathered rows
@@ -770,7 +792,7 @@ def live_only_bound_ms(args, out) -> float:
     flops = float(nbr_mask.sum().item()) * pair_flops(H, kd, vd, centers.shape[0])[0]
     b = (gathered_bytes(nbr_mask, args[1], args[2]) + nbytes(args[0], *args[3:], out) if rows
          else nbytes(*args, out))
-    return bound_ms(b, flops)[0]
+    return bound_ms(b, flops, rate)[0]
 
 
 def dense_work(adj, ds, HV: int) -> tuple[float, float, float]:
@@ -898,9 +920,7 @@ def list_fwd_report(spec, mod, args, kw) -> dict:
     cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
     with torch.no_grad():
         out = launch(*args, **kw, stats=stats)
-        got, want = cuda_cores(), plain(*args)
-        err = (got - want).abs().max().item()
-        ok = bool(torch.allclose(got, want, **TOL))
+        err, tol, ok = held_as_forward(spec, cuda_cores(), plain(*args))
         ms = time_ms(cuda_cores)
     live, dead, whole, slots = stats.tolist()
     return {"walks": {"rows": B * N, "rows_live": live, "rows_dead_weighted": dead,
@@ -909,8 +929,8 @@ def list_fwd_report(spec, mod, args, kw) -> dict:
                       "live_slots": int(nbr_mask.sum()),
                       "dead_weighted_rows": int(dead_weighted_rows(nbr_mask, ds).sum()),
                       "copy_rows": int(copy_rows(args).sum())},
-            "bound_live_only_ms": live_only_bound_ms(args, out),
-            "cuda_cores": {"ms": ms, "max_abs_err": err, "tolerance": TOL, "ok": ok}}
+            "bound_live_only_ms": live_only_bound_ms(args, out, spec.rate),
+            "cuda_cores": {"ms": ms, "max_abs_err": err, "tolerance": tol, "ok": ok}}
 
 
 def k8b_cost(args, outs):
@@ -1130,9 +1150,10 @@ def bf16_instance(spec: Kernel, tensor_cores: bool = False, report=None) -> Kern
     """The bfloat16 instance of a kernel of Config()'s training path: the
     same wrapper and plain function at bfloat16 activations, its own launch
     counter, its bound at the bfloat16 tensor-core rate. ``tensor_cores``
-    (K1b's and K2b's): its tensor-core kernels, one TF32 product for each
-    product of two bfloat16 values (``bound_tc_ms`` at one product), and
-    ``report`` at each call; else (K1's, K2's, K3's, K3b's) its CUDA-core
+    (K1's, K2's, K1b's and K2b's): its tensor-core kernels, one TF32 product
+    for each product of two bfloat16 values (``bound_tc_ms`` at one
+    product), and ``report`` at each call (the CUDA-core instance at the
+    same call, K1's and K1b's walks); else (K3's, K3b's) its CUDA-core
     kernel."""
     return spec._replace(name=f"{spec.name}_bf16", counter=f"{spec.counter}_bf16",
                          split_flops=spec.split_flops if tensor_cores else None, report=report,
@@ -1191,11 +1212,11 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/dense_edge_attn_bwd.cu",
            "singa_tpu/ops/pallas/dense_edge_attn.py:277", k8b_cost, ATTN_BWD_OUTS),
 ]
-# configs/train.yml's: K1b's and K2b's on the tensor cores
-BF16_PATH = [bf16_instance(K1), bf16_instance(K2), bf16_instance(K3),
-             bf16_instance(K1B, True, list_bwd_report), bf16_instance(K2B, True, cuda_cores_report),
-             bf16_instance(K3B)]
-K1B_BF16, K2B_BF16 = BF16_PATH[3], BF16_PATH[4]
+# configs/train.yml's: K1's, K2's, K1b's and K2b's on the tensor cores
+BF16_PATH = [bf16_instance(K1, True, list_fwd_report), bf16_instance(K2, True, k2_report),
+             bf16_instance(K3), bf16_instance(K1B, True, list_bwd_report),
+             bf16_instance(K2B, True, cuda_cores_report), bf16_instance(K3B)]
+K1_BF16, K2_BF16, K1B_BF16, K2B_BF16 = BF16_PATH[0], BF16_PATH[1], BF16_PATH[3], BF16_PATH[4]
 KERNELS += BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
@@ -1421,8 +1442,9 @@ def dense_lists_lines(mods, captured, suffix: str) -> None:
 
 def path_instances(specs, mods, captured, results: dict) -> None:
     """At a training microbatch's widths: the kernels each call of the path
-    must take (K2's, K4's, K3's and K3b's tensor-core ones; raises
-    otherwise) and the residency of the path's tensor-core kernels, into
+    must take (K2's at either dtype, K2b's, K4's, K3's and K3b's
+    tensor-core ones; raises otherwise) and the residency of the path's
+    tensor-core kernels, into
     ``results``. Holds no captured tensor past its return, so the train
     phase's peak memory does not count them."""
     for spec, bf16 in ((K2B, False), (K2B_BF16, True)):
@@ -1438,13 +1460,16 @@ def path_instances(specs, mods, captured, results: dict) -> None:
         fn = mods["so3_ffn"].gate_bwd_residency
         results[spec.name]["residency"] = fn(*widths, bf16=bf16)
         results[spec.name]["dx_residency"] = fn(*widths, dx=True, bf16=bf16)
-    if K2 in specs:  # K2's tensor-core kernel at the microbatch's widths: it takes the call
+    for spec, bf16 in ((K2, False), (K2_BF16, True)):
+        if spec not in specs:
+            continue
+        # K2's tensor-core kernel at the microbatch's widths: it takes the call
         x, w1, _, _, _, w2, _, lmax = next(iter(captured["so3_gate_ffn_cuda"].values()))[0]
         widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2])
         instance = mods["so3_ffn"].so3_gate_ffn_instance(*widths)
         if instance != "tensor_cores":
             raise AssertionError(f"K2 at {widths} runs {instance}, not the tensor-core kernel")
-        results[K2.name]["residency"] = mods["so3_ffn"].gate_fwd_residency(*widths)
+        results[spec.name]["residency"] = mods["so3_ffn"].gate_fwd_residency(*widths, bf16=bf16)
     if K4 in specs:  # K4's tensor-core kernel at the microbatch's widths: it takes the call
         x, w1, _, _, _, w2, _, tg, _, lmax = next(iter(captured["so3_ffn_cuda"].values()))[0]
         widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
@@ -1600,17 +1625,19 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         # train_profile: one optimizer step
         k2b_calls = per_step.get(K2B.name, 0) + per_step.get(K2B_BF16.name, 0)
         k1b_calls = sum(per_step.get(k.name, 0) for k in (K1B, K7B, K1B_BF16))
+        k1_calls = sum(per_step.get(k.name, 0) for k in (K1, K7, K1_BF16))
+        k2_calls = per_step.get(K2.name, 0) + per_step.get(K2_BF16.name, 0)
         runs_k2b, runs_k1b = k2b_calls > 0, k1b_calls > 0
-        runs_k1 = per_step.get(K1.name, 0) + per_step.get(K7.name, 0) > 0
+        runs_k1, runs_k2 = k1_calls > 0, k2_calls > 0
         runs_k4 = per_step.get(K4.name, 0) > 0
-        runs_k2 = per_step.get(K2.name, 0) > 0
         runs_k3 = per_step.get(K3.name, 0) > 0
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None)
                                   + (*K2B_KERNELS, K2B_CC) * runs_k2b
-                                  + (*K1B_KERNELS, K1B_CC) * runs_k1b + K1_KERNELS * runs_k1
-                                  + K4_KERNELS * runs_k4 + K2_KERNELS * runs_k2
+                                  + (*K1B_KERNELS, K1B_CC) * runs_k1b
+                                  + (*K1_KERNELS, K1_CC) * runs_k1
+                                  + K4_KERNELS * runs_k4 + (*K2_KERNELS, K2_CC) * runs_k2
                                   + K3_KERNELS * runs_k3)
         extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
@@ -1623,25 +1650,28 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         if runs_k1b:  # K1b's (or K7b's) kernels by name
             extra["k1b_kernels"] = {n: prof["matched"][n] for n in (*K1B_KERNELS, K1B_CC)}
         if runs_k1:  # K1's (or K7's) kernels by name
-            extra["k1_kernels"] = {n: prof["matched"][n] for n in K1_KERNELS}
+            extra["k1_kernels"] = {n: prof["matched"][n] for n in (*K1_KERNELS, K1_CC)}
         if runs_k4:  # K4's kernels by name
             extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
         if runs_k2:  # K2's kernels by name
-            extra["k2_kernels"] = {n: prof["matched"][n] for n in K2_KERNELS}
+            extra["k2_kernels"] = {n: prof["matched"][n] for n in (*K2_KERNELS, K2_CC)}
         if runs_k3:  # K3's and K3b's tensor-core kernels by name
             extra["k3_kernels"] = {n: prof["matched"][n] for n in K3_KERNELS}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
-        # K1b/K7b and K2b ran their tensor-core kernels at every call of the
-        # step: the pair kernel and the weight split once a call, none of
-        # their CUDA-core kernels
-        for calls, tc, cc in ((k2b_calls, "gate_ffn_bwd_wsplit_kernel", K2B_CC),
-                              (k1b_calls, "list_bwd_pair_kernel", K1B_CC)):
+        # K1/K7, K2, K1b/K7b and K2b ran their tensor-core kernels at every
+        # call of the step: K1's plan, tile and copy kernels, K2's weight
+        # split, K1b's pair kernel and K2b's weight split once a call, none
+        # of their CUDA-core kernels
+        for calls, tcs, cc in ((k1_calls, K1_KERNELS, K1_CC),
+                               (k2_calls, ("gate_ffn_wsplit_kernel",), K2_CC),
+                               (k2b_calls, ("gate_ffn_bwd_wsplit_kernel",), K2B_CC),
+                               (k1b_calls, ("list_bwd_pair_kernel",), K1B_CC)):
             if not calls:
                 continue
-            got = (prof["matched"][tc]["launches"], prof["matched"][cc]["launches"])
-            if got != (calls, 0):
-                raise AssertionError(f"{tc}, {cc} launched {got} times in a step, expected "
-                                     f"({calls}, 0)")
+            got = tuple(prof["matched"][n]["launches"] for n in (*tcs, cc))
+            if got != (calls,) * len(tcs) + (0,):
+                raise AssertionError(f"{(*tcs, cc)} launched {got} times in a step, expected "
+                                     f"{calls} each and 0")
         data.close()
         summary = {"compute_dtype": cfg.train.compute_dtype, "step_ms": step_ms,
                    "peak_mem_gb": peak_gb, "device_busy_ms": prof["device_busy_ms"],
@@ -2526,9 +2556,12 @@ def main() -> int:
     k2b_ptxas = {k: v for k, v in k2b_all.items() if "bfloat16" not in k}
     k2b_bf16_ptxas = {k: v for k, v in k2b_all.items() if "bfloat16" in k}
     # K2's tensor-core kernel (its instances for every row count) and split at
-    # 16 channels in and out, and its CUDA-core instance
-    k2_ptxas = {k: v for k, v in ptxas_report(logs["so3_gate_ffn"]).items()
-                if "ILi16ELi16E" in k or "cc15gate_ffn_kernel" in k}
+    # 16 channels in and out, and its CUDA-core instance; float32, and (bf16)
+    # bfloat16
+    k2_all = {k: v for k, v in ptxas_report(logs["so3_gate_ffn"]).items()
+              if "ILi16ELi16E" in k or "cc15gate_ffn_kernel" in k}
+    k2_ptxas = {k: v for k, v in k2_all.items() if "bfloat16" not in k}
+    k2_bf16_ptxas = {k: v for k, v in k2_all.items() if "bfloat16" in k}
     # K3's and K3b's kernels: the tensor-core ones (with their dynamic shared
     # memory and threads at the main path's I 29, C 128, G 70) and the
     # CUDA-core instance
@@ -2553,10 +2586,13 @@ def main() -> int:
                  for form in (0, 1)]
     k1b_bf16_ptxas = {k: v for k, v in k1b_all.items() if "bfloat16" in k}  # K1b's (form 0)
     # the forward kernels of K1 (form 0) and K7 (form 1): the tensor-core
-    # tile kernel and the CUDA-core instance (attn_fwd_kernel)
-    k1_ptxas = [{k: v for k, v in ptxas_report(logs["neighbor_attn"]).items()
-                 if ("list_fwd_tile_kernel" in k or "attn_fwd_kernel" in k)
-                 and f"ILi{form}E" in k} for form in (0, 1)]
+    # tile kernel and the CUDA-core instance (attn_fwd_kernel); float32, and
+    # K1's bfloat16 instance's
+    k1_all = {k: v for k, v in ptxas_report(logs["neighbor_attn"]).items()
+              if "list_fwd_tile_kernel" in k or "attn_fwd_kernel" in k}
+    k1_ptxas = [{k: v for k, v in k1_all.items() if f"ILi{form}E" in k and "bfloat16" not in k}
+                for form in (0, 1)]
+    k1_bf16_ptxas = {k: v for k, v in k1_all.items() if "bfloat16" in k}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
@@ -2565,7 +2601,8 @@ def main() -> int:
           "k2b_ptxas": k2b_ptxas, "k3_ptxas": k3_ptxas, "k5_ptxas": k5_ptxas,
           "so2_gemm_ptxas": gemm_ptxas,
           "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas,
-          "k1b_bf16_ptxas": k1b_bf16_ptxas, "k2b_bf16_ptxas": k2b_bf16_ptxas})
+          "k1b_bf16_ptxas": k1b_bf16_ptxas, "k2b_bf16_ptxas": k2b_bf16_ptxas,
+          "k1_bf16_ptxas": k1_bf16_ptxas, "k2_bf16_ptxas": k2_bf16_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -2669,8 +2706,8 @@ def main() -> int:
                              BF16_WARMUP, BF16_STEPS, vs_cpu=False)
     emit({"phase": "train_bf16_vs_f32", "float32": f32_step, "bfloat16": bf16_step,
           "note": "reported, not claimed: the float32 step runs the tensor-core kernels; the "
-                  "bfloat16 step K1b's and K2b's tensor-core kernels at bfloat16 and the "
-                  "CUDA-core bfloat16 instances of K1, K2, K3 and K3b"})
+                  "bfloat16 step K1's, K2's, K1b's and K2b's tensor-core kernels at bfloat16 "
+                  "and the CUDA-core bfloat16 instances of K3 and K3b"})
     torch.cuda.empty_cache()
     s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
     train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,
@@ -2697,6 +2734,9 @@ def main() -> int:
     results[K2B_BF16.name]["ptxas"] = k2b_bf16_ptxas
     results[K1B_BF16.name]["ptxas"] = k1b_bf16_ptxas
     results[K1B_BF16.name]["residency"] = mods["neighbor_attn"].bwd_residency(bf16=True)
+    results[K2_BF16.name]["ptxas"] = k2_bf16_ptxas
+    results[K1_BF16.name]["ptxas"] = k1_bf16_ptxas
+    results[K1_BF16.name]["residency"] = mods["neighbor_attn"].fwd_residency(bf16=True)
     results[K3.name]["ptxas"] = results[K3B.name]["ptxas"] = k3_ptxas
     results[K5.name]["ptxas"] = results[K5B.name]["ptxas"] = k5_ptxas
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form

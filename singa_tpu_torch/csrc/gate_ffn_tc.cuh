@@ -14,7 +14,7 @@
 //   gate_block, gates sigmoid(x_0 wg_l + bg_l) of the tile's nodes and the
 //                     chunk's channels as C fragments, into shared memory
 // Each takes the storage type T of the activations (float by default, K2's
-// and K2b's float32 kernels). At T = bf16 (K2b's bfloat16 instance) the
+// and K2b's float32 kernels). At T = bf16 (K2's and K2b's bfloat16 instances) the
 // tile's rows are bfloat16 in shared memory, half the bytes, widened as
 // fragments load; the weights are rounded to bfloat16 once a call and kept
 // as TF32 hi only (their lo is zero), half the words of a fragment; each
@@ -197,8 +197,10 @@ __device__ __forceinline__ singa::tc::FragA frag_tile(const T* rows, int ks) {
 // The gates of degree l >= 1 at the tile's nodes and n8 block j of the
 // chunk's channels, sigmoid(x_0 wg_l + bg_l) with the product split (xa: row
 // 0 of the tile as A), into sgate [lmax][n8 block][lane] as the lane's C
-// fragment (node g + 8 (q >> 1), channel 8 j + 2 t + (q & 1)).
-template <int C, class T = float>
+// fragment (node g + 8 (q >> 1), channel 8 j + 2 t + (q & 1)). kRound: the
+// gates rounded to T as they are stored (K2's; K2b's dx kernel rounds them
+// where they scale dmid and takes sigmoid' from them unrounded).
+template <int C, class T = float, bool kRound = false>
 __device__ __forceinline__ void gate_block(const singa::tc::FragA (&xa)[C / 8], const uint32_t* wgf,
                                            const float* cbg, int l, int j, float* sgate) {
   using namespace singa::tc;
@@ -212,9 +214,12 @@ __device__ __forceinline__ void gate_block(const singa::tc::FragA (&xa)[C / 8], 
 #pragma unroll
   for (int ks = 0; ks < KC; ++ks) mma_t<T>(z, xa[ks], b[ks]);
   const float* bias = cbg + (l - 1) * kHC + 8 * j + 2 * t;
-  *reinterpret_cast<float4*>(sgate + (((l - 1) * NB + j) * 32 + (threadIdx.x & 31)) * 4) =
-      make_float4(singa::sigmoidf_(z[0] + bias[0]), singa::sigmoidf_(z[1] + bias[1]),
-                  singa::sigmoidf_(z[2] + bias[0]), singa::sigmoidf_(z[3] + bias[1]));
+  float4 gv = make_float4(singa::sigmoidf_(z[0] + bias[0]), singa::sigmoidf_(z[1] + bias[1]),
+                          singa::sigmoidf_(z[2] + bias[0]), singa::sigmoidf_(z[3] + bias[1]));
+  if constexpr (kRound)
+    gv = make_float4(singa::rnd<T>(gv.x), singa::rnd<T>(gv.y), singa::rnd<T>(gv.z),
+                     singa::rnd<T>(gv.w));
+  *reinterpret_cast<float4*>(sgate + (((l - 1) * NB + j) * 32 + (threadIdx.x & 31)) * 4) = gv;
 }
 
 // Row 0 of the tile (sx [I][kTN][C]) as A, split

@@ -2,7 +2,9 @@
 // (csrc/neighbor_attn.cu) and K1b/K7b's backward (csrc/neighbor_attn_bwd.cu)
 // share: the encoder's widths, the tiles and their pair buffers' strides,
 // the smear and the shifted softplus as the tensor cores take them, the
-// smear formed in the A fragments, and the blocks' contiguous row ranges.
+// smear formed in the A fragments, the rows' four-value loads and stores at
+// either storage type and the score terms' sum (dot3), and the blocks'
+// contiguous row ranges.
 #pragma once
 
 #include "encoder_attn.cuh"
@@ -66,6 +68,36 @@ __device__ __forceinline__ tc::FragA frag_smear_paired(float coeff, float d0, fl
   tc::split_t<T>(smear(coeff, d0, c1), f.hi[2], f.lo[2]);
   tc::split_t<T>(smear(coeff, d1, c1), f.hi[3], f.lo[3]);
   return f;
+}
+
+// Four values of T at p (16-byte aligned for float, 8-byte for bfloat16) as
+// float4, through the read-only path; and four floats stored as T
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(tc::bf16_lo(w.x)), __uint_as_float(tc::bf16_hi(w.x)),
+                     __uint_as_float(tc::bf16_lo(w.y)), __uint_as_float(tc::bf16_hi(w.y)));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                            *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// The sum of four products a b c, each rounded to T first (at float: the
+// fused sum the float32 kernel takes, first term plain)
+template <class T>
+__device__ __forceinline__ float dot3(const float4& a, const float4& b, const float4& c) {
+  if constexpr (kBf16<T>)
+    return rnd<T>(a.x * b.x * c.x) + rnd<T>(a.y * b.y * c.y) + rnd<T>(a.z * b.z * c.z) +
+           rnd<T>(a.w * b.w * c.w);
+  float part = a.x * b.x * c.x;
+  part = fmaf(a.y * b.y, c.y, part);
+  part = fmaf(a.z * b.z, c.z, part);
+  return fmaf(a.w * b.w, c.w, part);
 }
 
 // The n8 tile jj of [h_k | h_v] at row 0 of the buffer pair (hk, hv).

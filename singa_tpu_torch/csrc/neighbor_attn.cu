@@ -89,7 +89,8 @@
 // 1 allows 128); `chip_smoke.py` reports both and the residency.
 // Shared with neighbor_attn_bwd.cu (K1b/K7b), in csrc/list_attn.cuh: the
 // widths, tiles and pair-buffer strides, the smear and its A fragments,
-// the shifted softplus, and block_range; the weights' planes and their
+// the shifted softplus, the rows' loads and stores (ld4, st4), the score
+// terms' sum (dot3) and block_range; the weights' planes and their
 // products (mlp_pre, mlp_w) are the forward's own.
 //
 // Widths. The tensor-core kernel takes the encoder's widths (kd 32, vd 64,
@@ -98,11 +99,26 @@
 // one node's K slots a tile, the EdgeMLPs in float32 on the CUDA cores),
 // kept as K1/K7's CUDA-core instance; cuda_cores asks for it at any shape.
 // The instance is chosen by shape before the launch.
-// bfloat16 (neighbor_attn_bf16): K1's bfloat16 instance is the CUDA-core
-// kernel attn_fwd_kernel<kList, bf16> of csrc/encoder_attn.cuh, every slot of
-// a row in one tile, float32 arithmetic on bfloat16 rows (the roundings are
-// listed there). It evaluates all K slots of every row; their EdgeMLPs, on
-// the CUDA cores in float32, bound it.
+// bfloat16 (neighbor_attn with bf16 != 0): K1's bfloat16 instance is the same three
+// kernels at T = bf16, the storage type of qt, k, v, diag_value and out
+// (dist, diag_scores, the centers, the EdgeMLP weights and the sums scratch
+// stay float32), at the widths above, else attn_fwd_kernel<kList, bf16>
+// (whose note lists the roundings: they are the TPU kernel's at a bfloat16
+// dtype); cuda_cores and stats as at float32. Every EdgeMLP product
+// multiplies two bfloat16 values and is one TF32 mma.sync (mma_tf32.cuh,
+// mma_t), exact to float32 accumulation, where float32 takes three: the
+// weights are rounded once a block into the hi plane alone (a bfloat16 value
+// is a TF32 value: its lo is zero), the smear as its fragments form, the
+// hiddens ssp(pre) as they are stored; w_k and w_v are rounded as they are
+// stored. The rows of qt, k, v and diag_value come in 8-byte pieces of four
+// values and widen (ld4); each score term qt w_k k is rounded before the
+// head sum (dot3); the softmax runs in float32, and the weights that weigh
+// the values (a, a_self, and a dead-weighted or copied row's closed-form
+// a_dead and a_self) are rounded; the aggregate sums in float32 and rounds
+// once, at the store (st4). A dead slot still adds an exact zero: exp(-1e9 -
+// m) = 0, and so is its rounding, so the modes above hold as they are. Its
+// ~8.6 GFLOP of EdgeMLP products a training call as one TF32 product each:
+// ~17 us at 495 TFLOP/s.
 #include <stdint.h>
 
 #include "list_attn.cuh"
@@ -113,6 +129,8 @@ namespace tc = singa::tc;
 namespace {
 
 using namespace singa::list_attn;
+using singa::kBf16;
+using singa::rnd;
 
 // A row's mode (plan[row] = mode | slots taken << 2): its live slots (none
 // for an isolated real row), all K on the v-EdgeMLP (dead-weighted), (a
@@ -183,35 +201,44 @@ __device__ Sm carve(float* p) {
   return s;
 }
 
-// W [in][out] (flax layout) into the planes at hi: W^T, split
+// W [in][out] (flax layout) into the planes at hi: W^T, split (at T = bf16
+// rounded to bfloat16 into the hi plane alone: its lo is zero)
+template <class T>
 __device__ void put_split(uint32_t* hi, int ld, const float* __restrict__ w, int in, int out) {
   for (int t = threadIdx.x; t < in * out; t += kThreads) {
     const int k = t / out, n = t - k * out;
-    tc::split(w[t], hi[n * ld + k], hi[kPlaneWords + n * ld + k]);
+    if constexpr (kBf16<T>)
+      hi[n * ld + k] = tc::bf16_bits(w[t]);
+    else
+      tc::split(w[t], hi[n * ld + k], hi[kPlaneWords + n * ld + k]);
   }
 }
 
-__device__ void load_split_weights(const ea::Args& a, const Sm& s) {
-  put_split(s.w1k, SW1, a.wk1, DE, KD);
-  put_split(s.w1v, SW1, a.wv1, DE, VD);
-  put_split(s.w2k, SW2K, a.wk2, KD, KD);
-  put_split(s.w2v, SW2V, a.wv2, VD, VD);
+template <class T>
+__device__ void load_split_weights(const ea::ArgsT<T>& a, const Sm& s) {
+  put_split<T>(s.w1k, SW1, a.wk1, DE, KD);
+  put_split<T>(s.w1v, SW1, a.wv1, DE, VD);
+  put_split<T>(s.w2k, SW2K, a.wk2, KD, KD);
+  put_split<T>(s.w2v, SW2V, a.wv2, VD, VD);
   for (int t = threadIdx.x; t < KD; t += kThreads) { s.b1k[t] = a.bk1[t]; s.b2k[t] = a.bk2[t]; }
   for (int t = threadIdx.x; t < VD; t += kThreads) { s.b1v[t] = a.bv1[t]; s.b2v[t] = a.bv2[t]; }
   for (int t = threadIdx.x; t < DE; t += kThreads) s.cent[t] = a.centers[t];
 }
 
 // B = W (k paired) from the planes of W^T at hi (the tile's first n row and
-// k column)
+// k column); at T = bf16 the hi plane alone
+template <class T>
 __device__ __forceinline__ tc::FragB frag_b_planes(const uint32_t* hi, int ld) {
   const int g = tc::lane_grp(), t = tc::lane_tig();
   const uint2 h = *reinterpret_cast<const uint2*>(hi + g * ld + 2 * t);
+  if constexpr (kBf16<T>) return tc::FragB{{h.x, h.y}, {0u, 0u}};
   const uint2 l = *reinterpret_cast<const uint2*>(hi + kPlaneWords + g * ld + 2 * t);
   return tc::FragB{{h.x, h.y}, {l.x, l.y}};
 }
 
 // h_k | h_v tiles J0 .. J1-1 of the m16 block at row m0: ssp(E [wk1 | wv1] + b1)
-template <int J0, int J1>
+// (at T = bf16 from the rounded smear, one product each, and rounded)
+template <class T, int J0, int J1>
 __device__ void mlp_pre(const Sm& s, float coeff, int m0) {
   const int g = tc::lane_grp(), t = tc::lane_tig();
   const float d0 = s.dist[m0 + g], d1 = s.dist[m0 + g + 8];
@@ -225,25 +252,26 @@ __device__ void mlp_pre(const Sm& s, float coeff, int m0) {
   }
 #pragma unroll 2
   for (int ks = 0; ks < DE / 8; ++ks) {
-    const tc::FragA fa = frag_smear_paired(coeff, d0, d1, s.cent + 8 * ks);
+    const tc::FragA fa = frag_smear_paired<T>(coeff, d0, d1, s.cent + 8 * ks);
 #pragma unroll
     for (int j = 0; j < J1 - J0; ++j) {
       const int jj = J0 + j;
       const uint32_t* w = jj < NPK ? s.w1k + 8 * jj * SW1 : s.w1v + 8 * (jj - NPK) * SW1;
-      tc::mma3(c[j], fa, frag_b_planes(w + 8 * ks, SW1));
+      tc::mma_t<T>(c[j], fa, frag_b_planes<T>(w + 8 * ks, SW1));
     }
   }
 #pragma unroll
   for (int j = 0; j < J1 - J0; ++j) {
     const int jj = J0 + j;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) c[j][q] = ssp_tc(c[j][q]);
+    for (int q = 0; q < 4; ++q) c[j][q] = rnd<T>(ssp_tc(c[j][q]));
     tc::store_c(htile(s.hk + m0 * LPK, s.hv + m0 * LPV, jj), jj < NPK ? LPK : LPV, c[j]);
   }
 }
 
 // w_k (kK) or w_v tiles J0 .. J1-1 of the m16 block at row m0: h W2 + b2
-template <bool kK, int J0, int J1>
+// (at T = bf16 one product each, and rounded)
+template <class T, bool kK, int J0, int J1>
 __device__ void mlp_w(const Sm& s, int m0) {
   constexpr int W = kK ? KD : VD, LP = kK ? LPK : LPV, LS = kK ? SW2K : SW2V;
   const int t = tc::lane_tig();
@@ -258,19 +286,24 @@ __device__ void mlp_w(const Sm& s, int m0) {
   }
 #pragma unroll 2
   for (int ks = 0; ks < W / 8; ++ks) {
-    const tc::FragA fa = tc::frag_a_paired(hid + 8 * ks, LP);
+    const tc::FragA fa = tc::frag_a_paired<T>(hid + 8 * ks, LP);
 #pragma unroll
     for (int j = 0; j < J1 - J0; ++j)
-      tc::mma3(c[j], fa, frag_b_planes(W2 + 8 * (J0 + j) * LS + 8 * ks, LS));
+      tc::mma_t<T>(c[j], fa, frag_b_planes<T>(W2 + 8 * (J0 + j) * LS + 8 * ks, LS));
   }
   float* out = (kK ? s.wk : s.wv) + m0 * LP;
 #pragma unroll
-  for (int j = 0; j < J1 - J0; ++j) tc::store_c(out + 8 * (J0 + j), LP, c[j]);
+  for (int j = 0; j < J1 - J0; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[j][q] = rnd<T>(c[j][q]);
+    tc::store_c(out + 8 * (J0 + j), LP, c[j]);
+  }
 }
 
 // One warp: whether row r has no live slot and leaves its dead slots a
 // weight, exp(-1e9 - max(ds, -1e9)) != 0, in some head (in every lane).
-__device__ bool dead_weighted(const ea::Args& a, const ea::Dims& d, long long r) {
+template <class T>
+__device__ bool dead_weighted(const ea::ArgsT<T>& a, const ea::Dims& d, long long r) {
   const int lane = threadIdx.x & 31;
   bool live = false, weighs = false;
   for (int p = lane; p < d.R; p += 32) live |= a.nmask[r * d.R + p] != 0;
@@ -283,8 +316,8 @@ __device__ bool dead_weighted(const ea::Args& a, const ea::Dims& d, long long r)
 // bit: the distances, and the rows of v (the same nbr, kList; the same
 // gathered v rows, kGathered). Their slots' w_v and v rows are then the
 // same, and so are their aggregates' unweighted sums.
-template <int F>
-__device__ bool same_slots(const ea::Args& a, const ea::Dims& d, long long r) {
+template <int F, class T>
+__device__ bool same_slots(const ea::ArgsT<T>& a, const ea::Dims& d, long long r) {
   const int lane = threadIdx.x & 31, K = d.R;
   bool diff = false;
   for (int p = lane; p < K; p += 32) {
@@ -292,7 +325,8 @@ __device__ bool same_slots(const ea::Args& a, const ea::Dims& d, long long r) {
     if (F == ea::kList) diff |= a.nbr[r * K + p] != a.nbr[(r - 1) * K + p];
   }
   if (F == ea::kGathered && !__any_sync(0xffffffffu, diff)) {
-    const long long n = (long long)K * d.H * d.vd / 4;  // 16-byte pieces of a row's K v rows
+    constexpr int kPer16 = 16 / sizeof(T);  // values of a 16-byte piece
+    const long long n = (long long)K * d.H * d.vd / kPer16;  // 16-byte pieces of a row's K v rows
     const uint4* x = reinterpret_cast<const uint4*>(a.v) + r * n;
     const uint4* y = x - n;
     for (long long t = lane; t < n && !diff; t += 32) {
@@ -306,9 +340,9 @@ __device__ bool same_slots(const ea::Args& a, const ea::Dims& d, long long r) {
 // One warp a row: the plan of each row, mode | taken << 2. A dead-weighted
 // row that reads the same slot inputs as the row before it in its graph,
 // itself dead-weighted, is a copy.
-template <int F>
+template <int F, class T = float>
 __global__ void __launch_bounds__(kPlanThreads)
-list_fwd_plan_kernel(ea::Args a, ea::Dims d, int* __restrict__ plan) {
+list_fwd_plan_kernel(ea::ArgsT<T> a, ea::Dims d, int* __restrict__ plan) {
   const int lane = threadIdx.x & 31, K = d.R;
   const long long rows = (long long)d.B * d.N;
   const long long warps = (long long)gridDim.x * (kPlanThreads / 32);
@@ -321,7 +355,7 @@ list_fwd_plan_kernel(ea::Args a, ea::Dims d, int* __restrict__ plan) {
     int mode = kLive | live << 2;
     if (live == 0 && dead_weighted(a, d, r)) {
       mode = kDead | K << 2;
-      if (r % d.N != 0 && dead_weighted(a, d, r - 1) && same_slots<F>(a, d, r)) mode = kCopy;
+      if (r % d.N != 0 && dead_weighted(a, d, r - 1) && same_slots<F, T>(a, d, r)) mode = kCopy;
     }
     if (lane == 0) plan[r] = mode;
   }
@@ -331,11 +365,13 @@ list_fwd_plan_kernel(ea::Args a, ea::Dims d, int* __restrict__ plan) {
 // (sums [rows, H*vd], written by list_fwd_tile_kernel for every
 // dead-weighted row it evaluates; the source is the nearest row before the
 // copy that is not one) and its own softmax in closed form, as the tile
-// kernel writes a dead-weighted row's.
+// kernel writes a dead-weighted row's (at T = bf16 its weights rounded, and
+// the output rounded once).
+template <class T = float>
 __global__ void __launch_bounds__(kPlanThreads)
 list_fwd_copy_kernel(const int* __restrict__ plan, const float* __restrict__ ds,
-                     const float* __restrict__ dval, const float* __restrict__ sums,
-                     float* __restrict__ out, long long rows, int K, int H, int vd) {
+                     const T* __restrict__ dval, const float* __restrict__ sums,
+                     T* __restrict__ out, long long rows, int K, int H, int vd) {
   const int lane = threadIdx.x & 31, HV = H * vd;
   const long long warps = (long long)gridDim.x * (kPlanThreads / 32);
   for (long long r = blockIdx.x * (long long)(kPlanThreads / 32) + (threadIdx.x >> 5); r < rows;
@@ -348,12 +384,13 @@ list_fwd_copy_kernel(const int* __restrict__ plan, const float* __restrict__ ds,
       if (bal) src = j - (__ffs(bal) - 1);
     }
     for (int c = 4 * lane; c < HV; c += 128) {
-      const float2 aw = ea::dead_row_weights(ds[r * H + c / vd], K);  // (a_dead, a_self)
+      float2 aw = ea::dead_row_weights(ds[r * H + c / vd], K);  // (a_dead, a_self)
+      aw = make_float2(rnd<T>(aw.x), rnd<T>(aw.y));
       const float4 u = *reinterpret_cast<const float4*>(sums + src * HV + c);
-      const float4 dv = __ldg(reinterpret_cast<const float4*>(dval + r * HV + c));
-      *reinterpret_cast<float4*>(out + r * HV + c) =
+      const float4 dv = ld4(dval + r * HV + c);
+      st4(out + r * HV + c,
           make_float4(fmaf(aw.x, u.x, aw.y * dv.x), fmaf(aw.x, u.y, aw.y * dv.y),
-                      fmaf(aw.x, u.z, aw.y * dv.z), fmaf(aw.x, u.w, aw.y * dv.w));
+                      fmaf(aw.x, u.z, aw.y * dv.z), fmaf(aw.x, u.w, aw.y * dv.w)));
     }
   }
 }
@@ -437,8 +474,8 @@ __device__ void plan_tile(const int* __restrict__ plan, int K, const Sm& s) {
 // One warp a 32-slot segment of a row, its loads (and the mask of the row's
 // earlier segments, which place a live row's slots) issued together; the
 // first segment's warp also keeps the row's self scores.
-template <int F>
-__device__ void fill_slots(const ea::Args& a, const ea::Dims& d, const Sm& s, int nrows, int ns,
+template <int F, class T>
+__device__ void fill_slots(const ea::ArgsT<T>& a, const ea::Dims& d, const Sm& s, int nrows, int ns,
                            int nb) {
   const int lane = threadIdx.x & 31, K = d.R, nseg = (K + 31) / 32;
   for (int job = threadIdx.x >> 5; job < nrows * nseg; job += kWarps) {
@@ -485,9 +522,9 @@ __device__ void fill_slots(const ea::Args& a, const ea::Dims& d, const Sm& s, in
   }
 }
 
-template <int F>
+template <int F, class T = float>
 __global__ void __launch_bounds__(kThreads, 1)
-list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __restrict__ sums,
+list_fwd_tile_kernel(ea::ArgsT<T> a, ea::Dims d, T* __restrict__ out, float* __restrict__ sums,
                      const int* __restrict__ plan, int* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
   const Sm s = carve(smem);
@@ -495,7 +532,7 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
   const int H = d.H, K = d.R, HK = H * KD, HV = H * VD;
   const float scale = 1.f / sqrtf((float)KD), coeff = a.coeff;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  load_split_weights(a, s);
+  load_split_weights<T>(a, s);
   block_range(plan, d.B * d.N, s.ctl);
   int walked[kStats] = {};  // thread 0's counts, for stats
 
@@ -507,7 +544,7 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
     const int nchunks = s.ctl[kChunks];
     if (nrows == 0) break;
     const int nb = (ns + 15) / 16, nbk = (nsk + 15) / 16;
-    fill_slots<F>(a, d, s, nrows, ns, nb);
+    fill_slots<F, T>(a, d, s, nrows, ns, nb);
     __syncthreads();
 
     if (ns > 0) {
@@ -515,29 +552,29 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
       // blocks, the v-net alone on the v-section's
       const int blk = warp >> 1, m0 = 16 * blk;
       if (blk < nbk) {
-        if (warp & 1) mlp_pre<6, 12>(s, coeff, m0);
-        else mlp_pre<0, 6>(s, coeff, m0);
+        if (warp & 1) mlp_pre<T, 6, 12>(s, coeff, m0);
+        else mlp_pre<T, 0, 6>(s, coeff, m0);
       } else if (blk < nb) {
-        if (warp & 1) mlp_pre<8, 12>(s, coeff, m0);
-        else mlp_pre<NPK, 8>(s, coeff, m0);
+        if (warp & 1) mlp_pre<T, 8, 12>(s, coeff, m0);
+        else mlp_pre<T, NPK, 8>(s, coeff, m0);
       }
       __syncthreads();
       if (blk < nbk) {
         if (warp & 1) {
-          mlp_w<false, 3, 8>(s, m0);
+          mlp_w<T, false, 3, 8>(s, m0);
         } else {
-          mlp_w<true, 0, NPK>(s, m0);
-          mlp_w<false, 0, 3>(s, m0);
+          mlp_w<T, true, 0, NPK>(s, m0);
+          mlp_w<T, false, 0, 3>(s, m0);
         }
       } else if (blk < nb) {
-        if (warp & 1) mlp_w<false, 4, 8>(s, m0);
-        else mlp_w<false, 0, 4>(s, m0);
+        if (warp & 1) mlp_w<T, false, 4, 8>(s, m0);
+        else mlp_w<T, false, 0, 4>(s, m0);
       }
       __syncthreads();
       // the k-section's scores, one warp a slot, four slots at a time: the
-      // lanes read each live slot's key row and its row's query in 16-byte
-      // pieces side by side; a head's pieces are 8 lanes (kd 32), summed
-      // across them
+      // lanes read each live slot's key row and its row's query in pieces of
+      // four values side by side; a head's pieces are 8 lanes (kd 32), summed
+      // across them (at T = bf16 each term rounded before the sum)
       constexpr int U = 4;
       for (int mb = warp; mb < nsk; mb += U * kWarps) {
         float4 kq[U], qq[U];
@@ -547,18 +584,15 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
           const int m = mb + u * kWarps;
           const bool on = m < nsk && c < HK && s.mask[m] != 0.f;
           const long long node = on ? s.rnode[s.rowof[m]] : 0, kv = on ? s.kv[m] : 0;
-          kq[u] = on ? __ldg(reinterpret_cast<const float4*>(a.k + kv * HK + c)) : zero;
-          qq[u] = on ? __ldg(reinterpret_cast<const float4*>(a.qt + node * HK + c)) : zero;
+          kq[u] = on ? ld4(a.k + kv * HK + c) : zero;
+          qq[u] = on ? ld4(a.qt + node * HK + c) : zero;
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int m = mb + u * kWarps;
           const int mm = min(m, nsk - 1);  // (a slot past the section computes, and writes nothing)
           const float4 ww = *reinterpret_cast<const float4*>(s.wk + mm * LPK + c % KD);
-          float part = qq[u].x * ww.x * kq[u].x;
-          part = fmaf(qq[u].y * ww.y, kq[u].y, part);
-          part = fmaf(qq[u].z * ww.z, kq[u].z, part);
-          part = fmaf(qq[u].w * ww.w, kq[u].w, part);
+          float part = dot3<T>(qq[u], ww, kq[u]);
 #pragma unroll
           for (int off = 1; off < KD / 4; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
           if (m < nsk && c < HK && c % KD == 0)
@@ -571,7 +605,8 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
     // scores, then the softmax weights in place of the scores and a_self; a
     // live row whose max leaves its dead slots a weight in some head is
     // taken again whole and sends nothing now; a dead-weighted row's
-    // softmax in closed form (its K slots score -1e9)
+    // softmax in closed form (its K slots score -1e9); at T = bf16 the
+    // weights that weigh values rounded
     for (int job = warp; job < nrows * H; job += kWarps) {
       const int i = job / H, h = job - i * H, mode = s.rmode[i];
       const int m0 = s.rfirst[i], m1 = m0 + s.rcnt[i];
@@ -580,7 +615,7 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
       if (mode == kDead) {  // the aggregate sums w_v v unweighted (a copy takes the same sums)
         const float2 aw = ea::dead_row_weights(sd, K);  // (a_dead, a_self)
         for (int m = m0 + lane; m < m1; m += 32) s.S[m * kMaxH + h] = 1.f;
-        if (lane == 0) s.ra[i * kMaxH + h] = aw.y, s.rad[i * kMaxH + h] = aw.x;
+        if (lane == 0) s.ra[i * kMaxH + h] = rnd<T>(aw.y), s.rad[i * kMaxH + h] = rnd<T>(aw.x);
         continue;
       }
       float mx = sd;
@@ -598,8 +633,8 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
       }
       const float es = expf(sd - mx);
       l = es + singa::warp_sum(l);
-      for (int m = m0 + lane; m < m1; m += 32) s.S[m * kMaxH + h] /= l;
-      if (lane == 0) s.ra[i * kMaxH + h] = es / l;
+      for (int m = m0 + lane; m < m1; m += 32) s.S[m * kMaxH + h] = rnd<T>(s.S[m * kMaxH + h] / l);
+      if (lane == 0) s.ra[i * kMaxH + h] = rnd<T>(es / l);
     }
     __syncthreads();
     // the rows to take again, in row order, and the counts
@@ -638,8 +673,8 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
       float4 vq[kChunk];
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
-        const float* vrow = a.v + (long long)s.kv[ma + min(u, n - 1)] * HV;
-        vq[u] = u < n ? __ldg(reinterpret_cast<const float4*>(vrow + c)) : zero;
+        const T* vrow = a.v + (long long)s.kv[ma + min(u, n - 1)] * HV;
+        vq[u] = u < n ? ld4(vrow + c) : zero;
       }
       float4 acc = zero;
 #pragma unroll
@@ -670,7 +705,7 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
         sum.x += p.x, sum.y += p.y, sum.z += p.z, sum.w += p.w;
       }
       const float as = s.ra[i * kMaxH + c / VD];
-      const float4 dv = __ldg(reinterpret_cast<const float4*>(a.dval + at));
+      const float4 dv = ld4(a.dval + at);
       float4 o;
       if (mode == kDead) {
         *reinterpret_cast<float4*>(sums + at) = sum;
@@ -681,7 +716,7 @@ list_fwd_tile_kernel(ea::Args a, ea::Dims d, float* __restrict__ out, float* __r
         o = make_float4(fmaf(as, dv.x, sum.x), fmaf(as, dv.y, sum.y), fmaf(as, dv.z, sum.z),
                         fmaf(as, dv.w, sum.w));
       }
-      *reinterpret_cast<float4*>(out + at) = o;
+      st4(out + at, o);
     }
   }
 
@@ -699,42 +734,44 @@ int instance(const ea::Dims& d, int cuda_cores) {
   return !cuda_cores && fits && tc_ok(d) ? 0 : 1;
 }
 
-template <int F>
-int launch(const ea::Args& a, const ea::Dims& d, float* out, float* sums, int* plan, int cuda_cores,
+template <int F, class T = float>
+int launch(const ea::ArgsT<T>& a, const ea::Dims& d, T* out, float* sums, int* plan, int cuda_cores,
            int* stats, void* stream) {
   const int inst = instance(d, cuda_cores);
   if (inst < 0) return (int)cudaErrorInvalidValue;
-  if (inst == 1) return ea::launch_fwd<F>(a, d, out, stream);
+  if (inst == 1) return ea::launch_fwd<F, T>(a, d, out, stream);
   const uintptr_t rows16 = reinterpret_cast<uintptr_t>(a.qt) | reinterpret_cast<uintptr_t>(a.k) |
                            reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dval) |
                            reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(sums);
   if ((rows16 & 15) != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = singa::allow_smem(list_fwd_tile_kernel<F>, kSmemBytes);
+  cudaError_t err = singa::allow_smem(list_fwd_tile_kernel<F, T>, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)d.B * d.N;
   const long long warp_jobs = (rows + kPlanThreads / 32 - 1) / (kPlanThreads / 32);
-  const int plan_grid = singa::persistent_grid(list_fwd_plan_kernel<F>, kPlanThreads, 0, warp_jobs);
-  list_fwd_plan_kernel<F><<<plan_grid, kPlanThreads, 0, st>>>(a, d, plan);
+  const int plan_grid =
+      singa::persistent_grid(list_fwd_plan_kernel<F, T>, kPlanThreads, 0, warp_jobs);
+  list_fwd_plan_kernel<F, T><<<plan_grid, kPlanThreads, 0, st>>>(a, d, plan);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int grid = singa::persistent_grid(list_fwd_tile_kernel<F>, kThreads, kSmemBytes, rows);
-  list_fwd_tile_kernel<F><<<grid, kThreads, kSmemBytes, st>>>(a, d, out, sums, plan, stats);
+  const int grid = singa::persistent_grid(list_fwd_tile_kernel<F, T>, kThreads, kSmemBytes, rows);
+  list_fwd_tile_kernel<F, T><<<grid, kThreads, kSmemBytes, st>>>(a, d, out, sums, plan, stats);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int copy_grid = singa::persistent_grid(list_fwd_copy_kernel, kPlanThreads, 0, warp_jobs);
-  list_fwd_copy_kernel<<<copy_grid, kPlanThreads, 0, st>>>(plan, a.ds, a.dval, sums, out, rows, d.R,
-                                                           d.H, d.vd);
+  const int copy_grid =
+      singa::persistent_grid(list_fwd_copy_kernel<T>, kPlanThreads, 0, warp_jobs);
+  list_fwd_copy_kernel<T><<<copy_grid, kPlanThreads, 0, st>>>(plan, a.ds, a.dval, sums, out, rows,
+                                                              d.R, d.H, d.vd);
   return (int)cudaGetLastError();
 }
 
-template <int F>
+template <int F, class T = float>
 int residency(int* smem_bytes, int* threads) {
   *smem_bytes = (int)kSmemBytes;
   *threads = kThreads;
-  if (singa::allow_smem(list_fwd_tile_kernel<F>, kSmemBytes) != cudaSuccess) return -1;
+  if (singa::allow_smem(list_fwd_tile_kernel<F, T>, kSmemBytes) != cudaSuccess) return -1;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, list_fwd_tile_kernel<F>, kThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, list_fwd_tile_kernel<F, T>, kThreads,
                                                     kSmemBytes) != cudaSuccess)
     return -1;
   return per_sm;
@@ -749,37 +786,48 @@ extern "C" int neighbor_attn_instance(int K, int H, int kd, int vd, int De) {
   return instance(ea::Dims{1, 1, K, H, kd, vd, De}, 0);
 }
 
-// The tensor-core tile kernel of K1 (hybrid 0) or K7 (1): resident blocks
-// per SM (-1: refused), and its threads and dynamic shared memory per block.
-extern "C" int neighbor_attn_residency(int hybrid, int* smem_bytes, int* threads) {
+// The tensor-core tile kernel of K1 (hybrid 0) or K7 (1), at float32 or
+// (bf16 != 0, K1's alone) at bfloat16 storage: resident blocks per SM (-1:
+// refused), and its threads and dynamic shared memory per block.
+extern "C" int neighbor_attn_residency(int hybrid, int bf16, int* smem_bytes, int* threads) {
+  if (bf16) return hybrid ? -1 : residency<ea::kList, singa::bf16>(smem_bytes, threads);
   return hybrid ? residency<ea::kGathered>(smem_bytes, threads)
                 : residency<ea::kList>(smem_bytes, threads);
 }
 
-// K1: k [B*N, H*kd] and v [B*N, H*vd] read by nbr [B*N, K]. Scratch: sums
-// [B*N, H*vd] (the dead-weighted rows' unweighted sums, for their copies)
-// and plan [B*N] (int). cuda_cores != 0: the CUDA-core instance at any
-// shape. stats: null, or int [4] zeros to which the tensor-core kernel adds
-// what it walked (rows live, dead-weighted rows evaluated, rows taken again
-// whole, slots evaluated; the copies are the rest of the rows); the
-// CUDA-core instance evaluates every slot and adds nothing.
-extern "C" int neighbor_attn_f32(const float* qt, const float* k, const float* v,
-                                 const int* nbr, const unsigned char* nmask,
-                                 const float* dist, const float* ds, const float* dval,
-                                 const float* centers, const float* wk1, const float* bk1,
-                                 const float* wk2, const float* bk2, const float* wv1,
-                                 const float* bv1, const float* wv2, const float* bv2,
-                                 float coeff, float* out, float* sums, int* plan, int B, int N,
-                                 int K, int H, int kd, int vd, int De, int cuda_cores, int* stats,
-                                 void* stream) {
-  const ea::Args a{qt, k, v, nbr, nmask, dist, ds, dval, centers,
-                   wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
-  return launch<ea::kList>(a, ea::Dims{B, N, K, H, kd, vd, De}, out, sums, plan, cuda_cores,
-                           stats, stream);
+// K1: k [B*N, H*kd] and v [B*N, H*vd] read by nbr [B*N, K]; qt, k, v,
+// dval and out bfloat16 when bf16 != 0 (K1's bfloat16 instance), else
+// float32; the rest float32. Scratch: sums [B*N, H*vd] float32 (the
+// dead-weighted rows' unweighted sums, for their copies) and plan [B*N]
+// (int). cuda_cores != 0: the CUDA-core instance at any shape. stats: null,
+// or int [4] zeros to which the tensor-core kernel adds what it walked (rows
+// live, dead-weighted rows evaluated, rows taken again whole, slots
+// evaluated; the copies are the rest of the rows); the CUDA-core instance
+// evaluates every slot and adds nothing.
+extern "C" int neighbor_attn(const void* qt, const void* k, const void* v, const int* nbr,
+                             const unsigned char* nmask, const float* dist, const float* ds,
+                             const void* dval, const float* centers, const float* wk1,
+                             const float* bk1, const float* wk2, const float* bk2,
+                             const float* wv1, const float* bv1, const float* wv2,
+                             const float* bv2, float coeff, void* out, float* sums, int* plan,
+                             int B, int N, int K, int H, int kd, int vd, int De, int cuda_cores,
+                             int bf16, int* stats, void* stream) {
+  const ea::Dims d{B, N, K, H, kd, vd, De};
+  if (bf16) {
+    const ea::ArgsT<singa::bf16> a{(const singa::bf16*)qt, (const singa::bf16*)k,
+                                   (const singa::bf16*)v, nbr, nmask, dist, ds,
+                                   (const singa::bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1,
+                                   bv1, wv2, bv2, coeff};
+    return launch<ea::kList, singa::bf16>(a, d, (singa::bf16*)out, sums, plan, cuda_cores, stats,
+                                          stream);
+  }
+  const ea::Args a{(const float*)qt, (const float*)k, (const float*)v, nbr, nmask, dist, ds,
+                   (const float*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
+  return launch<ea::kList>(a, d, (float*)out, sums, plan, cuda_cores, stats, stream);
 }
 
-// K7: k_nb [B*N, K, H*kd] and v_nb [B*N, K, H*vd], the slots' rows gathered;
-// the rest as K1's.
+// K7 (float32 alone): k_nb [B*N, K, H*kd] and v_nb [B*N, K, H*vd], the
+// slots' rows gathered; the rest as K1's.
 extern "C" int neighbor_attn_hybrid_f32(const float* qt, const float* k_nb, const float* v_nb,
                                         const unsigned char* nmask, const float* dist,
                                         const float* ds, const float* dval,
@@ -793,22 +841,4 @@ extern "C" int neighbor_attn_hybrid_f32(const float* qt, const float* k_nb, cons
                    wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
   return launch<ea::kGathered>(a, ea::Dims{B, N, K, H, kd, vd, De}, out, sums, plan,
                                cuda_cores, stats, stream);
-}
-
-// K1's bfloat16 instance: attn_fwd_kernel<kList, bf16> (csrc/encoder_attn.cuh)
-// with qt, k, v, diag_value and out bfloat16 and the rest as K1's float32
-// entry point takes them. cudaErrorInvalidValue for shapes it does not take
-// (a node's K slots over shared memory).
-extern "C" int neighbor_attn_bf16(const void* qt, const void* k, const void* v, const int* nbr,
-                                  const unsigned char* nmask, const float* dist, const float* ds,
-                                  const void* dval, const float* centers, const float* wk1,
-                                  const float* bk1, const float* wk2, const float* bk2,
-                                  const float* wv1, const float* bv1, const float* wv2,
-                                  const float* bv2, float coeff, void* out, int B, int N, int K,
-                                  int H, int kd, int vd, int De, void* stream) {
-  using singa::bf16;
-  const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k, (const bf16*)v, nbr, nmask, dist, ds,
-                          (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
-                          coeff};
-  return ea::launch_fwd<ea::kList, bf16>(a, ea::Dims{B, N, K, H, kd, vd, De}, (bf16*)out, stream);
 }

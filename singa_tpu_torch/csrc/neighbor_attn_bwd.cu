@@ -202,36 +202,6 @@ __device__ __forceinline__ tc::FragA frag_smear_trans(float coeff, const float* 
 // sigmoid(pre) from h = ssp(pre) = softplus(pre) - log 2
 __device__ __forceinline__ float sigmoid_of_hidden(float h) { return 1.f - 0.5f * __expf(-h); }
 
-// Four values of T at p (16-byte aligned for float, 8-byte for bfloat16) as
-// float4, through the read-only path; and four floats stored as T
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ld4(const singa::bf16* p) {
-  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(tc::bf16_lo(w.x)), __uint_as_float(tc::bf16_hi(w.x)),
-                     __uint_as_float(tc::bf16_lo(w.y)), __uint_as_float(tc::bf16_hi(w.y)));
-}
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void st4(singa::bf16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
-                                            *reinterpret_cast<const uint32_t*>(&b));
-}
-
-// The sum of four products a b c, each rounded to T first (at float: the
-// fused sum the float32 kernel takes, first term plain)
-template <class T>
-__device__ __forceinline__ float dot3(const float4& a, const float4& b, const float4& c) {
-  if constexpr (kBf16<T>)
-    return rnd<T>(a.x * b.x * c.x) + rnd<T>(a.y * b.y * c.y) + rnd<T>(a.z * b.z * c.z) +
-           rnd<T>(a.w * b.w * c.w);
-  float part = a.x * b.x * c.x;
-  part = fmaf(a.y * b.y, c.y, part);
-  part = fmaf(a.z * b.z, c.z, part);
-  return fmaf(a.w * b.w, c.w, part);
-}
-
 // h_k | h_v tiles J0 .. J1-1 of the m16 block at row m0: ssp(E [wk1 | wv1] + b1)
 // (float32 in shared memory: at T = bf16 its users round it as it loads)
 template <class T, int J0, int J1>

@@ -60,12 +60,22 @@
 // launch: 8-node tiles, each 16-channel hidden chunk of w1, wg and w2 staged
 // in shared memory by every block, both products as float4 register
 // micro-tiles of four nodes by four channels on the CUDA cores in float32.
-// bfloat16 (so3_gate_ffn_bf16): the CUDA-core instance at a bfloat16 x and
-// y (gate_ffn_kernel<bf16>), the TPU kernel's function at a bfloat16 dtype
-// (the roundings are listed at the kernel). Its 24.4 GFLOP a microbatch run
-// on the CUDA cores in float32 (~0.36 ms at 67 TFLOP/s); bfloat16 products
-// on the tensor cores (989 TFLOP/s) would take ~25 us, and it does not use
-// them yet.
+// bfloat16 (so3_gate_ffn with bf16 != 0): K2's bfloat16 instance is the same two
+// kernels at T = bf16, the storage type of x and y, at the widths the
+// tensor-core kernel takes (the same rule as float32), else the CUDA-core
+// kernel at T = bf16 (gate_ffn_kernel<bf16>, whose note lists the
+// roundings: they are the TPU kernel's at a bfloat16 dtype); cuda_cores asks
+// for the latter at any width. At bf16 the split kernel rounds w1, wg and w2
+// to bfloat16 once a call and writes the hi plane alone (a bfloat16 value is
+// a TF32 value: its lo is zero), half the words of a fragment; the tile
+// arrives by 16-byte cp.async as bfloat16, half the bytes (at lmax 6 and 16
+// channels 25,088), and widens as its fragments load; every product (h, the
+// gates, y) multiplies two bfloat16 values and is one TF32 mma.sync
+// (mma_tf32.cuh, mma_t), exact to float32 accumulation, where float32 takes
+// three. The gates are rounded as they are stored, mid as it becomes the A
+// fragment of y's product (frag_a_from_c), and y, summed in float32 with b2
+// added on row 0, once at the store. Its 24.4 GFLOP a microbatch as one TF32
+// product each: ~49 us at 495 TFLOP/s.
 #include "gate_ffn_tc.cuh"
 
 namespace {
@@ -74,7 +84,7 @@ using singa::degree_of;
 
 // ------------------------------- tensor cores -------------------------------
 using singa::gate::ChunkLayout;
-using singa::gate::kFragWords;
+using singa::gate::frag_words;
 using singa::gate::kHC;
 using singa::gate::kNB;
 using singa::gate::kTN;
@@ -83,25 +93,26 @@ constexpr int kThreads = 384;  // 12 warps, as K2b's dx kernel
 constexpr int kWarps = kThreads / 32;
 
 // y_i's products over the chunk (st) for row i of degree l (xi: its rows in
-// the tile), from zero into py; kRow0: i = 0 (silu with b1; no gate)
-template <int C, int Co, bool kRow0>
-__device__ __forceinline__ void row_y(const float* xi, const uint32_t* st, const ChunkLayout& o,
+// the tile), from zero into py; kRow0: i = 0 (silu with b1; no gate). At T =
+// bf16 one product each, mid rounded as it becomes the A fragment.
+template <int C, int Co, bool kRow0, class T>
+__device__ __forceinline__ void row_y(const T* xi, const uint32_t* st, const ChunkLayout& o,
                                       const float* cb1, const float* sgate, int l,
                                       float (&py)[Co / 8][4]) {
   using namespace singa::tc;
   using singa::gate::frag_pre;
-  constexpr int KC = C / 8, KO = Co / 8;
+  constexpr int KC = C / 8, KO = Co / 8, FW = frag_words<T>();
   const int t = lane_tig(), lane = threadIdx.x & 31;
   FragA xa[KC];
 #pragma unroll
-  for (int ks = 0; ks < KC; ++ks) xa[ks] = singa::gate::frag_tile<C>(xi, ks);
-  const uint32_t* w1f = st + l * KC * kNB * kFragWords;
-  const uint32_t* w2f = st + (o.w2 + l * kNB * KO) * kFragWords;
+  for (int ks = 0; ks < KC; ++ks) xa[ks] = singa::gate::frag_tile<C, T>(xi, ks);
+  const uint32_t* w1f = st + l * KC * kNB * FW;
+  const uint32_t* w2f = st + (o.w2 + l * kNB * KO) * FW;
   float hc[kNB][4] = {};  // c fragments: (node g + 8 (q >> 1), channel 8 j + 2 t + (q & 1))
 #pragma unroll
   for (int ks = 0; ks < KC; ++ks)
 #pragma unroll
-    for (int j = 0; j < kNB; ++j) mma3(hc[j], xa[ks], frag_pre(w1f + (ks * kNB + j) * kFragWords));
+    for (int j = 0; j < kNB; ++j) mma_t<T>(hc[j], xa[ks], frag_pre<T>(w1f + (ks * kNB + j) * FW));
 #pragma unroll
   for (int j = 0; j < kNB; ++j) {
     float mid[4];
@@ -114,14 +125,16 @@ __device__ __forceinline__ void row_y(const float* xi, const uint32_t* st, const
       mid[0] = hc[j][0] * gv.x, mid[1] = hc[j][1] * gv.y;
       mid[2] = hc[j][2] * gv.z, mid[3] = hc[j][3] * gv.w;
     }
-    const FragA ma = frag_a_from_c(mid);
+    const FragA ma = frag_a_from_c<T>(mid);
     FragB b[KO];
 #pragma unroll
-    for (int nt = 0; nt < KO; ++nt) b[nt] = frag_pre(w2f + (j * KO + nt) * kFragWords);
+    for (int nt = 0; nt < KO; ++nt) b[nt] = frag_pre<T>(w2f + (j * KO + nt) * FW);
+    if constexpr (!singa::kBf16<T>) {
 #pragma unroll
-    for (int nt = 0; nt < KO; ++nt) mma(py[nt], ma.lo, b[nt].hi);
+      for (int nt = 0; nt < KO; ++nt) mma(py[nt], ma.lo, b[nt].hi);
 #pragma unroll
-    for (int nt = 0; nt < KO; ++nt) mma(py[nt], ma.hi, b[nt].lo);
+      for (int nt = 0; nt < KO; ++nt) mma(py[nt], ma.hi, b[nt].lo);
+    }
 #pragma unroll
     for (int nt = 0; nt < KO; ++nt) mma(py[nt], ma.hi, b[nt].hi);
   }
@@ -130,23 +143,25 @@ __device__ __forceinline__ void row_y(const float* xi, const uint32_t* st, const
 // The product kernel (design: the top of the file). Slot s of warp w holds
 // row I - 1 - w - kWarps s; slots below kRows hold a row of degree >= 1 at
 // every warp (kRows <= (I - 1) / kWarps), and two more slots take the rest
-// (tc_kernel_rows picks kRows so that they do).
-template <int C, int Co, int kRows>
+// (tc_kernel_rows picks kRows so that they do). T: the storage type of x and
+// y (at bf16 the tile is bfloat16 in shared memory and y rounded once, at
+// the store).
+template <int C, int Co, int kRows, class T = float>
 __global__ void __launch_bounds__(kThreads, 1)
-gate_ffn_tc_kernel(const float* __restrict__ x, const uint32_t* __restrict__ wfrag,
-                   const float* __restrict__ b2, float* __restrict__ y, int N, int lmax, int H) {
+gate_ffn_tc_kernel(const T* __restrict__ x, const uint32_t* __restrict__ wfrag,
+                   const float* __restrict__ b2, T* __restrict__ y, int N, int lmax, int H) {
   constexpr int KO = Co / 8, kSlots = kRows + 2;
   const int I = (lmax + 1) * (lmax + 1);
-  const ChunkLayout o = singa::gate::chunk_layout<false>(lmax, C, Co);
+  const ChunkLayout o = singa::gate::chunk_layout<false, T>(lmax, C, Co);
   extern __shared__ __align__(16) float smem[];
-  float* sx = smem;                                                 // [I][kTN][C]
+  T* sx = reinterpret_cast<T*>(smem);                               // [I][kTN][C]
   uint32_t* ring = reinterpret_cast<uint32_t*>(sx + I * kTN * C);  // [2][o.words]
   float* sgate = reinterpret_cast<float*>(ring + 2 * o.words);      // [lmax][kNB][32][4]
   const int chunks = (H + kHC - 1) / kHC;
   const int n0 = blockIdx.x * kTN;
   const int warp = threadIdx.x / 32;
 
-  singa::gate::copy_tile_rows<C, kThreads>(x, n0, I, N, sx);
+  singa::gate::copy_tile_rows<C, kThreads, T>(x, n0, I, N, sx);
   singa::gate::copy_chunk<kThreads>(wfrag, 0, o.words, ring);  // one group with the tile
 
   int row[kSlots], deg[kSlots];
@@ -164,23 +179,24 @@ gate_ffn_tc_kernel(const float* __restrict__ x, const uint32_t* __restrict__ wfr
       singa::gate::copy_chunk<kThreads>(wfrag, k + 1, o.words, ring + ((k + 1) & 1) * o.words);
     const float* cb1 = reinterpret_cast<const float*>(st + o.b1);
     const float* cbg = reinterpret_cast<const float*>(st + o.bg);
-    const uint32_t* wgf = st + o.wg * kFragWords;
+    const uint32_t* wgf = st + o.wg * frag_words<T>();
     for (int p = warp; p < lmax * kNB; p += kWarps) {  // the gates, a (degree, n8 block) a warp
       singa::tc::FragA xa[C / 8];
-      singa::gate::row0_frags<C>(sx, xa);
-      singa::gate::gate_block<C>(xa, wgf, cbg, p / kNB + 1, p % kNB, sgate);
+      singa::gate::row0_frags<C, T>(sx, xa);
+      // (at T = bf16 rounded as they are stored)
+      singa::gate::gate_block<C, T, true>(xa, wgf, cbg, p / kNB + 1, p % kNB, sgate);
     }
     __syncthreads();
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       float py[KO][4] = {};  // this row's products in this chunk, from zero
-      const float* xi = sx + row[s] * kTN * C;
+      const T* xi = sx + row[s] * kTN * C;
       if (s < kRows) {  // a row of degree >= 1 at every warp
-        row_y<C, Co, false>(xi, st, o, cb1, sgate, deg[s], py);
+        row_y<C, Co, false, T>(xi, st, o, cb1, sgate, deg[s], py);
       } else if (row[s] > 0) {
-        row_y<C, Co, false>(xi, st, o, cb1, sgate, deg[s], py);
+        row_y<C, Co, false, T>(xi, st, o, cb1, sgate, deg[s], py);
       } else if (row[s] == 0) {
-        row_y<C, Co, true>(xi, st, o, cb1, sgate, 0, py);
+        row_y<C, Co, true, T>(xi, st, o, cb1, sgate, 0, py);
       } else {
         continue;  // an empty last slot
       }
@@ -204,75 +220,124 @@ gate_ffn_tc_kernel(const float* __restrict__ x, const uint32_t* __restrict__ wfr
       for (int nt = 0; nt < KO; ++nt) {
         float2 v = make_float2(acc[s][nt][2 * half], acc[s][nt][2 * half + 1]);
         if (i == 0) v.x += b2[8 * nt + 2 * t], v.y += b2[8 * nt + 2 * t + 1];
-        *reinterpret_cast<float2*>(y + ((long long)n * I + i) * Co + 8 * nt + 2 * t) = v;
+        T* out = y + ((long long)n * I + i) * Co + 8 * nt + 2 * t;
+        if constexpr (singa::kBf16<T>)
+          *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v.x, v.y);
+        else
+          *reinterpret_cast<float2*>(out) = v;
       }
     }
   }
 }
 
-// Every chunk's words (chunk_layout<false>): the weights split into TF32 hi
-// and lo once a call.
-template <int C, int Co>
+// Every chunk's words (chunk_layout<false, T>): the weights split into TF32
+// hi and lo once a call (at T = bf16 rounded to bfloat16, hi only).
+template <int C, int Co, class T = float>
 __global__ void gate_ffn_wsplit_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                                        const float* __restrict__ wg, const float* __restrict__ bg,
                                        const float* __restrict__ w2, uint32_t* __restrict__ out,
                                        int lmax, int H) {
-  singa::gate::split_chunks<C, Co, false>(w1, b1, wg, bg, w2, out, lmax, H);
+  singa::gate::split_chunks<C, Co, false, T>(w1, b1, wg, bg, w2, out, lmax, H);
 }
 
-using TcKernel = void (*)(const float*, const uint32_t*, const float*, float*, int, int, int);
+template <class T>
+using TcKernel = void (*)(const T*, const uint32_t*, const float*, T*, int, int, int);
 using SplitKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                              uint32_t*, int, int);
 
 // The rows every warp's first slots hold for I rows: 4 (lmax 6, 7), 2 (lmax
 // 4, 5), else none (lmax 1..3: every slot may be empty); the two slots after
 // them take the rest, at most 2 kWarps rows
-template <int C, int Co>
-TcKernel tc_kernel_rows(int I) {
+template <int C, int Co, class T>
+TcKernel<T> tc_kernel_rows(int I) {
   const int r = (I - 1) / kWarps;
-  if (r >= 4) return gate_ffn_tc_kernel<C, Co, 4>;
-  if (r >= 2) return gate_ffn_tc_kernel<C, Co, 2>;
-  return gate_ffn_tc_kernel<C, Co, 0>;
+  if (r >= 4) return gate_ffn_tc_kernel<C, Co, 4, T>;
+  if (r >= 2) return gate_ffn_tc_kernel<C, Co, 2, T>;
+  return gate_ffn_tc_kernel<C, Co, 0, T>;
 }
 
 // The product kernel's and the split kernel's instances for C input and Co
-// output channels and lmax (null: none)
-TcKernel tc_kernel(int lmax, int C, int Co) {
+// output channels and lmax, at storage type T (null: none)
+template <class T = float>
+TcKernel<T> tc_kernel(int lmax, int C, int Co) {
   const int I = (lmax + 1) * (lmax + 1);
-  if (C == 8 && Co == 8) return tc_kernel_rows<8, 8>(I);
-  if (C == 8 && Co == 16) return tc_kernel_rows<8, 16>(I);
-  if (C == 16 && Co == 8) return tc_kernel_rows<16, 8>(I);
-  if (C == 16 && Co == 16) return tc_kernel_rows<16, 16>(I);
+  if (C == 8 && Co == 8) return tc_kernel_rows<8, 8, T>(I);
+  if (C == 8 && Co == 16) return tc_kernel_rows<8, 16, T>(I);
+  if (C == 16 && Co == 8) return tc_kernel_rows<16, 8, T>(I);
+  if (C == 16 && Co == 16) return tc_kernel_rows<16, 16, T>(I);
   return nullptr;
 }
 
+template <class T = float>
 SplitKernel split_kernel(int C, int Co) {
-  if (C == 8 && Co == 8) return gate_ffn_wsplit_kernel<8, 8>;
-  if (C == 8 && Co == 16) return gate_ffn_wsplit_kernel<8, 16>;
-  if (C == 16 && Co == 8) return gate_ffn_wsplit_kernel<16, 8>;
-  if (C == 16 && Co == 16) return gate_ffn_wsplit_kernel<16, 16>;
+  if (C == 8 && Co == 8) return gate_ffn_wsplit_kernel<8, 8, T>;
+  if (C == 8 && Co == 16) return gate_ffn_wsplit_kernel<8, 16, T>;
+  if (C == 16 && Co == 8) return gate_ffn_wsplit_kernel<16, 8, T>;
+  if (C == 16 && Co == 16) return gate_ffn_wsplit_kernel<16, 16, T>;
   return nullptr;
 }
 
-// 32-bit words of the split weights: every hidden chunk's chunk_layout<false>
+// 32-bit words of the split weights: every hidden chunk's chunk_layout<false, T>
+template <class T = float>
 long long tc_words(int lmax, int C, int H, int Co) {
-  return (long long)((H + kHC - 1) / kHC) * singa::gate::chunk_layout<false>(lmax, C, Co).words;
+  return (long long)((H + kHC - 1) / kHC) *
+         singa::gate::chunk_layout<false, T>(lmax, C, Co).words;
 }
 
 // The tile, the ring's two stages and the gates
+template <class T = float>
 size_t tc_smem(int lmax, int C, int Co) {
   const int I = (lmax + 1) * (lmax + 1);
-  return ((size_t)I * kTN * C + 2 * (size_t)singa::gate::chunk_layout<false>(lmax, C, Co).words +
+  return (size_t)I * kTN * C * sizeof(T) +
+         (2 * (size_t)singa::gate::chunk_layout<false, T>(lmax, C, Co).words +
           (size_t)lmax * kNB * 128) *
-         sizeof(float);
+             sizeof(float);
 }
 
-// Whether the tensor-core kernel takes these widths: C and Co of 8 or 16,
-// lmax 1..7 (at most 64 rows: tc_kernel_rows), and its shared memory
+// Whether the tensor-core kernel at storage type T takes these widths: C
+// and Co of 8 or 16, lmax 1..7 (at most 64 rows: tc_kernel_rows), and its
+// shared memory, which this opts the instance into (every width fits at
+// float32, and the bfloat16 instance's is smaller: one rule for both)
+template <class T = float>
 bool tc_takes(int lmax, int C, int H, int Co) {
   if (lmax < 1 || lmax > 7 || H < 1) return false;
-  const TcKernel k = tc_kernel(lmax, C, Co);
-  return k != nullptr && singa::allow_smem(k, tc_smem(lmax, C, Co)) == cudaSuccess;
+  const TcKernel<T> k = tc_kernel<T>(lmax, C, Co);
+  return k != nullptr && singa::allow_smem(k, tc_smem<T>(lmax, C, Co)) == cudaSuccess;
+}
+
+// Resident blocks per SM of the tensor-core kernel at storage type T (-1:
+// refused) and its shared memory per block in *smem_bytes
+template <class T>
+int tc_residency(int lmax, int C, int Co, int* smem_bytes) {
+  const size_t smem = tc_smem<T>(lmax, C, Co);
+  *smem_bytes = (int)smem;
+  const TcKernel<T> k = tc_kernel<T>(lmax, C, Co);
+  int per_sm = 0;
+  if (singa::allow_smem(k, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, smem) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+// Splits the weights into wfrag (tc_words<T>() words, 16-byte aligned), then
+// the tensor-core kernel at storage type T; the caller has checked
+// tc_takes<T>, which set the kernel's shared memory
+template <class T>
+int launch_tc(const T* x, const float* w1, const float* b1, const float* wg, const float* bg,
+              const float* w2, const float* b2, T* y, void* wfrag, int N, int lmax, int C, int H,
+              int Co, cudaStream_t st) {
+  uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
+  const SplitKernel sk = split_kernel<T>(C, Co);
+  const ChunkLayout o = singa::gate::chunk_layout<false, T>(lmax, C, Co);
+  const long long items = (long long)((H + kHC - 1) / kHC) * (o.frags * 32 + (o.words - o.b1));
+  const int sgrid = singa::persistent_grid(sk, 256, 0, (items + 255) / 256);
+  sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, lmax, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const TcKernel<T> k = tc_kernel<T>(lmax, C, Co);
+  const size_t smem = tc_smem<T>(lmax, C, Co);
+  k<<<(N + kTN - 1) / kTN, kThreads, smem, st>>>(x, frags, b2, y, N, lmax, H);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------- CUDA cores --------------------------------
@@ -476,10 +541,26 @@ bool cc_takes(int lmax, int C, int H, int Co) {
 }  // namespace cc
 
 // 1: the tensor-core kernel takes the widths; 0: the CUDA-core instance
-// does; -1: neither. cuda_cores: the CUDA-core instance wherever it takes them.
-int instance(int lmax, int C, int H, int Co, bool cuda_cores) {
-  if (!cuda_cores && tc_takes(lmax, C, H, Co)) return 1;
+// does; -1: neither.
+int instance(int lmax, int C, int H, int Co) {
+  if (tc_takes(lmax, C, H, Co)) return 1;
   return cc::cc_takes(lmax, C, H, Co) ? 0 : -1;
+}
+
+// K2 at storage type T of x and y: the tensor-core kernel where it takes
+// the widths (unless cuda_cores), else the CUDA-core kernel at T
+template <class T>
+int launch(const T* x, const float* w1, const float* b1, const float* wg, const float* bg,
+           const float* w2, const float* b2, T* y, void* wfrag, int N, int lmax, int C, int H,
+           int Co, int cuda_cores, cudaStream_t st) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  if (!cuda_cores && tc_takes<T>(lmax, C, H, Co))
+    return launch_tc(x, w1, b1, wg, bg, w2, b2, y, wfrag, N, lmax, C, H, Co, st);
+  if (!cc::cc_takes<T>(lmax, C, H, Co)) return (int)cudaErrorInvalidValue;
+  const size_t smem = cc::smem_bytes(lmax, C, Co);
+  cc::gate_ffn_kernel<T><<<(N + cc::kTN - 1) / cc::kTN, cc::kThreads, smem, st>>>(
+      x, w1, b1, wg, bg, w2, b2, y, N, lmax, C, H, Co);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -487,81 +568,46 @@ int instance(int lmax, int C, int H, int Co, bool cuda_cores) {
 // Which kernel runs these widths (any N): 1 the tensor-core kernel, 0 the
 // CUDA-core instance, -1 none (a shape no kernel takes).
 extern "C" int so3_gate_ffn_instance(int lmax, int C, int H, int Co) {
-  return instance(lmax, C, H, Co, false);
+  return instance(lmax, C, H, Co);
 }
 
-// 32-bit words of scratch so3_gate_ffn_f32 needs at these widths (the
-// tensor-core kernel's split weights; 0 for the CUDA-core instance), -1
-// for shapes no kernel takes.
-extern "C" long long so3_gate_ffn_words(int lmax, int C, int H, int Co) {
-  const int which = instance(lmax, C, H, Co, false);
+// 32-bit words of scratch so3_gate_ffn needs at these widths and the same
+// bf16 (the tensor-core kernel's split weights; 0 for the CUDA-core
+// instance), -1 for shapes no kernel takes.
+extern "C" long long so3_gate_ffn_words(int lmax, int C, int H, int Co, int bf16) {
+  const int which = instance(lmax, C, H, Co);
   if (which < 0) return -1;
-  return which == 1 ? tc_words(lmax, C, H, Co) : 0;
+  if (which == 0) return 0;
+  return bf16 ? tc_words<singa::bf16>(lmax, C, H, Co) : tc_words(lmax, C, H, Co);
 }
 
-// Resident blocks per SM of the tensor-core kernel at these widths (-1: a
-// shape it does not take), its shared memory per block in *smem_bytes and
-// its threads per block in *threads. For reports; launches nothing.
-extern "C" int so3_gate_ffn_residency(int lmax, int C, int H, int Co, int* smem_bytes,
+// Resident blocks per SM of the tensor-core kernel at these widths (bf16 !=
+// 0: its bfloat16 instance; -1: a shape it does not take), its shared
+// memory per block in *smem_bytes and its threads per block in *threads.
+// For reports; launches nothing.
+extern "C" int so3_gate_ffn_residency(int lmax, int C, int H, int Co, int bf16, int* smem_bytes,
                                       int* threads) {
   if (!tc_takes(lmax, C, H, Co)) return -1;
-  const size_t smem = tc_smem(lmax, C, Co);
-  *smem_bytes = (int)smem;
   *threads = kThreads;
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tc_kernel(lmax, C, Co), kThreads,
-                                                    smem) != cudaSuccess)
-    return -1;
-  return per_sm;
+  return bf16 ? tc_residency<singa::bf16>(lmax, C, Co, smem_bytes)
+              : tc_residency<float>(lmax, C, Co, smem_bytes);
 }
 
-// Returns cudaErrorInvalidValue for shapes no kernel takes (Co not a
-// multiple of 4, too many output micro-tiles, shared memory). The
+// K2: x and y bfloat16 when bf16 != 0, else float32; the weights and
+// biases float32. Returns cudaErrorInvalidValue for shapes no kernel takes
+// (Co not a multiple of 4, too many output micro-tiles, shared memory). The
 // tensor-core kernel runs every shape it takes (tc_takes), after the split
-// kernel has written the weights into wfrag (so3_gate_ffn_words() words,
-// 16-byte aligned); the CUDA-core instance the others, and every shape it
-// takes when cuda_cores is non-zero (wfrag unused).
-extern "C" int so3_gate_ffn_f32(const float* x, const float* w1, const float* b1,
-                                const float* wg, const float* bg, const float* w2,
-                                const float* b2, float* y, void* wfrag, int N, int lmax, int C,
-                                int H, int Co, int cuda_cores, void* stream) {
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  const int which = instance(lmax, C, H, Co, cuda_cores != 0);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (which == 1) {
-    uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
-    const SplitKernel sk = split_kernel(C, Co);
-    const ChunkLayout o = singa::gate::chunk_layout<false>(lmax, C, Co);
-    const long long items = (long long)((H + kHC - 1) / kHC) * (o.frags * 32 + (o.words - o.b1));
-    const int sgrid = singa::persistent_grid(sk, 256, 0, (items + 255) / 256);
-    sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, lmax, H);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const TcKernel k = tc_kernel(lmax, C, Co);
-    k<<<(N + kTN - 1) / kTN, kThreads, tc_smem(lmax, C, Co), st>>>(x, frags, b2, y, N, lmax, H);
-    return (int)cudaGetLastError();
-  }
-  if (which == 0) {
-    const size_t smem = cc::smem_bytes(lmax, C, Co);
-    cc::gate_ffn_kernel<float><<<(N + cc::kTN - 1) / cc::kTN, cc::kThreads, smem, st>>>(
-        x, w1, b1, wg, bg, w2, b2, y, N, lmax, C, H, Co);
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// K2's bfloat16 instance: the CUDA-core kernel at T = bf16, x and y
-// bfloat16, the weights and biases float32. cudaErrorInvalidValue for
-// shapes it does not take.
-extern "C" int so3_gate_ffn_bf16(const void* x, const float* w1, const float* b1,
-                                 const float* wg, const float* bg, const float* w2,
-                                 const float* b2, void* y, int N, int lmax, int C, int H, int Co,
-                                 void* stream) {
-  using singa::bf16;
-  if (N < 1 || !cc::cc_takes<bf16>(lmax, C, H, Co)) return (int)cudaErrorInvalidValue;
-  const size_t smem = cc::smem_bytes(lmax, C, Co);
-  cc::gate_ffn_kernel<bf16><<<(N + cc::kTN - 1) / cc::kTN, cc::kThreads, smem,
-                              (cudaStream_t)stream>>>((const bf16*)x, w1, b1, wg, bg, w2, b2,
-                                                      (bf16*)y, N, lmax, C, H, Co);
-  return (int)cudaGetLastError();
+// kernel has written the weights into wfrag (so3_gate_ffn_words() words at
+// the same bf16, 16-byte aligned); the CUDA-core instance the others, and
+// every shape it takes when cuda_cores is non-zero (wfrag unused).
+extern "C" int so3_gate_ffn(const void* x, const float* w1, const float* b1, const float* wg,
+                            const float* bg, const float* w2, const float* b2, void* y,
+                            void* wfrag, int N, int lmax, int C, int H, int Co, int cuda_cores,
+                            int bf16, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return launch((const singa::bf16*)x, w1, b1, wg, bg, w2, b2, (singa::bf16*)y, wfrag, N, lmax,
+                  C, H, Co, cuda_cores, st);
+  return launch((const float*)x, w1, b1, wg, bg, w2, b2, (float*)y, wfrag, N, lmax, C, H, Co,
+                cuda_cores, st);
 }

@@ -25,16 +25,17 @@ CUDA-core instance (``fwd_instance`` says which the forward takes).
 versions for CPU tensors, the kernels for CUDA tensors.
 
 K1 and K1b have bfloat16 instances (the bfloat16 training path's):
-kernels at bfloat16 storage (``neighbor_attn_bf16`` and
-``neighbor_attn_bwd_bf16`` in the same sources), counted in
+kernels at bfloat16 storage (K1's entry point ``neighbor_attn`` with
+``bf16`` set, and ``neighbor_attn_bwd_bf16`` in the same sources), counted in
 ``launches_bf16`` and ``launches_bwd_bf16``, taken for a bfloat16 qt, k, v
 and diag_value (dist, diag_scores, centers and the EdgeMLP weights stay
-float32). K1's is its CUDA-core kernel; K1b's are its tensor-core pair
-kernel and dk/dv stage at bfloat16 (each EdgeMLP product one TF32 product
-where float32 takes three: a bfloat16 value is a TF32 value) at the widths
-they take, else its CUDA-core ones (``cuda_cores`` as at float32). They
-are the function ``_attn_fwd_kernel`` and
-``_attn_bwd_kernel`` compute at a bfloat16 dtype and round where those
+float32). Each is its tensor-core kernels at bfloat16 storage (K1's plan,
+tile and copy kernels; K1b's pair kernel and dk/dv stage), each EdgeMLP
+product one TF32 product where float32 takes three (a bfloat16 value is a
+TF32 value), at the widths they take, else its CUDA-core kernels;
+``cuda_cores`` and ``stats`` as at float32. They are the function
+``_attn_fwd_kernel`` and ``_attn_bwd_kernel`` compute at a bfloat16 dtype
+and round where those
 round: the smear; the EdgeMLP weights, hiddens and outputs w_k, w_v; each
 score term qt w_k k before the head sum (the TPU kernel rounds
 ``kw * qt`` ahead of its ``seg_k`` product, a place its matrix unit's layout
@@ -285,12 +286,13 @@ def neighbor_attn_hybrid_bwd_plain(*args):
 
 
 def _fn(hybrid: bool = False):
-    """K1's C entry point, or K7's (no nbr pointer)."""
+    """K1's C entry point (its last int: bf16), or K7's (no nbr pointer, no
+    bf16)."""
     lib = build.load("neighbor_attn")
-    fn = lib.neighbor_attn_hybrid_f32 if hybrid else lib.neighbor_attn_f32
+    fn = lib.neighbor_attn_hybrid_f32 if hybrid else lib.neighbor_attn
     fn.argtypes = (
         [ctypes.c_void_p] * (16 if hybrid else 17) + [ctypes.c_float] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * (8 if hybrid else 9) + [ctypes.c_void_p] * 2
     )
     fn.restype = ctypes.c_int
     return fn
@@ -307,15 +309,15 @@ def fwd_instance(K: int, H: int, kd: int, vd: int, De: int) -> str | None:
     return {0: "tensor_cores", 1: "cuda_cores"}.get(fn(K, H, kd, vd, De))
 
 
-def fwd_residency(hybrid: bool = False) -> dict:
-    """K1's tensor-core tile kernel (K7's with ``hybrid``): resident blocks
-    per SM (-1: refused), threads and dynamic shared memory per block. For
-    reports; launches nothing."""
+def fwd_residency(hybrid: bool = False, bf16: bool = False) -> dict:
+    """K1's tensor-core tile kernel (K7's with ``hybrid``; K1's bfloat16
+    instance with ``bf16``): resident blocks per SM (-1: refused), threads
+    and dynamic shared memory per block. For reports; launches nothing."""
     fn = build.load("neighbor_attn").neighbor_attn_residency
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = fn(int(hybrid), ctypes.byref(smem), ctypes.byref(threads))
+    per_sm = fn(int(hybrid), int(bf16), ctypes.byref(smem), ctypes.byref(threads))
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
@@ -401,10 +403,11 @@ def neighbor_attn_cuda(
     centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
     cuda_cores: bool = False, stats=None,
 ) -> torch.Tensor:
-    """The K1 kernels; arguments and result as ``neighbor_attn_plain``. The
-    tensor-core tile kernel runs where it takes the shapes (``fwd_instance``),
-    else the CUDA-core one; ``cuda_cores``: the CUDA-core one at any shape (to
-    time the two). ``stats``: None, or an int32 tensor [4] of zeros on the
+    """The K1 kernels (at a bfloat16 qt, k, v and diag_value its bfloat16
+    instance); arguments and result as ``neighbor_attn_plain``. The
+    tensor-core tile kernel runs where it takes the shapes (``fwd_instance``,
+    at either dtype), else the CUDA-core one; ``cuda_cores``: the CUDA-core
+    one at any shape (to time the two). ``stats``: None, or an int32 tensor [4] of zeros on the
     card, to which the tensor-core kernel adds what it walked (rows taken
     with their live slots, dead-weighted rows evaluated, rows taken again
     whole, slots evaluated; the rest of the rows are dead-weighted rows that
@@ -427,8 +430,9 @@ def neighbor_attn_hybrid_cuda(
 
 
 def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
-    """K1 (k, v, nbr) or K7 (k_nb, v_nb, no nbr): the checks, the output, the
-    scratch, the launch and its count."""
+    """K1 (k, v, nbr; at a bfloat16 qt its bfloat16 instance) or K7 (k_nb,
+    v_nb, no nbr): the checks, the output, the scratch, the launch and its
+    count."""
     global launches, launches_hybrid, launches_bf16
     if hybrid:
         B, N, K, H, kd, vd, De = _check_args(*args[:3], None, *args[3:], gathered=True)
@@ -441,26 +445,20 @@ def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
     out = torch.empty((B, N, H * vd), dtype=qt.dtype, device=qt.device)
     if B * N == 0:
         return out
-    if qt.dtype == torch.bfloat16:  # K1's bfloat16 instance (the CUDA-core kernel)
-        fn = build.load("neighbor_attn").neighbor_attn_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_float, ctypes.c_void_p]
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        status = fn(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
-                    B, N, K, H, kd, vd, De, build.stream_ptr(qt))
-        build.check(status, "neighbor_attn")
-        launches_bf16 += 1
-        return out
+    # K1's bfloat16 instance at a bfloat16 qt (_check_args refuses it for K7)
+    bf16 = qt.dtype == torch.bfloat16
     # the dead-weighted rows' unweighted sums (for the rows that copy them), the plan
     sums = torch.empty((B * N, H * vd), dtype=torch.float32, device=qt.device)
     plan = torch.empty(B * N, dtype=torch.int32, device=qt.device)
     status = _fn(hybrid)(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
                          sums.data_ptr(), plan.data_ptr(), B, N, K, H, kd, vd, De,
-                         int(cuda_cores), None if stats is None else stats.data_ptr(),
-                         build.stream_ptr(qt))
+                         int(cuda_cores), *(() if hybrid else (int(bf16),)),
+                         None if stats is None else stats.data_ptr(), build.stream_ptr(qt))
     build.check(status, "neighbor_attn_hybrid" if hybrid else "neighbor_attn")
     if hybrid:
         launches_hybrid += 1
+    elif bf16:
+        launches_bf16 += 1
     else:
         launches += 1
     return out

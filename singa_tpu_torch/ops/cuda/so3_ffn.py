@@ -41,10 +41,11 @@ channels), at either dtype.
 
 K2 and K2b have bfloat16 instances (the bfloat16 training path's), at a
 bfloat16 x and y (dy and dx), the weights and biases float32, counted in
-``launches_bf16`` and ``launches_bwd_bf16``: K2's is its CUDA-core kernel;
-K2b's are its tensor-core kernels at bfloat16 storage (one TF32 product
-where float32 takes three: a bfloat16 value is a TF32 value) at the widths
-they take, else its CUDA-core instance. They are
+``launches_bf16`` and ``launches_bwd_bf16``: each is its tensor-core
+kernels at bfloat16 storage (K2's product kernel and weight split; K2b's
+dx, weight and split kernels), one TF32 product where float32 takes three
+(a bfloat16 value is a TF32 value), at the widths they take, else its
+CUDA-core instance; ``cuda_cores`` as at float32. They are
 the function ``_gate_ffn_fwd_kernel`` and ``_gate_ffn_bwd_kernel`` compute
 at a bfloat16 x and round where those round: w1, wg and w2 cast to
 bfloat16 (the biases not); every product summed in float32; the gates
@@ -173,12 +174,13 @@ def so3_gate_ffn_bf16_bwd_plain(x, w1, b1, wg, bg, w2, lmax: int, dy):
 
 
 def _fns():
+    """(words, launch) of K2's C entry points."""
     lib = build.load("so3_gate_ffn")
     words = lib.so3_gate_ffn_words
-    words.argtypes = [ctypes.c_int] * 4
+    words.argtypes = [ctypes.c_int] * 5
     words.restype = ctypes.c_longlong
-    fn = lib.so3_gate_ffn_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = lib.so3_gate_ffn
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return words, fn
 
@@ -192,15 +194,16 @@ def so3_gate_ffn_instance(lmax: int, C: int, H: int, Co: int) -> str | None:
     return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(lmax, C, H, Co))
 
 
-def gate_fwd_residency(lmax: int, C: int, H: int, Co: int) -> dict:
-    """K2's tensor-core kernel at these widths: resident blocks per SM (-1:
-    a shape it does not take), threads and dynamic shared memory per block.
-    For reports; launches nothing."""
+def gate_fwd_residency(lmax: int, C: int, H: int, Co: int, bf16: bool = False) -> dict:
+    """K2's tensor-core kernel at these widths (``bf16``: its bfloat16
+    instance): resident blocks per SM (-1: a shape it does not take),
+    threads and dynamic shared memory per block. For reports; launches
+    nothing."""
     fn = build.load("so3_gate_ffn").so3_gate_ffn_residency
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = fn(lmax, C, H, Co, ctypes.byref(smem), ctypes.byref(threads))
+    per_sm = fn(lmax, C, H, Co, int(bf16), ctypes.byref(smem), ctypes.byref(threads))
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
@@ -234,10 +237,11 @@ def gate_bwd_residency(lmax: int, C: int, H: int, Co: int, dx: bool = False,
 
 def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
                       cuda_cores: bool = False) -> torch.Tensor:
-    """The K2 kernels; arguments and result as ``so3_gate_ffn_plain``. The
-    tensor-core kernel runs where it takes the widths (``so3_gate_ffn_instance``),
-    else the CUDA-core one; ``cuda_cores``: the CUDA-core one wherever it
-    takes them (to time the two)."""
+    """The K2 kernels (at a bfloat16 x its bfloat16 instance); arguments and
+    result as ``so3_gate_ffn_plain``. The tensor-core kernel runs where it
+    takes the widths (``so3_gate_ffn_instance``, at either dtype), else the
+    CUDA-core one; ``cuda_cores``: the CUDA-core one wherever it takes them
+    (to time the two)."""
     global launches, launches_bf16
     N, I, C = x.shape
     L = lmax + 1
@@ -258,29 +262,22 @@ def so3_gate_ffn_cuda(x, w1, b1, wg, bg, w2, b2, lmax: int,
     out = torch.empty((N, I, Co), dtype=x.dtype, device=dev)
     if N == 0:
         return out
-    if bf16:  # the bfloat16 instance: the CUDA-core kernel at bfloat16 x and y
-        fn = build.load("so3_gate_ffn").so3_gate_ffn_bf16
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        status = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(), bg.data_ptr(),
-                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), N, lmax, C, H, Co,
-                    build.stream_ptr(x))
-        build.check(status, "so3_gate_ffn")
-        launches_bf16 += 1
-        return out
     words_fn, fn = _fns()
     # the tensor-core kernel's weights, split into TF32 fragments once a call
-    # (none for the CUDA-core instance; -1: a shape no kernel takes, which
-    # the launch refuses)
-    words = 0 if cuda_cores else words_fn(lmax, C, H, Co)
+    # (at bfloat16 their hi alone; none for the CUDA-core instance; -1: a
+    # shape no kernel takes, which the launch refuses)
+    words = 0 if cuda_cores else words_fn(lmax, C, H, Co, int(bf16))
     wfrag = torch.empty(max(words, 4), dtype=torch.int32, device=dev)
     status = fn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), wfrag.data_ptr(), N, lmax, C, H, Co,
-        int(cuda_cores), build.stream_ptr(x),
+        int(cuda_cores), int(bf16), build.stream_ptr(x),
     )
     build.check(status, "so3_gate_ffn")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 

@@ -21,7 +21,10 @@ weight writes nothing and is taken again, whole, in the block's next tile.
 The aggregate sums 16-slot chunks of a row, the chunks in order. Inputs as
 below; tolerance: the output within 2e-5 of its largest magnitude, rtol
 1e-5 (sums over the taken slots in another order); on the CPU it reads
-more than ten times inside it.
+more than ten times inside it. At bfloat16 qt, k, v and diag_value it
+renders K1's bfloat16 instance, rounding where ``neighbor_attn_bf16_plain``
+rounds, and is held to that twin and to the Pallas kernel at bfloat16
+within ``BF16_TOL`` of the output's largest magnitude.
 
 The backward rendering:
 
@@ -63,6 +66,8 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+
+from singa_tpu_torch.dtypes import rounded
 
 BIG = 1e9
 ROW_WORK = 8  # a row's fixed cost in slots, in the blocks' shares (the kernel's kRowWork)
@@ -118,7 +123,17 @@ def list_forward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
     (K7's, those of ``neighbor_attn_hybrid_plain`` with k_nb and v_nb, with
     ``gathered``; nbr is then unused): the output [B, N, H*vd]. ``stats``, a
     dict, gets the rows taken live, dead-weighted (evaluated) and taken
-    again, the slots evaluated and the dead-weighted rows copied."""
+    again, the slots evaluated and the dead-weighted rows copied. At a
+    bfloat16 qt, k, v and diag_value, K1's bfloat16 instance: it rounds
+    where ``neighbor_attn_bf16_plain`` rounds (the smear, the EdgeMLP
+    weights, hiddens and outputs, each score term before the head sum, the
+    softmax weights that weigh the values: a live row's a and a_self, a
+    dead-weighted or copied row's closed-form a_dead and a_self), sums in
+    float32 and rounds the output once."""
+    bf16 = qt.dtype == torch.bfloat16
+    rd = (lambda x: rounded(x, torch.bfloat16)) if bf16 else (lambda x: x)
+    qt, k, v, dval = qt.float(), k.float(), v.float(), dval.float()
+    wk1, wk2, wv1, wv2 = rd(wk1), rd(wk2), rd(wv1), rd(wv2)
     B, N, K = nbr_mask.shape
     nh = ds.shape[2]
     kd, vd = qt.shape[2] // nh, dval.shape[2] // nh
@@ -176,13 +191,13 @@ def list_forward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
             flat = node_t * K + torch.tensor(sl_p, dtype=torch.long, device=dev)
             live_t = mask.reshape(-1)[flat]
             diff = dist2.reshape(-1)[flat][:, None] - centers
-            E = -torch.exp(coeff * diff * diff)
-            Wv = mm(_ssp(mm(E, wv1) + bv1), wv2) + bv2  # every slot
-            Wk = mm(_ssp(mm(E[:nsk], wk1) + bk1), wk2) + bk2  # the k-section
+            E = rd(-torch.exp(coeff * diff * diff))
+            Wv = rd(mm(rd(_ssp(mm(E, wv1) + bv1)), wv2) + bv2)  # every slot
+            Wk = rd(mm(rd(_ssp(mm(E[:nsk], wk1) + bk1)), wk2) + bk2)  # the k-section
             S = torch.full((T, nh), -BIG, device=dev)
             S[:nsk] = torch.where(live_t[:nsk, None],
-                                  (qt3[node_t[:nsk]] * Wk[:, None, :] * kslot[flat[:nsk]]).sum(-1)
-                                  * scale, torch.full((nsk, nh), -BIG, device=dev))
+                                  rd(qt3[node_t[:nsk]] * Wk[:, None, :] * kslot[flat[:nsk]])
+                                  .sum(-1) * scale, torch.full((nsk, nh), -BIG, device=dev))
             for (n, md), (m0, m1) in zip(order, spans):
                 if md == COPY:  # written from its source's sums after the tiles
                     continue
@@ -199,7 +214,7 @@ def list_forward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
                         continue
                     e, es = torch.exp(S[m0:m1] - mx), torch.exp(ds2[n] - mx)
                     l = es + e.sum(0)
-                    a, a_self = e / l, es / l
+                    a, a_self = rd(e / l), rd(es / l)
                     walked["live"] += md == LIVE
                 terms = a[:, :, None] * Wv[m0:m1, None, :] * vslot[flat[m0:m1]]
                 agg = torch.zeros(nh, vd, device=dev)
@@ -207,28 +222,29 @@ def list_forward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
                     agg = agg + terms[c0:c0 + CHUNK].sum(0)
                 if md == DEAD:
                     usum[n] = agg
-                    out[n] = _dead_row(ds2[n], K, agg, dval3[n])
+                    out[n] = _dead_row(ds2[n], K, agg, dval3[n], rd)
                 else:
                     out[n] = agg + a_self[:, None] * dval3[n]
-    for r in range(R):  # each copy from the nearest row before it that is not one
-        if mode[r] == COPY:
-            src = r - 1
+    for row in range(R):  # each copy from the nearest row before it that is not one
+        if mode[row] == COPY:
+            src = row - 1
             while mode[src] == COPY:
                 src -= 1
-            out[r] = _dead_row(ds2[r], K, usum[src], dval3[r])
+            out[row] = _dead_row(ds2[row], K, usum[src], dval3[row], rd)
     if stats is not None:
         stats.update(walked, copied=sum(1 for x in mode if x == COPY))
-    return out.reshape(B, N, nh * vd)
+    out = out.reshape(B, N, nh * vd)
+    return out.to(torch.bfloat16) if bf16 else out
 
 
-def _dead_row(ds, K, usum, dval):
+def _dead_row(ds, K, usum, dval, rd=lambda x: x):
     """A dead-weighted row's output: its softmax in closed form (K slots at
     -1e9 and the self slot), a_dead times the slots' unweighted sums, plus
-    a_self dval."""
+    a_self dval (``rd``: the weights' rounding)."""
     mx = torch.clamp(ds, min=-BIG)
     ed, es = torch.exp(-BIG - mx), torch.exp(ds - mx)
     l = K * ed + es
-    return (ed / l)[:, None] * usum + (es / l)[:, None] * dval
+    return rd(ed / l)[:, None] * usum + rd(es / l)[:, None] * dval
 
 
 def list_backward(qt, k, v, nbr, nbr_mask, dist, ds, dval, centers,
@@ -605,6 +621,67 @@ def test_list_forward_matches_plain_and_jax(name, form, blocks, tile, tile_rows)
     assert stats["live"] + stats["dead"] + stats["copied"] + stats["redone"] == B * N
     live_slots = int(arrays[4].sum()) + redone * K
     assert stats["slots"] == live_slots + (padded - copied) * K
+
+
+BF16_TOL = 1e-2  # a bfloat16 output's largest error, of its largest magnitude (chip_smoke.py's)
+BF16_AT = (0, 1, 2, 7)  # qt, k, v and diag_value: bfloat16 in K1's bfloat16 instance
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward_bf16(name):
+    """JAX's neighbor_attn_fused (Pallas, interpret mode) at bfloat16 qt, k,
+    v and diag_value on the case's inputs, as float32 numpy."""
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.neighbor_attn import neighbor_attn_fused
+
+    arrays, _, coeff = _case(name)
+    args = [jnp.asarray(a, jnp.bfloat16) if i in BF16_AT else jnp.asarray(a)
+            for i, a in enumerate(arrays)]
+    with compute_dtype_scope("float32"):
+        out = neighbor_attn_fused(*args, coeff, True)
+    assert out.dtype == jnp.bfloat16
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _close_bf16(got, want, what):
+    """A bfloat16 output within BF16_TOL of the reference's largest
+    magnitude: both round the same values at the same points and sum in
+    another order, so a value on a rounding boundary lands a bfloat16 step
+    away and carries into what follows."""
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= BF16_TOL * float(np.abs(want).max()), (what, err)
+
+
+@pytest.mark.parametrize("blocks,tile,tile_rows", TILINGS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_list_forward_bf16_matches_plain_and_jax(name, blocks, tile, tile_rows):
+    """K1's bfloat16 instance's algorithm (``list_forward`` at bfloat16 qt,
+    k, v and diag_value: live slots only, the closed-form dead-weighted
+    rows, the copies, the rows taken again) == the all-slots bfloat16 twin
+    ``neighbor_attn_bf16_plain`` and JAX's Pallas kernel at bfloat16, every
+    row within BF16_TOL; the rows it walks are the float32 algorithm's (a
+    dead slot still adds an exact zero)."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k1
+
+    arrays, g, coeff = _case(name)
+    args = _form_args(arrays, g, coeff, "list")[:-1]
+    args = [a.to(torch.bfloat16) if i in BF16_AT else a for i, a in enumerate(args)]
+    stats, stats32 = {}, {}
+    got = list_forward(*args, blocks=blocks, tile=tile, tile_rows=tile_rows, stats=stats)
+    assert got.dtype == torch.bfloat16 and not bool(torch.isnan(got).any())
+    _close_bf16(got, k1.neighbor_attn_bf16_plain(*args).float(), "vs plain")
+    _close_bf16(got, _jax_forward_bf16(name), "vs JAX")
+    list_forward(*_form_args(arrays, g, coeff, "list")[:-1], blocks=blocks, tile=tile,
+                 tile_rows=tile_rows, stats=stats32)
+    assert stats == stats32
+    # the roundings inside are the bfloat16 function's: the float32
+    # algorithm's output, rounded once, is another
+    f32 = list_forward(*_form_args(arrays, g, coeff, "list")[:-1], blocks=blocks, tile=tile,
+                       tile_rows=tile_rows)
+    assert not torch.equal(got.float(), f32.to(torch.bfloat16).float())
 
 
 def test_forward_rows_without_a_live_slot_follow_the_float32_underflow():

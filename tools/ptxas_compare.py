@@ -8,8 +8,10 @@ storage type) shows none.
 
 Compares ``<parent>/singa_tpu_torch/csrc/<name>.cu`` with this checkout's
 (every ``csrc/*.cu`` when no name is given). Kernels are matched by their
-demangled names, with ``, float>`` read as ``>`` (a template parameter
-``class T = float`` added to a kernel). Prints one line a source and exits
+demangled names, with ``, float>`` read as ``>`` and ``<float>`` as
+nothing (a template parameter ``class T = float`` added to a kernel, or a
+kernel made a template on it: a template's name also starts with its
+return type, ``void``, which is dropped). Prints one line a source and exits
 non-zero if any kernel both trees have differs. Needs ``nvcc`` (the card's
 machine); builds into a temporary directory.
 """
@@ -57,7 +59,7 @@ def ptxas(checkout: str, name: str, out_dir: str) -> dict:
 
 def key(demangled: str) -> str:
     return (demangled.replace("(anonymous namespace)", "anon").split("(")[0]
-            .replace(", float>", ">"))
+            .removeprefix("void ").replace(", float>", ">").replace("<float>", ""))
 
 
 def main(argv=None) -> int:
