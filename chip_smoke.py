@@ -115,8 +115,12 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               weights), every train_profile* phase whose path runs K2
               K2's (``k2_kernels``: the same two and the CUDA-core
               instance), and every one whose
-              path runs K3 K3's and K3b's tensor-core kernels
-              (``k3_kernels``)
+              path runs K3 K3's and K3b's kernels (``k3_kernels``: the
+              tensor-core ones and the CUDA-core instances); where
+              the launch counters' rise over the profiled step says a
+              matched hand kernel ran more often than the profile shows
+              (the profiler dropped device events), the step is profiled
+              again, up to 3 times (``profiles_taken``, ``shortfall``)
  10. train_vs_cpu  loss and every gradient on the card (kernels) vs the CPU
               (plain versions), the same seeded weights, 2 complexes; a second
               card run at the same inputs as a witness of the card's own
@@ -272,7 +276,7 @@ The bfloat16 phases (kernel_train_bf16, kernel_bwd_bf16, train_bf16,
 train_profile_bf16, train_cli_bf16; configs/train.yml at its own
 bfloat16, 12 launches a step of each bfloat16 instance, every float32
 count 0) hold each instance to its bfloat16 twin within ``BF16_TOL`` of
-each output's largest. K1's, K2's, K1b's and K2b's bfloat16 instances run
+each output's largest. All six bfloat16 instances run
 their tensor-core kernels at bfloat16 storage, one TF32 product for each
 product of two bfloat16 values (exact in float32): their lines carry
 ``bound_tc_ms`` at that one product (``tf32_products``) and
@@ -280,12 +284,12 @@ product of two bfloat16 values (exact in float32): their lines carry
 twin the same way; K1's and K1b's also ``walks``, K1's
 ``bound_live_only_ms``), the kernels line their ``cuda_cores_ms``, ptxas
 and residency (``k1_bf16_ptxas``, ``k2_bf16_ptxas``, ``k1b_bf16_ptxas``,
-``k2b_bf16_ptxas`` in the build line; K2b's dx kernel's residency as
-``dx_residency``); K3's and K3b's bfloat16 instances are their CUDA-core
-kernels. Every train_profile* phase requires the tensor-core kernels of
-K1/K7, K2, K1b/K7b and K2b to have run where its path runs them: K1's
-plan, tile and copy kernels, K2's weight split, K1b's pair kernel and
-K2b's weight split once a call, and none of their CUDA-core kernels.
+``k2b_bf16_ptxas``, ``k3_bf16_ptxas`` in the build line; K2b's dx
+kernel's residency as ``dx_residency``); K3's and K3b's also ``host_ms``. Every train_profile* phase requires the tensor-core kernels of
+K1/K7, K2, K1b/K7b, K2b, K3 and K3b to have run where its path runs them:
+K1's plan, tile and copy kernels, K2's weight split, K1b's pair kernel,
+K2b's weight split and K3's and K3b's kernels once a call, and none of
+their CUDA-core kernels.
 train_bf16_vs_f32 sets the bfloat16 step's time, device busy time and
 peak memory beside float32's.
 """
@@ -325,6 +329,7 @@ TRAIN_CONFIG = os.path.join("configs", "train.yml")  # Config()'s path at its ow
 TOL = {"atol": 1e-4, "rtol": 1e-4}  # kernel vs plain: reordered float32 sums
 CPU_TOL = {"atol": 2e-3, "rtol": 2e-3}  # whole encoder, card vs CPU
 PROFILE_STEPS = 40  # decode steps traced by the profile phase
+PROFILE_TRIES = 3  # device_profile: profiles taken at most while hand kernels go missing
 # backward kernel vs plain backward: each output within BWD_TOL of its own
 # largest magnitude (weight gradients are sums over ~1e6 slot terms taken
 # in another order)
@@ -374,8 +379,10 @@ K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
 # CUDA-core instance
 K2_KERNELS = ("gate_ffn_tc_kernel", "gate_ffn_wsplit_kernel")
 K2_CC = "cc::gate_ffn_kernel"
-# K3's and K3b's tensor-core kernels in a profile (csrc/s2_act.cu)
+# K3's and K3b's tensor-core kernels in a profile (csrc/s2_act.cu), either
+# dtype; K3_CC their CUDA-core instances
 K3_KERNELS = ("s2_silu_sep_tc_kernel", "s2_silu_sep_bwd_tc_kernel")
+K3_CC = "cc::s2_silu_sep"
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 GAN_CONFIG = os.path.join("configs", "gan_recipe.yml")  # lmax 4, gate FFN, batch 64
 GAN_PRETRAIN, GAN_ROUNDS = 2, 3  # the gan phase's CE warm-up steps and adversarial rounds
@@ -424,7 +431,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, match=()) -> dict:
+def device_profile(fn, match=(), mods=None, expect=None) -> dict:
     """Device time of fn() by kernel under torch.profiler, beside the wall
     time of the same call unprofiled. The device's busy time is the sum of
     its kernels' times, memory copies and sets among them (one stream, so
@@ -436,7 +443,17 @@ def device_profile(fn, match=()) -> dict:
     PyTorch is 2.11), and their spans' sum is reported apart
     (``annotation_ms``). The idle share is the rest of the unprofiled wall
     time. ``match``: names; for each, the device time and launches of the
-    kernels whose name contains it."""
+    kernels whose name contains it.
+
+    ``expect(rise)`` (with ``mods``, the kernel modules): from the launch
+    counters' rise over the profiled call ({kernel: launches}, counts set
+    to 0 just before it), the launches each matched hand kernel must show
+    there. The profiler drops every device event of about one traced call
+    in 450 (PERF.md §7), which would lower the busy time unseen; so a
+    profile whose matched kernels fall short of that is taken again, fn()
+    with it, up to PROFILE_TRIES profiles: ``profiles_taken`` and each
+    take's ``shortfall`` ({name: [launches seen, launches made]}) say what
+    happened, and the last take is the one reported."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -444,20 +461,35 @@ def device_profile(fn, match=()) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = [e for e in device if not e.is_user_annotation]
+    shortfalls = []
+    for _ in range(PROFILE_TRIES if expect is not None else 1):
+        if expect is not None:
+            zero_counts(mods)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = [e for e in device if not e.is_user_annotation]
+        matched = {}
+        for name in match:
+            hits = [e for e in ops if name in e.key]
+            matched[name] = {"launches": sum(e.count for e in hits),
+                             "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
+        if expect is None:
+            break
+        short = {n: [matched[n]["launches"], want] for n, want in expect(read_counts(mods)).items()
+                 if matched[n]["launches"] < want}
+        shortfalls.append(short)
+        if not short:
+            break
     annotations = [e for e in device if e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
-    matched = {}
-    for name in match:
-        hits = [e for e in ops if name in e.key]
-        matched[name] = {"launches": sum(e.count for e in hits),
-                         "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
+    checked = {} if expect is None else {"profiles_taken": len(shortfalls),
+                                         "shortfall": shortfalls}
     return {
+        **checked,
         "wall_ms": wall_ms,
         # None: the profiler saw no device work here, so busy time is not measured
         "device_busy_ms": busy_ms if ops else None,
@@ -634,19 +666,21 @@ def instance_report(spec, mod, args, kw) -> dict:
     it where it exceeds the device's), and the CUDA-core instance, which the
     shapes the tensor-core kernels do not take run, at the same call
     (``cuda_cores``: its time, and its outputs against the plain version as
-    ``hold`` holds the kernel)."""
+    ``hold`` holds the kernel; a bfloat16 instance's within ``spec.tol`` of
+    each output's largest, in its dtype)."""
     launch, plain = getattr(mod, f"{spec.fn}_cuda"), getattr(mod, f"{spec.fn}_plain")
     cuda_cores = lambda: launch(*args, **kw, cuda_cores=True)
     as_tuple = lambda r: (r,) if torch.is_tensor(r) else tuple(r)
     with torch.no_grad():
         got, want = as_tuple(cuda_cores()), as_tuple(plain(*args))
         if spec.outs is None:
-            errs = {"out": [(got[0] - want[0]).abs().max().item(), want[0].abs().max().item()]}
-            ok = bool(torch.allclose(got[0], want[0], **TOL))
+            err, _, ok = held_as_forward(spec, got[0], want[0])
+            errs = {"out": [err, want[0].float().abs().max().item()]}
         else:
-            errs = {o: [(a - b).abs().max().item(), b.abs().max().item()]
-                    for o, a, b in zip(spec.outs, got, want)}
-            ok = all(e <= BWD_TOL * m for e, m in errs.values())
+            errs = {o: [(a.float() - b.float()).abs().max().item(),
+                        b.float().abs().max().item()] for o, a, b in zip(spec.outs, got, want)}
+            ok = all(e <= (spec.tol or BWD_TOL) * m for e, m in errs.values()) and all(
+                a.dtype == b.dtype for a, b in zip(got, want))
         del got, want
         ms = time_ms(cuda_cores)
         host = host_ms(lambda: launch(*args, **kw))
@@ -1150,11 +1184,11 @@ def bf16_instance(spec: Kernel, tensor_cores: bool = False, report=None) -> Kern
     """The bfloat16 instance of a kernel of Config()'s training path: the
     same wrapper and plain function at bfloat16 activations, its own launch
     counter, its bound at the bfloat16 tensor-core rate. ``tensor_cores``
-    (K1's, K2's, K1b's and K2b's): its tensor-core kernels, one TF32 product
-    for each product of two bfloat16 values (``bound_tc_ms`` at one
-    product), and ``report`` at each call (the CUDA-core instance at the
-    same call, K1's and K1b's walks); else (K3's, K3b's) its CUDA-core
-    kernel."""
+    (all six): its tensor-core kernels, one TF32 product for
+    each product of two bfloat16 values (``bound_tc_ms`` at one product),
+    and ``report`` at each call (the CUDA-core instance at the same call;
+    K1's and K1b's walks; K3's and K3b's wrapper host time); else its
+    CUDA-core kernel."""
     return spec._replace(name=f"{spec.name}_bf16", counter=f"{spec.counter}_bf16",
                          split_flops=spec.split_flops if tensor_cores else None, report=report,
                          rate=BF16_FLOP_PER_S, tol=BF16_TOL, tf32_products=1)
@@ -1212,11 +1246,12 @@ K1, K2, K3, K1B, K2B, K3B, K4, K4B, K5, K5B, K6, K6B, K7, K7B, K8, K8B = KERNELS
            "singa_tpu_torch/csrc/dense_edge_attn_bwd.cu",
            "singa_tpu/ops/pallas/dense_edge_attn.py:277", k8b_cost, ATTN_BWD_OUTS),
 ]
-# configs/train.yml's: K1's, K2's, K1b's and K2b's on the tensor cores
+# configs/train.yml's, every one on the tensor cores
 BF16_PATH = [bf16_instance(K1, True, list_fwd_report), bf16_instance(K2, True, k2_report),
-             bf16_instance(K3), bf16_instance(K1B, True, list_bwd_report),
-             bf16_instance(K2B, True, cuda_cores_report), bf16_instance(K3B)]
-K1_BF16, K2_BF16, K1B_BF16, K2B_BF16 = BF16_PATH[0], BF16_PATH[1], BF16_PATH[3], BF16_PATH[4]
+             bf16_instance(K3, True, instance_report), bf16_instance(K1B, True, list_bwd_report),
+             bf16_instance(K2B, True, cuda_cores_report),
+             bf16_instance(K3B, True, instance_report)]
+K1_BF16, K2_BF16, K3_BF16, K1B_BF16, K2B_BF16, K3B_BF16 = BF16_PATH
 KERNELS += BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
@@ -1267,11 +1302,12 @@ def sep_shapes(args) -> tuple:
 
 def check_k3_instance(mods, captured) -> None:
     """Raise unless every captured K3 (and K3b) call's shapes take the
-    tensor-core kernels."""
+    tensor-core kernels at the call's dtype."""
     for name in ("s2_silu_sep_cuda", "s2_silu_sep_bwd_cuda"):
         for args, _, _ in captured.get(name, {}).values():
             shapes = sep_shapes(args)
-            instance = mods["s2_act"].s2_silu_sep_instance(*shapes)
+            instance = mods["s2_act"].s2_silu_sep_instance(
+                *shapes, bf16=args[0].dtype == torch.bfloat16)
             if instance != "tensor_cores":
                 raise AssertionError(f"{name} at (I, C, G) = {shapes} runs {instance}, "
                                      "not the tensor-core kernel")
@@ -1477,11 +1513,15 @@ def path_instances(specs, mods, captured, results: dict) -> None:
         if instance != "tensor_cores":
             raise AssertionError(f"K4 at {widths} runs {instance}, not the tensor-core kernel")
         results[K4.name]["residency"] = mods["so3_ffn"].s2_fwd_residency(*widths)
-    if K3 in specs:  # K3's and K3b's tensor-core kernels take the microbatch's calls
+    for fwd, bwd, bf16 in ((K3, K3B, False), (K3_BF16, K3B_BF16, True)):
+        if fwd not in specs:
+            continue
+        # K3's and K3b's tensor-core kernels take the microbatch's calls
         check_k3_instance(mods, captured)
         shapes = sep_shapes(next(iter(captured["s2_silu_sep_cuda"].values()))[0])
-        results[K3.name]["residency"] = mods["s2_act"].sep_residency(*shapes)
-        results[K3B.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bwd=True)
+        results[fwd.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bf16=bf16)
+        results[bwd.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bwd=True,
+                                                                      bf16=bf16)
     if K4B in specs:  # K4b's residency at the microbatch's widths
         args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
         x, w1, _, _, _, w2, tg, _, lmax, _ = args
@@ -1630,7 +1670,18 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         runs_k2b, runs_k1b = k2b_calls > 0, k1b_calls > 0
         runs_k1, runs_k2 = k1_calls > 0, k2_calls > 0
         runs_k4 = per_step.get(K4.name, 0) > 0
-        runs_k3 = per_step.get(K3.name, 0) > 0
+        runs_k3 = sum(per_step.get(k.name, 0) for k in (K3, K3_BF16)) > 0
+        # the hand kernels a call of the path launches once each, by name in
+        # a profile, with the kernels whose calls launch them and their
+        # CUDA-core kernels (which the path must not run)
+        once = [(K1_KERNELS, (K1, K7, K1_BF16), K1_CC),
+                (("gate_ffn_wsplit_kernel",), (K2, K2_BF16), K2_CC),
+                (("gate_ffn_bwd_wsplit_kernel",), (K2B, K2B_BF16), K2B_CC),
+                (("list_bwd_pair_kernel",), (K1B, K7B, K1B_BF16), K1B_CC),
+                (K3_KERNELS[:1], (K3, K3_BF16), K3_CC),
+                (K3_KERNELS[1:], (K3B, K3B_BF16), K3_CC)]
+        once = [(tcs, specs, cc) for tcs, specs, cc in once
+                if sum(per_step.get(k.name, 0) for k in specs)]
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None)
@@ -1638,7 +1689,9 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                   + (*K1B_KERNELS, K1B_CC) * runs_k1b
                                   + (*K1_KERNELS, K1_CC) * runs_k1
                                   + K4_KERNELS * runs_k4 + (*K2_KERNELS, K2_CC) * runs_k2
-                                  + K3_KERNELS * runs_k3)
+                                  + (*K3_KERNELS, K3_CC) * runs_k3, mods,
+                                  lambda rise: {n: sum(rise[k.name] for k in specs)
+                                                for tcs, specs, _ in once for n in tcs})
         extra = {}
         if gemm_flops is not None:  # K6's and K6b's GEMMs: device time and rate
             ms = prof["matched"][SO2_GEMM]["device_ms"]
@@ -1655,19 +1708,15 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
         if runs_k2:  # K2's kernels by name
             extra["k2_kernels"] = {n: prof["matched"][n] for n in (*K2_KERNELS, K2_CC)}
-        if runs_k3:  # K3's and K3b's tensor-core kernels by name
-            extra["k3_kernels"] = {n: prof["matched"][n] for n in K3_KERNELS}
+        if runs_k3:  # K3's and K3b's kernels by name
+            extra["k3_kernels"] = {n: prof["matched"][n] for n in (*K3_KERNELS, K3_CC)}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
-        # K1/K7, K2, K1b/K7b and K2b ran their tensor-core kernels at every
-        # call of the step: K1's plan, tile and copy kernels, K2's weight
-        # split, K1b's pair kernel and K2b's weight split once a call, none
-        # of their CUDA-core kernels
-        for calls, tcs, cc in ((k1_calls, K1_KERNELS, K1_CC),
-                               (k2_calls, ("gate_ffn_wsplit_kernel",), K2_CC),
-                               (k2b_calls, ("gate_ffn_bwd_wsplit_kernel",), K2B_CC),
-                               (k1b_calls, ("list_bwd_pair_kernel",), K1B_CC)):
-            if not calls:
-                continue
+        # K1/K7, K2, K1b/K7b, K2b, K3 and K3b ran their tensor-core kernels
+        # at every call of the step: K1's plan, tile and copy kernels, K2's
+        # weight split, K1b's pair kernel, K2b's weight split and K3's and
+        # K3b's kernels once a call, none of their CUDA-core kernels
+        for tcs, specs, cc in once:
+            calls = sum(per_step.get(k.name, 0) for k in specs)
             got = tuple(prof["matched"][n]["launches"] for n in (*tcs, cc))
             if got != (calls,) * len(tcs) + (0,):
                 raise AssertionError(f"{(*tcs, cc)} launched {got} times in a step, expected "
@@ -2567,10 +2616,12 @@ def main() -> int:
     # CUDA-core instance
     from singa_tpu_torch.ops.cuda.s2_act import sep_residency
 
-    k3_ptxas = {k: v for k, v in ptxas_report(logs["s2_act"]).items() if "s2_silu_sep" in k}
-    for k, v in k3_ptxas.items():
+    k3_all = {k: v for k, v in ptxas_report(logs["s2_act"]).items() if "s2_silu_sep" in k}
+    for k, v in k3_all.items():
         if "tc_kernel" in k:
-            v["residency"] = sep_residency(29, 128, 70, bwd="bwd" in k)
+            v["residency"] = sep_residency(29, 128, 70, bwd="bwd" in k, bf16="bfloat16" in k)
+    k3_ptxas = {k: v for k, v in k3_all.items() if "bfloat16" not in k}
+    k3_bf16_ptxas = {k: v for k, v in k3_all.items() if "bfloat16" in k}
     # K5's and K5b's kernels: the tensor-core ones (an instance a form: I <=
     # 32, 33 .. 48, 49 with the tail row) and the CUDA-core instance
     k5_ptxas = {k: v for k, v in ptxas_report(logs["s2_act"]).items()
@@ -2602,7 +2653,8 @@ def main() -> int:
           "so2_gemm_ptxas": gemm_ptxas,
           "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas,
           "k1b_bf16_ptxas": k1b_bf16_ptxas, "k2b_bf16_ptxas": k2b_bf16_ptxas,
-          "k1_bf16_ptxas": k1_bf16_ptxas, "k2_bf16_ptxas": k2_bf16_ptxas})
+          "k1_bf16_ptxas": k1_bf16_ptxas, "k2_bf16_ptxas": k2_bf16_ptxas,
+          "k3_bf16_ptxas": k3_bf16_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -2706,8 +2758,8 @@ def main() -> int:
                              BF16_WARMUP, BF16_STEPS, vs_cpu=False)
     emit({"phase": "train_bf16_vs_f32", "float32": f32_step, "bfloat16": bf16_step,
           "note": "reported, not claimed: the float32 step runs the tensor-core kernels; the "
-                  "bfloat16 step K1's, K2's, K1b's and K2b's tensor-core kernels at bfloat16 "
-                  "and the CUDA-core bfloat16 instances of K3 and K3b"})
+                  "bfloat16 step the tensor-core kernels of K1, K2, K3, K1b, K2b and K3b at "
+                  "bfloat16 (one TF32 product a product)"})
     torch.cuda.empty_cache()
     s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
     train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,
@@ -2738,6 +2790,7 @@ def main() -> int:
     results[K1_BF16.name]["ptxas"] = k1_bf16_ptxas
     results[K1_BF16.name]["residency"] = mods["neighbor_attn"].fwd_residency(bf16=True)
     results[K3.name]["ptxas"] = results[K3B.name]["ptxas"] = k3_ptxas
+    results[K3_BF16.name]["ptxas"] = results[K3B_BF16.name]["ptxas"] = k3_bf16_ptxas
     results[K5.name]["ptxas"] = results[K5B.name]["ptxas"] = k5_ptxas
     for spec, hybrid in ((K1B, False), (K7B, True)):  # the pair kernels of each form
         results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid)

@@ -44,6 +44,7 @@
 //                           split beforehand
 //   frag_a_split(f)         A kept split in lane order (store_a_split
 //                           writes it): no split at the load
+//                           (frag_a_split_t<bf16>: its hi plane alone)
 //   store_c(C, ldc, c)      C stored [m][n], two 8-byte stores
 //   frag_a_from_c(c)        the C of one m16n8 product as the A of the next,
 //                           whose k is that product's n, k paired (pairs
@@ -60,7 +61,8 @@
 // conflict-free when ldb % 32 is 4, 12, 20 or 28; with ldb % 16 of 4 or 12
 // the same [n][k] rows also serve frag_b_paired, read as [k][n].
 //
-// bfloat16 (the T = bf16 instances of K1b's and K2b's tensor-core kernels).
+// bfloat16 (the T = bf16 instances of the tensor-core kernels of K1, K1b,
+// K2, K2b, K3 and K3b).
 // A bfloat16 value is a TF32 value: its 7 explicit mantissa bits fit in
 // TF32's 10, so its TF32 "hi" is its own bits and "lo" is zero, and one
 // TF32 product of two bfloat16 values is exact in float32 (8 x 8
@@ -252,6 +254,21 @@ __device__ __forceinline__ void store_a_split(uint32_t* f, int lane, float a0, f
   split(a3, hi.w, lo.w);
   reinterpret_cast<uint4*>(f)[lane] = hi;
   reinterpret_cast<uint4*>(f)[32 + lane] = lo;
+}
+
+// Such a fragment at storage type T: split at T = float; at T = bf16 its hi
+// plane alone (lo is zero, and mma_t<bf16> never reads it), half the words
+template <class T>
+constexpr int kFragWords = kIsBf16<T> ? kSplitFragWords / 2 : kSplitFragWords;
+
+template <class T = float>
+__device__ __forceinline__ FragA frag_a_split_t(const uint32_t* f) {
+  if constexpr (kIsBf16<T>) {
+    const uint4 hi = reinterpret_cast<const uint4*>(f)[threadIdx.x & 31];
+    return FragA{{hi.x, hi.y, hi.z, hi.w}, {0u, 0u, 0u, 0u}};
+  } else {
+    return frag_a_split(f);
+  }
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {

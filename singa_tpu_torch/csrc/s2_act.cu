@@ -62,19 +62,45 @@
 // step a pass ran slower than three; so did, in builds not kept, all nine
 // in K3b, fragments loaded straight from device memory without the
 // cp.async stage, and tg and fg staged already split at the cost of two
-// warps.
+// warps. The bfloat16 instances have their own map (kFwdCTBf16 ..
+// kBwdWarpsBf16; the same tool on an H100 80GB HBM3 at 700 W, ms a call by
+// CUDA events at the stage-1 call, E 31,744): K3 takes 20 warps of 32
+// columns (0.603; 150,208 B at I 29, G 70, 92 registers), against 16 warps
+// 0.639-0.650, 12 0.726, 24 0.597 with spills, 32 0.720 (64 registers,
+// spilling), 64-column tiles at 8, 12, 16 warps 0.813, 0.646, 0.643; K3b
+// takes 15 warps of 32 columns (0.834; 225,888 B, 127 registers), against
+// 16-column tiles at 15, 24, 32 warps 1.106-1.128, 0.972-0.982, 1.005-1.030
+// and 32-column tiles at 8 and 12 warps 1.078-1.082 and 0.919. At bfloat16
+// a warp needs about half the shared memory, so more warps or wider tiles
+// fit; the registers a lane may hold at 20 warps (102) and past them the
+// spills end the gain.
 //
 // Shapes: the tensor-core kernels take I <= 32, any G whose matrices fit
 // in shared memory, and C a multiple of 16 (a 16-column group then lies in
 // one edge, and each 16-byte copy in one row): lmax 6, 4 and 2 at mmax 2
 // (I 29, 19, 9). Every other shape the CUDA-core kernels took (C = 100,
 // say) runs them, chosen by shape before the launch (sep_instance).
-// bfloat16 (s2_silu_sep_bf16, s2_silu_sep_bwd_bf16): K3's and K3b's
-// CUDA-core instances at bfloat16 storage (cc::s2_silu_sep_kernel<bf16>,
-// cc::s2_silu_sep_bwd_kernel<bf16>; the roundings at the kernels). At the
-// stage-1 call they move half the float32 bytes (0.48 and 0.73 GB) and do
-// the same 32.4 and 49.5 GFLOP on the CUDA cores in float32 (0.48 and 0.74
-// ms at 67 TFLOP/s): the arithmetic bounds them there.
+//
+// bfloat16 (s2_silu_sep and s2_silu_sep_bwd with bf16 set; the bfloat16
+// training path's K3 and K3b): the same kernels and chains at T = bf16, x,
+// s, tg, fg, g and the outputs bfloat16 in device memory (the caller casts
+// tg and fg, as the TPU kernel casts them to x.dtype). x (and g) come into
+// the raw stage as bfloat16 by the same 16-byte cp.async, eight values a
+// piece, at a row stride of 16 kCT + 8 values (% 32 of 8 or 24: the
+// split's 2-byte reads stay conflict-free); a bfloat16 value is a TF32
+// value, so the split keeps its bits as the hi plane alone, half the
+// fragment words, and each product is one TF32 mma.sync, exact for two
+// bfloat16 operands (tc::mma_t). tg and fg are staged as float, bfloat16
+// values. silu(v) (K3) and h = silu'(v) u (K3b) are rounded to bfloat16
+// as they split for the second product: the Pallas kernel's .astype(dt)
+// at singa_tpu/ops/pallas/s2_act.py's _sep_fwd_kernel and _sep_bwd_kernel.
+// Sums stay float32; the outputs are rounded once, at the store; row 0
+// silu(s) and ds in float32 until stored. At the stage-1 call they move
+// half the float32 bytes (0.48 and 0.73 GB, 0.14 and 0.22 ms at 3.35
+// TB/s) and the 32.4 and 49.5 GFLOP take 0.07 and 0.10 ms as one TF32
+// product at 495 TFLOP/s. Shapes as at float32; the other shapes run the
+// CUDA-core instance at bfloat16 (cc::s2_silu_sep_kernel<bf16>,
+// cc::s2_silu_sep_bwd_kernel<bf16>), as cuda_cores asks.
 #include "s2_grid.cuh"
 #include "s2_grid_tc.cuh"
 
@@ -93,6 +119,11 @@ constexpr int kFwdCT = 2;          // K3: 16-column groups of a warp tile
 constexpr int kBwdCT = 1;          // K3b: the same
 constexpr int kFwdWarps = 16;      // warps of a K3 (K5) block, at most
 constexpr int kBwdWarps = 15;      // warps of a K3b (K5b) block, at most
+// K3's and K3b's bfloat16 instances: the same, on their own (see the header)
+constexpr int kFwdCTBf16 = 2;
+constexpr int kBwdCTBf16 = 2;
+constexpr int kFwdWarpsBf16 = 20;
+constexpr int kBwdWarpsBf16 = 15;
 // K5 and K5b above 32 rows: k steps and m16 tiles of 48 rows, and the
 // 16-column groups of a warp tile (the matrices of a G-210 grid leave room
 // for fewer warps than K3's)
@@ -101,10 +132,28 @@ constexpr int kWideMT = 3;
 constexpr int kWideCT = 1;
 constexpr bool kTailRow = true;  // at I 49, row 48 in float32 (else a 7th k step, a 4th m16 tile)
 
+using singa::bf16;
+using singa::kBf16;
+using singa::tc::kFragWords;
+
+// K3's and K3b's warp tiles (16-column groups) and most warps a block, at
+// storage type T
+template <class T> constexpr int kSepFwdCT = kBf16<T> ? kFwdCTBf16 : kFwdCT;
+template <class T> constexpr int kSepBwdCT = kBf16<T> ? kBwdCTBf16 : kBwdCT;
+template <class T> constexpr int kSepFwdWarps = kBf16<T> ? kFwdWarpsBf16 : kFwdWarps;
+template <class T> constexpr int kSepBwdWarps = kBf16<T> ? kBwdWarpsBf16 : kBwdWarps;
+
 // a warp tile of kCT 16-column groups: its columns, and its raw stage's row
-// stride (% 16 of 4: the split's reads are conflict-free)
+// stride in values of T (float: % 16 of 4; bf16: % 32 of 8 or 24, whole
+// 16-byte pieces: the split's reads are conflict-free either way)
 template <int kCT> constexpr int kCols = 16 * kCT;
-template <int kCT> constexpr int kRawStride = 16 * kCT + 4;
+template <int kCT, class T = float> constexpr int kRawStride = 16 * kCT + (kBf16<T> ? 8 : 4);
+
+// 32-bit words of one warp's raw stage of I rows
+template <int kCT, class T = float>
+__host__ __device__ constexpr int raw_words(int I) {
+  return kBf16<T> ? I * kRawStride<kCT, T> / 2 : I * kRawStride<kCT, T>;
+}
 
 struct SepDims {
   int I, C, G, Gp, st, sa, KS;  // Gp: G rounded up to a chain pass; KS: k steps
@@ -134,11 +183,11 @@ __host__ __device__ inline long long tiles(const SepDims& d) {
   return (d.Q + kCols<kCT> - 1) / kCols<kCT>;
 }
 
-// floats of one warp's raw stage, words of its fragments and, with the tail
-// row, that row's columns, of one operand
-template <int kCT>
+// 32-bit words of one warp's raw stage, of its fragments (at bf16 their hi
+// plane alone) and, with the tail row, of that row's columns, of one operand
+template <int kCT, class T = float>
 __host__ __device__ inline int warp_floats(const SepDims& d) {
-  return d.I * kRawStride<kCT> + d.KS * kCT * kSplitFragWords + (d.tail ? kCols<kCT> : 0);
+  return raw_words<kCT, T>(d.I) + d.KS * kCT * kFragWords<T> + (d.tail ? kCols<kCT> : 0);
 }
 
 // floats of the staged matrices: K3's (K5's) tg [Gp][st] and fg [Gp][sa];
@@ -165,26 +214,28 @@ TcLaunch fit_warps(size_t mats, size_t per_warp, int max_warps) {
   return {w, (mats + w * per_warp) * sizeof(float)};
 }
 
-template <int kCT = kFwdCT>
+template <int kCT = kFwdCT, class T = float>
 TcLaunch fwd_launch(const SepDims& d) {
-  return fit_warps(fwd_mats(d), warp_floats<kCT>(d), kFwdWarps);
+  return fit_warps(fwd_mats(d), warp_floats<kCT, T>(d), kSepFwdWarps<T>);
 }
 
-template <int kCT = kBwdCT>
+template <int kCT = kBwdCT, class T = float>
 TcLaunch bwd_launch(const SepDims& d) {
-  return fit_warps(bwd_mats(d), 2 * warp_floats<kCT>(d), kBwdWarps);
+  return fit_warps(bwd_mats(d), 2 * warp_floats<kCT, T>(d), kSepBwdWarps<T>);
 }
 
-// m [G, I] -> dst [Gp][stride], zeros past G and I and in columns < col0
-__device__ void stage_mat(const float* __restrict__ m, const SepDims& d, int stride, int col0,
+// m [G, I] -> dst [Gp][stride] as float, zeros past G and I and in columns
+// < col0
+template <class T = float>
+__device__ void stage_mat(const T* __restrict__ m, const SepDims& d, int stride, int col0,
                           float* dst) {
   for (int t = threadIdx.x; t < d.Gp * stride; t += blockDim.x) {
     const int g = t / stride, i = t % stride;
-    dst[t] = g < d.G && i < d.I && i >= col0 ? m[g * d.I + i] : 0.f;
+    dst[t] = g < d.G && i < d.I && i >= col0 ? singa::to_f(m[g * d.I + i]) : 0.f;
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
                "r"(ok ? 16 : 0));
@@ -206,26 +257,28 @@ __device__ __forceinline__ long long col_offset(const SepDims& d, long long e0, 
 
 // The warp tile at column q0 (channel c0 of edge e0) of x [E, I, C] -> raw
 // [I][kRawStride], zeros past E * C; called by the 32 lanes of one warp,
-// joins their next commit. A lane copies the same four columns of every
-// (32 / kChunks)-th row.
-template <int kCT>
-__device__ __forceinline__ void copy_tile(const float* __restrict__ x, long long q0,
-                                          const SepDims& d, float* raw) {
-  constexpr int kChunks = kCols<kCT> / 4;  // 16-byte pieces of a row
+// joins their next commit. A lane copies the same 16-byte piece (four
+// float32 or eight bfloat16 columns) of every (32 / kChunks)-th row.
+template <int kCT, class T = float>
+__device__ __forceinline__ void copy_tile(const T* __restrict__ x, long long q0,
+                                          const SepDims& d, T* raw) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // columns of a 16-byte piece
+  constexpr int kChunks = kCols<kCT> / kPer;  // 16-byte pieces of a row
   const int lane = threadIdx.x & 31, c4 = lane % kChunks;
   const long long e0 = q0 / d.C;
-  const bool ok = q0 + 4 * c4 < d.Q;
-  const float* src = x + col_offset(d, e0, (int)(q0 - e0 * d.C), 4 * c4);
+  const bool ok = q0 + kPer * c4 < d.Q;
+  const T* src = x + col_offset(d, e0, (int)(q0 - e0 * d.C), kPer * c4);
   for (int j = lane / kChunks; j < d.I; j += 32 / kChunks)
-    cp_async16(raw + j * kRawStride<kCT> + 4 * c4, ok ? src + (long long)j * d.C : x, ok);
+    cp_async16(raw + j * kRawStride<kCT, T> + kPer * c4, ok ? src + (long long)j * d.C : x, ok);
 }
 
 // raw [I][kRawStride] -> X^T split, in the chains' fragment order ((ks kCT +
-// c) kSplitFragWords for k step ks and 16-column group c), rows past I zero;
-// KS <= kMaxKS k steps (with the tail row: rows 0 .. 47 only)
-template <int kCT, int kMaxKS = kSepKS>
-__device__ __forceinline__ void split_tile(const float* raw, int I, int KS, uint32_t* frag) {
-  constexpr int S = kRawStride<kCT>;
+// c) kFragWords<T> for k step ks and 16-column group c), rows past I zero;
+// KS <= kMaxKS k steps (with the tail row: rows 0 .. 47 only). At bf16 a
+// value's bits widened are its TF32 hi, stored alone.
+template <int kCT, int kMaxKS = kSepKS, class T = float>
+__device__ __forceinline__ void split_tile(const T* raw, int I, int KS, uint32_t* frag) {
+  constexpr int S = kRawStride<kCT, T>;
   const int lane = threadIdx.x & 31, col = lane >> 2;
 #pragma unroll
   for (int ks = 0; ks < kMaxKS; ++ks) {
@@ -234,22 +287,43 @@ __device__ __forceinline__ void split_tile(const float* raw, int I, int KS, uint
       const bool r0 = i0 < I, r1 = i0 + 1 < I;
 #pragma unroll
       for (int c = 0; c < kCT; ++c) {
-        const float* src = raw + i0 * S + 16 * c + col;
-        singa::tc::store_a_split(frag + (ks * kCT + c) * kSplitFragWords, lane,
-                                 r0 ? src[0] : 0.f, r0 ? src[8] : 0.f, r1 ? src[S] : 0.f,
-                                 r1 ? src[S + 8] : 0.f);
+        if constexpr (kBf16<T>) {
+          const uint16_t* src = reinterpret_cast<const uint16_t*>(raw) + i0 * S + 16 * c + col;
+          const auto bits = [](uint16_t v) { return (uint32_t)v << 16; };
+          reinterpret_cast<uint4*>(frag + (ks * kCT + c) * kFragWords<T>)[lane] =
+              make_uint4(r0 ? bits(src[0]) : 0u, r0 ? bits(src[8]) : 0u,
+                         r1 ? bits(src[S]) : 0u, r1 ? bits(src[S + 8]) : 0u);
+        } else {
+          const float* src = raw + i0 * S + 16 * c + col;
+          singa::tc::store_a_split(frag + (ks * kCT + c) * kSplitFragWords, lane,
+                                   r0 ? src[0] : 0.f, r0 ? src[8] : 0.f, r1 ? src[S] : 0.f,
+                                   r1 ? src[S + 8] : 0.f);
+        }
       }
     }
   }
 }
 
+// Two adjacent values of T as float, and stored from float (bf16: rounded
+// to nearest even)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void store2(bf16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+
 // The from-grid sums of a warp tile (acc[mt][j]: rows 16 mt + grp (+ 8) of
-// n8 column tile j) -> out [E, I, C], float2 pieces of whole rows; row 0
-// from row0 (K3: silu(s)) when it is not null
-template <int kCT, int kMT = kSepMT>
+// n8 column tile j) -> out [E, I, C], pieces of two columns of whole rows,
+// rounded to T; row 0 from row0 (K3: silu(s)) when it is not null
+template <int kCT, int kMT = kSepMT, class T = float>
 __device__ __forceinline__ void store_tile(const float (&acc)[kMT][2 * kCT][4], long long q0,
-                                           const SepDims& d, const float* __restrict__ row0,
-                                           float* __restrict__ out) {
+                                           const SepDims& d, const T* __restrict__ row0,
+                                           T* __restrict__ out) {
   const int grp = singa::tc::lane_grp(), tig = singa::tc::lane_tig();
   const int MT = (d.I + 15) / 16;
   const long long e0 = q0 / d.C;
@@ -258,7 +332,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[kMT][2 * kCT][4], 
   for (int j = 0; j < 2 * kCT; ++j) {
     const long long q = q0 + 8 * j + 2 * tig;  // the lane's columns q, q + 1 (one edge)
     if (q >= d.Q) continue;
-    float* o = out + col_offset(d, e0, c0, 8 * j + 2 * tig);
+    T* o = out + col_offset(d, e0, c0, 8 * j + 2 * tig);
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -267,10 +341,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[kMT][2 * kCT][4], 
         if (mt >= MT || i >= d.I) continue;
         float2 v = make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
         if (row0 != nullptr && i == 0) {
-          const float2 sv = *reinterpret_cast<const float2*>(row0 + q);
+          const float2 sv = load2(row0 + q);
           v = make_float2(singa::siluf_(sv.x), singa::siluf_(sv.y));
         }
-        *reinterpret_cast<float2*>(o + (long long)i * d.C) = v;
+        store2(o + (long long)i * d.C, v);
       }
   }
 }
@@ -296,56 +370,60 @@ __device__ __forceinline__ void store_tail(float (&tl)[2 * kCT], long long q0, c
 // A forward kernel's tiles, K3's (s: the scalars, whose silu is row 0) or
 // K5's (s null: every row from the chain); I0 = 49: row 48 in float32
 // (grid_chain_tc_fwd), the warp's columns of it kept apart (xt) before the
-// next tile's copy overwrites the raw stage
-template <int I0, int kCT, int kKS, int kMT>
-__device__ __forceinline__ void fwd_tiles(const float* __restrict__ x, const float* __restrict__ s,
-                                          const float* __restrict__ tg,
-                                          const float* __restrict__ fg, float* __restrict__ out,
-                                          const SepDims& d) {
+// next tile's copy overwrites the raw stage. T: the storage type of x, s,
+// tg, fg and out (K3's bfloat16 instance: bf16; tg and fg staged as float)
+template <int I0, int kCT, int kKS, int kMT, class T = float>
+__device__ __forceinline__ void fwd_tiles(const T* __restrict__ x, const T* __restrict__ s,
+                                          const T* __restrict__ tg, const T* __restrict__ fg,
+                                          T* __restrict__ out, const SepDims& d) {
   constexpr bool kTail = I0 == 49;
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;                   // [Gp][st]: tg, read as B
   float* sfg = stg + d.Gp * d.st;      // [Gp][sa]: fg, read as A transposed
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // the warp's raw stage, fragments and tail row
-  float* raw = smem + fwd_mats(d) + warp * (warp_floats<kCT>(d));
-  uint32_t* frag = reinterpret_cast<uint32_t*>(raw + d.I * kRawStride<kCT>);
-  float* xt = reinterpret_cast<float*>(frag + d.KS * kCT * kSplitFragWords);
+  float* stage = smem + fwd_mats(d) + warp * (warp_floats<kCT, T>(d));
+  T* raw = reinterpret_cast<T*>(stage);
+  uint32_t* frag = reinterpret_cast<uint32_t*>(stage + raw_words<kCT, T>(d.I));
+  float* xt = reinterpret_cast<float*>(frag + d.KS * kCT * kFragWords<T>);
   constexpr int W = kCols<kCT>;
   const int warps = blockDim.x >> 5;
   const long long nw = (long long)gridDim.x * warps, nt = tiles<kCT>(d);
   long long wt = (long long)blockIdx.x * warps + warp;
-  if (wt < nt) copy_tile<kCT>(x, wt * W, d, raw);
+  if (wt < nt) copy_tile<kCT, T>(x, wt * W, d, raw);
   cp_async_commit();
-  stage_mat(tg, d, d.st, 0, stg);
-  stage_mat(fg, d, d.sa, 0, sfg);
+  stage_mat<T>(tg, d, d.st, 0, stg);
+  stage_mat<T>(fg, d, d.sa, 0, sfg);
   __syncthreads();
   for (; wt < nt; wt += nw) {
     cp_async_wait_all();
     __syncwarp();  // the tile's raw stage; every lane is done with the last chain
-    split_tile<kCT, kKS>(raw, d.I, d.KS, frag);
-    if (kTail && lane < W) xt[lane] = raw[(I0 - 1) * kRawStride<kCT> + lane];
+    split_tile<kCT, kKS, T>(raw, d.I, d.KS, frag);
+    if constexpr (kTail) {
+      if (lane < W) xt[lane] = raw[(I0 - 1) * kRawStride<kCT> + lane];
+    }
     __syncwarp();  // the fragments; every lane is done with the raw stage
-    if (wt + nw < nt) copy_tile<kCT>(x, (wt + nw) * W, d, raw);
+    if (wt + nw < nt) copy_tile<kCT, T>(x, (wt + nw) * W, d, raw);
     cp_async_commit();
     float acc[kMT][2 * kCT][4], tl[2 * kCT];
-    singa::grid_chain_tc_fwd<I0, kSteps, kCT, kKS, kMT>(stg, d.st, sfg, d.sa, frag, xt, d.I, kCT,
-                                                         0, 0, d.Gp / 8, acc, tl);
-    store_tile<kCT, kMT>(acc, wt * W, d, s, out);
-    if (kTail) store_tail<kCT>(tl, wt * W, d, out);
+    singa::grid_chain_tc_fwd<I0, kSteps, kCT, kKS, kMT, T>(stg, d.st, sfg, d.sa, frag, xt, d.I,
+                                                            kCT, 0, 0, d.Gp / 8, acc, tl);
+    store_tile<kCT, kMT, T>(acc, wt * W, d, s, out);
+    if constexpr (kTail) store_tail<kCT>(tl, wt * W, d, out);
   }
 }
 
 // A backward kernel's tiles, K3b's (kSep: fg's column 0 zeroed, ds from g's
 // row 0) or K5b's (fg whole, no ds); I0 = 49: row 48 in float32
-// (grid_chain_tc_sep_bwd), x's and g's columns of it kept apart (xt, yt)
-template <int I0, int kCT, int kKS, int kMT, bool kSep>
-__device__ __forceinline__ void bwd_tiles(const float* __restrict__ x, const float* __restrict__ s,
-                                          const float* __restrict__ gin,
-                                          const float* __restrict__ tg,
-                                          const float* __restrict__ fg, float* __restrict__ dx,
-                                          float* __restrict__ ds, const SepDims& d) {
+// (grid_chain_tc_sep_bwd), x's and g's columns of it kept apart (xt, yt).
+// T as in fwd_tiles (K3b's bfloat16 instance: ds in float32 until stored)
+template <int I0, int kCT, int kKS, int kMT, bool kSep, class T = float>
+__device__ __forceinline__ void bwd_tiles(const T* __restrict__ x, const T* __restrict__ s,
+                                          const T* __restrict__ gin, const T* __restrict__ tg,
+                                          const T* __restrict__ fg, T* __restrict__ dx,
+                                          T* __restrict__ ds, const SepDims& d) {
   constexpr bool kTail = I0 == 49;
+  static_assert(!kSep || kCols<kCT> <= 32, "ds is a column a lane");
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;                   // [Gp][st]: tg, read as B
   float* sfg = stg + d.Gp * d.st;      // [Gp][st]: fg (K3b: column 0 zeroed), read as B
@@ -353,10 +431,12 @@ __device__ __forceinline__ void bwd_tiles(const float* __restrict__ x, const flo
   float* sta = d.tg_once ? stg : sfg + d.Gp * d.st;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int W = kCols<kCT>;
-  const int raw = d.I * kRawStride<kCT>, frag = d.KS * kCT * kSplitFragWords;
-  float* rx = smem + bwd_mats(d) + warp * 2 * warp_floats<kCT>(d);  // the warp's
-  float* rg = rx + raw;
-  uint32_t* fx = reinterpret_cast<uint32_t*>(rg + raw);
+  const int raw = raw_words<kCT, T>(d.I), frag = d.KS * kCT * kFragWords<T>;
+  float* sx = smem + bwd_mats(d) + warp * 2 * warp_floats<kCT, T>(d);  // the warp's
+  float* sg = sx + raw;
+  T* rx = reinterpret_cast<T*>(sx);
+  T* rg = reinterpret_cast<T*>(sg);
+  uint32_t* fx = reinterpret_cast<uint32_t*>(sg + raw);
   uint32_t* fy = fx + frag;
   float* xt = reinterpret_cast<float*>(fy + frag);  // the tail rows
   float* yt = xt + W;
@@ -364,53 +444,60 @@ __device__ __forceinline__ void bwd_tiles(const float* __restrict__ x, const flo
   const long long nw = (long long)gridDim.x * warps, nt = tiles<kCT>(d);
   long long wt = (long long)blockIdx.x * warps + warp;
   if (wt < nt) {
-    copy_tile<kCT>(x, wt * W, d, rx);
-    copy_tile<kCT>(gin, wt * W, d, rg);
+    copy_tile<kCT, T>(x, wt * W, d, rx);
+    copy_tile<kCT, T>(gin, wt * W, d, rg);
   }
   cp_async_commit();
-  stage_mat(tg, d, d.st, 0, stg);
-  stage_mat(fg, d, d.st, kSep ? 1 : 0, sfg);
-  if (!d.tg_once) stage_mat(tg, d, d.sa, 0, sta);
+  stage_mat<T>(tg, d, d.st, 0, stg);
+  stage_mat<T>(fg, d, d.st, kSep ? 1 : 0, sfg);
+  if (!d.tg_once) stage_mat<T>(tg, d, d.sa, 0, sta);
   __syncthreads();
   for (; wt < nt; wt += nw) {
     const long long q0 = wt * W;
     cp_async_wait_all();
     __syncwarp();  // the tile's raw stages; every lane is done with the last chain
-    split_tile<kCT, kKS>(rx, d.I, d.KS, fx);
-    split_tile<kCT, kKS>(rg, d.I, d.KS, fy);
+    split_tile<kCT, kKS, T>(rx, d.I, d.KS, fx);
+    split_tile<kCT, kKS, T>(rg, d.I, d.KS, fy);
     if (kSep && lane < W && q0 + lane < d.Q)  // ds of the lane's column, from g's row 0
-      ds[q0 + lane] = singa::silu_gradf_(s[q0 + lane]) * rg[lane];
-    if (kTail && lane < W) {
-      xt[lane] = rx[(I0 - 1) * kRawStride<kCT> + lane];
-      yt[lane] = rg[(I0 - 1) * kRawStride<kCT> + lane];
+      ds[q0 + lane] = singa::from_f<T>(singa::silu_gradf_(singa::to_f(s[q0 + lane])) *
+                                       singa::to_f(rg[lane]));
+    if constexpr (kTail) {
+      if (lane < W) {
+        xt[lane] = rx[(I0 - 1) * kRawStride<kCT> + lane];
+        yt[lane] = rg[(I0 - 1) * kRawStride<kCT> + lane];
+      }
     }
     __syncwarp();  // the fragments; every lane is done with the raw stages
     if (wt + nw < nt) {
-      copy_tile<kCT>(x, (wt + nw) * W, d, rx);
-      copy_tile<kCT>(gin, (wt + nw) * W, d, rg);
+      copy_tile<kCT, T>(x, (wt + nw) * W, d, rx);
+      copy_tile<kCT, T>(gin, (wt + nw) * W, d, rg);
     }
     cp_async_commit();
     float acc[kMT][2 * kCT][4], tl[2 * kCT];
-    singa::grid_chain_tc_sep_bwd<kSteps, kCT, kKS, kMT, I0>(
+    singa::grid_chain_tc_sep_bwd<kSteps, kCT, kKS, kMT, I0, T>(
         stg, sfg, d.st, sta, d.sa, fx, fy, d.I, kCT, 0, d.Gp / 8, acc, xt, yt, tl);
-    store_tile<kCT, kMT>(acc, q0, d, nullptr, dx);
-    if (kTail) store_tail<kCT>(tl, q0, d, dx);
+    store_tile<kCT, kMT, T>(acc, q0, d, nullptr, dx);
+    if constexpr (kTail) store_tail<kCT>(tl, q0, d, dx);
   }
 }
 
-__global__ void __launch_bounds__(32 * kFwdWarps, 1)
-s2_silu_sep_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                      const float* __restrict__ tg, const float* __restrict__ fg,
-                      float* __restrict__ out, SepDims d) {
-  fwd_tiles<0, kFwdCT, kSepKS, kSepMT>(x, s, tg, fg, out, d);
+// K3's and K3b's tensor-core kernels at storage type T (float32, or their
+// bfloat16 instances)
+template <class T = float>
+__global__ void __launch_bounds__(32 * kSepFwdWarps<T>, 1)
+s2_silu_sep_tc_kernel(const T* __restrict__ x, const T* __restrict__ s,
+                      const T* __restrict__ tg, const T* __restrict__ fg,
+                      T* __restrict__ out, SepDims d) {
+  fwd_tiles<0, kSepFwdCT<T>, kSepKS, kSepMT, T>(x, s, tg, fg, out, d);
 }
 
-__global__ void __launch_bounds__(32 * kBwdWarps, 1)
-s2_silu_sep_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                          const float* __restrict__ gin, const float* __restrict__ tg,
-                          const float* __restrict__ fg, float* __restrict__ dx,
-                          float* __restrict__ ds, SepDims d) {
-  bwd_tiles<0, kBwdCT, kSepKS, kSepMT, true>(x, s, gin, tg, fg, dx, ds, d);
+template <class T = float>
+__global__ void __launch_bounds__(32 * kSepBwdWarps<T>, 1)
+s2_silu_sep_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ s,
+                          const T* __restrict__ gin, const T* __restrict__ tg,
+                          const T* __restrict__ fg, T* __restrict__ dx,
+                          T* __restrict__ ds, SepDims d) {
+  bwd_tiles<0, kSepBwdCT<T>, kSepKS, kSepMT, true, T>(x, s, gin, tg, fg, dx, ds, d);
 }
 
 // K5's and K5b's tensor-core kernels (see the end of the file)
@@ -418,7 +505,7 @@ template <int I0, int kCT, int kKS, int kMT>
 __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 s2_silu_tc_kernel(const float* __restrict__ x, const float* __restrict__ tg,
                   const float* __restrict__ fg, float* __restrict__ out, SepDims d) {
-  fwd_tiles<I0, kCT, kKS, kMT>(x, nullptr, tg, fg, out, d);
+  fwd_tiles<I0, kCT, kKS, kMT, float>(x, nullptr, tg, fg, out, d);
 }
 
 template <int I0, int kCT, int kKS, int kMT>
@@ -426,7 +513,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
 s2_silu_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gin,
                       const float* __restrict__ tg, const float* __restrict__ fg,
                       float* __restrict__ dx, SepDims d) {
-  bwd_tiles<I0, kCT, kKS, kMT, false>(x, nullptr, gin, tg, fg, dx, nullptr, d);
+  bwd_tiles<I0, kCT, kKS, kMT, false, float>(x, nullptr, gin, tg, fg, dx, nullptr, d);
 }
 
 namespace cc {
@@ -676,15 +763,27 @@ s2_silu_kernel(const float* __restrict__ x, const float* __restrict__ gin,
   }
 }
 
-// Whether the tensor-core kernels take these shapes: I <= 32, C a multiple
-// of 16, a warp of each kernel beside its matrices in shared memory
+// K3's and K3b's tensor-core launches at storage type T
+template <class T>
+TcLaunch sep_fwd_launch(const SepDims& d) {
+  return fwd_launch<kSepFwdCT<T>, T>(d);
+}
+template <class T>
+TcLaunch sep_bwd_launch(const SepDims& d) {
+  return bwd_launch<kSepBwdCT<T>, T>(d);
+}
+
+// Whether the tensor-core kernels at storage type T take these shapes: I
+// <= 32, C a multiple of 16, a warp of each kernel beside its matrices in
+// shared memory
+template <class T>
 bool tc_takes(int I, int C, int G) {
   if (I < 1 || I > kMaxI || C < 16 || C % 16 != 0 || G < 1) return false;
   const SepDims d = make_sep_dims(1, I, C, G);
-  const TcLaunch f = fwd_launch(d), b = bwd_launch(d);
+  const TcLaunch f = sep_fwd_launch<T>(d), b = sep_bwd_launch<T>(d);
   return f.warps > 0 && b.warps > 0 &&
-         singa::allow_smem(s2_silu_sep_tc_kernel, f.smem) == cudaSuccess &&
-         singa::allow_smem(s2_silu_sep_bwd_tc_kernel, b.smem) == cudaSuccess;
+         singa::allow_smem(s2_silu_sep_tc_kernel<T>, f.smem) == cudaSuccess &&
+         singa::allow_smem(s2_silu_sep_bwd_tc_kernel<T>, b.smem) == cudaSuccess;
 }
 
 size_t cc_smem(int G) { return 2 * (size_t)G * kMaxI * sizeof(float); }
@@ -712,21 +811,81 @@ int cc_sep_launch(const T* x, const T* s, const T* g, const T* tg, const T* fg, 
   return (int)cudaGetLastError();
 }
 
-// 1: the tensor-core kernels take these shapes; 0: the CUDA-core instance
-// does; -1: neither (I above 32, or tg and fg over shared memory)
+// At storage type T, 1: the tensor-core kernels take these shapes; 0: the
+// CUDA-core instance does; -1: neither (I above 32, or tg and fg over
+// shared memory)
+template <class T>
 int sep_instance(int I, int C, int G) {
   if (I < 1 || I > kMaxI || C < 1 || G < 1) return -1;
-  if (tc_takes(I, C, G)) return 1;
-  const bool cc = singa::allow_smem(cc::s2_silu_sep_kernel<float>, cc_smem(G)) == cudaSuccess &&
-                  singa::allow_smem(cc::s2_silu_sep_bwd_kernel<float>, cc_smem(G)) == cudaSuccess;
+  if (tc_takes<T>(I, C, G)) return 1;
+  const bool cc = singa::allow_smem(cc::s2_silu_sep_kernel<T>, cc_smem(G)) == cudaSuccess &&
+                  singa::allow_smem(cc::s2_silu_sep_bwd_kernel<T>, cc_smem(G)) == cudaSuccess;
   return cc ? 0 : -1;
 }
 
 // The kernel to run: the tensor-core one where it takes the shapes and the
 // caller did not ask for the CUDA-core one (cuda_cores); -1: none
+template <class T>
 int sep_which(int I, int C, int G, int cuda_cores) {
-  const int which = sep_instance(I, C, G);
+  const int which = sep_instance<T>(I, C, G);
   return which == 1 && cuda_cores ? 0 : which;
+}
+
+// Resident blocks per SM of K3's (bwd: K3b's) tensor-core kernel at T (-1:
+// shapes it does not take), its shared memory and threads per block
+template <class T>
+int sep_residency(int I, int C, int G, int bwd, int* smem_bytes, int* threads) {
+  if (!tc_takes<T>(I, C, G)) return -1;
+  const SepDims d = make_sep_dims(1, I, C, G);
+  const TcLaunch l = bwd ? sep_bwd_launch<T>(d) : sep_fwd_launch<T>(d);
+  *smem_bytes = (int)l.smem;
+  *threads = 32 * l.warps;
+  int per_sm = 0;
+  const cudaError_t err =
+      bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s2_silu_sep_bwd_tc_kernel<T>,
+                                                          *threads, l.smem)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s2_silu_sep_tc_kernel<T>,
+                                                          *threads, l.smem);
+  return err == cudaSuccess ? per_sm : -1;
+}
+
+// K3 at storage type T: the tensor-core kernel where it takes the shapes
+// (unless cuda_cores), else the CUDA-core instance; cudaErrorInvalidValue
+// for shapes neither takes
+template <class T>
+int sep_fwd(const T* x, const T* s, const T* tg, const T* fg, T* out, int E, int I, int C, int G,
+            int cuda_cores, cudaStream_t st) {
+  const int which = E < 1 ? -1 : sep_which<T>(I, C, G, cuda_cores);
+  if (which == 1) {
+    const SepDims d = make_sep_dims(E, I, C, G);
+    const TcLaunch l = sep_fwd_launch<T>(d);
+    const auto kernel = s2_silu_sep_tc_kernel<T>;
+    const int grid = singa::persistent_grid(kernel, 32 * l.warps, l.smem,
+                                            (tiles<kSepFwdCT<T>>(d) + l.warps - 1) / l.warps);
+    kernel<<<grid, 32 * l.warps, l.smem, st>>>(x, s, tg, fg, out, d);
+    return (int)cudaGetLastError();
+  }
+  if (which == 0)
+    return cc_sep_launch<false, T>(x, s, nullptr, tg, fg, out, nullptr, E, I, C, G, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3b at storage type T, as K3
+template <class T>
+int sep_bwd(const T* x, const T* s, const T* g, const T* tg, const T* fg, T* dx, T* ds, int E,
+            int I, int C, int G, int cuda_cores, cudaStream_t st) {
+  const int which = E < 1 ? -1 : sep_which<T>(I, C, G, cuda_cores);
+  if (which == 1) {
+    const SepDims d = make_sep_dims(E, I, C, G);
+    const TcLaunch l = sep_bwd_launch<T>(d);
+    const auto kernel = s2_silu_sep_bwd_tc_kernel<T>;
+    const int grid = singa::persistent_grid(kernel, 32 * l.warps, l.smem,
+                                            (tiles<kSepBwdCT<T>>(d) + l.warps - 1) / l.warps);
+    kernel<<<grid, 32 * l.warps, l.smem, st>>>(x, s, g, tg, fg, dx, ds, d);
+    return (int)cudaGetLastError();
+  }
+  if (which == 0) return cc_sep_launch<true, T>(x, s, g, tg, fg, dx, ds, E, I, C, G, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 
@@ -814,68 +973,50 @@ int s2_silu_launch(const float* x, const float* g, const float* tg, const float*
 
 }  // namespace
 
-// Which of K3's (and K3b's) kernels runs these shapes, for any E: 1 the
-// tensor-core kernels, 0 the CUDA-core instance, -1 neither. Launches nothing.
-extern "C" int s2_silu_sep_instance(int I, int C, int G) { return sep_instance(I, C, G); }
+// Which of K3's (and K3b's) kernels runs these shapes at bfloat16 storage
+// (bf16 != 0) or float32, for any E: 1 the tensor-core kernels, 0 the
+// CUDA-core instance, -1 neither. Launches nothing.
+extern "C" int s2_silu_sep_instance(int I, int C, int G, int bf16) {
+  return bf16 ? sep_instance<singa::bf16>(I, C, G) : sep_instance<float>(I, C, G);
+}
 
 // Resident blocks per SM of K3's (bwd: K3b's) tensor-core kernel at these
-// shapes (-1: shapes it does not take), its shared memory per block in
-// *smem_bytes and its threads per block in *threads. Launches nothing.
-extern "C" int s2_silu_sep_residency(int I, int C, int G, int bwd, int* smem_bytes,
+// shapes (bf16 != 0: its bfloat16 instance; -1: shapes it does not take),
+// its shared memory per block in *smem_bytes and its threads per block in
+// *threads. Launches nothing.
+extern "C" int s2_silu_sep_residency(int I, int C, int G, int bwd, int bf16, int* smem_bytes,
                                      int* threads) {
-  if (!tc_takes(I, C, G)) return -1;
-  const SepDims d = make_sep_dims(1, I, C, G);
-  const TcLaunch l = bwd ? bwd_launch(d) : fwd_launch(d);
-  *smem_bytes = (int)l.smem;
-  *threads = 32 * l.warps;
-  int per_sm = 0;
-  const cudaError_t err =
-      bwd ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s2_silu_sep_bwd_tc_kernel,
-                                                          *threads, l.smem)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, s2_silu_sep_tc_kernel,
-                                                          *threads, l.smem);
-  return err == cudaSuccess ? per_sm : -1;
+  return bf16 ? sep_residency<singa::bf16>(I, C, G, bwd, smem_bytes, threads)
+              : sep_residency<float>(I, C, G, bwd, smem_bytes, threads);
 }
 
-// K3. Returns cudaErrorInvalidValue for shapes no kernel takes (I above 32);
+// K3: x, s, tg, fg and out bfloat16 when bf16 != 0 (the caller casts tg and
+// fg, as the TPU kernel casts them to x.dtype), else float32. Returns
+// cudaErrorInvalidValue for shapes no kernel takes (I above 32);
 // cuda_cores: the CUDA-core instance wherever it takes the shapes.
-extern "C" int s2_silu_sep_f32(const float* x, const float* s, const float* tg,
-                               const float* fg, float* out, int E, int I, int C,
-                               int G, int cuda_cores, void* stream) {
-  const int which = E < 1 ? -1 : sep_which(I, C, G, cuda_cores);
+extern "C" int s2_silu_sep(const void* x, const void* s, const void* tg, const void* fg,
+                           void* out, int E, int I, int C, int G, int cuda_cores, int bf16,
+                           void* stream) {
+  using B = singa::bf16;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (which == 1) {
-    const SepDims d = make_sep_dims(E, I, C, G);
-    const TcLaunch l = fwd_launch(d);
-    const int grid = singa::persistent_grid(s2_silu_sep_tc_kernel, 32 * l.warps, l.smem,
-                                            (tiles<kFwdCT>(d) + l.warps - 1) / l.warps);
-    s2_silu_sep_tc_kernel<<<grid, 32 * l.warps, l.smem, st>>>(x, s, tg, fg, out, d);
-    return (int)cudaGetLastError();
-  }
-  if (which == 0) {
-    return cc_sep_launch<false, float>(x, s, nullptr, tg, fg, out, nullptr, E, I, C, G, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return sep_fwd((const B*)x, (const B*)s, (const B*)tg, (const B*)fg, (B*)out, E, I, C, G,
+                   cuda_cores, st);
+  return sep_fwd((const float*)x, (const float*)s, (const float*)tg, (const float*)fg,
+                 (float*)out, E, I, C, G, cuda_cores, st);
 }
 
-// K3b, as K3.
-extern "C" int s2_silu_sep_bwd_f32(const float* x, const float* s, const float* g,
-                                   const float* tg, const float* fg, float* dx, float* ds,
-                                   int E, int I, int C, int G, int cuda_cores, void* stream) {
-  const int which = E < 1 ? -1 : sep_which(I, C, G, cuda_cores);
+// K3b, as K3: x, s, g, tg, fg, dx and ds all bfloat16 or all float32.
+extern "C" int s2_silu_sep_bwd(const void* x, const void* s, const void* g, const void* tg,
+                               const void* fg, void* dx, void* ds, int E, int I, int C, int G,
+                               int cuda_cores, int bf16, void* stream) {
+  using B = singa::bf16;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (which == 1) {
-    const SepDims d = make_sep_dims(E, I, C, G);
-    const TcLaunch l = bwd_launch(d);
-    const int grid = singa::persistent_grid(s2_silu_sep_bwd_tc_kernel, 32 * l.warps, l.smem,
-                                            (tiles<kBwdCT>(d) + l.warps - 1) / l.warps);
-    s2_silu_sep_bwd_tc_kernel<<<grid, 32 * l.warps, l.smem, st>>>(x, s, g, tg, fg, dx, ds, d);
-    return (int)cudaGetLastError();
-  }
-  if (which == 0) {
-    return cc_sep_launch<true, float>(x, s, g, tg, fg, dx, ds, E, I, C, G, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return sep_bwd((const B*)x, (const B*)s, (const B*)g, (const B*)tg, (const B*)fg, (B*)dx,
+                   (B*)ds, E, I, C, G, cuda_cores, st);
+  return sep_bwd((const float*)x, (const float*)s, (const float*)g, (const float*)tg,
+                 (const float*)fg, (float*)dx, (float*)ds, E, I, C, G, cuda_cores, st);
 }
 
 
@@ -943,27 +1084,4 @@ extern "C" int s2_silu_bwd_f32(const float* x, const float* g, const float* tg, 
     });
   if (which >= 0) return s2_silu_launch<true>(x, g, tg, fg, dx, N, I, C, G, stream);
   return (int)cudaErrorInvalidValue;
-}
-
-// K3's bfloat16 instance (the CUDA-core kernel at T = bf16): x, s, tg, fg
-// and out bfloat16. cudaErrorInvalidValue for shapes it does not take (I
-// above 32, or tg and fg over shared memory).
-extern "C" int s2_silu_sep_bf16(const void* x, const void* s, const void* tg, const void* fg,
-                                void* out, int E, int I, int C, int G, void* stream) {
-  using singa::bf16;
-  if (E < 1 || I < 1 || I > kMaxI || C < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  return cc_sep_launch<false, bf16>((const bf16*)x, (const bf16*)s, nullptr,
-                                    (const bf16*)tg, (const bf16*)fg, (bf16*)out, nullptr, E, I,
-                                    C, G, (cudaStream_t)stream);
-}
-
-// K3b's bfloat16 instance: x, s, g, tg, fg, dx and ds bfloat16.
-extern "C" int s2_silu_sep_bwd_bf16(const void* x, const void* s, const void* g, const void* tg,
-                                    const void* fg, void* dx, void* ds, int E, int I, int C, int G,
-                                    void* stream) {
-  using singa::bf16;
-  if (E < 1 || I < 1 || I > kMaxI || C < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  return cc_sep_launch<true, bf16>((const bf16*)x, (const bf16*)s, (const bf16*)g, (const bf16*)tg,
-                             (const bf16*)fg, (bf16*)dx, (bf16*)ds, E, I, C, G,
-                             (cudaStream_t)stream);
 }

@@ -2,8 +2,9 @@
 // mma.sync (csrc/mma_tf32.cuh) accumulated in float32: grid_chain_tc, K4b's
 // (csrc/so3_ffn_bwd.cu), grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu) and K3's
 // (csrc/s2_act.cu) and K5's, and grid_chain_tc_sep_bwd, K3b's and K5b's (at
-// the end of this file). s2_grid.cuh keeps the CUDA-core chain of K5's and
-// K5b's CUDA-core instance and of K4's.
+// the end of this file); the last two also at bfloat16 storage, one TF32
+// product a product (K3's and K3b's bfloat16 instances). s2_grid.cuh keeps
+// the CUDA-core chain of K5's and K5b's CUDA-core instance and of K4's.
 //
 // grid_chain_tc: the function of s2_grid.cuh's grid_chain<NCOL, true,
 // true, true>, with its four products as split TF32.
@@ -291,6 +292,14 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 // zero, columns I .. 16 MT - 1 of fg zero). kMaxKS and kMaxMT bound the
 // k steps and m16 tiles the loops unroll over (K3, and K5 at I <= 32: 4
 // and 2; K5 at 33 <= I <= 48: 6 and 3).
+//
+// T (float by default) is the storage type of the caller's data. At T =
+// bf16 (K3's bfloat16 instance, I0 = 0) X^T's fragments hold the hi plane
+// alone (tc::kFragWords<T> words), each product is one TF32 mma.sync
+// (tc::mma_t), and every operand is rounded to bfloat16 as it splits
+// (tc::split_t): the identity on tg and fg, bfloat16 values staged as
+// float, and on silu(v) the Pallas kernel's .astype(dt) before the
+// from-grid product; the sums stay float32.
 constexpr int kFwdMaxKS = 6;                // k steps of the to-grid product
 constexpr int kFwdMaxMT = 3;                // m16 tiles of the from-grid output
 
@@ -314,7 +323,8 @@ __device__ __forceinline__ float silu_grad_fast(float v) {
   return sg * (1.f + v * (1.f - sg));
 }
 
-template <int I0, int kSteps, int kCT, int kMaxKS = kFwdMaxKS, int kMaxMT = kFwdMaxMT>
+template <int I0, int kSteps, int kCT, int kMaxKS = kFwdMaxKS, int kMaxMT = kFwdMaxMT,
+          class T = float>
 __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, const float* sfg,
                                                   int sf, const uint32_t* xfrag,
                                                   const float* xtail, int I, int groups, int cg,
@@ -326,12 +336,14 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
   static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0 (I <= 48)");
   static_assert(!kTail || (kMaxKS >= kTailRow / 8 && kMaxMT >= kTailRow / 16),
                 "the tail row's k steps and m16 tiles fit the loops");
+  static_assert(!kTail || !tc::kIsBf16<T>, "the tail row is float32's");
+  constexpr int FW = tc::kFragWords<T>;  // words of one X^T fragment
   const int KS = kTail ? kTailRow / 8 : (I + 7) / 8;
   const int MT = kTail ? kTailRow / 16 : (I + 15) / 16;
   const int grp = tc::lane_grp(), tig = tc::lane_tig();
   // the fragment of (k step ks, the warp's column group c) at + ks kstep + c
-  const uint32_t* xf = xfrag + kCT * cg * tc::kSplitFragWords;
-  const int kstep = groups * tc::kSplitFragWords;
+  const uint32_t* xf = xfrag + kCT * cg * FW;
+  const int kstep = groups * FW;
   const float* xt = xtail + 16 * kCT * cg + grp;  // X's tail row, column grp of n8 tile j: xt[8 j]
 #pragma unroll
   for (int mt = 0; mt < kMaxMT; ++mt)
@@ -359,15 +371,15 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
         tc::FragA a[kCT];
 #pragma unroll
         for (int c = 0; c < kCT; ++c)
-          a[c] = tc::frag_a_split(xf + ks * kstep + c * tc::kSplitFragWords);
+          a[c] = tc::frag_a_split_t<T>(xf + ks * kstep + c * FW);
 #pragma unroll
         for (int u = 0; u < kSteps; ++u) {
           const float2 t = *reinterpret_cast<const float2*>(tb + 8 * u * st + 8 * ks);
           tc::FragB b;
-          tc::split(t.x, b.hi[0], b.lo[0]);
-          tc::split(t.y, b.hi[1], b.lo[1]);
+          tc::split_t<T>(t.x, b.hi[0], b.lo[0]);
+          tc::split_t<T>(t.y, b.hi[1], b.lo[1]);
 #pragma unroll
-          for (int c = 0; c < kCT; ++c) tc::mma3(v[u][c], a[c], b);
+          for (int c = 0; c < kCT; ++c) tc::mma_t<T>(v[u][c], a[c], b);
         }
       }
     }
@@ -395,7 +407,7 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
       for (int j = 0; j < 2 * kCT; ++j)
 #pragma unroll
         for (int p = 0; p < 2; ++p)
-          tc::split(silu_fast(v[u][j >> 1][2 * (j & 1) + p]), b[j].hi[p], b[j].lo[p]);
+          tc::split_t<T>(silu_fast(v[u][j >> 1][2 * (j & 1) + p]), b[j].hi[p], b[j].lo[p]);
       if (kTail) {  // the tail row's share, float32, from the split activations
         const float f0 = sfg[gu * sf + kTailRow], f1 = sfg[(gu + 1) * sf + kTailRow];
 #pragma unroll
@@ -409,12 +421,12 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
         if (kTail || mt < MT) {
           const float* p = sfg + gu * sf + 16 * mt + grp;
           tc::FragA a;
-          tc::split(p[0], a.hi[0], a.lo[0]);        // row grp,     point 2 tig
-          tc::split(p[8], a.hi[1], a.lo[1]);        // row grp + 8, point 2 tig
-          tc::split(p[sf], a.hi[2], a.lo[2]);       // row grp,     point 2 tig + 1
-          tc::split(p[sf + 8], a.hi[3], a.lo[3]);   // row grp + 8, point 2 tig + 1
+          tc::split_t<T>(p[0], a.hi[0], a.lo[0]);        // row grp,     point 2 tig
+          tc::split_t<T>(p[8], a.hi[1], a.lo[1]);        // row grp + 8, point 2 tig
+          tc::split_t<T>(p[sf], a.hi[2], a.lo[2]);       // row grp,     point 2 tig + 1
+          tc::split_t<T>(p[sf + 8], a.hi[3], a.lo[3]);   // row grp + 8, point 2 tig + 1
 #pragma unroll
-          for (int j = 0; j < 2 * kCT; ++j) tc::mma3(acc[mt][j], a, b[j]);
+          for (int j = 0; j < 2 * kCT; ++j) tc::mma_t<T>(acc[mt][j], a, b[j]);
         }
       }
     }
@@ -448,7 +460,10 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
 // tg[g, r] h (h in float32, unsplit), in tail[j] (column grp of n8 tile
 // j), which the caller sums over the four lanes of a column. I0 = 0: any
 // I <= 8 kMaxKS, every row through mma; the tail arguments go unread.
-template <int kSteps, int kCT, int kMaxKS, int kMaxMT, int I0 = 0>
+// T as in grid_chain_tc_fwd (K3b's bfloat16 instance: h = silu'(v) u is
+// rounded to bfloat16 as it splits, the Pallas kernel's .astype(dt)
+// before dx's product).
+template <int kSteps, int kCT, int kMaxKS, int kMaxMT, int I0 = 0, class T = float>
 __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const float* sfg, int st,
                                                       const float* sta, int sa,
                                                       const uint32_t* xfrag,
@@ -463,10 +478,12 @@ __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const fl
   static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0");
   static_assert(!kTail || (kMaxKS == kTailRow / 8 && kMaxMT == kTailRow / 16),
                 "the loops are the rows before the tail row");
+  static_assert(!kTail || !tc::kIsBf16<T>, "the tail row is float32's");
+  constexpr int FW = tc::kFragWords<T>;  // words of one X^T or Y^T fragment
   const int KS = kTail ? kTailRow / 8 : (I + 7) / 8;
   const int MT = kTail ? kTailRow / 16 : (I + 15) / 16;
   const int grp = tc::lane_grp(), tig = tc::lane_tig();
-  const int kstep = groups * tc::kSplitFragWords;
+  const int kstep = groups * FW;
   if (kTail) {
 #pragma unroll
     for (int j = 0; j < 2 * kCT; ++j) tail[j] = 0.f;
@@ -494,27 +511,27 @@ __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const fl
         tc::FragA a[kCT];
 #pragma unroll
         for (int c = 0; c < kCT; ++c)
-          a[c] = tc::frag_a_split(xfrag + ks * kstep + c * tc::kSplitFragWords);
+          a[c] = tc::frag_a_split_t<T>(xfrag + ks * kstep + c * FW);
 #pragma unroll
         for (int w = 0; w < kSteps; ++w) {
           const float2 t = *reinterpret_cast<const float2*>(stg + tb + 8 * w * st + 8 * ks);
           tc::FragB b;
-          tc::split(t.x, b.hi[0], b.lo[0]);
-          tc::split(t.y, b.hi[1], b.lo[1]);
+          tc::split_t<T>(t.x, b.hi[0], b.lo[0]);
+          tc::split_t<T>(t.y, b.hi[1], b.lo[1]);
 #pragma unroll
-          for (int c = 0; c < kCT; ++c) tc::mma3(v[w][c], a[c], b);
+          for (int c = 0; c < kCT; ++c) tc::mma_t<T>(v[w][c], a[c], b);
         }
 #pragma unroll
         for (int c = 0; c < kCT; ++c)
-          a[c] = tc::frag_a_split(yfrag + ks * kstep + c * tc::kSplitFragWords);
+          a[c] = tc::frag_a_split_t<T>(yfrag + ks * kstep + c * FW);
 #pragma unroll
         for (int w = 0; w < kSteps; ++w) {
           const float2 t = *reinterpret_cast<const float2*>(sfg + tb + 8 * w * st + 8 * ks);
           tc::FragB b;
-          tc::split(t.x, b.hi[0], b.lo[0]);
-          tc::split(t.y, b.hi[1], b.lo[1]);
+          tc::split_t<T>(t.x, b.hi[0], b.lo[0]);
+          tc::split_t<T>(t.y, b.hi[1], b.lo[1]);
 #pragma unroll
-          for (int c = 0; c < kCT; ++c) tc::mma3(u[w][c], a[c], b);
+          for (int c = 0; c < kCT; ++c) tc::mma_t<T>(u[w][c], a[c], b);
         }
       }
     }
@@ -552,19 +569,19 @@ __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const fl
           const int q = 2 * (j & 1) + p;
           const float h = silu_grad_fast(v[w][j >> 1][q]) * u[w][j >> 1][q];
           if (kTail) tail[j] = fmaf(p == 0 ? t0 : t1, h, tail[j]);  // dx row r's share
-          tc::split(h, b[j].hi[p], b[j].lo[p]);
+          tc::split_t<T>(h, b[j].hi[p], b[j].lo[p]);
         }
 #pragma unroll
       for (int mt = 0; mt < kMaxMT; ++mt) {
         if (kTail || mt < MT) {
           const float* p = sta + gu * sa + 16 * mt + grp;
           tc::FragA a;
-          tc::split(p[0], a.hi[0], a.lo[0]);        // row grp,     point 2 tig
-          tc::split(p[8], a.hi[1], a.lo[1]);        // row grp + 8, point 2 tig
-          tc::split(p[sa], a.hi[2], a.lo[2]);       // row grp,     point 2 tig + 1
-          tc::split(p[sa + 8], a.hi[3], a.lo[3]);   // row grp + 8, point 2 tig + 1
+          tc::split_t<T>(p[0], a.hi[0], a.lo[0]);        // row grp,     point 2 tig
+          tc::split_t<T>(p[8], a.hi[1], a.lo[1]);        // row grp + 8, point 2 tig
+          tc::split_t<T>(p[sa], a.hi[2], a.lo[2]);       // row grp,     point 2 tig + 1
+          tc::split_t<T>(p[sa + 8], a.hi[3], a.lo[3]);   // row grp + 8, point 2 tig + 1
 #pragma unroll
-          for (int j = 0; j < 2 * kCT; ++j) tc::mma3(acc[mt][j], a, b[j]);
+          for (int j = 0; j < 2 * kCT; ++j) tc::mma_t<T>(acc[mt][j], a, b[j]);
         }
       }
     }

@@ -9,21 +9,25 @@ gradients of ``x`` and ``scalars``; row 0 of the cotangent reaches only
 ``scalars``. Both CUDA kernels (``csrc/s2_act.cu``) keep the ``[E, G, C]``
 grid tensor out of device memory: as split-TF32 ``mma.sync`` chains on the
 tensor cores where they take the shapes (``I <= 32``, ``C`` a multiple of
-16), else on the CUDA cores (``s2_silu_sep_instance`` says which).
+16), else on the CUDA cores (``s2_silu_sep_instance`` says which), at
+either dtype.
 ``s2_silu_sep`` goes through one ``torch.autograd.Function``: plain versions
 for CPU tensors, the kernels for CUDA tensors.
 
-K3 and K3b have bfloat16 instances (the bfloat16 training path's): their
-CUDA-core kernels at bfloat16 storage of x, scalars, the grid matrices
-(cast to bfloat16 by the caller, as the TPU kernel casts them to
-``x.dtype``) and the outputs, counted in ``launches_bf16`` and
-``launches_bwd_bf16``. They are the function ``_sep_fwd_kernel`` and
-``_sep_bwd_kernel`` compute at a bfloat16 x and round where those round:
-products summed in float32, ``silu(grid)`` rounded before the from-grid
-product, the row-0 gate ``silu(scalars)`` in float32; backward, ``h =
-silu'(v) u`` rounded before ``dx = tg^T h``; every output rounded once.
-``s2_silu_sep_bf16_plain`` and ``s2_silu_sep_bf16_bwd_plain`` are their
-plain twins. K5 has no bfloat16 instance (it is on no path).
+K3 and K3b have bfloat16 instances (the bfloat16 training path's) at
+bfloat16 storage of x, scalars, the grid matrices (cast to bfloat16 by the
+caller, as the TPU kernel casts them to ``x.dtype``) and the outputs,
+counted in ``launches_bf16`` and ``launches_bwd_bf16``: their tensor-core
+kernels at bfloat16, one TF32 product where float32 takes three (a
+bfloat16 value is a TF32 value), at the shapes they take, else their
+CUDA-core kernels at bfloat16; ``cuda_cores`` as at float32. They are the
+function ``_sep_fwd_kernel`` and ``_sep_bwd_kernel`` compute at a bfloat16
+x and round where those round: products summed in float32, ``silu(grid)``
+rounded before the from-grid product, the row-0 gate ``silu(scalars)`` in
+float32; backward, ``h = silu'(v) u`` rounded before ``dx = tg^T h``;
+every output rounded once. ``s2_silu_sep_bf16_plain`` and
+``s2_silu_sep_bf16_bwd_plain`` are their plain twins. K5 has no bfloat16
+instance (it is on no path).
 
 K5 replaces ``s2_act.py::s2_silu`` (``s2_silu_pallas``, ``_fwd_kernel``):
 ``from_grid . silu(to_grid . x)`` on every row, for any ``I`` up to 64. K5b
@@ -111,32 +115,33 @@ def s2_silu_sep_bwd_plain(x, scalars, to_grid, from_grid, g):
 
 
 @functools.cache
-def _fn(name: str, n_ptr: int, n_int: int = 4):
+def _fn(name: str, n_ptr: int, n_int: int):
     fn = getattr(build.load("s2_act"), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def s2_silu_sep_instance(I: int, C: int, G: int) -> str | None:
-    """Which of K3's (and K3b's) kernels runs these shapes (any E):
-    "tensor_cores", "cuda_cores", or None for a shape neither takes.
-    Launches nothing."""
+def s2_silu_sep_instance(I: int, C: int, G: int, bf16: bool = False) -> str | None:
+    """Which of K3's (and K3b's) kernels runs these shapes (any E; ``bf16``:
+    their bfloat16 instances): "tensor_cores", "cuda_cores", or None for a
+    shape neither takes. Launches nothing."""
     fn = build.load("s2_act").s2_silu_sep_instance
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(I, C, G))
+    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(I, C, G, int(bf16)))
 
 
-def sep_residency(I: int, C: int, G: int, bwd: bool = False) -> dict:
-    """K3's tensor-core kernel (``bwd``: K3b's) at these shapes: resident
-    blocks per SM (-1: shapes it does not take), threads and dynamic shared
-    memory per block. For reports; launches nothing."""
+def sep_residency(I: int, C: int, G: int, bwd: bool = False, bf16: bool = False) -> dict:
+    """K3's tensor-core kernel (``bwd``: K3b's; ``bf16``: its bfloat16
+    instance) at these shapes: resident blocks per SM (-1: shapes it does
+    not take), threads and dynamic shared memory per block. For reports;
+    launches nothing."""
     fn = build.load("s2_act").s2_silu_sep_residency
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = fn(I, C, G, int(bwd), ctypes.byref(smem), ctypes.byref(threads))
+    per_sm = fn(I, C, G, int(bwd), int(bf16), ctypes.byref(smem), ctypes.byref(threads))
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
@@ -155,26 +160,25 @@ def _check_args(x, scalars, to_grid, from_grid):
 
 
 def s2_silu_sep_cuda(x, scalars, to_grid, from_grid, cuda_cores: bool = False) -> torch.Tensor:
-    """The K3 kernel: the tensor-core one where it takes the shapes
-    (``s2_silu_sep_instance``), else the CUDA-core one; ``cuda_cores``: the
-    CUDA-core one wherever it takes them (to time the two)."""
+    """The K3 kernel (at a bfloat16 x its bfloat16 instance): the
+    tensor-core one where it takes the shapes (``s2_silu_sep_instance``),
+    else the CUDA-core one; ``cuda_cores``: the CUDA-core one wherever it
+    takes them (to time the two)."""
     global launches, launches_bf16
     E, I, C, G = _check_args(x, scalars, to_grid, from_grid)
     x, scalars, to_grid, from_grid = (build.aligned(t) for t in (x, scalars, to_grid, from_grid))
     out = torch.empty_like(x)
     if E == 0:
         return out
-    ptrs = (x.data_ptr(), scalars.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
-            out.data_ptr())
-    if x.dtype == torch.bfloat16:  # the bfloat16 instance: the CUDA-core kernel
-        status = _fn("s2_silu_sep_bf16", 5)(*ptrs, E, I, C, G, build.stream_ptr(x))
-        build.check(status, "s2_silu_sep")
-        launches_bf16 += 1
-        return out
-    status = _fn("s2_silu_sep_f32", 5, 5)(*ptrs, E, I, C, G, int(cuda_cores),
-                                          build.stream_ptr(x))
+    bf16 = x.dtype == torch.bfloat16
+    status = _fn("s2_silu_sep", 5, 6)(
+        x.data_ptr(), scalars.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
+        out.data_ptr(), E, I, C, G, int(cuda_cores), int(bf16), build.stream_ptr(x))
     build.check(status, "s2_silu_sep")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -190,17 +194,16 @@ def s2_silu_sep_bwd_cuda(x, scalars, to_grid, from_grid, g, cuda_cores: bool = F
     ds = torch.empty_like(scalars)
     if E == 0:
         return dx, ds
-    ptrs = (x.data_ptr(), scalars.data_ptr(), g.data_ptr(), to_grid.data_ptr(),
-            from_grid.data_ptr(), dx.data_ptr(), ds.data_ptr())
-    if x.dtype == torch.bfloat16:
-        status = _fn("s2_silu_sep_bwd_bf16", 7)(*ptrs, E, I, C, G, build.stream_ptr(x))
-        build.check(status, "s2_silu_sep_bwd")
-        launches_bwd_bf16 += 1
-        return dx, ds
-    status = _fn("s2_silu_sep_bwd_f32", 7, 5)(*ptrs, E, I, C, G, int(cuda_cores),
-                                              build.stream_ptr(x))
+    bf16 = x.dtype == torch.bfloat16
+    status = _fn("s2_silu_sep_bwd", 7, 6)(
+        x.data_ptr(), scalars.data_ptr(), g.data_ptr(), to_grid.data_ptr(),
+        from_grid.data_ptr(), dx.data_ptr(), ds.data_ptr(), E, I, C, G, int(cuda_cores),
+        int(bf16), build.stream_ptr(x))
     build.check(status, "s2_silu_sep_bwd")
-    launches_bwd += 1
+    if bf16:
+        launches_bwd_bf16 += 1
+    else:
+        launches_bwd += 1
     return dx, ds
 
 

@@ -1338,10 +1338,12 @@ def _kernels_run(fn, tries=3):
     profiler returns no device event at all for about one traced call in
     450, two consecutive traces at a time, whatever the call (a torch
     elementwise op too; its host events hold the launch):
-    tools/profiler_traces.py measures it. A trace with none is taken again,
-    fn with it, up to ``tries`` times (past such a pair), and each empty
-    trace is reported as a warning, with what it did hold, so that a run's
-    warnings summary counts them."""
+    tools/profiler_traces.py measures it; and a trace may hold some of the
+    call's kernels and not others. A trace with fewer device kernels than
+    its host events launched (``cudaLaunchKernel`` and the like) is taken
+    again, fn with it, up to ``tries`` times (past such a pair), and each
+    such trace is reported as a warning, with what it did hold, so that a
+    run's warnings summary counts them."""
     from torch.profiler import ProfilerActivity, profile
 
     for calls in range(1, tries + 1):
@@ -1350,14 +1352,107 @@ def _kernels_run(fn, tries=3):
             out = fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        names = [e.key for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [e.key for e in device]
+        launched = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                       and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+        kernels = sum(e.count for e in device if not e.is_user_annotation
+                      and not e.key.startswith(("Memcpy", "Memset")))
+        if names and kernels >= launched:
             break
         host = [e.key for e in events]
         api = sorted({k for k in host if k.startswith("cu")})
-        warnings.warn(f"_kernels_run: trace {calls} of {tries} held no device event "
-                      f"({len(host)} host events; CUDA API calls {api})", stacklevel=2)
+        warnings.warn(f"_kernels_run: trace {calls} of {tries} held {kernels} device kernels "
+                      f"of {launched} launched ({names}; {len(host)} host events; CUDA API "
+                      f"calls {api})", stacklevel=2)
     return out, names, calls
+
+
+# K3's and K3b's bfloat16 cases (E, C, lmax, tensor cores): the lmax 6 / mmax 2
+# grid at 50 edges and at a training microbatch's 31,744 stage-1 edges; C
+# 16 with a ragged last warp tile (37 x 16 columns: the 32-column tiles end
+# half full); lmax 4 and 2 (C 64, and C 16 ragged); one edge of 16
+# channels; then C 100, which only the CUDA-core instance takes
+K3_BF16_CASES = [(50, 128, 6, True), (31744, 128, 6, True), (37, 16, 6, True),
+                 (37, 64, 4, True), (9, 16, 2, True), (1, 16, 6, True), (9, 100, 6, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,lmax,tc", K3_BF16_CASES)
+def test_s2_silu_sep_bf16_instance_by_shape_and_kernel(dev, E, C, lmax, tc):
+    """K3's and K3b's bfloat16 instances against their bfloat16 twins, and
+    which kernels ran: the tensor-core kernels at bfloat16 (never the
+    CUDA-core instance) at the shapes they take, the CUDA-core kernels at
+    bfloat16 at C 100 and, under ``cuda_cores=True``, at every case; one
+    bfloat16 launch a call, none of the float32 counters."""
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    x, s, tg, fg, g = (a.to(torch.bfloat16) for a in _sep_case(dev, E, C, lmax, 71 + E, True))
+    I, G = tg.shape[1], tg.shape[0]
+    assert k3.s2_silu_sep_instance(I, C, G, bf16=True) == ("tensor_cores" if tc else "cuda_cores")
+    want = k3.s2_silu_sep_plain(x, s, tg, fg)
+    want_g = k3.s2_silu_sep_bwd_plain(x, s, tg, fg, g)
+    for cuda_cores in (False, True):
+        n = (k3.launches, k3.launches_bwd, k3.launches_bf16, k3.launches_bwd_bf16)
+        got, names, calls = _kernels_run(
+            lambda: k3.s2_silu_sep_cuda(x, s, tg, fg, cuda_cores=cuda_cores))
+        _check_bf16([got], [want], ["out"])
+        grads, bnames, bcalls = _kernels_run(
+            lambda: k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g, cuda_cores=cuda_cores))
+        _check_bf16(grads, want_g, ["dx", "ds"])
+        assert (k3.launches, k3.launches_bwd, k3.launches_bf16, k3.launches_bwd_bf16) == (
+            n[0], n[1], n[2] + calls, n[3] + bcalls)
+        for ran, kernel in ((names, "s2_silu_sep_"), (bnames, "s2_silu_sep_bwd_")):
+            ran = [m for m in ran if "s2_silu_sep" in m]
+            ran_tc = [m for m in ran if f"{kernel}tc_kernel" in m]
+            ran_cc = [m for m in ran if f"cc::{kernel}kernel" in m]
+            assert all("bfloat16" in m for m in ran) and len(ran) == 1, ran
+            if tc and not cuda_cores:
+                assert ran_tc and not ran_cc, ran
+            else:
+                assert ran_cc and not ran_tc, ran
+
+
+@pytest.mark.cuda
+def test_s2_silu_sep_bf16_residency(dev):
+    """K3's and K3b's bfloat16 tensor-core kernels take the shapes their
+    float32 kernels take (lmax 6, 4, 2 at mmax 2; I 32) and no other; their
+    blocks at I 29, C 128, G 70: one an SM, K3 20 warps of 32 columns in
+    150,208 B of shared memory, K3b 15 warps of 32 columns in 225,888 B
+    (the fragments' hi plane alone and bfloat16 raw stages: half the
+    float32 kernels' bytes a column); the float32 kernels' residency is
+    unchanged."""
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    shapes = [(29, 128, 70), (19, 64, 50), (9, 16, 42), (32, 16, 70), (29, 100, 70),
+              (29, 8, 70), (9, 1, 42), (36, 128, 20), (33, 16, 70)]
+    assert ({w: k3.s2_silu_sep_instance(*w, bf16=True) for w in shapes}
+            == {w: k3.s2_silu_sep_instance(*w) for w in shapes})
+    fwd = k3.sep_residency(29, 128, 70, bf16=True)
+    bwd = k3.sep_residency(29, 128, 70, bwd=True, bf16=True)
+    assert fwd == {"blocks_per_sm": 1, "threads": 640, "smem_bytes": 150208}, fwd
+    assert bwd == {"blocks_per_sm": 1, "threads": 480, "smem_bytes": 225888}, bwd
+    assert k3.sep_residency(29, 100, 70, bf16=True)["blocks_per_sm"] == -1
+    assert k3.sep_residency(29, 128, 70) == {"blocks_per_sm": 1, "threads": 512,
+                                             "smem_bytes": 219776}
+
+
+@pytest.mark.cuda
+def test_s2_silu_sep_bf16_takes_misaligned_inputs(dev):
+    """K3's and K3b's bfloat16 instances given every tensor input as a
+    contiguous view at a 2-byte offset (their 16-byte cp.async and 4-byte
+    loads would fault) run through the wrappers' aligned copies, on their
+    tensor-core kernels, and match their twins."""
+    from singa_tpu_torch.ops.cuda import s2_act as k3
+
+    args = [a.to(torch.bfloat16) for a in _sep_case(dev, 37, 128, 6, 99, cotangent=True)]
+    mis = [_misaligned(a) for a in args]
+    got, names, _ = _kernels_run(lambda: k3.s2_silu_sep_cuda(*mis[:4]))
+    _check_bf16([got], [k3.s2_silu_sep_plain(*args[:4])], ["out"])
+    grads, bnames, _ = _kernels_run(lambda: k3.s2_silu_sep_bwd_cuda(*mis))
+    _check_bf16(grads, k3.s2_silu_sep_bwd_plain(*args), ["dx", "ds"])
+    assert [m for m in names + bnames if "cc::s2_silu_sep" in m] == []
+    assert len([m for m in names + bnames if "s2_silu_sep" in m and "tc_kernel" in m]) == 2
 
 
 # K2b's bfloat16 cases (lmax, N, H, C, Co, tensor cores): Config()'s widths

@@ -38,6 +38,13 @@ K3's forward and K3b's backward with their grid transforms split
 magnitude of ``s2_silu_sep_plain`` / ``s2_silu_sep_bwd_plain`` and of the
 JAX package's ``s2_silu_sep`` and its VJP in interpret mode; with one TF32
 product each they fail the holds ``chip_smoke.py`` holds the kernels to.
+Their bfloat16 instances (``k3_split_bf16``, ``k3b_split_bf16``: bfloat16
+operands, one TF32 product a product, silu(v) and h rounded to bfloat16 as
+they enter the second product, float32 sums, outputs rounded once) are
+within ``BF16_TOL`` of each output's largest magnitude, at most 1 % of the
+elements unequal, of JAX's ``s2_silu_sep`` and its VJP at bfloat16 (Pallas
+in interpret mode) and of the port's bfloat16 twins; without the inner
+rounding, more than 1 % of out's and dx's elements differ from JAX's.
 K5's forward and K5b's backward with their grid transforms split as their
 tensor-core kernels take them (``k5_split``, ``k5b_split``: at I 49 row 48
 in float32) are within 1e-5 of each output's largest magnitude of
@@ -334,6 +341,56 @@ def k3b_split(x, s, tg, fg, g, mm=mm_split):
     for g0 in range(0, tg.shape[0], K3_STEP):
         dx += mm(tg[g0:g0 + K3_STEP].T, h[g0:g0 + K3_STEP])
     return dx.reshape(I, E, C).transpose(0, 1).contiguous(), silu_grad(s) * g[:, 0]
+
+
+def _rounded_bf16(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` rounded to bfloat16 (to nearest even) and back."""
+    return a.to(torch.bfloat16).float()
+
+
+def k3_split_bf16(x, s, tg, fg, inner: bool = True):
+    """K3's bfloat16 instance as its tensor-core kernel takes it, at
+    bfloat16 x, s, tg and fg (``s2_silu_sep_bf16_plain``'s arguments): v =
+    tg X over the flat (edge, channel) columns as one TF32 product
+    (``mm_tf32``: exact for bfloat16 operands); silu(v) rounded to bfloat16
+    as it enters the from-grid product (``inner``; the Pallas kernel's
+    ``.astype(dt)``, ``singa_tpu/ops/pallas/s2_act.py:142``); the from-grid
+    sums fg^T silu(v) step by step over K3_STEP grid points, each step's
+    one-product sum added in float32 in order; row 0 silu(s) in float32;
+    the output rounded once to bfloat16. ``inner=False``: the same without
+    the inner rounding (silu(v) goes in as TF32)."""
+    E, I, C = x.shape
+    act = F.silu(mm_tf32(tg.float(), _columns(x.float())))
+    if inner:
+        act = _rounded_bf16(act)
+    out = torch.zeros(I, E * C)
+    for g0 in range(0, tg.shape[0], K3_STEP):
+        out += mm_tf32(fg[g0:g0 + K3_STEP].float().T, act[g0:g0 + K3_STEP])
+    out = out.reshape(I, E, C).transpose(0, 1).clone()
+    out[:, 0] = F.silu(s.float())
+    return out.to(torch.bfloat16)
+
+
+def k3b_split_bf16(x, s, tg, fg, g, inner: bool = True):
+    """K3b's bfloat16 instance as its tensor-core kernel takes it, at
+    bfloat16 inputs (``s2_silu_sep_bf16_bwd_plain``'s): v = tg X and u =
+    fg' Y (fg' = fg with column 0 zeroed) each as one TF32 product; h =
+    silu'(v) u in float32, rounded to bfloat16 as it enters dx's product
+    (``inner``; ``s2_act.py:160``); dx = tg^T h step by step over K3_STEP
+    grid points in float32, rounded once; ds = silu'(s) g[:, 0] in float32,
+    rounded once. ``inner=False``: h goes in as TF32."""
+    E, I, C = x.shape
+    fgz = fg.float().clone()
+    fgz[:, 0] = 0
+    h = (silu_grad(mm_tf32(tg.float(), _columns(x.float())))
+         * mm_tf32(fgz, _columns(g.float())))
+    if inner:
+        h = _rounded_bf16(h)
+    dx = torch.zeros(I, E * C)
+    for g0 in range(0, tg.shape[0], K3_STEP):
+        dx += mm_tf32(tg[g0:g0 + K3_STEP].float().T, h[g0:g0 + K3_STEP])
+    ds = silu_grad(s.float()) * g[:, 0].float()
+    return dx.reshape(I, E, C).transpose(0, 1).to(torch.bfloat16), ds.to(torch.bfloat16)
 
 
 def _tail_rows(I: int) -> int:
@@ -828,6 +885,92 @@ def test_k3b_split_matches_plain_and_pallas_backward(lmax, E):
     assert max(errs.values()) <= 1e-5, errs
     assert one["dx"] > 1e-4, one
     assert one["ds"] == errs["ds"], (one, errs)
+
+
+BF16_TOL = 1e-2  # chip_smoke.py's hold of a bfloat16 instance: of each output's largest magnitude
+BF16_UNEQUAL = 0.01  # the share of elements that may differ (tests/test_torch_bf16_kernels.py's)
+
+
+def _bf16_hold(got, want) -> tuple[float, float]:
+    """(largest |got - want| over want's largest magnitude, share of
+    elements unequal) of two bfloat16 outputs."""
+    a, b = got.float(), torch.as_tensor(np.array(want, np.float32))
+    return ((a - b).abs().max() / b.abs().max()).item(), (a != b).float().mean().item()
+
+
+def _k3_bf16_jax(x, s, tg, fg, g):
+    """JAX's ``s2_silu_sep`` and its VJP at bfloat16 x, s and cotangent
+    (the Pallas kernels in interpret mode, which cast tg and fg to
+    bfloat16), as ``tests/test_torch_bf16_kernels.py::_k3`` runs them: out,
+    dx, ds as float32 numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from singa_tpu.dtypes import compute_dtype_scope
+    from singa_tpu.ops.pallas.s2_act import s2_silu_sep
+
+    bf = jnp.bfloat16
+    with compute_dtype_scope("float32"):
+        out, vjp = jax.vjp(lambda a, b: s2_silu_sep(a, b, tg, fg), jnp.asarray(x, bf),
+                           jnp.asarray(s, bf))
+        dx, ds = vjp(jnp.asarray(g, bf))
+    assert out.dtype == dx.dtype == ds.dtype == bf
+    return [np.asarray(t.astype(jnp.float32)) for t in (out, dx, ds)]
+
+
+K3_BF16_CASES = [(6, 1), (6, 37), (4, 1), (4, 37), (2, 1), (2, 37)]
+
+
+@pytest.mark.parametrize("lmax,E", K3_BF16_CASES)
+def test_k3_split_bf16_matches_plain_and_pallas(lmax, E):
+    """K3's and K3b's bfloat16 instances as their tensor-core kernels take
+    them (``k3_split_bf16``, ``k3b_split_bf16``: one TF32 product a
+    product, silu(v) and h rounded to bfloat16 as they enter the second
+    product, float32 sums in K3_STEP steps, the outputs rounded once), at
+    mmax 2 and lmax 6, 4 and 2 (I 29, 19, 9), E 1 and a ragged 37, C 64:
+    out, dx and ds within BF16_TOL of their largest magnitude, at most
+    BF16_UNEQUAL of the elements unequal, against the JAX package's
+    ``s2_silu_sep`` and its VJP at bfloat16 (Pallas, interpret mode) and
+    against the port's bfloat16 twins."""
+    from singa_tpu_torch.ops.cuda.s2_act import (s2_silu_sep_bf16_bwd_plain,
+                                                 s2_silu_sep_bf16_plain)
+
+    x, s, tg, fg, g = _k3_case(lmax, E, 64, 37 + lmax + E)
+    jax_outs = _k3_bf16_jax(x, s, tg, fg, g)
+    args = [torch.as_tensor(a).to(torch.bfloat16) for a in (x, s, tg, fg)]
+    gb = torch.as_tensor(g).to(torch.bfloat16)
+    got = [k3_split_bf16(*args), *k3b_split_bf16(*args, gb)]
+    plain = [s2_silu_sep_bf16_plain(*args), *s2_silu_sep_bf16_bwd_plain(*args, gb)]
+    for name, a, j, p in zip(["out", "dx", "ds"], got, jax_outs, plain):
+        assert a.dtype == p.dtype == torch.bfloat16, name
+        for what, want in (("jax", j), ("plain", p.float())):
+            err, unequal = _bf16_hold(a, want)
+            assert err <= BF16_TOL and unequal <= BF16_UNEQUAL, (name, what, err, unequal)
+
+
+@pytest.mark.parametrize("lmax,E", [(6, 37), (2, 37)])
+def test_k3_split_bf16_without_the_inner_rounding_fails_the_hold(lmax, E):
+    """The hold tells the bfloat16 function from a rendering that skips the
+    inner rounding (silu(v) and h fed to the second product unrounded, as
+    TF32): out and dx, which that rounding reaches, then differ from JAX's
+    bfloat16 result in more than BF16_UNEQUAL of their elements (though
+    within BF16_TOL of their largest), while the rendering with it stays
+    inside; ds, which it does not reach, is the same either way."""
+    x, s, tg, fg, g = _k3_case(lmax, E, 64, 41 + lmax + E)
+    jax_outs = _k3_bf16_jax(x, s, tg, fg, g)
+    args = [torch.as_tensor(a).to(torch.bfloat16) for a in (x, s, tg, fg)]
+    gb = torch.as_tensor(g).to(torch.bfloat16)
+    rounded = [k3_split_bf16(*args), *k3b_split_bf16(*args, gb)]
+    unrounded = [k3_split_bf16(*args, inner=False), *k3b_split_bf16(*args, gb, inner=False)]
+    for name, a, b, j in zip(["out", "dx", "ds"], rounded, unrounded, jax_outs):
+        err, unequal = _bf16_hold(a, j)
+        assert err <= BF16_TOL and unequal <= BF16_UNEQUAL, (name, err, unequal)
+        err, unequal = _bf16_hold(b, j)
+        if name == "ds":
+            assert torch.equal(a, b)
+        else:
+            assert not torch.equal(a, b), name
+            assert unequal > BF16_UNEQUAL, (name, err, unequal)
 
 
 # K5's and K5b's cases: the s2 FFN's full lmax-6 grid (I 49, G 210: row 48
