@@ -166,8 +166,18 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      (batch 32 as one microbatch): kernel_train_s2 / kernel_bwd_s2 (K4 and
      K4b at every distinct call of one step, 6 each), train_s2 (per step
      K4 = K4b = K1 = K1b = K3 = K3b = 6, K2 = K2b = 0), train_profile_s2,
-     train_vs_cpu_s2 and train_cli_s2 (``--config configs/train_corpus.yml``;
-     the generation CLI serves from the checkpoint's s2 config, through K4)
+     train_vs_cpu_s2 and train_cli_s2 (``--config``, a float32 copy of
+     configs/train_corpus.yml; the generation CLI serves from the
+     checkpoint's s2 config, through K4); then the file at its own
+     bfloat16: kernel_train_s2_bf16 / kernel_bwd_s2_bf16 (K4·bf16 and
+     K4b·bf16 at every distinct call of a microbatch, each held to its
+     bfloat16 twin within BF16_TOL, bound at the bfloat16 rate and
+     ``bound_tc_ms`` at one TF32 product), train_s2_bf16 (per step the
+     bfloat16 instances of K1, K1b, K3, K3b, K4, K4b 6 each, every float32
+     count 0), train_profile_s2_bf16 (``k4_kernels``: K4·bf16's kernel and
+     split and K4b·bf16's kernel by name, K4's CUDA-core kernel 0),
+     train_cli_s2_bf16 (``--config configs/train_corpus.yml``) and
+     train_s2_bf16_vs_f32 (both steps' time, busy time, peak memory)
  13. the default Config with SINGA_TPU_FUSED_SO2 set for these phases only
      (every phase before runs with it unset and asserts K6 = K6b = 0):
      kernel_so2 (K6 at every distinct call of one encode_pocket of the 8
@@ -195,19 +205,26 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      scratch against the all-columns one, the kernels' residency, and their
      times with rows by descending live count (theirs) and in index order
  15. the adversarial fine-tuning path under configs/gan_recipe.yml (lmax 4,
-     gate FFN, float32): gan (``singa_tpu_torch.train.gan.main`` at batch 64
-     on data/corpus with 2 CE warm-up steps, 3 rounds of WGAN-GP with the
+     gate FFN), first at its own bfloat16 as a user runs it (suffix _bf16:
+     gan_bf16 with 3 rounds and the --vina-eval report below, every launch
+     one of a bfloat16 instance; gan_kernel_bf16 and gan_profile_bf16; and
+     gan_vs_cpu_bf16, a g step at the recipe's widths cut to lmax 2, card
+     against CPU at bfloat16: the gradients' L2 difference within
+     GAN_BF16_CPU_TOL of their L2 norm, loss and reward within
+     GAN_BF16_LOSS_TOL), then in float32 through a float32 copy of the
+     file: gan (``singa_tpu_torch.train.gan.main`` at batch 64
+     on data/corpus with 2 CE warm-up steps, 2 rounds of WGAN-GP with the
      grammar mask and a quality sample each round, the counts set to 0 just
      before and read just after: each round's host ms split into sample,
      host bridge, d, graph-D and g with torch.cuda.synchronize around each
      part, its launches (K1 = 12, K2 = K3 = 6, K1b = 6, K2b = K3b = 3, the
      rest 0: the sample's encode_pocket and the g step's, forward and
      backward), the losses (all finite), pct_valid, the quality samples and
-     peak memory; ``--vina-eval 8``: the final report docks 8 samples of
-     the encoded batch on the host and carries pct_vina_good, n_vina_scored
-     and vina_mean, its seconds ``vina_eval_s`` apart from ``cli_s``;
-     gan_vina_eval prints that report, which may dock none, as few of a
-     2-CE-step generator's samples parse),
+     peak memory; gan_bf16's ``--vina-eval 8``: the final report docks 8
+     samples of the encoded batch on the host and carries pct_vina_good,
+     n_vina_scored and vina_mean, its seconds ``vina_eval_s`` apart from
+     ``cli_s``; gan_vina_eval_bf16 prints that report, which may dock none,
+     as few of a 2-CE-step generator's samples parse),
      gan_generate (the generation CLI serves one val pocket
      from the final checkpoint: one encode's launches, one CSV row),
      gan_vina (``vina_conditioning_host`` on 8 train complexes on the card
@@ -216,17 +233,19 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      gan_kernel (every distinct call of K1-K3 and K1b-K3b in one g step at
      batch 64, held to its plain version and timed as kernel_train holds
      them; K2, K3 and K3b must take their tensor-core kernels at lmax 4),
-     gan_profile (one round at batch 64 under the profiler: device busy
-     time, idle share, the costliest device ops) and gan_vs_cpu (one g step's loss, mean reward and every generator
+     gan_profile (its g step at batch 64 under the profiler: device busy
+     time, idle share, the costliest device ops; gan_profile_bf16 profiles
+     a whole round) and gan_vs_cpu (one g step's loss, mean reward and every generator
      gradient on the card against the CPU, 2 complexes, the same seeded
      weights and the tokens the card sampled, TRAIN_CPU_TOL)
 then a ``total`` line (the script's seconds so far), the card's name and
 power limit as nvidia-smi prints them, the kernels line and
 ``{"ok": true, "device": {...}}`` last. The kernels line lists all sixteen
-kernels: ``launches`` counted over the training run of the kernel's path
+kernels and their eight bfloat16 instances: ``launches`` counted over the training run of the kernel's path
 (K1-K3, K1b-K3b: train; K4, K4b: train_s2; K6, K6b: train_so2; K7, K7b:
 train_hybrid; K8, K8b: train_dense; K5, K5b: none, 0, with ``"path":
-null``); ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over one
+null``; the bfloat16 instances: K1-K3b's train_bf16, K4's and K4b's
+train_s2_bf16); ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over one
 microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
 call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
@@ -275,16 +294,18 @@ csrc/mma_tf32.cuh, to float32 round-off).
 The bfloat16 phases (kernel_train_bf16, kernel_bwd_bf16, train_bf16,
 train_profile_bf16, train_cli_bf16; configs/train.yml at its own
 bfloat16, 12 launches a step of each bfloat16 instance, every float32
-count 0) hold each instance to its bfloat16 twin within ``BF16_TOL`` of
-each output's largest. All six bfloat16 instances run
+count 0; and the _s2_bf16 phases, configs/train_corpus.yml at its own
+bfloat16, 6 a step of K1, K3, K1b, K3b, K4 and K4b's) hold each instance
+to its bfloat16 twin within ``BF16_TOL`` of each output's largest. All eight bfloat16 instances run
 their tensor-core kernels at bfloat16 storage, one TF32 product for each
 product of two bfloat16 values (exact in float32): their lines carry
 ``bound_tc_ms`` at that one product (``tf32_products``) and
-``cuda_cores`` (their CUDA-core instances at the same call, held to the
-twin the same way; K1's and K1b's also ``walks``, K1's
+``cuda_cores`` (K1-K3b: their CUDA-core instances at the same call, held to the
+twin the same way; K4 and K4b have none at bfloat16; K1's and K1b's also ``walks``, K1's
 ``bound_live_only_ms``), the kernels line their ``cuda_cores_ms``, ptxas
 and residency (``k1_bf16_ptxas``, ``k2_bf16_ptxas``, ``k1b_bf16_ptxas``,
-``k2b_bf16_ptxas``, ``k3_bf16_ptxas`` in the build line; K2b's dx
+``k2b_bf16_ptxas``, ``k3_bf16_ptxas``, ``k4_bf16_ptxas``,
+``k4b_bf16_ptxas`` in the build line; K2b's dx
 kernel's residency as ``dx_residency``); K3's and K3b's also ``host_ms``. Every train_profile* phase requires the tensor-core kernels of
 K1/K7, K2, K1b/K7b, K2b, K3 and K3b to have run where its path runs them:
 K1's plan, tile and copy kernels, K2's weight split, K1b's pair kernel,
@@ -374,6 +395,13 @@ K1_CC = "attn_fwd_kernel"
 # K4's kernels in a profile (csrc/so3_ffn.cu): the tensor-core kernel and the
 # split of its weights, two launches for each K4 call
 K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
+# K4's and K4b's bfloat16 kernels in a profile (their instances at T =
+# bf16): K4's tensor-core kernel and split, two launches for each K4·bf16
+# call, K4b's kernel one for each K4b·bf16 call; K4_CC K4's CUDA-core
+# instance, which runs no bfloat16
+K4_BF16_KERNELS = ("ffn_tc_kernel<.*bfloat16", "ffn_wsplit_kernel<.*bfloat16",
+                   "ffn_bwd_kernel<.*bfloat16")
+K4_CC = "cc::ffn_cc_kernel"
 # K2's kernels in a profile (csrc/so3_gate_ffn.cu): the tensor-core kernel and
 # the split of its weights, two launches for each K2 call; K2_CC its
 # CUDA-core instance
@@ -385,7 +413,17 @@ K3_KERNELS = ("s2_silu_sep_tc_kernel", "s2_silu_sep_bwd_tc_kernel")
 K3_CC = "cc::s2_silu_sep"
 LMAX4_NODES = 14336  # kernel_bwd_lmax4: a training microbatch's nodes
 GAN_CONFIG = os.path.join("configs", "gan_recipe.yml")  # lmax 4, gate FFN, batch 64
-GAN_PRETRAIN, GAN_ROUNDS = 2, 3  # the gan phase's CE warm-up steps and adversarial rounds
+# the gan phases' CE warm-up steps and adversarial rounds: gan_bf16 (the
+# recipe at its own bfloat16, as a user runs it) and gan (float32)
+GAN_PRETRAIN, GAN_ROUNDS, GAN_F32_ROUNDS = 2, 3, 2
+# gan_vs_cpu_bf16: a g step at the recipe's widths cut to lmax 2 on the card
+# and on the CPU at bfloat16; both round at the same points and sum in
+# other orders, so a value near a rounding boundary lands a bfloat16 step
+# apart and carries on (the CPU tests measure the port against JAX at 4-5 %
+# on the g step's gradients, tests/test_torch_bf16_gan.py): the gradients'
+# L2 difference over their L2 norm within 5e-2, the loss and reward within
+# 5e-3 of the CPU's
+GAN_BF16_CPU_TOL, GAN_BF16_LOSS_TOL = 5e-2, 5e-3
 GAN_VINA_EVAL = 8  # the gan phase's --vina-eval: samples docked at the final report
 VINA_KEYS = ("pct_vina_good", "n_vina_scored", "vina_mean")  # what --vina-eval reports
 # the etl and dock phases' complex: a drug-sized val ligand (amlodipine, 28
@@ -442,8 +480,8 @@ def device_profile(fn, match=(), mods=None, expect=None) -> dict:
     ``FunctionEventAvg.is_user_annotation`` (PyTorch 2.4 on; the card's
     PyTorch is 2.11), and their spans' sum is reported apart
     (``annotation_ms``). The idle share is the rest of the unprofiled wall
-    time. ``match``: names; for each, the device time and launches of the
-    kernels whose name contains it.
+    time. ``match``: names (regular expressions); for each, the device time
+    and launches of the kernels whose name it matches (``re.search``).
 
     ``expect(rise)`` (with ``mods``, the kernel modules): from the launch
     counters' rise over the profiled call ({kernel: launches}, counts set
@@ -473,7 +511,7 @@ def device_profile(fn, match=(), mods=None, expect=None) -> dict:
         ops = [e for e in device if not e.is_user_annotation]
         matched = {}
         for name in match:
-            hits = [e for e in ops if name in e.key]
+            hits = [e for e in ops if re.search(name, e.key)]
             matched[name] = {"launches": sum(e.count for e in hits),
                              "device_ms": sum(e.self_device_time_total for e in hits) / 1e3}
         if expect is None:
@@ -1252,7 +1290,10 @@ BF16_PATH = [bf16_instance(K1, True, list_fwd_report), bf16_instance(K2, True, k
              bf16_instance(K2B, True, cuda_cores_report),
              bf16_instance(K3B, True, instance_report)]
 K1_BF16, K2_BF16, K3_BF16, K1B_BF16, K2B_BF16, K3B_BF16 = BF16_PATH
-KERNELS += BF16_PATH
+# configs/train_corpus.yml's at its bfloat16 (K1, K3, K1b, K3b as above)
+S2_BF16_PATH = [bf16_instance(K4, True), bf16_instance(K4B, True)]
+K4_BF16, K4B_BF16 = S2_BF16_PATH
+KERNELS += BF16_PATH + S2_BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
 SO2_PATH = [K6, K6B]  # held at the default Config's, with SINGA_TPU_FUSED_SO2 set
@@ -1522,11 +1563,20 @@ def path_instances(specs, mods, captured, results: dict) -> None:
         results[fwd.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bf16=bf16)
         results[bwd.name]["residency"] = mods["s2_act"].sep_residency(*shapes, bwd=True,
                                                                       bf16=bf16)
-    if K4B in specs:  # K4b's residency at the microbatch's widths
+    if K4_BF16 in specs:  # K4's bfloat16 instance takes the call; its residency
+        x, w1, _, _, _, w2, _, tg, _, lmax = next(iter(captured["so3_ffn_cuda"].values()))[0]
+        widths = (lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
+        if mods["so3_ffn"].s2_fwd_instance(*widths, bf16=True) != "tensor_cores":
+            raise AssertionError(f"K4·bf16 does not take {widths}")
+        results[K4_BF16.name]["residency"] = mods["so3_ffn"].s2_fwd_residency(*widths, bf16=True)
+    for spec, bf16 in ((K4B, False), (K4B_BF16, True)):
+        if spec not in specs:
+            continue
+        # K4b's residency at the microbatch's widths
         args = next(iter(captured["so3_ffn_bwd_cuda"].values()))[0]
         x, w1, _, _, _, w2, tg, _, lmax, _ = args
-        results[K4B.name]["residency"] = mods["so3_ffn"].s2_bwd_residency(
-            lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0])
+        results[spec.name]["residency"] = mods["so3_ffn"].s2_bwd_residency(
+            lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0], bf16=bf16)
 
 
 def train_vs_cpu(dev, cfg, val_files, suffix: str) -> None:
@@ -1670,6 +1720,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         runs_k2b, runs_k1b = k2b_calls > 0, k1b_calls > 0
         runs_k1, runs_k2 = k1_calls > 0, k2_calls > 0
         runs_k4 = per_step.get(K4.name, 0) > 0
+        runs_k4_bf16 = per_step.get(K4_BF16.name, 0) > 0
         runs_k3 = sum(per_step.get(k.name, 0) for k in (K3, K3_BF16)) > 0
         # the hand kernels a call of the path launches once each, by name in
         # a profile, with the kernels whose calls launch them and their
@@ -1679,7 +1730,9 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                 (("gate_ffn_bwd_wsplit_kernel",), (K2B, K2B_BF16), K2B_CC),
                 (("list_bwd_pair_kernel",), (K1B, K7B, K1B_BF16), K1B_CC),
                 (K3_KERNELS[:1], (K3, K3_BF16), K3_CC),
-                (K3_KERNELS[1:], (K3B, K3B_BF16), K3_CC)]
+                (K3_KERNELS[1:], (K3B, K3B_BF16), K3_CC),
+                (K4_BF16_KERNELS[:2], (K4_BF16,), K4_CC),
+                (K4_BF16_KERNELS[2:], (K4B_BF16,), K4_CC)]
         once = [(tcs, specs, cc) for tcs, specs, cc in once
                 if sum(per_step.get(k.name, 0) for k in specs)]
         with ClockSampler() as clocks:
@@ -1689,6 +1742,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                   + (*K1B_KERNELS, K1B_CC) * runs_k1b
                                   + (*K1_KERNELS, K1_CC) * runs_k1
                                   + K4_KERNELS * runs_k4 + (*K2_KERNELS, K2_CC) * runs_k2
+                                  + (*K4_BF16_KERNELS, K4_CC) * runs_k4_bf16
                                   + (*K3_KERNELS, K3_CC) * runs_k3, mods,
                                   lambda rise: {n: sum(rise[k.name] for k in specs)
                                                 for tcs, specs, _ in once for n in tcs})
@@ -1706,6 +1760,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k1_kernels"] = {n: prof["matched"][n] for n in (*K1_KERNELS, K1_CC)}
         if runs_k4:  # K4's kernels by name
             extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
+        if runs_k4_bf16:  # K4's and K4b's bfloat16 kernels by name, none of K4's CUDA-core
+            extra["k4_kernels"] = {n: prof["matched"][n] for n in (*K4_BF16_KERNELS, K4_CC)}
         if runs_k2:  # K2's kernels by name
             extra["k2_kernels"] = {n: prof["matched"][n] for n in (*K2_KERNELS, K2_CC)}
         if runs_k3:  # K3's and K3b's kernels by name
@@ -1714,7 +1770,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         # K1/K7, K2, K1b/K7b, K2b, K3 and K3b ran their tensor-core kernels
         # at every call of the step: K1's plan, tile and copy kernels, K2's
         # weight split, K1b's pair kernel, K2b's weight split and K3's and
-        # K3b's kernels once a call, none of their CUDA-core kernels
+        # K3b's kernels once a call, none of their CUDA-core kernels; at
+        # bfloat16 K4's bfloat16 kernel and split and K4b's kernel too
         for tcs, specs, cc in once:
             calls = sum(per_step.get(k.name, 0) for k in specs)
             got = tuple(prof["matched"][n]["launches"] for n in (*tcs, cc))
@@ -2359,26 +2416,32 @@ def gan_round_timer(mods, rounds: list):
 def gan_round_counts(cfg) -> dict:
     """The launches of every kernel in one adversarial round (d and g steps
     1): two encode_pockets (the sample's and the g step's) and one backward
-    through the second."""
+    through the second; at the config's compute dtype (bfloat16: the
+    bfloat16 instances, every float32 count 0)."""
     enc_layers, blocks = cfg.model.encoder.num_interactions, cfg.embedding.num_layers
-    want = {K1.name: 2 * enc_layers, K2.name: 2 * blocks, K3.name: 2 * blocks,
-            K1B.name: enc_layers, K2B.name: blocks, K3B.name: blocks}
+    k1, k2, k3, k1b, k2b, k3b = (BF16_PATH if cfg.train.compute_dtype == "bfloat16"
+                                 else GATE_PATH)
+    want = {k1.name: 2 * enc_layers, k2.name: 2 * blocks, k3.name: 2 * blocks,
+            k1b.name: enc_layers, k2b.name: blocks, k3b.name: blocks}
     return {k.name: want.get(k.name, 0) for k in KERNELS}
 
 
-def gan_phase(dev, files, mods, cfg) -> None:
-    """gan: ``python -m singa_tpu_torch.train.gan`` as a user runs it under
-    configs/gan_recipe.yml at batch 64 (2 CE warm-up steps, 3 rounds, WGAN-GP,
-    grammar mask, a quality sample each round), the counts set to 0 just
-    before and read just after; gan_vina_eval: its --vina-eval report, whose
+def gan_phase(dev, files, mods, cfg, cfg_path: str, suffix: str, n_rounds: int,
+              vina_eval: int) -> None:
+    """gan{suffix}: ``python -m singa_tpu_torch.train.gan`` as a user runs it
+    under ``cfg_path`` (``cfg``, at its compute dtype) at batch 64 (2 CE
+    warm-up steps, ``n_rounds`` rounds, WGAN-GP, grammar mask, a quality
+    sample each round), the counts set to 0 just before and read just after;
+    with ``vina_eval``, gan_vina_eval{suffix}: its --vina-eval report, whose
     three keys must be there (after 2 CE steps few samples parse, so it may
     dock none: gan_vina is the phase that holds docking to a count); then
-    gan_generate: the generation CLI serves one val pocket from the final
-    checkpoint."""
+    gan_generate{suffix}: the generation CLI serves one val pocket from the
+    final checkpoint."""
     from singa_tpu_torch.generate.generate import main as gen_main
     from singa_tpu_torch.train import gan
 
     per_round = gan_round_counts(cfg)
+    path = GATE_PATH if cfg.train.compute_dtype == "float32" else BF16_PATH
     with tempfile.TemporaryDirectory() as tmp:
         logdir = os.path.join(tmp, "gan")
         rounds: list = []
@@ -2397,11 +2460,11 @@ def gan_phase(dev, files, mods, cfg) -> None:
         gan.vina_conditioning_host = timed_vina
         try:
             with gan_round_timer(mods, rounds):
-                gan.main(["--config", os.path.join(ROOT, GAN_CONFIG),
+                gan.main(["--config", cfg_path,
                           "--data", os.path.join(ROOT, "data", "corpus"), "--batch-size", "64",
                           "--graph-loss", "wgan-gp", "--grammar-mask",
-                          "--pretrain", str(GAN_PRETRAIN), "--rounds", str(GAN_ROUNDS),
-                          "--eval-every", "1", "--vina-eval", str(GAN_VINA_EVAL),
+                          "--pretrain", str(GAN_PRETRAIN), "--rounds", str(n_rounds),
+                          "--eval-every", "1", "--vina-eval", str(vina_eval),
                           "--device", "cuda", "--logdir", logdir])
         finally:
             gan.vina_conditioning_host = docked
@@ -2411,8 +2474,9 @@ def gan_phase(dev, files, mods, cfg) -> None:
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
             metrics = [json.loads(ln) for ln in f]
         losses = [{k.split("/")[1]: m[k] for k in m if k.startswith("gan/")} for m in metrics[:-1]]
-        emit({"phase": "gan", "config": GAN_CONFIG, "batch": 64, "rounds": GAN_ROUNDS,
-              "pretrain_steps": GAN_PRETRAIN, "cli_s": cli_s, "vina_eval": GAN_VINA_EVAL,
+        emit({"phase": f"gan{suffix}", "config": os.path.relpath(cfg_path, ROOT),
+              "compute_dtype": cfg.train.compute_dtype, "batch": 64, "rounds": n_rounds,
+              "pretrain_steps": GAN_PRETRAIN, "cli_s": cli_s, "vina_eval": vina_eval,
               "vina_eval_s": vina_eval_s, "per_round": rounds,
               "launches_per_round_expected": per_round, "launches": counts, "losses": losses,
               "pct_valid": [m.get("gan/pct_valid") for m in metrics[:-1]],
@@ -2421,18 +2485,20 @@ def gan_phase(dev, files, mods, cfg) -> None:
         for r in rounds:
             if r["launches"] != per_round:
                 raise AssertionError(f"gan: a round launched {r['launches']}, expected {per_round}")
-        if len(rounds) != GAN_ROUNDS or any(counts[k.name] == 0 for k in GATE_PATH):
+        if len(rounds) != n_rounds or any(counts[k.name] == 0 for k in path):
             raise AssertionError(f"gan: {len(rounds)} rounds, launches {counts}")
         bad = [ln for ln in losses if not all(np.isfinite(list(ln.values())))]
-        if bad or len(losses) != GAN_ROUNDS:
+        if bad or len(losses) != n_rounds:
             raise AssertionError(f"gan: non-finite losses {losses}")
         final = metrics[-1]
-        vina_report = {k: final.get(f"quality/{k}") for k in VINA_KEYS}
-        emit({"phase": "gan_vina_eval", "vina_eval": GAN_VINA_EVAL, "vina_eval_s": vina_eval_s,
-              **vina_report})
-        if len(vina_eval_s) != 1 or any(v is None for v in vina_report.values()) \
-                or not 0 <= vina_report["n_vina_scored"] <= GAN_VINA_EVAL:
-            raise AssertionError(f"gan: --vina-eval ran {len(vina_eval_s)} times, report {final}")
+        if vina_eval:
+            vina_report = {k: final.get(f"quality/{k}") for k in VINA_KEYS}
+            emit({"phase": f"gan_vina_eval{suffix}", "vina_eval": vina_eval,
+                  "vina_eval_s": vina_eval_s, **vina_report})
+            if len(vina_eval_s) != 1 or any(v is None for v in vina_report.values()) \
+                    or not 0 <= vina_report["n_vina_scored"] <= vina_eval:
+                raise AssertionError(f"gan: --vina-eval ran {len(vina_eval_s)} times, "
+                                     f"report {final}")
 
         # the final checkpoint serves one val pocket through the generation CLI
         out = os.path.join(tmp, "gan.csv")
@@ -2441,8 +2507,8 @@ def gan_phase(dev, files, mods, cfg) -> None:
         gen_counts = read_counts(mods)
         with open(out) as f:
             rows = list(csv.reader(f))
-        emit({"phase": "gan_generate", "checkpoints": sorted(os.listdir(os.path.join(logdir,
-                                                                                    "checkpoints"))),
+        emit({"phase": f"gan_generate{suffix}",
+              "checkpoints": sorted(os.listdir(os.path.join(logdir, "checkpoints"))),
               "launches": gen_counts, "rows": [[r[0][:80], r[1]] for r in rows[1:]]})
         if rows[0] != ["smiles", "score"] or len(rows) != 1 + cfg.generate.topk:
             raise AssertionError(f"gan_generate wrote {rows}")
@@ -2450,16 +2516,21 @@ def gan_phase(dev, files, mods, cfg) -> None:
             raise AssertionError(f"gan_generate launched {gen_counts}")
 
 
-def gan_kernel_phase(dev, mods, cfg) -> None:
-    """gan_kernel: every distinct kernel call of one g step at full width
-    (64 train complexes, tokens sampled by the port), each held to its plain
-    version and timed as kernel_train holds them; the calls must take the
-    tensor-core kernels (K2, K3, K3b at lmax 4). Then gan_profile: one
-    round (sample, host bridge, d, graph-D, g) under the profiler."""
+def gan_kernel_phase(dev, mods, cfg, suffix: str = "", profile_round: bool = True) -> None:
+    """gan_kernel{suffix}: every distinct kernel call of one g step at full
+    width (64 train complexes, tokens sampled by the port) at the config's
+    compute dtype, each held to its plain version (at bfloat16 its twin,
+    ``BF16_TOL``) and timed as kernel_train holds them; the calls must take
+    the tensor-core kernels (K2, K3, K3b at lmax 4). Then
+    gan_profile{suffix}: one round (sample, host bridge, d, graph-D, g)
+    under the profiler, or (``profile_round`` False: the float32 path, cut
+    to stay within the script's time) its g step alone, a twentieth of
+    the round's device events."""
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.models.singa import SINGA
     from singa_tpu_torch.train import gan
 
+    specs = GATE_PATH if cfg.train.compute_dtype == "float32" else BF16_PATH
     train_files = sorted(glob.glob(os.path.join(ROOT, "data", "corpus", "train", "*.npz")))[:64]
     batch = load_npz(train_files).to(dev)
     tr = gan.GANTrainer(cfg, graph_loss="wgan-gp", grammar_mask=True)
@@ -2467,33 +2538,42 @@ def gan_kernel_phase(dev, mods, cfg) -> None:
     rng = torch.Generator(device=dev).manual_seed(0)
     tokens = tr.sample(batch, rng)
     chem_r, fake = tr._host_bridge(tokens)
-    captured = capture(GATE_PATH, mods, lambda: tr.g_step(batch, tokens, chem_r, fake))
-    lines = hold_all([k for k in GATE_PATH if k.outs is None], mods, captured, "gan_kernel",
+    captured = capture(specs, mods, lambda: tr.g_step(batch, tokens, chem_r, fake))
+    phase = f"gan_kernel{suffix}"
+    lines = hold_all([k for k in specs if k.outs is None], mods, captured, phase,
                      "calls_per_g_step", "gan")
-    lines.update(hold_all([k for k in GATE_PATH if k.outs], mods, captured, "gan_kernel",
+    lines.update(hold_all([k for k in specs if k.outs], mods, captured, phase,
                           "calls_per_g_step", "gan"))
-    path_instances(GATE_PATH, mods, captured, lines)
-    emit({"phase": "gan_kernel", "lmax": cfg.embedding.lmax, "batch": 64,
-          "valid_fakes": float(fake[3].sum()),
+    path_instances(specs, mods, captured, lines)
+    emit({"phase": phase, "compute_dtype": cfg.train.compute_dtype, "lmax": cfg.embedding.lmax,
+          "batch": 64, "valid_fakes": float(fake[3].sum()),
           "kernels": {n: {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "max_abs_err", "residency") if k in v}
                       for n, v in lines.items()}})
     del captured
-    # gan_profile: where one round's time goes (device busy, idle share,
-    # the costliest device ops)
-    emit({"phase": "gan_profile", "batch": 64, "round": device_profile(
-        lambda: tr.train_round(batch, rng))})
+    # gan_profile: where one round's (or g step's) time goes (device busy,
+    # idle share, the costliest device ops)
+    if profile_round:
+        prof = {"round": device_profile(lambda: tr.train_round(batch, rng))}
+    else:
+        prof = {"g_step": device_profile(lambda: tr.g_step(batch, tokens, chem_r, fake))}
+    emit({"phase": f"gan_profile{suffix}", "batch": 64, **prof})
 
 
-def gan_vs_cpu_phase(dev, files, cfg) -> None:
-    """gan_vs_cpu: one g step's loss and generator gradients at full width,
-    2 complexes, on the card (kernels) and on the CPU (plain versions), with
-    the same seeded weights and the tokens the card sampled; every leaf by
-    ``grad_report`` under TRAIN_CPU_TOL."""
+def gan_vs_cpu_phase(dev, files, cfg, suffix: str = "") -> None:
+    """gan_vs_cpu{suffix}: one g step's loss and generator gradients, 2
+    complexes, on the card (kernels) and on the CPU (plain versions), with
+    the same seeded weights and the tokens the card sampled, at the
+    config's compute dtype. float32 (the recipe's widths): every leaf by
+    ``grad_report`` under TRAIN_CPU_TOL. bfloat16 (``cfg`` cut to lmax 2,
+    where the CPU's bfloat16 is cheap): the gradients' L2 difference over
+    their L2 norm within GAN_BF16_CPU_TOL, the loss and reward within
+    GAN_BF16_LOSS_TOL, ``grad_report`` at that tolerance reported."""
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.models.singa import SINGA
     from singa_tpu_torch.train import gan
 
+    bf16 = cfg.train.compute_dtype == "bfloat16"
     small = load_npz(files[:2])
     runs = {}
     tokens = None
@@ -2504,22 +2584,33 @@ def gan_vs_cpu_phase(dev, files, cfg) -> None:
         if tokens is None:
             tokens = tr.sample(b, torch.Generator(device=d).manual_seed(0)).cpu()
         chem_r, fake = tr._host_bridge(tokens.to(d))
-        loss, reward, _ = tr.g_loss(b, tokens.to(d), chem_r, fake)
-        loss.backward()
+        with tr._precision():
+            loss, reward, _ = tr.g_loss(b, tokens.to(d), chem_r, fake)
+            loss.backward()
         runs[run] = (loss.item(), reward.item(), float(fake[3].sum()),
                      {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
                       for n, p in tr.generator.named_parameters()})
         del tr, b, loss
     (l_gpu, r_gpu, v_gpu, g_gpu), (l_cpu, r_cpu, v_cpu, g_cpu) = runs["cuda"], runs["cpu"]
-    report = grad_report(g_gpu, g_cpu, TRAIN_CPU_TOL)
-    ok = (report["l2"] <= 1.0 and abs(l_gpu - l_cpu) <= TRAIN_CPU_TOL * abs(l_cpu)
-          and abs(r_gpu - r_cpu) <= TRAIN_CPU_TOL * abs(r_cpu) and v_gpu == v_cpu)
-    emit({"phase": "gan_vs_cpu", "complexes": 2, "valid_fakes": v_gpu, "g_loss_cuda": l_gpu,
-          "g_loss_cpu": l_cpu, "reward_cuda": r_gpu, "reward_cpu": r_cpu,
+    if bf16:
+        tol, loss_tol = GAN_BF16_CPU_TOL, GAN_BF16_LOSS_TOL
+        cat = lambda g: torch.cat([g[n].double().flatten() for n in sorted(g_cpu)])
+        l2 = ((cat(g_gpu) - cat(g_cpu)).norm() / cat(g_cpu).norm()).item()
+        report = {"l2_of_all": l2, **grad_report(g_gpu, g_cpu, tol)}
+        grads_ok = l2 <= tol
+    else:
+        tol = loss_tol = TRAIN_CPU_TOL
+        report = grad_report(g_gpu, g_cpu, tol)
+        grads_ok = report["l2"] <= 1.0
+    ok = (grads_ok and abs(l_gpu - l_cpu) <= loss_tol * abs(l_cpu)
+          and abs(r_gpu - r_cpu) <= loss_tol * abs(r_cpu) and v_gpu == v_cpu)
+    emit({"phase": f"gan_vs_cpu{suffix}", "compute_dtype": cfg.train.compute_dtype,
+          "lmax": cfg.embedding.lmax, "complexes": 2, "valid_fakes": v_gpu,
+          "g_loss_cuda": l_gpu, "g_loss_cpu": l_cpu, "reward_cuda": r_gpu, "reward_cpu": r_cpu,
           "leaves": len(g_cpu), "leaves_with_grad": sum(bool((g != 0).any()) for g in g_cpu.values()),
-          "tolerance": TRAIN_CPU_TOL, "grads": report, "ok": ok})
+          "tolerance": tol, "loss_tolerance": loss_tol, "grads": report, "ok": ok})
     if not ok:
-        raise AssertionError("gan_vs_cpu: the card's g step disagrees with the CPU's")
+        raise AssertionError(f"gan_vs_cpu{suffix}: the card's g step disagrees with the CPU's")
 
 
 def gan_vina_phase(dev) -> None:
@@ -2552,19 +2643,48 @@ def gan_vina_phase(dev) -> None:
         raise AssertionError(f"gan_vina: only {card['n_vina_scored']} of 8 molecules docked")
 
 
+def tiny_gan_config(cfg):
+    """``cfg`` cut to lmax 2 (mmax 2; the featurizer's width with it), its
+    other widths as they are: gan_vs_cpu_bf16's, where a CPU step at
+    bfloat16 is cheap."""
+    import dataclasses
+
+    emb = dataclasses.replace(cfg.embedding, lmax=2, mmax=2)
+    model = dataclasses.replace(cfg.model, featurizer_feat_dim=emb.sphere_channels * 9)
+    return dataclasses.replace(cfg, embedding=emb, model=model)
+
+
 def gan_phases(dev, files, mods) -> None:
-    """gan, gan_vina, gan_kernel and gan_vs_cpu under configs/gan_recipe.yml
-    (lmax 4, gate FFN, batch 64) in float32."""
+    """Under configs/gan_recipe.yml (lmax 4, gate FFN, batch 64): at its own
+    bfloat16, as a user runs it, gan_bf16 (with the --vina-eval report),
+    gan_kernel_bf16 / gan_profile_bf16 and gan_vs_cpu_bf16 (lmax 2); then
+    in float32, through a float32 copy of the file, gan (GAN_F32_ROUNDS
+    rounds), gan_vina, gan_kernel / gan_profile (its g step alone) and
+    gan_vs_cpu."""
     from singa_tpu_torch.config import load_config
+    from singa_tpu_torch.train.checkpointing import save_config
     from singa_tpu_torch.train.loop import float32_config
 
-    cfg = float32_config(load_config(os.path.join(ROOT, GAN_CONFIG)))
-    gan_phase(dev, files, mods, cfg)
+    recipe = os.path.join(ROOT, GAN_CONFIG)
+    cfg = load_config(recipe)
+    if cfg.train.compute_dtype != "bfloat16":
+        raise AssertionError(f"{GAN_CONFIG} trains in {cfg.train.compute_dtype}")
+    gan_phase(dev, files, mods, cfg, recipe, "_bf16", GAN_ROUNDS, GAN_VINA_EVAL)
+    torch.cuda.empty_cache()
+    gan_kernel_phase(dev, mods, cfg, "_bf16")
+    torch.cuda.empty_cache()
+    gan_vs_cpu_phase(dev, files, tiny_gan_config(cfg), "_bf16")
+    torch.cuda.empty_cache()
+    f32 = float32_config(cfg)
+    with tempfile.TemporaryDirectory() as f32_dir:
+        save_config(f32_dir, f32)
+        gan_phase(dev, files, mods, f32, os.path.join(f32_dir, "config.yml"), "",
+                  GAN_F32_ROUNDS, 0)
     gan_vina_phase(dev)
     torch.cuda.empty_cache()
-    gan_kernel_phase(dev, mods, cfg)
+    gan_kernel_phase(dev, mods, f32, profile_round=False)
     torch.cuda.empty_cache()
-    gan_vs_cpu_phase(dev, files, cfg)
+    gan_vs_cpu_phase(dev, files, f32)
     torch.cuda.empty_cache()
 
 
@@ -2581,6 +2701,7 @@ def main() -> int:
     from singa_tpu_torch.generate.generate import main as cli_main
     from singa_tpu_torch.models.singa import SINGA
     from singa_tpu_torch.ops.cuda import build
+    from singa_tpu_torch.train.checkpointing import save_config
     from singa_tpu_torch.train.loop import float32_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2595,9 +2716,14 @@ def main() -> int:
     logs = build.build_all()
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
-    k4b_ptxas = ptxas_report(logs["so3_ffn_bwd"])
-    k4_ptxas = {k: v for k, v in ptxas_report(logs["so3_ffn"]).items()
-                if "ffn_tc_kernel" in k}  # the tensor-core kernel's instances
+    # K4b's kernel, and K4's tensor-core kernel's instances; float32, and
+    # (bf16) K4's and K4b's bfloat16 instances with K4's split
+    k4b_all = ptxas_report(logs["so3_ffn_bwd"])
+    k4b_ptxas = {k: v for k, v in k4b_all.items() if "bfloat16" not in k}
+    k4_all = ptxas_report(logs["so3_ffn"])
+    k4_ptxas = {k: v for k, v in k4_all.items() if "ffn_tc_kernel" in k and "bfloat16" not in k}
+    k4_bf16_ptxas = {k: v for k, v in k4_all.items() if "bfloat16" in k}
+    k4b_bf16_ptxas = {k: v for k, v in k4b_all.items() if "bfloat16" in k}
     # the dx, weight and split kernels, their float32 instances and (bf16)
     # their bfloat16 ones (the CUDA-core instance's among both)
     k2b_all = {k: v for k, v in ptxas_report(logs["so3_gate_ffn_bwd"]).items()
@@ -2654,7 +2780,8 @@ def main() -> int:
           "k1b_ptxas": k1b_ptxas, "k1_ptxas": k1_ptxas,
           "k1b_bf16_ptxas": k1b_bf16_ptxas, "k2b_bf16_ptxas": k2b_bf16_ptxas,
           "k1_bf16_ptxas": k1_bf16_ptxas, "k2_bf16_ptxas": k2_bf16_ptxas,
-          "k3_bf16_ptxas": k3_bf16_ptxas})
+          "k3_bf16_ptxas": k3_bf16_ptxas, "k4_bf16_ptxas": k4_bf16_ptxas,
+          "k4b_bf16_ptxas": k4b_bf16_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -2761,10 +2888,29 @@ def main() -> int:
                   "bfloat16 step the tensor-core kernels of K1, K2, K3, K1b, K2b and K3b at "
                   "bfloat16 (one TF32 product a product)"})
     torch.cuda.empty_cache()
-    s2_cfg = float32_config(load_config(os.path.join(ROOT, S2_CONFIG)))
-    train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,
-                 {k.name: 6 for k in (K1, K3, K1B, K3B, K4, K4B)}, ["--config", S2_CONFIG],
-                 S2_WARMUP, S2_STEPS)
+    # train_s2: configs/train_corpus.yml in float32 (its CLI phase on a
+    # float32 copy of the file: the file itself now trains at bfloat16)
+    s2_bf16_cfg = load_config(os.path.join(ROOT, S2_CONFIG))
+    if s2_bf16_cfg.train.compute_dtype != "bfloat16":
+        raise AssertionError(f"{S2_CONFIG} trains in {s2_bf16_cfg.train.compute_dtype}")
+    s2_cfg = float32_config(s2_bf16_cfg)
+    with tempfile.TemporaryDirectory() as f32_dir:
+        save_config(f32_dir, s2_cfg)
+        s2_step = train_phases(dev, results, files, s2_cfg, "_s2", S2_PATH,
+                               {k.name: 6 for k in (K1, K3, K1B, K3B, K4, K4B)},
+                               ["--config", os.path.join(f32_dir, "config.yml")], S2_WARMUP,
+                               S2_STEPS)
+    torch.cuda.empty_cache()
+    # train_s2_bf16: the same configuration at its own bfloat16, through the
+    # bfloat16 instances only (every float32 count 0): K4·bf16 and K4b·bf16
+    # held at every distinct call of a microbatch
+    s2_bf16_step = train_phases(dev, results, files, s2_bf16_cfg, "_s2_bf16", S2_BF16_PATH,
+                                {k.name: 6 for k in (K1_BF16, K3_BF16, K1B_BF16, K3B_BF16,
+                                                     K4_BF16, K4B_BF16)},
+                                ["--config", S2_CONFIG], S2_WARMUP, S2_STEPS, vs_cpu=False)
+    emit({"phase": "train_s2_bf16_vs_f32", "float32": s2_step, "bfloat16": s2_bf16_step,
+          "note": "reported, not claimed: both steps run the tensor-core kernels, the "
+                  "bfloat16 step at one TF32 product a product"})
     torch.cuda.empty_cache()
     with switched(FUSED_SO2):
         train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
@@ -2781,6 +2927,9 @@ def main() -> int:
 
     results[K4.name]["ptxas"] = k4_ptxas
     results[K4B.name]["ptxas"] = k4b_ptxas
+    results[K4_BF16.name]["ptxas"] = {k: v for k, v in k4_bf16_ptxas.items()
+                                      if "ffn_tc_kernel" in k}
+    results[K4B_BF16.name]["ptxas"] = k4b_bf16_ptxas
     results[K2.name]["ptxas"] = k2_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
     results[K2B_BF16.name]["ptxas"] = k2b_bf16_ptxas

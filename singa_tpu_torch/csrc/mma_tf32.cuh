@@ -41,10 +41,12 @@
 //   frag_b_nk(B, ldb)       B stored [n][k], k paired (pairs with frag_a_paired)
 //   frag_b_nk_seq(B, ldb)   B stored [n][k], k in order
 //   frag_b_split(Bhi, Blo, ldb)  B stored [k][n], k in order, from planes
-//                           split beforehand
+//                           split beforehand (frag_b_split_t<bf16>: the hi
+//                           plane alone)
 //   frag_a_split(f)         A kept split in lane order (store_a_split
 //                           writes it): no split at the load
-//                           (frag_a_split_t<bf16>: its hi plane alone)
+//                           (frag_a_split_t<bf16>: its hi plane alone;
+//                           store_a_t<bf16> writes it rounded)
 //   store_c(C, ldc, c)      C stored [m][n], two 8-byte stores
 //   frag_a_from_c(c)        the C of one m16n8 product as the A of the next,
 //                           whose k is that product's n, k paired (pairs
@@ -233,6 +235,18 @@ __device__ __forceinline__ FragB frag_b_split(const uint32_t* hi, const uint32_t
   return f;
 }
 
+// frag_b_split at storage type T: at T = bf16 the hi plane alone (lo = 0,
+// the lo plane not read)
+template <class T = float>
+__device__ __forceinline__ FragB frag_b_split_t(const uint32_t* hi, const uint32_t* lo, int ldb) {
+  if constexpr (kIsBf16<T>) {
+    const int g = lane_grp(), t = lane_tig();
+    return FragB{{hi[t * ldb + g], hi[(t + 4) * ldb + g]}, {0u, 0u}};
+  } else {
+    return frag_b_split(hi, lo, ldb);
+  }
+}
+
 // An A fragment kept split in shared or device memory, in lane order: 32
 // lanes of uint4 hi (a0..a3), then 32 lanes of uint4 lo; kSplitFragWords
 // words, 16-byte aligned. Each load is two conflict-free 16-byte reads.
@@ -260,6 +274,19 @@ __device__ __forceinline__ void store_a_split(uint32_t* f, int lane, float a0, f
 // plane alone (lo is zero, and mma_t<bf16> never reads it), half the words
 template <class T>
 constexpr int kFragWords = kIsBf16<T> ? kSplitFragWords / 2 : kSplitFragWords;
+
+// store_a_split at storage type T: at T = bf16 the hi plane alone, each
+// value rounded to bfloat16 (kFragWords<bf16> words a fragment)
+template <class T = float>
+__device__ __forceinline__ void store_a_t(uint32_t* f, int lane, float a0, float a1, float a2,
+                                          float a3) {
+  if constexpr (kIsBf16<T>) {
+    reinterpret_cast<uint4*>(f)[lane] = make_uint4(bf16_bits(a0), bf16_bits(a1), bf16_bits(a2),
+                                                   bf16_bits(a3));
+  } else {
+    store_a_split(f, lane, a0, a1, a2, a3);
+  }
+}
 
 template <class T = float>
 __device__ __forceinline__ FragA frag_a_split_t(const uint32_t* f) {

@@ -2,8 +2,8 @@
 // mma.sync (csrc/mma_tf32.cuh) accumulated in float32: grid_chain_tc, K4b's
 // (csrc/so3_ffn_bwd.cu), grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu) and K3's
 // (csrc/s2_act.cu) and K5's, and grid_chain_tc_sep_bwd, K3b's and K5b's (at
-// the end of this file); the last two also at bfloat16 storage, one TF32
-// product a product (K3's and K3b's bfloat16 instances). s2_grid.cuh keeps
+// the end of this file); all three also at bfloat16 storage, one TF32
+// product a product (the bfloat16 instances of K4b, K4, K3 and K3b). s2_grid.cuh keeps
 // the CUDA-core chain of K5's and K5b's CUDA-core instance and of K4's.
 //
 // grid_chain_tc: the function of s2_grid.cuh's grid_chain<NCOL, true,
@@ -83,17 +83,17 @@ __host__ __device__ inline size_t tc_mats_floats(int G, int I) {
   return 2 * (size_t)pad_grid(G) * tc_stride(I) + kTcGuard;
 }
 
-// tg/fg [G, I] in device memory -> stg/sfg [Gp][S] (sfg = stg + Gp * S),
-// then the guard.
-__device__ inline void stage_grid_mats_tc(const float* __restrict__ tg,
-                                          const float* __restrict__ fg, int G, int I,
-                                          float* stg) {
+// tg/fg [G, I] in device memory (T: float, or bfloat16 values staged as
+// float) -> stg/sfg [Gp][S] (sfg = stg + Gp * S), then the guard.
+template <class T = float>
+__device__ inline void stage_grid_mats_tc(const T* __restrict__ tg, const T* __restrict__ fg,
+                                          int G, int I, float* stg) {
   const int S = tc_stride(I), n = pad_grid(G) * S;
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     const int g = t / S, i = t % S;
     const bool in = g < G && i < I;
-    stg[t] = in ? tg[g * I + i] : 0.f;
-    stg[n + t] = in ? fg[g * I + i] : 0.f;
+    stg[t] = in ? to_f(tg[g * I + i]) : 0.f;
+    stg[n + t] = in ? to_f(fg[g * I + i]) : 0.f;
   }
   for (int t = threadIdx.x; t < kTcGuard; t += blockDim.x) stg[2 * n + t] = 0.f;
 }
@@ -115,9 +115,20 @@ __device__ inline void stage_grid_mats_tc(const float* __restrict__ tg,
 // last m16 tile sum its one output row, a column a lane), which spares
 // 1/7 of the to-grid and 1/4 of the from-grid mma work. I0 = 0: any I,
 // every row through mma.
-template <int NCOL, int I0>
+//
+// T (float by default) is the storage type of the caller's data. At T =
+// bf16 (K4b's bfloat16 instance) the caller's X, Y, tg and fg hold
+// bfloat16 values (as float), each product is one TF32 mma.sync
+// (tc::mma_t), the activated grid keeps its hi planes alone, silu(v) and
+// silu'(v) u rounded to bfloat16 as they split (the Pallas kernel's
+// .astype(dt) before the from-grid products), the tail row reads the same
+// rounded values, and OF and OB are stored rounded (mid.astype(dt),
+// dh.astype(dt)), row 0 of OB also unrounded into row0B (db1 sums it).
+template <int NCOL, int I0, class T = float>
 __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, const float* Y,
-                              int xs, float* act, float* OF, float* OB, const float* row0F) {
+                              int xs, float* act, float* OF, float* OB, const float* row0F,
+                              float* row0B = nullptr) {
+  constexpr bool kBf = tc::kIsBf16<T>;
   constexpr int AS = tc_act_stride(NCOL);
   constexpr int PL = kGC * AS;  // one plane
   static_assert(kTcWarps == 16 && NCOL == 64 && kGC == 32,
@@ -161,10 +172,10 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 #pragma unroll
     for (int ks = 0; ks < (I0 > 0 ? KS : kMaxIp / 8); ++ks) {
       if (I0 == 0 && ks >= KS) break;
-      const tc::FragA a = tc::frag_a_paired(ta + g0 * S + 8 * ks, S);
+      const tc::FragA a = tc::frag_a_paired<T>(ta + g0 * S + 8 * ks, S);
 #pragma unroll
       for (int n = 0; n < 2; ++n)
-        tc::mma3(v[n], a, tc::frag_b_paired(tb + 8 * ks * xs + 8 * n, xs));
+        tc::mma_t<T>(v[n], a, tc::frag_b_paired<T>(tb + 8 * ks * xs + 8 * n, xs));
     }
     if (kTail) {  // + the tail row's rank-one term, float32
       const float t0 = ta[(g0 + grp) * S + kTailRow], t1 = ta[(g0 + grp + 8) * S + kTailRow];
@@ -191,10 +202,10 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
           silu_and_grad(v[n][2 * h], s0, d0);
           silu_and_grad(v[n][2 * h + 1], s1, d1);
           uint2 hi, lo;
-          tc::split(s0, hi.x, lo.x);
-          tc::split(s1, hi.y, lo.y);
+          tc::split_t<T>(s0, hi.x, lo.x);
+          tc::split_t<T>(s1, hi.y, lo.y);
           *reinterpret_cast<uint2*>(saf + o) = hi;
-          *reinterpret_cast<uint2*>(saf + PL + o) = lo;
+          if constexpr (!kBf) *reinterpret_cast<uint2*>(saf + PL + o) = lo;
           *reinterpret_cast<float2*>(sab + PL + o) = make_float2(d0, d1);
         }
     }
@@ -207,10 +218,10 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
           const int o = off + 8 * n + 8 * h * AS;
           const float2 d = *reinterpret_cast<const float2*>(sab + PL + o);
           uint2 hi, lo;
-          tc::split(d.x * v[n][2 * h], hi.x, lo.x);
-          tc::split(d.y * v[n][2 * h + 1], hi.y, lo.y);
+          tc::split_t<T>(d.x * v[n][2 * h], hi.x, lo.x);
+          tc::split_t<T>(d.y * v[n][2 * h + 1], hi.y, lo.y);
           *reinterpret_cast<uint2*>(sab + o) = hi;
-          *reinterpret_cast<uint2*>(sab + PL + o) = lo;
+          if constexpr (!kBf) *reinterpret_cast<uint2*>(sab + PL + o) = lo;
         }
     }
     __syncthreads();  // the chunk's activated grid is complete
@@ -218,16 +229,21 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
       const uint32_t* b = fb + (threadIdx.x & 31);
       const float* a = fa + g0 * S;  // fa is at column 16 fm = kTailRow
 #pragma unroll 8
-      for (int g = 0; g < kGC; ++g)
-        tail = fmaf(a[g * S], __uint_as_float(b[g * AS]) + __uint_as_float(b[PL + g * AS]), tail);
+      for (int g = 0; g < kGC; ++g) {
+        if constexpr (kBf)  // the hi plane alone (its lo plane holds silu'(v) for sab)
+          tail = fmaf(a[g * S], __uint_as_float(b[g * AS]), tail);
+        else
+          tail = fmaf(a[g * S], __uint_as_float(b[g * AS]) + __uint_as_float(b[PL + g * AS]),
+                      tail);
+      }
     } else if (fm < MT) {
 #pragma unroll
       for (int ks = 0; ks < kGC / 8; ++ks) {
-        const tc::FragA a = tc::frag_a_trans(fa + (g0 + 8 * ks) * S, S);
+        const tc::FragA a = tc::frag_a_trans<T>(fa + (g0 + 8 * ks) * S, S);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           const uint32_t* b = fb + 8 * ks * AS + 8 * n;
-          tc::mma3(acc[n], a, tc::frag_b_split(b, b + PL, AS));
+          tc::mma_t<T>(acc[n], a, tc::frag_b_split_t<T>(b, b + PL, AS));
         }
       }
     }
@@ -236,7 +252,7 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 
   float* out = fp == 0 ? OF : OB;
   if (kTail && fm == MT) {
-    out[kTailRow * xs + 32 * fh + (threadIdx.x & 31)] = tail;
+    out[kTailRow * xs + 32 * fh + (threadIdx.x & 31)] = rnd<T>(tail);
     return;
   }
 #pragma unroll
@@ -248,6 +264,10 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
       if (i >= I) continue;
       float2 val = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
       if (fp == 0 && i == 0) val = make_float2(row0F[c], row0F[c + 1]);
+      if constexpr (kBf) {
+        if (fp == 1 && i == 0) *reinterpret_cast<float2*>(row0B + c) = val;
+        val = make_float2(rnd<T>(val.x), rnd<T>(val.y));
+      }
       *reinterpret_cast<float2*>(out + i * xs + c) = val;
     }
   }
@@ -294,12 +314,15 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 // and 2; K5 at 33 <= I <= 48: 6 and 3).
 //
 // T (float by default) is the storage type of the caller's data. At T =
-// bf16 (K3's bfloat16 instance, I0 = 0) X^T's fragments hold the hi plane
-// alone (tc::kFragWords<T> words), each product is one TF32 mma.sync
-// (tc::mma_t), and every operand is rounded to bfloat16 as it splits
-// (tc::split_t): the identity on tg and fg, bfloat16 values staged as
-// float, and on silu(v) the Pallas kernel's .astype(dt) before the
-// from-grid product; the sums stay float32.
+// bf16 (K3's bfloat16 instance, I0 = 0, and K4's, I0 = 0 or 49) X^T's
+// fragments hold the hi plane alone (tc::kFragWords<T> words), each
+// product is one TF32 mma.sync (tc::mma_t), and every operand is rounded
+// to bfloat16 as it splits (tc::split_t): the identity on tg and fg,
+// bfloat16 values staged as float, and on silu(v) the Pallas kernel's
+// .astype(dt) before the from-grid product; the sums stay float32. The
+// tail row then reads the same values: xtail, tg and fg bfloat16 values
+// (as float) and silu(v) as its hi plane (lo = 0), so its float32 sums are
+// those of the mma rows.
 constexpr int kFwdMaxKS = 6;                // k steps of the to-grid product
 constexpr int kFwdMaxMT = 3;                // m16 tiles of the from-grid output
 
@@ -336,7 +359,6 @@ __device__ __forceinline__ void grid_chain_tc_fwd(const float* stg, int st, cons
   static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0 (I <= 48)");
   static_assert(!kTail || (kMaxKS >= kTailRow / 8 && kMaxMT >= kTailRow / 16),
                 "the tail row's k steps and m16 tiles fit the loops");
-  static_assert(!kTail || !tc::kIsBf16<T>, "the tail row is float32's");
   constexpr int FW = tc::kFragWords<T>;  // words of one X^T fragment
   const int KS = kTail ? kTailRow / 8 : (I + 7) / 8;
   const int MT = kTail ? kTailRow / 16 : (I + 15) / 16;

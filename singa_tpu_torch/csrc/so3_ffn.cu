@@ -76,6 +76,25 @@
 // above 16) run its CUDA-core instance (ffn_cc_kernel below, with
 // s2_grid.cuh's chain), chosen by shape before the launch.
 //
+// bfloat16 (so3_ffn with bf16 set; the bfloat16 training path's K4): the
+// tensor-core kernel and its split at T = bf16, the function
+// _ffn_fwd_kernel computes at a bfloat16 x, rounding where it rounds. x,
+// tg, fg and y are bfloat16 in device memory; x, tg and fg are staged as
+// float (plain loads: cp.async copies no 2-byte value), so every operand
+// of a product is a bfloat16 value and each product is one TF32 mma.sync
+// (a bfloat16 value is a TF32 value; csrc/mma_tf32.cuh): w1, w2 and wg
+// rounded into the hi plane once a call (b1, bg, b2 float32); h rounded
+// after b1 (h.astype(dt)), before the split and the tail row read it;
+// silu(v) rounded as it splits; the gates rounded (gate.astype(dt)); mid
+// rounded as y's B loads it (mid.astype(dt), row 0 the gates); every sum
+// float32; y rounded at the store. At lmax 6 row 48 runs in float32 on the
+// CUDA cores as at float32, from the same rounded values. The operations
+// are those of the float32 kernel at one TF32 product each, a third of the
+// tensor-core work; the rest (the CUDA-core chain of the tail row, the
+// gates, the splits and the staging) is the same. The bfloat16 instance
+// takes the widths the tensor-core kernel takes; no CUDA-core instance
+// runs bfloat16, so any other width is refused.
+//
 // ptxas at lmax 6, C = Co = 16, H = 512 (sm_90a): 222 registers, no spills;
 // 228,832 B of dynamic shared memory, 256 threads, one block an SM
 // (chip_smoke.py's k4_ptxas and K4's residency).
@@ -140,36 +159,43 @@ __host__ __device__ inline int xfrag_words(const TcDims& d) {
 //   part B: w2 as y's A (w2[l]^T: m = o, k = channel in order), split,
 //           [l][k step][kSplitFragWords]
 // zeros past C, H and Co. Both parts are 16-byte aligned.
+// At T = bf16 (the bfloat16 instance) a fragment is its hi plane alone,
+// rounded (tc::kFragWords<T> words), and wg is rounded to bfloat16 (the
+// Pallas kernel's wg.astype(dt)); b1 and bg stay float32.
 struct WLayout {
   int wg, b1, bg, a, b, words;  // offsets in part A; part A's words, part B's, a chunk's
 };
 
+template <class T = float>
 __host__ __device__ inline WLayout w_layout(int L, int C8) {
+  constexpr int FW = singa::tc::kFragWords<T>;
   WLayout o;
-  o.wg = L * (C8 / 8) * kSplitFragWords;
+  o.wg = L * (C8 / 8) * FW;
   o.b1 = o.wg + C8 * kHC;
   o.bg = o.b1 + kHC;
   o.a = o.bg + kHC;
-  o.b = L * (kHC / 8) * kSplitFragWords;
+  o.b = L * (kHC / 8) * FW;
   o.words = o.a + o.b;
   return o;
 }
 
+template <class T = float>
 __host__ __device__ inline size_t tc_smem_floats(const TcDims& d, int C8) {
   return (size_t)d.Gp * (d.st + d.sf) + (size_t)d.I * C8 * kTN + (size_t)d.I * kHS +
-         xfrag_words(d) + (size_t)w_layout(d.L, C8).words + kNCOL + 128 + 16 + 64;
+         xfrag_words(d) + (size_t)w_layout<T>(d.L, C8).words + kNCOL + 128 + 16 + 64;
 }
 
 // Every chunk's words (w_layout), one item a lane of one fragment or one
-// float32: the weights split into TF32 hi and lo once a call.
-template <int C8>
+// float32: the weights split into TF32 hi and lo once a call (at T = bf16
+// rounded to bfloat16, hi only).
+template <int C8, class T = float>
 __global__ void ffn_wsplit_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                                   const float* __restrict__ wg, const float* __restrict__ bg,
                                   const float* __restrict__ w2, uint32_t* __restrict__ out,
                                   TcDims d) {
   using namespace singa::tc;
   constexpr int KC = C8 / 8;
-  const WLayout o = w_layout(d.L, C8);
+  const WLayout o = w_layout<T>(d.L, C8);
   const int n1 = d.L * KC * 32, n2 = n1 + d.L * (kHC / 8) * 32;  // w1's lanes, then w2's
   const int items = n2 + (o.a - o.wg);
   const long long total = (long long)((d.H + kHC - 1) / kHC) * items;
@@ -182,7 +208,7 @@ __global__ void ffn_wsplit_kernel(const float* __restrict__ w1, const float* __r
       float v = 0.f;
       if (q < C8 * kHC) {
         const int c = q / kHC;
-        if (c < d.C && h < d.H) v = wg[(long long)c * d.H + h];
+        if (c < d.C && h < d.H) v = singa::rnd<T>(wg[(long long)c * d.H + h]);
       } else if (h < d.H) {
         v = q < C8 * kHC + kHC ? b1[h] : bg[h];
       }
@@ -204,8 +230,7 @@ __global__ void ffn_wsplit_kernel(const float* __restrict__ w1, const float* __r
         if (m < d.Co && h0 + k < d.H) v[q] = w2[((long long)l * d.H + h0 + k) * d.Co + m];
       }
     }
-    store_a_split(blk + (is1 ? 0 : o.a) + f * kSplitFragWords, lane, v[0], v[1], v[2],
-                  v[3]);
+    store_a_t<T>(blk + (is1 ? 0 : o.a) + f * kFragWords<T>, lane, v[0], v[1], v[2], v[3]);
   }
 }
 
@@ -235,29 +260,38 @@ __device__ void copy_words(const uint32_t* __restrict__ src, int words, uint32_t
 }
 
 // x of the tile at node n0 -> sx [i][c][node], zeros past N and C; joins
-// the caller's next commit group
-template <int C8>
-__device__ void copy_x(const float* __restrict__ x, int n0, const TcDims& d, float* sx) {
+// the caller's next commit group. At T = bf16 (2-byte values, below
+// cp.async's 4) by plain loads, widened to float: once a tile, 12.5 KB at
+// lmax 6, C 16, against the tile's 32 chunks of chain
+template <int C8, class T = float>
+__device__ void copy_x(const T* __restrict__ x, int n0, const TcDims& d, float* sx) {
   for (int t = threadIdx.x; t < kTN * d.I * C8; t += kThreads) {
     const int node = t / (d.I * C8), i = (t / C8) % d.I, c = t % C8;
     const bool ok = n0 + node < d.N && c < d.C;
-    cp_async4(sx + (i * C8 + c) * kTN + node,
-              ok ? x + ((long long)(n0 + node) * d.I + i) * d.C + c : x, ok);
+    if constexpr (singa::kBf16<T>)
+      sx[(i * C8 + c) * kTN + node] =
+          ok ? singa::to_f(x[((long long)(n0 + node) * d.I + i) * d.C + c]) : 0.f;
+    else
+      cp_async4(sx + (i * C8 + c) * kTN + node,
+                ok ? x + ((long long)(n0 + node) * d.I + i) * d.C + c : x, ok);
   }
 }
 
-// KC: k steps of h (C <= 8 KC); I0: 49 at lmax 6 (the tail row), else 0
-template <int KC, int I0>
+// KC: k steps of h (C <= 8 KC); I0: 49 at lmax 6 (the tail row), else 0;
+// T: the storage type of x, tg, fg and y (float, or bf16: the bfloat16
+// instance, see the file header)
+template <int KC, int I0, class T = float>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ wg,
               const float* __restrict__ bg, const float* __restrict__ w2,
-              const float* __restrict__ b2, const float* __restrict__ tg,
-              const float* __restrict__ fg, const uint32_t* __restrict__ wfrag,
-              float* __restrict__ y, TcDims d) {
+              const float* __restrict__ b2, const T* __restrict__ tg,
+              const T* __restrict__ fg, const uint32_t* __restrict__ wfrag,
+              T* __restrict__ y, TcDims d) {
   using namespace singa::tc;
   constexpr int C8 = 8 * KC;
   constexpr bool kTail = I0 == 49;
+  constexpr int FW = kFragWords<T>;  // words of one split fragment
   const int L = d.L, I = d.I, H = d.H, Co = d.Co;
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;                                           // [Gp][st]
@@ -265,7 +299,7 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   float* sx = sfg + d.Gp * d.sf;                               // [I][C8][kTN]
   float* sst = sx + I * C8 * kTN;                              // [I][kHS]: h (the staging)
   uint32_t* sxf = reinterpret_cast<uint32_t*>(sst + I * kHS);  // X^T split, then mid
-  const WLayout wl = w_layout(L, C8);
+  const WLayout wl = w_layout<T>(L, C8);
   uint32_t* swa = sxf + xfrag_words(d);  // the chunk's part A: w1 split, wg, b1, bg
   uint32_t* swb = swa + wl.a;            // its part B: w2 split
   const float* swg = reinterpret_cast<const float*>(swa + wl.wg);  // [C8][kHC]
@@ -283,16 +317,22 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int cg = warp % (kGroups / kColTiles), part = warp / (kGroups / kColTiles);
   const int s0 = part * (d.Gp / 8 / kParts), s1 = s0 + d.Gp / 8 / kParts;
   const int gate0 = kThreads - kNCOL;  // the threads of the gates: the last four warps
-  // tg, fg (zero-padded), in the first commit group
+  // tg, fg (zero-padded), in the first commit group (bf16: plain loads)
   for (int t = tid; t < d.Gp * d.st; t += kThreads) {
     const int g = t / d.st, i = t % d.st;
     const bool ok = g < d.G && i < I;
-    cp_async4(stg + t, ok ? tg + g * I + i : tg, ok);
+    if constexpr (singa::kBf16<T>)
+      stg[t] = ok ? singa::to_f(tg[g * I + i]) : 0.f;
+    else
+      cp_async4(stg + t, ok ? tg + g * I + i : tg, ok);
   }
   for (int t = tid; t < d.Gp * d.sf; t += kThreads) {
     const int g = t / d.sf, i = t % d.sf;
     const bool ok = g < d.G && i < I;
-    cp_async4(sfg + t, ok ? fg + g * I + i : fg, ok);
+    if constexpr (singa::kBf16<T>)
+      sfg[t] = ok ? singa::to_f(fg[g * I + i]) : 0.f;
+    else
+      cp_async4(sfg + t, ok ? fg + g * I + i : fg, ok);
   }
   // the block's (tile, chunk) steps, tiles blockIdx.x, + gridDim.x, ..., the
   // chunks inside; step j's y product runs at the start of step j + 1,
@@ -300,7 +340,7 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   // overlap)
   const int tiles = (d.N + kTN - 1) / kTN;
   const int steps = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * chunks;
-  copy_x<C8>(x, blockIdx.x * kTN, d, sx);  // the first tile's x and chunk's part A
+  copy_x<C8, T>(x, blockIdx.x * kTN, d, sx);  // the first tile's x and chunk's part A
   copy_words(wfrag, wl.a, swa);
   cp_async_commit();
   if (tid < 16) sb2[tid] = tid < Co ? b2[tid] : 0.f;  // read after the first barriers
@@ -330,8 +370,8 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
           float p[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int ks = 0; ks < kHC / 8; ++ks)
-            mma3(p, frag_a_split(swb + (l * (kHC / 8) + ks) * kSplitFragWords),
-                 frag_b(mid + i * kHS + 8 * ks * kTN, kTN));
+            mma_t<T>(p, frag_a_split_t<T>(swb + (l * (kHC / 8) + ks) * FW),
+                     frag_b<T>(mid + i * kHS + 8 * ks * kTN, kTN));
           if (r < kMaxRows - 1) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) yacc[r < kMaxRows - 1 ? r : 0][q] += p[q];
@@ -359,7 +399,8 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                 sy48[4 * (tid & 31) + q] = 0.f;
               }
               if (o < Co && node < d.N)
-                y[((long long)node * I + i) * Co + o] = v + (i == 0 ? sb2[o] : 0.f);
+                y[((long long)node * I + i) * Co + o] =
+                    singa::from_f<T>(v + (i == 0 ? sb2[o] : 0.f));
             }
         }
       }
@@ -375,13 +416,16 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int ks = 0; ks < KC; ++ks)
-          mma3(c, frag_a_split(swa + (l * KC + ks) * kSplitFragWords),
-               frag_b(sx + (i * C8 + 8 * ks) * kTN, kTN));
+          mma_t<T>(c, frag_a_split_t<T>(swa + (l * KC + ks) * FW),
+                   frag_b<T>(sx + (i * C8 + 8 * ks) * kTN, kTN));
         const float b0 = i == 0 ? sb1[grp] : 0.f, b8 = i == 0 ? sb1[grp + 8] : 0.f;  // b1, row 0
         c[0] += b0;
         c[1] += b0;
         c[2] += b8;
         c[3] += b8;
+        if constexpr (singa::kBf16<T>)  // h.astype(dt): the chain's X and its tail row
+#pragma unroll
+          for (int q = 0; q < 4; ++q) c[q] = singa::rnd<T>(c[q]);
         store_c(sst + i * kHS, kTN, c);
       }
     }
@@ -390,11 +434,11 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       float v = sbg[ch];
 #pragma unroll
       for (int c = 0; c < C8; ++c) v = fmaf(sx[c * kTN + node], swg[c * kHC + ch], v);  // 0 past C
-      sgate[t] = singa::siluf_(v);
+      sgate[t] = singa::rnd<T>(singa::siluf_(v));  // bf16: the gate's .astype(dt)
     }
     __syncthreads();  // B1: y is done with part B and mid, h and the gates with sx and part A
     if (k + 1 == chunks)  // the block's next tile's x
-      copy_x<C8>(x, (tile + gridDim.x) * kTN, d, sx);
+      copy_x<C8, T>(x, (tile + gridDim.x) * kTN, d, sx);
     copy_words(wfrag + (long long)((k + 1) % chunks) * wl.words, wl.a, swa);  // the next chunk's
     copy_words(wfrag + (long long)k * wl.words + wl.a, wl.b, swb);  // this chunk's w2
     cp_async_commit();
@@ -408,12 +452,12 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       const bool r0 = kTail || i0 < I, r1 = kTail || i0 + 1 < I;  // at I = 49 every row is there
       const float a0 = r0 ? src[0] : 0.f, a1 = r0 ? src[8] : 0.f;
       const float a2 = r1 ? src[kHS] : 0.f, a3 = r1 ? src[kHS + 8] : 0.f;
-      store_a_split(sxf + (ks * kGroups + g) * kSplitFragWords, ln, a0, a1, a2, a3);
+      store_a_t<T>(sxf + (ks * kGroups + g) * FW, ln, a0, a1, a2, a3);
     }
     __syncthreads();  // B2
     constexpr int kJ = 2 * kColTiles;  // n8 tiles of the warp's columns
     float acc[singa::kFwdMaxMT][kJ][4], tl[kJ];
-    singa::grid_chain_tc_fwd<I0, kChainSteps, kColTiles>(
+    singa::grid_chain_tc_fwd<I0, kChainSteps, kColTiles, singa::kFwdMaxKS, singa::kFwdMaxMT, T>(
         stg, d.st, sfg, d.sf, sxf, sst + (kTail ? I0 - 1 : 0) * kHS, I, kGroups, cg, s0, s1, acc,
         tl);
 #pragma unroll
@@ -466,39 +510,48 @@ ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-using TcKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
-                          const float*, const float*, const float*, const float*, const uint32_t*,
-                          float*, TcDims);
+template <class T>
+using TcKernel = void (*)(const T*, const float*, const float*, const float*, const float*,
+                          const float*, const float*, const T*, const T*, const uint32_t*, T*,
+                          TcDims);
 using SplitKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                              uint32_t*, TcDims);
 
 // The tensor-core kernel's and the split kernel's instances for C input
-// channels and I rows (null: none), and the kernel's shared memory
-TcKernel tc_kernel(int C, int I) {
+// channels and I rows at storage type T (null: none), and the kernel's
+// shared memory
+template <class T = float>
+TcKernel<T> tc_kernel(int C, int I) {
   if (C < 1 || C > kTcMaxC || I > 49) return nullptr;
-  if (C <= 8) return I == 49 ? ffn_tc_kernel<1, 49> : ffn_tc_kernel<1, 0>;
-  return I == 49 ? ffn_tc_kernel<2, 49> : ffn_tc_kernel<2, 0>;
+  if (C <= 8) return I == 49 ? ffn_tc_kernel<1, 49, T> : ffn_tc_kernel<1, 0, T>;
+  return I == 49 ? ffn_tc_kernel<2, 49, T> : ffn_tc_kernel<2, 0, T>;
 }
 
-SplitKernel split_kernel(int C) { return C <= 8 ? ffn_wsplit_kernel<8> : ffn_wsplit_kernel<16>; }
+template <class T = float>
+SplitKernel split_kernel(int C) {
+  return C <= 8 ? ffn_wsplit_kernel<8, T> : ffn_wsplit_kernel<16, T>;
+}
 
 // 32-bit words of the split weights: every hidden chunk's w_layout
+template <class T = float>
 long long tc_words(const TcDims& d) {
-  return (long long)((d.H + kHC - 1) / kHC) * w_layout(d.L, d.C <= 8 ? 8 : 16).words;
+  return (long long)((d.H + kHC - 1) / kHC) * w_layout<T>(d.L, d.C <= 8 ? 8 : 16).words;
 }
 
+template <class T = float>
 size_t tc_smem(const TcDims& d) {
-  return tc_smem_floats(d, d.C <= 8 ? 8 : 16) * sizeof(float);
+  return tc_smem_floats<T>(d, d.C <= 8 ? 8 : 16) * sizeof(float);
 }
 
 // Whether the tensor-core kernel takes these widths: lmax 1..6, C <= 16,
 // Co <= 16 (a multiple of 4, as for every instance), and its shared memory
+template <class T = float>
 bool tc_takes(int lmax, int C, int H, int Co, int G) {
   if (lmax < 1 || lmax > 6 || C < 1 || C > kTcMaxC || H < 1 || Co < 4 || Co > kTcMaxC ||
       Co % 4 != 0 || G < 1)
     return false;
   const TcDims d = make_tc_dims(1, lmax, C, H, Co, G);
-  return singa::allow_smem(tc_kernel(C, d.I), tc_smem(d)) == cudaSuccess;
+  return singa::allow_smem(tc_kernel<T>(C, d.I), tc_smem<T>(d)) == cudaSuccess;
 }
 
 // ------------------------------- CUDA cores --------------------------------
@@ -696,78 +749,103 @@ bool cc_takes(int lmax, int C, int H, int Co, int G) {
 }  // namespace cc
 
 // 1: the tensor-core kernel takes the widths; 0: the CUDA-core instance
-// does; -1: neither
-int instance(int lmax, int C, int H, int Co, int G) {
+// does; -1: neither. bf16: the bfloat16 instance, which is the tensor-core
+// kernel alone
+int instance(int lmax, int C, int H, int Co, int G, int bf16) {
+  if (bf16) return tc_takes<singa::bf16>(lmax, C, H, Co, G) ? 1 : -1;
   if (tc_takes(lmax, C, H, Co, G)) return 1;
   return cc::cc_takes(lmax, C, H, Co, G) ? 0 : -1;
+}
+
+// The split kernel, then the tensor-core kernel, at storage type T
+template <class T>
+int tc_launch(const T* x, const float* w1, const float* b1, const float* wg, const float* bg,
+              const float* w2, const float* b2, const T* tg, const T* fg, T* y, void* wfrag,
+              int N, int lmax, int C, int H, int Co, int G, cudaStream_t st) {
+  const TcDims d = make_tc_dims(N, lmax, C, H, Co, G);
+  uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
+  const SplitKernel sk = split_kernel<T>(C);
+  const int sgrid = singa::persistent_grid(sk, 256, 0, (tc_words<T>(d) / 4 + 255) / 256);
+  sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const TcKernel<T> k = tc_kernel<T>(C, d.I);
+  const size_t smem = tc_smem<T>(d);
+  const int grid = singa::persistent_grid(k, kThreads, smem, (N + kTN - 1) / kTN);
+  k<<<grid, kThreads, smem, st>>>(x, w1, b1, wg, bg, w2, b2, tg, fg, frags, y, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Which kernel runs these widths (any N): 1 the tensor-core kernel, 0 the
-// CUDA-core instance, -1 none (a shape no kernel takes).
-extern "C" int so3_ffn_instance(int lmax, int C, int H, int Co, int G) {
-  return instance(lmax, C, H, Co, G);
+// CUDA-core instance, -1 none (a shape no kernel takes). bf16: the
+// bfloat16 instance's (1 or -1).
+extern "C" int so3_ffn_instance(int lmax, int C, int H, int Co, int G, int bf16) {
+  return instance(lmax, C, H, Co, G, bf16);
 }
 
-// 32-bit words of scratch so3_ffn_f32 needs at these widths (the
-// tensor-core kernel's split weights; 0 for the CUDA-core instance), -1
-// for shapes no kernel takes.
-extern "C" long long so3_ffn_words(int lmax, int C, int H, int Co, int G) {
-  const int which = instance(lmax, C, H, Co, G);
+// 32-bit words of scratch so3_ffn needs at these widths (the tensor-core
+// kernel's split weights; 0 for the CUDA-core instance), -1 for shapes no
+// kernel takes.
+extern "C" long long so3_ffn_words(int lmax, int C, int H, int Co, int G, int bf16) {
+  const int which = instance(lmax, C, H, Co, G, bf16);
   if (which < 0) return -1;
-  return which == 1 ? tc_words(make_tc_dims(1, lmax, C, H, Co, G)) : 0;
+  if (which == 0) return 0;
+  const TcDims d = make_tc_dims(1, lmax, C, H, Co, G);
+  return bf16 ? tc_words<singa::bf16>(d) : tc_words(d);
 }
 
-// Resident blocks per SM of the tensor-core kernel at these widths (-1: a
-// shape it does not take), its shared memory per block in *smem_bytes and
-// its threads per block in *threads. For reports; launches nothing.
-extern "C" int so3_ffn_residency(int lmax, int C, int H, int Co, int G, int* smem_bytes,
-                                 int* threads) {
-  if (!tc_takes(lmax, C, H, Co, G)) return -1;
+// Resident blocks per SM of the tensor-core kernel at these widths (bf16:
+// its bfloat16 instance; -1: a shape it does not take), its shared memory
+// per block in *smem_bytes and its threads per block in *threads. For
+// reports; launches nothing.
+extern "C" int so3_ffn_residency(int lmax, int C, int H, int Co, int G, int bf16,
+                                 int* smem_bytes, int* threads) {
+  if (instance(lmax, C, H, Co, G, bf16) != 1) return -1;
   const TcDims d = make_tc_dims(1, lmax, C, H, Co, G);
-  const TcKernel k = tc_kernel(C, d.I);
-  const size_t smem = tc_smem(d);
+  const size_t smem = bf16 ? tc_smem<singa::bf16>(d) : tc_smem(d);
   *smem_bytes = (int)smem;
   *threads = kThreads;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, smem) != cudaSuccess)
-    return -1;
-  return per_sm;
+  const cudaError_t err =
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, tc_kernel<singa::bf16>(C, d.I), kThreads, smem)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tc_kernel(C, d.I), kThreads,
+                                                           smem);
+  return err == cudaSuccess ? per_sm : -1;
 }
 
-// Returns cudaErrorInvalidValue for shapes no kernel takes: Co not a
-// multiple of 4, lmax above 7, or tiles whose shared memory exceeds the
-// card's. The tensor-core kernel runs every shape it takes (tc_takes), after
-// the split kernel has written the weights into wfrag (so3_ffn_words()
-// words, 16-byte aligned); the CUDA-core instance the others.
-extern "C" int so3_ffn_f32(const float* x, const float* w1, const float* b1, const float* wg,
-                           const float* bg, const float* w2, const float* b2, const float* tg,
-                           const float* fg, float* y, void* wfrag, int N, int lmax, int C, int H,
-                           int Co, int G, void* stream) {
+// K4: x, tg, fg and y bfloat16 when bf16 != 0 (the caller casts tg and fg,
+// as the TPU kernel casts them to x.dtype), else float32; the weights and
+// biases float32. Returns cudaErrorInvalidValue for shapes no kernel takes:
+// Co not a multiple of 4, lmax above 7, tiles whose shared memory exceeds
+// the card's, and at bfloat16 every shape the tensor-core kernel does not
+// take (lmax 7, C or Co above 16). The tensor-core kernel runs every shape
+// it takes (tc_takes), after the split kernel has written the weights into
+// wfrag (so3_ffn_words() words, 16-byte aligned); the CUDA-core instance
+// the others at float32.
+extern "C" int so3_ffn(const void* x, const float* w1, const float* b1, const float* wg,
+                       const float* bg, const float* w2, const float* b2, const void* tg,
+                       const void* fg, void* y, void* wfrag, int N, int lmax, int C, int H,
+                       int Co, int G, int bf16, void* stream) {
   if (N < 1) return (int)cudaErrorInvalidValue;
-  const int which = instance(lmax, C, H, Co, G);
+  const int which = instance(lmax, C, H, Co, G, bf16);
   cudaStream_t st = (cudaStream_t)stream;
-  if (which == 1) {
-    const TcDims d = make_tc_dims(N, lmax, C, H, Co, G);
-    uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
-    const SplitKernel sk = split_kernel(C);
-    const int sgrid = singa::persistent_grid(sk, 256, 0, (tc_words(d) / 4 + 255) / 256);
-    sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, d);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const TcKernel k = tc_kernel(C, d.I);
-    const size_t smem = tc_smem(d);
-    const int grid = singa::persistent_grid(k, kThreads, smem, (N + kTN - 1) / kTN);
-    k<<<grid, kThreads, smem, st>>>(x, w1, b1, wg, bg, w2, b2, tg, fg, frags, y, d);
-    return (int)cudaGetLastError();
-  }
+  using B = singa::bf16;
+  if (which == 1 && bf16)
+    return tc_launch((const B*)x, w1, b1, wg, bg, w2, b2, (const B*)tg, (const B*)fg, (B*)y,
+                     wfrag, N, lmax, C, H, Co, G, st);
+  if (which == 1)
+    return tc_launch((const float*)x, w1, b1, wg, bg, w2, b2, (const float*)tg,
+                     (const float*)fg, (float*)y, wfrag, N, lmax, C, H, Co, G, st);
   if (which == 0) {
     const cc::Dims d = cc::make_dims(N, lmax, C, H, Co, G);
     const size_t smem = cc::smem_floats(d) * sizeof(float);
     const int grid =
         singa::persistent_grid(cc::ffn_cc_kernel, cc::kThreads, smem, (N + cc::kTN - 1) / cc::kTN);
-    cc::ffn_cc_kernel<<<grid, cc::kThreads, smem, st>>>(x, w1, b1, wg, bg, w2, b2, tg, fg, y, d);
+    cc::ffn_cc_kernel<<<grid, cc::kThreads, smem, st>>>(
+        (const float*)x, w1, b1, wg, bg, w2, b2, (const float*)tg, (const float*)fg, (float*)y, d);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

@@ -51,6 +51,23 @@
 // ~5.7 GB a call at the training microbatch (~1.7 ms at 3.35 TB/s, which
 // the next tile's loads during the sums partly hide).
 //
+// bfloat16 (so3_ffn_bwd with bf16 set; the bfloat16 training path's K4b):
+// ffn_bwd_kernel<bf16>, the function _ffn_bwd_kernel computes at a
+// bfloat16 x, rounding where it rounds. x, dy, tg, fg and dx are bfloat16
+// in device memory and staged as float; w1, wg and w2 are rounded as they
+// are staged (b1, bg float32). h is rounded after b1; dmid = dy w2^T is
+// rounded but for its row 0, whose float32 values form dg0 = silu'(g0)
+// dmid[0] before the row is zeroed; dg0 and the gates are rounded. The
+// chain (grid_chain_tc<.., bf16>) runs its four products as one TF32
+// mma.sync each, silu(v) and silu'(v) u rounded as they split, and stores
+// mid and dh rounded, dh's row 0 also unrounded (db1 sums it unrounded,
+// dbg the rounded dg0, as the TPU kernel). Every sum is float32. dx is not
+// added to in device memory at bfloat16, which would round it once a chunk
+// (32 times at H 512): its float32 sums go to a scratch buffer (dxf, the
+// caller's), and the last chunk stores dx rounded once. At lmax 6 row 48
+// runs in float32 on the CUDA cores from the same rounded values. The
+// bfloat16 instance takes lmax 1..6 and C, Co <= 16, the widths of K4's.
+//
 // At lmax 6, C = Co = 16 (the model's): 225,792 B of dynamic shared memory,
 // 512 threads, 128 registers, no spills (ptxas -v on sm_90a), one block
 // per SM.
@@ -84,11 +101,13 @@ __host__ __device__ inline int wsum_floats(const Dims& d) {
   return d.L * d.C * kHC + d.L * kHC * d.Co + d.C * kHC + 2 * kHC + d.Co;
 }
 
-__host__ __device__ inline size_t smem_floats(const Dims& d) {
+// bf16: the bfloat16 instance's, with kNCOL floats more for the unrounded
+// row 0 of dh (db1's terms) after the sums
+__host__ __device__ inline size_t smem_floats(const Dims& d, bool bf16 = false) {
   return singa::tc_mats_floats(d.G, d.I) + (size_t)d.I * (d.C * kTN + kPad) +
          (size_t)d.I * (d.Co * kTN + kPad) + 2 * (size_t)d.Ip * (kNCOL + kPad) +
          singa::tc_act_floats(kNCOL) + (size_t)d.L * d.C * kHC + (size_t)d.C * kHC +
-         (size_t)d.L * d.Co * kHC + 2 * kNCOL + wsum_floats(d);
+         (size_t)d.L * d.Co * kHC + 2 * kNCOL + wsum_floats(d) + (bf16 ? kNCOL : 0);
 }
 
 // Offsets of the weight gradients in one flat row of P floats, in the order
@@ -135,13 +154,40 @@ __device__ inline float dot_rows(const float* a, int as, const float* b, int bs,
   return (s.x + s.y) + (s.z + s.w);
 }
 
+// Four values of a bfloat16 array from 8-byte word q, as float
+__device__ __forceinline__ float4 load4_bf16(const singa::bf16* p, long long q) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[q];
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Four floats rounded to bfloat16, as one 8-byte word (the first in the low half)
+__device__ __forceinline__ uint2 bf16x4(const float4& a) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ float4 rnd4_bf16(const float4& a) {
+  using singa::rnd;
+  using singa::bf16;
+  return make_float4(rnd<bf16>(a.x), rnd<bf16>(a.y), rnd<bf16>(a.z), rnd<bf16>(a.w));
+}
+
+// T: the storage type of x, dy, tg, fg and dx (float, or bf16: the
+// bfloat16 instance, see the file header; dxf is its float32 scratch for
+// dx's sums, unread at float)
+template <class T = float>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+ffn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ wg, const float* __restrict__ bg,
-               const float* __restrict__ w2, const float* __restrict__ tg,
-               const float* __restrict__ fg, float* __restrict__ dx,
+               const float* __restrict__ w2, const T* __restrict__ tg,
+               const T* __restrict__ fg, T* __restrict__ dx, float* __restrict__ dxf,
                float* __restrict__ partial, Dims d) {
+  constexpr bool kBf = singa::kBf16<T>;
+  using singa::rnd;
   const int L = d.L, I = d.I, C = d.C, H = d.H, Co = d.Co;
   const int xs = C * kTN + kPad;   // row stride of sx
   const int ys = Co * kTN + kPad;  // row stride of sdy
@@ -159,6 +205,12 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   float* sgate = sw2t + L * Co * kHC;        // [kHC][kTN] g0, then silu(g0)
   float* sdg = sgate + kNCOL;                // [kHC][kTN] dg0
   float* swsum = sdg + kNCOL;                // the chunk's weight-gradient sums
+  float* sdb1 = swsum + wsum_floats(d);      // bf16: [kHC][kTN] dh's row 0 unrounded
+  float* dx32;                               // dx's float32 sums over the chunks
+  if constexpr (kBf)
+    dx32 = dxf;
+  else
+    dx32 = dx;
 
   const int tid = threadIdx.x;
   const int C4 = C / 4, Co4 = Co / 4;
@@ -187,9 +239,19 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       const int t = base + k * kThreads;
       v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (t < nx4) {
-        if (t < (d.N - n0) * I * C4) v[k] = x4[(long long)n0 * I * C4 + t];
+        if (t < (d.N - n0) * I * C4) {
+          if constexpr (kBf)
+            v[k] = load4_bf16(x, (long long)n0 * I * C4 + t);
+          else
+            v[k] = x4[(long long)n0 * I * C4 + t];
+        }
       } else if (t < nx4 + ny4) {
-        if (t - nx4 < (d.N - n0) * I * Co4) v[k] = dy4[(long long)n0 * I * Co4 + t - nx4];
+        if (t - nx4 < (d.N - n0) * I * Co4) {
+          if constexpr (kBf)
+            v[k] = load4_bf16(dy, (long long)n0 * I * Co4 + t - nx4);
+          else
+            v[k] = dy4[(long long)n0 * I * Co4 + t - nx4];
+        }
       }
     }
   };
@@ -223,15 +285,15 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     __syncthreads();  // the previous chunk's readers of the weights and the sums are done
     for (int t = tid; t < L * C * kHC; t += kThreads) {
       const int h = t % kHC, lc = t / kHC;
-      sw1[t] = (h0 + h < H) ? w1[(long long)lc * H + h0 + h] : 0.f;
+      sw1[t] = (h0 + h < H) ? rnd<T>(w1[(long long)lc * H + h0 + h]) : 0.f;
     }
     for (int t = tid; t < C * kHC; t += kThreads) {
       const int h = t % kHC, c = t / kHC;
-      swg[t] = (h0 + h < H) ? wg[(long long)c * H + h0 + h] : 0.f;
+      swg[t] = (h0 + h < H) ? rnd<T>(wg[(long long)c * H + h0 + h]) : 0.f;
     }
     for (int t = tid; t < L * Co * kHC; t += kThreads) {
       const int h = t % kHC, o = (t / kHC) % Co, l = t / (kHC * Co);
-      sw2t[t] = (h0 + h < H) ? w2[((long long)l * H + h0 + h) * Co + o] : 0.f;
+      sw2t[t] = (h0 + h < H) ? rnd<T>(w2[((long long)l * H + h0 + h) * Co + o]) : 0.f;
     }
     for (int e = tid; e < E; e += kThreads) swsum[e] = 0.f;
     if (one_batch && t_begin < t_end) load_tile(t_begin * kTN, tid, pre);
@@ -297,6 +359,9 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
             a[r].z += bb;
             a[r].w += bb;
           }
+          // bf16: h.astype(dt); dmid's rows but row 0 (dg0 takes it in float32)
+          if constexpr (kBf)
+            if (is_h || i > 0) a[r] = rnd4_bf16(a[r]);
           *reinterpret_cast<float4*>((is_h ? sh : sdm) + i * hs + h * kTN) = a[r];
         }
       }
@@ -304,24 +369,33 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       // row 0 of dmid reaches only the gates: dg0, then zero it for the grid
       for (int t = tid; t < kNCOL; t += kThreads) {
         const float g = sgate[t];
-        sdg[t] = singa::silu_gradf_(g) * sdm[t];
-        sgate[t] = singa::siluf_(g);
+        sdg[t] = rnd<T>(singa::silu_gradf_(g) * sdm[t]);  // bf16: dg0.astype(dt)
+        sgate[t] = rnd<T>(singa::siluf_(g));               // bf16: gate.astype(dt)
         sdm[t] = 0.f;
       }
       __syncthreads();
 
       // mid = fg^T silu(tg h) (row 0 := gates) over h; dh = tg^T (silu'(tg h)
       // * fg dmid) over dmid
-      if (I == 49)  // lmax 6, the model's: I known when compiling (see grid_chain_tc)
-        singa::grid_chain_tc<kNCOL, 49>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate);
-      else
-        singa::grid_chain_tc<kNCOL, 0>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate);
+      // (bf16: mid and dh rounded, dh's row 0 also unrounded into sdb1)
+      if (I == 49) {  // lmax 6, the model's: I known when compiling (see grid_chain_tc)
+        if constexpr (kBf)
+          singa::grid_chain_tc<kNCOL, 49, T>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate, sdb1);
+        else
+          singa::grid_chain_tc<kNCOL, 49>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate);
+      } else {
+        if constexpr (kBf)
+          singa::grid_chain_tc<kNCOL, 0, T>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate, sdb1);
+        else
+          singa::grid_chain_tc<kNCOL, 0>(stg, d.G, I, sh, sdm, hs, sact, sh, sdm, sgate);
+      }
       __syncthreads();
       if (one_batch && tile + 1 < t_end) load_tile(n0 + kTN, tid, pre);
 
-      // dx of the tile so far (device memory, added to in chunk order)
+      // dx of the tile so far (device memory, added to in chunk order; bf16:
+      // float32 sums in dxf, dx rounded once at the last chunk)
       float4 acc[4];
-      float4* dx4 = reinterpret_cast<float4*>(dx) + (long long)n0 * I * C4 + tid;
+      float4* dx4 = reinterpret_cast<float4*>(dx32) + (long long)n0 * I * C4 + tid;
 #pragma unroll
       for (int q = 0; q < 4; ++q)  // node n0 + q, row dx_i, channels 4 dx_c4 ..
         acc[q] = (dx_job && h0 > 0 && n0 + q < d.N) ? dx4[q * I * C4]
@@ -343,7 +417,8 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
           v = a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
         } else if (e < e5) {  // db1 (row 0 of dh), dbg
           const int t = e - e4, h = t % kHC;
-          const float4 b = *reinterpret_cast<const float4*>((t < kHC ? sdm : sdg) + h * kTN);
+          const float* db1_terms = kBf ? sdb1 : sdm;  // db1 sums dh unrounded
+          const float4 b = *reinterpret_cast<const float4*>((t < kHC ? db1_terms : sdg) + h * kTN);
           v = b.x + b.y + b.z + b.w;
         } else if (h0 == 0) {  // db2 (row 0 of dy)
           const float4 b = *reinterpret_cast<const float4*>(sdy + (e - e5) * kTN);
@@ -383,7 +458,16 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (n0 + q < d.N) dx4[q * I * C4] = acc[q];
+          if (n0 + q < d.N) {
+            if constexpr (kBf) {
+              if (h0 + kHC >= H)  // the last chunk: dx.astype(dt), once
+                reinterpret_cast<uint2*>(dx)[((long long)n0 + q) * I * C4 + tid] = bf16x4(acc[q]);
+              else
+                dx4[q * I * C4] = acc[q];
+            } else {
+              dx4[q * I * C4] = acc[q];
+            }
+          }
       }
     }
     __syncthreads();  // the chunk's sums are complete
@@ -411,61 +495,95 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
-bool dims_ok(int N, int lmax, int C, int H, int Co, int G) {
+// bf16: the bfloat16 instance's widths, lmax 1..6 and C, Co <= 16 (those
+// of K4's bfloat16 instance; no other width trains at bfloat16)
+bool dims_ok(int N, int lmax, int C, int H, int Co, int G, int bf16) {
   if (N < 1 || lmax < 1 || C < 4 || C % 4 != 0 || H < 1 || Co < 4 || Co % 4 != 0 || G < 1)
     return false;
+  if (bf16 && (lmax > 6 || C > 16 || Co > 16)) return false;
   const int I = (lmax + 1) * (lmax + 1);
   return I <= singa::kMaxIp && I * (C / 4) <= kThreads;
 }
 
-}  // namespace
-
-// Blocks the kernel runs (one per SM at its shared memory, never more than
-// the node tiles); the caller allocates the [blocks, P] scratch buffer from
-// this. Returns -1 for shapes the kernel does not take: C or Co not a
-// multiple of 4, lmax above 7, or tiles that exceed shared memory.
-extern "C" int so3_ffn_bwd_blocks(int N, int lmax, int C, int H, int Co, int G) {
-  if (!dims_ok(N, lmax, C, H, Co, G)) return -1;
-  const Dims d = make_dims(N, lmax, C, H, Co, G);
-  const size_t smem = smem_floats(d) * sizeof(float);
-  if (singa::allow_smem(ffn_bwd_kernel, smem) != cudaSuccess) return -1;
-  return singa::persistent_grid(ffn_bwd_kernel, kThreads, smem, (N + kTN - 1) / kTN);
+template <class T>
+int blocks_of(const Dims& d) {
+  const size_t smem = smem_floats(d, singa::kBf16<T>) * sizeof(float);
+  if (singa::allow_smem(ffn_bwd_kernel<T>, smem) != cudaSuccess) return -1;
+  return singa::persistent_grid(ffn_bwd_kernel<T>, kThreads, smem, (d.N + kTN - 1) / kTN);
 }
 
-// Resident blocks per SM of the kernel at these widths (-1: a shape it
-// does not take), its shared memory per block in *smem_bytes and its
-// threads per block in *threads. For reports; launches nothing.
-extern "C" int so3_ffn_bwd_residency(int lmax, int C, int H, int Co, int G, int* smem_bytes,
-                                     int* threads) {
-  if (!dims_ok(1, lmax, C, H, Co, G)) return -1;
-  const size_t smem = smem_floats(make_dims(1, lmax, C, H, Co, G)) * sizeof(float);
+template <class T>
+int residency_of(const Dims& d, int* smem_bytes, int* threads) {
+  const size_t smem = smem_floats(d, singa::kBf16<T>) * sizeof(float);
   *smem_bytes = (int)smem;
   *threads = kThreads;
-  if (singa::allow_smem(ffn_bwd_kernel, smem) != cudaSuccess) return -1;
+  if (singa::allow_smem(ffn_bwd_kernel<T>, smem) != cudaSuccess) return -1;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ffn_bwd_kernel, kThreads, smem) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ffn_bwd_kernel<T>, kThreads, smem) !=
       cudaSuccess)
     return -1;
   return per_sm;
 }
 
-extern "C" int so3_ffn_bwd_f32(const float* x, const float* dy, const float* w1, const float* b1,
-                               const float* wg, const float* bg, const float* w2, const float* tg,
-                               const float* fg, float* dx, float* partial, float* grads, int N,
-                               int lmax, int C, int H, int Co, int G, int blocks, void* stream) {
-  if (!dims_ok(N, lmax, C, H, Co, G) || blocks < 1) return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(N, lmax, C, H, Co, G);
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = smem_floats(d) * sizeof(float);
-  cudaError_t err = singa::allow_smem(ffn_bwd_kernel, smem);
+template <class T>
+int bwd_launch(const T* x, const T* dy, const float* w1, const float* b1, const float* wg,
+               const float* bg, const float* w2, const T* tg, const T* fg, T* dx, float* dxf,
+               float* partial, float* grads, const Dims& d, int blocks, cudaStream_t st) {
+  const size_t smem = smem_floats(d, singa::kBf16<T>) * sizeof(float);
+  cudaError_t err = singa::allow_smem(ffn_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long P = grad_layout(d).total;
   err = cudaMemsetAsync(partial, 0, (size_t)blocks * P * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-  ffn_bwd_kernel<<<blocks, kThreads, smem, st>>>(x, dy, w1, b1, wg, bg, w2, tg, fg, dx, partial, d);
+  ffn_bwd_kernel<T><<<blocks, kThreads, smem, st>>>(x, dy, w1, b1, wg, bg, w2, tg, fg, dx, dxf,
+                                                    partial, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int grid = singa::persistent_grid(singa::sum_rows_kernel, 256, 0, (P + 255) / 256);
   singa::sum_rows_kernel<<<grid, 256, 0, st>>>(partial, grads, P, blocks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Blocks the kernel runs (one per SM at its shared memory, never more than
+// the node tiles; bf16: its bfloat16 instance); the caller allocates the
+// [blocks, P] scratch buffer from this. Returns -1 for shapes the kernel
+// does not take: C or Co not a multiple of 4, lmax above 7, tiles that
+// exceed shared memory, and at bfloat16 lmax 7 or C, Co above 16.
+extern "C" int so3_ffn_bwd_blocks(int N, int lmax, int C, int H, int Co, int G, int bf16) {
+  if (!dims_ok(N, lmax, C, H, Co, G, bf16)) return -1;
+  const Dims d = make_dims(N, lmax, C, H, Co, G);
+  return bf16 ? blocks_of<singa::bf16>(d) : blocks_of<float>(d);
+}
+
+// Resident blocks per SM of the kernel at these widths (bf16: its bfloat16
+// instance; -1: a shape it does not take), its shared memory per block in
+// *smem_bytes and its threads per block in *threads. For reports; launches
+// nothing.
+extern "C" int so3_ffn_bwd_residency(int lmax, int C, int H, int Co, int G, int bf16,
+                                     int* smem_bytes, int* threads) {
+  if (!dims_ok(1, lmax, C, H, Co, G, bf16)) return -1;
+  const Dims d = make_dims(1, lmax, C, H, Co, G);
+  return bf16 ? residency_of<singa::bf16>(d, smem_bytes, threads)
+              : residency_of<float>(d, smem_bytes, threads);
+}
+
+// K4b: x, dy, tg, fg and dx bfloat16 when bf16 != 0 (dxf: N * I * C floats
+// of scratch for dx's sums), else float32 (dxf unread); the weights and
+// the seven gradients float32.
+extern "C" int so3_ffn_bwd(const void* x, const void* dy, const float* w1, const float* b1,
+                           const float* wg, const float* bg, const float* w2, const void* tg,
+                           const void* fg, void* dx, float* dxf, float* partial, float* grads,
+                           int N, int lmax, int C, int H, int Co, int G, int blocks, int bf16,
+                           void* stream) {
+  if (!dims_ok(N, lmax, C, H, Co, G, bf16) || blocks < 1) return (int)cudaErrorInvalidValue;
+  const Dims d = make_dims(N, lmax, C, H, Co, G);
+  cudaStream_t st = (cudaStream_t)stream;
+  using B = singa::bf16;
+  if (bf16)
+    return bwd_launch((const B*)x, (const B*)dy, w1, b1, wg, bg, w2, (const B*)tg, (const B*)fg,
+                      (B*)dx, dxf, partial, grads, d, blocks, st);
+  return bwd_launch((const float*)x, (const float*)dy, w1, b1, wg, bg, w2, (const float*)tg,
+                    (const float*)fg, (float*)dx, dxf, partial, grads, d, blocks, st);
 }

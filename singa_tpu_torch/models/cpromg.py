@@ -212,7 +212,9 @@ class DecodeCache:
     """KV cache of the decoder for one batch of rows (pockets x beams).
 
     ``self_k``/``self_v`` hold one [R, tgt_len+1, H, d] tensor per layer,
-    written in place at slot ``length`` (slot 0 is the property prefix).
+    written in place at slot ``length`` (slot 0 is the property prefix), in
+    the compute dtype of the keys and values (bfloat16 under bfloat16); the
+    scores and softmax are float32 (``DenseMHA.attend``).
     ``cross_k``/``cross_v`` are the layers' keys and values of the encoder
     output, computed once at priming instead of at every step."""
 
@@ -307,9 +309,11 @@ class Decoder(nn.Module):
         kd = cfg.key_channels // H
         vd = cfg.hidden_channels // H
         cross = [layer.dec_enc_attn.keys_values(enc) for layer in self.layers()]
+        # the slots take the dtype of the keys and values written into them
+        # (a Linear's: the compute dtype), as JAX's cache variables do
         cache = DecodeCache(
-            self_k=[enc.new_zeros(shape(kd)) for _ in cross],
-            self_v=[enc.new_zeros(shape(vd)) for _ in cross],
+            self_k=[k.new_zeros(shape(kd)) for k, _ in cross],
+            self_v=[v.new_zeros(shape(vd)) for _, v in cross],
             cross_k=[k for k, _ in cross],
             cross_v=[v for _, v in cross],
             cross_blocked=enc_pad_mask,

@@ -54,8 +54,20 @@ sigmoid'); the hidden after its activation rounded before the second
 product; dh rounded before dx and dw1 (db1 sums it unrounded); dg0
 rounded; y and dx rounded once. The six weight and bias gradients are
 float32, as in JAX. ``so3_gate_ffn_bf16_plain`` and
-``so3_gate_ffn_bf16_bwd_plain`` are their plain twins. K4 has no bfloat16
-instance yet: its wrapper refuses bfloat16.
+``so3_gate_ffn_bf16_bwd_plain`` are their plain twins.
+
+K4 and K4b have bfloat16 instances too, at a bfloat16 x, dy and grid
+matrices (as the module passes them, and the Pallas kernel casts them to
+x.dtype), y and dx bfloat16, the weights and biases and the six weight
+and bias gradients float32, counted in ``launches_s2_bf16`` and
+``launches_s2_bwd_bf16``: K4's tensor-core kernel and weight split and
+K4b's kernel at bfloat16 storage, one TF32 product where float32 takes
+three, at the widths K4's tensor-core kernel takes (lmax 1..6, C and Co up
+to 16); no CUDA-core instance runs bfloat16, so any other width raises.
+They round where ``_ffn_fwd_kernel`` and ``_ffn_bwd_kernel`` round:
+``so3_ffn_bf16_plain`` and ``so3_ffn_bf16_bwd_plain`` are their plain
+twins (``s2_bf16_takes`` says which widths, for the trainer's choice of
+precision, which is made without the card).
 
 ``so3_gate_ffn`` and ``so3_ffn`` each go through one
 ``torch.autograd.Function``: plain versions for CPU tensors, the kernels for
@@ -79,6 +91,16 @@ launches_bf16 = 0  # its bfloat16 instance's forward launches (not in ``launches
 launches_bwd_bf16 = 0  # its bfloat16 instance's backward launches
 launches_s2 = 0  # forward kernel launches through ``so3_ffn``
 launches_s2_bwd = 0  # backward kernel launches through ``so3_ffn``
+launches_s2_bf16 = 0  # its bfloat16 instance's forward launches (not in ``launches_s2``)
+launches_s2_bwd_bf16 = 0  # its bfloat16 instance's backward launches
+
+
+def s2_bf16_takes(lmax: int, C: int, Co: int) -> bool:
+    """Whether K4's and K4b's bfloat16 instances take an s2 FFN of these
+    widths: lmax 1..6 and C, Co multiples of 4 up to 16 (what the C entry
+    points take at bfloat16; they refuse the rest themselves). The trainer
+    reads it to choose its precision before it launches anything."""
+    return 1 <= lmax <= 6 and all(4 <= c <= 16 and c % 4 == 0 for c in (C, Co))
 
 
 def _l_of(lmax: int, device) -> torch.Tensor:
@@ -400,7 +422,10 @@ def so3_gate_ffn(x, w1, b1, wg, bg, w2, b2, lmax: int) -> torch.Tensor:
 
 def so3_ffn_plain(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> torch.Tensor:
     """x [N, I, C]; w1 [L, C, H]; b1 [H]; wg [C, H]; bg [H]; w2 [L, H, Co];
-    b2 [Co]; to_grid/from_grid [G, I] (l-primary) -> [N, I, Co]."""
+    b2 [Co]; to_grid/from_grid [G, I] (l-primary) -> [N, I, Co]. A bfloat16
+    ``x`` takes the kernel's bfloat16 function (``so3_ffn_bf16_plain``)."""
+    if x.dtype == torch.bfloat16:
+        return so3_ffn_bf16_plain(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax)
     l_of = _l_of(lmax, x.device)
     gate = F.silu(x[:, 0, :] @ wg + bg)
     h = torch.einsum("nic,ich->nih", x, w1.index_select(0, l_of))
@@ -412,9 +437,39 @@ def so3_ffn_plain(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> t
     return torch.cat([y[:, :1] + b2, y[:, 1:]], dim=1)
 
 
+def so3_ffn_bf16_plain(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid,
+                       lmax: int) -> torch.Tensor:
+    """K4's bfloat16 instance in plain PyTorch, rounding where
+    ``_ffn_fwd_kernel`` rounds at a bfloat16 ``x`` (the grid matrices
+    bfloat16 too, as the module passes them): w1, wg and w2 cast to bfloat16
+    (the biases stay float32); every product summed in float32; the gates
+    ``silu(x0 wg + bg)`` rounded; h rounded after b1; silu of the grid
+    rounded before the from-grid product; mid (row 0 the gates) rounded
+    before the second product; the output rounded."""
+    dt = x.dtype
+    l_of = _l_of(lmax, x.device)
+    xf, tg, fg = x.float(), rounded(to_grid, dt), rounded(from_grid, dt)
+    gate = rounded(F.silu(xf[:, 0, :] @ rounded(wg, dt) + bg), dt)
+    h = torch.einsum("nic,ich->nih", xf, rounded(w1, dt).index_select(0, l_of))
+    h = rounded(torch.cat([h[:, :1] + b1, h[:, 1:]], dim=1), dt)
+    act = rounded(F.silu(torch.einsum("gi,nih->ngh", tg, h)), dt)
+    mid = torch.einsum("gi,ngh->nih", fg, act)
+    mid = rounded(torch.cat([gate[:, None, :], mid[:, 1:]], dim=1), dt)
+    y = torch.einsum("nih,iho->nio", mid, rounded(w2, dt).index_select(0, l_of))
+    return torch.cat([y[:, :1] + b2, y[:, 1:]], dim=1).to(dt)
+
+
+def _silu_grad(v: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(v)
+    return s * (1.0 + v * (1.0 - s))
+
+
 def so3_ffn_bwd_plain(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
     """(dx, dw1, db1, dwg, dbg, dw2, db2) of ``so3_ffn_plain`` at cotangent
-    ``dy``; the grid matrices are constants."""
+    ``dy``; the grid matrices are constants. At a bfloat16 ``x``,
+    ``so3_ffn_bf16_bwd_plain``."""
+    if x.dtype == torch.bfloat16:
+        return so3_ffn_bf16_bwd_plain(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax, dy)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (x, w1, b1, wg, bg, w2)]
         b2 = x.new_zeros((w2.shape[2],), requires_grad=True)
@@ -422,13 +477,55 @@ def so3_ffn_bwd_plain(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
         return torch.autograd.grad(y, (*leaves, b2), dy)
 
 
+def so3_ffn_bf16_bwd_plain(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
+    """K4b's bfloat16 instance in plain PyTorch, rounding where
+    ``_ffn_bwd_kernel`` rounds: the weights and grid matrices cast to
+    bfloat16; h rounded after b1; dmid = dy w2^T in float32, dg0 =
+    silu'(g0) dmid[0] from its float32 row 0, then the row zeroed and dmid
+    rounded; silu of the grid rounded, mid (row 0 the gates) rounded;
+    silu'(grid) times the lifted cotangent rounded before dh's product; db1
+    sums dh unrounded, then dh is rounded before dw1 and dx; dg0 rounded
+    (dbg sums it rounded); dx summed over the whole hidden in float32 and
+    rounded once. dx is bfloat16, the six weight and bias gradients
+    float32."""
+    dt = x.dtype
+    l_of = _l_of(lmax, x.device)
+    xf, dyf = x.float(), dy.float()
+    tg, fg = rounded(to_grid, dt), rounded(from_grid, dt)
+    w1e = rounded(w1, dt).index_select(0, l_of)  # [I, C, H]
+    w2e = rounded(w2, dt).index_select(0, l_of)  # [I, H, Co]
+    wgr = rounded(wg, dt)
+    x0 = xf[:, 0, :]
+    g0 = x0 @ wgr + bg
+    h = torch.einsum("nic,ich->nih", xf, w1e)
+    h = rounded(torch.cat([h[:, :1] + b1, h[:, 1:]], dim=1), dt)
+    dmid = torch.einsum("nio,iho->nih", dyf, w2e)
+    dg0 = _silu_grad(g0) * dmid[:, 0]
+    dmid = rounded(torch.cat([torch.zeros_like(dmid[:, :1]), dmid[:, 1:]], dim=1), dt)
+    grid = torch.einsum("gi,nih->ngh", tg, h)
+    act = rounded(F.silu(grid), dt)
+    mid = torch.einsum("gi,ngh->nih", fg, act)
+    mid = rounded(torch.cat([rounded(F.silu(g0), dt)[:, None], mid[:, 1:]], dim=1), dt)
+    dgrid = rounded(_silu_grad(grid) * torch.einsum("gi,nih->ngh", fg, dmid), dt)
+    del grid, act
+    dh = torch.einsum("gi,ngh->nih", tg, dgrid)
+    db1 = dh[:, 0].sum(0)
+    dhc = rounded(dh, dt)
+    dg0 = rounded(dg0, dt)
+    dw1 = torch.zeros_like(w1).index_add_(0, l_of, torch.einsum("nic,nih->ich", xf, dhc))
+    dw2 = torch.zeros_like(w2).index_add_(0, l_of, torch.einsum("nih,nio->iho", mid, dyf))
+    dx = torch.einsum("nih,ich->nic", dhc, w1e)
+    dx = torch.cat([dx[:, :1] + (dg0 @ wgr.t())[:, None], dx[:, 1:]], dim=1)
+    return (dx.to(dt), dw1, db1, x0.t() @ dg0, dg0.sum(0), dw2, dyf[:, 0].sum(0))
+
+
 def _s2_fns():
     lib = build.load("so3_ffn")
     words = lib.so3_ffn_words
-    words.argtypes = [ctypes.c_int] * 5
+    words.argtypes = [ctypes.c_int] * 6
     words.restype = ctypes.c_longlong
-    fn = lib.so3_ffn_f32
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = lib.so3_ffn
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return words, fn
 
@@ -436,50 +533,52 @@ def _s2_fns():
 def _s2_bwd_fns():
     lib = build.load("so3_ffn_bwd")
     blocks = lib.so3_ffn_bwd_blocks
-    blocks.argtypes = [ctypes.c_int] * 6
+    blocks.argtypes = [ctypes.c_int] * 7
     blocks.restype = ctypes.c_int
-    fn = lib.so3_ffn_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = lib.so3_ffn_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return blocks, fn
 
 
-def s2_fwd_instance(lmax: int, C: int, H: int, Co: int, G: int) -> str | None:
-    """Which of K4's kernels runs these widths (any N): "tensor_cores",
+def s2_fwd_instance(lmax: int, C: int, H: int, Co: int, G: int, bf16: bool = False) -> str | None:
+    """Which of K4's kernels runs these widths (any N; ``bf16``: its
+    bfloat16 instance's, the tensor-core kernel alone): "tensor_cores",
     "cuda_cores", or None for a shape neither takes. Launches nothing."""
     fn = build.load("so3_ffn").so3_ffn_instance
-    fn.argtypes = [ctypes.c_int] * 5
+    fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
-    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(lmax, C, H, Co, G))
+    return {1: "tensor_cores", 0: "cuda_cores"}.get(fn(lmax, C, H, Co, G, int(bf16)))
 
 
-def s2_fwd_residency(lmax: int, C: int, H: int, Co: int, G: int) -> dict:
-    """K4's tensor-core kernel at these widths: resident blocks per SM (-1:
-    a shape it does not take), threads and dynamic shared memory per block.
-    For reports; launches nothing."""
-    fn = build.load("so3_ffn").so3_ffn_residency
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+def _residency(fn, *widths) -> dict:
+    fn.argtypes = [ctypes.c_int] * len(widths) + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = fn(lmax, C, H, Co, G, ctypes.byref(smem), ctypes.byref(threads))
+    per_sm = fn(*widths, ctypes.byref(smem), ctypes.byref(threads))
     return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
-def s2_bwd_residency(lmax: int, C: int, H: int, Co: int, G: int) -> dict:
-    """K4b's kernel at these widths: resident blocks per SM (-1: a shape it
-    does not take), threads and dynamic shared memory per block. For
-    reports; launches nothing."""
-    fn = build.load("so3_ffn_bwd").so3_ffn_bwd_residency
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
-    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
-    per_sm = fn(lmax, C, H, Co, G, ctypes.byref(smem), ctypes.byref(threads))
-    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
+def s2_fwd_residency(lmax: int, C: int, H: int, Co: int, G: int, bf16: bool = False) -> dict:
+    """K4's tensor-core kernel at these widths (``bf16``: its bfloat16
+    instance): resident blocks per SM (-1: a shape it does not take),
+    threads and dynamic shared memory per block. For reports; launches
+    nothing."""
+    return _residency(build.load("so3_ffn").so3_ffn_residency, lmax, C, H, Co, G, int(bf16))
+
+
+def s2_bwd_residency(lmax: int, C: int, H: int, Co: int, G: int, bf16: bool = False) -> dict:
+    """K4b's kernel at these widths (``bf16``: its bfloat16 instance):
+    resident blocks per SM (-1: a shape it does not take), threads and
+    dynamic shared memory per block. For reports; launches nothing."""
+    return _residency(build.load("so3_ffn_bwd").so3_ffn_bwd_residency, lmax, C, H, Co, G,
+                      int(bf16))
 
 
 def _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int):
     """Device, dtype, shape and contiguity of K4's and K4b's common
-    arguments; returns (N, L, C, H, Co, G)."""
+    arguments (x and the grid matrices float32, or all three bfloat16; the
+    weights float32); returns (N, L, C, H, Co, G)."""
     N, I, C = x.shape
     L = lmax + 1
     H = w1.shape[2]
@@ -487,21 +586,24 @@ def _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int):
     G = to_grid.shape[0]
     dev = x.device
     f32 = torch.float32
+    act = torch.bfloat16 if x.dtype == torch.bfloat16 else f32
     if I != L * L:
         raise ValueError(f"x has {I} coefficient rows, expected {L * L} at lmax {lmax}")
-    build.require(x, "x", (N, I, C), f32, dev)
+    build.require(x, "x", (N, I, C), act, dev)
     build.require(w1, "w1", (L, C, H), f32, dev)
     build.require(b1, "b1", (H,), f32, dev)
     build.require(wg, "wg", (C, H), f32, dev)
     build.require(bg, "bg", (H,), f32, dev)
     build.require(w2, "w2", (L, H, Co), f32, dev)
-    build.require(to_grid, "to_grid", (G, I), f32, dev)
-    build.require(from_grid, "from_grid", (G, I), f32, dev)
+    build.require(to_grid, "to_grid", (G, I), act, dev)
+    build.require(from_grid, "from_grid", (G, I), act, dev)
     return N, L, C, H, Co, G
 
 
 def so3_ffn_cuda(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> torch.Tensor:
-    global launches_s2
+    """The K4 kernels (at a bfloat16 x, with bfloat16 grid matrices, its
+    bfloat16 instance); arguments and result as ``so3_ffn_plain``."""
+    global launches_s2, launches_s2_bf16
     N, L, C, H, Co, G = _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax)
     build.require(b2, "b2", (Co,), torch.float32, x.device)
     x, w1, b1, wg, bg, w2, b2, to_grid, from_grid = (
@@ -509,28 +611,35 @@ def so3_ffn_cuda(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> to
     out = torch.empty((N, L * L, Co), dtype=x.dtype, device=x.device)
     if N == 0:
         return out
+    bf16 = int(x.dtype == torch.bfloat16)
     words_fn, fn = _s2_fns()
     # the tensor-core kernel's weights, split into TF32 fragments once a call
-    # (none for the CUDA-core instance; -1: a shape no kernel takes, which
-    # the launch refuses)
-    wfrag = torch.empty(max(words_fn(lmax, C, H, Co, G), 4), dtype=torch.int32, device=x.device)
+    # (at bfloat16 their hi alone; none for the CUDA-core instance; -1: a
+    # shape no kernel takes, which the launch refuses)
+    wfrag = torch.empty(max(words_fn(lmax, C, H, Co, G, bf16), 4), dtype=torch.int32,
+                        device=x.device)
     status = fn(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(), out.data_ptr(),
-        wfrag.data_ptr(), N, lmax, C, H, Co, G, build.stream_ptr(x),
+        wfrag.data_ptr(), N, lmax, C, H, Co, G, bf16, build.stream_ptr(x),
     )
     build.check(status, "so3_ffn")
-    launches_s2 += 1
+    if bf16:
+        launches_s2_bf16 += 1
+    else:
+        launches_s2 += 1
     return out
 
 
 def so3_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
-    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K4b kernel."""
-    global launches_s2_bwd
+    """(dx, dw1, db1, dwg, dbg, dw2, db2) from the K4b kernel (at a bfloat16
+    x: x, dy, the grid matrices and dx bfloat16, its bfloat16 instance)."""
+    global launches_s2_bwd, launches_s2_bwd_bf16
     N, L, C, H, Co, G = _check_s2_args(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax)
     dev = x.device
     f32 = torch.float32
-    build.require(dy, "dy", (N, L * L, Co), f32, dev)
+    bf16 = int(x.dtype == torch.bfloat16)
+    build.require(dy, "dy", (N, L * L, Co), x.dtype, dev)
     x, w1, b1, wg, bg, w2, to_grid, from_grid, dy = (
         build.aligned(t) for t in (x, w1, b1, wg, bg, w2, to_grid, from_grid, dy))
     dx = torch.empty_like(x)
@@ -540,19 +649,25 @@ def so3_ffn_bwd_cuda(x, w1, b1, wg, bg, w2, to_grid, from_grid, lmax: int, dy):
         grads.zero_()
     else:
         blocks_fn, fn = _s2_bwd_fns()
-        blocks = blocks_fn(N, lmax, C, H, Co, G)
+        blocks = blocks_fn(N, lmax, C, H, Co, G, bf16)
         if blocks < 1:
-            raise ValueError(f"so3_ffn backward kernel: {C} input channels at lmax {lmax} not "
-                             "supported or its tiles exceed shared memory")
+            raise ValueError(f"so3_ffn backward kernel: {C} input / {Co} output channels at "
+                             f"lmax {lmax} not supported{' at bfloat16' if bf16 else ''} or its "
+                             "tiles exceed shared memory")
         partial = torch.empty((blocks, sum(sizes)), dtype=f32, device=dev)
+        # bfloat16: dx's float32 sums over the hidden chunks, rounded once
+        dxf = torch.empty(x.shape if bf16 else (1,), dtype=f32, device=dev)
         status = fn(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), wg.data_ptr(),
             bg.data_ptr(), w2.data_ptr(), to_grid.data_ptr(), from_grid.data_ptr(),
-            dx.data_ptr(), partial.data_ptr(), grads.data_ptr(), N, lmax, C, H, Co, G, blocks,
-            build.stream_ptr(x),
+            dx.data_ptr(), dxf.data_ptr(), partial.data_ptr(), grads.data_ptr(), N, lmax, C, H,
+            Co, G, blocks, bf16, build.stream_ptr(x),
         )
         build.check(status, "so3_ffn_bwd")
-        launches_s2_bwd += 1
+        if bf16:
+            launches_s2_bwd_bf16 += 1
+        else:
+            launches_s2_bwd += 1
     dw1, db1, dwg, dbg, dw2, db2 = torch.split(grads, sizes)
     return (dx, dw1.view(L, C, H), db1, dwg.view(C, H), dbg, dw2.view(L, H, Co), db2)
 

@@ -21,8 +21,15 @@ have not changed since sampling. The generator step differentiates
 ``encode_pocket`` (the embedding's protein-and-ligand intra pass and encoder
 1), so it runs K1b, K2b and K3b besides the forward kernels.
 
-The port trains in float32 (``train.loop.float32_config``). Deliberate
-differences from the JAX package: the sampler draws from a
+The port trains at the config's ``train.compute_dtype``, as the JAX
+package's ``main`` sets it for the whole run: bfloat16 (``Config()``'s and
+``configs/gan_recipe.yml``'s) wherever every kernel of the path has a
+bfloat16 instance, float32 where the config says so, and float32 with the
+reason printed where a switch selects a kernel without one
+(``train.loop.training_config``; ``GANTrainer`` refuses that case).
+Parameters, the four Adam states and checkpoints stay float32; the
+sampler's and ``sequence_logp``'s logits and log-probs are float32, as
+JAX's. Deliberate differences from the JAX package: the sampler draws from a
 ``torch.Generator`` the caller passes, so its samples are not JAX's; the
 WGAN-GP interpolation weights come from the same generator; ``--init-ckpt``
 reads the port's own checkpoints. ``--vina-eval N`` samples the encoded batch
@@ -52,12 +59,13 @@ from singa_tpu_torch.config import EOS_TOKEN, PAD_TOKEN, SOS_TOKEN, Config, load
 from singa_tpu_torch.cpp import vina
 from singa_tpu_torch.data.batch import ComplexBatch
 from singa_tpu_torch.data.dataset import NpzDataset, SyntheticDataset
+from singa_tpu_torch.dtypes import compute_dtype_scope
 from singa_tpu_torch.generate import grammar
 from singa_tpu_torch.models.discriminator import GINDiscriminatorDense, SeqDiscriminator
 from singa_tpu_torch.models.singa import SINGA, binarize_props, cross_entropy_loss
 from singa_tpu_torch.params import seeded_init
 from singa_tpu_torch.train.checkpointing import CheckpointManager, save_config
-from singa_tpu_torch.train.loop import MetricsWriter, check_float32, float32_config
+from singa_tpu_torch.train.loop import MetricsWriter, check_precision, training_config
 from singa_tpu_torch.train.optim import make_optimizer
 from singa_tpu_torch.train.rewards import (
     chem_reward_host,
@@ -161,7 +169,9 @@ def sequence_logp(model: SINGA, tokens: torch.Tensor, enc, enc_pad, prop,
 class GANTrainer:
     """The adversarial round's models, optimizers and steps. ``init`` binds
     the generator and makes the discriminators and the three optimizers
-    (Adam as ``optax.adam``); the state lives on the trainer."""
+    (Adam as ``optax.adam``); the state lives on the trainer. Each step
+    (``sample``, ``d_step``, ``gd_step``, ``g_step`` and their evaluations)
+    runs at the config's ``train.compute_dtype``."""
 
     def __init__(
         self,
@@ -176,7 +186,7 @@ class GANTrainer:
         grammar_mask: bool = False,
         d_label_smooth: float = 0.9,
     ):
-        check_float32(config)
+        check_precision(config)
         if graph_loss not in ("bce", "wgan-gp"):
             raise ValueError(f"graph_loss {graph_loss!r}: 'bce' or 'wgan-gp'")
         self.config = config
@@ -235,6 +245,10 @@ class GANTrainer:
         adj = torch.clamp(adj + adj.transpose(1, 2), 0.0, 1.0)
         return batch.ligand.x, adj, batch.ligand.mask
 
+    def _precision(self):
+        """The compute-dtype scope every step runs in."""
+        return compute_dtype_scope(self.config.train.compute_dtype)
+
     def _encode(self, batch: ComplexBatch):
         enc, pad = self.generator.encode_pocket(batch)
         cfg = self.config.model
@@ -243,10 +257,11 @@ class GANTrainer:
 
     @torch.no_grad()
     def sample(self, batch: ComplexBatch, generator: torch.Generator) -> torch.Tensor:
-        enc, pad, prop = self._encode(batch)
-        tokens, _ = sample_sequences(
-            self.generator, enc, pad, prop, generator, self.config.model.decoder.tgt_len,
-            self.temperature, grammar_mask=self.grammar_mask)
+        with self._precision():
+            enc, pad, prop = self._encode(batch)
+            tokens, _ = sample_sequences(
+                self.generator, enc, pad, prop, generator, self.config.model.decoder.tgt_len,
+                self.temperature, grammar_mask=self.grammar_mask)
         return tokens
 
     # ------------- the sequence discriminator -------------
@@ -261,14 +276,16 @@ class GANTrainer:
 
     def d_step(self, batch: ComplexBatch, fake_tokens):
         self.d_opt.zero_grad(set_to_none=False)
-        loss, acc = self.d_loss(batch.tokens.target, fake_tokens)
-        loss.backward()
+        with self._precision():
+            loss, acc = self.d_loss(batch.tokens.target, fake_tokens)
+            loss.backward()
         self.d_opt.step()
         return loss.detach(), acc
 
     @torch.no_grad()
     def d_eval(self, batch: ComplexBatch, fake_tokens):
-        return self.d_loss(batch.tokens.target, fake_tokens)
+        with self._precision():
+            return self.d_loss(batch.tokens.target, fake_tokens)
 
     # ------------- the graph discriminator -------------
 
@@ -304,14 +321,16 @@ class GANTrainer:
 
     def gd_step(self, batch: ComplexBatch, fake, eps=None):
         self.gd_opt.zero_grad(set_to_none=False)
-        loss, acc = self.gd_loss(self._real_graph(batch), fake, eps)
-        loss.backward()
+        with self._precision():
+            loss, acc = self.gd_loss(self._real_graph(batch), fake, eps)
+            loss.backward()
         self.gd_opt.step()
         return loss.detach(), acc
 
     @torch.no_grad()
     def gd_eval(self, batch: ComplexBatch, fake, eps=None):
-        return self.gd_loss(self._real_graph(batch), fake, eps)
+        with self._precision():
+            return self.gd_loss(self._real_graph(batch), fake, eps)
 
     # ------------- the generator -------------
 
@@ -335,8 +354,9 @@ class GANTrainer:
 
     def g_step(self, batch: ComplexBatch, tokens, chem_r, fake):
         self.g_opt.zero_grad(set_to_none=False)
-        loss, reward, pct_valid = self.g_loss(batch, tokens, chem_r, fake)
-        loss.backward()
+        with self._precision():
+            loss, reward, pct_valid = self.g_loss(batch, tokens, chem_r, fake)
+            loss.backward()
         self.g_opt.step()
         self.step += 1
         return loss.detach(), reward, pct_valid
@@ -478,9 +498,9 @@ def main(argv=None):
         raise RuntimeError("--device cuda asked for, but CUDA is not available")
     if args.vina_eval:
         vina.build()  # a library that cannot be built raises before any training
-    cfg = float32_config(load_config(args.config) if args.config else Config())
-    print(f"config: {args.config or 'Config()'} with train.compute_dtype=float32 "
-          "(the port trains in float32)")
+    # the config's precision for the whole run, as JAX's main sets it
+    cfg, precision = training_config(load_config(args.config) if args.config else Config())
+    print(f"config: {args.config or 'Config()'} with {precision}")
     if args.synthetic or not args.data:
         data = SyntheticDataset(args.batch_size, cfg.shapes, cfg.model.decoder.tgt_len)
     else:
@@ -503,8 +523,9 @@ def main(argv=None):
         for _ in range(args.pretrain):
             b = next(it).to(device)
             opt.zero_grad(set_to_none=False)
-            ce = cross_entropy_loss(generator(b), b.tokens.target)
-            ce.backward()
+            with compute_dtype_scope(cfg.train.compute_dtype):
+                ce = cross_entropy_loss(generator(b), b.tokens.target)
+                ce.backward()
             opt.step()
         print(f"pretrain done: CE={ce.item():.3f}")
 

@@ -10,15 +10,17 @@ off, at the config's ``train.compute_dtype``: float32, or bfloat16 as the
 JAX package's mixed precision (``singa_tpu_torch/dtypes.py``: parameters,
 geometry, Adam state and checkpoints float32, network compute bfloat16,
 weight gradients float32). bfloat16 runs where every kernel of the path has
-a bfloat16 instance: the gate FFN (K2/K2b), the separable S2 attention
-(K3/K3b) and neighbour-list encoder attention (K1/K1b), ``Config()``'s
-path. The JAX package's data-parallel mesh is not ported; one process
-trains on one device.
+a bfloat16 instance: the gate FFN (K2/K2b) or the s2 FFN (K4/K4b, at lmax
+1..6 and up to 16 sphere channels), the separable S2 attention (K3/K3b)
+and neighbour-list encoder attention (K1/K1b): ``Config()``'s path and
+``configs/train_corpus.yml``'s. The JAX package's data-parallel mesh is
+not ported; one process trains on one device.
 
 CLI: python -m singa_tpu_torch.train.loop --data data/corpus --max-iters 2
-[--config configs/train.yml]. The CLI keeps a config's bfloat16 on that
-path and runs any other path in float32 (``training_config``), printing
-which; ``Trainer`` itself refuses bfloat16 off that path, and float16.
+[--config configs/train.yml]. The CLI keeps a config's bfloat16 on those
+paths and runs any other path in float32 (``training_config``), printing
+which; ``Trainer`` itself refuses bfloat16 off them, and float16, as the
+adversarial trainer does (``train/gan.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from singa_tpu_torch.data.dataset import BucketedNpzDataset, SyntheticDataset
 from singa_tpu_torch.data.pipeline import Prefetcher
 from singa_tpu_torch.dtypes import compute_dtype_scope
 from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
+from singa_tpu_torch.ops.cuda.so3_ffn import s2_bf16_takes
 from singa_tpu_torch.train.checkpointing import CheckpointManager, save_config
 from singa_tpu_torch.train.optim import (
     EarlyStopping,
@@ -74,16 +77,21 @@ def float32_config(cfg: Config) -> Config:
 
 
 def bf16_blockers(config: Config) -> list[str]:
-    """The kernels without a bfloat16 instance that training ``config`` runs,
-    with the option or switch that selects each (read now, as the modules
-    read them at every call); empty on the path that trains in bfloat16."""
+    """The kernels without a bfloat16 instance (K4/K4b: at the s2 FFN's
+    widths, if their bfloat16 instances do not take them) that training
+    ``config`` runs, with the option or switch that selects each (read now,
+    as the modules read them at every call); empty on the paths that train
+    in bfloat16."""
     from singa_tpu_torch.equivariant.attention import _fused_so2_enabled
     from singa_tpu_torch.models.neighbor_graph import _dense_attn, _hybrid_attn
 
     emb = config.embedding
     out = []
-    if emb.ffn_activation != "gate":
-        out.append(f"K4/K4b (ffn_activation: {emb.ffn_activation})")
+    C = emb.sphere_channels
+    if emb.ffn_activation == "s2" and not s2_bf16_takes(emb.lmax, C, C):
+        out.append(f"K4/K4b at lmax {emb.lmax}, {C} sphere channels (ffn_activation: s2; "
+                   "their bfloat16 instances take lmax 1..6 and 4..16 channels, a multiple "
+                   "of 4)")
     if _fused_so2_enabled() and emb.mmax == 2 and emb.attn_hidden_channels % 128 == 0:
         out.append("K6/K6b (SINGA_TPU_FUSED_SO2)")
     if _dense_attn():
@@ -107,7 +115,7 @@ def check_precision(config: Config) -> None:
     if blockers:
         raise ValueError(
             f"compute_dtype 'bfloat16': this path trains in float32 only; "
-            f"{', '.join(blockers)} have no bfloat16 instance yet (ROADMAP, Queue 1 item 4: "
+            f"{', '.join(blockers)} have no bfloat16 instance yet (ROADMAP, Queue 1 item 2: "
             "bf16 training)"
         )
 
@@ -122,19 +130,8 @@ def training_config(cfg: Config) -> tuple[Config, str]:
     why = f": {', '.join(blockers)} have no bfloat16 instance yet" if blockers else ""
     return float32_config(cfg), (
         f"train.compute_dtype=float32 (the port trains this path in float32, not in the "
-        f"config's {tc.compute_dtype}{why}; ROADMAP, Queue 1 item 4)"
+        f"config's {tc.compute_dtype}{why}; ROADMAP, Queue 1 item 2)"
     )
-
-
-def check_float32(config: Config) -> None:
-    """Raise unless ``config`` trains in float32 (the GAN's precision)."""
-    tc = config.train
-    if tc.compute_dtype != "float32" or tc.param_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype {tc.compute_dtype!r} / param_dtype {tc.param_dtype!r}: the "
-            "GAN trains in float32 only; bfloat16 adversarial training is ROADMAP, "
-            "Queue 1 item 4 (bf16 training)"
-        )
 
 
 class Trainer:

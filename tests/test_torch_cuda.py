@@ -1294,7 +1294,8 @@ def test_neighbor_attn_bf16_instance_matches_its_twin(dev, case):
 def test_so3_gate_ffn_bf16_instance_matches_its_twin(dev, lmax, N, H, C):
     """K2's and K2b's bfloat16 instances (x, y, dy and dx bfloat16, the
     weights float32) against their bfloat16 twins: the main path's widths,
-    several weight-kernel slices, 32 and 12 channels; K4 refuses bfloat16."""
+    several weight-kernel slices, 32 and 12 channels; K4 refuses a bfloat16
+    x beside float32 grid matrices."""
     from singa_tpu_torch.ops.cuda import so3_ffn as k2
 
     L = lmax + 1
@@ -1652,6 +1653,129 @@ def test_bf16_backwards_take_misaligned_inputs(dev):
     got = k2.so3_gate_ffn_bwd_cuda(*[_misaligned(a) for a in (x, *w)], 6, _misaligned(dy))
     _check_bf16(got, k2.so3_gate_ffn_bwd_plain(x, *w, 6, dy),
                 ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
+
+
+# K4's and K4b's bfloat16 cases (lmax, N, H, C, Co): the s2 training
+# microbatch's widths at 37 nodes (a ragged last tile of K4's 8 nodes and of
+# K4b's 4) and at 2,003, lmax 4 and 2 (2: 8 channels, a hidden width no
+# multiple of 16), lmax 3, and one node
+K4_BF16_CASES = [(6, 37, 512, 16, 16), (6, 2003, 512, 16, 16), (4, 37, 512, 16, 16),
+                 (2, 9, 40, 8, 8), (3, 13, 64, 16, 16), (6, 1, 512, 16, 16)]
+K4_NAMES = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
+
+
+def _s2_ffn_bf16_case(dev, lmax, N, H, C, Co, seed):
+    """``_s2_ffn_case`` at bfloat16: x, the grid matrices and the cotangent
+    bfloat16 (as the module passes them), the weights float32; and the
+    backward's arguments."""
+    args, dy = _s2_ffn_case(dev, lmax, N, H, C, Co, seed)
+    args = _bf16(args, (0, 7, 8))
+    dy = dy.to(torch.bfloat16)
+    return args, [*args[:6], *args[7:], lmax, dy]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", K4_BF16_CASES)
+def test_so3_ffn_bf16_instance_by_width(dev, lmax, N, H, C, Co):
+    """K4's and K4b's bfloat16 instances against their bfloat16 twins
+    (``BF16_TOL`` of each output's largest; y and dx bfloat16, the six
+    weight and bias gradients float32), and which kernels ran: K4's
+    tensor-core kernel and weight split at bfloat16, K4b's kernel at
+    bfloat16 and the sums' second pass, never the CUDA-core instance; one
+    bfloat16 launch a call, none of the float32 counters."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    args, bwd_args = _s2_ffn_bf16_case(dev, lmax, N, H, C, Co, 131 + N)
+    G = args[7].shape[0]
+    assert k4.s2_fwd_instance(lmax, C, H, Co, G, bf16=True) == "tensor_cores"
+    want = k4.so3_ffn_plain(*args, lmax)
+    want_g = k4.so3_ffn_bwd_plain(*bwd_args)
+    assert want.dtype == want_g[0].dtype == torch.bfloat16
+    n = (k4.launches_s2, k4.launches_s2_bwd, k4.launches_s2_bf16, k4.launches_s2_bwd_bf16)
+    got, names, calls = _kernels_run(lambda: k4.so3_ffn_cuda(*args, lmax))
+    _check_bf16([got], [want], ["y"])
+    grads, bnames, bcalls = _kernels_run(lambda: k4.so3_ffn_bwd_cuda(*bwd_args))
+    _check_bf16(grads, want_g, K4_NAMES)
+    assert (k4.launches_s2, k4.launches_s2_bwd, k4.launches_s2_bf16,
+            k4.launches_s2_bwd_bf16) == (n[0], n[1], n[2] + calls, n[3] + bcalls)
+    ran = [m for m in names if "ffn_" in m]
+    assert len(ran) == 2 and all("bfloat16" in m for m in ran), ran
+    assert any("ffn_tc_kernel<" in m for m in ran) and any("ffn_wsplit_kernel<" in m for m in ran)
+    bran = [m for m in bnames if "ffn_bwd_kernel<" in m]
+    assert len(bran) == 1 and "bfloat16" in bran[0], bnames
+    assert [m for m in names + bnames if "ffn_cc_kernel" in m] == []
+
+
+@pytest.mark.cuda
+def test_so3_ffn_bf16_refuses_widths_it_does_not_take(dev):
+    """At a width the bfloat16 instances do not take (lmax 7; 24 sphere
+    channels; 20 output channels) a bfloat16 call raises and launches
+    nothing: no bfloat16 CUDA-core instance, no float32 kernel, no plain
+    version takes its place; its float32 call at the same widths runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    for lmax, N, H, C, Co in ((7, 9, 40, 8, 8), (3, 13, 40, 24, 24), (3, 13, 40, 16, 20)):
+        args, bwd_args = _s2_ffn_bf16_case(dev, lmax, N, H, C, Co, 137)
+        assert k4.s2_fwd_instance(lmax, C, H, Co, args[7].shape[0], bf16=True) is None
+        n = (k4.launches_s2, k4.launches_s2_bwd, k4.launches_s2_bf16, k4.launches_s2_bwd_bf16)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with pytest.raises(ValueError):
+                k4.so3_ffn_cuda(*args, lmax)
+            with pytest.raises(ValueError, match="not supported at bfloat16"):
+                k4.so3_ffn_bwd_cuda(*bwd_args)
+            torch.cuda.synchronize()
+        ran = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "ffn" in e.key]
+        assert ran == [], ran
+        assert (k4.launches_s2, k4.launches_s2_bwd, k4.launches_s2_bf16,
+                k4.launches_s2_bwd_bf16) == n
+        if lmax < 7:  # K4b's float32 kernel refuses lmax 7 (shared memory)
+            f32 = [a.float() if torch.is_tensor(a) else a for a in bwd_args]
+            k4.so3_ffn_bwd_cuda(*f32)
+        k4.so3_ffn_cuda(*[a.float() for a in args], lmax)
+        assert (k4.launches_s2, k4.launches_s2_bwd) == (n[0] + 1, n[1] + (lmax < 7))
+
+
+@pytest.mark.cuda
+def test_so3_ffn_bf16_residency(dev):
+    """K4's and K4b's bfloat16 kernels at the s2 microbatch's widths (lmax
+    6, C = Co = 16, H 512, G 210): one block an SM of 256 and 512 threads;
+    K4's in less shared memory than its float32 kernel (its weights' hi
+    planes alone), K4b's in 256 bytes more (dh's unrounded row 0); lmax 7
+    refused at bfloat16; the float32 kernels' residency unchanged."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    widths = (6, 16, 512, 16, 210)
+    fwd, fwd32 = k4.s2_fwd_residency(*widths, bf16=True), k4.s2_fwd_residency(*widths)
+    bwd, bwd32 = k4.s2_bwd_residency(*widths, bf16=True), k4.s2_bwd_residency(*widths)
+    assert fwd["blocks_per_sm"] == 1 and fwd["threads"] == 256, fwd
+    assert fwd["smem_bytes"] < fwd32["smem_bytes"], (fwd, fwd32)
+    assert bwd32 == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 225792}, bwd32
+    assert bwd == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 225792 + 256}, bwd
+    assert fwd32["blocks_per_sm"] == 1 and fwd32["threads"] == 256, fwd32
+    assert k4.s2_fwd_residency(7, 8, 40, 8, 272, bf16=True)["blocks_per_sm"] == -1
+    assert k4.s2_bwd_residency(7, 8, 40, 8, 272, bf16=True)["blocks_per_sm"] == -1
+
+
+@pytest.mark.cuda
+def test_so3_ffn_bf16_takes_misaligned_inputs(dev):
+    """K4's and K4b's bfloat16 instances given every tensor input as a
+    contiguous view at a one-element offset (their 8-byte loads of x, dy
+    and dx would fault) run through the wrappers' aligned copies, on their
+    bfloat16 kernels, and match their twins."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    args, bwd_args = _s2_ffn_bf16_case(dev, 6, 37, 512, 16, 16, 139)
+    got, names, _ = _kernels_run(lambda: k4.so3_ffn_cuda(*[_misaligned(a) for a in args], 6))
+    _check_bf16([got], [k4.so3_ffn_plain(*args, 6)], ["y"])
+    grads, bnames, _ = _kernels_run(
+        lambda: k4.so3_ffn_bwd_cuda(*[_misaligned(a) for a in bwd_args]))
+    _check_bf16(grads, k4.so3_ffn_bwd_plain(*bwd_args), K4_NAMES)
+    ran = [m for m in names + bnames if "ffn_tc_kernel<" in m or "ffn_bwd_kernel<" in m]
+    assert len(ran) == 2 and all("bfloat16" in m for m in ran), names + bnames
 
 
 def _so2_case(dev, E, lmax, C, H, F2, alpha_ch, seed):

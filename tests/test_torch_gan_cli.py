@@ -4,7 +4,8 @@ tests/test_gan_loop.py holds JAX's), the d_acc_cap pauses, the CLI on
 synthetic batches (metrics, config and a checkpoint that the generation CLI
 and ``--init-ckpt`` read back), the docking pass-rate (``--vina-eval``, held
 to JAX's ``vina_conditioning_host``), and the refusals: a card asked for
-where there is none, a bfloat16 config.
+where there is none, bfloat16 under a switch whose kernel has no bfloat16
+instance, float16.
 """
 from __future__ import annotations
 
@@ -18,7 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import VAL_FILES, gan_jax_config, load_val, port_config, tiny_jax_config
+from test_torch_common import (
+    REPO,
+    VAL_FILES,
+    gan_jax_config,
+    load_val,
+    port_config,
+    tiny_jax_config,
+)
 
 TGT_LEN = 24  # tests/test_model.py
 
@@ -212,11 +220,29 @@ def test_gan_cli_vina_eval_writes_the_pass_rate(tmp_path, capsys):
 
 
 def test_refusals_of_a_missing_card_and_of_bfloat16(monkeypatch, tmp_path):
-    from singa_tpu_torch.config import Config
+    """A card asked for where there is none is refused. bfloat16, the JAX
+    default and configs/gan_recipe.yml's, is the GAN's precision wherever
+    the generator's path has bfloat16 kernels: GANTrainer takes Config()
+    and the recipe as they are, and refuses bfloat16 (naming ROADMAP) only
+    where a switch selects a kernel without a bfloat16 instance, and
+    float16."""
+    from singa_tpu_torch.config import Config, load_config
     from singa_tpu_torch.train.gan import GANTrainer, main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--synthetic", "--logdir", str(tmp_path / "x")])  # --device defaults to cuda
-    with pytest.raises(ValueError, match="float32 only"):
-        GANTrainer(Config())  # the JAX default trains in bfloat16
+    recipe = load_config(os.path.join(REPO, "configs", "gan_recipe.yml"))
+    for cfg in (Config(), recipe):
+        assert cfg.train.compute_dtype == "bfloat16"
+        assert GANTrainer(cfg).config is cfg
+    for var, kernels in (("SINGA_TPU_HYBRID_ATTN", "K7/K7b"), ("SINGA_TPU_DENSE_ATTN", "K8/K8b")):
+        with monkeypatch.context() as m:
+            m.setenv(var, "1")
+            with pytest.raises(ValueError, match="float32 only") as refused:
+                GANTrainer(Config())
+            assert kernels in str(refused.value) and "ROADMAP, Queue 1 item 2" in str(refused.value)
+    f16 = dataclasses.replace(Config(), train=dataclasses.replace(Config().train,
+                                                                  compute_dtype="float16"))
+    with pytest.raises(ValueError, match="'float16'"):
+        GANTrainer(f16)

@@ -170,11 +170,11 @@ def test_ffn_refuses_the_activations_not_ported():
         FeedForwardNetwork(8, 16, 8, 2, activation="grid", device="cpu")
 
 
-def test_training_cli_runs_a_bf16_config_in_float32(tmp_path, capsys):
-    """A config file with ffn_activation s2 and no train.compute_dtype (so
-    the bf16 default) trains 1 step on the CPU in float32 and says so; the
-    generation CLI then serves one pocket from that checkpoint, whose
-    config.yml carries the s2 activation."""
+def _s2_cli_run(tmp_path, sphere_channels: int, argv_extra=()):
+    """The training CLI for 1 step on the CPU on a tiny s2 config file with
+    no train.compute_dtype (so the bf16 default) and ``sphere_channels``,
+    on two val complexes; then the generation CLI from its checkpoint.
+    Returns (config path, what the CLI printed, the saved config)."""
     import csv
     import shutil
 
@@ -188,27 +188,25 @@ def test_training_cli_runs_a_bf16_config_in_float32(tmp_path, capsys):
     raw = json.loads(json.dumps(dataclasses.asdict(jcfg)))
     del raw["train"]["compute_dtype"]
     raw["train"].update(batch_size=2, microbatch=None)
-    cfg_path = tmp_path / "tiny_s2.yml"
+    raw["embedding"]["sphere_channels"] = sphere_channels
+    raw["model"]["featurizer_feat_dim"] = sphere_channels * (jcfg.embedding.lmax + 1) ** 2
+    cfg_path = tmp_path / f"tiny_s2_{sphere_channels}.yml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump(raw, f)
     assert load_config(str(cfg_path)).train.compute_dtype == "bfloat16"
 
     data = tmp_path / "corpus" / "train"
-    data.mkdir(parents=True)
+    data.mkdir(parents=True, exist_ok=True)
     val = os.path.join(REPO, "data", "corpus", "val")
     files = sorted(os.listdir(val))[:2]
     for name in files:
         shutil.copy(os.path.join(val, name), data / name)
-    logdir = tmp_path / "run"
+    logdir = tmp_path / f"run{sphere_channels}"
     train_main(["--config", str(cfg_path), "--data", str(tmp_path / "corpus"), "--max-iters", "1",
                 "--device", "cpu", "--logdir", str(logdir)])
-    printed = capsys.readouterr().out
-    assert (f"config: {cfg_path} with train.compute_dtype=float32 (the port trains this path in "
-            "float32, not in the config's bfloat16: K4/K4b (ffn_activation: s2) have no bfloat16 "
-            "instance yet; ROADMAP, Queue 1 item 4)") in printed
     assert sorted(os.listdir(logdir / "checkpoints")) == ["1"]
     saved = load_config(str(logdir / "config.yml"))
-    assert saved.embedding.ffn_activation == "s2" and saved.train.compute_dtype == "float32"
+    assert saved.embedding.ffn_activation == "s2"
 
     out = tmp_path / "out.csv"
     gen_main(["--checkpoint", str(logdir / "checkpoints"), "--input", str(data / files[0]),
@@ -216,21 +214,52 @@ def test_training_cli_runs_a_bf16_config_in_float32(tmp_path, capsys):
     with open(out) as f:
         rows = list(csv.reader(f))
     assert rows[0] == ["smiles", "score"] and len(rows) == 1 + port_config(jcfg).generate.topk
+    return cfg_path, saved
 
 
-def test_trainer_refuses_the_corpus_config_unless_made_float32():
-    """configs/train_corpus.yml (the s2 configuration, bf16 by default):
-    Trainer still refuses it as it is; float32_config, which the CLI applies,
-    keeps everything else, the s2 activation and batch 32 as one microbatch
-    included."""
+def test_training_cli_runs_a_bf16_config_in_float32(tmp_path, capsys):
+    """A config file with ffn_activation s2 at a width K4's and K4b's
+    bfloat16 instances do not take (20 sphere channels) and no
+    train.compute_dtype (so the bf16 default) trains 1 step on the CPU in
+    float32 and says why; the generation CLI then serves one pocket from
+    that checkpoint, whose config.yml carries the s2 activation."""
+    cfg_path, saved = _s2_cli_run(tmp_path, 20)
+    printed = capsys.readouterr().out
+    assert (f"config: {cfg_path} with train.compute_dtype=float32 (the port trains this path in "
+            "float32, not in the config's bfloat16: K4/K4b at lmax 2, 20 sphere channels "
+            "(ffn_activation: s2; their bfloat16 instances take lmax 1..6 and 4..16 channels, a "
+            "multiple of 4) have no bfloat16 instance yet; ROADMAP, Queue 1 item 2)") in printed
+    assert saved.train.compute_dtype == "float32"
+
+
+def test_training_cli_trains_the_s2_config_at_bf16(tmp_path, capsys):
+    """The same at 8 sphere channels, a width the bfloat16 instances take:
+    the CLI keeps the config's bfloat16, says so, trains and checkpoints at
+    it, and generation serves from that checkpoint."""
+    cfg_path, saved = _s2_cli_run(tmp_path, 8)
+    assert f"config: {cfg_path} with train.compute_dtype=bfloat16\n" in capsys.readouterr().out
+    assert saved.train.compute_dtype == "bfloat16"
+
+
+def test_trainer_refuses_the_corpus_config_unless_made_float32(monkeypatch, tmp_path):
+    """configs/train_corpus.yml (the s2 configuration, bf16 by default, at
+    lmax 6 and 16 sphere channels): Trainer takes it as it is, at bfloat16;
+    under a switch whose kernel has no bfloat16 instance it refuses it
+    unless made float32, and float32_config, which the CLI then applies,
+    keeps everything else, the s2 activation and batch 32 as one
+    microbatch included."""
     from singa_tpu_torch.config import load_config
-    from singa_tpu_torch.train.loop import Trainer, float32_config
+    from singa_tpu_torch.train.loop import Trainer, float32_config, training_config
 
     cfg = load_config(os.path.join(REPO, "configs", "train_corpus.yml"))
     assert cfg.train.compute_dtype == "bfloat16"
+    assert training_config(cfg) == (cfg, "train.compute_dtype=bfloat16")
+    assert Trainer(cfg, logdir=str(tmp_path / "bf16"), device="cpu").config is cfg
+    monkeypatch.setenv("SINGA_TPU_HYBRID_ATTN", "1")
     with pytest.raises(ValueError, match="float32 only"):
-        Trainer(cfg, logdir="unused", device="cpu")
+        Trainer(cfg, logdir=str(tmp_path / "refused"), device="cpu")
     f32 = float32_config(cfg)
+    assert training_config(cfg)[0] == f32
     assert f32.train.compute_dtype == "float32"
     assert f32.embedding == cfg.embedding and f32.embedding.ffn_activation == "s2"
     assert (f32.train.batch_size, f32.train.microbatch) == (32, None)

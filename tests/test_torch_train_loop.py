@@ -173,21 +173,27 @@ def test_prefetcher_hands_over_every_batch_and_errors():
 
 def test_trainer_refuses_other_precisions(tmp_path, monkeypatch):
     """bfloat16 is the precision of Config()'s path (gate FFN, neighbour-list
-    attention, separable S2): Trainer takes it there. It refuses it, naming
-    ROADMAP, wherever a kernel without a bfloat16 instance would run: the s2
-    FFN (K4/K4b), SINGA_TPU_FUSED_SO2 (K6/K6b), SINGA_TPU_HYBRID_ATTN
-    (K7/K7b), SINGA_TPU_DENSE_ATTN (K8/K8b); float16 everywhere. The CLI's
-    training_config keeps bfloat16 on the gate path and coerces to float32,
-    saying why, only on the refused ones."""
+    attention, separable S2) and of the s2 FFN at the widths K4's and K4b's
+    bfloat16 instances take (lmax 1..6, 4..16 sphere channels): Trainer takes
+    it there. It refuses it, naming ROADMAP, wherever a kernel without a
+    bfloat16 instance would run: the s2 FFN at a width those instances do
+    not take (K4/K4b at 20 sphere channels), SINGA_TPU_FUSED_SO2 (K6/K6b),
+    SINGA_TPU_HYBRID_ATTN (K7/K7b), SINGA_TPU_DENSE_ATTN (K8/K8b); float16
+    everywhere. The CLI's training_config keeps bfloat16 where Trainer takes
+    it and coerces to float32, saying why, only on the refused ones."""
     from singa_tpu_torch.train.loop import Trainer, training_config
 
     _, cfg = _tiny()
     bf16 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="bfloat16"))
-    Trainer(bf16, logdir=str(tmp_path / "gate"), device="cpu")
-    assert training_config(bf16) == (bf16, "train.compute_dtype=bfloat16")
     emb = lambda c, **kw: dataclasses.replace(c, embedding=dataclasses.replace(c.embedding, **kw))
+    s2 = emb(bf16, ffn_activation="s2")
+    for i, c in enumerate((bf16, s2)):
+        Trainer(c, logdir=str(tmp_path / f"takes{i}"), device="cpu")
+        assert training_config(c) == (c, "train.compute_dtype=bfloat16")
+    wide = dataclasses.replace(emb(s2, sphere_channels=20), model=dataclasses.replace(
+        s2.model, featurizer_feat_dim=20 * (s2.embedding.lmax + 1) ** 2))
     cases = [
-        (emb(bf16, ffn_activation="s2"), None, "K4/K4b"),
+        (wide, None, "K4/K4b at lmax 2, 20 sphere channels (ffn_activation: s2"),
         (emb(bf16, attn_hidden_channels=128), "SINGA_TPU_FUSED_SO2", "K6/K6b"),
         (bf16, "SINGA_TPU_HYBRID_ATTN", "K7/K7b"),
         (bf16, "SINGA_TPU_DENSE_ATTN", "K8/K8b"),
@@ -198,13 +204,14 @@ def test_trainer_refuses_other_precisions(tmp_path, monkeypatch):
                 m.setenv(var, "1")
             with pytest.raises(ValueError, match="float32 only") as refused:
                 Trainer(c, logdir=str(tmp_path / f"r{i}"), device="cpu")
-            assert kernels in str(refused.value) and "ROADMAP" in str(refused.value)
+            assert kernels in str(refused.value)
+            assert "ROADMAP, Queue 1 item 2" in str(refused.value)
             f32, line = training_config(c)
             assert f32.train.compute_dtype == "float32" and f32.embedding == c.embedding
             assert line.startswith("train.compute_dtype=float32") and kernels in line
-            assert "ROADMAP" in line
+            assert "ROADMAP, Queue 1 item 2" in line
             Trainer(f32, logdir=str(tmp_path / f"f{i}"), device="cpu")
-    for i, c in enumerate((bf16, emb(bf16, ffn_activation="s2"))):
+    for i, c in enumerate((bf16, s2)):
         f16 = dataclasses.replace(c, train=dataclasses.replace(c.train, compute_dtype="float16"))
         with pytest.raises(ValueError, match="'float16'"):
             Trainer(f16, logdir=str(tmp_path / f"h{i}"), device="cpu")
