@@ -203,7 +203,26 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      call of K8 (serving) and of K8 and K8b (a training microbatch), the
      live pairs, padded and closed-form rows, tiles per row, the per-pair
      scratch against the all-columns one, the kernels' residency, and their
-     times with rows by descending live count (theirs) and in index order
+     times with rows by descending live count (theirs) and in index order;
+     then configs/train.yml at its own bfloat16 under each switch (suffix
+     _hybrid_bf16 / _dense_bf16; batch 64 as 2 x 32, BF16_WARMUP +
+     BF16_STEPS steps, no _vs_cpu): kernel_train / kernel_bwd (K7·bf16 and
+     K7b·bf16, or K8·bf16 and K8b·bf16, at every distinct call of a
+     microbatch, each held to its bfloat16 twin within BF16_TOL, bound at
+     the bfloat16 rate; K7's and K7b's lines with ``walks``,
+     ``bound_tc_ms`` at one TF32 product and their CUDA-core instance at
+     the same call), train (per step 12 of each of K2·bf16, K3·bf16,
+     K2b·bf16, K3b·bf16 and the form's two bfloat16 instances, every
+     float32 count 0), train_profile (the form's bfloat16 kernels by name,
+     ``k7_bf16_kernels`` / ``k8_bf16_kernels``, 12 a step, their float32
+     instances 0) and train_cli (``--config configs/train.yml``, the
+     switch set); train_forms_bf16_vs_f32 sets each form's bfloat16 step
+     beside its float32 one; train_vs_cpu_bf16: configs/train.yml cut to
+     lmax 2, a bfloat16 training step's loss and every gradient on the card
+     against the CPU (2 complexes, the same seeded weights) under no switch,
+     the hybrid switch and the dense switch: the gradients' L2 difference
+     within GAN_BF16_CPU_TOL of their L2 norm, the loss within
+     GAN_BF16_LOSS_TOL
  15. the adversarial fine-tuning path under configs/gan_recipe.yml (lmax 4,
      gate FFN), first at its own bfloat16 as a user runs it (suffix _bf16:
      gan_bf16 with 3 rounds and the --vina-eval report below, every launch
@@ -241,11 +260,12 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
 then a ``total`` line (the script's seconds so far), the card's name and
 power limit as nvidia-smi prints them, the kernels line and
 ``{"ok": true, "device": {...}}`` last. The kernels line lists all sixteen
-kernels and their eight bfloat16 instances: ``launches`` counted over the training run of the kernel's path
+kernels and their twelve bfloat16 instances: ``launches`` counted over the training run of the kernel's path
 (K1-K3, K1b-K3b: train; K4, K4b: train_s2; K6, K6b: train_so2; K7, K7b:
 train_hybrid; K8, K8b: train_dense; K5, K5b: none, 0, with ``"path":
 null``; the bfloat16 instances: K1-K3b's train_bf16, K4's and K4b's
-train_s2_bf16); ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over one
+train_s2_bf16, K7's and K7b's train_hybrid_bf16, K8's and K8b's
+train_dense_bf16); ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over one
 microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
 call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
@@ -296,14 +316,20 @@ train_profile_bf16, train_cli_bf16; configs/train.yml at its own
 bfloat16, 12 launches a step of each bfloat16 instance, every float32
 count 0; and the _s2_bf16 phases, configs/train_corpus.yml at its own
 bfloat16, 6 a step of K1, K3, K1b, K3b, K4 and K4b's) hold each instance
-to its bfloat16 twin within ``BF16_TOL`` of each output's largest. All eight bfloat16 instances run
+to its bfloat16 twin within ``BF16_TOL`` of each output's largest (and the
+_hybrid_bf16 and _dense_bf16 phases K7's, K7b's, K8's and K8b's). K8·bf16
+and K8b·bf16 run K8's and K8b's CUDA-core kernels at bfloat16 storage (the
+kernels line: ptxas from the build's ``dense_ptxas``, residency at the
+microbatch's widths). The other ten bfloat16 instances run
 their tensor-core kernels at bfloat16 storage, one TF32 product for each
 product of two bfloat16 values (exact in float32): their lines carry
 ``bound_tc_ms`` at that one product (``tf32_products``) and
 ``cuda_cores`` (K1-K3b: their CUDA-core instances at the same call, held to the
-twin the same way; K4 and K4b have none at bfloat16; K1's and K1b's also ``walks``, K1's
+twin the same way; K4 and K4b have none at bfloat16; K1's, K7's, K1b's and K7b's
+also ``walks``, K1's and K7's
 ``bound_live_only_ms``), the kernels line their ``cuda_cores_ms``, ptxas
-and residency (``k1_bf16_ptxas``, ``k2_bf16_ptxas``, ``k1b_bf16_ptxas``,
+and residency (``k1_bf16_ptxas`` and ``k1b_bf16_ptxas``: K1's and K7's
+forms, ``k2_bf16_ptxas``,
 ``k2b_bf16_ptxas``, ``k3_bf16_ptxas``, ``k4_bf16_ptxas``,
 ``k4b_bf16_ptxas`` in the build line; K2b's dx
 kernel's residency as ``dx_residency``); K3's and K3b's also ``host_ms``. Every train_profile* phase requires the tensor-core kernels of
@@ -402,6 +428,18 @@ K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
 K4_BF16_KERNELS = ("ffn_tc_kernel<.*bfloat16", "ffn_wsplit_kernel<.*bfloat16",
                    "ffn_bwd_kernel<.*bfloat16")
 K4_CC = "cc::ffn_cc_kernel"
+# K7's and K7b's bfloat16 kernels in a profile (their form 1 instances at T =
+# bf16): the tile kernel once a K7·bf16 call, the pair kernel once a
+# K7b·bf16 call; K7_F32 their float32 instances, which the bfloat16 path
+# must not run
+K7_BF16_KERNELS = ("list_fwd_tile_kernel<1, .*bfloat16", "list_bwd_pair_kernel<1, .*bfloat16")
+K7_F32 = ("list_fwd_tile_kernel<1, float>", "list_bwd_pair_kernel<1, float>")
+# K8's and K8b's bfloat16 kernels in a profile (csrc/encoder_attn.cuh's dense
+# form at T = bf16): the forward once a K8·bf16 call, the pair kernel and
+# the dk/dv stage once a K8b·bf16 call; K8_F32 their float32 instances
+K8_BF16_KERNELS = ("attn_fwd_kernel<2, .*bfloat16", "attn_bwd_pair_kernel<2, .*bfloat16",
+                   "csr_dkdv_kernel<2, .*bfloat16")
+K8_F32 = ("attn_fwd_kernel<2, float>", "attn_bwd_pair_kernel<2, float>")
 # K2's kernels in a profile (csrc/so3_gate_ffn.cu): the tensor-core kernel and
 # the split of its weights, two launches for each K2 call; K2_CC its
 # CUDA-core instance
@@ -1218,16 +1256,18 @@ class Kernel(NamedTuple):
     tf32_products: int = 3  # TF32 products a product of split_flops takes (bfloat16: 1)
 
 
-def bf16_instance(spec: Kernel, tensor_cores: bool = False, report=None) -> Kernel:
-    """The bfloat16 instance of a kernel of Config()'s training path: the
-    same wrapper and plain function at bfloat16 activations, its own launch
-    counter, its bound at the bfloat16 tensor-core rate. ``tensor_cores``
-    (all six): its tensor-core kernels, one TF32 product for
+def bf16_instance(spec: Kernel, tensor_cores: bool = False, report=None,
+                  counter: str | None = None) -> Kernel:
+    """The bfloat16 instance of a kernel of a training path: the same
+    wrapper and plain function at bfloat16 activations, its own launch
+    counter (``counter``, else the kernel's with ``_bf16``), its bound at
+    the bfloat16 tensor-core rate. ``tensor_cores`` (all but K8's and
+    K8b's): its tensor-core kernels, one TF32 product for
     each product of two bfloat16 values (``bound_tc_ms`` at one product),
     and ``report`` at each call (the CUDA-core instance at the same call;
-    K1's and K1b's walks; K3's and K3b's wrapper host time); else its
-    CUDA-core kernel."""
-    return spec._replace(name=f"{spec.name}_bf16", counter=f"{spec.counter}_bf16",
+    K1's, K7's, K1b's and K7b's walks; K3's and K3b's wrapper host time);
+    else its CUDA-core kernel."""
+    return spec._replace(name=f"{spec.name}_bf16", counter=counter or f"{spec.counter}_bf16",
                          split_flops=spec.split_flops if tensor_cores else None, report=report,
                          rate=BF16_FLOP_PER_S, tol=BF16_TOL, tf32_products=1)
 
@@ -1293,7 +1333,15 @@ K1_BF16, K2_BF16, K3_BF16, K1B_BF16, K2B_BF16, K3B_BF16 = BF16_PATH
 # configs/train_corpus.yml's at its bfloat16 (K1, K3, K1b, K3b as above)
 S2_BF16_PATH = [bf16_instance(K4, True), bf16_instance(K4B, True)]
 K4_BF16, K4B_BF16 = S2_BF16_PATH
-KERNELS += BF16_PATH + S2_BF16_PATH
+# configs/train.yml's under SINGA_TPU_HYBRID_ATTN (K7's and K7b's tensor-core
+# kernels at bfloat16) and under SINGA_TPU_DENSE_ATTN (K8's and K8b's
+# CUDA-core kernels at bfloat16); K2, K3, K2b and K3b as in BF16_PATH
+HYBRID_BF16_PATH = [bf16_instance(K7, True, list_fwd_report),
+                    bf16_instance(K7B, True, list_bwd_report, "launches_bwd_hybrid_bf16")]
+K7_BF16, K7B_BF16 = HYBRID_BF16_PATH
+DENSE_BF16_PATH = [bf16_instance(K8), bf16_instance(K8B)]
+K8_BF16, K8B_BF16 = DENSE_BF16_PATH
+KERNELS += BF16_PATH + S2_BF16_PATH + HYBRID_BF16_PATH + DENSE_BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
 SO2_PATH = [K6, K6B]  # held at the default Config's, with SINGA_TPU_FUSED_SO2 set
@@ -1613,6 +1661,50 @@ def train_vs_cpu(dev, cfg, val_files, suffix: str) -> None:
         raise AssertionError("the card's training step disagrees with the CPU's or its own")
 
 
+def train_vs_cpu_bf16(dev, cfg, val_files) -> None:
+    """train_vs_cpu_bf16: ``cfg`` (configs/train.yml) cut to lmax 2, one
+    bfloat16 training step's loss and every gradient on the card (kernels)
+    against the CPU (plain twins), 2 complexes, the same seeded weights,
+    under no switch (K1·bf16), SINGA_TPU_HYBRID_ATTN (K7·bf16) and
+    SINGA_TPU_DENSE_ATTN (K8·bf16). Both sides round at the same points and
+    sum in other orders, so a value near a rounding boundary lands a
+    bfloat16 step apart and carries on: the gradients' L2 difference over
+    their L2 norm within GAN_BF16_CPU_TOL, the loss within
+    GAN_BF16_LOSS_TOL (gan_vs_cpu_bf16's), ``grad_report`` at that
+    tolerance reported."""
+    from singa_tpu_torch.data.batch import load_npz
+    from singa_tpu_torch.dtypes import compute_dtype_scope
+    from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
+
+    cfg = tiny_gan_config(cfg)
+    small = load_npz(val_files[:2])
+    lines = {}
+    for form, var in (("neighbor", None), ("hybrid", HYBRID_ATTN), ("dense", DENSE_ATTN)):
+        runs = {}
+        with switched(var) if var else contextlib.nullcontext():
+            for run, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                model = SINGA(cfg, device=d, seed=cfg.train.seed)
+                b = small.to(d)
+                with compute_dtype_scope("bfloat16"):
+                    loss = cross_entropy_loss(model(b), b.tokens.target)
+                    loss.backward()
+                runs[run] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+                del model, loss, b
+        torch.cuda.empty_cache()
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+        cat = lambda g: torch.cat([g[n].double().flatten() for n in sorted(g_cpu)])
+        l2 = ((cat(g_gpu) - cat(g_cpu)).norm() / cat(g_cpu).norm()).item()
+        ok = l2 <= GAN_BF16_CPU_TOL and abs(l_gpu - l_cpu) <= GAN_BF16_LOSS_TOL * abs(l_cpu)
+        lines[form] = {"loss_cuda": l_gpu, "loss_cpu": l_cpu, "l2_of_all": l2,
+                       "grads": grad_report(g_gpu, g_cpu, GAN_BF16_CPU_TOL), "ok": ok}
+    ok = all(line["ok"] for line in lines.values())
+    emit({"phase": "train_vs_cpu_bf16", "compute_dtype": "bfloat16", "lmax": cfg.embedding.lmax,
+          "complexes": 2, "tolerance": GAN_BF16_CPU_TOL, "loss_tolerance": GAN_BF16_LOSS_TOL,
+          **lines, "ok": ok})
+    if not ok:
+        raise AssertionError("train_vs_cpu_bf16: the card's bfloat16 step disagrees with the CPU's")
+
+
 def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_step: dict,
                  cli_args: list, warmup: int, steps: int, after_cli=None,
                  vs_cpu: bool = True) -> dict:
@@ -1714,8 +1806,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
 
         # train_profile: one optimizer step
         k2b_calls = per_step.get(K2B.name, 0) + per_step.get(K2B_BF16.name, 0)
-        k1b_calls = sum(per_step.get(k.name, 0) for k in (K1B, K7B, K1B_BF16))
-        k1_calls = sum(per_step.get(k.name, 0) for k in (K1, K7, K1_BF16))
+        k1b_calls = sum(per_step.get(k.name, 0) for k in (K1B, K7B, K1B_BF16, K7B_BF16))
+        k1_calls = sum(per_step.get(k.name, 0) for k in (K1, K7, K1_BF16, K7_BF16))
         k2_calls = per_step.get(K2.name, 0) + per_step.get(K2_BF16.name, 0)
         runs_k2b, runs_k1b = k2b_calls > 0, k1b_calls > 0
         runs_k1, runs_k2 = k1_calls > 0, k2_calls > 0
@@ -1725,16 +1817,25 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         # the hand kernels a call of the path launches once each, by name in
         # a profile, with the kernels whose calls launch them and their
         # CUDA-core kernels (which the path must not run)
-        once = [(K1_KERNELS, (K1, K7, K1_BF16), K1_CC),
+        once = [(K1_KERNELS, (K1, K7, K1_BF16, K7_BF16), K1_CC),
                 (("gate_ffn_wsplit_kernel",), (K2, K2_BF16), K2_CC),
                 (("gate_ffn_bwd_wsplit_kernel",), (K2B, K2B_BF16), K2B_CC),
-                (("list_bwd_pair_kernel",), (K1B, K7B, K1B_BF16), K1B_CC),
+                (("list_bwd_pair_kernel",), (K1B, K7B, K1B_BF16, K7B_BF16), K1B_CC),
                 (K3_KERNELS[:1], (K3, K3_BF16), K3_CC),
                 (K3_KERNELS[1:], (K3B, K3B_BF16), K3_CC),
                 (K4_BF16_KERNELS[:2], (K4_BF16,), K4_CC),
-                (K4_BF16_KERNELS[2:], (K4B_BF16,), K4_CC)]
+                (K4_BF16_KERNELS[2:], (K4B_BF16,), K4_CC),
+                (K7_BF16_KERNELS[:1], (K7_BF16,), K7_F32[0]),
+                (K7_BF16_KERNELS[1:], (K7B_BF16,), K7_F32[1]),
+                (K8_BF16_KERNELS[:1], (K8_BF16,), K8_F32[0]),
+                (K8_BF16_KERNELS[1:], (K8B_BF16,), K8_F32[1])]
         once = [(tcs, specs, cc) for tcs, specs, cc in once
                 if sum(per_step.get(k.name, 0) for k in specs)]
+        # the bfloat16 instances of K7/K7b and K8/K8b by name, their float32
+        # instances beside them
+        forms_bf16 = {key: names for key, names, spec in (
+            ("k7_bf16_kernels", (*K7_BF16_KERNELS, *K7_F32), K7_BF16),
+            ("k8_bf16_kernels", (*K8_BF16_KERNELS, *K8_F32), K8_BF16)) if per_step.get(spec.name)}
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None)
@@ -1743,7 +1844,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                   + (*K1_KERNELS, K1_CC) * runs_k1
                                   + K4_KERNELS * runs_k4 + (*K2_KERNELS, K2_CC) * runs_k2
                                   + (*K4_BF16_KERNELS, K4_CC) * runs_k4_bf16
-                                  + (*K3_KERNELS, K3_CC) * runs_k3, mods,
+                                  + (*K3_KERNELS, K3_CC) * runs_k3
+                                  + tuple(n for names in forms_bf16.values() for n in names), mods,
                                   lambda rise: {n: sum(rise[k.name] for k in specs)
                                                 for tcs, specs, _ in once for n in tcs})
         extra = {}
@@ -1766,6 +1868,8 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k2_kernels"] = {n: prof["matched"][n] for n in (*K2_KERNELS, K2_CC)}
         if runs_k3:  # K3's and K3b's kernels by name
             extra["k3_kernels"] = {n: prof["matched"][n] for n in (*K3_KERNELS, K3_CC)}
+        for key, names in forms_bf16.items():
+            extra[key] = {n: prof["matched"][n] for n in names}
         emit({"phase": f"train_profile{suffix}", "step": prof, "clocks": clocks.report, **extra})
         # K1/K7, K2, K1b/K7b, K2b, K3 and K3b ran their tensor-core kernels
         # at every call of the step: K1's plan, tile and copy kernels, K2's
@@ -2761,7 +2865,8 @@ def main() -> int:
                if "list_bwd_pair_kernel" in k or "list_bwd_cc_kernel" in k}
     k1b_ptxas = [{k: v for k, v in k1b_all.items() if f"ILi{form}E" in k and "bfloat16" not in k}
                  for form in (0, 1)]
-    k1b_bf16_ptxas = {k: v for k, v in k1b_all.items() if "bfloat16" in k}  # K1b's (form 0)
+    k1b_bf16_ptxas = [{k: v for k, v in k1b_all.items() if f"ILi{form}E" in k and "bfloat16" in k}
+                      for form in (0, 1)]  # K1b's and K7b's bfloat16 instances
     # the forward kernels of K1 (form 0) and K7 (form 1): the tensor-core
     # tile kernel and the CUDA-core instance (attn_fwd_kernel); float32, and
     # K1's bfloat16 instance's
@@ -2769,7 +2874,8 @@ def main() -> int:
               if "list_fwd_tile_kernel" in k or "attn_fwd_kernel" in k}
     k1_ptxas = [{k: v for k, v in k1_all.items() if f"ILi{form}E" in k and "bfloat16" not in k}
                 for form in (0, 1)]
-    k1_bf16_ptxas = {k: v for k, v in k1_all.items() if "bfloat16" in k}
+    k1_bf16_ptxas = [{k: v for k, v in k1_all.items() if f"ILi{form}E" in k and "bfloat16" in k}
+                     for form in (0, 1)]  # K1's and K7's bfloat16 instances
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(logs), "ptxas": ptxas,
           "dense_ptxas": {n: ptxas_report(logs[n]) for n in ("dense_edge_attn",
@@ -2915,13 +3021,33 @@ def main() -> int:
     with switched(FUSED_SO2):
         train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
                      {k.name: 12 for k in (K1, K2, K1B, K2B, K6, K6B)}, [], SO2_WARMUP, SO2_STEPS)
+    form_steps = {}
     for suffix, var, path in (("_hybrid", HYBRID_ATTN, HYBRID_PATH),
                               ("_dense", DENSE_ATTN, DENSE_PATH)):
         torch.cuda.empty_cache()
         with switched(var):
-            train_phases(dev, results, files, float32_config(cfg), suffix, path,
-                         {k.name: 12 for k in (K2, K3, K2B, K3B, *path)}, [], FORM_WARMUP,
-                         FORM_STEPS)
+            form_steps[suffix] = train_phases(
+                dev, results, files, float32_config(cfg), suffix, path,
+                {k.name: 12 for k in (K2, K3, K2B, K3B, *path)}, [], FORM_WARMUP, FORM_STEPS)
+    # configs/train.yml at its own bfloat16 under each switch, through the
+    # bfloat16 instances only (every float32 count 0): K7·bf16 and K7b·bf16,
+    # or K8·bf16 and K8b·bf16, held at every distinct call of a microbatch
+    for suffix, var, path in (("_hybrid", HYBRID_ATTN, HYBRID_BF16_PATH),
+                              ("_dense", DENSE_ATTN, DENSE_BF16_PATH)):
+        torch.cuda.empty_cache()
+        with switched(var):
+            form_steps[f"{suffix}_bf16"] = train_phases(
+                dev, results, files, bf16_cfg, f"{suffix}_bf16", path,
+                {k.name: 12 for k in (K2_BF16, K3_BF16, K2B_BF16, K3B_BF16, *path)},
+                ["--config", TRAIN_CONFIG], BF16_WARMUP, BF16_STEPS, vs_cpu=False)
+    emit({"phase": "train_forms_bf16_vs_f32",
+          **{f"{form}_{dt}": form_steps[f"_{form}{sfx}"] for form in ("hybrid", "dense")
+             for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))},
+          "note": "reported, not claimed: each form's float32 step (configs/train.yml made "
+                  "float32) and bfloat16 step, the same batches and steps"})
+    torch.cuda.empty_cache()
+    train_vs_cpu_bf16(dev, bf16_cfg, files)
+    torch.cuda.empty_cache()
 
     gan_phases(dev, files, mods)
 
@@ -2933,11 +3059,22 @@ def main() -> int:
     results[K2.name]["ptxas"] = k2_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
     results[K2B_BF16.name]["ptxas"] = k2b_bf16_ptxas
-    results[K1B_BF16.name]["ptxas"] = k1b_bf16_ptxas
-    results[K1B_BF16.name]["residency"] = mods["neighbor_attn"].bwd_residency(bf16=True)
+    dense_ptxas = {n: ptxas_report(logs[n]) for n in ("dense_edge_attn", "dense_edge_attn_bwd")}
+    for spec, lib, bf16 in ((K8, "dense_edge_attn", False), (K8B, "dense_edge_attn_bwd", False),
+                            (K8_BF16, "dense_edge_attn", True),
+                            (K8B_BF16, "dense_edge_attn_bwd", True)):
+        results[spec.name]["ptxas"] = {k: v for k, v in dense_ptxas[lib].items()
+                                       if ("bfloat16" in k) == bf16}
+    for spec, bf16 in ((K8, False), (K8_BF16, True)):  # at the training microbatch's widths
+        results[spec.name]["residency"] = mods["dense_edge_attn"].residency(
+            384, 4, 32, 64, 64, bf16=bf16)
+    for spec, hybrid in ((K1B_BF16, False), (K7B_BF16, True)):
+        results[spec.name]["ptxas"] = k1b_bf16_ptxas[int(hybrid)]
+        results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid, bf16=True)
     results[K2_BF16.name]["ptxas"] = k2_bf16_ptxas
-    results[K1_BF16.name]["ptxas"] = k1_bf16_ptxas
-    results[K1_BF16.name]["residency"] = mods["neighbor_attn"].fwd_residency(bf16=True)
+    for spec, hybrid in ((K1_BF16, False), (K7_BF16, True)):
+        results[spec.name]["ptxas"] = k1_bf16_ptxas[int(hybrid)]
+        results[spec.name]["residency"] = mods["neighbor_attn"].fwd_residency(hybrid, bf16=True)
     results[K3.name]["ptxas"] = results[K3B.name]["ptxas"] = k3_ptxas
     results[K3_BF16.name]["ptxas"] = results[K3B_BF16.name]["ptxas"] = k3_bf16_ptxas
     results[K5.name]["ptxas"] = results[K5B.name]["ptxas"] = k5_ptxas

@@ -31,6 +31,18 @@
 // tile's k and v rows in shared memory with cp.async while its EdgeMLPs
 // run (two blocks need tile 32 then), tile 64 with rows read by __ldg was
 // the fastest (PERF.md, section 6).
+//
+// bfloat16 (dense_edge_attn_bf16): K8's bfloat16 instance is the same kernel
+// at VT = bf16, the storage type of qt, k, v, dval and out (adj, ds, the
+// centers, the EdgeMLP weights and vsum stay float32), on the CUDA cores as
+// at float32. It rounds where _dattn_fwd_kernel rounds at a bfloat16 dtype,
+// which is not where K1 rounds: the TPU kernel sums the heads' lanes in
+// float32 instead of a matrix product, so only the smear, the EdgeMLP
+// weights and their hiddens are rounded; w_k, w_v, the score terms and the
+// softmax weights stay float32, and the output is rounded once. A row with
+// no live column takes its closed form from vsum (v's bfloat16 values
+// summed in float32) and w_v0 = round(ssp(bv1)) @ round(wv2) + bv2 (a dead
+// column's smear rounds to -0).
 #include "encoder_attn.cuh"
 
 namespace ea = singa::encoder_attn;
@@ -51,10 +63,30 @@ extern "C" int dense_edge_attn_f32(const float* qt, const float* k, const float*
   return ea::launch_fwd<ea::kDense>(a, ea::Dims{B, N, N, H, kd, vd, De}, out, stream);
 }
 
-// Resident blocks per SM of the kernel at these widths, its shared memory
-// per block in *smem_bytes and its columns per tile in *tile (-1: over the
-// card's limit).
-extern "C" int dense_edge_attn_residency(int N, int H, int kd, int vd, int De,
+// K8's bfloat16 instance: qt, k, v, dval and out bfloat16; the rest as
+// dense_edge_attn_f32's.
+extern "C" int dense_edge_attn_bf16(const void* qt, const void* k, const void* v,
+                                    const float* adj, const float* ds, const void* dval,
+                                    const float* centers, const float* wk1, const float* bk1,
+                                    const float* wk2, const float* bk2, const float* wv1,
+                                    const float* bv1, const float* wv2, const float* bv2,
+                                    float coeff, const int* lrow, const int* lcol,
+                                    const int* lorder, float* vsum, void* out, int B, int N,
+                                    int H, int kd, int vd, int De, void* stream) {
+  using singa::bf16;
+  const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k, (const bf16*)v, nullptr, nullptr,
+                          adj, ds, (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1,
+                          wv2, bv2, coeff, lrow, lcol, lorder, vsum};
+  return ea::launch_fwd<ea::kDense, bf16>(a, ea::Dims{B, N, N, H, kd, vd, De}, (bf16*)out,
+                                          stream);
+}
+
+// Resident blocks per SM of the kernel at these widths (bf16 != 0: its
+// bfloat16 instance), its shared memory per block in *smem_bytes and its
+// columns per tile in *tile (-1: over the card's limit).
+extern "C" int dense_edge_attn_residency(int N, int H, int kd, int vd, int De, int bf16,
                                          int* smem_bytes, int* tile) {
-  return ea::residency<ea::kDense, false>(ea::Dims{1, N, N, H, kd, vd, De}, smem_bytes, tile);
+  const ea::Dims d{1, N, N, H, kd, vd, De};
+  return bf16 ? ea::residency<ea::kDense, false, singa::bf16>(d, smem_bytes, tile)
+              : ea::residency<ea::kDense, false>(d, smem_bytes, tile);
 }

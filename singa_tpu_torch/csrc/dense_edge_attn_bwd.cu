@@ -45,6 +45,21 @@
 //   5. encoder_attn.cuh's csr_dkdv_kernel over the CSR transpose of the live
 //      lists (K1b's gather), adding gw to every row's dv.
 //   6. sum_rows_kernel: the rows of partial, in order.
+//
+// bfloat16 (dense_edge_attn_bwd_bf16): K8b's bfloat16 instance is the same
+// six kernels at T = bf16, the storage type of qt, k, v, dval, g, dqt, dk,
+// dv and ddv (adj, ds, dds, the scratch and the weight gradients stay
+// float32), on the CUDA cores as at float32. It rounds where
+// _dattn_bwd_kernel rounds at a bfloat16 dtype: the forward as K8's
+// bfloat16 instance recomputes it (the smear, the weights, the hiddens),
+// dw_k and dw_v before the EdgeMLPs' backward, dh after its sigmoid factor;
+// dk and dv are summed in float32 and rounded once, as the TPU kernel's
+// float32 column sums are cast once; vsum and G sum bfloat16 values in
+// float32. The closed-form rows' share of the v-EdgeMLP's gradients takes
+// the rounded hidden round(ssp(bv1)) and wv2; the TPU kernel rounds each
+// (row, column) pair's dw_v and dh before it sums them, which a closed form
+// over the graph's sums cannot, so that share differs from it by the
+// rounding of those terms (averaged over the pairs).
 #include "encoder_attn.cuh"
 
 namespace ea = singa::encoder_attn;
@@ -57,16 +72,19 @@ constexpr int kPadThreads = 256;
 // DWV[d] = sum_b sum_h G[b, h, d] vsum[b, h, d]; all those pairs share the
 // hidden ssp(bv1) (pre-activation bv1), so dwv2 = ssp(bv1)^T DWV,
 // dbv2 = DWV, dbv1 = (DWV wv2^T) * sigmoid(bv1), and nothing else. Writes
-// them into row [P] (zero elsewhere), then G *= w_v0 in place. One block.
+// them into row [P] (zero elsewhere), then G *= w_v0 in place. One block. At
+// T = bf16 the hidden ssp(bv1) and wv2 rounded.
+template <class T = float>
 __global__ void __launch_bounds__(kPadThreads)
 padded_wgrad_kernel(const float* __restrict__ bv1, const float* __restrict__ wv2,
                     const float* __restrict__ bv2, const float* __restrict__ vsum,
                     float* __restrict__ G, float* __restrict__ row, ea::Dims dm) {
+  using singa::rnd;
   extern __shared__ __align__(16) float smem[];
   const int H = dm.H, vd = dm.vd, HV = H * vd, tid = threadIdx.x;
   float* w0 = smem;        // [vd]
   float* dwv = w0 + vd;    // [vd]
-  ea::dead_wv(bv1, wv2, bv2, vd, w0);
+  ea::dead_wv<T>(bv1, wv2, bv2, vd, w0);
   for (int c = tid; c < vd; c += blockDim.x) {
     float acc = 0.f;
     for (int b = 0; b < dm.B; ++b)
@@ -84,22 +102,51 @@ padded_wgrad_kernel(const float* __restrict__ bv1, const float* __restrict__ wv2
   float* dwv2 = dbv1 + vd;
   float* dbv2 = dwv2 + vd * vd;
   for (int t = tid; t < vd * vd; t += blockDim.x)
-    dwv2[t] = singa::sspf_(bv1[t / vd]) * dwv[t % vd];
+    dwv2[t] = rnd<T>(singa::sspf_(bv1[t / vd])) * dwv[t % vd];
   for (int c = tid; c < vd; c += blockDim.x) {
     dbv2[c] = dwv[c];
     float acc = 0.f;
-    for (int j = 0; j < vd; ++j) acc = fmaf(dwv[j], wv2[c * vd + j], acc);
+    for (int j = 0; j < vd; ++j) acc = fmaf(dwv[j], rnd<T>(wv2[c * vd + j]), acc);
     dbv1[c] = acc * singa::sigmoidf_(bv1[c]);
   }
   for (long long i = tid; i < (long long)dm.B * HV; i += blockDim.x) G[i] *= w0[i % vd];
 }
 
+// The six kernels on the caller's stream; T the storage type of qt, k, v,
+// dval, g and the node gradients but dds.
+template <class T>
+int launch(const ea::ArgsT<T>& a, const ea::Dims& dm, const T* g, const int* pair_rows,
+           const int* col_off, const int* col_pairs, T* dqt, T* dk, T* dv, float* dds, T* ddv,
+           float* s_wk, float* s_wv, float* s_a, float* s_dsc, float* s_ad, float* gsum,
+           float* partial, float* grads, int blocks, void* stream) {
+  const ea::GradsT<T> o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, s_ad};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int HV = dm.H * dm.vd, P = dm.grad_floats();
+  if (!dm.ok() || blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ea::launch_colsum(a.v, nullptr, a.vsum, dm.B, dm.N, HV, dm.vd, st);
+  if (err != cudaSuccess) return (int)err;
+  err = ea::launch_bwd_pair<ea::kDense>(a, dm, o, blocks, st);
+  if (err != cudaSuccess) return (int)err;
+  err = ea::launch_colsum(g, s_ad, gsum, dm.B, dm.N, HV, dm.vd, st);
+  if (err != cudaSuccess) return (int)err;
+  padded_wgrad_kernel<T><<<1, kPadThreads, 2 * dm.vd * sizeof(float), st>>>(
+      a.bv1, a.wv2, a.bv2, a.vsum, gsum, partial + (long long)blocks * P, dm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = ea::launch_dkdv<ea::kDense>(a, dm, g, o, col_off, col_pairs, pair_rows, gsum, dk, dv, st);
+  if (err != cudaSuccess) return (int)err;
+  singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks + 1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Blocks of the pair kernel (one resident wave); the caller sizes the
-// [blocks + 1, P] scratch buffer from it. Returns -1 for unsupported shapes.
-extern "C" int dense_edge_attn_bwd_blocks(int B, int N, int H, int kd, int vd, int De) {
-  return ea::bwd_blocks<ea::kDense>(ea::Dims{B, N, N, H, kd, vd, De});
+// Blocks of the pair kernel (one resident wave; bf16 != 0: its bfloat16
+// instance's); the caller sizes the [blocks + 1, P] scratch buffer from it.
+// Returns -1 for unsupported shapes.
+extern "C" int dense_edge_attn_bwd_blocks(int B, int N, int H, int kd, int vd, int De, int bf16) {
+  const ea::Dims d{B, N, N, H, kd, vd, De};
+  return bf16 ? ea::bwd_blocks<ea::kDense, singa::bf16>(d) : ea::bwd_blocks<ea::kDense>(d);
 }
 
 // qt/k [B*N, H*kd], v [B*N, H*vd], adj [B*N, N], ds [B*N, H], dval and g
@@ -119,31 +166,36 @@ extern "C" int dense_edge_attn_bwd_f32(
     float* grads, int B, int N, int H, int kd, int vd, int De, int blocks, void* stream) {
   const ea::Args a{qt, k, v, nullptr, nullptr, adj, ds, dval, centers, wk1, bk1, wk2,
                    bk2, wv1, bv1, wv2, bv2, coeff, lrow, lcol, lorder, vsum};
-  const ea::Dims dm{B, N, N, H, kd, vd, De};
-  const ea::Grads o{g, dqt, dds, ddv, s_wk, s_wv, s_a, s_dsc, partial, s_ad};
-  cudaStream_t st = (cudaStream_t)stream;
-  const int HV = H * vd, P = dm.grad_floats();
-  if (!dm.ok() || blocks < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = ea::launch_colsum(v, nullptr, vsum, B, N, HV, vd, st);
-  if (err != cudaSuccess) return (int)err;
-  err = ea::launch_bwd_pair<ea::kDense>(a, dm, o, blocks, st);
-  if (err != cudaSuccess) return (int)err;
-  err = ea::launch_colsum(g, s_ad, gsum, B, N, HV, vd, st);
-  if (err != cudaSuccess) return (int)err;
-  padded_wgrad_kernel<<<1, kPadThreads, 2 * vd * sizeof(float), st>>>(
-      bv1, wv2, bv2, vsum, gsum, partial + (long long)blocks * P, dm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = ea::launch_dkdv<ea::kDense>(a, dm, g, o, col_off, col_pairs, pair_rows, gsum, dk, dv, st);
-  if (err != cudaSuccess) return (int)err;
-  singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks + 1);
-  return (int)cudaGetLastError();
+  return launch(a, ea::Dims{B, N, N, H, kd, vd, De}, g, pair_rows, col_off, col_pairs, dqt, dk,
+                dv, dds, ddv, s_wk, s_wv, s_a, s_dsc, s_ad, gsum, partial, grads, blocks, stream);
 }
 
-// Resident blocks per SM of the kernel at these widths, its shared memory
-// per block in *smem_bytes and its columns per tile in *tile (-1: over the
-// card's limit).
-extern "C" int dense_edge_attn_bwd_residency(int N, int H, int kd, int vd, int De,
+// K8b's bfloat16 instance: qt, k, v, dval, g, dqt, dk, dv and ddv bfloat16;
+// the rest, the lists, the scratch and grads as dense_edge_attn_bwd_f32's.
+extern "C" int dense_edge_attn_bwd_bf16(
+    const void* qt, const void* k, const void* v, const float* adj, const float* ds,
+    const void* dval, const float* centers, const float* wk1, const float* bk1,
+    const float* wk2, const float* bk2, const float* wv1, const float* bv1, const float* wv2,
+    const float* bv2, float coeff, const void* g, const int* lrow, const int* lcol,
+    const int* pair_rows, const int* col_off, const int* col_pairs, const int* lorder,
+    void* dqt, void* dk, void* dv, float* dds, void* ddv, float* s_wk, float* s_wv,
+    float* s_a, float* s_dsc, float* s_ad, float* vsum, float* gsum, float* partial,
+    float* grads, int B, int N, int H, int kd, int vd, int De, int blocks, void* stream) {
+  using singa::bf16;
+  const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k, (const bf16*)v, nullptr, nullptr,
+                          adj, ds, (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1,
+                          wv2, bv2, coeff, lrow, lcol, lorder, vsum};
+  return launch(a, ea::Dims{B, N, N, H, kd, vd, De}, (const bf16*)g, pair_rows, col_off,
+                col_pairs, (bf16*)dqt, (bf16*)dk, (bf16*)dv, dds, (bf16*)ddv, s_wk, s_wv, s_a,
+                s_dsc, s_ad, gsum, partial, grads, blocks, stream);
+}
+
+// Resident blocks per SM of the kernel at these widths (bf16 != 0: its
+// bfloat16 instance), its shared memory per block in *smem_bytes and its
+// columns per tile in *tile (-1: over the card's limit).
+extern "C" int dense_edge_attn_bwd_residency(int N, int H, int kd, int vd, int De, int bf16,
                                              int* smem_bytes, int* tile) {
-  return ea::residency<ea::kDense, true>(ea::Dims{1, N, N, H, kd, vd, De}, smem_bytes, tile);
+  const ea::Dims d{1, N, N, H, kd, vd, De};
+  return bf16 ? ea::residency<ea::kDense, true, singa::bf16>(d, smem_bytes, tile)
+              : ea::residency<ea::kDense, true>(d, smem_bytes, tile);
 }

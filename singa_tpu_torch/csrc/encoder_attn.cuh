@@ -108,7 +108,7 @@ enum Form { kList = 0, kGathered = 1, kDense = 2 };
 
 // What a launch reads. k and v: node rows [B*N, H*kd] and [B*N, H*vd], or
 // (kGathered) the slots' rows [B*N*K, *]. T is the storage type of qt, k,
-// v and dval (bfloat16 in K1's bfloat16 instance); the distances, ds, the
+// v and dval (bfloat16 in the bfloat16 instances); the distances, ds, the
 // centers and the EdgeMLP weights are float32 at either.
 template <class T = float>
 struct ArgsT {
@@ -200,12 +200,14 @@ __device__ inline float* load_mlp(const A& a, const Dims& d, float* p, Mlp& w) {
 }
 
 // w_v0 [vd] = ssp(bv1) @ wv2 + bv2, the v-EdgeMLP of a dead column (smear
-// -0), from global memory, the sum over the hidden in order.
+// -0), from global memory, the sum over the hidden in order; at T = bf16
+// the hidden and wv2 rounded, as the TPU kernel rounds a column's.
+template <class T = float>
 __device__ inline void dead_wv(const float* bv1, const float* wv2, const float* bv2, int vd,
                                float* out) {
   for (int c = threadIdx.x; c < vd; c += blockDim.x) {
     float acc = bv2[c];
-    for (int j = 0; j < vd; ++j) acc = fmaf(sspf_(bv1[j]), wv2[j * vd + c], acc);
+    for (int j = 0; j < vd; ++j) acc = fmaf(rnd<T>(sspf_(bv1[j])), rnd<T>(wv2[j * vd + c]), acc);
     out[c] = acc;
   }
 }
@@ -255,8 +257,9 @@ __device__ void load_tile(const A& a, const Dims& d, const Mlp& w, long long nod
 // Masked scores sS [T, H] of the tile: one thread per (slot, head), reading
 // its kd key channels of the slot's row in 16-byte loads that are all in
 // flight at once (when the layout allows them). At bfloat16 activations
-// each term q w k is rounded before the head sum, as the TPU kernel's
-// (kw * qt).astype(dt) ahead of its seg_k product.
+// the list forms round each term q w k before the head sum, as the TPU
+// kernel's (kw * qt).astype(dt) ahead of its seg_k product; the dense form
+// does not (its TPU kernel sums the heads' lanes in float32).
 template <int F, class A>
 __device__ void tile_scores(const A& a, const Dims& d, long long base, long long first, int c0,
                             int T, const int* sidx, const float* smask, const float* sq,
@@ -272,7 +275,7 @@ __device__ void tile_scores(const A& a, const Dims& d, long long base, long long
     const float* qr = sq + h * kd;
     const float* wr = sWk + p * kd;
     float part = 0.f;
-    if constexpr (kBf16<V>) {
+    if constexpr (kBf16<V> && F != kDense) {
       for (int c = 0; c < kd; ++c) part += rnd<V>(qr[c] * wr[c] * to_f(krow[c]));
     } else if (vec4) {
       for (int c = 0; c < kd; c += 4) {
@@ -285,7 +288,7 @@ __device__ void tile_scores(const A& a, const Dims& d, long long base, long long
         part = fmaf(qv.w * wv.w, kv.w, part);
       }
     } else {
-      for (int c = 0; c < kd; ++c) part = fmaf(qr[c] * wr[c], krow[c], part);
+      for (int c = 0; c < kd; ++c) part = fmaf(qr[c] * wr[c], to_f(krow[c]), part);
     }
     sS[p * H + h] = smask[p] != 0.f ? part * scale : -1e9f;
   }
@@ -334,17 +337,23 @@ __host__ __device__ inline int fwd_smem_floats(const Dims& d) {
          (F == kDense ? d.vd : 0) + 3 * T;
 }
 
-// VT: the storage type of qt, k, v, dval and out. The bfloat16 instance (K1's,
-// kList only: its whole list is one tile, so the run's max and sum are final
-// after it) is the function _attn_fwd_kernel computes at bfloat16 inputs:
-// the smear, the EdgeMLP weights, their hiddens ssp(pre) and outputs w_k,
-// w_v rounded to bfloat16; each score term rounded before the head sum; the
-// softmax in float32, its weights a and a_self rounded before they weigh
-// the values; the aggregate summed in float32 and rounded once.
+// VT: the storage type of qt, k, v, dval and out. The list forms' bfloat16
+// instances (K1's and K7's: a whole list is one tile, so the run's max and
+// sum are final after it) are the function _attn_fwd_kernel computes at
+// bfloat16 inputs: the smear, the EdgeMLP weights, their hiddens ssp(pre)
+// and outputs w_k, w_v rounded to bfloat16; each score term rounded before
+// the head sum; the softmax in float32, its weights a and a_self rounded
+// before they weigh the values; the aggregate summed in float32 and rounded
+// once. The dense form's (K8's) is _dattn_fwd_kernel's: the smear, the
+// weights and the hiddens rounded, nothing after them (w_k, w_v, the score
+// terms and the softmax weights stay float32, its online form as at
+// float32); a dead column's w_v0 from the rounded hidden ssp(bv1) and wv2;
+// the output rounded once.
 template <int F, class VT = float>
 __global__ void __launch_bounds__(kThreads, F == kDense ? 2 : 1)
 attn_fwd_kernel(ArgsT<VT> a, Dims d, VT* __restrict__ out) {
-  static_assert(!kBf16<VT> || F == kList, "the bfloat16 instance is K1's");
+  // the list forms' roundings after the hiddens, at bfloat16
+  constexpr bool kRound = kBf16<VT> && F != kDense;
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
   const int TM = tile_of<F, false>(d);
   extern __shared__ __align__(16) float smem[];
@@ -365,7 +374,7 @@ attn_fwd_kernel(ArgsT<VT> a, Dims d, VT* __restrict__ out) {
   int* sidx = reinterpret_cast<int*>(smask + TM);  // [TM]
 
   const int tid = threadIdx.x;
-  if (F == kDense) dead_wv(a.bv1, a.wv2, a.bv2, vd, sW0);
+  if (F == kDense) dead_wv<VT>(a.bv1, a.wv2, a.bv2, vd, sW0);
   // slices of the slots in the aggregate; their partial sums (S * HV <=
   // max(TM, H) * vd floats) meet in sHv
   const int S = max(1, min((int)blockDim.x / HV, TM / H));
@@ -404,7 +413,7 @@ attn_fwd_kernel(ArgsT<VT> a, Dims d, VT* __restrict__ out) {
       block_gemm(sHk, T, kd, w.wk2, w.bk2, kd, sWk, kEpiNone);
       block_gemm(sHv, T, vd, w.wv2, w.bv2, vd, sA, kEpiNone);  // the smear is dead now
       __syncthreads();
-      if constexpr (kBf16<VT>) {  // w_k and w_v, rounded
+      if constexpr (kRound) {  // w_k and w_v, rounded
         for (int t = tid; t < T * kd; t += blockDim.x) sWk[t] = rnd<VT>(sWk[t]);
         for (int t = tid; t < T * vd; t += blockDim.x) sA[t] = rnd<VT>(sA[t]);
         __syncthreads();
@@ -423,7 +432,7 @@ attn_fwd_kernel(ArgsT<VT> a, Dims d, VT* __restrict__ out) {
 #pragma unroll 4
         for (int p = sl; p < T; p += S) {
           // bfloat16: the normalised weight, rounded (one tile: l is final)
-          const float aw = kBf16<VT> ? rnd<VT>(sS[p * H + h] / sL[h]) : sS[p * H + h];
+          const float aw = kRound ? rnd<VT>(sS[p * H + h] / sL[h]) : sS[p * H + h];
           acc = fmaf(aw * sA[p * vd + dc],
                      ldg_f(a.v + slot_row<F>(base, first, sidx, c0, p) * HV + c), acc);
         }
@@ -435,22 +444,24 @@ attn_fwd_kernel(ArgsT<VT> a, Dims d, VT* __restrict__ out) {
         for (int sl = 0; sl < S; ++sl) acc += sHv[sl * HV + c];
         // bfloat16: sAcc holds diag_value (one tile), weighed by a_self
         // = exp(s_self - m) / l = al / l, rounded
-        sAcc[c] = kBf16<VT> ? fmaf(rnd<VT>(sAl[c / vd] / sL[c / vd]), sAcc[c], acc)
-                           : fmaf(sAcc[c], sAl[c / vd], acc);
+        sAcc[c] = kRound ? fmaf(rnd<VT>(sAl[c / vd] / sL[c / vd]), sAcc[c], acc)
+                         : fmaf(sAcc[c], sAl[c / vd], acc);
       }
     }
     // each sAcc[c] was last written by this thread, each sL[h] before the
     // last tile's barriers
     for (int c = tid; c < HV; c += blockDim.x)
-      out[node * HV + c] = from_f<VT>(kBf16<VT> ? sAcc[c] : sAcc[c] / sL[c / vd]);
+      out[node * HV + c] = from_f<VT>(kRound ? sAcc[c] : sAcc[c] / sL[c / vd]);
   }
 }
 
 // out[b, c] = sum over the N rows i of graph b, in order, of x[b*N + i, c],
 // each term times wt[b*N + i, c / cw] when wt is given ([B*N, C / cw]).
 // kDense: v's column sums (wt none), and G, the padded rows' a_dead-weighted
-// cotangent (wt = a_dead [B*N, H], cw = vd). One block per graph.
-__global__ void graph_colsum_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+// cotangent (wt = a_dead [B*N, H], cw = vd). One block per graph. X: the
+// storage type of x (bfloat16 values are summed in float32).
+template <class X = float>
+__global__ void graph_colsum_kernel(const X* __restrict__ x, const float* __restrict__ wt,
                                     float* __restrict__ out, int B, int N, int C, int cw) {
   const int nw = C / cw;
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
@@ -458,7 +469,7 @@ __global__ void graph_colsum_kernel(const float* __restrict__ x, const float* __
       float acc = 0.f;
       for (int i = 0; i < N; ++i) {
         const long long r = (long long)b * N + i;
-        const float xv = x[r * C + c];
+        const float xv = to_f(x[r * C + c]);
         acc = wt ? fmaf(wt[r * nw + c / cw], xv, acc) : acc + xv;
       }
       out[(long long)b * C + c] = acc;
@@ -466,9 +477,10 @@ __global__ void graph_colsum_kernel(const float* __restrict__ x, const float* __
   }
 }
 
-inline cudaError_t launch_colsum(const float* x, const float* wt, float* out, int B, int N, int C,
+template <class X>
+inline cudaError_t launch_colsum(const X* x, const float* wt, float* out, int B, int N, int C,
                                  int cw, cudaStream_t st) {
-  graph_colsum_kernel<<<B, 256, 0, st>>>(x, wt, out, B, N, C, cw);
+  graph_colsum_kernel<X><<<B, 256, 0, st>>>(x, wt, out, B, N, C, cw);
   return cudaGetLastError();
 }
 
@@ -494,8 +506,8 @@ int launch_fwd(const ArgsT<T>& a, const Dims& d, T* out, void* stream) {
 // What the backward writes. Scratch per slot (its flat index): s_wk [*, kd],
 // s_wv [*, vd], s_a and s_dsc [*, H]; partial [blocks, P]. kDense also:
 // s_ad [B*N, H], the closed-form rows' a_dead (0 on the others).
-// T: the storage type of g, dqt and ddv (bfloat16 in K1b's bfloat16
-// instance); dds and the scratch are float32 at either.
+// T: the storage type of g, dqt and ddv (bfloat16 in K1b's, K7b's and
+// K8b's bfloat16 instances); dds and the scratch are float32 at either.
 template <class T = float>
 struct GradsT {
   const T* g;  // the cotangent [B*N, H*vd]
@@ -528,17 +540,18 @@ __host__ __device__ inline int bwd_smem_floats(const Dims& d) {
 }
 
 // The forward of one tile, keeping what the backward needs: pre-activations
-// Pk/Pv, hiddens Hk/Hv, modulations Wk/Wv, the masked scores S and da in D.
-template <int F>
-__device__ void tile_forward_bwd(const Args& a, const Dims& d, const BwdSmem& sm, long long node,
-                                 long long base, long long first, int c0, int T) {
+// Pk/Pv, hiddens Hk/Hv (at VT = bf16 rounded), modulations Wk/Wv, the
+// masked scores S and da in D.
+template <int F, class VT>
+__device__ void tile_forward_bwd(const ArgsT<VT>& a, const Dims& d, const BwdSmem& sm,
+                                 long long node, long long base, long long first, int c0, int T) {
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HV = H * vd, tid = threadIdx.x;
   load_tile<F>(a, d, sm.w, node, first, c0, T, sm.dist, sm.mask, sm.idx, sm.A);
   block_gemm(sm.A, T, De, sm.w.wk1, sm.w.bk1, kd, sm.Pk, kEpiNone);
   block_gemm(sm.A, T, De, sm.w.wv1, sm.w.bv1, vd, sm.Pv, kEpiNone);
   __syncthreads();
-  for (int t = tid; t < T * kd; t += blockDim.x) sm.Hk[t] = sspf_(sm.Pk[t]);
-  for (int t = tid; t < T * vd; t += blockDim.x) sm.Hv[t] = sspf_(sm.Pv[t]);
+  for (int t = tid; t < T * kd; t += blockDim.x) sm.Hk[t] = rnd<VT>(sspf_(sm.Pk[t]));
+  for (int t = tid; t < T * vd; t += blockDim.x) sm.Hv[t] = rnd<VT>(sspf_(sm.Pv[t]));
   __syncthreads();
   block_gemm(sm.Hk, T, kd, sm.w.wk2, sm.w.bk2, kd, sm.Wk, kEpiNone);
   block_gemm(sm.Hv, T, vd, sm.w.wv2, sm.w.bv2, vd, sm.Wv, kEpiNone);
@@ -547,18 +560,26 @@ __device__ void tile_forward_bwd(const Args& a, const Dims& d, const BwdSmem& sm
   // da, one thread per (slot, head)
   for (int job = tid; job < T * H; job += blockDim.x) {
     const int p = job / H, h = job % H;
-    const float* vrow = a.v + slot_row<F>(base, first, sm.idx, c0, p) * HV + h * vd;
+    const VT* vrow = a.v + slot_row<F>(base, first, sm.idx, c0, p) * HV + h * vd;
     float part = 0.f;
     for (int c = 0; c < vd; ++c)
-      part = fmaf(sm.g[h * vd + c] * sm.Wv[p * vd + c], __ldg(vrow + c), part);
+      part = fmaf(sm.g[h * vd + c] * sm.Wv[p * vd + c], ldg_f(vrow + c), part);
     sm.D[p * H + h] = part;
   }
   __syncthreads();
 }
 
-template <int F>
+// VT: the storage type of qt, k, v, dval, g, dqt and ddv. The bfloat16
+// instance (K8b's) is the function _dattn_bwd_kernel computes at bfloat16
+// inputs: the forward recomputed as K8's bfloat16 instance rounds it (the
+// smear, the weights and the hiddens; wk2 and wv2 rounded in dh's product
+// too); da, the softmax, dot, dsc, dqt, dw_k and dw_v in float32; dw_k and
+// dw_v rounded before dh and the weight gradients, dh rounded after its
+// sigmoid factor (from the unrounded pre-activation); every sum in float32,
+// dqt and ddv rounded once, dds and the weight gradients float32.
+template <int F, class VT = float>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
+attn_bwd_pair_kernel(ArgsT<VT> a, Dims d, GradsT<VT> o) {
   static_assert(F == kDense, "the list forms' backward is csrc/neighbor_attn_bwd.cu");
   const int H = d.H, kd = d.kd, vd = d.vd, De = d.De, HK = H * kd, HV = H * vd;
   const int TM = tile_of<F, true>(d);
@@ -592,10 +613,12 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
   sm.idx = reinterpret_cast<int*>(sm.mask + TM);
 
   const int tid = threadIdx.x;
-  for (int t = tid; t < kd * kd; t += blockDim.x) sm.wk2t[(t % kd) * kd + t / kd] = a.wk2[t];
-  for (int t = tid; t < vd * vd; t += blockDim.x) sm.wv2t[(t % vd) * vd + t / vd] = a.wv2[t];
+  for (int t = tid; t < kd * kd; t += blockDim.x)
+    sm.wk2t[(t % kd) * kd + t / kd] = rnd<VT>(a.wk2[t]);
+  for (int t = tid; t < vd * vd; t += blockDim.x)
+    sm.wv2t[(t % vd) * vd + t / vd] = rnd<VT>(a.wv2[t]);
   if (tid == 0) sm.one[0] = 1.f;
-  dead_wv(a.bv1, a.wv2, a.bv2, vd, sm.w0);
+  dead_wv<VT>(a.bv1, a.wv2, a.bv2, vd, sm.w0);
 
   const int P = d.grad_floats();
   float acc[kAccPerThread];
@@ -613,12 +636,12 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
     const bool closed = R == 0;  // no live column: the closed form
     __syncthreads();  // the previous node's readers are done
     for (int t = tid; t < HK; t += blockDim.x) {
-      sm.q[t] = a.qt[node * HK + t];
+      sm.q[t] = to_f(a.qt[node * HK + t]);
       sm.dq[t] = 0.f;
     }
     for (int t = tid; t < HV; t += blockDim.x) {
-      sm.g[t] = o.g[node * HV + t];
-      sm.dv[t] = a.dval[node * HV + t];
+      sm.g[t] = to_f(o.g[node * HV + t]);
+      sm.dv[t] = to_f(a.dval[node * HV + t]);
     }
     for (int t = tid; t < H; t += blockDim.x) sm.sd[t] = a.ds[node * H + t];
     __syncthreads();
@@ -652,8 +675,9 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
     }
     if (closed) {
       __syncthreads();
-      for (int c = tid; c < HV; c += blockDim.x) o.ddv[node * HV + c] = sm.ad[c / vd] * sm.g[c];
-      for (int c = tid; c < HK; c += blockDim.x) o.dqt[node * HK + c] = 0.f;
+      for (int c = tid; c < HV; c += blockDim.x)
+        o.ddv[node * HV + c] = from_f<VT>(sm.ad[c / vd] * sm.g[c]);
+      for (int c = tid; c < HK; c += blockDim.x) o.dqt[node * HK + c] = from_f<VT>(0.f);
       continue;
     }
 
@@ -673,7 +697,8 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
       o.dds[node * H + h] = ad * (sm.dd[h] - dot);
     }
     __syncthreads();
-    for (int c = tid; c < HV; c += blockDim.x) o.ddv[node * HV + c] = sm.ad[c / vd] * sm.g[c];
+    for (int c = tid; c < HV; c += blockDim.x)
+      o.ddv[node * HV + c] = from_f<VT>(sm.ad[c / vd] * sm.g[c]);
 
     // sweep 2: every slot's gradient
     for (int c0 = 0; c0 < R; c0 += TM) {
@@ -700,32 +725,38 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
         float part = 0.f;
         for (int p = 0; p < T; ++p)
           part = fmaf(sm.D[p * H + h] * sm.Wk[p * kd + dc],
-                      __ldg(a.k + slot_row<F>(base, first, sm.idx, c0, p) * HK + c), part);
+                      ldg_f(a.k + slot_row<F>(base, first, sm.idx, c0, p) * HK + c), part);
         sm.dq[c] += part;
       }
       __syncthreads();
-      // dw_k into Wk and dw_v into Wv, one thread per (slot, channel)
+      // dw_k into Wk and dw_v into Wv, one thread per (slot, channel) (at
+      // bfloat16 rounded)
       for (int t = tid; t < T * kd; t += blockDim.x) {
         const int p = t / kd, dc = t % kd;
-        const float* krow = a.k + slot_row<F>(base, first, sm.idx, c0, p) * HK + dc;
+        const VT* krow = a.k + slot_row<F>(base, first, sm.idx, c0, p) * HK + dc;
         float part = 0.f;
         for (int h = 0; h < H; ++h)
-          part = fmaf(sm.D[p * H + h] * sm.q[h * kd + dc], __ldg(krow + h * kd), part);
-        sm.Wk[t] = part;
+          part = fmaf(sm.D[p * H + h] * sm.q[h * kd + dc], ldg_f(krow + h * kd), part);
+        sm.Wk[t] = rnd<VT>(part);
       }
       for (int t = tid; t < T * vd; t += blockDim.x) {
         const int p = t / vd, dc = t % vd;
-        const float* vrow = a.v + slot_row<F>(base, first, sm.idx, c0, p) * HV + dc;
+        const VT* vrow = a.v + slot_row<F>(base, first, sm.idx, c0, p) * HV + dc;
         float part = 0.f;
         for (int h = 0; h < H; ++h)
-          part = fmaf(sm.S[p * H + h] * sm.g[h * vd + dc], __ldg(vrow + h * vd), part);
-        sm.Wv[t] = part;
+          part = fmaf(sm.S[p * H + h] * sm.g[h * vd + dc], ldg_f(vrow + h * vd), part);
+        sm.Wv[t] = rnd<VT>(part);
       }
       __syncthreads();
       // dh = (dw W2^T) * sigmoid(pre), in place of the pre-activations
       block_gemm(sm.Wk, T, kd, sm.wk2t, nullptr, kd, sm.Pk, kEpiTimesSigmoid);
       block_gemm(sm.Wv, T, vd, sm.wv2t, nullptr, vd, sm.Pv, kEpiTimesSigmoid);
       __syncthreads();
+      if constexpr (kBf16<VT>) {  // dh, rounded
+        for (int t = tid; t < T * kd; t += blockDim.x) sm.Pk[t] = rnd<VT>(sm.Pk[t]);
+        for (int t = tid; t < T * vd; t += blockDim.x) sm.Pv[t] = rnd<VT>(sm.Pv[t]);
+        __syncthreads();
+      }
 
       // weight-gradient sums over the tile's slots; sum t belongs to the
       // thread tid = t % blockDim.x, slot r = t / blockDim.x
@@ -761,7 +792,7 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
       }
     }
     // each dq[c] was last written by this thread
-    for (int c = tid; c < HK; c += blockDim.x) o.dqt[node * HK + c] = sm.dq[c];
+    for (int c = tid; c < HK; c += blockDim.x) o.dqt[node * HK + c] = from_f<VT>(sm.dq[c]);
   }
 
   float* row = o.partial + (long long)blockIdx.x * P;
@@ -775,15 +806,17 @@ attn_bwd_pair_kernel(Args a, Dims d, Grads o) {
 // dk and dv of destination row j: the live pairs that read row j, in the
 // CSR order of the transpose (offsets [B*N + 1], slots: live pair indices).
 // A pair's source node is pair_rows[pair]; dv also gets gw[b] (w_v0 * G of
-// j's graph b: the closed-form rows' share).
-template <int F>
+// j's graph b: the closed-form rows' share). T: the storage type of qt, g,
+// dk and dv (at bfloat16 summed in float32 and rounded once, as the TPU
+// kernel's float32 column sums).
+template <int F, class T = float>
 __global__ void __launch_bounds__(kDkdvThreads)
-csr_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
+csr_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ gin,
                 const float* __restrict__ s_wk, const float* __restrict__ s_wv,
                 const float* __restrict__ s_a, const float* __restrict__ s_dsc,
                 const int* __restrict__ offsets, const int* __restrict__ slots,
                 const int* __restrict__ pair_rows, const float* __restrict__ gw,
-                float* __restrict__ dk, float* __restrict__ dv, Dims dm) {
+                T* __restrict__ dk, T* __restrict__ dv, Dims dm) {
   static_assert(F == kDense, "the list forms' dk/dv stage is csrc/neighbor_attn_bwd.cu");
   const int H = dm.H, kd = dm.kd, vd = dm.vd;
   const int HK = H * kd, HV = H * vd;
@@ -797,30 +830,31 @@ csr_dkdv_kernel(const float* __restrict__ qt, const float* __restrict__ gin,
         for (int e = e0; e < e1; ++e) {
           const long long s = slots[e];
           const long long src = pair_rows[s];
-          acc = fmaf(s_dsc[s * H + h] * s_wk[s * kd + d], __ldg(qt + src * HK + c), acc);
+          acc = fmaf(s_dsc[s * H + h] * s_wk[s * kd + d], ldg_f(qt + src * HK + c), acc);
         }
-        dk[j * HK + c] = acc;
+        dk[j * HK + c] = from_f<T>(acc);
       } else {
         const int cv = c - HK, h = cv / vd, d = cv % vd;
         for (int e = e0; e < e1; ++e) {
           const long long s = slots[e];
           const long long src = pair_rows[s];
-          acc = fmaf(s_a[s * H + h] * s_wv[s * vd + d], __ldg(gin + src * HV + cv), acc);
+          acc = fmaf(s_a[s * H + h] * s_wv[s * vd + d], ldg_f(gin + src * HV + cv), acc);
         }
         acc += gw[(j / dm.N) * HV + cv];
-        dv[j * HV + cv] = acc;
+        dv[j * HV + cv] = from_f<T>(acc);
       }
     }
   }
 }
 
-template <int F>
-cudaError_t launch_dkdv(const Args& a, const Dims& dm, const float* g, const Grads& o,
+template <int F, class T>
+cudaError_t launch_dkdv(const ArgsT<T>& a, const Dims& dm, const T* g, const GradsT<T>& o,
                         const int* offsets, const int* slots, const int* pair_rows,
-                        const float* gw, float* dk, float* dv, cudaStream_t st) {
-  const int grid = persistent_grid(csr_dkdv_kernel<F>, kDkdvThreads, 0, (long long)dm.B * dm.N);
-  csr_dkdv_kernel<F><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, o.s_wk, o.s_wv, o.s_a, o.s_dsc,
-                                                    offsets, slots, pair_rows, gw, dk, dv, dm);
+                        const float* gw, T* dk, T* dv, cudaStream_t st) {
+  const int grid =
+      persistent_grid(csr_dkdv_kernel<F, T>, kDkdvThreads, 0, (long long)dm.B * dm.N);
+  csr_dkdv_kernel<F, T><<<grid, kDkdvThreads, 0, st>>>(a.qt, g, o.s_wk, o.s_wv, o.s_a, o.s_dsc,
+                                                       offsets, slots, pair_rows, gw, dk, dv, dm);
   return cudaGetLastError();
 }
 
@@ -828,18 +862,18 @@ cudaError_t launch_dkdv(const Args& a, const Dims& dm, const float* g, const Gra
 // it does not take (weight gradients over the sums its threads keep, one
 // tile's pair tensors over shared memory); the caller sizes the [blocks, P]
 // scratch buffer from it.
-template <int F>
+template <int F, class T = float>
 int bwd_blocks(const Dims& d) {
   if (!d.ok() || d.grad_floats() > kAccPerThread * kThreads) return -1;
   const size_t smem = (size_t)bwd_smem_floats<F>(d) * sizeof(float);
-  if (allow_smem(attn_bwd_pair_kernel<F>, smem) != cudaSuccess) return -1;
-  return persistent_grid(attn_bwd_pair_kernel<F>, kThreads, smem, (long long)d.B * d.N);
+  if (allow_smem(attn_bwd_pair_kernel<F, T>, smem) != cudaSuccess) return -1;
+  return persistent_grid(attn_bwd_pair_kernel<F, T>, kThreads, smem, (long long)d.B * d.N);
 }
 
 // Resident blocks per SM of the form's forward (kBwd false) or backward pair
-// kernel at these shapes, and its dynamic shared memory in *smem_bytes; -1
-// when the shared memory is over the card's limit.
-template <int F, bool kBwd>
+// kernel at these shapes (T: its storage type), and its dynamic shared
+// memory in *smem_bytes; -1 when the shared memory is over the card's limit.
+template <int F, bool kBwd, class T = float>
 int residency(const Dims& d, int* smem_bytes, int* tile) {
   *tile = tile_of<F, kBwd>(d);
   const size_t smem =
@@ -847,26 +881,27 @@ int residency(const Dims& d, int* smem_bytes, int* tile) {
   *smem_bytes = (int)smem;
   int per_sm = 0;
   if constexpr (kBwd) {
-    if (allow_smem(attn_bwd_pair_kernel<F>, smem) != cudaSuccess) return -1;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_bwd_pair_kernel<F>, kThreads, smem);
+    if (allow_smem(attn_bwd_pair_kernel<F, T>, smem) != cudaSuccess) return -1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_bwd_pair_kernel<F, T>, kThreads,
+                                                  smem);
   } else {
-    if (allow_smem(attn_fwd_kernel<F>, smem) != cudaSuccess) return -1;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_fwd_kernel<F>, kThreads, smem);
+    if (allow_smem(attn_fwd_kernel<F, T>, smem) != cudaSuccess) return -1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_fwd_kernel<F, T>, kThreads, smem);
   }
   return per_sm;
 }
 
 // Launches the pair kernel on `blocks` blocks; the caller then runs its
 // form's dk/dv stage and sum_rows_kernel over o.partial.
-template <int F>
-cudaError_t launch_bwd_pair(const Args& a, const Dims& d, const Grads& o, int blocks,
+template <int F, class T>
+cudaError_t launch_bwd_pair(const ArgsT<T>& a, const Dims& d, const GradsT<T>& o, int blocks,
                             cudaStream_t st) {
   if (!d.ok() || blocks < 1 || d.grad_floats() > kAccPerThread * kThreads)
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)bwd_smem_floats<F>(d) * sizeof(float);
-  cudaError_t err = allow_smem(attn_bwd_pair_kernel<F>, smem);
+  cudaError_t err = allow_smem(attn_bwd_pair_kernel<F, T>, smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_pair_kernel<F><<<blocks, kThreads, smem, st>>>(a, d, o);
+  attn_bwd_pair_kernel<F, T><<<blocks, kThreads, smem, st>>>(a, d, o);
   return cudaGetLastError();
 }
 

@@ -99,12 +99,17 @@
 // one node's K slots a tile, the EdgeMLPs in float32 on the CUDA cores),
 // kept as K1/K7's CUDA-core instance; cuda_cores asks for it at any shape.
 // The instance is chosen by shape before the launch.
-// bfloat16 (neighbor_attn with bf16 != 0): K1's bfloat16 instance is the same three
-// kernels at T = bf16, the storage type of qt, k, v, diag_value and out
-// (dist, diag_scores, the centers, the EdgeMLP weights and the sums scratch
-// stay float32), at the widths above, else attn_fwd_kernel<kList, bf16>
-// (whose note lists the roundings: they are the TPU kernel's at a bfloat16
-// dtype); cuda_cores and stats as at float32. Every EdgeMLP product
+// bfloat16 (neighbor_attn or neighbor_attn_hybrid with bf16 != 0): K1's and
+// K7's bfloat16 instances are the same three kernels at T = bf16, the
+// storage type of qt, k, v (K7: k_nb, v_nb), diag_value and out (dist,
+// diag_scores, the centers, the EdgeMLP weights and the sums scratch stay
+// float32), at the widths above, else attn_fwd_kernel<kList | kGathered,
+// bf16> (whose note lists the roundings: they are the TPU kernel's at a
+// bfloat16 dtype); cuda_cores and stats as at float32. K7's rows come
+// gathered in bfloat16 (torch.gather, as JAX's _gather_rows gathers them at
+// the compute dtype), and _attn_fwd_kernel with gathered=True widens them
+// as K1's one-hot product does: K7's bfloat16 instance rounds where K1's
+// does. Every EdgeMLP product
 // multiplies two bfloat16 values and is one TF32 mma.sync (mma_tf32.cuh,
 // mma_t), exact to float32 accumulation, where float32 takes three: the
 // weights are rounded once a block into the hi plane alone (a bfloat16 value
@@ -787,10 +792,12 @@ extern "C" int neighbor_attn_instance(int K, int H, int kd, int vd, int De) {
 }
 
 // The tensor-core tile kernel of K1 (hybrid 0) or K7 (1), at float32 or
-// (bf16 != 0, K1's alone) at bfloat16 storage: resident blocks per SM (-1:
-// refused), and its threads and dynamic shared memory per block.
+// (bf16 != 0) at bfloat16 storage: resident blocks per SM (-1: refused), and
+// its threads and dynamic shared memory per block.
 extern "C" int neighbor_attn_residency(int hybrid, int bf16, int* smem_bytes, int* threads) {
-  if (bf16) return hybrid ? -1 : residency<ea::kList, singa::bf16>(smem_bytes, threads);
+  if (bf16)
+    return hybrid ? residency<ea::kGathered, singa::bf16>(smem_bytes, threads)
+                  : residency<ea::kList, singa::bf16>(smem_bytes, threads);
   return hybrid ? residency<ea::kGathered>(smem_bytes, threads)
                 : residency<ea::kList>(smem_bytes, threads);
 }
@@ -826,19 +833,28 @@ extern "C" int neighbor_attn(const void* qt, const void* k, const void* v, const
   return launch<ea::kList>(a, d, (float*)out, sums, plan, cuda_cores, stats, stream);
 }
 
-// K7 (float32 alone): k_nb [B*N, K, H*kd] and v_nb [B*N, K, H*vd], the
-// slots' rows gathered; the rest as K1's.
-extern "C" int neighbor_attn_hybrid_f32(const float* qt, const float* k_nb, const float* v_nb,
-                                        const unsigned char* nmask, const float* dist,
-                                        const float* ds, const float* dval,
-                                        const float* centers, const float* wk1,
-                                        const float* bk1, const float* wk2, const float* bk2,
-                                        const float* wv1, const float* bv1, const float* wv2,
-                                        const float* bv2, float coeff, float* out, float* sums,
-                                        int* plan, int B, int N, int K, int H, int kd, int vd,
-                                        int De, int cuda_cores, int* stats, void* stream) {
-  const ea::Args a{qt, k_nb, v_nb, nullptr, nmask, dist, ds, dval, centers,
-                   wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff};
-  return launch<ea::kGathered>(a, ea::Dims{B, N, K, H, kd, vd, De}, out, sums, plan,
-                               cuda_cores, stats, stream);
+// K7: k_nb [B*N, K, H*kd] and v_nb [B*N, K, H*vd], the slots' rows
+// gathered, and no nbr; qt, k_nb, v_nb, dval and out bfloat16 when bf16 != 0
+// (K7's bfloat16 instance), else float32; the rest as K1's.
+extern "C" int neighbor_attn_hybrid(const void* qt, const void* k_nb, const void* v_nb,
+                                    const unsigned char* nmask, const float* dist,
+                                    const float* ds, const void* dval, const float* centers,
+                                    const float* wk1, const float* bk1, const float* wk2,
+                                    const float* bk2, const float* wv1, const float* bv1,
+                                    const float* wv2, const float* bv2, float coeff, void* out,
+                                    float* sums, int* plan, int B, int N, int K, int H, int kd,
+                                    int vd, int De, int cuda_cores, int bf16, int* stats,
+                                    void* stream) {
+  const ea::Dims d{B, N, K, H, kd, vd, De};
+  if (bf16) {
+    using singa::bf16;
+    const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k_nb, (const bf16*)v_nb, nullptr,
+                            nmask, dist, ds, (const bf16*)dval, centers, wk1, bk1, wk2, bk2,
+                            wv1, bv1, wv2, bv2, coeff};
+    return launch<ea::kGathered, bf16>(a, d, (bf16*)out, sums, plan, cuda_cores, stats, stream);
+  }
+  const ea::Args a{(const float*)qt, (const float*)k_nb, (const float*)v_nb, nullptr, nmask,
+                   dist, ds, (const float*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2,
+                   bv2, coeff};
+  return launch<ea::kGathered>(a, d, (float*)out, sums, plan, cuda_cores, stats, stream);
 }

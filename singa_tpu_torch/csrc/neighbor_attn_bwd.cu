@@ -72,8 +72,8 @@
 // Shared with K1/K7's forward (neighbor_attn.cu), in csrc/list_attn.cuh:
 // the widths, tiles and pair-buffer strides, the smear and its A fragments,
 // the shifted softplus and block_range.
-// bfloat16 (neighbor_attn_bwd_bf16): K1b's bfloat16 instance is the same
-// kernels at T = bf16, the storage type of qt, k, v, diag_value, g, dqt, dk,
+// bfloat16 (neighbor_attn_bwd_bf16, neighbor_attn_hybrid_bwd_bf16): K1b's
+// and K7b's bfloat16 instances are the same kernels at T = bf16, the storage type of qt, k, v, diag_value, g, dqt, dk,
 // dv and d diag_value: the tensor-core pair kernel and its dk/dv stage at
 // the widths they take, else the CUDA-core ones (list_bwd_cc_kernel, whose
 // note sets out the roundings, and list_dkdv_cc_kernel). In the pair kernel
@@ -917,7 +917,7 @@ list_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ g,
 // (ea::kAccPerThread a thread) across the block's nodes, all float32.
 //
 // VT: the storage type of qt, k, v, diag_value, g, dqt, dk, dv and d
-// diag_value. The bfloat16 instance (K1b's, kList) is the function
+// diag_value. The bfloat16 instance (K1b's and K7b's) is the function
 // _attn_bwd_kernel computes at bfloat16 inputs: the forward recomputed as
 // K1's bfloat16 instance rounds it; each g w_v v and g diag_value term
 // rounded before its head sum (da); the softmax and dot in float32; the
@@ -1354,10 +1354,12 @@ extern "C" int neighbor_attn_hybrid_bwd_blocks(int B, int N, int K, int H, int k
 }
 
 // The tensor-core pair kernel of K1b (hybrid 0) or K7b (1), at bfloat16
-// storage when bf16 != 0 (K1b's alone): resident blocks per SM (-1:
-// refused), and its threads and dynamic shared memory per block.
+// storage when bf16 != 0: resident blocks per SM (-1: refused), and its
+// threads and dynamic shared memory per block.
 extern "C" int neighbor_attn_bwd_residency(int hybrid, int bf16, int* smem_bytes, int* threads) {
-  if (bf16) return hybrid ? -1 : residency<ea::kList, singa::bf16>(smem_bytes, threads);
+  if (bf16)
+    return hybrid ? residency<ea::kGathered, singa::bf16>(smem_bytes, threads)
+                  : residency<ea::kList, singa::bf16>(smem_bytes, threads);
   return hybrid ? residency<ea::kGathered, float>(smem_bytes, threads)
                 : residency<ea::kList, float>(smem_bytes, threads);
 }
@@ -1430,4 +1432,35 @@ extern "C" int neighbor_attn_bwd_bf16(
                                  slots, (bf16*)dqt, (bf16*)dk, (bf16*)dv, dds, (bf16*)ddv, s_wk,
                                  s_wv, s_a, s_dsc, plan, partial, grads, blocks, cuda_cores, stats,
                                  stream);
+}
+
+// Blocks of K7b's bfloat16 pair kernel at these shapes, as
+// neighbor_attn_bwd_bf16_blocks's.
+extern "C" int neighbor_attn_hybrid_bwd_bf16_blocks(int B, int N, int K, int H, int kd, int vd,
+                                                    int De, int cuda_cores) {
+  return blocks_of<ea::kGathered, singa::bf16>(ea::Dims{B, N, K, H, kd, vd, De}, cuda_cores);
+}
+
+// K7b's bfloat16 instance: as K1b's with k_nb [B*N, K, H*kd] and v_nb
+// [B*N, K, H*vd] (bfloat16) in place of k and v, and no nbr. Each slot's
+// dk and dv terms are rounded, then summed over the CSR transpose in float32
+// and rounded once, as the TPU kernel's one-hot transpose of the rounded
+// dk_nb, dv_nb accumulates in float32 and casts once.
+extern "C" int neighbor_attn_hybrid_bwd_bf16(
+    const void* qt, const void* k_nb, const void* v_nb, const unsigned char* nmask,
+    const float* dist, const float* ds, const void* dval, const float* centers,
+    const float* wk1, const float* bk1, const float* wk2, const float* bk2, const float* wv1,
+    const float* bv1, const float* wv2, const float* bv2, float coeff, const void* g,
+    const int* offsets, const int* slots, void* dqt, void* dk, void* dv, float* dds,
+    void* ddv, float* s_wk, float* s_wv, float* s_a, float* s_dsc, int* plan, float* partial,
+    float* grads, int B, int N, int K, int H, int kd, int vd, int De, int blocks, int cuda_cores,
+    int* stats, void* stream) {
+  using singa::bf16;
+  const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k_nb, (const bf16*)v_nb, nullptr, nmask,
+                          dist, ds, (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1,
+                          wv2, bv2, coeff};
+  return launch<ea::kGathered, bf16>(a, ea::Dims{B, N, K, H, kd, vd, De}, (const bf16*)g,
+                                     offsets, slots, (bf16*)dqt, (bf16*)dk, (bf16*)dv, dds,
+                                     (bf16*)ddv, s_wk, s_wv, s_a, s_dsc, plan, partial, grads,
+                                     blocks, cuda_cores, stats, stream);
 }

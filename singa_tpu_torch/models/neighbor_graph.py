@@ -15,7 +15,10 @@ row whose in-degree exceeds K attends over all its neighbours, while the
 degree attribute still comes from the kept lists); else
 ``neighbor_attn_hybrid`` (K7) under ``SINGA_TPU_HYBRID_ATTN``; else
 ``neighbor_attn`` (K1). Both variables are read at every call, and either is
-off when unset, empty or "0".
+off when unset, empty or "0". Every form takes qt, k, v and diag_value in the
+compute dtype (K7 gathers its neighbour rows in it), and the distances
+(``dist``, ``adj_dist``) and self scores in float32, as the JAX module
+passes them: at bfloat16 each form runs its kernel's bfloat16 instance.
 """
 from __future__ import annotations
 

@@ -18,20 +18,40 @@ every column a slot. The kernels walk each row's live columns only
 (``live_columns``, built once per graph by ``build_neighbor_graph``) and
 take rows with no live column in closed form; dk/dv gather over the CSR
 transpose of the live pairs.
+
+K8 and K8b have bfloat16 instances (entry points ``dense_edge_attn_bf16``
+and ``dense_edge_attn_bwd_bf16``, the same kernels at bfloat16 storage),
+counted in ``launches_bf16`` and ``launches_bwd_bf16``, taken for a
+bfloat16 qt, k, v and diag_value (adj_dist, diag_scores, centers and the
+EdgeMLP weights stay float32). They round where ``_dattn_fwd_kernel`` and
+``_dattn_bwd_kernel`` round at a bfloat16 dtype, which is not where K1's
+do: the TPU kernel repeats, sums and broadcasts the heads by float32 lane
+operations, not matrix products, so the forward rounds only the smear, the
+EdgeMLP weights and their hiddens (w_k, w_v, the score terms and the
+softmax weights stay float32) and the output once; the backward also
+rounds dw_k and dw_v before the EdgeMLPs' backward and dh after its sigmoid
+factor, sums dk and dv in float32 and rounds them once; dqt and d
+diag_value come out bfloat16, d diag_scores and the weight gradients
+float32. ``dense_edge_attn_bf16_plain`` and ``dense_edge_attn_bf16_bwd_plain``
+are their plain twins (every column evaluated, one graph at a time).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
+from singa_tpu_torch.dtypes import rounded
 from singa_tpu_torch.ops.cuda import build
-from singa_tpu_torch.ops.cuda.neighbor_attn import check_node_args, neighbor_attn_hybrid_plain
+from singa_tpu_torch.ops.cuda.neighbor_attn import _ssp, check_node_args, neighbor_attn_hybrid_plain
 
 BIG = 1e9  # adj_dist's value for a pair that is not adjacent
 launches = 0  # forward kernel launches through ``dense_edge_attn``
 launches_bwd = 0  # backward kernel launches through ``dense_edge_attn``
+launches_bf16 = 0  # K8's bfloat16 instance's launches (not in ``launches``)
+launches_bwd_bf16 = 0  # K8b's bfloat16 instance's launches
 
 
 class DenseLists(NamedTuple):
@@ -86,7 +106,11 @@ def dense_edge_attn_plain(
     [B, N, H]; diag_value [B, N, H*vd]; centers [De]; EdgeMLP weights in the
     flax ``[in, out]`` layout; coeff = -0.5/width^2. Returns agg
     [B, N, H*vd]. One graph at a time, so that the [N, N, *] pair tensors
-    of one graph are alive at once."""
+    of one graph are alive at once. A bfloat16 ``k`` takes the kernel's
+    bfloat16 function (``dense_edge_attn_bf16_plain``)."""
+    if k.dtype == torch.bfloat16:
+        return dense_edge_attn_bf16_plain(qt, k, v, adj_dist, diag_scores, diag_value,
+                                          centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
     B, N, _ = qt.shape
     weights = (centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
     outs = [neighbor_attn_hybrid_plain(*_graph_rows(qt[b], k[b], v[b], adj_dist[b],
@@ -99,7 +123,10 @@ def dense_edge_attn_bwd_plain(*args):
     """``(dqt, dk, dv, d diag_scores, d diag_value, dwk1, dbk1, dwk2, dbk2,
     dwv1, dbv1, dwv2, dbv2)`` of ``dense_edge_attn_plain``: ``args`` are its
     arguments followed by the cotangent ``g``. One graph at a time; the
-    weight gradients are summed over the graphs in order."""
+    weight gradients are summed over the graphs in order. At a bfloat16
+    ``k``, ``dense_edge_attn_bf16_bwd_plain``."""
+    if args[1].dtype == torch.bfloat16:
+        return dense_edge_attn_bf16_bwd_plain(*args)
     *inputs, coeff, g = args
     B = inputs[0].shape[0]
     weights = inputs[6:]
@@ -123,8 +150,121 @@ def dense_edge_attn_bwd_plain(*args):
     return (*node_grads, *wgrads)
 
 
-def _fn():
-    fn = build.load("dense_edge_attn").dense_edge_attn_f32
+def _bf16_graph(qt, k, v, adj, diag_scores, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
+                coeff):
+    """What K8's bfloat16 instance computes over one graph's N x N pairs
+    (qt, k, v [N, *] bfloat16; adj [N, N]), as float32 tensors, rounding
+    where ``_dattn_fwd_kernel`` rounds: the smear ``e`` (a dead column's is
+    -0), the EdgeMLPs' pre-activations, their rounded hiddens and their
+    outputs ``w_k``, ``w_v`` (float32, from the rounded weights); the rows
+    widened; the scores (float32 products summed over each head's lanes,
+    -1e9 on dead columns) and the softmax weights over the N columns and the
+    self slot."""
+    dt = k.dtype
+    N, HK = qt.shape
+    H = diag_scores.shape[1]
+    kd = HK // H
+    vd = v.shape[1] // H
+    diff = adj[..., None] - centers
+    e = rounded(-torch.exp(coeff * diff * diff), dt)  # [N, N, De]
+    pre_k = e @ rounded(wk1, dt) + bk1
+    hid_k = rounded(_ssp(pre_k), dt)
+    w_k = hid_k @ rounded(wk2, dt) + bk2  # [N, N, kd]
+    pre_v = e @ rounded(wv1, dt) + bv1
+    hid_v = rounded(_ssp(pre_v), dt)
+    w_v = hid_v @ rounded(wv2, dt) + bv2  # [N, N, vd]
+    k_all = k.float().reshape(1, N, H, kd)
+    v_all = v.float().reshape(1, N, H, vd)
+    q = qt.float().reshape(N, 1, H, kd)
+    kw = w_k[:, :, None, :] * k_all  # [N, N, H, kd]
+    live = adj < 0.5 * BIG
+    s_off = torch.where(live[..., None], (kw * q).sum(-1) * (1.0 / math.sqrt(kd)), -1e9)
+    s_diag = diag_scores.float()
+    m = torch.maximum(s_off.amax(dim=1), s_diag)  # [N, H]
+    p_off = torch.exp(s_off - m[:, None])
+    p_diag = torch.exp(s_diag - m)
+    den = p_off.sum(dim=1) + p_diag
+    return dict(e=e, pre_k=pre_k, hid_k=hid_k, w_k=w_k, pre_v=pre_v, hid_v=hid_v, w_v=w_v,
+                k_all=k_all, v_all=v_all, q=q, kw=kw, live=live,
+                a_off=p_off / den[:, None], a_diag=p_diag / den)
+
+
+def dense_edge_attn_bf16_plain(qt, k, v, adj_dist, diag_scores, diag_value,
+                               centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff):
+    """K8's bfloat16 instance in plain PyTorch (bfloat16 qt, k, v,
+    diag_value; the rest float32), one graph at a time: ``_bf16_graph``'s
+    softmax weights on w_v v, plus a_self diag_value, in float32, the
+    output rounded once."""
+    B, N, HV = v.shape
+    H = diag_scores.shape[2]
+    outs = []
+    for b in range(B):
+        p = _bf16_graph(qt[b], k[b], v[b], adj_dist[b], diag_scores[b], centers,
+                        wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
+        wvv = p["w_v"][:, :, None, :] * p["v_all"]  # [N, N, H, vd]
+        agg = (p["a_off"][..., None] * wvv).sum(dim=1)
+        agg = agg + p["a_diag"][..., None] * diag_value[b].float().reshape(N, H, HV // H)
+        outs.append(agg.reshape(N, HV).to(v.dtype))
+    return torch.stack(outs) if outs else v.new_zeros((0, N, HV))
+
+
+def dense_edge_attn_bf16_bwd_plain(qt, k, v, adj_dist, diag_scores, diag_value,
+                                   centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g):
+    """K8b's bfloat16 instance in plain PyTorch, one graph at a time, as
+    ``_dattn_bwd_kernel`` computes at a bfloat16 dtype: da, the softmax
+    backward, dsc, dqt, dk_nb, dv_nb, dw_k and dw_v in float32 from the
+    forward ``_bf16_graph`` recomputes; dw_k and dw_v rounded, dh =
+    round((dw W2^T) sigmoid(pre)) from the rounded W2; the weight gradients
+    summed in float32 over the graphs in order; dk and dv the float32 column
+    sums, rounded once; dqt and d diag_value bfloat16, d diag_scores
+    float32."""
+    dt = k.dtype
+    B, N, HK = qt.shape
+    H = diag_scores.shape[2]
+    kd, vd = HK // H, v.shape[2] // H
+    scale = 1.0 / math.sqrt(kd)
+    weights = (wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
+    wgrads = [torch.zeros_like(w) for w in weights]
+    node = []  # (dqt, dk, dv, dds, ddv) of each graph
+    for b in range(B):
+        p = _bf16_graph(qt[b], k[b], v[b], adj_dist[b], diag_scores[b], centers, *weights, coeff)
+        gb = g[b].float().reshape(N, 1, H, vd)
+        dval = diag_value[b].float().reshape(N, H, vd)
+        w_k, w_v = p["w_k"][:, :, None, :], p["w_v"][:, :, None, :]  # [N, N, 1, d]
+        a_off, a_diag = p["a_off"], p["a_diag"]
+        da_off = (gb * (w_v * p["v_all"])).sum(-1)  # [N, N, H]
+        da_diag = (gb[:, 0] * dval).sum(-1)  # [N, H]
+        a_t = a_off[..., None]
+        dwv3 = (a_t * gb * p["v_all"]).sum(2)  # [N, N, vd]
+        dv_nb = a_t * w_v * gb
+        ddv = (a_diag[..., None] * gb[:, 0]).reshape(N, H * vd).to(dt)
+        dot = (a_off * da_off).sum(dim=1) + a_diag * da_diag
+        dds = a_diag * (da_diag - dot)
+        ds_off = torch.where(p["live"][..., None], a_off * (da_off - dot[:, None]), 0.0) * scale
+        ds_t = ds_off[..., None]
+        dqt = (ds_t * p["kw"]).sum(dim=1).reshape(N, HK).to(dt)
+        dk_nb = ds_t * w_k * p["q"]
+        dwk3 = (ds_t * p["k_all"] * p["q"]).sum(2)  # [N, N, kd]
+        for i, (dw3, pre, hid, w2) in enumerate(((dwk3, p["pre_k"], p["hid_k"], wk2),
+                                                 (dwv3, p["pre_v"], p["hid_v"], wv2))):
+            dw3 = rounded(dw3, dt)
+            dh = rounded((dw3 @ rounded(w2, dt).t()) * torch.sigmoid(pre), dt)
+            for j, gw in enumerate((torch.einsum("nme,nmh->eh", p["e"], dh), dh.sum((0, 1)),
+                                    torch.einsum("nmh,nmo->ho", hid, dw3), dw3.sum((0, 1)))):
+                wgrads[4 * i + j] += gw
+        dk = dk_nb.sum(dim=0).reshape(N, HK).to(dt)
+        dv = dv_nb.sum(dim=0).reshape(N, H * vd).to(dt)
+        node.append((dqt, dk, dv, dds, ddv))
+    if B:
+        node_grads = [torch.stack(parts) for parts in zip(*node)]
+    else:
+        node_grads = [torch.zeros_like(t) for t in (qt, k, v, diag_scores, diag_value)]
+    return (*node_grads, *wgrads)
+
+
+def _fn(bf16: bool = False):
+    fn = getattr(build.load("dense_edge_attn"), "dense_edge_attn_bf16" if bf16
+                 else "dense_edge_attn_f32")
     fn.argtypes = (
         [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -133,12 +273,12 @@ def _fn():
     return fn
 
 
-def _bwd_fns():
+def _bwd_fns(bf16: bool = False):
     lib = build.load("dense_edge_attn_bwd")
     blocks = lib.dense_edge_attn_bwd_blocks
-    blocks.argtypes = [ctypes.c_int] * 6
+    blocks.argtypes = [ctypes.c_int] * 7
     blocks.restype = ctypes.c_int
-    fn = lib.dense_edge_attn_bwd_f32
+    fn = lib.dense_edge_attn_bwd_bf16 if bf16 else lib.dense_edge_attn_bwd_f32
     fn.argtypes = (
         [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p] * 21
         + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -150,7 +290,9 @@ def _bwd_fns():
 def _check_args(qt, k, v, adj_dist, diag_scores, diag_value,
                 centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, lists):
     """Device, dtype, shape and contiguity of every kernel argument; returns
-    (B, N, H, kd, vd, De, lists as ``DenseLists``)."""
+    (B, N, H, kd, vd, De, lists as ``DenseLists``). qt, k, v and diag_value
+    are float32, or bfloat16 all four for the bfloat16 instance; adj_dist,
+    diag_scores, centers and the weights float32."""
     B, N, HK = qt.shape
     H = diag_scores.shape[2]
     kd = HK // H
@@ -158,12 +300,13 @@ def _check_args(qt, k, v, adj_dist, diag_scores, diag_value,
     De = centers.shape[0]
     dev = qt.device
     f32 = torch.float32
-    build.require(qt, "qt", (B, N, H * kd), f32, dev)
-    build.require(k, "k", (B, N, H * kd), f32, dev)
-    build.require(v, "v", (B, N, H * vd), f32, dev)
+    act = torch.bfloat16 if qt.dtype == torch.bfloat16 else f32
+    build.require(qt, "qt", (B, N, H * kd), act, dev)
+    build.require(k, "k", (B, N, H * kd), act, dev)
+    build.require(v, "v", (B, N, H * vd), act, dev)
     build.require(adj_dist, "adj_dist", (B, N, N), f32, dev)
     check_node_args(qt, diag_scores, diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2,
-                    vd)
+                    vd, act)
     lists = DenseLists(*lists)
     E = lists.cols.shape[0]
     for name, shape in (("row_offsets", B * N + 1), ("cols", E), ("pair_rows", E),
@@ -182,46 +325,54 @@ def dense_edge_attn_cuda(
     qt, k, v, adj_dist, diag_scores, diag_value,
     centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float, *, lists,
 ) -> torch.Tensor:
-    """The K8 kernel; arguments and result as ``dense_edge_attn_plain``,
-    plus ``lists = live_columns(adj_dist)``."""
-    global launches
+    """The K8 kernel (at a bfloat16 qt, k, v and diag_value its bfloat16
+    instance); arguments and result as ``dense_edge_attn_plain``, plus
+    ``lists = live_columns(adj_dist)``."""
+    global launches, launches_bf16
     args = (qt, k, v, adj_dist, diag_scores, diag_value,
             centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2)
     B, N, H, kd, vd, De, lists = _check_args(*args, lists)
     args, lists = _aligned(args, lists)
-    out = torch.empty((B, N, H * vd), dtype=torch.float32, device=qt.device)
+    bf16 = qt.dtype == torch.bfloat16
+    out = torch.empty((B, N, H * vd), dtype=qt.dtype, device=qt.device)
     if B * N == 0:
         return out
     vsum = torch.empty((B, H * vd), dtype=torch.float32, device=qt.device)
-    status = _fn()(*(t.data_ptr() for t in args), float(coeff), lists.row_offsets.data_ptr(),
-                   lists.cols.data_ptr(), lists.row_order.data_ptr(), vsum.data_ptr(),
-                   out.data_ptr(), B, N, H, kd, vd, De, build.stream_ptr(qt))
+    status = _fn(bf16)(*(t.data_ptr() for t in args), float(coeff), lists.row_offsets.data_ptr(),
+                       lists.cols.data_ptr(), lists.row_order.data_ptr(), vsum.data_ptr(),
+                       out.data_ptr(), B, N, H, kd, vd, De, build.stream_ptr(qt))
     build.check(status, "dense_edge_attn")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 def dense_edge_attn_bwd_cuda(*args, lists):
-    """The K8b kernels; arguments and result as ``dense_edge_attn_bwd_plain``,
-    plus ``lists = live_columns(adj_dist)``. Scratch: the four numbers per
-    live pair that the dk/dv gather reads, [E, kd + vd + 2H] floats, and
-    per graph v's column sums and the closed-form rows' cotangent sum."""
-    global launches_bwd
+    """The K8b kernels (at a bfloat16 qt its bfloat16 instance); arguments
+    and result as ``dense_edge_attn_bwd_plain``, plus ``lists =
+    live_columns(adj_dist)``. Scratch: the four numbers per live pair that
+    the dk/dv gather reads, [E, kd + vd + 2H] floats, and per graph v's
+    column sums and the closed-form rows' cotangent sum."""
+    global launches_bwd, launches_bwd_bf16
     *inputs, coeff, g = args
     B, N, H, kd, vd, De, lists = _check_args(*inputs, lists)
     qt = inputs[0]
     dev = qt.device
     f32 = torch.float32
-    build.require(g, "g", (B, N, H * vd), f32, dev)
+    bf16 = qt.dtype == torch.bfloat16
+    build.require(g, "g", (B, N, H * vd), qt.dtype, dev)
     (*inputs, g), lists = _aligned((*inputs, g), lists)
     empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
-    dqt, dk = empty(B, N, H * kd), empty(B, N, H * kd)
-    dv, dds, ddv = empty(B, N, H * vd), empty(B, N, H), empty(B, N, H * vd)
+    act = lambda *shape: torch.empty(shape, dtype=qt.dtype, device=dev)
+    dqt, dk = act(B, N, H * kd), act(B, N, H * kd)
+    dv, dds, ddv = act(B, N, H * vd), empty(B, N, H), act(B, N, H * vd)
     sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
     grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
     if B * N:
-        blocks_fn, fn = _bwd_fns()
-        blocks = blocks_fn(B, N, H, kd, vd, De)
+        blocks_fn, fn = _bwd_fns(bf16)
+        blocks = blocks_fn(B, N, H, kd, vd, De, int(bf16))
         if blocks < 1:
             raise ValueError(f"dense_edge_attn backward kernel: shapes {(H, kd, vd, De)} not "
                              "supported or one tile's pair tensors exceed shared memory")
@@ -237,23 +388,27 @@ def dense_edge_attn_bwd_cuda(*args, lists):
             B, N, H, kd, vd, De, blocks, build.stream_ptr(qt),
         )
         build.check(status, "dense_edge_attn_bwd")
-        launches_bwd += 1
+        if bf16:
+            launches_bwd_bf16 += 1
+        else:
+            launches_bwd += 1
     weights = inputs[7:]
     wgrads = [p.view(w.shape) for p, w in zip(torch.split(grads, sizes), weights)]
     return (dqt, dk, dv, dds, ddv, *wgrads)
 
 
-def residency(N: int, H: int, kd: int, vd: int, De: int) -> dict:
-    """K8's kernel and K8b's pair kernel at these widths: live columns per
-    tile, resident blocks per SM and dynamic shared memory per block (-1
-    blocks: over the card's limit). For reports; launches nothing."""
+def residency(N: int, H: int, kd: int, vd: int, De: int, bf16: bool = False) -> dict:
+    """K8's kernel and K8b's pair kernel at these widths (``bf16``: their
+    bfloat16 instances): live columns per tile, resident blocks per SM and
+    dynamic shared memory per block (-1 blocks: over the card's limit). For
+    reports; launches nothing."""
     out = {}
     for key, lib in (("fwd", "dense_edge_attn"), ("bwd", "dense_edge_attn_bwd")):
         fn = getattr(build.load(lib), f"{lib}_residency")
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
         smem, tile = ctypes.c_int(0), ctypes.c_int(0)
-        per_sm = fn(N, H, kd, vd, De, ctypes.byref(smem), ctypes.byref(tile))
+        per_sm = fn(N, H, kd, vd, De, int(bf16), ctypes.byref(smem), ctypes.byref(tile))
         out[key] = {"tile": tile.value, "blocks_per_sm": per_sm, "smem_bytes": smem.value}
     return out
 

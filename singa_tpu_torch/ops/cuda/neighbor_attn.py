@@ -48,8 +48,7 @@ dw_v, and those sums again; the EdgeMLPs' dh; each slot's dk/dv term
 before the sum over the slots naming a row. dqt, dk, dv and d diag_value
 come out bfloat16, d diag_scores and the weight gradients float32, as in
 JAX. ``neighbor_attn_bf16_plain`` and ``neighbor_attn_bf16_bwd_plain`` are
-their plain twins. K7 and K8 have no bfloat16 instance yet: their wrappers
-refuse bfloat16.
+their plain twins.
 
 K7 replaces ``neighbor_attn_hybrid`` (``_hybrid_pallas_fwd``) and K7b its
 ``_bwd_h``: ``neighbor_attn_hybrid`` gathers ``k_nb``/``v_nb`` [B, N, K, *]
@@ -58,6 +57,17 @@ the Pallas call), and the kernels, K1's and K1b's with their gathered-row
 mode, read each slot's own row. Its Function keeps the inputs only and
 gathers again in backward; K7b sends dk/dv to the node rows over the same
 CSR transpose as K1b, where the TPU kernel used a one-hot transpose.
+
+K7 and K7b have bfloat16 instances too (entry points ``neighbor_attn_hybrid``
+with ``bf16`` set and ``neighbor_attn_hybrid_bwd_bf16``), counted in
+``launches_hybrid_bf16`` and ``launches_bwd_hybrid_bf16``: K1's and K1b's
+bfloat16 kernels in their gathered-row mode. The hybrid Pallas kernel is
+``_attn_fwd_kernel`` with ``gathered=True`` on rows ``_gather_rows``
+gathered at the compute dtype, widened as K1's exact one-hot product widens
+them, and its backward casts the float32 one-hot transpose of the rounded
+dk_nb, dv_nb once: K7·bf16 rounds where K1·bf16 does.
+``neighbor_attn_hybrid_bf16_plain`` and ``neighbor_attn_hybrid_bf16_bwd_plain``
+are their twins, K1's on the gathered rows.
 """
 from __future__ import annotations
 
@@ -76,6 +86,8 @@ launches_hybrid = 0  # K7 launches through ``neighbor_attn_hybrid``
 launches_hybrid_bwd = 0  # K7b launches through ``neighbor_attn_hybrid``
 launches_bf16 = 0  # K1's bfloat16 instance's launches (not in ``launches``)
 launches_bwd_bf16 = 0  # K1b's bfloat16 instance's launches
+launches_hybrid_bf16 = 0  # K7's bfloat16 instance's launches (not in ``launches_hybrid``)
+launches_bwd_hybrid_bf16 = 0  # K7b's bfloat16 instance's launches
 
 
 def _ssp(x: torch.Tensor) -> torch.Tensor:
@@ -119,7 +131,11 @@ def neighbor_attn_plain(
 
 def neighbor_attn_hybrid_plain(*args) -> torch.Tensor:
     """``neighbor_attn_plain`` from the gathered rows k_nb [B, N, K, H*kd]
-    and v_nb [B, N, K, H*vd] in place of k, v and nbr (K7's inputs)."""
+    and v_nb [B, N, K, H*vd] in place of k, v and nbr (K7's inputs). A
+    bfloat16 ``k_nb`` takes the kernel's bfloat16 function
+    (``neighbor_attn_hybrid_bf16_plain``)."""
+    if args[1].dtype == torch.bfloat16:
+        return neighbor_attn_hybrid_bf16_plain(*args)
     return _from_rows(*args)
 
 
@@ -145,20 +161,20 @@ def _from_rows(qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
     return agg.reshape(B, N, H * vd)
 
 
-def _bf16_pairs(qt, k, v, nbr, nbr_mask, dist, diag_scores, centers,
+def _bf16_pairs(qt, k_nb, v_nb, nbr_mask, dist, diag_scores, centers,
                 wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff):
-    """What K1's bfloat16 instance computes per slot, as float32 tensors of
-    bfloat16 values where ``_attn_fwd_kernel`` rounds: the smear ``e``, the
+    """What K1's and K7's bfloat16 instances compute per slot from the
+    slots' rows k_nb, v_nb [B, N, K, *], as float32 tensors of bfloat16
+    values where ``_attn_fwd_kernel`` rounds: the smear ``e``, the
     EdgeMLPs' pre-activations and rounded hiddens, their outputs ``w_k``,
-    ``w_v`` (rounded), the gathered rows, the scores (each ``qt w_k k``
+    ``w_v`` (rounded), the rows widened, the scores (each ``qt w_k k``
     term rounded before the head sum) and the softmax weights over the K
     slots and the self slot (float32)."""
-    dt = k.dtype
-    B, N, HK = qt.shape
-    K = nbr.shape[2]
+    dt = k_nb.dtype
+    B, N, K, HK = k_nb.shape
     H = diag_scores.shape[2]
     kd = HK // H
-    vd = v.shape[2] // H
+    vd = v_nb.shape[3] // H
     diff = dist[..., None] - centers
     e = rounded(-torch.exp(coeff * diff * diff), dt)  # [B, N, K, De]
     pre_k = e @ rounded(wk1, dt) + bk1
@@ -167,8 +183,8 @@ def _bf16_pairs(qt, k, v, nbr, nbr_mask, dist, diag_scores, centers,
     pre_v = e @ rounded(wv1, dt) + bv1
     hid_v = rounded(_ssp(pre_v), dt)
     w_v = rounded(hid_v @ rounded(wv2, dt) + bv2, dt)
-    k_nb = gather_rows(k, nbr).float().reshape(B, N, K, H, kd)
-    v_nb = gather_rows(v, nbr).float().reshape(B, N, K, H, vd)
+    k_nb = k_nb.float().reshape(B, N, K, H, kd)
+    v_nb = v_nb.float().reshape(B, N, K, H, vd)
     q = qt.float().reshape(B, N, 1, H, kd)
     s_off = rounded(q * w_k[:, :, :, None, :] * k_nb, dt).sum(-1) * (1.0 / math.sqrt(kd))
     s_off = torch.where(nbr_mask[..., None], s_off, -1e9)
@@ -189,12 +205,22 @@ def neighbor_attn_bf16_plain(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_va
     the EdgeMLP weights, hiddens and outputs, each score term before the
     head sum, and the softmax weights ``a_off``/``a_diag`` before they
     weigh the values; the aggregate in float32, rounded once."""
-    dt = k.dtype
+    return neighbor_attn_hybrid_bf16_plain(qt, gather_rows(k, nbr), gather_rows(v, nbr), nbr_mask,
+                                           dist, diag_scores, diag_value, centers,
+                                           wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
+
+
+def neighbor_attn_hybrid_bf16_plain(qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
+                                    centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff):
+    """K7's bfloat16 instance in plain PyTorch: ``neighbor_attn_bf16_plain``
+    from the slots' bfloat16 rows k_nb [B, N, K, H*kd], v_nb [B, N, K,
+    H*vd]."""
+    dt = k_nb.dtype
     B, N, _ = qt.shape
-    p = _bf16_pairs(qt, k, v, nbr, nbr_mask, dist, diag_scores, centers,
+    p = _bf16_pairs(qt, k_nb, v_nb, nbr_mask, dist, diag_scores, centers,
                     wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
     H = diag_scores.shape[2]
-    vd = v.shape[2] // H
+    vd = v_nb.shape[3] // H
     a_off, a_diag = rounded(p["a_off"], dt), rounded(p["a_diag"], dt)
     agg = (a_off[..., None] * p["w_v"][:, :, :, None, :] * p["v_nb"]).sum(dim=2)
     agg = agg + a_diag[..., None] * diag_value.float().reshape(B, N, H, vd)
@@ -211,12 +237,23 @@ def neighbor_attn_bf16_bwd_plain(qt, k, v, nbr, nbr_mask, dist, diag_scores, dia
     the EdgeMLPs' dh, and each slot's dk/dv term before the sum over the
     slots that name a row. dqt, dk, dv and d diag_value come out bfloat16,
     d diag_scores and the weight gradients float32."""
-    dt = k.dtype
+    return neighbor_attn_hybrid_bf16_bwd_plain(qt, gather_rows(k, nbr), gather_rows(v, nbr), nbr,
+                                               nbr_mask, dist, diag_scores, diag_value, centers,
+                                               wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff, g)
+
+
+def neighbor_attn_hybrid_bf16_bwd_plain(qt, k_nb, v_nb, nbr, nbr_mask, dist, diag_scores,
+                                        diag_value, centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2,
+                                        bv2, coeff, g):
+    """K7b's bfloat16 instance in plain PyTorch: ``neighbor_attn_bf16_bwd_plain``
+    from the slots' bfloat16 rows k_nb, v_nb; each slot's rounded dk/dv term
+    summed in float32 into the row ``nbr`` names, rounded once."""
+    dt = k_nb.dtype
     B, N, HK = qt.shape
     H = diag_scores.shape[2]
     kd = HK // H
-    vd = v.shape[2] // H
-    p = _bf16_pairs(qt, k, v, nbr, nbr_mask, dist, diag_scores, centers,
+    vd = v_nb.shape[3] // H
+    p = _bf16_pairs(qt, k_nb, v_nb, nbr_mask, dist, diag_scores, centers,
                     wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff)
     w_k, w_v = p["w_k"][:, :, :, None, :], p["w_v"][:, :, :, None, :]  # [B, N, K, 1, d]
     k_nb, v_nb, q = p["k_nb"], p["v_nb"], p["q"]
@@ -270,7 +307,10 @@ def neighbor_attn_hybrid_bwd_plain(*args):
     """K7b's outputs, those of ``neighbor_attn_bwd_plain``, from its inputs:
     ``neighbor_attn_hybrid_plain``'s arguments with ``nbr`` after ``v_nb``,
     then the cotangent ``g``. dk/dv are the gradients of k_nb/v_nb summed
-    into the rows ``nbr`` names."""
+    into the rows ``nbr`` names. A bfloat16 ``k_nb`` takes
+    ``neighbor_attn_hybrid_bf16_bwd_plain``."""
+    if args[1].dtype == torch.bfloat16:
+        return neighbor_attn_hybrid_bf16_bwd_plain(*args)
     *inputs, coeff, g = args
     qt, k_nb, v_nb, nbr, *rest = inputs
     inputs = [qt, k_nb, v_nb, *rest]
@@ -286,13 +326,13 @@ def neighbor_attn_hybrid_bwd_plain(*args):
 
 
 def _fn(hybrid: bool = False):
-    """K1's C entry point (its last int: bf16), or K7's (no nbr pointer, no
-    bf16)."""
+    """K1's C entry point, or K7's (no nbr pointer); the last int of each
+    is bf16."""
     lib = build.load("neighbor_attn")
-    fn = lib.neighbor_attn_hybrid_f32 if hybrid else lib.neighbor_attn
+    fn = lib.neighbor_attn_hybrid if hybrid else lib.neighbor_attn
     fn.argtypes = (
         [ctypes.c_void_p] * (16 if hybrid else 17) + [ctypes.c_float] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * (8 if hybrid else 9) + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     )
     fn.restype = ctypes.c_int
     return fn
@@ -310,7 +350,7 @@ def fwd_instance(K: int, H: int, kd: int, vd: int, De: int) -> str | None:
 
 
 def fwd_residency(hybrid: bool = False, bf16: bool = False) -> dict:
-    """K1's tensor-core tile kernel (K7's with ``hybrid``; K1's bfloat16
+    """K1's tensor-core tile kernel (K7's with ``hybrid``; the bfloat16
     instance with ``bf16``): resident blocks per SM (-1: refused), threads
     and dynamic shared memory per block. For reports; launches nothing."""
     fn = build.load("neighbor_attn").neighbor_attn_residency
@@ -339,7 +379,7 @@ def _bwd_fns(hybrid: bool = False, bf16: bool = False):
 
 
 def bwd_residency(hybrid: bool = False, bf16: bool = False) -> dict:
-    """K1b's tensor-core pair kernel (K7b's with ``hybrid``; K1b's bfloat16
+    """K1b's tensor-core pair kernel (K7b's with ``hybrid``; the bfloat16
     instance with ``bf16``): resident blocks per SM (-1: refused), threads
     and dynamic shared memory per block. For reports; launches nothing."""
     fn = build.load("neighbor_attn_bwd").neighbor_attn_bwd_residency
@@ -355,7 +395,7 @@ def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
     """Device, dtype, shape and contiguity of every kernel argument; returns
     (B, N, K, H, kd, vd, De). ``gathered``: k and v are K7's k_nb/v_nb
     [B, N, K, *]; nbr may then be None. qt, k, v and diag_value are float32,
-    or bfloat16 all four for K1's bfloat16 instance (K7 has none yet)."""
+    or bfloat16 all four for the bfloat16 instance."""
     B, N, HK = qt.shape
     K = nbr_mask.shape[2]
     H = diag_scores.shape[2]
@@ -365,7 +405,7 @@ def _check_args(qt, k, v, nbr, nbr_mask, dist, diag_scores, diag_value,
     dev = qt.device
     f32 = torch.float32
     rows = (B, N, K) if gathered else (B, N)
-    act = torch.bfloat16 if qt.dtype == torch.bfloat16 and not gathered else f32
+    act = torch.bfloat16 if qt.dtype == torch.bfloat16 else f32
     build.require(qt, "qt", (B, N, H * kd), act, dev)
     build.require(k, "k_nb" if gathered else "k", (*rows, H * kd), act, dev)
     build.require(v, "v_nb" if gathered else "v", (*rows, H * vd), act, dev)
@@ -422,18 +462,20 @@ def neighbor_attn_hybrid_cuda(
     centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2, coeff: float,
     cuda_cores: bool = False, stats=None,
 ) -> torch.Tensor:
-    """The K7 kernels; arguments and result as ``neighbor_attn_hybrid_plain``;
-    ``cuda_cores`` and ``stats`` as ``neighbor_attn_cuda``'s."""
+    """The K7 kernels (at a bfloat16 qt, k_nb, v_nb and diag_value its
+    bfloat16 instance); arguments and result as
+    ``neighbor_attn_hybrid_plain``; ``cuda_cores`` and ``stats`` as
+    ``neighbor_attn_cuda``'s."""
     return _fwd_cuda((qt, k_nb, v_nb, nbr_mask, dist, diag_scores, diag_value,
                       centers, wk1, bk1, wk2, bk2, wv1, bv1, wv2, bv2), coeff, True,
                      cuda_cores, stats)
 
 
 def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
-    """K1 (k, v, nbr; at a bfloat16 qt its bfloat16 instance) or K7 (k_nb,
-    v_nb, no nbr): the checks, the output, the scratch, the launch and its
-    count."""
-    global launches, launches_hybrid, launches_bf16
+    """K1 (k, v, nbr) or K7 (k_nb, v_nb, no nbr), at a bfloat16 qt its
+    bfloat16 instance: the checks, the output, the scratch, the launch and
+    its count."""
+    global launches, launches_hybrid, launches_bf16, launches_hybrid_bf16
     if hybrid:
         B, N, K, H, kd, vd, De = _check_args(*args[:3], None, *args[3:], gathered=True)
     else:
@@ -445,17 +487,18 @@ def _fwd_cuda(args, coeff, hybrid: bool, cuda_cores: bool, stats):
     out = torch.empty((B, N, H * vd), dtype=qt.dtype, device=qt.device)
     if B * N == 0:
         return out
-    # K1's bfloat16 instance at a bfloat16 qt (_check_args refuses it for K7)
     bf16 = qt.dtype == torch.bfloat16
     # the dead-weighted rows' unweighted sums (for the rows that copy them), the plan
     sums = torch.empty((B * N, H * vd), dtype=torch.float32, device=qt.device)
     plan = torch.empty(B * N, dtype=torch.int32, device=qt.device)
     status = _fn(hybrid)(*(t.data_ptr() for t in args), float(coeff), out.data_ptr(),
                          sums.data_ptr(), plan.data_ptr(), B, N, K, H, kd, vd, De,
-                         int(cuda_cores), *(() if hybrid else (int(bf16),)),
+                         int(cuda_cores), int(bf16),
                          None if stats is None else stats.data_ptr(), build.stream_ptr(qt))
     build.check(status, "neighbor_attn_hybrid" if hybrid else "neighbor_attn")
-    if hybrid:
+    if hybrid and bf16:
+        launches_hybrid_bf16 += 1
+    elif hybrid:
         launches_hybrid += 1
     elif bf16:
         launches_bf16 += 1
@@ -498,13 +541,16 @@ def neighbor_attn_bwd_cuda(*args, offsets, slots, cuda_cores=False, stats=None):
 
 
 def neighbor_attn_hybrid_bwd_cuda(*args, offsets, slots, cuda_cores=False, stats=None):
-    """The K7b kernels; arguments and result as
-    ``neighbor_attn_hybrid_bwd_plain``, plus ``transpose_slots(nbr)`` as
-    ``offsets`` and ``slots``; ``cuda_cores`` and ``stats`` as
-    ``neighbor_attn_bwd_cuda``'s."""
-    global launches_hybrid_bwd
+    """The K7b kernels (at a bfloat16 qt its bfloat16 instance); arguments
+    and result as ``neighbor_attn_hybrid_bwd_plain``, plus
+    ``transpose_slots(nbr)`` as ``offsets`` and ``slots``; ``cuda_cores``
+    and ``stats`` as ``neighbor_attn_bwd_cuda``'s."""
+    global launches_hybrid_bwd, launches_bwd_hybrid_bf16
     grads = _bwd_cuda(args, offsets, slots, True, cuda_cores, stats)
-    launches_hybrid_bwd += 1
+    if grads[0].dtype == torch.bfloat16:
+        launches_bwd_hybrid_bf16 += 1
+    else:
+        launches_hybrid_bwd += 1
     return grads
 
 
@@ -530,7 +576,7 @@ def _bwd_cuda(args, offsets, slots, hybrid: bool, cuda_cores: bool, stats):
     sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
     grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
     if B * N:
-        # K1b's bfloat16 instance at a bfloat16 qt (_check_args refuses it for K7b)
+        # the bfloat16 instance at a bfloat16 qt
         blocks_fn, fn = _bwd_fns(hybrid, qt.dtype == torch.bfloat16)
         blocks = blocks_fn(B, N, K, H, kd, vd, De, int(cuda_cores))
         if blocks < 1:

@@ -12,8 +12,10 @@ geometry, Adam state and checkpoints float32, network compute bfloat16,
 weight gradients float32). bfloat16 runs where every kernel of the path has
 a bfloat16 instance: the gate FFN (K2/K2b) or the s2 FFN (K4/K4b, at lmax
 1..6 and up to 16 sphere channels), the separable S2 attention (K3/K3b)
-and neighbour-list encoder attention (K1/K1b): ``Config()``'s path and
-``configs/train_corpus.yml``'s. The JAX package's data-parallel mesh is
+and the encoder attention in any of its forms (K1/K1b; K7/K7b under
+``SINGA_TPU_HYBRID_ATTN``, K8/K8b under ``SINGA_TPU_DENSE_ATTN``):
+``Config()``'s path and ``configs/train_corpus.yml``'s, with either
+switch. The JAX package's data-parallel mesh is
 not ported; one process trains on one device.
 
 CLI: python -m singa_tpu_torch.train.loop --data data/corpus --max-iters 2
@@ -78,12 +80,11 @@ def float32_config(cfg: Config) -> Config:
 
 def bf16_blockers(config: Config) -> list[str]:
     """The kernels without a bfloat16 instance (K4/K4b: at the s2 FFN's
-    widths, if their bfloat16 instances do not take them) that training
-    ``config`` runs, with the option or switch that selects each (read now,
-    as the modules read them at every call); empty on the paths that train
-    in bfloat16."""
+    widths, if their bfloat16 instances do not take them; K6/K6b) that
+    training ``config`` runs, with the option or switch that selects each
+    (read now, as the modules read them at every call); empty on the paths
+    that train in bfloat16."""
     from singa_tpu_torch.equivariant.attention import _fused_so2_enabled
-    from singa_tpu_torch.models.neighbor_graph import _dense_attn, _hybrid_attn
 
     emb = config.embedding
     out = []
@@ -94,10 +95,6 @@ def bf16_blockers(config: Config) -> list[str]:
                    "of 4)")
     if _fused_so2_enabled() and emb.mmax == 2 and emb.attn_hidden_channels % 128 == 0:
         out.append("K6/K6b (SINGA_TPU_FUSED_SO2)")
-    if _dense_attn():
-        out.append("K8/K8b (SINGA_TPU_DENSE_ATTN)")
-    elif _hybrid_attn():
-        out.append("K7/K7b (SINGA_TPU_HYBRID_ATTN)")
     return out
 
 

@@ -309,8 +309,10 @@ def test_gan_cli_trains_at_the_configs_bfloat16(tmp_path, capsys, monkeypatch):
     """The GAN CLI on a tiny config file at bfloat16 (``--synthetic --device
     cpu``, one round): it prints the precision line ``training_config``
     gives, keeps bfloat16 in the run's config.yml and logs finite losses;
-    under ``SINGA_TPU_HYBRID_ATTN`` (K7/K7b, no bfloat16 instance) the same
-    file trains in float32 and the line says why."""
+    under ``SINGA_TPU_HYBRID_ATTN`` (K7/K7b) the same file keeps bfloat16;
+    under ``SINGA_TPU_FUSED_SO2`` (K6/K6b, no bfloat16 instance) the file
+    at 128 attention channels (where K6 runs) trains in float32 and the
+    line says why."""
     import json
     import math
 
@@ -331,10 +333,22 @@ def test_gan_cli_trains_at_the_configs_bfloat16(tmp_path, capsys, monkeypatch):
     with open(tmp_path / "bf16" / "metrics.jsonl") as f:
         first = json.loads(f.readline())
     assert all(math.isfinite(first[k]) for k in ("gan/d_loss", "gan/gd_loss", "gan/g_loss"))
-    monkeypatch.setenv("SINGA_TPU_HYBRID_ATTN", "1")
-    main([*common, "--rounds", "0", "--logdir", str(tmp_path / "hybrid")])
+    with monkeypatch.context() as m:
+        m.setenv("SINGA_TPU_HYBRID_ATTN", "1")
+        main([*common, "--rounds", "0", "--logdir", str(tmp_path / "hybrid")])
+        assert f"config: {cfg_path} with train.compute_dtype=bfloat16\n" in capsys.readouterr().out
+        with open(tmp_path / "hybrid" / "config.yml") as f:
+            assert yaml.safe_load(f)["train"]["compute_dtype"] == "bfloat16"
+    so2 = dataclasses.replace(cfg, embedding=dataclasses.replace(cfg.embedding,
+                                                                 attn_hidden_channels=128))
+    so2_path = tmp_path / "tiny_bf16_so2.yml"
+    with open(so2_path, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(dataclasses.asdict(so2))), f)
+    monkeypatch.setenv("SINGA_TPU_FUSED_SO2", "1")
+    main([*common[:1], str(so2_path), *common[2:], "--rounds", "0", "--logdir",
+          str(tmp_path / "so2")])
     line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("config:")][0]
-    assert line.startswith(f"config: {cfg_path} with train.compute_dtype=float32 (")
-    assert "K7/K7b (SINGA_TPU_HYBRID_ATTN)" in line and "ROADMAP, Queue 1 item 2" in line
-    with open(tmp_path / "hybrid" / "config.yml") as f:
+    assert line.startswith(f"config: {so2_path} with train.compute_dtype=float32 (")
+    assert "K6/K6b (SINGA_TPU_FUSED_SO2)" in line and "ROADMAP, Queue 1 item 2" in line
+    with open(tmp_path / "so2" / "config.yml") as f:
         assert yaml.safe_load(f)["train"]["compute_dtype"] == "float32"

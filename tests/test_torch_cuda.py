@@ -124,7 +124,7 @@ def test_neighbor_attn_instance_by_shape(dev):
         res = k1.fwd_residency(hybrid)
         assert res["blocks_per_sm"] == 1 and res["threads"] == 512, res
     assert k1.fwd_residency(bf16=True) == k1.fwd_residency()  # the same tiles and buffers
-    assert k1.fwd_residency(True, bf16=True)["blocks_per_sm"] == -1  # K7 has no bfloat16 instance
+    assert k1.fwd_residency(True, bf16=True) == k1.fwd_residency(True)  # K7's bfloat16 instance
     args = _list_fwd_case(dev, "path")
     B, N, K = args[4].shape
     walked = [torch.zeros(4, dtype=torch.int32, device=dev) for _ in range(2)]
@@ -1271,7 +1271,8 @@ def test_neighbor_attn_bf16_instance_matches_its_twin(dev, case):
     """K1's and K1b's bfloat16 instances (qt, k, v, diag_value and the
     cotangent bfloat16) against ``neighbor_attn_bf16_plain`` and its
     backward, counted in ``launches_bf16`` / ``launches_bwd_bf16`` and not in
-    the float32 counters; K7 refuses bfloat16."""
+    the float32 counters; K7's bfloat16 instance on the same rows gathered
+    is held to the same twin and counted in ``launches_hybrid_bf16``."""
     from singa_tpu_torch.ops.cuda import neighbor_attn as k1
 
     args = _bf16(_list_bwd_case(dev, case), (0, 1, 2, 7, 18))
@@ -1284,8 +1285,10 @@ def test_neighbor_attn_bf16_instance_matches_its_twin(dev, case):
     _check_bf16(grads, k1.neighbor_attn_bwd_plain(*args), BWD_NAMES)
     assert (k1.launches, k1.launches_bwd, k1.launches_bf16, k1.launches_bwd_bf16) == (
         n[0], n[1], n[2] + 1, n[3] + 1)
-    with pytest.raises(ValueError, match="dtype"):
-        k1.neighbor_attn_hybrid_cuda(*_as_hybrid(fwd)[:3], *fwd[4:], coeff)
+    m = (k1.launches_hybrid, k1.launches_hybrid_bf16)
+    got = k1.neighbor_attn_hybrid_cuda(*_as_hybrid(fwd)[:3], *fwd[4:], coeff)
+    _check_bf16([got], [k1.neighbor_attn_plain(*fwd, coeff)], ["out"])
+    assert (k1.launches_hybrid, k1.launches_hybrid_bf16) == (m[0], m[1] + 1)
 
 
 @pytest.mark.cuda
@@ -2234,3 +2237,118 @@ def test_kernels_take_misaligned_inputs(dev, form):
         names = ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"]
     _check(got, want)
     _check_grads(grads, want_g, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,knn,ring,pad", [(*c, None) for c in ENCODER_FORM_CASES]
+                         + [(4, 384, 48, 110, 150), (2, 64, 0, 0, "redo"),
+                            (4, 384, 0, 0, "copies")])
+def test_neighbor_attn_hybrid_bf16_instance_matches_its_twin(dev, B, N, knn, ring, pad):
+    """K7's and K7b's bfloat16 instances (qt, k_nb, v_nb, diag_value and the
+    cotangent bfloat16) against their bfloat16 twins on the hybrid cases
+    (an overflow row and padded nodes; the main path's shapes with padded
+    rows and zero cotangents on them; a live row taken again whole; the
+    padded rows as copies): the tensor-core kernels at bfloat16 at the
+    encoder's widths, the CUDA-core ones under ``cuda_cores=True``; counted
+    in ``launches_hybrid_bf16`` / ``launches_bwd_hybrid_bf16``, the float32
+    counters untouched."""
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k7
+
+    if pad in ("redo", "copies"):
+        bwd_args = _as_hybrid(_list_bwd_case(dev, "redo") if pad == "redo" else _copies_case(dev))
+        nbr = bwd_args[3]
+    elif pad is None:
+        args, _, g, nbr = _hub_graph(dev, B, N, knn, ring, 107 + N)
+        bwd_args = [*args[:3], nbr, *args[3:], g]
+    else:
+        _, bwd_args, nbr = _graph_list_case(dev, B, N, knn, ring, 163 + B, pad)
+    bwd_args = _bf16(bwd_args, (0, 1, 2, 7, 18))
+    args = [*bwd_args[:3], *bwd_args[4:-1]]
+    offsets, slots = k7.transpose_slots(nbr)
+    want, want_g = k7.neighbor_attn_hybrid_plain(*args), k7.neighbor_attn_hybrid_bwd_plain(*bwd_args)
+    assert want.dtype == want_g[0].dtype == torch.bfloat16
+    for cuda_cores in (False, True):
+        f32 = (k7.launches, k7.launches_bwd, k7.launches_hybrid, k7.launches_hybrid_bwd)
+        n = (k7.launches_hybrid_bf16, k7.launches_bwd_hybrid_bf16)
+        got, names, calls = _kernels_run(
+            lambda: k7.neighbor_attn_hybrid_cuda(*args, cuda_cores=cuda_cores))
+        grads, names_b, calls_b = _kernels_run(lambda: k7.neighbor_attn_hybrid_bwd_cuda(
+            *bwd_args, offsets=offsets, slots=slots, cuda_cores=cuda_cores))
+        _check_bf16([got], [want], ["out"])
+        _check_bf16(grads, want_g, BWD_NAMES)
+        assert (k7.launches_hybrid_bf16, k7.launches_bwd_hybrid_bf16) == (n[0] + calls,
+                                                                           n[1] + calls_b)
+        assert (k7.launches, k7.launches_bwd, k7.launches_hybrid, k7.launches_hybrid_bwd) == f32
+        fwd_k = [m for m in names if "list_fwd_tile_kernel" in m or "attn_fwd_kernel" in m]
+        bwd_k = [m for m in names_b if "list_bwd_pair_kernel" in m or "list_bwd_cc_kernel" in m]
+        assert len(fwd_k) == len(bwd_k) == 1, (names, names_b)
+        assert "bfloat16" in fwd_k[0] and "bfloat16" in bwd_k[0], (fwd_k, bwd_k)
+        assert ("attn_fwd_kernel" in fwd_k[0]) == cuda_cores, fwd_k
+        assert ("list_bwd_cc_kernel" in bwd_k[0]) == cuda_cores, bwd_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,knn,ring,pad", DENSE_CASES)
+def test_dense_edge_attn_bf16_instance_matches_its_twin(dev, B, N, knn, ring, pad):
+    """K8's and K8b's bfloat16 instances (qt, k, v, diag_value and the
+    cotangent bfloat16) against ``dense_edge_attn_bf16_plain`` and its
+    backward on K8's cases (an overflow row over a tile, padded rows in
+    closed form, an isolated real row, an all-padded graph): their kernels
+    at bfloat16 storage, counted in ``launches_bf16`` / ``launches_bwd_bf16``,
+    the float32 counters untouched; their residency that of the float32
+    kernels (the same shared memory: every buffer float32)."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    _, args, g, _ = _hub_graph(dev, B, N, knn, ring, 109 + N, pad)
+    args = _bf16(args, (0, 1, 2, 5))
+    g = g.to(torch.bfloat16)
+    lists = k8.live_columns(args[3])
+    want, want_g = k8.dense_edge_attn_plain(*args), k8.dense_edge_attn_bwd_plain(*args, g)
+    assert want.dtype == want_g[0].dtype == torch.bfloat16
+    f32 = (k8.launches, k8.launches_bwd)
+    n = (k8.launches_bf16, k8.launches_bwd_bf16)
+    got, names, calls = _kernels_run(lambda: k8.dense_edge_attn_cuda(*args, lists=lists))
+    grads, names_b, calls_b = _kernels_run(lambda: k8.dense_edge_attn_bwd_cuda(*args, g,
+                                                                               lists=lists))
+    _check_bf16([got], [want], ["out"])
+    _check_bf16(grads, want_g, BWD_NAMES)
+    assert (k8.launches_bf16, k8.launches_bwd_bf16) == (n[0] + calls, n[1] + calls_b)
+    assert (k8.launches, k8.launches_bwd) == f32
+    for kernel, ran in (("attn_fwd_kernel", names), ("attn_bwd_pair_kernel", names_b),
+                        ("csr_dkdv_kernel", names_b)):
+        hits = [m for m in ran if kernel in m]
+        assert len(hits) == 1 and "bfloat16" in hits[0], (kernel, ran)
+    res, res16 = k8.residency(N, 4, 32, 64, 64), k8.residency(N, 4, 32, 64, 64, bf16=True)
+    for key in ("fwd", "bwd"):
+        assert res16[key]["smem_bytes"] == res[key]["smem_bytes"] and res16[key]["tile"] == res[
+            key]["tile"] and res16[key]["blocks_per_sm"] >= 1, (res, res16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["k7", "k8"])
+def test_bf16_forms_take_misaligned_inputs(dev, form):
+    """K7's, K7b's, K8's and K8b's bfloat16 instances given every tensor
+    input as a contiguous view at a 2-byte offset run through the wrappers'
+    aligned copies and match their twins on the aligned inputs."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+    from singa_tpu_torch.ops.cuda import neighbor_attn as k7
+
+    mis = lambda args: [_misaligned(a) for a in args]
+    if form == "k7":
+        bwd_args = _bf16(_as_hybrid(_list_bwd_case(dev, "random_k24")), (0, 1, 2, 7, 18))
+        offsets, slots = k7.transpose_slots(bwd_args[3])
+        args = [*bwd_args[:3], *bwd_args[4:-1]]
+        got = k7.neighbor_attn_hybrid_cuda(*mis(args))
+        grads = k7.neighbor_attn_hybrid_bwd_cuda(*mis(bwd_args), offsets=_misaligned(offsets),
+                                                 slots=_misaligned(slots))
+        want, want_g = k7.neighbor_attn_hybrid_plain(*args), k7.neighbor_attn_hybrid_bwd_plain(
+            *bwd_args)
+    else:
+        _, args, g, _ = _hub_graph(dev, 2, 100, 6, 20, 209)
+        args, g = _bf16(args, (0, 1, 2, 5)), g.to(torch.bfloat16)
+        lists = k8.DenseLists(*mis(k8.live_columns(args[3])))
+        got = k8.dense_edge_attn_cuda(*mis(args), lists=lists)
+        grads = k8.dense_edge_attn_bwd_cuda(*mis(args), _misaligned(g), lists=lists)
+        want, want_g = k8.dense_edge_attn_plain(*args), k8.dense_edge_attn_bwd_plain(*args, g)
+    _check_bf16([got], [want], ["out"])
+    _check_bf16(grads, want_g, BWD_NAMES)

@@ -223,9 +223,10 @@ def test_refusals_of_a_missing_card_and_of_bfloat16(monkeypatch, tmp_path):
     """A card asked for where there is none is refused. bfloat16, the JAX
     default and configs/gan_recipe.yml's, is the GAN's precision wherever
     the generator's path has bfloat16 kernels: GANTrainer takes Config()
-    and the recipe as they are, and refuses bfloat16 (naming ROADMAP) only
-    where a switch selects a kernel without a bfloat16 instance, and
-    float16."""
+    and the recipe as they are, and with either encoder attention switch
+    (K7/K7b, K8/K8b), and refuses bfloat16 (naming ROADMAP) only where a
+    switch selects a kernel without a bfloat16 instance
+    (SINGA_TPU_FUSED_SO2: K6/K6b), and float16."""
     from singa_tpu_torch.config import Config, load_config
     from singa_tpu_torch.train.gan import GANTrainer, main
 
@@ -236,7 +237,12 @@ def test_refusals_of_a_missing_card_and_of_bfloat16(monkeypatch, tmp_path):
     for cfg in (Config(), recipe):
         assert cfg.train.compute_dtype == "bfloat16"
         assert GANTrainer(cfg).config is cfg
-    for var, kernels in (("SINGA_TPU_HYBRID_ATTN", "K7/K7b"), ("SINGA_TPU_DENSE_ATTN", "K8/K8b")):
+    for var in ("SINGA_TPU_HYBRID_ATTN", "SINGA_TPU_DENSE_ATTN"):
+        with monkeypatch.context() as m:
+            m.setenv(var, "1")
+            for cfg in (Config(), recipe):
+                assert GANTrainer(cfg).config is cfg
+    for var, kernels in (("SINGA_TPU_FUSED_SO2", "K6/K6b"),):
         with monkeypatch.context() as m:
             m.setenv(var, "1")
             with pytest.raises(ValueError, match="float32 only") as refused:

@@ -255,7 +255,7 @@ def test_trainer_refuses_the_corpus_config_unless_made_float32(monkeypatch, tmp_
     assert cfg.train.compute_dtype == "bfloat16"
     assert training_config(cfg) == (cfg, "train.compute_dtype=bfloat16")
     assert Trainer(cfg, logdir=str(tmp_path / "bf16"), device="cpu").config is cfg
-    monkeypatch.setenv("SINGA_TPU_HYBRID_ATTN", "1")
+    monkeypatch.setenv("SINGA_TPU_FUSED_SO2", "1")  # K6/K6b: no bfloat16 instance
     with pytest.raises(ValueError, match="float32 only"):
         Trainer(cfg, logdir=str(tmp_path / "refused"), device="cpu")
     f32 = float32_config(cfg)
