@@ -53,9 +53,8 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
               encode_pocket (K1 = 6, K2 = 3, K3 = 3, K4 = 0), encode_ms /
               decode_ms, molecules/s, finite scores, a few SMILES
      profile  torch.profiler over one encode_pocket and the first 40 decode
-              steps: device busy time (kernels, copies and sets; the spans
-              of user annotations apart, ``annotation_ms``), idle share,
-              the costliest kernels
+              steps: device busy time (kernels, copies and sets; the CUDA
+              activity alone is traced), idle share, the costliest kernels
   5. vs_cpu   encode_pocket on the card (kernels) vs on the CPU (plain
               versions) with the same weights, 2 pockets
   6. cli      generate.main(... --device cuda) on one pocket writes its CSV
@@ -186,7 +185,19 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      profile, and the fused encode against the unfused one on the card
      under CPU_TOL), vs_cpu_so2, then the training phases as in 8-11 with
      suffix _so2 (batch 64 as 2 x 32; per step K1 = K1b = K2 = K2b = K6 =
-     K6b = 12, K3 = K3b = 0; train_cli_so2's generation launches K6 = 3)
+     K6b = 12, K3 = K3b = 0; train_cli_so2's generation launches K6 = 3);
+     then configs/train.yml at its own bfloat16 under the switch (suffix
+     _so2_bf16; batch 64 as 2 x 32, BF16_WARMUP + BF16_STEPS steps, no
+     _vs_cpu): kernel_train / kernel_bwd (K6·bf16 and K6b·bf16 at every
+     distinct call of a microbatch, each held to its bfloat16 twin within
+     BF16_TOL, bound at the bfloat16 rate and ``bound_tc_ms`` at one TF32
+     product), train (per step 12 of each of K1·bf16, K2·bf16, K1b·bf16,
+     K2b·bf16, K6·bf16 and K6b·bf16, every float32 count 0, K3 and K3b
+     0), train_profile (``k6_bf16_kernels``: the weights' rounding, the
+     rotation and the grid at bfloat16 24 a step, the backward rotation and
+     grid 12, the GEMM on bfloat16 operands, their float32 instances 0;
+     ``so2_gemm``) and train_cli (``--config configs/train.yml``, the switch
+     set); train_so2_bf16_vs_f32 sets its step beside train_so2's
  14. the default Config with SINGA_TPU_HYBRID_ATTN set for these phases
      only, then with SINGA_TPU_DENSE_ATTN set (every phase before runs with
      both unset and asserts K7 = K7b = K8 = K8b = 0): kernel_hybrid /
@@ -220,9 +231,11 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      beside its float32 one; train_vs_cpu_bf16: configs/train.yml cut to
      lmax 2, a bfloat16 training step's loss and every gradient on the card
      against the CPU (2 complexes, the same seeded weights) under no switch,
-     the hybrid switch and the dense switch: the gradients' L2 difference
-     within GAN_BF16_CPU_TOL of their L2 norm, the loss within
-     GAN_BF16_LOSS_TOL
+     the hybrid switch, the dense switch and SINGA_TPU_FUSED_SO2 (``so2``:
+     K6·bf16, K6b·bf16), and configs/train_corpus.yml cut the same way
+     (``s2``: K4·bf16, K4b·bf16): the gradients' L2 difference within
+     GAN_BF16_CPU_TOL of their L2 norm, the loss within GAN_BF16_LOSS_TOL,
+     and the form's bfloat16 kernels launched on the card
  15. the adversarial fine-tuning path under configs/gan_recipe.yml (lmax 4,
      gate FFN), first at its own bfloat16 as a user runs it (suffix _bf16:
      gan_bf16 with 3 rounds and the --vina-eval report below, every launch
@@ -260,12 +273,12 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
 then a ``total`` line (the script's seconds so far), the card's name and
 power limit as nvidia-smi prints them, the kernels line and
 ``{"ok": true, "device": {...}}`` last. The kernels line lists all sixteen
-kernels and their twelve bfloat16 instances: ``launches`` counted over the training run of the kernel's path
+kernels and their fourteen bfloat16 instances: ``launches`` counted over the training run of the kernel's path
 (K1-K3, K1b-K3b: train; K4, K4b: train_s2; K6, K6b: train_so2; K7, K7b:
 train_hybrid; K8, K8b: train_dense; K5, K5b: none, 0, with ``"path":
 null``; the bfloat16 instances: K1-K3b's train_bf16, K4's and K4b's
 train_s2_bf16, K7's and K7b's train_hybrid_bf16, K8's and K8b's
-train_dense_bf16); ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over one
+train_dense_bf16, K6's and K6b's train_so2_bf16); ``ms``, ``plain_ms`` and ``bound_ms`` the means per launch over one
 microbatch's calls (kernel_train / kernel_bwd and their twins, each distinct
 call weighted by how often the microbatch makes it; K5/K5b: kernel_s2act's
 two calls), ``max_abs_err`` the largest over those calls. K7's times are
@@ -317,15 +330,18 @@ bfloat16, 12 launches a step of each bfloat16 instance, every float32
 count 0; and the _s2_bf16 phases, configs/train_corpus.yml at its own
 bfloat16, 6 a step of K1, K3, K1b, K3b, K4 and K4b's) hold each instance
 to its bfloat16 twin within ``BF16_TOL`` of each output's largest (and the
-_hybrid_bf16 and _dense_bf16 phases K7's, K7b's, K8's and K8b's). K8·bf16
+_hybrid_bf16, _dense_bf16 and _so2_bf16 phases K7's, K7b's, K8's, K8b's,
+K6's and K6b's). K8·bf16
 and K8b·bf16 run K8's and K8b's CUDA-core kernels at bfloat16 storage (the
 kernels line: ptxas from the build's ``dense_ptxas``, residency at the
-microbatch's widths). The other ten bfloat16 instances run
+microbatch's widths). The other twelve bfloat16 instances run
 their tensor-core kernels at bfloat16 storage, one TF32 product for each
 product of two bfloat16 values (exact in float32): their lines carry
 ``bound_tc_ms`` at that one product (``tf32_products``) and
 ``cuda_cores`` (K1-K3b: their CUDA-core instances at the same call, held to the
-twin the same way; K4 and K4b have none at bfloat16; K1's, K7's, K1b's and K7b's
+twin the same way; K4, K4b, K6 and K6b have none at bfloat16; K6's and
+K6b's kernels line the ptxas of their bfloat16 stages, ``k6_bf16_ptxas`` in
+the build line, and their GEMM's residency; K1's, K7's, K1b's and K7b's
 also ``walks``, K1's and K7's
 ``bound_live_only_ms``), the kernels line their ``cuda_cores_ms``, ptxas
 and residency (``k1_bf16_ptxas`` and ``k1b_bf16_ptxas``: K1's and K7's
@@ -440,6 +456,17 @@ K7_F32 = ("list_fwd_tile_kernel<1, float>", "list_bwd_pair_kernel<1, float>")
 K8_BF16_KERNELS = ("attn_fwd_kernel<2, .*bfloat16", "attn_bwd_pair_kernel<2, .*bfloat16",
                    "csr_dkdv_kernel<2, .*bfloat16")
 K8_F32 = ("attn_fwd_kernel<2, float>", "attn_bwd_pair_kernel<2, float>")
+# K6's and K6b's bfloat16 kernels in a profile (csrc/so2_chain.cuh at T =
+# bf16): the weights' rounding, the rotation and the grid, once a K6·bf16
+# and once a K6b·bf16 call (the backward recomputes the forward to mid);
+# K6b·bf16's backward rotation and grid, once a K6b·bf16 call; the GEMM on
+# bfloat16 operands. K6_F32 their float32 instances, which the bfloat16
+# path must not run
+K6_BF16_KERNELS = ("round_weights_kernel", r"so2::rotate_fwd_kernel<__nv_bfloat16>",
+                   r"so2::grid_fwd_kernel<__nv_bfloat16>", r"so2::rotate_bwd_kernel<__nv_bfloat16>",
+                   r"so2::grid_bwd_kernel<__nv_bfloat16>", r"so2::gemm_kernel<.*Bf16In")
+K6_F32 = (r"so2::gemm_kernel<\w+, \w+, \w+, float>", "so2::rotate_fwd_kernel<float>",
+          "so2::rotate_bwd_kernel<float>")
 # K2's kernels in a profile (csrc/so3_gate_ffn.cu): the tensor-core kernel and
 # the split of its weights, two launches for each K2 call; K2_CC its
 # CUDA-core instance
@@ -511,14 +538,15 @@ def device_profile(fn, match=(), mods=None, expect=None) -> dict:
     """Device time of fn() by kernel under torch.profiler, beside the wall
     time of the same call unprofiled. The device's busy time is the sum of
     its kernels' times, memory copies and sets among them (one stream, so
-    they do not overlap). The profiler also lists user annotations as device
-    events (a ``record_function`` range's span on the card, such as
+    they do not overlap). The profiler traces the CUDA activity alone (the
+    host side's events, which nothing here reads, made ``key_averages``
+    several times slower on a training step). User annotations among the
+    device events (a ``record_function`` range's span on the card, such as
     ``Optimizer.step#Adam.step``, which covers kernels counted already and
-    the gaps between them): they are left out, told apart by
-    ``FunctionEventAvg.is_user_annotation`` (PyTorch 2.4 on; the card's
-    PyTorch is 2.11), and their spans' sum is reported apart
-    (``annotation_ms``). The idle share is the rest of the unprofiled wall
-    time. ``match``: names (regular expressions); for each, the device time
+    the gaps between them), should any appear, are left out, told apart by
+    ``FunctionEventAvg.is_user_annotation``, their spans' sum reported
+    apart (``annotation_ms``). The idle share is the rest of the
+    unprofiled wall time. ``match``: names (regular expressions); for each, the device time
     and launches of the kernels whose name it matches (``re.search``).
 
     ``expect(rise)`` (with ``mods``, the kernel modules): from the launch
@@ -541,7 +569,7 @@ def device_profile(fn, match=(), mods=None, expect=None) -> dict:
     for _ in range(PROFILE_TRIES if expect is not None else 1):
         if expect is not None:
             zero_counts(mods)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         device = [e for e in prof.key_averages()
@@ -1341,7 +1369,12 @@ HYBRID_BF16_PATH = [bf16_instance(K7, True, list_fwd_report),
 K7_BF16, K7B_BF16 = HYBRID_BF16_PATH
 DENSE_BF16_PATH = [bf16_instance(K8), bf16_instance(K8B)]
 K8_BF16, K8B_BF16 = DENSE_BF16_PATH
-KERNELS += BF16_PATH + S2_BF16_PATH + HYBRID_BF16_PATH + DENSE_BF16_PATH
+# configs/train.yml's under SINGA_TPU_FUSED_SO2 (K6's and K6b's stages at
+# bfloat16, the GEMM one TF32 product a product); K1, K2, K1b and K2b as in
+# BF16_PATH
+SO2_BF16_PATH = [bf16_instance(K6, True), bf16_instance(K6B, True)]
+K6_BF16, K6B_BF16 = SO2_BF16_PATH
+KERNELS += BF16_PATH + S2_BF16_PATH + HYBRID_BF16_PATH + DENSE_BF16_PATH + SO2_BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
 S2_PATH = [K4, K4B]  # held at configs/train_corpus.yml's
 SO2_PATH = [K6, K6B]  # held at the default Config's, with SINGA_TPU_FUSED_SO2 set
@@ -1413,7 +1446,8 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
         got, want = as_tuple(launch(*args, **kw)), as_tuple(plain(*args))
         torch.cuda.synchronize()
         if spec.tol is not None:  # a bfloat16 instance: each output within its tolerance
-            names = spec.outs or ("out",) * len(got)
+            names = spec.outs or (("out",) if len(got) == 1 else
+                                  tuple(f"out{i}" for i in range(len(got))))
             errs = {o: [(a.float() - b.float()).abs().max().item(), b.float().abs().max().item(),
                         (a != b).float().mean().item(), str(a.dtype).replace("torch.", "")]
                     for o, a, b in zip(names, got, want)}
@@ -1661,46 +1695,58 @@ def train_vs_cpu(dev, cfg, val_files, suffix: str) -> None:
         raise AssertionError("the card's training step disagrees with the CPU's or its own")
 
 
-def train_vs_cpu_bf16(dev, cfg, val_files) -> None:
+def train_vs_cpu_bf16(dev, cfg, s2_cfg, val_files) -> None:
     """train_vs_cpu_bf16: ``cfg`` (configs/train.yml) cut to lmax 2, one
     bfloat16 training step's loss and every gradient on the card (kernels)
     against the CPU (plain twins), 2 complexes, the same seeded weights,
-    under no switch (K1·bf16), SINGA_TPU_HYBRID_ATTN (K7·bf16) and
-    SINGA_TPU_DENSE_ATTN (K8·bf16). Both sides round at the same points and
-    sum in other orders, so a value near a rounding boundary lands a
-    bfloat16 step apart and carries on: the gradients' L2 difference over
-    their L2 norm within GAN_BF16_CPU_TOL, the loss within
-    GAN_BF16_LOSS_TOL (gan_vs_cpu_bf16's), ``grad_report`` at that
-    tolerance reported."""
+    under no switch (K1·bf16), SINGA_TPU_HYBRID_ATTN (K7·bf16),
+    SINGA_TPU_DENSE_ATTN (K8·bf16) and SINGA_TPU_FUSED_SO2 (K6·bf16, form
+    ``so2``); and ``s2_cfg`` (configs/train_corpus.yml) cut to lmax 2 (K4·bf16,
+    form ``s2``). Both sides round at the same points and sum in other
+    orders, so a value near a rounding boundary lands a bfloat16 step apart
+    and carries on: the gradients' L2 difference over their L2 norm within
+    GAN_BF16_CPU_TOL, the loss within GAN_BF16_LOSS_TOL (gan_vs_cpu_bf16's),
+    ``grad_report`` at that tolerance reported; the card's step must launch
+    the form's bfloat16 kernels (``launches``, their forward and backward
+    counts)."""
     from singa_tpu_torch.data.batch import load_npz
     from singa_tpu_torch.dtypes import compute_dtype_scope
     from singa_tpu_torch.models.singa import SINGA, cross_entropy_loss
 
-    cfg = tiny_gan_config(cfg)
+    mods = kernel_modules()
     small = load_npz(val_files[:2])
     lines = {}
-    for form, var in (("neighbor", None), ("hybrid", HYBRID_ATTN), ("dense", DENSE_ATTN)):
+    for form, var, c, kernels in (("neighbor", None, cfg, (K1_BF16, K1B_BF16)),
+                                  ("hybrid", HYBRID_ATTN, cfg, HYBRID_BF16_PATH),
+                                  ("dense", DENSE_ATTN, cfg, DENSE_BF16_PATH),
+                                  ("so2", FUSED_SO2, cfg, SO2_BF16_PATH),
+                                  ("s2", None, s2_cfg, S2_BF16_PATH)):
+        c = tiny_gan_config(c)
         runs = {}
         with switched(var) if var else contextlib.nullcontext():
             for run, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-                model = SINGA(cfg, device=d, seed=cfg.train.seed)
+                model = SINGA(c, device=d, seed=c.train.seed)
                 b = small.to(d)
+                zero_counts(mods)
                 with compute_dtype_scope("bfloat16"):
                     loss = cross_entropy_loss(model(b), b.tokens.target)
                     loss.backward()
-                runs[run] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+                runs[run] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                             read_counts(mods))
                 del model, loss, b
         torch.cuda.empty_cache()
-        (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+        (l_gpu, g_gpu, counts), (l_cpu, g_cpu, _) = runs["cuda"], runs["cpu"]
         cat = lambda g: torch.cat([g[n].double().flatten() for n in sorted(g_cpu)])
         l2 = ((cat(g_gpu) - cat(g_cpu)).norm() / cat(g_cpu).norm()).item()
-        ok = l2 <= GAN_BF16_CPU_TOL and abs(l_gpu - l_cpu) <= GAN_BF16_LOSS_TOL * abs(l_cpu)
-        lines[form] = {"loss_cuda": l_gpu, "loss_cpu": l_cpu, "l2_of_all": l2,
+        launched = {k.name: counts[k.name] for k in kernels}
+        ok = (l2 <= GAN_BF16_CPU_TOL and abs(l_gpu - l_cpu) <= GAN_BF16_LOSS_TOL * abs(l_cpu)
+              and all(launched.values()))
+        lines[form] = {"ffn_activation": c.embedding.ffn_activation, "loss_cuda": l_gpu,
+                       "loss_cpu": l_cpu, "l2_of_all": l2, "launches": launched,
                        "grads": grad_report(g_gpu, g_cpu, GAN_BF16_CPU_TOL), "ok": ok}
     ok = all(line["ok"] for line in lines.values())
-    emit({"phase": "train_vs_cpu_bf16", "compute_dtype": "bfloat16", "lmax": cfg.embedding.lmax,
-          "complexes": 2, "tolerance": GAN_BF16_CPU_TOL, "loss_tolerance": GAN_BF16_LOSS_TOL,
-          **lines, "ok": ok})
+    emit({"phase": "train_vs_cpu_bf16", "compute_dtype": "bfloat16", "lmax": 2, "complexes": 2,
+          "tolerance": GAN_BF16_CPU_TOL, "loss_tolerance": GAN_BF16_LOSS_TOL, **lines, "ok": ok})
     if not ok:
         raise AssertionError("train_vs_cpu_bf16: the card's bfloat16 step disagrees with the CPU's")
 
@@ -1753,11 +1799,12 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         results.update(hold_all([k for k in specs if k.outs], mods, captured,
                                 f"kernel_bwd{suffix}", "calls_per_microbatch", path))
         gemm_flops = None  # so2_chain.cuh's GEMM operations per optimizer step
-        if K6 in specs:
-            micro_per_step = cfg.train.batch_size // micro_size
-            gemm_flops = micro_per_step * sum(
-                calls * spec.split_flops(args) for spec in (K6, K6B)
-                for args, _, calls in captured[f"{spec.fn}_cuda"].values())
+        for pair in ((K6, K6B), (K6_BF16, K6B_BF16)):
+            if pair[0] in specs:
+                micro_per_step = cfg.train.batch_size // micro_size
+                gemm_flops = micro_per_step * sum(
+                    calls * spec.split_flops(args) for spec in pair
+                    for args, _, calls in captured[f"{spec.fn}_cuda"].values())
         path_instances(specs, mods, captured, results)
         del captured, micro
 
@@ -1828,14 +1875,17 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                 (K7_BF16_KERNELS[:1], (K7_BF16,), K7_F32[0]),
                 (K7_BF16_KERNELS[1:], (K7B_BF16,), K7_F32[1]),
                 (K8_BF16_KERNELS[:1], (K8_BF16,), K8_F32[0]),
-                (K8_BF16_KERNELS[1:], (K8B_BF16,), K8_F32[1])]
+                (K8_BF16_KERNELS[1:], (K8B_BF16,), K8_F32[1]),
+                (K6_BF16_KERNELS[:3], (K6_BF16, K6B_BF16), K6_F32[0]),
+                (K6_BF16_KERNELS[3:5], (K6B_BF16,), K6_F32[2])]
         once = [(tcs, specs, cc) for tcs, specs, cc in once
                 if sum(per_step.get(k.name, 0) for k in specs)]
-        # the bfloat16 instances of K7/K7b and K8/K8b by name, their float32
-        # instances beside them
+        # the bfloat16 instances of K7/K7b, K8/K8b and K6/K6b by name, their
+        # float32 instances beside them
         forms_bf16 = {key: names for key, names, spec in (
             ("k7_bf16_kernels", (*K7_BF16_KERNELS, *K7_F32), K7_BF16),
-            ("k8_bf16_kernels", (*K8_BF16_KERNELS, *K8_F32), K8_BF16)) if per_step.get(spec.name)}
+            ("k8_bf16_kernels", (*K8_BF16_KERNELS, *K8_F32), K8_BF16),
+            ("k6_bf16_kernels", (*K6_BF16_KERNELS, *K6_F32), K6_BF16)) if per_step.get(spec.name)}
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
                                   (SO2_GEMM,) * (gemm_flops is not None)
@@ -2857,8 +2907,14 @@ def main() -> int:
     k5_ptxas = {k: v for k, v in ptxas_report(logs["s2_act"]).items()
                 if "s2_silu_tc_kernel" in k or "s2_silu_bwd_tc_kernel" in k
                 or "s2_silu_kernel" in k}
-    gemm_ptxas = {n: {k: v for k, v in ptxas_report(logs[n]).items() if "gemm_kernel" in k}
-                  for n in ("so2_attn", "so2_attn_bwd")}
+    # K6's and K6b's GEMM kernels (float32), and (bf16) their bfloat16
+    # stages: the GEMM on bfloat16 operands, the rotation, the grid, the
+    # weights' rounding
+    so2_all = {n: ptxas_report(logs[n]) for n in ("so2_attn", "so2_attn_bwd")}
+    is_bf16 = lambda k: "Bf16In" in k or "bfloat16" in k or "round_weights" in k
+    gemm_ptxas = {n: {k: v for k, v in r.items() if "gemm_kernel" in k and not is_bf16(k)}
+                  for n, r in so2_all.items()}
+    k6_bf16_ptxas = {n: {k: v for k, v in r.items() if is_bf16(k)} for n, r in so2_all.items()}
     # the pair kernels of K1b (form 0: ILi0E) and of K7b (form 1: ILi1E):
     # tensor cores (list_bwd_pair_kernel) and CUDA cores (list_bwd_cc_kernel)
     k1b_all = {k: v for k, v in ptxas_report(logs["neighbor_attn_bwd"]).items()
@@ -2887,7 +2943,7 @@ def main() -> int:
           "k1b_bf16_ptxas": k1b_bf16_ptxas, "k2b_bf16_ptxas": k2b_bf16_ptxas,
           "k1_bf16_ptxas": k1_bf16_ptxas, "k2_bf16_ptxas": k2_bf16_ptxas,
           "k3_bf16_ptxas": k3_bf16_ptxas, "k4_bf16_ptxas": k4_bf16_ptxas,
-          "k4b_bf16_ptxas": k4b_bf16_ptxas})
+          "k4b_bf16_ptxas": k4b_bf16_ptxas, "k6_bf16_ptxas": k6_bf16_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -3019,8 +3075,22 @@ def main() -> int:
                   "bfloat16 step at one TF32 product a product"})
     torch.cuda.empty_cache()
     with switched(FUSED_SO2):
-        train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
-                     {k.name: 12 for k in (K1, K2, K1B, K2B, K6, K6B)}, [], SO2_WARMUP, SO2_STEPS)
+        so2_step = train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
+                                {k.name: 12 for k in (K1, K2, K1B, K2B, K6, K6B)}, [],
+                                SO2_WARMUP, SO2_STEPS)
+    torch.cuda.empty_cache()
+    # train_so2_bf16: configs/train.yml at its own bfloat16 under the switch,
+    # through the bfloat16 instances only (every float32 count 0, K3 and K3b
+    # 0): K6·bf16 and K6b·bf16 held at every distinct call of a microbatch
+    with switched(FUSED_SO2):
+        so2_bf16_step = train_phases(
+            dev, results, files, bf16_cfg, "_so2_bf16", SO2_BF16_PATH,
+            {k.name: 12 for k in (K1_BF16, K2_BF16, K1B_BF16, K2B_BF16, K6_BF16, K6B_BF16)},
+            ["--config", TRAIN_CONFIG], BF16_WARMUP, BF16_STEPS, vs_cpu=False)
+    emit({"phase": "train_so2_bf16_vs_f32", "float32": so2_step, "bfloat16": so2_bf16_step,
+          "note": "reported, not claimed: configs/train.yml made float32 against its own "
+                  "bfloat16, both under SINGA_TPU_FUSED_SO2; the bfloat16 step's K6 and K6b "
+                  "at one TF32 product a product"})
     form_steps = {}
     for suffix, var, path in (("_hybrid", HYBRID_ATTN, HYBRID_PATH),
                               ("_dense", DENSE_ATTN, DENSE_PATH)):
@@ -3046,7 +3116,7 @@ def main() -> int:
           "note": "reported, not claimed: each form's float32 step (configs/train.yml made "
                   "float32) and bfloat16 step, the same batches and steps"})
     torch.cuda.empty_cache()
-    train_vs_cpu_bf16(dev, bf16_cfg, files)
+    train_vs_cpu_bf16(dev, bf16_cfg, s2_bf16_cfg, files)
     torch.cuda.empty_cache()
 
     gan_phases(dev, files, mods)
@@ -3084,10 +3154,12 @@ def main() -> int:
     for spec, hybrid in ((K1, False), (K7, True)):  # the forward's tile kernels
         results[spec.name]["residency"] = mods["neighbor_attn"].fwd_residency(hybrid)
         results[spec.name]["ptxas"] = k1_ptxas[int(hybrid)]
-    gemm_residency = mods["so2_attn"].gemm_residency()
-    for spec, lib in ((K6, "so2_attn"), (K6B, "so2_attn_bwd")):
-        results[spec.name]["gemm_ptxas"] = gemm_ptxas[lib]
-        results[spec.name]["gemm_residency"] = gemm_residency
+    for bf16, fwd, bwd, ptx in ((False, K6, K6B, gemm_ptxas), (True, K6_BF16, K6B_BF16,
+                                                                k6_bf16_ptxas)):
+        residency = mods["so2_attn"].gemm_residency(bf16=bf16)
+        for spec, lib in ((fwd, "so2_attn"), (bwd, "so2_attn_bwd")):
+            results[spec.name]["gemm_ptxas"] = ptx[lib]
+            results[spec.name]["gemm_residency"] = residency
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(smi, flush=True)
     emit({"kernels": [results[k.name] for k in KERNELS]})

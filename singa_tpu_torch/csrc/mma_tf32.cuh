@@ -38,6 +38,8 @@
 //   frag_b_paired(B, ldb)   B stored [k][n], k paired (pairs with the above)
 //   frag_a_trans(At, lda)   A stored transposed, At[k][m], k in order
 //   frag_b(B, ldb)          B stored [k][n], k in order (pairs with the above)
+//   (frag_a_paired, frag_b_paired, frag_b_nk, frag_a_trans and frag_b also
+//   read bfloat16 rows: the values widened, lo = 0)
 //   frag_b_nk(B, ldb)       B stored [n][k], k paired (pairs with frag_a_paired)
 //   frag_b_nk_seq(B, ldb)   B stored [n][k], k in order
 //   frag_b_split(Bhi, Blo, ldb)  B stored [k][n], k in order, from planes
@@ -222,6 +224,23 @@ __device__ __forceinline__ FragB frag_b(const float* B, int ldb) {
   split_t<T>(B[t * ldb + g], f.hi[0], f.lo[0]);
   split_t<T>(B[(t + 4) * ldb + g], f.hi[1], f.lo[1]);
   return f;
+}
+
+// A stored transposed as bfloat16, At[k][m], k in order (lda in elements):
+// four 2-byte loads
+__device__ __forceinline__ FragA frag_a_trans(const __nv_bfloat16* At, int lda) {
+  const int g = lane_grp(), t = lane_tig();
+  const uint16_t* a = reinterpret_cast<const uint16_t*>(At);
+  return FragA{{(uint32_t)a[t * lda + g] << 16, (uint32_t)a[t * lda + g + 8] << 16,
+                (uint32_t)a[(t + 4) * lda + g] << 16, (uint32_t)a[(t + 4) * lda + g + 8] << 16},
+               {0u, 0u, 0u, 0u}};
+}
+
+// B stored [k][n] as bfloat16, k in order (ldb in elements): two 2-byte loads
+__device__ __forceinline__ FragB frag_b(const __nv_bfloat16* B, int ldb) {
+  const int g = lane_grp(), t = lane_tig();
+  const uint16_t* b = reinterpret_cast<const uint16_t*>(B);
+  return FragB{{(uint32_t)b[t * ldb + g] << 16, (uint32_t)b[(t + 4) * ldb + g] << 16}, {0u, 0u}};
 }
 
 // B stored [k][n] as TF32 hi and lo planes, already split; k in order

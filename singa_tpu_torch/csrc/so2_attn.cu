@@ -33,14 +33,41 @@
 // keeping each weight tile in shared memory across 128 edges. The TPU
 // kernel's 128-lane channel padding of conv 1 (4x its products at C = 32),
 // its edge padding and its transposed weight copies are not carried over.
+//
+// K6·bf16 (so2_attn_bf16): the same stages at bfloat16 storage (x, rad, the
+// outputs; the weights rounded once a call into the scratch), rounding where
+// the Pallas kernel rounds at a bfloat16 x (so2_chain.cuh): the modulated
+// message and mid in bfloat16, the conv-1 output in float32, and every
+// conv product one TF32 mma.sync of two bfloat16 values (exact) where the
+// float32 instance issues three.
 #include "so2_chain.cuh"
 
 namespace {
 
+using singa::bf16;
 using singa::so2::Dims;
 
 inline long long fwd_scratch(const Dims& d) {
   return (long long)d.E * ((long long)d.n_trunc * d.C + d.y1_width + (long long)d.n_trunc * d.H);
+}
+
+// Byte offsets of the bfloat16 forward's scratch: the rounded weights, the
+// modulated message (bf16), the conv-1 output (float32), mid (bf16).
+struct Bf16Fwd {
+  singa::so2::Bf16Weights w;
+  long long mpr, y1, mid, total;
+};
+
+inline Bf16Fwd bf16_fwd_layout(const Dims& d) {
+  using singa::so2::round_up256;
+  Bf16Fwd s;
+  s.w = singa::so2::bf16_weights_layout(d);
+  const long long E = d.E;
+  s.mpr = s.w.end;
+  s.y1 = round_up256(s.mpr + 2 * E * d.n_trunc * d.C);
+  s.mid = round_up256(s.y1 + 4 * E * d.y1_width);
+  s.total = round_up256(s.mid + 2 * E * d.n_trunc * d.H);
+  return s;
 }
 
 }  // namespace
@@ -86,6 +113,55 @@ extern "C" int so2_attn_f32(const float* x, const float* rad, const float* phi, 
   return (int)cudaSuccess;
 }
 
+// Bytes of scratch K6·bf16 needs; -1 for shapes the kernels do not take.
+extern "C" long long so2_attn_bf16_scratch_bytes(int E, int lmax, int mmax, int C, int H, int F2,
+                                                 int extra, int alpha_ch, int G) {
+  const Dims d = singa::so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  return singa::so2::dims_ok(d) ? bf16_fwd_layout(d).total : -1;
+}
+
+// K6·bf16: x, rad, z0..z2 and extra_out bfloat16; the weights, biases,
+// angles, J and the grids float32; scratch of so2_attn_bf16_scratch_bytes,
+// 256-byte aligned. The shapes as so2_attn_f32's.
+extern "C" int so2_attn_bf16(const void* x, const void* rad, const float* phi, const float* beta,
+                             const float* w10, const float* w11, const float* w12,
+                             const float* b1, const float* w20, const float* w21,
+                             const float* w22, const float* b2, const float* J, const float* tg,
+                             const float* fg, void* z0, void* z1, void* z2, void* extra_out,
+                             void* scratch, int E, int lmax, int mmax, int C, int H, int F2,
+                             int extra, int alpha_ch, int G, void* stream) {
+  namespace so2 = singa::so2;
+  const Dims d = so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  if (!so2::dims_ok(d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Bf16Fwd sl = bf16_fwd_layout(d);
+  char* base = static_cast<char*>(scratch);
+  bf16* mpr = reinterpret_cast<bf16*>(base + sl.mpr);
+  float* y1 = reinterpret_cast<float*>(base + sl.y1);
+  bf16* mid = reinterpret_cast<bf16*>(base + sl.mid);
+  const float* w1s[so2::kSecs] = {w10, w11, w12};
+  const float* w2s[so2::kSecs] = {w20, w21, w22};
+  bf16* zs[so2::kSecs] = {static_cast<bf16*>(z0), static_cast<bf16*>(z1), static_cast<bf16*>(z2)};
+  bf16 *w1r[so2::kSecs], *w2r[so2::kSecs];
+
+  cudaError_t err = so2::round_weights(w1s, w2s, base, sl.w, d, w1r, w2r, st);
+  if (err != cudaSuccess) return (int)err;
+  err = so2::rotate_fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(rad), phi, beta, J,
+                        nullptr, mpr, d, st);
+  if (err != cudaSuccess) return (int)err;
+  err = so2::forward_to_mid<bf16>(mpr, w1r, b1, tg, fg, y1, mid, static_cast<bf16*>(extra_out), d,
+                                  st);
+  if (err != cudaSuccess) return (int)err;
+  for (int s = 0; s < so2::kSecs; ++s) {
+    const int n_out = d.rows[s] * F2;
+    err = so2::gemm<false, false, so2::Bf16In<bf16>>(
+        mid + d.row0[s] * H, (long long)d.n_trunc * H, w2r[s], n_out, zs[s], n_out, E, n_out,
+        d.rows[s] * H, s == 0 ? b2 : nullptr, 1, 0, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 // The chain's GEMM alone, for the tests on the card (tests/test_torch_cuda.py);
 // on no path of the model. orient 0: C = A B (+ bias), 1: C = A B^T with B
 // [N][K], 2: C = A^T B with A [K][M], its depth split into `splits` slices
@@ -112,6 +188,46 @@ extern "C" int so2_gemm_f32(const float* A, long long lda, const float* B, long 
   return (int)cudaGetLastError();
 }
 
+// so2_gemm_f32's products at bfloat16 (the GEMM of K6·bf16 and K6b·bf16): A
+// and B bfloat16, C float32, or bfloat16 when out_bf16 (orient 0 and 1
+// only); the partial sums of orient 2 float32. Strides in elements.
+extern "C" int so2_gemm_bf16(const void* A, long long lda, const void* B, long long ldb, void* C,
+                             long long ldc, int M, int N, int K, const float* bias, int orient,
+                             int splits, float* partial, int out_bf16, void* stream) {
+  namespace so2 = singa::so2;
+  using F = so2::Bf16In<float>;
+  using H = so2::Bf16In<bf16>;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bf16* a = static_cast<const bf16*>(A);
+  const bf16* b = static_cast<const bf16*>(B);
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || orient < 0 || orient > 2 ||
+      (out_bf16 && orient == 2))
+    return (int)cudaErrorInvalidValue;
+  if (orient < 2) {
+    if (out_bf16)
+      return (int)(orient == 0
+                       ? so2::gemm<false, false, H>(a, lda, b, ldb, static_cast<bf16*>(C), ldc, M,
+                                                    N, K, bias, 1, 0, st)
+                       : so2::gemm<false, true, H>(a, lda, b, ldb, static_cast<bf16*>(C), ldc, M,
+                                                   N, K, bias, 1, 0, st));
+    float* c = static_cast<float*>(C);
+    return (int)(orient == 0 ? so2::gemm<false, false, F>(a, lda, b, ldb, c, ldc, M, N, K, bias, 1,
+                                                          0, st)
+                             : so2::gemm<false, true, F>(a, lda, b, ldb, c, ldc, M, N, K, bias, 1,
+                                                         0, st));
+  }
+  if (ldc != N || bias != nullptr || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  float* c = static_cast<float*>(C);
+  if (splits == 1) return (int)so2::gemm<true, false, F>(a, lda, b, ldb, c, N, M, N, K, nullptr, 1, 0, st);
+  const long long P = (long long)M * N;
+  cudaError_t err = so2::gemm<true, false, F>(a, lda, b, ldb, partial, N, M, N, K, nullptr, splits,
+                                              P, st);
+  if (err != cudaSuccess) return (int)err;
+  singa::sum_rows_kernel<<<(int)((P + 255) / 256), 256, 0, st>>>(partial, c, P, splits);
+  return (int)cudaGetLastError();
+}
+
 // Resident blocks per SM of the GEMM kernel of each orientation (0 NN, 1 NT,
 // 2 TN) as the chain launches it, its dynamic shared memory per block in
 // *smem_bytes and its threads per block in *threads; -1 on failure. For
@@ -122,5 +238,18 @@ extern "C" int so2_gemm_residency(int orient, int* smem_bytes, int* threads) {
   if (orient == 0) return so2::gemm_residency<false, false>(smem_bytes);
   if (orient == 1) return so2::gemm_residency<false, true>(smem_bytes);
   if (orient == 2) return so2::gemm_residency<true, false>(smem_bytes);
+  return -1;
+}
+
+// The same of K6·bf16's and K6b·bf16's GEMM kernels (bfloat16 operands,
+// float32 output; NN's conv-2 instance, bfloat16 output, has the same
+// shared memory).
+extern "C" int so2_gemm_bf16_residency(int orient, int* smem_bytes, int* threads) {
+  namespace so2 = singa::so2;
+  using F = so2::Bf16In<float>;
+  *threads = so2::kGemmThreads;
+  if (orient == 0) return so2::gemm_residency<false, false, F>(smem_bytes);
+  if (orient == 1) return so2::gemm_residency<false, true, F>(smem_bytes);
+  if (orient == 2) return so2::gemm_residency<true, false, F>(smem_bytes);
   return -1;
 }

@@ -33,12 +33,21 @@
 // does not depend on the launch. ~2.3 GB of scratch at the training
 // microbatch (the per-edge operands of the weight products), on an 80 GB
 // card.
+//
+// K6b·bf16 (so2_attn_bwd_bf16): the same stages at bfloat16 storage,
+// rounding where the Pallas _bwd_kernel rounds at a bfloat16 x
+// (so2_chain.cuh): the modulated message, mid and dy in bfloat16 (the
+// products' operands, one TF32 mma.sync each), the rotated message mp0,
+// the conv-1 output, dmid and dmpr in float32, and section 0 of dy also in
+// float32 for db1; the weight gradients' partial sums and their slice sums
+// float32, returned float32 (the parameters' dtype).
 #include <algorithm>
 
 #include "so2_chain.cuh"
 
 namespace {
 
+using singa::bf16;
 using singa::so2::Dims;
 using singa::so2::kSecs;
 
@@ -67,6 +76,57 @@ inline Scratch scratch_layout(const Dims& d) {
   s.partial = s.dmpr + msg;
   s.total = s.partial + part;
   return s;
+}
+
+// Byte offsets of the bfloat16 backward's scratch: the rounded weights, then
+// mp0 (f32), mpr (bf16), y1 (f32), mid (bf16), dmid (f32), dy1 (bf16), dy0
+// [E, out1[0]] (f32), dmpr (f32), the float32 partial sums (as large as the
+// float32 instance's).
+struct Bf16Bwd {
+  singa::so2::Bf16Weights w;
+  long long mp0, mpr, y1, mid, dmid, dy1, dy0, dmpr, partial, total;
+};
+
+inline Bf16Bwd bf16_bwd_layout(const Dims& d) {
+  using singa::so2::round_up256;
+  const Scratch f = scratch_layout(d);
+  const long long E = d.E, msg = E * d.n_trunc * d.C, hid = E * d.n_trunc * d.H;
+  Bf16Bwd s;
+  s.w = singa::so2::bf16_weights_layout(d);
+  s.mp0 = s.w.end;
+  s.mpr = round_up256(s.mp0 + 4 * msg);
+  s.y1 = round_up256(s.mpr + 2 * msg);
+  s.mid = round_up256(s.y1 + 4 * E * d.y1_width);
+  s.dmid = round_up256(s.mid + 2 * hid);
+  s.dy1 = round_up256(s.dmid + 4 * hid);
+  s.dy0 = round_up256(s.dy1 + 2 * E * d.y1_width);
+  s.dmpr = round_up256(s.dy0 + 4 * E * d.out1[0]);
+  s.partial = round_up256(s.dmpr + 4 * msg);
+  s.total = round_up256(s.partial + 4 * (f.total - f.partial));
+  return s;
+}
+
+// Offsets (floats) of each weight and bias gradient in `grads`: dw1_0..2,
+// db1, dw2_0..2, db2.
+struct GradOffsets {
+  long long w1[kSecs], w2[kSecs], b1, b2;
+};
+
+inline GradOffsets grad_offsets(const Dims& d) {
+  GradOffsets g;
+  long long off = 0;
+  for (int s = 0; s < kSecs; ++s) {
+    g.w1[s] = off;
+    off += (long long)d.rows[s] * d.C * d.out1[s];
+  }
+  g.b1 = off;
+  off += d.out1[0];
+  for (int s = 0; s < kSecs; ++s) {
+    g.w2[s] = off;
+    off += (long long)d.rows[s] * d.H * d.rows[s] * d.F2;
+  }
+  g.b2 = off;
+  return g;
 }
 
 }  // namespace
@@ -100,57 +160,133 @@ extern "C" int so2_attn_bwd_f32(const float* x, const float* rad, const float* p
   const float* w1s[kSecs] = {w10, w11, w12};
   const float* w2s[kSecs] = {w20, w21, w22};
   const float* dzs[kSecs] = {dz0, dz1, dz2};
-  // offsets of the gradients in `grads`
-  long long g_w1[kSecs], g_w2[kSecs], g_b1, g_b2, off = 0;
-  for (int s = 0; s < kSecs; ++s) {
-    g_w1[s] = off;
-    off += (long long)d.rows[s] * C * d.out1[s];
-  }
-  g_b1 = off;
-  off += d.out1[0];
-  for (int s = 0; s < kSecs; ++s) {
-    g_w2[s] = off;
-    off += (long long)d.rows[s] * H * d.rows[s] * F2;
-  }
-  g_b2 = off;
+  const GradOffsets g = grad_offsets(d);
   const long long ldm = (long long)d.n_trunc * C, ldh = (long long)d.n_trunc * H;
 
   // the forward up to mid
   cudaError_t err = so2::rotate_fwd(x, rad, phi, beta, J, mp0, mpr, d, st);
   if (err != cudaSuccess) return (int)err;
-  err = so2::forward_to_mid(mpr, w1s, b1, tg, fg, y1, mid, nullptr, d, st);
+  err = so2::forward_to_mid<float>(mpr, w1s, b1, tg, fg, y1, mid, nullptr, d, st);
   if (err != cudaSuccess) return (int)err;
 
   // conv 2: its weight and bias gradients, and dmid
   for (int s = 0; s < kSecs; ++s) {
     const int m2 = d.rows[s] * H, n2 = d.rows[s] * F2;
     err = so2::weight_grad(mid + d.row0[s] * H, ldh, dzs[s], n2, m2, n2, E, partial,
-                           grads + g_w2[s], st);
+                           grads + g.w2[s], st);
     if (err != cudaSuccess) return (int)err;
     err = so2::gemm<false, true>(dzs[s], n2, w2s[s], n2, dmid + d.row0[s] * H, ldh, E, m2, n2,
                                  nullptr, 1, 0, st);
     if (err != cudaSuccess) return (int)err;
   }
-  err = so2::col_sum(dz0, d.rows[0] * F2, E, d.rows[0] * F2, partial, grads + g_b2, st);
+  err = so2::col_sum(dz0, d.rows[0] * F2, E, d.rows[0] * F2, partial, grads + g.b2, st);
   if (err != cudaSuccess) return (int)err;
 
   // the S2 activation and the gate: the conv-1 output cotangent
-  err = so2::grid_bwd(y1, dmid, dextra, tg, fg, dy1, d, st);
+  err = so2::grid_bwd(y1, dmid, dextra, tg, fg, dy1, nullptr, d, st);
   if (err != cudaSuccess) return (int)err;
 
   // conv 1: its weight and bias gradients, and the message cotangent
   for (int s = 0; s < kSecs; ++s) {
     const int m1 = d.rows[s] * C, n1 = d.out1[s];
     err = so2::weight_grad(mpr + d.row0[s] * C, ldm, dy1 + d.y1_col[s], d.y1_width, m1, n1, E,
-                           partial, grads + g_w1[s], st);
+                           partial, grads + g.w1[s], st);
     if (err != cudaSuccess) return (int)err;
     err = so2::gemm<false, true>(dy1 + d.y1_col[s], d.y1_width, w1s[s], n1, dmpr + d.row0[s] * C,
                                  ldm, E, m1, n1, nullptr, 1, 0, st);
     if (err != cudaSuccess) return (int)err;
   }
-  err = so2::col_sum(dy1, d.y1_width, E, d.out1[0], partial, grads + g_b1, st);
+  err = so2::col_sum(dy1, d.y1_width, E, d.out1[0], partial, grads + g.b1, st);
   if (err != cudaSuccess) return (int)err;
 
   // the radial modulation and the rotation
   return (int)so2::rotate_bwd(dmpr, rad, mp0, phi, beta, J, dx, drad, d, st);
+}
+
+// Bytes of scratch K6b·bf16 needs; -1 for shapes it does not take.
+extern "C" long long so2_attn_bwd_bf16_scratch_bytes(int E, int lmax, int mmax, int C, int H,
+                                                     int F2, int extra, int alpha_ch, int G) {
+  const Dims d = singa::so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  return singa::so2::dims_ok(d) ? bf16_bwd_layout(d).total : -1;
+}
+
+// K6b·bf16: x, rad, dz0..dz2, dextra, dx and drad bfloat16; the weights,
+// biases, angles, J, the grids and grads (laid out as so2_attn_bwd_f32's)
+// float32; scratch of so2_attn_bwd_bf16_scratch_bytes, 256-byte aligned.
+extern "C" int so2_attn_bwd_bf16(const void* x, const void* rad, const float* phi,
+                                 const float* beta, const float* w10, const float* w11,
+                                 const float* w12, const float* b1, const float* w20,
+                                 const float* w21, const float* w22, const float* J,
+                                 const float* tg, const float* fg, const void* dz0,
+                                 const void* dz1, const void* dz2, const void* dextra, void* dx,
+                                 void* drad, float* grads, void* scratch, int E, int lmax,
+                                 int mmax, int C, int H, int F2, int extra, int alpha_ch, int G,
+                                 void* stream) {
+  namespace so2 = singa::so2;
+  const Dims d = so2::make_dims(E, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  if (!so2::dims_ok(d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Bf16Bwd sl = bf16_bwd_layout(d);
+  const GradOffsets g = grad_offsets(d);
+  char* base = static_cast<char*>(scratch);
+  float* mp0 = reinterpret_cast<float*>(base + sl.mp0);
+  bf16* mpr = reinterpret_cast<bf16*>(base + sl.mpr);
+  float* y1 = reinterpret_cast<float*>(base + sl.y1);
+  bf16* mid = reinterpret_cast<bf16*>(base + sl.mid);
+  float* dmid = reinterpret_cast<float*>(base + sl.dmid);
+  bf16* dy1 = reinterpret_cast<bf16*>(base + sl.dy1);
+  float* dy0 = reinterpret_cast<float*>(base + sl.dy0);
+  float* dmpr = reinterpret_cast<float*>(base + sl.dmpr);
+  float* partial = reinterpret_cast<float*>(base + sl.partial);
+  const float* w1s[kSecs] = {w10, w11, w12};
+  const float* w2s[kSecs] = {w20, w21, w22};
+  const bf16* dzs[kSecs] = {static_cast<const bf16*>(dz0), static_cast<const bf16*>(dz1),
+                            static_cast<const bf16*>(dz2)};
+  bf16 *w1r[kSecs], *w2r[kSecs];
+  const long long ldm = (long long)d.n_trunc * C, ldh = (long long)d.n_trunc * H;
+  using F = so2::Bf16In<float>;
+
+  // the weights rounded, then the forward up to mid
+  cudaError_t err = so2::round_weights(w1s, w2s, base, sl.w, d, w1r, w2r, st);
+  if (err != cudaSuccess) return (int)err;
+  err = so2::rotate_fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(rad), phi, beta, J,
+                        mp0, mpr, d, st);
+  if (err != cudaSuccess) return (int)err;
+  err = so2::forward_to_mid<bf16>(mpr, w1r, b1, tg, fg, y1, mid, nullptr, d, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // conv 2: its weight and bias gradients, and dmid (float32)
+  for (int s = 0; s < kSecs; ++s) {
+    const int m2 = d.rows[s] * H, n2 = d.rows[s] * F2;
+    err = so2::weight_grad(static_cast<const bf16*>(mid + d.row0[s] * H), ldh, dzs[s], n2, m2, n2,
+                           E, partial, grads + g.w2[s], st);
+    if (err != cudaSuccess) return (int)err;
+    err = so2::gemm<false, true, F>(dzs[s], n2, w2r[s], n2, dmid + d.row0[s] * H, ldh, E, m2, n2,
+                                    nullptr, 1, 0, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = so2::col_sum(dzs[0], d.rows[0] * F2, E, d.rows[0] * F2, partial, grads + g.b2, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // the S2 activation and the gate: the conv-1 output cotangent
+  err = so2::grid_bwd(y1, dmid, static_cast<const bf16*>(dextra), tg, fg, dy1, dy0, d, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // conv 1: its weight and bias gradients, and the message cotangent (float32)
+  for (int s = 0; s < kSecs; ++s) {
+    const int m1 = d.rows[s] * C, n1 = d.out1[s];
+    err = so2::weight_grad(static_cast<const bf16*>(mpr + d.row0[s] * C), ldm,
+                           static_cast<const bf16*>(dy1 + d.y1_col[s]), d.y1_width, m1, n1, E,
+                           partial, grads + g.w1[s], st);
+    if (err != cudaSuccess) return (int)err;
+    err = so2::gemm<false, true, F>(dy1 + d.y1_col[s], d.y1_width, w1r[s], n1,
+                                    dmpr + d.row0[s] * C, ldm, E, m1, n1, nullptr, 1, 0, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = so2::col_sum(dy0, d.out1[0], E, d.out1[0], partial, grads + g.b1, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // the radial modulation and the rotation
+  return (int)so2::rotate_bwd(dmpr, static_cast<const bf16*>(rad), mp0, phi, beta, J,
+                              static_cast<bf16*>(dx), static_cast<bf16*>(drad), d, st);
 }

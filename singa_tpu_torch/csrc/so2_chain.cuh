@@ -14,9 +14,26 @@
 //                                  each section's product output contiguous
 //   mid             [n_trunc, H]   m-primary rows, so each conv-2 section is
 //                                  a contiguous column range
+//
+// bfloat16 (K6·bf16, K6b·bf16: the stages at storage type T = bf16). The
+// Pallas kernel at a bfloat16 x rounds J, the grids and the weights, the
+// rotation's two products before J^T and its two z(-beta) terms before
+// J_kept, the modulated message, the hidden rows before the grid, silu of
+// the grid, mid, and the outputs; in the backward the dmpr * rad product,
+// the z(-beta)^T term, silu'(grid) times the lifted cotangent, dmid (after
+// its row 0 gave the gate's cotangent in float32) and dy (after its
+// section 0 gave db1 in float32); everything else sums in float32. The
+// stages round at those points (rnd<T>, the identity at T = float), keep
+// in bfloat16 what the Pallas kernel rounds (the modulated message, mid,
+// dy, the outputs) and in float32 what it does not (the rotated message
+// before the modulation, the conv-1 output whose extra channels feed the
+// gate, dmid, dmpr); the GEMM reads bfloat16 operands and issues one TF32
+// product for each product of two bfloat16 values (exact in float32).
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma_tf32.cuh"
@@ -95,13 +112,15 @@ __device__ __forceinline__ int m_row(int l, int m, int lmax) {
 // D = J_kept Z(-beta) J^T Z(-phi) per degree l, J block-diagonal with blocks
 // J_l [(2l+1), (2l+1)]; z(-theta) u [m] = cos(m theta) u[m] + sin(m theta) u[-m].
 
-// J [n_full, n_full] -> its diagonal blocks, row-major, block l at j_offset(l).
+// J [n_full, n_full] -> its diagonal blocks, row-major, block l at j_offset(l)
+// (rounded to T's precision).
+template <class T = float>
 __device__ inline void stage_j_blocks(const float* __restrict__ J, int lmax, int n_full,
                                       float* sJ) {
   for (int l = 0; l <= lmax; ++l) {
     const int n = 2 * l + 1;
     for (int t = threadIdx.x; t < n * n; t += blockDim.x)
-      sJ[j_offset(l) + t] = J[(l * l + t / n) * n_full + l * l + t % n];
+      sJ[j_offset(l) + t] = rnd<T>(J[(l * l + t / n) * n_full + l * l + t % n]);
   }
 }
 
@@ -118,11 +137,14 @@ __device__ __forceinline__ void make_trig(float phi, float beta, Trig& t) {
 }
 
 // One degree of the forward rotation for one (edge, channel) column: xe, re,
-// m0e, mre point at the column's first coefficient, rows C floats apart.
-template <int L>
+// m0e, mre point at the column's first coefficient, rows C elements apart.
+// At bf16 the two products of each z-rotation term are rounded apart (the
+// Pallas kernel's x cos and x sin, then t2 cos and t2 sin, each rounded
+// before its J product).
+template <int L, class T>
 __device__ __forceinline__ void rot_fwd_degree(const float* sJ, const Trig& tr, int lmax, int mmax,
-                                               int C, const float* xe, const float* re, float* m0e,
-                                               float* mre) {
+                                               int C, const T* xe, const T* re, float* m0e,
+                                               T* mre) {
   constexpr int n = 2 * L + 1;
   const float* J = sJ + j_offset(L);
   float a[n], b[n];
@@ -130,7 +152,11 @@ __device__ __forceinline__ void rot_fwd_degree(const float* sJ, const Trig& tr, 
   for (int i = 0; i < n; ++i) {  // z(-phi) x
     const int m = i - L, am = m < 0 ? -m : m;
     const float s = m < 0 ? -tr.sp[am] : tr.sp[am];
-    a[i] = fmaf(tr.cp[am], xe[(L * L + i) * C], s * xe[(L * L + n - 1 - i) * C]);
+    if constexpr (kBf16<T>)
+      a[i] = rnd<T>(tr.cp[am] * to_f(xe[(L * L + i) * C])) +
+             rnd<T>(s * to_f(xe[(L * L + n - 1 - i) * C]));
+    else
+      a[i] = fmaf(tr.cp[am], xe[(L * L + i) * C], s * xe[(L * L + n - 1 - i) * C]);
   }
 #pragma unroll
   for (int j = 0; j < n; ++j) {  // J^T
@@ -143,7 +169,10 @@ __device__ __forceinline__ void rot_fwd_degree(const float* sJ, const Trig& tr, 
   for (int i = 0; i < n; ++i) {  // z(-beta)
     const int m = i - L, am = m < 0 ? -m : m;
     const float s = m < 0 ? -tr.sb[am] : tr.sb[am];
-    a[i] = fmaf(tr.cb[am], b[i], s * b[n - 1 - i]);
+    if constexpr (kBf16<T>)
+      a[i] = rnd<T>(tr.cb[am] * b[i]) + rnd<T>(s * b[n - 1 - i]);
+    else
+      a[i] = fmaf(tr.cb[am], b[i], s * b[n - 1 - i]);
   }
   const int mm = L < mmax ? L : mmax;
 #pragma unroll
@@ -155,26 +184,28 @@ __device__ __forceinline__ void rot_fwd_degree(const float* sJ, const Trig& tr, 
     for (int j = 0; j < n; ++j) v = fmaf(J[i * n + j], a[j], v);
     const int r = m_row(L, m, lmax);
     if (m0e != nullptr) m0e[r * C] = v;
-    mre[r * C] = v * re[r * C];
+    mre[r * C] = from_f<T>(v * to_f(re[r * C]));
   }
 }
 
-template <int L>
+template <int L, class T>
 __device__ __forceinline__ void rot_fwd(const float* sJ, const Trig& tr, int lmax, int mmax, int C,
-                                        const float* xe, const float* re, float* m0e, float* mre) {
+                                        const T* xe, const T* re, float* m0e, T* mre) {
   if (L > lmax) return;
   rot_fwd_degree<L>(sJ, tr, lmax, mmax, C, xe, re, m0e, mre);
   if constexpr (L < kMaxL) rot_fwd<L + 1>(sJ, tr, lmax, mmax, C, xe, re, m0e, mre);
 }
 
-// mpr = D x * rad per (edge, channel) column, and mp0 = D x when not null.
+// mpr = D x * rad per (edge, channel) column (rounded to T), and mp0 = D x
+// (float32) when not null.
+template <class T = float>
 __global__ void __launch_bounds__(kRotThreads)
-rotate_fwd_kernel(const float* __restrict__ x, const float* __restrict__ rad,
+rotate_fwd_kernel(const T* __restrict__ x, const T* __restrict__ rad,
                   const float* __restrict__ phi, const float* __restrict__ beta,
-                  const float* __restrict__ J, float* __restrict__ mp0, float* __restrict__ mpr,
+                  const float* __restrict__ J, float* __restrict__ mp0, T* __restrict__ mpr,
                   Dims d) {
   __shared__ float sJ[kJFloats];
-  stage_j_blocks(J, d.lmax, d.n_full, sJ);
+  stage_j_blocks<T>(J, d.lmax, d.n_full, sJ);
   __syncthreads();
   const long long Q = (long long)d.E * d.C;
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < Q;
@@ -190,11 +221,12 @@ rotate_fwd_kernel(const float* __restrict__ x, const float* __restrict__ rad,
 }
 
 // One degree of the transposed rotation: dmp = dmpr * rad over the kept rows,
-// dx = Z(-phi)^T J Z(-beta)^T J_kept^T dmp; drad = dmpr * mp0.
-template <int L>
+// dx = Z(-phi)^T J Z(-beta)^T J_kept^T dmp; drad = dmpr * mp0. At bf16 dmp
+// and the z(-beta)^T term are rounded (the Pallas kernel's dmpT and dt2).
+template <int L, class T>
 __device__ __forceinline__ void rot_bwd_degree(const float* sJ, const Trig& tr, int lmax, int mmax,
-                                               int C, const float* ge, const float* re,
-                                               const float* m0e, float* dre, float* dxe) {
+                                               int C, const float* ge, const T* re,
+                                               const float* m0e, T* dre, T* dxe) {
   constexpr int n = 2 * L + 1;
   const float* J = sJ + j_offset(L);
   float a[n], b[n];
@@ -207,8 +239,8 @@ __device__ __forceinline__ void rot_bwd_degree(const float* sJ, const Trig& tr, 
     if (m < -mm || m > mm) continue;
     const int r = m_row(L, m, lmax);
     const float g = ge[r * C];
-    dre[r * C] = g * m0e[r * C];
-    const float dm = g * re[r * C];
+    dre[r * C] = from_f<T>(g * m0e[r * C]);
+    const float dm = rnd<T>(g * to_f(re[r * C]));
 #pragma unroll
     for (int j = 0; j < n; ++j) a[j] = fmaf(J[i * n + j], dm, a[j]);
   }
@@ -216,7 +248,7 @@ __device__ __forceinline__ void rot_bwd_degree(const float* sJ, const Trig& tr, 
   for (int i = 0; i < n; ++i) {  // z(-beta)^T
     const int m = i - L, am = m < 0 ? -m : m;
     const float s = m < 0 ? -tr.sb[am] : tr.sb[am];
-    b[i] = fmaf(tr.cb[am], a[i], -s * a[n - 1 - i]);
+    b[i] = rnd<T>(fmaf(tr.cb[am], a[i], -s * a[n - 1 - i]));
   }
 #pragma unroll
   for (int i = 0; i < n; ++i) {  // J
@@ -229,27 +261,29 @@ __device__ __forceinline__ void rot_bwd_degree(const float* sJ, const Trig& tr, 
   for (int i = 0; i < n; ++i) {  // z(-phi)^T
     const int m = i - L, am = m < 0 ? -m : m;
     const float s = m < 0 ? -tr.sp[am] : tr.sp[am];
-    dxe[(L * L + i) * C] = fmaf(tr.cp[am], a[i], -s * a[n - 1 - i]);
+    dxe[(L * L + i) * C] = from_f<T>(fmaf(tr.cp[am], a[i], -s * a[n - 1 - i]));
   }
 }
 
-template <int L>
+template <int L, class T>
 __device__ __forceinline__ void rot_bwd(const float* sJ, const Trig& tr, int lmax, int mmax, int C,
-                                        const float* ge, const float* re, const float* m0e,
-                                        float* dre, float* dxe) {
+                                        const float* ge, const T* re, const float* m0e,
+                                        T* dre, T* dxe) {
   if (L > lmax) return;
   rot_bwd_degree<L>(sJ, tr, lmax, mmax, C, ge, re, m0e, dre, dxe);
   if constexpr (L < kMaxL) rot_bwd<L + 1>(sJ, tr, lmax, mmax, C, ge, re, m0e, dre, dxe);
 }
 
-// dx and drad from the cotangent dmpr of the modulated rotated message.
+// dx and drad from the (float32) cotangent dmpr of the modulated rotated
+// message.
+template <class T = float>
 __global__ void __launch_bounds__(kRotThreads)
-rotate_bwd_kernel(const float* __restrict__ dmpr, const float* __restrict__ rad,
+rotate_bwd_kernel(const float* __restrict__ dmpr, const T* __restrict__ rad,
                   const float* __restrict__ mp0, const float* __restrict__ phi,
                   const float* __restrict__ beta, const float* __restrict__ J,
-                  float* __restrict__ dx, float* __restrict__ drad, Dims d) {
+                  T* __restrict__ dx, T* __restrict__ drad, Dims d) {
   __shared__ float sJ[kJFloats];
-  stage_j_blocks(J, d.lmax, d.n_full, sJ);
+  stage_j_blocks<T>(J, d.lmax, d.n_full, sJ);
   __syncthreads();
   const long long Q = (long long)d.E * d.C;
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < Q;
@@ -264,23 +298,25 @@ rotate_bwd_kernel(const float* __restrict__ dmpr, const float* __restrict__ rad,
   }
 }
 
-inline cudaError_t rotate_fwd(const float* x, const float* rad, const float* phi,
-                              const float* beta, const float* J, float* mp0, float* mpr,
-                              const Dims& d, cudaStream_t st) {
+template <class T>
+inline cudaError_t rotate_fwd(const T* x, const T* rad, const float* phi, const float* beta,
+                              const float* J, float* mp0, T* mpr, const Dims& d,
+                              cudaStream_t st) {
   const long long Q = (long long)d.E * d.C;
-  const int grid = persistent_grid(rotate_fwd_kernel, kRotThreads, 0,
+  const int grid = persistent_grid(rotate_fwd_kernel<T>, kRotThreads, 0,
                                    (Q + kRotThreads - 1) / kRotThreads);
-  rotate_fwd_kernel<<<grid, kRotThreads, 0, st>>>(x, rad, phi, beta, J, mp0, mpr, d);
+  rotate_fwd_kernel<T><<<grid, kRotThreads, 0, st>>>(x, rad, phi, beta, J, mp0, mpr, d);
   return cudaGetLastError();
 }
 
-inline cudaError_t rotate_bwd(const float* dmpr, const float* rad, const float* mp0,
-                              const float* phi, const float* beta, const float* J, float* dx,
-                              float* drad, const Dims& d, cudaStream_t st) {
+template <class T>
+inline cudaError_t rotate_bwd(const float* dmpr, const T* rad, const float* mp0,
+                              const float* phi, const float* beta, const float* J, T* dx,
+                              T* drad, const Dims& d, cudaStream_t st) {
   const long long Q = (long long)d.E * d.C;
-  const int grid = persistent_grid(rotate_bwd_kernel, kRotThreads, 0,
+  const int grid = persistent_grid(rotate_bwd_kernel<T>, kRotThreads, 0,
                                    (Q + kRotThreads - 1) / kRotThreads);
-  rotate_bwd_kernel<<<grid, kRotThreads, 0, st>>>(dmpr, rad, mp0, phi, beta, J, dx, drad, d);
+  rotate_bwd_kernel<T><<<grid, kRotThreads, 0, st>>>(dmpr, rad, mp0, phi, beta, J, dx, drad, d);
   return cudaGetLastError();
 }
 
@@ -324,29 +360,55 @@ inline cudaError_t rotate_bwd(const float* dmpr, const float* rad, const float* 
 // SM. Two blocks an SM (128 registers: spills) and a split pass from raw
 // slabs into hi/lo planes ran slower; 64-deep slabs ran faster for NN and
 // NT, slower for TN.
+//
+// The GEMM's types, its template parameter P: float (float operands in
+// split TF32, float output), or Bf16In<Out> (K6·bf16's and K6b·bf16's:
+// bfloat16 operands, rows of bfloat16 in shared memory at the same slab
+// shapes, fragments widened with lo = 0 and one TF32 product each; the
+// output of type Out, float or rounded to bfloat16).
 constexpr int kBM = 128, kBN = 128, kGemmThreads = 256, kStages = 3;
 
-template <bool TA, bool TB>
+template <class Out>
+struct Bf16In {};
+template <class P>
+struct GemmTypes {
+  using In = float;
+  using Out = float;
+};
+template <class O>
+struct GemmTypes<Bf16In<O>> {
+  using In = bf16;
+  using Out = O;
+};
+// The GEMM of the stages at storage type T, with output Out
+template <class T, class Out = float>
+using GemmAt = typename std::conditional<kBf16<T>, Bf16In<Out>, float>::type;
+
+template <bool TA, bool TB, class P = float>
 struct GemmTile {
   static_assert(!(TA && TB), "no product reads both operands transposed");
+  using S = typename GemmTypes<P>::In;  // an operand's element in memory
+  static constexpr bool kB16 = kBf16<S>;
   static constexpr int WN = 4, WM = kGemmThreads / 32 / WN;  // warps
   static constexpr int WTM = kBM / WM, WTN = kBN / WN;        // warp tile
   static constexpr int MT = WTM / 16, NT = WTN / 8;           // mma tiles
   static constexpr int BK = TA ? 32 : 64;  // slab depth
-  // slabs as they lie in device memory: rows of contiguous floats
+  // slabs as they lie in device memory: rows of contiguous elements
   static constexpr int A_ROWS = TA ? BK : kBM, A_COLS = TA ? kBM : BK;
   static constexpr int B_ROWS = TB ? kBN : BK, B_COLS = TB ? BK : kBN;
-  // strides (floats, multiples of 4): [m][k], [n][k] paired, 8-byte loads:
-  // ld % 32 of 8 or 24; [k][m] and, beside it, [k][n] in order: the same;
-  // [k][n] paired: ld % 16 of 4 or 12
+  // strides (elements; float: multiples of 4): [m][k], [n][k] paired, 8-byte
+  // loads: ld % 32 of 8 or 24; [k][m] and, beside it, [k][n] in order: the
+  // same; [k][n] paired: ld % 16 of 4 or 12. bfloat16 (rows of 16-byte
+  // multiples): [m][k], [n][k] paired, 4-byte loads: ld / 2 % 32 of 4; [k][m],
+  // [k][n] in order or paired: 2-byte loads, pairs of lanes on one word
   static constexpr int LA = A_COLS + 8;
-  static constexpr int LB = TB ? BK + 8 : (TA ? kBN + 8 : kBN + 4);
-  static constexpr int A_FLOATS = A_ROWS * LA, B_FLOATS = B_ROWS * LB;
-  static constexpr int STAGE = A_FLOATS + B_FLOATS;
-  static constexpr size_t SMEM = (size_t)kStages * STAGE * sizeof(float);
+  static constexpr int LB = TB ? BK + 8 : (TA || kB16 ? kBN + 8 : kBN + 4);
+  static constexpr int A_ELEMS = A_ROWS * LA, B_ELEMS = B_ROWS * LB;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static constexpr size_t SMEM = (size_t)kStages * STAGE * sizeof(S);
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
 }
@@ -370,8 +432,36 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // One operand's slab into shared memory [ROWS][ld]: row r from
 // p + (r0 + r) * ld_p + c0, rows valid below rlim, columns below clim,
 // zeros past them. VEC: p and ld_p 16-byte aligned, 16-byte copies (the
-// limits cut a copy only at a slice's or M's or N's end); else 4-byte ones.
+// limits cut a copy only at a slice's or M's or N's end); else 4-byte ones
+// (bfloat16: element by element through registers, no cp.async).
 // A copy that reads nothing gets a valid address all the same.
+template <int ROWS, int COLS, bool VEC>
+__device__ __forceinline__ void copy_slab(const bf16* __restrict__ p, long long ld_p, int r0,
+                                          int rlim, int c0, int clim, bf16* dst, int ld) {
+  if constexpr (VEC) {
+    constexpr int C8 = COLS / 8, V = ROWS * C8 / kGemmThreads;
+    static_assert(V * kGemmThreads == ROWS * C8, "slab");
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int idx = threadIdx.x + v * kGemmThreads;
+      const int r = idx / C8, c = 8 * (idx % C8);
+      const int gr = r0 + r, gc = c0 + c;
+      const int n = gr < rlim ? max(0, min(8, clim - gc)) : 0;  // elements in range
+      cp_async16(dst + r * ld + c, n > 0 ? p + (long long)gr * ld_p + gc : p, 2 * n);
+    }
+  } else {
+    constexpr int V = ROWS * COLS / kGemmThreads;
+    static_assert(V * kGemmThreads == ROWS * COLS, "slab");
+#pragma unroll 4
+    for (int v = 0; v < V; ++v) {
+      const int idx = threadIdx.x + v * kGemmThreads;
+      const int r = idx / COLS, c = idx % COLS;
+      const int gr = r0 + r, gc = c0 + c;
+      dst[r * ld + c] = gr < rlim && gc < clim ? p[(long long)gr * ld_p + gc] : from_f<bf16>(0.f);
+    }
+  }
+}
+
 template <int ROWS, int COLS, bool VEC>
 __device__ __forceinline__ void copy_slab(const float* __restrict__ p, long long ld_p, int r0,
                                           int rlim, int c0, int clim, float* dst, int ld) {
@@ -394,13 +484,17 @@ __device__ __forceinline__ void copy_slab(const float* __restrict__ p, long long
   }
 }
 
-template <bool TA, bool TB, bool VEC>
+template <bool TA, bool TB, bool VEC, class P = float>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict__ B,
-            long long ldb, float* __restrict__ C, long long ldc, int M, int N, int K,
+gemm_kernel(const typename GemmTypes<P>::In* __restrict__ A, long long lda,
+            const typename GemmTypes<P>::In* __restrict__ B, long long ldb,
+            typename GemmTypes<P>::Out* __restrict__ C, long long ldc, int M, int N, int K,
             const float* __restrict__ bias, int kslice, long long split_stride, bool vec_c) {
-  using T = GemmTile<TA, TB>;
-  extern __shared__ __align__(16) float gsm[];
+  using T = GemmTile<TA, TB, P>;
+  using S = typename T::S;
+  using O = typename GemmTypes<P>::Out;
+  extern __shared__ __align__(16) float gsm_words[];
+  S* gsm = reinterpret_cast<S*>(gsm_words);
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int kb = blockIdx.z * kslice;
   const int ke = min(K, kb + kslice);
@@ -418,8 +512,8 @@ gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict_
   // slab s of the slice into stage s % kStages (a group, empty past the end)
   auto copy = [&](int s) {
     if (s < steps) {
-      float* sa = gsm + (s % kStages) * T::STAGE;
-      float* sb = sa + T::A_FLOATS;
+      S* sa = gsm + (s % kStages) * T::STAGE;
+      S* sb = sa + T::A_ELEMS;
       const int k0 = kb + s * T::BK;
       copy_slab<T::A_ROWS, T::A_COLS, VEC>(A, lda, TA ? k0 : m0, TA ? ke : M, TA ? m0 : k0,
                                            TA ? M : ke, sa, T::LA);
@@ -435,8 +529,8 @@ gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict_
     cp_async_wait();  // slab s is in its stage (this thread's copies)
     __syncthreads();  // everyone's copies; slab s - 1's readers done
     copy(s + kStages - 1);  // into the stage slab s - 1 left
-    const float* sa = gsm + (s % kStages) * T::STAGE;
-    const float* sb = sa + T::A_FLOATS;
+    const S* sa = gsm + (s % kStages) * T::STAGE;
+    const S* sb = sa + T::A_ELEMS;
     float part[T::MT][T::NT][4];  // this slab's sums
 #pragma unroll
     for (int i = 0; i < T::MT; ++i)
@@ -462,10 +556,12 @@ gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict_
         const int m = wm + 16 * i;
         const tc::FragA fa = TA ? tc::frag_a_trans(sa + kk * T::LA + m, T::LA)
                                 : tc::frag_a_paired(sa + m * T::LA + kk, T::LA);
+        if constexpr (!T::kB16) {
 #pragma unroll
-        for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.lo, fb[j].hi);
+          for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.lo, fb[j].hi);
 #pragma unroll
-        for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].lo);
+          for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].lo);
+        }
 #pragma unroll
         for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].hi);
       }
@@ -480,7 +576,7 @@ gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict_
   cp_async_wait_all();
 
   // c0, c1 at (grp, 2 tig, 2 tig + 1) of each m16n8 tile, c2, c3 eight rows below
-  float* Cz = C + blockIdx.z * split_stride;
+  O* Cz = C + blockIdx.z * split_stride;
   const int g = tc::lane_grp(), t = tc::lane_tig();
 #pragma unroll
   for (int i = 0; i < T::MT; ++i)
@@ -493,9 +589,16 @@ gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict_
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wm + 16 * i + g + 8 * h;
         if (m >= M) continue;
-        float* row = Cz + (long long)m * ldc;
+        O* row = Cz + (long long)m * ldc;
         const float v0 = acc[i][j][2 * h] + b0, v1 = acc[i][j][2 * h + 1] + b1;
-        if (vec_c && n + 1 < N) {
+        if constexpr (kBf16<O>) {
+          if (vec_c && n + 1 < N) {
+            *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (n < N) row[n] = from_f<bf16>(v0);
+            if (n + 1 < N) row[n + 1] = from_f<bf16>(v1);
+          }
+        } else if (vec_c && n + 1 < N) {
           *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
         } else {
           if (n < N) row[n] = v0;
@@ -505,27 +608,30 @@ gemm_kernel(const float* __restrict__ A, long long lda, const float* __restrict_
     }
 }
 
-inline bool aligned16(const void* p, long long ld) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 4 == 0;
+// p 16-byte aligned and its rows a multiple of 16 bytes apart
+template <class S>
+inline bool aligned16(const S* p, long long ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % (long long)(16 / sizeof(S)) == 0;
 }
 
 // One product, k split into `splits` slices (1: C is the product itself).
-template <bool TA, bool TB>
-cudaError_t gemm(const float* A, long long lda, const float* B, long long ldb, float* C,
-                 long long ldc, int M, int N, int K, const float* bias, int splits,
-                 long long split_stride, cudaStream_t st) {
-  using T = GemmTile<TA, TB>;
+template <bool TA, bool TB, class P = float>
+cudaError_t gemm(const typename GemmTypes<P>::In* A, long long lda,
+                 const typename GemmTypes<P>::In* B, long long ldb,
+                 typename GemmTypes<P>::Out* C, long long ldc, int M, int N, int K,
+                 const float* bias, int splits, long long split_stride, cudaStream_t st) {
+  using T = GemmTile<TA, TB, P>;
   const int steps = (K + T::BK - 1) / T::BK;
   const int kslice = (steps + splits - 1) / splits * T::BK;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  const bool vec_c = reinterpret_cast<uintptr_t>(C) % 8 == 0 && ldc % 2 == 0 &&
+  const bool vec_c = reinterpret_cast<uintptr_t>(C) % (2 * sizeof(*C)) == 0 && ldc % 2 == 0 &&
                      split_stride % 2 == 0;
   // the kernel of 16-byte copies when both operands allow them. Opted in at
   // every launch: a function-local static here would be one object for
   // every library that instantiates this template (a GNU unique symbol), so
   // a second library's kernel would never be.
-  auto kernel = aligned16(A, lda) && aligned16(B, ldb) ? gemm_kernel<TA, TB, true>
-                                                       : gemm_kernel<TA, TB, false>;
+  auto kernel = aligned16(A, lda) && aligned16(B, ldb) ? gemm_kernel<TA, TB, true, P>
+                                                       : gemm_kernel<TA, TB, false, P>;
   const cudaError_t opted = allow_smem(kernel, T::SMEM);
   if (opted != cudaSuccess) return opted;
   kernel<<<grid, kGemmThreads, T::SMEM, st>>>(A, lda, B, ldb, C, ldc, M, N, K, bias, kslice,
@@ -533,15 +639,15 @@ cudaError_t gemm(const float* A, long long lda, const float* B, long long ldb, f
   return cudaGetLastError();
 }
 
-// Resident blocks per SM of gemm<TA, TB>'s kernel of 16-byte copies; its
+// Resident blocks per SM of gemm<TA, TB, P>'s kernel of 16-byte copies; its
 // dynamic shared memory in *smem_bytes. -1 on failure.
-template <bool TA, bool TB>
+template <bool TA, bool TB, class P = float>
 int gemm_residency(int* smem_bytes) {
-  using T = GemmTile<TA, TB>;
+  using T = GemmTile<TA, TB, P>;
   *smem_bytes = (int)T::SMEM;
-  if (allow_smem(gemm_kernel<TA, TB, true>, T::SMEM) != cudaSuccess) return -1;
+  if (allow_smem(gemm_kernel<TA, TB, true, P>, T::SMEM) != cudaSuccess) return -1;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<TA, TB, true>,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_kernel<TA, TB, true, P>,
                                                     kGemmThreads, T::SMEM) != cudaSuccess)
     return -1;
   return per_sm;
@@ -565,24 +671,27 @@ inline int grad_splits(int M, int N, int E) {
 }
 
 // partial[z][n] = sum over the z-th slice of rows e of A[e * lda + n], in order.
-__global__ void col_sum_kernel(const float* __restrict__ A, long long lda, int rows, int N,
+template <class T = float>
+__global__ void col_sum_kernel(const T* __restrict__ A, long long lda, int rows, int N,
                                int slice, float* __restrict__ partial) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int e1 = min(rows, (int)(blockIdx.y + 1) * slice);
   float v = 0.f;
-  for (int e = blockIdx.y * slice; e < e1; ++e) v += A[(long long)e * lda + n];
+  for (int e = blockIdx.y * slice; e < e1; ++e) v += to_f(A[(long long)e * lda + n]);
   partial[(long long)blockIdx.y * N + n] = v;
 }
 
 inline int col_splits(int E) { return E < 256 ? 1 : (E / 256 < 128 ? E / 256 : 128); }
 
 // out[n] = sum over rows e of A[e * lda + n]: slices, then their sum in order.
-inline cudaError_t col_sum(const float* A, long long lda, int rows, int N, float* partial,
+template <class T>
+inline cudaError_t col_sum(const T* A, long long lda, int rows, int N, float* partial,
                            float* out, cudaStream_t st) {
   const int splits = col_splits(rows);
   const int slice = (rows + splits - 1) / splits;
-  col_sum_kernel<<<dim3((N + 255) / 256, splits), 256, 0, st>>>(A, lda, rows, N, slice, partial);
+  col_sum_kernel<T><<<dim3((N + 255) / 256, splits), 256, 0, st>>>(A, lda, rows, N, slice,
+                                                                  partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   sum_rows_kernel<<<(N + 255) / 256, 256, 0, st>>>(partial, out, N, splits);
@@ -590,12 +699,14 @@ inline cudaError_t col_sum(const float* A, long long lda, int rows, int N, float
 }
 
 // out [M, N] = sum over E edges of A_e^T B_e (TA product), in edge slices
-// whose partial sums are added in slice order.
-inline cudaError_t weight_grad(const float* A, long long lda, const float* B, long long ldb,
-                               int M, int N, int E, float* partial, float* out, cudaStream_t st) {
+// whose partial sums (float32) are added in slice order.
+template <class T>
+inline cudaError_t weight_grad(const T* A, long long lda, const T* B, long long ldb, int M, int N,
+                               int E, float* partial, float* out, cudaStream_t st) {
   const int splits = grad_splits(M, N, E);
   const long long P = (long long)M * N;
-  cudaError_t err = gemm<true, false>(A, lda, B, ldb, partial, N, M, N, E, nullptr, splits, P, st);
+  cudaError_t err = gemm<true, false, GemmAt<T>>(A, lda, B, ldb, partial, N, M, N, E, nullptr,
+                                                 splits, P, st);
   if (err != cudaSuccess) return err;
   const int grid = persistent_grid(sum_rows_kernel, 256, 0, (P + 255) / 256);
   sum_rows_kernel<<<grid, 256, 0, st>>>(partial, out, P, splits);
@@ -609,29 +720,33 @@ inline cudaError_t weight_grad(const float* A, long long lda, const float* B, lo
 // coefficients in registers, and walks the G grid points with tg and fg in
 // shared memory (rows zero-padded to kMaxRows floats: 16-byte broadcasts).
 
-// tg/fg [G, I] -> shared [G, kMaxRows]; fg's row 0 zeroed when skip_row0.
+// tg/fg [G, I] -> shared [G, kMaxRows] (rounded to T's precision); fg's row
+// 0 zeroed when skip_row0.
+template <class T = float>
 __device__ inline void stage_grid_rows(const float* __restrict__ tg, const float* __restrict__ fg,
                                        int G, int I, bool skip_row0, float* stg, float* sfg) {
   for (int t = threadIdx.x; t < G * kMaxRows; t += blockDim.x) {
     const int g = t / kMaxRows, j = t % kMaxRows;
-    stg[t] = j < I ? tg[g * I + j] : 0.f;
-    sfg[t] = (j < I && !(skip_row0 && j == 0)) ? fg[g * I + j] : 0.f;
+    stg[t] = j < I ? rnd<T>(tg[g * I + j]) : 0.f;
+    sfg[t] = (j < I && !(skip_row0 && j == 0)) ? rnd<T>(fg[g * I + j]) : 0.f;
   }
 }
 
 // mid[e, i, k] = sum_g fg[g, i] silu(sum_j tg[g, j] h[e, j, k]) for i >= 1,
 // mid[e, 0, k] = silu(gate[e, k]); h and gate read from the conv-1 output y1
-// (gate = its extra channels from alpha_ch). extra_out, when not null,
-// receives each edge's extra channels.
+// (gate = its extra channels from alpha_ch, float32 at either T). extra_out,
+// when not null, receives each edge's extra channels. At bf16 h and silu of
+// the grid are rounded before their products, mid and extra as stored.
+template <class T = float>
 __global__ void __launch_bounds__(kGridThreads)
 grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
-                const float* __restrict__ fg, float* __restrict__ mid,
-                float* __restrict__ extra_out, Dims d) {
+                const float* __restrict__ fg, T* __restrict__ mid,
+                T* __restrict__ extra_out, Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;
   float* sfg = smem + d.G * kMaxRows;
   const int I = d.n_trunc;
-  stage_grid_rows(tg, fg, d.G, I, false, stg, sfg);
+  stage_grid_rows<T>(tg, fg, d.G, I, false, stg, sfg);
   __syncthreads();
   const int cblocks = (d.H + kGridThreads - 1) / kGridThreads;
   const long long jobs = (long long)d.E * cblocks;
@@ -641,13 +756,14 @@ grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
     const float* ye = y1 + e * d.y1_width;
     const float* xe = ye + d.rows[0] * d.H;  // the edge's extra channels
     if (extra_out != nullptr && cb == 0)
-      for (int q = threadIdx.x; q < d.extra; q += blockDim.x) extra_out[e * d.extra + q] = xe[q];
+      for (int q = threadIdx.x; q < d.extra; q += blockDim.x)
+        extra_out[e * d.extra + q] = from_f<T>(xe[q]);
     const int k = cb * kGridThreads + threadIdx.x;
     if (k >= d.H) continue;
     float hv[kMaxRows], acc[kMaxRows];
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j) {
-      hv[j] = j < I ? ye[y1_row_col(d, j) + k] : 0.f;
+      hv[j] = j < I ? rnd<T>(ye[y1_row_col(d, j) + k]) : 0.f;
       acc[j] = 0.f;
     }
     for (int g = 0; g < d.G; ++g) {
@@ -662,7 +778,7 @@ grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
         v = fmaf(w.z, hv[4 * j4 + 2], v);
         v = fmaf(w.w, hv[4 * j4 + 3], v);
       }
-      const float a = siluf_(v);
+      const float a = rnd<T>(siluf_(v));
 #pragma unroll
       for (int j4 = 0; j4 < kMaxRows / 4; ++j4) {
         const float4 w = fr[j4];
@@ -672,27 +788,32 @@ grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
         acc[4 * j4 + 3] = fmaf(w.w, a, acc[4 * j4 + 3]);
       }
     }
-    float* me = mid + e * I * d.H + k;
-    me[0] = siluf_(xe[d.alpha_ch + k]);
+    T* me = mid + e * I * d.H + k;
+    me[0] = from_f<T>(siluf_(xe[d.alpha_ch + k]));
 #pragma unroll
     for (int j = 1; j < kMaxRows; ++j)
-      if (j < I) me[(long long)j * d.H] = acc[j];
+      if (j < I) me[(long long)j * d.H] = from_f<T>(acc[j]);
   }
 }
 
 // The backward of grid_fwd_kernel, written as a conv-1 output cotangent dy1:
 //   dy1 hidden rows = tg^T (silu'(tg h) * fg' dmid)   (fg' without row 0)
 //   dy1 extra       = dextra, plus silu'(gate) * dmid[0] on the gate channels
-// Row 0 of dmid reaches only the gate.
+// Row 0 of dmid reaches only the gate. At bf16 dmid's other rows and
+// silu'(grid) times the lifted cotangent are rounded before their products
+// (dmid's row 0 and the gate's sum stay float32), dy1 is stored rounded,
+// and dy0 [E, out1[0]] receives section 0's columns unrounded (db1's sums).
+template <class T = float>
 __global__ void __launch_bounds__(kGridThreads)
 grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
-                const float* __restrict__ dextra, const float* __restrict__ tg,
-                const float* __restrict__ fg, float* __restrict__ dy1, Dims d) {
+                const T* __restrict__ dextra, const float* __restrict__ tg,
+                const float* __restrict__ fg, T* __restrict__ dy1, float* __restrict__ dy0,
+                Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;
   float* sfg = smem + d.G * kMaxRows;
   const int I = d.n_trunc;
-  stage_grid_rows(tg, fg, d.G, I, true, stg, sfg);
+  stage_grid_rows<T>(tg, fg, d.G, I, true, stg, sfg);
   __syncthreads();
   const int cblocks = (d.H + kGridThreads - 1) / kGridThreads;
   const long long jobs = (long long)d.E * cblocks;
@@ -700,19 +821,25 @@ grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
     const long long e = job / cblocks;
     const int cb = (int)(job % cblocks);
     const float* ye = y1 + e * d.y1_width;
-    float* de = dy1 + e * d.y1_width;
-    const float* dxe = dextra + e * d.extra;
+    T* de = dy1 + e * d.y1_width;
+    const T* dxe = dextra + e * d.extra;
     const int x0 = d.rows[0] * d.H;  // the extra channels' first column
+    float* d0 = nullptr;  // bf16: the edge's section-0 columns, float32
+    if constexpr (kBf16<T>) d0 = dy0 + e * d.out1[0];
     if (cb == 0)
-      for (int q = threadIdx.x; q < d.alpha_ch; q += blockDim.x) de[x0 + q] = dxe[q];
+      for (int q = threadIdx.x; q < d.alpha_ch; q += blockDim.x) {
+        de[x0 + q] = dxe[q];
+        if constexpr (kBf16<T>) d0[x0 + q] = to_f(dxe[q]);
+      }
     const int k = cb * kGridThreads + threadIdx.x;
     if (k >= d.H) continue;
     const float* ge = dmid + e * I * d.H + k;
     float hv[kMaxRows], gv[kMaxRows], acc[kMaxRows];
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j) {
-      hv[j] = j < I ? ye[y1_row_col(d, j) + k] : 0.f;
+      hv[j] = j < I ? rnd<T>(ye[y1_row_col(d, j) + k]) : 0.f;
       gv[j] = j < I ? ge[(long long)j * d.H] : 0.f;
+      if (j > 0) gv[j] = rnd<T>(gv[j]);
       acc[j] = 0.f;
     }
     for (int g = 0; g < d.G; ++g) {
@@ -732,7 +859,7 @@ grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
         u = fmaf(f.z, gv[4 * j4 + 2], u);
         u = fmaf(f.w, gv[4 * j4 + 3], u);
       }
-      const float hg = silu_gradf_(v) * u;
+      const float hg = rnd<T>(silu_gradf_(v) * u);
 #pragma unroll
       for (int j4 = 0; j4 < kMaxRows / 4; ++j4) {
         const float4 w = tr[j4];
@@ -742,10 +869,16 @@ grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
         acc[4 * j4 + 3] = fmaf(w.w, hg, acc[4 * j4 + 3]);
       }
     }
-    de[x0 + d.alpha_ch + k] = dxe[d.alpha_ch + k] + silu_gradf_(ye[x0 + d.alpha_ch + k]) * gv[0];
+    const float gx = to_f(dxe[d.alpha_ch + k]) + silu_gradf_(ye[x0 + d.alpha_ch + k]) * gv[0];
+    de[x0 + d.alpha_ch + k] = from_f<T>(gx);
+    if constexpr (kBf16<T>) d0[x0 + d.alpha_ch + k] = gx;
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j)
-      if (j < I) de[y1_row_col(d, j) + k] = acc[j];
+      if (j < I) {
+        de[y1_row_col(d, j) + k] = from_f<T>(acc[j]);
+        if constexpr (kBf16<T>)
+          if (j < d.rows[0]) d0[j * d.H + k] = acc[j];
+      }
   }
 }
 
@@ -760,39 +893,103 @@ inline cudaError_t grid_launch_config(Kernel kernel, const Dims& d, int* blocks)
   return cudaSuccess;
 }
 
-inline cudaError_t grid_fwd(const float* y1, const float* tg, const float* fg, float* mid,
-                            float* extra_out, const Dims& d, cudaStream_t st) {
+template <class T>
+inline cudaError_t grid_fwd(const float* y1, const float* tg, const float* fg, T* mid,
+                            T* extra_out, const Dims& d, cudaStream_t st) {
   int blocks = 0;
-  cudaError_t err = grid_launch_config(grid_fwd_kernel, d, &blocks);
+  cudaError_t err = grid_launch_config(grid_fwd_kernel<T>, d, &blocks);
   if (err != cudaSuccess) return err;
-  grid_fwd_kernel<<<blocks, kGridThreads, grid_smem(d), st>>>(y1, tg, fg, mid, extra_out, d);
+  grid_fwd_kernel<T><<<blocks, kGridThreads, grid_smem(d), st>>>(y1, tg, fg, mid, extra_out, d);
   return cudaGetLastError();
 }
 
-inline cudaError_t grid_bwd(const float* y1, const float* dmid, const float* dextra,
-                            const float* tg, const float* fg, float* dy1, const Dims& d,
-                            cudaStream_t st) {
+template <class T>
+inline cudaError_t grid_bwd(const float* y1, const float* dmid, const T* dextra, const float* tg,
+                            const float* fg, T* dy1, float* dy0, const Dims& d, cudaStream_t st) {
   int blocks = 0;
-  cudaError_t err = grid_launch_config(grid_bwd_kernel, d, &blocks);
+  cudaError_t err = grid_launch_config(grid_bwd_kernel<T>, d, &blocks);
   if (err != cudaSuccess) return err;
-  grid_bwd_kernel<<<blocks, kGridThreads, grid_smem(d), st>>>(y1, dmid, dextra, tg, fg, dy1, d);
+  grid_bwd_kernel<T><<<blocks, kGridThreads, grid_smem(d), st>>>(y1, dmid, dextra, tg, fg, dy1,
+                                                                 dy0, d);
   return cudaGetLastError();
 }
 
-// conv-1 products of the rotated, modulated message mpr into y1 (b1 on
-// section 0) and the S2 activation into mid: the forward up to mid, which
-// K6 continues into conv 2 and K6b differentiates.
-inline cudaError_t forward_to_mid(const float* mpr, const float* const* w1s, const float* b1,
-                                  const float* tg, const float* fg, float* y1, float* mid,
-                                  float* extra_out, const Dims& d, cudaStream_t st) {
+// conv-1 products of the rotated, modulated message mpr into y1 (float32;
+// b1 on section 0) and the S2 activation into mid: the forward up to mid,
+// which K6 continues into conv 2 and K6b differentiates.
+template <class T>
+inline cudaError_t forward_to_mid(const T* mpr, const T* const* w1s, const float* b1,
+                                  const float* tg, const float* fg, float* y1, T* mid,
+                                  T* extra_out, const Dims& d, cudaStream_t st) {
   const long long ldm = (long long)d.n_trunc * d.C;
   for (int s = 0; s < kSecs; ++s) {
-    const cudaError_t err = gemm<false, false>(
+    const cudaError_t err = gemm<false, false, GemmAt<T>>(
         mpr + d.row0[s] * d.C, ldm, w1s[s], d.out1[s], y1 + d.y1_col[s], d.y1_width, d.E,
         d.out1[s], d.rows[s] * d.C, s == 0 ? b1 : nullptr, 1, 0, st);
     if (err != cudaSuccess) return err;
   }
   return grid_fwd(y1, tg, fg, mid, extra_out, d, st);
+}
+
+// ---------------------------------------------------------------- bfloat16
+//
+// The section weights rounded to bfloat16 once a call (the Pallas wrapper's
+// w.astype(x.dtype)) into the call's scratch; and the scratch's layout.
+
+struct WeightSet {
+  const float* src[2 * kSecs];  // conv 1's sections, then conv 2's
+  bf16* dst[2 * kSecs];
+  long long n[2 * kSecs];
+};
+
+__global__ void round_weights_kernel(WeightSet w) {
+  for (int s = 0; s < 2 * kSecs; ++s)
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < w.n[s];
+         i += (long long)gridDim.x * blockDim.x)
+      w.dst[s][i] = from_f<bf16>(w.src[s][i]);
+}
+
+inline long long round_up256(long long bytes) { return (bytes + 255) / 256 * 256; }
+
+// Byte offsets in the scratch of the rounded weights (w1r[s], w2r[s]), from
+// 0; *end the first byte past them.
+struct Bf16Weights {
+  long long w1[kSecs], w2[kSecs], end;
+};
+
+inline Bf16Weights bf16_weights_layout(const Dims& d) {
+  Bf16Weights w;
+  long long off = 0;
+  for (int s = 0; s < kSecs; ++s) {
+    w.w1[s] = off;
+    off = round_up256(off + 2LL * d.rows[s] * d.C * d.out1[s]);
+  }
+  for (int s = 0; s < kSecs; ++s) {
+    w.w2[s] = off;
+    off = round_up256(off + 2LL * d.rows[s] * d.H * d.rows[s] * d.F2);
+  }
+  w.end = off;
+  return w;
+}
+
+// w1s, w2s (float32) rounded into base + the layout's offsets.
+inline cudaError_t round_weights(const float* const* w1s, const float* const* w2s, char* base,
+                                 const Bf16Weights& lay, const Dims& d, bf16** w1r, bf16** w2r,
+                                 cudaStream_t st) {
+  WeightSet w;
+  long long most = 1;
+  for (int s = 0; s < kSecs; ++s) {
+    w1r[s] = reinterpret_cast<bf16*>(base + lay.w1[s]);
+    w2r[s] = reinterpret_cast<bf16*>(base + lay.w2[s]);
+    w.src[s] = w1s[s], w.dst[s] = w1r[s], w.n[s] = (long long)d.rows[s] * d.C * d.out1[s];
+    w.src[kSecs + s] = w2s[s], w.dst[kSecs + s] = w2r[s];
+    w.n[kSecs + s] = (long long)d.rows[s] * d.H * d.rows[s] * d.F2;
+    most = w.n[s] > most ? w.n[s] : most;
+    most = w.n[kSecs + s] > most ? w.n[kSecs + s] : most;
+  }
+  const int grid = persistent_grid(round_weights_kernel, 256, 0, (most + 255) / 256);
+  round_weights_kernel<<<grid, 256, 0, st>>>(w);
+  return cudaGetLastError();
 }
 
 }  // namespace so2

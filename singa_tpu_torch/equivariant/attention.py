@@ -208,15 +208,18 @@ class GraphAttention(nn.Module):
         alpha_ch = self.num_heads * self.alpha_channels
         if self._fused(wigner):
             # rotate -> SO2 conv 1 -> separable S2 -> SO2 conv 2 in kernel K6
+            # (K6·bf16 at a bfloat16 compute dtype): the message and the
+            # radial modulation in the compute dtype, the float32 weights
+            # and grids, which the kernel rounds, as JAX passes them
             w1s, b1 = self.so2_conv_1.section_weights()
             w2s, b2 = self.so2_conv_2.section_weights()
             tg, fg = _grid_mats_for(self.lmax, self.mmax, True)
-            dev, dt = msg.device, msg.dtype
+            dev, dt = msg.device, compute_dtype()
             F2 = self.num_heads * self.value_channels
             *zs, x0_extra = so2_attn(
-                msg.contiguous(), self.so2_conv_1.radial(x_edge).contiguous(), wigner.phi,
-                wigner.beta, w1s, b1, w2s, b2, so3.as_const(tg, dev, dt),
-                so3.as_const(fg, dev, dt), self.lmax, self.mmax, self.hidden_channels, F2, alpha_ch,
+                msg.to(dt).contiguous(), self.so2_conv_1.radial(x_edge).to(dt).contiguous(),
+                wigner.phi, wigner.beta, w1s, b1, w2s, b2, so3.as_const(tg, dev),
+                so3.as_const(fg, dev), self.lmax, self.mmax, self.hidden_channels, F2, alpha_ch,
             )
             E = msg.shape[0]
             secs = so2_sections(self.lmax, self.mmax)

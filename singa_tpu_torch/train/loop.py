@@ -79,13 +79,11 @@ def float32_config(cfg: Config) -> Config:
 
 
 def bf16_blockers(config: Config) -> list[str]:
-    """The kernels without a bfloat16 instance (K4/K4b: at the s2 FFN's
-    widths, if their bfloat16 instances do not take them; K6/K6b) that
-    training ``config`` runs, with the option or switch that selects each
-    (read now, as the modules read them at every call); empty on the paths
-    that train in bfloat16."""
-    from singa_tpu_torch.equivariant.attention import _fused_so2_enabled
-
+    """The kernels without a bfloat16 instance that training ``config``
+    runs (K4/K4b at the s2 FFN's widths, if their bfloat16 instances do not
+    take them), with the option that selects them; empty on the paths that
+    train in bfloat16 (every other kernel, K6/K6b under
+    ``SINGA_TPU_FUSED_SO2`` included, has one)."""
     emb = config.embedding
     out = []
     C = emb.sphere_channels
@@ -93,8 +91,6 @@ def bf16_blockers(config: Config) -> list[str]:
         out.append(f"K4/K4b at lmax {emb.lmax}, {C} sphere channels (ffn_activation: s2; "
                    "their bfloat16 instances take lmax 1..6 and 4..16 channels, a multiple "
                    "of 4)")
-    if _fused_so2_enabled() and emb.mmax == 2 and emb.attn_hidden_channels % 128 == 0:
-        out.append("K6/K6b (SINGA_TPU_FUSED_SO2)")
     return out
 
 

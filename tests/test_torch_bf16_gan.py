@@ -309,10 +309,9 @@ def test_gan_cli_trains_at_the_configs_bfloat16(tmp_path, capsys, monkeypatch):
     """The GAN CLI on a tiny config file at bfloat16 (``--synthetic --device
     cpu``, one round): it prints the precision line ``training_config``
     gives, keeps bfloat16 in the run's config.yml and logs finite losses;
-    under ``SINGA_TPU_HYBRID_ATTN`` (K7/K7b) the same file keeps bfloat16;
-    under ``SINGA_TPU_FUSED_SO2`` (K6/K6b, no bfloat16 instance) the file
-    at 128 attention channels (where K6 runs) trains in float32 and the
-    line says why."""
+    under ``SINGA_TPU_HYBRID_ATTN`` (K7/K7b) the same file keeps bfloat16,
+    and so does, under ``SINGA_TPU_FUSED_SO2`` (K6/K6b), the file at 128
+    attention channels (where K6 runs)."""
     import json
     import math
 
@@ -348,7 +347,6 @@ def test_gan_cli_trains_at_the_configs_bfloat16(tmp_path, capsys, monkeypatch):
     main([*common[:1], str(so2_path), *common[2:], "--rounds", "0", "--logdir",
           str(tmp_path / "so2")])
     line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("config:")][0]
-    assert line.startswith(f"config: {so2_path} with train.compute_dtype=float32 (")
-    assert "K6/K6b (SINGA_TPU_FUSED_SO2)" in line and "ROADMAP, Queue 1 item 2" in line
+    assert line == f"config: {so2_path} with train.compute_dtype=bfloat16"
     with open(tmp_path / "so2" / "config.yml") as f:
-        assert yaml.safe_load(f)["train"]["compute_dtype"] == "float32"
+        assert yaml.safe_load(f)["train"]["compute_dtype"] == "bfloat16"

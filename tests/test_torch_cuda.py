@@ -20,7 +20,12 @@ float32 sums of thousands of terms taken in another order.
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
+import subprocess
+import sys
+import tempfile
 import warnings
 
 import numpy as np
@@ -1336,40 +1341,92 @@ def test_s2_silu_sep_bf16_instance_matches_its_twin(dev, E, C, lmax):
         n[0], n[1], n[2] + 1, n[3] + 1)
 
 
-def _kernels_run(fn, tries=3):
-    """fn()'s result on the card, the names of the kernels it launched
-    there (torch.profiler) and how many times fn ran. On the card the
-    profiler returns no device event at all for about one traced call in
-    450, two consecutive traces at a time, whatever the call (a torch
-    elementwise op too; its host events hold the launch):
-    tools/profiler_traces.py measures it; and a trace may hold some of the
-    call's kernels and not others. A trace with fewer device kernels than
-    its host events launched (``cudaLaunchKernel`` and the like) is taken
-    again, fn with it, up to ``tries`` times (past such a pair), and each
-    such trace is reported as a warning, with what it did hold, so that a
-    run's warnings summary counts them."""
+def _trace(fn):
+    """fn()'s result, the names of the device events of one trace of it
+    (torch.profiler), and whether the trace holds as many device kernels as
+    its host events launched (``cudaLaunchKernel`` and the like), with a
+    note of what it held when it does not."""
     from torch.profiler import ProfilerActivity, profile
 
-    for calls in range(1, tries + 1):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        names = [e.key for e in device]
-        launched = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                       and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-        kernels = sum(e.count for e in device if not e.is_user_annotation
-                      and not e.key.startswith(("Memcpy", "Memset")))
-        if names and kernels >= launched:
-            break
-        host = [e.key for e in events]
-        api = sorted({k for k in host if k.startswith("cu")})
-        warnings.warn(f"_kernels_run: trace {calls} of {tries} held {kernels} device kernels "
-                      f"of {launched} launched ({names}; {len(host)} host events; CUDA API "
-                      f"calls {api})", stacklevel=2)
-    return out, names, calls
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.key for e in device]
+    launched = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    kernels = sum(e.count for e in device if not e.is_user_annotation
+                  and not e.key.startswith(("Memcpy", "Memset")))
+    host = [e.key for e in events]
+    api = sorted({k for k in host if k.startswith("cu")})
+    note = (f"held {kernels} device kernels of {launched} launched ({names}; {len(host)} host "
+            f"events; CUDA API calls {api})")
+    return out, names, bool(names) and kernels >= launched, note
+
+
+def _kernels_run(fn, tries=3):
+    """fn()'s result on the card, the names of the kernels it launched
+    there (torch.profiler) and how many times fn ran in this process. On
+    the card the profiler returns no device event at all for about one
+    traced call in 450, two consecutive traces at a time, whatever the call
+    (a torch elementwise op too; its host events hold the launch):
+    tools/profiler_traces.py measures it; and a trace may hold some of the
+    call's kernels and not others, most often late in a process that has
+    traced many calls. A trace with fewer device kernels than its host
+    events launched is taken again, fn with it, up to ``tries`` times, and
+    each such trace is reported as a warning, with what it did hold, so
+    that a run's warnings summary counts them. If every one fell short, fn
+    is traced in a fresh process (``_fresh_names``: fn, a
+    ``functools.partial`` of module-level functions and their arguments,
+    saved with torch.save), whose names are returned."""
+    for calls in range(1, tries + 1):
+        out, names, whole, note = _trace(fn)
+        if whole:
+            return out, names, calls
+        warnings.warn(f"_kernels_run: trace {calls} of {tries} {note}", stacklevel=2)
+    return out, _fresh_names(fn, tries), calls
+
+
+_FRESH = """
+import json, sys, warnings
+import torch
+import test_torch_cuda as t
+fn = torch.load(sys.argv[1], weights_only=False)
+fn()
+for i in range(1, int(sys.argv[2]) + 1):
+    _, names, whole, note = t._trace(fn)
+    if whole:
+        break
+    warnings.warn(f"fresh process: trace {i} {note}")
+print(json.dumps(names))
+"""
+
+
+def _fresh_names(fn, tries):
+    """The kernel names of a trace of fn() in a fresh Python process (after
+    one untraced call there), retraced as ``_kernels_run`` retraces."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(tests), tests] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.pt")
+        torch.save(fn, path)
+        p = subprocess.run([sys.executable, "-c", _FRESH, path, str(tries)], capture_output=True,
+                           text=True, env=env, timeout=900)
+    if p.returncode:
+        raise RuntimeError(f"fresh-process trace failed:\n{p.stderr[-4000:]}")
+    if p.stderr.strip():
+        warnings.warn(f"_kernels_run, fresh process: {p.stderr.strip()[-2000:]}", stacklevel=3)
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def _with_stats(fn, stats, *args, **kw):
+    """fn(*args, stats=stats, **kw) with ``stats`` zeroed first: a traced
+    call may run more than once."""
+    return fn(*args, stats=stats.zero_(), **kw)
 
 
 # K3's and K3b's bfloat16 cases (E, C, lmax, tensor cores): the lmax 6 / mmax 2
@@ -1399,10 +1456,10 @@ def test_s2_silu_sep_bf16_instance_by_shape_and_kernel(dev, E, C, lmax, tc):
     for cuda_cores in (False, True):
         n = (k3.launches, k3.launches_bwd, k3.launches_bf16, k3.launches_bwd_bf16)
         got, names, calls = _kernels_run(
-            lambda: k3.s2_silu_sep_cuda(x, s, tg, fg, cuda_cores=cuda_cores))
+            functools.partial(k3.s2_silu_sep_cuda, x, s, tg, fg, cuda_cores=cuda_cores))
         _check_bf16([got], [want], ["out"])
         grads, bnames, bcalls = _kernels_run(
-            lambda: k3.s2_silu_sep_bwd_cuda(x, s, tg, fg, g, cuda_cores=cuda_cores))
+            functools.partial(k3.s2_silu_sep_bwd_cuda, x, s, tg, fg, g, cuda_cores=cuda_cores))
         _check_bf16(grads, want_g, ["dx", "ds"])
         assert (k3.launches, k3.launches_bwd, k3.launches_bf16, k3.launches_bwd_bf16) == (
             n[0], n[1], n[2] + calls, n[3] + bcalls)
@@ -1451,9 +1508,9 @@ def test_s2_silu_sep_bf16_takes_misaligned_inputs(dev):
 
     args = [a.to(torch.bfloat16) for a in _sep_case(dev, 37, 128, 6, 99, cotangent=True)]
     mis = [_misaligned(a) for a in args]
-    got, names, _ = _kernels_run(lambda: k3.s2_silu_sep_cuda(*mis[:4]))
+    got, names, _ = _kernels_run(functools.partial(k3.s2_silu_sep_cuda, *mis[:4]))
     _check_bf16([got], [k3.s2_silu_sep_plain(*args[:4])], ["out"])
-    grads, bnames, _ = _kernels_run(lambda: k3.s2_silu_sep_bwd_cuda(*mis))
+    grads, bnames, _ = _kernels_run(functools.partial(k3.s2_silu_sep_bwd_cuda, *mis))
     _check_bf16(grads, k3.s2_silu_sep_bwd_plain(*args), ["dx", "ds"])
     assert [m for m in names + bnames if "cc::s2_silu_sep" in m] == []
     assert len([m for m in names + bnames if "s2_silu_sep" in m and "tc_kernel" in m]) == 2
@@ -1488,7 +1545,7 @@ def test_so3_gate_ffn_bwd_bf16_instance_by_width(dev, lmax, N, H, C, Co, tc):
     for cuda_cores in (False, True):
         n = (k2.launches_bwd, k2.launches_bwd_bf16)
         got, names, calls = _kernels_run(
-            lambda: k2.so3_gate_ffn_bwd_cuda(*args, lmax, dy, cuda_cores=cuda_cores))
+            functools.partial(k2.so3_gate_ffn_bwd_cuda, *args, lmax, dy, cuda_cores=cuda_cores))
         _check_bf16(got, want, ["dx", "dw1", "db1", "dwg", "dbg", "dw2", "db2"])
         assert (k2.launches_bwd, k2.launches_bwd_bf16) == (n[0], n[1] + calls)
         ran_cc = [m for m in names if "cc::gate_ffn_bwd" in m]
@@ -1518,8 +1575,8 @@ def test_neighbor_attn_bwd_bf16_instance_by_width(dev, case):
     want = k1.neighbor_attn_bwd_plain(*args)
     for cuda_cores in (False, True):
         n = (k1.launches_bwd, k1.launches_bwd_bf16)
-        got, names, calls = _kernels_run(lambda: k1.neighbor_attn_bwd_cuda(
-            *args, offsets=offsets, slots=slots, cuda_cores=cuda_cores))
+        got, names, calls = _kernels_run(functools.partial(
+            k1.neighbor_attn_bwd_cuda, *args, offsets=offsets, slots=slots, cuda_cores=cuda_cores))
         _check_bf16(got, want, BWD_NAMES)
         assert (k1.launches_bwd, k1.launches_bwd_bf16) == (n[0], n[1] + calls)
         ran_tc = [m for m in names if "list_bwd_pair_kernel" in m or "list_dkdv_kernel" in m]
@@ -1563,8 +1620,8 @@ def test_neighbor_attn_bf16_fwd_instance_by_width(dev, case, tc):
     for cuda_cores in (False, True):
         n = (k1.launches, k1.launches_bf16)
         walked = torch.zeros(4, dtype=torch.int32, device=dev)
-        got, names, calls = _kernels_run(
-            lambda: k1.neighbor_attn_cuda(*args, cuda_cores=cuda_cores, stats=walked.zero_()))
+        got, names, calls = _kernels_run(functools.partial(
+            _with_stats, k1.neighbor_attn_cuda, walked, *args, cuda_cores=cuda_cores))
         _check_bf16([got], [want], ["out"])
         assert (k1.launches, k1.launches_bf16) == (n[0], n[1] + calls)
         ran_tc = [m for m in names if "list_fwd_" in m]
@@ -1606,7 +1663,7 @@ def test_so3_gate_ffn_bf16_fwd_instance_by_width(dev, lmax, N, H, C, Co, tc):
     for cuda_cores in (False, True):
         n = (k2.launches, k2.launches_bf16)
         got, names, calls = _kernels_run(
-            lambda: k2.so3_gate_ffn_cuda(*args, lmax, cuda_cores=cuda_cores))
+            functools.partial(k2.so3_gate_ffn_cuda, *args, lmax, cuda_cores=cuda_cores))
         _check_bf16([got], [want], ["y"])
         assert (k2.launches, k2.launches_bf16) == (n[0], n[1] + calls)
         ran_tc = [m for m in names if "gate_ffn_tc_kernel<" in m or "gate_ffn_wsplit_kernel<" in m]
@@ -1695,9 +1752,9 @@ def test_so3_ffn_bf16_instance_by_width(dev, lmax, N, H, C, Co):
     want_g = k4.so3_ffn_bwd_plain(*bwd_args)
     assert want.dtype == want_g[0].dtype == torch.bfloat16
     n = (k4.launches_s2, k4.launches_s2_bwd, k4.launches_s2_bf16, k4.launches_s2_bwd_bf16)
-    got, names, calls = _kernels_run(lambda: k4.so3_ffn_cuda(*args, lmax))
+    got, names, calls = _kernels_run(functools.partial(k4.so3_ffn_cuda, *args, lmax))
     _check_bf16([got], [want], ["y"])
-    grads, bnames, bcalls = _kernels_run(lambda: k4.so3_ffn_bwd_cuda(*bwd_args))
+    grads, bnames, bcalls = _kernels_run(functools.partial(k4.so3_ffn_bwd_cuda, *bwd_args))
     _check_bf16(grads, want_g, K4_NAMES)
     assert (k4.launches_s2, k4.launches_s2_bwd, k4.launches_s2_bf16,
             k4.launches_s2_bwd_bf16) == (n[0], n[1], n[2] + calls, n[3] + bcalls)
@@ -1772,10 +1829,11 @@ def test_so3_ffn_bf16_takes_misaligned_inputs(dev):
     from singa_tpu_torch.ops.cuda import so3_ffn as k4
 
     args, bwd_args = _s2_ffn_bf16_case(dev, 6, 37, 512, 16, 16, 139)
-    got, names, _ = _kernels_run(lambda: k4.so3_ffn_cuda(*[_misaligned(a) for a in args], 6))
+    got, names, _ = _kernels_run(
+        functools.partial(k4.so3_ffn_cuda, *[_misaligned(a) for a in args], 6))
     _check_bf16([got], [k4.so3_ffn_plain(*args, 6)], ["y"])
     grads, bnames, _ = _kernels_run(
-        lambda: k4.so3_ffn_bwd_cuda(*[_misaligned(a) for a in bwd_args]))
+        functools.partial(k4.so3_ffn_bwd_cuda, *[_misaligned(a) for a in bwd_args]))
     _check_bf16(grads, k4.so3_ffn_bwd_plain(*bwd_args), K4_NAMES)
     ran = [m for m in names + bnames if "ffn_tc_kernel<" in m or "ffn_bwd_kernel<" in m]
     assert len(ran) == 2 and all("bfloat16" in m for m in ran), names + bnames
@@ -1921,6 +1979,165 @@ def test_so2_gemm_matches_float64(dev, orient, M, K, N, splits, ragged):
     got = out.view(M, ldc)[:, :N].double()
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert err <= 2e-6, err
+
+
+SO2_GRAD_NAMES = ["dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2",
+                  "db2"]
+# K6·bf16's and K6b·bf16's kernels by name (csrc/so2_chain.cuh at T = bf16:
+# the GEMM on bfloat16 operands, Bf16In<Out>), each of which a forward and a
+# backward call launch, and their float32 instances, which neither launches
+SO2_BF16_FWD = ("round_weights_kernel", "rotate_fwd_kernel<__nv_bfloat16>",
+                r"gemm_kernel<false, false, \w+, singa::so2::Bf16In<float> ?>",
+                r"gemm_kernel<false, false, \w+, singa::so2::Bf16In<__nv_bfloat16> ?>",
+                "grid_fwd_kernel<__nv_bfloat16>")
+SO2_BF16_BWD = ("round_weights_kernel", "rotate_fwd_kernel<__nv_bfloat16>",
+                r"gemm_kernel<false, false, \w+, singa::so2::Bf16In<float> ?>",
+                r"gemm_kernel<false, true, \w+, singa::so2::Bf16In<float> ?>",
+                r"gemm_kernel<true, false, \w+, singa::so2::Bf16In<float> ?>",
+                "grid_fwd_kernel<__nv_bfloat16>", "grid_bwd_kernel<__nv_bfloat16>",
+                "col_sum_kernel<__nv_bfloat16>", "rotate_bwd_kernel<__nv_bfloat16>")
+SO2_F32_KERNELS = (r"gemm_kernel<\w+, \w+, \w+, float>", "rotate_fwd_kernel<float>",
+                   "rotate_bwd_kernel<float>", "grid_fwd_kernel<float>", "grid_bwd_kernel<float>")
+
+
+def _so2_bf16_case(dev, E, lmax, C, H, F2, alpha_ch, seed):
+    """``_so2_case`` with x, rad and the cotangents in bfloat16."""
+    args, cts = _so2_case(dev, E, lmax, C, H, F2, alpha_ch, seed)
+    args[0], args[1] = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
+    return args, [c.to(torch.bfloat16) for c in cts]
+
+
+def _check_names(names, want, banned) -> None:
+    """Each pattern of ``want`` matches one of the kernels ``names`` or more
+    (re.search), each of ``banned`` none."""
+    import re
+
+    for pat in want:
+        assert [m for m in names if re.search(pat, m)], (pat, names)
+    for pat in banned:
+        assert not [m for m in names if re.search(pat, m)], (pat, names)
+
+
+# K6·bf16's cases (E, lmax, C, H, F2, alpha_ch): the default Config's widths
+# at 300 edges (no multiple of the GEMM tile) and at a training
+# microbatch's 31,744 stage-1 edges; lmax 3 with a hidden width no multiple
+# of 128 and rows of F2 no multiple of 8 elements (the GEMM's element-wise
+# copies); E = 0
+SO2_BF16_CASES = [(300, 6, 32, 128, 112, 224), (31744, 6, 32, 128, 112, 224),
+                  (37, 3, 8, 40, 12, 6), (0, 6, 32, 128, 112, 224)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,lmax,C,H,F2,alpha_ch", SO2_BF16_CASES)
+def test_so2_attn_bf16_kernels_match_twins(dev, E, lmax, C, H, F2, alpha_ch):
+    """K6·bf16 and K6b·bf16 against ``so2_attn_bf16_plain`` and
+    ``so2_attn_bwd_bf16_plain`` (``BF16_TOL`` of each output's largest; z,
+    extra, dx and drad bfloat16, the weight and bias gradients float32),
+    counted in ``launches_bf16`` / ``launches_bwd_bf16`` and not in the
+    float32 counters; by name, the stages at bfloat16 ran (the weights'
+    rounding, the rotation, the GEMM on bfloat16 operands in the
+    orientations each direction runs, the grid), none of their float32
+    instances."""
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
+
+    args, cts = _so2_bf16_case(dev, E, lmax, C, H, F2, alpha_ch, 113 + E)
+    bwd_args = _so2_bwd_args(args, cts)
+    want = k6.so2_attn_plain(*args)
+    want_g = k6.so2_attn_bwd_plain(*bwd_args)
+    assert [w.dtype for w in want] == [torch.bfloat16] * 4
+    assert [w.dtype for w in want_g] == [torch.bfloat16] * 2 + [torch.float32] * 8
+    n = (k6.launches, k6.launches_bwd, k6.launches_bf16, k6.launches_bwd_bf16)
+    if E == 0:  # no launch: empty outputs, zero weight and bias gradients
+        got = k6.so2_attn_cuda(*args)
+        grads = k6.so2_attn_bwd_cuda(*bwd_args)
+        assert [(g.shape, g.dtype) for g in (*got, *grads)] == [
+            (w.shape, w.dtype) for w in (*want, *want_g)]
+        assert all(not bool(g.any()) for g in grads[2:])
+        assert (k6.launches, k6.launches_bwd, k6.launches_bf16, k6.launches_bwd_bf16) == n
+        return
+    got, names, calls = _kernels_run(functools.partial(k6.so2_attn_cuda, *args))
+    _check_bf16(got, want, ["z0", "z1", "z2", "extra"])
+    del want
+    grads, bnames, bcalls = _kernels_run(functools.partial(k6.so2_attn_bwd_cuda, *bwd_args))
+    _check_bf16(grads, want_g, SO2_GRAD_NAMES)
+    assert (k6.launches, k6.launches_bwd, k6.launches_bf16, k6.launches_bwd_bf16) == (
+        n[0], n[1], n[2] + calls, n[3] + bcalls)
+    _check_names(names, SO2_BF16_FWD, SO2_F32_KERNELS)
+    _check_names(bnames, SO2_BF16_BWD, SO2_F32_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orient,M,K,N,splits,ragged", SO2_GEMM_CASES)
+def test_so2_gemm_bf16_matches_float64(dev, orient, M, K, N, splits, ragged):
+    """The chain's GEMM on bfloat16 operands (K6·bf16's and K6b·bf16's: one
+    TF32 mma.sync a product, exact for two bfloat16 values), the cases of
+    ``test_so2_gemm_matches_float64``: ragged ones 2 bytes past a 16-byte
+    boundary with row strides 3 elements wider (element-wise copies). A
+    float32 output within 2e-6 of the largest output of the float64 product
+    of the same bfloat16 values; a bfloat16 output (NN and NT, conv 2's)
+    within half a bfloat16 step of each element (2^-8 of it at most) plus
+    that."""
+    import ctypes
+
+    from singa_tpu_torch.ops.cuda import build
+
+    rng = np.random.default_rng(127 + M + K + N)
+    pad, off = (3, 1) if ragged else (0, 0)
+    a_shape = (K, M) if orient == "tn" else (M, K)
+    b_shape = (N, K) if orient == "nt" else (K, N)
+    a, b = (torch.as_tensor(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+            for s in (a_shape, b_shape))
+    bias = rng.normal(size=N).astype(np.float32) if orient == "nn" else None
+
+    def stored(x):  # x at row stride width + pad, `off` elements into its buffer
+        buf = torch.zeros(off + x.shape[0] * (x.shape[1] + pad), dtype=torch.bfloat16)
+        buf[off:].view(x.shape[0], -1)[:, : x.shape[1]] = x
+        return buf.to(dev)
+
+    ta, tb = stored(a), stored(b)
+    fn = build.load("so2_attn").so2_gemm_bf16
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                                                               ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    a64, b64 = (x.to(dev, torch.float64) for x in (a, b))
+    want = (a64.T if orient == "tn" else a64) @ (b64.T if orient == "nt" else b64)
+    if bias is not None:
+        want += torch.as_tensor(bias).to(dev, torch.float64)
+    tbias = _t(bias, dev) if bias is not None else None
+    for out_bf16 in ((False, True) if orient != "tn" else (False,)):
+        dt = torch.bfloat16 if out_bf16 else torch.float32
+        ldc = N + 1 if ragged and orient != "tn" else N
+        out = torch.full((M * ldc,), float("nan"), dtype=dt, device=dev)
+        partial = torch.empty(splits * M * N if splits > 1 else 1, dtype=torch.float32,
+                              device=dev)
+        build.check(fn(ta.data_ptr() + 2 * off, a_shape[1] + pad, tb.data_ptr() + 2 * off,
+                       b_shape[1] + pad, out.data_ptr(), ldc, M, N, K,
+                       tbias.data_ptr() if tbias is not None else None,
+                       {"nn": 0, "nt": 1, "tn": 2}[orient], splits, partial.data_ptr(),
+                       int(out_bf16), build.stream_ptr(out)), "so2_gemm_bf16")
+        torch.cuda.synchronize()
+        got = out.view(M, ldc)[:, :N].double()
+        top = want.abs().max()
+        if out_bf16:
+            err = ((got - want).abs() - 2.0 ** -8 * want.abs()).max() / top
+        else:
+            err = (got - want).abs().max() / top
+        assert err.item() <= 2e-6, (out_bf16, err.item())
+
+
+@pytest.mark.cuda
+def test_so2_gemm_bf16_residency(dev):
+    """The bfloat16 GEMM's kernels are resident in each orientation, with
+    about half the float32 kernels' shared memory a block (NN's [k][n] rows
+    4 elements wider)."""
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
+
+    f32, b16 = k6.gemm_residency(), k6.gemm_residency(bf16=True)
+    for orient in ("nn", "nt", "tn"):
+        assert b16[orient]["blocks_per_sm"] >= 1, b16
+        assert b16[orient]["threads"] == f32[orient]["threads"]
+        assert b16[orient]["smem_bytes"] <= 0.51 * f32[orient]["smem_bytes"], (b16, f32)
 
 
 @pytest.mark.cuda
@@ -2271,9 +2488,10 @@ def test_neighbor_attn_hybrid_bf16_instance_matches_its_twin(dev, B, N, knn, rin
         f32 = (k7.launches, k7.launches_bwd, k7.launches_hybrid, k7.launches_hybrid_bwd)
         n = (k7.launches_hybrid_bf16, k7.launches_bwd_hybrid_bf16)
         got, names, calls = _kernels_run(
-            lambda: k7.neighbor_attn_hybrid_cuda(*args, cuda_cores=cuda_cores))
-        grads, names_b, calls_b = _kernels_run(lambda: k7.neighbor_attn_hybrid_bwd_cuda(
-            *bwd_args, offsets=offsets, slots=slots, cuda_cores=cuda_cores))
+            functools.partial(k7.neighbor_attn_hybrid_cuda, *args, cuda_cores=cuda_cores))
+        grads, names_b, calls_b = _kernels_run(functools.partial(
+            k7.neighbor_attn_hybrid_bwd_cuda, *bwd_args, offsets=offsets, slots=slots,
+            cuda_cores=cuda_cores))
         _check_bf16([got], [want], ["out"])
         _check_bf16(grads, want_g, BWD_NAMES)
         assert (k7.launches_hybrid_bf16, k7.launches_bwd_hybrid_bf16) == (n[0] + calls,
@@ -2307,9 +2525,10 @@ def test_dense_edge_attn_bf16_instance_matches_its_twin(dev, B, N, knn, ring, pa
     assert want.dtype == want_g[0].dtype == torch.bfloat16
     f32 = (k8.launches, k8.launches_bwd)
     n = (k8.launches_bf16, k8.launches_bwd_bf16)
-    got, names, calls = _kernels_run(lambda: k8.dense_edge_attn_cuda(*args, lists=lists))
-    grads, names_b, calls_b = _kernels_run(lambda: k8.dense_edge_attn_bwd_cuda(*args, g,
-                                                                               lists=lists))
+    got, names, calls = _kernels_run(functools.partial(k8.dense_edge_attn_cuda, *args,
+                                                       lists=lists))
+    grads, names_b, calls_b = _kernels_run(functools.partial(k8.dense_edge_attn_bwd_cuda, *args,
+                                                             g, lists=lists))
     _check_bf16([got], [want], ["out"])
     _check_bf16(grads, want_g, BWD_NAMES)
     assert (k8.launches_bf16, k8.launches_bwd_bf16) == (n[0] + calls, n[1] + calls_b)

@@ -223,10 +223,11 @@ def test_refusals_of_a_missing_card_and_of_bfloat16(monkeypatch, tmp_path):
     """A card asked for where there is none is refused. bfloat16, the JAX
     default and configs/gan_recipe.yml's, is the GAN's precision wherever
     the generator's path has bfloat16 kernels: GANTrainer takes Config()
-    and the recipe as they are, and with either encoder attention switch
-    (K7/K7b, K8/K8b), and refuses bfloat16 (naming ROADMAP) only where a
-    switch selects a kernel without a bfloat16 instance
-    (SINGA_TPU_FUSED_SO2: K6/K6b), and float16."""
+    and the recipe as they are, with either encoder attention switch
+    (K7/K7b, K8/K8b) and with the fused SO(2) attention's
+    (SINGA_TPU_FUSED_SO2: K6/K6b); it refuses bfloat16 (naming ROADMAP)
+    where the s2 FFN runs at a width K4's bfloat16 instance does not take,
+    and float16."""
     from singa_tpu_torch.config import Config, load_config
     from singa_tpu_torch.train.gan import GANTrainer, main
 
@@ -237,17 +238,19 @@ def test_refusals_of_a_missing_card_and_of_bfloat16(monkeypatch, tmp_path):
     for cfg in (Config(), recipe):
         assert cfg.train.compute_dtype == "bfloat16"
         assert GANTrainer(cfg).config is cfg
-    for var in ("SINGA_TPU_HYBRID_ATTN", "SINGA_TPU_DENSE_ATTN"):
+    for var in ("SINGA_TPU_HYBRID_ATTN", "SINGA_TPU_DENSE_ATTN", "SINGA_TPU_FUSED_SO2"):
         with monkeypatch.context() as m:
             m.setenv(var, "1")
             for cfg in (Config(), recipe):
                 assert GANTrainer(cfg).config is cfg
-    for var, kernels in (("SINGA_TPU_FUSED_SO2", "K6/K6b"),):
-        with monkeypatch.context() as m:
-            m.setenv(var, "1")
-            with pytest.raises(ValueError, match="float32 only") as refused:
-                GANTrainer(Config())
-            assert kernels in str(refused.value) and "ROADMAP, Queue 1 item 2" in str(refused.value)
+    c = Config()
+    wide = dataclasses.replace(
+        c, embedding=dataclasses.replace(c.embedding, ffn_activation="s2", sphere_channels=20),
+        model=dataclasses.replace(c.model, featurizer_feat_dim=20 * (c.embedding.lmax + 1) ** 2))
+    with pytest.raises(ValueError, match="float32 only") as refused:
+        GANTrainer(wide)
+    assert "K4/K4b at lmax" in str(refused.value)
+    assert "ROADMAP, Queue 1 item 2" in str(refused.value)
     f16 = dataclasses.replace(Config(), train=dataclasses.replace(Config().train,
                                                                   compute_dtype="float16"))
     with pytest.raises(ValueError, match="'float16'"):

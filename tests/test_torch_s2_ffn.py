@@ -243,11 +243,12 @@ def test_training_cli_trains_the_s2_config_at_bf16(tmp_path, capsys):
 
 def test_trainer_refuses_the_corpus_config_unless_made_float32(monkeypatch, tmp_path):
     """configs/train_corpus.yml (the s2 configuration, bf16 by default, at
-    lmax 6 and 16 sphere channels): Trainer takes it as it is, at bfloat16;
-    under a switch whose kernel has no bfloat16 instance it refuses it
-    unless made float32, and float32_config, which the CLI then applies,
-    keeps everything else, the s2 activation and batch 32 as one
-    microbatch included."""
+    lmax 6 and 16 sphere channels): Trainer takes it as it is, at bfloat16,
+    and so it does under SINGA_TPU_FUSED_SO2 (K6/K6b have bfloat16
+    instances); at a width K4's and K4b's bfloat16 instances do not take (20
+    sphere channels) it refuses it unless made float32, and float32_config,
+    which the CLI then applies, keeps everything else, the s2 activation
+    and batch 32 as one microbatch included."""
     from singa_tpu_torch.config import load_config
     from singa_tpu_torch.train.loop import Trainer, float32_config, training_config
 
@@ -255,11 +256,18 @@ def test_trainer_refuses_the_corpus_config_unless_made_float32(monkeypatch, tmp_
     assert cfg.train.compute_dtype == "bfloat16"
     assert training_config(cfg) == (cfg, "train.compute_dtype=bfloat16")
     assert Trainer(cfg, logdir=str(tmp_path / "bf16"), device="cpu").config is cfg
-    monkeypatch.setenv("SINGA_TPU_FUSED_SO2", "1")  # K6/K6b: no bfloat16 instance
+    with monkeypatch.context() as m:
+        m.setenv("SINGA_TPU_FUSED_SO2", "1")  # K6·bf16 / K6b·bf16
+        assert training_config(cfg) == (cfg, "train.compute_dtype=bfloat16")
+        assert Trainer(cfg, logdir=str(tmp_path / "so2"), device="cpu").config is cfg
+    wide = dataclasses.replace(
+        cfg, embedding=dataclasses.replace(cfg.embedding, sphere_channels=20),
+        model=dataclasses.replace(cfg.model,
+                                  featurizer_feat_dim=20 * (cfg.embedding.lmax + 1) ** 2))
     with pytest.raises(ValueError, match="float32 only"):
-        Trainer(cfg, logdir=str(tmp_path / "refused"), device="cpu")
-    f32 = float32_config(cfg)
-    assert training_config(cfg)[0] == f32
+        Trainer(wide, logdir=str(tmp_path / "refused"), device="cpu")
+    f32 = float32_config(wide)
+    assert training_config(wide)[0] == f32
     assert f32.train.compute_dtype == "float32"
-    assert f32.embedding == cfg.embedding and f32.embedding.ffn_activation == "s2"
+    assert f32.embedding == wide.embedding and f32.embedding.ffn_activation == "s2"
     assert (f32.train.batch_size, f32.train.microbatch) == (32, None)

@@ -175,14 +175,15 @@ def test_trainer_refuses_other_precisions(tmp_path, monkeypatch):
     """bfloat16 is the precision of Config()'s path (gate FFN, neighbour-list
     attention, separable S2), of that path with the encoder attention's
     hybrid or dense form (SINGA_TPU_HYBRID_ATTN: K7/K7b;
-    SINGA_TPU_DENSE_ATTN: K8/K8b) and of the s2 FFN at the widths K4's and
-    K4b's bfloat16 instances take (lmax 1..6, 4..16 sphere channels):
-    Trainer takes it there. It refuses it, naming ROADMAP, wherever a kernel
-    without a bfloat16 instance would run: the s2 FFN at a width those
-    instances do not take (K4/K4b at 20 sphere channels) and
-    SINGA_TPU_FUSED_SO2 (K6/K6b); float16 everywhere. The CLI's
-    training_config keeps bfloat16 where Trainer takes it and coerces to
-    float32, saying why, only on the refused ones."""
+    SINGA_TPU_DENSE_ATTN: K8/K8b), with the fused SO(2) attention at the
+    width it runs (SINGA_TPU_FUSED_SO2, 128 hidden channels: K6/K6b) and of
+    the s2 FFN at the widths K4's and K4b's bfloat16 instances take (lmax
+    1..6, 4..16 sphere channels): Trainer takes it there. It refuses it,
+    naming ROADMAP, wherever a kernel without a bfloat16 instance would run:
+    the s2 FFN at a width those instances do not take (K4/K4b at 20 sphere
+    channels); float16 everywhere. The CLI's training_config keeps bfloat16
+    where Trainer takes it and coerces to float32, saying why, only on the
+    refused ones."""
     from singa_tpu_torch.train.loop import Trainer, training_config
 
     _, cfg = _tiny()
@@ -198,11 +199,15 @@ def test_trainer_refuses_other_precisions(tmp_path, monkeypatch):
             for i, c in enumerate((bf16, s2)):
                 assert Trainer(c, logdir=str(tmp_path / f"{var}{i}"), device="cpu").config is c
                 assert training_config(c) == (c, "train.compute_dtype=bfloat16")
+    with monkeypatch.context() as m:
+        m.setenv("SINGA_TPU_FUSED_SO2", "1")
+        so2 = emb(bf16, attn_hidden_channels=128)  # the width K6 runs at
+        assert Trainer(so2, logdir=str(tmp_path / "so2"), device="cpu").config is so2
+        assert training_config(so2) == (so2, "train.compute_dtype=bfloat16")
     wide = dataclasses.replace(emb(s2, sphere_channels=20), model=dataclasses.replace(
         s2.model, featurizer_feat_dim=20 * (s2.embedding.lmax + 1) ** 2))
     cases = [
         (wide, None, "K4/K4b at lmax 2, 20 sphere channels (ffn_activation: s2"),
-        (emb(bf16, attn_hidden_channels=128), "SINGA_TPU_FUSED_SO2", "K6/K6b"),
     ]
     for i, (c, var, kernels) in enumerate(cases):
         with monkeypatch.context() as m:
