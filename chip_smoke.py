@@ -171,7 +171,8 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      bfloat16: kernel_train_s2_bf16 / kernel_bwd_s2_bf16 (K4·bf16 and
      K4b·bf16 at every distinct call of a microbatch, each held to its
      bfloat16 twin within BF16_TOL, bound at the bfloat16 rate and
-     ``bound_tc_ms`` at one TF32 product), train_s2_bf16 (per step the
+     ``bound_tc_ms`` at one TF32 product, K4b·bf16's at half of one: its
+     chain on bfloat16 m16n8k16 mma.sync), train_s2_bf16 (per step the
      bfloat16 instances of K1, K1b, K3, K3b, K4, K4b 6 each, every float32
      count 0), train_profile_s2_bf16 (``k4_kernels``: K4·bf16's kernel and
      split and K4b·bf16's kernel by name, K4's CUDA-core kernel 0),
@@ -190,12 +191,14 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      _so2_bf16; batch 64 as 2 x 32, BF16_WARMUP + BF16_STEPS steps, no
      _vs_cpu): kernel_train / kernel_bwd (K6·bf16 and K6b·bf16 at every
      distinct call of a microbatch, each held to its bfloat16 twin within
-     BF16_TOL, bound at the bfloat16 rate and ``bound_tc_ms`` at one TF32
-     product), train (per step 12 of each of K1·bf16, K2·bf16, K1b·bf16,
+     BF16_TOL, bound at the bfloat16 rate and ``bound_tc_ms`` with the
+     GEMM at half a TF32 product, bfloat16 m16n8k16 mma.sync, and the grid
+     stages at one), train (per step 12 of each of K1·bf16, K2·bf16, K1b·bf16,
      K2b·bf16, K6·bf16 and K6b·bf16, every float32 count 0, K3 and K3b
      0), train_profile (``k6_bf16_kernels``: the weights' rounding, the
-     rotation and the grid at bfloat16 24 a step, the backward rotation and
-     grid 12, the GEMM on bfloat16 operands, their float32 instances 0;
+     rotation and the grid on the tensor cores at bfloat16 24 a step, the
+     backward rotation and grid 12, the GEMM on bfloat16 operands, their
+     float32 instances and the grid's CUDA-core kernels 0;
      ``so2_gemm``) and train_cli (``--config configs/train.yml``, the switch
      set); train_so2_bf16_vs_f32 sets its step beside train_so2's
  14. the default Config with SINGA_TPU_HYBRID_ATTN set for these phases
@@ -336,12 +339,15 @@ and K8b·bf16 run K8's and K8b's CUDA-core kernels at bfloat16 storage (the
 kernels line: ptxas from the build's ``dense_ptxas``, residency at the
 microbatch's widths). The other twelve bfloat16 instances run
 their tensor-core kernels at bfloat16 storage, one TF32 product for each
-product of two bfloat16 values (exact in float32): their lines carry
-``bound_tc_ms`` at that one product (``tf32_products``) and
+product of two bfloat16 values (exact in float32), or one bfloat16
+m16n8k16 mma.sync for each 16-deep product (K4b·bf16's chain, K6·bf16's
+and K6b·bf16's GEMM: half a TF32 product's time): their lines carry
+``bound_tc_ms`` at those products (``tf32_products``) and
 ``cuda_cores`` (K1-K3b: their CUDA-core instances at the same call, held to the
 twin the same way; K4, K4b, K6 and K6b have none at bfloat16; K6's and
 K6b's kernels line the ptxas of their bfloat16 stages, ``k6_bf16_ptxas`` in
-the build line, and their GEMM's residency; K1's, K7's, K1b's and K7b's
+the build line, and their GEMM's and grid stages' residency,
+``gemm_residency`` and ``grid_residency``; K1's, K7's, K1b's and K7b's
 also ``walks``, K1's and K7's
 ``bound_live_only_ms``), the kernels line their ``cuda_cores_ms``, ptxas
 and residency (``k1_bf16_ptxas`` and ``k1b_bf16_ptxas``: K1's and K7's
@@ -442,7 +448,7 @@ K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
 # call, K4b's kernel one for each K4b·bf16 call; K4_CC K4's CUDA-core
 # instance, which runs no bfloat16
 K4_BF16_KERNELS = ("ffn_tc_kernel<.*bfloat16", "ffn_wsplit_kernel<.*bfloat16",
-                   "ffn_bwd_kernel<.*bfloat16")
+                   "ffn_bwd_bf16_kernel<")
 K4_CC = "cc::ffn_cc_kernel"
 # K7's and K7b's bfloat16 kernels in a profile (their form 1 instances at T =
 # bf16): the tile kernel once a K7·bf16 call, the pair kernel once a
@@ -457,16 +463,17 @@ K8_BF16_KERNELS = ("attn_fwd_kernel<2, .*bfloat16", "attn_bwd_pair_kernel<2, .*b
                    "csr_dkdv_kernel<2, .*bfloat16")
 K8_F32 = ("attn_fwd_kernel<2, float>", "attn_bwd_pair_kernel<2, float>")
 # K6's and K6b's bfloat16 kernels in a profile (csrc/so2_chain.cuh at T =
-# bf16): the weights' rounding, the rotation and the grid, once a K6·bf16
-# and once a K6b·bf16 call (the backward recomputes the forward to mid);
-# K6b·bf16's backward rotation and grid, once a K6b·bf16 call; the GEMM on
-# bfloat16 operands. K6_F32 their float32 instances, which the bfloat16
-# path must not run
+# bf16): the weights' rounding, the rotation and the grid on the tensor
+# cores, once a K6·bf16 and once a K6b·bf16 call (the backward recomputes
+# the forward to mid); K6b·bf16's backward rotation and grid, once a
+# K6b·bf16 call; the GEMM on bfloat16 operands. K6_F32 their float32
+# instances (the grid's: its CUDA-core kernels), which the bfloat16 path
+# must not run
 K6_BF16_KERNELS = ("round_weights_kernel", r"so2::rotate_fwd_kernel<__nv_bfloat16>",
-                   r"so2::grid_fwd_kernel<__nv_bfloat16>", r"so2::rotate_bwd_kernel<__nv_bfloat16>",
-                   r"so2::grid_bwd_kernel<__nv_bfloat16>", r"so2::gemm_kernel<.*Bf16In")
+                   r"so2::grid_fwd_tc_kernel<", r"so2::rotate_bwd_kernel<__nv_bfloat16>",
+                   r"so2::grid_bwd_tc_kernel<", r"so2::gemm_kernel<.*Bf16In")
 K6_F32 = (r"so2::gemm_kernel<\w+, \w+, \w+, float>", "so2::rotate_fwd_kernel<float>",
-          "so2::rotate_bwd_kernel<float>")
+          "so2::rotate_bwd_kernel<float>", r"so2::grid_fwd_kernel\(", r"so2::grid_bwd_kernel\(")
 # K2's kernels in a profile (csrc/so3_gate_ffn.cu): the tensor-core kernel and
 # the split of its weights, two launches for each K2 call; K2_CC its
 # CUDA-core instance
@@ -1132,14 +1139,20 @@ def k2b_split_flops(args) -> float:
     return 2.0 * N * (I * H * (3 * C + 2 * w2.shape[2]) + 2 * C * lmax * H)
 
 
-def bound_tc_ms(nbytes: float, flops: float, split_flops: float, products: int = 3) -> float:
+def bound_tc_ms(nbytes: float, flops: float, split_flops, products: float = 3) -> float:
     """The least time of a kernel whose ``split_flops`` run as ``products``
     TF32 products each (three: split TF32 of float32 values; one: two
-    bfloat16 values) at the tensor cores' rate and the rest of ``flops`` at
-    the float32 rate: the tensor cores and the float32 units issue
-    together, so the larger of the two, or its bytes at the memory rate if
-    larger still."""
-    t_ops = max(products * split_flops / TF32_FLOP_PER_S, (flops - split_flops) / F32_FLOP_PER_S)
+    bfloat16 values in one TF32 product; half: a bfloat16 m16n8k16
+    mma.sync, at twice the TF32 rate) at the tensor cores' rate and the
+    rest of ``flops`` at the float32 rate: the tensor cores and the float32
+    units issue together, so the larger of the two, or its bytes at the
+    memory rate if larger still. ``split_flops`` may also be a dict
+    {products: operations}: a kernel whose tensor-core work runs at more
+    than one rate (K6·bf16's and K6b·bf16's GEMM on bfloat16 m16n8k16, their
+    grid stages one TF32 product a product)."""
+    parts = split_flops if isinstance(split_flops, dict) else {products: split_flops}
+    t_tc = sum(p * f for p, f in parts.items()) / TF32_FLOP_PER_S
+    t_ops = max(t_tc, (flops - sum(parts.values())) / F32_FLOP_PER_S)
     return max(t_ops, nbytes / MEM_BYTES_PER_S) * 1e3
 
 
@@ -1156,6 +1169,28 @@ def k6b_split_flops(args) -> float:
     conv-1-sized products), dw2 and dmid (two conv-2-sized ones)."""
     x, w1s, w2s = args[0], args[4], args[6]
     return 2.0 * x.shape[0] * (3 * sum(w.numel() for w in w1s) + 2 * sum(w.numel() for w in w2s))
+
+
+def k6_bf16_split_flops(args) -> dict:
+    """K6·bf16's tensor-core operations by rate: its GEMM on bfloat16
+    m16n8k16 mma.sync (half a TF32 product's time) and its grid stage, the
+    grid both ways over the H hidden channels as k6_cost counts it, one TF32
+    product a product; the rotation stays float32."""
+    E, H, (G, I) = args[0].shape[0], args[12], args[8].shape
+    return {0.5: k6_split_flops(args), 1: 4.0 * E * G * I * H}
+
+
+def k6b_bf16_split_flops(args) -> dict:
+    """K6b·bf16's the same: its GEMM, and the grid to mid and back (k6b_cost's
+    count)."""
+    E, H, (G, I) = args[0].shape[0], args[11], args[7].shape
+    return {0.5: k6b_split_flops(args), 1: 8.0 * E * G * I * H}
+
+
+def gemm_split_flops(spec, args) -> float:
+    """The GEMM's operations of a K6 or K6b call (either dtype)."""
+    split = spec.split_flops(args)
+    return split[0.5] if isinstance(split, dict) else split
 
 
 def k5_cost(args, out):
@@ -1281,7 +1316,7 @@ class Kernel(NamedTuple):
     report: object = None  # (spec, mod, args, kw) -> more of this call, for kernel_bwd*
     rate: float = F32_FLOP_PER_S  # the peak its bound takes for the operations
     tol: float | None = None  # bfloat16 instances: BF16_TOL of each output's largest
-    tf32_products: int = 3  # TF32 products a product of split_flops takes (bfloat16: 1)
+    tf32_products: float = 3  # TF32 products a product of split_flops takes (bfloat16: 1 or 0.5)
 
 
 def bf16_instance(spec: Kernel, tensor_cores: bool = False, report=None,
@@ -1359,7 +1394,9 @@ BF16_PATH = [bf16_instance(K1, True, list_fwd_report), bf16_instance(K2, True, k
              bf16_instance(K3B, True, instance_report)]
 K1_BF16, K2_BF16, K3_BF16, K1B_BF16, K2B_BF16, K3B_BF16 = BF16_PATH
 # configs/train_corpus.yml's at its bfloat16 (K1, K3, K1b, K3b as above)
-S2_BF16_PATH = [bf16_instance(K4, True), bf16_instance(K4B, True)]
+# (K4b·bf16's grid transforms on bfloat16 m16n8k16 mma.sync: half a TF32
+# product's time each)
+S2_BF16_PATH = [bf16_instance(K4, True), bf16_instance(K4B, True)._replace(tf32_products=0.5)]
 K4_BF16, K4B_BF16 = S2_BF16_PATH
 # configs/train.yml's under SINGA_TPU_HYBRID_ATTN (K7's and K7b's tensor-core
 # kernels at bfloat16) and under SINGA_TPU_DENSE_ATTN (K8's and K8b's
@@ -1370,9 +1407,11 @@ K7_BF16, K7B_BF16 = HYBRID_BF16_PATH
 DENSE_BF16_PATH = [bf16_instance(K8), bf16_instance(K8B)]
 K8_BF16, K8B_BF16 = DENSE_BF16_PATH
 # configs/train.yml's under SINGA_TPU_FUSED_SO2 (K6's and K6b's stages at
-# bfloat16, the GEMM one TF32 product a product); K1, K2, K1b and K2b as in
+# bfloat16: the GEMM on bfloat16 m16n8k16 mma.sync, the grid stages on the
+# tensor cores at one TF32 product a product); K1, K2, K1b and K2b as in
 # BF16_PATH
-SO2_BF16_PATH = [bf16_instance(K6, True), bf16_instance(K6B, True)]
+SO2_BF16_PATH = [bf16_instance(K6, True)._replace(split_flops=k6_bf16_split_flops),
+                 bf16_instance(K6B, True)._replace(split_flops=k6b_bf16_split_flops)]
 K6_BF16, K6B_BF16 = SO2_BF16_PATH
 KERNELS += BF16_PATH + S2_BF16_PATH + HYBRID_BF16_PATH + DENSE_BF16_PATH + SO2_BF16_PATH
 GATE_PATH = [K1, K2, K3, K1B, K2B, K3B]  # held at the default Config's training microbatch
@@ -1477,7 +1516,9 @@ def hold(spec: Kernel, mod, args, kw) -> dict:
     if spec.split_flops is not None:
         split = spec.split_flops(args)
         tc = {"bound_tc_ms": bound_tc_ms(b, f, split, spec.tf32_products),
-              "split_tf32_flops": split, "tf32_products": spec.tf32_products}
+              "split_tf32_flops": sum(split.values()) if isinstance(split, dict) else split,
+              "tf32_products": ({str(p): o for p, o in split.items()} if isinstance(split, dict)
+                                else spec.tf32_products)}
     return {"shapes": [list(a.shape) for a in (*args, *kw.values()) if torch.is_tensor(a)],
             "max_abs_err": max_abs, "errors": errs, "tolerance": tol, "ok": ok,
             "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by, "bytes": b,
@@ -1659,6 +1700,12 @@ def path_instances(specs, mods, captured, results: dict) -> None:
         x, w1, _, _, _, w2, tg, _, lmax, _ = args
         results[spec.name]["residency"] = mods["so3_ffn"].s2_bwd_residency(
             lmax, x.shape[2], w1.shape[2], w2.shape[2], tg.shape[0], bf16=bf16)
+    if K6_BF16 in specs:  # K6·bf16's and K6b·bf16's grid stages at the microbatch's widths
+        x, _, _, _, _, _, _, _, tg, _, lmax, mmax, H, F2, alpha_ch = next(
+            iter(captured["so2_attn_cuda"].values()))[0]
+        for spec, bwd in ((K6_BF16, False), (K6B_BF16, True)):
+            results[spec.name]["grid_residency"] = mods["so2_attn"].grid_residency(
+                lmax, mmax, x.shape[2], H, F2, alpha_ch, tg.shape[0], bwd=bwd)
 
 
 def train_vs_cpu(dev, cfg, val_files, suffix: str) -> None:
@@ -1803,7 +1850,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             if pair[0] in specs:
                 micro_per_step = cfg.train.batch_size // micro_size
                 gemm_flops = micro_per_step * sum(
-                    calls * spec.split_flops(args) for spec in pair
+                    calls * gemm_split_flops(spec, args) for spec in pair
                     for args, _, calls in captured[f"{spec.fn}_cuda"].values())
         path_instances(specs, mods, captured, results)
         del captured, micro
@@ -1877,7 +1924,9 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                 (K8_BF16_KERNELS[:1], (K8_BF16,), K8_F32[0]),
                 (K8_BF16_KERNELS[1:], (K8B_BF16,), K8_F32[1]),
                 (K6_BF16_KERNELS[:3], (K6_BF16, K6B_BF16), K6_F32[0]),
-                (K6_BF16_KERNELS[3:5], (K6B_BF16,), K6_F32[2])]
+                (K6_BF16_KERNELS[3:5], (K6B_BF16,), K6_F32[2]),
+                (K6_BF16_KERNELS[2:3], (K6_BF16, K6B_BF16), K6_F32[3]),
+                (K6_BF16_KERNELS[4:5], (K6B_BF16,), K6_F32[4])]
         once = [(tcs, specs, cc) for tcs, specs, cc in once
                 if sum(per_step.get(k.name, 0) for k in specs)]
         # the bfloat16 instances of K7/K7b, K8/K8b and K6/K6b by name, their
@@ -3072,7 +3121,8 @@ def main() -> int:
                                 ["--config", S2_CONFIG], S2_WARMUP, S2_STEPS, vs_cpu=False)
     emit({"phase": "train_s2_bf16_vs_f32", "float32": s2_step, "bfloat16": s2_bf16_step,
           "note": "reported, not claimed: both steps run the tensor-core kernels, the "
-                  "bfloat16 step at one TF32 product a product"})
+                  "bfloat16 step at one TF32 product a product, K4b·bf16's chain on bfloat16 "
+                  "m16n8k16 mma.sync"})
     torch.cuda.empty_cache()
     with switched(FUSED_SO2):
         so2_step = train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
@@ -3090,7 +3140,8 @@ def main() -> int:
     emit({"phase": "train_so2_bf16_vs_f32", "float32": so2_step, "bfloat16": so2_bf16_step,
           "note": "reported, not claimed: configs/train.yml made float32 against its own "
                   "bfloat16, both under SINGA_TPU_FUSED_SO2; the bfloat16 step's K6 and K6b "
-                  "at one TF32 product a product"})
+                  "with their GEMM on bfloat16 m16n8k16 mma.sync, their grid stages on the "
+                  "tensor cores at one TF32 product a product"})
     form_steps = {}
     for suffix, var, path in (("_hybrid", HYBRID_ATTN, HYBRID_PATH),
                               ("_dense", DENSE_ATTN, DENSE_PATH)):

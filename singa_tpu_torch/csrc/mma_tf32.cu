@@ -10,7 +10,13 @@
 // frag_b (the from-grid orientation). b is [K][N], c is [M][N], all
 // float32 in device memory. The operands are staged in shared memory at
 // the strides the bank rules of mma_tf32.cuh ask for.
+//
+// mma_bf16_tile_f32: the same product through csrc/mma_bf16.cuh, bfloat16
+// operands (A as [M][K] or, ta, [K][M]; B as [K][N] or, tb, [N][K]) read by
+// ldmatrix (.trans where the layout asks for it) into m16n8k16 mma.sync,
+// float32 output.
 #include "common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -57,6 +63,52 @@ __global__ void rna_kernel(const float* __restrict__ x, unsigned* __restrict__ b
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     bits[i] = singa::tc::tf32_rna(x[i]);
     ptx[i] = singa::tc::tf32_rna_ptx(x[i]);
+  }
+}
+
+// A, B bfloat16, staged at row strides of an odd number of 16-byte units;
+// each warp a 16 x 16 output tile at a time
+__global__ void __launch_bounds__(kThreads)
+bf16_tile_kernel(const singa::bf16* __restrict__ a, const singa::bf16* __restrict__ b,
+                 float* __restrict__ c, int M, int K, int N, int ta, int tb, int lda, int ldb) {
+  namespace mma16 = singa::mma16;
+  extern __shared__ __align__(16) float smem[];
+  const int arows = ta ? K : M, acols = ta ? M : K, brows = tb ? N : K, bcols = tb ? K : N;
+  singa::bf16* sa = reinterpret_cast<singa::bf16*>(smem);
+  singa::bf16* sb = sa + arows * lda;
+  for (int t = threadIdx.x; t < arows * acols; t += blockDim.x)
+    sa[(t / acols) * lda + t % acols] = a[t];
+  for (int t = threadIdx.x; t < brows * bcols; t += blockDim.x)
+    sb[(t / bcols) * ldb + t % bcols] = b[t];
+  __syncthreads();
+  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int grp = singa::tc::lane_grp(), tig = singa::tc::lane_tig();
+  const int ntiles = N / 16;
+  for (int tile = warp; tile < (M / 16) * ntiles; tile += warps) {
+    const int m0 = 16 * (tile / ntiles), n0 = 16 * (tile % ntiles);
+    float acc[2][4] = {};
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t fa[4], r[4];
+      if (ta)
+        mma16::ldmatrix_x4_trans(fa, mma16::a_addr<true>(sa + k0 * lda + m0, lda));
+      else
+        mma16::ldmatrix_x4(fa, mma16::a_addr<false>(sa + m0 * lda + k0, lda));
+      if (tb)
+        mma16::ldmatrix_x4(r, mma16::b_addr<false>(sb + n0 * ldb + k0, ldb));
+      else
+        mma16::ldmatrix_x4_trans(r, mma16::b_addr<true>(sb + k0 * ldb + n0, ldb));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma16::mma(acc[0], fa, b0);
+      mma16::mma(acc[1], fa, b1);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* o = c + (m0 + grp) * N + n0 + 8 * j + 2 * tig;
+      o[0] = acc[j][0];
+      o[1] = acc[j][1];
+      o[8 * N] = acc[j][2];
+      o[8 * N + 1] = acc[j][3];
+    }
   }
 }
 
@@ -112,3 +164,18 @@ extern "C" int mma_tf32_rate_f32(float* out, int blocks, int iters, void* stream
 }
 
 extern "C" int mma_tf32_rate_chains() { return kChains; }
+
+// C [M][N] (float32) = A B through mma_bf16.cuh, A bfloat16 [M][K] (ta:
+// [K][M]), B bfloat16 [K][N] (tb: [N][K]). Returns cudaErrorInvalidValue
+// unless M, K and N are multiples of 16 and the staged operands fit in 48 KB.
+extern "C" int mma_bf16_tile_f32(const void* a, const void* b, float* c, int M, int K, int N,
+                                 int ta, int tb, void* stream) {
+  if (M < 16 || M % 16 || K < 16 || K % 16 || N < 16 || N % 16) return (int)cudaErrorInvalidValue;
+  const int lda = (ta ? M : K) + 8, ldb = (tb ? K : N) + 8;  // (cols + 8) / 8 odd: cols % 16 == 0
+  const size_t smem = ((size_t)(ta ? K : M) * lda + (size_t)(tb ? N : K) * ldb) * sizeof(singa::bf16);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  bf16_tile_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const singa::bf16*>(a), static_cast<const singa::bf16*>(b), c, M, K, N, ta, tb,
+      lda, ldb);
+  return (int)cudaGetLastError();
+}

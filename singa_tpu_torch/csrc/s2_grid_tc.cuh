@@ -1,10 +1,13 @@
-// The sphere-grid chains on the tensor cores, all built on split-TF32
-// mma.sync (csrc/mma_tf32.cuh) accumulated in float32: grid_chain_tc, K4b's
-// (csrc/so3_ffn_bwd.cu), grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu) and K3's
-// (csrc/s2_act.cu) and K5's, and grid_chain_tc_sep_bwd, K3b's and K5b's (at
-// the end of this file); all three also at bfloat16 storage, one TF32
-// product a product (the bfloat16 instances of K4b, K4, K3 and K3b). s2_grid.cuh keeps
-// the CUDA-core chain of K5's and K5b's CUDA-core instance and of K4's.
+// The sphere-grid chains on the tensor cores: grid_chain_tc, K4b's float32
+// chain (csrc/so3_ffn_bwd.cu), grid_chain_tc_fwd, K4's (csrc/so3_ffn.cu) and
+// K3's (csrc/s2_act.cu) and K5's, and grid_chain_tc_sep_bwd, K3b's and K5b's,
+// all built on split-TF32 mma.sync (csrc/mma_tf32.cuh) accumulated in
+// float32, the last two also at bfloat16 storage, one TF32 product a
+// product (the bfloat16 instances of K4, K3 and K3b, and K6·bf16's and
+// K6b·bf16's grid stages, csrc/so2_chain.cuh); and grid_chain_mma16_bwd,
+// K4b·bf16's, on bfloat16 m16n8k16 mma.sync (csrc/mma_bf16.cuh), at the end
+// of the file. s2_grid.cuh keeps the CUDA-core chain of K5's and K5b's
+// CUDA-core instance and of K4's.
 //
 // grid_chain_tc: the function of s2_grid.cuh's grid_chain<NCOL, true,
 // true, true>, with its four products as split TF32.
@@ -47,6 +50,7 @@
 // they add exactly zero.
 #pragma once
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "s2_grid.cuh"
 
@@ -115,20 +119,9 @@ __device__ inline void stage_grid_mats_tc(const T* __restrict__ tg, const T* __r
 // last m16 tile sum its one output row, a column a lane), which spares
 // 1/7 of the to-grid and 1/4 of the from-grid mma work. I0 = 0: any I,
 // every row through mma.
-//
-// T (float by default) is the storage type of the caller's data. At T =
-// bf16 (K4b's bfloat16 instance) the caller's X, Y, tg and fg hold
-// bfloat16 values (as float), each product is one TF32 mma.sync
-// (tc::mma_t), the activated grid keeps its hi planes alone, silu(v) and
-// silu'(v) u rounded to bfloat16 as they split (the Pallas kernel's
-// .astype(dt) before the from-grid products), the tail row reads the same
-// rounded values, and OF and OB are stored rounded (mid.astype(dt),
-// dh.astype(dt)), row 0 of OB also unrounded into row0B (db1 sums it).
-template <int NCOL, int I0, class T = float>
+template <int NCOL, int I0>
 __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, const float* Y,
-                              int xs, float* act, float* OF, float* OB, const float* row0F,
-                              float* row0B = nullptr) {
-  constexpr bool kBf = tc::kIsBf16<T>;
+                              int xs, float* act, float* OF, float* OB, const float* row0F) {
   constexpr int AS = tc_act_stride(NCOL);
   constexpr int PL = kGC * AS;  // one plane
   static_assert(kTcWarps == 16 && NCOL == 64 && kGC == 32,
@@ -172,10 +165,9 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 #pragma unroll
     for (int ks = 0; ks < (I0 > 0 ? KS : kMaxIp / 8); ++ks) {
       if (I0 == 0 && ks >= KS) break;
-      const tc::FragA a = tc::frag_a_paired<T>(ta + g0 * S + 8 * ks, S);
+      const tc::FragA a = tc::frag_a_paired(ta + g0 * S + 8 * ks, S);
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
-        tc::mma_t<T>(v[n], a, tc::frag_b_paired<T>(tb + 8 * ks * xs + 8 * n, xs));
+      for (int n = 0; n < 2; ++n) tc::mma3(v[n], a, tc::frag_b_paired(tb + 8 * ks * xs + 8 * n, xs));
     }
     if (kTail) {  // + the tail row's rank-one term, float32
       const float t0 = ta[(g0 + grp) * S + kTailRow], t1 = ta[(g0 + grp + 8) * S + kTailRow];
@@ -202,10 +194,10 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
           silu_and_grad(v[n][2 * h], s0, d0);
           silu_and_grad(v[n][2 * h + 1], s1, d1);
           uint2 hi, lo;
-          tc::split_t<T>(s0, hi.x, lo.x);
-          tc::split_t<T>(s1, hi.y, lo.y);
+          tc::split(s0, hi.x, lo.x);
+          tc::split(s1, hi.y, lo.y);
           *reinterpret_cast<uint2*>(saf + o) = hi;
-          if constexpr (!kBf) *reinterpret_cast<uint2*>(saf + PL + o) = lo;
+          *reinterpret_cast<uint2*>(saf + PL + o) = lo;
           *reinterpret_cast<float2*>(sab + PL + o) = make_float2(d0, d1);
         }
     }
@@ -218,10 +210,10 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
           const int o = off + 8 * n + 8 * h * AS;
           const float2 d = *reinterpret_cast<const float2*>(sab + PL + o);
           uint2 hi, lo;
-          tc::split_t<T>(d.x * v[n][2 * h], hi.x, lo.x);
-          tc::split_t<T>(d.y * v[n][2 * h + 1], hi.y, lo.y);
+          tc::split(d.x * v[n][2 * h], hi.x, lo.x);
+          tc::split(d.y * v[n][2 * h + 1], hi.y, lo.y);
           *reinterpret_cast<uint2*>(sab + o) = hi;
-          if constexpr (!kBf) *reinterpret_cast<uint2*>(sab + PL + o) = lo;
+          *reinterpret_cast<uint2*>(sab + PL + o) = lo;
         }
     }
     __syncthreads();  // the chunk's activated grid is complete
@@ -229,21 +221,16 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
       const uint32_t* b = fb + (threadIdx.x & 31);
       const float* a = fa + g0 * S;  // fa is at column 16 fm = kTailRow
 #pragma unroll 8
-      for (int g = 0; g < kGC; ++g) {
-        if constexpr (kBf)  // the hi plane alone (its lo plane holds silu'(v) for sab)
-          tail = fmaf(a[g * S], __uint_as_float(b[g * AS]), tail);
-        else
-          tail = fmaf(a[g * S], __uint_as_float(b[g * AS]) + __uint_as_float(b[PL + g * AS]),
-                      tail);
-      }
+      for (int g = 0; g < kGC; ++g)
+        tail = fmaf(a[g * S], __uint_as_float(b[g * AS]) + __uint_as_float(b[PL + g * AS]), tail);
     } else if (fm < MT) {
 #pragma unroll
       for (int ks = 0; ks < kGC / 8; ++ks) {
-        const tc::FragA a = tc::frag_a_trans<T>(fa + (g0 + 8 * ks) * S, S);
+        const tc::FragA a = tc::frag_a_trans(fa + (g0 + 8 * ks) * S, S);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           const uint32_t* b = fb + 8 * ks * AS + 8 * n;
-          tc::mma_t<T>(acc[n], a, tc::frag_b_split_t<T>(b, b + PL, AS));
+          tc::mma3(acc[n], a, tc::frag_b_split(b, b + PL, AS));
         }
       }
     }
@@ -252,7 +239,7 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 
   float* out = fp == 0 ? OF : OB;
   if (kTail && fm == MT) {
-    out[kTailRow * xs + 32 * fh + (threadIdx.x & 31)] = rnd<T>(tail);
+    out[kTailRow * xs + 32 * fh + (threadIdx.x & 31)] = tail;
     return;
   }
 #pragma unroll
@@ -264,10 +251,6 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
       if (i >= I) continue;
       float2 val = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
       if (fp == 0 && i == 0) val = make_float2(row0F[c], row0F[c + 1]);
-      if constexpr (kBf) {
-        if (fp == 1 && i == 0) *reinterpret_cast<float2*>(row0B + c) = val;
-        val = make_float2(rnd<T>(val.x), rnd<T>(val.y));
-      }
       *reinterpret_cast<float2*>(out + i * xs + c) = val;
     }
   }
@@ -605,6 +588,151 @@ __device__ __forceinline__ void grid_chain_tc_sep_bwd(const float* stg, const fl
 #pragma unroll
           for (int j = 0; j < 2 * kCT; ++j) tc::mma_t<T>(acc[mt][j], a, b[j]);
         }
+      }
+    }
+  }
+}
+
+// grid_chain_mma16_bwd: K4b·bf16's chain (csrc/so3_ffn_bwd.cu), the
+// function of grid_chain_tc at bfloat16, for one warp's 16 columns:
+//   mid = fg^T silu(v),  dh = tg^T (silu'(v) u),  v = tg X,  u = fg Y,
+// silu(v) and h = silu'(v) u rounded to bfloat16 before their from-grid
+// products (the Pallas kernel's .astype(dt)), every sum float32, every
+// product a bfloat16 m16n8k16 mma.sync (csrc/mma_bf16.cuh), with no
+// barrier and no shared-memory round trip of the activated grid.
+//
+// Both to-grid products are formed transposed, v^T = X^T tg^T and u^T =
+// Y^T fg^T (M = the warp's 16 columns, N = 8 grid points, K = rows in
+// steps of 16), so v and u sit at the same lane positions (columns grp and
+// grp + 8, grid points 2 tig and 2 tig + 1 of an 8-point half). A k16 grid
+// step forms both halves; silu(v) and h are formed in registers, rounded
+// and packed as bfloat16 pairs, and the pairs of the two halves are at
+// once the B fragments (k = the step's 16 grid points, n = a column) of
+// the from-grid products mid += fg^T silu(v) and dh += tg^T h over the n8
+// tiles of columns 0-7 and 8-15 (mma_bf16.cuh). The warp holds both
+// output sets of its columns in registers: om (mid) and od (dh) [m16 tile
+// mt][n8 tile j], rows 16 mt + grp (+ 8), columns 8 j + 2 tig (+ 1).
+//
+// Operands: xs, ys: X^T and Y^T as bfloat16 [16 columns][S] (h^T and
+// dmid^T, the warp's columns; rows past I zero), read by ldmatrix as the
+// to-grid A (m = column, k = row) at each grid step: held in registers
+// over the chain they spilled (284 bytes at I <= 48, 508 at I 49: 128
+// registers a thread at 16 warps, ptxas on sm_90a); stg, sfg: tg and fg
+// as bfloat16 [Gp][S] (S % 16 of 8: odd in
+// 16-byte units, so every ldmatrix phase is conflict-free; zero past G and
+// I), read as the to-grid B (ldmatrix) and as the from-grid A (ldmatrix
+// .trans: fg^T, tg^T, m = row, k = grid point). The warp walks k16 grid
+// steps s0 .. s1 - 1; the caller adds the sums of warps that took other
+// steps of the same columns.
+//
+// I0 = 49 (lmax 6): rows 0 .. 47 through mma (3 k16 steps, 3 m16 tiles),
+// row 48 in float32 on the CUDA cores, as grid_chain_tc's: a rank-one
+// update of v and u from X's and Y's row 48 at the lane's columns (grp,
+// grp + 8), and the lane's share of mid's and
+// dh's row 48 from the same rounded activations (tm[j], td[j]: column grp
+// of n8 tile j), which the caller sums over the four lanes of a column.
+// I0 = 0: KS = MT k16 steps and m16 tiles of I <= 48 rows.
+template <int I0>
+__device__ __forceinline__ void grid_chain_mma16_bwd(const bf16* stg, const bf16* sfg, int S,
+                                                     const bf16* xs, const bf16* ys, int KS,
+                                                     int MT, int s0, int s1,
+                                                     float (&om)[3][2][4], float (&od)[3][2][4],
+                                                     float (&tm)[2], float (&td)[2]) {
+  constexpr bool kTail = I0 == 49;
+  constexpr int kTailRow = I0 - 1;
+  static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0 (I <= 48)");
+  const int grp = tc::lane_grp(), tig = tc::lane_tig();
+  float xt0 = 0.f, xt1 = 0.f, yt0 = 0.f, yt1 = 0.f;  // row 48 at the lane's columns
+  if (kTail) {
+    xt0 = to_f(xs[grp * S + kTailRow]);
+    xt1 = to_f(xs[(grp + 8) * S + kTailRow]);
+    yt0 = to_f(ys[grp * S + kTailRow]);
+    yt1 = to_f(ys[(grp + 8) * S + kTailRow]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) om[mt][j][q] = od[mt][j][q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) tm[j] = td[j] = 0.f;
+
+  for (int s = s0; s < s1; ++s) {
+    const bf16* gt = stg + 16 * s * S;  // the step's 16 grid rows
+    const bf16* gf = sfg + 16 * s * S;
+    float v[2][4], u[2][4];  // [half: points 8 h ..][C fragment]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[h][q] = u[h][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      if (kTail || ks < KS) {
+        uint32_t a[4], b[4];  // X^T's or Y^T's A; the two halves' B
+        mma16::ldmatrix_x4(a, mma16::a_addr<false>(xs + 16 * ks, S));
+        mma16::ldmatrix_x4(b, mma16::b_addr<false>(gt + 16 * ks, S));
+        const uint32_t t0[2] = {b[0], b[1]}, t1[2] = {b[2], b[3]};
+        mma16::mma(v[0], a, t0);
+        mma16::mma(v[1], a, t1);
+        mma16::ldmatrix_x4(a, mma16::a_addr<false>(ys + 16 * ks, S));
+        mma16::ldmatrix_x4(b, mma16::b_addr<false>(gf + 16 * ks, S));
+        const uint32_t f0[2] = {b[0], b[1]}, f1[2] = {b[2], b[3]};
+        mma16::mma(u[0], a, f0);
+        mma16::mma(u[1], a, f1);
+      }
+    }
+    float tr[2][2] = {}, fr[2][2] = {};  // tg, fg at row 48 of the lane's points 8 h + 2 tig + p
+    if (kTail) {  // + the tail row's rank-one terms, float32
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int g = 8 * h + 2 * tig + p;
+          tr[h][p] = to_f(gt[g * S + kTailRow]);
+          fr[h][p] = to_f(gf[g * S + kTailRow]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        v[h][0] = fmaf(xt0, tr[h][0], v[h][0]);
+        v[h][1] = fmaf(xt0, tr[h][1], v[h][1]);
+        v[h][2] = fmaf(xt1, tr[h][0], v[h][2]);
+        v[h][3] = fmaf(xt1, tr[h][1], v[h][3]);
+        u[h][0] = fmaf(yt0, fr[h][0], u[h][0]);
+        u[h][1] = fmaf(yt0, fr[h][1], u[h][1]);
+        u[h][2] = fmaf(yt1, fr[h][0], u[h][2]);
+        u[h][3] = fmaf(yt1, fr[h][1], u[h][3]);
+      }
+    }
+    // silu(v) and h, rounded, as the from-grid B of n8 tile j (columns 8 j
+    // + grp): register h from the h-th half's C values 2 j, 2 j + 1
+    uint32_t bm[2][2], bd[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float s0v, s1v, d0, d1;
+        silu_and_grad(v[h][2 * j], s0v, d0);
+        silu_and_grad(v[h][2 * j + 1], s1v, d1);
+        bm[j][h] = mma16::pack(s0v, s1v);
+        bd[j][h] = mma16::pack(d0 * u[h][2 * j], d1 * u[h][2 * j + 1]);
+        if (kTail) {  // row 48's shares from the same rounded values
+          tm[j] = fmaf(fr[h][0], mma16::lo_f(bm[j][h]), tm[j]);
+          tm[j] = fmaf(fr[h][1], mma16::hi_f(bm[j][h]), tm[j]);
+          td[j] = fmaf(tr[h][0], mma16::lo_f(bd[j][h]), td[j]);
+          td[j] = fmaf(tr[h][1], mma16::hi_f(bd[j][h]), td[j]);
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt) {
+      if (kTail || mt < MT) {
+        uint32_t a[4];
+        mma16::ldmatrix_x4_trans(a, mma16::a_addr<true>(gf + 16 * mt, S));
+        mma16::mma(om[mt][0], a, bm[0]);
+        mma16::mma(om[mt][1], a, bm[1]);
+        mma16::ldmatrix_x4_trans(a, mma16::a_addr<true>(gt + 16 * mt, S));
+        mma16::mma(od[mt][0], a, bd[0]);
+        mma16::mma(od[mt][1], a, bd[1]);
       }
     }
   }

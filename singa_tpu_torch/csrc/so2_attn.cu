@@ -37,9 +37,9 @@
 // K6·bf16 (so2_attn_bf16): the same stages at bfloat16 storage (x, rad, the
 // outputs; the weights rounded once a call into the scratch), rounding where
 // the Pallas kernel rounds at a bfloat16 x (so2_chain.cuh): the modulated
-// message and mid in bfloat16, the conv-1 output in float32, and every
-// conv product one TF32 mma.sync of two bfloat16 values (exact) where the
-// float32 instance issues three.
+// message and mid in bfloat16, the conv-1 output in float32, every conv
+// product a bfloat16 m16n8k16 mma.sync (exact products, float32 sums), and
+// the grid stage on the tensor cores (grid_fwd_tc_kernel: K3·bf16's chain).
 #include "so2_chain.cuh"
 
 namespace {
@@ -252,4 +252,18 @@ extern "C" int so2_gemm_bf16_residency(int orient, int* smem_bytes, int* threads
   if (orient == 1) return so2::gemm_residency<false, true, F>(smem_bytes);
   if (orient == 2) return so2::gemm_residency<true, false, F>(smem_bytes);
   return -1;
+}
+
+// Resident blocks per SM of K6·bf16's tensor-core grid stage
+// (grid_fwd_tc_kernel) at these widths, its dynamic shared memory and its
+// threads per block; -1 for shapes it does not take. For reports;
+// launches nothing.
+extern "C" int so2_grid_bf16_residency(int lmax, int mmax, int C, int H, int F2, int extra,
+                                       int alpha_ch, int G, int* smem_bytes, int* threads) {
+  namespace so2 = singa::so2;
+  const Dims d = so2::make_dims(1, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  if (!so2::dims_ok(d)) return -1;
+  const so2::TcGrid c = so2::tc_grid(d, false);
+  return so2::tc_grid_residency(c.vec ? so2::grid_fwd_tc_kernel<true> : so2::grid_fwd_tc_kernel<false>,
+                                c, smem_bytes, threads);
 }

@@ -37,10 +37,13 @@
 // K6b·bf16 (so2_attn_bwd_bf16): the same stages at bfloat16 storage,
 // rounding where the Pallas _bwd_kernel rounds at a bfloat16 x
 // (so2_chain.cuh): the modulated message, mid and dy in bfloat16 (the
-// products' operands, one TF32 mma.sync each), the rotated message mp0,
+// GEMM's operands, bfloat16 m16n8k16 mma.sync), the rotated message mp0,
 // the conv-1 output, dmid and dmpr in float32, and section 0 of dy also in
-// float32 for db1; the weight gradients' partial sums and their slice sums
-// float32, returned float32 (the parameters' dtype).
+// float32 for db1; the grid stages (the recomputed forward's and the
+// backward's) on the tensor cores, K3·bf16's and K3b·bf16's chains
+// (grid_fwd_tc_kernel, grid_bwd_tc_kernel); the weight gradients' partial
+// sums and their slice sums float32, returned float32 (the parameters'
+// dtype).
 #include <algorithm>
 
 #include "so2_chain.cuh"
@@ -183,7 +186,7 @@ extern "C" int so2_attn_bwd_f32(const float* x, const float* rad, const float* p
   if (err != cudaSuccess) return (int)err;
 
   // the S2 activation and the gate: the conv-1 output cotangent
-  err = so2::grid_bwd(y1, dmid, dextra, tg, fg, dy1, nullptr, d, st);
+  err = so2::grid_bwd(y1, dmid, dextra, tg, fg, dy1, d, st);
   if (err != cudaSuccess) return (int)err;
 
   // conv 1: its weight and bias gradients, and the message cotangent
@@ -289,4 +292,15 @@ extern "C" int so2_attn_bwd_bf16(const void* x, const void* rad, const float* ph
   // the radial modulation and the rotation
   return (int)so2::rotate_bwd(dmpr, static_cast<const bf16*>(rad), mp0, phi, beta, J,
                               static_cast<bf16*>(dx), static_cast<bf16*>(drad), d, st);
+}
+
+// The same of K6b·bf16's backward grid stage (grid_bwd_tc_kernel).
+extern "C" int so2_grid_bwd_bf16_residency(int lmax, int mmax, int C, int H, int F2, int extra,
+                                           int alpha_ch, int G, int* smem_bytes, int* threads) {
+  namespace so2 = singa::so2;
+  const Dims d = so2::make_dims(1, lmax, mmax, C, H, F2, extra, alpha_ch, G);
+  if (!so2::dims_ok(d)) return -1;
+  const so2::TcGrid c = so2::tc_grid(d, true);
+  return so2::tc_grid_residency(c.vec ? so2::grid_bwd_tc_kernel<true> : so2::grid_bwd_tc_kernel<false>,
+                                c, smem_bytes, threads);
 }

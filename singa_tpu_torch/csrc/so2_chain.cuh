@@ -27,8 +27,11 @@
 // in bfloat16 what the Pallas kernel rounds (the modulated message, mid,
 // dy, the outputs) and in float32 what it does not (the rotated message
 // before the modulation, the conv-1 output whose extra channels feed the
-// gate, dmid, dmpr); the GEMM reads bfloat16 operands and issues one TF32
-// product for each product of two bfloat16 values (exact in float32).
+// gate, dmid, dmpr); the GEMM reads bfloat16 operands and issues one
+// bfloat16 m16n8k16 mma.sync for each 16-deep product (csrc/mma_bf16.cuh:
+// its products of two bfloat16 values exact in float32), and the grid
+// stages run K3·bf16's and K3b·bf16's tensor-core chains
+// (grid_fwd_tc_kernel, grid_bwd_tc_kernel below).
 #pragma once
 
 #include <stdint.h>
@@ -36,7 +39,9 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "s2_grid_tc.cuh"
 
 namespace singa {
 namespace so2 {
@@ -359,13 +364,20 @@ inline cudaError_t rotate_bwd(const float* dmpr, const T* rad, const float* mp0,
 // no spills; 207 / 216 / 102 KB of shared memory; one block of 8 warps an
 // SM. Two blocks an SM (128 registers: spills) and a split pass from raw
 // slabs into hi/lo planes ran slower; 64-deep slabs ran faster for NN and
-// NT, slower for TN.
+// NT, slower for TN. The bfloat16 instances of 16-byte copies: 167
+// registers NN and 169 NT, no spills, 128 TN, 12 bytes spilled; at a step of
+// train_so2_bf16 (252 launches) 45.6 ms of device time against the
+// one-TF32-product form's 68.0 (tools/bf16_kernels_ab.py, the parent in
+// the same call; an H100 80GB HBM3 at 700 W).
 //
 // The GEMM's types, its template parameter P: float (float operands in
 // split TF32, float output), or Bf16In<Out> (K6·bf16's and K6b·bf16's:
 // bfloat16 operands, rows of bfloat16 in shared memory at the same slab
-// shapes, fragments widened with lo = 0 and one TF32 product each; the
-// output of type Out, float or rounded to bfloat16).
+// shapes, each 16-deep step one bfloat16 m16n8k16 mma.sync a tile
+// (csrc/mma_bf16.cuh) on fragments ldmatrix reads, .trans for the operands
+// stored [k][m] and [k][n]: the products exact, the sums float32 as the
+// split form's, chains of BK / 16 mma a slab; the output of type Out,
+// float or rounded to bfloat16).
 constexpr int kBM = 128, kBN = 128, kGemmThreads = 256, kStages = 3;
 
 template <class Out>
@@ -398,9 +410,8 @@ struct GemmTile {
   static constexpr int B_ROWS = TB ? kBN : BK, B_COLS = TB ? BK : kBN;
   // strides (elements; float: multiples of 4): [m][k], [n][k] paired, 8-byte
   // loads: ld % 32 of 8 or 24; [k][m] and, beside it, [k][n] in order: the
-  // same; [k][n] paired: ld % 16 of 4 or 12. bfloat16 (rows of 16-byte
-  // multiples): [m][k], [n][k] paired, 4-byte loads: ld / 2 % 32 of 4; [k][m],
-  // [k][n] in order or paired: 2-byte loads, pairs of lanes on one word
+  // same; [k][n] paired: ld % 16 of 4 or 12. bfloat16: rows of an odd
+  // number of 16-byte units (ldmatrix's 8-row phases conflict-free)
   static constexpr int LA = A_COLS + 8;
   static constexpr int LB = TB ? BK + 8 : (TA || kB16 ? kBN + 8 : kBN + 4);
   static constexpr int A_ELEMS = A_ROWS * LA, B_ELEMS = B_ROWS * LB;
@@ -538,6 +549,33 @@ gemm_kernel(const typename GemmTypes<P>::In* __restrict__ A, long long lda,
       for (int j = 0; j < T::NT; ++j)
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+    if constexpr (T::kB16) {  // bfloat16 m16n8k16, fragments by ldmatrix
+#pragma unroll
+      for (int kk = 0; kk < T::BK; kk += 16) {
+        uint32_t fb[T::NT][2];
+#pragma unroll
+        for (int j = 0; j < T::NT; j += 2) {  // two n8 tiles a load
+          uint32_t r[4];
+          const int n = wn + 8 * j;
+          if (TB)
+            mma16::ldmatrix_x4(r, mma16::b_addr<false>(sb + n * T::LB + kk, T::LB));
+          else
+            mma16::ldmatrix_x4_trans(r, mma16::b_addr<true>(sb + kk * T::LB + n, T::LB));
+          fb[j][0] = r[0], fb[j][1] = r[1], fb[j + 1][0] = r[2], fb[j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < T::MT; ++i) {
+          const int m = wm + 16 * i;
+          uint32_t fa[4];
+          if (TA)
+            mma16::ldmatrix_x4_trans(fa, mma16::a_addr<true>(sa + kk * T::LA + m, T::LA));
+          else
+            mma16::ldmatrix_x4(fa, mma16::a_addr<false>(sa + m * T::LA + kk, T::LA));
+#pragma unroll
+          for (int j = 0; j < T::NT; ++j) mma16::mma(part[i][j], fa, fb[j]);
+        }
+      }
+    } else {
 #pragma unroll
     for (int kk = 0; kk < T::BK; kk += 8) {
       tc::FragB fb[T::NT];
@@ -556,15 +594,14 @@ gemm_kernel(const typename GemmTypes<P>::In* __restrict__ A, long long lda,
         const int m = wm + 16 * i;
         const tc::FragA fa = TA ? tc::frag_a_trans(sa + kk * T::LA + m, T::LA)
                                 : tc::frag_a_paired(sa + m * T::LA + kk, T::LA);
-        if constexpr (!T::kB16) {
 #pragma unroll
-          for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.lo, fb[j].hi);
+        for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.lo, fb[j].hi);
 #pragma unroll
-          for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].lo);
-        }
+        for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].lo);
 #pragma unroll
         for (int j = 0; j < T::NT; ++j) tc::mma(part[i][j], fa.hi, fb[j].hi);
       }
+    }
     }
 #pragma unroll
     for (int i = 0; i < T::MT; ++i)
@@ -715,38 +752,35 @@ inline cudaError_t weight_grad(const T* A, long long lda, const T* B, long long 
 
 // ---------------------------------------------------------------- S2 activation
 //
-// K3's column design over the hidden channels of a conv-1 output row: one
-// thread owns one (edge, hidden channel) column, keeps its n_trunc
-// coefficients in registers, and walks the G grid points with tg and fg in
-// shared memory (rows zero-padded to kMaxRows floats: 16-byte broadcasts).
+// float32 (K6, K6b): K3's column design over the hidden channels of a
+// conv-1 output row: one thread owns one (edge, hidden channel) column,
+// keeps its n_trunc coefficients in registers, and walks the G grid points
+// with tg and fg in shared memory (rows zero-padded to kMaxRows floats:
+// 16-byte broadcasts).
 
-// tg/fg [G, I] -> shared [G, kMaxRows] (rounded to T's precision); fg's row
-// 0 zeroed when skip_row0.
-template <class T = float>
+// tg/fg [G, I] -> shared [G, kMaxRows]; fg's row 0 zeroed when skip_row0.
 __device__ inline void stage_grid_rows(const float* __restrict__ tg, const float* __restrict__ fg,
                                        int G, int I, bool skip_row0, float* stg, float* sfg) {
   for (int t = threadIdx.x; t < G * kMaxRows; t += blockDim.x) {
     const int g = t / kMaxRows, j = t % kMaxRows;
-    stg[t] = j < I ? rnd<T>(tg[g * I + j]) : 0.f;
-    sfg[t] = (j < I && !(skip_row0 && j == 0)) ? rnd<T>(fg[g * I + j]) : 0.f;
+    stg[t] = j < I ? tg[g * I + j] : 0.f;
+    sfg[t] = (j < I && !(skip_row0 && j == 0)) ? fg[g * I + j] : 0.f;
   }
 }
 
 // mid[e, i, k] = sum_g fg[g, i] silu(sum_j tg[g, j] h[e, j, k]) for i >= 1,
 // mid[e, 0, k] = silu(gate[e, k]); h and gate read from the conv-1 output y1
-// (gate = its extra channels from alpha_ch, float32 at either T). extra_out,
-// when not null, receives each edge's extra channels. At bf16 h and silu of
-// the grid are rounded before their products, mid and extra as stored.
-template <class T = float>
+// (gate = its extra channels from alpha_ch). extra_out, when not null,
+// receives each edge's extra channels.
 __global__ void __launch_bounds__(kGridThreads)
 grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
-                const float* __restrict__ fg, T* __restrict__ mid,
-                T* __restrict__ extra_out, Dims d) {
+                const float* __restrict__ fg, float* __restrict__ mid,
+                float* __restrict__ extra_out, Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;
   float* sfg = smem + d.G * kMaxRows;
   const int I = d.n_trunc;
-  stage_grid_rows<T>(tg, fg, d.G, I, false, stg, sfg);
+  stage_grid_rows(tg, fg, d.G, I, false, stg, sfg);
   __syncthreads();
   const int cblocks = (d.H + kGridThreads - 1) / kGridThreads;
   const long long jobs = (long long)d.E * cblocks;
@@ -756,14 +790,13 @@ grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
     const float* ye = y1 + e * d.y1_width;
     const float* xe = ye + d.rows[0] * d.H;  // the edge's extra channels
     if (extra_out != nullptr && cb == 0)
-      for (int q = threadIdx.x; q < d.extra; q += blockDim.x)
-        extra_out[e * d.extra + q] = from_f<T>(xe[q]);
+      for (int q = threadIdx.x; q < d.extra; q += blockDim.x) extra_out[e * d.extra + q] = xe[q];
     const int k = cb * kGridThreads + threadIdx.x;
     if (k >= d.H) continue;
     float hv[kMaxRows], acc[kMaxRows];
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j) {
-      hv[j] = j < I ? rnd<T>(ye[y1_row_col(d, j) + k]) : 0.f;
+      hv[j] = j < I ? ye[y1_row_col(d, j) + k] : 0.f;
       acc[j] = 0.f;
     }
     for (int g = 0; g < d.G; ++g) {
@@ -778,7 +811,7 @@ grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
         v = fmaf(w.z, hv[4 * j4 + 2], v);
         v = fmaf(w.w, hv[4 * j4 + 3], v);
       }
-      const float a = rnd<T>(siluf_(v));
+      const float a = siluf_(v);
 #pragma unroll
       for (int j4 = 0; j4 < kMaxRows / 4; ++j4) {
         const float4 w = fr[j4];
@@ -788,32 +821,27 @@ grid_fwd_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
         acc[4 * j4 + 3] = fmaf(w.w, a, acc[4 * j4 + 3]);
       }
     }
-    T* me = mid + e * I * d.H + k;
-    me[0] = from_f<T>(siluf_(xe[d.alpha_ch + k]));
+    float* me = mid + e * I * d.H + k;
+    me[0] = siluf_(xe[d.alpha_ch + k]);
 #pragma unroll
     for (int j = 1; j < kMaxRows; ++j)
-      if (j < I) me[(long long)j * d.H] = from_f<T>(acc[j]);
+      if (j < I) me[(long long)j * d.H] = acc[j];
   }
 }
 
 // The backward of grid_fwd_kernel, written as a conv-1 output cotangent dy1:
 //   dy1 hidden rows = tg^T (silu'(tg h) * fg' dmid)   (fg' without row 0)
 //   dy1 extra       = dextra, plus silu'(gate) * dmid[0] on the gate channels
-// Row 0 of dmid reaches only the gate. At bf16 dmid's other rows and
-// silu'(grid) times the lifted cotangent are rounded before their products
-// (dmid's row 0 and the gate's sum stay float32), dy1 is stored rounded,
-// and dy0 [E, out1[0]] receives section 0's columns unrounded (db1's sums).
-template <class T = float>
+// Row 0 of dmid reaches only the gate.
 __global__ void __launch_bounds__(kGridThreads)
 grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
-                const T* __restrict__ dextra, const float* __restrict__ tg,
-                const float* __restrict__ fg, T* __restrict__ dy1, float* __restrict__ dy0,
-                Dims d) {
+                const float* __restrict__ dextra, const float* __restrict__ tg,
+                const float* __restrict__ fg, float* __restrict__ dy1, Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* stg = smem;
   float* sfg = smem + d.G * kMaxRows;
   const int I = d.n_trunc;
-  stage_grid_rows<T>(tg, fg, d.G, I, true, stg, sfg);
+  stage_grid_rows(tg, fg, d.G, I, true, stg, sfg);
   __syncthreads();
   const int cblocks = (d.H + kGridThreads - 1) / kGridThreads;
   const long long jobs = (long long)d.E * cblocks;
@@ -821,25 +849,19 @@ grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
     const long long e = job / cblocks;
     const int cb = (int)(job % cblocks);
     const float* ye = y1 + e * d.y1_width;
-    T* de = dy1 + e * d.y1_width;
-    const T* dxe = dextra + e * d.extra;
+    float* de = dy1 + e * d.y1_width;
+    const float* dxe = dextra + e * d.extra;
     const int x0 = d.rows[0] * d.H;  // the extra channels' first column
-    float* d0 = nullptr;  // bf16: the edge's section-0 columns, float32
-    if constexpr (kBf16<T>) d0 = dy0 + e * d.out1[0];
     if (cb == 0)
-      for (int q = threadIdx.x; q < d.alpha_ch; q += blockDim.x) {
-        de[x0 + q] = dxe[q];
-        if constexpr (kBf16<T>) d0[x0 + q] = to_f(dxe[q]);
-      }
+      for (int q = threadIdx.x; q < d.alpha_ch; q += blockDim.x) de[x0 + q] = dxe[q];
     const int k = cb * kGridThreads + threadIdx.x;
     if (k >= d.H) continue;
     const float* ge = dmid + e * I * d.H + k;
     float hv[kMaxRows], gv[kMaxRows], acc[kMaxRows];
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j) {
-      hv[j] = j < I ? rnd<T>(ye[y1_row_col(d, j) + k]) : 0.f;
+      hv[j] = j < I ? ye[y1_row_col(d, j) + k] : 0.f;
       gv[j] = j < I ? ge[(long long)j * d.H] : 0.f;
-      if (j > 0) gv[j] = rnd<T>(gv[j]);
       acc[j] = 0.f;
     }
     for (int g = 0; g < d.G; ++g) {
@@ -859,7 +881,7 @@ grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
         u = fmaf(f.z, gv[4 * j4 + 2], u);
         u = fmaf(f.w, gv[4 * j4 + 3], u);
       }
-      const float hg = rnd<T>(silu_gradf_(v) * u);
+      const float hg = silu_gradf_(v) * u;
 #pragma unroll
       for (int j4 = 0; j4 < kMaxRows / 4; ++j4) {
         const float4 w = tr[j4];
@@ -869,16 +891,10 @@ grid_bwd_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
         acc[4 * j4 + 3] = fmaf(w.w, hg, acc[4 * j4 + 3]);
       }
     }
-    const float gx = to_f(dxe[d.alpha_ch + k]) + silu_gradf_(ye[x0 + d.alpha_ch + k]) * gv[0];
-    de[x0 + d.alpha_ch + k] = from_f<T>(gx);
-    if constexpr (kBf16<T>) d0[x0 + d.alpha_ch + k] = gx;
+    de[x0 + d.alpha_ch + k] = dxe[d.alpha_ch + k] + silu_gradf_(ye[x0 + d.alpha_ch + k]) * gv[0];
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j)
-      if (j < I) {
-        de[y1_row_col(d, j) + k] = from_f<T>(acc[j]);
-        if constexpr (kBf16<T>)
-          if (j < d.rows[0]) d0[j * d.H + k] = acc[j];
-      }
+      if (j < I) de[y1_row_col(d, j) + k] = acc[j];
   }
 }
 
@@ -893,24 +909,363 @@ inline cudaError_t grid_launch_config(Kernel kernel, const Dims& d, int* blocks)
   return cudaSuccess;
 }
 
-template <class T>
-inline cudaError_t grid_fwd(const float* y1, const float* tg, const float* fg, T* mid,
-                            T* extra_out, const Dims& d, cudaStream_t st) {
+inline cudaError_t grid_fwd(const float* y1, const float* tg, const float* fg, float* mid,
+                            float* extra_out, const Dims& d, cudaStream_t st) {
   int blocks = 0;
-  cudaError_t err = grid_launch_config(grid_fwd_kernel<T>, d, &blocks);
+  cudaError_t err = grid_launch_config(grid_fwd_kernel, d, &blocks);
   if (err != cudaSuccess) return err;
-  grid_fwd_kernel<T><<<blocks, kGridThreads, grid_smem(d), st>>>(y1, tg, fg, mid, extra_out, d);
+  grid_fwd_kernel<<<blocks, kGridThreads, grid_smem(d), st>>>(y1, tg, fg, mid, extra_out, d);
   return cudaGetLastError();
 }
 
-template <class T>
-inline cudaError_t grid_bwd(const float* y1, const float* dmid, const T* dextra, const float* tg,
-                            const float* fg, T* dy1, float* dy0, const Dims& d, cudaStream_t st) {
+inline cudaError_t grid_bwd(const float* y1, const float* dmid, const float* dextra,
+                            const float* tg, const float* fg, float* dy1, const Dims& d,
+                            cudaStream_t st) {
   int blocks = 0;
-  cudaError_t err = grid_launch_config(grid_bwd_kernel<T>, d, &blocks);
+  cudaError_t err = grid_launch_config(grid_bwd_kernel, d, &blocks);
   if (err != cudaSuccess) return err;
-  grid_bwd_kernel<T><<<blocks, kGridThreads, grid_smem(d), st>>>(y1, dmid, dextra, tg, fg, dy1,
-                                                                 dy0, d);
+  grid_bwd_kernel<<<blocks, kGridThreads, grid_smem(d), st>>>(y1, dmid, dextra, tg, fg, dy1, d);
+  return cudaGetLastError();
+}
+
+// bfloat16 (K6·bf16, K6b·bf16): the same two functions on the tensor
+// cores, as K3·bf16 and K3b·bf16 (csrc/s2_act.cu) run them. The columns are
+// the flat (edge, hidden channel) space; a warp owns a tile of kTcCols = 32
+// columns at a time, with no barrier between warps after the block stages
+// the grid matrices once:
+//   copy   the tile's n_trunc hidden rows of y1 (grid_bwd_tc_kernel: and of
+//          dmid) by cp.async into the warp's raw stage [I][kTcRaw] as
+//          float32, zeros past E H: 16-byte pieces where H is a multiple
+//          of 32 and every row 16-byte aligned (a tile then lies in one
+//          edge, and each row's 32 columns are contiguous: the training
+//          widths, H 128), else 4-byte ones, a column a lane; the next
+//          tile's copy is issued as soon as this one is split, so it runs
+//          under this tile's chain
+//   split  the raw stage -> X^T (and Y^T) A fragments, rounded to bfloat16
+//          (h.astype(dt); dmid's rows but row 0, which fg' zeroes), rows
+//          past I zero
+//   chain  grid_chain_tc_fwd<0, 3, 2, 4, 2, bf16> (s2_grid_tc.cuh):
+//          silu(v) rounded in registers as the from-grid B, no barrier;
+//          grid_chain_tc_sep_bwd at bf16: v and u formed transposed, h =
+//          silu'(v) u rounded in registers, dh += tg^T h. One TF32
+//          mma.sync a product of two bfloat16 values (exact), sums float32
+//   store  mid rounded, row 0 silu(gate) from the float32 extra channels
+//          (the forward); dy1's hidden rows rounded and section 0's also
+//          in float32 into dy0 (db1's sums), and a lane's column of the
+//          gate cotangent dextra + silu'(gate) dmid[0], dmid's row 0 read
+//          from the raw stage in float32 (the backward)
+// tg and fg are staged once a block as float, rounded to bfloat16 (the
+// Pallas kernel's grids at x.dtype): tg [Gp][st] read as B and fg [Gp][sa]
+// as A transposed in the forward; tg [Gp][st], fg' [Gp][st] (column 0
+// zeroed) as B and tg [Gp][sa] as A transposed in the backward. Gp is G
+// rounded up to a chain pass (72 at G 70), at most kMaxRows rows (I <= 32:
+// 4 k steps, 2 m16 tiles). A block takes the most warps whose stages fit
+// in shared memory, up to kTcFwdWarps / kTcBwdWarps (tc_grid): at lmax 6,
+// G 70 the forward takes 20 warps, the backward 12 (two raw stages and two
+// fragment sets a warp); 94 and 128 registers, no spills (ptxas -v on
+// sm_90a). A train_so2_bf16 step's 36 grid launches took 22.0 ms of device
+// time against the CUDA-core column kernels' 60.7 (tools/bf16_kernels_ab.py,
+// the parent in the same call; an H100 80GB HBM3 at 700 W).
+constexpr int kTcCT = 2;                // 16-column groups of a warp tile
+constexpr int kTcCols = 16 * kTcCT;     // a warp tile's columns
+constexpr int kTcSteps = 3;             // grid steps of 8 points a chain pass
+constexpr int kTcKS = kMaxRows / 8;     // k steps of the to-grid products
+constexpr int kTcMT = kMaxRows / 16;    // m16 tiles of the from-grid output
+constexpr int kTcRaw = kTcCols + 4;     // raw stage row stride, floats (% 16 of 4)
+constexpr int kTcFwdWarps = 20;         // most warps of a forward block
+constexpr int kTcBwdWarps = 15;         // most warps of a backward block
+constexpr int kTcFragWords = tc::kFragWords<bf16>;  // words of one A fragment (its hi plane)
+
+// The tensor-core stages' block at these widths: staged matrices' rows and
+// strides, k steps, warps, shared memory, whether the copies are 16-byte
+struct TcGrid {
+  int Gp, st, sa, KS, warps;
+  size_t smem;
+  bool vec;
+};
+
+inline TcGrid tc_grid(const Dims& d, bool bwd) {
+  TcGrid c;
+  const int I = d.n_trunc, MT = (I + 15) / 16;
+  c.KS = (I + 7) / 8;
+  c.Gp = (d.G + 8 * kTcSteps - 1) / (8 * kTcSteps) * (8 * kTcSteps);
+  c.st = tc_stride(8 * c.KS);
+  c.sa = tc_fg_stride(16 * MT);
+  c.vec = d.H % kTcCols == 0 && d.extra % 4 == 0;
+  const size_t mats = (size_t)c.Gp * ((bwd ? 2 : 1) * c.st + c.sa);
+  const size_t per_warp = (bwd ? 2 : 1) * ((size_t)I * kTcRaw + (size_t)c.KS * kTcCT * kTcFragWords);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  c.warps = bwd ? kTcBwdWarps : kTcFwdWarps;
+  while (c.warps > 0 && (mats + c.warps * per_warp) * sizeof(float) > (size_t)optin) --c.warps;
+  c.smem = (mats + c.warps * per_warp) * sizeof(float);
+  return c;
+}
+
+// m [G, I] (float32) -> dst [Gp][stride], rounded to bfloat16, zeros past G
+// and I and in columns < col0
+__device__ inline void stage_tc_mat(const float* __restrict__ m, const Dims& d, int Gp, int stride,
+                                    int col0, float* dst) {
+  const int I = d.n_trunc;
+  for (int t = threadIdx.x; t < Gp * stride; t += blockDim.x) {
+    const int g = t / stride, i = t % stride;
+    dst[t] = g < d.G && i < I && i >= col0 ? rnd<bf16>(m[g * I + i]) : 0.f;
+  }
+}
+
+// Offset of row r of edge e: in a conv-1 output row (y1 and dy1, hidden row
+// r), or in an [E, I, H] array (mid, dmid)
+__device__ __forceinline__ long long row_off(const Dims& d, bool y1_rows, long long e, int r) {
+  return y1_rows ? e * d.y1_width + y1_row_col(d, r) : (e * d.n_trunc + r) * d.H;
+}
+
+// The warp tile at column q0 of src's rows -> raw [I][kTcRaw], zeros past
+// E H; called by the 32 lanes of one warp, joins their next commit
+template <bool kVec>
+__device__ __forceinline__ void copy_cols(const float* __restrict__ src, bool y1_rows,
+                                          long long q0, const Dims& d, float* raw) {
+  const int lane = threadIdx.x & 31, I = d.n_trunc;
+  const long long Q = (long long)d.E * d.H;
+  if constexpr (kVec) {  // 8 pieces of 4 columns a row, in one edge
+    const long long e = q0 / d.H;
+    const int k = (int)(q0 - e * d.H) + 4 * (lane & 7);
+    const bool ok = q0 < Q;
+    for (int r = lane >> 3; r < I; r += 4)
+      cp_async16(raw + r * kTcRaw + 4 * (lane & 7), ok ? src + row_off(d, y1_rows, e, r) + k : src,
+                 ok ? 16 : 0);
+  } else {  // a column a lane
+    const long long q = q0 + lane;
+    const bool ok = q < Q;
+    const long long e = ok ? q / d.H : 0;
+    const int k = ok ? (int)(q - e * d.H) : 0;
+    for (int r = 0; r < I; ++r)
+      cp_async4(raw + r * kTcRaw + lane, ok ? src + row_off(d, y1_rows, e, r) + k : src,
+                ok ? 4 : 0);
+  }
+}
+
+// raw [I][kTcRaw] -> X^T's A fragments rounded to bfloat16, in the chains'
+// order ((ks kTcCT + c) kTcFragWords for k step ks and 16-column group c),
+// rows past I zero
+__device__ __forceinline__ void split_cols(const float* raw, int I, int KS, uint32_t* frag) {
+  const int lane = threadIdx.x & 31, col = lane >> 2;
+#pragma unroll
+  for (int ks = 0; ks < kTcKS; ++ks) {
+    if (ks < KS) {
+      const int i0 = 8 * ks + 2 * (lane & 3);
+      const bool r0 = i0 < I, r1 = i0 + 1 < I;
+#pragma unroll
+      for (int c = 0; c < kTcCT; ++c) {
+        const float* p = raw + i0 * kTcRaw + 16 * c + col;
+        tc::store_a_t<bf16>(frag + (ks * kTcCT + c) * kTcFragWords, lane, r0 ? p[0] : 0.f,
+                            r0 ? p[8] : 0.f, r1 ? p[kTcRaw] : 0.f, r1 ? p[kTcRaw + 8] : 0.f);
+      }
+    }
+  }
+}
+
+// The lane's columns of a warp tile's sums: column 8 j + 2 tig + p at
+// (edge, channel); the caller skips those past E H
+__device__ __forceinline__ long long tile_col(long long q0, int j, int p) {
+  return q0 + 8 * j + 2 * tc::lane_tig() + p;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kTcFwdWarps, 1)
+grid_fwd_tc_kernel(const float* __restrict__ y1, const float* __restrict__ tg,
+                   const float* __restrict__ fg, bf16* __restrict__ mid,
+                   bf16* __restrict__ extra_out, Dims d, TcGrid c) {
+  extern __shared__ __align__(16) float smem[];
+  float* stg = smem;               // [Gp][st]: tg, read as B
+  float* sfg = stg + c.Gp * c.st;  // [Gp][sa]: fg, read as A transposed
+  const int I = d.n_trunc, warp = threadIdx.x >> 5, grp = tc::lane_grp();
+  float* raw = smem + c.Gp * (c.st + c.sa) + warp * (I * kTcRaw + c.KS * kTcCT * kTcFragWords);
+  uint32_t* frag = reinterpret_cast<uint32_t*>(raw + I * kTcRaw);
+  const long long Q = (long long)d.E * d.H, nt = (Q + kTcCols - 1) / kTcCols;
+  const long long nw = (long long)gridDim.x * c.warps;
+  long long wt = (long long)blockIdx.x * c.warps + warp;
+  if (wt < nt) copy_cols<kVec>(y1, true, wt * kTcCols, d, raw);
+  cp_async_commit();
+  stage_tc_mat(tg, d, c.Gp, c.st, 0, stg);
+  stage_tc_mat(fg, d, c.Gp, c.sa, 0, sfg);
+  if (extra_out != nullptr) {  // each edge's extra channels (gate.astype(dt) beside them)
+    const long long n = (long long)d.E * d.extra;
+    for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n;
+         t += (long long)gridDim.x * blockDim.x) {
+      const long long e = t / d.extra;
+      extra_out[t] = from_f<bf16>(y1[e * d.y1_width + d.rows[0] * d.H + (t - e * d.extra)]);
+    }
+  }
+  __syncthreads();
+  for (; wt < nt; wt += nw) {
+    const long long q0 = wt * kTcCols;
+    cp_async_wait_all();
+    __syncwarp();  // the tile's raw stage; every lane is done with the last chain
+    split_cols(raw, I, c.KS, frag);
+    __syncwarp();  // the fragments; every lane is done with the raw stage
+    if (wt + nw < nt) copy_cols<kVec>(y1, true, (wt + nw) * kTcCols, d, raw);
+    cp_async_commit();
+    float acc[kTcMT][2 * kTcCT][4], tl[2 * kTcCT];
+    singa::grid_chain_tc_fwd<0, kTcSteps, kTcCT, kTcKS, kTcMT, bf16>(
+        stg, c.st, sfg, c.sa, frag, raw, I, kTcCT, 0, 0, c.Gp / 8, acc, tl);
+    // mid [E, I, H], rounded; row 0 silu(gate) of the float32 extra channels
+#pragma unroll
+    for (int j = 0; j < 2 * kTcCT; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const long long q = tile_col(q0, j, p);
+        if (q >= Q) continue;
+        const long long e = q / d.H;
+        const int k = (int)(q - e * d.H);
+        bf16* o = mid + e * I * d.H + k;
+#pragma unroll
+        for (int mt = 0; mt < kTcMT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 16 * mt + grp + 8 * h;
+            if (i >= I) continue;
+            float v = acc[mt][j][2 * h + p];
+            if (i == 0) v = siluf_(y1[e * d.y1_width + d.rows[0] * d.H + d.alpha_ch + k]);
+            o[(long long)i * d.H] = from_f<bf16>(v);
+          }
+      }
+  }
+  cp_async_wait_all();
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kTcBwdWarps, 1)
+grid_bwd_tc_kernel(const float* __restrict__ y1, const float* __restrict__ dmid,
+                   const bf16* __restrict__ dextra, const float* __restrict__ tg,
+                   const float* __restrict__ fg, bf16* __restrict__ dy1, float* __restrict__ dy0,
+                   Dims d, TcGrid c) {
+  extern __shared__ __align__(16) float smem[];
+  float* stg = smem;                // [Gp][st]: tg, read as B
+  float* sfg = stg + c.Gp * c.st;   // [Gp][st]: fg' (column 0 zeroed), read as B
+  float* sta = sfg + c.Gp * c.st;   // [Gp][sa]: tg, read as A transposed
+  const int I = d.n_trunc, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = tc::lane_grp();
+  const int raw_f = I * kTcRaw, frag_w = c.KS * kTcCT * kTcFragWords;
+  float* rx = smem + c.Gp * (2 * c.st + c.sa) + warp * 2 * (raw_f + frag_w);  // the warp's
+  float* rg = rx + raw_f;
+  uint32_t* fx = reinterpret_cast<uint32_t*>(rg + raw_f);
+  uint32_t* fy = fx + frag_w;
+  const long long Q = (long long)d.E * d.H, nt = (Q + kTcCols - 1) / kTcCols;
+  const long long nw = (long long)gridDim.x * c.warps;
+  const int x0 = d.rows[0] * d.H;  // the extra channels' first column
+  long long wt = (long long)blockIdx.x * c.warps + warp;
+  if (wt < nt) {
+    copy_cols<kVec>(y1, true, wt * kTcCols, d, rx);
+    copy_cols<kVec>(dmid, false, wt * kTcCols, d, rg);
+  }
+  cp_async_commit();
+  stage_tc_mat(tg, d, c.Gp, c.st, 0, stg);
+  stage_tc_mat(fg, d, c.Gp, c.st, 1, sfg);
+  stage_tc_mat(tg, d, c.Gp, c.sa, 0, sta);
+  {  // the extra channels before alpha_ch: dextra's (dy0: float32 for db1)
+    const long long n = (long long)d.E * d.alpha_ch;
+    for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n;
+         t += (long long)gridDim.x * blockDim.x) {
+      const long long e = t / d.alpha_ch;
+      const int q = (int)(t - e * d.alpha_ch);
+      const bf16 v = dextra[e * d.extra + q];
+      dy1[e * d.y1_width + x0 + q] = v;
+      dy0[e * d.out1[0] + x0 + q] = to_f(v);
+    }
+  }
+  __syncthreads();
+  for (; wt < nt; wt += nw) {
+    const long long q0 = wt * kTcCols;
+    cp_async_wait_all();
+    __syncwarp();  // the tile's raw stages; every lane is done with the last chain
+    split_cols(rx, I, c.KS, fx);
+    split_cols(rg, I, c.KS, fy);
+    if (q0 + lane < Q) {  // the lane's gate cotangent, dmid's row 0 in float32
+      const long long q = q0 + lane, e = q / d.H;
+      const int k = (int)(q - e * d.H);
+      const float gx = to_f(dextra[e * d.extra + d.alpha_ch + k]) +
+                       silu_gradf_(y1[e * d.y1_width + x0 + d.alpha_ch + k]) * rg[lane];
+      dy1[e * d.y1_width + x0 + d.alpha_ch + k] = from_f<bf16>(gx);
+      dy0[e * d.out1[0] + x0 + d.alpha_ch + k] = gx;
+    }
+    __syncwarp();  // the fragments; every lane is done with the raw stages
+    if (wt + nw < nt) {
+      copy_cols<kVec>(y1, true, (wt + nw) * kTcCols, d, rx);
+      copy_cols<kVec>(dmid, false, (wt + nw) * kTcCols, d, rg);
+    }
+    cp_async_commit();
+    float acc[kTcMT][2 * kTcCT][4];
+    singa::grid_chain_tc_sep_bwd<kTcSteps, kTcCT, kTcKS, kTcMT, 0, bf16>(
+        stg, sfg, c.st, sta, c.sa, fx, fy, I, kTcCT, 0, c.Gp / 8, acc);
+    // dy1's hidden rows, rounded; section 0's also float32 into dy0
+#pragma unroll
+    for (int j = 0; j < 2 * kTcCT; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const long long q = tile_col(q0, j, p);
+        if (q >= Q) continue;
+        const long long e = q / d.H;
+        const int k = (int)(q - e * d.H);
+#pragma unroll
+        for (int mt = 0; mt < kTcMT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 16 * mt + grp + 8 * h;
+            if (i >= I) continue;
+            const float v = acc[mt][j][2 * h + p];
+            dy1[row_off(d, true, e, i) + k] = from_f<bf16>(v);
+            if (i < d.rows[0]) dy0[e * d.out1[0] + i * d.H + k] = v;
+          }
+      }
+  }
+  cp_async_wait_all();
+}
+
+template <typename Kernel>
+inline cudaError_t tc_grid_launch(Kernel kernel, const Dims& d, const TcGrid& c, int* blocks) {
+  if (c.warps < 1) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, c.smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = ((long long)d.E * d.H + kTcCols - 1) / kTcCols;
+  *blocks = persistent_grid(kernel, 32 * c.warps, c.smem, (tiles + c.warps - 1) / c.warps);
+  return cudaSuccess;
+}
+
+// Resident blocks per SM of a tensor-core grid stage at c (-1: refused),
+// its shared memory and threads a block. For reports; launches nothing.
+template <typename Kernel>
+inline int tc_grid_residency(Kernel kernel, const TcGrid& c, int* smem_bytes, int* threads) {
+  *smem_bytes = (int)c.smem;
+  *threads = 32 * c.warps;
+  if (c.warps < 1 || allow_smem(kernel, c.smem) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * c.warps, c.smem) !=
+      cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+inline cudaError_t grid_fwd(const float* y1, const float* tg, const float* fg, bf16* mid,
+                            bf16* extra_out, const Dims& d, cudaStream_t st) {
+  const TcGrid c = tc_grid(d, false);
+  auto kernel = c.vec ? grid_fwd_tc_kernel<true> : grid_fwd_tc_kernel<false>;
+  int blocks = 0;
+  const cudaError_t err = tc_grid_launch(kernel, d, c, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 32 * c.warps, c.smem, st>>>(y1, tg, fg, mid, extra_out, d, c);
+  return cudaGetLastError();
+}
+
+inline cudaError_t grid_bwd(const float* y1, const float* dmid, const bf16* dextra,
+                            const float* tg, const float* fg, bf16* dy1, float* dy0,
+                            const Dims& d, cudaStream_t st) {
+  const TcGrid c = tc_grid(d, true);
+  auto kernel = c.vec ? grid_bwd_tc_kernel<true> : grid_bwd_tc_kernel<false>;
+  int blocks = 0;
+  const cudaError_t err = tc_grid_launch(kernel, d, c, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 32 * c.warps, c.smem, st>>>(y1, dmid, dextra, tg, fg, dy1, dy0, d, c);
   return cudaGetLastError();
 }
 

@@ -29,10 +29,12 @@ versions for CPU tensors, the CUDA kernels (``csrc/so2_attn.cu``,
 K6·bf16 and K6b·bf16, the Pallas kernel's function at a bfloat16 ``x``
 (``x``, ``rad``, the outputs, the cotangents, ``dx`` and ``drad``
 bfloat16; the weights, biases, angles and grid matrices float32, the
-weight and bias gradients float32), are the same kernels at bfloat16
-storage, counted in ``launches_bf16`` and ``launches_bwd_bf16``;
-``so2_attn_bf16_plain`` and ``so2_attn_bwd_bf16_plain`` are their plain
-twins, which round where ``_fwd_kernel`` and ``_bwd_kernel`` round.
+weight and bias gradients float32), are the same stages at bfloat16
+storage (the GEMM on bfloat16 ``mma.sync``, the grid stages on the tensor
+cores, ``grid_residency``), counted in ``launches_bf16`` and
+``launches_bwd_bf16``; ``so2_attn_bf16_plain`` and
+``so2_attn_bwd_bf16_plain`` are their plain twins, which round where
+``_fwd_kernel`` and ``_bwd_kernel`` round.
 """
 from __future__ import annotations
 
@@ -323,6 +325,22 @@ def gemm_residency(bf16: bool = False) -> dict:
         per_sm = fn(orient, ctypes.byref(smem), ctypes.byref(threads))
         out[name] = {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
     return out
+
+
+def grid_residency(lmax: int, mmax: int, C: int, H: int, F2: int, alpha_ch: int, G: int,
+                   bwd: bool = False) -> dict:
+    """K6·bf16's grid stage on the tensor cores (``bwd``: K6b·bf16's
+    backward one; ``csrc/so2_chain.cuh``) at these widths: resident blocks
+    per SM (-1: a shape it does not take), threads and dynamic shared
+    memory per block. For reports; launches nothing."""
+    lib = build.load("so2_attn_bwd" if bwd else "so2_attn")
+    fn = lib.so2_grid_bwd_bf16_residency if bwd else lib.so2_grid_bf16_residency
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(lmax, mmax, C, H, F2, alpha_ch + H, alpha_ch, G, ctypes.byref(smem),
+                ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
 
 
 def _rotation_blocks(lmax: int, mmax: int, device) -> torch.Tensor:

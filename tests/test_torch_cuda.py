@@ -1761,8 +1761,8 @@ def test_so3_ffn_bf16_instance_by_width(dev, lmax, N, H, C, Co):
     ran = [m for m in names if "ffn_" in m]
     assert len(ran) == 2 and all("bfloat16" in m for m in ran), ran
     assert any("ffn_tc_kernel<" in m for m in ran) and any("ffn_wsplit_kernel<" in m for m in ran)
-    bran = [m for m in bnames if "ffn_bwd_kernel<" in m]
-    assert len(bran) == 1 and "bfloat16" in bran[0], bnames
+    bran = [m for m in bnames if "ffn_bwd_" in m]
+    assert len(bran) == 1 and "ffn_bwd_bf16_kernel<" in bran[0], bnames
     assert [m for m in names + bnames if "ffn_cc_kernel" in m] == []
 
 
@@ -1804,8 +1804,10 @@ def test_so3_ffn_bf16_residency(dev):
     """K4's and K4b's bfloat16 kernels at the s2 microbatch's widths (lmax
     6, C = Co = 16, H 512, G 210): one block an SM of 256 and 512 threads;
     K4's in less shared memory than its float32 kernel (its weights' hi
-    planes alone), K4b's in 256 bytes more (dh's unrounded row 0); lmax 7
-    refused at bfloat16; the float32 kernels' residency unchanged."""
+    planes alone), K4b's in 221,056 bytes (tg, fg, h^T and dmid^T as
+    bfloat16 [*][56], 78,848 B; x, dy, mid, dh, the weights and the sums of
+    a 32-channel chunk as float32, 142,208 B); lmax 7 refused at bfloat16;
+    the float32 kernels' residency unchanged."""
     from singa_tpu_torch.ops.cuda import so3_ffn as k4
 
     widths = (6, 16, 512, 16, 210)
@@ -1814,7 +1816,7 @@ def test_so3_ffn_bf16_residency(dev):
     assert fwd["blocks_per_sm"] == 1 and fwd["threads"] == 256, fwd
     assert fwd["smem_bytes"] < fwd32["smem_bytes"], (fwd, fwd32)
     assert bwd32 == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 225792}, bwd32
-    assert bwd == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 225792 + 256}, bwd
+    assert bwd == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 221056}, bwd
     assert fwd32["blocks_per_sm"] == 1 and fwd32["threads"] == 256, fwd32
     assert k4.s2_fwd_residency(7, 8, 40, 8, 272, bf16=True)["blocks_per_sm"] == -1
     assert k4.s2_bwd_residency(7, 8, 40, 8, 272, bf16=True)["blocks_per_sm"] == -1
@@ -1835,8 +1837,90 @@ def test_so3_ffn_bf16_takes_misaligned_inputs(dev):
     grads, bnames, _ = _kernels_run(
         functools.partial(k4.so3_ffn_bwd_cuda, *[_misaligned(a) for a in bwd_args]))
     _check_bf16(grads, k4.so3_ffn_bwd_plain(*bwd_args), K4_NAMES)
-    ran = [m for m in names + bnames if "ffn_tc_kernel<" in m or "ffn_bwd_kernel<" in m]
+    ran = [m for m in names + bnames if "ffn_tc_kernel<" in m or "ffn_bwd_" in m]
     assert len(ran) == 2 and all("bfloat16" in m for m in ran), names + bnames
+    assert any("ffn_bwd_bf16_kernel<" in m for m in ran), ran
+
+
+# K4b·bf16's chain at every width it takes (lmax, N, H, C, Co): lmax 1..6
+# (I 4 .. 49: one to three k16 steps, row 48 apart at lmax 6), C and Co of
+# 4, 8 and 16, node counts no multiple of its 4-node tile, hidden widths no
+# multiple of its 32-channel chunk, and no node at all
+K4B_BF16_WIDTHS = [(1, 5, 24, 4, 4), (2, 7, 40, 8, 4), (3, 9, 64, 4, 16), (4, 11, 48, 16, 8),
+                   (5, 13, 96, 8, 8), (6, 10, 72, 16, 4), (6, 3, 512, 4, 16),
+                   (6, 0, 64, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", K4B_BF16_WIDTHS)
+def test_so3_ffn_bwd_bf16_mma_chain_by_width(dev, lmax, N, H, C, Co):
+    """K4b·bf16 (``ffn_bwd_bf16_kernel``, its grid chain on bfloat16
+    m16n8k16 mma.sync) against ``so3_ffn_bf16_bwd_plain`` within
+    ``BF16_TOL`` of each output's largest, one bfloat16 launch a call; at N
+    = 0 no launch, an empty dx and zero weight and bias gradients."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    _, bwd_args = _s2_ffn_bf16_case(dev, lmax, N, H, C, Co, 149 + 7 * lmax + N)
+    want = k4.so3_ffn_bwd_plain(*bwd_args)
+    n = (k4.launches_s2_bwd, k4.launches_s2_bwd_bf16)
+    if N == 0:
+        got = k4.so3_ffn_bwd_cuda(*bwd_args)
+        assert [(g.shape, g.dtype) for g in got] == [(w.shape, w.dtype) for w in want]
+        assert all(not bool(g.any()) for g in got[1:])
+        assert (k4.launches_s2_bwd, k4.launches_s2_bwd_bf16) == n
+        return
+    got, names, calls = _kernels_run(functools.partial(k4.so3_ffn_bwd_cuda, *bwd_args))
+    _check_bf16(got, want, K4_NAMES)
+    assert (k4.launches_s2_bwd, k4.launches_s2_bwd_bf16) == (n[0], n[1] + calls)
+    ran = [m for m in names if "ffn_bwd_" in m]
+    assert len(ran) == 1 and "ffn_bwd_bf16_kernel<" in ran[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ta,tb", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_mma_bf16_tile_matches_float64(dev, ta, tb):
+    """One [48 x 64] . [64 x 32] product through csrc/mma_bf16.cuh
+    (ldmatrix, .trans where A is stored [k][m] or B [k][n], bfloat16
+    m16n8k16 mma.sync) against the float64 product of the same bfloat16
+    values: within 2e-6 of the largest output (the products exact, the
+    sums float32)."""
+    import ctypes
+
+    from singa_tpu_torch.ops.cuda import build
+
+    M, K, N = 48, 64, 32
+    rng = np.random.default_rng(71 + 2 * ta + tb)
+    a = torch.as_tensor(rng.normal(size=(M, K)).astype(np.float32)).to(torch.bfloat16)
+    b = torch.as_tensor(rng.normal(size=(K, N)).astype(np.float32)).to(torch.bfloat16)
+    fn = build.load("mma_tf32").mma_bf16_tile_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sa = (a.T if ta else a).contiguous().to(dev)
+    sb = (b.T if tb else b).contiguous().to(dev)
+    out = torch.full((M, N), float("nan"), dtype=torch.float32, device=dev)
+    build.check(fn(sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, K, N, ta, tb,
+                   build.stream_ptr(out)), "mma_bf16_tile")
+    torch.cuda.synchronize()
+    want = a.double() @ b.double()
+    err = (out.cpu().double() - want).abs().max() / want.abs().max()
+    assert err.item() <= 2e-6, err.item()
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_issue_bf16_mma_in_sass(dev):
+    """``tools/sass_mma.py``'s checks: K4b·bf16's kernel and the bfloat16
+    GEMM of K6·bf16 and K6b·bf16 issue ``HMMA.16816.F32.BF16`` and no TF32
+    HMMA, K6's bfloat16 grid stages TF32 HMMA, the float32 GEMM no bfloat16
+    one (cuobjdump -sass of the built libraries)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "sass_mma.py")
+    spec = importlib.util.spec_from_file_location("sass_mma", path)
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    res = sass.check()
+    assert res["ok"], [c for c in res["checks"] if not c["ok"]]
 
 
 def _so2_case(dev, E, lmax, C, H, F2, alpha_ch, seed):
@@ -1984,20 +2068,21 @@ def test_so2_gemm_matches_float64(dev, orient, M, K, N, splits, ragged):
 SO2_GRAD_NAMES = ["dx", "drad", "dw1_0", "dw1_1", "dw1_2", "db1", "dw2_0", "dw2_1", "dw2_2",
                   "db2"]
 # K6·bf16's and K6b·bf16's kernels by name (csrc/so2_chain.cuh at T = bf16:
-# the GEMM on bfloat16 operands, Bf16In<Out>), each of which a forward and a
-# backward call launch, and their float32 instances, which neither launches
+# the GEMM on bfloat16 operands, Bf16In<Out>; the grid stages on the tensor
+# cores), each of which a forward and a backward call launch, and their
+# float32 instances (the grid's CUDA-core kernels), which neither launches
 SO2_BF16_FWD = ("round_weights_kernel", "rotate_fwd_kernel<__nv_bfloat16>",
                 r"gemm_kernel<false, false, \w+, singa::so2::Bf16In<float> ?>",
                 r"gemm_kernel<false, false, \w+, singa::so2::Bf16In<__nv_bfloat16> ?>",
-                "grid_fwd_kernel<__nv_bfloat16>")
+                "grid_fwd_tc_kernel<")
 SO2_BF16_BWD = ("round_weights_kernel", "rotate_fwd_kernel<__nv_bfloat16>",
                 r"gemm_kernel<false, false, \w+, singa::so2::Bf16In<float> ?>",
                 r"gemm_kernel<false, true, \w+, singa::so2::Bf16In<float> ?>",
                 r"gemm_kernel<true, false, \w+, singa::so2::Bf16In<float> ?>",
-                "grid_fwd_kernel<__nv_bfloat16>", "grid_bwd_kernel<__nv_bfloat16>",
+                "grid_fwd_tc_kernel<", "grid_bwd_tc_kernel<",
                 "col_sum_kernel<__nv_bfloat16>", "rotate_bwd_kernel<__nv_bfloat16>")
 SO2_F32_KERNELS = (r"gemm_kernel<\w+, \w+, \w+, float>", "rotate_fwd_kernel<float>",
-                   "rotate_bwd_kernel<float>", "grid_fwd_kernel<float>", "grid_bwd_kernel<float>")
+                   "rotate_bwd_kernel<float>", r"grid_fwd_kernel\(", r"grid_bwd_kernel\(")
 
 
 def _so2_bf16_case(dev, E, lmax, C, H, F2, alpha_ch, seed):
@@ -2062,6 +2147,56 @@ def test_so2_attn_bf16_kernels_match_twins(dev, E, lmax, C, H, F2, alpha_ch):
     _check_bf16(grads, want_g, SO2_GRAD_NAMES)
     assert (k6.launches, k6.launches_bwd, k6.launches_bf16, k6.launches_bwd_bf16) == (
         n[0], n[1], n[2] + calls, n[3] + bcalls)
+    _check_names(names, SO2_BF16_FWD, SO2_F32_KERNELS)
+    _check_names(bnames, SO2_BF16_BWD, SO2_F32_KERNELS)
+
+
+# K6·bf16's and K6b·bf16's stage-2 call (a training microbatch's 7,936
+# edges at the default Config's widths), lmax 2 (I 9: one k step, one m16
+# tile), and a hidden width whose 32-column tiles cross edges (the grid
+# stages' 4-byte copies)
+SO2_BF16_STAGES = [(7936, 6, 32, 128, 112, 224), (45, 2, 16, 64, 20, 8),
+                   (29, 4, 8, 48, 16, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,lmax,C,H,F2,alpha_ch", SO2_BF16_STAGES)
+def test_so2_attn_bf16_grid_stages_on_tensor_cores(dev, E, lmax, C, H, F2, alpha_ch):
+    """K6·bf16 and K6b·bf16 with their grid stages on the tensor cores
+    (``grid_fwd_tc_kernel``, ``grid_bwd_tc_kernel``) against their bfloat16
+    twins, ``BF16_TOL`` of each output's largest; no CUDA-core grid kernel
+    runs; the stages resident at these widths."""
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
+
+    args, cts = _so2_bf16_case(dev, E, lmax, C, H, F2, alpha_ch, 157 + E)
+    bwd_args = _so2_bwd_args(args, cts)
+    G = args[8].shape[0]
+    got, names, _ = _kernels_run(functools.partial(k6.so2_attn_cuda, *args))
+    _check_bf16(got, k6.so2_attn_plain(*args), ["z0", "z1", "z2", "extra"])
+    grads, bnames, _ = _kernels_run(functools.partial(k6.so2_attn_bwd_cuda, *bwd_args))
+    _check_bf16(grads, k6.so2_attn_bwd_plain(*bwd_args), SO2_GRAD_NAMES)
+    _check_names(names, SO2_BF16_FWD, SO2_F32_KERNELS)
+    _check_names(bnames, SO2_BF16_BWD, SO2_F32_KERNELS)
+    for bwd in (False, True):
+        res = k6.grid_residency(lmax, 2, C, H, F2, alpha_ch, G, bwd=bwd)
+        assert res["blocks_per_sm"] >= 1 and res["threads"] >= 32, res
+
+
+@pytest.mark.cuda
+def test_so2_attn_bf16_takes_misaligned_inputs(dev):
+    """K6·bf16 and K6b·bf16 given every tensor input as a contiguous view at
+    a one-element offset run through the wrappers' aligned copies, on their
+    bfloat16 stages, and match their twins."""
+    from singa_tpu_torch.ops.cuda import so2_attn as k6
+
+    args, cts = _so2_bf16_case(dev, 300, 6, 32, 128, 112, 224, 163)
+    bwd_args = _so2_bwd_args(args, cts)
+    mis = lambda a: [_misaligned(t) for t in a] if isinstance(a, list) else _misaligned(a)
+    got, names, _ = _kernels_run(functools.partial(k6.so2_attn_cuda, *[mis(a) for a in args]))
+    _check_bf16(got, k6.so2_attn_plain(*args), ["z0", "z1", "z2", "extra"])
+    grads, bnames, _ = _kernels_run(
+        functools.partial(k6.so2_attn_bwd_cuda, *[mis(a) for a in bwd_args]))
+    _check_bf16(grads, k6.so2_attn_bwd_plain(*bwd_args), SO2_GRAD_NAMES)
     _check_names(names, SO2_BF16_FWD, SO2_F32_KERNELS)
     _check_names(bnames, SO2_BF16_BWD, SO2_F32_KERNELS)
 

@@ -12,7 +12,8 @@ result of a variant but ``final`` is used.
 Each variant is a copy of ``singa_tpu_torch`` under ``build/k4_parts/``
 with ``csrc/so3_ffn.cu`` or ``csrc/so3_ffn_bwd.cu`` changed as VARIANTS
 lists (``final``: the sources as they are): K4b without its grid chain
-(the four sphere-grid transforms on the tensor cores), without the
+(the four sphere-grid transforms on the tensor cores: at float32
+``grid_chain_tc``, at bfloat16 ``grid_chain_mma16_bwd``), without the
 weight-gradient sums, without dx, without the chain and the sums; K4
 without its chain. Every variant is built at once, one nvcc each, then
 each is run in a process of its own; each call is timed by CUDA events
@@ -31,15 +32,20 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BWD, FWD = "so3_ffn_bwd.cu", "so3_ffn.cu"
-NO_CHAIN_BWD = (BWD, r"singa::grid_chain_tc<kNCOL, (?:49|0)(?:, T)?>\([^;]*\);", "(void)0;")
+NO_CHAIN_BWD = (BWD, r"singa::grid_chain_tc<kNCOL, (?:49|0)>\([^;]*\);", "(void)0;")
+NO_CHAIN_BWD_BF16 = (BWD, r"singa::grid_chain_mma16_bwd<I0>\([^;]*\);",
+                     "for (auto& m : om) for (auto& j : m) for (auto& q : j) q = 0.f; "
+                     "for (auto& m : od) for (auto& j : m) for (auto& q : j) q = 0.f; "
+                     "tm[0] = tm[1] = td[0] = td[1] = 0.f;")
 NO_SUMS = (BWD, r"swsum\[e\] \+= v;", "(void)v;")
+NO_BLOCK_SUMS = (BWD, r"swsum\[w1b \?[^;]*\+= acc\[u\]\[v\];", "(void)acc;")  # K4b·bf16's
 VARIANTS = {
     "final": [],
-    "bwd_no_chain": [NO_CHAIN_BWD],
-    "bwd_no_sums": [NO_SUMS],
+    "bwd_no_chain": [NO_CHAIN_BWD, NO_CHAIN_BWD_BF16],
+    "bwd_no_sums": [NO_SUMS, NO_BLOCK_SUMS],
     "bwd_no_dx": [(BWD, r"if \(dx_job\) \{(\s+const int l = degree_of\(dx_i\);)",
                    r"if (false) {\1")],
-    "bwd_no_chain_sums": [NO_CHAIN_BWD, NO_SUMS],
+    "bwd_no_chain_sums": [NO_CHAIN_BWD, NO_CHAIN_BWD_BF16, NO_SUMS, NO_BLOCK_SUMS],
     "fwd_no_chain": [(FWD, r"singa::grid_chain_tc_fwd<I0,[^;]*;",
                       "for (auto& m : acc) for (auto& j : m) for (auto& q : j) q = 0.f; "
                       "for (auto& t : tl) t = 0.f;")],
@@ -135,7 +141,7 @@ def main() -> int:
         if builds[name].returncode != 0:
             raise SystemExit(f"{name} did not build:\n{logs[name][-3000:]}")
         ptxas = {k: v for k, v in json.loads(logs[name].strip().splitlines()[-1]).items()
-                 if "ffn_tc_kernel<2, 49" in k or "ffn_bwd_kernel" in k}
+                 if "ffn_tc_kernel<2, 49" in k or "ffn_bwd_" in k}
         r = subprocess.run([sys.executable, "-c", CHILD, root], capture_output=True, text=True)
         if r.returncode != 0:
             raise SystemExit(f"{name} failed:\n{r.stderr[-3000:]}")
