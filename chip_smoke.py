@@ -171,11 +171,12 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      bfloat16: kernel_train_s2_bf16 / kernel_bwd_s2_bf16 (K4·bf16 and
      K4b·bf16 at every distinct call of a microbatch, each held to its
      bfloat16 twin within BF16_TOL, bound at the bfloat16 rate and
-     ``bound_tc_ms`` at one TF32 product, K4b·bf16's at half of one: its
-     chain on bfloat16 m16n8k16 mma.sync), train_s2_bf16 (per step the
+     ``bound_tc_ms`` at half a TF32 product: every product of both on
+     bfloat16 m16n8k16 mma.sync), train_s2_bf16 (per step the
      bfloat16 instances of K1, K1b, K3, K3b, K4, K4b 6 each, every float32
      count 0), train_profile_s2_bf16 (``k4_kernels``: K4·bf16's kernel and
-     split and K4b·bf16's kernel by name, K4's CUDA-core kernel 0),
+     weight kernel and K4b·bf16's kernel by name, K4's float32 tensor-core
+     kernel and split and its CUDA-core kernel 0),
      train_cli_s2_bf16 (``--config configs/train_corpus.yml``) and
      train_s2_bf16_vs_f32 (both steps' time, busy time, peak memory)
  13. the default Config with SINGA_TPU_FUSED_SO2 set for these phases only
@@ -223,13 +224,14 @@ Imports nothing of JAX or of the JAX package. Phases, one JSON line each
      BF16_STEPS steps, no _vs_cpu): kernel_train / kernel_bwd (K7·bf16 and
      K7b·bf16, or K8·bf16 and K8b·bf16, at every distinct call of a
      microbatch, each held to its bfloat16 twin within BF16_TOL, bound at
-     the bfloat16 rate; K7's and K7b's lines with ``walks``,
+     the bfloat16 rate; K7's, K7b's and K8b's lines with ``walks``,
      ``bound_tc_ms`` at one TF32 product and their CUDA-core instance at
      the same call), train (per step 12 of each of K2·bf16, K3·bf16,
      K2b·bf16, K3b·bf16 and the form's two bfloat16 instances, every
      float32 count 0), train_profile (the form's bfloat16 kernels by name,
      ``k7_bf16_kernels`` / ``k8_bf16_kernels``, 12 a step, their float32
-     instances 0) and train_cli (``--config configs/train.yml``, the
+     instances 0; K8b·bf16's tensor-core kernels, its CUDA-core ones 0)
+     and train_cli (``--config configs/train.yml``, the
      switch set); train_forms_bf16_vs_f32 sets each form's bfloat16 step
      beside its float32 one; train_vs_cpu_bf16: configs/train.yml cut to
      lmax 2, a bfloat16 training step's loss and every gradient on the card
@@ -447,20 +449,26 @@ K4_KERNELS = ("ffn_tc_kernel", "ffn_wsplit_kernel")
 # bf16): K4's tensor-core kernel and split, two launches for each K4·bf16
 # call, K4b's kernel one for each K4b·bf16 call; K4_CC K4's CUDA-core
 # instance, which runs no bfloat16
-K4_BF16_KERNELS = ("ffn_tc_kernel<.*bfloat16", "ffn_wsplit_kernel<.*bfloat16",
-                   "ffn_bwd_bf16_kernel<")
+K4_BF16_KERNELS = ("ffn_fwd_bf16_kernel<", "ffn_wfrag_bf16_kernel", "ffn_bwd_bf16_kernel<")
 K4_CC = "cc::ffn_cc_kernel"
+# K4's float32 tensor-core kernel and split, which the bfloat16 path must
+# not run (K2's gate_ffn_* kernels do not match)
+K4_F32 = ("::ffn_tc_kernel<", "::ffn_wsplit_kernel<")
 # K7's and K7b's bfloat16 kernels in a profile (their form 1 instances at T =
 # bf16): the tile kernel once a K7·bf16 call, the pair kernel once a
 # K7b·bf16 call; K7_F32 their float32 instances, which the bfloat16 path
 # must not run
 K7_BF16_KERNELS = ("list_fwd_tile_kernel<1, .*bfloat16", "list_bwd_pair_kernel<1, .*bfloat16")
 K7_F32 = ("list_fwd_tile_kernel<1, float>", "list_bwd_pair_kernel<1, float>")
-# K8's and K8b's bfloat16 kernels in a profile (csrc/encoder_attn.cuh's dense
-# form at T = bf16): the forward once a K8·bf16 call, the pair kernel and
-# the dk/dv stage once a K8b·bf16 call; K8_F32 their float32 instances
-K8_BF16_KERNELS = ("attn_fwd_kernel<2, .*bfloat16", "attn_bwd_pair_kernel<2, .*bfloat16",
-                   "csr_dkdv_kernel<2, .*bfloat16")
+# K8's and K8b's bfloat16 kernels in a profile: the forward (csrc/
+# encoder_attn.cuh's dense form at T = bf16) once a K8·bf16 call, the
+# tensor-core pair kernel and dk/dv stage (csrc/neighbor_attn_bwd.cu's list
+# kernels in their dense form, form 2) once a K8b·bf16 call; K8B_BF16_CC
+# K8b·bf16's CUDA-core kernels (encoder_attn.cuh's, for rows over one
+# tile), K8_F32 their float32 instances
+K8_BF16_KERNELS = ("attn_fwd_kernel<2, .*bfloat16", "list_bwd_pair_kernel<2, .*bfloat16",
+                   "list_dkdv_kernel<2, .*bfloat16")
+K8B_BF16_CC = ("attn_bwd_pair_kernel<2, .*bfloat16", "csr_dkdv_kernel<2, .*bfloat16")
 K8_F32 = ("attn_fwd_kernel<2, float>", "attn_bwd_pair_kernel<2, float>")
 # K6's and K6b's bfloat16 kernels in a profile (csrc/so2_chain.cuh at T =
 # bf16): the weights' rounding, the rotation and the grid on the tensor
@@ -690,7 +698,11 @@ def dense_lists_report(args, kw) -> dict:
     """What K8/K8b walk at one captured call: the live pairs and rows, the
     closed-form rows, tiles per live row at each kernel's tile, the
     backward's per-pair scratch (against the [B*N*N, kd + vd + 2H] of the
-    all-columns kernel), and each kernel's residency."""
+    all-columns kernel), each kernel's residency, the largest live count
+    the lists recorded, and what reading it costs ``live_columns`` on the
+    card (``max_live_sync_ms``: the host's time of ``int(counts.max())`` on
+    the lists' counts, the one host sync it adds beside ``nonzero``'s,
+    median of 20)."""
     from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
 
     qt, _, v, adj, ds = args[:5]
@@ -703,7 +715,14 @@ def dense_lists_report(args, kw) -> dict:
     per_pair = (kd + vd + 2 * H) * 4
     tiles = lambda T: float(((live + T - 1) // T).float().mean()) if live.numel() else 0.0
     res = k8.residency(N, H, kd, vd, De)
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(counts.max())
+        times.append((time.perf_counter() - t0) * 1e3)
     return {"rows": B * N, "pairs": B * N * N, "live_pairs": int(lists.cols.numel()),
+            "max_live": lists.max_live, "max_live_sync_ms": statistics.median(times),
             "padded_rows": int((ds[..., 0] <= -0.5 * k8.BIG).sum()),
             "closed_form_rows": int((counts == 0).sum()),
             "largest_live_count": int(counts.max()) if counts.numel() else 0,
@@ -1087,6 +1106,48 @@ def k8b_cost(args, outs):
     return b, live * sum(pair_flops(H, kd, vd, De)) + padded_fwd + padded_bwd
 
 
+def k8b_split_flops(args) -> float:
+    """The operations of K8b·bf16 that its tensor-core kernels run on the
+    tensor cores, once per live pair: K1b's (the two EdgeMLPs, dh and the
+    four weight gradients), at one TF32 product each."""
+    adj, centers, wk1, wv1 = args[3], args[6], args[7], args[11]
+    from singa_tpu_torch.ops.cuda.dense_edge_attn import BIG
+
+    De, kd, vd = centers.shape[0], wk1.shape[1], wv1.shape[1]
+    per_pair = 2.0 * (2 * De * (kd + vd) + 3 * (kd * kd + vd * vd))
+    return float((adj < 0.5 * BIG).sum().item()) * per_pair
+
+
+def dense_bwd_report(spec, mod, args, kw) -> dict:
+    """K8b·bf16's kernels at one call: which instance its shape picks
+    (``instance``: its tensor-core kernels where every row fits one tile),
+    what the tensor-core pair kernel walked, as it counts it (``walks``:
+    rows skipped for a zero cotangent, rows taken with their live columns,
+    (row, head) pairs whose max would leave a dead column a weight, live
+    pairs evaluated, rows in closed form, beside the inputs' rows and live
+    pairs), and ``cuda_cores_report``: its CUDA-core instance at the same
+    call."""
+    launch = getattr(mod, f"{spec.fn}_cuda")
+    qt, adj, ds = args[0], args[3], args[4]
+    lists = mod.DenseLists(*kw["lists"])
+    H = ds.shape[2]
+    B, N, _ = adj.shape
+    instance = mod.bwd_bf16_instance(lists.max_live, H, qt.shape[2] // H,
+                                     args[2].shape[2] // H, args[6].shape[0])
+    stats = torch.zeros(5, dtype=torch.int32, device=adj.device)
+    with torch.no_grad():
+        launch(*args, **kw, stats=stats)
+    zero, live, weighted, pairs, closed = stats.tolist()
+    if instance == "tensor_cores" and weighted:
+        raise AssertionError(f"{spec.name}: {weighted} (row, head) pairs whose max leaves a "
+                             "dead column a weight")
+    return {"instance": instance, "largest_live_count": lists.max_live,
+            "walks": {"rows": B * N, "rows_zero_cotangent": zero, "rows_live": live,
+                      "rows_closed_form": closed, "dead_weighted_heads": weighted,
+                      "pairs_evaluated": pairs, "live_pairs": int(lists.cols.numel())},
+            **cuda_cores_report(spec, mod, args, kw)}
+
+
 def k4_cost(args, out):
     x, w1, b1, wg, bg, w2, b2, tg, fg, lmax = args
     N, I, C = x.shape
@@ -1098,10 +1159,10 @@ def k4_cost(args, out):
 
 def k4_split_flops(args) -> float:
     """The operations of K4 that its tensor-core kernel (the one every call
-    of the s2 path takes) runs as split TF32: h and y, 2·N·I·H·(C + Co), and
-    the two grid transforms, 2·N·2·G·r·H, but at lmax 6 their last row (r =
-    I - 1), which runs in float32 on the CUDA cores; the gates stay
-    float32."""
+    of the s2 path takes) runs on the tensor cores (split TF32 at float32,
+    bfloat16 m16n8k16 at bfloat16): h and y, 2·N·I·H·(C + Co), and the two
+    grid transforms, 2·N·2·G·r·H, but at lmax 6 their last row (r = I - 1),
+    which runs in float32 on the CUDA cores; the gates stay float32."""
     x, w1, _, _, _, w2, _, tg, _, _ = args
     N, I, C = x.shape
     H, Co, G = w1.shape[2], w2.shape[2], tg.shape[0]
@@ -1324,12 +1385,12 @@ def bf16_instance(spec: Kernel, tensor_cores: bool = False, report=None,
     """The bfloat16 instance of a kernel of a training path: the same
     wrapper and plain function at bfloat16 activations, its own launch
     counter (``counter``, else the kernel's with ``_bf16``), its bound at
-    the bfloat16 tensor-core rate. ``tensor_cores`` (all but K8's and
-    K8b's): its tensor-core kernels, one TF32 product for
+    the bfloat16 tensor-core rate. ``tensor_cores`` (all but K8's): its
+    tensor-core kernels, one TF32 product for
     each product of two bfloat16 values (``bound_tc_ms`` at one product),
     and ``report`` at each call (the CUDA-core instance at the same call;
-    K1's, K7's, K1b's and K7b's walks; K3's and K3b's wrapper host time);
-    else its CUDA-core kernel."""
+    K1's, K7's, K1b's, K7b's and K8b's walks; K3's and K3b's wrapper host
+    time); else its CUDA-core kernel."""
     return spec._replace(name=f"{spec.name}_bf16", counter=counter or f"{spec.counter}_bf16",
                          split_flops=spec.split_flops if tensor_cores else None, report=report,
                          rate=BF16_FLOP_PER_S, tol=BF16_TOL, tf32_products=1)
@@ -1394,17 +1455,21 @@ BF16_PATH = [bf16_instance(K1, True, list_fwd_report), bf16_instance(K2, True, k
              bf16_instance(K3B, True, instance_report)]
 K1_BF16, K2_BF16, K3_BF16, K1B_BF16, K2B_BF16, K3B_BF16 = BF16_PATH
 # configs/train_corpus.yml's at its bfloat16 (K1, K3, K1b, K3b as above)
-# (K4b·bf16's grid transforms on bfloat16 m16n8k16 mma.sync: half a TF32
-# product's time each)
-S2_BF16_PATH = [bf16_instance(K4, True), bf16_instance(K4B, True)._replace(tf32_products=0.5)]
+# (K4·bf16's products and K4b·bf16's grid transforms on bfloat16 m16n8k16
+# mma.sync: half a TF32 product's time each)
+S2_BF16_PATH = [bf16_instance(K4, True)._replace(tf32_products=0.5),
+                bf16_instance(K4B, True)._replace(tf32_products=0.5)]
 K4_BF16, K4B_BF16 = S2_BF16_PATH
 # configs/train.yml's under SINGA_TPU_HYBRID_ATTN (K7's and K7b's tensor-core
-# kernels at bfloat16) and under SINGA_TPU_DENSE_ATTN (K8's and K8b's
-# CUDA-core kernels at bfloat16); K2, K3, K2b and K3b as in BF16_PATH
+# kernels at bfloat16) and under SINGA_TPU_DENSE_ATTN (K8's CUDA-core
+# kernel at bfloat16, K8b's tensor-core kernels at one TF32 product a
+# product); K2, K3, K2b and K3b as in BF16_PATH
 HYBRID_BF16_PATH = [bf16_instance(K7, True, list_fwd_report),
                     bf16_instance(K7B, True, list_bwd_report, "launches_bwd_hybrid_bf16")]
 K7_BF16, K7B_BF16 = HYBRID_BF16_PATH
-DENSE_BF16_PATH = [bf16_instance(K8), bf16_instance(K8B)]
+DENSE_BF16_PATH = [bf16_instance(K8),
+                   bf16_instance(K8B, True, dense_bwd_report)._replace(
+                       split_flops=k8b_split_flops)]
 K8_BF16, K8B_BF16 = DENSE_BF16_PATH
 # configs/train.yml's under SINGA_TPU_FUSED_SO2 (K6's and K6b's stages at
 # bfloat16: the GEMM on bfloat16 m16n8k16 mma.sync, the grid stages on the
@@ -1910,19 +1975,19 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         runs_k3 = sum(per_step.get(k.name, 0) for k in (K3, K3_BF16)) > 0
         # the hand kernels a call of the path launches once each, by name in
         # a profile, with the kernels whose calls launch them and their
-        # CUDA-core kernels (which the path must not run)
+        # CUDA-core kernels (one name or a tuple: kernels the path must not run)
         once = [(K1_KERNELS, (K1, K7, K1_BF16, K7_BF16), K1_CC),
                 (("gate_ffn_wsplit_kernel",), (K2, K2_BF16), K2_CC),
                 (("gate_ffn_bwd_wsplit_kernel",), (K2B, K2B_BF16), K2B_CC),
                 (("list_bwd_pair_kernel",), (K1B, K7B, K1B_BF16, K7B_BF16), K1B_CC),
                 (K3_KERNELS[:1], (K3, K3_BF16), K3_CC),
                 (K3_KERNELS[1:], (K3B, K3B_BF16), K3_CC),
-                (K4_BF16_KERNELS[:2], (K4_BF16,), K4_CC),
+                (K4_BF16_KERNELS[:2], (K4_BF16,), (K4_CC, *K4_F32)),
                 (K4_BF16_KERNELS[2:], (K4B_BF16,), K4_CC),
                 (K7_BF16_KERNELS[:1], (K7_BF16,), K7_F32[0]),
                 (K7_BF16_KERNELS[1:], (K7B_BF16,), K7_F32[1]),
                 (K8_BF16_KERNELS[:1], (K8_BF16,), K8_F32[0]),
-                (K8_BF16_KERNELS[1:], (K8B_BF16,), K8_F32[1]),
+                (K8_BF16_KERNELS[1:], (K8B_BF16,), (K8_F32[1], *K8B_BF16_CC)),
                 (K6_BF16_KERNELS[:3], (K6_BF16, K6B_BF16), K6_F32[0]),
                 (K6_BF16_KERNELS[3:5], (K6B_BF16,), K6_F32[2]),
                 (K6_BF16_KERNELS[2:3], (K6_BF16, K6B_BF16), K6_F32[3]),
@@ -1933,7 +1998,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         # float32 instances beside them
         forms_bf16 = {key: names for key, names, spec in (
             ("k7_bf16_kernels", (*K7_BF16_KERNELS, *K7_F32), K7_BF16),
-            ("k8_bf16_kernels", (*K8_BF16_KERNELS, *K8_F32), K8_BF16),
+            ("k8_bf16_kernels", (*K8_BF16_KERNELS, *K8B_BF16_CC, *K8_F32), K8_BF16),
             ("k6_bf16_kernels", (*K6_BF16_KERNELS, *K6_F32), K6_BF16)) if per_step.get(spec.name)}
         with ClockSampler() as clocks:
             prof = device_profile(lambda: trainer.train_step(batch),
@@ -1942,7 +2007,7 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
                                   + (*K1B_KERNELS, K1B_CC) * runs_k1b
                                   + (*K1_KERNELS, K1_CC) * runs_k1
                                   + K4_KERNELS * runs_k4 + (*K2_KERNELS, K2_CC) * runs_k2
-                                  + (*K4_BF16_KERNELS, K4_CC) * runs_k4_bf16
+                                  + (*K4_BF16_KERNELS, K4_CC, *K4_F32) * runs_k4_bf16
                                   + (*K3_KERNELS, K3_CC) * runs_k3
                                   + tuple(n for names in forms_bf16.values() for n in names), mods,
                                   lambda rise: {n: sum(rise[k.name] for k in specs)
@@ -1961,8 +2026,9 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
             extra["k1_kernels"] = {n: prof["matched"][n] for n in (*K1_KERNELS, K1_CC)}
         if runs_k4:  # K4's kernels by name
             extra["k4_kernels"] = {n: prof["matched"][n] for n in K4_KERNELS}
-        if runs_k4_bf16:  # K4's and K4b's bfloat16 kernels by name, none of K4's CUDA-core
-            extra["k4_kernels"] = {n: prof["matched"][n] for n in (*K4_BF16_KERNELS, K4_CC)}
+        if runs_k4_bf16:  # K4's and K4b's bfloat16 kernels by name, none of K4's others
+            extra["k4_kernels"] = {n: prof["matched"][n]
+                                   for n in (*K4_BF16_KERNELS, K4_CC, *K4_F32)}
         if runs_k2:  # K2's kernels by name
             extra["k2_kernels"] = {n: prof["matched"][n] for n in (*K2_KERNELS, K2_CC)}
         if runs_k3:  # K3's and K3b's kernels by name
@@ -1977,9 +2043,10 @@ def train_phases(dev, results: dict, val_files, cfg, suffix: str, specs, per_ste
         # bfloat16 K4's bfloat16 kernel and split and K4b's kernel too
         for tcs, specs, cc in once:
             calls = sum(per_step.get(k.name, 0) for k in specs)
-            got = tuple(prof["matched"][n]["launches"] for n in (*tcs, cc))
-            if got != (calls,) * len(tcs) + (0,):
-                raise AssertionError(f"{(*tcs, cc)} launched {got} times in a step, expected "
+            ccs = (cc,) if isinstance(cc, str) else cc
+            got = tuple(prof["matched"][n]["launches"] for n in (*tcs, *ccs))
+            if got != (calls,) * len(tcs) + (0,) * len(ccs):
+                raise AssertionError(f"{(*tcs, *ccs)} launched {got} times in a step, expected "
                                      f"{calls} each and 0")
         data.close()
         summary = {"compute_dtype": cfg.train.compute_dtype, "step_ms": step_ms,
@@ -2925,7 +2992,7 @@ def main() -> int:
     k4b_ptxas = {k: v for k, v in k4b_all.items() if "bfloat16" not in k}
     k4_all = ptxas_report(logs["so3_ffn"])
     k4_ptxas = {k: v for k, v in k4_all.items() if "ffn_tc_kernel" in k and "bfloat16" not in k}
-    k4_bf16_ptxas = {k: v for k, v in k4_all.items() if "bfloat16" in k}
+    k4_bf16_ptxas = {k: v for k, v in k4_all.items() if "bfloat16" in k or "wfrag" in k}
     k4b_bf16_ptxas = {k: v for k, v in k4b_all.items() if "bfloat16" in k}
     # the dx, weight and split kernels, their float32 instances and (bf16)
     # their bfloat16 ones (the CUDA-core instance's among both)
@@ -2972,6 +3039,9 @@ def main() -> int:
                  for form in (0, 1)]
     k1b_bf16_ptxas = [{k: v for k, v in k1b_all.items() if f"ILi{form}E" in k and "bfloat16" in k}
                       for form in (0, 1)]  # K1b's and K7b's bfloat16 instances
+    # K8b·bf16's tensor-core kernels: the list kernels' dense form (2), its plan
+    k8b_bf16_ptxas = {k: v for k, v in ptxas_report(logs["neighbor_attn_bwd"]).items()
+                      if "ILi2E" in k or "dense_plan_kernel" in k}
     # the forward kernels of K1 (form 0) and K7 (form 1): the tensor-core
     # tile kernel and the CUDA-core instance (attn_fwd_kernel); float32, and
     # K1's bfloat16 instance's
@@ -2992,7 +3062,8 @@ def main() -> int:
           "k1b_bf16_ptxas": k1b_bf16_ptxas, "k2b_bf16_ptxas": k2b_bf16_ptxas,
           "k1_bf16_ptxas": k1_bf16_ptxas, "k2_bf16_ptxas": k2_bf16_ptxas,
           "k3_bf16_ptxas": k3_bf16_ptxas, "k4_bf16_ptxas": k4_bf16_ptxas,
-          "k4b_bf16_ptxas": k4b_bf16_ptxas, "k6_bf16_ptxas": k6_bf16_ptxas})
+          "k4b_bf16_ptxas": k4b_bf16_ptxas, "k6_bf16_ptxas": k6_bf16_ptxas,
+          "k8b_bf16_ptxas": k8b_bf16_ptxas})
 
     emit({"phase": "mma_rate",
           **mma_rate(torch.cuda.get_device_properties(0).multi_processor_count)})
@@ -3121,8 +3192,8 @@ def main() -> int:
                                 ["--config", S2_CONFIG], S2_WARMUP, S2_STEPS, vs_cpu=False)
     emit({"phase": "train_s2_bf16_vs_f32", "float32": s2_step, "bfloat16": s2_bf16_step,
           "note": "reported, not claimed: both steps run the tensor-core kernels, the "
-                  "bfloat16 step at one TF32 product a product, K4b·bf16's chain on bfloat16 "
-                  "m16n8k16 mma.sync"})
+                  "bfloat16 step's K4·bf16 and K4b·bf16 chain on bfloat16 m16n8k16 mma.sync, "
+                  "its K1, K1b, K3 and K3b at one TF32 product a product"})
     torch.cuda.empty_cache()
     with switched(FUSED_SO2):
         so2_step = train_phases(dev, results, files, float32_config(cfg), "_so2", SO2_PATH,
@@ -3174,8 +3245,7 @@ def main() -> int:
 
     results[K4.name]["ptxas"] = k4_ptxas
     results[K4B.name]["ptxas"] = k4b_ptxas
-    results[K4_BF16.name]["ptxas"] = {k: v for k, v in k4_bf16_ptxas.items()
-                                      if "ffn_tc_kernel" in k}
+    results[K4_BF16.name]["ptxas"] = k4_bf16_ptxas
     results[K4B_BF16.name]["ptxas"] = k4b_bf16_ptxas
     results[K2.name]["ptxas"] = k2_ptxas
     results[K2B.name]["ptxas"] = k2b_ptxas
@@ -3189,6 +3259,12 @@ def main() -> int:
     for spec, bf16 in ((K8, False), (K8_BF16, True)):  # at the training microbatch's widths
         results[spec.name]["residency"] = mods["dense_edge_attn"].residency(
             384, 4, 32, 64, 64, bf16=bf16)
+    # K8b·bf16: its tensor-core kernels (the main path's), its CUDA-core ones beside
+    results[K8B_BF16.name]["cuda_cores_ptxas"] = results[K8B_BF16.name]["ptxas"]
+    results[K8B_BF16.name]["ptxas"] = k8b_bf16_ptxas
+    results[K8B_BF16.name]["residency"] = {
+        "tensor_cores": mods["dense_edge_attn"].bwd_tc_residency(),
+        "cuda_cores": mods["dense_edge_attn"].residency(384, 4, 32, 64, 64, bf16=True)["bwd"]}
     for spec, hybrid in ((K1B_BF16, False), (K7B_BF16, True)):
         results[spec.name]["ptxas"] = k1b_bf16_ptxas[int(hybrid)]
         results[spec.name]["residency"] = mods["neighbor_attn"].bwd_residency(hybrid, bf16=True)

@@ -46,10 +46,14 @@
 //      lists (K1b's gather), adding gw to every row's dv.
 //   6. sum_rows_kernel: the rows of partial, in order.
 //
-// bfloat16 (dense_edge_attn_bwd_bf16): K8b's bfloat16 instance is the same
-// six kernels at T = bf16, the storage type of qt, k, v, dval, g, dqt, dk,
-// dv and ddv (adj, ds, dds, the scratch and the weight gradients stay
-// float32), on the CUDA cores as at float32. It rounds where
+// bfloat16 (dense_edge_attn_bwd_bf16): K8b·bf16's CUDA-core instance, the
+// same six kernels at T = bf16, the storage type of qt, k, v, dval, g, dqt,
+// dk, dv and ddv (adj, ds, dds, the scratch and the weight gradients stay
+// float32), on the CUDA cores as at float32; it runs the lists with a row
+// over 128 live columns, and the other widths. Every other bfloat16 call
+// runs K8b·bf16's tensor-core instance, csrc/neighbor_attn_bwd.cu's
+// dense_edge_attn_bwd_tc (ops/cuda/dense_edge_attn.py::bwd_bf16_instance
+// picks by shape before the launch). It rounds where
 // _dattn_bwd_kernel rounds at a bfloat16 dtype: the forward as K8's
 // bfloat16 instance recomputes it (the smear, the weights, the hiddens),
 // dw_k and dw_v before the EdgeMLPs' backward, dh after its sigmoid factor;
@@ -60,57 +64,11 @@
 // (row, column) pair's dw_v and dh before it sums them, which a closed form
 // over the graph's sums cannot, so that share differs from it by the
 // rounding of those terms (averaged over the pairs).
-#include "encoder_attn.cuh"
+#include "dense_closed.cuh"
 
 namespace ea = singa::encoder_attn;
 
 namespace {
-
-constexpr int kPadThreads = 256;
-
-// dw_v summed over every (closed-form row, column) pair of the batch is
-// DWV[d] = sum_b sum_h G[b, h, d] vsum[b, h, d]; all those pairs share the
-// hidden ssp(bv1) (pre-activation bv1), so dwv2 = ssp(bv1)^T DWV,
-// dbv2 = DWV, dbv1 = (DWV wv2^T) * sigmoid(bv1), and nothing else. Writes
-// them into row [P] (zero elsewhere), then G *= w_v0 in place. One block. At
-// T = bf16 the hidden ssp(bv1) and wv2 rounded.
-template <class T = float>
-__global__ void __launch_bounds__(kPadThreads)
-padded_wgrad_kernel(const float* __restrict__ bv1, const float* __restrict__ wv2,
-                    const float* __restrict__ bv2, const float* __restrict__ vsum,
-                    float* __restrict__ G, float* __restrict__ row, ea::Dims dm) {
-  using singa::rnd;
-  extern __shared__ __align__(16) float smem[];
-  const int H = dm.H, vd = dm.vd, HV = H * vd, tid = threadIdx.x;
-  float* w0 = smem;        // [vd]
-  float* dwv = w0 + vd;    // [vd]
-  ea::dead_wv<T>(bv1, wv2, bv2, vd, w0);
-  for (int c = tid; c < vd; c += blockDim.x) {
-    float acc = 0.f;
-    for (int b = 0; b < dm.B; ++b)
-      for (int h = 0; h < H; ++h) {
-        const long long i = (long long)b * HV + h * vd + c;
-        acc = fmaf(G[i], vsum[i], acc);
-      }
-    dwv[c] = acc;
-  }
-  const int P = dm.grad_floats();
-  for (int t = tid; t < P; t += blockDim.x) row[t] = 0.f;
-  __syncthreads();
-  const int kd = dm.kd, De = dm.De;
-  float* dbv1 = row + De * kd + kd + kd * kd + kd + De * vd;
-  float* dwv2 = dbv1 + vd;
-  float* dbv2 = dwv2 + vd * vd;
-  for (int t = tid; t < vd * vd; t += blockDim.x)
-    dwv2[t] = rnd<T>(singa::sspf_(bv1[t / vd])) * dwv[t % vd];
-  for (int c = tid; c < vd; c += blockDim.x) {
-    dbv2[c] = dwv[c];
-    float acc = 0.f;
-    for (int j = 0; j < vd; ++j) acc = fmaf(dwv[j], rnd<T>(wv2[c * vd + j]), acc);
-    dbv1[c] = acc * singa::sigmoidf_(bv1[c]);
-  }
-  for (long long i = tid; i < (long long)dm.B * HV; i += blockDim.x) G[i] *= w0[i % vd];
-}
 
 // The six kernels on the caller's stream; T the storage type of qt, k, v,
 // dval, g and the node gradients but dds.

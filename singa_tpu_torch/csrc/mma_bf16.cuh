@@ -25,8 +25,8 @@
 // stretches of one k16 (c of the first: k 2 tig, 2 tig + 1; of the second:
 // k 2 tig + 8, 2 tig + 9), packed as bfloat16 pairs, are one lane's B
 // fragment of the next product (b0 from the first's c0, c1; b1 from the
-// second's), n = m of the first: grid_chain_mma16_bwd's in
-// csrc/s2_grid_tc.cuh.
+// second's), n = m of the first: grid_chain_mma16_bwd's and
+// grid_chain_mma16_fwd's in csrc/s2_grid_tc.cuh.
 //
 // ldmatrix.m8n8.x4 reads four 8 x 8 matrices of 2-byte values, lane l
 // giving the address of row l % 8 of matrix l / 8 (16 contiguous bytes,
@@ -63,6 +63,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// two 8 x 8 matrices (lanes 0-15 give the row addresses), without and
+// with .trans: the B fragment of one n8 tile
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(a));
 }
 

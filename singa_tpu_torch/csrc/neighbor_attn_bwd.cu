@@ -86,8 +86,26 @@
 // bfloat16 and widen; the head sums on the CUDA cores round each term as
 // the CUDA-core instance does. Its ~23 GFLOP a microbatch as one TF32
 // product each: ~0.05 ms at 495 TFLOP/s.
+// The dense form (kDense; K8b·bf16's tensor-core instance, entry
+// dense_edge_attn_bwd_tc, replacing singa_tpu/ops/pallas/dense_edge_attn.py::
+// _dbwd at a bfloat16 dtype): the same plan, pair and dk/dv kernels over
+// the live lists of adj_dist (ops/cuda/dense_edge_attn.py::live_columns): a
+// row's slots are its live columns, whole in one tile (the lists' largest
+// live count at most kTM, which the caller checks before the launch); a
+// row with no live column and a cotangent takes csrc/encoder_attn.cuh's
+// closed form; the plan (dense_plan_kernel) reads the live counts from the
+// lists' offsets; the dk/dv stage gathers over the lists' transpose, a
+// pair's source row from pair_rows, and adds the closed-form rows' share
+// gw; v's and the closed-form rows' column sums, their share of the
+// weight gradients (csrc/dense_closed.cuh) and the sum of the blocks' rows
+// run beside them, in the order dense_edge_attn_bwd_tc sets out. It rounds
+// where _dattn_bwd_kernel rounds (the smear, the weights, the hiddens, dw
+// and dh), not where the list forms do (kRound).
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "dense_closed.cuh"
 #include "list_attn.cuh"
 
 namespace ea = singa::encoder_attn;
@@ -110,13 +128,20 @@ constexpr int LW1K = KD + 4, LW1V = VD + 4, LW2K = KD + 4, LW2V = VD + 4;
 constexpr int kWeightFloats = DE * LW1K + DE * LW1V + KD * LW2K + VD * LW2V + 2 * KD + 2 * VD + DE;
 
 // A row's mode (plan[row] = mode | slots taken << 2): skipped (g zero), its
-// live slots, or (a row taken again) all K.
-enum Mode { kZero = 0, kLive = 1, kWhole = 2 };
+// live slots, or (a row taken again) all K; the dense form's rows with no
+// live column (kClosed) take the closed form.
+enum Mode { kZero = 0, kLive = 1, kWhole = 2, kClosed = 3 };
 
 // What a launch walked (stats, when asked for): rows skipped for a zero
 // cotangent, rows taken with their live slots, rows taken whole, and the
-// slots evaluated (a row taken again whole counts its slots twice).
-enum Stat { kStatZero = 0, kStatLive, kStatWhole, kStatSlots, kStats };
+// slots evaluated (a row taken again whole counts its slots twice); the
+// dense form also counts its closed-form rows (kStatClosed), and in
+// kStatWhole the (row, head) pairs whose max would leave a dead column a
+// weight, which it never takes again (none on any real input: see
+// csrc/encoder_attn.cuh).
+enum Stat { kStatZero = 0, kStatLive, kStatWhole, kStatSlots, kStats, kStatClosed = kStats };
+template <int F>
+constexpr int kStatsOf = F == ea::kDense ? kStats + 1 : kStats;
 
 // the weight-gradient row: dwk1 dbk1 dwk2 dbk2 dwv1 dbv1 dwv2 dbv2
 constexpr int OFF_WK1 = 0, OFF_BK1 = OFF_WK1 + DE * KD, OFF_WK2 = OFF_BK1 + KD;
@@ -144,6 +169,8 @@ constexpr int kSmemFloats = kWeightFloats + kTM * (3 * LPK + 2 * LPV) + 2 * kTM 
                             5 * kTM + 2 * kTR * kMaxH + kMaxChunks * (kMaxH * KD + 1) +
                             7 * kTR + kCtl;
 constexpr size_t kSmemBytes = (size_t)kSmemFloats * sizeof(float);
+// the dense form's: w_v0 [VD] too, after ctl
+constexpr size_t kDenseSmemBytes = kSmemBytes + VD * sizeof(float);
 
 __device__ Sm carve(float* p) {
   Sm s;
@@ -238,8 +265,9 @@ __device__ void fwd_pre(const Sm& s, float coeff, int m0) {
 }
 
 // w_k (kK) or w_v tiles J0 .. J1-1 of the m16 block at row m0: h W2 + b2
-// (at T = bf16 from the rounded hidden, and rounded)
-template <class T, bool kK, int J0, int J1>
+// (at T = bf16 from the rounded hidden, and rounded to R: the list forms
+// round them, the dense form does not)
+template <class T, bool kK, int J0, int J1, class R = T>
 __device__ void fwd_w(const Sm& s, int m0) {
   constexpr int W = kK ? KD : VD, LP = kK ? LPK : LPV, LW = kK ? LW2K : LW2V;
   const int t = tc::lane_tig();
@@ -263,7 +291,7 @@ __device__ void fwd_w(const Sm& s, int m0) {
 #pragma unroll
   for (int j = 0; j < J1 - J0; ++j) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) c[j][q] = rnd<T>(c[j][q]);
+    for (int q = 0; q < 4; ++q) c[j][q] = rnd<R>(c[j][q]);
     tc::store_c(out + 8 * (J0 + j), LP, c[j]);
   }
 }
@@ -317,6 +345,26 @@ list_plan_kernel(const T* __restrict__ g, const unsigned char* __restrict__ nmas
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) live += __shfl_xor_sync(0xffffffffu, live, o);
     if (lane == 0) plan[r] = nz ? (kLive | live << 2) : kZero;
+  }
+}
+
+// The dense form's plan, one warp a row, as list_plan_kernel's (its own
+// kernel: a row's live count comes from the lists' row offsets lrow [rows +
+// 1], not from a mask): zero (g is zero everywhere), closed (no live
+// column: the closed form), else live with its live columns.
+template <class T>
+__global__ void __launch_bounds__(kPlanThreads)
+dense_plan_kernel(const T* __restrict__ g, const int* __restrict__ lrow, int* __restrict__ plan,
+                  long long rows, int HV) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (kPlanThreads / 32);
+  for (long long r = blockIdx.x * (long long)(kPlanThreads / 32) + (threadIdx.x >> 5); r < rows;
+       r += warps) {
+    bool nz = false;
+    for (int c = lane; c < HV; c += 32) nz |= singa::to_f(g[r * HV + c]) != 0.f;
+    nz = __any_sync(0xffffffffu, nz);
+    const int live = lrow[r + 1] - lrow[r];
+    if (lane == 0) plan[r] = !nz ? kZero : live > 0 ? (kLive | live << 2) : kClosed;
   }
 }
 
@@ -384,7 +432,9 @@ __device__ void plan_tile(const int* __restrict__ plan, int K, const Sm& s) {
 }
 
 // The tile's slot rows: a live row's live slots in slot order, a whole row's
-// K slots; rows ns .. 16 nb - 1 are zero padding (distance 0, no row).
+// K slots (the dense form: a live row's live columns in order, slot = the
+// pair's CSR index, 32 columns a job over all the warps); rows ns .. 16 nb
+// - 1 are zero padding (distance 0, no row).
 template <int F, class A>
 __device__ void fill_slots(const A& a, const ea::Dims& d, const Sm& s, int nrows, int ns,
                            int nb) {
@@ -392,7 +442,7 @@ __device__ void fill_slots(const A& a, const ea::Dims& d, const Sm& s, int nrows
   for (int i = threadIdx.x >> 5; i < nrows; i += kWarps) {
     const int mode = s.rmode[i], first = s.rfirst[i], node = s.rnode[i];
     for (int q = lane; q * kChunk < s.rcnt[i]; q += 32) s.chunkrow[s.rchunk[i] + q] = i;
-    if (mode == kZero) continue;
+    if (mode == kZero || F == ea::kDense) continue;  // (the dense form's: below)
     const long long s0 = (long long)node * K, base = (long long)(node / d.N) * d.N;
     int done = 0;
     for (int p0 = 0; p0 < K; p0 += 32) {
@@ -411,6 +461,24 @@ __device__ void fill_slots(const A& a, const ea::Dims& d, const Sm& s, int nrows
       done += __popc(bal);
     }
   }
+  if constexpr (F == ea::kDense) {
+    // a live row's live columns, 32 a job, the tile's jobs over the warps
+    // (a zero or closed row has none)
+    const int warp = threadIdx.x >> 5;
+    for (int i = 0, job = 0; i < nrows; ++i)
+      for (int j0 = 0; j0 < s.rcnt[i]; j0 += 32, ++job) {
+        if (job % kWarps != warp) continue;
+        const int node = s.rnode[i], j = j0 + lane;
+        if (j < s.rcnt[i]) {
+          const int e = a.lrow[node] + j, col = a.lcol[e], m = s.rfirst[i] + j;
+          s.rowof[m] = i;
+          s.slot[m] = e;
+          s.dist[m] = a.dist[(long long)node * K + col];
+          s.mask[m] = 1.f;
+          s.kv[m] = node / d.N * d.N + col;
+        }
+      }
+  }
   for (int m = ns + threadIdx.x; m < 16 * nb; m += kThreads) {
     s.dist[m] = 0.f;
     s.mask[m] = 0.f;
@@ -418,10 +486,31 @@ __device__ void fill_slots(const A& a, const ea::Dims& d, const Sm& s, int nrows
   }
 }
 
+// The scratch row (w_k, w_v, a and dsc) of the tile's slot m of row i: the
+// list forms' flat slot node * K + p, the dense form's live pair
+template <int F>
+__device__ __forceinline__ long long scratch_row(const Sm& s, int i, int m, int K) {
+  if constexpr (F == ea::kDense) return s.slot[m];
+  return (long long)s.rnode[i] * K + s.slot[m];
+}
+
+// F: the form; the dense form (K8b's bfloat16 tensor-core instance: T =
+// bf16) takes its rows' live columns (the plan's kLive rows), skips kZero
+// rows and writes their live pairs' a = dsc = 0, and takes each kClosed
+// row in closed form (csrc/encoder_attn.cuh: its dds, ddv and a_dead into
+// s_ad, dqt zero; s_ad 0 on every other row); it never takes a row again
+// whole (a dead column of a row with a live one weighs an exact 0). It
+// rounds where _dattn_bwd_kernel rounds, which is not where the list forms
+// do (kRound): the smear, the weights, the hiddens, dw_k, dw_v and dh; w_k,
+// w_v, the score and da terms, the softmax weights, dsc and the dk/dv terms
+// stay float32.
 template <int F, class T = float>
 __global__ void __launch_bounds__(kThreads, 1)
 list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __restrict__ plan,
                      int* __restrict__ stats) {
+  // the list forms' roundings past the hiddens, at bfloat16; R: what they round to
+  constexpr bool kRound = kBf16<T> && F != ea::kDense;
+  using R = std::conditional_t<kRound, T, float>;
   extern __shared__ __align__(16) float smem[];
   const Sm s = carve(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -429,6 +518,8 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
   const int H = d.H, K = d.R, HK = H * KD, HV = H * VD;
   const float scale = 1.f / sqrtf((float)KD), coeff = a.coeff;
   load_weights(a, s);
+  [[maybe_unused]] float* const w0 = reinterpret_cast<float*>(s.ctl + kCtl);  // kDense: w_v0
+  if constexpr (F == ea::kDense) ea::dead_wv<T>(a.bv1, a.wv2, a.bv2, VD, w0);
   block_range(plan, d.B * d.N, s.ctl);
 
   // float32 sums across the block's tiles, C fragments of m16 x n8 units:
@@ -439,7 +530,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
   float acc_v2[2][4] = {}, acc_k2[4] = {}, acc_1[3][4] = {}, acc_b2 = 0.f, acc_b1 = 0.f;
   const int mbw = warp >> 2, q4 = warp & 3, bcol = tid - 256;
   const bool bias_thread = bcol >= 0 && bcol < KD + VD;
-  int walked[kStats] = {};  // thread 0's counts, for stats
+  int walked[kStatsOf<F>] = {};  // thread 0's counts, for stats
 
   for (;;) {
     __syncthreads();  // the last tile's readers are done; ctl is published
@@ -461,18 +552,18 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
       __syncthreads();
       if (warp >> 1 < nb) {
         if (warp & 1) {
-          fwd_w<T, false, 3, 8>(s, m0);
+          fwd_w<T, false, 3, 8, R>(s, m0);
         } else {
-          fwd_w<T, true, 0, NPK>(s, m0);
-          fwd_w<T, false, 0, 3>(s, m0);
+          fwd_w<T, true, 0, NPK, R>(s, m0);
+          fwd_w<T, false, 0, 3, R>(s, m0);
         }
       }
       __syncthreads();
       // scores and da, one warp per slot, two slots at a time: the lanes read
       // each slot's k and v rows (and the row's q and g) in 16-byte pieces
       // (bfloat16: 8-byte) side by side; a head's pieces are 8 lanes of k
-      // (kd 32) and 16 of v (vd 64), summed across those lanes (at bfloat16
-      // each term rounded first)
+      // (kd 32) and 16 of v (vd 64), summed across those lanes (the list
+      // forms at bfloat16 round each term first)
       for (int m0 = warp; m0 < ns; m0 += 2 * kWarps) {
         const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
         float4 kq[2], qq[2], vq[2][2], gq[2][2];
@@ -493,7 +584,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
           const int m = m0 + u * kWarps, c = 4 * lane;
           const int mm = min(m, ns - 1);  // (a slot past the tile computes, and writes nothing)
           const float4 ww = *reinterpret_cast<const float4*>(s.wk + mm * LPK + c % KD);
-          float part = dot3<T>(qq[u], ww, kq[u]);
+          float part = dot3<R>(qq[u], ww, kq[u]);
 #pragma unroll
           for (int off = 1; off < KD / 4; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
           if (m < ns && c < HK && c % KD == 0)
@@ -502,7 +593,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
           for (int r = 0; r < 2; ++r) {
             const int cv = c + 128 * r;
             const float4 wv = *reinterpret_cast<const float4*>(s.wv + mm * LPV + cv % VD);
-            float pv = dot3<T>(gq[u][r], wv, vq[u][r]);
+            float pv = dot3<R>(gq[u][r], wv, vq[u][r]);
 #pragma unroll
             for (int off = 1; off < VD / 4; off <<= 1) pv += __shfl_xor_sync(0xffffffffu, pv, off);
             if (m < ns && cv < HV && cv % VD == 0) s.D[m * kMaxH + cv / VD] = pv;
@@ -513,7 +604,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
       // later writes its slots again)
       for (int job = tid; job < ns * (KD + VD) / 4; job += kThreads) {
         const int m = job / ((KD + VD) / 4), c = 4 * (job - m * ((KD + VD) / 4));
-        const long long slot = (long long)s.rnode[s.rowof[m]] * K + s.slot[m];
+        const long long slot = scratch_row<F>(s, s.rowof[m], m, K);
         if (c < KD)
           *reinterpret_cast<float4*>(o.s_wk + slot * KD + c) =
               *reinterpret_cast<const float4*>(s.wk + m * LPK + c);
@@ -525,17 +616,23 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
     __syncthreads();
     // one warp per (row, head): the max over the self score and the taken
     // slots; a live row whose max leaves its dead slots a weight in some head
-    // is taken again whole
+    // is taken again whole (the dense form counts it in stats instead)
     for (int job = warp; job < nrows * H; job += kWarps) {
       const int i = job / H, h = job - i * H, mode = s.rmode[i];
-      if (mode == kZero) continue;
+      if (mode == kZero || (F == ea::kDense && mode == kClosed)) continue;
       float mx = a.ds[(long long)s.rnode[i] * H + h];
       for (int m = s.rfirst[i] + lane, e = s.rfirst[i] + s.rcnt[i]; m < e; m += 32)
         mx = fmaxf(mx, s.S[m * kMaxH + h]);
       mx = singa::warp_max(mx);
       if (lane == 0) {
         s.rm[i * kMaxH + h] = mx;
-        if (mode == kLive && expf(-ea::kBig - mx) != 0.f) s.rredo[i] = 1;
+        if (mode == kLive && expf(-ea::kBig - mx) != 0.f) {
+          if constexpr (F == ea::kDense) {
+            if (stats) atomicAdd(stats + kStatWhole, 1);
+          } else {
+            s.rredo[i] = 1;
+          }
+        }
       }
     }
     __syncthreads();
@@ -545,6 +642,26 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
       const int i = job / H, h = job - i * H;
       const int m0 = s.rfirst[i], m1 = m0 + s.rcnt[i];
       if (s.rmode[i] == kZero) continue;
+      if constexpr (F == ea::kDense) {
+        if (s.rmode[i] == kClosed) {  // its N dead columns and itself, in closed form
+          const long long node = s.rnode[i], gb = node / d.N;
+          float das = 0.f, dead = 0.f;
+          for (int c = lane; c < VD; c += 32) {
+            const float gv = singa::to_f(o.g[node * HV + h * VD + c]);
+            das = fmaf(gv, singa::to_f(a.dval[node * HV + h * VD + c]), das);
+            dead = fmaf(gv * w0[c], a.vsum[gb * HV + h * VD + c], dead);
+          }
+          das = singa::warp_sum(das);
+          dead = singa::warp_sum(dead);
+          if (lane == 0) {
+            const float2 aw = ea::dead_row_weights(a.ds[node * H + h], d.N);
+            s.ra[i * kMaxH + h] = aw.y;
+            o.dds[node * H + h] = aw.y * (das - fmaf(aw.x, dead, aw.y * das));
+            o.s_ad[node * H + h] = aw.x;
+          }
+          continue;
+        }
+      }
       if (s.rredo[i]) {
         for (int m = m0 + lane; m < m1; m += 32) s.S[m * kMaxH + h] = s.D[m * kMaxH + h] = 0.f;
         continue;
@@ -555,7 +672,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
       for (int c = lane; c < VD; c += 32) {
         const float gv = singa::to_f(o.g[node * HV + h * VD + c]);
         const float dv = singa::to_f(a.dval[node * HV + h * VD + c]);
-        das = kBf16<T> ? das + rnd<T>(gv * dv) : fmaf(gv, dv, das);
+        das = kRound ? das + rnd<T>(gv * dv) : fmaf(gv, dv, das);
       }
       das = singa::warp_sum(das);
       float l = 0.f, dot = 0.f;
@@ -571,11 +688,11 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
         s.ra[i * kMaxH + h] = as;
         o.dds[node * H + h] = as * (das - dotn);
       }
-      for (int m = m0 + lane; m < m1; m += 32) {  // at bfloat16 both rounded (dsc from aw)
+      for (int m = m0 + lane; m < m1; m += 32) {  // (kRound: both rounded, dsc from aw)
         const float aw = expf(s.S[m * kMaxH + h] - mx) / l;
         const float dsc = s.mask[m] != 0.f ? aw * (s.D[m * kMaxH + h] - dotn) * scale : 0.f;
-        s.S[m * kMaxH + h] = rnd<T>(aw);
-        s.D[m * kMaxH + h] = rnd<T>(dsc);
+        s.S[m * kMaxH + h] = rnd<R>(aw);
+        s.D[m * kMaxH + h] = rnd<R>(dsc);
       }
     }
     __syncthreads();
@@ -596,6 +713,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
           walked[kStatZero] += mode == kZero;
           walked[kStatLive] += mode == kLive && !s.rredo[i];
           walked[kStatWhole] += mode == kWhole;
+          if constexpr (F == ea::kDense) walked[kStatClosed] += mode == kClosed;
         }
         walked[kStatSlots] += ns;
       }
@@ -608,7 +726,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
       const long long at = (long long)s.rnode[i] * HV + c;
       float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
       if (s.rmode[i] != kZero) {
-        const float as = rnd<T>(s.ra[i * kMaxH + c / VD]);
+        const float as = rnd<R>(s.ra[i * kMaxH + c / VD]);
         float4 gq;
         if constexpr (kBf16<T>)
           gq = ld4(o.g + at);
@@ -621,20 +739,31 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
     for (int job = tid; job < nrows * H; job += kThreads) {
       const int i = job / H;
       if (s.rmode[i] == kZero) o.dds[(long long)s.rnode[i] * H + job - i * H] = 0.f;
+      if constexpr (F == ea::kDense)  // a_dead: the closed-form rows' alone
+        if (s.rmode[i] != kClosed) o.s_ad[(long long)s.rnode[i] * H + job - i * H] = 0.f;
     }
     for (int job = tid; job < ns * H; job += kThreads) {
       const int m = job / H, h = job - m * H, i = s.rowof[m];
       if (s.rredo[i]) continue;
-      const long long slot = (long long)s.rnode[i] * K + s.slot[m];
+      const long long slot = scratch_row<F>(s, i, m, K);
       o.s_a[slot * H + h] = s.S[m * kMaxH + h];
       o.s_dsc[slot * H + h] = s.D[m * kMaxH + h];
     }
-    for (int job = tid; job < nrows * K; job += kThreads) {
-      const int i = job / K, p = job - i * K, mode = s.rmode[i];
-      if (s.rredo[i] || mode == kWhole) continue;
-      const long long slot = (long long)s.rnode[i] * K + p;
-      if (mode == kLive && a.nmask[slot] != 0) continue;
-      for (int h = 0; h < H; ++h) o.s_a[slot * H + h] = o.s_dsc[slot * H + h] = 0.f;
+    if constexpr (F == ea::kDense) {  // a skipped row's live pairs send nothing
+      for (int i = warp; i < nrows; i += kWarps) {
+        if (s.rmode[i] != kZero) continue;
+        const long long node = s.rnode[i];
+        for (long long p = a.lrow[node] + lane, e = a.lrow[node + 1]; p < e; p += 32)
+          for (int h = 0; h < H; ++h) o.s_a[p * H + h] = o.s_dsc[p * H + h] = 0.f;
+      }
+    } else {
+      for (int job = tid; job < nrows * K; job += kThreads) {
+        const int i = job / K, p = job - i * K, mode = s.rmode[i];
+        if (s.rredo[i] || mode == kWhole) continue;
+        const long long slot = (long long)s.rnode[i] * K + p;
+        if (mode == kLive && a.nmask[slot] != 0) continue;
+        for (int h = 0; h < H; ++h) o.s_a[slot * H + h] = o.s_dsc[slot * H + h] = 0.f;
+      }
     }
     // dqt, dw_k and dw_v, one warp per chunk of a row's slots: the lanes read
     // each slot's k and v rows once, side by side (lane l: channels 4l..4l+3
@@ -667,11 +796,12 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
         dq.y = fmaf(dsc * w.y, kq.y, dq.y);
         dq.z = fmaf(dsc * w.z, kq.z, dq.z);
         dq.w = fmaf(dsc * w.w, kq.w, dq.w);
-        // (at bfloat16 each term rounded before the head sum, and the sum again)
-        float4 x = make_float4(rnd<T>(dsc * qq.x * kq.x), rnd<T>(dsc * qq.y * kq.y),
-                               rnd<T>(dsc * qq.z * kq.z), rnd<T>(dsc * qq.w * kq.w));
+        // (at bfloat16 the sum rounded; kRound: each term rounded before the
+        // head sum too)
+        float4 x = make_float4(rnd<R>(dsc * qq.x * kq.x), rnd<R>(dsc * qq.y * kq.y),
+                               rnd<R>(dsc * qq.z * kq.z), rnd<R>(dsc * qq.w * kq.w));
         float4 y;
-        if constexpr (kBf16<T>)
+        if constexpr (kRound)
           y = make_float4(rnd<T>(a0 * g0.x * v0.x) + rnd<T>(a1 * g1.x * v1.x),
                           rnd<T>(a0 * g0.y * v0.y) + rnd<T>(a1 * g1.y * v1.y),
                           rnd<T>(a0 * g0.z * v0.z) + rnd<T>(a1 * g1.z * v1.z),
@@ -793,7 +923,7 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
   }
 
   if (stats && tid == 0)
-    for (int i = 0; i < kStats; ++i) atomicAdd(stats + i, walked[i]);
+    for (int i = 0; i < kStatsOf<F>; ++i) atomicAdd(stats + i, walked[i]);
   // the block's row of partial sums, each entry from the one lane that owns it
   float* row = o.partial + (long long)blockIdx.x * P_TOTAL;
 #pragma unroll
@@ -826,13 +956,20 @@ list_bwd_pair_kernel(ea::ArgsT<T> a, ea::Dims d, ea::GradsT<T> o, const int* __r
 // Each thread owns channels tid, tid + 128, ... of [dk | dv]. At T = bf16
 // (qt, g, dk and dv bfloat16) each slot's term is rounded before the sum,
 // as the TPU kernel rounds dk_nb and dv_nb before its one-hot transpose.
+// The dense form (K8b·bf16's tensor-core instance): slots are live pairs
+// (their CSR indices), a pair's source row is pair_rows[pair], the terms
+// are not rounded (the TPU kernel's float32 column sums, cast once), and
+// dv adds gw [B, H*vd] of j's graph (the closed-form rows' share).
 template <int F, class T = float>
 __global__ void __launch_bounds__(kDkdvThreads)
 list_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ g,
                  const float* __restrict__ s_wk, const float* __restrict__ s_wv,
                  const float* __restrict__ s_a, const float* __restrict__ s_dsc,
                  const int* __restrict__ offsets, const int* __restrict__ slots,
-                 T* __restrict__ dk, T* __restrict__ dv, ea::Dims dm) {
+                 T* __restrict__ dk, T* __restrict__ dv, ea::Dims dm,
+                 const int* __restrict__ pair_rows = nullptr,
+                 const float* __restrict__ gw = nullptr) {
+  constexpr bool kRound = kBf16<T> && F != ea::kDense;
   __shared__ int sslot[kDkdvChunk], ssrc[kDkdvChunk], wcount[kDkdvThreads / 32];
   __shared__ float sdsc[kDkdvChunk][kMaxH], sa[kDkdvChunk][kMaxH];
   const int H = dm.H, K = dm.R, HK = H * KD, HV = H * VD;
@@ -870,7 +1007,7 @@ list_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ g,
       }
       if (keep) {
         sslot[at] = sl;
-        ssrc[at] = sl / K;
+        ssrc[at] = F == ea::kDense ? pair_rows[sl] : sl / K;
 #pragma unroll
         for (int h = 0; h < kMaxH; ++h) sdsc[at][h] = wd[h], sa[at][h] = wa[h];
       }
@@ -885,7 +1022,7 @@ list_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ g,
           for (int t = 0; t < n; ++t) {
             const float w = sdsc[t][h] * __ldg(s_wk + (long long)sslot[t] * KD + d);
             const float q = singa::ldg_f(qt + (long long)ssrc[t] * HK + c);
-            part = kBf16<T> ? part + rnd<T>(w * q) : fmaf(w, q, part);
+            part = kRound ? part + rnd<T>(w * q) : fmaf(w, q, part);
           }
           acc[i] = part;
         } else if (c < HK + HV) {
@@ -895,7 +1032,7 @@ list_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ g,
           for (int t = 0; t < n; ++t) {
             const float w = sa[t][h] * __ldg(s_wv + (long long)sslot[t] * VD + d);
             const float q = singa::ldg_f(g + (long long)ssrc[t] * HV + cv);
-            part = kBf16<T> ? part + rnd<T>(w * q) : fmaf(w, q, part);
+            part = kRound ? part + rnd<T>(w * q) : fmaf(w, q, part);
           }
           acc[i] = part;
         }
@@ -904,8 +1041,12 @@ list_dkdv_kernel(const T* __restrict__ qt, const T* __restrict__ g,
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int c = tid + i * kDkdvThreads;
-      if (c < HK) dk[j * HK + c] = singa::from_f<T>(acc[i]);
-      else if (c < HK + HV) dv[j * HV + c - HK] = singa::from_f<T>(acc[i]);
+      if (c < HK) {
+        dk[j * HK + c] = singa::from_f<T>(acc[i]);
+      } else if (c < HK + HV) {
+        if constexpr (F == ea::kDense) acc[i] += gw[(j / dm.N) * HV + c - HK];
+        dv[j * HV + c - HK] = singa::from_f<T>(acc[i]);
+      }
     }
   }
 }
@@ -1336,6 +1477,26 @@ int residency(int* smem_bytes, int* threads) {
   return per_sm;
 }
 
+// K8b·bf16's tensor-core instance takes the encoder's widths (kd 32, vd
+// 64, De 64, H <= 4) and lists whose rows have at most kTM live columns
+// each (max_live: the largest live count, which live_columns records when
+// it builds them), so that every live row sits whole in one tile.
+bool dense_tc_ok(const ea::Dims& d, int max_live) {
+  return d.ok() && d.R == d.N && d.kd == KD && d.vd == VD && d.De == DE && d.H <= kMaxH &&
+         max_live >= 0 && max_live <= kTM;
+}
+
+// K8b·bf16's pair kernel: the dense form at bfloat16
+using DensePair = void (*)(ea::ArgsT<singa::bf16>, ea::Dims, ea::GradsT<singa::bf16>, const int*,
+                           int*);
+const DensePair kDensePair = list_bwd_pair_kernel<ea::kDense, singa::bf16>;
+
+int dense_blocks(const ea::Dims& d, int max_live) {
+  if (!dense_tc_ok(d, max_live)) return -1;
+  if (singa::allow_smem(kDensePair, kDenseSmemBytes) != cudaSuccess) return -1;
+  return singa::persistent_grid(kDensePair, kThreads, kDenseSmemBytes, (long long)d.B * d.N);
+}
+
 }  // namespace
 
 // Blocks of the pair kernel that runs at these shapes (the tensor-core one
@@ -1463,4 +1624,92 @@ extern "C" int neighbor_attn_hybrid_bwd_bf16(
                                      offsets, slots, (bf16*)dqt, (bf16*)dk, (bf16*)dv, dds,
                                      (bf16*)ddv, s_wk, s_wv, s_a, s_dsc, plan, partial, grads,
                                      blocks, cuda_cores, stats, stream);
+}
+
+// K8b·bf16's tensor-core instance (the dense form of the kernels above at
+// bfloat16 storage): blocks of its pair kernel at these shapes, or -1 for
+// shapes it does not take (widths, or a row of more than 128 live columns:
+// max_live); the caller sizes the [blocks + 1, P] scratch buffer from it.
+extern "C" int dense_edge_attn_bwd_tc_blocks(int B, int N, int H, int kd, int vd, int De,
+                                             int max_live) {
+  return dense_blocks(ea::Dims{B, N, N, H, kd, vd, De}, max_live);
+}
+
+// Its pair kernel: resident blocks per SM (-1: refused), its threads and
+// dynamic shared memory per block.
+extern "C" int dense_edge_attn_bwd_tc_residency(int* smem_bytes, int* threads) {
+  *smem_bytes = (int)kDenseSmemBytes;
+  *threads = kThreads;
+  if (singa::allow_smem(kDensePair, kDenseSmemBytes) != cudaSuccess) return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kDensePair, kThreads,
+                                                    kDenseSmemBytes) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+// K8b·bf16 on the tensor cores: the arguments of csrc/dense_edge_attn_bwd.cu's
+// dense_edge_attn_bwd_bf16 (qt, k, v, dval, g, dqt, dk, dv and ddv bfloat16;
+// adj [B*N, N]; the live lists lrow, lcol, pair_rows and their transpose
+// col_off, col_pairs; the scratch), and plan [B*N] (int), max_live (the
+// lists' largest live count) and stats (null, or int [5] zeros: rows
+// skipped, rows live, (row, head) pairs whose max would leave a dead column
+// a weight, live pairs evaluated, rows in closed form). Runs, in order:
+// v's column sums per graph (vsum), the plan and the pair kernel, the
+// closed-form rows' a_dead-weighted cotangent sums (G), their share of the
+// weight gradients (padded_wgrad_kernel, the last row of partial; G
+// becomes gw = w_v0 G), the dk/dv gather over the transpose adding gw to
+// dv, and the sum of partial's rows. cudaErrorInvalidValue for shapes it
+// does not take (dense_tc_ok).
+extern "C" int dense_edge_attn_bwd_tc(
+    const void* qt, const void* k, const void* v, const float* adj, const float* ds,
+    const void* dval, const float* centers, const float* wk1, const float* bk1,
+    const float* wk2, const float* bk2, const float* wv1, const float* bv1, const float* wv2,
+    const float* bv2, float coeff, const void* g, const int* lrow, const int* lcol,
+    const int* pair_rows, const int* col_off, const int* col_pairs, void* dqt, void* dk,
+    void* dv, float* dds, void* ddv, float* s_wk, float* s_wv, float* s_a, float* s_dsc,
+    float* s_ad, float* vsum, float* gsum, int* plan, float* partial, float* grads, int B,
+    int N, int H, int kd, int vd, int De, int max_live, int blocks, int* stats, void* stream) {
+  using singa::bf16;
+  const ea::Dims dm{B, N, N, H, kd, vd, De};
+  const ea::ArgsT<bf16> a{(const bf16*)qt, (const bf16*)k, (const bf16*)v, nullptr, nullptr,
+                          adj, ds, (const bf16*)dval, centers, wk1, bk1, wk2, bk2, wv1, bv1,
+                          wv2, bv2, coeff, lrow, lcol, nullptr, vsum};
+  const uintptr_t rows16 = reinterpret_cast<uintptr_t>(qt) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
+  if (!dense_tc_ok(dm, max_live) || blocks < 1 || (rows16 & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = singa::allow_smem(kDensePair, kDenseSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int HV = H * vd, P = dm.grad_floats();
+  const long long rows = (long long)B * N;
+  err = launch_colsum_split(a.v, nullptr, vsum, B, N, HV, vd, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long plan_warps = (rows + kPlanThreads / 32 - 1) / (kPlanThreads / 32);
+  const int plan_grid = singa::persistent_grid(dense_plan_kernel<bf16>, kPlanThreads, 0, plan_warps);
+  dense_plan_kernel<bf16><<<plan_grid, kPlanThreads, 0, st>>>((const bf16*)g, lrow, plan, rows,
+                                                                HV);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const ea::GradsT<bf16> o{(const bf16*)g, (bf16*)dqt, dds, (bf16*)ddv, s_wk, s_wv,
+                           s_a, s_dsc, partial, s_ad};
+  kDensePair<<<blocks, kThreads, kDenseSmemBytes, st>>>(a, dm, o, plan, stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = launch_colsum_split((const bf16*)g, s_ad, gsum, B, N, HV, vd, st);
+  if (err != cudaSuccess) return (int)err;
+  padded_wgrad_kernel<bf16><<<1, kPadThreads, 2 * vd * sizeof(float), st>>>(
+      bv1, wv2, bv2, vsum, gsum, partial + (long long)blocks * P, dm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int grid =
+      singa::persistent_grid(list_dkdv_kernel<ea::kDense, bf16>, kDkdvThreads, 0, rows);
+  list_dkdv_kernel<ea::kDense, bf16><<<grid, kDkdvThreads, 0, st>>>(
+      (const bf16*)qt, (const bf16*)g, s_wk, s_wv, s_a, s_dsc, col_off, col_pairs, (bf16*)dk,
+      (bf16*)dv, dm, pair_rows, gsum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  singa::sum_rows_kernel<<<(P + 255) / 256, 256, 0, st>>>(partial, grads, P, blocks + 1);
+  return (int)cudaGetLastError();
 }

@@ -3,11 +3,11 @@
 // K3's (csrc/s2_act.cu) and K5's, and grid_chain_tc_sep_bwd, K3b's and K5b's,
 // all built on split-TF32 mma.sync (csrc/mma_tf32.cuh) accumulated in
 // float32, the last two also at bfloat16 storage, one TF32 product a
-// product (the bfloat16 instances of K4, K3 and K3b, and K6·bf16's and
+// product (the bfloat16 instances of K3 and K3b, and K6·bf16's and
 // K6b·bf16's grid stages, csrc/so2_chain.cuh); and grid_chain_mma16_bwd,
-// K4b·bf16's, on bfloat16 m16n8k16 mma.sync (csrc/mma_bf16.cuh), at the end
-// of the file. s2_grid.cuh keeps the CUDA-core chain of K5's and K5b's
-// CUDA-core instance and of K4's.
+// K4b·bf16's, and grid_chain_mma16_fwd, K4·bf16's, on bfloat16 m16n8k16
+// mma.sync (csrc/mma_bf16.cuh), at the end of the file. s2_grid.cuh keeps
+// the CUDA-core chain of K5's and K5b's CUDA-core instance and of K4's.
 //
 // grid_chain_tc: the function of s2_grid.cuh's grid_chain<NCOL, true,
 // true, true>, with its four products as split TF32.
@@ -297,7 +297,7 @@ __device__ void grid_chain_tc(const float* stg, int G, int I, const float* X, co
 // and 2; K5 at 33 <= I <= 48: 6 and 3).
 //
 // T (float by default) is the storage type of the caller's data. At T =
-// bf16 (K3's bfloat16 instance, I0 = 0, and K4's, I0 = 0 or 49) X^T's
+// bf16 (K3's bfloat16 instance and K6·bf16's grid stage, I0 = 0) X^T's
 // fragments hold the hi plane alone (tc::kFragWords<T> words), each
 // product is one TF32 mma.sync (tc::mma_t), and every operand is rounded
 // to bfloat16 as it splits (tc::split_t): the identity on tg and fg,
@@ -733,6 +733,125 @@ __device__ __forceinline__ void grid_chain_mma16_bwd(const bf16* stg, const bf16
         mma16::ldmatrix_x4_trans(a, mma16::a_addr<true>(gt + 16 * mt, S));
         mma16::mma(od[mt][0], a, bd[0]);
         mma16::mma(od[mt][1], a, bd[1]);
+      }
+    }
+  }
+}
+
+
+// grid_chain_mma16_fwd: K4·bf16's chain (csrc/so3_ffn.cu), the function of
+// grid_chain_tc_fwd at bfloat16, for one warp's 16 columns:
+//   mid = fg^T silu(v),  v = tg X,
+// silu(v) rounded to bfloat16 before the from-grid product (the Pallas
+// kernel's .astype(dt)), every sum float32, every product a bfloat16
+// m16n8k16 mma.sync (csrc/mma_bf16.cuh), with no barrier and no
+// shared-memory round trip of the activated grid.
+//
+// The to-grid product is formed transposed, v^T = X^T tg^T (M = the warp's
+// 16 columns, N = 8 grid points, K = rows in steps of 16), as in
+// grid_chain_mma16_bwd: a k16 grid step forms both 8-point halves, and
+// silu(v) of the two halves, rounded and packed as bfloat16 pairs, is at
+// once the from-grid product's B fragment (k = the step's 16 grid points,
+// n = a column) for the n8 tiles of columns 0-7 and 8-15. The warp holds
+// mid of its columns in registers: om [m16 tile mt][n8 tile j], rows 16 mt
+// + grp (+ 8), columns 8 j + 2 tig (+ 1).
+//
+// Operands: xs: X (the rounded hidden h) as bfloat16 [rows][xs_ld] at the
+// warp's first column (rows past I zero; xs_ld in 16-byte units odd),
+// read by ldmatrix .trans as the to-grid A (m = column, k = row) once, the
+// KS fragments then held in registers over the chain; stg, sfg: tg and fg
+// as bfloat16 [Gp][S] (S in 16-byte units odd; zero past G and I), read as
+// the to-grid B (ldmatrix) and as the from-grid A (ldmatrix .trans: fg^T,
+// m = row, k = grid point). The warp walks k16 grid steps s0 .. s1 - 1;
+// the caller adds the sums of warps that took other steps of the same
+// columns.
+//
+// I0 = 49 (lmax 6): rows 0 .. 47 through mma (3 k16 steps, 3 m16 tiles),
+// row 48 in float32 on the CUDA cores, as in every chain: a rank-one update
+// of v from X's row 48 at the lane's columns (grp, grp + 8), and the lane's
+// share of mid's row 48 from the same rounded activations (tm[j]: column
+// grp of n8 tile j), which the caller sums over the four lanes of a
+// column. I0 = 0: KS k16 steps and m16 tiles of I <= 48 rows.
+template <int I0>
+__device__ __forceinline__ void grid_chain_mma16_fwd(const bf16* stg, const bf16* sfg, int S,
+                                                     const bf16* xs, int xs_ld, int KS, int s0,
+                                                     int s1, float (&om)[3][2][4],
+                                                     float (&tm)[2]) {
+  constexpr bool kTail = I0 == 49;
+  constexpr int kTailRow = I0 - 1;
+  static_assert(I0 == 0 || I0 == 49, "I0 is 49 (the tail row) or 0 (I <= 48)");
+  const int grp = tc::lane_grp(), tig = tc::lane_tig();
+  float xt0 = 0.f, xt1 = 0.f;  // row 48 at the lane's columns
+  if (kTail) {
+    xt0 = to_f(xs[kTailRow * xs_ld + grp]);
+    xt1 = to_f(xs[kTailRow * xs_ld + grp + 8]);
+  }
+  uint32_t xa[3][4];  // X^T's A fragments, k16 steps of rows
+#pragma unroll
+  for (int ks = 0; ks < 3; ++ks)
+    if (kTail || ks < KS)
+      mma16::ldmatrix_x4_trans(xa[ks], mma16::a_addr<true>(xs + 16 * ks * xs_ld, xs_ld));
+#pragma unroll
+  for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) om[mt][j][q] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) tm[j] = 0.f;
+
+  for (int s = s0; s < s1; ++s) {
+    const bf16* gt = stg + 16 * s * S;  // the step's 16 grid rows
+    const bf16* gf = sfg + 16 * s * S;
+    float v[2][4];  // [half: points 8 h ..][C fragment]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[h][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      if (kTail || ks < KS) {
+        uint32_t b[4];  // the two halves' B
+        mma16::ldmatrix_x4(b, mma16::b_addr<false>(gt + 16 * ks, S));
+        const uint32_t t0[2] = {b[0], b[1]}, t1[2] = {b[2], b[3]};
+        mma16::mma(v[0], xa[ks], t0);
+        mma16::mma(v[1], xa[ks], t1);
+      }
+    }
+    float fr[2][2] = {};  // fg at row 48 of the lane's points 8 h + 2 tig + p
+    if (kTail) {  // + the tail row's rank-one term, float32
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int g = 8 * h + 2 * tig;
+        const float t0 = to_f(gt[g * S + kTailRow]), t1 = to_f(gt[(g + 1) * S + kTailRow]);
+        fr[h][0] = to_f(gf[g * S + kTailRow]);
+        fr[h][1] = to_f(gf[(g + 1) * S + kTailRow]);
+        v[h][0] = fmaf(xt0, t0, v[h][0]);
+        v[h][1] = fmaf(xt0, t1, v[h][1]);
+        v[h][2] = fmaf(xt1, t0, v[h][2]);
+        v[h][3] = fmaf(xt1, t1, v[h][3]);
+      }
+    }
+    // silu(v), rounded, as the from-grid B of n8 tile j (columns 8 j +
+    // grp): register h from the h-th half's C values 2 j, 2 j + 1
+    uint32_t bm[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        bm[j][h] = mma16::pack(silu_fast(v[h][2 * j]), silu_fast(v[h][2 * j + 1]));
+        if (kTail) {  // row 48's share from the same rounded values
+          tm[j] = fmaf(fr[h][0], mma16::lo_f(bm[j][h]), tm[j]);
+          tm[j] = fmaf(fr[h][1], mma16::hi_f(bm[j][h]), tm[j]);
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt) {
+      if (kTail || mt < KS) {
+        uint32_t a[4];
+        mma16::ldmatrix_x4_trans(a, mma16::a_addr<true>(gf + 16 * mt, S));
+        mma16::mma(om[mt][0], a, bm[0]);
+        mma16::mma(om[mt][1], a, bm[1]);
       }
     }
   }

@@ -76,24 +76,11 @@
 // above 16) run its CUDA-core instance (ffn_cc_kernel below, with
 // s2_grid.cuh's chain), chosen by shape before the launch.
 //
-// bfloat16 (so3_ffn with bf16 set; the bfloat16 training path's K4): the
-// tensor-core kernel and its split at T = bf16, the function
-// _ffn_fwd_kernel computes at a bfloat16 x, rounding where it rounds. x,
-// tg, fg and y are bfloat16 in device memory; x, tg and fg are staged as
-// float (plain loads: cp.async copies no 2-byte value), so every operand
-// of a product is a bfloat16 value and each product is one TF32 mma.sync
-// (a bfloat16 value is a TF32 value; csrc/mma_tf32.cuh): w1, w2 and wg
-// rounded into the hi plane once a call (b1, bg, b2 float32); h rounded
-// after b1 (h.astype(dt)), before the split and the tail row read it;
-// silu(v) rounded as it splits; the gates rounded (gate.astype(dt)); mid
-// rounded as y's B loads it (mid.astype(dt), row 0 the gates); every sum
-// float32; y rounded at the store. At lmax 6 row 48 runs in float32 on the
-// CUDA cores as at float32, from the same rounded values. The operations
-// are those of the float32 kernel at one TF32 product each, a third of the
-// tensor-core work; the rest (the CUDA-core chain of the tail row, the
-// gates, the splits and the staging) is the same. The bfloat16 instance
-// takes the widths the tensor-core kernel takes; no CUDA-core instance
-// runs bfloat16, so any other width is refused.
+// bfloat16 (so3_ffn with bf16 set; the bfloat16 training path's K4): a
+// kernel of its own, ffn_fwd_bf16_kernel in namespace bf below, every
+// product a bfloat16 m16n8k16 mma.sync, at lmax 1..6 and C, Co multiples of
+// 4 up to 16; no CUDA-core instance runs bfloat16, so any other width is
+// refused.
 //
 // ptxas at lmax 6, C = Co = 16, H = 512 (sm_90a): 222 registers, no spills;
 // 228,832 B of dynamic shared memory, 256 threads, one block an SM
@@ -159,16 +146,12 @@ __host__ __device__ inline int xfrag_words(const TcDims& d) {
 //   part B: w2 as y's A (w2[l]^T: m = o, k = channel in order), split,
 //           [l][k step][kSplitFragWords]
 // zeros past C, H and Co. Both parts are 16-byte aligned.
-// At T = bf16 (the bfloat16 instance) a fragment is its hi plane alone,
-// rounded (tc::kFragWords<T> words), and wg is rounded to bfloat16 (the
-// Pallas kernel's wg.astype(dt)); b1 and bg stay float32.
 struct WLayout {
   int wg, b1, bg, a, b, words;  // offsets in part A; part A's words, part B's, a chunk's
 };
 
-template <class T = float>
 __host__ __device__ inline WLayout w_layout(int L, int C8) {
-  constexpr int FW = singa::tc::kFragWords<T>;
+  constexpr int FW = singa::tc::kFragWords<float>;
   WLayout o;
   o.wg = L * (C8 / 8) * FW;
   o.b1 = o.wg + C8 * kHC;
@@ -179,23 +162,21 @@ __host__ __device__ inline WLayout w_layout(int L, int C8) {
   return o;
 }
 
-template <class T = float>
 __host__ __device__ inline size_t tc_smem_floats(const TcDims& d, int C8) {
   return (size_t)d.Gp * (d.st + d.sf) + (size_t)d.I * C8 * kTN + (size_t)d.I * kHS +
-         xfrag_words(d) + (size_t)w_layout<T>(d.L, C8).words + kNCOL + 128 + 16 + 64;
+         xfrag_words(d) + (size_t)w_layout(d.L, C8).words + kNCOL + 128 + 16 + 64;
 }
 
 // Every chunk's words (w_layout), one item a lane of one fragment or one
-// float32: the weights split into TF32 hi and lo once a call (at T = bf16
-// rounded to bfloat16, hi only).
-template <int C8, class T = float>
+// float32: the weights split into TF32 hi and lo once a call.
+template <int C8>
 __global__ void ffn_wsplit_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
                                   const float* __restrict__ wg, const float* __restrict__ bg,
                                   const float* __restrict__ w2, uint32_t* __restrict__ out,
                                   TcDims d) {
   using namespace singa::tc;
   constexpr int KC = C8 / 8;
-  const WLayout o = w_layout<T>(d.L, C8);
+  const WLayout o = w_layout(d.L, C8);
   const int n1 = d.L * KC * 32, n2 = n1 + d.L * (kHC / 8) * 32;  // w1's lanes, then w2's
   const int items = n2 + (o.a - o.wg);
   const long long total = (long long)((d.H + kHC - 1) / kHC) * items;
@@ -208,7 +189,7 @@ __global__ void ffn_wsplit_kernel(const float* __restrict__ w1, const float* __r
       float v = 0.f;
       if (q < C8 * kHC) {
         const int c = q / kHC;
-        if (c < d.C && h < d.H) v = singa::rnd<T>(wg[(long long)c * d.H + h]);
+        if (c < d.C && h < d.H) v = wg[(long long)c * d.H + h];
       } else if (h < d.H) {
         v = q < C8 * kHC + kHC ? b1[h] : bg[h];
       }
@@ -230,7 +211,8 @@ __global__ void ffn_wsplit_kernel(const float* __restrict__ w1, const float* __r
         if (m < d.Co && h0 + k < d.H) v[q] = w2[((long long)l * d.H + h0 + k) * d.Co + m];
       }
     }
-    store_a_t<T>(blk + (is1 ? 0 : o.a) + f * kFragWords<T>, lane, v[0], v[1], v[2], v[3]);
+    store_a_t<float>(blk + (is1 ? 0 : o.a) + f * kFragWords<float>, lane, v[0], v[1], v[2],
+                     v[3]);
   }
 }
 
@@ -260,35 +242,28 @@ __device__ void copy_words(const uint32_t* __restrict__ src, int words, uint32_t
 }
 
 // x of the tile at node n0 -> sx [i][c][node], zeros past N and C; joins
-// the caller's next commit group. At T = bf16 (2-byte values, below
-// cp.async's 4) by plain loads, widened to float: once a tile, 12.5 KB at
-// lmax 6, C 16, against the tile's 32 chunks of chain
-template <int C8, class T = float>
-__device__ void copy_x(const T* __restrict__ x, int n0, const TcDims& d, float* sx) {
+// the caller's next commit group
+template <int C8>
+__device__ void copy_x(const float* __restrict__ x, int n0, const TcDims& d, float* sx) {
   for (int t = threadIdx.x; t < kTN * d.I * C8; t += kThreads) {
     const int node = t / (d.I * C8), i = (t / C8) % d.I, c = t % C8;
     const bool ok = n0 + node < d.N && c < d.C;
-    if constexpr (singa::kBf16<T>)
-      sx[(i * C8 + c) * kTN + node] =
-          ok ? singa::to_f(x[((long long)(n0 + node) * d.I + i) * d.C + c]) : 0.f;
-    else
-      cp_async4(sx + (i * C8 + c) * kTN + node,
-                ok ? x + ((long long)(n0 + node) * d.I + i) * d.C + c : x, ok);
+    cp_async4(sx + (i * C8 + c) * kTN + node,
+              ok ? x + ((long long)(n0 + node) * d.I + i) * d.C + c : x, ok);
   }
 }
 
-// KC: k steps of h (C <= 8 KC); I0: 49 at lmax 6 (the tail row), else 0;
-// T: the storage type of x, tg, fg and y (float, or bf16: the bfloat16
-// instance, see the file header)
-template <int KC, int I0, class T = float>
+// KC: k steps of h (C <= 8 KC); I0: 49 at lmax 6 (the tail row), else 0
+template <int KC, int I0>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+ffn_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ wg,
               const float* __restrict__ bg, const float* __restrict__ w2,
-              const float* __restrict__ b2, const T* __restrict__ tg,
-              const T* __restrict__ fg, const uint32_t* __restrict__ wfrag,
-              T* __restrict__ y, TcDims d) {
+              const float* __restrict__ b2, const float* __restrict__ tg,
+              const float* __restrict__ fg, const uint32_t* __restrict__ wfrag,
+              float* __restrict__ y, TcDims d) {
   using namespace singa::tc;
+  using T = float;  // the storage type (the split TF32 helpers' parameter)
   constexpr int C8 = 8 * KC;
   constexpr bool kTail = I0 == 49;
   constexpr int FW = kFragWords<T>;  // words of one split fragment
@@ -299,7 +274,7 @@ ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   float* sx = sfg + d.Gp * d.sf;                               // [I][C8][kTN]
   float* sst = sx + I * C8 * kTN;                              // [I][kHS]: h (the staging)
   uint32_t* sxf = reinterpret_cast<uint32_t*>(sst + I * kHS);  // X^T split, then mid
-  const WLayout wl = w_layout<T>(L, C8);
+  const WLayout wl = w_layout(L, C8);
   uint32_t* swa = sxf + xfrag_words(d);  // the chunk's part A: w1 split, wg, b1, bg
   uint32_t* swb = swa + wl.a;            // its part B: w2 split
   const float* swg = reinterpret_cast<const float*>(swa + wl.wg);  // [C8][kHC]
@@ -317,22 +292,16 @@ ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   const int cg = warp % (kGroups / kColTiles), part = warp / (kGroups / kColTiles);
   const int s0 = part * (d.Gp / 8 / kParts), s1 = s0 + d.Gp / 8 / kParts;
   const int gate0 = kThreads - kNCOL;  // the threads of the gates: the last four warps
-  // tg, fg (zero-padded), in the first commit group (bf16: plain loads)
+  // tg, fg (zero-padded), in the first commit group
   for (int t = tid; t < d.Gp * d.st; t += kThreads) {
     const int g = t / d.st, i = t % d.st;
     const bool ok = g < d.G && i < I;
-    if constexpr (singa::kBf16<T>)
-      stg[t] = ok ? singa::to_f(tg[g * I + i]) : 0.f;
-    else
-      cp_async4(stg + t, ok ? tg + g * I + i : tg, ok);
+    cp_async4(stg + t, ok ? tg + g * I + i : tg, ok);
   }
   for (int t = tid; t < d.Gp * d.sf; t += kThreads) {
     const int g = t / d.sf, i = t % d.sf;
     const bool ok = g < d.G && i < I;
-    if constexpr (singa::kBf16<T>)
-      sfg[t] = ok ? singa::to_f(fg[g * I + i]) : 0.f;
-    else
-      cp_async4(sfg + t, ok ? fg + g * I + i : fg, ok);
+    cp_async4(sfg + t, ok ? fg + g * I + i : fg, ok);
   }
   // the block's (tile, chunk) steps, tiles blockIdx.x, + gridDim.x, ..., the
   // chunks inside; step j's y product runs at the start of step j + 1,
@@ -340,7 +309,7 @@ ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   // overlap)
   const int tiles = (d.N + kTN - 1) / kTN;
   const int steps = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * chunks;
-  copy_x<C8, T>(x, blockIdx.x * kTN, d, sx);  // the first tile's x and chunk's part A
+  copy_x<C8>(x, blockIdx.x * kTN, d, sx);  // the first tile's x and chunk's part A
   copy_words(wfrag, wl.a, swa);
   cp_async_commit();
   if (tid < 16) sb2[tid] = tid < Co ? b2[tid] : 0.f;  // read after the first barriers
@@ -399,8 +368,7 @@ ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                 sy48[4 * (tid & 31) + q] = 0.f;
               }
               if (o < Co && node < d.N)
-                y[((long long)node * I + i) * Co + o] =
-                    singa::from_f<T>(v + (i == 0 ? sb2[o] : 0.f));
+                y[((long long)node * I + i) * Co + o] = v + (i == 0 ? sb2[o] : 0.f);
             }
         }
       }
@@ -423,9 +391,6 @@ ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
         c[1] += b0;
         c[2] += b8;
         c[3] += b8;
-        if constexpr (singa::kBf16<T>)  // h.astype(dt): the chain's X and its tail row
-#pragma unroll
-          for (int q = 0; q < 4; ++q) c[q] = singa::rnd<T>(c[q]);
         store_c(sst + i * kHS, kTN, c);
       }
     }
@@ -434,11 +399,11 @@ ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
       float v = sbg[ch];
 #pragma unroll
       for (int c = 0; c < C8; ++c) v = fmaf(sx[c * kTN + node], swg[c * kHC + ch], v);  // 0 past C
-      sgate[t] = singa::rnd<T>(singa::siluf_(v));  // bf16: the gate's .astype(dt)
+      sgate[t] = singa::siluf_(v);
     }
     __syncthreads();  // B1: y is done with part B and mid, h and the gates with sx and part A
     if (k + 1 == chunks)  // the block's next tile's x
-      copy_x<C8, T>(x, (tile + gridDim.x) * kTN, d, sx);
+      copy_x<C8>(x, (tile + gridDim.x) * kTN, d, sx);
     copy_words(wfrag + (long long)((k + 1) % chunks) * wl.words, wl.a, swa);  // the next chunk's
     copy_words(wfrag + (long long)k * wl.words + wl.a, wl.b, swb);  // this chunk's w2
     cp_async_commit();
@@ -510,48 +475,41 @@ ffn_tc_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-template <class T>
-using TcKernel = void (*)(const T*, const float*, const float*, const float*, const float*,
-                          const float*, const float*, const T*, const T*, const uint32_t*, T*,
-                          TcDims);
+using TcKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const float*, const float*, const float*, const float*, const uint32_t*,
+                          float*, TcDims);
 using SplitKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
                              uint32_t*, TcDims);
 
 // The tensor-core kernel's and the split kernel's instances for C input
-// channels and I rows at storage type T (null: none), and the kernel's
-// shared memory
-template <class T = float>
-TcKernel<T> tc_kernel(int C, int I) {
+// channels and I rows (null: none), and the kernel's shared memory
+TcKernel tc_kernel(int C, int I) {
   if (C < 1 || C > kTcMaxC || I > 49) return nullptr;
-  if (C <= 8) return I == 49 ? ffn_tc_kernel<1, 49, T> : ffn_tc_kernel<1, 0, T>;
-  return I == 49 ? ffn_tc_kernel<2, 49, T> : ffn_tc_kernel<2, 0, T>;
+  if (C <= 8) return I == 49 ? ffn_tc_kernel<1, 49> : ffn_tc_kernel<1, 0>;
+  return I == 49 ? ffn_tc_kernel<2, 49> : ffn_tc_kernel<2, 0>;
 }
 
-template <class T = float>
 SplitKernel split_kernel(int C) {
-  return C <= 8 ? ffn_wsplit_kernel<8, T> : ffn_wsplit_kernel<16, T>;
+  return C <= 8 ? ffn_wsplit_kernel<8> : ffn_wsplit_kernel<16>;
 }
 
 // 32-bit words of the split weights: every hidden chunk's w_layout
-template <class T = float>
 long long tc_words(const TcDims& d) {
-  return (long long)((d.H + kHC - 1) / kHC) * w_layout<T>(d.L, d.C <= 8 ? 8 : 16).words;
+  return (long long)((d.H + kHC - 1) / kHC) * w_layout(d.L, d.C <= 8 ? 8 : 16).words;
 }
 
-template <class T = float>
 size_t tc_smem(const TcDims& d) {
-  return tc_smem_floats<T>(d, d.C <= 8 ? 8 : 16) * sizeof(float);
+  return tc_smem_floats(d, d.C <= 8 ? 8 : 16) * sizeof(float);
 }
 
 // Whether the tensor-core kernel takes these widths: lmax 1..6, C <= 16,
 // Co <= 16 (a multiple of 4, as for every instance), and its shared memory
-template <class T = float>
 bool tc_takes(int lmax, int C, int H, int Co, int G) {
   if (lmax < 1 || lmax > 6 || C < 1 || C > kTcMaxC || H < 1 || Co < 4 || Co > kTcMaxC ||
       Co % 4 != 0 || G < 1)
     return false;
   const TcDims d = make_tc_dims(1, lmax, C, H, Co, G);
-  return singa::allow_smem(tc_kernel<T>(C, d.I), tc_smem<T>(d)) == cudaSuccess;
+  return singa::allow_smem(tc_kernel(C, d.I), tc_smem(d)) == cudaSuccess;
 }
 
 // ------------------------------- CUDA cores --------------------------------
@@ -748,29 +706,451 @@ bool cc_takes(int lmax, int C, int H, int Co, int G) {
 
 }  // namespace cc
 
+// ------------------------------- bfloat16 --------------------------------
+// The bfloat16 instance (so3_ffn with bf16 set; the bfloat16 training
+// path's K4): the function _ffn_fwd_kernel computes at a bfloat16 x,
+// rounding where it rounds, with every product a bfloat16 m16n8k16
+// mma.sync (csrc/mma_bf16.cuh): the product of two bfloat16 values is
+// exact in float32, so one m16n8k16 gives what one TF32 m16n8k8 of the same
+// values gives, twice as deep, on 2-byte operands.
+//
+// Roundings: h rounded after b1 (h.astype(dt)); silu(v) rounded before the
+// from-grid product; the gates silu(x0 wg + bg) rounded (gate.astype(dt));
+// mid rounded as y reads it (mid.astype(dt), row 0 the gates); y rounded
+// at the store; w1, wg and w2 rounded once a call (b1, bg, b2 float32);
+// every sum float32.
+//
+// Design (ffn_fwd_bf16_kernel): a persistent block of 16 warps (one an SM)
+// owns a tile of kTN = 8 nodes at a time, y's float32 sums in registers,
+// and walks the hidden dimension in chunks of kHC = 16 channels: 128 chain
+// columns (column ch * kTN + node). x, tg and fg stay bfloat16 in shared
+// memory: tg and fg staged once a block, x once a tile by cp.async (16-byte
+// pieces, 8-byte where C is not a multiple of 8), during the previous
+// tile's last chunk. A weight kernel (ffn_wfrag_bf16_kernel) rounds w1 and
+// w2 once a call into the A fragments of h's and y's products, and wg into
+// float32 values of bfloat16; the kernel copies each chunk's words (8.1 KB
+// at lmax 6) by cp.async into the other of two buffers while a chunk runs.
+// Per (tile, chunk), between three barriers:
+//   y      y^T += w2[l]^T mid_i^T for the step before, one m16n8k16 a row
+//          (M = Co, N = 8 nodes, K = 16 channels; mid by ldmatrix .trans),
+//          warp w taking rows w + 16 r; at a tile's last chunk y is stored
+//   h      h^T = w1[l]^T x_i^T (+ b1 on row 0), one m16n8k16 a row (M = 16
+//          channels, N = 8 nodes, K = C padded to 16 with zeros; x by
+//          ldmatrix), rounded and stored as bfloat16 pairs into h [row]
+//          [column] (a lane's pair is two neighbouring columns: no bank
+//          conflict); the gates in float32 on the CUDA cores (four warps:
+//          C multiply-adds a gate)
+//   chain  grid_chain_mma16_fwd (csrc/s2_grid_tc.cuh): warp w takes the 16
+//          columns 16 (w % 8) .. and half w / 8 of the grid; silu(v) stays
+//          in registers as the from-grid B, no barrier; at lmax 6 the last
+//          row in float32 on the CUDA cores
+//   sum    the second half's sums through shared memory into the first's,
+//          rounded into mid (bfloat16 [row][column]), row 0 := the gates
+// ptxas and residency: chip_smoke.py's k4_bf16_ptxas and K4·bf16's row.
+namespace bf {
+
+using singa::bf16;
+namespace mma16 = singa::mma16;
+
+constexpr int kTN = 8;                      // nodes of a tile: the n8 of h and y
+constexpr int kHC = 16;                     // hidden channels of a chunk: h's m16, y's k16
+constexpr int kNCOL = kHC * kTN;            // chain columns: column ch * kTN + node
+constexpr int kColTiles = kNCOL / 16;       // the chain's 16-column tiles
+constexpr int kWarps = 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kParts = kWarps / kColTiles;  // warps of a column tile, each half the grid
+constexpr int kXS = kNCOL + 8;  // row stride (values) of h and mid: 17 16-byte units
+constexpr int kXC = 24;         // row stride (values) of x [row][node][c]: 3 16-byte units
+constexpr int kMS = kNCOL + 8;  // row stride (floats) of the halves' exchange
+constexpr int kFragWords = 128;  // an m16 x k16 A fragment: four words a lane
+constexpr int kMaxRows = 4;      // rows of a warp in h and y: i = warp + 16 r
+static_assert(kParts == 2, "two halves of the grid a column tile: one exchange of sums");
+static_assert(49 == kWarps * (kMaxRows - 1) + 1, "the last row slot is row 48's alone");
+static_assert(kThreads >= kNCOL, "a thread for each gate");
+
+// S: the row stride (values) of the staged tg and fg, 16 KS + 8, odd in
+// 16-byte units; KS: k16 steps of the to-grid product and m16 tiles of the
+// from-grid one (rows 0 .. 47 at I 49); XR: rows of h staged (rows past I
+// zero).
+struct Dims {
+  int N, L, I, C, H, Co, G, Gp, S, KS, XR;
+};
+
+__host__ __device__ inline Dims make_dims(int N, int lmax, int C, int H, int Co, int G) {
+  Dims d;
+  d.N = N, d.L = lmax + 1, d.I = d.L * d.L, d.C = C, d.H = H, d.Co = Co, d.G = G;
+  d.KS = ((d.I == 49 ? 48 : d.I) + 15) / 16;
+  d.S = 16 * d.KS + 8;
+  constexpr int q = 16 * kParts;  // whole k16 grid steps for each part
+  d.Gp = (G + q - 1) / q * q;
+  d.XR = d.I > 16 * d.KS ? d.I : 16 * d.KS;
+  return d;
+}
+
+// One hidden chunk's weights (32-bit words) as ffn_wfrag_bf16_kernel writes
+// them: w1 as h's A fragments [l][lane][4] (m = channel, k = c), then w2 as
+// y's (m = o, k = channel), bfloat16 pairs; wg [16][kHC], b1 [kHC] and bg
+// [kHC] as float32 (wg's values bfloat16's); zeros past C, H and Co.
+struct WLayout {
+  int w2, wg, b1, bg, words;
+};
+
+__host__ __device__ inline WLayout w_layout(int L) {
+  WLayout o;
+  o.w2 = L * kFragWords;
+  o.wg = 2 * L * kFragWords;
+  o.b1 = o.wg + 16 * kHC;
+  o.bg = o.b1 + kHC;
+  o.words = o.bg + kHC;
+  return o;
+}
+
+inline long long words(const Dims& d) {
+  return (long long)((d.H + kHC - 1) / kHC) * w_layout(d.L).words;
+}
+
+// float32 words first (the two weight buffers, the exchange, the gates,
+// row 48's y sums, b2, the degrees), then the bfloat16 arrays
+inline size_t smem_bytes(const Dims& d) {
+  const size_t fl = 2 * (size_t)w_layout(d.L).words + (size_t)d.I * kMS + kNCOL + 128 + 16 + 64;
+  const size_t b16 = 2 * (size_t)d.Gp * d.S + (size_t)d.XR * kXS + (size_t)d.I * kTN * kXC +
+                     (size_t)d.I * kXS;
+  return fl * sizeof(float) + b16 * sizeof(bf16);
+}
+
+// Every chunk's words (w_layout), one word an item.
+__global__ void ffn_wfrag_bf16_kernel(const float* __restrict__ w1, const float* __restrict__ b1,
+                                      const float* __restrict__ wg, const float* __restrict__ bg,
+                                      const float* __restrict__ w2, uint32_t* __restrict__ out,
+                                      Dims d) {
+  const WLayout o = w_layout(d.L);
+  const long long total = (long long)((d.H + kHC - 1) / kHC) * o.words;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int chunk = (int)(e / o.words), r = (int)(e % o.words), h0 = chunk * kHC;
+    uint32_t v;
+    if (r < o.wg) {  // register q of lane (grp, tig) of one A fragment
+      const bool is1 = r < o.w2;
+      const int f = is1 ? r : r - o.w2, l = f / kFragWords, lane = (f / 4) % 32, q = f % 4;
+      const int m = (lane >> 2) + 8 * (q & 1), k0 = 2 * (lane & 3) + 8 * (q >> 1);
+      float x[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int k = k0 + p;
+        x[p] = 0.f;
+        if (is1) {  // h's A: w1[l][c = k][channel = m]
+          if (k < d.C && h0 + m < d.H) x[p] = w1[((long long)l * d.C + k) * d.H + h0 + m];
+        } else {  // y's A: w2[l][channel = k][o = m]
+          if (m < d.Co && h0 + k < d.H) x[p] = w2[((long long)l * d.H + h0 + k) * d.Co + m];
+        }
+      }
+      v = mma16::pack(x[0], x[1]);
+    } else if (r < o.b1) {  // wg [c][ch], rounded
+      const int q = r - o.wg, c = q / kHC, h = h0 + q % kHC;
+      v = __float_as_uint(c < d.C && h < d.H ? singa::rnd<bf16>(wg[(long long)c * d.H + h]) : 0.f);
+    } else {  // b1, bg
+      const int q = r - o.b1, h = h0 + q % kHC;
+      v = __float_as_uint(h < d.H ? (q < kHC ? b1[h] : bg[h]) : 0.f);
+    }
+    out[(long long)chunk * o.words + r] = v;
+  }
+}
+
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, bool ok) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8z(void* dst, const void* src, bool ok) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(a), "l"(src),
+               "r"(ok ? 8 : 0));
+}
+
+// x of the tile at node n0 -> sx [i][node][kXC] (zeros for nodes past N;
+// channels past C are never written), in 16-byte pieces where C is a
+// multiple of 8, else 8-byte ones; joins the caller's next commit group
+__device__ void copy_x(const bf16* __restrict__ x, int n0, const Dims& d, bf16* sx) {
+  const int I = d.I, C = d.C, w = d.C % 8 == 0 ? 8 : 4, P = C / w;  // piece: w values
+  for (int t = threadIdx.x; t < kTN * I * P; t += kThreads) {
+    const int node = t / (I * P), i = (t / P) % I, p = t % P;
+    const bool ok = n0 + node < d.N;
+    bf16* dst = sx + (i * kTN + node) * kXC + w * p;
+    const bf16* src = ok ? x + ((long long)(n0 + node) * I + i) * C + w * p : x;
+    if (w == 8)
+      cp_async16z(dst, src, ok);
+    else
+      cp_async8z(dst, src, ok);
+  }
+}
+
+// `words` words (a multiple of 4, 16-byte aligned) into shared memory by
+// 16-byte cp.async; joins the caller's next commit group
+__device__ void copy_words(const uint32_t* __restrict__ src, int words, uint32_t* dst) {
+  for (int q = threadIdx.x; q < words / 4; q += kThreads) cp_async16(dst + 4 * q, src + 4 * q);
+}
+
+// I0: 49 at lmax 6 (row 48 in float32, grid_chain_mma16_fwd), else 0
+template <int I0>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_fwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ b2,
+                    const bf16* __restrict__ tg, const bf16* __restrict__ fg,
+                    const uint32_t* __restrict__ wfrag, bf16* __restrict__ y, Dims d) {
+  constexpr bool kTail = I0 == 49;
+  const int I = d.I, C = d.C, Co = d.Co, S = d.S;
+  const WLayout wl = w_layout(d.L);
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* swb = reinterpret_cast<uint32_t*>(smem);  // [2][wl.words]: two chunks' weights
+  float* smf = reinterpret_cast<float*>(swb + 2 * wl.words);  // [I][kMS]: the second half's sums
+  float* sgate = smf + I * kMS;                     // [kNCOL]: mid's row 0, rounded
+  float* sy48 = sgate + kNCOL;                      // [32 lanes][4]: y's sums of row 48
+  float* sb2 = sy48 + 128;                          // [16]: b2, zero past Co
+  int* sdeg = reinterpret_cast<int*>(sb2 + 16);     // [64]: the degree of each row
+  bf16* stg = reinterpret_cast<bf16*>(sdeg + 64);   // [Gp][S]
+  bf16* sfg = stg + d.Gp * S;                       // [Gp][S]
+  bf16* sh = sfg + d.Gp * S;                        // [XR][kXS]: h, rounded
+  bf16* sx = sh + d.XR * kXS;                       // [I][kTN][kXC]: x
+  bf16* smb = sx + I * kTN * kXC;                   // [I][kXS]: mid, rounded
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int chunks = (d.H + kHC - 1) / kHC;
+  const int tiles = (d.N + kTN - 1) / kTN;
+  // the chain's map: warp w's 16 columns and half of the grid (k16 steps)
+  const int c0 = 16 * (warp % kColTiles), part = warp / kColTiles;
+  const int half = d.Gp / 16 / kParts;
+  const bf16 zero = singa::from_f<bf16>(0.f);
+  for (int t = tid; t < I * kTN * kXC; t += kThreads) sx[t] = zero;  // channels past C
+  for (int t = tid; t < (d.XR - I) * kXS; t += kThreads) sh[I * kXS + t] = zero;  // rows past I
+  for (int t = tid; t < d.Gp * S; t += kThreads) {
+    const int g = t / S, i = t - g * S;
+    const bool in = g < d.G && i < I;
+    stg[t] = in ? tg[g * I + i] : zero;
+    sfg[t] = in ? fg[g * I + i] : zero;
+  }
+  if (tid < 16) sb2[tid] = tid < Co ? b2[tid] : 0.f;
+  if (tid < 64) sdeg[tid] = degree_of(tid);
+  if (warp == 0)  // row 48's sums: each lane's own four, read and written by it alone
+    for (int q = 0; q < 4; ++q) sy48[4 * lane + q] = 0.f;
+  __syncthreads();  // x's zeros before its copies
+  copy_x(x, blockIdx.x * kTN, d, sx);  // the first tile's x and chunk's weights
+  copy_words(wfrag, wl.words, swb);
+  cp_async_commit();
+
+  // the block's (tile, chunk) steps, tiles blockIdx.x, + gridDim.x, ..., the
+  // chunks inside; step j's y product runs at the start of step j + 1
+  const int steps = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * chunks;
+  // a warp's rows i = warp + kWarps r: at I = 49 every slot but the last
+  // holds a row
+  auto has_row = [&](int r, int i) { return (kTail && r < kMaxRows - 1) || i < I; };
+  float yacc[kMaxRows - 1][4];  // y^T of the warp's rows: (o = grp (+8), node = 2 tig (+1))
+#pragma unroll
+  for (int r = 0; r < kMaxRows - 1; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) yacc[r][q] = 0.f;
+
+  for (int j = 0; j <= steps; ++j) {
+    cp_async_wait<0>();  // step j's weights, the tile's x
+    __syncthreads();     // B0: everyone's copies; step j - 1's mid is complete
+    if (j > 0) {
+      // y^T += w2[l]^T mid_i^T for step j - 1
+      const uint32_t* wb = swb + ((j - 1) & 1) * wl.words + wl.w2;
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        const int i = warp + kWarps * r;
+        if (has_row(r, i)) {
+          const uint4 w = *reinterpret_cast<const uint4*>(wb + sdeg[i] * kFragWords + 4 * lane);
+          const uint32_t a[4] = {w.x, w.y, w.z, w.w};
+          uint32_t b[2];
+          mma16::ldmatrix_x2_trans(b, smb + i * kXS + (lane & 15) * kTN);
+          if (r < kMaxRows - 1) {
+            mma16::mma(yacc[r < kMaxRows - 1 ? r : 0], a, b);
+          } else {
+            float p[4] = {0.f, 0.f, 0.f, 0.f};
+            mma16::mma(p, a, b);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) sy48[4 * lane + q] += p[q];
+          }
+        }
+      }
+      if (j % chunks == 0) {  // step j - 1 was its tile's last chunk: y of the tile (+ b2 on row 0)
+        const int n0 = (blockIdx.x + (j / chunks - 1) * gridDim.x) * kTN;
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          const int i = warp + kWarps * r;
+          if (has_row(r, i))
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int o = grp + 8 * (q >> 1), node = n0 + 2 * tig + (q & 1);
+              float v;
+              if (r < kMaxRows - 1) {
+                v = yacc[r < kMaxRows - 1 ? r : 0][q];
+                yacc[r < kMaxRows - 1 ? r : 0][q] = 0.f;
+              } else {
+                v = sy48[4 * lane + q];
+                sy48[4 * lane + q] = 0.f;
+              }
+              if (o < Co && node < d.N)
+                y[((long long)node * I + i) * Co + o] =
+                    singa::from_f<bf16>(v + (i == 0 ? sb2[o] : 0.f));
+            }
+        }
+      }
+    }
+    if (j == steps) break;
+    const int k = j % chunks, tile = blockIdx.x + j / chunks * gridDim.x;
+    const uint32_t* wa = swb + (j & 1) * wl.words;
+    const float* swg = reinterpret_cast<const float*>(wa + wl.wg);  // [16][kHC]
+    const float* sb1 = reinterpret_cast<const float*>(wa + wl.b1);  // [kHC]
+    const float* sbg = reinterpret_cast<const float*>(wa + wl.bg);  // [kHC]
+    // h^T = w1[l]^T x_i^T (+ b1 on row 0), rounded, into h [i][ch * kTN + node]
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      const int i = warp + kWarps * r;
+      if (has_row(r, i)) {
+        const uint4 w = *reinterpret_cast<const uint4*>(wa + sdeg[i] * kFragWords + 4 * lane);
+        const uint32_t a[4] = {w.x, w.y, w.z, w.w};
+        uint32_t b[2];
+        mma16::ldmatrix_x2(b, sx + (i * kTN + (lane & 7)) * kXC + 8 * ((lane >> 3) & 1));
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16::mma(c, a, b);
+        if (i == 0) {
+          c[0] += sb1[grp];
+          c[1] += sb1[grp];
+          c[2] += sb1[grp + 8];
+          c[3] += sb1[grp + 8];
+        }
+        *reinterpret_cast<uint32_t*>(sh + i * kXS + grp * kTN + 2 * tig) = mma16::pack(c[0], c[1]);
+        *reinterpret_cast<uint32_t*>(sh + i * kXS + (grp + 8) * kTN + 2 * tig) =
+            mma16::pack(c[2], c[3]);
+      }
+    }
+    if (tid >= kThreads - kNCOL) {  // the gates, float32: mid's row 0 (the last four warps)
+      const int t = tid - (kThreads - kNCOL), ch = t / kTN, node = t % kTN;
+      float v = sbg[ch];
+      for (int c = 0; c < C; ++c) v = fmaf(singa::to_f(sx[node * kXC + c]), swg[c * kHC + ch], v);
+      sgate[t] = singa::rnd<bf16>(singa::siluf_(v));  // gate.astype(dt)
+    }
+    __syncthreads();  // B1: y is done with mid and the other buffer, h and the gates with x
+    copy_words(wfrag + (long long)((k + 1) % chunks) * wl.words, wl.words,
+               swb + ((j + 1) & 1) * wl.words);  // the next chunk's weights
+    if (k + 1 == chunks && tile + (int)gridDim.x < tiles)  // the block's next tile's x
+      copy_x(x, (tile + gridDim.x) * kTN, d, sx);
+    cp_async_commit();
+    // the chain over the warp's columns and half of the grid
+    float om[3][2][4], tm[2];
+    singa::grid_chain_mma16_fwd<I0>(stg, sfg, S, sh + c0, kXS, d.KS, part * half,
+                                    (part + 1) * half, om, tm);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {  // the tail row: the four lanes of a column
+      tm[jj] += __shfl_xor_sync(0xffffffffu, tm[jj], 1);
+      tm[jj] += __shfl_xor_sync(0xffffffffu, tm[jj], 2);
+    }
+    if (part == 1) {  // the second half's sums
+#pragma unroll
+      for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 16 * mt + grp + 8 * h;
+          if ((kTail || mt < d.KS) && i < I)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+              *reinterpret_cast<float2*>(smf + i * kMS + c0 + 8 * jj + 2 * tig) =
+                  make_float2(om[mt][jj][2 * h], om[mt][jj][2 * h + 1]);
+        }
+      if (kTail && tig == 0)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) smf[(I0 - 1) * kMS + c0 + 8 * jj + grp] = tm[jj];
+    }
+    __syncthreads();  // B2
+    if (part == 0) {  // mid = the halves' sums, rounded (mid.astype(dt)); row 0 := the gates
+#pragma unroll
+      for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 16 * mt + grp + 8 * h;
+          if ((kTail || mt < d.KS) && i < I)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int col = c0 + 8 * jj + 2 * tig;
+              const float2 o = *reinterpret_cast<const float2*>(smf + i * kMS + col);
+              *reinterpret_cast<uint32_t*>(smb + i * kXS + col) =
+                  i == 0 ? mma16::pack(sgate[col], sgate[col + 1])
+                         : mma16::pack(om[mt][jj][2 * h] + o.x, om[mt][jj][2 * h + 1] + o.y);
+            }
+        }
+      if (kTail && tig == 0)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int col = c0 + 8 * jj + grp;
+          smb[(I0 - 1) * kXS + col] = singa::from_f<bf16>(smf[(I0 - 1) * kMS + col] + tm[jj]);
+        }
+    }
+  }
+}
+
+using Kernel = void (*)(const bf16*, const float*, const bf16*, const bf16*, const uint32_t*,
+                        bf16*, Dims);
+
+inline Kernel kernel_for(const Dims& d) {
+  return d.I == 49 ? ffn_fwd_bf16_kernel<49> : ffn_fwd_bf16_kernel<0>;
+}
+
+// Whether the bfloat16 kernel takes these widths: lmax 1..6, C and Co
+// multiples of 4 up to 16, and its shared memory
+bool takes(int lmax, int C, int H, int Co, int G) {
+  if (lmax < 1 || lmax > 6 || C < 4 || C > 16 || C % 4 != 0 || H < 1 || Co < 4 || Co > 16 ||
+      Co % 4 != 0 || G < 1)
+    return false;
+  const Dims d = make_dims(1, lmax, C, H, Co, G);
+  return singa::allow_smem(kernel_for(d), smem_bytes(d)) == cudaSuccess;
+}
+
+// The weight kernel, then the kernel
+int launch(const bf16* x, const float* w1, const float* b1, const float* wg, const float* bg,
+           const float* w2, const float* b2, const bf16* tg, const bf16* fg, bf16* y,
+           void* wfrag, int N, int lmax, int C, int H, int Co, int G, cudaStream_t st) {
+  const Dims d = make_dims(N, lmax, C, H, Co, G);
+  uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
+  const int wgrid = singa::persistent_grid(ffn_wfrag_bf16_kernel, 256, 0, (words(d) + 255) / 256);
+  ffn_wfrag_bf16_kernel<<<wgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Kernel k = kernel_for(d);
+  const size_t smem = smem_bytes(d);
+  err = singa::allow_smem(k, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = singa::persistent_grid(k, kThreads, smem, (N + kTN - 1) / kTN);
+  k<<<grid, kThreads, smem, st>>>(x, b2, tg, fg, frags, y, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf
+
 // 1: the tensor-core kernel takes the widths; 0: the CUDA-core instance
-// does; -1: neither. bf16: the bfloat16 instance, which is the tensor-core
-// kernel alone
+// does; -1: neither. bf16: the bfloat16 instance, which is its bfloat16
+// kernel alone (bf::ffn_fwd_bf16_kernel)
 int instance(int lmax, int C, int H, int Co, int G, int bf16) {
-  if (bf16) return tc_takes<singa::bf16>(lmax, C, H, Co, G) ? 1 : -1;
+  if (bf16) return bf::takes(lmax, C, H, Co, G) ? 1 : -1;
   if (tc_takes(lmax, C, H, Co, G)) return 1;
   return cc::cc_takes(lmax, C, H, Co, G) ? 0 : -1;
 }
 
-// The split kernel, then the tensor-core kernel, at storage type T
-template <class T>
-int tc_launch(const T* x, const float* w1, const float* b1, const float* wg, const float* bg,
-              const float* w2, const float* b2, const T* tg, const T* fg, T* y, void* wfrag,
-              int N, int lmax, int C, int H, int Co, int G, cudaStream_t st) {
+// The split kernel, then the tensor-core kernel
+int tc_launch(const float* x, const float* w1, const float* b1, const float* wg,
+              const float* bg, const float* w2, const float* b2, const float* tg,
+              const float* fg, float* y, void* wfrag, int N, int lmax, int C, int H, int Co,
+              int G, cudaStream_t st) {
   const TcDims d = make_tc_dims(N, lmax, C, H, Co, G);
   uint32_t* frags = reinterpret_cast<uint32_t*>(wfrag);
-  const SplitKernel sk = split_kernel<T>(C);
-  const int sgrid = singa::persistent_grid(sk, 256, 0, (tc_words<T>(d) / 4 + 255) / 256);
+  const SplitKernel sk = split_kernel(C);
+  const int sgrid = singa::persistent_grid(sk, 256, 0, (tc_words(d) / 4 + 255) / 256);
   sk<<<sgrid, 256, 0, st>>>(w1, b1, wg, bg, w2, frags, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const TcKernel<T> k = tc_kernel<T>(C, d.I);
-  const size_t smem = tc_smem<T>(d);
+  const TcKernel k = tc_kernel(C, d.I);
+  const size_t smem = tc_smem(d);
   const int grid = singa::persistent_grid(k, kThreads, smem, (N + kTN - 1) / kTN);
   k<<<grid, kThreads, smem, st>>>(x, w1, b1, wg, bg, w2, b2, tg, fg, frags, y, d);
   return (int)cudaGetLastError();
@@ -786,14 +1166,14 @@ extern "C" int so3_ffn_instance(int lmax, int C, int H, int Co, int G, int bf16)
 }
 
 // 32-bit words of scratch so3_ffn needs at these widths (the tensor-core
-// kernel's split weights; 0 for the CUDA-core instance), -1 for shapes no
-// kernel takes.
+// kernel's split weights, bf16: the bfloat16 kernel's rounded fragments; 0
+// for the CUDA-core instance), -1 for shapes no kernel takes.
 extern "C" long long so3_ffn_words(int lmax, int C, int H, int Co, int G, int bf16) {
   const int which = instance(lmax, C, H, Co, G, bf16);
   if (which < 0) return -1;
   if (which == 0) return 0;
-  const TcDims d = make_tc_dims(1, lmax, C, H, Co, G);
-  return bf16 ? tc_words<singa::bf16>(d) : tc_words(d);
+  if (bf16) return bf::words(bf::make_dims(1, lmax, C, H, Co, G));
+  return tc_words(make_tc_dims(1, lmax, C, H, Co, G));
 }
 
 // Resident blocks per SM of the tensor-core kernel at these widths (bf16:
@@ -803,16 +1183,23 @@ extern "C" long long so3_ffn_words(int lmax, int C, int H, int Co, int G, int bf
 extern "C" int so3_ffn_residency(int lmax, int C, int H, int Co, int G, int bf16,
                                  int* smem_bytes, int* threads) {
   if (instance(lmax, C, H, Co, G, bf16) != 1) return -1;
-  const TcDims d = make_tc_dims(1, lmax, C, H, Co, G);
-  const size_t smem = bf16 ? tc_smem<singa::bf16>(d) : tc_smem(d);
-  *smem_bytes = (int)smem;
-  *threads = kThreads;
   int per_sm = 0;
-  const cudaError_t err =
-      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &per_sm, tc_kernel<singa::bf16>(C, d.I), kThreads, smem)
-           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tc_kernel(C, d.I), kThreads,
-                                                           smem);
+  cudaError_t err;
+  if (bf16) {
+    const bf::Dims d = bf::make_dims(1, lmax, C, H, Co, G);
+    const size_t smem = bf::smem_bytes(d);
+    *smem_bytes = (int)smem;
+    *threads = bf::kThreads;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bf::kernel_for(d), bf::kThreads,
+                                                        smem);
+  } else {
+    const TcDims d = make_tc_dims(1, lmax, C, H, Co, G);
+    const size_t smem = tc_smem(d);
+    *smem_bytes = (int)smem;
+    *threads = kThreads;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tc_kernel(C, d.I), kThreads,
+                                                        smem);
+  }
   return err == cudaSuccess ? per_sm : -1;
 }
 
@@ -820,11 +1207,12 @@ extern "C" int so3_ffn_residency(int lmax, int C, int H, int Co, int G, int bf16
 // as the TPU kernel casts them to x.dtype), else float32; the weights and
 // biases float32. Returns cudaErrorInvalidValue for shapes no kernel takes:
 // Co not a multiple of 4, lmax above 7, tiles whose shared memory exceeds
-// the card's, and at bfloat16 every shape the tensor-core kernel does not
-// take (lmax 7, C or Co above 16). The tensor-core kernel runs every shape
-// it takes (tc_takes), after the split kernel has written the weights into
-// wfrag (so3_ffn_words() words, 16-byte aligned); the CUDA-core instance
-// the others at float32.
+// the card's, and at bfloat16 every shape the bfloat16 kernel does not
+// take (lmax 7, C or Co above 16 or not a multiple of 4). The tensor-core
+// kernel runs every shape it takes (tc_takes), after the split kernel has
+// written the weights into wfrag (so3_ffn_words() words, 16-byte aligned);
+// the CUDA-core instance the others at float32; at bfloat16 the bfloat16
+// kernel (bf::takes) after its weight kernel has written wfrag.
 extern "C" int so3_ffn(const void* x, const float* w1, const float* b1, const float* wg,
                        const float* bg, const float* w2, const float* b2, const void* tg,
                        const void* fg, void* y, void* wfrag, int N, int lmax, int C, int H,
@@ -834,8 +1222,8 @@ extern "C" int so3_ffn(const void* x, const float* w1, const float* b1, const fl
   cudaStream_t st = (cudaStream_t)stream;
   using B = singa::bf16;
   if (which == 1 && bf16)
-    return tc_launch((const B*)x, w1, b1, wg, bg, w2, b2, (const B*)tg, (const B*)fg, (B*)y,
-                     wfrag, N, lmax, C, H, Co, G, st);
+    return bf::launch((const B*)x, w1, b1, wg, bg, w2, b2, (const B*)tg, (const B*)fg, (B*)y,
+                      wfrag, N, lmax, C, H, Co, G, st);
   if (which == 1)
     return tc_launch((const float*)x, w1, b1, wg, bg, w2, b2, (const float*)tg,
                      (const float*)fg, (float*)y, wfrag, N, lmax, C, H, Co, G, st);

@@ -34,6 +34,15 @@ factor, sums dk and dv in float32 and rounds them once; dqt and d
 diag_value come out bfloat16, d diag_scores and the weight gradients
 float32. ``dense_edge_attn_bf16_plain`` and ``dense_edge_attn_bf16_bwd_plain``
 are their plain twins (every column evaluated, one graph at a time).
+K8b·bf16 has two instances, chosen by shape before the launch
+(``bwd_bf16_instance``): its tensor-core kernels (``csrc/neighbor_attn_bwd.cu``,
+K1b·bf16's plan, pair and dk/dv kernels in their dense form: each live row's
+live columns whole in one tile of at most 128, the EdgeMLPs' products as
+one TF32 ``mma.sync`` each, with the dense form's roundings) wherever the
+lists' largest live count (``DenseLists.max_live``, read once when
+``live_columns`` builds them) is at most 128 at the encoder's widths, and
+its CUDA-core kernels (``csrc/encoder_attn.cuh``'s, on
+``csrc/dense_edge_attn_bwd.cu``) otherwise, or with ``cuda_cores``.
 """
 from __future__ import annotations
 
@@ -64,13 +73,16 @@ class DenseLists(NamedTuple):
     col_offsets: torch.Tensor  # [B*N + 1]: the pairs whose column is row j, ...
     col_pairs: torch.Tensor  # [E] ... at col_pairs[col_offsets[j]:col_offsets[j+1]], ascending
     row_order: torch.Tensor  # [B*N] rows by descending live count (stable), as the kernels go
+    max_live: int  # the largest live count of any row (0 for none): what picks K8b·bf16's kernels
 
 
 def live_columns(adj_dist: torch.Tensor) -> DenseLists:
     """The live pairs (adj_dist < BIG / 2) of every row, in row-major order,
     their CSR transpose (a stable sort of each pair's column as a flat row,
-    as ``transpose_slots`` sorts nbr), and the order in which the kernels'
-    blocks take the rows (a row's work grows with its live count)."""
+    as ``transpose_slots`` sorts nbr), the order in which the kernels'
+    blocks take the rows (a row's work grows with its live count), and the
+    largest live count, read once here (on the card one more host sync
+    beside ``nonzero``'s) so that no kernel call has to."""
     B, N, _ = adj_dist.shape
     live = (adj_dist < 0.5 * BIG).reshape(B * N, N)
     rows, cols = live.nonzero(as_tuple=True)
@@ -78,6 +90,7 @@ def live_columns(adj_dist: torch.Tensor) -> DenseLists:
     offsets = lambda counts: torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(
         torch.int32)
     counts = live.sum(1)
+    max_live = int(counts.max()) if counts.numel() else 0
     return DenseLists(
         row_offsets=offsets(counts),
         cols=cols.to(torch.int32),
@@ -85,6 +98,7 @@ def live_columns(adj_dist: torch.Tensor) -> DenseLists:
         col_offsets=offsets(torch.bincount(keys, minlength=B * N)),
         col_pairs=torch.sort(keys, stable=True).indices.to(torch.int32),
         row_order=torch.sort(counts, descending=True, stable=True).indices.to(torch.int32),
+        max_live=max_live,
     )
 
 
@@ -273,6 +287,54 @@ def _fn(bf16: bool = False):
     return fn
 
 
+# K8b·bf16's tensor-core kernels take the encoder's widths (kd, vd, De),
+# at most TC_MAX_HEADS heads, and lists whose every row fits one tile
+TC_WIDTHS = (32, 64, 64)
+TC_MAX_HEADS = 4
+TC_MAX_LIVE = 128
+
+
+def bwd_bf16_instance(max_live: int, H: int, kd: int, vd: int, De: int,
+                      cuda_cores: bool = False) -> str:
+    """Which of K8b·bf16's instances a call runs, by shape, before the
+    launch: "tensor_cores" (``csrc/neighbor_attn_bwd.cu``'s list kernels in
+    their dense form) at the encoder's widths, H <= 4 and lists whose
+    largest live count (``DenseLists.max_live``) is at most 128, so that
+    every live row sits whole in one tile; else, or with ``cuda_cores``,
+    "cuda_cores" (``csrc/encoder_attn.cuh``'s dense kernels). Nothing is
+    retried after a failure."""
+    takes = ((kd, vd, De) == TC_WIDTHS and 1 <= H <= TC_MAX_HEADS
+             and 0 <= max_live <= TC_MAX_LIVE)
+    return "tensor_cores" if takes and not cuda_cores else "cuda_cores"
+
+
+def _bwd_tc_fns():
+    """(blocks, launch) of K8b·bf16's tensor-core entry points."""
+    lib = build.load("neighbor_attn_bwd")
+    blocks = lib.dense_edge_attn_bwd_tc_blocks
+    blocks.argtypes = [ctypes.c_int] * 7
+    blocks.restype = ctypes.c_int
+    fn = lib.dense_edge_attn_bwd_tc
+    fn.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_float] + [ctypes.c_void_p] * 21
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    )
+    fn.restype = ctypes.c_int
+    return blocks, fn
+
+
+def bwd_tc_residency() -> dict:
+    """K8b·bf16's tensor-core pair kernel: resident blocks per SM (-1:
+    refused), threads and dynamic shared memory per block. For reports;
+    launches nothing."""
+    fn = build.load("neighbor_attn_bwd").dense_edge_attn_bwd_tc_residency
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    per_sm = fn(ctypes.byref(smem), ctypes.byref(threads))
+    return {"blocks_per_sm": per_sm, "threads": threads.value, "smem_bytes": smem.value}
+
+
 def _bwd_fns(bf16: bool = False):
     lib = build.load("dense_edge_attn_bwd")
     blocks = lib.dense_edge_attn_bwd_blocks
@@ -316,9 +378,9 @@ def _check_args(qt, k, v, adj_dist, diag_scores, diag_value,
 
 
 def _aligned(tensors, lists):
-    """``build.aligned`` of each tensor and of each of the lists."""
+    """``build.aligned`` of each tensor and of each of the lists' tensors."""
     return ([build.aligned(t) for t in tensors],
-            DenseLists(*(build.aligned(t) for t in lists)))
+            DenseLists(*(build.aligned(t) for t in lists[:6]), lists.max_live))
 
 
 def dense_edge_attn_cuda(
@@ -349,12 +411,19 @@ def dense_edge_attn_cuda(
     return out
 
 
-def dense_edge_attn_bwd_cuda(*args, lists):
-    """The K8b kernels (at a bfloat16 qt its bfloat16 instance); arguments
-    and result as ``dense_edge_attn_bwd_plain``, plus ``lists =
+def dense_edge_attn_bwd_cuda(*args, lists, cuda_cores: bool = False, stats=None):
+    """The K8b kernels (at a bfloat16 qt its bfloat16 instance, whose
+    kernels ``bwd_bf16_instance`` picks by shape: its tensor-core ones, or
+    ``cuda_cores`` its CUDA-core ones at any shape, to time the two);
+    arguments and result as ``dense_edge_attn_bwd_plain``, plus ``lists =
     live_columns(adj_dist)``. Scratch: the four numbers per live pair that
     the dk/dv gather reads, [E, kd + vd + 2H] floats, and per graph v's
-    column sums and the closed-form rows' cotangent sum."""
+    column sums and the closed-form rows' cotangent sum (the tensor-core
+    kernels: each row's plan too). ``stats``: None, or an int32 tensor [5]
+    of zeros on the card, to which the tensor-core kernels add what they
+    walked: rows skipped for a zero cotangent, rows taken with their live
+    columns, (row, head) pairs whose max would leave a dead column a weight
+    (none on any real input), live pairs evaluated, rows in closed form."""
     global launches_bwd, launches_bwd_bf16
     *inputs, coeff, g = args
     B, N, H, kd, vd, De, lists = _check_args(*inputs, lists)
@@ -363,6 +432,8 @@ def dense_edge_attn_bwd_cuda(*args, lists):
     f32 = torch.float32
     bf16 = qt.dtype == torch.bfloat16
     build.require(g, "g", (B, N, H * vd), qt.dtype, dev)
+    if stats is not None:
+        build.require(stats, "stats", (5,), torch.int32, dev)
     (*inputs, g), lists = _aligned((*inputs, g), lists)
     empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     act = lambda *shape: torch.empty(shape, dtype=qt.dtype, device=dev)
@@ -370,7 +441,31 @@ def dense_edge_attn_bwd_cuda(*args, lists):
     dv, dds, ddv = act(B, N, H * vd), empty(B, N, H), act(B, N, H * vd)
     sizes = (De * kd, kd, kd * kd, kd, De * vd, vd, vd * vd, vd)
     grads = torch.zeros(sum(sizes), dtype=f32, device=dev)
-    if B * N:
+    tc = bf16 and bwd_bf16_instance(lists.max_live, H, kd, vd, De, cuda_cores) == "tensor_cores"
+    if B * N and tc:
+        blocks_fn, fn = _bwd_tc_fns()
+        blocks = blocks_fn(B, N, H, kd, vd, De, lists.max_live)
+        if blocks < 1:
+            raise ValueError(f"dense_edge_attn backward tensor-core kernels: shapes "
+                             f"{(H, kd, vd, De)} or largest live count {lists.max_live} "
+                             "not supported")
+        E = lists.cols.shape[0]
+        scratch = (empty(E, kd), empty(E, vd), empty(E, H), empty(E, H), empty(B * N, H),
+                   empty(B, H * vd), empty(B, H * vd),
+                   torch.empty(B * N, dtype=torch.int32, device=dev),
+                   empty(blocks + 1, sum(sizes)))
+        status = fn(
+            *(t.data_ptr() for t in inputs), float(coeff), g.data_ptr(),
+            lists.row_offsets.data_ptr(), lists.cols.data_ptr(), lists.pair_rows.data_ptr(),
+            lists.col_offsets.data_ptr(), lists.col_pairs.data_ptr(),
+            dqt.data_ptr(), dk.data_ptr(), dv.data_ptr(), dds.data_ptr(), ddv.data_ptr(),
+            *(t.data_ptr() for t in scratch), grads.data_ptr(),
+            B, N, H, kd, vd, De, lists.max_live, blocks,
+            None if stats is None else stats.data_ptr(), build.stream_ptr(qt),
+        )
+        build.check(status, "dense_edge_attn_bwd")
+        launches_bwd_bf16 += 1
+    elif B * N:
         blocks_fn, fn = _bwd_fns(bf16)
         blocks = blocks_fn(B, N, H, kd, vd, De, int(bf16))
         if blocks < 1:
@@ -415,16 +510,17 @@ def residency(N: int, H: int, kd: int, vd: int, De: int, bf16: bool = False) -> 
 
 class DenseEdgeAttn(torch.autograd.Function):
     """K8 forward and K8b backward. ``ctx`` keeps the inputs only, as
-    ``_dfwd`` does; the backward recomputes every pair tensor. The last six
-    arguments are the live lists (None on CPU tensors)."""
+    ``_dfwd`` does; the backward recomputes every pair tensor. The last
+    seven arguments are the live lists (None on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, *args):
-        *inputs, coeff = args[:-6]
-        lists = args[-6:]
+        *inputs, coeff = args[:-7]
+        lists = args[-7:]
         ctx.coeff = coeff
         ctx.on_cpu = inputs[0].device.type == "cpu"
-        ctx.save_for_backward(*inputs, *(() if ctx.on_cpu else lists))
+        ctx.max_live = lists[6]
+        ctx.save_for_backward(*inputs, *(() if ctx.on_cpu else lists[:6]))
         if ctx.on_cpu:
             return dense_edge_attn_plain(*inputs, coeff)
         return dense_edge_attn_cuda(*inputs, coeff, lists=lists)
@@ -432,7 +528,7 @@ class DenseEdgeAttn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        inputs, lists = saved[:15], saved[15:]
+        inputs, lists = saved[:15], DenseLists(*saved[15:], ctx.max_live) if saved[15:] else None
         args = (*inputs, ctx.coeff, g.contiguous())
         if ctx.on_cpu:
             grads = dense_edge_attn_bwd_plain(*args)
@@ -440,7 +536,7 @@ class DenseEdgeAttn(torch.autograd.Function):
             grads = dense_edge_attn_bwd_cuda(*args, lists=lists)
         dqt, dk, dv, dds, ddv, *wgrads = grads
         # adj_dist, centers, coeff and the lists get none, as in the JAX _dbwd
-        return (dqt, dk, dv, None, dds, ddv, None, *wgrads, None, *(None,) * 6)
+        return (dqt, dk, dv, None, dds, ddv, None, *wgrads, None, *(None,) * 7)
 
 
 def dense_edge_attn(
@@ -454,7 +550,7 @@ def dense_edge_attn(
     if qt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dense_edge_attn runs on cpu or cuda, not {qt.device}")
     if qt.device.type == "cpu":
-        lists = (None,) * 6
+        lists = (None,) * 7
     elif lists is None:
         lists = live_columns(adj_dist)
     return DenseEdgeAttn.apply(qt, k, v, adj_dist, diag_scores, diag_value,

@@ -60,12 +60,13 @@ K4 and K4b have bfloat16 instances too, at a bfloat16 x, dy and grid
 matrices (as the module passes them, and the Pallas kernel casts them to
 x.dtype), y and dx bfloat16, the weights and biases and the six weight
 and bias gradients float32, counted in ``launches_s2_bf16`` and
-``launches_s2_bwd_bf16``: K4's tensor-core kernel and weight split at
-bfloat16 storage, one TF32 product where float32 takes three, and K4b's
-bfloat16 kernel (``ffn_bwd_bf16_kernel``: its grid chain on bfloat16
-m16n8k16 ``mma.sync``, no barrier inside it), at the widths K4's
-tensor-core kernel takes (lmax 1..6, C and Co up to 16); no CUDA-core
-instance runs bfloat16, so any other width raises.
+``launches_s2_bwd_bf16``: K4's bfloat16 kernel and its weight kernel
+(``ffn_fwd_bf16_kernel``, ``ffn_wfrag_bf16_kernel``: h, the grid chain and
+y on bfloat16 m16n8k16 ``mma.sync``, no barrier inside the chain) and
+K4b's (``ffn_bwd_bf16_kernel``: its grid chain on bfloat16 m16n8k16
+``mma.sync``, no barrier inside it), at lmax 1..6 and C, Co multiples of
+4 up to 16; no CUDA-core instance runs bfloat16, so any other width
+raises.
 They round where ``_ffn_fwd_kernel`` and ``_ffn_bwd_kernel`` round:
 ``so3_ffn_bf16_plain`` and ``so3_ffn_bf16_bwd_plain`` are their plain
 twins (``s2_bf16_takes`` says which widths, for the trainer's choice of
@@ -616,8 +617,8 @@ def so3_ffn_cuda(x, w1, b1, wg, bg, w2, b2, to_grid, from_grid, lmax: int) -> to
     bf16 = int(x.dtype == torch.bfloat16)
     words_fn, fn = _s2_fns()
     # the tensor-core kernel's weights, split into TF32 fragments once a call
-    # (at bfloat16 their hi alone; none for the CUDA-core instance; -1: a
-    # shape no kernel takes, which the launch refuses)
+    # (at bfloat16 rounded into m16n8k16 fragments; none for the CUDA-core
+    # instance; -1: a shape no kernel takes, which the launch refuses)
     wfrag = torch.empty(max(words_fn(lmax, C, H, Co, G, bf16), 4), dtype=torch.int32,
                         device=x.device)
     status = fn(

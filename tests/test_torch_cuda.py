@@ -1740,9 +1740,10 @@ def test_so3_ffn_bf16_instance_by_width(dev, lmax, N, H, C, Co):
     """K4's and K4b's bfloat16 instances against their bfloat16 twins
     (``BF16_TOL`` of each output's largest; y and dx bfloat16, the six
     weight and bias gradients float32), and which kernels ran: K4's
-    tensor-core kernel and weight split at bfloat16, K4b's kernel at
-    bfloat16 and the sums' second pass, never the CUDA-core instance; one
-    bfloat16 launch a call, none of the float32 counters."""
+    bfloat16 kernel and its weight kernel, K4b's kernel at bfloat16 and
+    the sums' second pass, never the CUDA-core instance nor K4's float32
+    tensor-core kernel; one bfloat16 launch a call, none of the float32
+    counters."""
     from singa_tpu_torch.ops.cuda import so3_ffn as k4
 
     args, bwd_args = _s2_ffn_bf16_case(dev, lmax, N, H, C, Co, 131 + N)
@@ -1759,8 +1760,9 @@ def test_so3_ffn_bf16_instance_by_width(dev, lmax, N, H, C, Co):
     assert (k4.launches_s2, k4.launches_s2_bwd, k4.launches_s2_bf16,
             k4.launches_s2_bwd_bf16) == (n[0], n[1], n[2] + calls, n[3] + bcalls)
     ran = [m for m in names if "ffn_" in m]
-    assert len(ran) == 2 and all("bfloat16" in m for m in ran), ran
-    assert any("ffn_tc_kernel<" in m for m in ran) and any("ffn_wsplit_kernel<" in m for m in ran)
+    assert len(ran) == 2, ran
+    assert any("ffn_fwd_bf16_kernel<" in m for m in ran) and any(
+        "ffn_wfrag_bf16_kernel" in m for m in ran), ran
     bran = [m for m in bnames if "ffn_bwd_" in m]
     assert len(bran) == 1 and "ffn_bwd_bf16_kernel<" in bran[0], bnames
     assert [m for m in names + bnames if "ffn_cc_kernel" in m] == []
@@ -1802,9 +1804,11 @@ def test_so3_ffn_bf16_refuses_widths_it_does_not_take(dev):
 @pytest.mark.cuda
 def test_so3_ffn_bf16_residency(dev):
     """K4's and K4b's bfloat16 kernels at the s2 microbatch's widths (lmax
-    6, C = Co = 16, H 512, G 210): one block an SM of 256 and 512 threads;
-    K4's in less shared memory than its float32 kernel (its weights' hi
-    planes alone), K4b's in 221,056 bytes (tg, fg, h^T and dmid^T as
+    6, C = Co = 16, H 512, G 210): one block an SM of 512 threads each;
+    K4's in 140,288 bytes (two chunks' weights, the halves' exchange, the
+    gates, row 48's y sums, b2 and the degrees as float32 words, 44,640 B;
+    tg, fg, h, x and mid as bfloat16, 95,648 B), less than its float32
+    kernel, K4b's in 221,056 bytes (tg, fg, h^T and dmid^T as
     bfloat16 [*][56], 78,848 B; x, dy, mid, dh, the weights and the sums of
     a 32-channel chunk as float32, 142,208 B); lmax 7 refused at bfloat16;
     the float32 kernels' residency unchanged."""
@@ -1813,7 +1817,7 @@ def test_so3_ffn_bf16_residency(dev):
     widths = (6, 16, 512, 16, 210)
     fwd, fwd32 = k4.s2_fwd_residency(*widths, bf16=True), k4.s2_fwd_residency(*widths)
     bwd, bwd32 = k4.s2_bwd_residency(*widths, bf16=True), k4.s2_bwd_residency(*widths)
-    assert fwd["blocks_per_sm"] == 1 and fwd["threads"] == 256, fwd
+    assert fwd == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 140288}, fwd
     assert fwd["smem_bytes"] < fwd32["smem_bytes"], (fwd, fwd32)
     assert bwd32 == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 225792}, bwd32
     assert bwd == {"blocks_per_sm": 1, "threads": 512, "smem_bytes": 221056}, bwd
@@ -1837,8 +1841,8 @@ def test_so3_ffn_bf16_takes_misaligned_inputs(dev):
     grads, bnames, _ = _kernels_run(
         functools.partial(k4.so3_ffn_bwd_cuda, *[_misaligned(a) for a in bwd_args]))
     _check_bf16(grads, k4.so3_ffn_bwd_plain(*bwd_args), K4_NAMES)
-    ran = [m for m in names + bnames if "ffn_tc_kernel<" in m or "ffn_bwd_" in m]
-    assert len(ran) == 2 and all("bfloat16" in m for m in ran), names + bnames
+    ran = [m for m in names + bnames if "ffn_fwd_bf16_kernel<" in m or "ffn_bwd_" in m]
+    assert len(ran) == 2, names + bnames
     assert any("ffn_bwd_bf16_kernel<" in m for m in ran), ran
 
 
@@ -1876,6 +1880,75 @@ def test_so3_ffn_bwd_bf16_mma_chain_by_width(dev, lmax, N, H, C, Co):
     assert len(ran) == 1 and "ffn_bwd_bf16_kernel<" in ran[0], names
 
 
+# K4·bf16's kernel at the widths it takes (lmax, N, H, C, Co): lmax 6, 4 and
+# 1 (I 49 with row 48 apart, 25, 4), C = Co of 4, 8 and 16 (x in 8-byte
+# pieces at 4), node counts no multiple of its 8-node tile, hidden widths
+# no multiple of its 16-channel chunk
+K4_BF16_MMA_WIDTHS = [(6, 13, 72, 16, 16), (6, 21, 40, 8, 8), (6, 5, 24, 4, 4),
+                      (4, 11, 48, 16, 16), (4, 9, 56, 8, 8), (4, 19, 32, 4, 4),
+                      (1, 7, 40, 16, 16), (1, 3, 24, 8, 8), (1, 17, 16, 4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,N,H,C,Co", K4_BF16_MMA_WIDTHS)
+def test_so3_ffn_fwd_bf16_mma_by_width(dev, lmax, N, H, C, Co):
+    """K4·bf16 (``ffn_fwd_bf16_kernel``: h, the grid transforms and y on
+    bfloat16 m16n8k16 mma.sync) against ``so3_ffn_bf16_plain`` within
+    ``BF16_TOL`` of y's largest, its kernel and weight kernel launched
+    once a call."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    args, _ = _s2_ffn_bf16_case(dev, lmax, N, H, C, Co, 151 + 5 * lmax + N)
+    want = k4.so3_ffn_plain(*args, lmax)
+    n = (k4.launches_s2, k4.launches_s2_bf16)
+    got, names, calls = _kernels_run(functools.partial(k4.so3_ffn_cuda, *args, lmax))
+    _check_bf16([got], [want], ["y"])
+    assert (k4.launches_s2, k4.launches_s2_bf16) == (n[0], n[1] + calls)
+    for kernel in ("ffn_fwd_bf16_kernel<", "ffn_wfrag_bf16_kernel"):
+        assert len([m for m in names if kernel in m]) == 1, (kernel, names)
+
+
+def _so3_ffn_bf16_float64(x, w1, b1, wg, bg, w2, b2, tg, fg, lmax):
+    """``so3_ffn_bf16_plain``'s function with every sum in float64: each
+    value rounded to bfloat16 where the Pallas kernel rounds (from float64
+    through float32), nothing else rounded."""
+    from singa_tpu_torch.dtypes import rounded
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    bf, d = torch.bfloat16, torch.float64
+    r = lambda t: rounded(t.float(), bf).to(d)
+    l_of = k4._l_of(lmax, x.device)
+    xd, tgd, fgd = x.to(d), r(tg), r(fg)
+    gate = r(torch.nn.functional.silu(xd[:, 0, :] @ r(wg) + bg.to(d)))
+    h = torch.einsum("nic,ich->nih", xd, r(w1).index_select(0, l_of))
+    h = r(torch.cat([h[:, :1] + b1.to(d), h[:, 1:]], dim=1))
+    act = r(torch.nn.functional.silu(torch.einsum("gi,nih->ngh", tgd, h)))
+    mid = torch.einsum("gi,ngh->nih", fgd, act)
+    mid = r(torch.cat([gate[:, None, :], mid[:, 1:]], dim=1))
+    y = torch.einsum("nih,iho->nio", mid, r(w2).index_select(0, l_of))
+    return torch.cat([y[:, :1] + b2.to(d), y[:, 1:]], dim=1).float().to(bf)
+
+
+@pytest.mark.cuda
+def test_so3_ffn_fwd_bf16_flips_no_more_than_its_twin(dev):
+    """K4·bf16 (its products on bfloat16 m16n8k16, sums in another order)
+    at the s2 microbatch's widths against a float64 rendering of its
+    function (``_so3_ffn_bf16_float64``): the share of y's elements a
+    bfloat16 step away from it is at most twice its float32 twin's plus
+    0.1 % (a sum of another order flips a rounding on a boundary; an
+    error in the arithmetic would flip many), and each is within
+    ``BF16_TOL`` of y's largest."""
+    from singa_tpu_torch.ops.cuda import so3_ffn as k4
+
+    args, _ = _s2_ffn_bf16_case(dev, 6, 2003, 512, 16, 16, 173)
+    want = _so3_ffn_bf16_float64(*args, 6)
+    got, twin = k4.so3_ffn_cuda(*args, 6), k4.so3_ffn_plain(*args, 6)
+    torch.cuda.synchronize()
+    share = lambda a: (a != want).float().mean().item()
+    assert share(got) <= 2 * share(twin) + 1e-3, (share(got), share(twin))
+    _check_bf16([got, twin], [want, want], ["y", "y (twin)"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ta,tb", [(0, 0), (1, 0), (0, 1), (1, 1)])
 def test_mma_bf16_tile_matches_float64(dev, ta, tb):
@@ -1908,10 +1981,11 @@ def test_mma_bf16_tile_matches_float64(dev, ta, tb):
 
 @pytest.mark.cuda
 def test_bf16_kernels_issue_bf16_mma_in_sass(dev):
-    """``tools/sass_mma.py``'s checks: K4b·bf16's kernel and the bfloat16
-    GEMM of K6·bf16 and K6b·bf16 issue ``HMMA.16816.F32.BF16`` and no TF32
-    HMMA, K6's bfloat16 grid stages TF32 HMMA, the float32 GEMM no bfloat16
-    one (cuobjdump -sass of the built libraries)."""
+    """``tools/sass_mma.py``'s checks: K4·bf16's and K4b·bf16's kernels and
+    the bfloat16 GEMM of K6·bf16 and K6b·bf16 issue ``HMMA.16816.F32.BF16``
+    and no TF32 HMMA, K6's bfloat16 grid stages and K8b·bf16's tensor-core
+    pair kernel TF32 HMMA, the float32 GEMM no bfloat16 one (cuobjdump
+    -sass of the built libraries)."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
@@ -2648,8 +2722,12 @@ def test_dense_edge_attn_bf16_instance_matches_its_twin(dev, B, N, knn, ring, pa
     backward on K8's cases (an overflow row over a tile, padded rows in
     closed form, an isolated real row, an all-padded graph): their kernels
     at bfloat16 storage, counted in ``launches_bf16`` / ``launches_bwd_bf16``,
-    the float32 counters untouched; their residency that of the float32
-    kernels (the same shared memory: every buffer float32)."""
+    the float32 counters untouched; K8b·bf16 on the kernels
+    ``bwd_bf16_instance`` picks by shape (the list kernels' dense form on
+    the tensor cores where every row fits a tile, else the CUDA-core
+    ones), and on its CUDA-core kernels under ``cuda_cores=True``; their
+    residency that of the float32 kernels (the same shared memory: every
+    buffer float32)."""
     from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
 
     _, args, g, _ = _hub_graph(dev, B, N, knn, ring, 109 + N, pad)
@@ -2662,20 +2740,110 @@ def test_dense_edge_attn_bf16_instance_matches_its_twin(dev, B, N, knn, ring, pa
     n = (k8.launches_bf16, k8.launches_bwd_bf16)
     got, names, calls = _kernels_run(functools.partial(k8.dense_edge_attn_cuda, *args,
                                                        lists=lists))
-    grads, names_b, calls_b = _kernels_run(functools.partial(k8.dense_edge_attn_bwd_cuda, *args,
-                                                             g, lists=lists))
     _check_bf16([got], [want], ["out"])
-    _check_bf16(grads, want_g, BWD_NAMES)
-    assert (k8.launches_bf16, k8.launches_bwd_bf16) == (n[0] + calls, n[1] + calls_b)
+    hits = [m for m in names if "attn_fwd_kernel" in m]
+    assert len(hits) == 1 and "bfloat16" in hits[0], names
+    tc_kernels = ("list_bwd_pair_kernel<2", "list_dkdv_kernel<2", "dense_plan_kernel")
+    cc_kernels = ("attn_bwd_pair_kernel<2", "csr_dkdv_kernel<2")
+    for cuda_cores in (False, True):
+        inst = k8.bwd_bf16_instance(lists.max_live, 4, 32, 64, 64, cuda_cores=cuda_cores)
+        assert inst == ("cuda_cores" if cuda_cores or lists.max_live > 128 else "tensor_cores")
+        nb = k8.launches_bwd_bf16
+        grads, names_b, calls_b = _kernels_run(functools.partial(
+            k8.dense_edge_attn_bwd_cuda, *args, g, lists=lists, cuda_cores=cuda_cores))
+        _check_bf16(grads, want_g, BWD_NAMES)
+        assert k8.launches_bwd_bf16 == nb + calls_b
+        ran, not_ran = ((tc_kernels, cc_kernels) if inst == "tensor_cores"
+                        else (cc_kernels, tc_kernels))
+        for kernel in ran:
+            hits = [m for m in names_b if kernel in m]
+            assert len(hits) == 1 and "bfloat16" in hits[0], (kernel, names_b)
+        assert not [m for m in names_b if any(k in m for k in not_ran)], (inst, names_b)
+    assert k8.launches_bf16 == n[0] + calls
     assert (k8.launches, k8.launches_bwd) == f32
-    for kernel, ran in (("attn_fwd_kernel", names), ("attn_bwd_pair_kernel", names_b),
-                        ("csr_dkdv_kernel", names_b)):
-        hits = [m for m in ran if kernel in m]
-        assert len(hits) == 1 and "bfloat16" in hits[0], (kernel, ran)
     res, res16 = k8.residency(N, 4, 32, 64, 64), k8.residency(N, 4, 32, 64, 64, bf16=True)
     for key in ("fwd", "bwd"):
         assert res16[key]["smem_bytes"] == res[key]["smem_bytes"] and res16[key]["tile"] == res[
             key]["tile"] and res16[key]["blocks_per_sm"] >= 1, (res, res16)
+
+
+# K8b·bf16's tensor-core cases (B, N, knn, ring, padded nodes of the last
+# graph): padded rows, half of them with a zero cotangent (skipped) and half
+# with a random one (closed form); an isolated real row (one real node
+# left: closed form); an all-padded graph; a ring whose rows carry many live
+# columns. Every case also has a real row with live columns and a zero
+# cotangent (skipped, its live pairs sending nothing).
+DENSE_TC_CASES = [(2, 40, 4, 0, 8), (2, 12, 3, 0, 11), (3, 12, 3, 0, 12), (2, 100, 6, 20, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,knn,ring,pad", DENSE_TC_CASES)
+def test_dense_edge_attn_bwd_bf16_tensor_cores_walks(dev, B, N, knn, ring, pad):
+    """K8b·bf16 on its tensor-core kernels (``list_bwd_pair_kernel`` and
+    ``list_dkdv_kernel`` in their dense form, ``dense_plan_kernel``)
+    against its bfloat16 twin within ``BF16_TOL``, and what the pair
+    kernel walked, as it counts it (``stats``): the rows skipped for a zero
+    cotangent, the rows taken with their live columns and their live pairs,
+    the rows taken in closed form (no live column, a cotangent), and no
+    (row, head) whose max would leave a dead column a weight."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    _, args, g, _ = _hub_graph(dev, B, N, knn, ring, 211 + N + pad, pad)
+    args = _bf16(args, (0, 1, 2, 5))
+    g = g.to(torch.bfloat16)
+    g[-1, N - pad::2] = 0  # every other padded row: skipped
+    g[0, 1] = 0  # a real row with live columns: skipped
+    lists = k8.live_columns(args[3])
+    counts = (lists.row_offsets[1:] - lists.row_offsets[:-1]).cpu()
+    assert int(counts[1]) > 0 and lists.max_live <= 128
+    assert k8.bwd_bf16_instance(lists.max_live, 4, 32, 64, 64) == "tensor_cores"
+    want_g = k8.dense_edge_attn_bwd_plain(*args, g)
+    stats = torch.zeros(5, dtype=torch.int32, device=dev)
+    grads, names, _ = _kernels_run(functools.partial(
+        _with_stats, k8.dense_edge_attn_bwd_cuda, stats, *args, g, lists=lists))
+    _check_bf16(grads, want_g, BWD_NAMES)
+    for kernel in ("list_bwd_pair_kernel<2", "list_dkdv_kernel<2", "dense_plan_kernel"):
+        assert len([m for m in names if kernel in m]) == 1, (kernel, names)
+    zero = (g.reshape(B * N, -1) == 0).all(-1).cpu()
+    live = ~zero & (counts > 0)
+    want = [int(zero.sum()), int(live.sum()), 0, int(counts[live].sum()),
+            int((~zero & (counts == 0)).sum())]
+    assert stats.tolist() == want, (stats.tolist(), want)
+    assert want[0] >= 2 and want[4] >= 1, want
+
+
+@pytest.mark.cuda
+def test_dense_edge_attn_bwd_bf16_hub_row_runs_cuda_cores(dev):
+    """A graph with a hub row live to more than 128 columns (over the
+    tensor-core kernels' one tile a row): K8b·bf16 runs its CUDA-core
+    kernels (``encoder_attn.cuh``'s dense pair kernel and dk/dv gather at
+    bfloat16), chosen by shape before the launch, and matches its twin
+    within ``BF16_TOL``; the same rows without the hub take the tensor
+    cores."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    _, args, g, _ = _hub_graph(dev, 2, 200, 48, 150, 307)
+    args = _bf16(args, (0, 1, 2, 5))
+    g = g.to(torch.bfloat16)
+    lists = k8.live_columns(args[3])
+    assert lists.max_live > 128
+    assert k8.bwd_bf16_instance(lists.max_live, 4, 32, 64, 64) == "cuda_cores"
+    grads, names, _ = _kernels_run(functools.partial(k8.dense_edge_attn_bwd_cuda, *args, g,
+                                                     lists=lists))
+    _check_bf16(grads, k8.dense_edge_attn_bwd_plain(*args, g), BWD_NAMES)
+    hits = [m for m in names if "attn_bwd_pair_kernel<2" in m]
+    assert len(hits) == 1 and "bfloat16" in hits[0], names
+    assert not [m for m in names if "list_bwd_pair_kernel" in m], names
+    # the hub cut off: its row and column dead
+    adj = args[3].clone()
+    adj[0, 0, :] = adj[0, :, 0] = k8.BIG
+    cut = [*args[:3], adj, *args[4:]]
+    lists = k8.live_columns(adj)
+    assert lists.max_live <= 128
+    grads, names, _ = _kernels_run(functools.partial(k8.dense_edge_attn_bwd_cuda, *cut, g,
+                                                     lists=lists))
+    _check_bf16(grads, k8.dense_edge_attn_bwd_plain(*cut, g), BWD_NAMES)
+    assert len([m for m in names if "list_bwd_pair_kernel<2" in m]) == 1, names
 
 
 @pytest.mark.cuda

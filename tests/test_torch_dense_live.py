@@ -278,14 +278,15 @@ def test_live_columns_match_adj_dist(name):
     """Every live pair of adj_dist once, in row-major order (ascending
     columns within a row), with its row; counts as row offsets; the
     transpose lists, for each row j, the pairs whose column is j, ascending;
-    the rows in the kernels' order: by descending live count, ties by index."""
+    the rows in the kernels' order: by descending live count, ties by index;
+    the largest live count as a Python int."""
     from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
 
     arrays, _ = _inputs(name)
     adj = arrays[3]
     B, N, _ = adj.shape
     lists = k8.live_columns(t(adj))
-    assert all(x.dtype == torch.int32 for x in lists)
+    assert all(x.dtype == torch.int32 for x in lists[:6])
     live = (adj < 5e8).reshape(B * N, N)
     pairs = [(r, c) for r in range(B * N) for c in range(N) if live[r, c]]
     got = list(zip(lists.pair_rows.tolist(), lists.cols.tolist()))
@@ -300,6 +301,7 @@ def test_live_columns_match_adj_dist(name):
     counts = live.sum(1)
     want_order = sorted(range(B * N), key=lambda r: (-counts[r], r))
     assert lists.row_order.tolist() == want_order
+    assert type(lists.max_live) is int and lists.max_live == int(counts.max())
 
 
 def test_build_neighbor_graph_carries_live_lists():
@@ -316,9 +318,69 @@ def test_build_neighbor_graph_carries_live_lists():
     mask[1, -6:] = False
     g = build_neighbor_graph(t(pos), t(mask), 3, 15.0, 8, with_adj_dist=True)
     want = k8.live_columns(g.adj_dist)
-    for a, b in zip(g.dense_lists, want):
+    for a, b in zip(g.dense_lists[:6], want[:6]):
         assert torch.equal(a, b)
+    assert g.dense_lists.max_live == want.max_live
     counts = (g.dense_lists.row_offsets[1:] - g.dense_lists.row_offsets[:-1])
     assert int(counts.max()) > g.nbr.shape[2]  # beyond the K of the lists
     assert int(counts[30 + 24:].sum()) == 0  # padded rows: no live column
     assert build_neighbor_graph(t(pos), t(mask), 3, 15.0, 8).dense_lists is None
+
+
+def _hub_adj(B: int, N: int, hub: int, seed: int) -> np.ndarray:
+    """adj_dist of B graphs of N nodes: a sparse random symmetric adjacency,
+    the last graph's last three nodes padded (no live column), and, where
+    ``hub`` > 0, row 0 of graph 0 live to its first ``hub`` columns (and
+    they to it)."""
+    rng = np.random.default_rng(seed)
+    live = rng.random((B, N, N)) < 0.05
+    live |= live.transpose(0, 2, 1)
+    if hub:
+        live[0, 0, 1:hub + 1] = live[0, 1:hub + 1, 0] = True
+    live[:, np.arange(N), np.arange(N)] = False
+    live[-1, -3:, :] = live[-1, :, -3:] = False
+    dist = rng.uniform(0.5, 9.0, size=(B, N, N)).astype(np.float32)
+    return np.where(live, dist, 1e9).astype(np.float32)
+
+
+@pytest.mark.parametrize("hub", [0, 140])
+def test_live_columns_record_largest_live_count(hub):
+    """live_columns records the largest live count of any row once, when it
+    builds the lists: on graphs whose rows all stay below K8b·bf16's tile
+    of 128, and on one with a hub row live to 140 columns or more (the
+    largest);
+    an all-padded batch records 0."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    adj = _hub_adj(2, 200, hub, 31 + hub)
+    lists = k8.live_columns(t(adj))
+    counts = (adj < 5e8).sum(-1)
+    assert lists.max_live == int(counts.max())
+    assert (lists.max_live == int(counts[0, 0]) >= hub) if hub else (0 < lists.max_live < 128)
+    assert int((lists.row_offsets[1:] - lists.row_offsets[:-1]).max()) == lists.max_live
+    assert k8.live_columns(t(np.full((1, 5, 5), 1e9, np.float32))).max_live == 0
+
+
+@pytest.mark.parametrize("max_live,widths,cuda_cores,want", [
+    (0, (4, 32, 64, 64), False, "tensor_cores"),  # every row in closed form or skipped
+    (111, (4, 32, 64, 64), False, "tensor_cores"),  # the corpus's largest row
+    (128, (4, 32, 64, 64), False, "tensor_cores"),  # a row that fills a tile
+    (129, (4, 32, 64, 64), False, "cuda_cores"),  # a hub row over one tile
+    (383, (4, 32, 64, 64), False, "cuda_cores"),
+    (111, (1, 32, 64, 64), False, "tensor_cores"),
+    (111, (8, 16, 32, 64), False, "cuda_cores"),  # 8 heads at other widths
+    (111, (4, 64, 64, 64), False, "cuda_cores"),  # kd 64
+    (111, (4, 32, 128, 64), False, "cuda_cores"),  # vd 128
+    (111, (4, 32, 64, 32), False, "cuda_cores"),  # De 32
+    (111, (5, 32, 64, 64), False, "cuda_cores"),  # five heads
+    (111, (4, 32, 64, 64), True, "cuda_cores"),  # asked for
+])
+def test_bwd_bf16_instance_by_shape(max_live, widths, cuda_cores, want):
+    """The rule that picks K8b·bf16's kernels before the launch: its
+    tensor-core ones at the encoder's widths (kd 32, vd 64, De 64), at most
+    four heads and lists whose rows each fit one 128-slot tile, else (or
+    asked for) its CUDA-core ones."""
+    from singa_tpu_torch.ops.cuda import dense_edge_attn as k8
+
+    H, kd, vd, De = widths
+    assert k8.bwd_bf16_instance(max_live, H, kd, vd, De, cuda_cores=cuda_cores) == want

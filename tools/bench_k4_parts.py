@@ -15,7 +15,8 @@ lists (``final``: the sources as they are): K4b without its grid chain
 (the four sphere-grid transforms on the tensor cores: at float32
 ``grid_chain_tc``, at bfloat16 ``grid_chain_mma16_bwd``), without the
 weight-gradient sums, without dx, without the chain and the sums; K4
-without its chain. Every variant is built at once, one nvcc each, then
+without its chain (at float32 ``grid_chain_tc_fwd``, at bfloat16
+``grid_chain_mma16_fwd``). Every variant is built at once, one nvcc each, then
 each is run in a process of its own; each call is timed by CUDA events
 over 10 launches after 2 of warm-up. Prints one JSON line a variant and
 the card's name and power limit. Needs one CUDA card.
@@ -48,7 +49,10 @@ VARIANTS = {
     "bwd_no_chain_sums": [NO_CHAIN_BWD, NO_CHAIN_BWD_BF16, NO_SUMS, NO_BLOCK_SUMS],
     "fwd_no_chain": [(FWD, r"singa::grid_chain_tc_fwd<I0,[^;]*;",
                       "for (auto& m : acc) for (auto& j : m) for (auto& q : j) q = 0.f; "
-                      "for (auto& t : tl) t = 0.f;")],
+                      "for (auto& t : tl) t = 0.f;"),
+                     (FWD, r"singa::grid_chain_mma16_fwd<I0>\([^;]*\);",
+                      "for (auto& m : om) for (auto& j : m) for (auto& q : j) q = 0.f; "
+                      "tm[0] = tm[1] = 0.f;")],
 }
 CHILD = r'''
 import json, sys
@@ -141,7 +145,8 @@ def main() -> int:
         if builds[name].returncode != 0:
             raise SystemExit(f"{name} did not build:\n{logs[name][-3000:]}")
         ptxas = {k: v for k, v in json.loads(logs[name].strip().splitlines()[-1]).items()
-                 if "ffn_tc_kernel<2, 49" in k or "ffn_bwd_" in k}
+                 if "ffn_tc_kernel<2, 49" in k or "ffn_fwd_bf16_kernel<49" in k
+                 or "ffn_bwd_" in k}
         r = subprocess.run([sys.executable, "-c", CHILD, root], capture_output=True, text=True)
         if r.returncode != 0:
             raise SystemExit(f"{name} failed:\n{r.stderr[-3000:]}")

@@ -1,15 +1,20 @@
-"""K4b·bf16, K6·bf16 and K6b·bf16 of several checkouts of the port, and the
-two bfloat16 training steps that run them, each checkout in a process of
-its own on one card: each kernel's time by CUDA events (the median of 10
-launches after 2 of warm-up) at a training microbatch's calls (K4b:
-configs/train_corpus.yml's 14,336 nodes, lmax 6, C = Co = 16, H 512, G 210;
-K6 and K6b: the default Config's widths at the stage-1 and stage-2 edges,
-31,744 and 7,936), inputs made from a seed; then, unless ``--steps 0``,
-``train_s2_bf16`` (configs/train_corpus.yml) and ``train_so2_bf16``
-(configs/train.yml under SINGA_TPU_FUSED_SO2): the host time of timed steps
-after a warm-up step and one more step under torch.profiler, its device
-busy time, idle share and the path's kernels by name
-(``chip_smoke.py``'s ``device_profile``). Give the checkouts in
+"""K4·bf16, K4b·bf16, K6·bf16, K6b·bf16 and K8b·bf16 of several checkouts of
+the port, and the three bfloat16 training steps that run them, each
+checkout in a process of its own on one card: each kernel's time by CUDA
+events (the median of 10 launches after 2 of warm-up) at a training
+microbatch's calls (K4 and K4b: configs/train_corpus.yml's 14,336 nodes,
+lmax 6, C = Co = 16, H 512, G 210; K6 and K6b: the default Config's widths
+at the stage-1 and stage-2 edges, 31,744 and 7,936), inputs made from a
+seed; K8b·bf16 at every distinct call of one step of configs/train.yml
+under SINGA_TPU_DENSE_ATTN on the first batch of data/corpus/train
+(captured as ``chip_smoke.py`` captures them; ``k8b_bf16_ms`` weighted by
+the calls, ``k8b_bf16_calls`` each distinct call's time and count); then,
+unless ``--steps 0``, ``train_s2_bf16`` (configs/train_corpus.yml),
+``train_so2_bf16`` (configs/train.yml under SINGA_TPU_FUSED_SO2) and
+``train_dense_bf16`` (configs/train.yml under SINGA_TPU_DENSE_ATTN): the
+host time of timed steps after a warm-up step and one more step under
+torch.profiler, its device busy time, idle share and the path's kernels by
+name (``chip_smoke.py``'s ``device_profile``). Give the checkouts in
 alternation (A B B A) to compare them within one call, on one card at one
 clock.
 
@@ -81,7 +86,9 @@ w = [f(L, C, H, sc=0.2), f(H, sc=0.1), f(C, H, sc=0.2), f(H, sc=0.1), f(L, H, C,
 tg, fg = (torch.as_tensor(m).to(dev, bf) for m in _grid_mats_for(lmax, lmax, False))
 x, dy = f(N, L * L, C, dt=bf), f(N, L * L, C, dt=bf)
 out["k4b_bf16_ms"] = ms(lambda: k4.so3_ffn_bwd_cuda(x, *w, tg, fg, lmax, dy))
-del x, dy, w
+b2 = f(C, sc=0.1)
+out["k4_bf16_ms"] = ms(lambda: k4.so3_ffn_cuda(x, *w, b2, tg, fg, lmax))
+del x, dy, w, b2
 # K6·bf16 and K6b·bf16 at the default Config's stage-1 and stage-2 calls
 C, H, F2, alpha = 32, 128, 112, 224
 secs, extra = sections(6, 2), alpha + H
@@ -99,6 +106,31 @@ for E in (31744, 7936):
     out[f"k6b_bf16_ms_{E}"] = ms(lambda: k6.so2_attn_bwd_cuda(*args[:7], *args[8:], *cts))
     del x, rad, cts, args
 torch.cuda.empty_cache()
+
+
+def dense_calls():
+    """K8b·bf16 at every distinct call of one step of configs/train.yml
+    under the dense switch: (time a launch weighted by the calls, [[ms,
+    calls], ...])."""
+    cfg = load_config(os.path.join(here, "configs", "train.yml"))
+    mods = cs.kernel_modules()
+    # the batch loaded here, not by a Prefetcher, whose thread would load
+    # more batches beside the timed calls
+    batch = next(iter(BucketedNpzDataset(os.path.join(here, "data", "corpus", "train"),
+                                         cfg.train.batch_size, seed=0))).to(dev)
+    with cs.switched(cs.DENSE_ATTN), tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, logdir=tmp, device=dev)
+        captured = cs.capture([cs.K8B_BF16], mods, lambda: trainer.train_step(batch))
+        del trainer
+    fn = mods["dense_edge_attn"].dense_edge_attn_bwd_cuda
+    calls = [[ms(lambda: fn(*a, **kw)), n] for a, kw, n in
+             captured["dense_edge_attn_bwd_cuda"].values()]
+    del captured
+    torch.cuda.empty_cache()
+    return sum(t * n for t, n in calls) / sum(n for _, n in calls), calls
+
+
+out["k8b_bf16_ms"], out["k8b_bf16_calls"] = dense_calls()
 
 
 def step(cfg_file, switch, kernels):
@@ -127,9 +159,14 @@ def step(cfg_file, switch, kernels):
 
 
 if steps > 0:
-    out["train_s2_bf16"] = step("train_corpus.yml", None, ("ffn_bwd", "ffn_tc_kernel"))
+    out["train_s2_bf16"] = step("train_corpus.yml", None,
+                                ("ffn_bwd", "ffn_tc_kernel", "ffn_fwd_bf16_kernel"))
     out["train_so2_bf16"] = step("train.yml", cs.FUSED_SO2,
                                  ("so2::grid_", "so2::gemm_kernel", "so2::rotate"))
+    out["train_dense_bf16"] = step("train.yml", cs.DENSE_ATTN,
+                                   ("list_bwd_pair_kernel<2", "list_dkdv_kernel<2",
+                                    "attn_bwd_pair_kernel<2", "csr_dkdv_kernel<2",
+                                    "attn_fwd_kernel<2"))
 print(json.dumps(out))
 '''
 

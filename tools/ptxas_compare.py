@@ -12,7 +12,8 @@ demangled names, with ``, float>`` read as ``>`` and ``<float>`` as
 nothing (a template parameter ``class T = float`` added to a kernel, or a
 kernel made a template on it: a template's name also starts with its
 return type, ``void``, which is dropped). Prints one line a source and exits
-non-zero if any kernel both trees have differs. Needs ``nvcc`` (the card's
+non-zero if any kernel both trees have differs, or if a kernel that
+MUST_MATCH names is not in both trees. Needs ``nvcc`` (the card's
 machine); builds into a temporary directory.
 """
 from __future__ import annotations
@@ -31,6 +32,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from singa_tpu_torch.ops.cuda.build import NVCC_FLAGS, _nvcc  # noqa: E402
+
+
+# kernels that must be in both trees (and so compared), by source: K1b's and
+# K7b's pair kernel, plan and dk/dv stage at either storage type (their
+# templates also take the dense form, K8b·bf16's), K4's float32
+# tensor-core kernel and split (their bfloat16 instances are gone)
+MUST_MATCH = {
+    "neighbor_attn_bwd": [rf"{k}<{f}, {t}>" for k in ("list_bwd_pair_kernel", "list_dkdv_kernel")
+                          for f in (0, 1) for t in ("float", "__nv_bfloat16")]
+    + [r"list_plan_kernel<float>", r"list_plan_kernel<__nv_bfloat16>"],
+    "so3_ffn": [rf"ffn_tc_kernel<{kc}, {i0}>" for kc in (1, 2) for i0 in (0, 49)]
+    + [r"ffn_wsplit_kernel<8>", r"ffn_wsplit_kernel<16>"],
+}
 
 
 def ptxas(checkout: str, name: str, out_dir: str) -> dict:
@@ -81,7 +95,12 @@ def main(argv=None) -> int:
         report[n] = {"same": sum(1 for k in a if k in b and a[k] == b[k]), "differ": diff,
                      "only_parent": sorted(set(a) - set(b)), "only_here": {k: b[k] for k in b
                                                                             if k not in a}}
-        differ |= bool(diff)
+        # the rendering of key(): ", float>" read as ">", "<float>" as nothing
+        want = [m.replace(", float>", ">").replace("<float>", "") for m in MUST_MATCH.get(n, [])]
+        missing = [m for m in want if not any(k.endswith(m) and k in b for k in a)]
+        if want:
+            report[n]["must_match"] = {"kernels": want, "missing": missing}
+        differ |= bool(diff) or bool(missing)
         print(n, json.dumps({k: v for k, v in report[n].items() if k != "only_here"}),
               "new:", len(report[n]["only_here"]))
     if args.out:

@@ -31,12 +31,15 @@ BF16 = "HMMA.16816.F32.BF16"
 TF32 = "HMMA.1688.F32.TF32"
 
 # (source, kernel name pattern, kinds it must issue, kinds it must not):
-# K4b·bf16's kernel and the bfloat16 GEMM of K6·bf16 and K6b·bf16 on
-# bfloat16 m16n8k16 alone; K6's bfloat16 grid stages on the tensor cores
-# (one TF32 product a product); the float32 GEMM in split TF32; the
-# helper's test kernel
+# K4·bf16's and K4b·bf16's kernels and the bfloat16 GEMM of K6·bf16 and
+# K6b·bf16 on bfloat16 m16n8k16 alone; K6's bfloat16 grid stages and
+# K8b·bf16's tensor-core pair kernel (the list kernels' dense form) on the
+# tensor cores (one TF32 product a product); the float32 GEMM in split
+# TF32; the helper's test kernel
 CHECKS = [
+    ("so3_ffn", r"ffn_fwd_bf16_kernel<", [BF16], [TF32]),
     ("so3_ffn_bwd", r"ffn_bwd_bf16_kernel<", [BF16], [TF32]),
+    ("neighbor_attn_bwd", r"list_bwd_pair_kernel<2, ", [TF32], []),
     ("so2_attn", r"gemm_kernel<.*Bf16In", [BF16], [TF32]),
     ("so2_attn_bwd", r"gemm_kernel<.*Bf16In", [BF16], [TF32]),
     ("so2_attn", r"grid_fwd_tc_kernel<", [TF32], []),
